@@ -1,0 +1,15 @@
+# SPDX-License-Identifier: Apache-2.0
+"""hqq_tpu_torch — Half-Quadratic Quantization in PyTorch, with hand-written
+CUDA kernels for NVIDIA Hopper.
+
+A port of `hqq_tpu` (JAX/Pallas) that follows its module tree and public
+names: `core` (bit packing, the proximal solver, `quantize`/`dequantize`),
+`nn` (quantized linear layers), `ops` (the fused kernels and their host
+side), `backends` and `utils.patching` (inference backends), `models`
+(Llama), `serving` (generation) and `engine` (the user-facing model).
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"
+
+from .core import BaseQuantizeConfig, QTensor, dequantize, quantize  # noqa: F401

@@ -1,0 +1,380 @@
+# SPDX-License-Identifier: Apache-2.0
+"""Llama-class decoder (RMSNorm, RoPE, GQA attention, SwiGLU MLP) in
+PyTorch.
+
+Mirrors `hqq_tpu.models.llama` on its dense-cache path. Parameters are a
+tree of dicts and lists (HF naming, [out, in] weights) whose linear leaves
+are `Linear`, `QuantLinear`, `PallasQuantLinear` or `A8QuantLinear` alike.
+The KV cache is a stacked [L, B, n_kv, S_max, head_dim] pair of tensors
+updated in place by slice assignment.
+
+Not yet ported: the int8 KV cache, the paged path and ``cache=None``
+(full-sequence attention for training and perplexity).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..nn.linear import Linear
+
+__all__ = [
+    "LlamaConfig",
+    "KVCache",
+    "init_params",
+    "init_cache",
+    "rms_norm",
+    "positions_and_masks",
+    "forward",
+]
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 32
+    head_dim: Optional[int] = None
+    max_position_embeddings: int = 4096
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    tie_word_embeddings: bool = False
+    attention_bias: bool = False
+    mlp_bias: bool = False
+    # Sliding-window attention (Mistral-style); None = full causal.
+    sliding_window: Optional[int] = None
+    # RoPE scaling as a hashable tuple of sorted (key, value) pairs;
+    # rope_type "llama3", "linear" or "yarn". None = no scaling.
+    rope_scaling: Optional[tuple] = None
+
+    def __post_init__(self):
+        if isinstance(self.rope_scaling, dict):
+            object.__setattr__(self, "rope_scaling", tuple(sorted(self.rope_scaling.items())))
+        elif isinstance(self.rope_scaling, list):
+            object.__setattr__(self, "rope_scaling", tuple((k, v) for k, v in self.rope_scaling))
+
+    @property
+    def head_dim_(self) -> int:
+        return self.head_dim or self.hidden_size // self.num_attention_heads
+
+    @classmethod
+    def from_hf(cls, hf: dict) -> "LlamaConfig":
+        """Build from a HuggingFace config.json dict (Llama/Mistral family)."""
+        return cls(
+            vocab_size=hf["vocab_size"],
+            hidden_size=hf["hidden_size"],
+            intermediate_size=hf["intermediate_size"],
+            num_hidden_layers=hf["num_hidden_layers"],
+            num_attention_heads=hf["num_attention_heads"],
+            num_key_value_heads=hf.get("num_key_value_heads", hf["num_attention_heads"]),
+            head_dim=hf.get("head_dim"),
+            max_position_embeddings=hf.get("max_position_embeddings", 4096),
+            rms_norm_eps=hf.get("rms_norm_eps", 1e-5),
+            rope_theta=hf.get("rope_theta", 10000.0),
+            tie_word_embeddings=hf.get("tie_word_embeddings", False),
+            attention_bias=hf.get("attention_bias", False),
+            mlp_bias=hf.get("mlp_bias", False),
+            sliding_window=hf.get("sliding_window"),
+            rope_scaling=cls._canon_rope_scaling(hf.get("rope_scaling")),
+        )
+
+    @staticmethod
+    def _canon_rope_scaling(rs: Optional[dict]) -> Optional[tuple]:
+        if not rs:
+            return None
+        rt = rs.get("rope_type", rs.get("type", "default"))
+        if rt == "default":
+            return None
+        if rt not in ("llama3", "linear", "yarn"):
+            raise ValueError(f"rope_type {rt!r} not implemented (supported: llama3, linear, yarn)")
+        keep = {k: v for k, v in rs.items()
+                if k in ("rope_type", "type", "factor", "low_freq_factor",
+                         "high_freq_factor", "original_max_position_embeddings",
+                         "beta_fast", "beta_slow", "truncate",
+                         "attention_factor", "mscale", "mscale_all_dim")}
+        keep["rope_type"] = rt
+        keep.pop("type", None)
+        return tuple(sorted(keep.items()))
+
+    @classmethod
+    def llama2_7b(cls) -> "LlamaConfig":
+        return cls()
+
+    @classmethod
+    def llama2_13b(cls) -> "LlamaConfig":
+        return cls(hidden_size=5120, intermediate_size=13824, num_hidden_layers=40,
+                   num_attention_heads=40, num_key_value_heads=40)
+
+    @classmethod
+    def llama2_70b(cls) -> "LlamaConfig":
+        return cls(hidden_size=8192, intermediate_size=28672, num_hidden_layers=80,
+                   num_attention_heads=64, num_key_value_heads=8)
+
+    @classmethod
+    def llama3_8b(cls) -> "LlamaConfig":
+        return cls(vocab_size=128256, intermediate_size=14336, num_key_value_heads=8,
+                   rope_theta=500000.0, max_position_embeddings=8192)
+
+    @classmethod
+    def tiny(cls, vocab_size: int = 256) -> "LlamaConfig":
+        """2-layer model for tests."""
+        return cls(vocab_size=vocab_size, hidden_size=256, intermediate_size=512,
+                   num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                   max_position_embeddings=512)
+
+
+def init_params(
+    cfg: LlamaConfig,
+    generator: Optional[torch.Generator] = None,
+    dtype=torch.bfloat16,
+    device="cuda",
+) -> dict:
+    """Random parameter tree in HF naming (tests and benchmarks). Weights
+    are N(0, 1/in_features) drawn in fp32 from ``generator`` (seed 0 on
+    ``device`` when None), then cast to ``dtype``."""
+    device = torch.device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    d, f = cfg.hidden_size, cfg.intermediate_size
+    nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
+
+    def randn(*shape):
+        return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+
+    def lin(out_f, in_f):
+        return Linear((randn(out_f, in_f) / math.sqrt(in_f)).to(dtype))
+
+    def ones():
+        return torch.ones((d,), dtype=dtype, device=device)
+
+    layers = []
+    for _ in range(cfg.num_hidden_layers):
+        layers.append({
+            "self_attn": {
+                "q_proj": lin(nh * hd, d),
+                "k_proj": lin(nkv * hd, d),
+                "v_proj": lin(nkv * hd, d),
+                "o_proj": lin(d, nh * hd),
+            },
+            "mlp": {
+                "gate_proj": lin(f, d),
+                "up_proj": lin(f, d),
+                "down_proj": lin(d, f),
+            },
+            "input_layernorm": ones(),
+            "post_attention_layernorm": ones(),
+        })
+    params = {
+        "embed_tokens": (randn(cfg.vocab_size, d) * 0.02).to(dtype),
+        "layers": layers,
+        "norm": ones(),
+    }
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = lin(cfg.vocab_size, d)
+    return params
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Dense KV cache: k/v are [L, B, n_kv, S_max, head_dim]."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[3]
+
+
+def init_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+               device="cuda") -> KVCache:
+    shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads, max_len, cfg.head_dim_)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    return (x * w.to(torch.float32)).to(dt)
+
+
+def _rope_params(head_dim: int, theta: float, scaling: Optional[tuple], device):
+    """(inverse frequencies [hd/2], attention factor) with optional scaling:
+    "linear" divides every frequency by ``factor``; "llama3" interpolates
+    the low frequencies smoothly (Llama-3.1); "yarn" interpolates by parts
+    between the beta_fast/beta_slow dims and scales cos/sin."""
+    inv_freq = 1.0 / (
+        theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim)
+    )
+    if scaling is None:
+        return inv_freq, 1.0
+    rs = dict(scaling)
+    factor = float(rs.get("factor", 1.0))
+    rt = rs.get("rope_type")
+    if rt == "linear":
+        return inv_freq / factor, 1.0
+    if rt == "llama3":
+        low = float(rs.get("low_freq_factor", 1.0))
+        high = float(rs.get("high_freq_factor", 4.0))
+        old_ctx = float(rs.get("original_max_position_embeddings", 8192))
+        wavelen = 2.0 * math.pi / inv_freq
+        low_wl = old_ctx / low
+        high_wl = old_ctx / high
+        scaled = torch.where(wavelen > low_wl, inv_freq / factor, inv_freq)
+        smooth = (old_ctx / wavelen - low) / (high - low)
+        smoothed = (1.0 - smooth) * scaled / factor + smooth * scaled
+        is_medium = (wavelen >= high_wl) & (wavelen <= low_wl)
+        return torch.where(is_medium, smoothed, scaled), 1.0
+    # yarn
+    beta_fast = float(rs.get("beta_fast") or 32)
+    beta_slow = float(rs.get("beta_slow") or 1)
+    old_ctx = float(rs.get("original_max_position_embeddings", 4096))
+    truncate = bool(rs.get("truncate", True))
+    att = rs.get("attention_factor")
+    if att is None:
+        mscale, mscale_all = rs.get("mscale"), rs.get("mscale_all_dim")
+
+        def get_mscale(scale, m=1.0):
+            return 1.0 if scale <= 1 else 0.1 * m * math.log(scale) + 1.0
+
+        if mscale and mscale_all:
+            att = get_mscale(factor, mscale) / get_mscale(factor, mscale_all)
+        else:
+            att = get_mscale(factor)
+
+    def corr_dim(n_rot):
+        return (head_dim * math.log(old_ctx / (n_rot * 2 * math.pi))) / (2 * math.log(theta))
+
+    low = corr_dim(beta_fast)
+    high = corr_dim(beta_slow)
+    if truncate:
+        low, high = math.floor(low), math.ceil(high)
+    low, high = max(low, 0), min(high, head_dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(head_dim // 2, dtype=torch.float32, device=device) - low)
+            / (high - low)).clamp(0, 1)
+    extrapolation_factor = 1.0 - ramp
+    inv = inv_freq / factor * (1 - extrapolation_factor) + inv_freq * extrapolation_factor
+    return inv, float(att)
+
+
+def _rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
+                  scaling: Optional[tuple] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """HF-convention rotary tables [T, head_dim] with duplicated halves."""
+    inv_freq, att = _rope_params(head_dim, theta, scaling, positions.device)
+    freqs = positions.to(torch.float32)[:, None] * inv_freq[None, :]
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return emb.cos() * att, emb.sin() * att
+
+
+def _apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: [B, H, T, hd]; HF 'rotate_half' convention."""
+    half = x.shape[-1] // 2
+    rotated = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+    return (x.to(torch.float32) * cos + rotated.to(torch.float32) * sin).to(x.dtype)
+
+
+def positions_and_masks(cfg: LlamaConfig, t: int, start_pos: int, cache_max_len: int,
+                        device="cuda"):
+    """Positions, RoPE tables and the additive attention mask for ``t``
+    tokens from ``start_pos`` over a cache of ``cache_max_len`` slots. The
+    mask adds finfo(float32).min, not -inf, so that a fully masked row stays
+    finite. Returns (positions, cos, sin, mask): cos/sin [1, 1, T, hd];
+    mask [1, 1, T, S]."""
+    positions = int(start_pos) + torch.arange(t, device=device)
+    cos, sin = _rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta, cfg.rope_scaling)
+    key_pos = torch.arange(cache_max_len, device=device)
+    visible = key_pos[None, :] <= positions[:, None]  # [T, S]
+    if cfg.sliding_window is not None:
+        visible &= (positions[:, None] - key_pos[None, :]) < cfg.sliding_window
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    mask = torch.where(visible, zero, torch.finfo(torch.float32).min)
+    return positions, cos[None, None], sin[None, None], mask[None, None]
+
+
+def _update_stacked_cache(k_all: torch.Tensor, v_all: torch.Tensor, layer_idx: int,
+                          k: torch.Tensor, v: torch.Tensor, start_pos: int) -> None:
+    """Write new K/V [B, n_kv, t, hd] into the stacked cache at layer
+    ``layer_idx`` and offset ``start_pos``, in place (slice assignment; the
+    cache is never rebuilt)."""
+    t = k.shape[2]
+    k_all[layer_idx, :, :, start_pos:start_pos + t] = k
+    v_all[layer_idx, :, :, start_pos:start_pos + t] = v
+
+
+def _attention(layer: dict, cfg: LlamaConfig, x: torch.Tensor, cache: KVCache, layer_idx: int,
+               start_pos: int, mask: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """Attention over the stacked dense cache; writes the layer's new K/V
+    into ``cache`` in place."""
+    b, t, _ = x.shape
+    nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
+
+    q, k, v = layer["q_proj"](x), layer["k_proj"](x), layer["v_proj"](x)
+    q = q.reshape(b, t, nh, hd).transpose(1, 2)
+    k = k.reshape(b, t, nkv, hd).transpose(1, 2)
+    v = v.reshape(b, t, nkv, hd).transpose(1, 2)
+    q = _apply_rope(q, cos, sin)
+    k = _apply_rope(k, cos, sin)
+
+    _update_stacked_cache(cache.k, cache.v, layer_idx, k, v, start_pos)
+    keys, vals = cache.k[layer_idx], cache.v[layer_idx]
+
+    rep = nh // nkv  # GQA: expand kv heads to query heads
+    if rep > 1:
+        keys = keys.repeat_interleave(rep, dim=1)
+        vals = vals.repeat_interleave(rep, dim=1)
+
+    # scores summed and kept in fp32, as `preferred_element_type=float32`
+    scores = (q.to(torch.float32) @ keys.to(torch.float32).transpose(-1, -2)) / math.sqrt(hd)
+    probs = torch.softmax(scores + mask, dim=-1).to(q.dtype)
+    out = probs @ vals
+    out = out.transpose(1, 2).reshape(b, t, nh * hd)
+    return layer["o_proj"](out)
+
+
+def _mlp(layer: dict, x: torch.Tensor) -> torch.Tensor:
+    return layer["down_proj"](F.silu(layer["gate_proj"](x)) * layer["up_proj"](x))
+
+
+def forward(
+    params: dict,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,
+    cache: KVCache,
+    start_pos: int = 0,
+) -> Tuple[torch.Tensor, KVCache]:
+    """Run the model over ``tokens`` [B, T] from ``start_pos`` with the
+    dense cache. Returns (logits [B, T, V] fp32, cache), the cache updated
+    in place."""
+    if cache is None:
+        raise NotImplementedError("forward without a cache is not ported yet")
+    b, t = tokens.shape
+    x = params["embed_tokens"][tokens]
+    device = x.device
+    _, cos, sin, mask = positions_and_masks(cfg, t, start_pos, cache.max_len, device)
+
+    for i, layer in enumerate(params["layers"]):
+        h = rms_norm(x, layer["input_layernorm"], cfg.rms_norm_eps)
+        x = x + _attention(layer["self_attn"], cfg, h, cache, i, start_pos, mask, cos, sin)
+        h = rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps)
+        x = x + _mlp(layer["mlp"], h)
+
+    x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
+    if cfg.tie_word_embeddings or "lm_head" not in params:
+        logits = x.to(torch.float32) @ params["embed_tokens"].to(torch.float32).t()
+    else:
+        logits = params["lm_head"](x).to(torch.float32)
+    return logits, cache

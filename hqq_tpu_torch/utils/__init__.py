@@ -1,0 +1,3 @@
+# SPDX-License-Identifier: Apache-2.0
+from .convert import params_from_numpy  # noqa: F401
+from .patching import prepare_for_inference  # noqa: F401

@@ -1,0 +1,76 @@
+# SPDX-License-Identifier: Apache-2.0
+"""Carry `hqq_tpu` parameters into this package.
+
+`params_from_numpy` takes a parameter tree of `hqq_tpu` whose arrays have
+been turned into numpy arrays (``jax.tree_util.tree_map(np.asarray, tree)``)
+and returns the same tree in this package's types on ``device``. It reads
+fields by attribute name only (``weight``, ``bias``, ``qweight`` and a
+QTensor's ``wq``/``scale``/``zero``/``nbits``/...), so it imports nothing of
+`hqq_tpu`. A QTensor alone converts too.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..core.quantize import QTensor
+from ..nn.linear import Linear, QuantLinear
+
+__all__ = ["params_from_numpy", "tensor_from_numpy", "torch_dtype"]
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a numpy/JAX dtype or scalar type (by name)."""
+    return getattr(torch, np.dtype(dtype).name)
+
+
+def tensor_from_numpy(arr, device="cuda") -> torch.Tensor:
+    """A numpy array (bfloat16 included) as a tensor on ``device``."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True, order="C")).to(device)
+
+
+def _qtensor(qt: Any, device) -> QTensor:
+    def meta(a):
+        return _qtensor(a, device) if hasattr(a, "wq") else tensor_from_numpy(a, device)
+
+    return QTensor(
+        wq=tensor_from_numpy(qt.wq, device),
+        scale=meta(qt.scale),
+        zero=meta(qt.zero),
+        nbits=qt.nbits,
+        group_size=qt.group_size,
+        axis=qt.axis,
+        shape=tuple(qt.shape),
+        packing=qt.packing,
+        compute_dtype=torch_dtype(qt.compute_dtype),
+        channel_wise=qt.channel_wise,
+        pack_blocks=getattr(qt, "pack_blocks", 1),
+    )
+
+
+def params_from_numpy(tree: Any, device="cuda") -> Any:
+    """Convert an `hqq_tpu` tree (numpy leaves) to this package's types:
+    dicts and lists stay, arrays become tensors, ``Linear`` and
+    ``QuantLinear`` become their `nn.Module` counterparts, and a
+    ``QTensor`` becomes this package's `QTensor`."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_numpy(v, device) for v in tree]
+    if tree is None:
+        return None
+    if hasattr(tree, "qweight"):
+        bias = None if tree.bias is None else tensor_from_numpy(tree.bias, device)
+        return QuantLinear(_qtensor(tree.qweight, device), bias)
+    if hasattr(tree, "wq") and hasattr(tree, "packing"):
+        return _qtensor(tree, device)
+    if hasattr(tree, "weight"):
+        bias = None if tree.bias is None else tensor_from_numpy(tree.bias, device)
+        return Linear(tensor_from_numpy(tree.weight, device), bias)
+    return tensor_from_numpy(tree, device)

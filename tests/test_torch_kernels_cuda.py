@@ -1,0 +1,100 @@
+# SPDX-License-Identifier: Apache-2.0
+"""The CUDA kernels of hqq_tpu_torch against their plain twins, on the card.
+
+Marked ``cuda``: each test skips (at run time, never at import) where torch
+sees no CUDA device, so on a CPU-only machine they all skip. On the GPU:
+``python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q`` (the
+suite's conftest imports JAX, which the GPU machine need not have). They
+cover what ``chip_smoke.py`` does not: every container (1/2/4/8-bit), group sizes,
+ragged N, K tails, M from 1 to 32 (w4a8) and beyond (quant_matmul), and
+every output type. Tolerances (of max|y|): w4a8 in fp32 1e-5 (exact group
+dots, the fp32 epilogue sums in another order); bf16/fp16 outputs add one
+rounding of the output (2^-7 / 2^-10); dequant exact.
+"""
+
+import pytest
+import torch
+
+from hqq_tpu_torch.core.quantize import quantize
+from hqq_tpu_torch.ops import fused_matmul as fm
+
+pytestmark = pytest.mark.cuda
+
+_OUT_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _kqt(n, k, g, nbits, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w = torch.randn((n, k), generator=gen, device=device) / k**0.5
+    return fm.to_kernel_layout(quantize(w, nbits=nbits, group_size=g, axis=1,
+                                        round_zero=(nbits == 4)))
+
+
+def _close(got, ref, tol):
+    err = (got.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    assert torch.isfinite(got).all() and err <= tol * scale, (err, scale)
+
+
+@pytest.mark.parametrize("m", [1, 3, 8, 17, 32])
+@pytest.mark.parametrize("nbits,g,k,n", [
+    (4, 64, 512, 1000),     # ragged N
+    (4, 64, 64 * 67, 256),  # K not a multiple of 32 groups
+    (4, 32, 1024, 384),
+    (3, 64, 512, 256),      # 3-bit in the 4-bit container
+    (2, 64, 1024, 256),
+    (2, 16, 512, 256),      # group of one word per lane (4-byte loads)
+    (1, 32, 512, 256),
+    (1, 128, 1024, 256),
+    (5, 64, 512, 256),      # 5-bit in the 8-bit container
+    (4, 256, 2048, 128),    # a large group: > 48 KB of shared memory at M > 4
+])
+def test_w4a8_matmul(cuda, m, nbits, g, k, n):
+    kqt = _kqt(n, k, g, nbits, cuda, seed=m)
+    x = torch.randn((m, k), device=cuda)
+    x8, sx = fm.quantize_activations_int8(x)
+    for dtype, tol in _OUT_TOL.items():
+        _close(fm.w4a8_matmul(x8, sx, kqt, dtype), fm.w4a8_matmul_plain(x8, sx, kqt, dtype), tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("m,nbits,g,k,n", [
+    (1, 4, 64, 512, 1000),
+    (33, 4, 64, 4096, 256),
+    (100, 4, 32, 96, 200),    # K tail inside a 64-wide slab
+    (512, 4, 64, 1024, 512),
+    (70, 8, 64, 512, 256),
+    (70, 2, 64, 512, 256),
+    (70, 1, 32, 512, 256),
+    (70, 3, 64, 512, 256),
+])
+def test_quant_matmul(cuda, dtype, m, nbits, g, k, n):
+    kqt = _kqt(n, k, g, nbits, cuda)
+    x = torch.randn((m, k), device=cuda).to(dtype)
+    _close(fm.quant_matmul(x, kqt), fm.quant_matmul_plain(x, kqt), _OUT_TOL[dtype] * 2)
+
+
+@pytest.mark.parametrize("nbits,g", [(4, 64), (8, 16), (2, 64), (1, 32), (3, 128)])
+def test_dequant_exact(cuda, nbits, g):
+    kqt = _kqt(300, 1024, g, nbits, cuda)
+    for dtype in _OUT_TOL:
+        assert torch.equal(fm.dequant(kqt, dtype), fm.dequant_plain(kqt, dtype))
+
+
+def test_routing_counts_and_no_fallback(cuda):
+    kqt = _kqt(256, 512, 64, 4, cuda)
+    fm.reset_launch_counts()
+    fm.quant_matmul_pallas_a8(torch.randn(2, 3, 512, device=cuda).to(torch.bfloat16), kqt)
+    fm.quant_matmul_pallas_a8(torch.randn(5, 8, 512, device=cuda).to(torch.bfloat16), kqt)
+    fm.dequant_pallas(kqt)
+    assert (fm.w4a8_matmul.launches, fm.quant_matmul.launches, fm.dequant.launches) == (1, 1, 1)
+    with pytest.raises(ValueError):  # the kernel takes bf16/fp16 operands only
+        fm.quant_matmul(torch.randn(40, 512, device=cuda), kqt)
