@@ -1,15 +1,17 @@
 # SPDX-License-Identifier: Apache-2.0
-"""Chip smoke test of hqq_tpu_torch: 4-bit HQQ Llama-2-7B on one GPU.
+"""Chip smoke test of hqq_tpu_torch: HQQ Llama-2-7B on one GPU, three ways.
 
-    python3 chip_smoke.py            # on cuda:0; takes no arguments
+    python3 chip_smoke.py            # on cuda:0, every phase
+    python3 chip_smoke.py --time quant_matmul 512 4096 4096      # one kernel
 
 Phases (any failure exits non-zero):
   (a) device and build: the card, its power limit, and an nvcc build of
       every kernel under hqq_tpu_torch/csrc/;
-  (b) each kernel against its plain PyTorch version at the main path's
+  (b) each kernel against its plain PyTorch version at the main paths'
       shapes: largest error against the stated tolerance, kernel time, plain
       time, the least time the card could take (bound), and for the matmuls
-      torch.matmul on the pre-dequantized bf16 weight (a yardstick only);
+      torch.matmul on the pre-dequantized bf16 weight (a yardstick only; for
+      the LoRA kernels the sum of the three torch.matmul calls);
   (c) the main path: Llama-2-7B at full width and depth with random weights
       from a seed, quantize_model(4-bit, g64), prepare_for_inference("w4a8"),
       generate for 4 prompts of 100 tokens (prefill M = 4*128 = 512 rows),
@@ -19,10 +21,29 @@ Phases (any failure exits non-zero):
       "pallas" against "xla" on the same quantized weights; four decode
       steps under "w4a8", each w4a8 call held to its plain version on the
       same inputs, and the logits against the same steps through the plain
-      version; wrong-meta controls that every bar must catch.
+      version; wrong-meta controls that every bar must catch;
+  (e) HQQ+ serving: the 7B model, 4-bit g64, a rank-8 LoRA adapter on every
+      linear but lm_head (B random from a seed), "w4a8": prefill through
+      quant_matmul_lora, decode through w4a8_lora_matmul. Launch counts,
+      prefill ms, tok/s, peak memory; every fused call of a prefill and two
+      decode steps against its plain version on the spot; on a 2-layer
+      model, logits against the unfused path and the plain versions, with a
+      control that must fail every bar: the same adapter with B = 0;
+  (f) axis=0 serving: the 7B model, attention 3-bit g64 axis=0, MLP 2-bit
+      g16 axis=0, "w4a8": prefill and decode through quant_matmul_ax0, and
+      .dequantize() through the dequant kernel. The same measurements and
+      checks; the control reads each group's neighbour's scale.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
+
+With ``--time KERNEL M K N [RANK]`` it builds the kernels, times one wrapper
+at one shape as phase b does, three times over, and prints one JSON line:
+for comparing two checkouts on one card. Unpack the parent beside the change
+(`git archive`) and run both from one shell command, in turns: parent,
+change, change, parent. KERNEL is quant_matmul, w4a8_matmul,
+quant_matmul_lora or w4a8_lora_matmul (4-bit g64, RANK 8 unless given),
+quant_matmul_ax0 or dequant_ax0 (2-bit g16, bf16 scale and zs).
 """
 
 from __future__ import annotations
@@ -42,22 +63,71 @@ PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 ROTATE_BYTES = 160 * 2**20  # cycle through input copies larger than the 50 MB L2
 
 SRC = "hqq_tpu_torch/csrc/"
-REPLACES = {
-    "w4a8_matmul": "hqq_tpu/ops/fused_matmul.py:524",
-    "quant_matmul": "hqq_tpu/ops/fused_matmul.py:307",
-    "dequant": "hqq_tpu/ops/fused_matmul.py:982",
+# wrapper -> (source, the TPU kernel it replaces, a second one it replaces)
+KERNELS = {
+    "w4a8_matmul": ("w4a8_matmul.cu", "hqq_tpu/ops/fused_matmul.py:524",
+                    "hqq_tpu/ops/fused_matmul.py:776"),
+    "quant_matmul": ("quant_matmul.cu", "hqq_tpu/ops/fused_matmul.py:307", None),
+    "dequant": ("dequant.cu", "hqq_tpu/ops/fused_matmul.py:982", None),
+    "quant_matmul_ax0": ("quant_matmul_ax0.cu", "hqq_tpu/ops/fused_matmul.py:1223",
+                         "hqq_tpu/ops/fused_matmul.py:1318"),
+    "quant_matmul_lora": ("quant_matmul_lora.cu", "hqq_tpu/ops/fused_matmul.py:1521", None),
+    "w4a8_lora_matmul": ("w4a8_matmul.cu", "hqq_tpu/ops/fused_matmul.py:1609", None),
 }
-ALSO_REPLACES = {"w4a8_matmul": "hqq_tpu/ops/fused_matmul.py:776"}
+# the row of phase b that stands for each kernel in the last-but-one line
+PICK = {
+    "w4a8_matmul": (4, 4096, 11008, ""),
+    "quant_matmul": (512, 4096, 4096, ""),
+    "dequant": (None, 11008, 4096, ""),
+    "quant_matmul_ax0": (4, 4096, 11008, "2-bit g16 axis=0, bf16 meta"),
+    "quant_matmul_lora": (512, 4096, 4096, "r=8"),
+    "w4a8_lora_matmul": (4, 4096, 11008, "r=8"),
+}
+LORA_RANK, LORA_ALPHA, LORA_B_STD = 8, 16, 0.05
 
 
 def log(*a):
     print(*a, flush=True)
 
 
-def bound_ms(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float, kind: str, fp32_ops: float = 0.0) -> tuple[float, str]:
+    """The least time for ``nbytes`` moved and ``ops`` operations of ``kind``
+    (plus ``fp32_ops`` outside the tensor cores): the larger of the two."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[kind] * 1e3
+    t_ops = (ops / PEAK_OPS[kind] + fp32_ops / PEAK_OPS["fp32"]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rel(a, b) -> float:
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+def containers(tree):
+    """New dicts and lists over the same leaves: prepare_for_inference swaps
+    layers in place, and the tree it is given a copy of stays as it is."""
+    if isinstance(tree, dict):
+        return {k: containers(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [containers(v) for v in tree]
+    return tree
+
+
+def checked(kernel, plain, controls: dict, log: dict):
+    """``kernel`` held on the spot to ``plain`` on the same inputs (the
+    activations the path really produces), and each control likewise. The
+    result stands in for the wrapper (mock.patch) and returns the kernel's
+    output, so the path runs on it. The wrapper counts its launches on
+    whatever its module name holds, here this function."""
+    def fn(*args):
+        y = kernel(*args)
+        ref = plain(*args)
+        log.setdefault("kernel", []).append(rel(y, ref))
+        for name, control in controls.items():
+            log.setdefault(name, []).append(rel(control(*args), ref))
+        return y
+
+    fn.launches = 0
+    return fn
 
 
 def time_ms(fns, iters: int) -> float:
@@ -103,6 +173,15 @@ def device_share(fn) -> dict:
                 top={e.key[:40]: round(e.self_device_time_total / 1e3, 3) for e in top})
 
 
+def card_state() -> str:
+    """SM clock and power draw now, as nvidia-smi reads them: a card that
+    runs slower under load shows it here."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
 def phase_a(name: str, power: str) -> None:
     from hqq_tpu_torch.ops import _build
 
@@ -111,7 +190,7 @@ def phase_a(name: str, power: str) -> None:
     t0 = time.time()
     logs = _build.build_all()
     log(f"[a] built {sorted(logs) or 'nothing (cached)'} in {time.time() - t0:.1f} s")
-    for kname, text in sorted(logs.items()):
+    for kname, text in sorted(logs.items()):  # one entry per source
         regs = re.findall(r"Used (\d+) registers", text)
         spills = re.findall(r"(\d+) bytes spill stores", text)
         log(f"[a]   {kname}: {len(regs)} instantiations, registers {min(map(int, regs))}-"
@@ -126,6 +205,28 @@ def _make_kqt(n: int, k: int, g: int, nbits: int, seed: int):
     w = torch.randn((n, k), generator=gen, device="cuda") / k**0.5
     qt = quantize(w, nbits=nbits, group_size=g, axis=1, round_zero=(nbits == 4))
     return to_kernel_layout(qt)
+
+
+def _make_kqt0(n: int, k: int, g: int, nbits: int, meta_dtype, seed: int):
+    from hqq_tpu_torch.core.quantize import quantize
+    from hqq_tpu_torch.ops.fused_matmul import to_kernel_layout_ax0
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn((n, k), generator=gen, device="cuda") / k**0.5
+    return to_kernel_layout_ax0(quantize(w, nbits=nbits, group_size=g, axis=0), meta_dtype)
+
+
+def _make_lora(k: int, n: int, seed: int, r: int = LORA_RANK):
+    """A [K, r] kaiming-uniform and B [r, N] normal with the scaling folded
+    in, as the serving modules hold them."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = (torch.rand((k, r), generator=gen, device="cuda") * 2 - 1) * (6.0 / k) ** 0.5
+    b = torch.randn((r, n), generator=gen, device="cuda") * LORA_B_STD
+    return a, b * (LORA_ALPHA / r)
+
+
+def _weight_bytes(kqt) -> int:
+    return sum(t.numel() * t.element_size() for t in (kqt.wq, kqt.scale, kqt.zs))
 
 
 def _copies(kqt, x, bytes_each: int):
@@ -186,7 +287,7 @@ def phase_b() -> dict:
         b_ms, by = bound_ms(nbytes, 2.0 * m * n * k, "int8")
         record("w4a8_matmul", dict(kernel="w4a8_matmul", m=m, k=k, n=n, max_abs_err=worst,
                                    ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by,
-                                   library_ms=lib))
+                                   library_ms=lib, note=""))
 
     # -- quant_matmul at the prefill shape ---------------------------------
     for (m, k, n) in [(512, 4096, 4096), (512, 4096, 11008), (512, 11008, 4096)]:
@@ -211,7 +312,7 @@ def phase_b() -> dict:
         b_ms, by = bound_ms(wbytes + 2 * m * k + 2 * m * n, 2.0 * m * n * k, "bf16")
         record("quant_matmul", dict(kernel="quant_matmul", m=m, k=k, n=n, max_abs_err=err,
                                     ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by,
-                                    library_ms=lib))
+                                    library_ms=lib, note=""))
 
     # -- dequant of one 4096 x 11008 layer (down_proj: out 4096, in 11008) --
     n, k = 4096, 11008
@@ -230,13 +331,153 @@ def phase_b() -> dict:
     del kq, w, ref
     b_ms, by = bound_ms(wbytes + 2 * n * k, 2.0 * n * k, "fp32")
     record("dequant", dict(kernel="dequant", m=None, k=k, n=n, max_abs_err=err, ms=ms,
-                           plain_ms=plain, bound_ms=b_ms, bound_by=by, library_ms=None))
+                           plain_ms=plain, bound_ms=b_ms, bound_by=by, library_ms=None, note=""))
+
+    def held(name, y, ref, tol_rel, what):
+        """Largest error of ``y`` against ``ref``, held to tol_rel * max|ref|."""
+        torch.cuda.synchronize()
+        err = (y.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        if not (err <= tol_rel * scale) or not torch.isfinite(y).all():
+            raise AssertionError(f"{name} {what}: err {err} > {tol_rel} * {scale}")
+        return err
+
+    r = LORA_RANK
+    # -- quant_matmul_lora at the prefill shapes of path E --------------------
+    for (m, k, n) in [(512, 4096, 4096), (512, 4096, 11008), (512, 11008, 4096)]:
+        kqt = _make_kqt(n, k, g, 4, seed=k * 11 + n)
+        a, b = _make_lora(k, n, seed=12)
+        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        # as quant_matmul, plus the rank-r partial's own fp32 sums: 2^-7 of max|y|
+        err = held("quant_matmul_lora", fm.quant_matmul_lora(x, kqt, a, b),
+                   fm.quant_matmul_lora_plain(x, kqt, a, b), 2.0**-7, f"M={m} K={k} N={n} r={r}")
+        wbytes = _weight_bytes(kqt)
+        kq, xq = _copies(kqt, x, wbytes)
+        ms = time_ms([lambda p=p, q=q: fm.quant_matmul_lora(q, p, a, b) for p, q in zip(kq, xq)],
+                     iters)
+        plain = time_ms([lambda: fm.quant_matmul_lora_plain(x, kqt, a, b)], max(3, iters // 10))
+        w_bf16, a_bf16 = fm.dequant_plain(kqt, torch.bfloat16), a.to(torch.bfloat16)
+        lib = time_ms([lambda: torch.matmul(x, w_bf16.t()).float()
+                       + torch.matmul(torch.matmul(x, a_bf16).float(), b)], iters)
+        del w_bf16, kq, xq
+        b_ms, by = bound_ms(wbytes + 2 * m * k + 2 * m * n + 4 * r * (k + n),
+                            2.0 * m * n * k + 2.0 * m * k * r, "bf16", fp32_ops=2.0 * m * r * n)
+        record("quant_matmul_lora", dict(
+            kernel="quant_matmul_lora", m=m, k=k, n=n, max_abs_err=err, ms=ms, plain_ms=plain,
+            bound_ms=b_ms, bound_by=by, library_ms=lib,
+            note="r=8", library="three torch.matmul calls and their sum"))
+
+    # -- w4a8_lora_matmul at the decode shapes of path E ----------------------
+    for (m, k, n) in [(4, 4096, 4096), (4, 4096, 11008), (4, 11008, 4096), (1, 4096, 4096)]:
+        kqt = _make_kqt(n, k, g, 4, seed=k * 5 + n)
+        a, b = _make_lora(k, n, seed=m)
+        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        x8, sx = fm.quantize_activations_int8(x)
+        xa = x.float() @ a
+        worst = 0.0
+        for out_dtype, tol_rel in ((torch.float32, 1e-5), (torch.bfloat16, 2.0**-7)):
+            worst = max(worst, held(
+                "w4a8_lora_matmul", fm.w4a8_lora_matmul(x8, sx, kqt, xa, b, out_dtype),
+                fm.w4a8_lora_matmul_plain(x8, sx, kqt, xa, b, out_dtype), tol_rel,
+                f"M={m} K={k} N={n} {out_dtype}"))
+        wbytes = _weight_bytes(kqt)
+        kq, xq = _copies(kqt, x8, wbytes)
+        ms = time_ms([lambda p=p, q=q: fm.w4a8_lora_matmul(q, sx, p, xa, b, torch.bfloat16)
+                      for p, q in zip(kq, xq)], iters)
+        plain = time_ms([lambda: fm.w4a8_lora_matmul_plain(x8, sx, kqt, xa, b, torch.bfloat16)],
+                        max(3, iters // 10))
+        w_bf16 = fm.dequant_plain(kqt, torch.bfloat16)
+        lib = time_ms([lambda: torch.matmul(x, w_bf16.t()).float()
+                       + torch.matmul(torch.matmul(x.float(), a), b)], iters)
+        del w_bf16, kq, xq
+        b_ms, by = bound_ms(wbytes + m * k + 4 * m + 4 * m * r + 4 * r * n + 2 * m * n,
+                            2.0 * m * n * k, "int8", fp32_ops=2.0 * m * r * n)
+        record("w4a8_lora_matmul", dict(
+            kernel="w4a8_lora_matmul", m=m, k=k, n=n, max_abs_err=worst, ms=ms, plain_ms=plain,
+            bound_ms=b_ms, bound_by=by, library_ms=lib,
+            note="r=8", library="three torch.matmul calls and their sum"))
+
+    # -- quant_matmul_ax0 with path F's configs at path F's shapes (attention
+    # 3-bit g64, MLP 2-bit g16), decode and prefill; fp32 meta at 2-bit g16
+    # too, which the path does not run, for what bf16 meta buys
+    mlp_shapes = [(4096, 11008), (11008, 4096)]
+    for nbits, g0, meta, kn in [(3, 64, torch.float32, [(4096, 4096)]),
+                                (2, 16, torch.bfloat16, mlp_shapes),
+                                (2, 16, torch.float32, mlp_shapes[:1])]:
+        note = f"{nbits}-bit g{g0} axis=0, {'bf16' if meta == torch.bfloat16 else 'fp32'} meta"
+        for (m, k, n) in [(m, k, n) for (k, n) in kn for m in (4, 512)]:
+            kqt = _make_kqt0(n, k, g0, nbits, meta, seed=nbits * 100 + m)
+            x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+            # the bar of quant_matmul: fp32 sums in another order (split over
+            # K at small M), then one bf16 rounding of the output
+            err = held("quant_matmul_ax0", fm.quant_matmul_ax0(x, kqt),
+                       fm.quant_matmul_ax0_plain(x, kqt), 2.0**-7, f"{note} M={m} K={k} N={n}")
+            wbytes = _weight_bytes(kqt)
+            kq, xq = _copies(kqt, x, wbytes)
+            ms = time_ms([lambda p=p, q=q: fm.quant_matmul_ax0(q, p) for p, q in zip(kq, xq)], iters)
+            plain = time_ms([lambda: fm.quant_matmul_ax0_plain(x, kqt)], max(3, iters // 10))
+            w_bf16 = fm.dequant_plain(kqt, torch.bfloat16)
+            lib = time_ms([lambda: torch.matmul(x, w_bf16.t())], iters)
+            del w_bf16, kq, xq
+            b_ms, by = bound_ms(wbytes + 2 * m * k + 2 * m * n, 2.0 * m * n * k, "bf16")
+            record("quant_matmul_ax0", dict(
+                kernel="quant_matmul_ax0", m=m, k=k, n=n, max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=b_ms, bound_by=by, library_ms=lib, note=note))
+
+    # -- dequant of an axis=0 weight (2-bit g16, bf16 meta), 11008 x 4096 ------
+    n, k = 11008, 4096
+    kqt = _make_kqt0(n, k, 16, 2, torch.bfloat16, seed=6)
+    w = fm.dequant(kqt, torch.bfloat16)
+    ref = fm.dequant_plain(kqt, torch.bfloat16)
+    torch.cuda.synchronize()
+    err = (w.float() - ref.float()).abs().max().item()
+    if err != 0.0:
+        raise AssertionError(f"dequant axis=0 {n}x{k}: err {err} != 0")
+    wbytes = _weight_bytes(kqt)
+    kq, _ = _copies(kqt, None, wbytes + 2 * n * k)
+    ms = time_ms([lambda p=p: fm.dequant(p, torch.bfloat16) for p in kq], iters)
+    plain = time_ms([lambda: fm.dequant_plain(kqt, torch.bfloat16)], max(3, iters // 10))
+    del kq, w, ref
+    b_ms, by = bound_ms(wbytes + 2 * n * k, 2.0 * n * k, "fp32")
+    record("dequant", dict(kernel="dequant", m=None, k=k, n=n, max_abs_err=err, ms=ms,
+                           plain_ms=plain, bound_ms=b_ms, bound_by=by, library_ms=None,
+                           note="2-bit g16 axis=0, bf16 meta"))
     torch.cuda.empty_cache()
+    log(f"[b] card right after the timings: {card_state()}")
     return rows
 
 
-def phase_c(dev_tag: str) -> dict:
-    from hqq_tpu_torch import BaseQuantizeConfig
+PROMPTS_SHAPE, NEW_TOKENS = (4, 100), 32
+LINEARS_PER_PASS = 7 * 32  # q, k, v, o, gate, up, down of each of the 32 layers
+
+
+def _prompts(cfg):
+    return torch.randint(0, cfg.vocab_size, PROMPTS_SHAPE,
+                         generator=torch.Generator().manual_seed(0)).numpy()
+
+
+def _fill_lora_b(params, seed: int) -> None:
+    """Every adapter's B from a seeded generator: a zero B would hide it."""
+    from hqq_tpu_torch.core.peft import _map_lora
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def fill(_, layer):
+        layer.lora_b.data = torch.randn(layer.lora_b.shape, generator=gen,
+                                        device="cuda") * LORA_B_STD
+
+    _map_lora(params, fill)
+
+
+def serve_7b(tag: str, dev_tag: str, quant_config, expect: dict, after_quantize=None,
+             extra=None):
+    """Drive one main path at the full width and depth of Llama-2-7B: random
+    weights from seed 0, quantize_model(quant_config), ``after_quantize``
+    (the adapters of path E), prepare_for_inference("w4a8"), then the window
+    in which launches count: every count set to 0 just before, read just
+    after. ``expect`` maps a wrapper's name to its launches per prefill and
+    per decode step; ``extra(model)`` runs inside the window. Returns
+    (launches of the window, the model)."""
     from hqq_tpu_torch.engine.hf import HQQModel
     from hqq_tpu_torch.models.llama import LlamaConfig, init_params
     from hqq_tpu_torch.ops import fused_matmul as fm
@@ -246,36 +487,40 @@ def phase_c(dev_tag: str) -> dict:
     t0 = time.time()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), torch.bfloat16, "cuda")
     torch.cuda.synchronize()
-    log(f"[c] init_params {cfg.num_hidden_layers} layers: {time.time() - t0:.1f} s, "
+    log(f"[{tag}] init_params {cfg.num_hidden_layers} layers: {time.time() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     model = HQQModel(params, cfg)
     del params
     t0 = time.time()
-    model.quantize_model(BaseQuantizeConfig(nbits=4, group_size=64))
+    model.quantize_model(quant_config)
     torch.cuda.synchronize()
     quant_s = time.time() - t0
+    if after_quantize is not None:
+        after_quantize(model)
     t0 = time.time()
     model.prepare_for_inference("w4a8")
     torch.cuda.synchronize()
     prep_s = time.time() - t0
     gc.collect()
-    log(f"[c] quantize_model {quant_s:.2f} s, prepare_for_inference(w4a8) {prep_s:.2f} s, "
+    log(f"[{tag}] quantize_model {quant_s:.2f} s, prepare_for_inference(w4a8) {prep_s:.2f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
 
-    prompts = torch.randint(0, cfg.vocab_size, (4, 100),
-                            generator=torch.Generator().manual_seed(0)).numpy()
-    new = 32
+    prompts = _prompts(cfg)
+    new = NEW_TOKENS
 
     # the least a decode step must read: every linear's codes, scale and zs
-    # (and lm_head's bf16 weight) once, plus the K/V of the positions
-    # attended, here on average prompt + new/2 (embeddings: B rows, left out)
+    # and its adapter (and lm_head's bf16 weight) once, plus the K/V of the
+    # positions attended, here on average prompt + new/2 (embeddings: B
+    # rows, left out)
     def step_bytes(tree):
         if isinstance(tree, dict):
             return sum(step_bytes(v) for v in tree.values())
         if isinstance(tree, list):
             return sum(step_bytes(v) for v in tree)
         if hasattr(tree, "kqt"):
-            return sum(t.numel() * t.element_size() for t in (tree.kqt.wq, tree.kqt.scale, tree.kqt.zs))
+            return _weight_bytes(tree.kqt) + sum(
+                t.numel() * t.element_size() for t in (getattr(tree, "a", None),
+                                                       getattr(tree, "b", None)) if t is not None)
         if hasattr(tree, "weight"):
             return tree.weight.numel() * tree.weight.element_size()
         return 0
@@ -283,52 +528,125 @@ def phase_c(dev_tag: str) -> dict:
     kv_bytes = (2 * cfg.num_hidden_layers * prompts.shape[0] * cfg.num_key_value_heads
                 * cfg.head_dim_ * 2 * (prompts.shape[1] + new // 2))
     bound_step_ms = (step_bytes(model.params) + kv_bytes) / HBM_BYTES_PER_S * 1e3
-    log(f"[c] decode bound: {step_bytes(model.params) / 1e9:.3f} GB of weights and meta + "
+    log(f"[{tag}] decode bound: {step_bytes(model.params) / 1e9:.3f} GB of weights and meta + "
         f"{kv_bytes / 1e9:.3f} GB of K/V per step -> {bound_step_ms:.3f} ms per step, "
         f"{prompts.shape[0] / bound_step_ms * 1e3:.1f} tok/s at B={prompts.shape[0]}")
+
+    def counts():
+        return {w.__name__: w.launches for w in fm._WRAPPERS}
 
     # the main path's window: every count from 0, read right after
     fm.reset_launch_counts()
     model.generate(prompts, max_new_tokens=1)  # first call: lazy set-up
     torch.cuda.synchronize()
+    per_prefill = counts()
     t0 = time.time()
     model.generate(prompts, max_new_tokens=1)
     torch.cuda.synchronize()
     prefill_ms = (time.time() - t0) * 1e3
+    before = counts()
     t0 = time.time()
     out = model.generate(prompts, max_new_tokens=new)
     torch.cuda.synchronize()
     gen_s = time.time() - t0
+    after = counts()
     decode_tok_s = prompts.shape[0] * (new - 1) / (gen_s - prefill_ms / 1e3)
-    sampled = model.generate(prompts[:1], max_new_tokens=16, do_sample=True, top_k=20,
-                             top_p=0.9, seed=1)
+    if extra is not None:
+        extra(model)
     busy = device_share(lambda: model.generate(prompts, max_new_tokens=8))
-    w_dq = model.params["layers"][0]["mlp"]["down_proj"].dequantize()
     torch.cuda.synchronize()
-    launches = {"w4a8_matmul": fm.w4a8_matmul.launches,
-                "quant_matmul": fm.quant_matmul.launches,
-                "dequant": fm.dequant.launches}
-    log(f"[c] launches in the main path: {launches}")
+    launches = counts()
+    log(f"[{tag}] launches in the main path: {launches}")
 
-    if out.shape != (4, new) or sampled.shape != (1, 16):
-        raise AssertionError(f"unexpected output shapes {out.shape}, {sampled.shape}")
-    for ids in (out, sampled):
-        if ids.min() < 0 or ids.max() >= cfg.vocab_size:
-            raise AssertionError("token ids outside the vocabulary")
-    if tuple(w_dq.shape) != (4096, 11008) or w_dq.dtype != torch.bfloat16 \
-            or not torch.isfinite(w_dq).all():
-        raise AssertionError("dequantize() of a prepared layer is wrong")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    if out.shape != (prompts.shape[0], new) or out.min() < 0 or out.max() >= cfg.vocab_size:
+        raise AssertionError(f"unexpected output: shape {out.shape}, ids {out.min()}..{out.max()}")
+    for name, (per_pre, per_step) in expect.items():
+        got_step = (after[name] - before[name] - per_prefill[name]) / (new - 1)
+        if per_prefill[name] != per_pre or got_step != per_step:
+            raise AssertionError(f"{name}: {per_prefill[name]} launches per prefill and "
+                                 f"{got_step} per decode step, expected {per_pre} and {per_step}")
+    log(f"[{tag}] launches per prefill and per decode step: "
+        f"{ {k: (per_prefill[k], v[1]) for k, v in expect.items()} }")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[c] greedy ids[0][:8] {out[0][:8].tolist()}; sampled {sampled[0][:8].tolist()}")
-    log(f"[c] {dev_tag}: prefill (B=4, t_pad=128, + first token) {prefill_ms:.1f} ms; "
+    log(f"[{tag}] greedy ids[0][:8] {out[0][:8].tolist()}")
+    log(f"[{tag}] {dev_tag}: prefill (B=4, t_pad=128, + first token) {prefill_ms:.1f} ms; "
         f"decode {decode_tok_s:.1f} tok/s total over B=4; peak memory {peak:.2f} GiB; "
         f"quantize {quant_s:.2f} s")
-    log(f"[c] {dev_tag}: 8-token generate (B=4): device busy {busy['busy_share']:.3f} of "
+    log(f"[{tag}] {dev_tag}: 8-token generate (B=4): device busy {busy['busy_share']:.3f} of "
         f"{busy['wall_ms']:.1f} ms wall; device ms by kernel: {busy['top']}")
-    del model, w_dq
+    log(f"[{tag}] card right after it: {card_state()}")
+    return launches, model
+
+
+def check_calls(tag: str, model, wrappers: dict, steps: int = 2) -> None:
+    """One prefill and ``steps`` decode steps of the full model with every
+    wrapper of ``wrappers`` (name -> (plain version, controls)) held call by
+    call to its plain version on the inputs the path really produces, under
+    the bar of phase b (2^-7 of max|y| for bf16 outputs); every control must
+    miss that bar in every call."""
+    from unittest import mock
+
+    from hqq_tpu_torch.models.llama import forward, init_cache
+    from hqq_tpu_torch.ops import fused_matmul as fm
+
+    cfg = model.cfg
+    toks = torch.from_numpy(_prompts(cfg)).to("cuda")
+    t = 128  # the main path's prefill: M = 4 * 128 rows
+    toks = torch.cat([toks, toks], dim=1)[:, :t + steps]
+    logs = {name: {} for name in wrappers}
+    with torch.inference_mode():
+        patches = [mock.patch.object(fm, name, checked(getattr(fm, name), plain, controls,
+                                                       logs[name]))
+                   for name, (plain, controls) in wrappers.items()]
+        for pt in patches:
+            pt.start()
+        try:
+            cache = init_cache(cfg, toks.shape[0], 256, torch.bfloat16, "cuda")
+            logits, cache = forward(model.params, cfg, toks[:, :t], cache, 0)
+            for i in range(steps):
+                logits, cache = forward(model.params, cfg, toks[:, t + i:t + i + 1], cache, t + i)
+        finally:
+            for pt in patches:
+                pt.stop()
+    tol = 2.0**-7
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"[{tag}] non-finite logits")
+    for name, per_call in logs.items():
+        worst = max(per_call["kernel"])
+        least = {c: min(v) for c, v in per_call.items() if c != "kernel"}
+        log(f"[{tag}] {name}: {len(per_call['kernel'])} calls of a prefill (M={4 * t}) and "
+            f"{steps} decode steps, each vs its plain version on the same inputs: rel err up "
+            f"to {worst:.3e} (tol {tol:.3e}); controls at the least {least} (must exceed it)")
+        if not worst <= tol:
+            raise AssertionError(f"[{tag}] {name} disagrees with its plain version")
+        if not all(v > tol for v in least.values()):
+            raise AssertionError(f"[{tag}] the bar does not catch a control of {name}")
+
+
+def phase_c(dev_tag: str) -> dict:
+    from hqq_tpu_torch import BaseQuantizeConfig
+
+    seen = {}
+
+    def extra(model):
+        sampled = model.generate(_prompts(model.cfg)[:1], max_new_tokens=16, do_sample=True,
+                                 top_k=20, top_p=0.9, seed=1)
+        w_dq = model.params["layers"][0]["mlp"]["down_proj"].dequantize()
+        if sampled.shape != (1, 16) or sampled.min() < 0 or sampled.max() >= model.cfg.vocab_size:
+            raise AssertionError(f"unexpected sampled output {sampled.shape}")
+        if tuple(w_dq.shape) != (4096, 11008) or w_dq.dtype != torch.bfloat16 \
+                or not torch.isfinite(w_dq).all():
+            raise AssertionError("dequantize() of a prepared layer is wrong")
+        seen["sampled"] = sampled[0][:8].tolist()
+
+    n = LINEARS_PER_PASS
+    launches, model = serve_7b("c", dev_tag, BaseQuantizeConfig(nbits=4, group_size=64),
+                               {"quant_matmul": (n, 0), "w4a8_matmul": (0, n)}, extra=extra)
+    log(f"[c] sampled {seen['sampled']}")
+    missing = [k for k in ("w4a8_matmul", "quant_matmul", "dequant") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    del model
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -356,18 +674,6 @@ def phase_d(n_layers: int = 2) -> None:
         return forward(backend_params, cfg, toks[:, :t],
                        init_cache(cfg, 4, 256, torch.bfloat16, "cuda"), 0)
 
-    def containers(tree):
-        # new dicts and lists over the same leaves: prepare_for_inference
-        # swaps layers in place, and the xla tree must stay as it is
-        if isinstance(tree, dict):
-            return {k: containers(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [containers(v) for v in tree]
-        return tree
-
-    def rel(a, b):
-        return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
-
     def wrong(field):
         # a control: each group takes its neighbour's scale (or zs)
         def fn(x8, sx, kqt, out_dtype):
@@ -376,23 +682,9 @@ def phase_d(n_layers: int = 2) -> None:
         return fn
 
     controls = {"scale": wrong("scale"), "zs": wrong("zs")}
-    per_call = {"kernel": [], "scale": [], "zs": []}
-    kernel = fm.w4a8_matmul  # the wrapper, taken before decode() patches its name
-
-    def checked(x8, sx, kqt, out_dtype):
-        """The kernel, held on the spot to its plain version on the same
-        inputs (the activations the path really produces), and the controls
-        likewise; returns the kernel's output, so the path runs on it."""
-        y = kernel(x8, sx, kqt, out_dtype)
-        ref = fm.w4a8_matmul_plain(x8, sx, kqt, out_dtype)
-        per_call["kernel"].append(rel(y, ref))
-        for f, fn in controls.items():
-            per_call[f].append(rel(fn(x8, sx, kqt, out_dtype), ref))
-        return y
-
-    # the wrapper counts its launches on whatever its module name holds,
-    # here this function (phase c has read the counts already)
-    checked.launches = 0
+    per_call = {}
+    # the wrapper, taken before decode() patches its name
+    held = checked(fm.w4a8_matmul, fm.w4a8_matmul_plain, controls, per_call)
 
     with torch.inference_mode():
         # prefill (M = 512): the pallas backend against xla
@@ -414,7 +706,7 @@ def phase_d(n_layers: int = 2) -> None:
                     out.append(logits)
             return torch.cat(out, dim=1)
 
-        a8_dec = decode(checked)
+        a8_dec = decode(held)
         plain_dec = decode(fm.w4a8_matmul_plain)
         e2e = {"kernel": rel(a8_dec, plain_dec),
                **{f: rel(decode(fn), plain_dec) for f, fn in controls.items()}}
@@ -452,7 +744,218 @@ def phase_d(n_layers: int = 2) -> None:
     torch.cuda.empty_cache()
 
 
-def main() -> int:
+def _two_layer(quant_config, seed: int):
+    """A 2-layer model at 7B width, quantized: (cfg, params, tokens [4, 132])."""
+    import dataclasses
+
+    from hqq_tpu_torch.models.base import quantize_model
+    from hqq_tpu_torch.models.llama import LlamaConfig, init_params
+
+    cfg = dataclasses.replace(LlamaConfig.llama2_7b(), num_hidden_layers=2)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), torch.bfloat16,
+                         "cuda")
+    quantize_model(params, quant_config)
+    toks = torch.randint(0, cfg.vocab_size, (4, 132), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(seed + 1))
+    return cfg, params, toks
+
+
+def _logits(params, cfg, toks, t: int = 128):
+    """Logits of a prefill of ``t`` tokens (M = 4*t rows) and of the decode
+    steps over the rest of ``toks``, one after the other: [4, t + steps, V]."""
+    from hqq_tpu_torch.models.llama import forward, init_cache
+
+    cache = init_cache(cfg, toks.shape[0], 256, torch.bfloat16, "cuda")
+    out, cache = forward(params, cfg, toks[:, :t], cache, 0)
+    out = [out]
+    for i in range(t, toks.shape[1]):
+        logits, cache = forward(params, cfg, toks[:, i:i + 1], cache, i)
+        out.append(logits)
+    return torch.cat(out, dim=1)
+
+
+def phase_e(dev_tag: str) -> dict:
+    from unittest import mock
+
+    from hqq_tpu_torch import BaseQuantizeConfig
+    from hqq_tpu_torch.core.peft import PeftUtils, lora_config
+    from hqq_tpu_torch.ops import fused_matmul as fm
+    from hqq_tpu_torch.utils.patching import prepare_for_inference
+
+    qcfg = BaseQuantizeConfig(nbits=4, group_size=64)
+    adapters = lora_config(r=LORA_RANK, lora_alpha=LORA_ALPHA)
+
+    def add_adapters(params, seed):
+        PeftUtils.add_lora(params, adapters, torch.Generator(device="cuda").manual_seed(seed))
+        _fill_lora_b(params, seed + 1)
+
+    n = LINEARS_PER_PASS
+    launches, model = serve_7b(
+        "e", dev_tag, qcfg, {"quant_matmul_lora": (n, 0), "w4a8_lora_matmul": (0, n)},
+        after_quantize=lambda model: add_adapters(model.params, 4))
+
+    # the control: the same call with B = 0, the adapter left out
+    def lora_no_b(x2, kqt, a, b):
+        return fm.quant_matmul_lora_plain(x2, kqt, a, torch.zeros_like(b))
+
+    def a8_lora_no_b(x8, sx, kqt, xa, b, out_dtype):
+        return fm.w4a8_lora_matmul_plain(x8, sx, kqt, xa, torch.zeros_like(b), out_dtype)
+
+    check_calls("e", model, {
+        "quant_matmul_lora": (fm.quant_matmul_lora_plain, {"B=0": lora_no_b}),
+        "w4a8_lora_matmul": (fm.w4a8_lora_matmul_plain, {"B=0": a8_lora_no_b}),
+    })
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # end to end on 2 layers: the fused modules against LoRALinear over the
+    # xla path (prefill, full-precision activations), and the decode steps
+    # through the kernel against the same steps through its plain version
+    cfg, params, toks = _two_layer(qcfg, seed=6)
+    add_adapters(params, 8)
+    t = 128
+    with torch.inference_mode():
+        unfused = _logits(params, cfg, toks[:, :t])
+        fused_params = prepare_for_inference(containers(params), "w4a8")
+        fused = _logits(fused_params, cfg, toks)
+        with mock.patch.object(fm, "w4a8_lora_matmul", fm.w4a8_lora_matmul_plain):
+            plain = _logits(fused_params, cfg, toks)
+        for layer in fused_params["layers"]:
+            for block in (layer["self_attn"], layer["mlp"]):
+                for mod in block.values():
+                    mod.b.data.zero_()
+        control = _logits(fused_params, cfg, toks)
+    r_pre, c_pre = rel(fused[:, :t], unfused), rel(control[:, :t], unfused)
+    r_dec, c_dec = rel(fused[:, t:], plain[:, t:]), rel(control[:, t:], plain[:, t:])
+    # prefill: the same bf16 weights, but the kernel rounds A to bf16 and the
+    # sum of base and adapter once, where LoRALinear multiplies A in fp32 and
+    # rounds the base and the adapter's term each; two layers carry those
+    # roundings into the logits (phase d's pallas-vs-xla bar, widened for
+    # the adapter's). decode: the bar of phase d, int8 activations whose
+    # roundings flip between two paths that differ in a last bit
+    tol_pre, tol_dec = 5e-2, 0.1
+    log(f"[e] 2-layer 7B-width HQQ+ model, prefill logits, fused vs LoRALinear over xla: rel "
+        f"err {r_pre:.3e} (tol {tol_pre}); control B=0 {c_pre:.3e} (must exceed it)")
+    log(f"[e] {toks.shape[1] - t} decode steps, logits through w4a8_lora_matmul vs through "
+        f"its plain version: rel err {r_dec:.3e} (tol {tol_dec}); control B=0 {c_dec:.3e} "
+        f"(must exceed it)")
+    if not torch.isfinite(fused).all():
+        raise AssertionError("[e] non-finite logits")
+    if not (r_pre < tol_pre and r_dec < tol_dec):
+        raise AssertionError("[e] the HQQ+ path disagrees with its reference")
+    if not (c_pre > tol_pre and c_dec > tol_dec):
+        raise AssertionError("[e] a bar does not catch a missing adapter")
+    del params, fused_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_f(dev_tag: str) -> dict:
+    import dataclasses
+    from unittest import mock
+
+    from hqq_tpu_torch import BaseQuantizeConfig
+    from hqq_tpu_torch.ops import fused_matmul as fm
+    from hqq_tpu_torch.utils.patching import prepare_for_inference
+
+    attn = BaseQuantizeConfig(nbits=3, group_size=64, axis=0)
+    mlp = BaseQuantizeConfig(nbits=2, group_size=16, axis=0)
+    qcfg = {f"self_attn.{p}_proj": attn for p in "qkvo"}
+    qcfg.update({f"mlp.{p}_proj": mlp for p in ("gate", "up", "down")})
+
+    def extra(model):
+        w_dq = model.params["layers"][0]["mlp"]["down_proj"].dequantize()
+        if tuple(w_dq.shape) != (4096, 11008) or w_dq.dtype != torch.bfloat16 \
+                or not torch.isfinite(w_dq).all():
+            raise AssertionError("dequantize() of a prepared axis=0 layer is wrong")
+
+    n = LINEARS_PER_PASS
+    launches, model = serve_7b("f", dev_tag, qcfg, {"quant_matmul_ax0": (n, n)}, extra=extra)
+    if launches["dequant"] == 0:
+        raise AssertionError("the dequant kernel never launched on path F")
+    layer0 = model.params["layers"][0]
+    metas = {f"{type(m.kqt).__name__}:{m.kqt.scale.dtype}"
+             for block in ("self_attn", "mlp") for m in layer0[block].values()}
+    log(f"[f] layouts and meta types of layer 0: {sorted(metas)}")
+
+    # the control: each group reads its neighbour's scale (the next column's)
+    def wrong_scale(x2, kqt):
+        bad = dataclasses.replace(kqt, scale=kqt.scale.roll(1, dims=1))
+        return fm.quant_matmul_ax0_plain(x2, bad)
+
+    check_calls("f", model, {"quant_matmul_ax0": (fm.quant_matmul_ax0_plain,
+                                                  {"neighbour's scale": wrong_scale})})
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # end to end on 2 layers: prefill and decode logits through the kernel
+    # against the same through its plain version, and against the xla path
+    cfg, params, toks = _two_layer(qcfg, seed=10)
+    with torch.inference_mode():
+        xla = _logits(params, cfg, toks)
+        fused_params = prepare_for_inference(containers(params), "w4a8")
+        fused = _logits(fused_params, cfg, toks)
+        with mock.patch.object(fm, "quant_matmul_ax0", fm.quant_matmul_ax0_plain):
+            plain = _logits(fused_params, cfg, toks)
+        with mock.patch.object(fm, "quant_matmul_ax0", wrong_scale):
+            control = _logits(fused_params, cfg, toks)
+    r_plain, r_xla, c_plain = rel(fused, plain), rel(fused, xla), rel(control, plain)
+    # kernel vs plain: the same bf16 weights and full-precision activations;
+    # fp32 sums in another order change some bf16 roundings, which two layers
+    # carry into the logits (the bar of phase d's pallas-vs-xla check). vs
+    # xla the MLP's scale and zs are also rounded to bf16 (the default
+    # policy for 2-bit g16), about 5e-3 of each weight: a wider bar
+    tol_plain, tol_xla = 2e-2, 5e-2
+    log(f"[f] 2-layer 7B-width axis=0 model, prefill and {toks.shape[1] - 128} decode steps, "
+        f"logits through quant_matmul_ax0 vs through its plain version: rel err {r_plain:.3e} "
+        f"(tol {tol_plain}); control, neighbour's scale {c_plain:.3e} (must exceed it); "
+        f"vs the xla path {r_xla:.3e} (tol {tol_xla})")
+    if not torch.isfinite(fused).all():
+        raise AssertionError("[f] non-finite logits")
+    if not (r_plain < tol_plain and r_xla < tol_xla):
+        raise AssertionError("[f] the axis=0 path disagrees with its reference")
+    if not c_plain > tol_xla:
+        raise AssertionError("[f] a bar does not catch a wrong group scale")
+    del params, fused_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def time_one(kernel: str, m: int, k: int, n: int, r: int = LORA_RANK) -> dict:
+    """Three phase-b timings of one wrapper at one shape (``--time``)."""
+    from hqq_tpu_torch.ops import fused_matmul as fm
+
+    x = torch.randn((m, k), device="cuda", generator=torch.Generator(device="cuda").manual_seed(1))
+    x = x.to(torch.bfloat16)
+    if kernel in ("quant_matmul_ax0", "dequant_ax0"):
+        kqt = _make_kqt0(n, k, 16, 2, torch.bfloat16, seed=1)
+    else:
+        kqt = _make_kqt(n, k, 64, 4, seed=1)
+    a, b = _make_lora(k, n, seed=2, r=r)
+    if kernel.startswith("w4a8"):
+        xa = x.float() @ a
+        x, sx = fm.quantize_activations_int8(x)
+    calls = {
+        "quant_matmul": lambda q, p: fm.quant_matmul(q, p),
+        "quant_matmul_ax0": lambda q, p: fm.quant_matmul_ax0(q, p),
+        "dequant_ax0": lambda q, p: fm.dequant(p, torch.bfloat16),  # W [N, K]; M unused
+        "quant_matmul_lora": lambda q, p: fm.quant_matmul_lora(q, p, a, b),
+        "w4a8_matmul": lambda q, p: fm.w4a8_matmul(q, sx, p, torch.bfloat16),
+        "w4a8_lora_matmul": lambda q, p: fm.w4a8_lora_matmul(q, sx, p, xa, b, torch.bfloat16),
+    }
+    if kernel not in calls:
+        raise SystemExit(f"unknown kernel {kernel!r}: one of {sorted(calls)}")
+    call = calls[kernel]
+    kq, xq = _copies(kqt, x, _weight_bytes(kqt))
+    ms = [time_ms([lambda p=p, q=q: call(q, p) for p, q in zip(kq, xq)], 100) for _ in range(3)]
+    return dict(kernel=kernel, m=m, k=k, n=n, r=r, ms=ms)
+
+
+def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; this script runs on the GPU only")
         return 1
@@ -466,26 +969,33 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     dev_tag = f"[{power}]"
+    if argv and argv[0] == "--time":
+        log(json.dumps(dict(time_one(argv[1], *map(int, argv[2:])), card=power)))
+        return 0
 
     t_start = time.time()
     phase_a(name, power)
     rows = phase_b()
-    launches = phase_c(dev_tag)
+    windows = [phase_c(dev_tag)]
     phase_d()
+    windows.append(phase_e(dev_tag))
+    windows.append(phase_f(dev_tag))
 
-    pick = {"w4a8_matmul": (4, 4096, 11008), "quant_matmul": (512, 4096, 4096),
-            "dequant": (None, 11008, 4096)}
     kernels = []
-    for kname, (m, k, n) in pick.items():
-        row = next(r for r in rows[kname] if (r["m"], r["k"], r["n"]) == (m, k, n))
-        entry = dict(name=kname, route="cuda", source=SRC + kname + ".cu",
-                     replaces=REPLACES[kname],
-                     launches=launches[kname],
+    for kname, (source, replaces, also) in KERNELS.items():
+        m, k, n, note = PICK[kname]
+        row = next(r for r in rows[kname]
+                   if (r["m"], r["k"], r["n"], r["note"]) == (m, k, n, note))
+        entry = dict(name=kname, route="cuda", source=SRC + source, replaces=replaces,
+                     launches=sum(w[kname] for w in windows),
                      max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
                      bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-                     library_ms=row["library_ms"], shape=dict(m=row["m"], k=row["k"], n=row["n"]))
-        if kname in ALSO_REPLACES:
-            entry["also_replaces"] = ALSO_REPLACES[kname]
+                     library_ms=row["library_ms"],
+                     shape=dict(m=m, k=k, n=n, note=note))
+        if also:
+            entry["also_replaces"] = also
+        if entry["launches"] == 0:
+            raise AssertionError(f"{kname} was launched on no main path")
         kernels.append(entry)
     log(f"[done] {time.time() - t_start:.1f} s")
     log(power)
@@ -496,4 +1006,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

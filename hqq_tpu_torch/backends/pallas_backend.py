@@ -8,8 +8,10 @@ into the kernel layout (`ops.fused_matmul.to_kernel_layout`). The names
 kernels of ``csrc/``. Conversion is driven by
 `hqq_tpu_torch.utils.patching.prepare_for_inference`.
 
-Only axis=1 layers convert. An axis=0 layer stays a `QuantLinear` on the
-``"xla"`` path until the axis=0 kernel is ported.
+Axis=1 layers convert to `KernelQTensor`, axis=0 layers to `KernelQTensor0`
+(under ``w4a8`` too, where they take the bf16-operand axis=0 kernel), and a
+`LoRALinear` over an axis=1 base converts to a module whose one kernel holds
+the adapter as well.
 """
 
 from __future__ import annotations
@@ -21,26 +23,37 @@ from torch import nn
 
 from ..nn.linear import QuantLinear, _as_param
 from ..ops.fused_matmul import (
+    _KERNEL_CONTAINER_BITS,
     KernelQTensor,
+    KernelQTensor0,
     dequant_pallas,
     quant_matmul_pallas,
     quant_matmul_pallas_a8,
+    quant_matmul_pallas_a8_lora,
+    quant_matmul_pallas_lora,
     supports_kernel_layout,
+    supports_kernel_layout_ax0,
     to_kernel_layout,
+    to_kernel_layout_ax0,
 )
 
 __all__ = [
     "PallasQuantLinear",
     "A8QuantLinear",
+    "PallasLoRAQuantLinear",
+    "A8LoRAQuantLinear",
     "patch_quantlinear_to_pallas",
     "patch_quantlinear_to_w4a8",
+    "patch_lora_to_pallas",
+    "patch_lora_to_w4a8",
 ]
 
 
 class _KernelLinear(nn.Module):
     """A kernel-layout weight plus an optional bias."""
 
-    def __init__(self, kqt: KernelQTensor, bias: Optional[torch.Tensor] = None):
+    def __init__(self, kqt: "KernelQTensor | KernelQTensor0",
+                 bias: Optional[torch.Tensor] = None):
         super().__init__()
         self.kqt = kqt
         self.bias = _as_param(bias)
@@ -87,18 +100,115 @@ class A8QuantLinear(_KernelLinear):
         return out
 
 
-def patch_quantlinear_to_pallas(layer: QuantLinear) -> "PallasQuantLinear | QuantLinear":
-    """Convert a `QuantLinear` to the fused backend; returns the layer
-    unchanged when its config does not fit the kernel layout."""
-    if supports_kernel_layout(layer.qweight):
-        return PallasQuantLinear(to_kernel_layout(layer.qweight), layer.bias)
-    return layer
+def _ax0_meta_dtype(qt, meta_dtype=None):
+    """Storage type of scale and zs for an axis=0 kernel layout. None takes
+    `hqq_tpu`'s policy, kept so that both packages serve the same numbers:
+    bf16 for the configs with fewer than 8 packed rows per group (2-bit g16,
+    1-bit g16 and g32), where scale and zs outweigh the codes, fp32
+    otherwise. bf16 rounds each weight by about 5e-3 of its size."""
+    if meta_dtype is not None:
+        return meta_dtype
+    r = 8 // _KERNEL_CONTAINER_BITS[qt.nbits]
+    return torch.bfloat16 if (r > 1 and qt.group_size // r < 8) else torch.float32
 
 
-def patch_quantlinear_to_w4a8(layer: QuantLinear) -> "A8QuantLinear | QuantLinear":
-    """Convert a `QuantLinear` to the W4A8 backend; returns the layer
-    unchanged when its config does not fit the kernel layout."""
-    if supports_kernel_layout(layer.qweight):
-        return A8QuantLinear(to_kernel_layout(layer.qweight), layer.bias)
-    return layer
+def _to_any_layout(qt, meta_dtype=None):
+    """The kernel layout of ``qt`` for its axis, or None if it has none."""
+    if supports_kernel_layout(qt):
+        if meta_dtype not in (None, torch.float32):
+            raise ValueError("the axis=1 kernel layout stores scale and zs in fp32")
+        return to_kernel_layout(qt)
+    if supports_kernel_layout_ax0(qt):
+        return to_kernel_layout_ax0(qt, _ax0_meta_dtype(qt, meta_dtype))
+    return None
 
+
+def patch_quantlinear_to_pallas(layer: QuantLinear,
+                                meta_dtype=None) -> "PallasQuantLinear | QuantLinear":
+    """Convert a `QuantLinear` of either axis to the fused backend; returns
+    the layer unchanged when its config fits no kernel layout."""
+    kqt = _to_any_layout(layer.qweight, meta_dtype)
+    return layer if kqt is None else PallasQuantLinear(kqt, layer.bias)
+
+
+def patch_quantlinear_to_w4a8(layer: QuantLinear,
+                              meta_dtype=None) -> "A8QuantLinear | QuantLinear":
+    """Convert an axis=1 `QuantLinear` to the W4A8 backend; returns the
+    layer unchanged when its config does not fit the kernel layout."""
+    if not supports_kernel_layout(layer.qweight):
+        return layer
+    return A8QuantLinear(_to_any_layout(layer.qweight, meta_dtype), layer.bias)
+
+
+def _patch_w4a8_any_axis(layer: QuantLinear, meta_dtype=None) -> "A8QuantLinear | QuantLinear":
+    """w4a8 conversion for both axes: axis=1 gets the int8 kernel; axis=0
+    gets the bf16-operand axis=0 kernel, to which `quant_matmul_pallas_a8`
+    sends a `KernelQTensor0`."""
+    kqt = _to_any_layout(layer.qweight, meta_dtype)
+    return layer if kqt is None else A8QuantLinear(kqt, layer.bias)
+
+
+class _KernelLoRALinear(nn.Module):
+    """A kernel-layout weight, LoRA factors a [K, r] and b [r, N] (the
+    adapter's scaling folded into b, both fp32) and an optional bias."""
+
+    def __init__(self, kqt: KernelQTensor, a: torch.Tensor, b: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.kqt = kqt
+        self.a = _as_param(a)
+        self.b = _as_param(b)
+        self.bias = _as_param(bias)
+
+    @property
+    def in_features(self) -> int:
+        return self.kqt.k
+
+    @property
+    def out_features(self) -> int:
+        return self.kqt.n
+
+    def _add_bias(self, out: torch.Tensor) -> torch.Tensor:
+        return out if self.bias is None else out + self.bias.to(out.dtype)
+
+
+class PallasLoRAQuantLinear(_KernelLoRALinear):
+    """HQQ+ serving layer: the dequant-matmul and the adapter in one kernel
+    (`quant_matmul_pallas_lora`)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._add_bias(quant_matmul_pallas_lora(x, self.kqt, self.a, self.b))
+
+
+class A8LoRAQuantLinear(_KernelLoRALinear):
+    """HQQ+ on the w4a8 path: the int8 decode kernel with the adapter in its
+    epilogue (`quant_matmul_pallas_a8_lora`); the adapter sees the
+    activations at full precision."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._add_bias(quant_matmul_pallas_a8_lora(x, self.kqt, self.a, self.b))
+
+
+def _patch_lora(lora, cls):
+    base = lora.base
+    if not (isinstance(base, QuantLinear) and supports_kernel_layout(base.qweight)):
+        return lora
+    bias = base.bias
+    if lora.bias is not None:
+        bias = lora.bias if bias is None else bias + lora.bias
+    fp32 = torch.float32
+    return cls(to_kernel_layout(base.qweight), lora.lora_a.data.to(fp32),
+               lora.lora_b.data.to(fp32) * lora.scaling, None if bias is None else bias.data)
+
+
+def patch_lora_to_pallas(lora) -> "PallasLoRAQuantLinear | nn.Module":
+    """`LoRALinear` over an axis=1 `QuantLinear` -> one fused module (the
+    biases merged, the scaling folded into b); returns the input unchanged
+    when the base does not fit the kernel layout (the base then converts on
+    its own)."""
+    return _patch_lora(lora, PallasLoRAQuantLinear)
+
+
+def patch_lora_to_w4a8(lora) -> "A8LoRAQuantLinear | nn.Module":
+    """As `patch_lora_to_pallas`, for the w4a8 path."""
+    return _patch_lora(lora, A8LoRAQuantLinear)

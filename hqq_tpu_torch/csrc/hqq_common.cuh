@@ -29,6 +29,24 @@ __device__ __forceinline__ float hqq_dq(uint32_t code, float s, float z) {
   return __fsub_rn(__fmul_rn(static_cast<float>(code), s), z);
 }
 
+// A scale or zs of the axis=0 layout, stored in fp32 or bf16, as fp32.
+__device__ __forceinline__ float meta_f32(const float* p, size_t i) { return p[i]; }
+__device__ __forceinline__ float meta_f32(const __nv_bfloat16* p, size_t i) {
+  return __bfloat162float(p[i]);
+}
+
+// Four of them from index i (a multiple of 4, the base 16-byte aligned) in
+// one load; bf16 widens to fp32 by its bits.
+__device__ __forceinline__ void meta4_f32(const float* p, size_t i, float (&v)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p + i);
+  v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+}
+__device__ __forceinline__ void meta4_f32(const __nv_bfloat16* p, size_t i, float (&v)[4]) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p + i);
+  v[0] = __uint_as_float(t.x << 16), v[1] = __uint_as_float(t.x & 0xffff0000u);
+  v[2] = __uint_as_float(t.y << 16), v[3] = __uint_as_float(t.y & 0xffff0000u);
+}
+
 __device__ __forceinline__ void hqq_store(void* out, size_t i, float v, int dtype) {
   if (dtype == HQQ_BF16) {
     reinterpret_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(v);
@@ -36,6 +54,25 @@ __device__ __forceinline__ void hqq_store(void* out, size_t i, float v, int dtyp
     reinterpret_cast<__half*>(out)[i] = __float2half_rn(v);
   } else {
     reinterpret_cast<float*>(out)[i] = v;
+  }
+}
+
+// Four outputs from index i (a multiple of 4, the base 16-byte aligned) in
+// one store, each rounded as hqq_store rounds it.
+__device__ __forceinline__ void hqq_store4(void* out, size_t i, const float (&v)[4], int dtype) {
+  if (dtype == HQQ_BF16) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    *reinterpret_cast<uint2*>(reinterpret_cast<__nv_bfloat16*>(out) + i) = make_uint2(
+        *reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
+  } else if (dtype == HQQ_F16) {
+    const __half2 lo = __floats2half2_rn(v[0], v[1]);
+    const __half2 hi = __floats2half2_rn(v[2], v[3]);
+    *reinterpret_cast<uint2*>(reinterpret_cast<__half*>(out) + i) = make_uint2(
+        *reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
+  } else {
+    *reinterpret_cast<float4*>(reinterpret_cast<float*>(out) + i) =
+        make_float4(v[0], v[1], v[2], v[3]);
   }
 }
 

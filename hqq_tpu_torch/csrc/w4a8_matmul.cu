@@ -3,13 +3,18 @@
 // for M <= 32 rows of int8 activations x8 (x ~ x8 * sx, per row) against a
 // 1/2/4/8-bit weight in the kernel layout of hqq_common.cuh. dot_g is the
 // exact int32 dot of group g; the epilogue is fp32; y is written in fp32,
-// bf16 or fp16.
+// bf16 or fp16. A second entry, w4a8_lora_matmul, adds a LoRA epilogue in
+// fp32: y[m, n] += sum_j xa[m, j] * B[j, n], with xa = x @ A [M, r] computed
+// by the caller from the unquantized activations and B [r, N] fp32 (the
+// adapter's scaling folded in).
 //
 // Replaces: hqq_tpu/ops/fused_matmul.py `_qmm_a8_decode_kernel` (launched by
 //   `_qmm_a8_decode_call`) and `_qmm_a8_kernel` (launched by `_qmm_a8_call`),
 //   both behind `quant_matmul_pallas_a8` for M <= 32. The TPU needs two
 //   kernels (class-replicated deep dots when K % 8g == 0, batched per-group
-//   dots otherwise); one kernel serves every K % g == 0 here.
+//   dots otherwise); one kernel serves every K % g == 0 here. With the
+//   epilogue: `_qmm_a8_lora_decode_kernel` (launched by
+//   `_qmm_a8_lora_decode_call`, entry `quant_matmul_pallas_a8_lora`).
 // Bound on H100: bytes. At decode the weight is read once: K*N*cb/8 bytes of
 //   codes plus 8*N*K/g of fp32 scale and zs (4096x4096, 4-bit, g64: 10.5 MB,
 //   3.1 us at 3.35 TB/s). The int8 work, 2*M*N*K operations, stays far below
@@ -25,7 +30,10 @@
 //   group's int32 sum. Each lane folds its group's partial into fp32
 //   accumulators through scale and zs; a warp shuffle sums the lanes at the
 //   end. Every weight byte is read from memory once per M chunk (once in
-//   all for M <= 8).
+//   all for M <= 8). The LoRA term rides the same reduction: lane l sums the
+//   ranks j = l, l + 32, ... of its warp's outputs, a second shuffle adds
+//   the lanes, and the term joins after the multiply by sx (r*(M + N) more
+//   fp32 values to read, 0.7% of a 4096x4096 4-bit g64 weight at r = 8).
 #include "hqq_common.cuh"
 
 namespace {
@@ -34,13 +42,20 @@ constexpr int kWarps = 8;     // warps per block
 constexpr int kNcol = 2;      // output columns per warp
 constexpr int kTileGroups = 32;  // groups per K-tile, one per lane
 
+// LoRA epilogue operands: xa fp32 [M, r], b fp32 [r, N]; r = 0 for none
+struct Lora {
+  const float* xa;
+  const float* b;
+  int r;
+};
+
 // VW: weight words per load, 4 (one 16-byte load) or 1
 template <int CB, int MT, int VW>
 __global__ void __launch_bounds__(kWarps * 32)
     w4a8_kernel(const int8_t* __restrict__ x8, const float* __restrict__ sx,
                 const uint32_t* __restrict__ wq, const float* __restrict__ scale,
-                const float* __restrict__ zs, void* __restrict__ out, int m, int n, int k,
-                int group_size, int out_dtype) {
+                const float* __restrict__ zs, Lora lora, void* __restrict__ out, int m, int n,
+                int k, int group_size, int out_dtype) {
   constexpr int kFields = 8 / CB;           // 4-code fields per weight word
   constexpr int kCodesPerWord = 32 / CB;
   constexpr uint32_t kMask = ((1u << CB) - 1u) * 0x01010101u;
@@ -152,8 +167,19 @@ __global__ void __launch_bounds__(kWarps * 32)
       for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
       const int row = m0 + i;
       const int col = col0 + c;
+      float l = 0.f;
+      if (lora.r > 0) {  // uniform over the warp, as are row and col
+        if (row < m && col < n) {
+          for (int j = lane; j < lora.r; j += 32) {
+            l = fmaf(lora.xa[static_cast<size_t>(row) * lora.r + j],
+                     lora.b[static_cast<size_t>(j) * n + col], l);
+          }
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+      }
       if (lane == 0 && row < m && col < n) {
-        hqq_store(out, static_cast<size_t>(row) * n + col, v * sx[row], out_dtype);
+        hqq_store(out, static_cast<size_t>(row) * n + col, v * sx[row] + l, out_dtype);
       }
     }
   }
@@ -161,7 +187,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 
 template <int CB, int MT, int VW>
 int launch(const void* x8, const void* sx, const void* wq, const void* scale, const void* zs,
-           void* out, int m, int n, int k, int group_size, int out_dtype, cudaStream_t stream) {
+           Lora lora, void* out, int m, int n, int k, int group_size, int out_dtype,
+           cudaStream_t stream) {
   auto kernel = w4a8_kernel<CB, MT, VW>;
   const int smem = MT * kTileGroups * (group_size / 4 + 1) * 4;
   if (smem > 48 * 1024) {
@@ -174,29 +201,46 @@ int launch(const void* x8, const void* sx, const void* wq, const void* scale, co
   kernel<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const int8_t*>(x8), static_cast<const float*>(sx),
       static_cast<const uint32_t*>(wq), static_cast<const float*>(scale),
-      static_cast<const float*>(zs), out, m, n, k, group_size, out_dtype);
+      static_cast<const float*>(zs), lora, out, m, n, k, group_size, out_dtype);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int CB, int MT>
 int dispatch_vw(const void* x8, const void* sx, const void* wq, const void* scale,
-                const void* zs, void* out, int m, int n, int k, int group_size, int out_dtype,
-                cudaStream_t stream) {
+                const void* zs, Lora lora, void* out, int m, int n, int k, int group_size,
+                int out_dtype, cudaStream_t stream) {
   // 16-byte loads need a group of a multiple of 4 words (it keeps every
   // row and every group 16-byte aligned)
   if ((group_size / (32 / CB)) % 4 == 0)
-    return launch<CB, MT, 4>(x8, sx, wq, scale, zs, out, m, n, k, group_size, out_dtype, stream);
-  return launch<CB, MT, 1>(x8, sx, wq, scale, zs, out, m, n, k, group_size, out_dtype, stream);
+    return launch<CB, MT, 4>(x8, sx, wq, scale, zs, lora, out, m, n, k, group_size, out_dtype,
+                             stream);
+  return launch<CB, MT, 1>(x8, sx, wq, scale, zs, lora, out, m, n, k, group_size, out_dtype,
+                           stream);
 }
 
 template <int CB>
 int dispatch_mt(const void* x8, const void* sx, const void* wq, const void* scale,
-                const void* zs, void* out, int m, int n, int k, int group_size, int out_dtype,
-                cudaStream_t stream) {
-  if (m <= 1) return dispatch_vw<CB, 1>(x8, sx, wq, scale, zs, out, m, n, k, group_size, out_dtype, stream);
-  if (m <= 2) return dispatch_vw<CB, 2>(x8, sx, wq, scale, zs, out, m, n, k, group_size, out_dtype, stream);
-  if (m <= 4) return dispatch_vw<CB, 4>(x8, sx, wq, scale, zs, out, m, n, k, group_size, out_dtype, stream);
-  return dispatch_vw<CB, 8>(x8, sx, wq, scale, zs, out, m, n, k, group_size, out_dtype, stream);
+                const void* zs, Lora lora, void* out, int m, int n, int k, int group_size,
+                int out_dtype, cudaStream_t stream) {
+#define HQQ_W4A8_MT(MT) \
+  return dispatch_vw<CB, MT>(x8, sx, wq, scale, zs, lora, out, m, n, k, group_size, out_dtype, stream)
+  if (m <= 1) HQQ_W4A8_MT(1);
+  if (m <= 2) HQQ_W4A8_MT(2);
+  if (m <= 4) HQQ_W4A8_MT(4);
+  HQQ_W4A8_MT(8);
+#undef HQQ_W4A8_MT
+}
+
+int dispatch_cb(const void* x8, const void* sx, const void* wq, const void* scale, const void* zs,
+                Lora lora, void* out, int m, int n, int k, int group_size, int cb, int out_dtype,
+                cudaStream_t s) {
+  switch (cb) {
+    case 1: return dispatch_mt<1>(x8, sx, wq, scale, zs, lora, out, m, n, k, group_size, out_dtype, s);
+    case 2: return dispatch_mt<2>(x8, sx, wq, scale, zs, lora, out, m, n, k, group_size, out_dtype, s);
+    case 4: return dispatch_mt<4>(x8, sx, wq, scale, zs, lora, out, m, n, k, group_size, out_dtype, s);
+    case 8: return dispatch_mt<8>(x8, sx, wq, scale, zs, lora, out, m, n, k, group_size, out_dtype, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -204,14 +248,19 @@ int dispatch_mt(const void* x8, const void* sx, const void* wq, const void* scal
 HQQ_EXPORT int hqq_w4a8_matmul(const void* x8, const void* sx, const void* wq, const void* scale,
                                const void* zs, void* out, int m, int n, int k, int group_size,
                                int cb, int out_dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (cb) {
-    case 1: return dispatch_mt<1>(x8, sx, wq, scale, zs, out, m, n, k, group_size, out_dtype, s);
-    case 2: return dispatch_mt<2>(x8, sx, wq, scale, zs, out, m, n, k, group_size, out_dtype, s);
-    case 4: return dispatch_mt<4>(x8, sx, wq, scale, zs, out, m, n, k, group_size, out_dtype, s);
-    case 8: return dispatch_mt<8>(x8, sx, wq, scale, zs, out, m, n, k, group_size, out_dtype, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch_cb(x8, sx, wq, scale, zs, Lora{nullptr, nullptr, 0}, out, m, n, k, group_size,
+                     cb, out_dtype, static_cast<cudaStream_t>(stream));
+}
+
+// xa fp32 [M, r] and lb fp32 [r, N], r >= 1: the LoRA epilogue
+HQQ_EXPORT int hqq_w4a8_lora_matmul(const void* x8, const void* sx, const void* wq,
+                                    const void* scale, const void* zs, const void* xa,
+                                    const void* lb, void* out, int m, int n, int k, int r,
+                                    int group_size, int cb, int out_dtype, void* stream) {
+  if (r < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Lora lora{static_cast<const float*>(xa), static_cast<const float*>(lb), r};
+  return dispatch_cb(x8, sx, wq, scale, zs, lora, out, m, n, k, group_size, cb, out_dtype,
+                     static_cast<cudaStream_t>(stream));
 }
 
 HQQ_EXPORT const char* hqq_error_string(int code) {

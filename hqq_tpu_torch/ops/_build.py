@@ -2,11 +2,12 @@
 """Build and bind the CUDA kernels of `hqq_tpu_torch/csrc/`.
 
 Each kernel source is compiled by ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface and loaded with `ctypes`. A build runs at
-first use, into ``hqq_tpu_torch/_build/`` (listed in ``.gitignore``), and
-is keyed by a hash of the sources and flags, so an edit rebuilds and an
-unchanged tree loads what is there. `build_all` starts one ``nvcc`` per
-source at once and waits for all of them.
+library with a plain C interface and loaded with `ctypes`; a source may
+hold the C entries of several kernels. A build runs at first use, into
+``hqq_tpu_torch/_build/`` (listed in ``.gitignore``), and is keyed by a hash
+of the sources and flags, so an edit rebuilds and an unchanged tree loads
+what is there. `build_all` starts one ``nvcc`` per source at once and waits
+for all of them.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ __all__ = ["KERNELS", "build_all", "library", "check"]
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-_HEADERS = ("hqq_common.cuh",)
+_HEADERS = ("hqq_common.cuh", "qmm_tile.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -33,13 +34,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # kernel name -> (source file, C entry, argument types)
 KERNELS = {
-    "dequant": ("dequant.cu", "hqq_dequant", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "quant_matmul": (
-        "quant_matmul.cu", "hqq_quant_matmul", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "dequant": ("dequant.cu", "hqq_dequant", [_P] * 4 + [_I] * 5 + [_P]),
+    "dequant_ax0": ("dequant.cu", "hqq_dequant_ax0", [_P] * 4 + [_I] * 7 + [_P]),
+    "quant_matmul": ("quant_matmul.cu", "hqq_quant_matmul", [_P] * 5 + [_I] * 6 + [_P]),
+    "quant_matmul_ax0": (
+        "quant_matmul_ax0.cu", "hqq_quant_matmul_ax0", [_P] * 6 + [_I] * 9 + [_P],
     ),
-    "w4a8_matmul": (
-        "w4a8_matmul.cu", "hqq_w4a8_matmul",
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "quant_matmul_lora": (
+        "quant_matmul_lora.cu", "hqq_quant_matmul_lora", [_P] * 7 + [_I] * 7 + [_P],
+    ),
+    "w4a8_matmul": ("w4a8_matmul.cu", "hqq_w4a8_matmul", [_P] * 6 + [_I] * 6 + [_P]),
+    "w4a8_lora_matmul": (
+        "w4a8_matmul.cu", "hqq_w4a8_lora_matmul", [_P] * 8 + [_I] * 7 + [_P],
     ),
 }
 
@@ -52,59 +58,65 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def _lib_path(name: str) -> str:
+def _lib_path(source: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in (KERNELS[name][0],) + _HEADERS:
+    for f in (source,) + _HEADERS:
         with open(os.path.join(_CSRC, f), "rb") as fh:
             h.update(fh.read())
-    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"{source[:-3]}-{h.hexdigest()[:16]}.so")
 
 
 def build_all(names=None) -> dict:
-    """Compile every kernel (or ``names``) that has no library for its
-    current sources, one ``nvcc`` each, in parallel. Returns
-    {name: compiler output} for what was built; raises if a build fails."""
-    names = list(KERNELS if names is None else names)
+    """Compile the source of every kernel (or of ``names``) that has no
+    library for its current sources, one ``nvcc`` each, in parallel. Returns
+    {source: compiler output} for what was built; raises if a build fails."""
+    sources = sorted({KERNELS[name][0] for name in (KERNELS if names is None else names)})
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     jobs = {}
-    for name in names:
-        path = _lib_path(name)
+    for source in sources:
+        path = _lib_path(source)
         if os.path.exists(path):
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, KERNELS[name][0])]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        jobs[name] = (proc, tmp, path)
+        jobs[source] = (proc, tmp, path)
     logs, failed = {}, []
-    for name, (proc, tmp, path) in jobs.items():
+    for source, (proc, tmp, path) in jobs.items():
         out, _ = proc.communicate()
-        logs[name] = out
+        logs[source] = out
         if proc.returncode == 0:
             os.replace(tmp, path)
         else:
             os.unlink(tmp)
-            failed.append(f"{name} (exit {proc.returncode}):\n{out}")
+            failed.append(f"{source} (exit {proc.returncode}):\n{out}")
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return logs
 
 
 @functools.lru_cache(maxsize=None)
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed, with
-    the argument and return types of its C entry declared."""
-    path = _lib_path(name)
+def _load(source: str) -> ctypes.CDLL:
+    path = _lib_path(source)
     if not os.path.exists(path):
-        build_all([name])
+        build_all([name for name, spec in KERNELS.items() if spec[0] == source])
     lib = ctypes.CDLL(path)
-    fn = getattr(lib, KERNELS[name][1])
-    fn.argtypes = KERNELS[name][2]
-    fn.restype = ctypes.c_int
+    for src, entry, argtypes in KERNELS.values():
+        if src == source:
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     lib.hqq_error_string.argtypes = [ctypes.c_int]
     lib.hqq_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library that holds kernel ``name``, built first if needed,
+    with the argument and return types of its C entries declared."""
+    return _load(KERNELS[name][0])
 
 
 def check(name: str, code: int) -> None:

@@ -1,23 +1,29 @@
 # SPDX-License-Identifier: Apache-2.0
 """Fused dequant-matmul kernels for Hopper: their host side.
 
-Mirrors `hqq_tpu.ops.fused_matmul` for axis=1 weights: the kernel layout
-(`KernelQTensor`, `to_kernel_layout`), the per-row int8 activation
+Mirrors `hqq_tpu.ops.fused_matmul`: the kernel layouts (`KernelQTensor` for
+axis=1 weights, `KernelQTensor0` for axis=0), the per-row int8 activation
 quantization, and the entry points `quant_matmul_pallas`,
-`quant_matmul_pallas_a8` and `dequant_pallas`, whose names and routing are
-kept so that a reader finds each counterpart.
+`quant_matmul_pallas_a8`, `quant_matmul_pallas_lora`,
+`quant_matmul_pallas_a8_lora` and `dequant_pallas`, whose names and routing
+are kept so that a reader finds each counterpart.
 
-The kernel layout is this card's own (see ``csrc/hqq_common.cuh``): the codes
-of W [N, K] stay contiguous along K, 32/cb codes to a 32-bit word, and scale
-and zs = zero*scale are fp32 [N, K/g]. None of the TPU layout's padding or
-nibble orders carry over.
+The kernel layouts are this card's own (see ``csrc/hqq_common.cuh``): the
+codes of W [N, K] stay contiguous along K, 32/cb codes to a 32-bit word.
+Axis=1: scale and zs = zero*scale are fp32 [N, K/g]. Axis=0: the rows stay
+in logical order, K is padded to a multiple of 32, and scale and zs are
+[N/g, K_pad] in fp32 or bf16; row n reads row n % (N/g) of them. None of
+the TPU layouts' padding, row permutation or nibble orders carry over.
 
-Three kernels, each behind a wrapper with a plain PyTorch twin and a launch
+Six kernels, each behind a wrapper with a plain PyTorch twin and a launch
 count (``<wrapper>.launches``):
 
-    w4a8_matmul  -> csrc/w4a8_matmul.cu   (M <= 32, int8 activations)
-    quant_matmul -> csrc/quant_matmul.cu  (any M, bf16/fp16 operands)
-    dequant      -> csrc/dequant.cu
+    w4a8_matmul       -> csrc/w4a8_matmul.cu        (M <= 32, int8 activations)
+    w4a8_lora_matmul  -> csrc/w4a8_matmul.cu        (the same, + LoRA epilogue)
+    quant_matmul      -> csrc/quant_matmul.cu       (any M, bf16/fp16 operands)
+    quant_matmul_lora -> csrc/quant_matmul_lora.cu  (the same, + x@A and B inside)
+    quant_matmul_ax0  -> csrc/quant_matmul_ax0.cu   (axis=0 weights, any M)
+    dequant           -> csrc/dequant.cu            (both layouts)
 
 A wrapper runs the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises; nothing falls back.
@@ -28,23 +34,35 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from ..core.quantize import QTensor, resolve_meta, unpack_codes
 from . import _build
 
 __all__ = [
     "KernelQTensor",
+    "KernelQTensor0",
     "supports_kernel_layout",
+    "supports_kernel_layout_ax0",
     "to_kernel_layout",
+    "to_kernel_layout_ax0",
     "quantize_activations_int8",
     "quant_matmul_pallas",
     "quant_matmul_pallas_a8",
+    "quant_matmul_pallas_lora",
+    "quant_matmul_pallas_a8_lora",
     "dequant_pallas",
     "w4a8_matmul",
+    "w4a8_lora_matmul",
     "quant_matmul",
+    "quant_matmul_lora",
+    "quant_matmul_ax0",
     "dequant",
     "w4a8_matmul_plain",
+    "w4a8_lora_matmul_plain",
     "quant_matmul_plain",
+    "quant_matmul_lora_plain",
+    "quant_matmul_ax0_plain",
     "dequant_plain",
     "reset_launch_counts",
 ]
@@ -55,6 +73,10 @@ _KERNEL_CONTAINER_BITS = {8: 8, 6: 8, 5: 8, 4: 4, 3: 4, 2: 2, 1.58: 2, 1: 1}
 
 # largest M that `quant_matmul_pallas_a8` sends to the int8 kernel
 A8_MAX_M = 32
+
+# below this many 64x64 output tiles, `quant_matmul_ax0` splits K over more
+# blocks (four per SM of an H100)
+_AX0_MIN_BLOCKS = 528
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -149,6 +171,95 @@ def to_kernel_layout(qt: QTensor) -> KernelQTensor:
     )
 
 
+@dataclasses.dataclass
+class KernelQTensor0:
+    """Inference-prepared axis=0 quantized weight in the kernel layout. The
+    g rows {b, b + P, b + 2P, ...} (P = N/g) form the group of column k, as
+    `W.reshape(g, -1)` groups them; rows stay in logical order.
+
+      wq:    uint8 [N, K_pad*cb/8]  codes of W [N, K], 32/cb to a 32-bit
+                                    word, K padded with zero codes to a
+                                    multiple of 32
+      scale: [N/g, K_pad]           dequant scale of (row n % P, column k),
+                                    fp32 or bf16, zero past K
+      zs:    [N/g, K_pad]           zero * scale (W = c*scale - zs)
+    """
+
+    wq: torch.Tensor
+    scale: torch.Tensor
+    zs: torch.Tensor
+    nbits: float = 4
+    container_bits: int = 4
+    group_size: int = 64
+    shape: tuple = ()  # (N, K) logical
+    compute_dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def k(self) -> int:  # in_features
+        return self.shape[1]
+
+    @property
+    def n(self) -> int:  # out_features
+        return self.shape[0]
+
+    @property
+    def r(self) -> int:
+        return 8 // self.container_bits
+
+    @property
+    def k_pad(self) -> int:
+        return self.scale.shape[1]
+
+
+def supports_kernel_layout_ax0(qt: QTensor) -> bool:
+    """Whether an axis=0 ``qt`` converts to the kernel layout: groups of a
+    multiple of 8 rows that divide N (`hqq_tpu`'s rule; the word layout
+    along K asks for nothing more, K is padded)."""
+    if qt.axis != 0 or not qt.channel_wise or qt.group_size is None:
+        return False
+    g = qt.group_size
+    r = 8 // _KERNEL_CONTAINER_BITS[qt.nbits]
+    return qt.shape[0] % g == 0 and g % r == 0 and g % 8 == 0
+
+
+def to_kernel_layout_ax0(qt: QTensor, meta_dtype=torch.float32) -> KernelQTensor0:
+    """Convert a canonical axis=0 `QTensor` to the kernel layout, on its
+    device. ``meta_dtype`` (fp32 or bf16) is the storage type of scale and
+    zs; the kernels widen them to fp32 for the arithmetic. The serving
+    backends pick it per config (`backends.pallas_backend._ax0_meta_dtype`);
+    the default here is exact."""
+    if not supports_kernel_layout_ax0(qt):
+        raise ValueError(
+            "axis=0 kernel layout needs groups of a multiple of 8 rows dividing "
+            f"out_features; got axis={qt.axis}, group_size={qt.group_size}, shape={qt.shape}"
+        )
+    if meta_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"meta_dtype must be float32 or bfloat16, not {meta_dtype}")
+    qt = resolve_meta(qt)
+    n_out, k = qt.shape
+    g = qt.group_size
+    cb = _KERNEL_CONTAINER_BITS[qt.nbits]
+    p_blocks = n_out // g
+    # group space is [g, P*K] with codes[a, b*K + k] = W_q[a*P + b, k]: read
+    # row-major it is W_q [N, K] itself
+    codes = unpack_codes(qt, torch.int32).reshape(n_out, k)
+    scale = qt.scale.reshape(p_blocks, k).to(torch.float32)
+    zero = qt.zero.reshape(p_blocks, k).to(torch.float32)
+    pad = -k % 32
+    if pad:
+        codes, scale, zero = (F.pad(t, (0, pad)) for t in (codes, scale, zero))
+    return KernelQTensor0(
+        wq=_pack_words(codes, cb),
+        scale=scale.to(meta_dtype).contiguous(),
+        zs=(zero * scale).to(meta_dtype).contiguous(),
+        nbits=qt.nbits,
+        container_bits=cb,
+        group_size=g,
+        shape=(n_out, k),
+        compute_dtype=qt.compute_dtype,
+    )
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers and their plain versions
 # ---------------------------------------------------------------------------
@@ -177,6 +288,23 @@ def _check_kqt(kqt: KernelQTensor, device: torch.device) -> None:
             raise ValueError(f"kernel operands must be contiguous on {device}")
 
 
+def _check_kqt0(kqt: KernelQTensor0, device: torch.device) -> None:
+    n, k = kqt.shape
+    k_pad = kqt.k_pad
+    if k_pad % 32 or k_pad < k:
+        raise ValueError(f"scale must be padded along K to a multiple of 32 >= {k}")
+    if kqt.wq.dtype != torch.uint8 or tuple(kqt.wq.shape) != (n, k_pad * kqt.container_bits // 8):
+        raise ValueError(f"wq must be uint8 [{n}, {k_pad * kqt.container_bits // 8}]")
+    for name in ("scale", "zs"):
+        t = getattr(kqt, name)
+        if t.dtype != kqt.scale.dtype or t.dtype not in (torch.float32, torch.bfloat16) \
+                or tuple(t.shape) != (n // kqt.group_size, k_pad):
+            raise ValueError(f"{name} must be fp32 or bf16 [{n // kqt.group_size}, {k_pad}]")
+    for t in (kqt.wq, kqt.scale, kqt.zs):
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"kernel operands must be contiguous on {device}")
+
+
 def _ptr(t: torch.Tensor, align: int = 16) -> int:
     p = t.data_ptr()
     if p % align:
@@ -188,33 +316,47 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def dequant_plain(kqt: KernelQTensor, dtype=torch.float32) -> torch.Tensor:
+def dequant_plain(kqt: "KernelQTensor | KernelQTensor0", dtype=torch.float32) -> torch.Tensor:
     """Plain version of the dequant kernel: W [N, K] = c*scale - zs in fp32,
-    then cast to ``dtype``."""
-    k, n = kqt.shape
+    then cast to ``dtype``. Axis=0: row n takes row n % (N/g) of scale and
+    zs (widened to fp32), and the K padding is cut."""
+    c = _unpack_words(kqt.wq, kqt.container_bits).to(torch.float32)
     g = kqt.group_size
-    c = _unpack_words(kqt.wq, kqt.container_bits).to(torch.float32).view(n, k // g, g)
-    w = c * kqt.scale[:, :, None] - kqt.zs[:, :, None]
+    if isinstance(kqt, KernelQTensor0):
+        n, k = kqt.shape
+        w = c * kqt.scale.to(torch.float32).repeat(g, 1) - kqt.zs.to(torch.float32).repeat(g, 1)
+        return w[:, :k].to(dtype)
+    k, n = kqt.shape
+    w = c.view(n, k // g, g) * kqt.scale[:, :, None] - kqt.zs[:, :, None]
     return w.reshape(n, k).to(dtype)
 
 
-def dequant(kqt: KernelQTensor, dtype=torch.float32) -> torch.Tensor:
-    """W [N, K] in ``dtype`` (fp32, bf16 or fp16) from the kernel layout."""
+def dequant(kqt: "KernelQTensor | KernelQTensor0", dtype=torch.float32) -> torch.Tensor:
+    """W [N, K] in ``dtype`` (fp32, bf16 or fp16) from either kernel layout."""
     if _on_cpu(kqt.wq):
         return dequant_plain(kqt, dtype)
     dev = kqt.wq.device
-    _check_kqt(kqt, dev)
     if dtype not in _DTYPE_CODE:
         raise ValueError(f"dequant kernel writes fp32, bf16 or fp16, not {dtype}")
-    k, n = kqt.shape
-    out = torch.empty((n, k), dtype=dtype, device=dev)
-    lib = _build.library("dequant")
-    with torch.cuda.device(dev):
-        code = lib.hqq_dequant(
-            _ptr(kqt.wq, 4), _ptr(kqt.scale, 4), _ptr(kqt.zs, 4), _ptr(out, 4), n, k,
-            kqt.group_size, kqt.container_bits, _DTYPE_CODE[dtype], _stream(dev),
-        )
-    _build.check("dequant", code)
+    out = torch.empty((kqt.n, kqt.k), dtype=dtype, device=dev)
+    if isinstance(kqt, KernelQTensor0):
+        _check_kqt0(kqt, dev)
+        name = "dequant_ax0"
+        with torch.cuda.device(dev):
+            code = _build.library(name).hqq_dequant_ax0(
+                _ptr(kqt.wq, 4), _ptr(kqt.scale), _ptr(kqt.zs), _ptr(out), kqt.n, kqt.k,
+                kqt.k_pad, kqt.group_size, kqt.container_bits, _DTYPE_CODE[dtype],
+                _DTYPE_CODE[kqt.scale.dtype], _stream(dev),
+            )
+    else:
+        _check_kqt(kqt, dev)
+        name = "dequant"
+        with torch.cuda.device(dev):
+            code = _build.library(name).hqq_dequant(
+                _ptr(kqt.wq, 4), _ptr(kqt.scale, 4), _ptr(kqt.zs, 4), _ptr(out, 4), kqt.n, kqt.k,
+                kqt.group_size, kqt.container_bits, _DTYPE_CODE[dtype], _stream(dev),
+            )
+    _build.check(name, code)
     dequant.launches += 1
     return out
 
@@ -226,20 +368,25 @@ def quant_matmul_plain(x2: torch.Tensor, kqt: KernelQTensor) -> torch.Tensor:
     return (x2.to(torch.float32) @ w.to(torch.float32).t()).to(x2.dtype)
 
 
+def _kernel_activations(x2: torch.Tensor, k: int) -> torch.Tensor:
+    """x2 [M, K] as the tile kernels take it: bf16 or fp16, contiguous and
+    16-byte aligned."""
+    if x2.dtype not in (torch.bfloat16, torch.float16):
+        raise ValueError(f"the kernel takes bf16 or fp16 activations, not {x2.dtype}")
+    if x2.ndim != 2 or x2.shape[1] != k:
+        raise ValueError(f"x has shape {tuple(x2.shape)}, weight has K={k}")
+    x2 = x2.contiguous()
+    return x2.clone() if x2.data_ptr() % 16 else x2
+
+
 def quant_matmul(x2: torch.Tensor, kqt: KernelQTensor) -> torch.Tensor:
     """x2 [M, K] @ W^T -> [M, N] in x2's dtype (bf16 or fp16 on the card)."""
     if _on_cpu(x2):
         return quant_matmul_plain(x2, kqt)
     dev = x2.device
     _check_kqt(kqt, dev)
-    if x2.dtype not in (torch.bfloat16, torch.float16):
-        raise ValueError(f"quant_matmul kernel takes bf16 or fp16 activations, not {x2.dtype}")
+    x2 = _kernel_activations(x2, kqt.k)
     m, k = x2.shape
-    if k != kqt.k:
-        raise ValueError(f"x has K={k}, weight has K={kqt.k}")
-    x2 = x2.contiguous()
-    if x2.data_ptr() % 16:
-        x2 = x2.clone()
     out = torch.empty((m, kqt.n), dtype=x2.dtype, device=dev)
     lib = _build.library("quant_matmul")
     with torch.cuda.device(dev):
@@ -250,6 +397,91 @@ def quant_matmul(x2: torch.Tensor, kqt: KernelQTensor) -> torch.Tensor:
         )
     _build.check("quant_matmul", code)
     quant_matmul.launches += 1
+    return out
+
+
+def quant_matmul_lora_plain(
+    x2: torch.Tensor, kqt: KernelQTensor, a: torch.Tensor, b: torch.Tensor
+) -> torch.Tensor:
+    """Plain version of the quant_matmul_lora kernel: x2 @ W^T + (x2 @ A) @ B
+    with W and A rounded to x2's dtype, both products summed in fp32, B
+    applied to the fp32 partial in fp32, one rounding to x2's dtype."""
+    xf = x2.to(torch.float32)
+    base = xf @ dequant_plain(kqt, x2.dtype).to(torch.float32).t()
+    part = xf @ a.to(x2.dtype).to(torch.float32)
+    return (base + part @ b.to(torch.float32)).to(x2.dtype)
+
+
+def quant_matmul_lora(
+    x2: torch.Tensor, kqt: KernelQTensor, a: torch.Tensor, b: torch.Tensor
+) -> torch.Tensor:
+    """x2 [M, K] @ W^T + (x2 @ A) @ B -> [M, N] in x2's dtype, with A [K, r]
+    and B [r, N] (scaling folded in), any rank r >= 1, all in one kernel."""
+    if _on_cpu(x2):
+        return quant_matmul_lora_plain(x2, kqt, a, b)
+    dev = x2.device
+    _check_kqt(kqt, dev)
+    x2 = _kernel_activations(x2, kqt.k)
+    r = a.shape[-1]
+    if tuple(a.shape) != (kqt.k, r) or tuple(b.shape) != (r, kqt.n):
+        raise ValueError(f"LoRA needs A [{kqt.k}, r] and B [r, {kqt.n}], got {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}")
+    if r < 1:
+        raise ValueError("quant_matmul_lora needs a rank of at least 1")
+    if a.device != dev or b.device != dev:
+        raise ValueError(f"LoRA operands must be on {dev}")
+    a = a.to(torch.float32).contiguous()
+    b = b.to(torch.float32).contiguous()
+    m, k = x2.shape
+    out = torch.empty((m, kqt.n), dtype=x2.dtype, device=dev)
+    lib = _build.library("quant_matmul_lora")
+    with torch.cuda.device(dev):
+        code = lib.hqq_quant_matmul_lora(
+            _ptr(x2), _ptr(kqt.wq, 4), _ptr(kqt.scale, 4), _ptr(kqt.zs, 4), _ptr(a, 4),
+            _ptr(b, 4), _ptr(out, 2), m, kqt.n, k, r, kqt.group_size, kqt.container_bits,
+            _DTYPE_CODE[x2.dtype], _stream(dev),
+        )
+    _build.check("quant_matmul_lora", code)
+    quant_matmul_lora.launches += 1
+    return out
+
+
+def quant_matmul_ax0_plain(x2: torch.Tensor, kqt: KernelQTensor0) -> torch.Tensor:
+    """Plain version of the quant_matmul_ax0 kernel: x2 [M, K] @ W^T with W
+    dequantized in fp32 and rounded to x2's dtype, summed in fp32."""
+    w = dequant_plain(kqt, x2.dtype)
+    return (x2.to(torch.float32) @ w.to(torch.float32).t()).to(x2.dtype)
+
+
+def quant_matmul_ax0(x2: torch.Tensor, kqt: KernelQTensor0) -> torch.Tensor:
+    """x2 [M, K] @ W^T -> [M, N] in x2's dtype for an axis=0 weight, columns
+    in logical order."""
+    if _on_cpu(x2):
+        return quant_matmul_ax0_plain(x2, kqt)
+    dev = x2.device
+    _check_kqt0(kqt, dev)
+    pad = -kqt.k % 8  # the kernel reads rows of whole 16-byte chunks
+    if pad and x2.shape[-1] == kqt.k:
+        x2 = F.pad(x2, (0, pad))
+    x2 = _kernel_activations(x2, kqt.k + pad)
+    m, kx = x2.shape
+    n = kqt.n
+    out = torch.empty((m, n), dtype=x2.dtype, device=dev)
+    # few output tiles (decode): split K over blocks; each split writes an
+    # fp32 partial that the library's second kernel sums
+    tiles = -(-n // 64) * -(-m // 64)
+    splits = max(1, min(_AX0_MIN_BLOCKS // tiles, kqt.k_pad // 64))
+    part = torch.empty((splits, m, n), dtype=torch.float32, device=dev) if splits > 1 else None
+    lib = _build.library("quant_matmul_ax0")
+    with torch.cuda.device(dev):
+        code = lib.hqq_quant_matmul_ax0(
+            _ptr(x2), _ptr(kqt.wq, 4), _ptr(kqt.scale, 2), _ptr(kqt.zs, 2), _ptr(out, 2),
+            None if part is None else _ptr(part, 4), m, n, kx, kqt.k_pad, kqt.group_size,
+            kqt.container_bits, _DTYPE_CODE[x2.dtype], _DTYPE_CODE[kqt.scale.dtype], splits,
+            _stream(dev),
+        )
+    _build.check("quant_matmul_ax0", code)
+    quant_matmul_ax0.launches += 1
     return out
 
 
@@ -270,14 +502,8 @@ def w4a8_matmul_plain(
     return (out * sx).to(out_dtype)
 
 
-def w4a8_matmul(
-    x8: torch.Tensor, sx: torch.Tensor, kqt: KernelQTensor, out_dtype=torch.float32
-) -> torch.Tensor:
-    """int8 activations x8 [M, K] (M <= 32) with row scales sx [M, 1]
-    against a 1/2/4-bit (or 5/6-bit in the 8-bit container) weight ->
-    [M, N] in ``out_dtype``."""
-    if _on_cpu(x8):
-        return w4a8_matmul_plain(x8, sx, kqt, out_dtype)
+def _w4a8_operands(x8, sx, kqt, out_dtype):
+    """(x8, sx) as the w4a8 kernel takes them, checked against ``kqt``."""
     dev = x8.device
     _check_kqt(kqt, dev)
     m, k = x8.shape
@@ -293,6 +519,20 @@ def w4a8_matmul(
     sx = sx.to(torch.float32).contiguous()
     if sx.numel() != m or sx.device != dev:
         raise ValueError("sx must hold one fp32 scale per row, on the device of x8")
+    return x8, sx
+
+
+def w4a8_matmul(
+    x8: torch.Tensor, sx: torch.Tensor, kqt: KernelQTensor, out_dtype=torch.float32
+) -> torch.Tensor:
+    """int8 activations x8 [M, K] (M <= 32) with row scales sx [M, 1]
+    against a 1/2/4-bit (or 5/6-bit in the 8-bit container) weight ->
+    [M, N] in ``out_dtype``."""
+    if _on_cpu(x8):
+        return w4a8_matmul_plain(x8, sx, kqt, out_dtype)
+    dev = x8.device
+    x8, sx = _w4a8_operands(x8, sx, kqt, out_dtype)
+    m, k = x8.shape
     out = torch.empty((m, kqt.n), dtype=out_dtype, device=dev)
     lib = _build.library("w4a8_matmul")
     with torch.cuda.device(dev):
@@ -306,14 +546,59 @@ def w4a8_matmul(
     return out
 
 
-for _wrapper in (dequant, quant_matmul, w4a8_matmul):
-    _wrapper.launches = 0
+def w4a8_lora_matmul_plain(
+    x8: torch.Tensor, sx: torch.Tensor, kqt: KernelQTensor, xa: torch.Tensor, b: torch.Tensor,
+    out_dtype=torch.float32,
+) -> torch.Tensor:
+    """Plain version of the w4a8_lora kernel: the w4a8 base in fp32 plus
+    xa @ B in fp32, one rounding to ``out_dtype``."""
+    base = w4a8_matmul_plain(x8, sx, kqt, torch.float32)
+    return (base + xa.to(torch.float32) @ b.to(torch.float32)).to(out_dtype)
+
+
+def w4a8_lora_matmul(
+    x8: torch.Tensor, sx: torch.Tensor, kqt: KernelQTensor, xa: torch.Tensor, b: torch.Tensor,
+    out_dtype=torch.float32,
+) -> torch.Tensor:
+    """`w4a8_matmul` plus the LoRA epilogue xa [M, r] @ B [r, N] in fp32,
+    where xa = x @ A was computed from the unquantized activations."""
+    if _on_cpu(x8):
+        return w4a8_lora_matmul_plain(x8, sx, kqt, xa, b, out_dtype)
+    dev = x8.device
+    x8, sx = _w4a8_operands(x8, sx, kqt, out_dtype)
+    m, k = x8.shape
+    r = b.shape[0]
+    if r < 1 or tuple(xa.shape) != (m, r) or tuple(b.shape) != (r, kqt.n):
+        raise ValueError(f"LoRA epilogue needs xa [{m}, r] and B [r, {kqt.n}], got "
+                         f"{tuple(xa.shape)}, {tuple(b.shape)}")
+    if xa.device != dev or b.device != dev:
+        raise ValueError(f"LoRA operands must be on {dev}")
+    xa = xa.to(torch.float32).contiguous()
+    b = b.to(torch.float32).contiguous()
+    out = torch.empty((m, kqt.n), dtype=out_dtype, device=dev)
+    lib = _build.library("w4a8_lora_matmul")
+    with torch.cuda.device(dev):
+        code = lib.hqq_w4a8_lora_matmul(
+            _ptr(x8, 4), _ptr(sx, 4), _ptr(kqt.wq, 16), _ptr(kqt.scale, 4), _ptr(kqt.zs, 4),
+            _ptr(xa, 4), _ptr(b, 4), _ptr(out, 2), m, kqt.n, k, r, kqt.group_size,
+            kqt.container_bits, _DTYPE_CODE[out_dtype], _stream(dev),
+        )
+    _build.check("w4a8_lora_matmul", code)
+    w4a8_lora_matmul.launches += 1
+    return out
+
+
+_WRAPPERS = (dequant, quant_matmul, quant_matmul_lora, quant_matmul_ax0, w4a8_matmul,
+             w4a8_lora_matmul)
 
 
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
-    for w in (dequant, quant_matmul, w4a8_matmul):
+    for w in _WRAPPERS:
         w.launches = 0
+
+
+reset_launch_counts()
 
 
 # ---------------------------------------------------------------------------
@@ -331,24 +616,27 @@ def quantize_activations_int8(x2: torch.Tensor) -> tuple[torch.Tensor, torch.Ten
     return x8, sx
 
 
-def quant_matmul_pallas(x: torch.Tensor, kqt: KernelQTensor) -> torch.Tensor:
-    """``x @ W_dq^T`` for a kernel-layout weight: x [..., K] -> [..., N] in
-    x's dtype, fp32 accumulation (the `quant_matmul` kernel)."""
+def quant_matmul_pallas(x: torch.Tensor, kqt: "KernelQTensor | KernelQTensor0") -> torch.Tensor:
+    """``x @ W_dq^T`` for a kernel-layout weight of either axis: x [..., K]
+    -> [..., N] in x's dtype, fp32 accumulation (the `quant_matmul` or the
+    `quant_matmul_ax0` kernel)."""
     lead = x.shape[:-1]
-    out = quant_matmul(x.reshape(-1, kqt.k), kqt)
+    x2 = x.reshape(-1, kqt.k)
+    out = quant_matmul_ax0(x2, kqt) if isinstance(kqt, KernelQTensor0) else quant_matmul(x2, kqt)
     return out.reshape(*lead, kqt.n)
 
 
-def quant_matmul_pallas_a8(x: torch.Tensor, kqt: KernelQTensor) -> torch.Tensor:
+def quant_matmul_pallas_a8(x: torch.Tensor, kqt: "KernelQTensor | KernelQTensor0") -> torch.Tensor:
     """``x @ W_dq^T`` with int8 activations at decode sizes.
 
-    The routing of `hqq_tpu`'s `quant_matmul_pallas_a8`: 8-bit weights and
-    M > 32 rows (M = the product of the leading dims, so a prefill of
-    B*t_pad > 32) take the bf16-operand `quant_matmul` kernel with
+    The routing of `hqq_tpu`'s `quant_matmul_pallas_a8`: axis=0 weights
+    (their scales change along K within a row, so nothing factors out of an
+    int8 dot), 8-bit weights and M > 32 rows (M = the product of the leading
+    dims, so a prefill of B*t_pad > 32) take the bf16-operand kernels with
     full-precision activations; M <= 32 quantizes the activations per row
     to int8 and takes the `w4a8_matmul` kernel. The weight side is exact;
     the output is in x's dtype."""
-    if kqt.nbits == 8:
+    if isinstance(kqt, KernelQTensor0) or kqt.nbits == 8:
         return quant_matmul_pallas(x, kqt)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, kqt.k)
@@ -359,7 +647,42 @@ def quant_matmul_pallas_a8(x: torch.Tensor, kqt: KernelQTensor) -> torch.Tensor:
     return out.reshape(*lead, kqt.n)
 
 
-def dequant_pallas(kqt: KernelQTensor, dtype=torch.float32) -> torch.Tensor:
-    """W^T [K, N] in ``dtype`` (the `dequant` kernel writes W [N, K]; this
-    returns its transposed view, the reference's orientation)."""
+def quant_matmul_pallas_lora(
+    x: torch.Tensor, kqt: KernelQTensor, a: torch.Tensor, b: torch.Tensor
+) -> torch.Tensor:
+    """``x @ W_dq^T + (x @ a) @ b`` in one kernel (`quant_matmul_lora`).
+    a: [K, r], b: [r, N] with the adapter's scaling folded in; r <= 64."""
+    lead = x.shape[:-1]
+    out = quant_matmul_lora(x.reshape(-1, kqt.k), kqt, a, b)
+    return out.reshape(*lead, kqt.n)
+
+
+def quant_matmul_pallas_a8_lora(
+    x: torch.Tensor, kqt: KernelQTensor, a: torch.Tensor, b: torch.Tensor
+) -> torch.Tensor:
+    """``x @ W_dq^T + (x @ a) @ b`` with the base on the int8 decode kernel
+    and the adapter in its epilogue (`w4a8_lora_matmul`).
+
+    The routing of `hqq_tpu`'s `quant_matmul_pallas_a8_lora`: M > 32 and
+    8-bit weights take `quant_matmul_pallas_lora`. Its third route, K not a
+    multiple of 8 groups, does not exist here: the w4a8 kernel serves every
+    K % g == 0. The rank-r partial xa = x @ a is a plain matmul on the
+    unquantized activations, outside the kernel as in `hqq_tpu`, so the
+    adapter never sees the int8 rounding; the kernel adds xa @ b in fp32
+    after the multiply by the activation scale (`hqq_tpu` divides xa by that
+    scale first and multiplies the sum: equal to fp32 rounding)."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, kqt.k)
+    if x2.shape[0] > A8_MAX_M or kqt.nbits == 8:
+        return quant_matmul_pallas_lora(x, kqt, a, b)
+    x8, sx = quantize_activations_int8(x2)
+    xa = x2.to(torch.float32) @ a.to(torch.float32)
+    out = w4a8_lora_matmul(x8, sx, kqt, xa, b, x.dtype)
+    return out.reshape(*lead, kqt.n)
+
+
+def dequant_pallas(kqt: "KernelQTensor | KernelQTensor0", dtype=torch.float32) -> torch.Tensor:
+    """W^T [K, N] in ``dtype`` (the `dequant` kernel writes W [N, K] in
+    logical row order; this returns its transposed view, the reference's
+    orientation)."""
     return dequant(kqt, dtype).t()

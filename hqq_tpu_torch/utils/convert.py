@@ -4,8 +4,9 @@
 `params_from_numpy` takes a parameter tree of `hqq_tpu` whose arrays have
 been turned into numpy arrays (``jax.tree_util.tree_map(np.asarray, tree)``)
 and returns the same tree in this package's types on ``device``. It reads
-fields by attribute name only (``weight``, ``bias``, ``qweight`` and a
-QTensor's ``wq``/``scale``/``zero``/``nbits``/...), so it imports nothing of
+fields by attribute name only (``weight``, ``bias``, ``qweight``, a
+QTensor's ``wq``/``scale``/``zero``/``nbits``/... and a LoRALinear's
+``base``/``lora_a``/``lora_b``/``scaling``), so it imports nothing of
 `hqq_tpu`. A QTensor alone converts too.
 """
 
@@ -16,6 +17,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..core.peft import LoRALinear
 from ..core.quantize import QTensor
 from ..nn.linear import Linear, QuantLinear
 
@@ -56,15 +58,21 @@ def _qtensor(qt: Any, device) -> QTensor:
 
 def params_from_numpy(tree: Any, device="cuda") -> Any:
     """Convert an `hqq_tpu` tree (numpy leaves) to this package's types:
-    dicts and lists stay, arrays become tensors, ``Linear`` and
-    ``QuantLinear`` become their `nn.Module` counterparts, and a
-    ``QTensor`` becomes this package's `QTensor`."""
+    dicts and lists stay, arrays become tensors, ``Linear``,
+    ``QuantLinear`` and ``LoRALinear`` become their `nn.Module`
+    counterparts, and a ``QTensor`` becomes this package's `QTensor`."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_from_numpy(v, device) for v in tree]
     if tree is None:
         return None
+    if hasattr(tree, "lora_a"):
+        bias = None if tree.bias is None else tensor_from_numpy(tree.bias, device)
+        return LoRALinear(params_from_numpy(tree.base, device),
+                          tensor_from_numpy(tree.lora_a, device),
+                          tensor_from_numpy(tree.lora_b, device), bias, tree.scaling,
+                          getattr(tree, "dropout", 0.0))
     if hasattr(tree, "qweight"):
         bias = None if tree.bias is None else tensor_from_numpy(tree.bias, device)
         return QuantLinear(_qtensor(tree.qweight, device), bias)

@@ -6,10 +6,12 @@ sees no CUDA device, so on a CPU-only machine they all skip. On the GPU:
 ``python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q`` (the
 suite's conftest imports JAX, which the GPU machine need not have). They
 cover what ``chip_smoke.py`` does not: every container (1/2/4/8-bit), group sizes,
-ragged N, K tails, M from 1 to 32 (w4a8) and beyond (quant_matmul), and
-every output type. Tolerances (of max|y|): w4a8 in fp32 1e-5 (exact group
-dots, the fp32 epilogue sums in another order); bf16/fp16 outputs add one
-rounding of the output (2^-7 / 2^-10); dequant exact.
+ragged N, K tails, M from 1 to 32 (w4a8) and beyond (quant_matmul), LoRA
+ranks 4 to 200 (above 64 the kernel walks rank chunks), fp32 and bf16 scale and zs of the axis=0 layout, and every
+output type. Tolerances (of max|y|): w4a8 in fp32 1e-5 (exact group dots,
+the fp32 epilogue sums in another order); bf16/fp16 outputs add one rounding
+of the output (2^-7 / 2^-10), doubled for the tile kernels, whose fp32 sums
+of bf16 products run in another order before that rounding; dequant exact.
 """
 
 import pytest
@@ -89,12 +91,113 @@ def test_dequant_exact(cuda, nbits, g):
         assert torch.equal(fm.dequant(kqt, dtype), fm.dequant_plain(kqt, dtype))
 
 
+def _lora(k, n, r, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    a = (torch.rand((k, r), generator=gen, device=device) * 2 - 1) * (6.0 / k) ** 0.5
+    b = torch.randn((r, n), generator=gen, device=device) * 0.05
+    return a, b
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("m,nbits,g,k,n,r", [
+    (1, 4, 64, 512, 1000, 8),     # ragged N
+    (33, 4, 64, 4096, 256, 4),
+    (100, 4, 32, 96, 200, 16),    # K tail inside a 64-wide slab
+    (512, 4, 64, 1024, 512, 64),  # the widest single chunk
+    (512, 4, 64, 1024, 512, 65),  # one rank into the second chunk
+    (100, 4, 64, 512, 1000, 128), # two whole chunks, ragged N
+    (40, 2, 64, 512, 256, 200),   # four chunks, the last one partial
+    (70, 8, 64, 512, 256, 8),     # 8-bit: the route of every M
+    (70, 2, 64, 512, 256, 24),    # a rank between fragment sizes
+    (4, 1, 32, 512, 256, 33),
+    (32, 3, 64, 512, 256, 8),
+])
+def test_quant_matmul_lora(cuda, dtype, m, nbits, g, k, n, r):
+    kqt = _kqt(n, k, g, nbits, cuda)
+    a, b = _lora(k, n, r, cuda, seed=m)
+    x = torch.randn((m, k), device=cuda).to(dtype)
+    ref = fm.quant_matmul_lora_plain(x, kqt, a, b)
+    _close(fm.quant_matmul_lora(x, kqt, a, b), ref, _OUT_TOL[dtype] * 2)
+    # the adapter is in the sum: the base alone misses the bar
+    err = (fm.quant_matmul_plain(x, kqt).float() - ref.float()).abs().max()
+    assert err > _OUT_TOL[dtype] * 2 * ref.float().abs().max()
+
+
+@pytest.mark.parametrize("m", [1, 4, 8, 17, 32])
+@pytest.mark.parametrize("nbits,g,k,n,r", [
+    (4, 64, 512, 1000, 8),      # ragged N
+    (4, 64, 64 * 67, 256, 4),   # K not a multiple of 32 groups
+    (2, 16, 512, 256, 64),      # more ranks than lanes
+    (1, 32, 512, 256, 8),
+    (3, 64, 512, 256, 16),
+])
+def test_w4a8_lora_matmul(cuda, m, nbits, g, k, n, r):
+    kqt = _kqt(n, k, g, nbits, cuda, seed=m)
+    a, b = _lora(k, n, r, cuda, seed=m)
+    x = torch.randn((m, k), device=cuda)
+    x8, sx = fm.quantize_activations_int8(x)
+    xa = x @ a
+    for dtype, tol in _OUT_TOL.items():
+        ref = fm.w4a8_lora_matmul_plain(x8, sx, kqt, xa, b, dtype)
+        _close(fm.w4a8_lora_matmul(x8, sx, kqt, xa, b, dtype), ref, tol)
+    err = (fm.w4a8_matmul_plain(x8, sx, kqt) - ref.float()).abs().max()
+    assert err > 1e-3 * ref.float().abs().max()
+
+
+def _kqt0(n, k, g, nbits, meta_dtype, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w = torch.randn((n, k), generator=gen, device=device) / k**0.5
+    return fm.to_kernel_layout_ax0(quantize(w, nbits=nbits, group_size=g, axis=0), meta_dtype)
+
+
+_AX0_CASES = [
+    (4, 64, 512, 1024),
+    (3, 64, 512, 320),     # N not a multiple of 64: a ragged last tile
+    (2, 16, 1024, 320),    # 2-bit g16, N not a multiple of 8*g
+    (2, 64, 200, 256),     # K padded to 224, x padded to whole 16-byte chunks
+    (1, 32, 512, 192),
+    (1, 16, 96, 128),
+    (8, 8, 72, 64),
+    (3, 128, 4096, 256),   # a tile is half a group
+]
+
+
+@pytest.mark.parametrize("meta_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 4, 32, 33, 512])
+@pytest.mark.parametrize("nbits,g,k,n", _AX0_CASES)
+def test_quant_matmul_ax0(cuda, meta_dtype, m, nbits, g, k, n):
+    kqt = _kqt0(n, k, g, nbits, meta_dtype, cuda, seed=m)
+    for dtype in (torch.bfloat16, torch.float16):
+        x = torch.randn((m, k), device=cuda).to(dtype)
+        _close(fm.quant_matmul_ax0(x, kqt), fm.quant_matmul_ax0_plain(x, kqt), _OUT_TOL[dtype] * 2)
+
+
+@pytest.mark.parametrize("meta_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nbits,g,k,n", _AX0_CASES)
+def test_dequant_ax0_exact(cuda, meta_dtype, nbits, g, k, n):
+    kqt = _kqt0(n, k, g, nbits, meta_dtype, cuda)
+    for dtype in _OUT_TOL:
+        got = fm.dequant(kqt, dtype)
+        assert tuple(got.shape) == (n, k) and torch.equal(got, fm.dequant_plain(kqt, dtype))
+
+
 def test_routing_counts_and_no_fallback(cuda):
     kqt = _kqt(256, 512, 64, 4, cuda)
+    kqt0 = _kqt0(256, 512, 16, 2, torch.bfloat16, cuda)
+    a, b = _lora(512, 256, 8, cuda)
+    decode = torch.randn(2, 3, 512, device=cuda).to(torch.bfloat16)   # M = 6
+    prefill = torch.randn(5, 8, 512, device=cuda).to(torch.bfloat16)  # M = 40
     fm.reset_launch_counts()
-    fm.quant_matmul_pallas_a8(torch.randn(2, 3, 512, device=cuda).to(torch.bfloat16), kqt)
-    fm.quant_matmul_pallas_a8(torch.randn(5, 8, 512, device=cuda).to(torch.bfloat16), kqt)
+    for x in (decode, prefill):
+        fm.quant_matmul_pallas_a8(x, kqt)
+        fm.quant_matmul_pallas_a8_lora(x, kqt, a, b)
+        fm.quant_matmul_pallas_a8(x, kqt0)
     fm.dequant_pallas(kqt)
-    assert (fm.w4a8_matmul.launches, fm.quant_matmul.launches, fm.dequant.launches) == (1, 1, 1)
-    with pytest.raises(ValueError):  # the kernel takes bf16/fp16 operands only
+    fm.dequant_pallas(kqt0)
+    counts = {w.__name__: w.launches for w in fm._WRAPPERS}
+    assert counts == {"w4a8_matmul": 1, "quant_matmul": 1, "w4a8_lora_matmul": 1,
+                      "quant_matmul_lora": 1, "quant_matmul_ax0": 2, "dequant": 2}
+    with pytest.raises(ValueError):  # the kernels take bf16/fp16 operands only
         fm.quant_matmul(torch.randn(40, 512, device=cuda), kqt)
+    with pytest.raises(ValueError):
+        fm.quant_matmul_ax0(torch.randn(40, 512, device=cuda), kqt0)
