@@ -1,8 +1,10 @@
 # SPDX-License-Identifier: Apache-2.0
-"""Chip smoke test of hqq_tpu_torch: HQQ Llama-2-7B on one GPU, three ways.
+"""Chip smoke test of hqq_tpu_torch: HQQ Llama-2-7B on one GPU, five ways.
 
     python3 chip_smoke.py            # on cuda:0, every phase
     python3 chip_smoke.py --time quant_matmul 512 4096 4096      # one kernel
+    python3 chip_smoke.py --time paged_attention 8 1024 32 32    # slots, length, heads, kv heads
+    python3 chip_smoke.py --time flash_attention 1 1023 32 32    # batch, T, heads, kv heads
 
 Phases (any failure exits non-zero):
   (a) device and build: the card, its power limit, and an nvcc build of
@@ -11,7 +13,9 @@ Phases (any failure exits non-zero):
       shapes: largest error against the stated tolerance, kernel time, plain
       time, the least time the card could take (bound), and for the matmuls
       torch.matmul on the pre-dequantized bf16 weight (a yardstick only; for
-      the LoRA kernels the sum of the three torch.matmul calls);
+      the LoRA kernels the sum of the three torch.matmul calls; for the two
+      attention kernels scaled_dot_product_attention, on the gathered dense
+      K/V for the paged one);
   (c) the main path: Llama-2-7B at full width and depth with random weights
       from a seed, quantize_model(4-bit, g64), prepare_for_inference("w4a8"),
       generate for 4 prompts of 100 tokens (prefill M = 4*128 = 512 rows),
@@ -32,7 +36,28 @@ Phases (any failure exits non-zero):
   (f) axis=0 serving: the 7B model, attention 3-bit g64 axis=0, MLP 2-bit
       g16 axis=0, "w4a8": prefill and decode through quant_matmul_ax0, and
       .dequantize() through the dequant kernel. The same measurements and
-      checks; the control reads each group's neighbour's scale.
+      checks; the control reads each group's neighbour's scale;
+  (g) paged continuous-batching serving, on phase c's model: a
+      PagedBatchingEngine of 8 slots over a bf16 pool of 1024 pages of 16
+      rows (8 GiB) answers 12 greedy requests of 64-640 prompt tokens and 32
+      new ones, so that slots refill; then the same over int8 pages; requests
+      that share a 256-token prefix with and without the prefix cache; a
+      chunked prefill against an unchunked one; one cancel. Every decode
+      step launches paged_attention once per layer. Decode tok/s, step ms
+      and its byte bound, the device's busy share, peak memory; some decode
+      steps call by call, kernel against plain on the path's own q, pool and
+      block table, with controls that must fail the bar (lengths - 1, a page
+      of another slot, for int8 a neighbour row's scale); on a 2-layer
+      model, the logits of paged decode steps against the dense-cache steps;
+  (h) cache-free perplexity evaluation, on the same model: `perplexity` over
+      4096 token ids from a seed, windows of 1024 by a stride of 512: 7
+      windows of T = 1023, each with 32 flash_attention launches and
+      quant_matmul at M = 1023. Seconds per window and the value; one
+      window's calls kernel against plain with a control (the mask shifted by
+      one); on the 2-layer model, cache=None logits against the dense-cache
+      forward, and the perplexity through the kernel against the one through
+      its plain version.
+Phases g and h run right after c, on its model, before d.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -43,7 +68,10 @@ for comparing two checkouts on one card. Unpack the parent beside the change
 (`git archive`) and run both from one shell command, in turns: parent,
 change, change, parent. KERNEL is quant_matmul, w4a8_matmul,
 quant_matmul_lora or w4a8_lora_matmul (4-bit g64, RANK 8 unless given),
-quant_matmul_ax0 or dequant_ax0 (2-bit g16, bf16 scale and zs).
+quant_matmul_ax0 or dequant_ax0 (2-bit g16, bf16 scale and zs); for
+paged_attention the four numbers are slots, length, query heads and kv heads
+(bf16 pages of 16 rows, head size 128), for flash_attention batch, T, query
+heads and kv heads (bf16, causal, head size 128).
 """
 
 from __future__ import annotations
@@ -73,6 +101,8 @@ KERNELS = {
                          "hqq_tpu/ops/fused_matmul.py:1318"),
     "quant_matmul_lora": ("quant_matmul_lora.cu", "hqq_tpu/ops/fused_matmul.py:1521", None),
     "w4a8_lora_matmul": ("w4a8_matmul.cu", "hqq_tpu/ops/fused_matmul.py:1609", None),
+    "paged_attention": ("paged_attention.cu", "hqq_tpu/ops/paged.py:275", None),
+    "flash_attention": ("flash_prefill.cu", "hqq_tpu/ops/attention.py:66", None),
 }
 # the row of phase b that stands for each kernel in the last-but-one line
 PICK = {
@@ -82,7 +112,11 @@ PICK = {
     "quant_matmul_ax0": (4, 4096, 11008, "2-bit g16 axis=0, bf16 meta"),
     "quant_matmul_lora": (512, 4096, 4096, "r=8"),
     "w4a8_lora_matmul": (4, 4096, 11008, "r=8"),
+    "paged_attention": (8, 1024, 32, "bf16 pages of 16 rows, 32/32 heads, head size 128"),
+    "flash_attention": (1, 1023, 32, "bf16, causal, 32/32 heads, head size 128"),
 }
+# head size and page geometry of the attention rows and of paths G and H
+HEAD_DIM, PAGE, MAX_PAGES = 128, 16, 64
 LORA_RANK, LORA_ALPHA, LORA_B_STD = 8, 16, 0.05
 
 
@@ -239,6 +273,155 @@ def _copies(kqt, x, bytes_each: int):
                                         zs=kqt.zs.clone()) for _ in range(n - 1)]
     xs = [x] + [x.clone() for _ in range(n - 1)] if x is not None else [None] * n
     return kqts, xs
+
+
+
+def _paged_inputs(lengths, nh: int, n_kv: int, int8: bool, n_tables: int, seed: int):
+    """A page pool with random rows and ``n_tables`` block tables over
+    disjoint pages of it (page 0 stays scratch; entries past a slot's pages
+    point at it, as the engine's do). Returns (q, k, v, lengths, tables, ks,
+    vs): bf16 pages with bf16 q, or int8 pages with their scales and fp32 q."""
+    from hqq_tpu_torch.ops.paged import quant_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b = len(lengths)
+    per = -(-max(lengths) // PAGE)
+    num_pages = 1 + n_tables * b * per
+    shape = (n_kv, num_pages, PAGE, HEAD_DIM)
+    k = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+    v = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+    q = torch.randn((b, nh, HEAD_DIM), generator=gen, device="cuda") * HEAD_DIM**-0.5
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    perm = 1 + torch.randperm(num_pages - 1, generator=gen, device="cuda")
+    tabs = torch.zeros((n_tables, b, MAX_PAGES), dtype=torch.int32, device="cuda")
+    tabs[:, :, :per] = perm.reshape(n_tables, b, per).to(torch.int32)
+    used = (lens[:, None] + PAGE - 1) // PAGE
+    tabs = torch.where(torch.arange(MAX_PAGES, device="cuda")[None, None, :] < used[None], tabs, 0)
+    if int8:
+        k, ks = quant_rows(k)
+        v, vs = quant_rows(v)
+        return q, k, v, lens, tabs, ks, vs
+    return q.to(torch.bfloat16), k, v, lens, tabs, None, None
+
+
+def _gathered_dense(pages, scales, tab, nh: int):
+    """The block table's rows of a pool as dense bf16 [B, nh, S, hd] (int8
+    pages dequantized, kv heads repeated): what a library call would take."""
+    seq = pages[:, tab.long()]  # [H, B, MP, pg, hd]
+    if scales is not None:
+        seq = seq.float() * (scales[:, tab.long()] / 127.0)
+    h, b, mp, pg, hd = seq.shape
+    seq = seq.permute(1, 0, 2, 3, 4).reshape(b, h, mp * pg, hd).to(torch.bfloat16)
+    return seq.repeat_interleave(nh // h, dim=1) if nh > h else seq
+
+
+def _paged_bound(lengths, nh: int, n_kv: int, int8: bool):
+    """Bytes and fp32 operations of one paged-attention call: the attended K
+    and V rows (and their scales) read once, q read and out written once."""
+    rows = float(sum(lengths)) * n_kv
+    esize = 1 if int8 else 2
+    qsize = 4 if int8 else 2
+    nbytes = (2 * rows * HEAD_DIM * esize + (8 * rows if int8 else 0)
+              + 2 * len(lengths) * nh * HEAD_DIM * qsize + len(lengths) * (4 + 4 * MAX_PAGES))
+    return nbytes, 4.0 * sum(lengths) * nh * HEAD_DIM
+
+
+def _flash_inputs(b: int, nh: int, n_kv: int, t: int, copies: int, seed: int):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def one(heads):
+        return torch.randn((b, heads, t, HEAD_DIM), generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+
+    return [(one(nh), one(n_kv), one(n_kv)) for _ in range(copies)]
+
+
+def _sdpa_causal(q, k, v):
+    import torch.nn.functional as F
+
+    rep = q.shape[1] // k.shape[1]
+    if rep > 1:
+        k, v = k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1)
+    return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+
+# bars of the attention kernels against their plain versions, of max|out|.
+# Two bf16 roundings of nearly equal values can fall to different sides, one
+# step (2^-7 of the value) apart. paged, bf16 pages: the kernel rounds the
+# output once; the plain version also rounds the probabilities to bf16, an
+# error of the size of one more rounding of the output: two steps. flash,
+# bf16: both round the probabilities (the plain version normalised, the
+# kernel before the division by the fp32 sum) and the output: two steps.
+# paged, int8 pages (all fp32): sums in another order and another exp.
+TOL_PAGED_BF16, TOL_PAGED_INT8, TOL_FLASH_BF16 = 2.0**-6, 2e-5, 2.0**-6
+# against the plain version on the same values in fp32 (probabilities and
+# output unrounded) only the kernel's own rounding of the output is left,
+# half a step: the bar of the call-by-call checks of path G
+TOL_PAGED_BF16_VS_FP32 = 2.0**-7
+
+
+def phase_b_attention(record, held, iters: int) -> None:
+    import torch.nn.functional as F
+
+    from hqq_tpu_torch.ops import attention as at
+    from hqq_tpu_torch.ops import paged as pa
+
+    around = {256: [200, 230, 256, 257, 270, 300, 240, 290],
+              1024: [1024, 1000, 990, 1010, 960, 1024, 1017, 975]}
+    cases = [(32, 32, False, 256), (32, 32, False, 1024), (32, 32, True, 256),
+             (32, 32, True, 1024), (32, 8, False, 1024)]
+    for nh, n_kv, int8, nominal in cases:
+        lengths = around[nominal]
+        nbytes, fp32_ops = _paged_bound(lengths, nh, n_kv, int8)
+        n_tables = max(1, min(16, -(-ROTATE_BYTES // int(nbytes))))
+        q, k, v, lens, tabs, ks, vs = _paged_inputs(lengths, nh, n_kv, int8, n_tables,
+                                                    seed=nominal + n_kv + int8)
+        what = f"{'int8' if int8 else 'bf16'} pages {nh}/{n_kv} heads, lengths around {nominal}"
+        err = held("paged_attention", pa.paged_attention(q, k, v, lens, tabs[0], ks, vs),
+                   pa.paged_attention_plain(q, k, v, lens, tabs[0], ks, vs),
+                   TOL_PAGED_INT8 if int8 else TOL_PAGED_BF16, what)
+        ms = time_ms([lambda tab=tab: pa.paged_attention(q, k, v, lens, tab, ks, vs)
+                      for tab in tabs], iters)
+        plain = time_ms([lambda: pa.paged_attention_plain(q, k, v, lens, tabs[0], ks, vs)],
+                        max(3, iters // 10))
+        dense_k, dense_v = _gathered_dense(k, ks, tabs[0], nh), _gathered_dense(v, vs, tabs[0], nh)
+        q4 = q.to(torch.bfloat16)[:, :, None, :]
+        mask = (torch.arange(dense_k.shape[2], device="cuda")[None, :] < lens[:, None])[:, None, None]
+        lib = time_ms([lambda: F.scaled_dot_product_attention(q4, dense_k, dense_v, attn_mask=mask,
+                                                              scale=1.0)], iters)
+        del dense_k, dense_v, k, v, ks, vs
+        b_ms, by = bound_ms(nbytes, 0.0, "bf16", fp32_ops=fp32_ops)
+        note = (f"{'int8' if int8 else 'bf16'} pages of {PAGE} rows, {nh}/{n_kv} heads, "
+                f"head size {HEAD_DIM}")
+        record("paged_attention", dict(
+            kernel="paged_attention", m=len(lengths), k=nominal, n=nh, max_abs_err=err, ms=ms,
+            plain_ms=plain, bound_ms=b_ms, bound_by=by, library_ms=lib, note=note,
+            library="scaled_dot_product_attention on the gathered dense bf16 K/V (the gather "
+                    "not timed)",
+            shape=dict(slots=len(lengths), lengths=lengths, heads=nh, kv_heads=n_kv,
+                       head_dim=HEAD_DIM, page_size=PAGE, pages="int8" if int8 else "bf16")))
+        torch.cuda.empty_cache()
+
+    for b, nh, n_kv, t in [(1, 32, 32, 1023), (4, 32, 32, 512), (1, 32, 8, 1023)]:
+        each = 2 * b * t * HEAD_DIM * (2 * nh + 2 * n_kv)  # q, out, k, v in bf16
+        qkv = _flash_inputs(b, nh, n_kv, t, max(1, min(16, -(-ROTATE_BYTES // each))), seed=t + n_kv)
+        q, k, v = qkv[0]
+        err = held("flash_attention", at.flash_attention(q, k, v, True),
+                   at.flash_attention_plain(q, k, v, True), TOL_FLASH_BF16,
+                   f"B={b} heads {nh}/{n_kv} T={t}")
+        ms = time_ms([lambda a=a: at.flash_attention(*a, True) for a in qkv], iters)
+        plain = time_ms([lambda: at.flash_attention_plain(q, k, v, True)], max(3, iters // 10))
+        lib = time_ms([lambda: _sdpa_causal(q, k, v)], iters)
+        # 2 * B * H * T * T * hd multiply-adds, halved for causality
+        b_ms, by = bound_ms(each, 2.0 * b * nh * t * t * HEAD_DIM, "bf16")
+        record("flash_attention", dict(
+            kernel="flash_attention", m=b, k=t, n=nh, max_abs_err=err, ms=ms, plain_ms=plain,
+            bound_ms=b_ms, bound_by=by, library_ms=lib,
+            note=f"bf16, causal, {nh}/{n_kv} heads, head size {HEAD_DIM}",
+            library="scaled_dot_product_attention(is_causal=True)",
+            shape=dict(batch=b, heads=nh, kv_heads=n_kv, t=t, head_dim=HEAD_DIM, causal=True)))
+        del qkv
+        torch.cuda.empty_cache()
 
 
 def phase_b() -> dict:
@@ -443,6 +626,7 @@ def phase_b() -> dict:
                            plain_ms=plain, bound_ms=b_ms, bound_by=by, library_ms=None,
                            note="2-bit g16 axis=0, bf16 meta"))
     torch.cuda.empty_cache()
+    phase_b_attention(record, held, iters)
     log(f"[b] card right after the timings: {card_state()}")
     return rows
 
@@ -469,6 +653,28 @@ def _fill_lora_b(params, seed: int) -> None:
     _map_lora(params, fill)
 
 
+def _step_weight_bytes(tree) -> int:
+    """What a decode step must read of the model: every linear's codes,
+    scale and zs and its adapter (and lm_head's bf16 weight) once."""
+    if isinstance(tree, dict):
+        return sum(_step_weight_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_step_weight_bytes(v) for v in tree)
+    if hasattr(tree, "kqt"):
+        return _weight_bytes(tree.kqt) + sum(
+            t.numel() * t.element_size() for t in (getattr(tree, "a", None),
+                                                   getattr(tree, "b", None)) if t is not None)
+    if hasattr(tree, "weight"):
+        return tree.weight.numel() * tree.weight.element_size()
+    return 0
+
+
+def launch_counts() -> dict:
+    from hqq_tpu_torch import ops
+
+    return {w.__name__: w.launches for w in ops.kernel_wrappers()}
+
+
 def serve_7b(tag: str, dev_tag: str, quant_config, expect: dict, after_quantize=None,
              extra=None):
     """Drive one main path at the full width and depth of Llama-2-7B: random
@@ -478,9 +684,9 @@ def serve_7b(tag: str, dev_tag: str, quant_config, expect: dict, after_quantize=
     after. ``expect`` maps a wrapper's name to its launches per prefill and
     per decode step; ``extra(model)`` runs inside the window. Returns
     (launches of the window, the model)."""
+    from hqq_tpu_torch import ops
     from hqq_tpu_torch.engine.hf import HQQModel
     from hqq_tpu_torch.models.llama import LlamaConfig, init_params
-    from hqq_tpu_torch.ops import fused_matmul as fm
 
     cfg = LlamaConfig.llama2_7b()
     torch.cuda.reset_peak_memory_stats()
@@ -508,22 +714,10 @@ def serve_7b(tag: str, dev_tag: str, quant_config, expect: dict, after_quantize=
     prompts = _prompts(cfg)
     new = NEW_TOKENS
 
-    # the least a decode step must read: every linear's codes, scale and zs
-    # and its adapter (and lm_head's bf16 weight) once, plus the K/V of the
+    # the least a decode step must read: the weights, plus the K/V of the
     # positions attended, here on average prompt + new/2 (embeddings: B
     # rows, left out)
-    def step_bytes(tree):
-        if isinstance(tree, dict):
-            return sum(step_bytes(v) for v in tree.values())
-        if isinstance(tree, list):
-            return sum(step_bytes(v) for v in tree)
-        if hasattr(tree, "kqt"):
-            return _weight_bytes(tree.kqt) + sum(
-                t.numel() * t.element_size() for t in (getattr(tree, "a", None),
-                                                       getattr(tree, "b", None)) if t is not None)
-        if hasattr(tree, "weight"):
-            return tree.weight.numel() * tree.weight.element_size()
-        return 0
+    step_bytes = _step_weight_bytes
 
     kv_bytes = (2 * cfg.num_hidden_layers * prompts.shape[0] * cfg.num_key_value_heads
                 * cfg.head_dim_ * 2 * (prompts.shape[1] + new // 2))
@@ -532,11 +726,10 @@ def serve_7b(tag: str, dev_tag: str, quant_config, expect: dict, after_quantize=
         f"{kv_bytes / 1e9:.3f} GB of K/V per step -> {bound_step_ms:.3f} ms per step, "
         f"{prompts.shape[0] / bound_step_ms * 1e3:.1f} tok/s at B={prompts.shape[0]}")
 
-    def counts():
-        return {w.__name__: w.launches for w in fm._WRAPPERS}
+    counts = launch_counts
 
     # the main path's window: every count from 0, read right after
-    fm.reset_launch_counts()
+    ops.reset_launch_counts()
     model.generate(prompts, max_new_tokens=1)  # first call: lazy set-up
     torch.cuda.synchronize()
     per_prefill = counts()
@@ -623,7 +816,9 @@ def check_calls(tag: str, model, wrappers: dict, steps: int = 2) -> None:
             raise AssertionError(f"[{tag}] the bar does not catch a control of {name}")
 
 
-def phase_c(dev_tag: str) -> dict:
+def phase_c(dev_tag: str):
+    """Returns (launches of the window, the prepared model): phases g and h
+    go on with the model."""
     from hqq_tpu_torch import BaseQuantizeConfig
 
     seen = {}
@@ -646,10 +841,7 @@ def phase_c(dev_tag: str) -> dict:
     missing = [k for k in ("w4a8_matmul", "quant_matmul", "dequant") if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
-    del model
-    gc.collect()
-    torch.cuda.empty_cache()
-    return launches
+    return launches, model
 
 
 def phase_d(n_layers: int = 2) -> None:
@@ -925,9 +1117,517 @@ def phase_f(dev_tag: str) -> dict:
     return launches
 
 
-def time_one(kernel: str, m: int, k: int, n: int, r: int = LORA_RANK) -> dict:
+G_SLOTS, G_PAGES, G_NEW = 8, 1024, 32
+
+
+def _serve_paged(model, prompts, new: int, **kw):
+    """Answer ``prompts`` through a PagedBatchingEngine over phase g's pool.
+    Returns (outputs in request order, one record per decode call, wall
+    seconds, the engine's end state)."""
+    from hqq_tpu_torch.serving.paged import PagedBatchingEngine
+
+    eng = PagedBatchingEngine(model.params, model.cfg, batch_slots=G_SLOTS, num_pages=G_PAGES,
+                              page_size=PAGE, max_pages_per_seq=MAX_PAGES, **kw)
+    records = []
+    decode = eng._decode
+
+    def timed(steps):
+        live = list(eng.active)
+        rows = sum(int(eng._pos[s]) + 1 for s in live)  # keys attended in the first step
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = decode(steps)  # ends in a read-back of the tokens
+        records.append(dict(steps=steps, live=len(live), rows=rows, ms=(time.time() - t0) * 1e3))
+        return out
+
+    eng._decode = timed
+    torch.cuda.synchronize()
+    t0 = time.time()
+    uids = [eng.add_request(p, max_new_tokens=new) for p in prompts]
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    state = dict(hits=eng.prefix_cache_hits, free=len(eng.free_pages))
+    eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    outs = [out[u] for u in uids]
+    vocab = model.cfg.vocab_size
+    if any(len(o) != new or min(o) < 0 or max(o) >= vocab for o in outs):
+        raise AssertionError(f"unexpected outputs: lengths {[len(o) for o in outs]}")
+    return outs, records, wall, state
+
+
+def phase_g(dev_tag: str, model) -> dict:
+    import numpy as np
+
+    from hqq_tpu_torch import ops
+    from hqq_tpu_torch.serving.paged import PagedBatchingEngine
+
+    cfg = model.cfg
+    layers, n_kv = cfg.num_hidden_layers, cfg.num_key_value_heads
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in rng.integers(64, 641, 12)]
+    weights = _step_weight_bytes(model.params)
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path's window: every count from 0, read right after
+    ops.reset_launch_counts()
+    runs = {}
+    for name, kw in (("bf16 pages", {}), ("int8 pages", dict(quantize_kv=True))):
+        before = launch_counts()["paged_attention"]
+        outs, recs, wall, state = _serve_paged(model, prompts, G_NEW, **kw)
+        got = launch_counts()["paged_attention"] - before
+        steps = sum(r["steps"] for r in recs)
+        if got != layers * steps or steps < G_NEW - 1:
+            raise AssertionError(f"[g] {name}: {got} paged_attention launches in {steps} decode "
+                                 f"steps, expected {layers} per step")
+        if state["free"] != G_PAGES - 1:
+            raise AssertionError(f"[g] {name}: {state['free']} pages free at the end")
+        decode_s = sum(r["ms"] for r in recs) / 1e3
+        tokens = sum(r["live"] * r["steps"] for r in recs)
+        row_bytes = 2 * layers * n_kv * HEAD_DIM * (1 if kw else 2) + (8 * layers * n_kv if kw else 0)
+        kv = sum(r["rows"] for r in recs) / len(recs) * row_bytes
+        bound = (weights + kv) / HBM_BYTES_PER_S * 1e3
+        log(f"[g] {dev_tag} {name}: 12 requests (prompts {[len(p) for p in prompts]}, "
+            f"{G_NEW} new tokens each) over {G_SLOTS} slots in {wall:.2f} s; {steps} decode steps, "
+            f"{got} paged_attention launches ({layers} per step); decode {tokens / decode_s:.1f} "
+            f"tok/s over all slots, {decode_s / steps * 1e3:.2f} ms per step; byte bound of a step "
+            f"{bound:.3f} ms ({weights / 1e9:.3f} GB of weights and meta + {kv / 1e9:.3f} GB of "
+            f"K/V rows on average); ids[0][:8] {outs[0][:8]}")
+        runs[name] = outs
+    same = sum(a == b for a, b in zip(runs["bf16 pages"], runs["int8 pages"]))
+    log(f"[g] int8 pages give the tokens of bf16 pages in {same} of 12 requests (not required: "
+        f"the K/V rows are rounded to 8 bits)")
+
+    # the device's share of a steady decode window: 8 live slots, 8 steps
+    eng = PagedBatchingEngine(model.params, cfg, batch_slots=G_SLOTS, num_pages=G_PAGES,
+                              page_size=PAGE, max_pages_per_seq=MAX_PAGES)
+    for _ in range(G_SLOTS):
+        eng.add_request(rng.integers(0, cfg.vocab_size, 256), max_new_tokens=G_NEW)
+    eng.step()
+    busy = device_share(lambda: [eng.step() for _ in range(8)])
+    eng.run()
+    eng.close()
+    del eng
+    log(f"[g] {dev_tag}: 8 decode steps of 8 slots at lengths around 260: device busy "
+        f"{busy['busy_share']:.3f} of {busy['wall_ms']:.1f} ms wall; device ms by kernel: "
+        f"{busy['top']}")
+
+    # prefix cache: requests that share their first 256 tokens (suffixes of
+    # more than 32 tokens: see the chunked prefill below)
+    head = rng.integers(0, cfg.vocab_size, 256)
+    shared = [np.concatenate([head, rng.integers(0, cfg.vocab_size, int(n))])
+              for n in rng.integers(64, 129, 6)]
+    cached, _, wall_c, state = _serve_paged(model, shared, 16, enable_prefix_cache=True)
+    uncached, _, wall_u, _ = _serve_paged(model, shared, 16)
+    agree = sum(a == b for a, b in zip(cached, uncached))
+    log(f"[g] prefix cache: 6 requests sharing 256 tokens: {state['hits']} pages reused, "
+        f"{wall_c:.2f} s against {wall_u:.2f} s without; the same tokens in {agree} of 6 requests")
+    if agree != 6:
+        raise AssertionError("[g] the prefix cache changes the tokens")
+    if state["hits"] != 5 * (256 // PAGE):
+        raise AssertionError(f"[g] {state['hits']} prefix pages reused, expected {5 * 256 // PAGE}")
+
+    # chunked prefill against unchunked. Every chunk here keeps more than 32
+    # rows, the route of `quant_matmul`: a last chunk of 32 tokens or fewer
+    # goes through the int8-activation kernel, as in `hqq_tpu`, and may then
+    # round to other tokens than the unchunked prefill
+    long = [rng.integers(0, cfg.vocab_size, n) for n in (600, 300, 560)]
+    chunked, recs_c, _, _ = _serve_paged(model, long, 16, prefill_chunk=256)
+    whole, _, _, _ = _serve_paged(model, long, 16)
+    agree = sum(a == b for a, b in zip(chunked, whole))
+    log(f"[g] chunked prefill (256 tokens a step): the tokens of the unchunked prefill in "
+        f"{agree} of 3 requests; {sum(r['steps'] for r in recs_c)} decode steps between chunks")
+    if agree != 3:
+        raise AssertionError("[g] chunked prefill changes the tokens")
+
+    # one cancel: a running request gives its pages back at once
+    eng = PagedBatchingEngine(model.params, cfg, batch_slots=G_SLOTS, num_pages=G_PAGES,
+                              page_size=PAGE, max_pages_per_seq=MAX_PAGES)
+    uids = [eng.add_request(rng.integers(0, cfg.vocab_size, 100), max_new_tokens=G_NEW)
+            for _ in range(4)]
+    eng.step()
+    eng.step()
+    free = len(eng.free_pages)
+    found = (eng.cancel(uids[1]), eng.cancel(uids[1]))
+    given_back = len(eng.free_pages) - free
+    out = eng.run()
+    end_free = len(eng.free_pages)
+    eng.close()
+    del eng
+    log(f"[g] cancel of a running request: found {found}, {given_back} pages back at once, "
+        f"{len(out[uids[1]])} tokens kept; the other three ran to {G_NEW} tokens")
+    if found != (True, False) or given_back != -(-(100 + G_NEW) // PAGE) or len(out[uids[1]]) != 3 \
+            or any(len(out[u]) != G_NEW for u in (uids[0], uids[2], uids[3])) \
+            or end_free != G_PAGES - 1:
+        raise AssertionError("[g] cancel went wrong")
+
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[g] launches in the main path: {launches}; peak memory {peak:.2f} GiB")
+    log(f"[g] card right after it: {card_state()}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    check_prefill_options(model, shared[:2], long[0])
+    check_paged_calls(model, [p[:int(n)] for p, n in zip(prompts, rng.integers(64, 201, 8))])
+    return launches
+
+
+def _first_token_logits(model, prompts, **kw):
+    """Serve ``prompts`` one after the other through one engine. Returns,
+    for each, the logits its first token was drawn from (the last prompt
+    position of its last prefill call), and the pages the prefix cache
+    reused in all."""
+    from hqq_tpu_torch.models import llama
+    from hqq_tpu_torch.serving.paged import PagedBatchingEngine
+
+    cfg = model.cfg
+    last = {}
+
+    def fwd(params, toks, cache, pos, ptab=None):
+        logits, cache = llama.forward(params, cfg, toks, cache, pos, page_indices=ptab)
+        if ptab is None:  # a prefill call: a dense mini cache from position pos
+            last["pos"], last["logits"] = int(pos), logits
+        return logits, cache
+
+    eng = PagedBatchingEngine(model.params, cfg, batch_slots=G_SLOTS, num_pages=G_PAGES,
+                              page_size=PAGE, max_pages_per_seq=MAX_PAGES, forward_fn=fwd, **kw)
+    rows = []
+    for p in prompts:
+        eng.add_request(p, max_new_tokens=2)
+        eng.run()
+        rows.append(last["logits"][0, len(p) - last["pos"] - 1].clone())
+    hits = eng.prefix_cache_hits
+    eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, hits
+
+
+def check_prefill_options(model, shared, long) -> None:
+    """The prefix cache and chunked prefill change how a prompt's K/V comes
+    about, not what follows from it: the logits the first token is drawn
+    from, of a request served from cached prefix pages and of one prefilled
+    in chunks, against the same prompt prefilled whole; the control is a
+    prompt whose first 256 tokens are another's."""
+    import numpy as np
+
+    (_, cached), hits = _first_token_logits(model, shared, enable_prefix_cache=True)
+    (whole_shared,), _ = _first_token_logits(model, shared[1:])
+    (chunked,), _ = _first_token_logits(model, [long], prefill_chunk=256)
+    (whole_long,), _ = _first_token_logits(model, [long])
+    other = np.concatenate([shared[0][:256], long[256:]])
+    (control,), _ = _first_token_logits(model, [other])
+    r_cache, r_chunk = rel(cached, whole_shared), rel(chunked, whole_long)
+    c = rel(control, whole_long)
+    # a row of a tile-kernel matmul or of the dense attention does not depend
+    # on how many rows go with it, and bf16 pages hold the prefix as the
+    # mini cache did, so the readings are 0 while every prefill call keeps
+    # more than 32 rows; the bar is that of phase d's prefill check
+    tol = 2e-2
+    log(f"[g] logits of the first token, full model: prefix of {hits} cached pages vs prefilled "
+        f"whole: rel err {r_cache:.3e}; prefilled in chunks of 256 vs whole: {r_chunk:.3e} (tol "
+        f"{tol}); control, another prompt's first 256 tokens: {c:.3e} (must exceed it)")
+    if hits != 256 // PAGE:
+        raise AssertionError(f"[g] {hits} prefix pages reused, expected {256 // PAGE}")
+    if not (r_cache < tol and r_chunk < tol):
+        raise AssertionError("[g] the prefix cache or chunked prefill changes the logits")
+    if not c > tol:
+        raise AssertionError("[g] the bar does not catch another prefix")
+
+
+def check_paged_calls(model, prompts) -> None:
+    """Three decode steps of 8 live slots of the full model, over bf16 and
+    over int8 pages, every paged_attention call held on the spot to its plain
+    version on the path's own q, pool and block table (for bf16 pages on
+    their values in fp32); each control must miss the bar in every call."""
+    from unittest import mock
+
+    from hqq_tpu_torch.ops import paged as pa
+    from hqq_tpu_torch.serving.paged import PagedBatchingEngine
+
+    def plain(q, k, v, lens, tab, ks=None, vs=None):
+        # bf16 pages: the plain version on the same values in fp32, so that
+        # its own rounding of the probabilities does not blur the bar
+        if ks is None:
+            q, k, v = q.float(), k.float(), v.float()
+        return pa.paged_attention_plain(q, k, v, lens, tab, ks, vs)
+
+    def shorter(q, k, v, lens, tab, ks=None, vs=None):  # the newest key left out
+        return plain(q, k, v, lens - 1, tab, ks, vs)
+
+    def other_page(q, k, v, lens, tab, ks=None, vs=None):  # a neighbour slot's first page
+        tab = tab.clone()
+        tab[:, 0] = tab[:, 0].roll(1)
+        return plain(q, k, v, lens, tab, ks, vs)
+
+    def neighbour_scale(q, k, v, lens, tab, ks, vs):  # each K row takes the next row's scale
+        return plain(q, k, v, lens, tab, ks.roll(1, dims=2), vs)
+
+    for name, kw, tol, controls in (
+            ("bf16 pages", {}, TOL_PAGED_BF16_VS_FP32,
+             {"lengths - 1": shorter, "another slot's page": other_page}),
+            ("int8 pages", dict(quantize_kv=True), TOL_PAGED_INT8,
+             {"lengths - 1": shorter, "another slot's page": other_page,
+              "neighbour row's scale": neighbour_scale})):
+        per_call = {}
+        eng = PagedBatchingEngine(model.params, model.cfg, batch_slots=G_SLOTS, num_pages=G_PAGES,
+                                  page_size=PAGE, max_pages_per_seq=MAX_PAGES, **kw)
+        for p in prompts:
+            eng.add_request(p, max_new_tokens=4)
+        with mock.patch.object(pa, "paged_attention",
+                               checked(pa.paged_attention, plain, controls, per_call)):
+            eng.run()
+        eng.close()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        worst = max(per_call["kernel"])
+        least = {c: min(v) for c, v in per_call.items() if c != "kernel"}
+        log(f"[g] {name}: {len(per_call['kernel'])} paged_attention calls of 3 decode steps "
+            f"(8 slots, lengths {[len(p) for p in prompts]} and on), each vs its plain version on "
+            f"the same inputs: rel err up to {worst:.3e} (tol {tol:.3e}); controls at the least "
+            f"{least} (must exceed it)")
+        if not worst <= tol:
+            raise AssertionError(f"[g] paged_attention disagrees with its plain version ({name})")
+        if not all(v > tol for v in least.values()):
+            raise AssertionError(f"[g] the bar does not catch a control ({name})")
+
+
+def _a8_two_layer(seed: int):
+    from hqq_tpu_torch import BaseQuantizeConfig
+    from hqq_tpu_torch.utils.patching import prepare_for_inference
+
+    cfg, params, toks = _two_layer(BaseQuantizeConfig(nbits=4, group_size=64), seed=seed)
+    return cfg, prepare_for_inference(params, "w4a8"), toks
+
+
+def phase_g_two_layer() -> None:
+    """On a 2-layer model at 7B width: the logits of paged decode steps (the
+    dense prefill copied into pages, then `forward` over the pool) against
+    the dense-cache steps on the same tokens."""
+    from hqq_tpu_torch.models.llama import KVCache, forward, init_cache
+    from hqq_tpu_torch.ops.paged import PagedKVCache, init_paged_cache
+    from hqq_tpu_torch.serving.paged import splice_prefill_into_pages
+
+    cfg, a8, toks = _a8_two_layer(seed=20)
+    b, t, steps = toks.shape[0], 100, 8
+    tab = torch.zeros((b, 8), dtype=torch.int32, device="cuda")
+    tab[:, :7] = 1 + torch.arange(b * 7, dtype=torch.int32, device="cuda").reshape(b, 7)
+    readings = {}
+    with torch.inference_mode():
+        cache = init_cache(cfg, b, 256, torch.bfloat16, "cuda")
+        _, cache = forward(a8, cfg, toks[:, :t], cache, 0)
+        pools = {}
+        for name, int8 in (("bf16 pages", False), ("int8 pages", True)):
+            pc = init_paged_cache(cfg, 1 + b * 7, PAGE, torch.bfloat16, quantize_kv=int8)
+            for s in range(b):
+                mini = KVCache(k=cache.k[:, s:s + 1], v=cache.v[:, s:s + 1])
+                splice_prefill_into_pages(pc, mini, tab[s, :7].tolist(), t)
+            pools[name] = pc
+        # the control: every slot reads and writes its neighbour's pages
+        pools["control"] = PagedKVCache(k=pools["bf16 pages"].k.clone(),
+                                        v=pools["bf16 pages"].v.clone(), page_size=PAGE)
+        dense = []
+        for i in range(steps):
+            logits, cache = forward(a8, cfg, toks[:, t + i:t + i + 1], cache, t + i)
+            dense.append(logits)
+        dense = torch.cat(dense, dim=1)
+        for name, pc in pools.items():
+            table = tab.roll(1, dims=0) if name == "control" else tab
+            out = []
+            for i in range(steps):
+                lengths = torch.full((b,), t + i, dtype=torch.int32, device="cuda")
+                logits, pc = forward(a8, cfg, toks[:, t + i:t + i + 1], pc, lengths,
+                                     page_indices=table)
+                out.append(logits)
+            out = torch.cat(out, dim=1)
+            if not torch.isfinite(out).all():
+                raise AssertionError(f"[g] non-finite logits ({name})")
+            readings[name] = rel(out, dense)
+    # paged vs dense on the same weights and tokens: the kernel keeps the
+    # probabilities in fp32 where the dense path rounds them to bf16, and one
+    # bf16 step of an attention output is half an int8 step of the next
+    # linear's activations, so some roundings flip and two layers carry them
+    # into the logits (the bar of phase d's decode check); int8 pages add
+    # the rounding of every K/V row to 8 bits
+    tol = 0.1
+    log(f"[g] 2-layer 7B-width model, {steps} decode steps after a {t}-token prefill, logits of "
+        f"the paged path vs the dense-cache path: rel err {readings['bf16 pages']:.3e} over bf16 "
+        f"pages, {readings['int8 pages']:.3e} over int8 pages (tol {tol}); control, the "
+        f"neighbour slot's pages {readings['control']:.3e} (must exceed it)")
+    if not (readings["bf16 pages"] < tol and readings["int8 pages"] < tol):
+        raise AssertionError("[g] the paged path disagrees with the dense-cache path")
+    if not readings["control"] > tol:
+        raise AssertionError("[g] the bar does not catch another slot's pages")
+    del a8, cache, pools
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _flash_shifted(q, k, v, causal=True, sm_scale=None):
+    """The control of the flash checks: the plain version with the causal
+    mask shifted by one, so that every query also sees the key after it."""
+    from hqq_tpu_torch.ops import attention as at
+
+    t = q.shape[2]
+    rep = q.shape[1] // k.shape[1]
+    if rep > 1:
+        k, v = k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1)
+    visible = torch.ones((t, t), dtype=torch.bool, device=q.device).tril(diagonal=1)
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    mask = torch.where(visible, zero, torch.finfo(torch.float32).min)[None, None]
+    return at._naive(q, k, v, mask, q.shape[3]**-0.5 if sm_scale is None else sm_scale)
+
+
+H_TOKENS, H_WINDOW, H_STRIDE = 4096, 1024, 512
+
+
+def phase_h(dev_tag: str, model) -> dict:
+    from unittest import mock
+
+    import numpy as np
+
+    from hqq_tpu_torch import ops
+    from hqq_tpu_torch.models import llama
+    from hqq_tpu_torch.ops import attention as at
+    from hqq_tpu_torch.utils.eval import loglikelihood, perplexity
+
+    cfg = model.cfg
+    layers = cfg.num_hidden_layers
+    ids = np.random.default_rng(1).integers(0, cfg.vocab_size, H_TOKENS)
+    seconds = []
+
+    def timed_forward(params, cfg_, tokens):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = llama.forward(params, cfg_, tokens)
+        torch.cuda.synchronize()
+        seconds.append(time.time() - t0)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    # the main path's window: every count from 0, read right after
+    ops.reset_launch_counts()
+    t0 = time.time()
+    ppl = perplexity(model.params, cfg, ids, max_length=H_WINDOW, stride=H_STRIDE,
+                     forward_fn=timed_forward)
+    total_s = time.time() - t0
+    launches = launch_counts()
+    windows = len(seconds)
+    log(f"[h] launches in the main path: {launches}")
+    if windows != 7 or launches["flash_attention"] != layers * windows \
+            or launches["quant_matmul"] != 7 * layers * windows:
+        raise AssertionError(f"[h] {windows} windows, {launches['flash_attention']} "
+                             f"flash_attention and {launches['quant_matmul']} quant_matmul "
+                             f"launches; expected 7, {layers} and {7 * layers} per window")
+    if not (np.isfinite(ppl) and 1e3 < ppl < 1e6):
+        raise AssertionError(f"[h] perplexity {ppl} of a random model over random ids")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[h] {dev_tag}: perplexity over {H_TOKENS} random ids, windows of {H_WINDOW} by "
+        f"{H_STRIDE}: {windows} windows of T = {H_WINDOW - 1}, {layers} flash_attention and "
+        f"{7 * layers} quant_matmul (M = {H_WINDOW - 1}) launches each; first window "
+        f"{seconds[0]:.3f} s, the others {sum(seconds[1:]) / (windows - 1):.3f} s each, "
+        f"{total_s:.2f} s in all; perplexity {ppl:.1f} (vocabulary {cfg.vocab_size}); peak "
+        f"memory {peak:.2f} GiB")
+    busy = device_share(lambda: loglikelihood(model.params, cfg, ids[None, :H_WINDOW]))
+    log(f"[h] {dev_tag}: one window: device busy {busy['busy_share']:.3f} of "
+        f"{busy['wall_ms']:.1f} ms wall; device ms by kernel: {busy['top']}")
+    log(f"[h] card right after it: {card_state()}")
+
+    # one window call by call: the kernel against its plain version on the
+    # path's own q, k and v; the control shifts the mask by one
+    per_call = {}
+    with mock.patch.object(at, "flash_attention",
+                           checked(at.flash_attention, at.flash_attention_plain,
+                                   {"mask shifted by one": _flash_shifted}, per_call)):
+        loglikelihood(model.params, cfg, ids[None, :H_WINDOW])
+    worst, least = max(per_call["kernel"]), min(per_call["mask shifted by one"])
+    log(f"[h] flash_attention: {len(per_call['kernel'])} calls of one window, each vs its plain "
+        f"version on the same inputs: rel err up to {worst:.3e} (tol {TOL_FLASH_BF16:.3e}); "
+        f"control, the mask shifted by one, at the least {least:.3e} (must exceed it)")
+    if not worst <= TOL_FLASH_BF16:
+        raise AssertionError("[h] flash_attention disagrees with its plain version")
+    if not least > TOL_FLASH_BF16:
+        raise AssertionError("[h] the bar does not catch a shifted mask")
+    return launches
+
+
+def phase_h_two_layer() -> None:
+    """On a 2-layer model at 7B width: cache=None logits against the
+    dense-cache forward of the same tokens, and the perplexity through the
+    kernel against the one through its plain version."""
+    from unittest import mock
+
+    import numpy as np
+
+    from hqq_tpu_torch.models.llama import forward, init_cache
+    from hqq_tpu_torch.ops import attention as at
+    from hqq_tpu_torch.utils.eval import perplexity
+
+    cfg, a8, _ = _a8_two_layer(seed=30)
+    t = H_WINDOW - 1
+    ids = np.random.default_rng(2).integers(0, cfg.vocab_size, 2048)
+    toks = torch.from_numpy(ids[None, :t]).to("cuda")
+    with torch.inference_mode():
+        nocache, _ = forward(a8, cfg, toks)
+        dense, _ = forward(a8, cfg, toks, init_cache(cfg, 1, H_WINDOW, torch.bfloat16, "cuda"), 0)
+        with mock.patch.object(at, "flash_attention", _flash_shifted):
+            control, _ = forward(a8, cfg, toks)
+    ppl = perplexity(a8, cfg, ids, max_length=H_WINDOW, stride=H_STRIDE)
+    with mock.patch.object(at, "flash_attention", at.flash_attention_plain):
+        ppl_plain = perplexity(a8, cfg, ids, max_length=H_WINDOW, stride=H_STRIDE)
+    r, c = rel(nocache, dense), rel(control, dense)
+    r_ppl = abs(ppl - ppl_plain) / ppl_plain
+    # the same bf16 weights and full-precision activations on both sides; the
+    # kernel rounds its probabilities before the division by their sum and the
+    # dense path after it, and sums in another order: some bf16 roundings
+    # change, which two layers carry into the logits (the bar of phase d's
+    # pallas-vs-xla check). The perplexity averages those over 2047 targets.
+    tol, tol_ppl = 2e-2, 2e-3
+    log(f"[h] 2-layer 7B-width model, T = {t}: cache=None logits vs the dense-cache forward: rel "
+        f"err {r:.3e} (tol {tol}); control, the mask shifted by one {c:.3e} (must exceed it); "
+        f"perplexity over 2048 ids through the kernel {ppl:.2f} vs through its plain version "
+        f"{ppl_plain:.2f}: rel diff {r_ppl:.3e} (tol {tol_ppl})")
+    if not torch.isfinite(nocache).all():
+        raise AssertionError("[h] non-finite logits")
+    if not (r < tol and r_ppl < tol_ppl):
+        raise AssertionError("[h] the cache-free path disagrees with its reference")
+    if not c > tol:
+        raise AssertionError("[h] the bar does not catch a shifted mask")
+    del a8
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def time_one(kernel: str, m: int, k: int, n: int, r: "int | None" = None) -> dict:
     """Three phase-b timings of one wrapper at one shape (``--time``)."""
     from hqq_tpu_torch.ops import fused_matmul as fm
+
+    if kernel == "paged_attention":  # slots, length, query heads, kv heads
+        from hqq_tpu_torch.ops import paged as pa
+
+        n_kv = r or n
+        lengths = [k] * m
+        nbytes, _ = _paged_bound(lengths, n, n_kv, False)
+        q, kp, vp, lens, tabs, _, _ = _paged_inputs(
+            lengths, n, n_kv, False, max(1, min(16, -(-ROTATE_BYTES // int(nbytes)))), seed=1)
+        ms = [time_ms([lambda tab=tab: pa.paged_attention(q, kp, vp, lens, tab) for tab in tabs],
+                      100) for _ in range(3)]
+        return dict(kernel=kernel, slots=m, length=k, heads=n, kv_heads=n_kv, ms=ms)
+    if kernel == "flash_attention":  # batch, T, query heads, kv heads
+        from hqq_tpu_torch.ops import attention as at
+
+        n_kv = r or n
+        qkv = _flash_inputs(m, n, n_kv, k, 4, seed=1)
+        ms = [time_ms([lambda a=a: at.flash_attention(*a, True) for a in qkv], 100)
+              for _ in range(3)]
+        return dict(kernel=kernel, batch=m, t=k, heads=n, kv_heads=n_kv, ms=ms)
+    r = r or LORA_RANK
 
     x = torch.randn((m, k), device="cuda", generator=torch.Generator(device="cuda").manual_seed(1))
     x = x.to(torch.bfloat16)
@@ -976,7 +1676,13 @@ def main(argv: list[str]) -> int:
     t_start = time.time()
     phase_a(name, power)
     rows = phase_b()
-    windows = [phase_c(dev_tag)]
+    launches, model = phase_c(dev_tag)
+    windows = [launches, phase_g(dev_tag, model), phase_h(dev_tag, model)]
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_g_two_layer()
+    phase_h_two_layer()
     phase_d()
     windows.append(phase_e(dev_tag))
     windows.append(phase_f(dev_tag))
@@ -991,7 +1697,7 @@ def main(argv: list[str]) -> int:
                      max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
                      bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                      library_ms=row["library_ms"],
-                     shape=dict(m=m, k=k, n=n, note=note))
+                     shape=row.get("shape", dict(m=m, k=k, n=n, note=note)))
         if also:
             entry["also_replaces"] = also
         if entry["launches"] == 0:

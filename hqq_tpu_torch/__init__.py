@@ -4,9 +4,11 @@ CUDA kernels for NVIDIA Hopper.
 
 A port of `hqq_tpu` (JAX/Pallas) that follows its module tree and public
 names: `core` (bit packing, the proximal solver, `quantize`/`dequantize`),
-`nn` (quantized linear layers), `ops` (the fused kernels and their host
-side), `backends` and `utils.patching` (inference backends), `models`
-(Llama), `serving` (generation) and `engine` (the user-facing model).
+`nn` (quantized linear layers), `ops` (the fused matmul, paged-attention and
+flash-attention kernels and their host side), `backends` and
+`utils.patching` (inference backends), `models` (Llama), `serving`
+(generation, the paged continuous-batching engine), `utils.eval`
+(perplexity) and `engine` (the user-facing model).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 

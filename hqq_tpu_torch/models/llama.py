@@ -2,14 +2,21 @@
 """Llama-class decoder (RMSNorm, RoPE, GQA attention, SwiGLU MLP) in
 PyTorch.
 
-Mirrors `hqq_tpu.models.llama` on its dense-cache path. Parameters are a
-tree of dicts and lists (HF naming, [out, in] weights) whose linear leaves
-are `Linear`, `QuantLinear`, `PallasQuantLinear` or `A8QuantLinear` alike.
-The KV cache is a stacked [L, B, n_kv, S_max, head_dim] pair of tensors
-updated in place by slice assignment.
+Mirrors `hqq_tpu.models.llama`. Parameters are a tree of dicts and lists (HF
+naming, [out, in] weights) whose linear leaves are `Linear`, `QuantLinear`,
+`PallasQuantLinear` or `A8QuantLinear` alike. `forward` is polymorphic in its
+cache, as in `hqq_tpu`:
 
-Not yet ported: the int8 KV cache, the paged path and ``cache=None``
-(full-sequence attention for training and perplexity).
+  * a dense `KVCache`, a stacked [L, B, n_kv, S_max, head_dim] pair of
+    tensors updated in place by slice assignment (prefill and decode);
+  * a `PagedKVCache` with ``page_indices`` (`ops.paged`): one decode step
+    for every slot at its own offset, K/V written into pages in place and
+    attention through the `paged_attention` kernel;
+  * ``cache=None``: causal attention over the whole sequence through
+    `ops.attention.prefill_attention` and no cache (perplexity evaluation).
+
+Not yet ported: the int8 dense KV cache, ``kv_valid``, ``inputs_embeds`` and
+the sequence-parallel page pool (``seq_axis``).
 """
 
 from __future__ import annotations
@@ -286,22 +293,40 @@ def _apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.
     return (x.to(torch.float32) * cos + rotated.to(torch.float32) * sin).to(x.dtype)
 
 
-def positions_and_masks(cfg: LlamaConfig, t: int, start_pos: int, cache_max_len: int,
+def positions_and_masks(cfg: LlamaConfig, t: int, start_pos, cache_max_len: Optional[int],
                         device="cuda"):
     """Positions, RoPE tables and the additive attention mask for ``t``
-    tokens from ``start_pos`` over a cache of ``cache_max_len`` slots. The
-    mask adds finfo(float32).min, not -inf, so that a fully masked row stays
-    finite. Returns (positions, cos, sin, mask): cos/sin [1, 1, T, hd];
-    mask [1, 1, T, S]."""
-    positions = int(start_pos) + torch.arange(t, device=device)
-    cos, sin = _rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta, cfg.rope_scaling)
-    key_pos = torch.arange(cache_max_len, device=device)
-    visible = key_pos[None, :] <= positions[:, None]  # [T, S]
-    if cfg.sliding_window is not None:
-        visible &= (positions[:, None] - key_pos[None, :]) < cfg.sliding_window
+    tokens from ``start_pos``: an int (the whole batch at one offset) or a
+    [B] tensor (every slot at its own). Over a cache of ``cache_max_len``
+    slots the mask is [B|1, 1, T, S]; with ``cache_max_len=None`` it is the
+    causal [1, 1, T, T] mask of the sequence itself. The mask adds
+    finfo(float32).min, not -inf, so that a fully masked row stays finite.
+    Returns (positions, cos, sin, mask) with cos/sin [B|1, 1, T, hd]."""
+    steps = torch.arange(t, device=device)
+    if isinstance(start_pos, torch.Tensor) and start_pos.ndim == 1:
+        positions = start_pos.to(device)[:, None] + steps[None, :]  # [B, T]
+        pos_bt = positions
+    else:
+        positions = int(start_pos) + steps  # [T]
+        pos_bt = positions[None, :]
+    hd = cfg.head_dim_
+    cos, sin = _rope_cos_sin(pos_bt.reshape(-1), hd, cfg.rope_theta, cfg.rope_scaling)
+    cos = cos.reshape(*pos_bt.shape, hd)[:, None]
+    sin = sin.reshape(*pos_bt.shape, hd)[:, None]
+
+    window = cfg.sliding_window
+    if cache_max_len is None:
+        visible = torch.ones((t, t), dtype=torch.bool, device=device).tril()[None]
+        if window is not None:
+            visible &= (steps[:, None] - steps[None, :]) < window
+    else:
+        key_pos = torch.arange(cache_max_len, device=device)
+        visible = key_pos[None, None, :] <= pos_bt[:, :, None]  # [B|1, T, S]
+        if window is not None:
+            visible &= (pos_bt[:, :, None] - key_pos[None, None, :]) < window
     zero = torch.zeros((), dtype=torch.float32, device=device)
     mask = torch.where(visible, zero, torch.finfo(torch.float32).min)
-    return positions, cos[None, None], sin[None, None], mask[None, None]
+    return positions, cos, sin, mask[:, None]
 
 
 def _update_stacked_cache(k_all: torch.Tensor, v_all: torch.Tensor, layer_idx: int,
@@ -314,6 +339,73 @@ def _update_stacked_cache(k_all: torch.Tensor, v_all: torch.Tensor, layer_idx: i
     v_all[layer_idx, :, :, start_pos:start_pos + t] = v
 
 
+def _qkv_rope(layer: dict, cfg: LlamaConfig, x: torch.Tensor, cos: torch.Tensor,
+              sin: torch.Tensor):
+    """The projections of x [B, T, D] as heads [B, H, T, hd], q and k rotated."""
+    b, t, _ = x.shape
+    nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
+    q, k, v = layer["q_proj"](x), layer["k_proj"](x), layer["v_proj"](x)
+    q = q.reshape(b, t, nh, hd).transpose(1, 2)
+    k = k.reshape(b, t, nkv, hd).transpose(1, 2)
+    v = v.reshape(b, t, nkv, hd).transpose(1, 2)
+    return _apply_rope(q, cos, sin), _apply_rope(k, cos, sin), v
+
+
+def _attention_nocache(layer: dict, cfg: LlamaConfig, x: torch.Tensor, mask: torch.Tensor,
+                       cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Attention over the whole sequence, no cache (perplexity evaluation):
+    the flash kernel for long plain-causal sequences, the naive path for
+    short ones and for a sliding window (see `ops.attention`). K and V go in
+    with their own heads: `prefill_attention` shares each among nh / n_kv
+    query heads, where `hqq_tpu` repeats them first, to the same result."""
+    from ..ops.attention import prefill_attention
+
+    b, t, _ = x.shape
+    hd = cfg.head_dim_
+    q, k, v = _qkv_rope(layer, cfg, x, cos, sin)
+    flash_ok = cfg.sliding_window is None
+    out = prefill_attention(q, k, v, causal=True, mask=None if flash_ok else mask,
+                            scale=hd**-0.5)
+    out = out.transpose(1, 2).reshape(b, t, cfg.num_attention_heads * hd)
+    return layer["o_proj"](out)
+
+
+def _attention_paged(layer: dict, cfg: LlamaConfig, x: torch.Tensor, cache, layer_idx: int,
+                     lengths: torch.Tensor, page_indices: torch.Tensor, cos: torch.Tensor,
+                     sin: torch.Tensor, window: Optional[int] = None,
+                     q_scale: Optional[float] = None) -> torch.Tensor:
+    """Attention over a paged pool: the projections and RoPE of `_attention`,
+    but K/V land in pages (in place) and attention is `ops.paged.paged_attn`.
+    x is [B, T, D]: T = 1 for decode, T > 1 for a verify window, where all T
+    rows are written first and query j attends the keys below
+    lengths + j + 1, one paged-attention call each. ``q_scale`` replaces the
+    1/sqrt(hd) query scaling. q goes in pre-scaled, in fp32 with int8 pages
+    and in the pool's type otherwise."""
+    from ..ops.paged import paged_attn, write_token_to_pages
+
+    b, t, _ = x.shape
+    nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
+    pg = cache.page_size
+    q, k, v = _qkv_rope(layer, cfg, x, cos, sin)
+
+    pos_bt = lengths[:, None] + torch.arange(t, device=x.device)[None, :]  # [B, T]
+    page_of = torch.gather(page_indices.long(), 1, pos_bt // pg)
+    offset = pos_bt % pg
+    # one flattened [B*T]-row write per pool
+    kw = k.transpose(1, 2).reshape(b * t, nkv, hd)
+    vw = v.transpose(1, 2).reshape(b * t, nkv, hd)
+    write_token_to_pages(cache, layer_idx, kw, vw, page_of.reshape(-1), offset.reshape(-1))
+
+    qdt = torch.float32 if cache.quantized else cache.k.dtype
+    scale = hd**-0.5 if q_scale is None else q_scale
+    qd = (q * scale).to(qdt)  # [B, nh, T, hd]
+    attn = torch.stack(
+        [paged_attn(qd[:, :, j], cache, layer_idx, lengths + j + 1, page_indices, window=window)
+         for j in range(t)], dim=1)  # [B, T, nh, hd]
+    out = attn.reshape(b, t, nh * hd).to(x.dtype)
+    return layer["o_proj"](out)
+
+
 def _attention(layer: dict, cfg: LlamaConfig, x: torch.Tensor, cache: KVCache, layer_idx: int,
                start_pos: int, mask: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor) -> torch.Tensor:
@@ -321,13 +413,7 @@ def _attention(layer: dict, cfg: LlamaConfig, x: torch.Tensor, cache: KVCache, l
     into ``cache`` in place."""
     b, t, _ = x.shape
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
-
-    q, k, v = layer["q_proj"](x), layer["k_proj"](x), layer["v_proj"](x)
-    q = q.reshape(b, t, nh, hd).transpose(1, 2)
-    k = k.reshape(b, t, nkv, hd).transpose(1, 2)
-    v = v.reshape(b, t, nkv, hd).transpose(1, 2)
-    q = _apply_rope(q, cos, sin)
-    k = _apply_rope(k, cos, sin)
+    q, k, v = _qkv_rope(layer, cfg, x, cos, sin)
 
     _update_stacked_cache(cache.k, cache.v, layer_idx, k, v, start_pos)
     keys, vals = cache.k[layer_idx], cache.v[layer_idx]
@@ -349,32 +435,75 @@ def _mlp(layer: dict, x: torch.Tensor) -> torch.Tensor:
     return layer["down_proj"](F.silu(layer["gate_proj"](x)) * layer["up_proj"](x))
 
 
+def _logits(params: dict, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
+    x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
+    if cfg.tie_word_embeddings or "lm_head" not in params:
+        return x.to(torch.float32) @ params["embed_tokens"].to(torch.float32).t()
+    return params["lm_head"](x).to(torch.float32)
+
+
+def _forward_paged(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, cache,
+                   lengths: torch.Tensor, page_indices: torch.Tensor, mlp_fn=None):
+    """One paged step for all slots (T = 1 decode; T = k verify window):
+    tokens [B] or [B, T], lengths [B] the position of each slot's first new
+    token, page_indices [B, MP]. ``mlp_fn(layer, h)`` lets a family with
+    another MLP block reuse the walk. Returns (logits [B, T, V] fp32,
+    cache), the pool updated in place."""
+    if mlp_fn is None:
+        mlp_fn = lambda layer, h: _mlp(layer["mlp"], h)  # noqa: E731
+    toks = tokens if tokens.ndim == 2 else tokens[:, None]
+    x = params["embed_tokens"][toks]
+    lengths = lengths.to(x.device)
+    page_indices = page_indices.to(x.device)
+    _, cos, sin, _ = positions_and_masks(cfg, toks.shape[1], lengths, None, x.device)
+
+    for i, layer in enumerate(params["layers"]):
+        h = rms_norm(x, layer["input_layernorm"], cfg.rms_norm_eps)
+        x = x + _attention_paged(layer["self_attn"], cfg, h, cache, i, lengths, page_indices,
+                                 cos, sin, window=cfg.sliding_window)
+        h = rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps)
+        x = x + mlp_fn(layer, h)
+    return _logits(params, cfg, x), cache
+
+
 def forward(
     params: dict,
     cfg: LlamaConfig,
     tokens: torch.Tensor,
-    cache: KVCache,
-    start_pos: int = 0,
-) -> Tuple[torch.Tensor, KVCache]:
-    """Run the model over ``tokens`` [B, T] from ``start_pos`` with the
-    dense cache. Returns (logits [B, T, V] fp32, cache), the cache updated
-    in place."""
-    if cache is None:
-        raise NotImplementedError("forward without a cache is not ported yet")
+    cache=None,
+    start_pos=0,
+    page_indices: Optional[torch.Tensor] = None,
+    seq_axis: Optional[str] = None,
+):
+    """Run the model over ``tokens`` [B, T] from ``start_pos``. Returns
+    (logits [B, T, V] fp32, cache), the cache updated in place.
+
+    With a dense `KVCache`, ``start_pos`` is an int. With a `PagedKVCache`
+    and ``page_indices`` [B, MP] this is one paged decode step per slot at
+    the offsets ``start_pos`` [B]. With ``cache=None`` attention is causal
+    over the T tokens themselves and no cache comes back (perplexity
+    evaluation)."""
+    from ..ops.paged import PagedKVCache
+
+    if seq_axis is not None:
+        raise NotImplementedError("a page pool sharded over devices is not ported yet")
+    if isinstance(cache, PagedKVCache):
+        if page_indices is None:
+            raise ValueError("a PagedKVCache needs page_indices")
+        start_pos = torch.as_tensor(start_pos, device=cache.k.device)
+        return _forward_paged(params, cfg, tokens, cache, start_pos, page_indices)
     b, t = tokens.shape
     x = params["embed_tokens"][tokens]
     device = x.device
-    _, cos, sin, mask = positions_and_masks(cfg, t, start_pos, cache.max_len, device)
+    _, cos, sin, mask = positions_and_masks(
+        cfg, t, start_pos, None if cache is None else cache.max_len, device)
 
     for i, layer in enumerate(params["layers"]):
         h = rms_norm(x, layer["input_layernorm"], cfg.rms_norm_eps)
-        x = x + _attention(layer["self_attn"], cfg, h, cache, i, start_pos, mask, cos, sin)
+        if cache is None:
+            x = x + _attention_nocache(layer["self_attn"], cfg, h, mask, cos, sin)
+        else:
+            x = x + _attention(layer["self_attn"], cfg, h, cache, i, start_pos, mask, cos, sin)
         h = rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps)
         x = x + _mlp(layer["mlp"], h)
-
-    x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
-    if cfg.tie_word_embeddings or "lm_head" not in params:
-        logits = x.to(torch.float32) @ params["embed_tokens"].to(torch.float32).t()
-    else:
-        logits = params["lm_head"](x).to(torch.float32)
-    return logits, cache
+    return _logits(params, cfg, x), cache

@@ -8,3 +8,20 @@ from .fused_matmul import (  # noqa: F401
     supports_kernel_layout,
     to_kernel_layout,
 )
+
+
+def kernel_wrappers() -> tuple:
+    """Every kernel wrapper of the package, each with its ``launches``
+    count: the six of `fused_matmul`, `paged.paged_attention` and
+    `attention.flash_attention`."""
+    from .attention import flash_attention
+    from .fused_matmul import _WRAPPERS
+    from .paged import paged_attention
+
+    return (*_WRAPPERS, paged_attention, flash_attention)
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    for w in kernel_wrappers():
+        w.launches = 0

@@ -43,6 +43,13 @@ KERNELS = {
     "quant_matmul_lora": (
         "quant_matmul_lora.cu", "hqq_quant_matmul_lora", [_P] * 7 + [_I] * 7 + [_P],
     ),
+    "flash_attention": (
+        "flash_prefill.cu", "hqq_flash_prefill",
+        [_P] * 4 + [_I] * 5 + [ctypes.c_float] + [_I] * 2 + [_P],
+    ),
+    "paged_attention": (
+        "paged_attention.cu", "hqq_paged_attention", [_P] * 9 + [_I] * 9 + [_P],
+    ),
     "w4a8_matmul": ("w4a8_matmul.cu", "hqq_w4a8_matmul", [_P] * 6 + [_I] * 6 + [_P]),
     "w4a8_lora_matmul": (
         "w4a8_matmul.cu", "hqq_w4a8_lora_matmul", [_P] * 8 + [_I] * 7 + [_P],

@@ -1,2 +1,8 @@
 # SPDX-License-Identifier: Apache-2.0
-from .generate import Generator, next_power_of_2, sample_token  # noqa: F401
+from .generate import (  # noqa: F401
+    Generator,
+    next_power_of_2,
+    sample_token,
+    sample_token_batch,
+)
+from .paged import PagedBatchingEngine  # noqa: F401

@@ -19,7 +19,7 @@ import torch
 
 from ..models import llama
 
-__all__ = ["Generator", "sample_token", "next_power_of_2"]
+__all__ = ["Generator", "sample_token", "sample_token_batch", "next_power_of_2", "MAX_TOP_K"]
 
 
 def next_power_of_2(n: int) -> int:
@@ -51,11 +51,55 @@ def sample_token(
         keep = (cum - probs) < top_p
         vals = torch.where(keep, vals, torch.finfo(vals.dtype).min)
     if gumbel is None:
-        u = torch.rand(vals.shape, generator=generator, device=vals.device, dtype=vals.dtype)
-        tiny = torch.finfo(vals.dtype).tiny
-        gumbel = -torch.log(-torch.log(u.clamp_min(tiny)))
+        gumbel = _gumbel(vals.shape, generator, vals.device, vals.dtype)
     choice = torch.argmax(vals + gumbel.to(vals.dtype), dim=-1)
     return torch.gather(idxs, -1, choice[..., None])[..., 0]
+
+
+# width of the per-row sampler's top-k: requested values are clamped to it
+MAX_TOP_K = 64
+
+
+def _gumbel(shape, generator, device, dtype) -> torch.Tensor:
+    u = torch.rand(shape, generator=generator, device=device, dtype=dtype)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(dtype).tiny)))
+
+
+def sample_token_batch(
+    logits: torch.Tensor,
+    generator: Optional[torch.Generator],
+    do_sample: torch.Tensor,
+    top_k: torch.Tensor,
+    temperature: torch.Tensor,
+    top_p: torch.Tensor,
+    gumbel: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Sampling with per-row parameters: every slot of a continuous batch
+    carries its own request's.
+
+    logits [S, V]; do_sample bool [S]; top_k int [S] (clamped to MAX_TOP_K);
+    temperature and top_p float [S]. Greedy rows (do_sample False) are the
+    argmax whatever the other parameters. ``gumbel`` is optional noise of
+    shape [S, min(MAX_TOP_K, V)]; without it the noise is drawn from
+    ``generator``."""
+    greedy = torch.argmax(logits, dim=-1)
+    lt = logits.to(torch.float32) / temperature.to(torch.float32).clamp_min(1e-5)[:, None]
+    k_eff = min(MAX_TOP_K, logits.shape[-1])
+    vals, idxs = torch.topk(lt, k_eff, dim=-1)  # sorted descending
+    pos = torch.arange(k_eff, device=logits.device)[None, :]
+    neg = torch.finfo(vals.dtype).min
+    vals = torch.where(pos < top_k.clamp(1, k_eff)[:, None], vals, neg)
+    # nucleus filter within the top-k candidates (the first always stays;
+    # rows cut by top_k have probability ~0 and stay cut)
+    probs = torch.softmax(vals, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    keep = (cum - probs) < top_p[:, None]
+    vals = torch.where(keep, vals, neg)
+    if gumbel is None:
+        gumbel = _gumbel(vals.shape, generator, vals.device, vals.dtype)
+    choice = torch.argmax(vals + gumbel.to(vals.dtype), dim=-1)
+    sampled = torch.gather(idxs, -1, choice[:, None])[:, 0]
+    return torch.where(do_sample, sampled, greedy)
 
 
 class Generator:

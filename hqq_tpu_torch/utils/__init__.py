@@ -1,3 +1,3 @@
 # SPDX-License-Identifier: Apache-2.0
-from .convert import params_from_numpy  # noqa: F401
+from .convert import paged_cache_from_numpy, params_from_numpy  # noqa: F401
 from .patching import prepare_for_inference  # noqa: F401

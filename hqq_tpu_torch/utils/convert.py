@@ -7,7 +7,8 @@ and returns the same tree in this package's types on ``device``. It reads
 fields by attribute name only (``weight``, ``bias``, ``qweight``, a
 QTensor's ``wq``/``scale``/``zero``/``nbits``/... and a LoRALinear's
 ``base``/``lora_a``/``lora_b``/``scaling``), so it imports nothing of
-`hqq_tpu`. A QTensor alone converts too.
+`hqq_tpu`. A QTensor alone converts too. `paged_cache_from_numpy` carries a paged KV
+cache across the same way (its pools and scales as numpy arrays).
 """
 
 from __future__ import annotations
@@ -20,8 +21,9 @@ import torch
 from ..core.peft import LoRALinear
 from ..core.quantize import QTensor
 from ..nn.linear import Linear, QuantLinear
+from ..ops.paged import PagedKVCache
 
-__all__ = ["params_from_numpy", "tensor_from_numpy", "torch_dtype"]
+__all__ = ["params_from_numpy", "paged_cache_from_numpy", "tensor_from_numpy", "torch_dtype"]
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -82,3 +84,14 @@ def params_from_numpy(tree: Any, device="cuda") -> Any:
         bias = None if tree.bias is None else tensor_from_numpy(tree.bias, device)
         return Linear(tensor_from_numpy(tree.weight, device), bias)
     return tensor_from_numpy(tree, device)
+
+
+def paged_cache_from_numpy(cache: Any, device="cuda") -> PagedKVCache:
+    """An `hqq_tpu` ``PagedKVCache`` (numpy leaves) as this package's, on
+    ``device``: the pools, the int8 pools' scales if any, the page size."""
+    def opt(a):
+        return None if a is None else tensor_from_numpy(a, device)
+
+    return PagedKVCache(k=tensor_from_numpy(cache.k, device), v=tensor_from_numpy(cache.v, device),
+                        k_scales=opt(cache.k_scales), v_scales=opt(cache.v_scales),
+                        page_size=int(cache.page_size))

@@ -12,13 +12,22 @@ output type. Tolerances (of max|y|): w4a8 in fp32 1e-5 (exact group dots,
 the fp32 epilogue sums in another order); bf16/fp16 outputs add one rounding
 of the output (2^-7 / 2^-10), doubled for the tile kernels, whose fp32 sums
 of bf16 products run in another order before that rounding; dequant exact.
+
+The two attention kernels likewise: `paged_attention` over head sizes, GQA
+ratios, page sizes, lengths at page edges and of 1, every page type, and
+`flash_attention` over head sizes, GQA, ragged T, both types, causal and
+not. Their plain versions round the probabilities to q's type before the
+second product, which the kernels keep in fp32 (paged) or round unnormalised
+(flash); the bars are stated at the tests.
 """
 
 import pytest
 import torch
 
 from hqq_tpu_torch.core.quantize import quantize
+from hqq_tpu_torch.ops import attention as at
 from hqq_tpu_torch.ops import fused_matmul as fm
+from hqq_tpu_torch.ops import paged as pa
 
 pytestmark = pytest.mark.cuda
 
@@ -201,3 +210,152 @@ def test_routing_counts_and_no_fallback(cuda):
         fm.quant_matmul(torch.randn(40, 512, device=cuda), kqt)
     with pytest.raises(ValueError):
         fm.quant_matmul_ax0(torch.randn(40, 512, device=cuda), kqt0)
+
+
+# fp32 and int8 pages (q in fp32): fp32 sums in another order and another
+# exp: 2e-5 of max|out|. bf16/fp16 pages: the kernel rounds the output once;
+# the plain version also rounds the probabilities to q's type, an error of
+# the size of one more rounding of the output (over random rows both are sums
+# of about sqrt(length) terms). Two roundings that fall to different sides
+# lie one step of the type apart (2^-7 of a bf16 value, 2^-10 of an fp16
+# one): the bar is two steps of max|out|.
+_PAGED_TOL = {torch.float32: 2e-5, torch.int8: 2e-5, torch.bfloat16: 2.0**-6,
+              torch.float16: 2.0**-9}
+
+
+def _paged_case(device, b, nh, h, hd, pg, mp, lengths, dtype, seed=0):
+    """Random pools with every slot's pages drawn without repeats from a
+    pool twice the table's size; page 0 stays scratch."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    num_pages = 1 + 2 * b * mp
+    shape = (h, num_pages, pg, hd)
+    k = torch.randn(shape, generator=gen, device=device)
+    v = torch.randn(shape, generator=gen, device=device)
+    q = torch.randn((b, nh, hd), generator=gen, device=device) * hd**-0.5
+    perm = 1 + torch.randperm(num_pages - 1, generator=gen, device=device)[: b * mp]
+    tab = perm.reshape(b, mp).to(torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+    # entries past each slot's pages point at the scratch page, as the engine's
+    used = (lens[:, None] + pg - 1) // pg
+    tab = torch.where(torch.arange(mp, device=device)[None, :] < used, tab, 0)
+    if dtype == torch.int8:
+        k8, ks = pa.quant_rows(k)
+        v8, vs = pa.quant_rows(v)
+        return q, k8, v8, lens, tab, ks, vs
+    return q.to(dtype), k.to(dtype), v.to(dtype), lens, tab, None, None
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32, torch.int8])
+@pytest.mark.parametrize("nh,h,hd", [
+    (4, 4, 32), (8, 2, 64), (6, 3, 80), (4, 1, 96), (32, 32, 128), (32, 8, 128), (8, 4, 256),
+])
+def test_paged_attention_heads(cuda, dtype, nh, h, hd):
+    args = _paged_case(cuda, 3, nh, h, hd, 16, 8, [1, 77, 128], dtype, seed=hd)
+    _close(pa.paged_attention(*args), pa.paged_attention_plain(*args), _PAGED_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("pg", [8, 16, 32])
+def test_paged_attention_page_edges(cuda, dtype, pg):
+    mp = 512 // pg
+    lengths = [1, pg - 1, pg, pg + 1, 2 * pg, 255, 256, 512]
+    args = _paged_case(cuda, len(lengths), 8, 4, 128, pg, mp, lengths, dtype, seed=pg)
+    launches = pa.paged_attention.launches
+    _close(pa.paged_attention(*args), pa.paged_attention_plain(*args), _PAGED_TOL[dtype])
+    assert pa.paged_attention.launches == launches + 1
+
+
+@pytest.mark.parametrize("b,nh", [(1, 4), (2, 32), (8, 32), (24, 32)])
+def test_paged_attention_splits(cuda, b, nh):
+    """One split (many slots) up to eight (one slot, few heads)."""
+    lengths = [1 + (997 * (i + 1)) % 1024 for i in range(b)]
+    args = _paged_case(cuda, b, nh, nh // 4, 128, 16, 64, lengths, torch.bfloat16, seed=b)
+    _close(pa.paged_attention(*args), pa.paged_attention_plain(*args),
+           _PAGED_TOL[torch.bfloat16])
+
+
+def test_paged_attention_reads_nothing_past_the_length(cuda):
+    """NaN in every row at or beyond a slot's length, and in every page
+    that no slot owns, changes nothing; a length of 0 gives zeros."""
+    pg, mp, lengths = 16, 8, [0, 5, 16, 100]
+    q, k, v, lens, tab, _, _ = _paged_case(cuda, 4, 8, 4, 128, pg, mp, lengths, torch.bfloat16)
+    ref = pa.paged_attention(q, k, v, lens, tab)
+    owned = torch.zeros(k.shape[1:3], dtype=torch.bool, device=cuda)  # [P, pg]
+    for b, n in enumerate(lengths):
+        for s in range(n):
+            owned[tab[b, s // pg], s % pg] = True
+    k2 = torch.where(owned[None, :, :, None], k, torch.nan)
+    v2 = torch.where(owned[None, :, :, None], v, torch.nan)
+    got = pa.paged_attention(q, k2, v2, lens, tab)
+    assert torch.equal(got, ref) and torch.isfinite(got).all()
+    assert (got[0] == 0).all()
+
+
+def test_paged_attention_refuses(cuda):
+    q, k, v, lens, tab, _, _ = _paged_case(cuda, 2, 4, 4, 64, 16, 4, [3, 9], torch.bfloat16)
+    with pytest.raises(ValueError):
+        pa.paged_attention(q.float(), k, v, lens, tab)  # q of another type than the pages
+    with pytest.raises(ValueError):
+        pa.paged_attention(q, k.to(torch.int8), v.to(torch.int8), lens, tab)  # no scales
+    with pytest.raises(ValueError):
+        pa.paged_attention(q, k.transpose(1, 2), v.transpose(1, 2), lens, tab)
+
+
+def _flash_case(device, b, nh, n_kv, t, hd, dtype, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((b, nh, t, hd), generator=gen, device=device).to(dtype)
+    k = torch.randn((b, n_kv, t, hd), generator=gen, device=device).to(dtype)
+    v = torch.randn((b, n_kv, t, hd), generator=gen, device=device).to(dtype)
+    return q, k, v
+
+
+# both round the probabilities to q's type (the plain version normalised, the
+# kernel before the division by the fp32 sum) and the output once; outputs
+# rounded to different sides lie one step of the type apart: two steps of
+# max|out|
+_FLASH_TOL = {torch.bfloat16: 2.0**-6, torch.float16: 2.0**-9}
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("nh,n_kv,hd", [
+    (2, 2, 32), (4, 2, 64), (2, 1, 80), (3, 3, 96), (8, 8, 128), (8, 2, 128), (2, 2, 256),
+])
+def test_flash_attention_heads(cuda, causal, dtype, nh, n_kv, hd):
+    q, k, v = _flash_case(cuda, 2, nh, n_kv, 300, hd, dtype, seed=hd)
+    _close(at.flash_attention(q, k, v, causal), at.flash_attention_plain(q, k, v, causal),
+           _FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 256, 257, 1023, 1024])
+def test_flash_attention_ragged(cuda, dtype, t):
+    q, k, v = _flash_case(cuda, 1, 4, 4, t, 128, dtype, seed=t)
+    launches = at.flash_attention.launches
+    _close(at.flash_attention(q, k, v, True, 0.05), at.flash_attention_plain(q, k, v, True, 0.05),
+           _FLASH_TOL[dtype])
+    assert at.flash_attention.launches == launches + 1
+
+
+@pytest.mark.parametrize("t,kernel", [(255, False), (256, True), (257, True), (1023, True)])
+def test_prefill_attention_route(cuda, t, kernel):
+    """T = 255 is the naive path by the route; from 256 on, the kernel, at
+    any T. An explicit mask is the naive path at any T."""
+    q, k, v = _flash_case(cuda, 1, 4, 2, t, 128, torch.bfloat16, seed=t)
+    launches = at.flash_attention.launches
+    out = at.prefill_attention(q, k, v, causal=True)
+    assert at.flash_attention.launches == launches + int(kernel)
+    _close(out, at.flash_attention_plain(q, k, v, True), _FLASH_TOL[torch.bfloat16])
+    masked = at.prefill_attention(q, k, v, mask=at._causal_mask(t, t, cuda))
+    assert at.flash_attention.launches == launches + int(kernel)
+    _close(masked, out, _FLASH_TOL[torch.bfloat16])
+
+
+def test_flash_attention_refuses(cuda):
+    q, k, v = _flash_case(cuda, 1, 2, 2, 256, 64, torch.bfloat16)
+    with pytest.raises(ValueError):
+        at.flash_attention(q.float(), k.float(), v.float())  # fp32 on the card
+    with pytest.raises(ValueError):
+        at.flash_attention(q[..., :40], k[..., :40], v[..., :40])  # head_dim % 16
+    with pytest.raises(NotImplementedError):
+        at.flash_attention(q.requires_grad_(), k, v)  # no backward kernel yet
