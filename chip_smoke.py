@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py            # on cuda:0, every phase
     python3 chip_smoke.py --time quant_matmul 512 4096 4096      # one kernel
+    python3 chip_smoke.py --time quant_matmul_ax0 512 4096 4096 3-64-fp32  # nbits-g-meta
     python3 chip_smoke.py --time paged_attention 8 1024 32 32    # slots, length, heads, kv heads
     python3 chip_smoke.py --time flash_attention 1 1023 32 32    # batch, T, heads, kv heads
 
 Phases (any failure exits non-zero):
-  (a) device and build: the card, its power limit, and an nvcc build of
-      every kernel under hqq_tpu_torch/csrc/;
+  (a) device and build: the card, its power limit, an nvcc build of every
+      kernel under hqq_tpu_torch/csrc/, and the wgmma (HGMMA) and TMA
+      (UTMALDG) instructions in the SASS of the two mainloop libraries;
   (b) each kernel against its plain PyTorch version at the main paths'
       shapes: largest error against the stated tolerance, kernel time, plain
       time, the least time the card could take (bound), and for the matmuls
@@ -68,7 +70,8 @@ for comparing two checkouts on one card. Unpack the parent beside the change
 (`git archive`) and run both from one shell command, in turns: parent,
 change, change, parent. KERNEL is quant_matmul, w4a8_matmul,
 quant_matmul_lora or w4a8_lora_matmul (4-bit g64, RANK 8 unless given),
-quant_matmul_ax0 or dequant_ax0 (2-bit g16, bf16 scale and zs); for
+quant_matmul_ax0 or dequant_ax0 (2-bit g16, bf16 scale and zs, or the
+config NBITS-G-META given after N, e.g. 3-64-fp32, path F's attention); for
 paged_attention the four numbers are slots, length, query heads and kv heads
 (bf16 pages of 16 rows, head size 128), for flash_attention batch, T, query
 heads and kv heads (bf16, causal, head size 128).
@@ -78,6 +81,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -169,22 +173,25 @@ def time_ms(fns, iters: int) -> float:
     copy): the summed duration of every kernel and copy the calls ran on
     the card, from torch.profiler's CUDA trace, over ``iters`` calls after a
     warm-up. Host time between launches is not counted (at decode sizes it
-    exceeds the kernels' own)."""
+    exceeds the kernels' own). A trace with fewer device events than calls
+    is measured again, up to three times, then raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for f in fns:
         f()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fns[i % len(fns)]()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA)
-    if total_us <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    return total_us / 1e3 / iters
+    for _ in range(3):  # the trace now and then loses a run's events: take another
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fns[i % len(fns)]()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        total_us = sum(e.self_device_time_total for e in events)
+        if total_us > 0 and sum(e.count for e in events) >= iters:  # a kernel per call at least
+            return total_us / 1e3 / iters
+    raise RuntimeError(f"the profiler recorded {sum(e.count for e in events)} device events "
+                       f"and {total_us} us for {iters} calls")
 
 
 def device_share(fn) -> dict:
@@ -229,6 +236,17 @@ def phase_a(name: str, power: str) -> None:
         spills = re.findall(r"(\d+) bytes spill stores", text)
         log(f"[a]   {kname}: {len(regs)} instantiations, registers {min(map(int, regs))}-"
             f"{max(map(int, regs))}, spill stores up to {max(map(int, spills))} bytes")
+    # the Hopper mainloop really issues wgmma (HGMMA) and TMA loads (UTMALDG)
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    for kname in ("quant_matmul", "quant_matmul_ax0"):
+        source = _build.KERNELS[kname][0]
+        sass = subprocess.run([cuobjdump, "-sass", _build._lib_path(source)], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
+        log(f"[a]   {source} SASS: {counts['HGMMA']} HGMMA and {counts['UTMALDG']} UTMALDG "
+            f"instructions")
+        if not all(counts.values()):
+            raise AssertionError(f"{source} issues no wgmma or no TMA load: {counts}")
 
 
 def _make_kqt(n: int, k: int, g: int, nbits: int, seed: int):
@@ -472,8 +490,10 @@ def phase_b() -> dict:
                                    ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by,
                                    library_ms=lib, note=""))
 
-    # -- quant_matmul at the prefill shape ---------------------------------
-    for (m, k, n) in [(512, 4096, 4096), (512, 4096, 11008), (512, 11008, 4096)]:
+    # -- quant_matmul at the prefill shapes of paths C (M = 512) and H (M =
+    # 1023), and at M = 4 (the pallas backend's decode, 8-bit weights) ------
+    qmm_shapes = [(4096, 4096), (4096, 11008), (11008, 4096)]
+    for (m, k, n) in [(m, k, n) for m in (512, 1023) for (k, n) in qmm_shapes] + [(4, 4096, 4096)]:
         kqt = _make_kqt(n, k, g, 4, seed=k * 3 + n)
         x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
         y = fm.quant_matmul(x, kqt).float()
@@ -1604,9 +1624,21 @@ def phase_h_two_layer() -> None:
     torch.cuda.empty_cache()
 
 
-def time_one(kernel: str, m: int, k: int, n: int, r: "int | None" = None) -> dict:
-    """Three phase-b timings of one wrapper at one shape (``--time``)."""
+# --time quant_matmul_ax0|dequant_ax0 M K N [CONFIG]: NBITS-G-META, META fp32 or bf16
+AX0_TIME_DEFAULT = "2-16-bf16"
+
+
+def time_one(kernel: str, m: int, k: int, n: int, extra: "str | None" = None) -> dict:
+    """Three phase-b timings of one wrapper at one shape (``--time``).
+    ``extra``: the LoRA rank, the kv heads of the attention kernels, or the
+    axis=0 config (``AX0_TIME_DEFAULT``)."""
     from hqq_tpu_torch.ops import fused_matmul as fm
+
+    if kernel in ("quant_matmul_ax0", "dequant_ax0"):
+        config = extra or AX0_TIME_DEFAULT
+        r = None
+    else:
+        config, r = None, int(extra) if extra else None
 
     if kernel == "paged_attention":  # slots, length, query heads, kv heads
         from hqq_tpu_torch.ops import paged as pa
@@ -1631,8 +1663,10 @@ def time_one(kernel: str, m: int, k: int, n: int, r: "int | None" = None) -> dic
 
     x = torch.randn((m, k), device="cuda", generator=torch.Generator(device="cuda").manual_seed(1))
     x = x.to(torch.bfloat16)
-    if kernel in ("quant_matmul_ax0", "dequant_ax0"):
-        kqt = _make_kqt0(n, k, 16, 2, torch.bfloat16, seed=1)
+    if config is not None:
+        nbits, g, meta = config.split("-")
+        kqt = _make_kqt0(n, k, int(g), int(nbits),
+                         {"fp32": torch.float32, "bf16": torch.bfloat16}[meta], seed=1)
     else:
         kqt = _make_kqt(n, k, 64, 4, seed=1)
     a, b = _make_lora(k, n, seed=2, r=r)
@@ -1652,7 +1686,7 @@ def time_one(kernel: str, m: int, k: int, n: int, r: "int | None" = None) -> dic
     call = calls[kernel]
     kq, xq = _copies(kqt, x, _weight_bytes(kqt))
     ms = [time_ms([lambda p=p, q=q: call(q, p) for p, q in zip(kq, xq)], 100) for _ in range(3)]
-    return dict(kernel=kernel, m=m, k=k, n=n, r=r, ms=ms)
+    return dict(kernel=kernel, m=m, k=k, n=n, r=r, config=config, ms=ms)
 
 
 def main(argv: list[str]) -> int:
@@ -1670,7 +1704,7 @@ def main(argv: list[str]) -> int:
     ).stdout.strip().splitlines()[0]
     dev_tag = f"[{power}]"
     if argv and argv[0] == "--time":
-        log(json.dumps(dict(time_one(argv[1], *map(int, argv[2:])), card=power)))
+        log(json.dumps(dict(time_one(argv[1], *map(int, argv[2:5]), *argv[5:6]), card=power)))
         return 0
 
     t_start = time.time()

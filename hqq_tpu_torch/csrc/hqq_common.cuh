@@ -29,14 +29,9 @@ __device__ __forceinline__ float hqq_dq(uint32_t code, float s, float z) {
   return __fsub_rn(__fmul_rn(static_cast<float>(code), s), z);
 }
 
-// A scale or zs of the axis=0 layout, stored in fp32 or bf16, as fp32.
-__device__ __forceinline__ float meta_f32(const float* p, size_t i) { return p[i]; }
-__device__ __forceinline__ float meta_f32(const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(p[i]);
-}
-
-// Four of them from index i (a multiple of 4, the base 16-byte aligned) in
-// one load; bf16 widens to fp32 by its bits.
+// Four scales or zs of the axis=0 layout (fp32 or bf16) from index i (a
+// multiple of 4, the base 16-byte aligned) in one load; bf16 widens to fp32
+// by its bits.
 __device__ __forceinline__ void meta4_f32(const float* p, size_t i, float (&v)[4]) {
   const float4 t = *reinterpret_cast<const float4*>(p + i);
   v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;

@@ -1,6 +1,8 @@
 // SPDX-License-Identifier: Apache-2.0
-// The 64x64 output tile shared by the fused dequant-matmul kernels
-// (quant_matmul.cu, quant_matmul_lora.cu, quant_matmul_ax0.cu).
+// The 64x64 output tile of quant_matmul_lora.cu, its only user (and
+// flash_prefill.cu borrows its to_t): quant_matmul and quant_matmul_ax0
+// moved to the Hopper mainloop of qmm_sm90.cuh, and quant_matmul_lora moves
+// there next.
 //
 // A block of 4 warps owns a 64x64 tile of y = x @ W^T and walks K in slabs
 // of 64. For each slab it copies x's 64x64 slab into shared memory in
@@ -9,8 +11,8 @@
 // weight never reaches device memory), and each warp runs a 2x2 grid of
 // 16x16x16 wmma products on its 32x32 quarter, fp32 accumulators. The
 // accumulators go through shared memory to the kernel's own bounds-checked
-// store. No cp.async pipeline, TMA or wgmma yet: that is the work of making
-// these kernels fast.
+// store. No cp.async pipeline, TMA or wgmma: slab loads, dequantization and
+// products run one after the other.
 #pragma once
 
 #include <mma.h>

@@ -24,7 +24,7 @@ __all__ = ["KERNELS", "build_all", "library", "check"]
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-_HEADERS = ("hqq_common.cuh", "qmm_tile.cuh")
+_HEADERS = ("hqq_common.cuh", "qmm_tile.cuh", "qmm_sm90.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -36,9 +36,9 @@ _I = ctypes.c_int
 KERNELS = {
     "dequant": ("dequant.cu", "hqq_dequant", [_P] * 4 + [_I] * 5 + [_P]),
     "dequant_ax0": ("dequant.cu", "hqq_dequant_ax0", [_P] * 4 + [_I] * 7 + [_P]),
-    "quant_matmul": ("quant_matmul.cu", "hqq_quant_matmul", [_P] * 5 + [_I] * 6 + [_P]),
+    "quant_matmul": ("quant_matmul.cu", "hqq_quant_matmul", [_P] * 6 + [_I] * 11 + [_P]),
     "quant_matmul_ax0": (
-        "quant_matmul_ax0.cu", "hqq_quant_matmul_ax0", [_P] * 6 + [_I] * 9 + [_P],
+        "quant_matmul_ax0.cu", "hqq_quant_matmul_ax0", [_P] * 6 + [_I] * 13 + [_P],
     ),
     "quant_matmul_lora": (
         "quant_matmul_lora.cu", "hqq_quant_matmul_lora", [_P] * 7 + [_I] * 7 + [_P],

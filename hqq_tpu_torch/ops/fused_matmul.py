@@ -32,6 +32,7 @@ tensors it launches the kernel or raises; nothing falls back.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -65,6 +66,8 @@ __all__ = [
     "quant_matmul_ax0_plain",
     "dequant_plain",
     "reset_launch_counts",
+    "QmmPlan",
+    "qmm_launch_plan",
 ]
 
 # nbits (canonical) -> container bits of the kernel layout: 3-bit rides the
@@ -74,9 +77,16 @@ _KERNEL_CONTAINER_BITS = {8: 8, 6: 8, 5: 8, 4: 4, 3: 4, 2: 2, 1.58: 2, 1: 1}
 # largest M that `quant_matmul_pallas_a8` sends to the int8 kernel
 A8_MAX_M = 32
 
-# below this many 64x64 output tiles, `quant_matmul_ax0` splits K over more
-# blocks (four per SM of an H100)
-_AX0_MIN_BLOCKS = 528
+# the geometry of the Hopper mainloop (csrc/qmm_sm90.cuh) and of the card
+QMM_ROWS = 128  # weight rows of a block
+QMM_SLAB = 64  # K of a slab
+QMM_TOKEN_TILES = (8, 32, 64, 128, 256)
+QMM_MAX_STAGES = 8
+H100_SMS = 132
+H100_SMEM_PER_BLOCK = 232448
+# the most tokens for which K is split: the w4a8 backend's decode sizes,
+# which reach quant_matmul only from the pallas backend and 8-bit weights
+QMM_SPLIT_MAX_M = A8_MAX_M
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -316,6 +326,90 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+@dataclasses.dataclass(frozen=True)
+class QmmPlan:
+    """How `quant_matmul` and `quant_matmul_ax0` launch: a block per
+    (128 weight rows, ``token_tile`` tokens, K split), ``stages`` slots in
+    the pipeline, ``smem`` bytes of dynamic shared memory."""
+
+    token_tile: int
+    stages: int
+    splits: int
+    slabs_per_split: int
+    grid: tuple  # (weight-row tiles, token tiles, splits)
+    smem: int
+
+
+def _slab_meta_bytes(group_size: int, axis: int, meta_size: int) -> int:
+    """Bytes of scale and zs that one slot of the pipeline holds."""
+    g = group_size
+    if axis == 1:  # 128 rows of the groups under a 64-wide slab (at least 4), fp32
+        tiles = QMM_SLAB % g == 0 or g % QMM_SLAB == 0
+        groups = 1 if g % QMM_SLAB == 0 else QMM_SLAB // g if tiles else (QMM_SLAB - 1) // g + 2
+        return 2 * QMM_ROWS * max(4, groups) * 4
+    # axis=0: 64 columns of the rows of [P, K_pad] under 128 permuted rows
+    if QMM_ROWS % g == 0:
+        rows = QMM_ROWS // g
+    else:
+        rows = 1 if g % QMM_ROWS == 0 else (QMM_ROWS - 1) // g + 2
+    return 2 * rows * QMM_SLAB * meta_size
+
+
+def qmm_smem_bytes(token_tile: int, stages: int, code_stage: int, meta_stage: int) -> int:
+    """Dynamic shared memory of one block (`smem_layout` of qmm_sm90.cuh):
+    the x slots, each consumer's two A tiles (or its epilogue staging), the
+    code and meta slots, the barriers, and 1024 bytes to align the base."""
+    per_wg = max(2 * 64 * QMM_SLAB * 2, token_tile * 128)
+    return (stages * token_tile * 128 + 2 * per_wg + stages * (code_stage + meta_stage)
+            + 16 * stages + 1024)
+
+
+@functools.lru_cache(maxsize=4096)
+def qmm_launch_plan(m: int, n: int, k: int, cb: int, group_size: int, axis: int = 1,
+                    meta_size: int = 4) -> QmmPlan:
+    """The launch of the Hopper dequant-matmul for x [m, k] and a weight of
+    n rows (k = K_pad for axis=0; meta_size = 4 or 2 bytes of its scale).
+
+    Token tile: the least of 8, 32, 64 that holds m tokens; above 64, 128 or
+    256, whichever takes fewer waves of blocks times the tile (a block's
+    time grows with its tile), the larger one on a tie. Up to
+    ``QMM_SPLIT_MAX_M`` tokens the card has only n/128 blocks to run, so K
+    is split over gridDim.z: the split with the fewest waves of blocks
+    times slabs per block (plus two for a block's fill and epilogue), the
+    fewer splits on a tie. One wave of 128 blocks beats two of 256 there
+    (H100 80GB HBM3, 700 W: 0.0184 against 0.0208 ms at M=4, K=N=4096).
+    Above it K is never split, so that a row of y does not depend on how
+    many rows go with it (chunked prefill gives the logits of a whole one).
+    Stages: as many slots as shared memory holds, at most 8. Cached: every
+    decode step asks again for the same shapes."""
+    slabs = -(-k // QMM_SLAB)
+    row_tiles = -(-n // QMM_ROWS)
+    if m <= 64:
+        tile = next(t for t in QMM_TOKEN_TILES if t >= m)
+    else:
+        tile = min((128, 256),
+                   key=lambda t: (-(-row_tiles * -(-m // t) // H100_SMS) * t, -t))
+    blocks = row_tiles * -(-m // tile)
+    splits, per_split = 1, slabs
+    if m <= QMM_SPLIT_MAX_M and blocks < H100_SMS:
+        options = []
+        for s in range(1, slabs + 1):
+            sps = -(-slabs // s)
+            eff = -(-slabs // sps)  # no empty split
+            options.append((-(-blocks * eff // H100_SMS) * (sps + 2), eff, sps))
+        _, splits, per_split = min(options)
+    code_stage = QMM_ROWS * 8 * cb
+    meta_stage = _slab_meta_bytes(group_size, axis, meta_size)
+    fixed = qmm_smem_bytes(tile, 0, code_stage, meta_stage)
+    per_stage = qmm_smem_bytes(tile, 1, code_stage, meta_stage) - fixed
+    stages = min(QMM_MAX_STAGES, (H100_SMEM_PER_BLOCK - fixed) // per_stage)
+    if stages < 2:
+        raise ValueError(f"no two pipeline stages fit for tile {tile}, cb {cb}, g {group_size}")
+    return QmmPlan(token_tile=tile, stages=stages, splits=splits, slabs_per_split=per_split,
+                   grid=(row_tiles, -(-m // tile), splits),
+                   smem=qmm_smem_bytes(tile, stages, code_stage, meta_stage))
+
+
 def dequant_plain(kqt: "KernelQTensor | KernelQTensor0", dtype=torch.float32) -> torch.Tensor:
     """Plain version of the dequant kernel: W [N, K] = c*scale - zs in fp32,
     then cast to ``dtype``. Axis=0: row n takes row n % (N/g) of scale and
@@ -379,6 +473,13 @@ def _kernel_activations(x2: torch.Tensor, k: int) -> torch.Tensor:
     return x2.clone() if x2.data_ptr() % 16 else x2
 
 
+def _split_scratch(plan: QmmPlan, m: int, n: int, dev) -> "torch.Tensor | None":
+    """fp32 partials [splits, m, n] of a K split over blocks, or None."""
+    if plan.splits == 1:
+        return None
+    return torch.empty((plan.splits, m, n), dtype=torch.float32, device=dev)
+
+
 def quant_matmul(x2: torch.Tensor, kqt: KernelQTensor) -> torch.Tensor:
     """x2 [M, K] @ W^T -> [M, N] in x2's dtype (bf16 or fp16 on the card)."""
     if _on_cpu(x2):
@@ -387,13 +488,17 @@ def quant_matmul(x2: torch.Tensor, kqt: KernelQTensor) -> torch.Tensor:
     _check_kqt(kqt, dev)
     x2 = _kernel_activations(x2, kqt.k)
     m, k = x2.shape
-    out = torch.empty((m, kqt.n), dtype=x2.dtype, device=dev)
+    n = kqt.n
+    out = torch.empty((m, n), dtype=x2.dtype, device=dev)
+    plan = qmm_launch_plan(m, n, k, kqt.container_bits, kqt.group_size)
+    part = _split_scratch(plan, m, n, dev)
     lib = _build.library("quant_matmul")
     with torch.cuda.device(dev):
         code = lib.hqq_quant_matmul(
             _ptr(x2), _ptr(kqt.wq, 4), _ptr(kqt.scale, 4), _ptr(kqt.zs, 4), _ptr(out, 2),
-            m, kqt.n, k, kqt.group_size, kqt.container_bits, _DTYPE_CODE[x2.dtype],
-            _stream(dev),
+            None if part is None else _ptr(part, 4), m, n, k, kqt.group_size,
+            kqt.container_bits, _DTYPE_CODE[x2.dtype], plan.token_tile, plan.stages,
+            plan.splits, plan.slabs_per_split, plan.smem, _stream(dev),
         )
     _build.check("quant_matmul", code)
     quant_matmul.launches += 1
@@ -467,17 +572,16 @@ def quant_matmul_ax0(x2: torch.Tensor, kqt: KernelQTensor0) -> torch.Tensor:
     m, kx = x2.shape
     n = kqt.n
     out = torch.empty((m, n), dtype=x2.dtype, device=dev)
-    # few output tiles (decode): split K over blocks; each split writes an
-    # fp32 partial that the library's second kernel sums
-    tiles = -(-n // 64) * -(-m // 64)
-    splits = max(1, min(_AX0_MIN_BLOCKS // tiles, kqt.k_pad // 64))
-    part = torch.empty((splits, m, n), dtype=torch.float32, device=dev) if splits > 1 else None
+    plan = qmm_launch_plan(m, n, kqt.k_pad, kqt.container_bits, kqt.group_size, axis=0,
+                           meta_size=kqt.scale.element_size())
+    part = _split_scratch(plan, m, n, dev)
     lib = _build.library("quant_matmul_ax0")
     with torch.cuda.device(dev):
         code = lib.hqq_quant_matmul_ax0(
             _ptr(x2), _ptr(kqt.wq, 4), _ptr(kqt.scale, 2), _ptr(kqt.zs, 2), _ptr(out, 2),
             None if part is None else _ptr(part, 4), m, n, kx, kqt.k_pad, kqt.group_size,
-            kqt.container_bits, _DTYPE_CODE[x2.dtype], _DTYPE_CODE[kqt.scale.dtype], splits,
+            kqt.container_bits, _DTYPE_CODE[x2.dtype], _DTYPE_CODE[kqt.scale.dtype],
+            plan.token_tile, plan.stages, plan.splits, plan.slabs_per_split, plan.smem,
             _stream(dev),
         )
     _build.check("quant_matmul_ax0", code)

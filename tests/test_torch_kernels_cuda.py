@@ -6,7 +6,8 @@ sees no CUDA device, so on a CPU-only machine they all skip. On the GPU:
 ``python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q`` (the
 suite's conftest imports JAX, which the GPU machine need not have). They
 cover what ``chip_smoke.py`` does not: every container (1/2/4/8-bit), group sizes,
-ragged N, K tails, M from 1 to 32 (w4a8) and beyond (quant_matmul), LoRA
+ragged N, K tails, M from 1 to 32 (w4a8) and beyond (quant_matmul, up to
+1023: both token tiles of the Hopper mainloop, K split at decode sizes), LoRA
 ranks 4 to 200 (above 64 the kernel walks rank chunks), fp32 and bf16 scale and zs of the axis=0 layout, and every
 output type. Tolerances (of max|y|): w4a8 in fp32 1e-5 (exact group dots,
 the fp32 epilogue sums in another order); bf16/fp16 outputs add one rounding
@@ -93,6 +94,38 @@ def test_quant_matmul(cuda, dtype, m, nbits, g, k, n):
     _close(fm.quant_matmul(x, kqt), fm.quant_matmul_plain(x, kqt), _OUT_TOL[dtype] * 2)
 
 
+# the Hopper mainloop's edges: token tiles of 128 and 256 and their ragged
+# ends, K split over blocks at decode sizes, codes by cp.async (1-bit),
+# groups that straddle or do not tile the 64-wide slab
+_SM90_CASES = [
+    (1023, 4, 64, 512, 11008),   # token tile 256, its last tile ragged
+    (1023, 4, 64, 1024, 512),
+    (128, 4, 64, 1024, 384),
+    (129, 4, 128, 1024, 200),    # a group across two slabs, ragged N
+    (256, 2, 32, 512, 256),
+    (256, 8, 64, 512, 256),
+    (4, 4, 64, 4096, 4096),      # K split over blocks
+    (17, 4, 64, 4096, 4096),
+    (4, 4, 64, 11008, 4096),
+    (17, 3, 64, 11008, 4096),
+    (4, 1, 32, 4096, 512),       # 1-bit: codes by cp.async
+    (40, 4, 96, 960, 200),       # g = 96 neither divides nor is a multiple of 64
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("m,nbits,g,k,n", _SM90_CASES)
+def test_quant_matmul_sm90_edges(cuda, dtype, m, nbits, g, k, n):
+    kqt = _kqt(n, k, g, nbits, cuda, seed=m)
+    x = torch.randn((m, k), device=cuda).to(dtype)
+    plan = fm.qmm_launch_plan(m, n, k, kqt.container_bits, g)
+    assert plan.token_tile == 256 or (m, k, n) != (1023, 512, 11008)
+    assert plan.splits > 1 or m > 17
+    launches = fm.quant_matmul.launches
+    _close(fm.quant_matmul(x, kqt), fm.quant_matmul_plain(x, kqt), _OUT_TOL[dtype] * 2)
+    assert fm.quant_matmul.launches == launches + 1
+
+
 @pytest.mark.parametrize("nbits,g", [(4, 64), (8, 16), (2, 64), (1, 32), (3, 128)])
 def test_dequant_exact(cuda, nbits, g):
     kqt = _kqt(300, 1024, g, nbits, cuda)
@@ -175,6 +208,41 @@ _AX0_CASES = [
 @pytest.mark.parametrize("m", [1, 4, 32, 33, 512])
 @pytest.mark.parametrize("nbits,g,k,n", _AX0_CASES)
 def test_quant_matmul_ax0(cuda, meta_dtype, m, nbits, g, k, n):
+    kqt = _kqt0(n, k, g, nbits, meta_dtype, cuda, seed=m)
+    for dtype in (torch.bfloat16, torch.float16):
+        x = torch.randn((m, k), device=cuda).to(dtype)
+        _close(fm.quant_matmul_ax0(x, kqt), fm.quant_matmul_ax0_plain(x, kqt), _OUT_TOL[dtype] * 2)
+
+
+def test_quant_matmul_rows_do_not_depend_on_m(cuda):
+    """Above the split sizes a row of y is the same whatever rows go with it
+    (token tiles of 64, 128 and 256, never a split K): a prefill in chunks
+    gives the numbers of a whole one."""
+    kqt = _kqt(4096, 1024, 64, 4, cuda)
+    kqt0 = _kqt0(1024, 1024, 16, 2, torch.bfloat16, cuda)
+    x = torch.randn((600, 1024), device=cuda).to(torch.bfloat16)
+    for fn, q in ((fm.quant_matmul, kqt), (fm.quant_matmul_ax0, kqt0)):
+        whole = fn(x, q)
+        for lo, hi in ((0, 256), (256, 512), (512, 600), (556, 600), (0, 33)):
+            assert torch.equal(fn(x[lo:hi], q), whole[lo:hi]), (fn.__name__, lo, hi)
+
+
+_AX0_SM90_CASES = [
+    (1023, 2, 16, 512, 11008),  # token tile 256
+    (128, 3, 64, 512, 320),
+    (129, 4, 128, 1024, 256),   # a block's 128 rows are one group
+    (256, 2, 16, 1024, 320),
+    (4, 3, 64, 4096, 4096),     # K split over blocks
+    (17, 2, 16, 4096, 11008),
+    (4, 2, 16, 11008, 4096),
+    (17, 1, 32, 4096, 512),     # 1-bit: codes by cp.async
+    (40, 4, 72, 512, 288),      # groups that do not tile 128 rows: cp.async
+]
+
+
+@pytest.mark.parametrize("meta_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,nbits,g,k,n", _AX0_SM90_CASES)
+def test_quant_matmul_ax0_sm90_edges(cuda, meta_dtype, m, nbits, g, k, n):
     kqt = _kqt0(n, k, g, nbits, meta_dtype, cuda, seed=m)
     for dtype in (torch.bfloat16, torch.float16):
         x = torch.randn((m, k), device=cuda).to(dtype)

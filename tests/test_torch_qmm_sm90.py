@@ -1,0 +1,157 @@
+# SPDX-License-Identifier: Apache-2.0
+"""The host side of the Hopper dequant-matmul mainloop (csrc/qmm_sm90.cuh).
+
+What the CPU can hold of it:
+  * `qmm_launch_plan`, which both `quant_matmul` and `quant_matmul_ax0`
+    call: its grid covers every output and every K slab exactly once, its
+    token tile is a multiple of 8 (wgmma's N) up to 256, its shared memory
+    fits one block of an H100, and at decode sizes (M <= 32) K is split so
+    that at least half the SMs have a block where K has the slabs for it
+    (one wave of 128 blocks beats two of 256 on the card), while above that
+    K is never split (a row of y does not depend on M);
+  * the build: every header a kernel source includes is hashed into its
+    library's name (`_build._HEADERS`), so an edit to it rebuilds;
+  * the entry points at the new tile edges (M = 127 and 129 around the
+    128-token tile, a g = 128 group across two 64-wide K slabs, N = 200
+    not a multiple of the 128 weight rows of a block) against hqq_tpu's
+    interpret-mode Pallas kernels, with the bars of test_torch_fused_matmul
+    (fp32 operands: 1e-5 of max|y|) and test_torch_ax0 (2e-5 of max|y|).
+"""
+
+import os
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hqq_tpu.core.quantize import quantize as j_quantize
+from hqq_tpu.ops import fused_matmul as jf
+from hqq_tpu_torch.ops import _build
+from hqq_tpu_torch.ops import fused_matmul as tf
+from hqq_tpu_torch.utils.convert import params_from_numpy
+
+_M = [1, 4, 8, 32, 33, 64, 65, 512, 1023]
+# (cb, g) of both layouts: every container, groups of 8 to 128, and a group
+# that neither divides nor is a multiple of the 64-wide slab (axis=1: 96)
+_GEOMETRY = {1: [(8, 8), (4, 64), (4, 96), (2, 16), (2, 128), (1, 32)],
+             0: [(8, 8), (4, 64), (4, 72), (2, 16), (2, 128), (1, 32)]}
+# (n, k) of the 7B linears, a ragged N and a K tail inside a slab
+_SHAPES = [(4096, 4096), (11008, 4096), (4096, 11008), (200, 96 * 4), (320, 1152)]
+
+
+@pytest.mark.parametrize("axis", [1, 0])
+@pytest.mark.parametrize("m", _M)
+def test_launch_plan(m, axis):
+    for cb, g in _GEOMETRY[axis]:
+        for n, k in _SHAPES:
+            if axis == 0 and n % g:
+                continue
+            for meta_size in ((4, 2) if axis == 0 else (4,)):
+                plan = tf.qmm_launch_plan(m, n, k, cb, g, axis=axis, meta_size=meta_size)
+                rows, tokens, splits = plan.grid
+                slabs = -(-k // tf.QMM_SLAB)
+                # every output once: tiles cover N and M with no empty one
+                assert (rows - 1) * tf.QMM_ROWS < n <= rows * tf.QMM_ROWS
+                assert (tokens - 1) * plan.token_tile < m <= tokens * plan.token_tile
+                # every K slab once, in splits of which none is empty
+                assert splits == plan.splits >= 1
+                assert (splits - 1) * plan.slabs_per_split < slabs <= splits * plan.slabs_per_split
+                assert plan.token_tile % 8 == 0 and plan.token_tile <= 256
+                assert plan.token_tile in tf.QMM_TOKEN_TILES
+                assert 2 <= plan.stages <= tf.QMM_MAX_STAGES
+                assert plan.smem <= tf.H100_SMEM_PER_BLOCK
+                if splits > 1:  # fp32 partials are staged in the A tiles: BM <= 64
+                    assert plan.token_tile <= 64
+                if m <= 64:
+                    assert plan.token_tile == min(t for t in tf.QMM_TOKEN_TILES if t >= m)
+                else:
+                    assert plan.token_tile in (128, 256)
+                if m <= tf.QMM_SPLIT_MAX_M:  # half the SMs at least, where K allows
+                    if rows * tokens * slabs >= tf.H100_SMS // 2:
+                        assert rows * tokens * splits >= tf.H100_SMS // 2
+                else:
+                    assert splits == 1
+
+
+def test_launch_plan_main_shapes():
+    """The plans of the main paths' shapes, as the card timings name them."""
+    plan = tf.qmm_launch_plan(512, 4096, 4096, 4, 64)
+    assert (plan.token_tile, plan.splits, plan.grid) == (128, 1, (32, 4, 1))
+    plan = tf.qmm_launch_plan(1023, 11008, 4096, 4, 64)
+    assert (plan.token_tile, plan.grid) == (256, (86, 4, 1))
+    plan = tf.qmm_launch_plan(4, 4096, 4096, 4, 64)
+    assert (plan.token_tile, plan.splits, plan.slabs_per_split) == (8, 4, 16)
+    plan = tf.qmm_launch_plan(4, 4096, 11008, 4, 64)
+    assert (plan.splits, plan.grid) == (4, (32, 1, 4))
+    plan = tf.qmm_launch_plan(4, 11008, 4096, 2, 16, axis=0, meta_size=2)
+    assert (plan.token_tile, plan.splits) == (8, 3)
+
+
+def _includes(path):
+    with open(path) as fh:
+        return re.findall(r'^\s*#\s*include\s+"([^"]+)"', fh.read(), flags=re.M)
+
+
+_CSRC = os.path.join(os.path.dirname(_build.__file__), "..", "csrc")
+_SOURCES = sorted(f for f in os.listdir(_CSRC) if f.endswith((".cu", ".cuh")))
+
+
+@pytest.mark.parametrize("source", _SOURCES)
+def test_every_included_header_is_hashed(source):
+    for header in _includes(os.path.join(_CSRC, source)):
+        assert header in _build._HEADERS, f"{source} includes {header}, which no build hashes"
+    if source.endswith(".cu"):
+        assert source in {spec[0] for spec in _build.KERNELS.values()}
+
+
+def test_every_header_is_a_header():
+    for header in _build._HEADERS:
+        assert header in _SOURCES and header.endswith(".cuh")
+
+
+# (m, n_out, k, g, nbits): the 128-token tile's edges, a group across two slabs
+_AX1_EDGES = [(127, 200, 1024, 128, 4), (129, 200, 1024, 128, 4), (127, 256, 512, 64, 2),
+              (129, 128, 512, 32, 8), (129, 200, 512, 64, 3)]
+
+
+def _ax1(m, n_out, k, g, nbits):
+    rng = np.random.default_rng(m + n_out + k + g + nbits)
+    w = (rng.standard_normal((n_out, k)) / np.sqrt(k)).astype(np.float32)
+    qj = j_quantize(jnp.asarray(w), nbits=nbits, group_size=g, axis=1,
+                    round_zero=(nbits == 4), compute_dtype=jnp.float32)
+    kj = jf.to_kernel_layout(qj, pad_k_groups=8)
+    kt = tf.to_kernel_layout(params_from_numpy(jax.tree_util.tree_map(np.asarray, qj), "cpu"))
+    return kj, kt, rng.standard_normal((m, k)).astype(np.float32)
+
+
+@pytest.mark.parametrize("m,n_out,k,g,nbits", _AX1_EDGES)
+def test_quant_matmul_pallas_tile_edges(m, n_out, k, g, nbits):
+    kj, kt, x = _ax1(m, n_out, k, g, nbits)
+    yj = np.asarray(jf.quant_matmul_pallas(jnp.asarray(x), kj))
+    yt = tf.quant_matmul_pallas(torch.from_numpy(x), kt).numpy()
+    assert yt.shape == yj.shape == (m, n_out)
+    np.testing.assert_allclose(yt, yj, rtol=0, atol=1e-5 * np.abs(yj).max())
+
+
+# (m, n_out, k, g, nbits): N = 200 in groups of 8 rows, a group of 128 rows
+# (one block's weight rows), K padded inside a slab
+_AX0_EDGES = [(127, 200, 512, 8, 4), (129, 200, 512, 8, 4), (129, 256, 512, 128, 3),
+              (127, 320, 200, 16, 2)]
+
+
+@pytest.mark.parametrize("m,n_out,k,g,nbits", _AX0_EDGES)
+def test_quant_matmul_pallas_ax0_tile_edges(m, n_out, k, g, nbits):
+    rng = np.random.default_rng(m + n_out + k + g)
+    w = (rng.standard_normal((n_out, k)) / np.sqrt(k)).astype(np.float32)
+    qj = j_quantize(jnp.asarray(w), nbits=nbits, group_size=g, axis=0,
+                    round_zero=(nbits == 4), compute_dtype=jnp.float32)
+    kj = jf.to_kernel_layout_ax0(qj)
+    kt = tf.to_kernel_layout_ax0(params_from_numpy(jax.tree_util.tree_map(np.asarray, qj), "cpu"))
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    yj = np.asarray(jf.quant_matmul_pallas(jnp.asarray(x), kj))
+    yt = tf.quant_matmul_pallas(torch.from_numpy(x), kt).numpy()
+    assert yt.shape == yj.shape == (m, n_out)
+    assert np.abs(yt - yj).max() / np.abs(yj).max() < 2e-5
