@@ -9,8 +9,11 @@
 
 Phases (any failure exits non-zero):
   (a) device and build: the card, its power limit, an nvcc build of every
-      kernel under hqq_tpu_torch/csrc/, and the wgmma (HGMMA) and TMA
-      (UTMALDG) instructions in the SASS of the two mainloop libraries;
+      kernel under hqq_tpu_torch/csrc/ (registers and spill stores of each
+      instantiation of the two LoRA and attention libraries), and the wgmma
+      (HGMMA) and TMA (UTMALDG) instructions in the SASS of the four wgmma
+      libraries (quant_matmul, quant_matmul_ax0, quant_matmul_lora,
+      flash_attention);
   (b) each kernel against its plain PyTorch version at the main paths'
       shapes: largest error against the stated tolerance, kernel time, plain
       time, the least time the card could take (bound), and for the matmuls
@@ -236,9 +239,18 @@ def phase_a(name: str, power: str) -> None:
         spills = re.findall(r"(\d+) bytes spill stores", text)
         log(f"[a]   {kname}: {len(regs)} instantiations, registers {min(map(int, regs))}-"
             f"{max(map(int, regs))}, spill stores up to {max(map(int, spills))} bytes")
-    # the Hopper mainloop really issues wgmma (HGMMA) and TMA loads (UTMALDG)
+        if kname in ("quant_matmul_lora.cu", "flash_prefill.cu"):
+            # per kernel instantiation: (template arguments, registers, spill bytes)
+            for fn, body in re.findall(r"Compiling entry function '(\w+)'(.*?)(?=Compiling|\Z)",
+                                       text, flags=re.S):
+                reg = re.search(r"Used (\d+) registers", body)
+                spill = re.search(r"(\d+) bytes spill stores", body)
+                if "kernel" in fn and reg:
+                    log(f"[a]     {fn.split('EEv')[0]}: {reg.group(1)} registers, "
+                        f"{spill.group(1) if spill else '?'} bytes spill stores")
+    # the Hopper mainloops really issue wgmma (HGMMA) and TMA loads (UTMALDG)
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    for kname in ("quant_matmul", "quant_matmul_ax0"):
+    for kname in ("quant_matmul", "quant_matmul_ax0", "quant_matmul_lora", "flash_attention"):
         source = _build.KERNELS[kname][0]
         sass = subprocess.run([cuobjdump, "-sass", _build._lib_path(source)], capture_output=True,
                               text=True, check=True, timeout=300).stdout
@@ -546,8 +558,9 @@ def phase_b() -> dict:
         return err
 
     r = LORA_RANK
-    # -- quant_matmul_lora at the prefill shapes of path E --------------------
-    for (m, k, n) in [(512, 4096, 4096), (512, 4096, 11008), (512, 11008, 4096)]:
+    # -- quant_matmul_lora at the prefill shapes of path E, and at M = 4 (the
+    # pallas backend's decode) --------------------------------------------
+    for (m, k, n) in [(512, 4096, 4096), (512, 4096, 11008), (512, 11008, 4096), (4, 4096, 4096)]:
         kqt = _make_kqt(n, k, g, 4, seed=k * 11 + n)
         a, b = _make_lora(k, n, seed=12)
         x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)

@@ -1,6 +1,7 @@
 // SPDX-License-Identifier: Apache-2.0
 // The Hopper mainloop of the fused dequant-matmul kernels (quant_matmul.cu,
-// quant_matmul_ax0.cu): TMA, wgmma and an mbarrier pipeline, in raw PTX.
+// quant_matmul_ax0.cu, quant_matmul_lora.cu): TMA, wgmma and an mbarrier
+// pipeline, in the PTX of sm90_ptx.cuh.
 //
 // The operands are swapped: wgmma's 64-row A side takes dequantized weight
 // rows (output features), its N side takes a tile of BM tokens, so a block
@@ -34,16 +35,22 @@
 // stores y in 16-byte rows (or an fp32 partial when K is split over
 // gridDim.z; `qmm_sum_splits` adds the partials in a fixed order).
 //
-// A layout (the .cu file's own) supplies how a slab's codes and meta are
-// loaded, where a row's scale and zs sit, and which column of y a weight
-// row is. The dequantized operand is bit-identical to the plain version's
-// (an fp32 multiply, then an fp32 subtract, rounded to x's type), so only
-// the order of the fp32 sums differs.
+// The LoRA kernel (RP > 0) rides the same ring: a slot also holds A^T's
+// [RP x 64] slab (x's type, by TMA, in x's swizzle), a consumer multiplies
+// 64 token rows of x's slab by it into p = x @ A (wgmma with x as the
+// 64-row side), and after each walk over K (one per chunk of RP ranks; only
+// the first dequantizes) p @ B is added to the fp32 accumulators
+// (`lora_term`).
+//
+// A layout (`Ax1Layout` below, `Ax0Layout` of quant_matmul_ax0.cu) supplies
+// how a slab's codes and meta are loaded, where a row's scale and zs sit,
+// and which column of y a weight row is. The dequantized operand is
+// bit-identical to the plain version's (an fp32 multiply, then an fp32
+// subtract, rounded to x's type), so only the order of the fp32 sums
+// differs.
 #pragma once
 
-#include <cuda.h>
-
-#include "hqq_common.cuh"
+#include "sm90_ptx.cuh"
 
 namespace sm90 {
 
@@ -73,412 +80,37 @@ struct Params {
   int slabs, slabs_per_split, stages;
   int code_stage, meta_stage;  // bytes of a slot's codes and meta
   int out_dtype;
+  // LoRA (a kernel with RP > 0): B fp32 [rank, N]; the rank is walked in
+  // `passes` chunks of RP, each a walk over K (the first with the base)
+  const float* lb;
+  int rank, passes;
 };
 
 // Shared-memory carve-up; ops/fused_matmul.py `qmm_launch_plan` computes the
 // same sizes.
 struct SmemLayout {
-  int x, scratch, per_wg, codes, meta, bars, total;
+  int x, scratch, per_wg, lora, pbuf, codes, meta, bars, total;
 };
 
+// rp: the LoRA kernel's rank chunk (0 without an adapter)
 __host__ __device__ inline SmemLayout smem_layout(int bm, int stages, int code_stage,
-                                                  int meta_stage) {
+                                                  int meta_stage, int rp = 0) {
   SmemLayout s;
   s.x = 0;
   s.scratch = stages * bm * 128;
   // two A tiles, or the epilogue's [BM x 64] staging of y in x's type (an
-  // fp32 partial needs BM <= 64)
+  // fp32 partial, or the LoRA term's, needs BM <= 64 or 64 tokens at a time)
   s.per_wg = 2 * kATile > bm * 128 ? 2 * kATile : bm * 128;
-  s.codes = s.scratch + 2 * s.per_wg;
+  s.lora = s.scratch + 2 * s.per_wg;     // slots of A^T's [rp x 64] slab, swizzled
+  s.pbuf = s.lora + stages * rp * 128;   // p = x @ A of the tile, fp32 [bm][rp]
+  s.codes = s.pbuf + bm * rp * 4;
   s.meta = s.codes + stages * code_stage;
   s.bars = s.meta + stages * meta_stage;
   s.total = s.bars + 16 * stages + 1024;  // + slack to align the base to 1024
   return s;
 }
 
-// ---------------------------------------------------------------- PTX ----
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// cp.async of `vec` bytes, zero-filled when !valid (src is then not read)
-__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, int vec, bool valid) {
-  const int n = valid ? vec : 0;
-  if (vec == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n)
-                 : "memory");
-  } else if (vec == 8) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src), "r"(n)
-                 : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(n)
-                 : "memory");
-  }
-}
-
-// the barrier counts one arrival once every earlier cp.async of the thread landed
-__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving accumulators while a wgmma owns them
-template <int R>
-__device__ __forceinline__ void fence_acc(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// K-major operand in the 128-byte swizzle: rows of 128 bytes, 8-row groups
-// 1024 bytes apart (SBO), the tile 1024-byte aligned; +2 per k16 step.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
-  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
-         (1ull << 62);
-}
-
-// the 16-byte chunk q of row r of a 128-byte-swizzled tile
-__device__ __forceinline__ int sw128(int r, int q) { return r * 128 + ((q ^ (r & 7)) << 4); }
-
-// D[64 x N] += A[64 x 16] . B[N x 16]^T, both from shared memory, K-major
-template <typename T, int N>
-__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a, uint64_t b);
-
-template <>
-__device__ __forceinline__ void wgmma<__nv_bfloat16, 8>(float (&d)[4], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3}, "
-      "%4, %5, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma<__half, 8>(float (&d)[4], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.f16.f16 "
-      "{%0, %1, %2, %3}, "
-      "%4, %5, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma<__nv_bfloat16, 32>(float (&d)[16], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma<__half, 32>(float (&d)[16], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma<__nv_bfloat16, 64>(float (&d)[32], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma<__half, 64>(float (&d)[32], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma<__nv_bfloat16, 128>(float (&d)[64], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma<__half, 128>(float (&d)[64], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma<__nv_bfloat16, 256>(float (&d)[128], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
-        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
-        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
-        "+f"(d[126]), "+f"(d[127])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma<__half, 256>(float (&d)[128], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.f16.f16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
-        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
-        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
-        "+f"(d[126]), "+f"(d[127])
-      : "l"(a), "l"(b), "r"(1));
-}
-
 // -------------------------------------------------------------- dequant --
-
-template <typename T>
-__device__ __forceinline__ T to_type(float v);
-template <>
-__device__ __forceinline__ __nv_bfloat16 to_type<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-template <>
-__device__ __forceinline__ __half to_type<__half>(float v) {
-  return __float2half_rn(v);
-}
-
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float a, float b);
-template <>
-__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float a, float b) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-template <>
-__device__ __forceinline__ uint32_t pack2<__half>(float a, float b) {
-  const __half2 v = __floats2half2_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // byte e of w as an exact float: 2^23 + code, less 2^23
 __device__ __forceinline__ float code_f32(uint32_t w, int e) {
@@ -491,6 +123,7 @@ struct ChunkCodes {
   int offset;  // byte offset of the chunk's word(s) within a slab row
   int shift;
   uint32_t mask;
+  int cb;
 };
 
 __device__ __forceinline__ ChunkCodes chunk_codes(int q, int cb) {
@@ -503,32 +136,128 @@ __device__ __forceinline__ ChunkCodes chunk_codes(int q, int cb) {
     c.shift = cb * 2 * (q % per_word);
   }
   c.mask = ((1u << cb) - 1u) * 0x01010101u;
+  c.cb = cb;
   return c;
 }
 
-__device__ __forceinline__ void read_codes(const uint8_t* row, const ChunkCodes& c, int cb,
-                                           uint32_t& lo, uint32_t& hi) {
-  if (cb == 8) {
+template <bool kBytes>  // 8-bit codes: one byte each, no shift or mask
+__device__ __forceinline__ void read_codes(const uint8_t* row, const ChunkCodes& c, uint32_t& lo,
+                                           uint32_t& hi) {
+  if (kBytes) {
     const uint2 w = *reinterpret_cast<const uint2*>(row + c.offset);
     lo = w.x, hi = w.y;
   } else {
     const uint32_t w = *reinterpret_cast<const uint32_t*>(row + c.offset) >> c.shift;
-    lo = w & c.mask, hi = (w >> cb) & c.mask;
+    lo = w & c.mask, hi = (w >> c.cb) & c.mask;
   }
 }
 
-// ---------------------------------------------------------------- kernel --
+// A consumer's 64 x 64 weight slab, dequantized from the slot into its A
+// tile a (each thread 8 codes of 4 rows). kBytes is a template argument so
+// that the hot loop carries no branch on the container.
+template <typename T, typename Layout, bool kBytes>
+__device__ __forceinline__ void dequant_tile(uint8_t* a, const uint8_t* codes, const uint8_t* meta,
+                                             const int (&code_off)[4], const int (&meta_off)[4],
+                                             int madd, int zs_off, const ChunkCodes& cc, int ct) {
+  const int q = ct % 8;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint32_t lo, hi;
+    read_codes<kBytes>(codes + code_off[i], cc, lo, hi);
+    float sc[8], z[8];
+    Layout::meta8(meta, meta_off[i] + madd, zs_off, sc, z);
+    float v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      v[e] = __fsub_rn(__fmul_rn(code_f32(e < 4 ? lo : hi, e & 3), sc[e]), z[e]);
+    const int r = i * 16 + ct / 8;
+    *reinterpret_cast<uint4*>(a + sw128(r, q)) =
+        make_uint4(pack2<T>(v[0], v[1]), pack2<T>(v[2], v[3]), pack2<T>(v[4], v[5]),
+                   pack2<T>(v[6], v[7]));
+  }
+}
 
-template <typename T, int BM, typename Layout>
+// The LoRA term of one rank chunk, added to the accumulators (after the
+// chunk's walk over K, no wgmma in flight): p = x @ A of the tile goes to
+// shared memory; then, 64 tokens at a time, the consumer's fp32
+// accumulators go to its A tiles (free until the next slab), each thread
+// adds sum_j p[m, j] * B[r0 + j, n] in fp32 to the outputs of one column n
+// there, 8 ranks at a time, and the accumulators are read back. Loops over
+// shared memory, not over register arrays, so the term holds no registers
+// beyond the accumulators.
+template <int BM, int RP>
+__device__ __forceinline__ void lora_term(float (&acc)[BM / 2], const float (&pacc)[RP / 2],
+                                          float* pb, float* st, bool lora_rows, int tok0,
+                                          const Params& p, int col0, int r0, bool again) {
+  constexpr int kRows = BM > 64 ? 64 : BM;  // tokens staged at a time: 16 KB of fp32
+  const int ct = threadIdx.x % 128, warp = ct / 32, lane = ct % 32;
+  const int wg_bar = threadIdx.x / 128;  // this consumer's barrier, 1 + wg
+  if (lora_rows) {
+#pragma unroll
+    for (int j = 0; j < RP / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int tok = tok0 + warp * 16 + lane / 4 + 8 * (h >> 1);
+        if (tok < BM) pb[tok * RP + 8 * j + 2 * (lane % 4) + (h & 1)] = pacc[4 * j + h];
+      }
+  }
+  named_sync<256>(3);  // both consumers: p complete
+  const int n = ct % 64, col = col0 + n;
+  const int rc = min(RP, p.rank - r0);
+#pragma unroll
+  for (int t0 = 0; t0 < BM; t0 += kRows) {
+#pragma unroll
+    for (int j = t0 / 8; j < (t0 + kRows) / 8; ++j)  // st [kRows tokens][64 weight rows]
+#pragma unroll
+      for (int h = 0; h < 4; ++h)
+        st[(8 * j - t0 + 2 * (lane % 4) + (h & 1)) * 64 + warp * 16 + lane / 4 + 8 * (h >> 1)] =
+            acc[4 * j + h];
+    named_sync(wg_bar);
+    for (int j0 = 0; j0 < rc; j0 += 8) {
+      float b[8];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+        b[jj] = j0 + jj < rc && col < p.n
+                    ? __ldg(p.lb + static_cast<size_t>(r0 + j0 + jj) * p.n + col)
+                    : 0.f;
+      for (int m = ct / 64; m < kRows; m += 2) {
+        const float* pm = pb + (t0 + m) * RP + j0;
+        float t = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) t = fmaf(pm[jj], b[jj], t);
+        st[m * 64 + n] += t;
+      }
+    }
+    named_sync(wg_bar);
+#pragma unroll
+    for (int j = t0 / 8; j < (t0 + kRows) / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 4; ++h)
+        acc[4 * j + h] =
+            st[(8 * j - t0 + 2 * (lane % 4) + (h & 1)) * 64 + warp * 16 + lane / 4 + 8 * (h >> 1)];
+    if (t0 + kRows < BM) named_sync(wg_bar);  // the next tokens rewrite st
+  }
+  if (again) named_sync<256>(3);  // the next chunk rewrites pb
+}
+
+// RP: 0, or the rank chunk of the LoRA kernel (16 or 64): a pass over K
+// also brings A^T's [RP x 64] slab into the slot, and a consumer multiplies
+// 64 of the tile's token rows by it into RP/2 more accumulators a thread
+// (wgmma m64nRPk16 with x's slab as the A side). Both consumers take 64
+// rows at BM = 128; at BM <= 64 the first takes them all (rows past BM
+// read other shared memory, and their results are never used).
+template <typename T, int BM, typename Layout, int RP = 0>
 __global__ void __launch_bounds__(kThreads, 1)
     qmm_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
                     const __grid_constant__ CUtensorMap cmap,
                     const __grid_constant__ CUtensorMap smap,
-                    const __grid_constant__ CUtensorMap zmap, const Params p) {
+                    const __grid_constant__ CUtensorMap zmap,
+                    const __grid_constant__ CUtensorMap amap, const Params p) {
+  static_assert(RP == 0 || (BM <= 128 && RP % 16 == 0), "LoRA tiles: BM <= 128, RP of 16s");
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                              ~static_cast<uintptr_t>(1023));
-  const SmemLayout L = smem_layout(BM, p.stages, p.code_stage, p.meta_stage);
+  const SmemLayout L = smem_layout(BM, p.stages, p.code_stage, p.meta_stage, RP);
   const uint32_t full0 = smem_u32(smem + L.bars);
   const uint32_t empty0 = full0 + 8 * p.stages;
 
@@ -536,6 +265,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int m0 = blockIdx.y * BM;
   const int kb = blockIdx.z * p.slabs_per_split;
   const int nslab = min(p.slabs, kb + p.slabs_per_split) - kb;
+  const int iters = (RP > 0 ? p.passes : 1) * nslab;  // the first nslab carry the base
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < p.stages; ++s) {
@@ -550,29 +280,32 @@ __global__ void __launch_bounds__(kThreads, 1)
     // ---- producer warpgroup
     asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
     const int tid = threadIdx.x;
-    for (int it = 0; it < nslab; ++it) {
+    for (int it = 0; it < iters; ++it) {
       const int s = it % p.stages;
+      const bool base = RP == 0 || it < nslab;  // the base's slabs
       mbar_wait(empty0 + 8 * s, ((it / p.stages) & 1) ^ 1);
-      const int k0 = (kb + it) * kBK;
+      const int k0 = (kb + (RP > 0 ? it % nslab : it)) * kBK;
       const uint32_t full = full0 + 8 * s;
       const uint32_t codes = smem_u32(smem + L.codes + s * p.code_stage);
       const uint32_t meta = smem_u32(smem + L.meta + s * p.meta_stage);
       if (tid == 0) {
-        mbar_expect_tx(full, p.tx_bytes);
+        mbar_expect_tx(full, base ? p.tx_bytes : (BM + RP) * 128);  // else x and A^T alone
         tma_load_2d(smem_u32(smem + L.x + s * BM * 128), &xmap, full, k0, m0);
-        if (p.codes_tma) {
+        if constexpr (RP > 0)
+          tma_load_2d(smem_u32(smem + L.lora + s * RP * 128), &amap, full, k0, it / nslab * RP);
+        if (base && p.codes_tma) {
           int c[3];
           Layout::code_coords(p, p0, k0, c);
           tma_load_3d(codes, &cmap, full, c[0], c[1], c[2]);
         }
-        if (p.meta_tma) {
+        if (base && p.meta_tma) {
           int c[2];
           Layout::meta_coords(p, p0, k0, c);
           tma_load_2d(meta, &smap, full, c[0], c[1]);
           tma_load_2d(meta + p.meta_stage / 2, &zmap, full, c[0], c[1]);
         }
       }
-      if (!p.codes_tma || !p.meta_tma) Layout::load_slab(p, p0, k0, codes, meta, tid);
+      if (base && (!p.codes_tma || !p.meta_tma)) Layout::load_slab(p, p0, k0, codes, meta, tid);
       cp_async_arrive(full);
     }
   } else {
@@ -595,47 +328,69 @@ __global__ void __launch_bounds__(kThreads, 1)
     float acc[BM / 2];
 #pragma unroll
     for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
+    float pacc[RP > 0 ? RP / 2 : 1];
+    const bool lora_rows = RP > 0 && (BM == 128 || wg == 0);
+    const int tok0 = BM == 128 ? wg * 64 : 0;
 
-    for (int it = 0; it < nslab; ++it) {
+    for (int it = 0; it < iters; ++it) {
       const int s = it % p.stages;
-      mbar_wait(full0 + 8 * s, (it / p.stages) & 1);
-      const uint8_t* codes = smem + L.codes + s * p.code_stage;
-      const uint8_t* meta = smem + L.meta + s * p.meta_stage;
-      uint8_t* a = a_tiles + (it & 1) * kATile;
-      const int k0 = (kb + it) * kBK;
-      const int madd = Layout::meta_add(p, k0, q);
+      const bool base = RP == 0 || it < nslab;  // the base's slabs
+      if constexpr (RP > 0) {
+        if (it % nslab == 0) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        uint32_t lo, hi;
-        read_codes(codes + code_off[i], cc, p.cb, lo, hi);
-        float sc[8], z[8];
-        Layout::meta8(meta, meta_off[i] + madd, zs_off, sc, z);
-        float v[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          v[e] = __fsub_rn(__fmul_rn(code_f32(e < 4 ? lo : hi, e & 3), sc[e]), z[e]);
-        const int r = i * 16 + ct / 8;
-        *reinterpret_cast<uint4*>(a + sw128(r, q)) =
-            make_uint4(pack2<T>(v[0], v[1]), pack2<T>(v[2], v[3]), pack2<T>(v[4], v[5]),
-                       pack2<T>(v[6], v[7]));
+          for (int i = 0; i < RP / 2; ++i) pacc[i] = 0.f;
+        }
       }
-      fence_proxy_async();
-      named_sync(1 + wg);
+      mbar_wait(full0 + 8 * s, (it / p.stages) & 1);
+      const uint8_t* xs = smem + L.x + s * BM * 128;
+      uint8_t* a = a_tiles + (it & 1) * kATile;
+      if (base) {
+        const uint8_t* codes = smem + L.codes + s * p.code_stage;
+        const uint8_t* meta = smem + L.meta + s * p.meta_stage;
+        const int madd = Layout::meta_add(p, (kb + it) * kBK, q);
+        if (p.cb == 8)
+          dequant_tile<T, Layout, true>(a, codes, meta, code_off, meta_off, madd, zs_off, cc, ct);
+        else
+          dequant_tile<T, Layout, false>(a, codes, meta, code_off, meta_off, madd, zs_off, cc, ct);
+        fence_proxy_async();
+        named_sync(1 + wg);
+      }
 
-      const uint64_t da = sw128_desc(smem_u32(a));
-      const uint64_t db = sw128_desc(smem_u32(smem + L.x + s * BM * 128));
+      const uint64_t db = sw128_desc(smem_u32(xs));
       fence_acc(acc);
+      if constexpr (RP > 0) fence_acc(pacc);
       wgmma_fence();
+      if (base) {
+        const uint64_t da = sw128_desc(smem_u32(a));
 #pragma unroll
-      for (int ks = 0; ks < kBK / 16; ++ks) wgmma<T, BM>(acc, da + 2 * ks, db + 2 * ks);
+        for (int ks = 0; ks < kBK / 16; ++ks) wgmma<T, BM>(acc, da + 2 * ks, db + 2 * ks);
+      }
+      if constexpr (RP > 0) {
+        if (lora_rows) {
+          const uint64_t dx = sw128_desc(smem_u32(xs + tok0 * 128));
+          const uint64_t dl = sw128_desc(smem_u32(smem + L.lora + s * RP * 128));
+#pragma unroll
+          for (int ks = 0; ks < kBK / 16; ++ks) wgmma<T, RP>(pacc, dx + 2 * ks, dl + 2 * ks);
+        }
+      }
       wgmma_commit();
       wgmma_wait<1>();
       fence_acc(acc);
+      if constexpr (RP > 0) fence_acc(pacc);
       if (it > 0 && ct == 0) mbar_arrive(empty0 + 8 * ((it - 1) % p.stages));
+      if constexpr (RP > 0) {
+        if (it % nslab == nslab - 1) {  // the chunk's walk over K is done
+          wgmma_wait<0>();
+          fence_acc(acc);
+          fence_acc(pacc);
+          lora_term<BM, RP>(acc, pacc, reinterpret_cast<float*>(smem + L.pbuf),
+                            reinterpret_cast<float*>(a_tiles), lora_rows, tok0, p, p0 + wg * 64,
+                            it / nslab * RP, it + 1 < iters);
+        }
+      }
     }
     wgmma_wait<0>();
     fence_acc(acc);
-
     // ---- epilogue: the accumulators, transposed, through this warpgroup's
     // A tiles (all its wgmma are done), then out in 16-byte rows
     const int warp = ct / 32, lane = ct % 32;
@@ -719,44 +474,6 @@ inline int copy_vec(const void* base, long row_bytes, long slab_bytes) {
   return 0;
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// A tensor map of `rank` <= 3 dimensions (innermost first; strides in bytes
-// of dimensions 1..rank-1), boxes of `box`, zeros outside the tensor.
-inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
-                      const long* dims, const long* strides, const int* box,
-                      CUtensorMapSwizzle swizzle) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
-                                                     cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault,
-                                            &found);
-#endif
-    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return static_cast<int>(cudaErrorNotSupported);
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
-  cuuint64_t d[3], st[2];
-  cuuint32_t b[3], elem[3] = {1, 1, 1};
-  for (int i = 0; i < rank; ++i) {
-    d[i] = static_cast<cuuint64_t>(dims[i]);
-    b[i] = static_cast<cuuint32_t>(box[i]);
-    if (i > 0) st[i - 1] = static_cast<cuuint64_t>(strides[i - 1]);
-  }
-  const CUresult r = encode(map, type, rank, const_cast<void*>(base), d, st, b, elem,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
 // x [m, kx] (bf16 or fp16, rows of 16-byte multiples) as boxes of [bm x 64]
 // in the 128-byte swizzle
 inline int encode_x_map(CUtensorMap* map, const void* x, int m, int kx, int bm, int dtype) {
@@ -768,26 +485,28 @@ inline int encode_x_map(CUtensorMap* map, const void* x, int m, int kx, int bm, 
                     2, x, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-// the layout's maps of codes, scale and zs (unused where p says cp.async)
+// the layout's maps of codes, scale and zs (unused where p says cp.async),
+// and of the LoRA kernel's A^T
 struct WeightMaps {
-  CUtensorMap codes, scale, zs;
+  CUtensorMap codes, scale, zs, lora_a;
 };
 
-template <typename T, int BM, typename Layout>
+template <typename T, int BM, typename Layout, int RP>
 int launch_tile(const void* x, int kx, Params p, const WeightMaps& w, int splits, int smem,
                 cudaStream_t s) {
   CUtensorMap map;
   int e = encode_x_map(&map, x, p.m, kx, BM, p.out_dtype);
-  p.tx_bytes = BM * 128 + (p.codes_tma ? p.code_stage : 0) + (p.meta_tma ? p.meta_stage : 0);
+  p.tx_bytes =
+      (BM + RP) * 128 + (p.codes_tma ? p.code_stage : 0) + (p.meta_tma ? p.meta_stage : 0);
   if (e != 0) return e;
-  if (smem < smem_layout(BM, p.stages, p.code_stage, p.meta_stage).total)
+  if (smem < smem_layout(BM, p.stages, p.code_stage, p.meta_stage, RP).total)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = qmm_sm90_kernel<T, BM, Layout>;
+  auto kernel = qmm_sm90_kernel<T, BM, Layout, RP>;
   e = static_cast<int>(
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
   if (e != 0) return e;
   dim3 grid((p.n + kBN - 1) / kBN, (p.m + BM - 1) / BM, splits);
-  kernel<<<grid, kThreads, smem, s>>>(map, w.codes, w.scale, w.zs, p);
+  kernel<<<grid, kThreads, smem, s>>>(map, w.codes, w.scale, w.zs, w.lora_a, p);
   e = static_cast<int>(cudaGetLastError());
   if (e != 0 || splits == 1) return e;
   const size_t count = static_cast<size_t>(p.m) * p.n;
@@ -796,22 +515,158 @@ int launch_tile(const void* x, int kx, Params p, const WeightMaps& w, int splits
   return static_cast<int>(cudaGetLastError());
 }
 
-// the kernel for token tile `bm` (8, 32, 64, 128 or 256)
-template <typename T, typename Layout>
+// the kernel for token tile `bm` (8, 32, 64, 128 or 256; the LoRA kernel,
+// RP > 0, up to 128)
+template <typename T, typename Layout, int RP = 0>
 int launch(const void* x, int kx, const Params& p, const WeightMaps& w, int bm, int splits,
            int smem, cudaStream_t s) {
   if (splits < 1 || (splits > 1 && (p.part == nullptr || bm > 64)) || p.stages < 2 ||
       p.code_vec == 0 || p.meta_vec == 0 || kx % 8 != 0 ||
-      (splits - 1) * p.slabs_per_split >= p.slabs || splits * p.slabs_per_split < p.slabs)
+      (splits - 1) * p.slabs_per_split >= p.slabs || splits * p.slabs_per_split < p.slabs ||
+      (RP > 0 && (p.lb == nullptr || p.rank < 1 || p.passes * RP < p.rank)))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (bm) {
-    case 8: return launch_tile<T, 8, Layout>(x, kx, p, w, splits, smem, s);
-    case 32: return launch_tile<T, 32, Layout>(x, kx, p, w, splits, smem, s);
-    case 64: return launch_tile<T, 64, Layout>(x, kx, p, w, splits, smem, s);
-    case 128: return launch_tile<T, 128, Layout>(x, kx, p, w, splits, smem, s);
-    case 256: return launch_tile<T, 256, Layout>(x, kx, p, w, splits, smem, s);
+    case 8: return launch_tile<T, 8, Layout, RP>(x, kx, p, w, splits, smem, s);
+    case 32: return launch_tile<T, 32, Layout, RP>(x, kx, p, w, splits, smem, s);
+    case 64: return launch_tile<T, 64, Layout, RP>(x, kx, p, w, splits, smem, s);
+    case 128: return launch_tile<T, 128, Layout, RP>(x, kx, p, w, splits, smem, s);
+    case 256:
+      if constexpr (RP == 0) return launch_tile<T, 256, Layout, RP>(x, kx, p, w, splits, smem, s);
+      return static_cast<int>(cudaErrorInvalidValue);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// ------------------------------------------------------- axis=1 layout --
+
+// kernel layout of hqq_common.cuh: wq [N, K*cb/8], scale and zs fp32 [N, K/g]
+struct Ax1Layout {
+  static constexpr bool kContiguous = true;
+
+  // smem row of tile row pr's codes
+  static __device__ __forceinline__ int code_row(const Params&, int pr) { return pr; }
+
+  // TMA coordinates of a slab: codes {byte, row, 0}, scale and zs {group, row}
+  static __device__ __forceinline__ void code_coords(const Params& p, int p0, int k0, int (&c)[3]) {
+    c[0] = k0 / 8 * p.cb, c[1] = p0, c[2] = 0;
+  }
+  static __device__ __forceinline__ void meta_coords(const Params& p, int p0, int k0, int (&c)[2]) {
+    c[0] = meta_base(p, k0), c[1] = p0;
+  }
+
+  static __device__ __forceinline__ int group_of(const Params& p, int k) {
+    return p.group_log2 >= 0 ? k >> p.group_log2 : k / p.group_size;
+  }
+  // the first group a slot holds: the slab's own where a slab can touch
+  // groups from any start, else aligned to the slot (16-byte TMA and
+  // cp.async addresses)
+  static __device__ __forceinline__ int meta_base(const Params& p, int k0) {
+    const int g0 = group_of(p, k0);
+    return p.meta_shift ? g0 : g0 & ~(p.slab_groups - 1);
+  }
+
+  // what the TMA does not load, by cp.async (zero-filled past the tensor)
+  static __device__ __forceinline__ void load_slab(const Params& p, int p0, int k0,
+                                                   uint32_t codes, uint32_t meta, int tid) {
+    if (!p.codes_tma) {
+      const int slab_bytes = 8 * p.cb;
+      const int per_row = slab_bytes / p.code_vec;
+      const int c0 = k0 / 8 * p.cb;  // the slab's byte offset within a row
+      for (int idx = tid; idx < kBN * per_row; idx += 128) {
+        const int r = idx / per_row, off = c0 + (idx % per_row) * p.code_vec;
+        const bool ok = p0 + r < p.n && off < p.row_bytes;
+        const uint8_t* src = ok ? p.wq + static_cast<size_t>(p0 + r) * p.row_bytes + off : p.wq;
+        cp_async(codes + r * slab_bytes + (idx % per_row) * p.code_vec, src, p.code_vec,
+                       ok);
+      }
+    }
+    if (!p.meta_tma) {
+      const int groups = p.slab_groups;
+      const int g0 = meta_base(p, k0);
+      const int per_row = groups * 4 / p.meta_vec;
+      for (int idx = tid; idx < 2 * kBN * per_row; idx += 128) {
+        const int a = idx / (kBN * per_row);  // 0: scale, 1: zs
+        const int rem = idx % (kBN * per_row);
+        const int r = rem / per_row, off = g0 * 4 + (rem % per_row) * p.meta_vec;
+        const uint8_t* base = static_cast<const uint8_t*>(a == 0 ? p.scale : p.zs);
+        const bool ok = p0 + r < p.n && off < p.meta_cols * 4;
+        const uint8_t* src =
+            ok ? base + static_cast<size_t>(p0 + r) * p.meta_cols * 4 + off : base;
+        cp_async(meta + (a * kBN + r) * groups * 4 + (rem % per_row) * p.meta_vec,
+                       src, p.meta_vec, ok);
+      }
+    }
+  }
+
+  // float index of tile row pr's scales in a slot, and of chunk q's group
+  // (codes 8q..8q+7 lie in one group) among the slot's groups
+  static __device__ __forceinline__ int meta_offset(const Params& p, int, int pr, int) {
+    return pr * p.slab_groups;
+  }
+  static __device__ __forceinline__ int meta_add(const Params& p, int k0, int q) {
+    return group_of(p, k0 + 8 * q) - meta_base(p, k0);
+  }
+  static __device__ __forceinline__ int zs_offset(const Params& p) {
+    return kBN * p.slab_groups;
+  }
+  static __device__ __forceinline__ void meta8(const uint8_t* meta, int off, int zs_off,
+                                               float (&s)[8], float (&z)[8]) {
+    const float* m = reinterpret_cast<const float*>(meta);
+    const float sv = m[off], zv = m[zs_off + off];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s[e] = sv, z[e] = zv;
+  }
+
+  static __device__ __forceinline__ int column(const Params&, int pr) { return pr; }
+};
+
+
+// Params and weight maps of an axis=1 weight of n rows and k columns, but
+// for the launch plan's fields and the outputs
+inline int ax1_params(Params& p, WeightMaps& w, const void* wq, const void* scale, const void* zs,
+                      int n, int k, int group_size, int cb) {
+  const int g = group_size;
+  p.wq = static_cast<const uint8_t*>(wq);
+  p.scale = scale, p.zs = zs;
+  p.n = n;
+  p.row_bytes = k / 8 * cb;
+  p.meta_cols = k / g;
+  p.group_size = g, p.cb = cb, p.pblocks = 0;
+  // groups under a slab row: 64/g, one, or for a g that neither divides nor
+  // is divided by 64 as many as a slab can touch; a slot holds at least 4
+  // (a TMA box row of 16 bytes)
+  const bool tiles = kBK % g == 0 || g % kBK == 0;
+  p.meta_shift = !tiles;
+  p.group_log2 = (g & (g - 1)) == 0 ? __builtin_ctz(static_cast<unsigned>(g)) : -1;
+  const int groups = g % kBK == 0 ? 1 : tiles ? kBK / g : (kBK - 1) / g + 2;
+  p.slab_groups = groups > 4 ? groups : 4;
+  p.code_vec = copy_vec(wq, p.row_bytes, 8 * cb);
+  p.meta_vec = tiles ? copy_vec(scale, 4L * p.meta_cols, 4L * p.slab_groups) : 4;
+  if (copy_vec(zs, 4L * p.meta_cols, 4L * p.slab_groups) < p.meta_vec) p.meta_vec = 4;
+  p.meta_rows = 0;
+  p.slabs = (k + kBK - 1) / kBK;
+  p.code_stage = kBN * 8 * cb;
+  p.meta_stage = 2 * kBN * p.slab_groups * 4;
+  // TMA where its rules hold (16-byte rows and strides), else cp.async
+  p.codes_tma = cb >= 2 && p.code_vec == 16;
+  if (p.codes_tma) {
+    const long dims[3] = {p.row_bytes, n, 1}, strides[2] = {p.row_bytes, 1L * p.row_bytes * n};
+    const int box[3] = {8 * cb, kBN, 1};
+    if (encode_map(&w.codes, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, wq, dims, strides, box,
+                   CU_TENSOR_MAP_SWIZZLE_NONE) != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  p.meta_tma = tiles && p.meta_vec == 16;
+  if (p.meta_tma) {
+    const long dims[2] = {p.meta_cols, n}, strides[1] = {4L * p.meta_cols};
+    const int box[2] = {p.slab_groups, kBN};
+    if (encode_map(&w.scale, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, scale, dims, strides, box,
+                   CU_TENSOR_MAP_SWIZZLE_NONE) != 0 ||
+        encode_map(&w.zs, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, zs, dims, strides, box,
+                   CU_TENSOR_MAP_SWIZZLE_NONE) != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return 0;
 }
 
 }  // namespace sm90

@@ -24,7 +24,7 @@ __all__ = ["KERNELS", "build_all", "library", "check"]
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-_HEADERS = ("hqq_common.cuh", "qmm_tile.cuh", "qmm_sm90.cuh")
+_HEADERS = ("hqq_common.cuh", "sm90_ptx.cuh", "qmm_sm90.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,11 +41,11 @@ KERNELS = {
         "quant_matmul_ax0.cu", "hqq_quant_matmul_ax0", [_P] * 6 + [_I] * 13 + [_P],
     ),
     "quant_matmul_lora": (
-        "quant_matmul_lora.cu", "hqq_quant_matmul_lora", [_P] * 7 + [_I] * 7 + [_P],
+        "quant_matmul_lora.cu", "hqq_quant_matmul_lora", [_P] * 8 + [_I] * 14 + [_P],
     ),
     "flash_attention": (
         "flash_prefill.cu", "hqq_flash_prefill",
-        [_P] * 4 + [_I] * 5 + [ctypes.c_float] + [_I] * 2 + [_P],
+        [_P] * 4 + [_I] * 5 + [ctypes.c_float] + [_I] * 6 + [_P],
     ),
     "paged_attention": (
         "paged_attention.cu", "hqq_paged_attention", [_P] * 9 + [_I] * 9 + [_P],

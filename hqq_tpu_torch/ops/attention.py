@@ -5,9 +5,10 @@ evaluation and the training forward.
 Mirrors `hqq_tpu.ops.attention`. The naive path writes [B, H, T, S] scores to
 device memory, which is fine for decode (T = 1) and quadratic in T for whole
 sequences. `prefill_attention` hands long self-attention without an explicit
-mask to the `flash_attention` kernel (``csrc/flash_prefill.cu``: tiled, online
-softmax, the scores stay in shared memory); short sequences and explicit
-masks (a sliding window) take the naive path, as in `hqq_tpu`.
+mask to the `flash_attention` kernel (``csrc/flash_prefill.cu``: wgmma and
+TMA, online softmax, scores, probabilities and output in registers; its launch
+plan is `flash_launch_plan`); short sequences and explicit masks (a sliding
+window) take the naive path, as in `hqq_tpu`.
 
 The kernel's wrapper has a plain PyTorch twin and a launch count
 (``flash_attention.launches``). It runs the plain version only for tensors on
@@ -16,18 +17,79 @@ the CPU; for CUDA tensors it launches the kernel or raises.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Optional
 
 import torch
 
 from . import _build
-from .fused_matmul import _DTYPE_CODE, _on_cpu, _ptr, _stream
+from .fused_matmul import _DTYPE_CODE, H100_SMEM_PER_BLOCK, _on_cpu, _ptr, _stream
 
-__all__ = ["prefill_attention", "flash_attention", "flash_attention_plain", "FLASH_MIN_SEQ"]
+__all__ = ["prefill_attention", "flash_attention", "flash_attention_plain", "FLASH_MIN_SEQ",
+           "FlashPlan", "flash_launch_plan"]
 
 # below this sequence length the naive path runs (`hqq_tpu`'s threshold)
 FLASH_MIN_SEQ = 256
 _MAX_HEAD_DIM = 256
+# the geometry of csrc/flash_prefill.cu: query rows of a block, the padded
+# head sizes it is built for, and the most slots of its K/V ring
+FLASH_QUERY_TILE = 128
+FLASH_HEAD_PADS = (64, 128, 256)
+FLASH_MAX_STAGES = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashPlan:
+    """How `flash_attention` launches: one block per (query tile of 128
+    rows, batch, head), ``blocks`` in all, in the order of `tile_order`;
+    the head size padded to ``head_pad``, keys in tiles of ``key_tile``
+    through ``stages`` slots, ``smem`` bytes of dynamic shared memory."""
+
+    head_pad: int
+    key_tile: int
+    stages: int
+    smem: int
+    q_tiles: int
+    blocks: int
+
+    def tile_order(self, batch: int, heads: int) -> list:
+        """(query tile, batch, head) of each block in launch order, as the
+        kernel reads its block index: the last query tile of every head
+        first (under causality it walks the most key tiles), then the one
+        before it."""
+        bh = batch * heads
+        return [(self.q_tiles - 1 - i // bh, i % bh // heads, i % bh % heads)
+                for i in range(self.blocks)]
+
+
+def flash_smem_bytes(head_pad: int, key_tile: int, stages: int) -> int:
+    """Dynamic shared memory of one block (`flash_smem` of flash_prefill.cu):
+    Q's tile, ``stages`` slots of K's and V's tiles, the barriers, and 1024
+    bytes to align the base."""
+    return (FLASH_QUERY_TILE * head_pad * 2 + stages * 2 * key_tile * head_pad * 2
+            + 8 * (1 + 2 * stages) + 1024)
+
+
+@functools.lru_cache(maxsize=1024)
+def flash_launch_plan(batch: int, heads: int, t: int, head_dim: int) -> FlashPlan:
+    """The launch of the flash kernel for [batch, heads, t, head_dim]. The
+    head size pads to 64, 128 or 256 (TMA fills the padding with zeros);
+    keys come in tiles of 128, or of 64 at 256, where a consumer's output
+    accumulators already take 128 registers; as many ring slots as shared
+    memory holds, at most 4."""
+    if not 16 <= head_dim <= _MAX_HEAD_DIM or head_dim % 16:
+        raise ValueError(f"the kernel takes head sizes of 16s up to {_MAX_HEAD_DIM}, "
+                         f"not {head_dim}")
+    head_pad = next(p for p in FLASH_HEAD_PADS if p >= head_dim)
+    key_tile = 64 if head_pad == 256 else 128
+    fixed = flash_smem_bytes(head_pad, key_tile, 0)
+    per_stage = flash_smem_bytes(head_pad, key_tile, 1) - fixed
+    stages = min(FLASH_MAX_STAGES, (H100_SMEM_PER_BLOCK - fixed) // per_stage)
+    q_tiles = -(-t // FLASH_QUERY_TILE)
+    return FlashPlan(head_pad=head_pad, key_tile=key_tile, stages=stages,
+                     smem=flash_smem_bytes(head_pad, key_tile, stages), q_tiles=q_tiles,
+                     blocks=batch * heads * q_tiles)
 
 
 def _naive(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor],
@@ -91,10 +153,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
     sm_scale = hd**-0.5 if sm_scale is None else sm_scale
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
+    plan = flash_launch_plan(b, nh, t, hd)
     lib = _build.library("flash_attention")
     with torch.cuda.device(dev):
         code = lib.hqq_flash_prefill(_ptr(q), _ptr(k), _ptr(v), _ptr(out), b, nh, n_kv, t, hd,
                                      float(sm_scale), int(bool(causal)), _DTYPE_CODE[q.dtype],
+                                     plan.head_pad, plan.key_tile, plan.stages, plan.smem,
                                      _stream(dev))
     _build.check("flash_attention", code)
     flash_attention.launches += 1

@@ -68,6 +68,7 @@ __all__ = [
     "reset_launch_counts",
     "QmmPlan",
     "qmm_launch_plan",
+    "lora_a_kernel_layout",
 ]
 
 # nbits (canonical) -> container bits of the kernel layout: 3-bit rides the
@@ -82,6 +83,10 @@ QMM_ROWS = 128  # weight rows of a block
 QMM_SLAB = 64  # K of a slab
 QMM_TOKEN_TILES = (8, 32, 64, 128, 256)
 QMM_MAX_STAGES = 8
+# the LoRA kernel: rank chunks (A^T's rows a pass holds) and its largest
+# token tile (two consumers of 64 token rows each multiply x by A^T)
+QMM_RANK_TILES = (16, 64)
+QMM_LORA_MAX_TILE = 128
 H100_SMS = 132
 H100_SMEM_PER_BLOCK = 232448
 # the most tokens for which K is split: the w4a8 backend's decode sizes,
@@ -328,9 +333,11 @@ def _stream(device: torch.device) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class QmmPlan:
-    """How `quant_matmul` and `quant_matmul_ax0` launch: a block per
-    (128 weight rows, ``token_tile`` tokens, K split), ``stages`` slots in
-    the pipeline, ``smem`` bytes of dynamic shared memory."""
+    """How `quant_matmul`, `quant_matmul_ax0` and `quant_matmul_lora`
+    launch: a block per (128 weight rows, ``token_tile`` tokens, K split),
+    ``stages`` slots in the pipeline, ``smem`` bytes of dynamic shared
+    memory; the LoRA kernel walks K ``passes`` times, ``rank_tile`` ranks
+    at a time (0 without an adapter)."""
 
     token_tile: int
     stages: int
@@ -338,6 +345,8 @@ class QmmPlan:
     slabs_per_split: int
     grid: tuple  # (weight-row tiles, token tiles, splits)
     smem: int
+    rank_tile: int = 0
+    passes: int = 1
 
 
 def _slab_meta_bytes(group_size: int, axis: int, meta_size: int) -> int:
@@ -355,20 +364,23 @@ def _slab_meta_bytes(group_size: int, axis: int, meta_size: int) -> int:
     return 2 * rows * QMM_SLAB * meta_size
 
 
-def qmm_smem_bytes(token_tile: int, stages: int, code_stage: int, meta_stage: int) -> int:
+def qmm_smem_bytes(token_tile: int, stages: int, code_stage: int, meta_stage: int,
+                   rank_tile: int = 0) -> int:
     """Dynamic shared memory of one block (`smem_layout` of qmm_sm90.cuh):
     the x slots, each consumer's two A tiles (or its epilogue staging), the
-    code and meta slots, the barriers, and 1024 bytes to align the base."""
+    LoRA kernel's A^T slots and its fp32 partial p, the code and meta slots,
+    the barriers, and 1024 bytes to align the base."""
     per_wg = max(2 * 64 * QMM_SLAB * 2, token_tile * 128)
-    return (stages * token_tile * 128 + 2 * per_wg + stages * (code_stage + meta_stage)
-            + 16 * stages + 1024)
+    return (stages * token_tile * 128 + 2 * per_wg + stages * rank_tile * 128
+            + token_tile * rank_tile * 4 + stages * (code_stage + meta_stage) + 16 * stages + 1024)
 
 
 @functools.lru_cache(maxsize=4096)
 def qmm_launch_plan(m: int, n: int, k: int, cb: int, group_size: int, axis: int = 1,
-                    meta_size: int = 4) -> QmmPlan:
+                    meta_size: int = 4, rank: int = 0) -> QmmPlan:
     """The launch of the Hopper dequant-matmul for x [m, k] and a weight of
-    n rows (k = K_pad for axis=0; meta_size = 4 or 2 bytes of its scale).
+    n rows (k = K_pad for axis=0; meta_size = 4 or 2 bytes of its scale),
+    with a LoRA adapter of ``rank`` ranks or none.
 
     Token tile: the least of 8, 32, 64 that holds m tokens; above 64, 128 or
     256, whichever takes fewer waves of blocks times the tile (a block's
@@ -380,12 +392,19 @@ def qmm_launch_plan(m: int, n: int, k: int, cb: int, group_size: int, axis: int 
     (H100 80GB HBM3, 700 W: 0.0184 against 0.0208 ms at M=4, K=N=4096).
     Above it K is never split, so that a row of y does not depend on how
     many rows go with it (chunked prefill gives the logits of a whole one).
-    Stages: as many slots as shared memory holds, at most 8. Cached: every
-    decode step asks again for the same shapes."""
+    Stages: as many slots as shared memory holds, at most 8. With an
+    adapter: the rank in chunks of 16 (r <= 16) or 64, one walk over K per
+    chunk, and token tiles up to 128 (a consumer then holds 64 base and at
+    most 32 adapter accumulators). Cached: every decode step asks again for
+    the same shapes."""
     slabs = -(-k // QMM_SLAB)
     row_tiles = -(-n // QMM_ROWS)
+    rank_tile = 0 if rank == 0 else QMM_RANK_TILES[0] if rank <= QMM_RANK_TILES[0] \
+        else QMM_RANK_TILES[1]
     if m <= 64:
         tile = next(t for t in QMM_TOKEN_TILES if t >= m)
+    elif rank:
+        tile = QMM_LORA_MAX_TILE
     else:
         tile = min((128, 256),
                    key=lambda t: (-(-row_tiles * -(-m // t) // H100_SMS) * t, -t))
@@ -400,14 +419,15 @@ def qmm_launch_plan(m: int, n: int, k: int, cb: int, group_size: int, axis: int 
         _, splits, per_split = min(options)
     code_stage = QMM_ROWS * 8 * cb
     meta_stage = _slab_meta_bytes(group_size, axis, meta_size)
-    fixed = qmm_smem_bytes(tile, 0, code_stage, meta_stage)
-    per_stage = qmm_smem_bytes(tile, 1, code_stage, meta_stage) - fixed
+    fixed = qmm_smem_bytes(tile, 0, code_stage, meta_stage, rank_tile)
+    per_stage = qmm_smem_bytes(tile, 1, code_stage, meta_stage, rank_tile) - fixed
     stages = min(QMM_MAX_STAGES, (H100_SMEM_PER_BLOCK - fixed) // per_stage)
     if stages < 2:
         raise ValueError(f"no two pipeline stages fit for tile {tile}, cb {cb}, g {group_size}")
     return QmmPlan(token_tile=tile, stages=stages, splits=splits, slabs_per_split=per_split,
                    grid=(row_tiles, -(-m // tile), splits),
-                   smem=qmm_smem_bytes(tile, stages, code_stage, meta_stage))
+                   smem=qmm_smem_bytes(tile, stages, code_stage, meta_stage, rank_tile),
+                   rank_tile=rank_tile, passes=-(-rank // rank_tile) if rank else 1)
 
 
 def dequant_plain(kqt: "KernelQTensor | KernelQTensor0", dtype=torch.float32) -> torch.Tensor:
@@ -517,6 +537,28 @@ def quant_matmul_lora_plain(
     return (base + part @ b.to(torch.float32)).to(x2.dtype)
 
 
+def lora_a_kernel_layout(a: torch.Tensor, dtype: torch.dtype, rank_tile: int) -> torch.Tensor:
+    """A [K, r] as the LoRA kernel reads it: A^T [passes * rank_tile, K] in
+    ``dtype`` (x's type: the kernel rounds A to it, as `hqq_tpu` does),
+    K-major, the rank padded with zero rows to whole chunks."""
+    k, r = a.shape
+    out = torch.zeros((-(-r // rank_tile) * rank_tile, k), dtype=dtype, device=a.device)
+    out[:r] = a.detach().t().to(dtype)
+    return out
+
+
+def _lora_a_operand(a: torch.Tensor, dtype: torch.dtype, rank_tile: int) -> torch.Tensor:
+    """`lora_a_kernel_layout` of ``a``, built once and kept on ``a`` itself,
+    and built again when ``a`` changes (its storage or, in place, its
+    version): a serving layer's adapter costs no work per call."""
+    key = (a.data_ptr(), a._version, dtype, rank_tile)
+    kept = getattr(a, "_hqq_kernel_a", None)
+    if kept is None or kept[0] != key:
+        kept = (key, lora_a_kernel_layout(a, dtype, rank_tile))
+        a._hqq_kernel_a = kept
+    return kept[1]
+
+
 def quant_matmul_lora(
     x2: torch.Tensor, kqt: KernelQTensor, a: torch.Tensor, b: torch.Tensor
 ) -> torch.Tensor:
@@ -535,16 +577,20 @@ def quant_matmul_lora(
         raise ValueError("quant_matmul_lora needs a rank of at least 1")
     if a.device != dev or b.device != dev:
         raise ValueError(f"LoRA operands must be on {dev}")
-    a = a.to(torch.float32).contiguous()
-    b = b.to(torch.float32).contiguous()
     m, k = x2.shape
-    out = torch.empty((m, kqt.n), dtype=x2.dtype, device=dev)
+    n = kqt.n
+    plan = qmm_launch_plan(m, n, k, kqt.container_bits, kqt.group_size, rank=r)
+    at = _lora_a_operand(a, x2.dtype, plan.rank_tile)
+    b = b.to(torch.float32).contiguous()
+    out = torch.empty((m, n), dtype=x2.dtype, device=dev)
+    part = _split_scratch(plan, m, n, dev)
     lib = _build.library("quant_matmul_lora")
     with torch.cuda.device(dev):
         code = lib.hqq_quant_matmul_lora(
-            _ptr(x2), _ptr(kqt.wq, 4), _ptr(kqt.scale, 4), _ptr(kqt.zs, 4), _ptr(a, 4),
-            _ptr(b, 4), _ptr(out, 2), m, kqt.n, k, r, kqt.group_size, kqt.container_bits,
-            _DTYPE_CODE[x2.dtype], _stream(dev),
+            _ptr(x2), _ptr(kqt.wq, 4), _ptr(kqt.scale, 4), _ptr(kqt.zs, 4), _ptr(at), _ptr(b, 4),
+            _ptr(out, 2), None if part is None else _ptr(part, 4), m, n, k, r, kqt.group_size,
+            kqt.container_bits, _DTYPE_CODE[x2.dtype], plan.token_tile, plan.rank_tile,
+            plan.passes, plan.stages, plan.splits, plan.slabs_per_split, plan.smem, _stream(dev),
         )
     _build.check("quant_matmul_lora", code)
     quant_matmul_lora.launches += 1
@@ -755,7 +801,7 @@ def quant_matmul_pallas_lora(
     x: torch.Tensor, kqt: KernelQTensor, a: torch.Tensor, b: torch.Tensor
 ) -> torch.Tensor:
     """``x @ W_dq^T + (x @ a) @ b`` in one kernel (`quant_matmul_lora`).
-    a: [K, r], b: [r, N] with the adapter's scaling folded in; r <= 64."""
+    a: [K, r], b: [r, N] with the adapter's scaling folded in; any r >= 1."""
     lead = x.shape[:-1]
     out = quant_matmul_lora(x.reshape(-1, kqt.k), kqt, a, b)
     return out.reshape(*lead, kqt.n)

@@ -8,7 +8,7 @@ suite's conftest imports JAX, which the GPU machine need not have). They
 cover what ``chip_smoke.py`` does not: every container (1/2/4/8-bit), group sizes,
 ragged N, K tails, M from 1 to 32 (w4a8) and beyond (quant_matmul, up to
 1023: both token tiles of the Hopper mainloop, K split at decode sizes), LoRA
-ranks 4 to 200 (above 64 the kernel walks rank chunks), fp32 and bf16 scale and zs of the axis=0 layout, and every
+ranks 1 to 200 (above 16 the kernel walks K once per chunk of 64 ranks), fp32 and bf16 scale and zs of the axis=0 layout, and every
 output type. Tolerances (of max|y|): w4a8 in fp32 1e-5 (exact group dots,
 the fp32 epilogue sums in another order); bf16/fp16 outputs add one rounding
 of the output (2^-7 / 2^-10), doubled for the tile kernels, whose fp32 sums
@@ -163,6 +163,54 @@ def test_quant_matmul_lora(cuda, dtype, m, nbits, g, k, n, r):
     # the adapter is in the sum: the base alone misses the bar
     err = (fm.quant_matmul_plain(x, kqt).float() - ref.float()).abs().max()
     assert err > _OUT_TOL[dtype] * 2 * ref.float().abs().max()
+
+
+# the LoRA kernel on the Hopper mainloop: token tiles of 8 to 128 and their
+# ragged ends, K split over blocks at M <= 32 (each split applies B to its
+# own partial), rank chunks of 16 and 64 and the passes over K above 64
+_LORA_SM90_CASES = [
+    (1023, 4, 64, 512, 11008, 8),    # token tile 128, its last tile ragged
+    (128, 4, 64, 1024, 384, 1),
+    (129, 4, 128, 1024, 200, 65),    # a group across two slabs, ragged N, two passes
+    (256, 2, 32, 512, 256, 64),
+    (512, 4, 64, 4096, 4096, 8),     # path E's prefill
+    (4, 4, 64, 4096, 4096, 8),       # K split over blocks
+    (17, 4, 64, 4096, 4096, 200),
+    (4, 4, 64, 11008, 4096, 65),
+    (17, 3, 64, 11008, 4096, 1),
+    (4, 1, 32, 4096, 512, 8),        # 1-bit: codes by cp.async
+    (40, 4, 96, 960, 200, 64),       # g = 96 neither divides nor is a multiple of 64
+    (1023, 8, 64, 1024, 512, 200),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("m,nbits,g,k,n,r", _LORA_SM90_CASES)
+def test_quant_matmul_lora_sm90_edges(cuda, dtype, m, nbits, g, k, n, r):
+    kqt = _kqt(n, k, g, nbits, cuda, seed=m)
+    a, b = _lora(k, n, r, cuda, seed=r)
+    x = torch.randn((m, k), device=cuda).to(dtype)
+    plan = fm.qmm_launch_plan(m, n, k, kqt.container_bits, g, rank=r)
+    assert plan.token_tile <= 128 and (plan.splits > 1 or m > 17)
+    launches = fm.quant_matmul_lora.launches
+    ref = fm.quant_matmul_lora_plain(x, kqt, a, b)
+    _close(fm.quant_matmul_lora(x, kqt, a, b), ref, _OUT_TOL[dtype] * 2)
+    assert fm.quant_matmul_lora.launches == launches + 1
+    err = (fm.quant_matmul_plain(x, kqt).float() - ref.float()).abs().max()
+    assert err > _OUT_TOL[dtype] * 2 * ref.float().abs().max()
+
+
+def test_quant_matmul_lora_rows_do_not_depend_on_m(cuda):
+    """As `test_quant_matmul_rows_do_not_depend_on_m`, with an adapter of
+    rank 8 and of rank 65 (two passes over K): above the split sizes (M >
+    32) a row of y is the same whatever rows go with it."""
+    kqt = _kqt(4096, 1024, 64, 4, cuda)
+    x = torch.randn((600, 1024), device=cuda).to(torch.bfloat16)
+    for r in (8, 65):
+        a, b = _lora(1024, 4096, r, cuda, seed=r)
+        whole = fm.quant_matmul_lora(x, kqt, a, b)
+        for lo, hi in ((0, 256), (256, 512), (512, 600), (556, 600), (0, 33), (128, 161)):
+            assert torch.equal(fm.quant_matmul_lora(x[lo:hi], kqt, a, b), whole[lo:hi]), (r, lo, hi)
 
 
 @pytest.mark.parametrize("m", [1, 4, 8, 17, 32])
@@ -427,3 +475,22 @@ def test_flash_attention_refuses(cuda):
         at.flash_attention(q[..., :40], k[..., :40], v[..., :40])  # head_dim % 16
     with pytest.raises(NotImplementedError):
         at.flash_attention(q.requires_grad_(), k, v)  # no backward kernel yet
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
+def test_flash_attention_head_pads(cuda, dtype, hd):
+    """Each padded head size of the kernel (64, 128, 256; 80 pads to 128),
+    causal and not, over three query tiles and a ragged end."""
+    q, k, v = _flash_case(cuda, 1, 4, 2, 333, hd, dtype, seed=hd + 1)
+    for causal in (True, False):
+        _close(at.flash_attention(q, k, v, causal), at.flash_attention_plain(q, k, v, causal),
+               _FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("b,nh,n_kv,t", [(1, 4, 4, 4096), (1, 8, 2, 4095), (4, 32, 32, 512)])
+def test_flash_attention_long_and_wide(cuda, b, nh, n_kv, t):
+    """T = 4096 (32 query tiles, the longest first) and B = 4 x 32 heads."""
+    q, k, v = _flash_case(cuda, b, nh, n_kv, t, 128, torch.bfloat16, seed=t)
+    _close(at.flash_attention(q, k, v, True), at.flash_attention_plain(q, k, v, True),
+           _FLASH_TOL[torch.bfloat16])

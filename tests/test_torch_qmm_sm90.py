@@ -2,20 +2,25 @@
 """The host side of the Hopper dequant-matmul mainloop (csrc/qmm_sm90.cuh).
 
 What the CPU can hold of it:
-  * `qmm_launch_plan`, which both `quant_matmul` and `quant_matmul_ax0`
-    call: its grid covers every output and every K slab exactly once, its
+  * `qmm_launch_plan`, which `quant_matmul`, `quant_matmul_ax0` and
+    `quant_matmul_lora` call: its grid covers every output and every K slab exactly once, its
     token tile is a multiple of 8 (wgmma's N) up to 256, its shared memory
     fits one block of an H100, and at decode sizes (M <= 32) K is split so
     that at least half the SMs have a block where K has the slabs for it
     (one wave of 128 blocks beats two of 256 on the card), while above that
-    K is never split (a row of y does not depend on M);
+    K is never split (a row of y does not depend on M); with an adapter
+    the token tile stops at 128 and the rank goes in chunks of 16 or 64,
+    one walk over K each, with at least two stages still in shared memory;
+  * the adapter's A as the LoRA kernel reads it: A^T in x's type, the rank
+    padded with zero rows, kept beside A until A changes;
   * the build: every header a kernel source includes is hashed into its
     library's name (`_build._HEADERS`), so an edit to it rebuilds;
   * the entry points at the new tile edges (M = 127 and 129 around the
     128-token tile, a g = 128 group across two 64-wide K slabs, N = 200
     not a multiple of the 128 weight rows of a block) against hqq_tpu's
     interpret-mode Pallas kernels, with the bars of test_torch_fused_matmul
-    (fp32 operands: 1e-5 of max|y|) and test_torch_ax0 (2e-5 of max|y|).
+    (fp32 operands: 1e-5 of max|y|), test_torch_ax0 and test_torch_lora
+    (2e-5 of max|y|).
 """
 
 import os
@@ -90,6 +95,76 @@ def test_launch_plan_main_shapes():
     assert (plan.token_tile, plan.splits) == (8, 3)
 
 
+_RANKS = [1, 8, 64, 65, 200]
+
+
+@pytest.mark.parametrize("r", _RANKS)
+@pytest.mark.parametrize("m", [1, 4, 32, 33, 512, 1023])
+def test_launch_plan_lora(m, r):
+    for cb, g in _GEOMETRY[1]:
+        for n, k in _SHAPES:
+            plan = tf.qmm_launch_plan(m, n, k, cb, g, rank=r)
+            rows, tokens, splits = plan.grid
+            slabs = -(-k // tf.QMM_SLAB)
+            assert (rows - 1) * tf.QMM_ROWS < n <= rows * tf.QMM_ROWS
+            assert (tokens - 1) * plan.token_tile < m <= tokens * plan.token_tile
+            assert (splits - 1) * plan.slabs_per_split < slabs <= splits * plan.slabs_per_split
+            assert plan.token_tile in tf.QMM_TOKEN_TILES
+            assert plan.token_tile <= tf.QMM_LORA_MAX_TILE
+            # every rank in exactly one chunk of a pass, no pass empty
+            assert plan.rank_tile == (16 if r <= 16 else 64)
+            assert (plan.passes - 1) * plan.rank_tile < r <= plan.passes * plan.rank_tile
+            assert 2 <= plan.stages <= tf.QMM_MAX_STAGES
+            assert plan.smem <= tf.H100_SMEM_PER_BLOCK
+            assert plan.smem == tf.qmm_smem_bytes(plan.token_tile, plan.stages, tf.QMM_ROWS * 8 * cb,
+                                                  tf._slab_meta_bytes(g, 1, 4), plan.rank_tile)
+            if splits > 1:
+                assert m <= tf.QMM_SPLIT_MAX_M and plan.token_tile <= 64
+            if m > tf.QMM_SPLIT_MAX_M:
+                assert splits == 1
+            # the base's plan but for the tile cap and the adapter's shared memory
+            base = tf.qmm_launch_plan(m, n, k, cb, g)
+            if base.token_tile <= tf.QMM_LORA_MAX_TILE:
+                assert (plan.token_tile, plan.splits, plan.grid) == \
+                    (base.token_tile, base.splits, base.grid)
+
+
+def test_launch_plan_lora_main_shapes():
+    """Path E's prefill (M = 512, rank 8) runs the base's 128-token tile."""
+    for n, k in ((4096, 4096), (11008, 4096), (4096, 11008)):
+        plan = tf.qmm_launch_plan(512, n, k, 4, 64, rank=8)
+        assert (plan.token_tile, plan.splits, plan.rank_tile, plan.passes) == (128, 1, 16, 1)
+    plan = tf.qmm_launch_plan(4, 4096, 4096, 4, 64, rank=8)
+    assert (plan.token_tile, plan.splits, plan.slabs_per_split) == (8, 4, 16)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("r", _RANKS)
+def test_lora_a_kernel_layout(r, dtype):
+    a = torch.from_numpy(np.random.default_rng(r).standard_normal((320, r)).astype(np.float32))
+    plan = tf.qmm_launch_plan(40, 256, 320, 4, 64, rank=r)
+    at = tf.lora_a_kernel_layout(a, dtype, plan.rank_tile)
+    assert at.dtype == dtype and at.is_contiguous()
+    assert tuple(at.shape) == (plan.passes * plan.rank_tile, 320)
+    assert torch.equal(at[:r], a.to(dtype).t()) and not at[r:].any()
+
+
+def test_lora_a_operand_is_kept_until_a_changes():
+    """The kernel's A^T is built once per adapter and type, and again after
+    A changes in place or takes new storage."""
+    a = torch.nn.Parameter(torch.randn(256, 8))
+    first = tf._lora_a_operand(a, torch.bfloat16, 16)
+    assert tf._lora_a_operand(a, torch.bfloat16, 16) is first
+    assert not first.requires_grad
+    assert tf._lora_a_operand(a, torch.float16, 16).dtype == torch.float16
+    with torch.no_grad():
+        a.mul_(2)
+    again = tf._lora_a_operand(a, torch.float16, 16)
+    assert torch.equal(again[:8], a.detach().to(torch.float16).t())
+    a.data = torch.randn(256, 8)
+    assert torch.equal(tf._lora_a_operand(a, torch.float16, 16)[:8], a.detach().half().t())
+
+
 def _includes(path):
     with open(path) as fh:
         return re.findall(r'^\s*#\s*include\s+"([^"]+)"', fh.read(), flags=re.M)
@@ -153,5 +228,25 @@ def test_quant_matmul_pallas_ax0_tile_edges(m, n_out, k, g, nbits):
     x = rng.standard_normal((m, k)).astype(np.float32)
     yj = np.asarray(jf.quant_matmul_pallas(jnp.asarray(x), kj))
     yt = tf.quant_matmul_pallas(torch.from_numpy(x), kt).numpy()
+    assert yt.shape == yj.shape == (m, n_out)
+    assert np.abs(yt - yj).max() / np.abs(yj).max() < 2e-5
+
+
+# (m, n_out, k, g, nbits, r): the 128-token tile's edges, N = 200, a group
+# of 128 across two slabs, ranks in one chunk of 16, of 64 and in two passes
+_LORA_EDGES = [(127, 200, 1024, 128, 4, 1), (129, 200, 1024, 128, 4, 8),
+               (129, 200, 512, 64, 4, 65), (127, 256, 512, 64, 2, 8), (33, 200, 512, 128, 4, 65)]
+
+
+@pytest.mark.parametrize("m,n_out,k,g,nbits,r", _LORA_EDGES)
+def test_quant_matmul_pallas_lora_tile_edges(m, n_out, k, g, nbits, r):
+    kj, kt, x = _ax1(m, n_out, k, g, nbits)
+    rng = np.random.default_rng(r)
+    a = (rng.standard_normal((k, r)) / np.sqrt(k)).astype(np.float32)
+    b = (rng.standard_normal((r, n_out)) * 0.05).astype(np.float32)
+    yj = np.asarray(jf.quant_matmul_pallas_lora(jnp.asarray(x), kj, jnp.asarray(a),
+                                                jnp.asarray(b)))
+    yt = tf.quant_matmul_pallas_lora(torch.from_numpy(x), kt, torch.from_numpy(a),
+                                     torch.from_numpy(b)).numpy()
     assert yt.shape == yj.shape == (m, n_out)
     assert np.abs(yt - yj).max() / np.abs(yj).max() < 2e-5
