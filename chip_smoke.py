@@ -10,8 +10,8 @@
 Phases (any failure exits non-zero):
   (a) device and build: the card, its power limit, an nvcc build of every
       kernel under hqq_tpu_torch/csrc/ (registers and spill stores of each
-      instantiation of the two LoRA and attention libraries), and the wgmma
-      (HGMMA) and TMA (UTMALDG) instructions in the SASS of the four wgmma
+      kernel instantiation of the four wgmma libraries), and the wgmma
+      (HGMMA) and TMA (UTMALDG) instructions in the SASS of those four
       libraries (quant_matmul, quant_matmul_ax0, quant_matmul_lora,
       flash_attention);
   (b) each kernel against its plain PyTorch version at the main paths'
@@ -98,6 +98,9 @@ PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 ROTATE_BYTES = 160 * 2**20  # cycle through input copies larger than the 50 MB L2
 
 SRC = "hqq_tpu_torch/csrc/"
+# the sources of the Hopper mainloops (TMA, wgmma)
+WGMMA_SOURCES = ("quant_matmul.cu", "quant_matmul_ax0.cu", "quant_matmul_lora.cu",
+                 "flash_prefill.cu")
 # wrapper -> (source, the TPU kernel it replaces, a second one it replaces)
 KERNELS = {
     "w4a8_matmul": ("w4a8_matmul.cu", "hqq_tpu/ops/fused_matmul.py:524",
@@ -239,7 +242,7 @@ def phase_a(name: str, power: str) -> None:
         spills = re.findall(r"(\d+) bytes spill stores", text)
         log(f"[a]   {kname}: {len(regs)} instantiations, registers {min(map(int, regs))}-"
             f"{max(map(int, regs))}, spill stores up to {max(map(int, spills))} bytes")
-        if kname in ("quant_matmul_lora.cu", "flash_prefill.cu"):
+        if kname in WGMMA_SOURCES:
             # per kernel instantiation: (template arguments, registers, spill bytes)
             for fn, body in re.findall(r"Compiling entry function '(\w+)'(.*?)(?=Compiling|\Z)",
                                        text, flags=re.S):
@@ -250,8 +253,7 @@ def phase_a(name: str, power: str) -> None:
                         f"{spill.group(1) if spill else '?'} bytes spill stores")
     # the Hopper mainloops really issue wgmma (HGMMA) and TMA loads (UTMALDG)
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    for kname in ("quant_matmul", "quant_matmul_ax0", "quant_matmul_lora", "flash_attention"):
-        source = _build.KERNELS[kname][0]
+    for source in WGMMA_SOURCES:
         sass = subprocess.run([cuobjdump, "-sass", _build._lib_path(source)], capture_output=True,
                               text=True, check=True, timeout=300).stdout
         counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
@@ -563,14 +565,16 @@ def phase_b() -> dict:
     for (m, k, n) in [(512, 4096, 4096), (512, 4096, 11008), (512, 11008, 4096), (4, 4096, 4096)]:
         kqt = _make_kqt(n, k, g, 4, seed=k * 11 + n)
         a, b = _make_lora(k, n, seed=12)
+        # A^T as a serving layer holds it, built once
+        a_t = fm.lora_a_kernel_layout(a, torch.bfloat16, fm.lora_rank_tile(r))
         x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
         # as quant_matmul, plus the rank-r partial's own fp32 sums: 2^-7 of max|y|
-        err = held("quant_matmul_lora", fm.quant_matmul_lora(x, kqt, a, b),
+        err = held("quant_matmul_lora", fm.quant_matmul_lora(x, kqt, a, b, a_t),
                    fm.quant_matmul_lora_plain(x, kqt, a, b), 2.0**-7, f"M={m} K={k} N={n} r={r}")
         wbytes = _weight_bytes(kqt)
         kq, xq = _copies(kqt, x, wbytes)
-        ms = time_ms([lambda p=p, q=q: fm.quant_matmul_lora(q, p, a, b) for p, q in zip(kq, xq)],
-                     iters)
+        ms = time_ms([lambda p=p, q=q: fm.quant_matmul_lora(q, p, a, b, a_t)
+                      for p, q in zip(kq, xq)], iters)
         plain = time_ms([lambda: fm.quant_matmul_lora_plain(x, kqt, a, b)], max(3, iters // 10))
         w_bf16, a_bf16 = fm.dequant_plain(kqt, torch.bfloat16), a.to(torch.bfloat16)
         lib = time_ms([lambda: torch.matmul(x, w_bf16.t()).float()
@@ -1020,7 +1024,7 @@ def phase_e(dev_tag: str) -> dict:
         after_quantize=lambda model: add_adapters(model.params, 4))
 
     # the control: the same call with B = 0, the adapter left out
-    def lora_no_b(x2, kqt, a, b):
+    def lora_no_b(x2, kqt, a, b, a_t=None):
         return fm.quant_matmul_lora_plain(x2, kqt, a, torch.zeros_like(b))
 
     def a8_lora_no_b(x8, sx, kqt, xa, b, out_dtype):
@@ -1683,6 +1687,7 @@ def time_one(kernel: str, m: int, k: int, n: int, extra: "str | None" = None) ->
     else:
         kqt = _make_kqt(n, k, 64, 4, seed=1)
     a, b = _make_lora(k, n, seed=2, r=r)
+    a_t = fm.lora_a_kernel_layout(a, torch.bfloat16, fm.lora_rank_tile(r))
     if kernel.startswith("w4a8"):
         xa = x.float() @ a
         x, sx = fm.quantize_activations_int8(x)
@@ -1690,7 +1695,7 @@ def time_one(kernel: str, m: int, k: int, n: int, extra: "str | None" = None) ->
         "quant_matmul": lambda q, p: fm.quant_matmul(q, p),
         "quant_matmul_ax0": lambda q, p: fm.quant_matmul_ax0(q, p),
         "dequant_ax0": lambda q, p: fm.dequant(p, torch.bfloat16),  # W [N, K]; M unused
-        "quant_matmul_lora": lambda q, p: fm.quant_matmul_lora(q, p, a, b),
+        "quant_matmul_lora": lambda q, p: fm.quant_matmul_lora(q, p, a, b, a_t),
         "w4a8_matmul": lambda q, p: fm.w4a8_matmul(q, sx, p, torch.bfloat16),
         "w4a8_lora_matmul": lambda q, p: fm.w4a8_lora_matmul(q, sx, p, xa, b, torch.bfloat16),
     }

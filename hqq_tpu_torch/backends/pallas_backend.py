@@ -27,6 +27,8 @@ from ..ops.fused_matmul import (
     KernelQTensor,
     KernelQTensor0,
     dequant_pallas,
+    lora_a_kernel_layout,
+    lora_rank_tile,
     quant_matmul_pallas,
     quant_matmul_pallas_a8,
     quant_matmul_pallas_a8_lora,
@@ -150,7 +152,12 @@ def _patch_w4a8_any_axis(layer: QuantLinear, meta_dtype=None) -> "A8QuantLinear 
 
 class _KernelLoRALinear(nn.Module):
     """A kernel-layout weight, LoRA factors a [K, r] and b [r, N] (the
-    adapter's scaling folded into b, both fp32) and an optional bias."""
+    adapter's scaling folded into b, both fp32) and an optional bias.
+
+    ``a_t`` is a in the LoRA kernel's layout and the weight's compute type
+    (`lora_a_kernel_layout`), built here once, as ``kqt`` is built once from
+    the base: the module serves the adapter it was made from, and a changed
+    adapter is patched again."""
 
     def __init__(self, kqt: KernelQTensor, a: torch.Tensor, b: torch.Tensor,
                  bias: Optional[torch.Tensor] = None):
@@ -159,6 +166,9 @@ class _KernelLoRALinear(nn.Module):
         self.a = _as_param(a)
         self.b = _as_param(b)
         self.bias = _as_param(bias)
+        self.register_buffer(
+            "a_t", lora_a_kernel_layout(a, kqt.compute_dtype, lora_rank_tile(a.shape[1])),
+            persistent=False)
 
     @property
     def in_features(self) -> int:
@@ -177,7 +187,7 @@ class PallasLoRAQuantLinear(_KernelLoRALinear):
     (`quant_matmul_pallas_lora`)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._add_bias(quant_matmul_pallas_lora(x, self.kqt, self.a, self.b))
+        return self._add_bias(quant_matmul_pallas_lora(x, self.kqt, self.a, self.b, self.a_t))
 
 
 class A8LoRAQuantLinear(_KernelLoRALinear):
@@ -186,7 +196,8 @@ class A8LoRAQuantLinear(_KernelLoRALinear):
     activations at full precision."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._add_bias(quant_matmul_pallas_a8_lora(x, self.kqt, self.a, self.b))
+        return self._add_bias(
+            quant_matmul_pallas_a8_lora(x, self.kqt, self.a, self.b, self.a_t))
 
 
 def _patch_lora(lora, cls):

@@ -37,9 +37,10 @@
 //     rows below T and columns below the head size are stored;
 //   * causal blocks walk the key tiles up to their diagonal, mask only the
 //     tiles that cross it (and the ragged last one), and skip the products
-//     of a tile that lies wholly above a consumer's rows; the grid starts
-//     the query tiles with the most key tiles first, so a causal grid ends
-//     on short blocks;
+//     of a tile that lies wholly above a consumer's rows; a block takes its
+//     query tile from the launch plan's table (`flash_launch_plan`), which
+//     starts with the tiles that walk the most key tiles, so a causal grid
+//     ends on short blocks;
 //   * GQA is an index (kv head = h / rep), K and V arrive unrepeated.
 // The consumers issue their products one after another (S, softmax, PV):
 // overlapping one tile's softmax with the next tile's S is the next step.
@@ -74,9 +75,9 @@ template <typename T, int HDP, int BN>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
                          const __grid_constant__ CUtensorMap kmap,
-                         const __grid_constant__ CUtensorMap vmap, T* __restrict__ out, int bh,
-                         int nh, int rep, int t, int hd, float scale_log2, int causal,
-                         int stages) {
+                         const __grid_constant__ CUtensorMap vmap, T* __restrict__ out,
+                         const int* __restrict__ q_order, int bh, int nh, int rep, int t, int hd,
+                         float scale_log2, int causal, int stages) {
   constexpr int kPanels = HDP / 64;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
@@ -86,10 +87,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t full0 = q_full + 8;
   const uint32_t empty0 = full0 + 8 * stages;
 
-  // the longest query tiles first: blocks of the last tile of every head,
-  // then the tile before it, ...
-  const int q_tiles = (t + kBM - 1) / kBM;
-  const int qt = q_tiles - 1 - static_cast<int>(blockIdx.x) / bh;
+  // the plan's query tile of every (batch, head) in turn
+  const int qt = __ldg(q_order + blockIdx.x / bh);
   const int head = static_cast<int>(blockIdx.x) % bh;  // b * nh + h
   const int kv_head = head / nh * (nh / rep) + head % nh / rep;
   const int m0 = qt * kBM;
@@ -258,8 +257,9 @@ int encode_qkv(CUtensorMap* map, const void* base, int heads, int t, int hd, int
 }
 
 template <typename T, int HDP, int BN>
-int launch(const void* q, const void* k, const void* v, void* out, int b, int nh, int n_kv, int t,
-           int hd, float scale, int causal, int dtype, int stages, int smem, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, const int* q_order, int b,
+           int nh, int n_kv, int t, int hd, float scale, int causal, int dtype, int stages,
+           int smem, int blocks, cudaStream_t stream) {
   if (stages < 2 || smem < flash_smem(HDP, BN, stages).total)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap qm, km, vm;
@@ -271,21 +271,20 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int nh
   int e = static_cast<int>(
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
   if (e != 0) return e;
-  const long blocks = static_cast<long>(b) * nh * ((t + kBM - 1) / kBM);
-  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      qm, km, vm, static_cast<T*>(out), b * nh, nh, nh / n_kv, t, hd,
-      scale * 1.4426950408889634f, causal, stages);
+  kernel<<<blocks, kThreads, smem, stream>>>(qm, km, vm, static_cast<T*>(out), q_order, b * nh,
+                                             nh, nh / n_kv, t, hd, scale * 1.4426950408889634f,
+                                             causal, stages);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_head(const void* q, const void* k, const void* v, void* out, int b, int nh, int n_kv,
-                int t, int hd, float scale, int causal, int dtype, int head_pad, int key_tile,
-                int stages, int smem, cudaStream_t st) {
-#define HQQ_FLASH_LAUNCH(HDP, BN)                                                            \
-  if (head_pad == HDP && key_tile == BN)                                                    \
-  return launch<T, HDP, BN>(q, k, v, out, b, nh, n_kv, t, hd, scale, causal, dtype, stages, \
-                            smem, st)
+int launch_head(const void* q, const void* k, const void* v, void* out, const int* q_order,
+                int b, int nh, int n_kv, int t, int hd, float scale, int causal, int dtype,
+                int head_pad, int key_tile, int stages, int smem, int blocks, cudaStream_t st) {
+#define HQQ_FLASH_LAUNCH(HDP, BN)                                                              \
+  if (head_pad == HDP && key_tile == BN)                                                      \
+  return launch<T, HDP, BN>(q, k, v, out, q_order, b, nh, n_kv, t, hd, scale, causal, dtype, \
+                            stages, smem, blocks, st)
   HQQ_FLASH_LAUNCH(64, 128);
   HQQ_FLASH_LAUNCH(128, 128);
   HQQ_FLASH_LAUNCH(256, 64);
@@ -297,23 +296,25 @@ int launch_head(const void* q, const void* k, const void* v, void* out, int b, i
 
 // q and out [B, nh, T, hd], k and v [B, n_kv, T, hd], all bf16 (dtype 1) or
 // fp16 (dtype 2), contiguous and 16-byte aligned; head_dim a multiple of 16,
-// at most 256; nh a multiple of n_kv. head_pad, key_tile, stages and smem
-// come from the launch plan (`flash_launch_plan`).
-HQQ_EXPORT int hqq_flash_prefill(const void* q, const void* k, const void* v, void* out, int b,
-                                 int nh, int n_kv, int t, int hd, float scale, int causal,
-                                 int dtype, int head_pad, int key_tile, int stages, int smem,
-                                 void* stream) {
+// at most 256; nh a multiple of n_kv. q_order (int32 on the device, one
+// query tile per group of B * nh blocks), head_pad, key_tile, stages, smem
+// and blocks come from the launch plan (`flash_launch_plan`).
+HQQ_EXPORT int hqq_flash_prefill(const void* q, const void* k, const void* v, void* out,
+                                 const int* q_order, int b, int nh, int n_kv, int t, int hd,
+                                 float scale, int causal, int dtype, int head_pad, int key_tile,
+                                 int stages, int smem, int blocks, void* stream) {
   if (b < 1 || nh < 1 || n_kv < 1 || nh % n_kv || t < 1 || hd < 16 || hd % 16 ||
-      hd > head_pad) {
+      hd > head_pad || q_order == nullptr ||
+      static_cast<long>(blocks) != static_cast<long>(b) * nh * ((t + kBM - 1) / kBM)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto st = static_cast<cudaStream_t>(stream);
   if (dtype == HQQ_BF16)
-    return launch_head<__nv_bfloat16>(q, k, v, out, b, nh, n_kv, t, hd, scale, causal, dtype,
-                                      head_pad, key_tile, stages, smem, st);
+    return launch_head<__nv_bfloat16>(q, k, v, out, q_order, b, nh, n_kv, t, hd, scale, causal,
+                                      dtype, head_pad, key_tile, stages, smem, blocks, st);
   if (dtype == HQQ_F16)
-    return launch_head<__half>(q, k, v, out, b, nh, n_kv, t, hd, scale, causal, dtype, head_pad,
-                               key_tile, stages, smem, st);
+    return launch_head<__half>(q, k, v, out, q_order, b, nh, n_kv, t, hd, scale, causal, dtype,
+                               head_pad, key_tile, stages, smem, blocks, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

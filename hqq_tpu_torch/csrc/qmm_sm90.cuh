@@ -235,7 +235,9 @@ __device__ __forceinline__ void lora_term(float (&acc)[BM / 2], const float (&pa
       for (int h = 0; h < 4; ++h)
         acc[4 * j + h] =
             st[(8 * j - t0 + 2 * (lane % 4) + (h & 1)) * 64 + warp * 16 + lane / 4 + 8 * (h >> 1)];
-    if (t0 + kRows < BM) named_sync(wg_bar);  // the next tokens rewrite st
+    // every warp has read st back before the next tokens, or the epilogue
+    // (which stages y in the same bytes), rewrite it
+    named_sync(wg_bar);
   }
   if (again) named_sync<256>(3);  // the next chunk rewrites pb
 }
@@ -244,8 +246,11 @@ __device__ __forceinline__ void lora_term(float (&acc)[BM / 2], const float (&pa
 // also brings A^T's [RP x 64] slab into the slot, and a consumer multiplies
 // 64 of the tile's token rows by it into RP/2 more accumulators a thread
 // (wgmma m64nRPk16 with x's slab as the A side). Both consumers take 64
-// rows at BM = 128; at BM <= 64 the first takes them all (rows past BM
-// read other shared memory, and their results are never used).
+// rows at BM = 128; at BM <= 64 the first takes them all. There the A side's
+// rows past BM read past the slot (the next slots, which TMA may be
+// filling, or the first A tiles, which may be being dequantized): a row of the product depends only on its
+// own row of A, and the rows past BM are never stored, so what they read
+// does not matter.
 template <typename T, int BM, typename Layout, int RP = 0>
 __global__ void __launch_bounds__(kThreads, 1)
     qmm_sm90_kernel(const __grid_constant__ CUtensorMap xmap,

@@ -45,7 +45,7 @@ KERNELS = {
     ),
     "flash_attention": (
         "flash_prefill.cu", "hqq_flash_prefill",
-        [_P] * 4 + [_I] * 5 + [ctypes.c_float] + [_I] * 6 + [_P],
+        [_P] * 5 + [_I] * 5 + [ctypes.c_float] + [_I] * 7 + [_P],
     ),
     "paged_attention": (
         "paged_attention.cu", "hqq_paged_attention", [_P] * 9 + [_I] * 9 + [_P],

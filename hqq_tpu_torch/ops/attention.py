@@ -41,26 +41,18 @@ FLASH_MAX_STAGES = 4
 
 @dataclasses.dataclass(frozen=True)
 class FlashPlan:
-    """How `flash_attention` launches: one block per (query tile of 128
-    rows, batch, head), ``blocks`` in all, in the order of `tile_order`;
-    the head size padded to ``head_pad``, keys in tiles of ``key_tile``
-    through ``stages`` slots, ``smem`` bytes of dynamic shared memory."""
+    """How `flash_attention` launches: ``blocks`` blocks of 128 query rows,
+    block i on query tile ``q_order[i // (batch * heads)]`` of (batch, head)
+    ``i % (batch * heads)`` (the kernel reads the table); the head size
+    padded to ``head_pad``, keys in tiles of ``key_tile`` through ``stages``
+    slots, ``smem`` bytes of dynamic shared memory."""
 
     head_pad: int
     key_tile: int
     stages: int
     smem: int
-    q_tiles: int
+    q_order: tuple
     blocks: int
-
-    def tile_order(self, batch: int, heads: int) -> list:
-        """(query tile, batch, head) of each block in launch order, as the
-        kernel reads its block index: the last query tile of every head
-        first (under causality it walks the most key tiles), then the one
-        before it."""
-        bh = batch * heads
-        return [(self.q_tiles - 1 - i // bh, i % bh // heads, i % bh % heads)
-                for i in range(self.blocks)]
 
 
 def flash_smem_bytes(head_pad: int, key_tile: int, stages: int) -> int:
@@ -77,7 +69,9 @@ def flash_launch_plan(batch: int, heads: int, t: int, head_dim: int) -> FlashPla
     head size pads to 64, 128 or 256 (TMA fills the padding with zeros);
     keys come in tiles of 128, or of 64 at 256, where a consumer's output
     accumulators already take 128 registers; as many ring slots as shared
-    memory holds, at most 4."""
+    memory holds, at most 4. The query tiles go last first: under causality
+    the last walks the most key tiles, so a causal grid ends on short
+    blocks."""
     if not 16 <= head_dim <= _MAX_HEAD_DIM or head_dim % 16:
         raise ValueError(f"the kernel takes head sizes of 16s up to {_MAX_HEAD_DIM}, "
                          f"not {head_dim}")
@@ -88,8 +82,15 @@ def flash_launch_plan(batch: int, heads: int, t: int, head_dim: int) -> FlashPla
     stages = min(FLASH_MAX_STAGES, (H100_SMEM_PER_BLOCK - fixed) // per_stage)
     q_tiles = -(-t // FLASH_QUERY_TILE)
     return FlashPlan(head_pad=head_pad, key_tile=key_tile, stages=stages,
-                     smem=flash_smem_bytes(head_pad, key_tile, stages), q_tiles=q_tiles,
-                     blocks=batch * heads * q_tiles)
+                     smem=flash_smem_bytes(head_pad, key_tile, stages),
+                     q_order=tuple(range(q_tiles - 1, -1, -1)), blocks=batch * heads * q_tiles)
+
+
+@functools.lru_cache(maxsize=64)
+def _q_order_on(q_order: tuple, device: torch.device) -> torch.Tensor:
+    """A plan's query-tile table as the kernel reads it, int32 on the card,
+    copied there once per table."""
+    return torch.tensor(q_order, dtype=torch.int32, device=device)
 
 
 def _naive(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor],
@@ -156,10 +157,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
     plan = flash_launch_plan(b, nh, t, hd)
     lib = _build.library("flash_attention")
     with torch.cuda.device(dev):
-        code = lib.hqq_flash_prefill(_ptr(q), _ptr(k), _ptr(v), _ptr(out), b, nh, n_kv, t, hd,
+        code = lib.hqq_flash_prefill(_ptr(q), _ptr(k), _ptr(v), _ptr(out),
+                                     _ptr(_q_order_on(plan.q_order, dev), 4), b, nh, n_kv, t, hd,
                                      float(sm_scale), int(bool(causal)), _DTYPE_CODE[q.dtype],
                                      plan.head_pad, plan.key_tile, plan.stages, plan.smem,
-                                     _stream(dev))
+                                     plan.blocks, _stream(dev))
     _build.check("flash_attention", code)
     flash_attention.launches += 1
     return out

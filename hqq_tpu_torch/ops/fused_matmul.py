@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -69,6 +70,7 @@ __all__ = [
     "QmmPlan",
     "qmm_launch_plan",
     "lora_a_kernel_layout",
+    "lora_rank_tile",
 ]
 
 # nbits (canonical) -> container bits of the kernel layout: 3-bit rides the
@@ -399,8 +401,7 @@ def qmm_launch_plan(m: int, n: int, k: int, cb: int, group_size: int, axis: int 
     the same shapes."""
     slabs = -(-k // QMM_SLAB)
     row_tiles = -(-n // QMM_ROWS)
-    rank_tile = 0 if rank == 0 else QMM_RANK_TILES[0] if rank <= QMM_RANK_TILES[0] \
-        else QMM_RANK_TILES[1]
+    rank_tile = lora_rank_tile(rank) if rank else 0
     if m <= 64:
         tile = next(t for t in QMM_TOKEN_TILES if t >= m)
     elif rank:
@@ -526,15 +527,24 @@ def quant_matmul(x2: torch.Tensor, kqt: KernelQTensor) -> torch.Tensor:
 
 
 def quant_matmul_lora_plain(
-    x2: torch.Tensor, kqt: KernelQTensor, a: torch.Tensor, b: torch.Tensor
+    x2: torch.Tensor, kqt: KernelQTensor, a: torch.Tensor, b: torch.Tensor,
+    a_t: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain version of the quant_matmul_lora kernel: x2 @ W^T + (x2 @ A) @ B
     with W and A rounded to x2's dtype, both products summed in fp32, B
-    applied to the fp32 partial in fp32, one rounding to x2's dtype."""
+    applied to the fp32 partial in fp32, one rounding to x2's dtype. It
+    takes the wrapper's arguments and reads A from ``a`` (``a_t``, the
+    kernel's layout of it, is not used)."""
     xf = x2.to(torch.float32)
     base = xf @ dequant_plain(kqt, x2.dtype).to(torch.float32).t()
     part = xf @ a.to(x2.dtype).to(torch.float32)
     return (base + part @ b.to(torch.float32)).to(x2.dtype)
+
+
+def lora_rank_tile(rank: int) -> int:
+    """The ranks of one chunk of the LoRA kernel for an adapter of ``rank``
+    ranks: 16 up to 16, else 64."""
+    return QMM_RANK_TILES[0] if rank <= QMM_RANK_TILES[0] else QMM_RANK_TILES[1]
 
 
 def lora_a_kernel_layout(a: torch.Tensor, dtype: torch.dtype, rank_tile: int) -> torch.Tensor:
@@ -547,23 +557,16 @@ def lora_a_kernel_layout(a: torch.Tensor, dtype: torch.dtype, rank_tile: int) ->
     return out
 
 
-def _lora_a_operand(a: torch.Tensor, dtype: torch.dtype, rank_tile: int) -> torch.Tensor:
-    """`lora_a_kernel_layout` of ``a``, built once and kept on ``a`` itself,
-    and built again when ``a`` changes (its storage or, in place, its
-    version): a serving layer's adapter costs no work per call."""
-    key = (a.data_ptr(), a._version, dtype, rank_tile)
-    kept = getattr(a, "_hqq_kernel_a", None)
-    if kept is None or kept[0] != key:
-        kept = (key, lora_a_kernel_layout(a, dtype, rank_tile))
-        a._hqq_kernel_a = kept
-    return kept[1]
-
-
 def quant_matmul_lora(
-    x2: torch.Tensor, kqt: KernelQTensor, a: torch.Tensor, b: torch.Tensor
+    x2: torch.Tensor, kqt: KernelQTensor, a: torch.Tensor, b: torch.Tensor,
+    a_t: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """x2 [M, K] @ W^T + (x2 @ A) @ B -> [M, N] in x2's dtype, with A [K, r]
-    and B [r, N] (scaling folded in), any rank r >= 1, all in one kernel."""
+    and B [r, N] (scaling folded in), any rank r >= 1, all in one kernel.
+
+    ``a_t``: A as the kernel reads it, ``lora_a_kernel_layout(a, dtype,
+    lora_rank_tile(r))``, which a serving layer builds once; the kernel
+    takes it where its type is x2's, and otherwise A^T is built here."""
     if _on_cpu(x2):
         return quant_matmul_lora_plain(x2, kqt, a, b)
     dev = x2.device
@@ -580,14 +583,19 @@ def quant_matmul_lora(
     m, k = x2.shape
     n = kqt.n
     plan = qmm_launch_plan(m, n, k, kqt.container_bits, kqt.group_size, rank=r)
-    at = _lora_a_operand(a, x2.dtype, plan.rank_tile)
+    if a_t is None or a_t.dtype != x2.dtype:
+        a_t = lora_a_kernel_layout(a, x2.dtype, plan.rank_tile)
+    elif tuple(a_t.shape) != (plan.passes * plan.rank_tile, k) or a_t.device != dev \
+            or not a_t.is_contiguous():
+        raise ValueError(f"a_t must be A^T [{plan.passes * plan.rank_tile}, {k}] on {dev} "
+                         f"(lora_a_kernel_layout), got {tuple(a_t.shape)} on {a_t.device}")
     b = b.to(torch.float32).contiguous()
     out = torch.empty((m, n), dtype=x2.dtype, device=dev)
     part = _split_scratch(plan, m, n, dev)
     lib = _build.library("quant_matmul_lora")
     with torch.cuda.device(dev):
         code = lib.hqq_quant_matmul_lora(
-            _ptr(x2), _ptr(kqt.wq, 4), _ptr(kqt.scale, 4), _ptr(kqt.zs, 4), _ptr(at), _ptr(b, 4),
+            _ptr(x2), _ptr(kqt.wq, 4), _ptr(kqt.scale, 4), _ptr(kqt.zs, 4), _ptr(a_t), _ptr(b, 4),
             _ptr(out, 2), None if part is None else _ptr(part, 4), m, n, k, r, kqt.group_size,
             kqt.container_bits, _DTYPE_CODE[x2.dtype], plan.token_tile, plan.rank_tile,
             plan.passes, plan.stages, plan.splits, plan.slabs_per_split, plan.smem, _stream(dev),
@@ -798,23 +806,27 @@ def quant_matmul_pallas_a8(x: torch.Tensor, kqt: "KernelQTensor | KernelQTensor0
 
 
 def quant_matmul_pallas_lora(
-    x: torch.Tensor, kqt: KernelQTensor, a: torch.Tensor, b: torch.Tensor
+    x: torch.Tensor, kqt: KernelQTensor, a: torch.Tensor, b: torch.Tensor,
+    a_t: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``x @ W_dq^T + (x @ a) @ b`` in one kernel (`quant_matmul_lora`).
-    a: [K, r], b: [r, N] with the adapter's scaling folded in; any r >= 1."""
+    a: [K, r], b: [r, N] with the adapter's scaling folded in; any r >= 1;
+    a_t: a in the kernel's layout, or None (`quant_matmul_lora`)."""
     lead = x.shape[:-1]
-    out = quant_matmul_lora(x.reshape(-1, kqt.k), kqt, a, b)
+    out = quant_matmul_lora(x.reshape(-1, kqt.k), kqt, a, b, a_t)
     return out.reshape(*lead, kqt.n)
 
 
 def quant_matmul_pallas_a8_lora(
-    x: torch.Tensor, kqt: KernelQTensor, a: torch.Tensor, b: torch.Tensor
+    x: torch.Tensor, kqt: KernelQTensor, a: torch.Tensor, b: torch.Tensor,
+    a_t: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``x @ W_dq^T + (x @ a) @ b`` with the base on the int8 decode kernel
     and the adapter in its epilogue (`w4a8_lora_matmul`).
 
     The routing of `hqq_tpu`'s `quant_matmul_pallas_a8_lora`: M > 32 and
-    8-bit weights take `quant_matmul_pallas_lora`. Its third route, K not a
+    8-bit weights take `quant_matmul_pallas_lora` (with ``a_t``, a in that
+    kernel's layout, or None). Its third route, K not a
     multiple of 8 groups, does not exist here: the w4a8 kernel serves every
     K % g == 0. The rank-r partial xa = x @ a is a plain matmul on the
     unquantized activations, outside the kernel as in `hqq_tpu`, so the
@@ -824,7 +836,7 @@ def quant_matmul_pallas_a8_lora(
     lead = x.shape[:-1]
     x2 = x.reshape(-1, kqt.k)
     if x2.shape[0] > A8_MAX_M or kqt.nbits == 8:
-        return quant_matmul_pallas_lora(x, kqt, a, b)
+        return quant_matmul_pallas_lora(x, kqt, a, b, a_t)
     x8, sx = quantize_activations_int8(x2)
     xa = x2.to(torch.float32) @ a.to(torch.float32)
     out = w4a8_lora_matmul(x8, sx, kqt, xa, b, x.dtype)

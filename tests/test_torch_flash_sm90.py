@@ -2,8 +2,9 @@
 """The host side of the Hopper flash-attention kernel (csrc/flash_prefill.cu).
 
 What the CPU can hold of it: `flash_launch_plan`, which `flash_attention`
-hands to the kernel. Its blocks cover every (batch, head, query tile) once;
-they start with the query tiles that walk the most key tiles under
+hands to the kernel. Its table of query tiles, which the kernel reads, has
+every tile once, so the blocks cover every (batch, head, query tile) once;
+the table starts with the query tiles that walk the most key tiles under
 causality; the head size pads to the least of 64, 128 and 256 that holds it;
 and its shared memory fits one block of an H100 with at least two slots of
 K and V for every head size the kernel takes (16 to 256).
@@ -33,22 +34,26 @@ def test_flash_plan_fits(hd):
 @pytest.mark.parametrize("b,nh,t", [(1, 32, 1023), (4, 32, 512), (3, 5, 4097), (2, 1, 1),
                                     (1, 4, 128), (1, 4, 129)])
 def test_flash_plan_covers_every_tile_once(b, nh, t):
+    """The kernel runs block i on query tile q_order[i // (b * nh)] of
+    (batch, head) i % (b * nh): with blocks = b * nh * len(q_order), every
+    (batch, head, query tile) once when the table holds every tile once."""
     plan = at.flash_launch_plan(b, nh, t, 128)
-    assert (plan.q_tiles - 1) * at.FLASH_QUERY_TILE < t <= plan.q_tiles * at.FLASH_QUERY_TILE
-    order = plan.tile_order(b, nh)
-    assert len(order) == plan.blocks == b * nh * plan.q_tiles
-    assert sorted(order) == sorted((q, i, h) for q in range(plan.q_tiles) for i in range(b)
-                                   for h in range(nh))
+    q_tiles = len(plan.q_order)
+    assert (q_tiles - 1) * at.FLASH_QUERY_TILE < t <= q_tiles * at.FLASH_QUERY_TILE
+    assert sorted(plan.q_order) == list(range(q_tiles))
+    assert plan.blocks == b * nh * q_tiles
+    blocks = [(plan.q_order[i // (b * nh)], i % (b * nh)) for i in range(plan.blocks)]
+    assert sorted(blocks) == sorted((q, h) for q in range(q_tiles) for h in range(b * nh))
 
 
 @pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("b,nh,t", [(1, 32, 1023), (4, 8, 4096), (2, 3, 300)])
 def test_flash_plan_longest_tiles_first(b, nh, t, hd):
     """Under causality a query tile walks the key tiles up to its diagonal:
-    along the launch order that count never grows."""
+    along the plan's table, the kernel's launch order, that count never
+    grows."""
     plan = at.flash_launch_plan(b, nh, t, hd)
-    walks = [-(-min(t, (q + 1) * at.FLASH_QUERY_TILE) // plan.key_tile)
-             for q, _, _ in plan.tile_order(b, nh)]
+    walks = [-(-min(t, (q + 1) * at.FLASH_QUERY_TILE) // plan.key_tile) for q in plan.q_order]
     assert walks == sorted(walks, reverse=True)
     assert walks[0] == -(-t // plan.key_tile)
 

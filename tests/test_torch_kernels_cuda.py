@@ -213,6 +213,27 @@ def test_quant_matmul_lora_rows_do_not_depend_on_m(cuda):
             assert torch.equal(fm.quant_matmul_lora(x[lo:hi], kqt, a, b), whole[lo:hi]), (r, lo, hi)
 
 
+@pytest.mark.parametrize("m,n,r", [(512, 4096, 8), (1023, 512, 65), (4, 4096, 8), (17, 4096, 200)])
+def test_quant_matmul_lora_repeats_bit_equal(cuda, m, n, r):
+    """The LoRA term stages the accumulators in the A tiles that the
+    epilogue then writes: run after run, at the 128-token tile and at the
+    small tiles with K split, the output is the same to the bit, and the
+    serving layer's A^T gives what A alone gives."""
+    from hqq_tpu_torch.backends.pallas_backend import PallasLoRAQuantLinear
+
+    kqt = _kqt(n, 4096, 64, 4, cuda, seed=r)
+    a, b = _lora(4096, n, r, cuda, seed=m)
+    x = torch.randn((m, 4096), device=cuda).to(kqt.compute_dtype)
+    first = fm.quant_matmul_lora(x, kqt, a, b)
+    for _ in range(20):
+        assert torch.equal(fm.quant_matmul_lora(x, kqt, a, b), first)
+    layer = PallasLoRAQuantLinear(kqt, a, b)
+    assert layer.a_t.dtype == x.dtype
+    assert torch.equal(layer(x), first)
+    with pytest.raises(ValueError):
+        fm.quant_matmul_lora(x, kqt, a, b, layer.a_t[:, :-8])
+
+
 @pytest.mark.parametrize("m", [1, 4, 8, 17, 32])
 @pytest.mark.parametrize("nbits,g,k,n,r", [
     (4, 64, 512, 1000, 8),      # ragged N

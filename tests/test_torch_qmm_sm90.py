@@ -12,7 +12,7 @@ What the CPU can hold of it:
     the token tile stops at 128 and the rank goes in chunks of 16 or 64,
     one walk over K each, with at least two stages still in shared memory;
   * the adapter's A as the LoRA kernel reads it: A^T in x's type, the rank
-    padded with zero rows, kept beside A until A changes;
+    padded with zero rows, built once by the serving layer;
   * the build: every header a kernel source includes is hashed into its
     library's name (`_build._HEADERS`), so an edit to it rebuilds;
   * the entry points at the new tile edges (M = 127 and 129 around the
@@ -149,20 +149,25 @@ def test_lora_a_kernel_layout(r, dtype):
     assert torch.equal(at[:r], a.to(dtype).t()) and not at[r:].any()
 
 
-def test_lora_a_operand_is_kept_until_a_changes():
-    """The kernel's A^T is built once per adapter and type, and again after
-    A changes in place or takes new storage."""
-    a = torch.nn.Parameter(torch.randn(256, 8))
-    first = tf._lora_a_operand(a, torch.bfloat16, 16)
-    assert tf._lora_a_operand(a, torch.bfloat16, 16) is first
-    assert not first.requires_grad
-    assert tf._lora_a_operand(a, torch.float16, 16).dtype == torch.float16
-    with torch.no_grad():
-        a.mul_(2)
-    again = tf._lora_a_operand(a, torch.float16, 16)
-    assert torch.equal(again[:8], a.detach().to(torch.float16).t())
-    a.data = torch.randn(256, 8)
-    assert torch.equal(tf._lora_a_operand(a, torch.float16, 16)[:8], a.detach().half().t())
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("layer", ["PallasLoRAQuantLinear", "A8LoRAQuantLinear"])
+def test_lora_layer_holds_a_in_kernel_layout(layer, dtype):
+    """A patched HQQ+ layer holds A^T in the kernel's layout and its
+    weight's compute type, built when the layer is made (the wrapper takes
+    it as given), and its forward is the wrapper's."""
+    from hqq_tpu_torch.backends import pallas_backend as pb
+    from hqq_tpu_torch.core.quantize import quantize
+
+    rng = np.random.default_rng(5)
+    w = torch.from_numpy(rng.standard_normal((256, 320)).astype(np.float32))
+    kqt = tf.to_kernel_layout(quantize(w, nbits=4, group_size=64, axis=1, compute_dtype=dtype))
+    a = torch.from_numpy(rng.standard_normal((320, 8)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((8, 256)).astype(np.float32))
+    mod = getattr(pb, layer)(kqt, a, b)
+    assert torch.equal(mod.a_t, tf.lora_a_kernel_layout(a, dtype, tf.lora_rank_tile(8)))
+    assert "a_t" not in mod.state_dict() and not mod.a_t.requires_grad
+    x = torch.from_numpy(rng.standard_normal((40, 320)).astype(np.float32)).to(dtype)
+    torch.testing.assert_close(mod(x), tf.quant_matmul_lora_plain(x, kqt, a, b), rtol=0, atol=0)
 
 
 def _includes(path):
