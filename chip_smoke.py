@@ -1,16 +1,18 @@
 # SPDX-License-Identifier: Apache-2.0
-"""Chip smoke test of hqq_tpu_torch: HQQ Llama-2-7B on one GPU, five ways.
+"""Chip smoke test of hqq_tpu_torch: HQQ Llama-2-7B on one GPU, six ways.
 
     python3 chip_smoke.py            # on cuda:0, every phase
     python3 chip_smoke.py --time quant_matmul 512 4096 4096      # one kernel
     python3 chip_smoke.py --time quant_matmul_ax0 512 4096 4096 3-64-fp32  # nbits-g-meta
     python3 chip_smoke.py --time paged_attention 8 1024 32 32    # slots, length, heads, kv heads
     python3 chip_smoke.py --time flash_attention 1 1023 32 32    # batch, T, heads, kv heads
+    python3 chip_smoke.py --time flash_attention_backward_dkv 1 1024 32 32   # or _dq, _fp32
 
 Phases (any failure exits non-zero):
   (a) device and build: the card, its power limit, an nvcc build of every
-      kernel under hqq_tpu_torch/csrc/ (registers and spill stores of each
-      kernel instantiation of the four wgmma libraries), and the wgmma
+      kernel under hqq_tpu_torch/csrc/ (seconds per source, registers and
+      spill stores of each kernel instantiation of the four wgmma
+      libraries), and the wgmma
       (HGMMA) and TMA (UTMALDG) instructions in the SASS of those four
       libraries (quant_matmul, quant_matmul_ax0, quant_matmul_lora,
       flash_attention);
@@ -20,7 +22,15 @@ Phases (any failure exits non-zero):
       torch.matmul on the pre-dequantized bf16 weight (a yardstick only; for
       the LoRA kernels the sum of the three torch.matmul calls; for the two
       attention kernels scaled_dot_product_attention, on the gathered dense
-      K/V for the paged one);
+      K/V for the paged one); the axis=1 kernels on bf16 scale and zs, and
+      the fp32 routes (qmm_fp32, flash_attention_fp32), each with controls
+      that must miss its bar (a neighbour's scale, the 4-bit zs offset
+      dropped; the inputs rounded to bf16); the flash backward kernels (dK/dV
+      and dQ) at path I's shape and around it, against the plain backward
+      from the same saved statistics and autograd of the plain forward in
+      fp32, controls (D dropped, the mask shifted by one), repeated runs
+      bit-equal, SDPA's backward as the yardstick; the forward with and
+      without its log-sum-exp;
   (c) the main path: Llama-2-7B at full width and depth with random weights
       from a seed, quantize_model(4-bit, g64), prepare_for_inference("w4a8"),
       generate for 4 prompts of 100 tokens (prefill M = 4*128 = 512 rows),
@@ -61,7 +71,16 @@ Phases (any failure exits non-zero):
       window's calls kernel against plain with a control (the mask shifted by
       one); on the 2-layer model, cache=None logits against the dense-cache
       forward, and the perplexity through the kernel against the one through
-      its plain version.
+      its plain version;
+  (i) HQQ+ LoRA training: the 7B model, 4-bit g64 (the canonical layers,
+      "xla"), LoRA r = 8 on the 224 linears, 4 AdamW steps on 1 x 1025 ids
+      through causal_lm_loss and make_lora_train_step, then merge_lora. Every
+      step launches the flash forward, the dK/dV and the dQ kernel 32 times
+      each; the loss falls; step ms, tokens/s, the device's busy share, peak
+      memory. On 2-layer models at 7B width: the LoRA gradients through the
+      kernels against the plain attention backward, in bf16 and in fp32,
+      with the control D dropped; fp32 HQQ+ serving through qmm_fp32 and
+      flash_attention_fp32 against the plain versions, with a bf16 control.
 Phases g and h run right after c, on its model, before d.
 
 The line before the last is {"kernels": [...]}; the last line is
@@ -76,8 +95,10 @@ quant_matmul_lora or w4a8_lora_matmul (4-bit g64, RANK 8 unless given),
 quant_matmul_ax0 or dequant_ax0 (2-bit g16, bf16 scale and zs, or the
 config NBITS-G-META given after N, e.g. 3-64-fp32, path F's attention); for
 paged_attention the four numbers are slots, length, query heads and kv heads
-(bf16 pages of 16 rows, head size 128), for flash_attention batch, T, query
-heads and kv heads (bf16, causal, head size 128).
+(bf16 pages of 16 rows, head size 128), for flash_attention, the two
+backward kernels (flash_attention_backward_dkv, flash_attention_backward_dq)
+and flash_attention_fp32 batch, T, query heads and kv heads (causal, head
+size 128; bf16, fp32 for the last).
 """
 
 from __future__ import annotations
@@ -113,6 +134,16 @@ KERNELS = {
     "w4a8_lora_matmul": ("w4a8_matmul.cu", "hqq_tpu/ops/fused_matmul.py:1609", None),
     "paged_attention": ("paged_attention.cu", "hqq_tpu/ops/paged.py:275", None),
     "flash_attention": ("flash_prefill.cu", "hqq_tpu/ops/attention.py:66", None),
+    # the library flash attention's backward kernels, which the training
+    # step of hqq_tpu/utils/training.py:98 reaches through its custom VJP
+    "flash_attention_backward_dkv": (
+        "flash_backward.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:941", None),
+    "flash_attention_backward_dq": (
+        "flash_backward.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:1287", None),
+    # the fp32 routes: what the TPU kernels do for fp32 inputs
+    "qmm_fp32": ("qmm_fp32.cu", "hqq_tpu/ops/fused_matmul.py:307",
+                 "hqq_tpu/ops/fused_matmul.py:1223, :1318, :1521"),
+    "flash_attention_fp32": ("flash_backward.cu", "hqq_tpu/ops/attention.py:66", None),
 }
 # the row of phase b that stands for each kernel in the last-but-one line
 PICK = {
@@ -124,6 +155,10 @@ PICK = {
     "w4a8_lora_matmul": (4, 4096, 11008, "r=8"),
     "paged_attention": (8, 1024, 32, "bf16 pages of 16 rows, 32/32 heads, head size 128"),
     "flash_attention": (1, 1023, 32, "bf16, causal, 32/32 heads, head size 128"),
+    "flash_attention_backward_dkv": (1, 1024, 32, "bf16, causal, 32/32 heads, head size 128"),
+    "flash_attention_backward_dq": (1, 1024, 32, "bf16, causal, 32/32 heads, head size 128"),
+    "qmm_fp32": (512, 4096, 4096, "fp32 x, 4-bit g64 axis=1"),
+    "flash_attention_fp32": (1, 512, 8, "fp32, causal, 8/8 heads, head size 128"),
 }
 # head size and page geometry of the attention rows and of paths G and H
 HEAD_DIM, PAGE, MAX_PAGES = 128, 16, 64
@@ -174,30 +209,46 @@ def checked(kernel, plain, controls: dict, log: dict):
     return fn
 
 
-def time_ms(fns, iters: int) -> float:
-    """Device time of one call, cycling through ``fns`` (one per input
-    copy): the summed duration of every kernel and copy the calls ran on
-    the card, from torch.profiler's CUDA trace, over ``iters`` calls after a
-    warm-up. Host time between launches is not counted (at decode sizes it
-    exceeds the kernels' own). A trace with fewer device events than calls
-    is measured again, up to three times, then raises."""
+def _device_events(fns, iters: int, only: str) -> list:
+    """torch.profiler's CUDA events (one per kernel or copy name, with its
+    count and summed duration) of ``iters`` calls cycling through ``fns``,
+    those whose name holds ``only``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fns[i % len(fns)]()
+        torch.cuda.synchronize()
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and only in e.key]
+
+
+def time_ms(fns, iters: int, only: str = "") -> float:
+    """Device time of one call, cycling through ``fns`` (one per input
+    copy): the summed duration of every kernel and copy the calls ran on
+    the card (of those whose name holds ``only``, where given), from
+    torch.profiler's CUDA trace, over ``iters`` calls after a warm-up. Host
+    time between launches is not counted (at decode sizes it exceeds the
+    kernels' own). A trace with fewer device events than calls is measured
+    again, up to three times; if each still lost events, every kernel is
+    priced at its mean over the events kept times its launches in a
+    one-call trace, or the function raises where that trace lacks one."""
     for f in fns:
         f()
     torch.cuda.synchronize()
     for _ in range(3):  # the trace now and then loses a run's events: take another
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for i in range(iters):
-                fns[i % len(fns)]()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        events = _device_events(fns, iters, only)
         total_us = sum(e.self_device_time_total for e in events)
         if total_us > 0 and sum(e.count for e in events) >= iters:  # a kernel per call at least
             return total_us / 1e3 / iters
-    raise RuntimeError(f"the profiler recorded {sum(e.count for e in events)} device events "
-                       f"and {total_us} us for {iters} calls")
+    kept = {e.key: e.self_device_time_total / e.count for e in events if e.count}
+    per_call = {e.key: e.count for e in _device_events(fns[:1], 1, only)}
+    if not per_call or not set(per_call) <= set(kept):
+        raise RuntimeError(f"the profiler recorded {sum(e.count for e in events)} device events "
+                           f"and {total_us} us for {iters} calls")
+    log(f"[time] the trace kept {sum(e.count for e in events)} events of {iters} calls three "
+        f"times: mean time per kernel x its {sum(per_call.values())} launches in one call")
+    return sum(kept[k] * n for k, n in per_call.items()) / 1e3
 
 
 def device_share(fn) -> dict:
@@ -236,12 +287,14 @@ def phase_a(name: str, power: str) -> None:
     log(f"[a] torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.time()
     logs = _build.build_all()
-    log(f"[a] built {sorted(logs) or 'nothing (cached)'} in {time.time() - t0:.1f} s")
-    for kname, text in sorted(logs.items()):  # one entry per source
+    log(f"[a] built {sorted(logs) or 'nothing (cached)'} in {time.time() - t0:.1f} s, one nvcc "
+        f"per source in parallel")
+    for kname, (seconds, text) in sorted(logs.items()):  # one entry per source
         regs = re.findall(r"Used (\d+) registers", text)
         spills = re.findall(r"(\d+) bytes spill stores", text)
-        log(f"[a]   {kname}: {len(regs)} instantiations, registers {min(map(int, regs))}-"
-            f"{max(map(int, regs))}, spill stores up to {max(map(int, spills))} bytes")
+        log(f"[a]   {kname}: built in {seconds:.1f} s, {len(regs)} instantiations, registers "
+            f"{min(map(int, regs))}-{max(map(int, regs))}, spill stores up to "
+            f"{max(map(int, spills))} bytes")
         if kname in WGMMA_SOURCES:
             # per kernel instantiation: (template arguments, registers, spill bytes)
             for fn, body in re.findall(r"Compiling entry function '(\w+)'(.*?)(?=Compiling|\Z)",
@@ -565,27 +618,30 @@ def phase_b() -> dict:
     for (m, k, n) in [(512, 4096, 4096), (512, 4096, 11008), (512, 11008, 4096), (4, 4096, 4096)]:
         kqt = _make_kqt(n, k, g, 4, seed=k * 11 + n)
         a, b = _make_lora(k, n, seed=12)
-        # A^T as a serving layer holds it, built once
-        a_t = fm.lora_a_kernel_layout(a, torch.bfloat16, fm.lora_rank_tile(r))
         x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
         # as quant_matmul, plus the rank-r partial's own fp32 sums: 2^-7 of max|y|
-        err = held("quant_matmul_lora", fm.quant_matmul_lora(x, kqt, a, b, a_t),
+        err = held("quant_matmul_lora", fm.quant_matmul_lora(x, kqt, a, b),
                    fm.quant_matmul_lora_plain(x, kqt, a, b), 2.0**-7, f"M={m} K={k} N={n} r={r}")
         wbytes = _weight_bytes(kqt)
         kq, xq = _copies(kqt, x, wbytes)
-        ms = time_ms([lambda p=p, q=q: fm.quant_matmul_lora(q, p, a, b, a_t)
-                      for p, q in zip(kq, xq)], iters)
+        # as the serving layers call it: A^T built from a at each call
+        calls = [lambda p=p, q=q: fm.quant_matmul_lora(q, p, a, b) for p, q in zip(kq, xq)]
+        ms = time_ms(calls, iters)
         plain = time_ms([lambda: fm.quant_matmul_lora_plain(x, kqt, a, b)], max(3, iters // 10))
         w_bf16, a_bf16 = fm.dequant_plain(kqt, torch.bfloat16), a.to(torch.bfloat16)
         lib = time_ms([lambda: torch.matmul(x, w_bf16.t()).float()
                        + torch.matmul(torch.matmul(x, a_bf16).float(), b)], iters)
-        del w_bf16, kq, xq
+        del w_bf16
         b_ms, by = bound_ms(wbytes + 2 * m * k + 2 * m * n + 4 * r * (k + n),
                             2.0 * m * n * k + 2.0 * m * k * r, "bf16", fp32_ops=2.0 * m * r * n)
         record("quant_matmul_lora", dict(
             kernel="quant_matmul_lora", m=m, k=k, n=n, max_abs_err=err, ms=ms, plain_ms=plain,
             bound_ms=b_ms, bound_by=by, library_ms=lib,
             note="r=8", library="three torch.matmul calls and their sum"))
+        alone = time_ms(calls, iters, only="qmm_")
+        log(f"[b] quant_matmul_lora M={m} K={k} N={n}: {ms:.4f} ms with A^T built per call, "
+            f"{alone:.4f} ms of it in the qmm_ kernels")
+        del kq, xq
 
     # -- w4a8_lora_matmul at the decode shapes of path E ----------------------
     for (m, k, n) in [(4, 4096, 4096), (4, 4096, 11008), (4, 11008, 4096), (1, 4096, 4096)]:
@@ -664,8 +720,333 @@ def phase_b() -> dict:
                            note="2-bit g16 axis=0, bf16 meta"))
     torch.cuda.empty_cache()
     phase_b_attention(record, held, iters)
+    phase_b_bf16_meta(record, held, iters)
+    phase_b_fp32(record, held, iters)
+    phase_b_backward(record, held, iters)
     log(f"[b] card right after the timings: {card_state()}")
     return rows
+
+
+def _make_kqt_bf16(n: int, k: int, g: int, nbits: int, seed: int):
+    from hqq_tpu_torch.core.quantize import quantize
+    from hqq_tpu_torch.ops.fused_matmul import to_kernel_layout
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn((n, k), generator=gen, device="cuda") / k**0.5
+    return to_kernel_layout(quantize(w, nbits=nbits, group_size=g, axis=1,
+                                     round_zero=(nbits == 4)), torch.bfloat16)
+
+
+def _meta_controls(kqt):
+    """Two wrong readings of a bf16-meta axis=1 layout, as fp32-meta layouts
+    for the plain versions: each group with its neighbour's scale, and zs
+    read without the 8 * scale that the 4-bit container's stored zs lacks."""
+    import dataclasses
+
+    groups = kqt.k // kqt.group_size
+    scale = kqt.scale[:, :groups].float().contiguous()
+    zs = kqt.zs[:, :groups].float().contiguous()
+    return {"neighbour's scale": dataclasses.replace(kqt, scale=scale.roll(1, dims=1),
+                                                     zs=zs + 8 * scale),
+            "zs offset dropped": dataclasses.replace(kqt, scale=scale, zs=zs)}
+
+
+def phase_b_bf16_meta(record, held, iters: int) -> None:
+    """Fault 1: the axis=1 kernels on a layout with bf16 scale and zs (the
+    meta hqq_tpu serves), against their plain versions at the bars of the
+    fp32-meta rows; each control must miss the bar."""
+    from hqq_tpu_torch.ops import fused_matmul as fm
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    note = "4-bit g64 axis=1, bf16 meta"
+    r = LORA_RANK
+    for kernel, (m, k, n) in [("quant_matmul", (512, 4096, 4096)),
+                              ("quant_matmul_lora", (512, 4096, 4096)),
+                              ("w4a8_matmul", (4, 4096, 11008)),
+                              ("w4a8_lora_matmul", (4, 4096, 11008)),
+                              ("dequant", (None, 11008, 4096))]:
+        kqt = _make_kqt_bf16(n, k, 64, 4, seed=k + n + len(kernel))
+        a, b = _make_lora(k, n, seed=13)
+        mm = m or 1  # dequant takes no activations
+        x = torch.randn((mm, k), generator=gen, device="cuda").to(torch.bfloat16)
+        x8, sx = fm.quantize_activations_int8(x)
+        xa = x.float() @ a
+        wbytes = _weight_bytes(kqt)
+        calls = {  # kernel(kqt), plain(kqt), bar, bytes, ops, library
+            "quant_matmul": (lambda q: fm.quant_matmul(x, q), lambda q: fm.quant_matmul_plain(x, q),
+                             2.0**-7, wbytes + 4 * mm * k, 2.0 * mm * n * k),
+            "quant_matmul_lora": (lambda q: fm.quant_matmul_lora(x, q, a, b),
+                                  lambda q: fm.quant_matmul_lora_plain(x, q, a, b), 2.0**-7,
+                                  wbytes + 4 * mm * k + 4 * r * (k + n), 2.0 * mm * n * k),
+            "w4a8_matmul": (lambda q: fm.w4a8_matmul(x8, sx, q, torch.float32),
+                            lambda q: fm.w4a8_matmul_plain(x8, sx, q, torch.float32), 1e-5,
+                            wbytes + mm * k + 4 * mm * n, 2.0 * mm * n * k),
+            "w4a8_lora_matmul": (lambda q: fm.w4a8_lora_matmul(x8, sx, q, xa, b, torch.float32),
+                                 lambda q: fm.w4a8_lora_matmul_plain(x8, sx, q, xa, b,
+                                                                     torch.float32),
+                                 1e-5, wbytes + mm * k + 4 * mm * n + 4 * r * (mm + n),
+                                 2.0 * mm * n * k),
+            "dequant": (lambda q: fm.dequant(q, torch.bfloat16),
+                        lambda q: fm.dequant_plain(q, torch.bfloat16), 0.0, wbytes + 2 * n * k,
+                        2.0 * n * k),
+        }
+        run, plain, tol, nbytes, ops = calls[kernel]
+        err = held(kernel, run(kqt), plain(kqt), tol, f"{note} M={m} K={k} N={n}")
+        misses = {c: rel(plain(bad), plain(kqt)) for c, bad in _meta_controls(kqt).items()}
+        log(f"[b] {kernel} {note}: controls {misses} (must exceed {tol})")
+        if not all(v > tol for v in misses.values()):
+            raise AssertionError(f"[b] {kernel}: the bar does not catch a wrong bf16 meta")
+        kq, _ = _copies(kqt, None, wbytes)
+        ms = time_ms([lambda q=q: run(q) for q in kq], iters)
+        plain_ms = time_ms([lambda: plain(kqt)], max(3, iters // 10))
+        lib = None
+        if m is not None:
+            w_bf16 = fm.dequant_plain(kqt, torch.bfloat16)
+            lib = time_ms([lambda: torch.matmul(x, w_bf16.t())], iters)
+            del w_bf16
+        del kq
+        kind = "int8" if kernel.startswith("w4a8") else "bf16"
+        b_ms, by = bound_ms(nbytes, ops, "fp32" if kernel == "dequant" else kind)
+        record(kernel, dict(kernel=kernel, m=m, k=k, n=n, max_abs_err=err, ms=ms,
+                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=lib,
+                            note=note))
+        torch.cuda.empty_cache()
+
+
+# fp32 routes against their fp32 plain versions: the same fp32 products
+# summed in another order (matmuls: the w4a8 bar in fp32), and exp2 against
+# exp with sums in another order (attention); a bf16 rounding of the inputs
+# is 2^-9 of them and must miss both
+TOL_QMM_FP32, TOL_FLASH_FP32 = 1e-5, 1e-4
+
+
+def phase_b_fp32(record, held, iters: int) -> None:
+    """Fault 2: fp32 activations through the fp32 routes (qmm_fp32 for the
+    three matmuls, flash_attention_fp32), against their plain versions; the
+    control runs the bf16 kernel on the inputs rounded to bf16."""
+    import torch.nn.functional as F
+
+    from hqq_tpu_torch.ops import attention as at
+    from hqq_tpu_torch.ops import fused_matmul as fm
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for mode, (m, k, n) in [("axis=1", (512, 4096, 4096)), ("axis=0", (512, 4096, 11008)),
+                            ("lora", (512, 4096, 4096))]:
+        if mode == "axis=0":
+            kqt = _make_kqt0(n, k, 16, 2, torch.bfloat16, seed=21)
+            note = "fp32 x, 2-bit g16 axis=0, bf16 meta"
+            run, plain = fm.quant_matmul_ax0, fm.quant_matmul_ax0_plain
+        else:
+            kqt = _make_kqt(n, k, 64, 4, seed=22)
+            note = "fp32 x, 4-bit g64 axis=1" + (", r=8" if mode == "lora" else "")
+            a, b = _make_lora(k, n, seed=23)
+            if mode == "lora":
+                def run(x, q):
+                    return fm.quant_matmul_lora(x, q, a, b)
+
+                def plain(x, q):
+                    return fm.quant_matmul_lora_plain(x, q, a, b)
+            else:
+                run, plain = fm.quant_matmul, fm.quant_matmul_plain
+        x = torch.randn((m, k), generator=gen, device="cuda")
+        launches = fm.qmm_fp32.launches
+        y = run(x, kqt)
+        if fm.qmm_fp32.launches != launches + 1 or y.dtype != torch.float32:
+            raise AssertionError(f"[b] fp32 x did not take the fp32 route ({mode})")
+        ref = plain(x, kqt)
+        err = held("qmm_fp32", y, ref, TOL_QMM_FP32, f"{note} M={m} K={k} N={n}")
+        cast = rel(run(x.to(torch.bfloat16), kqt), ref)
+        log(f"[b] qmm_fp32 {note}: control, x rounded to bf16 through the bf16 kernel, "
+            f"{cast:.3e} (must exceed {TOL_QMM_FP32})")
+        if not cast > TOL_QMM_FP32:
+            raise AssertionError("[b] the fp32 bar does not catch a bf16 cast")
+        wbytes = _weight_bytes(kqt)
+        kq, xq = _copies(kqt, x, wbytes)
+        ms = time_ms([lambda q=q, xx=xx: run(xx, q) for q, xx in zip(kq, xq)], max(10, iters // 5))
+        plain_ms = time_ms([lambda: plain(x, kqt)], max(3, iters // 10))
+        w32 = fm.dequant_plain(kqt, torch.float32)
+        lib = time_ms([lambda: torch.matmul(x, w32.t())], iters)
+        del w32, kq, xq
+        b_ms, by = bound_ms(wbytes + 4 * m * k + 4 * m * n, 0.0, "fp32",
+                            fp32_ops=2.0 * m * n * k)
+        record("qmm_fp32", dict(kernel="qmm_fp32", m=m, k=k, n=n, max_abs_err=err, ms=ms,
+                                plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=lib,
+                                note=note, library="torch.matmul in fp32 on the dequantized "
+                                                   "fp32 weight"))
+        torch.cuda.empty_cache()
+
+    for b, nh, n_kv, t in [(1, 8, 8, 512), (1, 32, 32, 1024)]:
+        gq = torch.Generator(device="cuda").manual_seed(t)
+        q = torch.randn((b, nh, t, HEAD_DIM), generator=gq, device="cuda")
+        k = torch.randn((b, n_kv, t, HEAD_DIM), generator=gq, device="cuda")
+        v = torch.randn((b, n_kv, t, HEAD_DIM), generator=gq, device="cuda")
+        launches = at.flash_attention_fp32.launches
+        y = at.flash_attention(q, k, v, True)
+        if at.flash_attention_fp32.launches != launches + 1:
+            raise AssertionError("[b] fp32 attention did not take the fp32 route")
+        ref = at.flash_attention_plain(q, k, v, True)
+        what = f"fp32, causal, {nh}/{n_kv} heads, T={t}"
+        err = held("flash_attention_fp32", y, ref, TOL_FLASH_FP32, what)
+        cast = rel(at.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), True), ref)
+        log(f"[b] flash_attention_fp32 {what}: control, bf16 inputs through the bf16 kernel, "
+            f"{cast:.3e} (must exceed {TOL_FLASH_FP32})")
+        if not cast > TOL_FLASH_FP32:
+            raise AssertionError("[b] the fp32 attention bar does not catch a bf16 cast")
+        ms = time_ms([lambda: at.flash_attention(q, k, v, True)], max(10, iters // 5))
+        plain_ms = time_ms([lambda: at.flash_attention_plain(q, k, v, True)], max(3, iters // 10))
+        lib = time_ms([lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)],
+                      max(10, iters // 5))
+        each = 4 * b * t * HEAD_DIM * (2 * nh + 2 * n_kv)
+        b_ms, by = bound_ms(each, 0.0, "fp32", fp32_ops=2.0 * b * nh * t * t * HEAD_DIM)
+        record("flash_attention_fp32", dict(
+            kernel="flash_attention_fp32", m=b, k=t, n=nh, max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=lib,
+            note=f"fp32, causal, {nh}/{n_kv} heads, head size {HEAD_DIM}",
+            library="scaled_dot_product_attention(is_causal=True) in fp32"))
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
+def _bwd_shifted(q, k, v, o, lse, do, causal=True, sm_scale=None):
+    """Control of the backward checks: the plain backward with the causal
+    mask shifted by one, so that every query also sees the key after it."""
+    hd = q.shape[3]
+    scale = hd**-0.5 if sm_scale is None else sm_scale
+    rep = q.shape[1] // k.shape[1]
+    qf, kf, vf, of, dof = (x.float() for x in (q, k, v, o, do))
+    if rep > 1:
+        kf, vf = kf.repeat_interleave(rep, dim=1), vf.repeat_interleave(rep, dim=1)
+    t = q.shape[2]
+    p = torch.exp(torch.einsum("bhtd,bhsd->bhts", qf, kf) * scale - lse[..., None])
+    p = p * torch.ones((t, t), dtype=torch.bool, device=q.device).tril(diagonal=1)
+    ds = p * (torch.einsum("bhtd,bhsd->bhts", dof, vf) - (dof * of).sum(-1, keepdim=True))
+    dq = torch.einsum("bhts,bhsd->bhtd", ds, kf) * scale
+    dk = torch.einsum("bhts,bhtd->bhsd", ds, qf) * scale
+    dv = torch.einsum("bhts,bhtd->bhsd", p, dof)
+    if rep > 1:
+        b, _, _, _ = dk.shape
+        dk = dk.reshape(b, k.shape[1], rep, t, hd).sum(2)
+        dv = dv.reshape(b, k.shape[1], rep, t, hd).sum(2)
+    return dq, dk, dv
+
+
+def _no_d(q, k, v, o, lse, do, causal=True, sm_scale=None):
+    """Control: the plain backward with the D = rowsum(dO * O) term dropped."""
+    from hqq_tpu_torch.ops import attention as at
+
+    return at.flash_attention_backward_plain(q, k, v, torch.zeros_like(o), lse, do, causal,
+                                             sm_scale)
+
+
+# the backward kernels against their plain twin from the same saved
+# statistics: every product and sum in fp32 on both sides, then one rounding
+# of each output; outputs rounded to different sides lie one step apart: two
+# steps of max|grad| in bf16 (fp32: the attention fp32 bar). Against autograd
+# of the plain forward in fp32 on the same values, the kernels' inputs also
+# carry the forward's roundings (its probabilities and its output, from which
+# D comes): four steps in bf16.
+TOL_BWD = {torch.bfloat16: 2.0**-7, torch.float32: TOL_FLASH_FP32}
+TOL_BWD_AUTOGRAD = {torch.bfloat16: 2.0**-5, torch.float32: TOL_FLASH_FP32}
+
+
+def _sdpa_backward(q, k, v, do):
+    """scaled_dot_product_attention's backward alone, causal, GQA by its own
+    option: the forward is taken once, the timed call is autograd.grad."""
+    import torch.nn.functional as F
+
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                         enable_gqa=q.shape[1] != k.shape[1])
+    return lambda: torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
+
+
+def phase_b_backward(record, held, iters: int) -> None:
+    """Rows 11-12, the dK/dV and dQ kernels, at the training path's shape
+    and around it: against the plain backward from the same saved
+    statistics, and against autograd of the plain forward in fp32; the
+    controls (D dropped, the mask shifted by one) must miss the bar; three
+    runs bit-equal. Then the log-sum-exp option of the forward, timed
+    against the forward without it (it must cost path H nothing)."""
+    from hqq_tpu_torch.ops import attention as at
+
+    cases = [(1, 32, 32, 1024, 128, torch.bfloat16), (1, 32, 8, 1023, 128, torch.bfloat16),
+             (2, 8, 8, 300, 64, torch.bfloat16), (1, 8, 8, 512, 256, torch.bfloat16),
+             (1, 8, 8, 512, 128, torch.float32)]
+    for b, nh, n_kv, t, hd, dtype in cases:
+        gq = torch.Generator(device="cuda").manual_seed(t + hd)
+        q = torch.randn((b, nh, t, hd), generator=gq, device="cuda").to(dtype)
+        k = torch.randn((b, n_kv, t, hd), generator=gq, device="cuda").to(dtype)
+        v = torch.randn((b, n_kv, t, hd), generator=gq, device="cuda").to(dtype)
+        do = torch.randn((b, nh, t, hd), generator=gq, device="cuda").to(dtype)
+        out, lse = at._flash_forward(q, k, v, True, None, with_lse=True)
+        got = at.flash_attention_backward(q, k, v, out, lse, do, True)
+        ref = at.flash_attention_backward_plain(q, k, v, out, lse, do, True)
+        name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        what = f"{name}, causal, B={b} heads {nh}/{n_kv} T={t} hd={hd}"
+        errs = [held("flash backward " + g, x, r, TOL_BWD[dtype], what)
+                for g, x, r in zip(("dq", "dk", "dv"), got, ref)]
+        q32, k32, v32 = (x.detach().float().requires_grad_() for x in (q, k, v))
+        auto = torch.autograd.grad(at.flash_attention_plain(q32, k32, v32, True),
+                                   (q32, k32, v32), do.float())
+        auto_err = max(rel(x, r) for x, r in zip(got, auto))
+        controls = {c: max(rel(x, r) for x, r in zip(fn(q, k, v, out, lse, do), ref))
+                    for c, fn in (("D dropped", _no_d), ("mask shifted by one", _bwd_shifted))}
+        again = [at.flash_attention_backward(q, k, v, out, lse, do, True) for _ in range(2)]
+        equal = all(torch.equal(x, y) for run in again for x, y in zip(run, got))
+        log(f"[b] flash backward {what}: dq/dk/dv rel err vs plain "
+            f"{[f'{e / r.float().abs().max().item():.3e}' for e, r in zip(errs, ref)]} "
+            f"(tol {TOL_BWD[dtype]:.3e}); vs autograd of the plain forward in fp32 "
+            f"{auto_err:.3e} (tol {TOL_BWD_AUTOGRAD[dtype]:.3e}); controls {controls} (must "
+            f"exceed {TOL_BWD[dtype]:.3e}); three runs bit-equal: {equal}")
+        if not auto_err <= TOL_BWD_AUTOGRAD[dtype]:
+            raise AssertionError(f"[b] flash backward {what} disagrees with autograd")
+        if not all(c > TOL_BWD[dtype] for c in controls.values()):
+            raise AssertionError(f"[b] the backward bar does not catch a control ({what})")
+        if not equal:
+            raise AssertionError(f"[b] flash backward {what}: repeated runs differ")
+        del auto, q32, k32, v32, again
+
+        # each kernel alone, from the operands its wrapper prepares
+        ops = at._backward_operands(q, k, v, out, lse, do, None)
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        n = max(3, iters // 20)
+        dkv_ms = time_ms([lambda: at._backward_launch(
+            ops, True, None, dk, dv, "flash_attention_backward_dkv")], n)
+        dq_ms = time_ms([lambda: at._backward_launch(
+            ops, True, dq, None, None, "flash_attention_backward_dq")], n)
+        plain_ms = time_ms([lambda: at.flash_attention_backward_plain(q, k, v, out, lse, do)],
+                           max(2, iters // 50))
+        sdpa = _sdpa_backward(q, k, v, do)
+        lib = time_ms([sdpa], max(3, iters // 10))
+        esize = q.element_size()
+        qo = b * nh * t * hd * esize
+        kv = b * n_kv * t * hd * esize
+        stats = 2 * b * nh * t * 4
+        kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+        unit = b * nh * t * t * hd  # one causal product: 2 * T * T * hd / 2 per head
+        for kname, ms, products, nbytes, e in (
+                ("flash_attention_backward_dkv", dkv_ms, 4, 2 * qo + 4 * kv + stats,
+                 max(errs[1:])),
+                ("flash_attention_backward_dq", dq_ms, 3, 3 * qo + 2 * kv + stats, errs[0])):
+            b_ms, by = (bound_ms(nbytes, products * unit, "bf16") if kind == "bf16"
+                        else bound_ms(nbytes, 0.0, "fp32", fp32_ops=products * unit))
+            record(kname, dict(
+                kernel=kname, m=b, k=t, n=nh, max_abs_err=e, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=by, library_ms=lib,
+                note=f"{name}, causal, {nh}/{n_kv} heads, head size {hd}",
+                library="the whole backward of scaled_dot_product_attention(is_causal=True), "
+                        "dQ, dK and dV (autograd.grad alone)",
+                plain="the whole plain backward"))
+        del ops, dq, dk, dv, sdpa, got, ref
+        torch.cuda.empty_cache()
+
+    # the log-sum-exp option of the forward kernel at path H's shape
+    qkv = _flash_inputs(1, 32, 32, 1023, 4, seed=5)
+    lse_off = time_ms([lambda a=a: at.flash_attention(*a, True) for a in qkv], iters)
+    lse_on = time_ms([lambda a=a: at._flash_forward(*a, True, None, with_lse=True)
+                      for a in qkv], iters)
+    log(f"[b] flash_attention (1, 32/32, 1023, 128) bf16: {lse_off:.4f} ms without the "
+        f"log-sum-exp, {lse_on:.4f} ms writing it (the training forward)")
 
 
 PROMPTS_SHAPE, NEW_TOKENS = (4, 100), 32
@@ -1024,7 +1405,7 @@ def phase_e(dev_tag: str) -> dict:
         after_quantize=lambda model: add_adapters(model.params, 4))
 
     # the control: the same call with B = 0, the adapter left out
-    def lora_no_b(x2, kqt, a, b, a_t=None):
+    def lora_no_b(x2, kqt, a, b):
         return fm.quant_matmul_lora_plain(x2, kqt, a, torch.zeros_like(b))
 
     def a8_lora_no_b(x8, sx, kqt, xa, b, out_dtype):
@@ -1641,6 +2022,247 @@ def phase_h_two_layer() -> None:
     torch.cuda.empty_cache()
 
 
+# path I: HQQ+ LoRA training, hqq_tpu's recipe at Llama-2-7B width and depth
+I_TOKENS, I_STEPS, I_RANK, I_ALPHA, I_LR = 1025, 4, 8, 8, 1e-3
+
+
+def _train_counts(window: dict, counts: dict) -> None:
+    for name, n in counts.items():
+        window[name] = window.get(name, 0) + n
+
+
+def phase_i(dev_tag: str) -> dict:
+    """Path I: quantize_model (4-bit g64 axis=1, bf16 compute, the canonical
+    QuantLinear on the "xla" path), PeftUtils.add_lora (r = 8, alpha 8,
+    fp32 A/B) on the 224 linears, TrainableParams, make_lora_train_step with
+    AdamW(lr=1e-3, weight_decay=0) for 4 steps on one batch of 1 x 1025 ids
+    (T = 1024 after the shift), then PeftUtils.merge_lora. Every step's
+    launch counts from 0: 32 each of the flash forward and the two backward
+    kernels. Returns the launches of the 4 steps."""
+    from hqq_tpu_torch import BaseQuantizeConfig, ops
+    from hqq_tpu_torch.core.peft import LoRALinear, PeftUtils, TrainableParams, lora_config
+    from hqq_tpu_torch.models.base import quantize_model
+    from hqq_tpu_torch.models.llama import LlamaConfig, forward, init_params
+    from hqq_tpu_torch.nn.linear import QuantLinear
+    from hqq_tpu_torch.utils.training import make_lora_train_step
+
+    cfg = LlamaConfig.llama2_7b()
+    layers = cfg.num_hidden_layers
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), torch.bfloat16, "cuda")
+    t0 = time.time()
+    quantize_model(params, BaseQuantizeConfig(nbits=4, group_size=64))
+    torch.cuda.synchronize()
+    quant_s = time.time() - t0
+    PeftUtils.add_lora(params, lora_config(r=I_RANK, lora_alpha=I_ALPHA),
+                       generator=torch.Generator(device="cuda").manual_seed(1))
+    trainable = TrainableParams(params)
+    n_train = sum(v.numel() for v in trainable.values())
+    optimizer = torch.optim.AdamW(trainable.values(), lr=I_LR, weight_decay=0.0)
+    step = make_lora_train_step(cfg, trainable, optimizer)
+    batch = torch.randint(0, cfg.vocab_size, (1, I_TOKENS), device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(2))
+    gc.collect()
+    log(f"[i] {layers} layers quantized in {quant_s:.1f} s; {len(trainable.paths)} trainable "
+        f"leaves, {n_train} values; {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    torch.cuda.reset_peak_memory_stats()
+    window, losses, step_s = {}, [], []
+    for i in range(I_STEPS):
+        # the main path's window: every count from 0, read right after
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loss = step(params, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.time() - t0)
+        counts = launch_counts()
+        _train_counts(window, counts)
+        losses.append(loss.item())
+        per = {k: counts[k] for k in ("flash_attention", "flash_attention_backward_dkv",
+                                      "flash_attention_backward_dq")}
+        log(f"[i] step {i + 1}: loss {losses[-1]:.5f}, {step_s[-1] * 1e3:.1f} ms, launches {per}")
+        if any(v != layers for v in per.values()):
+            raise AssertionError(f"[i] step {i + 1}: launches {per}, expected {layers} each")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(map(lambda x: x == x and abs(x) < 1e4, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[i] losses {losses}: not finite, or not lower after step "
+                             f"{I_STEPS} than at step 1")
+    ms = sorted(s * 1e3 for s in step_s[1:])[len(step_s[1:]) // 2]
+    busy = device_share(lambda: step(params, batch))  # a fifth step, under the profiler
+    log(f"[i] {dev_tag}: Llama-2-7B 4-bit g64 + LoRA r={I_RANK} on {len(trainable.paths) // 2} "
+        f"linears, T = {I_TOKENS - 1}: step {ms:.1f} ms (median of steps 2-{I_STEPS}), "
+        f"{(I_TOKENS - 1) / ms * 1e3:.1f} tokens/s; losses {losses}; peak memory {peak:.2f} "
+        f"GiB; a fifth step under the profiler: device busy {busy['busy_share']:.3f} of "
+        f"{busy['wall_ms']:.1f} ms wall; device ms by kernel: {busy['top']}")
+    log(f"[i] card right after it: {card_state()}")
+    del optimizer, step
+    for v in trainable.values():
+        v.grad = None
+    t0 = time.time()
+    PeftUtils.merge_lora(params)
+    torch.cuda.synchronize()
+    merged = [x for layer in params["layers"] for sub in layer.values() if isinstance(sub, dict)
+              for x in sub.values()]
+    if not all(isinstance(x, QuantLinear) for x in merged) or \
+            any(isinstance(x, LoRALinear) for x in merged):
+        raise AssertionError("[i] merge_lora left a layer unmerged")
+    with torch.no_grad():
+        logits, _ = forward(params, cfg, batch[:, :64])
+    if not torch.isfinite(logits).all():
+        raise AssertionError("[i] non-finite logits after merge_lora")
+    log(f"[i] merge_lora of {len(merged)} linears: {time.time() - t0:.1f} s; the merged model's "
+        f"logits are finite")
+    del params, trainable, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return window
+
+
+# LoRA gradients through the kernels against the same model with the plain
+# attention backward: bf16, the backward's outputs rounded once on both
+# sides, so some of their bf16 roundings flip and two layers carry them (the
+# bar of phase d's pallas-vs-xla check); fp32, sums in another order
+TOL_I_GRADS = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def _i_two_layer(dtype, seed: int, quant_config=None, lora_tags=None):
+    """A 2-layer model at 7B width, quantized with compute in ``dtype``,
+    LoRA r = 8 on the linears of ``lora_tags`` (all but lm_head when None),
+    B filled from a seed (a zero B leaves dA = 0)."""
+    import dataclasses
+
+    from hqq_tpu_torch import BaseQuantizeConfig
+    from hqq_tpu_torch.core.peft import PeftUtils, lora_config
+    from hqq_tpu_torch.models.base import quantize_model
+    from hqq_tpu_torch.models.llama import LlamaConfig, init_params
+
+    cfg = dataclasses.replace(LlamaConfig.llama2_7b(), num_hidden_layers=2)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), dtype, "cuda")
+    quantize_model(params, quant_config or BaseQuantizeConfig(nbits=4, group_size=64),
+                   compute_dtype=dtype)
+    lcfg = lora_config(r=I_RANK, lora_alpha=I_ALPHA)
+    PeftUtils.add_lora(params, lcfg if lora_tags is None else {t: lcfg for t in lora_tags},
+                       generator=torch.Generator(device="cuda").manual_seed(seed + 1))
+    _fill_lora_b(params, seed + 2)
+    return cfg, params
+
+
+def phase_i_two_layer() -> dict:
+    """On 2-layer models at 7B width: (1) the LoRA gradients of one training
+    step through the kernels against the plain attention backward, in bf16
+    and in fp32 (the fp32 forward and backward kernels), with a control that
+    must miss the bar (D dropped); (2) fp32 HQQ+ serving, "pallas":
+    attention 4-bit g64 axis=1 with adapters, MLP 2-bit g16 axis=0, a
+    cache-free forward at T = 512 through qmm_fp32 and flash_attention_fp32,
+    logits against the same served layers through the plain versions, and a
+    control that rounds the matmuls' activations to bf16. Returns the
+    launches of the fp32 runs."""
+    from unittest import mock
+
+    from hqq_tpu_torch import BaseQuantizeConfig, ops
+    from hqq_tpu_torch.core.peft import TrainableParams
+    from hqq_tpu_torch.models.llama import forward
+    from hqq_tpu_torch.ops import attention as at
+    from hqq_tpu_torch.ops import fused_matmul as fm
+    from hqq_tpu_torch.utils.patching import prepare_for_inference
+    from hqq_tpu_torch.utils.training import causal_lm_loss
+
+    window = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        cfg, params = _i_two_layer(dtype, seed=40)
+        trainable = TrainableParams(params)
+        vals = trainable.values()
+        batch = torch.randint(0, cfg.vocab_size, (1, I_TOKENS), device="cuda",
+                              generator=torch.Generator(device="cuda").manual_seed(43))
+
+        def grads(backward=None):
+            for v in vals:
+                v.grad = None
+            with mock.patch.object(at, "flash_attention_backward",
+                                   backward or at.flash_attention_backward):
+                causal_lm_loss(params, cfg, batch).backward()
+            return [v.grad.clone() for v in vals]
+
+        ops.reset_launch_counts()
+        kernel = grads()
+        counts = launch_counts()
+        fwd = "flash_attention" if dtype == torch.bfloat16 else "flash_attention_fp32"
+        per = {k: counts[k] for k in (fwd, "flash_attention_backward_dkv",
+                                      "flash_attention_backward_dq")}
+        if any(v != 2 for v in per.values()):
+            raise AssertionError(f"[i] 2-layer step: launches {per}, expected 2 each")
+        if dtype == torch.float32:
+            _train_counts(window, counts)
+
+        def plain_backward(q, k, v, o, lse, do, causal=True, sm_scale=None):
+            return at.flash_attention_backward_plain(q, k, v, o, lse, do, causal, sm_scale)
+
+        plain = grads(plain_backward)
+        control = grads(_no_d)
+
+        def worst(gs):
+            return max(rel(g, r) for g, r in zip(gs, plain))
+
+        tol = TOL_I_GRADS[dtype]
+        name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        log(f"[i] 2-layer 7B-width, {name} compute, T = {I_TOKENS - 1}: {len(vals)} LoRA "
+            f"gradients through the kernels vs the plain attention backward: rel err up to "
+            f"{worst(kernel):.3e} (tol {tol}); control, D dropped, {worst(control):.3e} (must "
+            f"exceed it); launches {per}")
+        if not all(torch.isfinite(g).all() for g in kernel) or not worst(kernel) <= tol:
+            raise AssertionError(f"[i] {name} LoRA gradients disagree with the plain backward")
+        if not worst(control) > tol:
+            raise AssertionError(f"[i] the {name} gradient bar does not catch D dropped")
+        del params, trainable, vals, kernel, plain, control
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    attn = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj", "self_attn.o_proj")
+    mlp = ("mlp.gate_proj", "mlp.up_proj", "mlp.down_proj")
+    qc = {**{t: BaseQuantizeConfig(nbits=4, group_size=64) for t in attn},
+          **{t: BaseQuantizeConfig(nbits=2, group_size=16, axis=0) for t in mlp}}
+    cfg, params = _i_two_layer(torch.float32, seed=50, quant_config=qc, lora_tags=attn)
+    toks = torch.randint(0, cfg.vocab_size, (1, 512), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(53))
+    with torch.no_grad():
+        served = prepare_for_inference(containers(params), "pallas")
+        ops.reset_launch_counts()
+        got, _ = forward(served, cfg, toks)
+        counts = launch_counts()
+        _train_counts(window, counts)
+
+        def plain_route(x2, kqt, a=None, b=None, dtype=torch.float32):
+            x2 = x2.to(dtype)
+            if isinstance(kqt, fm.KernelQTensor0):
+                return fm.quant_matmul_ax0_plain(x2, kqt).float()
+            if a is None:
+                return fm.quant_matmul_plain(x2, kqt).float()
+            return fm.quant_matmul_lora_plain(x2, kqt, a, b).float()
+
+        with mock.patch.object(fm, "qmm_fp32", plain_route), \
+                mock.patch.object(at, "flash_attention", at.flash_attention_plain):
+            ref, _ = forward(served, cfg, toks)
+        with mock.patch.object(fm, "qmm_fp32",
+                               lambda *a: plain_route(*a, dtype=torch.bfloat16)):
+            control, _ = forward(served, cfg, toks)
+    per = {k: counts[k] for k in ("qmm_fp32", "flash_attention_fp32")}
+    r, c = rel(got, ref), rel(control, ref)
+    log(f"[i] 2-layer 7B-width fp32 HQQ+ serving (pallas; attention 4-bit g64 + LoRA r=8, MLP "
+        f"2-bit g16 axis=0, bf16 meta), T = 512: logits vs the same layers through the plain "
+        f"versions: rel err {r:.3e} (tol "
+        f"{TOL_FLASH_FP32}); control, activations rounded to bf16 in the matmuls, {c:.3e} (must "
+        f"exceed it); launches {per}")
+    if per != {"qmm_fp32": 14, "flash_attention_fp32": 2}:
+        raise AssertionError(f"[i] fp32 serving launches {per}, expected 14 and 2")
+    if not torch.isfinite(got).all() or not r <= TOL_FLASH_FP32:
+        raise AssertionError("[i] fp32 serving disagrees with the plain path")
+    if not c > TOL_FLASH_FP32:
+        raise AssertionError("[i] the fp32 serving bar does not catch a bf16 cast")
+    del params, served
+    gc.collect()
+    torch.cuda.empty_cache()
+    return window
+
+
 # --time quant_matmul_ax0|dequant_ax0 M K N [CONFIG]: NBITS-G-META, META fp32 or bf16
 AX0_TIME_DEFAULT = "2-16-bf16"
 
@@ -1676,6 +2298,24 @@ def time_one(kernel: str, m: int, k: int, n: int, extra: "str | None" = None) ->
         ms = [time_ms([lambda a=a: at.flash_attention(*a, True) for a in qkv], 100)
               for _ in range(3)]
         return dict(kernel=kernel, batch=m, t=k, heads=n, kv_heads=n_kv, ms=ms)
+    if kernel in ("flash_attention_backward_dkv", "flash_attention_backward_dq",
+                  "flash_attention_fp32"):  # batch, T, query heads, kv heads
+        from hqq_tpu_torch.ops import attention as at
+
+        n_kv = r or n
+        dtype = torch.float32 if kernel.endswith("fp32") else torch.bfloat16
+        q, kk, v = (x.to(dtype) for x in _flash_inputs(m, n, n_kv, k, 1, seed=1)[0])
+        if kernel == "flash_attention_fp32":
+            call = lambda: at.flash_attention(q, kk, v, True)  # noqa: E731
+        else:
+            do = torch.randn_like(q)
+            out, lse = at._flash_forward(q, kk, v, True, None, with_lse=True)
+            ops_ = at._backward_operands(q, kk, v, out, lse, do, None)
+            grads = (torch.empty_like(q), torch.empty_like(kk), torch.empty_like(v))
+            outs = (None, *grads[1:]) if kernel.endswith("dkv") else (grads[0], None, None)
+            call = lambda: at._backward_launch(ops_, True, *outs, kernel)  # noqa: E731
+        ms = [time_ms([call], 20) for _ in range(3)]
+        return dict(kernel=kernel, batch=m, t=k, heads=n, kv_heads=n_kv, ms=ms)
     r = r or LORA_RANK
 
     x = torch.randn((m, k), device="cuda", generator=torch.Generator(device="cuda").manual_seed(1))
@@ -1687,7 +2327,6 @@ def time_one(kernel: str, m: int, k: int, n: int, extra: "str | None" = None) ->
     else:
         kqt = _make_kqt(n, k, 64, 4, seed=1)
     a, b = _make_lora(k, n, seed=2, r=r)
-    a_t = fm.lora_a_kernel_layout(a, torch.bfloat16, fm.lora_rank_tile(r))
     if kernel.startswith("w4a8"):
         xa = x.float() @ a
         x, sx = fm.quantize_activations_int8(x)
@@ -1695,7 +2334,7 @@ def time_one(kernel: str, m: int, k: int, n: int, extra: "str | None" = None) ->
         "quant_matmul": lambda q, p: fm.quant_matmul(q, p),
         "quant_matmul_ax0": lambda q, p: fm.quant_matmul_ax0(q, p),
         "dequant_ax0": lambda q, p: fm.dequant(p, torch.bfloat16),  # W [N, K]; M unused
-        "quant_matmul_lora": lambda q, p: fm.quant_matmul_lora(q, p, a, b, a_t),
+        "quant_matmul_lora": lambda q, p: fm.quant_matmul_lora(q, p, a, b),
         "w4a8_matmul": lambda q, p: fm.w4a8_matmul(q, sx, p, torch.bfloat16),
         "w4a8_lora_matmul": lambda q, p: fm.w4a8_lora_matmul(q, sx, p, xa, b, torch.bfloat16),
     }
@@ -1738,6 +2377,8 @@ def main(argv: list[str]) -> int:
     phase_d()
     windows.append(phase_e(dev_tag))
     windows.append(phase_f(dev_tag))
+    windows.append(phase_i(dev_tag))
+    windows.append(phase_i_two_layer())
 
     kernels = []
     for kname, (source, replaces, also) in KERNELS.items():
@@ -1745,7 +2386,7 @@ def main(argv: list[str]) -> int:
         row = next(r for r in rows[kname]
                    if (r["m"], r["k"], r["n"], r["note"]) == (m, k, n, note))
         entry = dict(name=kname, route="cuda", source=SRC + source, replaces=replaces,
-                     launches=sum(w[kname] for w in windows),
+                     launches=sum(w.get(kname, 0) for w in windows),
                      max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
                      bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                      library_ms=row["library_ms"],

@@ -8,7 +8,8 @@ names: `core` (bit packing, the proximal solver, `quantize`/`dequantize`),
 flash-attention kernels and their host side), `backends` and
 `utils.patching` (inference backends), `models` (Llama), `serving`
 (generation, the paged continuous-batching engine), `utils.eval`
-(perplexity) and `engine` (the user-facing model).
+(perplexity), `utils.training` (HQQ+ LoRA training) and `engine` (the
+user-facing model).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 

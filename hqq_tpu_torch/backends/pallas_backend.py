@@ -27,8 +27,6 @@ from ..ops.fused_matmul import (
     KernelQTensor,
     KernelQTensor0,
     dequant_pallas,
-    lora_a_kernel_layout,
-    lora_rank_tile,
     quant_matmul_pallas,
     quant_matmul_pallas_a8,
     quant_matmul_pallas_a8_lora,
@@ -115,11 +113,11 @@ def _ax0_meta_dtype(qt, meta_dtype=None):
 
 
 def _to_any_layout(qt, meta_dtype=None):
-    """The kernel layout of ``qt`` for its axis, or None if it has none."""
+    """The kernel layout of ``qt`` for its axis, or None if it has none.
+    Axis=1 stores scale and zs in ``meta_dtype`` (fp32 when None, as in
+    `hqq_tpu`), axis=0 by `_ax0_meta_dtype`."""
     if supports_kernel_layout(qt):
-        if meta_dtype not in (None, torch.float32):
-            raise ValueError("the axis=1 kernel layout stores scale and zs in fp32")
-        return to_kernel_layout(qt)
+        return to_kernel_layout(qt, meta_dtype or torch.float32)
     if supports_kernel_layout_ax0(qt):
         return to_kernel_layout_ax0(qt, _ax0_meta_dtype(qt, meta_dtype))
     return None
@@ -154,10 +152,12 @@ class _KernelLoRALinear(nn.Module):
     """A kernel-layout weight, LoRA factors a [K, r] and b [r, N] (the
     adapter's scaling folded into b, both fp32) and an optional bias.
 
-    ``a_t`` is a in the LoRA kernel's layout and the weight's compute type
-    (`lora_a_kernel_layout`), built here once, as ``kqt`` is built once from
-    the base: the module serves the adapter it was made from, and a changed
-    adapter is patched again."""
+    ``a`` is the one copy of A the layer keeps: the LoRA kernel's A^T
+    (`lora_a_kernel_layout` in x's type) is made from it by
+    `quant_matmul_lora` at each launch, two small copies of r * K values,
+    and the int8 decode route reads ``a`` itself. So an adapter loaded into
+    ``a`` (by `load_state_dict`, ``a.data.copy_``, an optimizer) is served
+    at every M alike."""
 
     def __init__(self, kqt: KernelQTensor, a: torch.Tensor, b: torch.Tensor,
                  bias: Optional[torch.Tensor] = None):
@@ -166,9 +166,6 @@ class _KernelLoRALinear(nn.Module):
         self.a = _as_param(a)
         self.b = _as_param(b)
         self.bias = _as_param(bias)
-        self.register_buffer(
-            "a_t", lora_a_kernel_layout(a, kqt.compute_dtype, lora_rank_tile(a.shape[1])),
-            persistent=False)
 
     @property
     def in_features(self) -> int:
@@ -187,7 +184,7 @@ class PallasLoRAQuantLinear(_KernelLoRALinear):
     (`quant_matmul_pallas_lora`)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._add_bias(quant_matmul_pallas_lora(x, self.kqt, self.a, self.b, self.a_t))
+        return self._add_bias(quant_matmul_pallas_lora(x, self.kqt, self.a, self.b))
 
 
 class A8LoRAQuantLinear(_KernelLoRALinear):
@@ -197,7 +194,7 @@ class A8LoRAQuantLinear(_KernelLoRALinear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._add_bias(
-            quant_matmul_pallas_a8_lora(x, self.kqt, self.a, self.b, self.a_t))
+            quant_matmul_pallas_a8_lora(x, self.kqt, self.a, self.b))
 
 
 def _patch_lora(lora, cls):

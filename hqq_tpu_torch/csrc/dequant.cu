@@ -1,6 +1,7 @@
 // SPDX-License-Identifier: Apache-2.0
 // dequant: W[n, k] = code * scale - zs, from the kernel layout of
-// hqq_common.cuh to a dense [N, K] matrix in fp32, bf16 or fp16. A second
+// hqq_common.cuh (scale and zs fp32 or bf16, widened to fp32) to a dense
+// [N, K] matrix in fp32, bf16 or fp16. A second
 // entry does the same for the axis=0 layout of quant_matmul_ax0.cu, where
 // row n reads scale and zs [P, K_pad] (fp32 or bf16) at (n % P, k).
 //
@@ -18,24 +19,25 @@
 //   coalesced. A grid-stride loop covers any size.
 #include "hqq_common.cuh"
 
+template <typename Meta>
 __global__ void hqq_dequant_kernel(const uint32_t* __restrict__ wq,
-                                   const float* __restrict__ scale,
-                                   const float* __restrict__ zs, void* __restrict__ out,
-                                   int n, int k, int group_size, int cb, int out_dtype) {
+                                   const Meta* __restrict__ scale,
+                                   const Meta* __restrict__ zs, void* __restrict__ out,
+                                   int n, int k, int group_size, int cb, int out_dtype,
+                                   int meta_cols, float zadd) {
   const int codes_per_word = 32 / cb;
   const int fields = 8 / cb;
   const uint32_t mask = ((1u << cb) - 1u) * 0x01010101u;
   const int row_words = k / codes_per_word;
-  const int groups = k / group_size;
   const size_t total = static_cast<size_t>(n) * row_words;
   for (size_t idx = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; idx < total;
        idx += static_cast<size_t>(gridDim.x) * blockDim.x) {
     const int row = static_cast<int>(idx / row_words);
     const int w = static_cast<int>(idx % row_words);
     const int k0 = w * codes_per_word;
-    const size_t g = static_cast<size_t>(row) * groups + k0 / group_size;
-    const float s = scale[g];
-    const float z = zs[g];
+    const size_t g = static_cast<size_t>(row) * meta_cols + k0 / group_size;
+    const float s = meta_f32(scale[g]);
+    const float z = meta_f32(zs[g]) + zadd * s;
     const uint32_t word = wq[idx];
     const size_t base = static_cast<size_t>(row) * k + k0;
     for (int f = 0; f < fields; ++f) {
@@ -120,13 +122,27 @@ HQQ_EXPORT int hqq_dequant_ax0(const void* wq, const void* scale, const void* zs
   return static_cast<int>(cudaGetLastError());
 }
 
+// meta_dtype: HQQ_F32 or HQQ_BF16, the type of scale and zs [N, C]
+// (`hqq_ax1_meta_cols`)
 HQQ_EXPORT int hqq_dequant(const void* wq, const void* scale, const void* zs, void* out, int n,
-                           int k, int group_size, int cb, int out_dtype, void* stream) {
+                           int k, int group_size, int cb, int out_dtype, int meta_dtype,
+                           void* stream) {
   const size_t total = static_cast<size_t>(n) * (k / (32 / cb));
   const int threads = 256;
-  hqq_dequant_kernel<<<grid_for(total, threads), threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(wq), static_cast<const float*>(scale),
-      static_cast<const float*>(zs), out, n, k, group_size, cb, out_dtype);
+  const int cols = hqq_ax1_meta_cols(k / group_size, meta_dtype);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (meta_dtype == HQQ_F32) {
+    hqq_dequant_kernel<float><<<grid_for(total, threads), threads, 0, s>>>(
+        static_cast<const uint32_t*>(wq), static_cast<const float*>(scale),
+        static_cast<const float*>(zs), out, n, k, group_size, cb, out_dtype, cols, 0.f);
+  } else if (meta_dtype == HQQ_BF16) {
+    hqq_dequant_kernel<__nv_bfloat16><<<grid_for(total, threads), threads, 0, s>>>(
+        static_cast<const uint32_t*>(wq), static_cast<const __nv_bfloat16*>(scale),
+        static_cast<const __nv_bfloat16*>(zs), out, n, k, group_size, cb, out_dtype, cols,
+        hqq_ax1_zs_offset(cb, HQQ_BF16));
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,7 +11,12 @@
 // with fp32 scores, fp32 softmax statistics and an fp32 output sum, the
 // probabilities rounded to q's type before the product with V and the
 // division by the fp32 sum, and the output rounded once to q's type. bf16
-// and fp16.
+// and fp16 (fp32 takes the CUDA-core kernel of flash_backward.cu). Where a
+// gradient is wanted it also writes each row's log-sum-exp,
+// lse = ln sum_j exp(scale * q . k_j) in fp32 [B, nh, T], for the backward
+// kernels: a runtime option (a null pointer skips it), one store per row
+// from the consumer's registers after the last tile, so evaluation pays a
+// branch and no bytes.
 //
 // Bound by operations on this card (4 * T * T * head_dim per head, halved
 // under causality, against 2 * T * head_dim values read and written).
@@ -76,8 +81,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
                          const __grid_constant__ CUtensorMap kmap,
                          const __grid_constant__ CUtensorMap vmap, T* __restrict__ out,
-                         const int* __restrict__ q_order, int bh, int nh, int rep, int t, int hd,
-                         float scale_log2, int causal, int stages) {
+                         float* __restrict__ lse, const int* __restrict__ q_order, int bh, int nh,
+                         int rep, int t, int hd, float scale_log2, int causal, int stages) {
   constexpr int kPanels = HDP / 64;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
@@ -225,8 +230,17 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (ct == 0) mbar_arrive(empty0 + 8 * s);
     }
 
-    // out = O / sum, rounded once; rows below T, columns below hd
+    // out = O / sum, rounded once; rows below T, columns below hd. A row's
+    // max and sum sit in the four lanes of its quad: the first stores its
+    // log-sum-exp, (max + log2 sum) * ln 2 (the max is in log2 units)
     const float inv[2] = {1.f / sum[0], 1.f / sum[1]};
+    if (lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (row_a + 8 * i < t)
+          lse[static_cast<size_t>(head) * t + row_a + 8 * i] =
+              (mx[i] + log2f(sum[i])) * 0.6931471805599453f;
+    }
     T* base = out + static_cast<size_t>(head) * t * hd;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -257,8 +271,8 @@ int encode_qkv(CUtensorMap* map, const void* base, int heads, int t, int hd, int
 }
 
 template <typename T, int HDP, int BN>
-int launch(const void* q, const void* k, const void* v, void* out, const int* q_order, int b,
-           int nh, int n_kv, int t, int hd, float scale, int causal, int dtype, int stages,
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, const int* q_order,
+           int b, int nh, int n_kv, int t, int hd, float scale, int causal, int dtype, int stages,
            int smem, int blocks, cudaStream_t stream) {
   if (stages < 2 || smem < flash_smem(HDP, BN, stages).total)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -271,20 +285,21 @@ int launch(const void* q, const void* k, const void* v, void* out, const int* q_
   int e = static_cast<int>(
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
   if (e != 0) return e;
-  kernel<<<blocks, kThreads, smem, stream>>>(qm, km, vm, static_cast<T*>(out), q_order, b * nh,
+  kernel<<<blocks, kThreads, smem, stream>>>(qm, km, vm, static_cast<T*>(out), lse, q_order, b * nh,
                                              nh, nh / n_kv, t, hd, scale * 1.4426950408889634f,
                                              causal, stages);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_head(const void* q, const void* k, const void* v, void* out, const int* q_order,
-                int b, int nh, int n_kv, int t, int hd, float scale, int causal, int dtype,
-                int head_pad, int key_tile, int stages, int smem, int blocks, cudaStream_t st) {
-#define HQQ_FLASH_LAUNCH(HDP, BN)                                                              \
-  if (head_pad == HDP && key_tile == BN)                                                      \
-  return launch<T, HDP, BN>(q, k, v, out, q_order, b, nh, n_kv, t, hd, scale, causal, dtype, \
-                            stages, smem, blocks, st)
+int launch_head(const void* q, const void* k, const void* v, void* out, float* lse,
+                const int* q_order, int b, int nh, int n_kv, int t, int hd, float scale,
+                int causal, int dtype, int head_pad, int key_tile, int stages, int smem,
+                int blocks, cudaStream_t st) {
+#define HQQ_FLASH_LAUNCH(HDP, BN)                                                             \
+  if (head_pad == HDP && key_tile == BN)                                                     \
+  return launch<T, HDP, BN>(q, k, v, out, lse, q_order, b, nh, n_kv, t, hd, scale, causal,   \
+                            dtype, stages, smem, blocks, st)
   HQQ_FLASH_LAUNCH(64, 128);
   HQQ_FLASH_LAUNCH(128, 128);
   HQQ_FLASH_LAUNCH(256, 64);
@@ -296,13 +311,14 @@ int launch_head(const void* q, const void* k, const void* v, void* out, const in
 
 // q and out [B, nh, T, hd], k and v [B, n_kv, T, hd], all bf16 (dtype 1) or
 // fp16 (dtype 2), contiguous and 16-byte aligned; head_dim a multiple of 16,
-// at most 256; nh a multiple of n_kv. q_order (int32 on the device, one
-// query tile per group of B * nh blocks), head_pad, key_tile, stages, smem
-// and blocks come from the launch plan (`flash_launch_plan`).
+// at most 256; nh a multiple of n_kv. lse: fp32 [B, nh, T], or null for
+// none. q_order (int32 on the device, one query tile per group of B * nh
+// blocks), head_pad, key_tile, stages, smem and blocks come from the launch
+// plan (`flash_launch_plan`).
 HQQ_EXPORT int hqq_flash_prefill(const void* q, const void* k, const void* v, void* out,
-                                 const int* q_order, int b, int nh, int n_kv, int t, int hd,
-                                 float scale, int causal, int dtype, int head_pad, int key_tile,
-                                 int stages, int smem, int blocks, void* stream) {
+                                 void* lse, const int* q_order, int b, int nh, int n_kv, int t,
+                                 int hd, float scale, int causal, int dtype, int head_pad,
+                                 int key_tile, int stages, int smem, int blocks, void* stream) {
   if (b < 1 || nh < 1 || n_kv < 1 || nh % n_kv || t < 1 || hd < 16 || hd % 16 ||
       hd > head_pad || q_order == nullptr ||
       static_cast<long>(blocks) != static_cast<long>(b) * nh * ((t + kBM - 1) / kBM)) {
@@ -310,11 +326,13 @@ HQQ_EXPORT int hqq_flash_prefill(const void* q, const void* k, const void* v, vo
   }
   const auto st = static_cast<cudaStream_t>(stream);
   if (dtype == HQQ_BF16)
-    return launch_head<__nv_bfloat16>(q, k, v, out, q_order, b, nh, n_kv, t, hd, scale, causal,
-                                      dtype, head_pad, key_tile, stages, smem, blocks, st);
+    return launch_head<__nv_bfloat16>(q, k, v, out, static_cast<float*>(lse), q_order, b, nh,
+                                      n_kv, t, hd, scale, causal, dtype, head_pad, key_tile,
+                                      stages, smem, blocks, st);
   if (dtype == HQQ_F16)
-    return launch_head<__half>(q, k, v, out, q_order, b, nh, n_kv, t, hd, scale, causal, dtype,
-                               head_pad, key_tile, stages, smem, blocks, st);
+    return launch_head<__half>(q, k, v, out, static_cast<float*>(lse), q_order, b, nh, n_kv, t,
+                               hd, scale, causal, dtype, head_pad, key_tile, stages, smem,
+                               blocks, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

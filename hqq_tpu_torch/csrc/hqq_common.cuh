@@ -11,8 +11,15 @@
 //         4f..4f+3 as four bytes in k order, ready for __dp4a against four
 //         int8 activations, and a word never straddles a group (the layout
 //         requires g % C == 0).
-//   scale fp32 [N, K/g], zs fp32 [N, K/g] with zs = zero*scale, so that
-//         W[n, k] = code * scale - zs.
+//   scale [N, C], zs [N, C] with zs = zero*scale, so that
+//         W[n, k] = code * scale - zs (the first K/g columns hold the
+//         groups). fp32 with C = K/g, or bf16 with C = K/g padded to a
+//         multiple of 8 (rows of whole 16 bytes, for TMA; `hqq_ax1_meta_cols`).
+//         bf16 in the 4-bit container stores zs - 8*scale = (zero - 8)*scale
+//         instead, as `hqq_tpu`'s 4-bit layout does: zero*scale is some 8
+//         steps large and its bf16 rounding would cost a tenth of a step. The
+//         kernels widen bf16 to fp32 as they read it and add 8*scale back
+//         there (`hqq_ax1_zs_offset`), so they compute from fp32 values.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -22,6 +29,32 @@
 
 // Output/operand type codes shared with the Python wrappers.
 enum HqqDtype { HQQ_F32 = 0, HQQ_BF16 = 1, HQQ_F16 = 2 };
+
+// the code of a C++ type
+template <typename T>
+__host__ __device__ constexpr int hqq_dtype_code();
+template <>
+__host__ __device__ constexpr int hqq_dtype_code<float>() { return HQQ_F32; }
+template <>
+__host__ __device__ constexpr int hqq_dtype_code<__nv_bfloat16>() { return HQQ_BF16; }
+template <>
+__host__ __device__ constexpr int hqq_dtype_code<__half>() { return HQQ_F16; }
+
+// The columns C of an axis=1 layout's scale and zs for K/g groups
+// (`to_kernel_layout` pads bf16 rows the same way).
+__host__ __device__ inline int hqq_ax1_meta_cols(int groups, int meta_dtype) {
+  return meta_dtype == HQQ_BF16 ? (groups + 7) / 8 * 8 : groups;
+}
+
+// The multiple of scale that an axis=1 layout's stored zs lacks: 8 for bf16
+// meta in the 4-bit container, else 0.
+__host__ __device__ inline float hqq_ax1_zs_offset(int cb, int meta_dtype) {
+  return meta_dtype == HQQ_BF16 && cb == 4 ? 8.f : 0.f;
+}
+
+// a scale or zs widened to fp32 (bf16 by its bits: exact)
+__device__ __forceinline__ float meta_f32(float v) { return v; }
+__device__ __forceinline__ float meta_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // Dequantize one code exactly as the plain torch version does: an fp32
 // multiply, then an fp32 subtract (no fused multiply-add).

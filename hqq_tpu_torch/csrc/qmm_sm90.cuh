@@ -42,7 +42,7 @@
 // the first dequantizes) p @ B is added to the fp32 accumulators
 // (`lora_term`).
 //
-// A layout (`Ax1Layout` below, `Ax0Layout` of quant_matmul_ax0.cu) supplies
+// A layout (`Ax1Layout<Meta>` below, `Ax0Layout<Meta>` of quant_matmul_ax0.cu) supplies
 // how a slab's codes and meta are loaded, where a row's scale and zs sit,
 // and which column of y a weight row is. The dequantized operand is
 // bit-identical to the plain version's (an fp32 multiply, then an fp32
@@ -158,14 +158,15 @@ __device__ __forceinline__ void read_codes(const uint8_t* row, const ChunkCodes&
 template <typename T, typename Layout, bool kBytes>
 __device__ __forceinline__ void dequant_tile(uint8_t* a, const uint8_t* codes, const uint8_t* meta,
                                              const int (&code_off)[4], const int (&meta_off)[4],
-                                             int madd, int zs_off, const ChunkCodes& cc, int ct) {
+                                             int madd, int zs_off, float zadd, const ChunkCodes& cc,
+                                             int ct) {
   const int q = ct % 8;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     uint32_t lo, hi;
     read_codes<kBytes>(codes + code_off[i], cc, lo, hi);
     float sc[8], z[8];
-    Layout::meta8(meta, meta_off[i] + madd, zs_off, sc, z);
+    Layout::meta8(meta, meta_off[i] + madd, zs_off, zadd, sc, z);
     float v[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e)
@@ -328,6 +329,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       meta_off[i] = Layout::meta_offset(p, p0, pr, q);
     }
     const int zs_off = Layout::zs_offset(p);
+    const float zadd = Layout::zs_add(p);
     uint8_t* a_tiles = smem + L.scratch + wg * L.per_wg;
 
     float acc[BM / 2];
@@ -354,9 +356,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         const uint8_t* meta = smem + L.meta + s * p.meta_stage;
         const int madd = Layout::meta_add(p, (kb + it) * kBK, q);
         if (p.cb == 8)
-          dequant_tile<T, Layout, true>(a, codes, meta, code_off, meta_off, madd, zs_off, cc, ct);
+          dequant_tile<T, Layout, true>(a, codes, meta, code_off, meta_off, madd, zs_off, zadd, cc,
+                                        ct);
         else
-          dequant_tile<T, Layout, false>(a, codes, meta, code_off, meta_off, madd, zs_off, cc, ct);
+          dequant_tile<T, Layout, false>(a, codes, meta, code_off, meta_off, madd, zs_off, zadd, cc,
+                                         ct);
         fence_proxy_async();
         named_sync(1 + wg);
       }
@@ -544,9 +548,14 @@ int launch(const void* x, int kx, const Params& p, const WeightMaps& w, int bm, 
 
 // ------------------------------------------------------- axis=1 layout --
 
-// kernel layout of hqq_common.cuh: wq [N, K*cb/8], scale and zs fp32 [N, K/g]
+// kernel layout of hqq_common.cuh: wq [N, K*cb/8], scale and zs [N, C] in
+// Meta (fp32, or bf16 widened to fp32 as a consumer reads it)
+template <typename Meta>
 struct Ax1Layout {
   static constexpr bool kContiguous = true;
+  static constexpr int kMeta = sizeof(Meta);
+  // the first group of a cp.async'd slot is aligned to 4 bytes
+  static constexpr int kAlign = 4 / kMeta;
 
   // smem row of tile row pr's codes
   static __device__ __forceinline__ int code_row(const Params&, int pr) { return pr; }
@@ -562,12 +571,12 @@ struct Ax1Layout {
   static __device__ __forceinline__ int group_of(const Params& p, int k) {
     return p.group_log2 >= 0 ? k >> p.group_log2 : k / p.group_size;
   }
-  // the first group a slot holds: the slab's own where a slab can touch
-  // groups from any start, else aligned to the slot (16-byte TMA and
-  // cp.async addresses)
+  // the first group a slot holds: the slab's own (down to 4 bytes) where a
+  // slab can touch groups from any start, else aligned to the slot (16-byte
+  // TMA and cp.async addresses)
   static __device__ __forceinline__ int meta_base(const Params& p, int k0) {
     const int g0 = group_of(p, k0);
-    return p.meta_shift ? g0 : g0 & ~(p.slab_groups - 1);
+    return p.meta_shift ? g0 & ~(kAlign - 1) : g0 & ~(p.slab_groups - 1);
   }
 
   // what the TMA does not load, by cp.async (zero-filled past the tensor)
@@ -588,23 +597,23 @@ struct Ax1Layout {
     if (!p.meta_tma) {
       const int groups = p.slab_groups;
       const int g0 = meta_base(p, k0);
-      const int per_row = groups * 4 / p.meta_vec;
+      const int per_row = groups * kMeta / p.meta_vec;
       for (int idx = tid; idx < 2 * kBN * per_row; idx += 128) {
         const int a = idx / (kBN * per_row);  // 0: scale, 1: zs
         const int rem = idx % (kBN * per_row);
-        const int r = rem / per_row, off = g0 * 4 + (rem % per_row) * p.meta_vec;
+        const int r = rem / per_row, off = g0 * kMeta + (rem % per_row) * p.meta_vec;
         const uint8_t* base = static_cast<const uint8_t*>(a == 0 ? p.scale : p.zs);
-        const bool ok = p0 + r < p.n && off < p.meta_cols * 4;
+        const bool ok = p0 + r < p.n && off < p.meta_cols * kMeta;
         const uint8_t* src =
-            ok ? base + static_cast<size_t>(p0 + r) * p.meta_cols * 4 + off : base;
-        cp_async(meta + (a * kBN + r) * groups * 4 + (rem % per_row) * p.meta_vec,
+            ok ? base + static_cast<size_t>(p0 + r) * p.meta_cols * kMeta + off : base;
+        cp_async(meta + (a * kBN + r) * groups * kMeta + (rem % per_row) * p.meta_vec,
                        src, p.meta_vec, ok);
       }
     }
   }
 
-  // float index of tile row pr's scales in a slot, and of chunk q's group
-  // (codes 8q..8q+7 lie in one group) among the slot's groups
+  // index of tile row pr's scales in a slot (in Meta), and of chunk q's
+  // group (codes 8q..8q+7 lie in one group) among the slot's groups
   static __device__ __forceinline__ int meta_offset(const Params& p, int, int pr, int) {
     return pr * p.slab_groups;
   }
@@ -614,10 +623,14 @@ struct Ax1Layout {
   static __device__ __forceinline__ int zs_offset(const Params& p) {
     return kBN * p.slab_groups;
   }
+  // the multiple of scale the stored zs lacks (`hqq_ax1_zs_offset`)
+  static __device__ __forceinline__ float zs_add(const Params& p) {
+    return hqq_ax1_zs_offset(p.cb, hqq_dtype_code<Meta>());
+  }
   static __device__ __forceinline__ void meta8(const uint8_t* meta, int off, int zs_off,
-                                               float (&s)[8], float (&z)[8]) {
-    const float* m = reinterpret_cast<const float*>(meta);
-    const float sv = m[off], zv = m[zs_off + off];
+                                               float zadd, float (&s)[8], float (&z)[8]) {
+    const Meta* m = reinterpret_cast<const Meta*>(meta);
+    const float sv = meta_f32(m[off]), zv = meta_f32(m[zs_off + off]) + zadd * sv;
 #pragma unroll
     for (int e = 0; e < 8; ++e) s[e] = sv, z[e] = zv;
   }
@@ -626,32 +639,37 @@ struct Ax1Layout {
 };
 
 
-// Params and weight maps of an axis=1 weight of n rows and k columns, but
-// for the launch plan's fields and the outputs
+// Params and weight maps of an axis=1 weight of n rows and k columns, its
+// scale and zs in Meta, but for the launch plan's fields and the outputs
+template <typename Meta>
 inline int ax1_params(Params& p, WeightMaps& w, const void* wq, const void* scale, const void* zs,
                       int n, int k, int group_size, int cb) {
+  constexpr int kMeta = sizeof(Meta);
   const int g = group_size;
   p.wq = static_cast<const uint8_t*>(wq);
   p.scale = scale, p.zs = zs;
   p.n = n;
   p.row_bytes = k / 8 * cb;
-  p.meta_cols = k / g;
+  p.meta_cols = hqq_ax1_meta_cols(k / g, kMeta == 4 ? HQQ_F32 : HQQ_BF16);
   p.group_size = g, p.cb = cb, p.pblocks = 0;
   // groups under a slab row: 64/g, one, or for a g that neither divides nor
-  // is divided by 64 as many as a slab can touch; a slot holds at least 4
-  // (a TMA box row of 16 bytes)
+  // is divided by 64 as many as a slab can touch (and one more for bf16,
+  // whose first group is aligned down to 4 bytes); a slot holds at least a
+  // TMA box row of 16 bytes
   const bool tiles = kBK % g == 0 || g % kBK == 0;
   p.meta_shift = !tiles;
   p.group_log2 = (g & (g - 1)) == 0 ? __builtin_ctz(static_cast<unsigned>(g)) : -1;
-  const int groups = g % kBK == 0 ? 1 : tiles ? kBK / g : (kBK - 1) / g + 2;
-  p.slab_groups = groups > 4 ? groups : 4;
+  const int groups =
+      g % kBK == 0 ? 1 : tiles ? kBK / g : (kBK - 1) / g + 2 + Ax1Layout<Meta>::kAlign - 1;
+  p.slab_groups = groups > 16 / kMeta ? groups : 16 / kMeta;
   p.code_vec = copy_vec(wq, p.row_bytes, 8 * cb);
-  p.meta_vec = tiles ? copy_vec(scale, 4L * p.meta_cols, 4L * p.slab_groups) : 4;
-  if (copy_vec(zs, 4L * p.meta_cols, 4L * p.slab_groups) < p.meta_vec) p.meta_vec = 4;
+  p.meta_vec = tiles ? copy_vec(scale, 1L * kMeta * p.meta_cols, 1L * kMeta * p.slab_groups) : 4;
+  if (copy_vec(zs, 1L * kMeta * p.meta_cols, 1L * kMeta * p.slab_groups) < p.meta_vec)
+    p.meta_vec = 4;
   p.meta_rows = 0;
   p.slabs = (k + kBK - 1) / kBK;
   p.code_stage = kBN * 8 * cb;
-  p.meta_stage = 2 * kBN * p.slab_groups * 4;
+  p.meta_stage = 2 * kBN * p.slab_groups * kMeta;
   // TMA where its rules hold (16-byte rows and strides), else cp.async
   p.codes_tma = cb >= 2 && p.code_vec == 16;
   if (p.codes_tma) {
@@ -663,12 +681,11 @@ inline int ax1_params(Params& p, WeightMaps& w, const void* wq, const void* scal
   }
   p.meta_tma = tiles && p.meta_vec == 16;
   if (p.meta_tma) {
-    const long dims[2] = {p.meta_cols, n}, strides[1] = {4L * p.meta_cols};
+    const auto type = kMeta == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    const long dims[2] = {p.meta_cols, n}, strides[1] = {1L * kMeta * p.meta_cols};
     const int box[2] = {p.slab_groups, kBN};
-    if (encode_map(&w.scale, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, scale, dims, strides, box,
-                   CU_TENSOR_MAP_SWIZZLE_NONE) != 0 ||
-        encode_map(&w.zs, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, zs, dims, strides, box,
-                   CU_TENSOR_MAP_SWIZZLE_NONE) != 0)
+    if (encode_map(&w.scale, type, 2, scale, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE) != 0 ||
+        encode_map(&w.zs, type, 2, zs, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE) != 0)
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return 0;

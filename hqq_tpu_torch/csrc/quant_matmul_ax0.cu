@@ -118,7 +118,8 @@ struct Ax0Layout {
     return p.meta_rows * sm90::kBK;
   }
   static __device__ __forceinline__ int meta_add(const Params&, int, int) { return 0; }
-  static __device__ __forceinline__ void meta8(const uint8_t* meta, int off, int zs_off,
+  static __device__ __forceinline__ float zs_add(const Params&) { return 0.f; }  // zs as stored
+  static __device__ __forceinline__ void meta8(const uint8_t* meta, int off, int zs_off, float,
                                                float (&s)[8], float (&z)[8]) {
     const Meta* m = reinterpret_cast<const Meta*>(meta);
     meta8_f32(m + off, s);

@@ -1,6 +1,7 @@
 // SPDX-License-Identifier: Apache-2.0
 // quant_matmul_lora: y[M, N] = x @ W^T + (x @ A) @ B in one kernel, with
-// W[n, k] = code * scale - zs in the axis=1 kernel layout of hqq_common.cuh,
+// W[n, k] = code * scale - zs in the axis=1 kernel layout of hqq_common.cuh
+// (scale and zs in fp32 or bf16),
 // A [K, r] rounded to x's type (bf16 or fp16) and B [r, N] in fp32 (the
 // adapter's scaling folded into B). W is dequantized in fp32 and rounded to
 // x's type; both products run on the tensor cores with fp32 accumulators.
@@ -31,19 +32,24 @@
 //   partial of p: (x @ A) @ B is linear in x's K slices.
 #include "qmm_sm90.cuh"
 
-// dtype: HQQ_BF16 or HQQ_F16, the type of x, of at and of y; at: A^T
+// dtype: HQQ_BF16 or HQQ_F16, the type of x, of at and of y; meta_dtype:
+// HQQ_F32 or HQQ_BF16, the type of scale and zs; at: A^T
 // [passes * rank_tile, k], zero past the rank; lb: B fp32 [r, N]. The
 // launch fields come from `qmm_launch_plan(..., rank=r)`.
 HQQ_EXPORT int hqq_quant_matmul_lora(const void* x, const void* wq, const void* scale,
                                      const void* zs, const void* at, const void* lb, void* out,
                                      void* part, int m, int n, int k, int r, int group_size,
-                                     int cb, int dtype, int token_tile, int rank_tile,
-                                     int passes, int stages, int splits, int slabs_per_split,
-                                     int smem, void* stream) {
+                                     int cb, int dtype, int meta_dtype, int token_tile,
+                                     int rank_tile, int passes, int stages, int splits,
+                                     int slabs_per_split, int smem, void* stream) {
   sm90::Params p{};
   sm90::WeightMaps w{};
-  if (r < 1 || k % 8 != 0 || sm90::ax1_params(p, w, wq, scale, zs, n, k, group_size, cb) != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+  const int e = meta_dtype == HQQ_F32
+                    ? sm90::ax1_params<float>(p, w, wq, scale, zs, n, k, group_size, cb)
+                : meta_dtype == HQQ_BF16
+                    ? sm90::ax1_params<__nv_bfloat16>(p, w, wq, scale, zs, n, k, group_size, cb)
+                    : 1;
+  if (r < 1 || k % 8 != 0 || e != 0) return static_cast<int>(cudaErrorInvalidValue);
   p.out = out;
   p.part = splits > 1 ? static_cast<float*>(part) : nullptr;
   p.m = m;
@@ -61,15 +67,18 @@ HQQ_EXPORT int hqq_quant_matmul_lora(const void* x, const void* wq, const void* 
                        2, at, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define HQQ_LORA_LAUNCH(T, RP) \
-  sm90::launch<T, sm90::Ax1Layout, RP>(x, k, p, w, token_tile, splits, smem, s)
-  if (dtype == HQQ_BF16) {
-    if (rank_tile == 16) return HQQ_LORA_LAUNCH(__nv_bfloat16, 16);
-    if (rank_tile == 64) return HQQ_LORA_LAUNCH(__nv_bfloat16, 64);
-  } else if (dtype == HQQ_F16) {
-    if (rank_tile == 16) return HQQ_LORA_LAUNCH(__half, 16);
-    if (rank_tile == 64) return HQQ_LORA_LAUNCH(__half, 64);
+#define HQQ_LORA_LAUNCH(T, Meta, RP) \
+  sm90::launch<T, sm90::Ax1Layout<Meta>, RP>(x, k, p, w, token_tile, splits, smem, s)
+#define HQQ_LORA_RANKS(T, Meta)                                     \
+  if (dtype == hqq_dtype_code<T>() && meta_dtype == hqq_dtype_code<Meta>()) { \
+    if (rank_tile == 16) return HQQ_LORA_LAUNCH(T, Meta, 16);       \
+    if (rank_tile == 64) return HQQ_LORA_LAUNCH(T, Meta, 64);       \
   }
+  HQQ_LORA_RANKS(__nv_bfloat16, float)
+  HQQ_LORA_RANKS(__nv_bfloat16, __nv_bfloat16)
+  HQQ_LORA_RANKS(__half, float)
+  HQQ_LORA_RANKS(__half, __nv_bfloat16)
+#undef HQQ_LORA_RANKS
 #undef HQQ_LORA_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }

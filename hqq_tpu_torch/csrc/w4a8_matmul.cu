@@ -6,7 +6,10 @@
 // bf16 or fp16. A second entry, w4a8_lora_matmul, adds a LoRA epilogue in
 // fp32: y[m, n] += sum_j xa[m, j] * B[j, n], with xa = x @ A [M, r] computed
 // by the caller from the unquantized activations and B [r, N] fp32 (the
-// adapter's scaling folded in).
+// adapter's scaling folded in). Scale and zs are fp32 or bf16; bf16 is
+// widened to fp32 as it is loaded, and the 4-bit container's zs gets its
+// 8*scale back there (`hqq_ax1_zs_offset`): a flag, not a template
+// argument, so the instantiations do not double.
 //
 // Replaces: hqq_tpu/ops/fused_matmul.py `_qmm_a8_decode_kernel` (launched by
 //   `_qmm_a8_decode_call`) and `_qmm_a8_kernel` (launched by `_qmm_a8_call`),
@@ -49,13 +52,18 @@ struct Lora {
   int r;
 };
 
+// scale or zs i, fp32 or bf16 (widened by its bits)
+__device__ __forceinline__ float load_meta(const void* p, size_t i, int bf16) {
+  return bf16 ? meta_f32(static_cast<const __nv_bfloat16*>(p)[i]) : static_cast<const float*>(p)[i];
+}
+
 // VW: weight words per load, 4 (one 16-byte load) or 1
 template <int CB, int MT, int VW>
 __global__ void __launch_bounds__(kWarps * 32)
     w4a8_kernel(const int8_t* __restrict__ x8, const float* __restrict__ sx,
-                const uint32_t* __restrict__ wq, const float* __restrict__ scale,
-                const float* __restrict__ zs, Lora lora, void* __restrict__ out, int m, int n,
-                int k, int group_size, int out_dtype) {
+                const uint32_t* __restrict__ wq, const void* __restrict__ scale,
+                const void* __restrict__ zs, Lora lora, void* __restrict__ out, int m, int n,
+                int k, int group_size, int out_dtype, int meta_bf16, int meta_cols) {
   constexpr int kFields = 8 / CB;           // 4-code fields per weight word
   constexpr int kCodesPerWord = 32 / CB;
   constexpr uint32_t kMask = ((1u << CB) - 1u) * 0x01010101u;
@@ -146,9 +154,9 @@ __global__ void __launch_bounds__(kWarps * 32)
       for (int c = 0; c < kNcol; ++c) {
         const int col = col0 + c;
         if (col < n) {
-          const size_t gi = static_cast<size_t>(col) * groups + grp;
-          const float s = scale[gi];
-          const float z = zs[gi];
+          const size_t gi = static_cast<size_t>(col) * meta_cols + grp;
+          const float s = load_meta(scale, gi, meta_bf16);
+          const float z = load_meta(zs, gi, meta_bf16) + (meta_bf16 && CB == 4 ? 8.f * s : 0.f);
 #pragma unroll
           for (int i = 0; i < MT; ++i) {
             acc[i][c] += s * static_cast<float>(idot[i][c]) - static_cast<float>(xsum[i]) * z;
@@ -188,7 +196,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 template <int CB, int MT, int VW>
 int launch(const void* x8, const void* sx, const void* wq, const void* scale, const void* zs,
            Lora lora, void* out, int m, int n, int k, int group_size, int out_dtype,
-           cudaStream_t stream) {
+           int meta_dtype, cudaStream_t stream) {
   auto kernel = w4a8_kernel<CB, MT, VW>;
   const int smem = MT * kTileGroups * (group_size / 4 + 1) * 4;
   if (smem > 48 * 1024) {
@@ -200,30 +208,31 @@ int launch(const void* x8, const void* sx, const void* wq, const void* scale, co
   dim3 grid((n + cols_per_block - 1) / cols_per_block, (m + MT - 1) / MT);
   kernel<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const int8_t*>(x8), static_cast<const float*>(sx),
-      static_cast<const uint32_t*>(wq), static_cast<const float*>(scale),
-      static_cast<const float*>(zs), lora, out, m, n, k, group_size, out_dtype);
+      static_cast<const uint32_t*>(wq), scale, zs, lora, out, m, n, k, group_size, out_dtype,
+      meta_dtype == HQQ_BF16, hqq_ax1_meta_cols(k / group_size, meta_dtype));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int CB, int MT>
 int dispatch_vw(const void* x8, const void* sx, const void* wq, const void* scale,
                 const void* zs, Lora lora, void* out, int m, int n, int k, int group_size,
-                int out_dtype, cudaStream_t stream) {
+                int out_dtype, int meta_dtype, cudaStream_t stream) {
   // 16-byte loads need a group of a multiple of 4 words (it keeps every
   // row and every group 16-byte aligned)
   if ((group_size / (32 / CB)) % 4 == 0)
     return launch<CB, MT, 4>(x8, sx, wq, scale, zs, lora, out, m, n, k, group_size, out_dtype,
-                             stream);
+                             meta_dtype, stream);
   return launch<CB, MT, 1>(x8, sx, wq, scale, zs, lora, out, m, n, k, group_size, out_dtype,
-                           stream);
+                           meta_dtype, stream);
 }
 
 template <int CB>
 int dispatch_mt(const void* x8, const void* sx, const void* wq, const void* scale,
                 const void* zs, Lora lora, void* out, int m, int n, int k, int group_size,
-                int out_dtype, cudaStream_t stream) {
-#define HQQ_W4A8_MT(MT) \
-  return dispatch_vw<CB, MT>(x8, sx, wq, scale, zs, lora, out, m, n, k, group_size, out_dtype, stream)
+                int out_dtype, int meta_dtype, cudaStream_t stream) {
+#define HQQ_W4A8_MT(MT)                                                                     \
+  return dispatch_vw<CB, MT>(x8, sx, wq, scale, zs, lora, out, m, n, k, group_size, out_dtype, \
+                             meta_dtype, stream)
   if (m <= 1) HQQ_W4A8_MT(1);
   if (m <= 2) HQQ_W4A8_MT(2);
   if (m <= 4) HQQ_W4A8_MT(4);
@@ -233,34 +242,41 @@ int dispatch_mt(const void* x8, const void* sx, const void* wq, const void* scal
 
 int dispatch_cb(const void* x8, const void* sx, const void* wq, const void* scale, const void* zs,
                 Lora lora, void* out, int m, int n, int k, int group_size, int cb, int out_dtype,
-                cudaStream_t s) {
+                int meta_dtype, cudaStream_t s) {
+  if (meta_dtype != HQQ_F32 && meta_dtype != HQQ_BF16) return static_cast<int>(cudaErrorInvalidValue);
+#define HQQ_W4A8_CB(CB) \
+  return dispatch_mt<CB>(x8, sx, wq, scale, zs, lora, out, m, n, k, group_size, out_dtype, meta_dtype, s)
   switch (cb) {
-    case 1: return dispatch_mt<1>(x8, sx, wq, scale, zs, lora, out, m, n, k, group_size, out_dtype, s);
-    case 2: return dispatch_mt<2>(x8, sx, wq, scale, zs, lora, out, m, n, k, group_size, out_dtype, s);
-    case 4: return dispatch_mt<4>(x8, sx, wq, scale, zs, lora, out, m, n, k, group_size, out_dtype, s);
-    case 8: return dispatch_mt<8>(x8, sx, wq, scale, zs, lora, out, m, n, k, group_size, out_dtype, s);
+    case 1: HQQ_W4A8_CB(1);
+    case 2: HQQ_W4A8_CB(2);
+    case 4: HQQ_W4A8_CB(4);
+    case 8: HQQ_W4A8_CB(8);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef HQQ_W4A8_CB
 }
 
 }  // namespace
 
+// meta_dtype: HQQ_F32 or HQQ_BF16, the type of scale and zs [N, C]
+// (`hqq_ax1_meta_cols`)
 HQQ_EXPORT int hqq_w4a8_matmul(const void* x8, const void* sx, const void* wq, const void* scale,
                                const void* zs, void* out, int m, int n, int k, int group_size,
-                               int cb, int out_dtype, void* stream) {
+                               int cb, int out_dtype, int meta_dtype, void* stream) {
   return dispatch_cb(x8, sx, wq, scale, zs, Lora{nullptr, nullptr, 0}, out, m, n, k, group_size,
-                     cb, out_dtype, static_cast<cudaStream_t>(stream));
+                     cb, out_dtype, meta_dtype, static_cast<cudaStream_t>(stream));
 }
 
 // xa fp32 [M, r] and lb fp32 [r, N], r >= 1: the LoRA epilogue
 HQQ_EXPORT int hqq_w4a8_lora_matmul(const void* x8, const void* sx, const void* wq,
                                     const void* scale, const void* zs, const void* xa,
                                     const void* lb, void* out, int m, int n, int k, int r,
-                                    int group_size, int cb, int out_dtype, void* stream) {
+                                    int group_size, int cb, int out_dtype, int meta_dtype,
+                                    void* stream) {
   if (r < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Lora lora{static_cast<const float*>(xa), static_cast<const float*>(lb), r};
   return dispatch_cb(x8, sx, wq, scale, zs, lora, out, m, n, k, group_size, cb, out_dtype,
-                     static_cast<cudaStream_t>(stream));
+                     meta_dtype, static_cast<cudaStream_t>(stream));
 }
 
 HQQ_EXPORT const char* hqq_error_string(int code) {

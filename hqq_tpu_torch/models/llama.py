@@ -13,7 +13,10 @@ cache, as in `hqq_tpu`:
     for every slot at its own offset, K/V written into pages in place and
     attention through the `paged_attention` kernel;
   * ``cache=None``: causal attention over the whole sequence through
-    `ops.attention.prefill_attention` and no cache (perplexity evaluation).
+    `ops.attention.prefill_attention` and no cache (perplexity evaluation,
+    and training: under autograd this path differentiates, with no in-place
+    update of a saved tensor, and its attention takes the flash Function,
+    forward and backward kernels, from T = 256 on).
 
 Not yet ported: the int8 dense KV cache, ``kv_valid``, ``inputs_embeds`` and
 the sequence-parallel page pool (``seq_axis``).

@@ -4,7 +4,9 @@
 Mirrors `hqq_tpu.nn.linear`: `Linear` is the dense layer, `QuantLinear`
 holds a `QTensor` and runs the ``"xla"`` path, named after `hqq_tpu`'s
 backend: dequantize, then a matmul in the compute dtype with an fp32
-accumulator. Weights are ``[out_features, in_features]`` as in torch.
+accumulator, through `dequant_matmul`, whose backward dequantizes again
+instead of keeping the weight (`hqq_tpu`'s custom VJP). Weights are
+``[out_features, in_features]`` as in torch.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from torch import nn
 
 from ..core.quantize import QTensor, dequantize, quantize
 
-__all__ = ["Linear", "QuantLinear"]
+__all__ = ["Linear", "QuantLinear", "dequant_matmul"]
 
 
 def _as_param(t: Optional[torch.Tensor]) -> Optional[nn.Parameter]:
@@ -45,6 +47,32 @@ class Linear(nn.Module):
         if self.bias is not None:
             out = out + self.bias.to(out.dtype)
         return out
+
+
+class _DequantMatmul(torch.autograd.Function):
+    """x @ W_dq^T with `hqq_tpu`'s memory-efficient backward: the forward
+    keeps the `QTensor` (the packed codes and meta the layer holds anyway)
+    and nothing of x or of the dequantized weight; the backward dequantizes
+    again and returns dx = g @ W_dq in the compute type. The codes, scale
+    and zero get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, qt):
+        ctx.qt = qt
+        return F.linear(x, dequantize(qt, qt.compute_dtype))
+
+    @staticmethod
+    def backward(ctx, g):
+        qt = ctx.qt
+        w = dequantize(qt, qt.compute_dtype)  # again, not stored
+        return g.to(qt.compute_dtype) @ w, None
+
+
+def dequant_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """``x @ W_dq^T`` in the compute type of ``qt`` (x is cast to it), with
+    a backward that recomputes W_dq rather than storing it: mirrors
+    `hqq_tpu.nn.linear.dequant_matmul`."""
+    return _DequantMatmul.apply(x.to(qt.compute_dtype), qt)
 
 
 class QuantLinear(nn.Module):
@@ -104,8 +132,7 @@ class QuantLinear(nn.Module):
         return self.qweight.compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        cd = self.compute_dtype
-        out = F.linear(x.to(cd), dequantize(self.qweight, cd))
+        out = dequant_matmul(x, self.qweight)
         if self.bias is not None:
             out = out + self.bias
         return out

@@ -12,13 +12,16 @@ from .fused_matmul import (  # noqa: F401
 
 def kernel_wrappers() -> tuple:
     """Every kernel wrapper of the package, each with its ``launches``
-    count: the six of `fused_matmul`, `paged.paged_attention` and
-    `attention.flash_attention`."""
-    from .attention import flash_attention
+    count: the seven of `fused_matmul`, `paged.paged_attention` and the four
+    of `attention` (the flash forward, its fp32 route, the dK/dV and the dQ
+    kernels)."""
+    from .attention import (flash_attention, flash_attention_backward_dkv,
+                            flash_attention_backward_dq, flash_attention_fp32)
     from .fused_matmul import _WRAPPERS
     from .paged import paged_attention
 
-    return (*_WRAPPERS, paged_attention, flash_attention)
+    return (*_WRAPPERS, paged_attention, flash_attention, flash_attention_fp32,
+            flash_attention_backward_dkv, flash_attention_backward_dq)
 
 
 def reset_launch_counts() -> None:

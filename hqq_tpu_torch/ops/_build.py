@@ -18,6 +18,7 @@ import hashlib
 import os
 import subprocess
 import tempfile
+import time
 
 __all__ = ["KERNELS", "build_all", "library", "check"]
 
@@ -34,25 +35,38 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # kernel name -> (source file, C entry, argument types)
 KERNELS = {
-    "dequant": ("dequant.cu", "hqq_dequant", [_P] * 4 + [_I] * 5 + [_P]),
+    "dequant": ("dequant.cu", "hqq_dequant", [_P] * 4 + [_I] * 6 + [_P]),
     "dequant_ax0": ("dequant.cu", "hqq_dequant_ax0", [_P] * 4 + [_I] * 7 + [_P]),
-    "quant_matmul": ("quant_matmul.cu", "hqq_quant_matmul", [_P] * 6 + [_I] * 11 + [_P]),
+    "quant_matmul": ("quant_matmul.cu", "hqq_quant_matmul", [_P] * 6 + [_I] * 12 + [_P]),
     "quant_matmul_ax0": (
         "quant_matmul_ax0.cu", "hqq_quant_matmul_ax0", [_P] * 6 + [_I] * 13 + [_P],
     ),
     "quant_matmul_lora": (
-        "quant_matmul_lora.cu", "hqq_quant_matmul_lora", [_P] * 8 + [_I] * 14 + [_P],
+        "quant_matmul_lora.cu", "hqq_quant_matmul_lora", [_P] * 8 + [_I] * 15 + [_P],
     ),
     "flash_attention": (
         "flash_prefill.cu", "hqq_flash_prefill",
-        [_P] * 5 + [_I] * 5 + [ctypes.c_float] + [_I] * 7 + [_P],
+        [_P] * 6 + [_I] * 5 + [ctypes.c_float] + [_I] * 7 + [_P],
+    ),
+    "flash_attention_fp32": (
+        "flash_backward.cu", "hqq_flash_forward_fp32",
+        [_P] * 5 + [_I] * 5 + [ctypes.c_float] + [_I] * 3 + [_P],
+    ),
+    "flash_attention_backward_dkv": (
+        "flash_backward.cu", "hqq_flash_backward",
+        [_P] * 9 + [_I] * 5 + [ctypes.c_float] + [_I] * 5 + [_P],
+    ),
+    "flash_attention_backward_dq": (
+        "flash_backward.cu", "hqq_flash_backward",
+        [_P] * 9 + [_I] * 5 + [ctypes.c_float] + [_I] * 5 + [_P],
     ),
     "paged_attention": (
         "paged_attention.cu", "hqq_paged_attention", [_P] * 9 + [_I] * 9 + [_P],
     ),
-    "w4a8_matmul": ("w4a8_matmul.cu", "hqq_w4a8_matmul", [_P] * 6 + [_I] * 6 + [_P]),
+    "qmm_fp32": ("qmm_fp32.cu", "hqq_qmm_fp32", [_P] * 7 + [_I] * 9 + [_P]),
+    "w4a8_matmul": ("w4a8_matmul.cu", "hqq_w4a8_matmul", [_P] * 6 + [_I] * 7 + [_P]),
     "w4a8_lora_matmul": (
-        "w4a8_matmul.cu", "hqq_w4a8_lora_matmul", [_P] * 8 + [_I] * 7 + [_P],
+        "w4a8_matmul.cu", "hqq_w4a8_lora_matmul", [_P] * 8 + [_I] * 8 + [_P],
     ),
 }
 
@@ -76,32 +90,42 @@ def _lib_path(source: str) -> str:
 def build_all(names=None) -> dict:
     """Compile the source of every kernel (or of ``names``) that has no
     library for its current sources, one ``nvcc`` each, in parallel. Returns
-    {source: compiler output} for what was built; raises if a build fails."""
+    {source: (seconds, compiler output)} for what was built, the seconds
+    from the start to that compiler's exit; raises if a build fails."""
     sources = sorted({KERNELS[name][0] for name in (KERNELS if names is None else names)})
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     jobs = {}
+    t0 = time.monotonic()
     for source in sources:
         path = _lib_path(source)
         if os.path.exists(path):
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
+        log = tempfile.TemporaryFile(mode="w+", dir=BUILD_DIR)
         cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, source)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        jobs[source] = (proc, tmp, path)
-    logs, failed = {}, []
-    for source, (proc, tmp, path) in jobs.items():
-        out, _ = proc.communicate()
-        logs[source] = out
-        if proc.returncode == 0:
-            os.replace(tmp, path)
-        else:
-            os.unlink(tmp)
-            failed.append(f"{source} (exit {proc.returncode}):\n{out}")
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, text=True)
+        jobs[source] = (proc, tmp, path, log)
+    done, failed = {}, []
+    while len(done) < len(jobs):
+        for source, (proc, tmp, path, log) in jobs.items():
+            if source in done or proc.poll() is None:
+                continue
+            seconds = time.monotonic() - t0
+            log.seek(0)
+            out = log.read()
+            log.close()
+            done[source] = (seconds, out)
+            if proc.returncode == 0:
+                os.replace(tmp, path)
+            else:
+                os.unlink(tmp)
+                failed.append(f"{source} (exit {proc.returncode}):\n{out}")
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return logs
+    return done
 
 
 @functools.lru_cache(maxsize=None)

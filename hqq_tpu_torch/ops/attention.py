@@ -10,9 +10,17 @@ TMA, online softmax, scores, probabilities and output in registers; its launch
 plan is `flash_launch_plan`); short sequences and explicit masks (a sliding
 window) take the naive path, as in `hqq_tpu`.
 
-The kernel's wrapper has a plain PyTorch twin and a launch count
-(``flash_attention.launches``). It runs the plain version only for tensors on
-the CPU; for CUDA tensors it launches the kernel or raises.
+Under autograd, `flash_attention` is a `torch.autograd.Function`: the forward
+also writes each row's log-sum-exp, and the backward is two kernels
+(``csrc/flash_backward.cu``, the counterparts of the library's dK/dV and dQ
+kernels): `flash_attention_backward_dkv` and `flash_attention_backward_dq`,
+launch plan `flash_backward_launch_plan`, plain twin
+`flash_attention_backward_plain`. fp32 inputs take `flash_attention_fp32`, a
+CUDA-core forward in the same source.
+
+Every kernel wrapper has a plain PyTorch twin and a launch count
+(``<wrapper>.launches``). It runs the plain version only for tensors on the
+CPU; for CUDA tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -27,7 +35,9 @@ from . import _build
 from .fused_matmul import _DTYPE_CODE, H100_SMEM_PER_BLOCK, _on_cpu, _ptr, _stream
 
 __all__ = ["prefill_attention", "flash_attention", "flash_attention_plain", "FLASH_MIN_SEQ",
-           "FlashPlan", "flash_launch_plan"]
+           "FlashPlan", "flash_launch_plan", "flash_attention_fp32", "flash_attention_backward",
+           "flash_attention_backward_dkv", "flash_attention_backward_dq",
+           "flash_attention_backward_plain", "FlashBackwardPlan", "flash_backward_launch_plan"]
 
 # below this sequence length the naive path runs (`hqq_tpu`'s threshold)
 FLASH_MIN_SEQ = 256
@@ -125,23 +135,11 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cau
     return _naive(q, k, v, mask, sm_scale)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
-                    sm_scale: Optional[float] = None) -> torch.Tensor:
-    """Self-attention over whole sequences: q [B, nh, T, hd], k and v
-    [B, n_kv, T, hd] with nh a multiple of n_kv -> [B, nh, T, hd] in q's type
-    (bf16 or fp16 on the card; head_dim a multiple of 16 up to 256; any T).
-    Forward only: the backward kernel belongs to the training path, so a
-    tensor that requires a gradient is refused."""
-    if _on_cpu(q):
-        return flash_attention_plain(q, k, v, causal, sm_scale)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError("flash_attention has no backward kernel yet: call it under "
-                                  "torch.no_grad()")
-    dev = q.device
+def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dtypes) -> None:
     b, nh, t, hd = q.shape
     n_kv = k.shape[1]
-    if q.dtype not in (torch.bfloat16, torch.float16):
-        raise ValueError(f"the kernel takes bf16 or fp16, not {q.dtype}")
+    if q.dtype not in dtypes:
+        raise ValueError(f"the kernel takes {dtypes}, not {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype or k.shape != v.shape \
             or tuple(k.shape) != (b, n_kv, t, hd):
         raise ValueError(f"k and v must be [B, n_kv, {t}, {hd}] of q's type; got "
@@ -149,25 +147,300 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
     if nh % n_kv or hd % 16 or hd > _MAX_HEAD_DIM:
         raise ValueError(f"the kernel takes nh a multiple of n_kv and head_dim a multiple of 16 "
                          f"up to {_MAX_HEAD_DIM}; got nh={nh}, n_kv={n_kv}, head_dim={hd}")
-    if k.device != dev or v.device != dev:
-        raise ValueError(f"kernel operands must be on {dev}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"kernel operands must be on {q.device}")
+
+
+def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                   sm_scale: Optional[float], with_lse: bool):
+    """(out, lse or None) on the card: bf16/fp16 through the wgmma kernel
+    (`flash_attention.launches`), fp32 through `flash_attention_fp32`."""
+    if q.dtype == torch.float32:
+        return flash_attention_fp32(q, k, v, causal, sm_scale, with_lse)
+    dev = q.device
+    b, nh, t, hd = q.shape
+    n_kv = k.shape[1]
+    _check_qkv(q, k, v, (torch.bfloat16, torch.float16))
     sm_scale = hd**-0.5 if sm_scale is None else sm_scale
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
+    lse = torch.empty((b, nh, t), dtype=torch.float32, device=dev) if with_lse else None
     plan = flash_launch_plan(b, nh, t, hd)
     lib = _build.library("flash_attention")
     with torch.cuda.device(dev):
         code = lib.hqq_flash_prefill(_ptr(q), _ptr(k), _ptr(v), _ptr(out),
+                                     None if lse is None else _ptr(lse, 4),
                                      _ptr(_q_order_on(plan.q_order, dev), 4), b, nh, n_kv, t, hd,
                                      float(sm_scale), int(bool(causal)), _DTYPE_CODE[q.dtype],
                                      plan.head_pad, plan.key_tile, plan.stages, plan.smem,
                                      plan.blocks, _stream(dev))
     _build.check("flash_attention", code)
     flash_attention.launches += 1
-    return out
+    return out, lse
+
+
+def flash_attention_fp32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+                         sm_scale: Optional[float] = None, with_lse: bool = False):
+    """The fp32 route of `flash_attention` (csrc/flash_backward.cu, CUDA
+    cores, every value in fp32): (out, lse or None) for fp32 q, k, v. Its
+    plain versions are `flash_attention_plain` and `_plain_lse`."""
+    if _on_cpu(q):
+        out = flash_attention_plain(q, k, v, causal, sm_scale)
+        return out, (_plain_lse(q, k, causal, sm_scale) if with_lse else None)
+    dev = q.device
+    b, nh, t, hd = q.shape
+    _check_qkv(q, k, v, (torch.float32,))
+    sm_scale = hd**-0.5 if sm_scale is None else sm_scale
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    lse = torch.empty((b, nh, t), dtype=torch.float32, device=dev) if with_lse else None
+    plan = flash_backward_launch_plan(b, nh, k.shape[1], t, hd)
+    lib = _build.library("flash_attention_fp32")
+    with torch.cuda.device(dev):
+        code = lib.hqq_flash_forward_fp32(_ptr(q, 4), _ptr(k, 4), _ptr(v, 4), _ptr(out, 4),
+                                          None if lse is None else _ptr(lse, 4), b, nh,
+                                          k.shape[1], t, hd, float(sm_scale), int(bool(causal)),
+                                          plan.head_pad, plan.smem_fwd, _stream(dev))
+    _build.check("flash_attention_fp32", code)
+    flash_attention_fp32.launches += 1
+    return out, lse
+
+
+flash_attention_fp32.launches = 0
+
+
+def _plain_lse(q: torch.Tensor, k: torch.Tensor, causal: bool,
+               sm_scale: Optional[float]) -> torch.Tensor:
+    """Each row's log-sum-exp of scale * q . k (causal or not), fp32
+    [B, nh, T]: what the forward kernels write for the backward."""
+    sm_scale = q.shape[3]**-0.5 if sm_scale is None else sm_scale
+    rep = q.shape[1] // k.shape[1]
+    kf = k.to(torch.float32).repeat_interleave(rep, dim=1) if rep > 1 else k.to(torch.float32)
+    scores = torch.einsum("bhtd,bhsd->bhts", q.to(torch.float32), kf) * sm_scale
+    if causal:
+        scores = scores + _causal_mask(q.shape[2], k.shape[2], q.device)
+    return torch.logsumexp(scores, dim=-1)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """`flash_attention` under autograd: the forward keeps q, k, v, out and
+    each row's log-sum-exp; the backward is `flash_attention_backward` (the
+    dK/dV and dQ kernels on the card, their plain twin on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale):
+        if _on_cpu(q):
+            out = flash_attention_plain(q, k, v, causal, sm_scale)
+            lse = _plain_lse(q, k, causal, sm_scale)
+        else:
+            out, lse = _flash_forward(q, k, v, causal, sm_scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, do, ctx.causal, ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+                    sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Self-attention over whole sequences: q [B, nh, T, hd], k and v
+    [B, n_kv, T, hd] with nh a multiple of n_kv -> [B, nh, T, hd] in q's type
+    (bf16 and fp16 on the tensor cores, fp32 through `flash_attention_fp32`;
+    head_dim a multiple of 16 up to 256; any T). Where autograd wants a
+    gradient of q, k or v it runs as `_FlashAttention`, which also keeps
+    each row's log-sum-exp for the backward kernels."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, sm_scale)
+    if _on_cpu(q):
+        return flash_attention_plain(q, k, v, causal, sm_scale)
+    return _flash_forward(q, k, v, causal, sm_scale, with_lse=False)[0]
 
 
 flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The backward (csrc/flash_backward.cu)
+# ---------------------------------------------------------------------------
+
+# padded head sizes of the CUDA-core kernels, and their query and key rows
+FLASH_FMA_TILE = {64: 64, 128: 64, 256: 32}
+FLASH_FMA_THREADS = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashBackwardPlan:
+    """How the backward kernels (and the fp32 forward) launch: the head
+    size padded to ``head_pad``, tiles of ``tile`` query and key rows,
+    ``blocks_dkv`` blocks of the dK/dV kernel (one per batch, kv head and
+    key tile) and ``blocks_dq`` of the dQ kernel (one per batch, head and
+    query tile, as the fp32 forward), and each kernel's bytes of dynamic
+    shared memory."""
+
+    head_pad: int
+    tile: int
+    blocks_dkv: int
+    blocks_dq: int
+    smem_dkv: int
+    smem_dq: int
+    smem_fwd: int
+
+
+def flash_backward_smem(head_pad: int, tile: int) -> tuple:
+    """Dynamic shared memory of the dK/dV, dQ and fp32 forward kernels
+    (`*_smem_floats` of flash_backward.cu): fp32 tiles in rows of
+    head_pad + 1, P and dS in rows of tile + 1, lse and D."""
+    rows = tile * (head_pad + 1)
+    ptile = tile * (tile + 1)
+    return (4 * (4 * rows + 2 * ptile + 2 * tile), 4 * (4 * rows + ptile + 2 * tile),
+            4 * (3 * rows + ptile))
+
+
+@functools.lru_cache(maxsize=1024)
+def flash_backward_launch_plan(batch: int, heads: int, kv_heads: int, t: int,
+                               head_dim: int) -> FlashBackwardPlan:
+    """The launch of the backward kernels (and of the fp32 forward) for q
+    [batch, heads, t, head_dim] and k, v [batch, kv_heads, t, head_dim]. The
+    head size pads to 64, 128 or 256 as in the forward; tiles are 64 rows,
+    32 at head size 256, so that a thread's dK and dV (or dQ, or O)
+    accumulators stay at 32 registers each."""
+    if not 16 <= head_dim <= _MAX_HEAD_DIM or head_dim % 16:
+        raise ValueError(f"the kernel takes head sizes of 16s up to {_MAX_HEAD_DIM}, "
+                         f"not {head_dim}")
+    if heads % kv_heads:
+        raise ValueError(f"heads {heads} must be a multiple of kv heads {kv_heads}")
+    head_pad = next(p for p in FLASH_HEAD_PADS if p >= head_dim)
+    tile = FLASH_FMA_TILE[head_pad]
+    tiles = -(-t // tile)
+    smem_dkv, smem_dq, smem_fwd = flash_backward_smem(head_pad, tile)
+    return FlashBackwardPlan(head_pad=head_pad, tile=tile, blocks_dkv=batch * kv_heads * tiles,
+                             blocks_dq=batch * heads * tiles, smem_dkv=smem_dkv,
+                             smem_dq=smem_dq, smem_fwd=smem_fwd)
+
+
+def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                   o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                                   causal: bool = True, sm_scale: Optional[float] = None):
+    """Plain version of the backward kernels, the same arithmetic from the
+    same saved statistics in fp32: P = exp(scale * q k^T - lse) (0 above
+    the diagonal), D = rowsum(dO * O), dV = P^T dO, dS = P (dO V^T - D),
+    dQ = scale * dS K, dK = scale * dS^T Q, dK and dV summed over each kv
+    head's query heads. Returns (dq, dk, dv) in the inputs' types."""
+    hd = q.shape[3]
+    sm_scale = hd**-0.5 if sm_scale is None else sm_scale
+    n_kv = k.shape[1]
+    rep = q.shape[1] // n_kv
+    f32 = torch.float32
+    qf, of, dof = q.to(f32), o.to(f32), do.to(f32)
+    kf, vf = k.to(f32), v.to(f32)
+    if rep > 1:
+        kf, vf = kf.repeat_interleave(rep, dim=1), vf.repeat_interleave(rep, dim=1)
+    s = torch.einsum("bhtd,bhsd->bhts", qf, kf) * sm_scale
+    p = torch.exp(s - lse.to(f32)[..., None])
+    if causal:
+        t = q.shape[2]
+        p = p * torch.ones((t, k.shape[2]), dtype=torch.bool, device=q.device).tril()
+    dv = torch.einsum("bhts,bhtd->bhsd", p, dof)
+    dp = torch.einsum("bhtd,bhsd->bhts", dof, vf)
+    delta = (dof * of).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhts,bhsd->bhtd", ds, kf) * sm_scale
+    dk = torch.einsum("bhts,bhtd->bhsd", ds, qf) * sm_scale
+    if rep > 1:
+        b, _, t2, _ = dk.shape
+        dk = dk.reshape(b, n_kv, rep, t2, hd).sum(dim=2)
+        dv = dv.reshape(b, n_kv, rep, t2, hd).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _backward_operands(q, k, v, o, lse, do, sm_scale) -> tuple:
+    """The backward kernels' operands, checked and made once for both:
+    contiguous q, k, v, dO, fp32 lse, D = rowsum(dO * O) in fp32
+    [B, nh, T] (plain torch, as the library computes it outside its
+    kernels), and the scale."""
+    _check_qkv(q, k, v, tuple(_DTYPE_CODE))
+    b, nh, t, hd = q.shape
+    if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape) \
+            or do.dtype != q.dtype or tuple(lse.shape) != (b, nh, t):
+        raise ValueError(f"o and dO must be q's shape and dO q's type, lse [{b}, {nh}, {t}]")
+    delta = (do.to(torch.float32) * o.to(torch.float32)).sum(dim=-1)
+    sm_scale = hd**-0.5 if sm_scale is None else sm_scale
+    return (q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous(),
+            lse.to(torch.float32).contiguous(), delta, sm_scale)
+
+
+def _backward_launch(ops: tuple, causal: bool, dq, dk, dv, name: str) -> None:
+    """One launch of hqq_flash_backward on `_backward_operands`: the dQ
+    kernel (dq given) or the dK/dV kernel (dk and dv given)."""
+    q, k, v, do, lse, delta, sm_scale = ops
+    dev = q.device
+    b, nh, t, hd = q.shape
+    plan = flash_backward_launch_plan(b, nh, k.shape[1], t, hd)
+    lib = _build.library(name)
+    with torch.cuda.device(dev):
+        code = lib.hqq_flash_backward(
+            _ptr(q, 4), _ptr(k, 4), _ptr(v, 4), _ptr(do, 4), _ptr(lse, 4), _ptr(delta, 4),
+            None if dq is None else _ptr(dq, 4), None if dk is None else _ptr(dk, 4),
+            None if dv is None else _ptr(dv, 4), b, nh, k.shape[1], t, hd, float(sm_scale),
+            int(bool(causal)), _DTYPE_CODE[q.dtype], plan.head_pad, plan.smem_dkv, plan.smem_dq,
+            _stream(dev))
+    _build.check(name, code)
+
+
+def _launch_dkv(ops: tuple, causal: bool) -> tuple:
+    dk, dv = torch.empty_like(ops[1]), torch.empty_like(ops[2])
+    _backward_launch(ops, causal, None, dk, dv, "flash_attention_backward_dkv")
+    flash_attention_backward_dkv.launches += 1
+    return dk, dv
+
+
+def _launch_dq(ops: tuple, causal: bool) -> torch.Tensor:
+    dq = torch.empty_like(ops[0])
+    _backward_launch(ops, causal, dq, None, None, "flash_attention_backward_dq")
+    flash_attention_backward_dq.launches += 1
+    return dq
+
+
+def flash_attention_backward_dkv(q, k, v, o, lse, do, causal: bool = True,
+                                 sm_scale: Optional[float] = None):
+    """(dk, dv) from the dK/dV kernel: one block per (batch, kv head, key
+    tile), the query heads of its group and the query tiles at or below the
+    diagonal walked inside it."""
+    if _on_cpu(q):
+        return flash_attention_backward_plain(q, k, v, o, lse, do, causal, sm_scale)[1:]
+    return _launch_dkv(_backward_operands(q, k, v, o, lse, do, sm_scale), causal)
+
+
+def flash_attention_backward_dq(q, k, v, o, lse, do, causal: bool = True,
+                                sm_scale: Optional[float] = None):
+    """dq from the dQ kernel: one block per (batch, head, query tile), the
+    key tiles at or left of the diagonal walked inside it."""
+    if _on_cpu(q):
+        return flash_attention_backward_plain(q, k, v, o, lse, do, causal, sm_scale)[0]
+    return _launch_dq(_backward_operands(q, k, v, o, lse, do, sm_scale), causal)
+
+
+flash_attention_backward_dkv.launches = 0
+flash_attention_backward_dq.launches = 0
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, do: torch.Tensor, causal: bool = True,
+                             sm_scale: Optional[float] = None):
+    """(dq, dk, dv) of `flash_attention` from its saved q, k, v, out and
+    log-sum-exp and the output's gradient dO, in the inputs' types (bf16,
+    fp16 or fp32): on the card, the dK/dV and the dQ kernel over operands
+    made once (D is a [B, nh, T] reduction); on the CPU,
+    `flash_attention_backward_plain`."""
+    if _on_cpu(q):
+        return flash_attention_backward_plain(q, k, v, o, lse, do, causal, sm_scale)
+    ops = _backward_operands(q, k, v, o, lse, do, sm_scale)
+    dk, dv = _launch_dkv(ops, causal)
+    return _launch_dq(ops, causal), dk, dv
 
 
 def prefill_attention(

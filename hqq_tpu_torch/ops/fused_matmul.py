@@ -10,12 +10,13 @@ are kept so that a reader finds each counterpart.
 
 The kernel layouts are this card's own (see ``csrc/hqq_common.cuh``): the
 codes of W [N, K] stay contiguous along K, 32/cb codes to a 32-bit word.
-Axis=1: scale and zs = zero*scale are fp32 [N, K/g]. Axis=0: the rows stay
+Axis=1: scale and zs = zero*scale are [N, K/g] in fp32, or in bf16 with the
+columns padded to a multiple of 8 (rows of whole 16 bytes, for TMA). Axis=0: the rows stay
 in logical order, K is padded to a multiple of 32, and scale and zs are
 [N/g, K_pad] in fp32 or bf16; row n reads row n % (N/g) of them. None of
 the TPU layouts' padding, row permutation or nibble orders carry over.
 
-Six kernels, each behind a wrapper with a plain PyTorch twin and a launch
+Seven kernels, each behind a wrapper with a plain PyTorch twin and a launch
 count (``<wrapper>.launches``):
 
     w4a8_matmul       -> csrc/w4a8_matmul.cu        (M <= 32, int8 activations)
@@ -24,6 +25,8 @@ count (``<wrapper>.launches``):
     quant_matmul_lora -> csrc/quant_matmul_lora.cu  (the same, + x@A and B inside)
     quant_matmul_ax0  -> csrc/quant_matmul_ax0.cu   (axis=0 weights, any M)
     dequant           -> csrc/dequant.cu            (both layouts)
+    qmm_fp32          -> csrc/qmm_fp32.cu           (fp32 x: the three matmuls'
+                                                     fp32 route)
 
 A wrapper runs the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises; nothing falls back.
@@ -66,11 +69,13 @@ __all__ = [
     "quant_matmul_lora_plain",
     "quant_matmul_ax0_plain",
     "dequant_plain",
+    "qmm_fp32",
     "reset_launch_counts",
     "QmmPlan",
     "qmm_launch_plan",
     "lora_a_kernel_layout",
     "lora_rank_tile",
+    "ax1_meta_cols",
 ]
 
 # nbits (canonical) -> container bits of the kernel layout: 3-bit rides the
@@ -103,8 +108,14 @@ class KernelQTensor:
     """Inference-prepared quantized weight in the kernel layout.
 
       wq:    uint8 [N, K*cb/8]  codes of W [N, K], 32/cb to a 32-bit word
-      scale: fp32 [N, K/g]      dequant scale (multiplicative)
-      zs:    fp32 [N, K/g]      zero * scale (W = c*scale - zs)
+      scale: [N, C]             dequant scale (multiplicative) of group
+                                k // g in column k // g: fp32 with C = K/g,
+                                or bf16 with C = K/g padded to a multiple
+                                of 8 (`ax1_meta_cols`); the kernels widen
+                                bf16 to fp32 for the arithmetic
+      zs:    [N, C]             zero * scale (W = c*scale - zs), as scale;
+                                bf16 in the 4-bit container stores
+                                (zero - 8) * scale (`_ax1_zs_offset`)
     """
 
     wq: torch.Tensor
@@ -160,15 +171,26 @@ def _unpack_words(wq: torch.Tensor, cb: int) -> torch.Tensor:
     return ((b >> shifts) & ((1 << cb) - 1)).reshape(n, nbytes * r)
 
 
-def to_kernel_layout(qt: QTensor) -> KernelQTensor:
+def ax1_meta_cols(groups: int, meta_dtype: torch.dtype) -> int:
+    """Columns of an axis=1 layout's scale and zs for ``groups`` = K/g
+    groups: K/g in fp32, padded to a multiple of 8 in bf16
+    (`hqq_ax1_meta_cols` of csrc/hqq_common.cuh)."""
+    return -(-groups // 8) * 8 if meta_dtype == torch.bfloat16 else groups
+
+
+def to_kernel_layout(qt: QTensor, meta_dtype=torch.float32) -> KernelQTensor:
     """Convert a canonical axis=1 `QTensor` to the kernel layout, on its
-    device (a one-time repack at `prepare_for_inference`)."""
+    device (a one-time repack at `prepare_for_inference`). ``meta_dtype``
+    (fp32 or bf16) is the storage type of scale and zs, as in `hqq_tpu`:
+    zs = zero * scale is formed in fp32 and both are then rounded to it."""
     if not supports_kernel_layout(qt):
         raise ValueError(
             "kernel layout needs axis=1 groups dividing K, made of whole "
             f"32-bit words; got axis={qt.axis}, group_size={qt.group_size}, "
             f"nbits={qt.nbits}, shape={qt.shape}"
         )
+    if meta_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"meta_dtype must be float32 or bfloat16, not {meta_dtype}")
     qt = resolve_meta(qt)
     n_out, k = qt.shape
     g = qt.group_size
@@ -176,16 +198,37 @@ def to_kernel_layout(qt: QTensor) -> KernelQTensor:
     codes = unpack_codes(qt, torch.int32).reshape(n_out, k)
     scale = qt.scale.reshape(n_out, k // g).to(torch.float32)
     zero = qt.zero.reshape(n_out, k // g).to(torch.float32)
+    pad = ax1_meta_cols(k // g, meta_dtype) - k // g
+    zs = (zero - _ax1_zs_offset(cb, meta_dtype)) * scale
     return KernelQTensor(
         wq=_pack_words(codes, cb),
-        scale=scale.contiguous(),
-        zs=(zero * scale).contiguous(),
+        scale=F.pad(scale, (0, pad)).to(meta_dtype).contiguous(),
+        zs=F.pad(zs, (0, pad)).to(meta_dtype).contiguous(),
         nbits=qt.nbits,
         container_bits=cb,
         group_size=g,
         shape=(k, n_out),
         compute_dtype=qt.compute_dtype,
     )
+
+
+def _ax1_zs_offset(cb: int, meta_dtype: torch.dtype) -> float:
+    """The multiple of scale that an axis=1 layout's stored zs lacks: 8 for
+    bf16 meta in the 4-bit container, which stores (zero - 8) * scale as
+    `hqq_tpu`'s 4-bit layout does (zero * scale is some 8 steps large, and
+    its bf16 rounding would cost a tenth of a step), else 0
+    (`hqq_ax1_zs_offset` of csrc/hqq_common.cuh)."""
+    return 8.0 if meta_dtype == torch.bfloat16 and cb == 4 else 0.0
+
+
+def _ax1_meta(kqt: KernelQTensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """scale and zs of an axis=1 layout as the kernels read them: fp32
+    [N, K/g], the padding cut, the 4-bit bf16 zs given its 8 * scale back."""
+    groups = kqt.k // kqt.group_size
+    scale = kqt.scale[:, :groups].to(torch.float32)
+    zs = kqt.zs[:, :groups].to(torch.float32)
+    offset = _ax1_zs_offset(kqt.container_bits, kqt.scale.dtype)
+    return scale, (zs + offset * scale if offset else zs)
 
 
 @dataclasses.dataclass
@@ -298,8 +341,10 @@ def _check_kqt(kqt: KernelQTensor, device: torch.device) -> None:
         raise ValueError(f"wq must be uint8 [{n}, {k * kqt.container_bits // 8}]")
     for name in ("scale", "zs"):
         t = getattr(kqt, name)
-        if t.dtype != torch.float32 or tuple(t.shape) != (n, k // g):
-            raise ValueError(f"{name} must be fp32 [{n}, {k // g}]")
+        if t.dtype != kqt.scale.dtype or t.dtype not in (torch.float32, torch.bfloat16) \
+                or tuple(t.shape) != (n, ax1_meta_cols(k // g, t.dtype)):
+            raise ValueError(f"{name} must be fp32 [{n}, {k // g}] or bf16 "
+                             f"[{n}, {ax1_meta_cols(k // g, torch.bfloat16)}]")
     for t in (kqt.wq, kqt.scale, kqt.zs):
         if t.device != device or not t.is_contiguous():
             raise ValueError(f"kernel operands must be contiguous on {device}")
@@ -354,10 +399,13 @@ class QmmPlan:
 def _slab_meta_bytes(group_size: int, axis: int, meta_size: int) -> int:
     """Bytes of scale and zs that one slot of the pipeline holds."""
     g = group_size
-    if axis == 1:  # 128 rows of the groups under a 64-wide slab (at least 4), fp32
+    if axis == 1:  # 128 rows of the groups under a 64-wide slab (at least 16 bytes)
         tiles = QMM_SLAB % g == 0 or g % QMM_SLAB == 0
-        groups = 1 if g % QMM_SLAB == 0 else QMM_SLAB // g if tiles else (QMM_SLAB - 1) // g + 2
-        return 2 * QMM_ROWS * max(4, groups) * 4
+        # where a slab can start mid-group, bf16's first group is aligned
+        # down to 4 bytes: one group more
+        groups = (1 if g % QMM_SLAB == 0 else QMM_SLAB // g if tiles
+                  else (QMM_SLAB - 1) // g + 2 + 4 // meta_size - 1)
+        return 2 * QMM_ROWS * max(16 // meta_size, groups) * meta_size
     # axis=0: 64 columns of the rows of [P, K_pad] under 128 permuted rows
     if QMM_ROWS % g == 0:
         rows = QMM_ROWS // g
@@ -442,7 +490,8 @@ def dequant_plain(kqt: "KernelQTensor | KernelQTensor0", dtype=torch.float32) ->
         w = c * kqt.scale.to(torch.float32).repeat(g, 1) - kqt.zs.to(torch.float32).repeat(g, 1)
         return w[:, :k].to(dtype)
     k, n = kqt.shape
-    w = c.view(n, k // g, g) * kqt.scale[:, :, None] - kqt.zs[:, :, None]
+    scale, zs = _ax1_meta(kqt)
+    w = c.view(n, k // g, g) * scale[:, :, None] - zs[:, :, None]
     return w.reshape(n, k).to(dtype)
 
 
@@ -469,10 +518,65 @@ def dequant(kqt: "KernelQTensor | KernelQTensor0", dtype=torch.float32) -> torch
         with torch.cuda.device(dev):
             code = _build.library(name).hqq_dequant(
                 _ptr(kqt.wq, 4), _ptr(kqt.scale, 4), _ptr(kqt.zs, 4), _ptr(out, 4), kqt.n, kqt.k,
-                kqt.group_size, kqt.container_bits, _DTYPE_CODE[dtype], _stream(dev),
+                kqt.group_size, kqt.container_bits, _DTYPE_CODE[dtype],
+                _DTYPE_CODE[kqt.scale.dtype], _stream(dev),
             )
     _build.check(name, code)
     dequant.launches += 1
+    return out
+
+
+def _check_lora(kqt, a: torch.Tensor, b: torch.Tensor, dev) -> int:
+    """The rank of an adapter A [K, r], B [r, N] for ``kqt``, checked."""
+    r = a.shape[-1]
+    if tuple(a.shape) != (kqt.k, r) or tuple(b.shape) != (r, kqt.n):
+        raise ValueError(f"LoRA needs A [{kqt.k}, r] and B [r, {kqt.n}], got {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}")
+    if r < 1:
+        raise ValueError("the LoRA kernels need a rank of at least 1")
+    if a.device != dev or b.device != dev:
+        raise ValueError(f"LoRA operands must be on {dev}")
+    return r
+
+
+def qmm_fp32(x2: torch.Tensor, kqt: "KernelQTensor | KernelQTensor0",
+             a: Optional[torch.Tensor] = None, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The fp32 route of `quant_matmul`, `quant_matmul_ax0` and
+    `quant_matmul_lora` (csrc/qmm_fp32.cu): x2 fp32 [M, K] @ W^T (+ (x2 @
+    a) @ b) -> fp32 [M, N], every value in fp32 on the CUDA cores. Its plain
+    versions are those of the three wrappers."""
+    if _on_cpu(x2):
+        if isinstance(kqt, KernelQTensor0):
+            return quant_matmul_ax0_plain(x2, kqt)
+        return quant_matmul_plain(x2, kqt) if a is None else quant_matmul_lora_plain(x2, kqt, a, b)
+    dev = x2.device
+    ax0 = isinstance(kqt, KernelQTensor0)
+    if ax0:
+        _check_kqt0(kqt, dev)
+    else:
+        _check_kqt(kqt, dev)
+    if x2.dtype != torch.float32 or x2.ndim != 2 or x2.shape[1] != kqt.k:
+        raise ValueError(f"qmm_fp32 takes fp32 x [M, {kqt.k}], got {x2.dtype} {tuple(x2.shape)}")
+    x2 = x2.contiguous()
+    r = 0
+    if a is not None:
+        if ax0:
+            raise ValueError("the LoRA term is served over an axis=1 weight only")
+        r = _check_lora(kqt, a, b, dev)
+        a = a.to(torch.float32).contiguous()
+        b = b.to(torch.float32).contiguous()
+    m = x2.shape[0]
+    out = torch.empty((m, kqt.n), dtype=torch.float32, device=dev)
+    lib = _build.library("qmm_fp32")
+    with torch.cuda.device(dev):
+        code = lib.hqq_qmm_fp32(
+            _ptr(x2, 4), _ptr(kqt.wq, 4), _ptr(kqt.scale, 2), _ptr(kqt.zs, 2),
+            None if a is None else _ptr(a, 4), None if b is None else _ptr(b, 4), _ptr(out, 4),
+            m, kqt.n, kqt.k, kqt.k_pad if ax0 else kqt.k, kqt.group_size, kqt.container_bits,
+            0 if ax0 else 1, _DTYPE_CODE[kqt.scale.dtype], r, _stream(dev),
+        )
+    _build.check("qmm_fp32", code)
+    qmm_fp32.launches += 1
     return out
 
 
@@ -502,24 +606,29 @@ def _split_scratch(plan: QmmPlan, m: int, n: int, dev) -> "torch.Tensor | None":
 
 
 def quant_matmul(x2: torch.Tensor, kqt: KernelQTensor) -> torch.Tensor:
-    """x2 [M, K] @ W^T -> [M, N] in x2's dtype (bf16 or fp16 on the card)."""
+    """x2 [M, K] @ W^T -> [M, N] in x2's dtype: bf16 or fp16 on the card's
+    tensor cores, fp32 through `qmm_fp32`."""
     if _on_cpu(x2):
         return quant_matmul_plain(x2, kqt)
+    if x2.dtype == torch.float32:
+        return qmm_fp32(x2, kqt)
     dev = x2.device
     _check_kqt(kqt, dev)
     x2 = _kernel_activations(x2, kqt.k)
     m, k = x2.shape
     n = kqt.n
     out = torch.empty((m, n), dtype=x2.dtype, device=dev)
-    plan = qmm_launch_plan(m, n, k, kqt.container_bits, kqt.group_size)
+    plan = qmm_launch_plan(m, n, k, kqt.container_bits, kqt.group_size,
+                           meta_size=kqt.scale.element_size())
     part = _split_scratch(plan, m, n, dev)
     lib = _build.library("quant_matmul")
     with torch.cuda.device(dev):
         code = lib.hqq_quant_matmul(
             _ptr(x2), _ptr(kqt.wq, 4), _ptr(kqt.scale, 4), _ptr(kqt.zs, 4), _ptr(out, 2),
             None if part is None else _ptr(part, 4), m, n, k, kqt.group_size,
-            kqt.container_bits, _DTYPE_CODE[x2.dtype], plan.token_tile, plan.stages,
-            plan.splits, plan.slabs_per_split, plan.smem, _stream(dev),
+            kqt.container_bits, _DTYPE_CODE[x2.dtype], _DTYPE_CODE[kqt.scale.dtype],
+            plan.token_tile, plan.stages, plan.splits, plan.slabs_per_split, plan.smem,
+            _stream(dev),
         )
     _build.check("quant_matmul", code)
     quant_matmul.launches += 1
@@ -528,13 +637,10 @@ def quant_matmul(x2: torch.Tensor, kqt: KernelQTensor) -> torch.Tensor:
 
 def quant_matmul_lora_plain(
     x2: torch.Tensor, kqt: KernelQTensor, a: torch.Tensor, b: torch.Tensor,
-    a_t: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain version of the quant_matmul_lora kernel: x2 @ W^T + (x2 @ A) @ B
     with W and A rounded to x2's dtype, both products summed in fp32, B
-    applied to the fp32 partial in fp32, one rounding to x2's dtype. It
-    takes the wrapper's arguments and reads A from ``a`` (``a_t``, the
-    kernel's layout of it, is not used)."""
+    applied to the fp32 partial in fp32, one rounding to x2's dtype."""
     xf = x2.to(torch.float32)
     base = xf @ dequant_plain(kqt, x2.dtype).to(torch.float32).t()
     part = xf @ a.to(x2.dtype).to(torch.float32)
@@ -552,43 +658,33 @@ def lora_a_kernel_layout(a: torch.Tensor, dtype: torch.dtype, rank_tile: int) ->
     ``dtype`` (x's type: the kernel rounds A to it, as `hqq_tpu` does),
     K-major, the rank padded with zero rows to whole chunks."""
     k, r = a.shape
-    out = torch.zeros((-(-r // rank_tile) * rank_tile, k), dtype=dtype, device=a.device)
-    out[:r] = a.detach().t().to(dtype)
+    out = torch.empty((-(-r // rank_tile) * rank_tile, k), dtype=dtype, device=a.device)
+    out[r:].zero_()
+    out[:r].copy_(a.detach().t())  # one kernel: transpose and cast
     return out
 
 
 def quant_matmul_lora(
     x2: torch.Tensor, kqt: KernelQTensor, a: torch.Tensor, b: torch.Tensor,
-    a_t: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """x2 [M, K] @ W^T + (x2 @ A) @ B -> [M, N] in x2's dtype, with A [K, r]
-    and B [r, N] (scaling folded in), any rank r >= 1, all in one kernel.
-
-    ``a_t``: A as the kernel reads it, ``lora_a_kernel_layout(a, dtype,
-    lora_rank_tile(r))``, which a serving layer builds once; the kernel
-    takes it where its type is x2's, and otherwise A^T is built here."""
+    and B [r, N] (scaling folded in), any rank r >= 1, all in one kernel
+    (fp32 x through `qmm_fp32`). The kernel reads A as A^T, which is built
+    from ``a`` at each call (`lora_a_kernel_layout`), so what is served is
+    always the ``a`` given."""
     if _on_cpu(x2):
         return quant_matmul_lora_plain(x2, kqt, a, b)
+    if x2.dtype == torch.float32:
+        return qmm_fp32(x2, kqt, a, b)
     dev = x2.device
     _check_kqt(kqt, dev)
     x2 = _kernel_activations(x2, kqt.k)
-    r = a.shape[-1]
-    if tuple(a.shape) != (kqt.k, r) or tuple(b.shape) != (r, kqt.n):
-        raise ValueError(f"LoRA needs A [{kqt.k}, r] and B [r, {kqt.n}], got {tuple(a.shape)}, "
-                         f"{tuple(b.shape)}")
-    if r < 1:
-        raise ValueError("quant_matmul_lora needs a rank of at least 1")
-    if a.device != dev or b.device != dev:
-        raise ValueError(f"LoRA operands must be on {dev}")
+    r = _check_lora(kqt, a, b, dev)
     m, k = x2.shape
     n = kqt.n
-    plan = qmm_launch_plan(m, n, k, kqt.container_bits, kqt.group_size, rank=r)
-    if a_t is None or a_t.dtype != x2.dtype:
-        a_t = lora_a_kernel_layout(a, x2.dtype, plan.rank_tile)
-    elif tuple(a_t.shape) != (plan.passes * plan.rank_tile, k) or a_t.device != dev \
-            or not a_t.is_contiguous():
-        raise ValueError(f"a_t must be A^T [{plan.passes * plan.rank_tile}, {k}] on {dev} "
-                         f"(lora_a_kernel_layout), got {tuple(a_t.shape)} on {a_t.device}")
+    plan = qmm_launch_plan(m, n, k, kqt.container_bits, kqt.group_size,
+                           meta_size=kqt.scale.element_size(), rank=r)
+    a_t = lora_a_kernel_layout(a, x2.dtype, plan.rank_tile)
     b = b.to(torch.float32).contiguous()
     out = torch.empty((m, n), dtype=x2.dtype, device=dev)
     part = _split_scratch(plan, m, n, dev)
@@ -597,7 +693,8 @@ def quant_matmul_lora(
         code = lib.hqq_quant_matmul_lora(
             _ptr(x2), _ptr(kqt.wq, 4), _ptr(kqt.scale, 4), _ptr(kqt.zs, 4), _ptr(a_t), _ptr(b, 4),
             _ptr(out, 2), None if part is None else _ptr(part, 4), m, n, k, r, kqt.group_size,
-            kqt.container_bits, _DTYPE_CODE[x2.dtype], plan.token_tile, plan.rank_tile,
+            kqt.container_bits, _DTYPE_CODE[x2.dtype], _DTYPE_CODE[kqt.scale.dtype],
+            plan.token_tile, plan.rank_tile,
             plan.passes, plan.stages, plan.splits, plan.slabs_per_split, plan.smem, _stream(dev),
         )
     _build.check("quant_matmul_lora", code)
@@ -614,9 +711,11 @@ def quant_matmul_ax0_plain(x2: torch.Tensor, kqt: KernelQTensor0) -> torch.Tenso
 
 def quant_matmul_ax0(x2: torch.Tensor, kqt: KernelQTensor0) -> torch.Tensor:
     """x2 [M, K] @ W^T -> [M, N] in x2's dtype for an axis=0 weight, columns
-    in logical order."""
+    in logical order (fp32 through `qmm_fp32`)."""
     if _on_cpu(x2):
         return quant_matmul_ax0_plain(x2, kqt)
+    if x2.dtype == torch.float32:
+        return qmm_fp32(x2, kqt)
     dev = x2.device
     _check_kqt0(kqt, dev)
     pad = -kqt.k % 8  # the kernel reads rows of whole 16-byte chunks
@@ -656,7 +755,8 @@ def w4a8_matmul_plain(
     xg = x8.to(torch.float32).view(m, k // g, g)
     dots = torch.einsum("mgk,ngk->mng", xg, c)
     xsum = xg.sum(dim=-1)  # [M, K/g]
-    out = (dots * kqt.scale[None] - xsum[:, None, :] * kqt.zs[None]).sum(dim=-1)
+    scale, zs = _ax1_meta(kqt)
+    out = (dots * scale[None] - xsum[:, None, :] * zs[None]).sum(dim=-1)
     return (out * sx).to(out_dtype)
 
 
@@ -697,7 +797,7 @@ def w4a8_matmul(
         code = lib.hqq_w4a8_matmul(
             _ptr(x8, 4), _ptr(sx, 4), _ptr(kqt.wq, 16), _ptr(kqt.scale, 4), _ptr(kqt.zs, 4),
             _ptr(out, 2), m, kqt.n, k, kqt.group_size, kqt.container_bits,
-            _DTYPE_CODE[out_dtype], _stream(dev),
+            _DTYPE_CODE[out_dtype], _DTYPE_CODE[kqt.scale.dtype], _stream(dev),
         )
     _build.check("w4a8_matmul", code)
     w4a8_matmul.launches += 1
@@ -739,7 +839,8 @@ def w4a8_lora_matmul(
         code = lib.hqq_w4a8_lora_matmul(
             _ptr(x8, 4), _ptr(sx, 4), _ptr(kqt.wq, 16), _ptr(kqt.scale, 4), _ptr(kqt.zs, 4),
             _ptr(xa, 4), _ptr(b, 4), _ptr(out, 2), m, kqt.n, k, r, kqt.group_size,
-            kqt.container_bits, _DTYPE_CODE[out_dtype], _stream(dev),
+            kqt.container_bits, _DTYPE_CODE[out_dtype], _DTYPE_CODE[kqt.scale.dtype],
+            _stream(dev),
         )
     _build.check("w4a8_lora_matmul", code)
     w4a8_lora_matmul.launches += 1
@@ -747,7 +848,7 @@ def w4a8_lora_matmul(
 
 
 _WRAPPERS = (dequant, quant_matmul, quant_matmul_lora, quant_matmul_ax0, w4a8_matmul,
-             w4a8_lora_matmul)
+             w4a8_lora_matmul, qmm_fp32)
 
 
 def reset_launch_counts() -> None:
@@ -807,26 +908,22 @@ def quant_matmul_pallas_a8(x: torch.Tensor, kqt: "KernelQTensor | KernelQTensor0
 
 def quant_matmul_pallas_lora(
     x: torch.Tensor, kqt: KernelQTensor, a: torch.Tensor, b: torch.Tensor,
-    a_t: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``x @ W_dq^T + (x @ a) @ b`` in one kernel (`quant_matmul_lora`).
-    a: [K, r], b: [r, N] with the adapter's scaling folded in; any r >= 1;
-    a_t: a in the kernel's layout, or None (`quant_matmul_lora`)."""
+    a: [K, r], b: [r, N] with the adapter's scaling folded in; any r >= 1."""
     lead = x.shape[:-1]
-    out = quant_matmul_lora(x.reshape(-1, kqt.k), kqt, a, b, a_t)
+    out = quant_matmul_lora(x.reshape(-1, kqt.k), kqt, a, b)
     return out.reshape(*lead, kqt.n)
 
 
 def quant_matmul_pallas_a8_lora(
     x: torch.Tensor, kqt: KernelQTensor, a: torch.Tensor, b: torch.Tensor,
-    a_t: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``x @ W_dq^T + (x @ a) @ b`` with the base on the int8 decode kernel
     and the adapter in its epilogue (`w4a8_lora_matmul`).
 
     The routing of `hqq_tpu`'s `quant_matmul_pallas_a8_lora`: M > 32 and
-    8-bit weights take `quant_matmul_pallas_lora` (with ``a_t``, a in that
-    kernel's layout, or None). Its third route, K not a
+    8-bit weights take `quant_matmul_pallas_lora`. Its third route, K not a
     multiple of 8 groups, does not exist here: the w4a8 kernel serves every
     K % g == 0. The rank-r partial xa = x @ a is a plain matmul on the
     unquantized activations, outside the kernel as in `hqq_tpu`, so the
@@ -836,7 +933,7 @@ def quant_matmul_pallas_a8_lora(
     lead = x.shape[:-1]
     x2 = x.reshape(-1, kqt.k)
     if x2.shape[0] > A8_MAX_M or kqt.nbits == 8:
-        return quant_matmul_pallas_lora(x, kqt, a, b, a_t)
+        return quant_matmul_pallas_lora(x, kqt, a, b)
     x8, sx = quantize_activations_int8(x2)
     xa = x2.to(torch.float32) @ a.to(torch.float32)
     out = w4a8_lora_matmul(x8, sx, kqt, xa, b, x.dtype)

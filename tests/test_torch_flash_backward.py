@@ -1,0 +1,169 @@
+# SPDX-License-Identifier: Apache-2.0
+"""The backward of the port's flash attention against hqq_tpu's and the
+library's references, on the CPU.
+
+`flash_attention_backward_plain` is the plain twin of the dK/dV and dQ
+kernels (csrc/flash_backward.cu), which the card tests hold to it. Here it
+is held, in fp32, to:
+  * `jax.vjp` of `hqq_tpu.ops.attention.prefill_attention` (its naive path on
+    the CPU) with K and V repeated over each kv head's query heads, as
+    `hqq_tpu`'s model does; the port shares them by index;
+  * the library's own `mha_reference_bwd`, the VJP that its flash kernel's
+    tests use, fed the library forward's saved statistics (its lse =
+    m + log l).
+GQA, ragged T, head sizes 64 and 128, causal and not. Bars: rel err < 1e-5
+of max|grad| (the same fp32 products, summed in another order). Then the
+autograd Function of `flash_attention`, `prefill_attention`'s routing under
+autograd, the backward launch plan's tables, and a check that the wrappers
+count no launch on the CPU.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas.ops.tpu import flash_attention as lib
+
+from hqq_tpu.ops.attention import prefill_attention as j_prefill
+from hqq_tpu_torch.ops import attention as at
+from hqq_tpu_torch.ops.fused_matmul import H100_SMEM_PER_BLOCK
+
+_CASES = [(1, 4, 2, 300, 64), (2, 2, 2, 257, 128), (1, 4, 1, 129, 64), (1, 2, 2, 256, 128)]
+
+
+def _inputs(b, nh, n_kv, t, hd, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, nh, t, hd)).astype(np.float32)
+    k = rng.standard_normal((b, n_kv, t, hd)).astype(np.float32)
+    v = rng.standard_normal((b, n_kv, t, hd)).astype(np.float32)
+    do = rng.standard_normal((b, nh, t, hd)).astype(np.float32)
+    return q, k, v, do
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.abs(a - b).max() / np.abs(b).max()
+
+
+def _port(q, k, v, do, causal, lse=None, o=None):
+    qt, kt, vt, dot = (torch.from_numpy(x) for x in (q, k, v, do))
+    if o is None:
+        o = at.flash_attention_plain(qt, kt, vt, causal)
+    if lse is None:
+        lse = at._plain_lse(qt, kt, causal, None)
+    return [x.numpy() for x in at.flash_attention_backward_plain(
+        qt, kt, vt, torch.as_tensor(np.array(o)), torch.as_tensor(np.array(lse)), dot, causal)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,nh,n_kv,t,hd", _CASES)
+def test_backward_plain_matches_prefill_attention_vjp(causal, b, nh, n_kv, t, hd):
+    q, k, v, do = _inputs(b, nh, n_kv, t, hd, seed=t + hd + nh)
+    rep = nh // n_kv
+
+    def fwd(q, k, v):
+        k, v = jnp.repeat(k, rep, axis=1), jnp.repeat(v, rep, axis=1)
+        return j_prefill(q, k, v, causal=causal)
+
+    _, vjp = jax.vjp(fwd, *(jnp.asarray(x) for x in (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    got = _port(q, k, v, do, causal)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and _rel(g, w) < 1e-5
+
+
+@pytest.mark.parametrize("b,nh,n_kv,t,hd", _CASES)
+def test_backward_plain_matches_library_reference(b, nh, n_kv, t, hd):
+    """mha_reference_bwd takes the scale folded into q (it refuses any other
+    sm_scale): its dQ is then the gradient of the scaled q, scale times less
+    than ours; its dK and dV are ours. lse = m + log l of its forward."""
+    q, k, v, do = _inputs(b, nh, n_kv, t, hd, seed=7 * t + hd)
+    rep, scale = nh // n_kv, hd**-0.5
+    qs = jnp.asarray(q * scale)
+    kr, vr = (jnp.repeat(jnp.asarray(x), rep, axis=1) for x in (k, v))
+    o, l, m = lib.mha_reference_no_custom_vjp(qs, kr, vr, causal=True, save_residuals=True)
+    dq, dk, dv, _ = lib.mha_reference_bwd(qs, kr, vr, None, None, o, l, m, jnp.asarray(do),
+                                          causal=True)
+    dk = np.asarray(dk).reshape(b, n_kv, rep, t, hd).sum(axis=2)
+    dv = np.asarray(dv).reshape(b, n_kv, rep, t, hd).sum(axis=2)
+    lse = np.asarray(m) + np.log(np.asarray(l))
+    got = _port(q, k, v, do, True, lse=lse, o=np.asarray(o))
+    for g, w in zip(got, (np.asarray(dq) * scale, dk, dv)):
+        assert _rel(g, w) < 1e-5
+
+
+def test_backward_controls_miss_the_bar():
+    """The chip's controls, on the CPU: the D term dropped, and the causal
+    mask shifted by one, each miss the bar by far."""
+    q, k, v, do = _inputs(1, 4, 2, 300, 64, seed=3)
+    qt, kt, vt, dot = (torch.from_numpy(x) for x in (q, k, v, do))
+    o = at.flash_attention_plain(qt, kt, vt, True)
+    lse = at._plain_lse(qt, kt, True, None)
+    ref = at.flash_attention_backward_plain(qt, kt, vt, o, lse, dot, True)
+    no_d = at.flash_attention_backward_plain(qt, kt, vt, torch.zeros_like(o), lse, dot, True)
+    shifted = at.flash_attention_backward_plain(qt, kt, vt, o, lse, dot, False)
+    for bad in (no_d, shifted):
+        assert max(_rel(b.numpy(), r.numpy()) for b, r in zip(bad, ref)) > 1e-2
+
+
+@pytest.mark.parametrize("t,flash", [(255, False), (256, True), (300, True)])
+def test_prefill_attention_gradients(t, flash):
+    """Under autograd, prefill_attention takes the flash Function from T =
+    256 on (its backward is the plain twin on the CPU) and the naive path
+    below; both give hqq_tpu's gradients."""
+    q, k, v, do = _inputs(1, 4, 2, t, 64, seed=t)
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = at.prefill_attention(qt, kt, vt, causal=True)
+    assert (out.grad_fn.__class__.__name__ == "_FlashAttentionBackward") == flash
+    got = torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(do))
+
+    def fwd(q, k, v):
+        return j_prefill(q, jnp.repeat(k, 2, axis=1), jnp.repeat(v, 2, axis=1), causal=True)
+
+    out_j, vjp = jax.vjp(fwd, *(jnp.asarray(x) for x in (q, k, v)))
+    assert _rel(out.detach().numpy(), out_j) < 1e-5
+    for g, w in zip(got, vjp(jnp.asarray(do))):
+        assert _rel(g.numpy(), w) < 1e-5
+
+
+def test_flash_function_counts_no_launch_on_cpu():
+    q, k, v, do = _inputs(1, 2, 2, 256, 64, seed=1)
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    counts = [w.launches for w in (at.flash_attention, at.flash_attention_fp32,
+                                   at.flash_attention_backward_dkv,
+                                   at.flash_attention_backward_dq)]
+    at.flash_attention(qt, kt, vt).backward(torch.from_numpy(do))
+    assert all(g is not None for g in (qt.grad, kt.grad, vt.grad))
+    assert [w.launches for w in (at.flash_attention, at.flash_attention_fp32,
+                                 at.flash_attention_backward_dkv,
+                                 at.flash_attention_backward_dq)] == counts
+
+
+@pytest.mark.parametrize("hd", list(range(16, 257, 16)))
+def test_backward_plan_fits(hd):
+    """Every head size pads to 64, 128 or 256, with tiles of 64 rows (32 at
+    256), and each kernel's shared memory (the formula of the source) fits
+    a block of the card."""
+    plan = at.flash_backward_launch_plan(2, 8, 2, 300, hd)
+    assert plan.head_pad == next(p for p in (64, 128, 256) if p >= hd)
+    assert plan.tile == (32 if plan.head_pad == 256 else 64)
+    ld = plan.head_pad + 1
+    rows, ptile = plan.tile * ld, plan.tile * (plan.tile + 1)
+    assert plan.smem_dkv == 4 * (4 * rows + 2 * ptile + 2 * plan.tile)
+    assert plan.smem_dq == 4 * (4 * rows + ptile + 2 * plan.tile)
+    assert plan.smem_fwd == 4 * (3 * rows + ptile)
+    assert max(plan.smem_dkv, plan.smem_dq, plan.smem_fwd) <= H100_SMEM_PER_BLOCK
+    tiles = -(-300 // plan.tile)
+    assert (plan.blocks_dkv, plan.blocks_dq) == (2 * 2 * tiles, 2 * 8 * tiles)
+
+
+def test_backward_plan_of_the_7b_path():
+    plan = at.flash_backward_launch_plan(1, 32, 32, 1024, 128)
+    assert (plan.head_pad, plan.tile, plan.blocks_dkv, plan.blocks_dq) == (128, 64, 512, 512)
+
+
+@pytest.mark.parametrize("heads,kv_heads,hd", [(8, 2, 8), (8, 2, 40), (8, 2, 272), (8, 3, 64)])
+def test_backward_plan_refuses(heads, kv_heads, hd):
+    with pytest.raises(ValueError):
+        at.flash_backward_launch_plan(1, heads, kv_heads, 256, hd)

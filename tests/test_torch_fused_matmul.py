@@ -12,7 +12,15 @@ Bars:
   * quant_matmul_pallas in fp32: rtol 1e-5 of max|y|;
   * dequant_pallas: equal to fp32 rounding. hqq_tpu's 4-bit layout stores
     zs = (zero - 8)*scale for signed codes, the port zero*scale for
-    unsigned ones, so the two differ by the rounding of that product.
+    unsigned ones, so the two differ by the rounding of that product;
+  * a layer served with bf16 scale and zs (axis=1): the port stores the
+    bf16 values hqq_tpu stores, bit for bit (in the 4-bit container both
+    keep (zero - 8)*scale); the int8 route (M <= 32) matches hqq_tpu to
+    2e-5 of max|y|; hqq_tpu's bf16-operand kernel dequantizes in bf16
+    arithmetic (each weight rounded to bf16, 2^-9 of it) where the port
+    widens to fp32 first, so that route holds at 2^-7 of max|y|, and the
+    port's output is within 1e-5 of the float64 product with the stored
+    values.
 """
 
 import jax
@@ -124,3 +132,36 @@ def test_wrappers_count_nothing_on_cpu():
     tf.quant_matmul_pallas(torch.from_numpy(x), kt)
     tf.dequant_pallas(kt)
     assert (tf.w4a8_matmul.launches, tf.quant_matmul.launches, tf.dequant.launches) == (0, 0, 0)
+
+
+@pytest.mark.parametrize("m", [3, 40])
+@pytest.mark.parametrize("nbits,g", [(4, 64), (2, 32), (3, 64), (8, 64)])
+def test_bf16_meta_layer_matches_hqq_tpu(m, nbits, g):
+    from hqq_tpu.backends import pallas_backend as jb
+    from hqq_tpu.nn.linear import QuantLinear as JQuantLinear
+    from hqq_tpu_torch.backends import pallas_backend as tb
+
+    rng = np.random.default_rng(m + nbits * 10)
+    w = (rng.standard_normal((256, 512)) / np.sqrt(512)).astype(np.float32)
+    qj = j_quantize(jnp.asarray(w), nbits=nbits, group_size=g, axis=1,
+                    round_zero=(nbits == 4), compute_dtype=jnp.float32)
+    lj = JQuantLinear(qweight=qj)
+    lt = params_from_numpy(jax.tree_util.tree_map(np.asarray, lj), "cpu")
+    x = rng.standard_normal((m, 512)).astype(np.float32)
+    groups = 512 // g
+    for pj, pt in ((jb.patch_quantlinear_to_pallas, tb.patch_quantlinear_to_pallas),
+                   (jb.patch_quantlinear_to_w4a8, tb.patch_quantlinear_to_w4a8)):
+        mj, mt = pj(lj, meta_dtype=jnp.bfloat16), pt(lt, meta_dtype=torch.bfloat16)
+        assert mt.kqt.scale.dtype == torch.bfloat16 and mt.kqt.scale.shape[1] % 8 == 0
+        for name in ("scale", "zs"):
+            want = np.asarray(getattr(mj.kqt, name).astype(jnp.float32))[:groups, :256].T
+            assert np.array_equal(getattr(mt.kqt, name)[:, :groups].float().numpy(), want)
+        yj = np.asarray(mj(jnp.asarray(x)))
+        yt = mt(torch.from_numpy(x)).numpy()
+        scale = np.abs(yj).max()
+        int8_route = pt is tb.patch_quantlinear_to_w4a8 and m <= tf.A8_MAX_M and nbits != 8
+        assert np.abs(yt - yj).max() / scale < (2e-5 if int8_route else 2.0**-7)
+        if not int8_route:
+            w64 = tf.dequant_plain(mt.kqt, torch.float64).numpy()
+            expected = x.astype(np.float64) @ w64.T
+            assert np.abs(yt - expected).max() / np.abs(expected).max() < 1e-5

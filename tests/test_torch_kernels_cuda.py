@@ -8,8 +8,8 @@ suite's conftest imports JAX, which the GPU machine need not have). They
 cover what ``chip_smoke.py`` does not: every container (1/2/4/8-bit), group sizes,
 ragged N, K tails, M from 1 to 32 (w4a8) and beyond (quant_matmul, up to
 1023: both token tiles of the Hopper mainloop, K split at decode sizes), LoRA
-ranks 1 to 200 (above 16 the kernel walks K once per chunk of 64 ranks), fp32 and bf16 scale and zs of the axis=0 layout, and every
-output type. Tolerances (of max|y|): w4a8 in fp32 1e-5 (exact group dots,
+ranks 1 to 200 (above 16 the kernel walks K once per chunk of 64 ranks), fp32 and bf16 scale and zs of both layouts, the fp32
+route (`qmm_fp32`) of the three matmuls, and every output type. Tolerances (of max|y|): w4a8 in fp32 1e-5 (exact group dots,
 the fp32 epilogue sums in another order); bf16/fp16 outputs add one rounding
 of the output (2^-7 / 2^-10), doubled for the tile kernels, whose fp32 sums
 of bf16 products run in another order before that rounding; dequant exact.
@@ -17,9 +17,10 @@ of bf16 products run in another order before that rounding; dequant exact.
 The two attention kernels likewise: `paged_attention` over head sizes, GQA
 ratios, page sizes, lengths at page edges and of 1, every page type, and
 `flash_attention` over head sizes, GQA, ragged T, both types, causal and
-not. Their plain versions round the probabilities to q's type before the
-second product, which the kernels keep in fp32 (paged) or round unnormalised
-(flash); the bars are stated at the tests.
+not, its log-sum-exp, its fp32 route and its backward (the dK/dV and dQ
+kernels) in every type. Their plain versions round the probabilities to q's
+type before the second product, which the kernels keep in fp32 (paged) or
+round unnormalised (flash); the bars are stated at the tests.
 """
 
 import pytest
@@ -218,7 +219,7 @@ def test_quant_matmul_lora_repeats_bit_equal(cuda, m, n, r):
     """The LoRA term stages the accumulators in the A tiles that the
     epilogue then writes: run after run, at the 128-token tile and at the
     small tiles with K split, the output is the same to the bit, and the
-    serving layer's A^T gives what A alone gives."""
+    serving layer gives what the wrapper gives."""
     from hqq_tpu_torch.backends.pallas_backend import PallasLoRAQuantLinear
 
     kqt = _kqt(n, 4096, 64, 4, cuda, seed=r)
@@ -227,11 +228,7 @@ def test_quant_matmul_lora_repeats_bit_equal(cuda, m, n, r):
     first = fm.quant_matmul_lora(x, kqt, a, b)
     for _ in range(20):
         assert torch.equal(fm.quant_matmul_lora(x, kqt, a, b), first)
-    layer = PallasLoRAQuantLinear(kqt, a, b)
-    assert layer.a_t.dtype == x.dtype
-    assert torch.equal(layer(x), first)
-    with pytest.raises(ValueError):
-        fm.quant_matmul_lora(x, kqt, a, b, layer.a_t[:, :-8])
+    assert torch.equal(PallasLoRAQuantLinear(kqt, a, b)(x), first)
 
 
 @pytest.mark.parametrize("m", [1, 4, 8, 17, 32])
@@ -342,11 +339,16 @@ def test_routing_counts_and_no_fallback(cuda):
     fm.dequant_pallas(kqt0)
     counts = {w.__name__: w.launches for w in fm._WRAPPERS}
     assert counts == {"w4a8_matmul": 1, "quant_matmul": 1, "w4a8_lora_matmul": 1,
-                      "quant_matmul_lora": 1, "quant_matmul_ax0": 2, "dequant": 2}
-    with pytest.raises(ValueError):  # the kernels take bf16/fp16 operands only
-        fm.quant_matmul(torch.randn(40, 512, device=cuda), kqt)
-    with pytest.raises(ValueError):
-        fm.quant_matmul_ax0(torch.randn(40, 512, device=cuda), kqt0)
+                      "quant_matmul_lora": 1, "quant_matmul_ax0": 2, "dequant": 2,
+                      "qmm_fp32": 0}
+    # fp32 activations take the fp32 route, never a bf16 kernel
+    x32 = torch.randn(40, 512, device=cuda)
+    _close(fm.quant_matmul(x32, kqt), fm.quant_matmul_plain(x32, kqt), _OUT_TOL[torch.float32])
+    _close(fm.quant_matmul_ax0(x32, kqt0), fm.quant_matmul_ax0_plain(x32, kqt0),
+           _OUT_TOL[torch.float32])
+    assert fm.qmm_fp32.launches == 2 and fm.quant_matmul.launches == 1
+    with pytest.raises(ValueError):  # int8 activations are the w4a8 kernel's alone
+        fm.quant_matmul(torch.ones(40, 512, device=cuda, dtype=torch.int8), kqt)
 
 
 # fp32 and int8 pages (q in fp32): fp32 sums in another order and another
@@ -491,11 +493,11 @@ def test_prefill_attention_route(cuda, t, kernel):
 def test_flash_attention_refuses(cuda):
     q, k, v = _flash_case(cuda, 1, 2, 2, 256, 64, torch.bfloat16)
     with pytest.raises(ValueError):
-        at.flash_attention(q.float(), k.float(), v.float())  # fp32 on the card
+        at.flash_attention(q.double(), k.double(), v.double())  # no fp64 kernel
     with pytest.raises(ValueError):
         at.flash_attention(q[..., :40], k[..., :40], v[..., :40])  # head_dim % 16
-    with pytest.raises(NotImplementedError):
-        at.flash_attention(q.requires_grad_(), k, v)  # no backward kernel yet
+    with pytest.raises(ValueError):
+        at.flash_attention(q, k.float(), v)  # k not of q's type
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
@@ -515,3 +517,225 @@ def test_flash_attention_long_and_wide(cuda, b, nh, n_kv, t):
     q, k, v = _flash_case(cuda, b, nh, n_kv, t, 128, torch.bfloat16, seed=t)
     _close(at.flash_attention(q, k, v, True), at.flash_attention_plain(q, k, v, True),
            _FLASH_TOL[torch.bfloat16])
+
+
+# -- axis=1 layouts with bf16 scale and zs (`hqq_tpu` serves them) ----------
+
+def _kqt_bf16(n, k, g, nbits, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w = torch.randn((n, k), generator=gen, device=device) / k**0.5
+    return fm.to_kernel_layout(quantize(w, nbits=nbits, group_size=g, axis=1,
+                                        round_zero=(nbits == 4)), torch.bfloat16)
+
+
+_BF16_META_CASES = [
+    (4, 64, 512, 1000),     # ragged N
+    (4, 64, 4096, 4096),    # K split at decode sizes
+    (4, 32, 1024, 384),
+    (4, 128, 1024, 256),    # a group across two slabs
+    (4, 24, 960, 256),      # g = 24 neither divides nor is a multiple of 64: cp.async meta
+    (2, 16, 512, 256),
+    (1, 32, 512, 256),      # 1-bit: codes by cp.async
+    (8, 64, 512, 256),
+    (4, 64, 64 * 67, 256),  # 67 groups: bf16 rows padded to 72 columns
+]
+
+
+@pytest.mark.parametrize("m", [1, 4, 33, 512])
+@pytest.mark.parametrize("nbits,g,k,n", _BF16_META_CASES)
+def test_axis1_bf16_meta(cuda, m, nbits, g, k, n):
+    """quant_matmul, quant_matmul_lora, w4a8 (both entries) and dequant on
+    an axis=1 layout whose scale and zs are bf16, widened to fp32 as they
+    are read: the bars of the fp32-meta cases against the plain versions."""
+    kqt = _kqt_bf16(n, k, g, nbits, cuda, seed=m)
+    assert kqt.scale.dtype == torch.bfloat16 and kqt.scale.shape[1] % 8 == 0
+    a, b = _lora(k, n, 8, cuda, seed=m)
+    x = torch.randn((m, k), device=cuda).to(torch.bfloat16)
+    tol = _OUT_TOL[torch.bfloat16] * 2
+    _close(fm.quant_matmul(x, kqt), fm.quant_matmul_plain(x, kqt), tol)
+    _close(fm.quant_matmul_lora(x, kqt, a, b), fm.quant_matmul_lora_plain(x, kqt, a, b), tol)
+    for dtype in _OUT_TOL:
+        assert torch.equal(fm.dequant(kqt, dtype), fm.dequant_plain(kqt, dtype))
+    if m <= fm.A8_MAX_M and nbits != 8:
+        x8, sx = fm.quantize_activations_int8(x)
+        xa = x.float() @ a
+        for dtype, t in _OUT_TOL.items():
+            _close(fm.w4a8_matmul(x8, sx, kqt, dtype), fm.w4a8_matmul_plain(x8, sx, kqt, dtype), t)
+            _close(fm.w4a8_lora_matmul(x8, sx, kqt, xa, b, dtype),
+                   fm.w4a8_lora_matmul_plain(x8, sx, kqt, xa, b, dtype), t)
+
+
+# -- the fp32 route of the matmuls -----------------------------------------
+
+@pytest.mark.parametrize("m", [1, 33, 512])
+@pytest.mark.parametrize("layout,nbits,g,k,n,r", [
+    ("ax1", 4, 64, 4096, 4096, 0),
+    ("ax1", 4, 64, 512, 1000, 8),
+    ("ax1-bf16", 4, 64, 1024, 384, 8),
+    ("ax1", 2, 16, 512, 256, 20),     # two rank chunks of the LoRA term
+    ("ax1", 3, 24, 960, 200, 1),
+    ("ax1", 8, 64, 512, 256, 65),
+    ("ax0", 3, 64, 512, 320, 0),
+    ("ax0-bf16", 2, 16, 200, 256, 0),  # K padded to 224
+])
+def test_qmm_fp32(cuda, m, layout, nbits, g, k, n, r):
+    """fp32 x through quant_matmul / quant_matmul_ax0 / quant_matmul_lora
+    takes the fp32 route and holds its plain version at the fp32 bar
+    (1e-5 of max|y|: the same fp32 products, summed in another order); the
+    same x rounded to bf16 first misses it."""
+    meta = torch.bfloat16 if layout.endswith("bf16") else torch.float32
+    if layout.startswith("ax0"):
+        kqt = _kqt0(n, k, g, nbits, meta, cuda, seed=m)
+    else:
+        gen = torch.Generator(device=cuda).manual_seed(m)
+        w = torch.randn((n, k), generator=gen, device=cuda) / k**0.5
+        kqt = fm.to_kernel_layout(quantize(w, nbits=nbits, group_size=g, axis=1), meta)
+    x = torch.randn((m, k), device=cuda)
+    launches = fm.qmm_fp32.launches
+    if r:
+        a, b = _lora(k, n, r, cuda, seed=r)
+        got, ref = fm.quant_matmul_lora(x, kqt, a, b), fm.quant_matmul_lora_plain(x, kqt, a, b)
+        cast = fm.quant_matmul_lora_plain(x.to(torch.bfloat16), kqt, a, b)
+    else:
+        fn, plain = ((fm.quant_matmul_ax0, fm.quant_matmul_ax0_plain) if layout.startswith("ax0")
+                     else (fm.quant_matmul, fm.quant_matmul_plain))
+        got, ref, cast = fn(x, kqt), plain(x, kqt), plain(x.to(torch.bfloat16), kqt)
+    assert got.dtype == torch.float32 and fm.qmm_fp32.launches == launches + 1
+    _close(got, ref, _OUT_TOL[torch.float32])
+    assert (cast.float() - ref).abs().max() > _OUT_TOL[torch.float32] * ref.abs().max()
+
+
+# -- flash attention: log-sum-exp, the fp32 route, the backward ------------
+
+# fp32 kernels against fp32 plain versions: exp2 against exp and sums in
+# another order; a bf16 rounding of the inputs is some 2^-9 of them
+_FLASH_FP32_TOL = 1e-4
+# backward, bf16/fp16: every product and sum in fp32 on both sides, then one
+# rounding of each output; outputs rounded to different sides lie one step
+# apart: twice the step of the type, of max|grad|
+_FLASH_BWD_TOL = {torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10, torch.float32: 1e-4}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("hd,t", [(64, 300), (128, 1023), (256, 257), (80, 129)])
+def test_flash_attention_lse(cuda, dtype, hd, t):
+    """The forward under autograd writes each row's log-sum-exp; it equals
+    the plain one (fp32 scores of the same inputs) to fp32 precision."""
+    q, k, v = _flash_case(cuda, 1, 4, 2, t, hd, dtype, seed=hd)
+    for causal in (True, False):
+        out, lse = at._flash_forward(q, k, v, causal, None, with_lse=True)
+        ref = at._plain_lse(q, k, causal, None)
+        assert torch.isfinite(lse).all()
+        assert (lse - ref).abs().max() <= 1e-5 * ref.abs().max() + 1e-5
+        assert torch.equal(out, at.flash_attention(q, k, v, causal))
+
+
+@pytest.mark.parametrize("nh,n_kv,t,hd", [
+    (4, 2, 300, 64), (2, 2, 1, 128), (2, 1, 65, 128), (8, 8, 512, 128), (2, 2, 257, 256),
+    (2, 2, 100, 16),
+])
+def test_flash_attention_fp32(cuda, nh, n_kv, t, hd):
+    q, k, v = _flash_case(cuda, 2, nh, n_kv, t, hd, torch.float32, seed=t)
+    for causal in (True, False):
+        launches = at.flash_attention_fp32.launches
+        got = at.flash_attention(q, k, v, causal)
+        ref = at.flash_attention_plain(q, k, v, causal)
+        assert got.dtype == torch.float32 and at.flash_attention_fp32.launches == launches + 1
+        _close(got, ref, _FLASH_FP32_TOL)
+        out, lse = at.flash_attention_fp32(q, k, v, causal, None, with_lse=True)
+        assert torch.equal(out, got)
+        ref_lse = at._plain_lse(q, k, causal, None)
+        assert (lse - ref_lse).abs().max() <= 1e-5 * ref_lse.abs().max() + 1e-5
+    cast = at.flash_attention_plain(*(x.to(torch.bfloat16) for x in (q, k, v)), True)
+    ref = at.flash_attention_plain(q, k, v, True)
+    assert (cast.float() - ref).abs().max() > _FLASH_FP32_TOL * ref.abs().max()
+
+
+def _bwd_case(device, b, nh, n_kv, t, hd, dtype, causal, seed=0):
+    q, k, v = _flash_case(device, b, nh, n_kv, t, hd, dtype, seed=seed)
+    lse = at._plain_lse(q, k, causal, None)
+    o = at.flash_attention_plain(q, k, v, causal)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    do = torch.randn(o.shape, generator=gen, device=device).to(dtype)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("b,nh,n_kv,t,hd", [
+    (1, 4, 2, 300, 64), (2, 2, 2, 257, 128), (1, 4, 1, 129, 256), (1, 2, 2, 64, 80),
+    (1, 2, 2, 1, 16), (1, 2, 2, 3, 16), (1, 8, 2, 1023, 128), (1, 2, 2, 65, 112),
+])
+def test_flash_attention_backward(cuda, causal, dtype, b, nh, n_kv, t, hd):
+    """dQ, dK and dV of the two kernels against the plain backward from the
+    same saved statistics; each kernel launches once. At T = 1 the one key
+    has P = 1, so dS = dO.V - D is 0 up to rounding and so are dQ and dK:
+    they are held to an absolute bar of a few fp32 steps of the sums that
+    make them (a relative bar would measure noise); dV = dO is held as at
+    every T."""
+    q, k, v, o, lse, do = _bwd_case(cuda, b, nh, n_kv, t, hd, dtype, causal, seed=t + hd)
+    launches = (at.flash_attention_backward_dkv.launches, at.flash_attention_backward_dq.launches)
+    got = at.flash_attention_backward(q, k, v, o, lse, do, causal)
+    ref = at.flash_attention_backward_plain(q, k, v, o, lse, do, causal)
+    assert (at.flash_attention_backward_dkv.launches,
+            at.flash_attention_backward_dq.launches) == (launches[0] + 1, launches[1] + 1)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert g.dtype == dtype and g.shape == r.shape
+        if t == 1 and i < 2:
+            # |D - dO.V| <= 2 hd^2 2^-24 max|dO| max|V|, times scale * max|K| (dQ) or |Q| (dK)
+            other = (k, q)[i].float().abs().max()
+            bar = 2 * hd * hd * 2.0**-24 * hd**-0.5 * other * do.float().abs().max() \
+                * v.float().abs().max()
+            err = max((g.float() - r.float()).abs().max(), g.float().abs().max())
+            assert torch.isfinite(g).all() and err <= bar, (i, err.item(), bar.item())
+        else:
+            _close(g, r, _FLASH_BWD_TOL[dtype])
+
+
+def test_flash_attention_backward_repeats_bit_equal(cuda):
+    """No atomics: run after run, dQ, dK and dV are the same to the bit."""
+    q, k, v, o, lse, do = _bwd_case(cuda, 1, 8, 2, 777, 128, torch.bfloat16, True, seed=7)
+    first = at.flash_attention_backward(q, k, v, o, lse, do, True)
+    for _ in range(10):
+        again = at.flash_attention_backward(q, k, v, o, lse, do, True)
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_autograd(cuda, dtype):
+    """Gradients through `prefill_attention` at T >= 256 (the Function: the
+    forward with its log-sum-exp, the two backward kernels) against autograd
+    of the plain version in fp32; a shifted mask misses the bar."""
+    q, k, v = _flash_case(cuda, 1, 4, 2, 384, 128, dtype, seed=3)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    do = torch.randn(q.shape, device=cuda).to(dtype)
+    out = at.prefill_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    q32, k32, v32 = (x.detach().float().requires_grad_() for x in (q, k, v))
+    ref = at.flash_attention_plain(q32, k32, v32, True)
+    refs = torch.autograd.grad(ref, (q32, k32, v32), do.float())
+    # bf16: the saved out is rounded and P is rounded in the forward only
+    tol = 2.0**-6 if dtype == torch.bfloat16 else _FLASH_FP32_TOL
+    for g, r in zip(grads, refs):
+        _close(g, r, tol)
+
+
+@pytest.mark.parametrize("m", [4, 64])
+def test_lora_layer_follows_a(cuda, m):
+    """After load_state_dict, or an in-place update of a, the serving
+    layer serves the new adapter at M = 4 (int8 route) and M = 64 (the
+    LoRA kernel) alike."""
+    from hqq_tpu_torch.backends.pallas_backend import A8LoRAQuantLinear, PallasLoRAQuantLinear
+
+    kqt = _kqt(512, 1024, 64, 4, cuda)
+    a, b = _lora(1024, 512, 8, cuda, seed=1)
+    a2, _ = _lora(1024, 512, 8, cuda, seed=2)
+    x = torch.randn((m, 1024), device=cuda).to(torch.bfloat16)
+    for cls in (A8LoRAQuantLinear, PallasLoRAQuantLinear):
+        layer = cls(kqt, a.clone(), b)
+        fresh = cls(kqt, a2.clone(), b)
+        layer.load_state_dict(fresh.state_dict())
+        assert torch.equal(layer(x), fresh(x))
+        layer.a.data.copy_(a)
+        assert torch.equal(layer(x), cls(kqt, a.clone(), b)(x))
+        assert not torch.equal(layer(x), fresh(x))

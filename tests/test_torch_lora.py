@@ -313,3 +313,28 @@ def test_lora_weights_file_crosses_packages(lora_models, tmp_path, writer):
         got = (np.asarray(got.lora_a), np.asarray(got.lora_b), np.asarray(got.bias))
     for g, w in zip(got, (want.lora_a, want.lora_b, want.bias)):
         np.testing.assert_array_equal(g, np.asarray(w))
+
+
+@pytest.mark.parametrize("layer", ["PallasLoRAQuantLinear", "A8LoRAQuantLinear"])
+def test_lora_layer_serves_a_changed_adapter(layer):
+    """One copy of A: the layer holds no tensor besides a and b, and after
+    load_state_dict, or an in-place update through a.data, the outputs at
+    M = 4 (the int8 route of the w4a8 layer) and M = 64 (the LoRA kernel)
+    both follow the new A."""
+    from hqq_tpu_torch.backends import pallas_backend as pb
+
+    _, kt, _, a, b, _ = _carry(4, 256, 512, 64, 4, 8)
+    a, b = torch.from_numpy(a), torch.from_numpy(b)
+    a2 = torch.from_numpy(np.random.default_rng(9).standard_normal(tuple(a.shape))
+                          .astype(np.float32) / 20)
+    cls = getattr(pb, layer)
+    mod, fresh, again = cls(kt, a.clone(), b), cls(kt, a2.clone(), b), cls(kt, a.clone(), b)
+    rng = np.random.default_rng(1)
+    xs = [torch.from_numpy(rng.standard_normal((m, 512)).astype(np.float32)) for m in (4, 64)]
+    assert list(mod.named_buffers()) == [] and set(mod.state_dict()) == {"a", "b"}
+    mod.load_state_dict(fresh.state_dict())
+    for x in xs:
+        assert torch.equal(mod(x), fresh(x))
+    mod.a.data.copy_(a)
+    for x in xs:
+        assert torch.equal(mod(x), again(x)) and not torch.equal(mod(x), fresh(x))

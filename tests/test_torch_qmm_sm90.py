@@ -152,9 +152,10 @@ def test_lora_a_kernel_layout(r, dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("layer", ["PallasLoRAQuantLinear", "A8LoRAQuantLinear"])
 def test_lora_layer_holds_a_in_kernel_layout(layer, dtype):
-    """A patched HQQ+ layer holds A^T in the kernel's layout and its
-    weight's compute type, built when the layer is made (the wrapper takes
-    it as given), and its forward is the wrapper's."""
+    """A patched HQQ+ layer holds A only as ``a``, from which the wrapper
+    builds the kernel's layout at each call: A^T in the weight's compute
+    type, its rank padded with zero rows to a whole chunk. Its forward is
+    the wrapper's."""
     from hqq_tpu_torch.backends import pallas_backend as pb
     from hqq_tpu_torch.core.quantize import quantize
 
@@ -164,8 +165,10 @@ def test_lora_layer_holds_a_in_kernel_layout(layer, dtype):
     a = torch.from_numpy(rng.standard_normal((320, 8)).astype(np.float32))
     b = torch.from_numpy(rng.standard_normal((8, 256)).astype(np.float32))
     mod = getattr(pb, layer)(kqt, a, b)
-    assert torch.equal(mod.a_t, tf.lora_a_kernel_layout(a, dtype, tf.lora_rank_tile(8)))
-    assert "a_t" not in mod.state_dict() and not mod.a_t.requires_grad
+    assert list(mod.named_buffers()) == [] and set(mod.state_dict()) == {"a", "b"}
+    a_t = tf.lora_a_kernel_layout(mod.a, dtype, tf.lora_rank_tile(8))
+    assert a_t.dtype == dtype and tuple(a_t.shape) == (16, 320) and not a_t.requires_grad
+    assert torch.equal(a_t[:8], a.t().to(dtype)) and not a_t[8:].any()
     x = torch.from_numpy(rng.standard_normal((40, 320)).astype(np.float32)).to(dtype)
     torch.testing.assert_close(mod(x), tf.quant_matmul_lora_plain(x, kqt, a, b), rtol=0, atol=0)
 
@@ -255,3 +258,45 @@ def test_quant_matmul_pallas_lora_tile_edges(m, n_out, k, g, nbits, r):
                                      torch.from_numpy(b)).numpy()
     assert yt.shape == yj.shape == (m, n_out)
     assert np.abs(yt - yj).max() / np.abs(yj).max() < 2e-5
+
+
+@pytest.mark.parametrize("meta_size", [4, 2])
+@pytest.mark.parametrize("g", [8, 16, 24, 32, 40, 48, 64, 72, 96, 128, 256])
+def test_axis1_meta_slot_holds_every_group_of_a_slab(meta_size, g):
+    """A pipeline slot of the axis=1 layout (`ax1_params` of qmm_sm90.cuh)
+    holds slab_groups groups of scale and zs per row, from a base group
+    aligned to the slot where g tiles the 64-wide slab, else to 4 bytes
+    (bf16: an even group): every group that a slab's 64 columns touch lies
+    in it, a row of it is at least 16 bytes, and the launch plan fits."""
+    slab_groups = tf._slab_meta_bytes(g, 1, meta_size) // (2 * tf.QMM_ROWS * meta_size)
+    assert slab_groups * meta_size >= 16
+    tiles = tf.QMM_SLAB % g == 0 or g % tf.QMM_SLAB == 0
+    align = slab_groups if tiles else 4 // meta_size
+    k = 4 * g * tf.QMM_SLAB  # many slabs, each start against each group
+    for k0 in range(0, k, tf.QMM_SLAB):
+        first, last = k0 // g, (k0 + tf.QMM_SLAB - 1) // g
+        base = first & ~(align - 1)
+        assert base <= first and last < base + slab_groups, (k0, base, slab_groups)
+    plan = tf.qmm_launch_plan(512, 4096, k, 4, g, meta_size=meta_size)
+    assert plan.smem <= tf.H100_SMEM_PER_BLOCK and plan.stages >= 2
+
+
+def test_bf16_meta_layout_pads_its_columns():
+    """bf16 scale and zs of the axis=1 layout are padded to a multiple of 8
+    columns (16-byte rows for TMA) with zeros; the plain dequant reads only
+    the K/g groups and gives the 4-bit container's zs its 8 * scale back."""
+    from hqq_tpu_torch.core.quantize import quantize, resolve_meta
+
+    w = torch.from_numpy(np.random.default_rng(3).standard_normal((64, 64 * 67)).astype(np.float32))
+    for nbits in (4, 2):
+        qt = quantize(w, nbits=nbits, group_size=64, axis=1, compute_dtype=torch.float32)
+        k32, k16 = tf.to_kernel_layout(qt), tf.to_kernel_layout(qt, torch.bfloat16)
+        assert tuple(k16.scale.shape) == tuple(k16.zs.shape) == (64, 72)
+        assert not k16.scale[:, 67:].any() and not k16.zs[:, 67:].any()
+        assert torch.equal(k16.scale[:, :67], k32.scale.to(torch.bfloat16))
+        offset = 8.0 if nbits == 4 else 0.0
+        meta = resolve_meta(qt)
+        scale, zero = (t.reshape(64, 67).to(torch.float32) for t in (meta.scale, meta.zero))
+        assert torch.equal(k16.zs[:, :67], ((zero - offset) * scale).to(torch.bfloat16))
+        w16 = tf.dequant_plain(k16)
+        assert (w16 - tf.dequant_plain(k32)).abs().max() < 2.0**-7 * w.abs().max()
