@@ -11,11 +11,10 @@
 Phases (any failure exits non-zero):
   (a) device and build: the card, its power limit, an nvcc build of every
       kernel under hqq_tpu_torch/csrc/ (seconds per source, registers and
-      spill stores of each kernel instantiation of the four wgmma
-      libraries), and the wgmma
-      (HGMMA) and TMA (UTMALDG) instructions in the SASS of those four
-      libraries (quant_matmul, quant_matmul_ax0, quant_matmul_lora,
-      flash_attention);
+      spill stores of each kernel instantiation of the five wgmma
+      sources), and the wgmma (HGMMA) and TMA (UTMALDG) instructions in the
+      SASS of those five (quant_matmul, quant_matmul_ax0, quant_matmul_lora,
+      flash_prefill, flash_backward_sm90);
   (b) each kernel against its plain PyTorch version at the main paths'
       shapes: largest error against the stated tolerance, kernel time, plain
       time, the least time the card could take (bound), and for the matmuls
@@ -26,11 +25,11 @@ Phases (any failure exits non-zero):
       the fp32 routes (qmm_fp32, flash_attention_fp32), each with controls
       that must miss its bar (a neighbour's scale, the 4-bit zs offset
       dropped; the inputs rounded to bf16); the flash backward kernels (dK/dV
-      and dQ) at path I's shape and around it, against the plain backward
-      from the same saved statistics and autograd of the plain forward in
-      fp32, controls (D dropped, the mask shifted by one), repeated runs
-      bit-equal, SDPA's backward as the yardstick; the forward with and
-      without its log-sum-exp;
+      and dQ) at path I's shape and around it, in bf16, fp16 and fp32,
+      against the plain backward from the same saved statistics and
+      autograd of the plain forward in fp32, controls (D dropped, the mask
+      shifted by one), repeated runs bit-equal, SDPA's backward as the
+      yardstick; the forward with and without its log-sum-exp;
   (c) the main path: Llama-2-7B at full width and depth with random weights
       from a seed, quantize_model(4-bit, g64), prepare_for_inference("w4a8"),
       generate for 4 prompts of 100 tokens (prefill M = 4*128 = 512 rows),
@@ -98,7 +97,8 @@ paged_attention the four numbers are slots, length, query heads and kv heads
 (bf16 pages of 16 rows, head size 128), for flash_attention, the two
 backward kernels (flash_attention_backward_dkv, flash_attention_backward_dq)
 and flash_attention_fp32 batch, T, query heads and kv heads (causal, head
-size 128; bf16, fp32 for the last).
+size 128; bf16, fp32 for the last); the backward kernels take the kv heads
+as KV[-HD[-TYPE]], e.g. 8-64-fp16, for another head size and type.
 """
 
 from __future__ import annotations
@@ -121,7 +121,7 @@ ROTATE_BYTES = 160 * 2**20  # cycle through input copies larger than the 50 MB L
 SRC = "hqq_tpu_torch/csrc/"
 # the sources of the Hopper mainloops (TMA, wgmma)
 WGMMA_SOURCES = ("quant_matmul.cu", "quant_matmul_ax0.cu", "quant_matmul_lora.cu",
-                 "flash_prefill.cu")
+                 "flash_prefill.cu", "flash_backward_sm90.cu")
 # wrapper -> (source, the TPU kernel it replaces, a second one it replaces)
 KERNELS = {
     "w4a8_matmul": ("w4a8_matmul.cu", "hqq_tpu/ops/fused_matmul.py:524",
@@ -137,9 +137,9 @@ KERNELS = {
     # the library flash attention's backward kernels, which the training
     # step of hqq_tpu/utils/training.py:98 reaches through its custom VJP
     "flash_attention_backward_dkv": (
-        "flash_backward.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:941", None),
+        "flash_backward_sm90.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:941", None),
     "flash_attention_backward_dq": (
-        "flash_backward.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:1287", None),
+        "flash_backward_sm90.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:1287", None),
     # the fp32 routes: what the TPU kernels do for fp32 inputs
     "qmm_fp32": ("qmm_fp32.cu", "hqq_tpu/ops/fused_matmul.py:307",
                  "hqq_tpu/ops/fused_matmul.py:1223, :1318, :1521"),
@@ -296,6 +296,8 @@ def phase_a(name: str, power: str) -> None:
             f"{min(map(int, regs))}-{max(map(int, regs))}, spill stores up to "
             f"{max(map(int, spills))} bytes")
         if kname in WGMMA_SOURCES:
+            serial = len(re.findall(r"wgmma.mma_async instructions are serialized", text))
+            log(f"[a]     ptxas notes of serialized wgmma (C751x): {serial}")
             # per kernel instantiation: (template arguments, registers, spill bytes)
             for fn, body in re.findall(r"Compiling entry function '(\w+)'(.*?)(?=Compiling|\Z)",
                                        text, flags=re.S):
@@ -411,11 +413,12 @@ def _paged_bound(lengths, nh: int, n_kv: int, int8: bool):
     return nbytes, 4.0 * sum(lengths) * nh * HEAD_DIM
 
 
-def _flash_inputs(b: int, nh: int, n_kv: int, t: int, copies: int, seed: int):
+def _flash_inputs(b: int, nh: int, n_kv: int, t: int, copies: int, seed: int,
+                  hd: int = HEAD_DIM):
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def one(heads):
-        return torch.randn((b, heads, t, HEAD_DIM), generator=gen, device="cuda",
+        return torch.randn((b, heads, t, hd), generator=gen, device="cuda",
                            dtype=torch.bfloat16)
 
     return [(one(nh), one(n_kv), one(n_kv)) for _ in range(copies)]
@@ -939,14 +942,19 @@ def _no_d(q, k, v, o, lse, do, causal=True, sm_scale=None):
 
 
 # the backward kernels against their plain twin from the same saved
-# statistics: every product and sum in fp32 on both sides, then one rounding
-# of each output; outputs rounded to different sides lie one step apart: two
-# steps of max|grad| in bf16 (fp32: the attention fp32 bar). Against autograd
-# of the plain forward in fp32 on the same values, the kernels' inputs also
-# carry the forward's roundings (its probabilities and its output, from which
-# D comes): four steps in bf16.
-TOL_BWD = {torch.bfloat16: 2.0**-7, torch.float32: TOL_FLASH_FP32}
-TOL_BWD_AUTOGRAD = {torch.bfloat16: 2.0**-5, torch.float32: TOL_FLASH_FP32}
+# statistics. Both sides round P and scale * dS to the inputs' type before
+# the second products (dV, dK, dQ), where the library's backward kernels
+# round them, sum every product in fp32 and round each output once; P and
+# dS come from fp32 S and dP summed in another order (and exp2 against
+# exp), so a few of their roundings, and of the outputs', fall to the other
+# side, one step apart: two steps of max|grad| in bf16 and fp16 (fp32: no
+# rounding, the attention fp32 bar). Against autograd of the plain forward
+# in fp32 on the same values, the kernels also carry the forward's
+# roundings (its probabilities and its output, from which D comes) and
+# their own of P and dS: four steps.
+TOL_BWD = {torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10, torch.float32: TOL_FLASH_FP32}
+TOL_BWD_AUTOGRAD = {torch.bfloat16: 2.0**-5, torch.float16: 2.0**-8,
+                    torch.float32: TOL_FLASH_FP32}
 
 
 def _sdpa_backward(q, k, v, do):
@@ -971,7 +979,7 @@ def phase_b_backward(record, held, iters: int) -> None:
 
     cases = [(1, 32, 32, 1024, 128, torch.bfloat16), (1, 32, 8, 1023, 128, torch.bfloat16),
              (2, 8, 8, 300, 64, torch.bfloat16), (1, 8, 8, 512, 256, torch.bfloat16),
-             (1, 8, 8, 512, 128, torch.float32)]
+             (1, 32, 32, 1024, 128, torch.float16), (1, 8, 8, 512, 128, torch.float32)]
     for b, nh, n_kv, t, hd, dtype in cases:
         gq = torch.Generator(device="cuda").manual_seed(t + hd)
         q = torch.randn((b, nh, t, hd), generator=gq, device="cuda").to(dtype)
@@ -981,7 +989,7 @@ def phase_b_backward(record, held, iters: int) -> None:
         out, lse = at._flash_forward(q, k, v, True, None, with_lse=True)
         got = at.flash_attention_backward(q, k, v, out, lse, do, True)
         ref = at.flash_attention_backward_plain(q, k, v, out, lse, do, True)
-        name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        name = {torch.bfloat16: "bf16", torch.float16: "fp16", torch.float32: "fp32"}[dtype]
         what = f"{name}, causal, B={b} heads {nh}/{n_kv} T={t} hd={hd}"
         errs = [held("flash backward " + g, x, r, TOL_BWD[dtype], what)
                 for g, x, r in zip(("dq", "dk", "dv"), got, ref)]
@@ -1006,14 +1014,13 @@ def phase_b_backward(record, held, iters: int) -> None:
             raise AssertionError(f"[b] flash backward {what}: repeated runs differ")
         del auto, q32, k32, v32, again
 
-        # each kernel alone, from the operands its wrapper prepares
+        # each kernel alone, from the operands its wrapper prepares (dK/dV
+        # with what its launch adds: lse and D padded where T is not a
+        # multiple of 4, and under GQA the sum of the query heads' partials)
         ops = at._backward_operands(q, k, v, out, lse, do, None)
-        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
         n = max(3, iters // 20)
-        dkv_ms = time_ms([lambda: at._backward_launch(
-            ops, True, None, dk, dv, "flash_attention_backward_dkv")], n)
-        dq_ms = time_ms([lambda: at._backward_launch(
-            ops, True, dq, None, None, "flash_attention_backward_dq")], n)
+        dkv_ms = time_ms([lambda: at._launch_dkv(ops, True)], n)
+        dq_ms = time_ms([lambda: at._launch_dq(ops, True)], n)
         plain_ms = time_ms([lambda: at.flash_attention_backward_plain(q, k, v, out, lse, do)],
                            max(2, iters // 50))
         sdpa = _sdpa_backward(q, k, v, do)
@@ -1022,7 +1029,7 @@ def phase_b_backward(record, held, iters: int) -> None:
         qo = b * nh * t * hd * esize
         kv = b * n_kv * t * hd * esize
         stats = 2 * b * nh * t * 4
-        kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+        kind = "fp32" if dtype == torch.float32 else "bf16"
         unit = b * nh * t * t * hd  # one causal product: 2 * T * T * hd / 2 per head
         for kname, ms, products, nbytes, e in (
                 ("flash_attention_backward_dkv", dkv_ms, 4, 2 * qo + 4 * kv + stats,
@@ -1037,7 +1044,7 @@ def phase_b_backward(record, held, iters: int) -> None:
                 library="the whole backward of scaled_dot_product_attention(is_causal=True), "
                         "dQ, dK and dV (autograd.grad alone)",
                 plain="the whole plain backward"))
-        del ops, dq, dk, dv, sdpa, got, ref
+        del ops, sdpa, got, ref
         torch.cuda.empty_cache()
 
     # the log-sum-exp option of the forward kernel at path H's shape
@@ -2203,7 +2210,7 @@ def phase_i_two_layer() -> dict:
             return max(rel(g, r) for g, r in zip(gs, plain))
 
         tol = TOL_I_GRADS[dtype]
-        name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        name = {torch.bfloat16: "bf16", torch.float16: "fp16", torch.float32: "fp32"}[dtype]
         log(f"[i] 2-layer 7B-width, {name} compute, T = {I_TOKENS - 1}: {len(vals)} LoRA "
             f"gradients through the kernels vs the plain attention backward: rel err up to "
             f"{worst(kernel):.3e} (tol {tol}); control, D dropped, {worst(control):.3e} (must "
@@ -2276,6 +2283,8 @@ def time_one(kernel: str, m: int, k: int, n: int, extra: "str | None" = None) ->
     if kernel in ("quant_matmul_ax0", "dequant_ax0"):
         config = extra or AX0_TIME_DEFAULT
         r = None
+    elif kernel.startswith("flash_attention_backward"):  # KV[-HD[-DTYPE]]
+        config, r = (extra or "").split("-"), None
     else:
         config, r = None, int(extra) if extra else None
 
@@ -2302,20 +2311,26 @@ def time_one(kernel: str, m: int, k: int, n: int, extra: "str | None" = None) ->
                   "flash_attention_fp32"):  # batch, T, query heads, kv heads
         from hqq_tpu_torch.ops import attention as at
 
-        n_kv = r or n
-        dtype = torch.float32 if kernel.endswith("fp32") else torch.bfloat16
-        q, kk, v = (x.to(dtype) for x in _flash_inputs(m, n, n_kv, k, 1, seed=1)[0])
+        n_kv, hd, dtype = r or n, HEAD_DIM, torch.bfloat16
+        if kernel.endswith("fp32"):
+            dtype = torch.float32
+        elif config[0]:  # the backward's kv heads, head size and type: 8-64-fp16
+            n_kv = int(config[0])
+            hd = int(config[1]) if len(config) > 1 else hd
+            dtype = getattr(torch, {"bf16": "bfloat16", "fp16": "float16", "fp32": "float32"}[
+                config[2] if len(config) > 2 else "bf16"])
+        q, kk, v = (x.to(dtype) for x in _flash_inputs(m, n, n_kv, k, 1, seed=1, hd=hd)[0])
         if kernel == "flash_attention_fp32":
             call = lambda: at.flash_attention(q, kk, v, True)  # noqa: E731
         else:
             do = torch.randn_like(q)
             out, lse = at._flash_forward(q, kk, v, True, None, with_lse=True)
             ops_ = at._backward_operands(q, kk, v, out, lse, do, None)
-            grads = (torch.empty_like(q), torch.empty_like(kk), torch.empty_like(v))
-            outs = (None, *grads[1:]) if kernel.endswith("dkv") else (grads[0], None, None)
-            call = lambda: at._backward_launch(ops_, True, *outs, kernel)  # noqa: E731
+            launch = at._launch_dkv if kernel.endswith("dkv") else at._launch_dq
+            call = lambda: launch(ops_, True)  # noqa: E731
         ms = [time_ms([call], 20) for _ in range(3)]
-        return dict(kernel=kernel, batch=m, t=k, heads=n, kv_heads=n_kv, ms=ms)
+        return dict(kernel=kernel, batch=m, t=k, heads=n, kv_heads=n_kv, head_dim=hd,
+                    dtype=str(dtype)[6:], ms=ms)
     r = r or LORA_RANK
 
     x = torch.randn((m, k), device="cuda", generator=torch.Generator(device="cuda").manual_seed(1))

@@ -1,5 +1,8 @@
 // SPDX-License-Identifier: Apache-2.0
-// The backward of flash attention (dK/dV and dQ), and the fp32 forward.
+// The fp32 route of flash attention: the backward (dK/dV and dQ) and the
+// forward for fp32 inputs, on the CUDA cores. bf16 and fp16 take the
+// tensor-core kernels of flash_prefill.cu (forward) and
+// flash_backward_sm90.cu (backward).
 //
 // For out = softmax(scale * q k^T [causal]) v over whole sequences, with
 // the forward's log-sum-exp lse [B, nh, T] (natural log, fp32) and
@@ -8,9 +11,8 @@
 //   P  = exp(scale * q k^T - lse)         (0 above the diagonal and past T)
 //   dV = P^T dO          dP = dO V^T       dS = P * (dP - D)
 //   dQ = scale * dS K    dK = scale * dS^T Q
-// with every product and sum in fp32 and the outputs rounded once to the
-// inputs' type (bf16, fp16 or fp32). k and v hold n_kv heads, each shared
-// by nh / n_kv query heads (GQA): dK and dV sum over the group.
+// with every value in fp32. k and v hold n_kv heads, each shared by
+// nh / n_kv query heads (GQA): dK and dV sum over the group.
 //
 // Replaces: the backward kernels of the library flash attention that
 //   `hqq_tpu.ops.attention.prefill_attention` calls on every training step
@@ -21,8 +23,8 @@
 //   tensor-core kernel does not.
 // Bound on H100: operations. The backward does about 2.5 times the causal
 //   forward's work, 5 * 2 * T^2 * hd per head halved for causality: at
-//   (1, 32/32, 1024, 128) 21.5 GFLOP, 0.022 ms at the bf16 tensor-core rate,
-//   0.32 ms at the fp32 rate of the CUDA cores, which these kernels use.
+//   (1, 32/32, 1024, 128) 21.5 GFLOP, 0.32 ms at the fp32 rate of the CUDA
+//   cores, which these kernels use.
 // Design: simple and right first. Every product runs on the CUDA cores in
 //   fp32, from tiles staged in shared memory as fp32 (rows of hd + 1 words,
 //   so that a column read by 16 threads hits 16 banks); 256 threads, each
@@ -46,8 +48,6 @@
 //     softmax over the key tiles at or left of the diagonal, the running
 //     max and sum of a row reduced across the 16 threads that share it by
 //     shuffles, O in registers, out = O / sum and lse written once.
-//   The tensor-core route (wgmma on bf16 P and dS, as the forward does) is
-//   the later, fast version.
 #include <math.h>
 
 #include "hqq_common.cuh"
@@ -76,21 +76,6 @@ __host__ __device__ inline int fwd_smem_floats(int hdp, int rows) {
   return 3 * rows * (hdp + 1) + rows * (rows + 1);
 }
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-template <>
-__device__ __forceinline__ __half from_f32<__half>(float v) { return __float2half_rn(v); }
-
 // rows [row0, row0 + ROWS) of a [T, hd] matrix into dst [ROWS][HDP + 1] as
 // fp32, zeros past T and past hd
 template <int ROWS, int HDP, typename T>
@@ -99,7 +84,7 @@ __device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src,
   for (int i = threadIdx.x; i < ROWS * HDP; i += kThreads) {
     const int r = i / HDP, d = i % HDP;
     dst[r * (HDP + 1) + d] =
-        row0 + r < t && d < hd ? to_f32(src[static_cast<size_t>(row0 + r) * hd + d]) : 0.f;
+        row0 + r < t && d < hd ? src[static_cast<size_t>(row0 + r) * hd + d] : 0.f;
   }
 }
 
@@ -232,8 +217,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int j = 0; j < C; ++j) {
       const int d = tx + 16 * j;
       if (d < hd) {
-        dk[kv_off + static_cast<size_t>(n) * hd + d] = from_f32<T>(dka[i][j] * scale);
-        dv[kv_off + static_cast<size_t>(n) * hd + d] = from_f32<T>(dva[i][j]);
+        dk[kv_off + static_cast<size_t>(n) * hd + d] = dka[i][j] * scale;
+        dv[kv_off + static_cast<size_t>(n) * hd + d] = dva[i][j];
       }
     }
   }
@@ -304,7 +289,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int j = 0; j < C; ++j) {
       const int d = tx + 16 * j;
-      if (d < hd) dq[q_off + static_cast<size_t>(m) * hd + d] = from_f32<T>(dqa[i][j] * scale);
+      if (d < hd) dq[q_off + static_cast<size_t>(m) * hd + d] = dqa[i][j] * scale;
     }
   }
 }
@@ -483,9 +468,8 @@ int backward_head(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// q, dout, dq [B, nh, T, hd] and k, v, dk, dv [B, n_kv, T, hd] of one type
-// (dtype: HQQ_F32, HQQ_BF16 or HQQ_F16), contiguous; lse and dd fp32
-// [B, nh, T]. Either kernel runs alone where the other's outputs are null
+// q, dout, dq [B, nh, T, hd] and k, v, dk, dv [B, n_kv, T, hd] fp32
+// (dtype HQQ_F32), contiguous; lse and dd fp32 [B, nh, T]. Either kernel runs alone where the other's outputs are null
 // (dq, or dk and dv). head_pad and the shared-memory sizes come from the
 // launch plan (`flash_backward_launch_plan`).
 HQQ_EXPORT int hqq_flash_backward(const void* q, const void* k, const void* v, const void* dout,
@@ -501,8 +485,6 @@ HQQ_EXPORT int hqq_flash_backward(const void* q, const void* k, const void* v, c
 #define HQQ_FLASH_BWD_TYPE(T)                                                                  \
   return backward_head<T>(q, k, v, dout, l, d, dq, dk, dv, b, nh, n_kv, t, hd, scale, causal, \
                           head_pad, smem_dkv, smem_dq, s)
-  if (dtype == HQQ_BF16) HQQ_FLASH_BWD_TYPE(__nv_bfloat16);
-  if (dtype == HQQ_F16) HQQ_FLASH_BWD_TYPE(__half);
   if (dtype == HQQ_F32) HQQ_FLASH_BWD_TYPE(float);
 #undef HQQ_FLASH_BWD_TYPE
   return static_cast<int>(cudaErrorInvalidValue);

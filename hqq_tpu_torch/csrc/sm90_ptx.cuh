@@ -1,7 +1,8 @@
 // SPDX-License-Identifier: Apache-2.0
 // The Hopper building blocks of the port's mainloops (qmm_sm90.cuh for the
-// dequant-matmuls, flash_prefill.cu for attention), in raw PTX: mbarriers,
-// TMA loads, cp.async, the 128-byte-swizzled wgmma descriptors, the wgmma
+// dequant-matmuls, flash_prefill.cu and flash_backward_sm90.cu for
+// attention), in raw PTX: mbarriers, TMA loads (1-3 dimensions), cp.async,
+// the 128-byte-swizzled wgmma descriptors, the wgmma
 // instructions with both operands in shared memory (K-major) and with A in
 // registers and B in shared memory (MN-major, the transpose bit set), and the
 // host's tensor-map encoder.
@@ -41,6 +42,15 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
+}
+
+__device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
+      : "memory");
 }
 
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,

@@ -53,10 +53,14 @@ KERNELS = {
         [_P] * 5 + [_I] * 5 + [ctypes.c_float] + [_I] * 3 + [_P],
     ),
     "flash_attention_backward_dkv": (
-        "flash_backward.cu", "hqq_flash_backward",
-        [_P] * 9 + [_I] * 5 + [ctypes.c_float] + [_I] * 5 + [_P],
+        "flash_backward_sm90.cu", "hqq_flash_bwd_dkv",
+        [_P] * 11 + [_I] * 5 + [ctypes.c_float] + [_I] * 6 + [_P],
     ),
     "flash_attention_backward_dq": (
+        "flash_backward_sm90.cu", "hqq_flash_bwd_dq",
+        [_P] * 8 + [_I] * 5 + [ctypes.c_float] + [_I] * 6 + [_P],
+    ),
+    "flash_attention_backward_fp32": (
         "flash_backward.cu", "hqq_flash_backward",
         [_P] * 9 + [_I] * 5 + [ctypes.c_float] + [_I] * 5 + [_P],
     ),

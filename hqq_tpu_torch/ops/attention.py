@@ -11,12 +11,14 @@ plan is `flash_launch_plan`); short sequences and explicit masks (a sliding
 window) take the naive path, as in `hqq_tpu`.
 
 Under autograd, `flash_attention` is a `torch.autograd.Function`: the forward
-also writes each row's log-sum-exp, and the backward is two kernels
-(``csrc/flash_backward.cu``, the counterparts of the library's dK/dV and dQ
-kernels): `flash_attention_backward_dkv` and `flash_attention_backward_dq`,
-launch plan `flash_backward_launch_plan`, plain twin
-`flash_attention_backward_plain`. fp32 inputs take `flash_attention_fp32`, a
-CUDA-core forward in the same source.
+also writes each row's log-sum-exp, and the backward is two kernels, the
+counterparts of the library's dK/dV and dQ kernels:
+`flash_attention_backward_dkv` and `flash_attention_backward_dq` (bf16 and
+fp16: ``csrc/flash_backward_sm90.cu``, wgmma and TMA; fp32:
+``csrc/flash_backward.cu``, CUDA cores), launch plan
+`flash_backward_launch_plan`, plain twin `flash_attention_backward_plain`.
+For fp32 inputs the forward is `flash_attention_fp32`, a CUDA-core kernel
+of ``csrc/flash_backward.cu``.
 
 Every kernel wrapper has a plain PyTorch twin and a launch count
 (``<wrapper>.launches``). It runs the plain version only for tensors on the
@@ -98,8 +100,8 @@ def flash_launch_plan(batch: int, heads: int, t: int, head_dim: int) -> FlashPla
 
 @functools.lru_cache(maxsize=64)
 def _q_order_on(q_order: tuple, device: torch.device) -> torch.Tensor:
-    """A plan's query-tile table as the kernel reads it, int32 on the card,
-    copied there once per table."""
+    """A plan's tile table (query tiles, or the backward's key tiles) as the
+    kernel reads it, int32 on the card, copied there once per table."""
     return torch.tensor(q_order, dtype=torch.int32, device=device)
 
 
@@ -264,35 +266,83 @@ flash_attention.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# The backward (csrc/flash_backward.cu)
+# The backward (csrc/flash_backward_sm90.cu; fp32: csrc/flash_backward.cu)
 # ---------------------------------------------------------------------------
 
-# padded head sizes of the CUDA-core kernels, and their query and key rows
+# the geometry of csrc/flash_backward_sm90.cu: query rows of a dK/dV step and
+# of a dQ block, and the most slots of either ring
+FLASH_BWD_QUERY_TILE = 64
+FLASH_BWD_DQ_ROWS = 128
+FLASH_BWD_MAX_STAGES = 4
+# the CUDA-core kernels of the fp32 route: tile rows per padded head size
 FLASH_FMA_TILE = {64: 64, 128: 64, 256: 32}
 FLASH_FMA_THREADS = 256
 
 
 @dataclasses.dataclass(frozen=True)
 class FlashBackwardPlan:
-    """How the backward kernels (and the fp32 forward) launch: the head
-    size padded to ``head_pad``, tiles of ``tile`` query and key rows,
-    ``blocks_dkv`` blocks of the dK/dV kernel (one per batch, kv head and
-    key tile) and ``blocks_dq`` of the dQ kernel (one per batch, head and
-    query tile, as the fp32 forward), and each kernel's bytes of dynamic
-    shared memory."""
+    """How the backward kernels launch, and the fp32 forward.
+
+    bf16 and fp16 (the wgmma kernels): the head size padded to
+    ``head_pad``. dK/dV: ``dkv_blocks`` blocks of ``dkv_keys`` keys, one per
+    (batch, query head, key tile), block i on key tile
+    ``kv_order[i // (batch * heads)]``; query tiles of 64 rows through
+    ``dkv_stages`` slots, ``dkv_smem`` bytes of shared memory; at head size
+    256 both consumers share the block's 64 keys, 128 head columns each.
+    ``gqa_split``: heads > kv_heads, so each block writes fp32
+    partials of its query head, summed over the group by the wrapper. dQ:
+    ``dq_blocks`` blocks of 128 query rows, block i on query tile
+    ``q_order[i // (batch * heads)]``; key tiles of ``dq_key_tile`` rows
+    through ``dq_stages`` slots, ``dq_smem`` bytes.
+
+    fp32 (the CUDA-core kernels of flash_backward.cu): tiles of
+    ``fma_tile`` rows, ``fma_blocks_dkv`` blocks of the dK/dV kernel (one per
+    batch, kv head and key tile) and ``fma_blocks_dq`` of the dQ kernel (one
+    per batch, head and query tile, as the fp32 forward), each kernel's
+    bytes of shared memory."""
 
     head_pad: int
-    tile: int
-    blocks_dkv: int
-    blocks_dq: int
-    smem_dkv: int
-    smem_dq: int
+    dkv_keys: int
+    gqa_split: bool
+    dkv_stages: int
+    dkv_smem: int
+    dkv_blocks: int
+    kv_order: tuple
+    dq_key_tile: int
+    dq_stages: int
+    dq_smem: int
+    dq_blocks: int
+    q_order: tuple
+    fma_tile: int
+    fma_blocks_dkv: int
+    fma_blocks_dq: int
+    fma_smem_dkv: int
+    fma_smem_dq: int
     smem_fwd: int
 
 
+def flash_bwd_dkv_smem(head_pad: int, keys: int, stages: int) -> int:
+    """Dynamic shared memory of a dK/dV block (`dkv_smem` of
+    flash_backward_sm90.cu): K's and V's tiles of ``keys`` rows, per slot
+    Q's and dO's tiles and 64 rows' lse and D in fp32, the barriers, 1024
+    bytes to align the base."""
+    return (2 * keys * head_pad * 2 + stages * (2 * FLASH_BWD_QUERY_TILE * head_pad * 2
+                                                + 2 * FLASH_BWD_QUERY_TILE * 4)
+            + 8 * (1 + 2 * stages) + 1024)
+
+
+def flash_bwd_dq_smem(head_pad: int, key_tile: int, stages: int) -> int:
+    """Dynamic shared memory of a dQ block (`dq_smem` of
+    flash_backward_sm90.cu): Q's and dO's tiles of 128 rows, per slot K's and
+    V's tiles of ``key_tile`` rows, the barriers, 1024 bytes to align the
+    base."""
+    return (2 * FLASH_BWD_DQ_ROWS * head_pad * 2 + stages * 2 * key_tile * head_pad * 2
+            + 8 * (1 + 2 * stages) + 1024)
+
+
 def flash_backward_smem(head_pad: int, tile: int) -> tuple:
-    """Dynamic shared memory of the dK/dV, dQ and fp32 forward kernels
-    (`*_smem_floats` of flash_backward.cu): fp32 tiles in rows of
+    """Dynamic shared memory of the fp32 route's dK/dV, dQ and forward
+    kernels (`*_smem_floats` of flash_backward.cu): fp32 tiles in rows of
     head_pad + 1, P and dS in rows of tile + 1, lse and D."""
     rows = tile * (head_pad + 1)
     ptile = tile * (tile + 1)
@@ -300,36 +350,66 @@ def flash_backward_smem(head_pad: int, tile: int) -> tuple:
             4 * (3 * rows + ptile))
 
 
+def _stages(smem_of) -> int:
+    """As many ring slots as a block's shared memory holds, at most
+    FLASH_BWD_MAX_STAGES."""
+    return max(n for n in range(1, FLASH_BWD_MAX_STAGES + 1) if smem_of(n) <= H100_SMEM_PER_BLOCK)
+
+
 @functools.lru_cache(maxsize=1024)
 def flash_backward_launch_plan(batch: int, heads: int, kv_heads: int, t: int,
                                head_dim: int) -> FlashBackwardPlan:
     """The launch of the backward kernels (and of the fp32 forward) for q
     [batch, heads, t, head_dim] and k, v [batch, kv_heads, t, head_dim]. The
-    head size pads to 64, 128 or 256 as in the forward; tiles are 64 rows,
-    32 at head size 256, so that a thread's dK and dV (or dQ, or O)
-    accumulators stay at 32 registers each."""
+    head size pads to 64, 128 or 256 as in the forward.
+
+    bf16/fp16: a dK/dV block owns 128 keys, 64 per consumer, whose dK and dV
+    accumulators take 2 x head_pad / 2 registers a thread; at 256 that would
+    be 256, so there a block owns 64 keys and each consumer 128 of the head
+    columns. A dQ block owns 128 query rows; keys come in tiles of 64, or of
+    32 at 256, where Q's and dO's tiles already take 128 KB. Causal work
+    falls with the key tile (dK/dV) and grows with the query tile (dQ): the
+    tables start with the longest walks, so a causal grid ends on short
+    blocks.
+
+    fp32: tiles of 64 rows, 32 at head size 256, so that a thread's dK and
+    dV (or dQ, or O) accumulators stay at 32 registers each."""
     if not 16 <= head_dim <= _MAX_HEAD_DIM or head_dim % 16:
         raise ValueError(f"the kernel takes head sizes of 16s up to {_MAX_HEAD_DIM}, "
                          f"not {head_dim}")
     if heads % kv_heads:
         raise ValueError(f"heads {heads} must be a multiple of kv heads {kv_heads}")
     head_pad = next(p for p in FLASH_HEAD_PADS if p >= head_dim)
+    dkv_keys, dq_key_tile = (64, 32) if head_pad == 256 else (128, 64)
+    key_tiles = -(-t // dkv_keys)
+    q_tiles = -(-t // FLASH_BWD_DQ_ROWS)
+    dkv_stages = _stages(lambda n: flash_bwd_dkv_smem(head_pad, dkv_keys, n))
+    dq_stages = _stages(lambda n: flash_bwd_dq_smem(head_pad, dq_key_tile, n))
     tile = FLASH_FMA_TILE[head_pad]
     tiles = -(-t // tile)
     smem_dkv, smem_dq, smem_fwd = flash_backward_smem(head_pad, tile)
-    return FlashBackwardPlan(head_pad=head_pad, tile=tile, blocks_dkv=batch * kv_heads * tiles,
-                             blocks_dq=batch * heads * tiles, smem_dkv=smem_dkv,
-                             smem_dq=smem_dq, smem_fwd=smem_fwd)
+    return FlashBackwardPlan(
+        head_pad=head_pad, dkv_keys=dkv_keys, gqa_split=heads > kv_heads, dkv_stages=dkv_stages,
+        dkv_smem=flash_bwd_dkv_smem(head_pad, dkv_keys, dkv_stages),
+        dkv_blocks=batch * heads * key_tiles, kv_order=tuple(range(key_tiles)),
+        dq_key_tile=dq_key_tile, dq_stages=dq_stages,
+        dq_smem=flash_bwd_dq_smem(head_pad, dq_key_tile, dq_stages),
+        dq_blocks=batch * heads * q_tiles, q_order=tuple(range(q_tiles - 1, -1, -1)),
+        fma_tile=tile, fma_blocks_dkv=batch * kv_heads * tiles, fma_blocks_dq=batch * heads * tiles,
+        fma_smem_dkv=smem_dkv, fma_smem_dq=smem_dq, smem_fwd=smem_fwd)
 
 
 def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                                    causal: bool = True, sm_scale: Optional[float] = None):
     """Plain version of the backward kernels, the same arithmetic from the
-    same saved statistics in fp32: P = exp(scale * q k^T - lse) (0 above
-    the diagonal), D = rowsum(dO * O), dV = P^T dO, dS = P (dO V^T - D),
-    dQ = scale * dS K, dK = scale * dS^T Q, dK and dV summed over each kv
-    head's query heads. Returns (dq, dk, dv) in the inputs' types."""
+    same saved statistics: P = exp(scale * q k^T - lse) (0 above the
+    diagonal), D = rowsum(dO * O), dV = P'^T dO, dS = scale * P (dO V^T - D),
+    dQ = dS' K, dK = dS'^T Q, dK and dV summed over each kv head's query
+    heads. P' and dS' are P and dS rounded to the inputs' type, where the
+    library's backward kernels round them (a no-op for fp32); every other
+    value, product and sum is fp32, and each output is rounded once to the
+    inputs' type. Returns (dq, dk, dv)."""
     hd = q.shape[3]
     sm_scale = hd**-0.5 if sm_scale is None else sm_scale
     n_kv = k.shape[1]
@@ -344,12 +424,12 @@ def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Te
     if causal:
         t = q.shape[2]
         p = p * torch.ones((t, k.shape[2]), dtype=torch.bool, device=q.device).tril()
-    dv = torch.einsum("bhts,bhtd->bhsd", p, dof)
+    dv = torch.einsum("bhts,bhtd->bhsd", p.to(q.dtype).to(f32), dof)
     dp = torch.einsum("bhtd,bhsd->bhts", dof, vf)
     delta = (dof * of).sum(dim=-1, keepdim=True)
-    ds = p * (dp - delta)
-    dq = torch.einsum("bhts,bhsd->bhtd", ds, kf) * sm_scale
-    dk = torch.einsum("bhts,bhtd->bhsd", ds, qf) * sm_scale
+    ds = (p * (dp - delta) * sm_scale).to(q.dtype).to(f32)
+    dq = torch.einsum("bhts,bhsd->bhtd", ds, kf)
+    dk = torch.einsum("bhts,bhtd->bhsd", ds, qf)
     if rep > 1:
         b, _, t2, _ = dk.shape
         dk = dk.reshape(b, n_kv, rep, t2, hd).sum(dim=2)
@@ -373,43 +453,95 @@ def _backward_operands(q, k, v, o, lse, do, sm_scale) -> tuple:
             lse.to(torch.float32).contiguous(), delta, sm_scale)
 
 
-def _backward_launch(ops: tuple, causal: bool, dq, dk, dv, name: str) -> None:
-    """One launch of hqq_flash_backward on `_backward_operands`: the dQ
-    kernel (dq given) or the dK/dV kernel (dk and dv given)."""
+def _fp32_launch(ops: tuple, causal: bool, dq, dk, dv) -> None:
+    """One launch of the fp32 route (hqq_flash_backward of
+    flash_backward.cu): the dQ kernel (dq given) or the dK/dV kernel (dk and
+    dv given)."""
     q, k, v, do, lse, delta, sm_scale = ops
     dev = q.device
     b, nh, t, hd = q.shape
     plan = flash_backward_launch_plan(b, nh, k.shape[1], t, hd)
-    lib = _build.library(name)
+    lib = _build.library("flash_attention_backward_fp32")
     with torch.cuda.device(dev):
         code = lib.hqq_flash_backward(
             _ptr(q, 4), _ptr(k, 4), _ptr(v, 4), _ptr(do, 4), _ptr(lse, 4), _ptr(delta, 4),
             None if dq is None else _ptr(dq, 4), None if dk is None else _ptr(dk, 4),
             None if dv is None else _ptr(dv, 4), b, nh, k.shape[1], t, hd, float(sm_scale),
-            int(bool(causal)), _DTYPE_CODE[q.dtype], plan.head_pad, plan.smem_dkv, plan.smem_dq,
-            _stream(dev))
-    _build.check(name, code)
+            int(bool(causal)), _DTYPE_CODE[q.dtype], plan.head_pad, plan.fma_smem_dkv,
+            plan.fma_smem_dq, _stream(dev))
+    _build.check("flash_attention_backward_fp32", code)
 
 
 def _launch_dkv(ops: tuple, causal: bool) -> tuple:
-    dk, dv = torch.empty_like(ops[1]), torch.empty_like(ops[2])
-    _backward_launch(ops, causal, None, dk, dv, "flash_attention_backward_dkv")
+    """(dk, dv) from one launch of the dK/dV kernel of the operands' type;
+    with GQA, the kernel's fp32 partials of each query head summed over the
+    group (plain torch) and rounded once."""
+    q, k, v, do, lse, delta, sm_scale = ops
+    if q.dtype == torch.float32:
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        _fp32_launch(ops, causal, None, dk, dv)
+        flash_attention_backward_dkv.launches += 1
+        return dk, dv
+    dev = q.device
+    b, nh, t, hd = q.shape
+    n_kv = k.shape[1]
+    plan = flash_backward_launch_plan(b, nh, n_kv, t, hd)
+    if plan.gqa_split:
+        dk = dv = None
+        dk_part, dv_part = (torch.empty((b, nh, t, hd), dtype=torch.float32, device=dev)
+                            for _ in range(2))
+    else:
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        dk_part = dv_part = None
+    if t % 4:  # the kernel reads each head's lse and D in 16-byte-aligned boxes
+        lse, delta = (torch.nn.functional.pad(x, (0, -t % 4)) for x in (lse, delta))
+    lib = _build.library("flash_attention_backward_dkv")
+    with torch.cuda.device(dev):
+        code = lib.hqq_flash_bwd_dkv(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
+            None if dk is None else _ptr(dk, 4), None if dv is None else _ptr(dv, 4),
+            None if dk_part is None else _ptr(dk_part, 8),
+            None if dv_part is None else _ptr(dv_part, 8),
+            _ptr(_q_order_on(plan.kv_order, dev), 4), b, nh, n_kv, t, hd, float(sm_scale),
+            int(bool(causal)), _DTYPE_CODE[q.dtype], plan.head_pad, plan.dkv_stages,
+            plan.dkv_smem, plan.dkv_blocks, _stream(dev))
+    _build.check("flash_attention_backward_dkv", code)
     flash_attention_backward_dkv.launches += 1
+    if plan.gqa_split:
+        rep = nh // n_kv
+        dk = dk_part.view(b, n_kv, rep, t, hd).sum(dim=2).to(q.dtype)
+        dv = dv_part.view(b, n_kv, rep, t, hd).sum(dim=2).to(q.dtype)
     return dk, dv
 
 
 def _launch_dq(ops: tuple, causal: bool) -> torch.Tensor:
-    dq = torch.empty_like(ops[0])
-    _backward_launch(ops, causal, dq, None, None, "flash_attention_backward_dq")
+    """dq from one launch of the dQ kernel of the operands' type."""
+    q, k, v, do, lse, delta, sm_scale = ops
+    dq = torch.empty_like(q)
+    if q.dtype == torch.float32:
+        _fp32_launch(ops, causal, dq, None, None)
+        flash_attention_backward_dq.launches += 1
+        return dq
+    dev = q.device
+    b, nh, t, hd = q.shape
+    plan = flash_backward_launch_plan(b, nh, k.shape[1], t, hd)
+    lib = _build.library("flash_attention_backward_dq")
+    with torch.cuda.device(dev):
+        code = lib.hqq_flash_bwd_dq(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dq, 4),
+            _ptr(_q_order_on(plan.q_order, dev), 4), b, nh, k.shape[1], t, hd,
+            float(sm_scale), int(bool(causal)), _DTYPE_CODE[q.dtype], plan.head_pad,
+            plan.dq_stages, plan.dq_smem, plan.dq_blocks, _stream(dev))
+    _build.check("flash_attention_backward_dq", code)
     flash_attention_backward_dq.launches += 1
     return dq
 
 
 def flash_attention_backward_dkv(q, k, v, o, lse, do, causal: bool = True,
                                  sm_scale: Optional[float] = None):
-    """(dk, dv) from the dK/dV kernel: one block per (batch, kv head, key
-    tile), the query heads of its group and the query tiles at or below the
-    diagonal walked inside it."""
+    """(dk, dv) from the dK/dV kernel: bf16/fp16 one block per (batch,
+    query head, key tile), the query tiles at or below the diagonal walked
+    inside it (fp32: one block per batch, kv head and key tile)."""
     if _on_cpu(q):
         return flash_attention_backward_plain(q, k, v, o, lse, do, causal, sm_scale)[1:]
     return _launch_dkv(_backward_operands(q, k, v, o, lse, do, sm_scale), causal)

@@ -3,8 +3,9 @@
 library's references, on the CPU.
 
 `flash_attention_backward_plain` is the plain twin of the dK/dV and dQ
-kernels (csrc/flash_backward.cu), which the card tests hold to it. Here it
-is held, in fp32, to:
+kernels (csrc/flash_backward_sm90.cu for bf16 and fp16, csrc/flash_backward.cu
+for fp32), which the card tests hold to it. Here it is held, in fp32 (where
+its roundings of P and dS to the inputs' type are no-ops), to:
   * `jax.vjp` of `hqq_tpu.ops.attention.prefill_attention` (its naive path on
     the CPU) with K and V repeated over each kv head's query heads, as
     `hqq_tpu`'s model does; the port shares them by index;
@@ -14,8 +15,9 @@ is held, in fp32, to:
 GQA, ragged T, head sizes 64 and 128, causal and not. Bars: rel err < 1e-5
 of max|grad| (the same fp32 products, summed in another order). Then the
 autograd Function of `flash_attention`, `prefill_attention`'s routing under
-autograd, the backward launch plan's tables, and a check that the wrappers
-count no launch on the CPU.
+autograd, the backward launch plan, and a check that the wrappers count no
+launch on the CPU. In bf16 it is held to the library's own backward kernels
+in test_torch_flash_backward_lib.py.
 """
 
 import jax
@@ -142,25 +144,81 @@ def test_flash_function_counts_no_launch_on_cpu():
 
 @pytest.mark.parametrize("hd", list(range(16, 257, 16)))
 def test_backward_plan_fits(hd):
-    """Every head size pads to 64, 128 or 256, with tiles of 64 rows (32 at
-    256), and each kernel's shared memory (the formula of the source) fits
-    a block of the card."""
+    """Every head size pads to 64, 128 or 256. The wgmma kernels: dK/dV
+    blocks of 128 keys (64 at 256, where the consumers split the head
+    columns), dQ key tiles of 64 (32 at 256); each ring as deep as a block's
+    shared memory allows, at most 4 slots and at least 2, its size the
+    source's formula. The fp32 route: tiles of 64 rows (32 at 256) and its
+    kernels' shared memory, as before. Everything fits a block of the card."""
     plan = at.flash_backward_launch_plan(2, 8, 2, 300, hd)
-    assert plan.head_pad == next(p for p in (64, 128, 256) if p >= hd)
-    assert plan.tile == (32 if plan.head_pad == 256 else 64)
-    ld = plan.head_pad + 1
-    rows, ptile = plan.tile * ld, plan.tile * (plan.tile + 1)
-    assert plan.smem_dkv == 4 * (4 * rows + 2 * ptile + 2 * plan.tile)
-    assert plan.smem_dq == 4 * (4 * rows + ptile + 2 * plan.tile)
+    hp = plan.head_pad
+    assert hp == next(p for p in (64, 128, 256) if p >= hd)
+    assert (plan.dkv_keys, plan.dq_key_tile) == ((64, 32) if hp == 256 else (128, 64))
+    assert plan.dkv_smem == 2 * plan.dkv_keys * hp * 2 + plan.dkv_stages * (
+        2 * 64 * hp * 2 + 2 * 64 * 4) + 8 * (1 + 2 * plan.dkv_stages) + 1024
+    assert plan.dq_smem == 2 * 128 * hp * 2 + plan.dq_stages * 2 * plan.dq_key_tile * hp * 2 \
+        + 8 * (1 + 2 * plan.dq_stages) + 1024
+    for stages, rows, smem_of in ((plan.dkv_stages, plan.dkv_keys, at.flash_bwd_dkv_smem),
+                                  (plan.dq_stages, plan.dq_key_tile, at.flash_bwd_dq_smem)):
+        assert 2 <= stages <= at.FLASH_BWD_MAX_STAGES
+        assert smem_of(hp, rows, stages) <= H100_SMEM_PER_BLOCK
+        assert stages == at.FLASH_BWD_MAX_STAGES or \
+            smem_of(hp, rows, stages + 1) > H100_SMEM_PER_BLOCK
+    assert plan.fma_tile == (32 if hp == 256 else 64)
+    ld = hp + 1
+    rows, ptile = plan.fma_tile * ld, plan.fma_tile * (plan.fma_tile + 1)
+    assert plan.fma_smem_dkv == 4 * (4 * rows + 2 * ptile + 2 * plan.fma_tile)
+    assert plan.fma_smem_dq == 4 * (4 * rows + ptile + 2 * plan.fma_tile)
     assert plan.smem_fwd == 4 * (3 * rows + ptile)
-    assert max(plan.smem_dkv, plan.smem_dq, plan.smem_fwd) <= H100_SMEM_PER_BLOCK
-    tiles = -(-300 // plan.tile)
-    assert (plan.blocks_dkv, plan.blocks_dq) == (2 * 2 * tiles, 2 * 8 * tiles)
+    assert max(plan.fma_smem_dkv, plan.fma_smem_dq, plan.smem_fwd) <= H100_SMEM_PER_BLOCK
+    tiles = -(-300 // plan.fma_tile)
+    assert (plan.fma_blocks_dkv, plan.fma_blocks_dq) == (2 * 2 * tiles, 2 * 8 * tiles)
 
 
-def test_backward_plan_of_the_7b_path():
-    plan = at.flash_backward_launch_plan(1, 32, 32, 1024, 128)
-    assert (plan.head_pad, plan.tile, plan.blocks_dkv, plan.blocks_dq) == (128, 64, 512, 512)
+@pytest.mark.parametrize("kv_heads,t,split,blocks_dkv,blocks_dq", [
+    (32, 1024, False, 256, 256), (8, 1023, True, 256, 256)])
+def test_backward_plan_of_the_7b_path(kv_heads, t, split, blocks_dkv, blocks_dq):
+    """Path I's shape (32 heads, head size 128, T = 1024) and its GQA
+    variant: 8 key tiles of 128 and 8 query tiles of 128 per head; with 8 kv
+    heads the dK/dV grid is split over the 32 query heads, 4x the 64 blocks
+    of the kv heads."""
+    plan = at.flash_backward_launch_plan(1, 32, kv_heads, t, 128)
+    assert (plan.head_pad, plan.dkv_keys, plan.gqa_split) == (128, 128, split)
+    assert (plan.dkv_blocks, plan.dq_blocks) == (blocks_dkv, blocks_dq)
+    assert (plan.dkv_stages, plan.dq_stages) == (4, 4)
+    assert (plan.fma_tile, plan.fma_blocks_dq) == (64, 512)
+
+
+@pytest.mark.parametrize("b,nh,n_kv,t,hd", [(1, 32, 32, 1024, 128), (2, 8, 2, 300, 64),
+                                            (1, 4, 1, 129, 256), (3, 2, 2, 1, 16),
+                                            (1, 8, 8, 4097, 128)])
+def test_backward_plan_covers_every_tile_once(b, nh, n_kv, t, hd):
+    """The kernels run block i on tile order[i // (b * nh)] of (batch,
+    query head) i % (b * nh): with the plan's block counts, every key tile
+    (dK/dV) and every query tile of 128 rows (dQ) of every query head
+    once."""
+    plan = at.flash_backward_launch_plan(b, nh, n_kv, t, hd)
+    for order, rows, blocks in ((plan.kv_order, plan.dkv_keys, plan.dkv_blocks),
+                                (plan.q_order, at.FLASH_BWD_DQ_ROWS, plan.dq_blocks)):
+        tiles = len(order)
+        assert (tiles - 1) * rows < t <= tiles * rows
+        assert sorted(order) == list(range(tiles)) and blocks == b * nh * tiles
+        got = sorted((order[i // (b * nh)], i % (b * nh)) for i in range(blocks))
+        assert got == sorted((x, h) for x in range(tiles) for h in range(b * nh))
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("t", [1023, 4096, 300])
+def test_backward_plan_longest_walks_first(t, hd):
+    """Under causality a dK/dV block walks the query tiles of 64 rows at or
+    below its keys, a dQ block the key tiles up to its diagonal: along each
+    table, the kernels' launch order, that count never grows."""
+    plan = at.flash_backward_launch_plan(1, 8, 8, t, hd)
+    q64 = -(-t // at.FLASH_BWD_QUERY_TILE)
+    dkv = [q64 - kt * plan.dkv_keys // at.FLASH_BWD_QUERY_TILE for kt in plan.kv_order]
+    dq = [-(-min(t, (qt + 1) * at.FLASH_BWD_DQ_ROWS) // plan.dq_key_tile) for qt in plan.q_order]
+    for walks, longest in ((dkv, q64), (dq, -(-t // plan.dq_key_tile))):
+        assert walks == sorted(walks, reverse=True) and walks[0] == longest
 
 
 @pytest.mark.parametrize("heads,kv_heads,hd", [(8, 2, 8), (8, 2, 40), (8, 2, 272), (8, 3, 64)])

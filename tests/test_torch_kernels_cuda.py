@@ -18,9 +18,11 @@ The two attention kernels likewise: `paged_attention` over head sizes, GQA
 ratios, page sizes, lengths at page edges and of 1, every page type, and
 `flash_attention` over head sizes, GQA, ragged T, both types, causal and
 not, its log-sum-exp, its fp32 route and its backward (the dK/dV and dQ
-kernels) in every type. Their plain versions round the probabilities to q's
-type before the second product, which the kernels keep in fp32 (paged) or
-round unnormalised (flash); the bars are stated at the tests.
+kernels) in every type, over the edges of their tiles. Their plain versions
+round the probabilities to q's type before the second product, which the
+kernels keep in fp32 (paged) or round unnormalised (flash); the backward's
+kernels and twin both round P and dS where the library does; the bars are
+stated at the tests.
 """
 
 import pytest
@@ -610,9 +612,11 @@ def test_qmm_fp32(cuda, m, layout, nbits, g, k, n, r):
 # fp32 kernels against fp32 plain versions: exp2 against exp and sums in
 # another order; a bf16 rounding of the inputs is some 2^-9 of them
 _FLASH_FP32_TOL = 1e-4
-# backward, bf16/fp16: every product and sum in fp32 on both sides, then one
-# rounding of each output; outputs rounded to different sides lie one step
-# apart: twice the step of the type, of max|grad|
+# backward, bf16/fp16: both sides round P and scale * dS to the inputs' type
+# before the products dV, dK and dQ (where the library's kernels round them),
+# sum every product in fp32 and round each output once; P and dS come from S
+# and dP summed in another order, so a few of those roundings fall to the
+# other side, one step apart: twice the step of the type, of max|grad|
 _FLASH_BWD_TOL = {torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10, torch.float32: 1e-4}
 
 
@@ -665,6 +669,10 @@ def _bwd_case(device, b, nh, n_kv, t, hd, dtype, causal, seed=0):
 @pytest.mark.parametrize("b,nh,n_kv,t,hd", [
     (1, 4, 2, 300, 64), (2, 2, 2, 257, 128), (1, 4, 1, 129, 256), (1, 2, 2, 64, 80),
     (1, 2, 2, 1, 16), (1, 2, 2, 3, 16), (1, 8, 2, 1023, 128), (1, 2, 2, 65, 112),
+    # the edges of the tiles (64 query rows and 128 keys of dK/dV, 128 rows
+    # and 64 keys of dQ) and head sizes padded with zero columns
+    (1, 2, 2, 63, 128), (1, 4, 1, 127, 64), (1, 4, 2, 129, 80), (1, 2, 2, 129, 112),
+    (2, 2, 2, 65, 128),
 ])
 def test_flash_attention_backward(cuda, causal, dtype, b, nh, n_kv, t, hd):
     """dQ, dK and dV of the two kernels against the plain backward from the
@@ -692,9 +700,12 @@ def test_flash_attention_backward(cuda, causal, dtype, b, nh, n_kv, t, hd):
             _close(g, r, _FLASH_BWD_TOL[dtype])
 
 
-def test_flash_attention_backward_repeats_bit_equal(cuda):
-    """No atomics: run after run, dQ, dK and dV are the same to the bit."""
-    q, k, v, o, lse, do = _bwd_case(cuda, 1, 8, 2, 777, 128, torch.bfloat16, True, seed=7)
+@pytest.mark.parametrize("nh,n_kv", [(8, 2), (8, 8)])
+def test_flash_attention_backward_repeats_bit_equal(cuda, nh, n_kv):
+    """No atomics: run after run, dQ, dK and dV are the same to the bit, with
+    the dK/dV grid split over the query heads of a group (8/2: fp32
+    partials summed by the wrapper) and without (8/8)."""
+    q, k, v, o, lse, do = _bwd_case(cuda, 1, nh, n_kv, 777, 128, torch.bfloat16, True, seed=7)
     first = at.flash_attention_backward(q, k, v, o, lse, do, True)
     for _ in range(10):
         again = at.flash_attention_backward(q, k, v, o, lse, do, True)
