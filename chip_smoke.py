@@ -4,6 +4,8 @@
     python3 chip_smoke.py            # on cuda:0, every phase
     python3 chip_smoke.py --time quant_matmul 512 4096 4096      # one kernel
     python3 chip_smoke.py --time quant_matmul_ax0 512 4096 4096 3-64-fp32  # nbits-g-meta
+    python3 chip_smoke.py --time quant_matmul_ax0 512 4096 4096 3-64-fp32 element-stores
+    python3 chip_smoke.py --time qmm_fp32 512 4096 4096          # fp32 x; [RANK | NBITS-G-META]
     python3 chip_smoke.py --time paged_attention 8 1024 32 32    # slots, length, heads, kv heads
     python3 chip_smoke.py --time flash_attention 1 1023 32 32    # batch, T, heads, kv heads
     python3 chip_smoke.py --time flash_attention_backward_dkv 1 1024 32 32   # or _dq, _fp32
@@ -11,10 +13,10 @@
 Phases (any failure exits non-zero):
   (a) device and build: the card, its power limit, an nvcc build of every
       kernel under hqq_tpu_torch/csrc/ (seconds per source, registers and
-      spill stores of each kernel instantiation of the five wgmma
+      spill stores of each kernel instantiation of the six wgmma
       sources), and the wgmma (HGMMA) and TMA (UTMALDG) instructions in the
-      SASS of those five (quant_matmul, quant_matmul_ax0, quant_matmul_lora,
-      flash_prefill, flash_backward_sm90);
+      SASS of those six (quant_matmul, quant_matmul_ax0, quant_matmul_lora,
+      qmm_fp32, flash_prefill, flash_backward_sm90);
   (b) each kernel against its plain PyTorch version at the main paths'
       shapes: largest error against the stated tolerance, kernel time, plain
       time, the least time the card could take (bound), and for the matmuls
@@ -24,7 +26,8 @@ Phases (any failure exits non-zero):
       K/V for the paged one); the axis=1 kernels on bf16 scale and zs, and
       the fp32 routes (qmm_fp32, flash_attention_fp32), each with controls
       that must miss its bar (a neighbour's scale, the 4-bit zs offset
-      dropped; the inputs rounded to bf16); the flash backward kernels (dK/dV
+      dropped; the inputs rounded to bf16; for qmm_fp32 one TF32 product,
+      torch.matmul with TF32 allowed); the flash backward kernels (dK/dV
       and dQ) at path I's shape and around it, in bf16, fp16 and fp32,
       against the plain backward from the same saved statistics and
       autograd of the plain forward in fp32, controls (D dropped, the mask
@@ -92,7 +95,10 @@ for comparing two checkouts on one card. Unpack the parent beside the change
 change, change, parent. KERNEL is quant_matmul, w4a8_matmul,
 quant_matmul_lora or w4a8_lora_matmul (4-bit g64, RANK 8 unless given),
 quant_matmul_ax0 or dequant_ax0 (2-bit g16, bf16 scale and zs, or the
-config NBITS-G-META given after N, e.g. 3-64-fp32, path F's attention); for
+config NBITS-G-META given after N, e.g. 3-64-fp32, path F's attention, and
+for quant_matmul_ax0 then a variant of AX0_VARIANTS), qmm_fp32 (fp32 x
+through quant_matmul at 4-bit g64, quant_matmul_lora given a RANK, or
+quant_matmul_ax0 given a config); for
 paged_attention the four numbers are slots, length, query heads and kv heads
 (bf16 pages of 16 rows, head size 128), for flash_attention, the two
 backward kernels (flash_attention_backward_dkv, flash_attention_backward_dq)
@@ -115,13 +121,13 @@ import torch
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of every kernel
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12, "fp32": 67e12}
 ROTATE_BYTES = 160 * 2**20  # cycle through input copies larger than the 50 MB L2
 
 SRC = "hqq_tpu_torch/csrc/"
 # the sources of the Hopper mainloops (TMA, wgmma)
 WGMMA_SOURCES = ("quant_matmul.cu", "quant_matmul_ax0.cu", "quant_matmul_lora.cu",
-                 "flash_prefill.cu", "flash_backward_sm90.cu")
+                 "qmm_fp32.cu", "flash_prefill.cu", "flash_backward_sm90.cu")
 # wrapper -> (source, the TPU kernel it replaces, a second one it replaces)
 KERNELS = {
     "w4a8_matmul": ("w4a8_matmul.cu", "hqq_tpu/ops/fused_matmul.py:524",
@@ -803,7 +809,12 @@ def phase_b_bf16_meta(record, held, iters: int) -> None:
         ms = time_ms([lambda q=q: run(q) for q in kq], iters)
         plain_ms = time_ms([lambda: plain(kqt)], max(3, iters // 10))
         lib = None
-        if m is not None:
+        if kernel == "quant_matmul_lora":  # the three calls and their sum, as for fp32 meta
+            w_bf16, a_bf16 = fm.dequant_plain(kqt, torch.bfloat16), a.to(torch.bfloat16)
+            lib = time_ms([lambda: torch.matmul(x, w_bf16.t()).float()
+                           + torch.matmul(torch.matmul(x, a_bf16).float(), b)], iters)
+            del w_bf16
+        elif m is not None:
             w_bf16 = fm.dequant_plain(kqt, torch.bfloat16)
             lib = time_ms([lambda: torch.matmul(x, w_bf16.t())], iters)
             del w_bf16
@@ -817,22 +828,28 @@ def phase_b_bf16_meta(record, held, iters: int) -> None:
 
 
 # fp32 routes against their fp32 plain versions: the same fp32 products
-# summed in another order (matmuls: the w4a8 bar in fp32), and exp2 against
-# exp with sums in another order (attention); a bf16 rounding of the inputs
-# is 2^-9 of them and must miss both
+# summed in another order (matmuls: the w4a8 bar in fp32; qmm_fp32 forms
+# them from three TF32 products, dropping small x small, ~2^-22 of each),
+# and exp2 against exp with sums in another order (attention); a bf16
+# rounding of the inputs is 2^-9 of them and must miss both, and so must one
+# TF32 product (~2^-11 of each)
 TOL_QMM_FP32, TOL_FLASH_FP32 = 1e-5, 1e-4
 
 
 def phase_b_fp32(record, held, iters: int) -> None:
     """Fault 2: fp32 activations through the fp32 routes (qmm_fp32 for the
     three matmuls, flash_attention_fp32), against their plain versions; the
-    control runs the bf16 kernel on the inputs rounded to bf16."""
+    control runs the bf16 kernel on the inputs rounded to bf16, and for
+    qmm_fp32 a second control is one TF32 product (torch.matmul with TF32
+    allowed on the dequantized fp32 weight), which shows that the kernel's
+    passing the bar is its 3xTF32 split."""
     import torch.nn.functional as F
 
     from hqq_tpu_torch.ops import attention as at
     from hqq_tpu_torch.ops import fused_matmul as fm
 
     gen = torch.Generator(device="cuda").manual_seed(8)
+    r = LORA_RANK
     for mode, (m, k, n) in [("axis=1", (512, 4096, 4096)), ("axis=0", (512, 4096, 11008)),
                             ("lora", (512, 4096, 4096))]:
         if mode == "axis=0":
@@ -859,21 +876,36 @@ def phase_b_fp32(record, held, iters: int) -> None:
         ref = plain(x, kqt)
         err = held("qmm_fp32", y, ref, TOL_QMM_FP32, f"{note} M={m} K={k} N={n}")
         cast = rel(run(x.to(torch.bfloat16), kqt), ref)
-        log(f"[b] qmm_fp32 {note}: control, x rounded to bf16 through the bf16 kernel, "
-            f"{cast:.3e} (must exceed {TOL_QMM_FP32})")
+        w32 = fm.dequant_plain(kqt, torch.float32)
+        term = (lambda: (x @ a) @ b) if mode == "lora" else (lambda: 0.0)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            one_tf32 = rel(torch.matmul(x, w32.t()) + term(), ref)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        log(f"[b] qmm_fp32 {note}: {err / ref.abs().max().item():.3e} of max|y|; controls, x "
+            f"rounded to bf16 through the bf16 kernel {cast:.3e}, one TF32 product "
+            f"(torch.matmul, allow_tf32) {one_tf32:.3e} (each must exceed {TOL_QMM_FP32})")
         if not cast > TOL_QMM_FP32:
             raise AssertionError("[b] the fp32 bar does not catch a bf16 cast")
+        if not one_tf32 > TOL_QMM_FP32:
+            raise AssertionError("[b] the fp32 bar does not catch one TF32 product")
         wbytes = _weight_bytes(kqt)
         kq, xq = _copies(kqt, x, wbytes)
         ms = time_ms([lambda q=q, xx=xx: run(xx, q) for q, xx in zip(kq, xq)], max(10, iters // 5))
         plain_ms = time_ms([lambda: plain(x, kqt)], max(3, iters // 10))
-        w32 = fm.dequant_plain(kqt, torch.float32)
         lib = time_ms([lambda: torch.matmul(x, w32.t())], iters)
         del w32, kq, xq
-        b_ms, by = bound_ms(wbytes + 4 * m * k + 4 * m * n, 0.0, "fp32",
-                            fp32_ops=2.0 * m * n * k)
+        # the least time of an fp32-accurate product: three TF32 products at
+        # the tensor cores' TF32 rate (the LoRA term in fp32 beside it); one
+        # fp32 product at the CUDA cores' rate is reported beside it
+        nbytes = wbytes + 4 * m * k + 4 * m * n + (4 * r * (k + n) if mode == "lora" else 0)
+        lora_ops = 2.0 * m * r * (k + n) if mode == "lora" else 0.0
+        b_ms, by = bound_ms(nbytes, 3 * 2.0 * m * n * k, "tf32", fp32_ops=lora_ops)
+        fma_ms, _ = bound_ms(nbytes, 0.0, "fp32", fp32_ops=2.0 * m * n * k + lora_ops)
         record("qmm_fp32", dict(kernel="qmm_fp32", m=m, k=k, n=n, max_abs_err=err, ms=ms,
                                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=lib,
+                                bound_fp32_fma_ms=fma_ms, one_tf32_rel=one_tf32,
                                 note=note, library="torch.matmul in fp32 on the dequantized "
                                                    "fp32 weight"))
         torch.cuda.empty_cache()
@@ -1175,6 +1207,10 @@ def serve_7b(tag: str, dev_tag: str, quant_config, expect: dict, after_quantize=
     torch.cuda.synchronize()
     launches = counts()
     log(f"[{tag}] launches in the main path: {launches}")
+    # after the window: the prefill's device time, all kernels and those of
+    # the dequant-matmul mainloop
+    prefill_dev = time_ms([lambda: model.generate(prompts, max_new_tokens=1)], 2)
+    prefill_qmm = time_ms([lambda: model.generate(prompts, max_new_tokens=1)], 2, only="qmm_")
 
     if out.shape != (prompts.shape[0], new) or out.min() < 0 or out.max() >= cfg.vocab_size:
         raise AssertionError(f"unexpected output: shape {out.shape}, ids {out.min()}..{out.max()}")
@@ -1190,6 +1226,8 @@ def serve_7b(tag: str, dev_tag: str, quant_config, expect: dict, after_quantize=
     log(f"[{tag}] {dev_tag}: prefill (B=4, t_pad=128, + first token) {prefill_ms:.1f} ms; "
         f"decode {decode_tok_s:.1f} tok/s total over B=4; peak memory {peak:.2f} GiB; "
         f"quantize {quant_s:.2f} s")
+    log(f"[{tag}] {dev_tag}: prefill device time {prefill_dev:.3f} ms, {prefill_qmm:.3f} ms of it "
+        f"in the qmm_ kernels")
     log(f"[{tag}] {dev_tag}: 8-token generate (B=4): device busy {busy['busy_share']:.3f} of "
         f"{busy['wall_ms']:.1f} ms wall; device ms by kernel: {busy['top']}")
     log(f"[{tag}] card right after it: {card_state()}")
@@ -2251,8 +2289,12 @@ def phase_i_two_layer() -> dict:
         with mock.patch.object(fm, "qmm_fp32",
                                lambda *a: plain_route(*a, dtype=torch.bfloat16)):
             control, _ = forward(served, cfg, toks)
+        fwd_ms = time_ms([lambda: forward(served, cfg, toks)], 3)
+        qmm_ms = time_ms([lambda: forward(served, cfg, toks)], 3, only="qmm_fp32")
     per = {k: counts[k] for k in ("qmm_fp32", "flash_attention_fp32")}
     r, c = rel(got, ref), rel(control, ref)
+    log(f"[i] 2-layer 7B-width fp32 HQQ+ serving, T = 512: device time {fwd_ms:.3f} ms per "
+        f"forward, {qmm_ms:.3f} ms of it in the 14 qmm_fp32 launches")
     log(f"[i] 2-layer 7B-width fp32 HQQ+ serving (pallas; attention 4-bit g64 + LoRA r=8, MLP "
         f"2-bit g16 axis=0, bf16 meta), T = 512: logits vs the same layers through the plain "
         f"versions: rel err {r:.3e} (tol "
@@ -2270,19 +2312,34 @@ def phase_i_two_layer() -> dict:
     return window
 
 
-# --time quant_matmul_ax0|dequant_ax0 M K N [CONFIG]: NBITS-G-META, META fp32 or bf16
+# --time quant_matmul_ax0|dequant_ax0 M K N [CONFIG [VARIANT]]: NBITS-G-META, META
+# fp32 or bf16; VARIANT builds quant_matmul_ax0.cu without one of its two
+# designs (csrc/qmm_sm90.cuh `Ax0Layout`), for what each buys
 AX0_TIME_DEFAULT = "2-16-bf16"
+AX0_VARIANTS = {"element-stores": "-DHQQ_AX0_RUN_STORES=0",
+                "meta-per-row": "-DHQQ_AX0_SHARED_META=0"}
 
 
-def time_one(kernel: str, m: int, k: int, n: int, extra: "str | None" = None) -> dict:
+def time_one(kernel: str, m: int, k: int, n: int, extra: "str | None" = None,
+             variant: "str | None" = None) -> dict:
     """Three phase-b timings of one wrapper at one shape (``--time``).
     ``extra``: the LoRA rank, the kv heads of the attention kernels, or the
-    axis=0 config (``AX0_TIME_DEFAULT``)."""
+    axis=0 config (``AX0_TIME_DEFAULT``); for qmm_fp32 (fp32 x, 4-bit g64
+    axis=1) a LoRA rank or an axis=0 config. ``variant``: one of
+    ``AX0_VARIANTS``, for quant_matmul_ax0."""
+    from hqq_tpu_torch.ops import _build
     from hqq_tpu_torch.ops import fused_matmul as fm
 
+    if variant is not None:
+        if kernel != "quant_matmul_ax0" or variant not in AX0_VARIANTS:
+            raise SystemExit(f"variants are quant_matmul_ax0's: {sorted(AX0_VARIANTS)}")
+        _build.NVCC_FLAGS = _build.NVCC_FLAGS + (AX0_VARIANTS[variant],)  # a library of its own
     if kernel in ("quant_matmul_ax0", "dequant_ax0"):
         config = extra or AX0_TIME_DEFAULT
         r = None
+    elif kernel == "qmm_fp32":
+        config = extra if extra and "-" in extra else None
+        r = int(extra) if extra and config is None else 0
     elif kernel.startswith("flash_attention_backward"):  # KV[-HD[-DTYPE]]
         config, r = (extra or "").split("-"), None
     else:
@@ -2331,10 +2388,11 @@ def time_one(kernel: str, m: int, k: int, n: int, extra: "str | None" = None) ->
         ms = [time_ms([call], 20) for _ in range(3)]
         return dict(kernel=kernel, batch=m, t=k, heads=n, kv_heads=n_kv, head_dim=hd,
                     dtype=str(dtype)[6:], ms=ms)
+    fp32_rank = r if kernel == "qmm_fp32" else None
     r = r or LORA_RANK
 
     x = torch.randn((m, k), device="cuda", generator=torch.Generator(device="cuda").manual_seed(1))
-    x = x.to(torch.bfloat16)
+    x = x.to(torch.float32 if kernel == "qmm_fp32" else torch.bfloat16)
     if config is not None:
         nbits, g, meta = config.split("-")
         kqt = _make_kqt0(n, k, int(g), int(nbits),
@@ -2352,13 +2410,21 @@ def time_one(kernel: str, m: int, k: int, n: int, extra: "str | None" = None) ->
         "quant_matmul_lora": lambda q, p: fm.quant_matmul_lora(q, p, a, b),
         "w4a8_matmul": lambda q, p: fm.w4a8_matmul(q, sx, p, torch.bfloat16),
         "w4a8_lora_matmul": lambda q, p: fm.w4a8_lora_matmul(q, sx, p, xa, b, torch.bfloat16),
+        # fp32 x takes the fp32 route of the wrapper of its weight and adapter
+        "qmm_fp32": (lambda q, p: fm.quant_matmul_ax0(q, p)) if config is not None
+        else (lambda q, p: fm.quant_matmul_lora(q, p, a, b)) if fp32_rank
+        else (lambda q, p: fm.quant_matmul(q, p)),
     }
     if kernel not in calls:
         raise SystemExit(f"unknown kernel {kernel!r}: one of {sorted(calls)}")
     call = calls[kernel]
     kq, xq = _copies(kqt, x, _weight_bytes(kqt))
+    launches = fm.qmm_fp32.launches
     ms = [time_ms([lambda p=p, q=q: call(q, p) for p, q in zip(kq, xq)], 100) for _ in range(3)]
-    return dict(kernel=kernel, m=m, k=k, n=n, r=r, config=config, ms=ms)
+    if kernel == "qmm_fp32" and fm.qmm_fp32.launches == launches:
+        raise AssertionError("fp32 x did not take the fp32 route")
+    return dict(kernel=kernel, m=m, k=k, n=n, r=r if kernel != "qmm_fp32" else fp32_rank,
+                config=config, variant=variant, ms=ms)
 
 
 def main(argv: list[str]) -> int:
@@ -2376,7 +2442,7 @@ def main(argv: list[str]) -> int:
     ).stdout.strip().splitlines()[0]
     dev_tag = f"[{power}]"
     if argv and argv[0] == "--time":
-        log(json.dumps(dict(time_one(argv[1], *map(int, argv[2:5]), *argv[5:6]), card=power)))
+        log(json.dumps(dict(time_one(argv[1], *map(int, argv[2:5]), *argv[5:7]), card=power)))
         return 0
 
     t_start = time.time()

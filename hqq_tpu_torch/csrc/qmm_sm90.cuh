@@ -42,9 +42,10 @@
 // the first dequantizes) p @ B is added to the fp32 accumulators
 // (`lora_term`).
 //
-// A layout (`Ax1Layout<Meta>` below, `Ax0Layout<Meta>` of quant_matmul_ax0.cu) supplies
-// how a slab's codes and meta are loaded, where a row's scale and zs sit,
-// and which column of y a weight row is. The dequantized operand is
+// A layout (`Ax1Layout<Meta>` and `Ax0Layout<Meta>` below, which qmm_fp32.cu
+// takes too, with slabs of 32) supplies how a slab's codes and meta are
+// loaded, where a row's scale and zs sit, and which column of y a weight row
+// is. The dequantized operand is
 // bit-identical to the plain version's (an fp32 multiply, then an fp32
 // subtract, rounded to x's type), so only the order of the fp32 sums
 // differs.
@@ -67,11 +68,13 @@ struct Params {
   void* out;
   float* part;      // fp32 [splits, M, N] when K is split, else null
   int m, n;         // tokens, weight rows (output features)
+  int tiles;        // blocks along the weight rows (gridDim.x)
+  int b_tiles;      // axis=0: tiles along b (the rows of scale and zs)
   int row_bytes;    // bytes of one packed code row
   int meta_cols;    // axis=1: groups per row (K/g); axis=0: K_pad
   int group_size, cb, pblocks;
   int code_vec, meta_vec;  // cp.async sizes (4, 8 or 16 bytes)
-  int meta_rows;           // axis=0: rows of scale and zs a tile reads
+  int meta_rows;           // axis=0: rows of scale and zs a tile reads (its b rows)
   int slab_groups;         // axis=1: groups of a slab row a slot holds (at least 4)
   int meta_shift;          // axis=1: g neither divides nor is divided by 64
   int group_log2;          // log2(g) where g is a power of two, else -1
@@ -153,20 +156,24 @@ __device__ __forceinline__ void read_codes(const uint8_t* row, const ChunkCodes&
 }
 
 // A consumer's 64 x 64 weight slab, dequantized from the slot into its A
-// tile a (each thread 8 codes of 4 rows). kBytes is a template argument so
-// that the hot loop carries no branch on the container.
+// tile a (each thread 8 codes of 4 rows; where the layout says the four
+// rows share their scale and zs, as axis=0's do, they are read once).
+// kBytes is a template argument so that the hot loop carries no branch on
+// the container.
 template <typename T, typename Layout, bool kBytes>
 __device__ __forceinline__ void dequant_tile(uint8_t* a, const uint8_t* codes, const uint8_t* meta,
                                              const int (&code_off)[4], const int (&meta_off)[4],
                                              int madd, int zs_off, float zadd, const ChunkCodes& cc,
                                              int ct) {
   const int q = ct % 8;
+  float sc[8], z[8];
+  if constexpr (Layout::kRowsShareMeta) Layout::meta8(meta, meta_off[0] + madd, zs_off, zadd, sc, z);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     uint32_t lo, hi;
     read_codes<kBytes>(codes + code_off[i], cc, lo, hi);
-    float sc[8], z[8];
-    Layout::meta8(meta, meta_off[i] + madd, zs_off, zadd, sc, z);
+    if constexpr (!Layout::kRowsShareMeta)
+      Layout::meta8(meta, meta_off[i] + madd, zs_off, zadd, sc, z);
     float v[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e)
@@ -416,19 +423,43 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       named_sync(1 + wg);
       float* part = p.part + static_cast<size_t>(blockIdx.z) * p.m * p.n;
-      for (int idx = ct; idx < BM * 16; idx += 128) {
-        const int m = idx / 16, c = idx % 16;
-        if (m0 + m >= p.m) continue;
-        const float4 v = *reinterpret_cast<const float4*>(st + m * 64 + ((c ^ (m & 7)) << 2));
-        const float e4[4] = {v.x, v.y, v.z, v.w};
-        float* row = part + static_cast<size_t>(m0 + m) * p.n;
-        const int pr = pw + 4 * c;
-        if (Layout::kContiguous && pr + 4 <= p.n && p.n % 4 == 0) {
-          *reinterpret_cast<float4*>(row + pr) = v;
-        } else {
+      if constexpr (Layout::kContiguous) {
+        for (int idx = ct; idx < BM * 16; idx += 128) {
+          const int m = idx / 16, c = idx % 16;
+          if (m0 + m >= p.m) continue;
+          const float4 v = *reinterpret_cast<const float4*>(st + m * 64 + ((c ^ (m & 7)) << 2));
+          const float e4[4] = {v.x, v.y, v.z, v.w};
+          float* row = part + static_cast<size_t>(m0 + m) * p.n;
+          const int pr = pw + 4 * c;
+          if (pr + 4 <= p.n && p.n % 4 == 0) {
+            *reinterpret_cast<float4*>(row + pr) = v;
+          } else {
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (pr + e < p.n) row[Layout::column(p, pr + e)] = e4[e];
+            for (int e = 0; e < 4; ++e)
+              if (pr + e < p.n) row[pr + e] = e4[e];
+          }
+        }
+      } else {  // runs of 8 rows: 8 columns of y in one 32-byte store where they are
+        for (int idx = ct; idx < BM * 8; idx += 128) {
+          const int m = idx / 8, c = idx % 8;
+          if (m0 + m >= p.m) continue;
+          const float4 v0 = *reinterpret_cast<const float4*>(st + m * 64 + (((2 * c) ^ (m & 7)) << 2));
+          const float4 v1 =
+              *reinterpret_cast<const float4*>(st + m * 64 + (((2 * c + 1) ^ (m & 7)) << 2));
+          float* row = part + static_cast<size_t>(m0 + m) * p.n;
+          const int r = wg * 64 + 8 * c;
+          const int col = Layout::run_column(p, p0, r);
+          if (col >= 0) {
+            *reinterpret_cast<float4*>(row + col) = v0;
+            *reinterpret_cast<float4*>(row + col + 4) = v1;
+          } else {
+            const float e8[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              const int ce = Layout::column(p, p0, r + e);
+              if (ce >= 0) row[ce] = e8[e];
+            }
+          }
         }
       }
     } else {
@@ -448,14 +479,28 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (m0 + m >= p.m) continue;
         const uint4 v = *reinterpret_cast<const uint4*>(st + m * 64 + ((c ^ (m & 7)) << 3));
         T* row = out + static_cast<size_t>(m0 + m) * p.n;
-        const int pr = pw + 8 * c;
-        if (Layout::kContiguous && pr + 8 <= p.n && p.n % 8 == 0) {
-          *reinterpret_cast<uint4*>(row + pr) = v;
-        } else {
-          const T* e8 = reinterpret_cast<const T*>(&v);
+        const T* e8 = reinterpret_cast<const T*>(&v);
+        if constexpr (Layout::kContiguous) {
+          const int pr = pw + 8 * c;
+          if (pr + 8 <= p.n && p.n % 8 == 0) {
+            *reinterpret_cast<uint4*>(row + pr) = v;
+          } else {
 #pragma unroll
-          for (int e = 0; e < 8; ++e)
-            if (pr + e < p.n) row[Layout::column(p, pr + e)] = e8[e];
+            for (int e = 0; e < 8; ++e)
+              if (pr + e < p.n) row[pr + e] = e8[e];
+          }
+        } else {  // 8 rows, 8 columns of y: one 16-byte store where they are a run
+          const int r = wg * 64 + 8 * c;
+          const int col = Layout::run_column(p, p0, r);
+          if (col >= 0) {
+            *reinterpret_cast<uint4*>(row + col) = v;
+          } else {
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              const int ce = Layout::column(p, p0, r + e);
+              if (ce >= 0) row[ce] = e8[e];
+            }
+          }
         }
       }
     }
@@ -514,7 +559,7 @@ int launch_tile(const void* x, int kx, Params p, const WeightMaps& w, int splits
   e = static_cast<int>(
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
   if (e != 0) return e;
-  dim3 grid((p.n + kBN - 1) / kBN, (p.m + BM - 1) / BM, splits);
+  dim3 grid(p.tiles, (p.m + BM - 1) / BM, splits);
   kernel<<<grid, kThreads, smem, s>>>(map, w.codes, w.scale, w.zs, w.lora_a, p);
   e = static_cast<int>(cudaGetLastError());
   if (e != 0 || splits == 1) return e;
@@ -549,10 +594,12 @@ int launch(const void* x, int kx, const Params& p, const WeightMaps& w, int bm, 
 // ------------------------------------------------------- axis=1 layout --
 
 // kernel layout of hqq_common.cuh: wq [N, K*cb/8], scale and zs [N, C] in
-// Meta (fp32, or bf16 widened to fp32 as a consumer reads it)
-template <typename Meta>
+// Meta (fp32, or bf16 widened to fp32 as a consumer reads it); slabs of KS
+// columns (64 here, 32 for qmm_fp32.cu)
+template <typename Meta, int KS = kBK>
 struct Ax1Layout {
   static constexpr bool kContiguous = true;
+  static constexpr bool kRowsShareMeta = false;
   static constexpr int kMeta = sizeof(Meta);
   // the first group of a cp.async'd slot is aligned to 4 bytes
   static constexpr int kAlign = 4 / kMeta;
@@ -583,7 +630,7 @@ struct Ax1Layout {
   static __device__ __forceinline__ void load_slab(const Params& p, int p0, int k0,
                                                    uint32_t codes, uint32_t meta, int tid) {
     if (!p.codes_tma) {
-      const int slab_bytes = 8 * p.cb;
+      const int slab_bytes = KS / 8 * p.cb;
       const int per_row = slab_bytes / p.code_vec;
       const int c0 = k0 / 8 * p.cb;  // the slab's byte offset within a row
       for (int idx = tid; idx < kBN * per_row; idx += 128) {
@@ -635,13 +682,17 @@ struct Ax1Layout {
     for (int e = 0; e < 8; ++e) s[e] = sv, z[e] = zv;
   }
 
-  static __device__ __forceinline__ int column(const Params&, int pr) { return pr; }
+  // the column of y of tile row r, or -1 past N
+  static __device__ __forceinline__ int column(const Params& p, int p0, int r) {
+    return p0 + r < p.n ? p0 + r : -1;
+  }
 };
 
 
 // Params and weight maps of an axis=1 weight of n rows and k columns, its
-// scale and zs in Meta, but for the launch plan's fields and the outputs
-template <typename Meta>
+// scale and zs in Meta, in slabs of KS columns, but for the launch plan's
+// fields and the outputs
+template <typename Meta, int KS = kBK>
 inline int ax1_params(Params& p, WeightMaps& w, const void* wq, const void* scale, const void* zs,
                       int n, int k, int group_size, int cb) {
   constexpr int kMeta = sizeof(Meta);
@@ -649,32 +700,33 @@ inline int ax1_params(Params& p, WeightMaps& w, const void* wq, const void* scal
   p.wq = static_cast<const uint8_t*>(wq);
   p.scale = scale, p.zs = zs;
   p.n = n;
+  p.tiles = (n + kBN - 1) / kBN;
   p.row_bytes = k / 8 * cb;
   p.meta_cols = hqq_ax1_meta_cols(k / g, kMeta == 4 ? HQQ_F32 : HQQ_BF16);
   p.group_size = g, p.cb = cb, p.pblocks = 0;
-  // groups under a slab row: 64/g, one, or for a g that neither divides nor
-  // is divided by 64 as many as a slab can touch (and one more for bf16,
+  // groups under a slab row: KS/g, one, or for a g that neither divides nor
+  // is divided by KS as many as a slab can touch (and one more for bf16,
   // whose first group is aligned down to 4 bytes); a slot holds at least a
   // TMA box row of 16 bytes
-  const bool tiles = kBK % g == 0 || g % kBK == 0;
+  const bool tiles = KS % g == 0 || g % KS == 0;
   p.meta_shift = !tiles;
   p.group_log2 = (g & (g - 1)) == 0 ? __builtin_ctz(static_cast<unsigned>(g)) : -1;
   const int groups =
-      g % kBK == 0 ? 1 : tiles ? kBK / g : (kBK - 1) / g + 2 + Ax1Layout<Meta>::kAlign - 1;
+      g % KS == 0 ? 1 : tiles ? KS / g : (KS - 1) / g + 2 + Ax1Layout<Meta, KS>::kAlign - 1;
   p.slab_groups = groups > 16 / kMeta ? groups : 16 / kMeta;
-  p.code_vec = copy_vec(wq, p.row_bytes, 8 * cb);
+  p.code_vec = copy_vec(wq, p.row_bytes, KS / 8 * cb);
   p.meta_vec = tiles ? copy_vec(scale, 1L * kMeta * p.meta_cols, 1L * kMeta * p.slab_groups) : 4;
   if (copy_vec(zs, 1L * kMeta * p.meta_cols, 1L * kMeta * p.slab_groups) < p.meta_vec)
     p.meta_vec = 4;
   p.meta_rows = 0;
-  p.slabs = (k + kBK - 1) / kBK;
-  p.code_stage = kBN * 8 * cb;
+  p.slabs = (k + KS - 1) / KS;
+  p.code_stage = kBN * KS / 8 * cb;
   p.meta_stage = 2 * kBN * p.slab_groups * kMeta;
   // TMA where its rules hold (16-byte rows and strides), else cp.async
   p.codes_tma = cb >= 2 && p.code_vec == 16;
   if (p.codes_tma) {
     const long dims[3] = {p.row_bytes, n, 1}, strides[2] = {p.row_bytes, 1L * p.row_bytes * n};
-    const int box[3] = {8 * cb, kBN, 1};
+    const int box[3] = {KS / 8 * cb, kBN, 1};
     if (encode_map(&w.codes, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, wq, dims, strides, box,
                    CU_TENSOR_MAP_SWIZZLE_NONE) != 0)
       return static_cast<int>(cudaErrorInvalidValue);
@@ -684,6 +736,179 @@ inline int ax1_params(Params& p, WeightMaps& w, const void* wq, const void* scal
     const auto type = kMeta == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
     const long dims[2] = {p.meta_cols, n}, strides[1] = {1L * kMeta * p.meta_cols};
     const int box[2] = {p.slab_groups, kBN};
+    if (encode_map(&w.scale, type, 2, scale, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE) != 0 ||
+        encode_map(&w.zs, type, 2, zs, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE) != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return 0;
+}
+
+
+// ------------------------------------------------------- axis=0 layout --
+
+// measurement switches of the axis=0 layout's two designs (chip_smoke.py's
+// --time variants build with them at 0): runs of 8 columns stored at once,
+// and one read of scale and zs for the rows a thread dequantizes
+#ifndef HQQ_AX0_RUN_STORES
+#define HQQ_AX0_RUN_STORES 1
+#endif
+#ifndef HQQ_AX0_SHARED_META
+#define HQQ_AX0_SHARED_META 1
+#endif
+
+// eight scales or zs from shared memory, widened to fp32 (bf16 by its bits)
+__device__ __forceinline__ void meta8_f32(const float* m, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(m);
+  const float4 b = *reinterpret_cast<const float4*>(m + 4);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+__device__ __forceinline__ void meta8_f32(const __nv_bfloat16* m, float (&v)[8]) {
+  const uint4 t = *reinterpret_cast<const uint4*>(m);
+  const uint32_t w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// Kernel layout of quant_matmul_ax0.cu: wq [N, K_pad*cb/8] in logical row
+// order, scale and zs [P, K_pad] of type Meta (P = N/g); weight row
+// n = a*P + b (a < g, b < P) reads row b of them. Slabs of KS columns.
+//
+// A tile's 128 rows are BB consecutive b by 128/BB consecutive a (BB = 8,
+// or 16 at g = 8, `ax0_params`), tile row r = a_l*BB + b_l: a warpgroup's
+// 64 rows are 8 whole runs of 8 consecutive b, i.e. of 8 consecutive columns
+// of y, and the 4 rows a consumer thread dequantizes (r, r+16, r+32, r+48)
+// share their b, so one read of 8 scales and 8 zs serves them all. The codes
+// come by one TMA box {slab bytes, BB b, 128/BB a} of the [g, P, row] view
+// of wq, which lands in tile-row order, scale and zs by a box {KS, BB}.
+template <typename Meta, int KS = kBK>
+struct Ax0Layout {
+  static constexpr bool kContiguous = false;
+  static constexpr bool kRowsShareMeta = HQQ_AX0_SHARED_META;
+
+  // the tile's first b and first a (blockIdx.x = its b tile + b_tiles * its a tile)
+  static __device__ __forceinline__ int b_first(const Params& p, int p0) {
+    return p0 / kBN % p.b_tiles * p.meta_rows;
+  }
+  static __device__ __forceinline__ int a_first(const Params& p, int p0) {
+    return p0 / kBN / p.b_tiles * (kBN / p.meta_rows);
+  }
+
+  static __device__ __forceinline__ int code_row(const Params&, int pr) { return pr; }
+
+  // TMA coordinates of a slab: codes {byte, b, a} of the [g, P, row] view,
+  // scale and zs {column, b}
+  static __device__ __forceinline__ void code_coords(const Params& p, int p0, int k0, int (&c)[3]) {
+    c[0] = k0 / 8 * p.cb, c[1] = b_first(p, p0), c[2] = a_first(p, p0);
+  }
+  static __device__ __forceinline__ void meta_coords(const Params& p, int p0, int k0, int (&c)[2]) {
+    c[0] = k0, c[1] = b_first(p, p0);
+  }
+
+  // what the TMA does not load, by cp.async (zero-filled past the tensor)
+  static __device__ __forceinline__ void load_slab(const Params& p, int p0, int k0,
+                                                   uint32_t codes, uint32_t meta, int tid) {
+    const int bb = p.meta_rows, b0 = b_first(p, p0), a0 = a_first(p, p0);
+    if (!p.codes_tma) {
+      const int slab_bytes = KS / 8 * p.cb;
+      const int per_row = slab_bytes / p.code_vec;
+      const int c0 = k0 / 8 * p.cb;
+      for (int idx = tid; idx < kBN * per_row; idx += 128) {
+        const int r = idx / per_row, off = c0 + (idx % per_row) * p.code_vec;
+        const int a = a0 + r / bb, b = b0 + r % bb;
+        const bool ok = a < p.group_size && b < p.pblocks && off < p.row_bytes;
+        const size_t row = static_cast<size_t>(a) * p.pblocks + b;
+        const uint8_t* src = ok ? p.wq + row * p.row_bytes + off : p.wq;
+        cp_async(codes + r * slab_bytes + (idx % per_row) * p.code_vec, src, p.code_vec, ok);
+      }
+    }
+    if (p.meta_tma) return;
+    constexpr int kRowBytes = KS * static_cast<int>(sizeof(Meta));
+    const int per_meta = kRowBytes / p.meta_vec;
+    const int total = 2 * bb * per_meta;
+    for (int idx = tid; idx < total; idx += 128) {
+      const int h = idx / (bb * per_meta);  // 0: scale, 1: zs
+      const int rem = idx % (bb * per_meta);
+      const int i = rem / per_meta, off = k0 * static_cast<int>(sizeof(Meta)) +
+                                           (rem % per_meta) * p.meta_vec;
+      const uint8_t* base = static_cast<const uint8_t*>(h == 0 ? p.scale : p.zs);
+      const bool ok = b0 + i < p.pblocks && off < p.meta_cols * static_cast<int>(sizeof(Meta));
+      const uint8_t* src =
+          ok ? base + static_cast<size_t>(b0 + i) * p.meta_cols * sizeof(Meta) + off : base;
+      cp_async(meta + (h * bb + i) * kRowBytes + (rem % per_meta) * p.meta_vec, src, p.meta_vec,
+               ok);
+    }
+  }
+
+  // element index of tile row pr's scales for chunk q (columns 8q..8q+7)
+  static __device__ __forceinline__ int meta_offset(const Params& p, int, int pr, int q) {
+    return pr % p.meta_rows * KS + 8 * q;
+  }
+  static __device__ __forceinline__ int zs_offset(const Params& p) { return p.meta_rows * KS; }
+  static __device__ __forceinline__ int meta_add(const Params&, int, int) { return 0; }
+  static __device__ __forceinline__ float zs_add(const Params&) { return 0.f; }  // zs as stored
+  static __device__ __forceinline__ void meta8(const uint8_t* meta, int off, int zs_off, float,
+                                               float (&s)[8], float (&z)[8]) {
+    const Meta* m = reinterpret_cast<const Meta*>(meta);
+    meta8_f32(m + off, s);
+    meta8_f32(m + zs_off + off, z);
+  }
+
+  // the column of y of tile row r, or -1 where its a or b lies past the weight
+  static __device__ __forceinline__ int column(const Params& p, int p0, int r) {
+    const int a = a_first(p, p0) + r / p.meta_rows, b = b_first(p, p0) + r % p.meta_rows;
+    return a < p.group_size && b < p.pblocks ? a * p.pblocks + b : -1;
+  }
+  // the first column of the 8 rows r..r+7 (r % 8 == 0) where they are 8
+  // consecutive columns, the first a multiple of 8 (P % 8 == 0), else -1
+  static __device__ __forceinline__ int run_column(const Params& p, int p0, int r) {
+    return HQQ_AX0_RUN_STORES && p.pblocks % 8 == 0 ? column(p, p0, r) : -1;
+  }
+};
+
+// Params and weight maps of an axis=0 weight of n rows, groups of g, K
+// padded to k_pad, scale and zs in Meta, slabs of KS columns, but for the
+// launch plan's fields and the outputs (ops/fused_matmul.py mirrors the
+// tile count, `ax0_tile_rows`, and the slot's bytes)
+template <typename Meta, int KS = kBK>
+inline int ax0_params(Params& p, WeightMaps& w, const void* wq, const void* scale, const void* zs,
+                      int n, int k_pad, int g, int cb) {
+  constexpr int kMeta = sizeof(Meta);
+  if (g < 8 || g % 8 != 0 || n % g != 0) return static_cast<int>(cudaErrorInvalidValue);
+  p.wq = static_cast<const uint8_t*>(wq);
+  p.scale = scale, p.zs = zs;
+  p.n = n;
+  p.row_bytes = k_pad / 8 * cb;
+  p.meta_cols = k_pad;
+  p.group_size = g, p.cb = cb, p.pblocks = n / g;
+  const int bb = g < 16 ? 16 : 8;  // b rows of a tile; 128/bb a rows
+  p.meta_rows = bb;
+  p.b_tiles = (p.pblocks + bb - 1) / bb;
+  p.tiles = p.b_tiles * ((g + kBN / bb - 1) / (kBN / bb));
+  p.code_vec = copy_vec(wq, p.row_bytes, KS / 8 * cb);
+  p.meta_vec = copy_vec(scale, 1L * kMeta * k_pad, kMeta * KS);
+  if (copy_vec(zs, 1L * kMeta * k_pad, kMeta * KS) < p.meta_vec) p.meta_vec = 4;
+  p.slabs = (k_pad + KS - 1) / KS;
+  p.code_stage = kBN * KS / 8 * cb;
+  p.meta_stage = 2 * bb * KS * kMeta;
+  // TMA where its 16-byte rules hold, else cp.async. Codes: the [g, P, row]
+  // view of wq, one box of BB runs of 128/BB rows
+  p.codes_tma = cb >= 2 && p.code_vec == 16;
+  if (p.codes_tma) {
+    const long dims[3] = {p.row_bytes, p.pblocks, g};
+    const long strides[2] = {p.row_bytes, 1L * p.row_bytes * p.pblocks};
+    const int box[3] = {KS / 8 * cb, bb, kBN / bb};
+    if (encode_map(&w.codes, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, wq, dims, strides, box,
+                   CU_TENSOR_MAP_SWIZZLE_NONE) != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  p.meta_tma = p.meta_vec == 16;
+  if (p.meta_tma) {
+    const auto type = kMeta == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    const long dims[2] = {k_pad, p.pblocks}, strides[1] = {1L * kMeta * k_pad};
+    const int box[2] = {KS, bb};
     if (encode_map(&w.scale, type, 2, scale, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE) != 0 ||
         encode_map(&w.zs, type, 2, zs, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE) != 0)
       return static_cast<int>(cudaErrorInvalidValue);

@@ -26,7 +26,7 @@ count (``<wrapper>.launches``):
     quant_matmul_ax0  -> csrc/quant_matmul_ax0.cu   (axis=0 weights, any M)
     dequant           -> csrc/dequant.cu            (both layouts)
     qmm_fp32          -> csrc/qmm_fp32.cu           (fp32 x: the three matmuls'
-                                                     fp32 route)
+                                                     fp32 route, 3xTF32)
 
 A wrapper runs the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises; nothing falls back.
@@ -73,6 +73,8 @@ __all__ = [
     "reset_launch_counts",
     "QmmPlan",
     "qmm_launch_plan",
+    "qmm_fp32_launch_plan",
+    "ax0_tile_rows",
     "lora_a_kernel_layout",
     "lora_rank_tile",
     "ax1_meta_cols",
@@ -99,6 +101,11 @@ H100_SMEM_PER_BLOCK = 232448
 # the most tokens for which K is split: the w4a8 backend's decode sizes,
 # which reach quant_matmul only from the pallas backend and 8-bit weights
 QMM_SPLIT_MAX_M = A8_MAX_M
+# the fp32 route (csrc/qmm_fp32.cu): slabs of 32 fp32 (one 128-byte swizzle
+# row), token tiles up to 128, the LoRA term in chunks of 8 ranks
+QMM_FP32_SLAB = 32
+QMM_FP32_TOKEN_TILES = (8, 32, 64, 128)
+QMM_FP32_RANK_TILE = 8
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -396,22 +403,36 @@ class QmmPlan:
     passes: int = 1
 
 
-def _slab_meta_bytes(group_size: int, axis: int, meta_size: int) -> int:
-    """Bytes of scale and zs that one slot of the pipeline holds."""
+def ax0_tile_rows(group_size: int) -> tuple[int, int]:
+    """(b rows, a rows) of a 128-row axis=0 tile (`ax0_params` of
+    csrc/qmm_sm90.cuh): 8 consecutive b by 16 consecutive a of the weight
+    rows n = a*P + b, 16 b by 8 a at g = 8; tile row r = a_l * b_rows + b_l."""
+    b_rows = 16 if group_size < 16 else 8
+    return b_rows, QMM_ROWS // b_rows
+
+
+def _row_tiles(n: int, group_size: int, axis: int) -> int:
+    """Blocks along the weight rows: 128 rows each (axis=0: b tiles times a
+    tiles, the last of each possibly part empty)."""
+    if axis == 1:
+        return -(-n // QMM_ROWS)
+    b_rows, a_rows = ax0_tile_rows(group_size)
+    return -(-(n // group_size) // b_rows) * -(-group_size // a_rows)
+
+
+def _slab_meta_bytes(group_size: int, axis: int, meta_size: int, slab: int = QMM_SLAB) -> int:
+    """Bytes of scale and zs that one slot of the pipeline holds, for slabs
+    of ``slab`` columns (64; 32 on the fp32 route)."""
     g = group_size
-    if axis == 1:  # 128 rows of the groups under a 64-wide slab (at least 16 bytes)
-        tiles = QMM_SLAB % g == 0 or g % QMM_SLAB == 0
+    if axis == 1:  # 128 rows of the groups under a slab (at least 16 bytes)
+        tiles = slab % g == 0 or g % slab == 0
         # where a slab can start mid-group, bf16's first group is aligned
         # down to 4 bytes: one group more
-        groups = (1 if g % QMM_SLAB == 0 else QMM_SLAB // g if tiles
-                  else (QMM_SLAB - 1) // g + 2 + 4 // meta_size - 1)
+        groups = (1 if g % slab == 0 else slab // g if tiles
+                  else (slab - 1) // g + 2 + 4 // meta_size - 1)
         return 2 * QMM_ROWS * max(16 // meta_size, groups) * meta_size
-    # axis=0: 64 columns of the rows of [P, K_pad] under 128 permuted rows
-    if QMM_ROWS % g == 0:
-        rows = QMM_ROWS // g
-    else:
-        rows = 1 if g % QMM_ROWS == 0 else (QMM_ROWS - 1) // g + 2
-    return 2 * rows * QMM_SLAB * meta_size
+    # axis=0: the slab's columns of the tile's b rows of [P, K_pad]
+    return 2 * ax0_tile_rows(g)[0] * slab * meta_size
 
 
 def qmm_smem_bytes(token_tile: int, stages: int, code_stage: int, meta_stage: int,
@@ -423,6 +444,34 @@ def qmm_smem_bytes(token_tile: int, stages: int, code_stage: int, meta_stage: in
     per_wg = max(2 * 64 * QMM_SLAB * 2, token_tile * 128)
     return (stages * token_tile * 128 + 2 * per_wg + stages * rank_tile * 128
             + token_tile * rank_tile * 4 + stages * (code_stage + meta_stage) + 16 * stages + 1024)
+
+
+def _ring(smem_of, what: str) -> int:
+    """The slots of a pipeline ring: as many as one block's shared memory
+    holds, at most ``QMM_MAX_STAGES``; ``smem_of(stages)`` is the block's
+    bytes. Raises where two do not fit."""
+    fixed = smem_of(0)
+    stages = min(QMM_MAX_STAGES, (H100_SMEM_PER_BLOCK - fixed) // (smem_of(1) - fixed))
+    if stages < 2:
+        raise ValueError(f"no two pipeline stages fit for {what}")
+    return stages
+
+
+def _k_splits(m: int, blocks: int, slabs: int) -> tuple[int, int]:
+    """(splits, slabs per split) of K over gridDim.z for ``blocks`` blocks
+    of ``slabs`` slabs each: up to ``QMM_SPLIT_MAX_M`` tokens, where the
+    card has fewer blocks than SMs, the split with the fewest waves of
+    blocks times slabs per block (plus two for a block's fill and epilogue),
+    the fewer splits on a tie; above it, none."""
+    if m > QMM_SPLIT_MAX_M or blocks >= H100_SMS:
+        return 1, slabs
+    options = []
+    for s in range(1, slabs + 1):
+        sps = -(-slabs // s)
+        eff = -(-slabs // sps)  # no empty split
+        options.append((-(-blocks * eff // H100_SMS) * (sps + 2), eff, sps))
+    _, splits, per_split = min(options)
+    return splits, per_split
 
 
 @functools.lru_cache(maxsize=4096)
@@ -448,7 +497,7 @@ def qmm_launch_plan(m: int, n: int, k: int, cb: int, group_size: int, axis: int 
     most 32 adapter accumulators). Cached: every decode step asks again for
     the same shapes."""
     slabs = -(-k // QMM_SLAB)
-    row_tiles = -(-n // QMM_ROWS)
+    row_tiles = _row_tiles(n, group_size, axis)
     rank_tile = lora_rank_tile(rank) if rank else 0
     if m <= 64:
         tile = next(t for t in QMM_TOKEN_TILES if t >= m)
@@ -457,26 +506,59 @@ def qmm_launch_plan(m: int, n: int, k: int, cb: int, group_size: int, axis: int 
     else:
         tile = min((128, 256),
                    key=lambda t: (-(-row_tiles * -(-m // t) // H100_SMS) * t, -t))
-    blocks = row_tiles * -(-m // tile)
-    splits, per_split = 1, slabs
-    if m <= QMM_SPLIT_MAX_M and blocks < H100_SMS:
-        options = []
-        for s in range(1, slabs + 1):
-            sps = -(-slabs // s)
-            eff = -(-slabs // sps)  # no empty split
-            options.append((-(-blocks * eff // H100_SMS) * (sps + 2), eff, sps))
-        _, splits, per_split = min(options)
+    splits, per_split = _k_splits(m, row_tiles * -(-m // tile), slabs)
     code_stage = QMM_ROWS * 8 * cb
     meta_stage = _slab_meta_bytes(group_size, axis, meta_size)
-    fixed = qmm_smem_bytes(tile, 0, code_stage, meta_stage, rank_tile)
-    per_stage = qmm_smem_bytes(tile, 1, code_stage, meta_stage, rank_tile) - fixed
-    stages = min(QMM_MAX_STAGES, (H100_SMEM_PER_BLOCK - fixed) // per_stage)
-    if stages < 2:
-        raise ValueError(f"no two pipeline stages fit for tile {tile}, cb {cb}, g {group_size}")
+    stages = _ring(lambda s: qmm_smem_bytes(tile, s, code_stage, meta_stage, rank_tile),
+                   f"tile {tile}, cb {cb}, g {group_size}")
     return QmmPlan(token_tile=tile, stages=stages, splits=splits, slabs_per_split=per_split,
                    grid=(row_tiles, -(-m // tile), splits),
                    smem=qmm_smem_bytes(tile, stages, code_stage, meta_stage, rank_tile),
                    rank_tile=rank_tile, passes=-(-rank // rank_tile) if rank else 1)
+
+
+def qmm_fp32_smem_bytes(token_tile: int, stages: int, code_stage: int, meta_stage: int,
+                        lora: bool = False) -> int:
+    """Dynamic shared memory of one block of the fp32 route (`fp32_smem`
+    of csrc/qmm_fp32.cu): per slot x's slab (split in place into its TF32
+    big part) and its small part, each consumer's two pairs of 64 x 32 fp32
+    tiles (W_big, W_small), with an adapter A's [32 x 8] slab per slot and
+    p [token_tile x 8], the code and meta slots, the barriers, and 1024
+    bytes to align the base."""
+    lora_bytes = stages * QMM_FP32_SLAB * QMM_FP32_RANK_TILE * 4 \
+        + token_tile * QMM_FP32_RANK_TILE * 4 if lora else 0
+    return (2 * stages * token_tile * 128 + 2 * 2 * 2 * 64 * QMM_FP32_SLAB * 4 + lora_bytes
+            + stages * (code_stage + meta_stage) + 16 * stages + 1024)
+
+
+@functools.lru_cache(maxsize=4096)
+def qmm_fp32_launch_plan(m: int, n: int, k: int, cb: int, group_size: int, axis: int = 1,
+                         meta_size: int = 4, rank: int = 0) -> QmmPlan:
+    """The launch of the fp32 route (csrc/qmm_fp32.cu) for x [m, k] and a
+    weight of n rows (k = K_pad for axis=0; meta_size = 4 or 2 bytes of its
+    scale), with a LoRA adapter of ``rank`` ranks (axis=1) or none.
+
+    Slabs of 32 columns. Token tile: the least of 8, 32, 64, 128 that holds
+    m tokens, else 128 (a 256-token tile would leave two slots of its ring
+    in shared memory). K is split as `qmm_launch_plan` splits it: only up to
+    ``QMM_SPLIT_MAX_M`` tokens, so that a row of y does not depend on how
+    many rows go with it above that. Stages: as many slots as shared memory
+    holds, at most 8. With an adapter, one more walk over K per 8 ranks
+    after the base's (``passes`` of them)."""
+    slabs = -(-k // QMM_FP32_SLAB)
+    row_tiles = _row_tiles(n, group_size, axis)
+    tile = next((t for t in QMM_FP32_TOKEN_TILES if t >= m), QMM_FP32_TOKEN_TILES[-1])
+    splits, per_split = _k_splits(m, row_tiles * -(-m // tile), slabs)
+    code_stage = QMM_ROWS * QMM_FP32_SLAB // 8 * cb
+    meta_stage = _slab_meta_bytes(group_size, axis, meta_size, QMM_FP32_SLAB)
+    lora = rank > 0
+    stages = _ring(lambda s: qmm_fp32_smem_bytes(tile, s, code_stage, meta_stage, lora),
+                   f"the fp32 route's tile {tile}, cb {cb}, g {group_size}")
+    return QmmPlan(token_tile=tile, stages=stages, splits=splits, slabs_per_split=per_split,
+                   grid=(row_tiles, -(-m // tile), splits),
+                   smem=qmm_fp32_smem_bytes(tile, stages, code_stage, meta_stage, lora),
+                   rank_tile=QMM_FP32_RANK_TILE if lora else 0,
+                   passes=-(-rank // QMM_FP32_RANK_TILE) if lora else 1)
 
 
 def dequant_plain(kqt: "KernelQTensor | KernelQTensor0", dtype=torch.float32) -> torch.Tensor:
@@ -543,8 +625,10 @@ def qmm_fp32(x2: torch.Tensor, kqt: "KernelQTensor | KernelQTensor0",
              a: Optional[torch.Tensor] = None, b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The fp32 route of `quant_matmul`, `quant_matmul_ax0` and
     `quant_matmul_lora` (csrc/qmm_fp32.cu): x2 fp32 [M, K] @ W^T (+ (x2 @
-    a) @ b) -> fp32 [M, N], every value in fp32 on the CUDA cores. Its plain
-    versions are those of the three wrappers."""
+    a) @ b) -> fp32 [M, N] to fp32 accuracy: W dequantized in fp32, the
+    product from three TF32 tensor-core products of the operands' big and
+    small parts, the adapter's term in fp32. Its plain versions are those
+    of the three wrappers."""
     if _on_cpu(x2):
         if isinstance(kqt, KernelQTensor0):
             return quant_matmul_ax0_plain(x2, kqt)
@@ -557,23 +641,35 @@ def qmm_fp32(x2: torch.Tensor, kqt: "KernelQTensor | KernelQTensor0",
         _check_kqt(kqt, dev)
     if x2.dtype != torch.float32 or x2.ndim != 2 or x2.shape[1] != kqt.k:
         raise ValueError(f"qmm_fp32 takes fp32 x [M, {kqt.k}], got {x2.dtype} {tuple(x2.shape)}")
-    x2 = x2.contiguous()
+    pad = -kqt.k % 4 if ax0 else 0  # x's rows in whole 16-byte chunks (axis=1: K % 8 == 0)
+    x2 = F.pad(x2, (0, pad)) if pad else x2.contiguous()
+    if x2.data_ptr() % 16:
+        x2 = x2.clone()
+    m, kx = x2.shape
     r = 0
     if a is not None:
         if ax0:
             raise ValueError("the LoRA term is served over an axis=1 weight only")
         r = _check_lora(kqt, a, b, dev)
-        a = a.to(torch.float32).contiguous()
         b = b.to(torch.float32).contiguous()
-    m = x2.shape[0]
+    k_pad = kqt.k_pad if ax0 else kqt.k
+    plan = qmm_fp32_launch_plan(m, kqt.n, k_pad, kqt.container_bits, kqt.group_size,
+                                axis=0 if ax0 else 1, meta_size=kqt.scale.element_size(), rank=r)
+    if r:  # A [K, passes * 8] in fp32, zero past the rank
+        a_pad = torch.zeros((kqt.k, plan.passes * plan.rank_tile), dtype=torch.float32,
+                            device=dev)
+        a_pad[:, :r].copy_(a.detach())
     out = torch.empty((m, kqt.n), dtype=torch.float32, device=dev)
+    part = _split_scratch(plan, m, kqt.n, dev)
     lib = _build.library("qmm_fp32")
     with torch.cuda.device(dev):
         code = lib.hqq_qmm_fp32(
-            _ptr(x2, 4), _ptr(kqt.wq, 4), _ptr(kqt.scale, 2), _ptr(kqt.zs, 2),
-            None if a is None else _ptr(a, 4), None if b is None else _ptr(b, 4), _ptr(out, 4),
-            m, kqt.n, kqt.k, kqt.k_pad if ax0 else kqt.k, kqt.group_size, kqt.container_bits,
-            0 if ax0 else 1, _DTYPE_CODE[kqt.scale.dtype], r, _stream(dev),
+            _ptr(x2), _ptr(kqt.wq, 4), _ptr(kqt.scale, 2), _ptr(kqt.zs, 2),
+            _ptr(a_pad) if r else None, _ptr(b, 4) if r else None, _ptr(out, 4),
+            None if part is None else _ptr(part, 4), m, kqt.n, kx, k_pad, kqt.group_size,
+            kqt.container_bits, 0 if ax0 else 1, _DTYPE_CODE[kqt.scale.dtype], r, plan.passes,
+            plan.token_tile, plan.stages, plan.splits, plan.slabs_per_split, plan.smem,
+            _stream(dev),
         )
     _build.check("qmm_fp32", code)
     qmm_fp32.launches += 1

@@ -94,6 +94,29 @@ def test_ax0_matmul_fp32_meta(entry, m, nbits, g, n_out, k):
     assert np.abs(yt - expected).max() / scale < 2e-5
 
 
+# (nbits, g, N, K) of path F's attention config at groups of 64 and 128 with
+# fp32 meta: N/g a multiple of 8 (the kernel's tiles store runs of 8
+# columns) and not (256/128 = 2 b rows)
+_WIDE_GROUPS = [(3, 64, 512, 256), (3, 128, 1024, 256), (3, 128, 256, 512)]
+
+
+@pytest.mark.parametrize("m", [1, 40, 130])
+@pytest.mark.parametrize("nbits,g,n_out,k", _WIDE_GROUPS)
+def test_ax0_matmul_fp32_meta_wide_groups(m, nbits, g, n_out, k):
+    """quant_matmul_pallas at 3-bit g64 and g128 with fp32 scale and zs
+    against hqq_tpu's group-major kernel in interpret mode, at the bar of
+    test_ax0_matmul_fp32_meta (2e-5 of max|y|), for M below, inside and
+    across the 128-token tile."""
+    qj, qt, rng = _quantized(n_out, k, g, nbits, seed=7)
+    kj = jf.to_kernel_layout_ax0(qj, meta_dtype=jnp.float32)
+    kt = tf.to_kernel_layout_ax0(qt, torch.float32)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    yj = np.asarray(jf.quant_matmul_pallas(jnp.asarray(x), kj))
+    yt = tf.quant_matmul_pallas(torch.from_numpy(x), kt).numpy()
+    assert yt.shape == yj.shape == (m, n_out)
+    assert np.abs(yt - yj).max() / np.abs(yj).max() < 2e-5
+
+
 @pytest.mark.parametrize("m", [1, 40])
 @pytest.mark.parametrize("nbits,g,n_out,k", _CONFIGS)
 def test_ax0_matmul_default_meta_policy(m, nbits, g, n_out, k):

@@ -304,7 +304,11 @@ _AX0_SM90_CASES = [
     (17, 2, 16, 4096, 11008),
     (4, 2, 16, 11008, 4096),
     (17, 1, 32, 4096, 512),     # 1-bit: codes by cp.async
-    (40, 4, 72, 512, 288),      # groups that do not tile 128 rows: cp.async
+    (40, 4, 72, 512, 288),      # groups of no multiple of 16 rows: part-empty a tiles
+    (257, 3, 64, 4096, 4096),   # path F's attention: runs of 8 columns stored at once
+    (31, 3, 128, 512, 1024),    # N/g = 8: one b tile, 8 a tiles
+    (33, 4, 8, 256, 200),       # g = 8: tiles of 16 b by 8 a; N/g = 25, no runs
+    (129, 2, 64, 1024, 11008),  # N/g = 172: the last b tile half empty
 ]
 
 
@@ -569,16 +573,22 @@ def test_axis1_bf16_meta(cuda, m, nbits, g, k, n):
 
 # -- the fp32 route of the matmuls -----------------------------------------
 
-@pytest.mark.parametrize("m", [1, 33, 512])
+@pytest.mark.parametrize("m", [1, 31, 33, 257, 512])
 @pytest.mark.parametrize("layout,nbits,g,k,n,r", [
     ("ax1", 4, 64, 4096, 4096, 0),
     ("ax1", 4, 64, 512, 1000, 8),
     ("ax1-bf16", 4, 64, 1024, 384, 8),
-    ("ax1", 2, 16, 512, 256, 20),     # two rank chunks of the LoRA term
-    ("ax1", 3, 24, 960, 200, 1),
+    ("ax1", 2, 16, 512, 256, 20),     # three rank chunks of the LoRA term
+    ("ax1", 3, 24, 960, 200, 1),      # a group across two 32-wide slabs
     ("ax1", 8, 64, 512, 256, 65),
+    ("ax1-bf16", 8, 8, 512, 200, 0),  # g = 8, N not a multiple of 128
+    ("ax1", 2, 128, 1024, 136, 0),    # 2-bit: codes by cp.async (8 bytes a slab row)
     ("ax0", 3, 64, 512, 320, 0),
     ("ax0-bf16", 2, 16, 200, 256, 0),  # K padded to 224
+    ("ax0", 4, 8, 256, 200, 0),       # g = 8: tiles of 16 b by 8 a
+    ("ax0-bf16", 2, 16, 512, 1008, 0),  # N/g = 63: no runs of 8
+    ("ax0", 3, 128, 1024, 384, 0),
+    ("ax0", 1, 32, 512, 256, 0),      # 1-bit: codes by cp.async
 ])
 def test_qmm_fp32(cuda, m, layout, nbits, g, k, n, r):
     """fp32 x through quant_matmul / quant_matmul_ax0 / quant_matmul_lora
@@ -605,6 +615,35 @@ def test_qmm_fp32(cuda, m, layout, nbits, g, k, n, r):
     assert got.dtype == torch.float32 and fm.qmm_fp32.launches == launches + 1
     _close(got, ref, _OUT_TOL[torch.float32])
     assert (cast.float() - ref).abs().max() > _OUT_TOL[torch.float32] * ref.abs().max()
+
+
+def test_qmm_fp32_rows_do_not_depend_on_m(cuda):
+    """Above the split sizes a row of the fp32 route's y is the same whatever
+    rows go with it (token tiles of 64 and 128, never a split K)."""
+    kqt = _kqt(1024, 1024, 64, 4, cuda)
+    kqt0 = _kqt0(1024, 1024, 16, 2, torch.bfloat16, cuda)
+    x = torch.randn((600, 1024), device=cuda)
+    for fn, q in ((fm.quant_matmul, kqt), (fm.quant_matmul_ax0, kqt0)):
+        whole = fn(x, q)
+        for lo, hi in ((0, 256), (256, 512), (512, 600), (556, 600), (0, 33)):
+            assert torch.equal(fn(x[lo:hi], q), whole[lo:hi]), (fn.__name__, lo, hi)
+
+
+def test_qmm_fp32_misses_one_tf32_product(cuda):
+    """The fp32 bar sees the split: one TF32 product (torch.matmul with TF32
+    allowed, on the same dequantized weight) misses it where the kernel
+    meets it."""
+    kqt = _kqt(1024, 2048, 64, 4, cuda)
+    x = torch.randn((257, 2048), device=cuda)
+    ref = fm.quant_matmul_plain(x, kqt)
+    _close(fm.quant_matmul(x, kqt), ref, _OUT_TOL[torch.float32])
+    w = fm.dequant_plain(kqt, torch.float32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        one = x @ w.t()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert (one - ref).abs().max() > _OUT_TOL[torch.float32] * ref.abs().max()
 
 
 # -- flash attention: log-sum-exp, the fp32 route, the backward ------------

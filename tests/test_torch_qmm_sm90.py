@@ -13,6 +13,11 @@ What the CPU can hold of it:
     one walk over K each, with at least two stages still in shared memory;
   * the adapter's A as the LoRA kernel reads it: A^T in x's type, the rank
     padded with zero rows, built once by the serving layer;
+  * the axis=0 tile order, through a mirror of the kernel's map of tile
+    rows to columns (`Ax0Layout`): 8 consecutive b by 16 consecutive a
+    (16 by 8 at g = 8) cover every column once, 8-row runs are 8
+    consecutive columns where N/g % 8 == 0, a thread's rows share their
+    scale and zs, and a slot holds the bytes the launch plans count;
   * the build: every header a kernel source includes is hashed into its
     library's name (`_build._HEADERS`), so an edit to it rebuilds;
   * the entry points at the new tile edges (M = 127 and 129 around the
@@ -59,7 +64,14 @@ def test_launch_plan(m, axis):
                 rows, tokens, splits = plan.grid
                 slabs = -(-k // tf.QMM_SLAB)
                 # every output once: tiles cover N and M with no empty one
-                assert (rows - 1) * tf.QMM_ROWS < n <= rows * tf.QMM_ROWS
+                # (axis=0: b tiles by a tiles, `ax0_tile_rows`)
+                if axis == 1:
+                    assert (rows - 1) * tf.QMM_ROWS < n <= rows * tf.QMM_ROWS
+                else:
+                    b_rows, a_rows = tf.ax0_tile_rows(g)
+                    b_tiles, a_tiles = -(-(n // g) // b_rows), -(-g // a_rows)
+                    assert rows == b_tiles * a_tiles and b_rows * a_rows == tf.QMM_ROWS
+                    assert (b_tiles - 1) * b_rows < n // g and (a_tiles - 1) * a_rows < g
                 assert (tokens - 1) * plan.token_tile < m <= tokens * plan.token_tile
                 # every K slab once, in splits of which none is empty
                 assert splits == plan.splits >= 1
@@ -300,3 +312,70 @@ def test_bf16_meta_layout_pads_its_columns():
         assert torch.equal(k16.zs[:, :67], ((zero - offset) * scale).to(torch.bfloat16))
         w16 = tf.dequant_plain(k16)
         assert (w16 - tf.dequant_plain(k32)).abs().max() < 2.0**-7 * w.abs().max()
+
+
+# -- the axis=0 tile order (`Ax0Layout` of csrc/qmm_sm90.cuh) ---------------
+
+
+def _ax0_tile_columns(n, g, tile):
+    """The kernel's map of a tile's 128 rows to columns of y, -1 where a row
+    lies past the weight (`Ax0Layout::column`): tile = its b tile + b_tiles *
+    its a tile, row r = a_l * b_rows + b_l, column a * P + b."""
+    p = n // g
+    b_rows, a_rows = tf.ax0_tile_rows(g)
+    b_tiles = -(-p // b_rows)
+    r = np.arange(tf.QMM_ROWS)
+    a = tile // b_tiles * a_rows + r // b_rows
+    b = tile % b_tiles * b_rows + r % b_rows
+    return np.where((a < g) & (b < p), a * p + b, -1)
+
+
+@pytest.mark.parametrize("n", [4096, 11008])
+@pytest.mark.parametrize("g", [8, 16, 32, 64, 128])
+def test_ax0_tile_order(g, n):
+    """Every column of y is one tile row's, once; where P % 8 == 0 every
+    8-row run of a tile is 8 consecutive columns starting at a multiple of 8
+    (one 16-byte store of bf16, 32 bytes of fp32: `Ax0Layout::run_column`),
+    and the rows a consumer thread dequantizes share their b, so one read of
+    scale and zs serves them (4 rows r + 16i of the bf16 mainloop, 2 rows
+    r + 32i of the fp32 route)."""
+    p = n // g
+    b_rows, _ = tf.ax0_tile_rows(g)
+    tiles = tf._row_tiles(n, g, 0)
+    cols = np.stack([_ax0_tile_columns(n, g, t) for t in range(tiles)])
+    valid = cols[cols >= 0]
+    assert valid.size == n and np.array_equal(np.sort(valid), np.arange(n))
+    runs = cols.reshape(tiles, tf.QMM_ROWS // 8, 8)
+    for run in runs.reshape(-1, 8):
+        if run[0] < 0:
+            assert (run < 0).all() or p % 8
+            continue
+        if p % 8 == 0:
+            assert run[0] % 8 == 0 and np.array_equal(run, run[0] + np.arange(8))
+    for ct in range(128):
+        for wg in range(2):
+            bf16_rows = [wg * 64 + 16 * i + ct // 8 for i in range(4)]
+            fp32_rows = [wg * 64 + 32 * i + ct // 4 for i in range(2)]
+            for rows in (bf16_rows, fp32_rows):
+                assert len({r % b_rows for r in rows}) == 1
+
+
+@pytest.mark.parametrize("meta_size", [4, 2])
+@pytest.mark.parametrize("g", [8, 16, 24, 64, 72, 128, 256])
+def test_ax0_meta_slot(g, meta_size):
+    """A slot of scale and zs holds the slab's columns of the tile's b rows,
+    scale then zs (`ax0_params`: a box of {slab, b_rows}); the launch plans
+    count the same bytes, and every row's 8 values lie inside the scale half."""
+    b_rows, a_rows = tf.ax0_tile_rows(g)
+    assert b_rows * a_rows == tf.QMM_ROWS and b_rows == (16 if g == 8 else 8)
+    for slab in (tf.QMM_SLAB, tf.QMM_FP32_SLAB):
+        slot = tf._slab_meta_bytes(g, 0, meta_size, slab)
+        assert slot == 2 * b_rows * slab * meta_size
+        for r in range(tf.QMM_ROWS):
+            for q in range(slab // 8):
+                offset = r % b_rows * slab + 8 * q  # `Ax0Layout::meta_offset`, in elements
+                assert (offset + 8) * meta_size <= slot // 2
+    n = g * 64
+    plan = tf.qmm_launch_plan(512, n, 4096, 4, g, axis=0, meta_size=meta_size)
+    assert plan.smem == tf.qmm_smem_bytes(plan.token_tile, plan.stages, tf.QMM_ROWS * 8 * 4,
+                                          tf._slab_meta_bytes(g, 0, meta_size))
