@@ -6,17 +6,21 @@
     python3 chip_smoke.py --time quant_matmul_ax0 512 4096 4096 3-64-fp32  # nbits-g-meta
     python3 chip_smoke.py --time quant_matmul_ax0 512 4096 4096 3-64-fp32 element-stores
     python3 chip_smoke.py --time qmm_fp32 512 4096 4096          # fp32 x; [RANK | NBITS-G-META]
-    python3 chip_smoke.py --time paged_attention 8 1024 32 32    # slots, length, heads, kv heads
+    python3 chip_smoke.py --time paged_attention 8 1024 32 32 int8  # slots, length, heads, kv
+                                                                    # heads[, bf16 | int8 pages]
     python3 chip_smoke.py --time flash_attention 1 1023 32 32    # batch, T, heads, kv heads
     python3 chip_smoke.py --time flash_attention_backward_dkv 1 1024 32 32   # or _dq, _fp32
+    python3 chip_smoke.py --ids          # phase g's greedy ids, to compare two checkouts
 
 Phases (any failure exits non-zero):
   (a) device and build: the card, its power limit, an nvcc build of every
       kernel under hqq_tpu_torch/csrc/ (seconds per source, registers and
-      spill stores of each kernel instantiation of the six wgmma
-      sources), and the wgmma (HGMMA) and TMA (UTMALDG) instructions in the
-      SASS of those six (quant_matmul, quant_matmul_ax0, quant_matmul_lora,
-      qmm_fp32, flash_prefill, flash_backward_sm90);
+      spill stores of each kernel instantiation of the seven wgmma sources
+      and of paged_attention), the wgmma (HGMMA) and TMA (UTMALDG)
+      instructions in the SASS of those seven (quant_matmul,
+      quant_matmul_ax0, quant_matmul_lora, qmm_fp32, flash_prefill,
+      flash_fp32_sm90, flash_backward_sm90), and the bulk copies (UBLKCP) of
+      paged_attention;
   (b) each kernel against its plain PyTorch version at the main paths'
       shapes: largest error against the stated tolerance, kernel time, plain
       time, the least time the card could take (bound), and for the matmuls
@@ -26,8 +30,9 @@ Phases (any failure exits non-zero):
       K/V for the paged one); the axis=1 kernels on bf16 scale and zs, and
       the fp32 routes (qmm_fp32, flash_attention_fp32), each with controls
       that must miss its bar (a neighbour's scale, the 4-bit zs offset
-      dropped; the inputs rounded to bf16; for qmm_fp32 one TF32 product,
-      torch.matmul with TF32 allowed); the flash backward kernels (dK/dV
+      dropped; the inputs rounded to bf16; one TF32 product, torch.matmul
+      with TF32 allowed, for qmm_fp32 and for the plain attention); the
+      flash backward kernels (dK/dV
       and dQ) at path I's shape and around it, in bf16, fp16 and fp32,
       against the plain backward from the same saved statistics and
       autograd of the plain forward in fp32, controls (D dropped, the mask
@@ -100,7 +105,8 @@ for quant_matmul_ax0 then a variant of AX0_VARIANTS), qmm_fp32 (fp32 x
 through quant_matmul at 4-bit g64, quant_matmul_lora given a RANK, or
 quant_matmul_ax0 given a config); for
 paged_attention the four numbers are slots, length, query heads and kv heads
-(bf16 pages of 16 rows, head size 128), for flash_attention, the two
+(pages of 16 rows, head size 128; bf16 unless int8 follows), for
+flash_attention, the two
 backward kernels (flash_attention_backward_dkv, flash_attention_backward_dq)
 and flash_attention_fp32 batch, T, query heads and kv heads (causal, head
 size 128; bf16, fp32 for the last); the backward kernels take the kv heads
@@ -110,6 +116,7 @@ as KV[-HD[-TYPE]], e.g. 8-64-fp16, for another head size and type.
 from __future__ import annotations
 
 import gc
+import hashlib
 import json
 import os
 import re
@@ -127,7 +134,10 @@ ROTATE_BYTES = 160 * 2**20  # cycle through input copies larger than the 50 MB L
 SRC = "hqq_tpu_torch/csrc/"
 # the sources of the Hopper mainloops (TMA, wgmma)
 WGMMA_SOURCES = ("quant_matmul.cu", "quant_matmul_ax0.cu", "quant_matmul_lora.cu",
-                 "qmm_fp32.cu", "flash_prefill.cu", "flash_backward_sm90.cu")
+                 "qmm_fp32.cu", "flash_prefill.cu", "flash_fp32_sm90.cu",
+                 "flash_backward_sm90.cu")
+# the source that moves pages by bulk copy (cp.async.bulk without a tensor map)
+BULK_SOURCES = ("paged_attention.cu",)
 # wrapper -> (source, the TPU kernel it replaces, a second one it replaces)
 KERNELS = {
     "w4a8_matmul": ("w4a8_matmul.cu", "hqq_tpu/ops/fused_matmul.py:524",
@@ -149,7 +159,7 @@ KERNELS = {
     # the fp32 routes: what the TPU kernels do for fp32 inputs
     "qmm_fp32": ("qmm_fp32.cu", "hqq_tpu/ops/fused_matmul.py:307",
                  "hqq_tpu/ops/fused_matmul.py:1223, :1318, :1521"),
-    "flash_attention_fp32": ("flash_backward.cu", "hqq_tpu/ops/attention.py:66", None),
+    "flash_attention_fp32": ("flash_fp32_sm90.cu", "hqq_tpu/ops/attention.py:66", None),
 }
 # the row of phase b that stands for each kernel in the last-but-one line
 PICK = {
@@ -248,7 +258,10 @@ def time_ms(fns, iters: int, only: str = "") -> float:
         if total_us > 0 and sum(e.count for e in events) >= iters:  # a kernel per call at least
             return total_us / 1e3 / iters
     kept = {e.key: e.self_device_time_total / e.count for e in events if e.count}
-    per_call = {e.key: e.count for e in _device_events(fns[:1], 1, only)}
+    # launches of each kernel per call: a one-call trace, else the kept
+    # events' counts over the calls, rounded (the trace loses a few)
+    per_call = {e.key: e.count for e in _device_events(fns[:1], 1, only)} or {
+        e.key: round(e.count / iters) for e in events if round(e.count / iters)}
     if not per_call or not set(per_call) <= set(kept):
         raise RuntimeError(f"the profiler recorded {sum(e.count for e in events)} device events "
                            f"and {total_us} us for {iters} calls")
@@ -301,7 +314,7 @@ def phase_a(name: str, power: str) -> None:
         log(f"[a]   {kname}: built in {seconds:.1f} s, {len(regs)} instantiations, registers "
             f"{min(map(int, regs))}-{max(map(int, regs))}, spill stores up to "
             f"{max(map(int, spills))} bytes")
-        if kname in WGMMA_SOURCES:
+        if kname in WGMMA_SOURCES + BULK_SOURCES:
             serial = len(re.findall(r"wgmma.mma_async instructions are serialized", text))
             log(f"[a]     ptxas notes of serialized wgmma (C751x): {serial}")
             # per kernel instantiation: (template arguments, registers, spill bytes)
@@ -322,6 +335,13 @@ def phase_a(name: str, power: str) -> None:
             f"instructions")
         if not all(counts.values()):
             raise AssertionError(f"{source} issues no wgmma or no TMA load: {counts}")
+    for source in BULK_SOURCES:
+        sass = subprocess.run([cuobjdump, "-sass", _build._lib_path(source)], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        bulk = len(re.findall(r"\bUBLKCP\b", sass))
+        log(f"[a]   {source} SASS: {bulk} UBLKCP (bulk copy) instructions")
+        if not bulk:
+            raise AssertionError(f"{source} issues no bulk copy")
 
 
 def _make_kqt(n: int, k: int, g: int, nbits: int, seed: int):
@@ -923,19 +943,33 @@ def phase_b_fp32(record, held, iters: int) -> None:
         what = f"fp32, causal, {nh}/{n_kv} heads, T={t}"
         err = held("flash_attention_fp32", y, ref, TOL_FLASH_FP32, what)
         cast = rel(at.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), True), ref)
-        log(f"[b] flash_attention_fp32 {what}: control, bf16 inputs through the bf16 kernel, "
-            f"{cast:.3e} (must exceed {TOL_FLASH_FP32})")
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            one_tf32 = rel(at.flash_attention_plain(q, k, v, True), ref)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        log(f"[b] flash_attention_fp32 {what}: {err / ref.abs().max().item():.3e} of max|out|; "
+            f"controls, bf16 inputs through the bf16 kernel {cast:.3e}, one TF32 product (the "
+            f"plain version, allow_tf32) {one_tf32:.3e} (each must exceed {TOL_FLASH_FP32})")
         if not cast > TOL_FLASH_FP32:
             raise AssertionError("[b] the fp32 attention bar does not catch a bf16 cast")
+        if not one_tf32 > TOL_FLASH_FP32:
+            raise AssertionError("[b] the fp32 attention bar does not catch one TF32 product")
         ms = time_ms([lambda: at.flash_attention(q, k, v, True)], max(10, iters // 5))
         plain_ms = time_ms([lambda: at.flash_attention_plain(q, k, v, True)], max(3, iters // 10))
         lib = time_ms([lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)],
                       max(10, iters // 5))
+        # the least time of fp32-accurate products: three TF32 products of
+        # 2 * B * H * T * T * hd FLOP each (causal) at the TF32 rate; one fp32
+        # product at the CUDA cores' rate is reported beside it
         each = 4 * b * t * HEAD_DIM * (2 * nh + 2 * n_kv)
-        b_ms, by = bound_ms(each, 0.0, "fp32", fp32_ops=2.0 * b * nh * t * t * HEAD_DIM)
+        flop = 2.0 * b * nh * t * t * HEAD_DIM
+        b_ms, by = bound_ms(each, 3 * flop, "tf32")
+        fma_ms, _ = bound_ms(each, 0.0, "fp32", fp32_ops=flop)
         record("flash_attention_fp32", dict(
             kernel="flash_attention_fp32", m=b, k=t, n=nh, max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=lib,
+            bound_fp32_fma_ms=fma_ms, one_tf32_rel=one_tf32,
             note=f"fp32, causal, {nh}/{n_kv} heads, head size {HEAD_DIM}",
             library="scaled_dot_product_attention(is_causal=True) in fp32"))
         del q, k, v
@@ -1622,6 +1656,32 @@ def _serve_paged(model, prompts, new: int, **kw):
     return outs, records, wall, state
 
 
+def _g_prompts(cfg, rng):
+    """Phase g's 12 prompts of 64-640 random tokens."""
+    return [rng.integers(0, cfg.vocab_size, int(n)) for n in rng.integers(64, 641, 12)]
+
+
+def greedy_ids() -> dict:
+    """``--ids``: phase g's 12 greedy requests over bf16 and int8 pages on
+    phase c's model, every request's ids, to hold two checkouts to each
+    other (run from both, as ``--time``)."""
+    import numpy as np
+
+    from hqq_tpu_torch import BaseQuantizeConfig
+    from hqq_tpu_torch.engine.hf import HQQModel
+    from hqq_tpu_torch.models.llama import LlamaConfig, init_params
+
+    cfg = LlamaConfig.llama2_7b()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), torch.bfloat16, "cuda")
+    model = HQQModel(params, cfg)
+    del params
+    model.quantize_model(BaseQuantizeConfig(nbits=4, group_size=64))
+    model.prepare_for_inference("w4a8")
+    prompts = _g_prompts(cfg, np.random.default_rng(0))
+    return {name: [list(map(int, o)) for o in _serve_paged(model, prompts, G_NEW, **kw)[0]]
+            for name, kw in (("bf16 pages", {}), ("int8 pages", dict(quantize_kv=True)))}
+
+
 def phase_g(dev_tag: str, model) -> dict:
     import numpy as np
 
@@ -1631,7 +1691,7 @@ def phase_g(dev_tag: str, model) -> dict:
     cfg = model.cfg
     layers, n_kv = cfg.num_hidden_layers, cfg.num_key_value_heads
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in rng.integers(64, 641, 12)]
+    prompts = _g_prompts(cfg, rng)
     weights = _step_weight_bytes(model.params)
     torch.cuda.reset_peak_memory_stats()
 
@@ -1658,7 +1718,8 @@ def phase_g(dev_tag: str, model) -> dict:
             f"{got} paged_attention launches ({layers} per step); decode {tokens / decode_s:.1f} "
             f"tok/s over all slots, {decode_s / steps * 1e3:.2f} ms per step; byte bound of a step "
             f"{bound:.3f} ms ({weights / 1e9:.3f} GB of weights and meta + {kv / 1e9:.3f} GB of "
-            f"K/V rows on average); ids[0][:8] {outs[0][:8]}")
+            f"K/V rows on average); ids[0][:8] {outs[0][:8]}; sha1 of all ids "
+            f"{hashlib.sha1(repr([list(map(int, o)) for o in outs]).encode()).hexdigest()[:12]}")
         runs[name] = outs
     same = sum(a == b for a, b in zip(runs["bf16 pages"], runs["int8 pages"]))
     log(f"[g] int8 pages give the tokens of bf16 pages in {same} of 12 requests (not required: "
@@ -2320,17 +2381,52 @@ AX0_VARIANTS = {"element-stores": "-DHQQ_AX0_RUN_STORES=0",
                 "meta-per-row": "-DHQQ_AX0_SHARED_META=0"}
 
 
+# --time paged_attention B LEN H KV TYPE:VARIANT builds or launches the paged
+# kernel without one part of its design, for what each part buys
+PAGED_VARIANTS = ("global-scales", "copy", "head-blocks")
+
+
+def _paged_variant(how: str) -> None:
+    """global-scales: each row's scales read from device memory in the key
+    loop (a library of its own); copy: every page by the producer lanes'
+    cp.async, no bulk copy; head-blocks: one block per query head, each
+    reading its kv head's pages."""
+    import dataclasses
+
+    from hqq_tpu_torch.ops import _build
+    from hqq_tpu_torch.ops import paged as pa
+
+    if how == "global-scales":
+        _build.NVCC_FLAGS = _build.NVCC_FLAGS + ("-DHQQ_PAGED_GLOBAL_SCALES=1",)
+        return
+    plan_of = pa.paged_launch_plan
+
+    def plan(b, nh, n_kv, hd, pg, mp, dtype):
+        p = plan_of(b, nh, n_kv, hd, pg, mp, dtype)
+        if how == "copy":
+            return dataclasses.replace(p, bulk=False)
+        pairs = b * nh
+        splits = max(1, min(pa._SMS * (pa._SM_WARPS // p.warps) // pairs, p.splits))
+        return dataclasses.replace(
+            p, heads_per_block=1, splits=splits,
+            smem=pa.paged_smem_bytes(hd * pa._PAGE_BYTES[dtype], pg, p.pages_per_stage, p.stages,
+                                     dtype == torch.int8, 1, hd, p.warps))
+
+    pa.paged_launch_plan = plan
+
+
 def time_one(kernel: str, m: int, k: int, n: int, extra: "str | None" = None,
              variant: "str | None" = None) -> dict:
     """Three phase-b timings of one wrapper at one shape (``--time``).
     ``extra``: the LoRA rank, the kv heads of the attention kernels, or the
     axis=0 config (``AX0_TIME_DEFAULT``); for qmm_fp32 (fp32 x, 4-bit g64
     axis=1) a LoRA rank or an axis=0 config. ``variant``: one of
-    ``AX0_VARIANTS``, for quant_matmul_ax0."""
+    ``AX0_VARIANTS``, for quant_matmul_ax0; the page type (bf16 or int8) for
+    paged_attention."""
     from hqq_tpu_torch.ops import _build
     from hqq_tpu_torch.ops import fused_matmul as fm
 
-    if variant is not None:
+    if variant is not None and kernel != "paged_attention":
         if kernel != "quant_matmul_ax0" or variant not in AX0_VARIANTS:
             raise SystemExit(f"variants are quant_matmul_ax0's: {sorted(AX0_VARIANTS)}")
         _build.NVCC_FLAGS = _build.NVCC_FLAGS + (AX0_VARIANTS[variant],)  # a library of its own
@@ -2345,17 +2441,24 @@ def time_one(kernel: str, m: int, k: int, n: int, extra: "str | None" = None,
     else:
         config, r = None, int(extra) if extra else None
 
-    if kernel == "paged_attention":  # slots, length, query heads, kv heads
+    if kernel == "paged_attention":  # slots, length, query heads, kv heads, page type
         from hqq_tpu_torch.ops import paged as pa
 
         n_kv = r or n
+        pages, _, how = (variant or "bf16").partition(":")
+        if pages not in ("bf16", "int8") or how not in ("",) + tuple(PAGED_VARIANTS):
+            raise SystemExit(f"paged_attention takes bf16 or int8 pages and a variant of "
+                             f"{sorted(PAGED_VARIANTS)}, not {variant!r}")
+        if how:
+            _paged_variant(how)
+        int8 = pages == "int8"
         lengths = [k] * m
-        nbytes, _ = _paged_bound(lengths, n, n_kv, False)
-        q, kp, vp, lens, tabs, _, _ = _paged_inputs(
-            lengths, n, n_kv, False, max(1, min(16, -(-ROTATE_BYTES // int(nbytes)))), seed=1)
-        ms = [time_ms([lambda tab=tab: pa.paged_attention(q, kp, vp, lens, tab) for tab in tabs],
-                      100) for _ in range(3)]
-        return dict(kernel=kernel, slots=m, length=k, heads=n, kv_heads=n_kv, ms=ms)
+        nbytes, _ = _paged_bound(lengths, n, n_kv, int8)
+        q, kp, vp, lens, tabs, ks, vs = _paged_inputs(
+            lengths, n, n_kv, int8, max(1, min(16, -(-ROTATE_BYTES // int(nbytes)))), seed=1)
+        ms = [time_ms([lambda tab=tab: pa.paged_attention(q, kp, vp, lens, tab, ks, vs)
+                       for tab in tabs], 100) for _ in range(3)]
+        return dict(kernel=kernel, slots=m, length=k, heads=n, kv_heads=n_kv, pages=pages, ms=ms)
     if kernel == "flash_attention":  # batch, T, query heads, kv heads
         from hqq_tpu_torch.ops import attention as at
 
@@ -2443,6 +2546,9 @@ def main(argv: list[str]) -> int:
     dev_tag = f"[{power}]"
     if argv and argv[0] == "--time":
         log(json.dumps(dict(time_one(argv[1], *map(int, argv[2:5]), *argv[5:7]), card=power)))
+        return 0
+    if argv and argv[0] == "--ids":
+        log(json.dumps(dict(greedy_ids(), card=power)))
         return 0
 
     t_start = time.time()

@@ -1,8 +1,7 @@
 // SPDX-License-Identifier: Apache-2.0
-// The fp32 route of flash attention: the backward (dK/dV and dQ) and the
-// forward for fp32 inputs, on the CUDA cores. bf16 and fp16 take the
-// tensor-core kernels of flash_prefill.cu (forward) and
-// flash_backward_sm90.cu (backward).
+// The fp32 route of the flash-attention backward (dK/dV and dQ), on the
+// CUDA cores. bf16 and fp16 take the tensor-core kernels of
+// flash_backward_sm90.cu; the fp32 forward is flash_fp32_sm90.cu's.
 //
 // For out = softmax(scale * q k^T [causal]) v over whole sequences, with
 // the forward's log-sum-exp lse [B, nh, T] (natural log, fp32) and
@@ -18,9 +17,7 @@
 //   `hqq_tpu.ops.attention.prefill_attention` calls on every training step
 //   (jax/experimental/pallas/ops/tpu/flash_attention.py
 //   `_flash_attention_bwd_dkv`, and `_flash_attention_bwd_dq`), under its
-//   custom VJP. The fp32 forward serves `flash_attention` for fp32 inputs,
-//   which the library kernel takes in any type and flash_prefill.cu's
-//   tensor-core kernel does not.
+//   custom VJP.
 // Bound on H100: operations. The backward does about 2.5 times the causal
 //   forward's work, 5 * 2 * T^2 * hd per head halved for causality: at
 //   (1, 32/32, 1024, 128) 21.5 GFLOP, 0.32 ms at the fp32 rate of the CUDA
@@ -44,10 +41,6 @@
 //   convention of the forward kernels (log2 units, scale applied to S),
 //   with the causal mask on the diagonal tile and zeros for keys and
 //   queries past T, so a row past T is never NaN.
-//   * fp32 forward: one block per (batch, head, query tile): an online
-//     softmax over the key tiles at or left of the diagonal, the running
-//     max and sum of a row reduced across the 16 threads that share it by
-//     shuffles, O in registers, out = O / sum and lse written once.
 #include <math.h>
 
 #include "hqq_common.cuh"
@@ -71,9 +64,6 @@ __host__ __device__ inline int dkv_smem_floats(int hdp, int rows) {
 }
 __host__ __device__ inline int dq_smem_floats(int hdp, int rows) {
   return 4 * rows * (hdp + 1) + rows * (rows + 1) + 2 * rows;
-}
-__host__ __device__ inline int fwd_smem_floats(int hdp, int rows) {
-  return 3 * rows * (hdp + 1) + rows * (rows + 1);
 }
 
 // rows [row0, row0 + ROWS) of a [T, hd] matrix into dst [ROWS][HDP + 1] as
@@ -294,119 +284,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int HDP>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, float* __restrict__ out,
-                          float* __restrict__ lse, int bh, int nh, int n_kv, int t, int hd,
-                          float scale, int causal) {
-  constexpr int BM = Tile<HDP>::kRows, R = BM / 16, C = HDP / 16, LD = Tile<HDP>::kLd;
-  extern __shared__ float sm[];
-  float* qs = sm;
-  float* ks = qs + BM * LD;
-  float* vs = ks + BM * LD;
-  float* ps = vs + BM * LD;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-
-  const int q_tiles = (t + BM - 1) / BM;
-  const int qt = q_tiles - 1 - static_cast<int>(blockIdx.x) / bh;  // the longest first
-  const int head = blockIdx.x % bh;
-  const int kv_head = head / nh * n_kv + head % nh / (nh / n_kv);
-  const int m0 = qt * BM;
-  const size_t q_off = static_cast<size_t>(head) * t * hd;
-  const size_t kv_off = static_cast<size_t>(kv_head) * t * hd;
-  load_rows<BM, HDP>(qs, q + q_off, m0, t, hd);
-
-  float o[R][C], mx[R], sum[R];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    mx[i] = -INFINITY, sum[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < C; ++j) o[i][j] = 0.f;
-  }
-  const float scale_log2 = scale * kLog2e;
-  const int n_tiles = causal ? qt + 1 : q_tiles;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int n0 = kt * BM;
-    __syncthreads();
-    load_rows<BM, HDP>(ks, k + kv_off, n0, t, hd);
-    load_rows<BM, HDP>(vs, v + kv_off, n0, t, hd);
-    __syncthreads();
-    float s[R][R];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HDP; ++d) {
-      float qv[R], kv[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) qv[i] = qs[(ty + 16 * i) * LD + d], kv[i] = ks[(tx + 16 * i) * LD + d];
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-    // online softmax; a row's 16 threads are the 16 lanes of a half-warp
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int row = m0 + ty + 16 * i;
-      float tile_mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int col = n0 + tx + 16 * j;
-        s[i][j] = col < t && !(causal && col > row) ? s[i][j] * scale_log2 : -INFINITY;
-        tile_mx = fmaxf(tile_mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        tile_mx = fmaxf(tile_mx, __shfl_xor_sync(0xffffffffu, tile_mx, off));
-      const float mn = fmaxf(mx[i], tile_mx);  // finite: key 0 is in every row's first tile
-      const float corr = exp2f(mx[i] - mn);
-      mx[i] = mn;
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const float p = exp2f(s[i][j] - mn);
-        psum += p;
-        ps[(ty + 16 * i) * (BM + 1) + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
-      sum[i] = sum[i] * corr + psum;
-#pragma unroll
-      for (int j = 0; j < C; ++j) o[i][j] *= corr;
-    }
-    __syncthreads();
-    // O[m] += sum_n P[m][n] V[n]
-#pragma unroll 2
-    for (int n = 0; n < BM; ++n) {
-      float pv[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) pv[i] = ps[(ty + 16 * i) * (BM + 1) + n];
-#pragma unroll
-      for (int j = 0; j < C; ++j) {
-        const float vv = vs[n * LD + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < R; ++i) o[i][j] = fmaf(pv[i], vv, o[i][j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= t) continue;
-    const float inv = 1.f / sum[i];
-#pragma unroll
-    for (int j = 0; j < C; ++j) {
-      const int d = tx + 16 * j;
-      if (d < hd) out[q_off + static_cast<size_t>(m) * hd + d] = o[i][j] * inv;
-    }
-    if (lse != nullptr && tx == 0)
-      lse[static_cast<size_t>(head) * t + m] = (mx[i] + log2f(sum[i])) * 0.6931471805599453f;
-  }
-}
-
 template <typename K>
 int set_smem(K kernel, int smem) {
   return static_cast<int>(
@@ -487,34 +364,6 @@ HQQ_EXPORT int hqq_flash_backward(const void* q, const void* k, const void* v, c
                           head_pad, smem_dkv, smem_dq, s)
   if (dtype == HQQ_F32) HQQ_FLASH_BWD_TYPE(float);
 #undef HQQ_FLASH_BWD_TYPE
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// The fp32 forward: q, out [B, nh, T, hd], k, v [B, n_kv, T, hd] fp32,
-// contiguous; lse fp32 [B, nh, T] or null. head_pad and smem from the plan.
-HQQ_EXPORT int hqq_flash_forward_fp32(const void* q, const void* k, const void* v, void* out,
-                                      void* lse, int b, int nh, int n_kv, int t, int hd,
-                                      float scale, int causal, int head_pad, int smem,
-                                      void* stream) {
-  if (!valid(b, nh, n_kv, t, hd, head_pad)) return static_cast<int>(cudaErrorInvalidValue);
-  const auto s = static_cast<cudaStream_t>(stream);
-#define HQQ_FLASH_FWD(HDP)                                                                     \
-  if (head_pad == HDP) {                                                                       \
-    constexpr int BM = Tile<HDP>::kRows;                                                       \
-    if (smem < 4 * fwd_smem_floats(HDP, BM)) return static_cast<int>(cudaErrorInvalidValue);   \
-    auto kernel = flash_fwd_fp32_kernel<HDP>;                                                  \
-    const int e = set_smem(kernel, smem);                                                      \
-    if (e != 0) return e;                                                                      \
-    kernel<<<b * nh * ((t + BM - 1) / BM), kThreads, smem, s>>>(                               \
-        static_cast<const float*>(q), static_cast<const float*>(k),                           \
-        static_cast<const float*>(v), static_cast<float*>(out), static_cast<float*>(lse),     \
-        b * nh, nh, n_kv, t, hd, scale, causal);                                               \
-    return static_cast<int>(cudaGetLastError());                                               \
-  }
-  HQQ_FLASH_FWD(64)
-  HQQ_FLASH_FWD(128)
-  HQQ_FLASH_FWD(256)
-#undef HQQ_FLASH_FWD
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -11,7 +11,7 @@
 // with fp32 scores, fp32 softmax statistics and an fp32 output sum, the
 // probabilities rounded to q's type before the product with V and the
 // division by the fp32 sum, and the output rounded once to q's type. bf16
-// and fp16 (fp32 takes the CUDA-core kernel of flash_backward.cu). Where a
+// and fp16 (fp32 takes the 3xTF32 kernel of flash_fp32_sm90.cu). Where a
 // gradient is wanted it also writes each row's log-sum-exp,
 // lse = ln sum_j exp(scale * q . k_j) in fp32 [B, nh, T], for the backward
 // kernels: a runtime option (a null pointer skips it), one store per row

@@ -15,55 +15,151 @@
 // kernel, and no dequantized page is ever written.
 //
 // Bound by bytes on this card: every attended K and V row is read once and
-// used for 2 * head_dim multiply-adds, far below the ratio at which
-// arithmetic would limit. So the design is a sweep on the CUDA cores:
-//   * a block of 4 warps owns one (slot, query head, split); a warp takes 4
-//     keys at a time, its lanes 4 elements of a row each (a row of 128 bf16
-//     values is one coalesced 256-byte read), eight row reads in flight;
-//   * an online softmax per warp (running max, running sum, running output
-//     in registers), merged across the warps through shared memory;
-//   * long sequences are split over `splits` blocks, each taking an equal
-//     share of the slot's own length; a split writes (max, sum, unnormalised
-//     output) in fp32 and a second small kernel merges them. That keeps all
-//     SMs busy at 8 slots x 32 heads;
-//   * GQA is an index (kv head = h / rep): the rep blocks that share a kv
-//     head read the same rows, which the L2 cache serves.
-// No key at or beyond lengths[b] and no block-table entry at or beyond
-// ceil(lengths[b] / pg) is read. A slot of length 0 gets zeros.
+// used for 2 * head_dim multiply-adds per query head. What limits a sweep
+// over pages is the bytes in flight: at 3.35 TB/s and ~1 us of latency an SM
+// needs some 25-30 KB on its way. So pages travel whole:
+//   * a block owns one (slot, kv head, split) and serves `qh` query heads of
+//     that kv head (the launch plan's `heads_per_block`, a divisor of
+//     rep = nh / n_kv; rep / qh groups of blocks), so a page is fetched once
+//     for all of them;
+//   * a producer warp walks the block table and moves `pps` pages at a time
+//     (a stage of at least 16 rows) into a ring of `stages` mbarrier-guarded
+//     slots: one bulk copy (cp.async.bulk, no tensor map) per K page, per V
+//     page and, for int8, per run of the page's K and V scales, which the
+//     pool holds contiguously; where a page or a scale run breaks the bulk
+//     copy's 16-byte rule (`paged_launch_plan`: pg * hd * size or pg * 4 not
+//     a multiple of 16) the warp's 32 lanes copy it by 4-byte cp.async. The
+//     lanes hold the split's block-table entries 32 at a time, so no copy
+//     waits on a load of its page number;
+//   * `warps` consumer warps (8, fewer only where a slot each would keep
+//     two blocks off an SM) take the stages, slot s always to warp
+//     s % warps; the ring holds a slot per warp (two where that is under
+//     32 KB). A warp reads a row in 16-byte vectors from shared memory
+//     (`lanes` lanes a row, 32 / lanes rows at a time, two rows per lane
+//     per step), forms each query head's
+//     score with a shuffle reduction over the row's lanes, and keeps an
+//     online softmax per head: running max (warp-uniform), running sum and
+//     output sums per lane, rescaled only when the max moves. The scales
+//     arrive with their page, so no global load waits inside the key loop;
+//   * rows at or past lengths[b] (a whole page holds them) are selected out
+//     before the max and before P.V: their score is -inf, their weight 0,
+//     and they are never loaded (a lane past the end reads the stage's last
+//     valid row again), so NaN there changes nothing. No block-table entry
+//     at or past ceil(lengths[b] / pg) is read;
+//   * the warps' softmaxes merge through shared memory (the ring, free once
+//     every stage is consumed); where (slot, kv head) pairs cannot fill the
+//     card the plan splits each slot's stages over `splits` blocks, which
+//     write (max, sum, unnormalised output) in fp32 for a second small
+//     kernel to merge.
+// A slot of length 0 gets zeros.
 #include <math.h>
 
-#include "hqq_common.cuh"
+#include "sm90_ptx.cuh"
+
+// 1 builds the variant that reads each row's scales from device memory
+// inside the key loop (through the block table), as the parent design did;
+// for measuring what scales that arrive with their page buy
+#ifndef HQQ_PAGED_GLOBAL_SCALES
+#define HQQ_PAGED_GLOBAL_SCALES 0
+#endif
+
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kGroup = 4;      // keys a warp takes per iteration
-constexpr int kMaxHd = 256;    // two chunks of 32 lanes x 4 elements
+using namespace sm90;
+
+constexpr int kMaxWarps = 8;                    // consumer warps of a block, at most
+constexpr int kThreads = 32 * (1 + kMaxWarps);  // a producer warp, then the consumers
+constexpr int kMaxHd = 256;
 
 // Page and q types of the C entry.
 enum PagedDtype { PAGED_F32 = 0, PAGED_BF16 = 1, PAGED_F16 = 2, PAGED_INT8 = 3 };
 
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+__host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
+
+// Shared-memory carve-up; ops/paged.py `paged_smem_bytes` computes the same
+// sizes. A stage: K's pages, V's pages, then (int8) K's and V's scale runs.
+struct PagedSmem {
+  int v, ks, vs, stage, merge, bars, total;
+};
+
+__host__ __device__ inline PagedSmem paged_smem(int row_bytes, int pg, int pps, int stages,
+                                                int quant, int qh, int hd, int warps) {
+  PagedSmem s;
+  const int run = align16(pps * pg * row_bytes);
+  const int scales = quant ? align16(pps * pg * 4) : 0;
+  s.v = run;
+  s.ks = 2 * run;
+  s.vs = 2 * run + scales;
+  s.stage = 2 * run + 2 * scales;
+  s.merge = warps * qh * (hd + 2) * 4;  // each warp's max, sum and output per head
+  const int ring = stages * s.stage;
+  s.bars = align16(ring > s.merge ? ring : s.merge);
+  s.total = s.bars + 16 * stages;
+  return s;
 }
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
-  const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
-  v[0] = __uint_as_float(t.x << 16), v[1] = __uint_as_float(t.x & 0xffff0000u);
-  v[2] = __uint_as_float(t.y << 16), v[3] = __uint_as_float(t.y & 0xffff0000u);
+
+// the elements of one 16-byte vector of a page row
+template <typename KV>
+struct Vec;
+template <>
+struct Vec<float> {
+  static constexpr int E = 4;
+};
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int E = 8;
+};
+template <>
+struct Vec<__half> {
+  static constexpr int E = 8;
+};
+template <>
+struct Vec<int8_t> {
+  static constexpr int E = 16;
+};
+
+// one 32-bit word of a row, widened to fp32 (E / 4 values)
+__device__ __forceinline__ void widen(uint32_t w, float* x, float) { x[0] = __uint_as_float(w); }
+__device__ __forceinline__ void widen(uint32_t w, float* x, __nv_bfloat16) {
+  x[0] = __uint_as_float(w << 16), x[1] = __uint_as_float(w & 0xffff0000u);
 }
-__device__ __forceinline__ void load4(const __half* p, float (&v)[4]) {
-  const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&t.x));
-  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&t.y));
-  v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
+__device__ __forceinline__ void widen(uint32_t w, float* x, __half) {
+  const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&w));
+  x[0] = f.x, x[1] = f.y;
 }
-__device__ __forceinline__ void load4(const int8_t* p, float (&v)[4]) {
-  const int t = __ldg(reinterpret_cast<const int*>(p));
-  v[0] = static_cast<float>((t << 24) >> 24), v[1] = static_cast<float>((t << 16) >> 24);
-  v[2] = static_cast<float>((t << 8) >> 24), v[3] = static_cast<float>(t >> 24);
+__device__ __forceinline__ void widen(uint32_t w, float* x, int8_t) {
+  // byte b + 128 under the exponent of 2^23: 2^23 + 128 + b exactly, full-rate
+  // instructions where a conversion runs at a quarter of the rate
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    x[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + i)) - 8388736.f;
 }
+
+// the 16-byte vector at byte `off` of a row in shared memory: one 16-byte
+// read where rows are 16-byte aligned (`vec16`), else four 4-byte reads, the
+// words past the row's end zero (they would be the next row's)
+template <typename KV>
+__device__ __forceinline__ void load_vec(const uint8_t* row, int off, int row_bytes, bool vec16,
+                                         float (&x)[Vec<KV>::E]) {
+  uint32_t w[4];
+  if (vec16) {
+    const uint4 t = *reinterpret_cast<const uint4*>(row + off);
+    w[0] = t.x, w[1] = t.y, w[2] = t.z, w[3] = t.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[i] = off + 4 * i < row_bytes ? *reinterpret_cast<const uint32_t*>(row + off + 4 * i) : 0u;
+  }
+  constexpr int kPer = Vec<KV>::E / 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) widen(w[i], x + kPer * i, KV());
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 
 __device__ __forceinline__ void store1(float* out, size_t i, float v) { out[i] = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* out, size_t i, float v) {
@@ -73,135 +169,299 @@ __device__ __forceinline__ void store1(__half* out, size_t i, float v) {
   out[i] = __float2half_rn(v);
 }
 
-// KV: the pages' type; Q: q's and the output's type; NCH: chunks of 128
-// elements in a head (1 for head_dim <= 128, 2 up to 256).
-template <typename KV, typename Q, int NCH>
-__global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const Q* __restrict__ q, const KV* __restrict__ kp,
-                       const KV* __restrict__ vp, const float* __restrict__ ks,
-                       const float* __restrict__ vs, const int* __restrict__ lengths,
-                       const int* __restrict__ tab, Q* __restrict__ out,
-                       float* __restrict__ part, int nh, int rep, int hd, int num_pages, int pg,
-                       int mp, int splits) {
-  const int h = blockIdx.x, b = blockIdx.y, z = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int len = min(max(lengths[b], 0), mp * pg);
-  // this split's share of the slot's keys, a whole number of warp rounds
-  int chunk = (len + splits - 1) / splits;
-  chunk = (chunk + kWarps * kGroup - 1) / (kWarps * kGroup) * (kWarps * kGroup);
-  const int s0 = z * chunk;
-  const int s1 = min(len, s0 + chunk);
-  const int* __restrict__ mytab = tab + static_cast<size_t>(b) * mp;
-  const size_t head_row0 = static_cast<size_t>(h / rep) * num_pages;
+struct PagedArgs {
+  const void* q;
+  const uint8_t* kp;
+  const uint8_t* vp;
+  const float* ks;
+  const float* vs;
+  const int* lengths;
+  const int* tab;
+  void* out;
+  float* part;
+  int nh, rep, hd, num_pages, pg, mp, splits;
+  int row_bytes, pps, stages, warps, lanes_log2, bulk, vec16;
+};
 
-  float qf[NCH][4], acc[NCH][4];
-  bool act[NCH];
-#pragma unroll
-  for (int c = 0; c < NCH; ++c) {
-    const int d = c * 128 + lane * 4;
-    act[c] = d < hd;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) qf[c][i] = 0.f, acc[c][i] = 0.f;
-    if (act[c]) load4(q + (static_cast<size_t>(b) * nh + h) * hd + d, qf[c]);
-  }
-  float m = -INFINITY, l = 0.f;
+// barrier `id` over `n` threads (the consumer warps)
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
 
-  for (int s = s0 + warp * kGroup; s < s1; s += kWarps * kGroup) {
-    size_t row[kGroup];
-    float sc[kGroup];
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-      const int sj = (s + j < s1) ? s + j : s;  // past the end: key s again, weight 0
-      const int pi = sj / pg;
-      row[j] = (head_row0 + mytab[pi]) * pg + (sj - pi * pg);
-    }
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-      float dot = 0.f;
-#pragma unroll
-      for (int c = 0; c < NCH; ++c) {
-        if (act[c]) {
-          float kf[4];
-          load4(kp + row[j] * hd + c * 128 + lane * 4, kf);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) dot = fmaf(qf[c][i], kf[i], dot);
-        }
-      }
-      sc[j] = dot;
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-#pragma unroll
-      for (int j = 0; j < kGroup; ++j) sc[j] += __shfl_xor_sync(0xffffffffu, sc[j], o);
-    }
-    float mn = m;
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-      if (ks != nullptr) sc[j] *= ks[row[j]] / 127.0f;
-      if (s + j >= s1) sc[j] = -INFINITY;
-      mn = fmaxf(mn, sc[j]);
-    }
-    // key s is within the share, so mn is finite
-    const float corr = expf(m - mn);
-    float p[kGroup];
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-      p[j] = expf(sc[j] - mn);
-      psum += p[j];
-      if (vs != nullptr) p[j] *= vs[row[j]] / 127.0f;
-    }
-    l = l * corr + psum;
-    m = mn;
-#pragma unroll
-    for (int c = 0; c < NCH; ++c) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[c][i] *= corr;
-    }
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-#pragma unroll
-      for (int c = 0; c < NCH; ++c) {
-        if (act[c]) {
-          float vf[4];
-          load4(vp + row[j] * hd + c * 128 + lane * 4, vf);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[c][i] = fmaf(p[j], vf[i], acc[c][i]);
-        }
-      }
-    }
-  }
+// KV: the pages' type; Q: q's and the output's type; QH: query heads of a
+// block; NCH: vectors of a row a lane takes (2 only for fp32 rows of more
+// than 32 vectors).
+template <typename KV, typename Q, int QH, int NCH>
+__global__ void __launch_bounds__(kThreads, QH == 1 ? 2 : 1)
+    paged_attention_kernel(const PagedArgs a) {
+  constexpr int E = Vec<KV>::E;
+  constexpr bool kQuant = sizeof(KV) == 1;
+  constexpr bool kStageScales = kQuant && !HQQ_PAGED_GLOBAL_SCALES;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const PagedSmem L = paged_smem(a.row_bytes, a.pg, a.pps, a.stages, kQuant, QH, a.hd, a.warps);
+  const uint32_t full0 = smem_u32(smem + L.bars);
+  const uint32_t empty0 = full0 + 8 * a.stages;
 
-  // merge the warps' partial softmaxes
-  __shared__ float sm_m[kWarps], sm_l[kWarps];
-  __shared__ float sm_acc[kWarps][kMaxHd];
-  if (lane == 0) sm_m[warp] = m, sm_l[warp] = l;
-#pragma unroll
-  for (int c = 0; c < NCH; ++c) {
-    if (act[c]) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sm_acc[warp][c * 128 + lane * 4 + i] = acc[c][i];
+  const int groups = a.rep / QH;
+  const int kvh = blockIdx.x / groups;
+  const int h0 = kvh * a.rep + blockIdx.x % groups * QH;  // the block's first query head
+  const int b = blockIdx.y, z = blockIdx.z;
+  const int len = min(max(__ldg(a.lengths + b), 0), a.mp * a.pg);
+  const int n_pages = (len + a.pg - 1) / a.pg;
+  const int all_stages = (n_pages + a.pps - 1) / a.pps;
+  const int per_split = (all_stages + a.splits - 1) / a.splits;
+  const int st0 = z * per_split;
+  const int n_st = max(0, min(all_stages, st0 + per_split) - st0);
+  const int stage_rows = a.pps * a.pg;
+  const int page_bytes = a.pg * a.row_bytes;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(full0 + 8 * s, a.bulk ? 1 : 32);  // the expect_tx, or the lanes' cp.async
+      mbar_init(empty0 + 8 * s, 1);               // the consuming warp
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  float big = -INFINITY;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == 0) {
+    // ---- producer: the block table's pages of this split, stage by stage
+    // the warp's lanes hold 32 block-table entries at a time, one each, so
+    // no copy waits on a load of its page number
+    const int* mytab = a.tab + static_cast<size_t>(b) * a.mp;
+    const size_t head_page0 = static_cast<size_t>(kvh) * a.num_pages;
+    const int p_end = min(n_pages, (st0 + n_st) * a.pps);
+    int held = -32, entry = 0;  // entries [held, held + 32)
+    for (int i = 0; i < n_st; ++i) {
+      const int slot = i % a.stages;
+      const int p0 = (st0 + i) * a.pps;
+      const int np = min(a.pps, n_pages - p0);
+      mbar_wait(empty0 + 8 * slot, ((i / a.stages) & 1) ^ 1);
+      const uint32_t full = full0 + 8 * slot;
+      const uint32_t st = smem_u32(smem + slot * L.stage);
+      if (a.bulk && lane == 0)
+        mbar_expect_tx(full, np * (2 * page_bytes + (kStageScales ? 8 * a.pg : 0)));
+      for (int j = 0; j < np; ++j) {
+        if (p0 + j >= held + 32) {
+          held = p0 + j;
+          entry = held + lane < p_end ? __ldg(mytab + held + lane) : 0;
+        }
+        const size_t page = head_page0 + __shfl_sync(0xffffffffu, entry, p0 + j - held);
+        if (a.bulk) {
+          if (lane == 0) {
+            bulk_load(st + j * page_bytes, a.kp + page * page_bytes, page_bytes, full);
+            bulk_load(st + L.v + j * page_bytes, a.vp + page * page_bytes, page_bytes, full);
+            if (kStageScales) {
+              bulk_load(st + L.ks + j * a.pg * 4, a.ks + page * a.pg, a.pg * 4, full);
+              bulk_load(st + L.vs + j * a.pg * 4, a.vs + page * a.pg, a.pg * 4, full);
+            }
+          }
+        } else {
+          for (int w = 4 * lane; w < page_bytes; w += 128) {
+            cp_async(st + j * page_bytes + w, a.kp + page * page_bytes + w, 4, true);
+            cp_async(st + L.v + j * page_bytes + w, a.vp + page * page_bytes + w, 4, true);
+          }
+          if (kStageScales) {
+            for (int r = lane; r < a.pg; r += 32) {
+              cp_async(st + L.ks + (j * a.pg + r) * 4, a.ks + page * a.pg + r, 4, true);
+              cp_async(st + L.vs + (j * a.pg + r) * 4, a.vs + page * a.pg + r, 4, true);
+            }
+          }
+        }
+      }
+      if (!a.bulk) cp_async_arrive(full);
+    }
+    return;
+  }
+
+  // ---- consumer warps: stage i to warp (i % stages) % warps
+  const int cw = warp - 1;
+  const int lanes = 1 << a.lanes_log2;      // lanes of a row
+  const int rp = 32 >> a.lanes_log2;        // rows a step reads, per row of lanes
+  const int grp = lane >> a.lanes_log2;     // the lane's row within those
+  const int sl = lane & (lanes - 1);        // its 16-byte vector(s) of the row
+  const int nv = (a.row_bytes + 15) / 16;   // vectors of a row
+
+  // q of the block's heads, the lane's columns, in fp32 (0 past hd)
+  float qf[QH][NCH][E];
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) big = fmaxf(big, sm_m[w]);
-  const size_t head = static_cast<size_t>(b) * nh + h;
-  for (int d = threadIdx.x; d < hd; d += kThreads) {
-    float lsum = 0.f, o = 0.f;
-    if (big > -INFINITY) {
+  for (int h = 0; h < QH; ++h)
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const float e = expf(sm_m[w] - big);
-        lsum += sm_l[w] * e;
-        o += sm_acc[w][d] * e;
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int col = (sl + c * lanes) * E + e;
+        qf[h][c][e] =
+            col < a.hd
+                ? to_f32(static_cast<const Q*>(a.q)[(static_cast<size_t>(b) * a.nh + h0 + h) * a.hd +
+                                                    col])
+                : 0.f;
+      }
+  float m[QH], l[QH], acc[QH][NCH][E];
+#pragma unroll
+  for (int h = 0; h < QH; ++h) {
+    m[h] = -INFINITY, l[h] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[h][c][e] = 0.f;
+  }
+
+  for (int i = 0; i < n_st; ++i) {
+    const int slot = i % a.stages;
+    // a slot always goes to one warp, which so waits on its phases in order
+    // (a wait two phases ahead would pass at once)
+    if (slot % a.warps != cw) continue;
+    mbar_wait(full0 + 8 * slot, (i / a.stages) & 1);
+    const uint8_t* kst = smem + slot * L.stage;
+    const uint8_t* vst = kst + L.v;
+    const float* kss = reinterpret_cast<const float*>(kst + L.ks);
+    const float* vss = reinterpret_cast<const float*>(kst + L.vs);
+    const int rows = min(len - (st0 + i) * stage_rows, stage_rows);  // >= 1
+    // the variant's scale of row r of the stage, through the block table
+    auto scale_at = [&](const float* pool, int r) {
+      const size_t page = static_cast<size_t>(kvh) * a.num_pages +
+                          __ldg(a.tab + static_cast<size_t>(b) * a.mp + (st0 + i) * a.pps + r / a.pg);
+      return __ldg(pool + page * a.pg + r % a.pg);
+    };
+    for (int r0 = 0; r0 < rows; r0 += 2 * rp) {
+      int row[2];
+      bool ok[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int r = r0 + u * rp + grp;
+        ok[u] = r < rows;
+        row[u] = ok[u] ? r : rows - 1;  // past the end: a valid row, selected out below
+      }
+      float s[2][QH];
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int h = 0; h < QH; ++h) s[u][h] = 0.f;
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) {
+        const int v = sl + c * lanes;
+        if (v < nv) {
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            float kf[E];
+            load_vec<KV>(kst + row[u] * a.row_bytes, 16 * v, a.row_bytes, a.vec16, kf);
+#pragma unroll
+            for (int h = 0; h < QH; ++h)
+#pragma unroll
+              for (int e = 0; e < E; ++e) s[u][h] = fmaf(qf[h][c][e], kf[e], s[u][h]);
+          }
+        }
+      }
+      // each row's score on all of its lanes, -inf for rows past the end
+      float mx[QH];
+#pragma unroll
+      for (int h = 0; h < QH; ++h) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1)
+            if (o < lanes) s[u][h] += __shfl_xor_sync(0xffffffffu, s[u][h], o);
+          if (kQuant)
+            s[u][h] *= (kStageScales ? kss[row[u]] : scale_at(a.ks, row[u])) / 127.0f;
+          s[u][h] = ok[u] ? s[u][h] : -INFINITY;
+        }
+        mx[h] = fmaxf(s[0][h], s[1][h]);
+        for (int o = lanes; o < 32; o <<= 1)
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], o));
+      }
+      float pv[2][QH];
+#pragma unroll
+      for (int h = 0; h < QH; ++h) {
+        if (mx[h] > m[h]) {  // warp-uniform; row r0 is valid, so the first step moves it
+          const float corr = expf(m[h] - mx[h]);
+          m[h] = mx[h];
+          l[h] *= corr;
+#pragma unroll
+          for (int c = 0; c < NCH; ++c)
+#pragma unroll
+            for (int e = 0; e < E; ++e) acc[h][c][e] *= corr;
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float p = ok[u] ? expf(s[u][h] - m[h]) : 0.f;
+          l[h] += p;
+          pv[u][h] =
+              kQuant ? p * ((kStageScales ? vss[row[u]] : scale_at(a.vs, row[u])) / 127.0f) : p;
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) {
+        const int v = sl + c * lanes;
+        if (v < nv) {
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            if (!ok[u]) continue;
+            float vf[E];
+            load_vec<KV>(vst + row[u] * a.row_bytes, 16 * v, a.row_bytes, a.vec16, vf);
+#pragma unroll
+            for (int h = 0; h < QH; ++h)
+#pragma unroll
+              for (int e = 0; e < E; ++e) acc[h][c][e] = fmaf(pv[u][h], vf[e], acc[h][c][e]);
+          }
+        }
       }
     }
-    if (splits == 1) {
-      store1(out, head * hd + d, lsum > 0.f ? o / lsum : 0.f);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * slot);
+  }
+
+  // a warp's sums over its rows of lanes: each lane then holds the warp's
+  // sum and output sums of its columns
+#pragma unroll
+  for (int h = 0; h < QH; ++h)
+    for (int o = lanes; o < 32; o <<= 1) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], o);
+#pragma unroll
+      for (int c = 0; c < NCH; ++c)
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          acc[h][c][e] += __shfl_xor_sync(0xffffffffu, acc[h][c][e], o);
+    }
+
+  // merge the warps' softmaxes in shared memory (the ring is consumed)
+  bar_sync(1, 32 * a.warps);
+  float* mrg = reinterpret_cast<float*>(smem);  // [warp][head][max, sum, hd outputs]
+#pragma unroll
+  for (int h = 0; h < QH; ++h) {
+    float* dst = mrg + (cw * QH + h) * (a.hd + 2);
+    if (lane == 0) dst[0] = m[h], dst[1] = l[h];
+    if (grp == 0) {
+#pragma unroll
+      for (int c = 0; c < NCH; ++c)
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const int col = (sl + c * lanes) * E + e;
+          if (col < a.hd) dst[2 + col] = acc[h][c][e];
+        }
+    }
+  }
+  bar_sync(1, 32 * a.warps);
+  const int ct = threadIdx.x - 32;
+  for (int i = ct; i < QH * a.hd; i += 32 * a.warps) {
+    const int h = i / a.hd, d = i % a.hd;
+    float big = -INFINITY;
+    for (int w = 0; w < a.warps; ++w) big = fmaxf(big, mrg[(w * QH + h) * (a.hd + 2)]);
+    float lsum = 0.f, o = 0.f;
+    if (big > -INFINITY) {
+      for (int w = 0; w < a.warps; ++w) {
+        const float* src = mrg + (w * QH + h) * (a.hd + 2);
+        const float e = expf(src[0] - big);
+        lsum += src[1] * e;
+        o += src[2 + d] * e;
+      }
+    }
+    const size_t head = static_cast<size_t>(b) * a.nh + h0 + h;
+    if (a.splits == 1) {
+      store1(static_cast<Q*>(a.out), head * a.hd + d, lsum > 0.f ? o / lsum : 0.f);
     } else {
-      float* dst = part + (head * splits + z) * (hd + 2);
+      float* dst = a.part + (head * a.splits + z) * (a.hd + 2);
       dst[2 + d] = o;
       if (d == 0) dst[0] = big, dst[1] = lsum;
     }
@@ -211,14 +471,14 @@ paged_attention_kernel(const Q* __restrict__ q, const KV* __restrict__ kp,
 // Merge the splits of one (slot, query head): part [B, nh, splits, 2 + hd]
 // holds each split's running max, sum and unnormalised output.
 template <typename Q>
-__global__ void __launch_bounds__(kThreads)
-paged_attention_merge_kernel(const float* __restrict__ part, Q* __restrict__ out, int nh, int hd,
-                             int splits) {
+__global__ void __launch_bounds__(128)
+    paged_attention_merge_kernel(const float* __restrict__ part, Q* __restrict__ out, int nh,
+                                 int hd, int splits) {
   const size_t head = static_cast<size_t>(blockIdx.y) * nh + blockIdx.x;
   const float* src = part + head * splits * (hd + 2);
   float big = -INFINITY;
   for (int z = 0; z < splits; ++z) big = fmaxf(big, src[z * (hd + 2)]);
-  for (int d = threadIdx.x; d < hd; d += kThreads) {
+  for (int d = threadIdx.x; d < hd; d += 128) {
     float lsum = 0.f, o = 0.f;
     if (big > -INFINITY) {
       for (int z = 0; z < splits; ++z) {
@@ -232,28 +492,32 @@ paged_attention_merge_kernel(const float* __restrict__ part, Q* __restrict__ out
   }
 }
 
-template <typename KV, typename Q>
-cudaError_t launch(const void* q, const void* kp, const void* vp, const float* ks,
-                   const float* vs, const int* lengths, const int* tab, void* out, float* part,
-                   int b, int nh, int n_kv, int hd, int num_pages, int pg, int mp, int splits,
-                   cudaStream_t stream) {
-  const dim3 grid(nh, b, splits);
-  const int rep = nh / n_kv;
-  if (hd <= 128) {
-    paged_attention_kernel<KV, Q, 1><<<grid, kThreads, 0, stream>>>(
-        static_cast<const Q*>(q), static_cast<const KV*>(kp), static_cast<const KV*>(vp), ks, vs,
-        lengths, tab, static_cast<Q*>(out), part, nh, rep, hd, num_pages, pg, mp, splits);
-  } else {
-    paged_attention_kernel<KV, Q, 2><<<grid, kThreads, 0, stream>>>(
-        static_cast<const Q*>(q), static_cast<const KV*>(kp), static_cast<const KV*>(vp), ks, vs,
-        lengths, tab, static_cast<Q*>(out), part, nh, rep, hd, num_pages, pg, mp, splits);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  paged_attention_merge_kernel<Q><<<dim3(nh, b), kThreads, 0, stream>>>(
-      part, static_cast<Q*>(out), nh, hd, splits);
+template <typename KV, typename Q, int QH, int NCH>
+cudaError_t launch(const PagedArgs& a, int b, int n_kv, int smem, cudaStream_t stream) {
+  auto kernel = paged_attention_kernel<KV, Q, QH, NCH>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(n_kv * (a.rep / QH), b, a.splits), 32 * (1 + a.warps), smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return err;
+  paged_attention_merge_kernel<Q><<<dim3(a.nh, b), 128, 0, stream>>>(a.part, static_cast<Q*>(a.out),
+                                                                      a.nh, a.hd, a.splits);
   return cudaGetLastError();
 }
+
+template <typename KV, typename Q, int NCH>
+cudaError_t launch_heads(const PagedArgs& a, int qh, int b, int n_kv, int smem,
+                         cudaStream_t stream) {
+  if (qh == 1) return launch<KV, Q, 1, NCH>(a, b, n_kv, smem, stream);
+  if (qh == 2) return launch<KV, Q, 2, NCH>(a, b, n_kv, smem, stream);
+  // int8 rows hold 16 columns a lane: four heads' q and sums would spill
+  if constexpr (sizeof(KV) > 1) {
+    if (qh == 4) return launch<KV, Q, 4, NCH>(a, b, n_kv, smem, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
@@ -261,40 +525,68 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, const float* k
 // v_scales fp32 [n_kv, num_pages, pg] (int8 pages only, else null), lengths
 // int32 [B], tab int32 [B, mp], out [B, nh, hd] in q's type, part fp32
 // [B, nh, splits, 2 + hd] (splits > 1 only, else null). head_dim a multiple
-// of 4, at most 256.
+// of 4, at most 256. The launch plan (`paged_launch_plan`) gives splits and
+// the rest: bulk (1: pages by bulk copy, every pool 16-byte aligned),
+// vec16 (rows of whole 16-byte vectors), lanes_log2 (log2 of the lanes of a
+// row), pages_per_stage, stages, warps (consumer warps, 1 to 8),
+// heads_per_block (1, 2 or, but for int8 pages, 4, dividing nh / n_kv) and
+// smem (bytes of dynamic shared memory).
 HQQ_EXPORT int hqq_paged_attention(const void* q, const void* kp, const void* vp,
                                    const void* ks, const void* vs, const void* lengths,
                                    const void* tab, void* out, void* part, int b, int nh, int n_kv,
                                    int hd, int num_pages, int pg, int mp, int splits, int dtype,
+                                   int bulk, int vec16, int lanes_log2, int pages_per_stage,
+                                   int stages, int warps, int heads_per_block, int smem,
                                    void* stream) {
+  const int esize = dtype == PAGED_F32 ? 4 : dtype == PAGED_INT8 ? 1 : 2;
+  const int row_bytes = hd * esize;
+  const int rep = n_kv > 0 ? nh / n_kv : 0;
+  const int nv = (row_bytes + 15) / 16;
+  const int nch = (nv + 31) / 32;
   if (b < 1 || nh < 1 || n_kv < 1 || nh % n_kv || hd < 4 || hd % 4 || hd > kMaxHd || pg < 1 ||
       mp < 1 || splits < 1 || (splits > 1 && part == nullptr) ||
-      ((dtype == PAGED_INT8) != (ks != nullptr)) || ((ks == nullptr) != (vs == nullptr))) {
+      ((dtype == PAGED_INT8) != (ks != nullptr)) || ((ks == nullptr) != (vs == nullptr)) ||
+      pages_per_stage < 1 || stages < 1 || warps < 1 || warps > kMaxWarps ||
+      heads_per_block < 1 || rep % heads_per_block ||
+      lanes_log2 < 0 || lanes_log2 > 5 || (nch == 1 && (1 << lanes_log2) < nv) ||
+      (nch > 1 && lanes_log2 != 5) || nch > 2 || (nch == 2 && dtype != PAGED_F32) ||
+      (vec16 && row_bytes % 16) ||
+      (bulk && (pg * row_bytes % 16 || (ks != nullptr && pg % 4) || !aligned16(kp) ||
+                !aligned16(vp) || (ks != nullptr && (!aligned16(ks) || !aligned16(vs))))) ||
+      smem < paged_smem(row_bytes, pg, pages_per_stage, stages, dtype == PAGED_INT8,
+                        heads_per_block, hd, warps).total) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  PagedArgs a;
+  a.q = q;
+  a.kp = static_cast<const uint8_t*>(kp);
+  a.vp = static_cast<const uint8_t*>(vp);
+  a.ks = static_cast<const float*>(ks);
+  a.vs = static_cast<const float*>(vs);
+  a.lengths = static_cast<const int*>(lengths);
+  a.tab = static_cast<const int*>(tab);
+  a.out = out;
+  a.part = static_cast<float*>(part);
+  a.nh = nh, a.rep = rep, a.hd = hd, a.num_pages = num_pages, a.pg = pg, a.mp = mp;
+  a.splits = splits, a.row_bytes = row_bytes, a.pps = pages_per_stage, a.stages = stages;
+  a.warps = warps;
+  a.lanes_log2 = lanes_log2, a.bulk = bulk, a.vec16 = vec16;
   const auto st = static_cast<cudaStream_t>(stream);
-  const auto* fks = static_cast<const float*>(ks);
-  const auto* fvs = static_cast<const float*>(vs);
-  const auto* il = static_cast<const int*>(lengths);
-  const auto* it = static_cast<const int*>(tab);
-  auto* fp = static_cast<float*>(part);
+  const int qh = heads_per_block;
   cudaError_t err;
   switch (dtype) {
     case PAGED_F32:
-      err = launch<float, float>(q, kp, vp, fks, fvs, il, it, out, fp, b, nh, n_kv, hd, num_pages,
-                                 pg, mp, splits, st);
+      err = nch == 2 ? launch_heads<float, float, 2>(a, qh, b, n_kv, smem, st)
+                     : launch_heads<float, float, 1>(a, qh, b, n_kv, smem, st);
       break;
     case PAGED_BF16:
-      err = launch<__nv_bfloat16, __nv_bfloat16>(q, kp, vp, fks, fvs, il, it, out, fp, b, nh, n_kv,
-                                                 hd, num_pages, pg, mp, splits, st);
+      err = launch_heads<__nv_bfloat16, __nv_bfloat16, 1>(a, qh, b, n_kv, smem, st);
       break;
     case PAGED_F16:
-      err = launch<__half, __half>(q, kp, vp, fks, fvs, il, it, out, fp, b, nh, n_kv, hd,
-                                   num_pages, pg, mp, splits, st);
+      err = launch_heads<__half, __half, 1>(a, qh, b, n_kv, smem, st);
       break;
     case PAGED_INT8:
-      err = launch<int8_t, float>(q, kp, vp, fks, fvs, il, it, out, fp, b, nh, n_kv, hd, num_pages,
-                                  pg, mp, splits, st);
+      err = launch_heads<int8_t, float, 1>(a, qh, b, n_kv, smem, st);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -1,11 +1,12 @@
 // SPDX-License-Identifier: Apache-2.0
 // The Hopper building blocks of the port's mainloops (qmm_sm90.cuh for the
-// dequant-matmuls, flash_prefill.cu and flash_backward_sm90.cu for
-// attention), in raw PTX: mbarriers, TMA loads (1-3 dimensions), cp.async,
-// the 128-byte-swizzled wgmma descriptors, the wgmma
-// instructions (bf16/fp16, and TF32 for the fp32 route) with both operands
-// in shared memory (K-major) and with A in
-// registers and B in shared memory (MN-major, the transpose bit set), and the
+// dequant-matmuls, flash_prefill.cu, flash_fp32_sm90.cu and
+// flash_backward_sm90.cu for attention, paged_attention.cu), in raw PTX:
+// mbarriers, TMA loads (1-3 dimensions), bulk copies without a tensor map,
+// cp.async, the 128- and 32-byte-swizzled wgmma descriptors, the wgmma
+// instructions (bf16/fp16, and TF32 for the fp32 routes) with both operands
+// in shared memory (K-major) and with A in registers and B in shared memory
+// (bf16/fp16: MN-major, the transpose bit set; TF32: K-major), and the
 // host's tensor-map encoder.
 #pragma once
 
@@ -72,6 +73,17 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// a bulk copy of `bytes` (a multiple of 16; both addresses 16-byte aligned)
+// from global to shared memory without a tensor map, completing on `bar`'s
+// transaction count
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // cp.async of `vec` bytes, zero-filled when !valid (src is then not read)
 __device__ __forceinline__ void cp_async(uint32_t dst, const void* src, int vec, bool valid) {
   const int n = valid ? vec : 0;
@@ -134,6 +146,14 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
 __device__ __forceinline__ uint64_t sw128_mn_desc(uint32_t saddr, uint32_t panel) {
   return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((panel >> 4) & 0x3FFF) << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// K-major operand in the 32-byte swizzle: rows of 32 bytes (one TF32 k8
+// step), 8-row groups 256 bytes apart (SBO), the 16-byte half of row r
+// stored at half ^ ((r >> 2) & 1); the tile 256-byte aligned.
+__device__ __forceinline__ uint64_t sw32_desc(uint32_t saddr) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (1ull << 16) | (16ull << 32) |
+         (3ull << 62);
 }
 
 // the 16-byte chunk q of row r of a 128-byte-swizzled tile
@@ -714,6 +734,61 @@ __device__ __forceinline__ void wgmma_rs<__half, 256>(
         "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D[64 x N] += A[64 x 8] . B[N x 8]^T in TF32: A from registers (four fp32
+// bit patterns a thread: rows r and r + 8 of its warp's 16, columns c and
+// c + 4, r = lane / 4 and c = lane % 4, as mma.m16n8k8's A), B from shared
+// memory, K-major (TF32 takes no transpose bit)
+template <>
+__device__ __forceinline__ void wgmma_rs<float, 64>(float (&d)[32], const uint32_t (&a)[4],
+                                                      uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<float, 128>(float (&d)[64], const uint32_t (&a)[4],
+                                                      uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 

@@ -49,8 +49,8 @@ KERNELS = {
         [_P] * 6 + [_I] * 5 + [ctypes.c_float] + [_I] * 7 + [_P],
     ),
     "flash_attention_fp32": (
-        "flash_backward.cu", "hqq_flash_forward_fp32",
-        [_P] * 5 + [_I] * 5 + [ctypes.c_float] + [_I] * 3 + [_P],
+        "flash_fp32_sm90.cu", "hqq_flash_fp32",
+        [_P] * 6 + [_I] * 5 + [ctypes.c_float] + [_I] * 7 + [_P],
     ),
     "flash_attention_backward_dkv": (
         "flash_backward_sm90.cu", "hqq_flash_bwd_dkv",
@@ -65,7 +65,7 @@ KERNELS = {
         [_P] * 9 + [_I] * 5 + [ctypes.c_float] + [_I] * 5 + [_P],
     ),
     "paged_attention": (
-        "paged_attention.cu", "hqq_paged_attention", [_P] * 9 + [_I] * 9 + [_P],
+        "paged_attention.cu", "hqq_paged_attention", [_P] * 9 + [_I] * 17 + [_P],
     ),
     "qmm_fp32": ("qmm_fp32.cu", "hqq_qmm_fp32", [_P] * 8 + [_I] * 15 + [_P]),
     "w4a8_matmul": ("w4a8_matmul.cu", "hqq_w4a8_matmul", [_P] * 6 + [_I] * 7 + [_P]),

@@ -17,8 +17,10 @@ counterparts of the library's dK/dV and dQ kernels:
 fp16: ``csrc/flash_backward_sm90.cu``, wgmma and TMA; fp32:
 ``csrc/flash_backward.cu``, CUDA cores), launch plan
 `flash_backward_launch_plan`, plain twin `flash_attention_backward_plain`.
-For fp32 inputs the forward is `flash_attention_fp32`, a CUDA-core kernel
-of ``csrc/flash_backward.cu``.
+For fp32 inputs the forward is `flash_attention_fp32`
+(``csrc/flash_fp32_sm90.cu``: 3xTF32 on wgmma, each operand split into
+TF32 big and small parts, each tile's products folded into fp32 sums;
+launch plan `flash_fp32_launch_plan`).
 
 Every kernel wrapper has a plain PyTorch twin and a launch count
 (``<wrapper>.launches``). It runs the plain version only for tensors on the
@@ -37,7 +39,8 @@ from . import _build
 from .fused_matmul import _DTYPE_CODE, H100_SMEM_PER_BLOCK, _on_cpu, _ptr, _stream
 
 __all__ = ["prefill_attention", "flash_attention", "flash_attention_plain", "FLASH_MIN_SEQ",
-           "FlashPlan", "flash_launch_plan", "flash_attention_fp32", "flash_attention_backward",
+           "FlashPlan", "flash_launch_plan", "flash_attention_fp32", "FlashFp32Plan",
+           "flash_fp32_launch_plan", "flash_fp32_smem_bytes", "flash_attention_backward",
            "flash_attention_backward_dkv", "flash_attention_backward_dq",
            "flash_attention_backward_plain", "FlashBackwardPlan", "flash_backward_launch_plan"]
 
@@ -96,6 +99,67 @@ def flash_launch_plan(batch: int, heads: int, t: int, head_dim: int) -> FlashPla
     return FlashPlan(head_pad=head_pad, key_tile=key_tile, stages=stages,
                      smem=flash_smem_bytes(head_pad, key_tile, stages),
                      q_order=tuple(range(q_tiles - 1, -1, -1)), blocks=batch * heads * q_tiles)
+
+
+# the geometry of csrc/flash_fp32_sm90.cu: query rows of a block, and per
+# padded head size the key tile and the consumer warpgroups (two at 256,
+# each owning 128 output columns); the most slots of its K/V ring
+FLASH_FP32_QUERY_TILE = 64
+FLASH_FP32_KEY_TILE = {64: 64, 128: 32, 256: 8}
+FLASH_FP32_CONSUMERS = {64: 1, 128: 1, 256: 2}
+FLASH_FP32_MAX_STAGES = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashFp32Plan:
+    """How `flash_attention_fp32` launches: ``blocks`` blocks of 64 query
+    rows, block i on query tile ``q_order[i // (batch * heads)]`` of (batch,
+    head) ``i % (batch * heads)``; the head size padded to ``head_pad``,
+    keys in tiles of ``key_tile`` through ``stages`` slots, ``consumers``
+    warpgroups, ``smem`` bytes of dynamic shared memory."""
+
+    head_pad: int
+    key_tile: int
+    consumers: int
+    stages: int
+    smem: int
+    q_order: tuple
+    blocks: int
+
+
+def flash_fp32_smem_bytes(head_pad: int, key_tile: int, stages: int) -> int:
+    """Dynamic shared memory of one block (`fp32_flash_smem` of
+    flash_fp32_sm90.cu): Q's tile in its TF32 big and small parts, K's small
+    part, V^T's big and small parts, ``stages`` slots of K's and V's raw
+    tiles, the barriers, and 1024 bytes to align the base."""
+    tile = key_tile * head_pad * 4
+    return (2 * FLASH_FP32_QUERY_TILE * head_pad * 4 + 3 * tile + stages * 2 * tile
+            + 8 * (1 + 2 * stages) + 1024)
+
+
+@functools.lru_cache(maxsize=1024)
+def flash_fp32_launch_plan(batch: int, heads: int, t: int, head_dim: int) -> FlashFp32Plan:
+    """The launch of the fp32 flash kernel for [batch, heads, t, head_dim].
+    The head size pads to 64, 128 or 256 (TMA fills the padding with zeros).
+    Q's two TF32 parts take 64 * head_pad * 8 bytes, so the key tile shrinks
+    as the head grows (64, 32, 8 keys) to leave a ring of at least two slots
+    of K's and V's fp32 tiles; at 256 two consumers share the output
+    columns, 128 each, so that a thread's output sums and a tile's products
+    stay at 64 registers each. The query tiles go last first, as in
+    `flash_launch_plan`."""
+    if not 16 <= head_dim <= _MAX_HEAD_DIM or head_dim % 16:
+        raise ValueError(f"the kernel takes head sizes of 16s up to {_MAX_HEAD_DIM}, "
+                         f"not {head_dim}")
+    head_pad = next(p for p in FLASH_HEAD_PADS if p >= head_dim)
+    key_tile = FLASH_FP32_KEY_TILE[head_pad]
+    stages = max(n for n in range(1, FLASH_FP32_MAX_STAGES + 1)
+                 if flash_fp32_smem_bytes(head_pad, key_tile, n) <= H100_SMEM_PER_BLOCK)
+    q_tiles = -(-t // FLASH_FP32_QUERY_TILE)
+    return FlashFp32Plan(head_pad=head_pad, key_tile=key_tile,
+                         consumers=FLASH_FP32_CONSUMERS[head_pad], stages=stages,
+                         smem=flash_fp32_smem_bytes(head_pad, key_tile, stages),
+                         q_order=tuple(range(q_tiles - 1, -1, -1)),
+                         blocks=batch * heads * q_tiles)
 
 
 @functools.lru_cache(maxsize=64)
@@ -183,9 +247,10 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bo
 
 def flash_attention_fp32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
                          sm_scale: Optional[float] = None, with_lse: bool = False):
-    """The fp32 route of `flash_attention` (csrc/flash_backward.cu, CUDA
-    cores, every value in fp32): (out, lse or None) for fp32 q, k, v. Its
-    plain versions are `flash_attention_plain` and `_plain_lse`."""
+    """The fp32 route of `flash_attention` (csrc/flash_fp32_sm90.cu: every
+    product from three TF32 tensor-core products, softmax and sums in fp32):
+    (out, lse or None) for fp32 q, k, v. Its plain versions are
+    `flash_attention_plain` and `_plain_lse`."""
     if _on_cpu(q):
         out = flash_attention_plain(q, k, v, causal, sm_scale)
         return out, (_plain_lse(q, k, causal, sm_scale) if with_lse else None)
@@ -196,13 +261,15 @@ def flash_attention_fp32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, caus
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((b, nh, t), dtype=torch.float32, device=dev) if with_lse else None
-    plan = flash_backward_launch_plan(b, nh, k.shape[1], t, hd)
+    plan = flash_fp32_launch_plan(b, nh, t, hd)
     lib = _build.library("flash_attention_fp32")
     with torch.cuda.device(dev):
-        code = lib.hqq_flash_forward_fp32(_ptr(q, 4), _ptr(k, 4), _ptr(v, 4), _ptr(out, 4),
-                                          None if lse is None else _ptr(lse, 4), b, nh,
-                                          k.shape[1], t, hd, float(sm_scale), int(bool(causal)),
-                                          plan.head_pad, plan.smem_fwd, _stream(dev))
+        code = lib.hqq_flash_fp32(_ptr(q), _ptr(k), _ptr(v), _ptr(out),
+                                  None if lse is None else _ptr(lse, 4),
+                                  _ptr(_q_order_on(plan.q_order, dev), 4), b, nh, k.shape[1], t,
+                                  hd, float(sm_scale), int(bool(causal)), plan.head_pad,
+                                  plan.key_tile, plan.consumers, plan.stages, plan.smem,
+                                  plan.blocks, _stream(dev))
     _build.check("flash_attention_fp32", code)
     flash_attention_fp32.launches += 1
     return out, lse
@@ -281,7 +348,7 @@ FLASH_FMA_THREADS = 256
 
 @dataclasses.dataclass(frozen=True)
 class FlashBackwardPlan:
-    """How the backward kernels launch, and the fp32 forward.
+    """How the backward kernels launch.
 
     bf16 and fp16 (the wgmma kernels): the head size padded to
     ``head_pad``. dK/dV: ``dkv_blocks`` blocks of ``dkv_keys`` keys, one per
@@ -298,8 +365,8 @@ class FlashBackwardPlan:
     fp32 (the CUDA-core kernels of flash_backward.cu): tiles of
     ``fma_tile`` rows, ``fma_blocks_dkv`` blocks of the dK/dV kernel (one per
     batch, kv head and key tile) and ``fma_blocks_dq`` of the dQ kernel (one
-    per batch, head and query tile, as the fp32 forward), each kernel's
-    bytes of shared memory."""
+    per batch, head and query tile), each kernel's bytes of shared
+    memory."""
 
     head_pad: int
     dkv_keys: int
@@ -318,7 +385,6 @@ class FlashBackwardPlan:
     fma_blocks_dq: int
     fma_smem_dkv: int
     fma_smem_dq: int
-    smem_fwd: int
 
 
 def flash_bwd_dkv_smem(head_pad: int, keys: int, stages: int) -> int:
@@ -341,13 +407,12 @@ def flash_bwd_dq_smem(head_pad: int, key_tile: int, stages: int) -> int:
 
 
 def flash_backward_smem(head_pad: int, tile: int) -> tuple:
-    """Dynamic shared memory of the fp32 route's dK/dV, dQ and forward
-    kernels (`*_smem_floats` of flash_backward.cu): fp32 tiles in rows of
+    """Dynamic shared memory of the fp32 route's dK/dV and dQ kernels
+    (`*_smem_floats` of flash_backward.cu): fp32 tiles in rows of
     head_pad + 1, P and dS in rows of tile + 1, lse and D."""
     rows = tile * (head_pad + 1)
     ptile = tile * (tile + 1)
-    return (4 * (4 * rows + 2 * ptile + 2 * tile), 4 * (4 * rows + ptile + 2 * tile),
-            4 * (3 * rows + ptile))
+    return 4 * (4 * rows + 2 * ptile + 2 * tile), 4 * (4 * rows + ptile + 2 * tile)
 
 
 def _stages(smem_of) -> int:
@@ -359,7 +424,7 @@ def _stages(smem_of) -> int:
 @functools.lru_cache(maxsize=1024)
 def flash_backward_launch_plan(batch: int, heads: int, kv_heads: int, t: int,
                                head_dim: int) -> FlashBackwardPlan:
-    """The launch of the backward kernels (and of the fp32 forward) for q
+    """The launch of the backward kernels for q
     [batch, heads, t, head_dim] and k, v [batch, kv_heads, t, head_dim]. The
     head size pads to 64, 128 or 256 as in the forward.
 
@@ -373,7 +438,7 @@ def flash_backward_launch_plan(batch: int, heads: int, kv_heads: int, t: int,
     blocks.
 
     fp32: tiles of 64 rows, 32 at head size 256, so that a thread's dK and
-    dV (or dQ, or O) accumulators stay at 32 registers each."""
+    dV (or dQ) accumulators stay at 32 registers each."""
     if not 16 <= head_dim <= _MAX_HEAD_DIM or head_dim % 16:
         raise ValueError(f"the kernel takes head sizes of 16s up to {_MAX_HEAD_DIM}, "
                          f"not {head_dim}")
@@ -387,7 +452,7 @@ def flash_backward_launch_plan(batch: int, heads: int, kv_heads: int, t: int,
     dq_stages = _stages(lambda n: flash_bwd_dq_smem(head_pad, dq_key_tile, n))
     tile = FLASH_FMA_TILE[head_pad]
     tiles = -(-t // tile)
-    smem_dkv, smem_dq, smem_fwd = flash_backward_smem(head_pad, tile)
+    smem_dkv, smem_dq = flash_backward_smem(head_pad, tile)
     return FlashBackwardPlan(
         head_pad=head_pad, dkv_keys=dkv_keys, gqa_split=heads > kv_heads, dkv_stages=dkv_stages,
         dkv_smem=flash_bwd_dkv_smem(head_pad, dkv_keys, dkv_stages),
@@ -396,7 +461,7 @@ def flash_backward_launch_plan(batch: int, heads: int, kv_heads: int, t: int,
         dq_smem=flash_bwd_dq_smem(head_pad, dq_key_tile, dq_stages),
         dq_blocks=batch * heads * q_tiles, q_order=tuple(range(q_tiles - 1, -1, -1)),
         fma_tile=tile, fma_blocks_dkv=batch * kv_heads * tiles, fma_blocks_dq=batch * heads * tiles,
-        fma_smem_dkv=smem_dkv, fma_smem_dq=smem_dq, smem_fwd=smem_fwd)
+        fma_smem_dkv=smem_dkv, fma_smem_dq=smem_dq)
 
 
 def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -8,22 +8,25 @@ one fp32 absmax scale per row ``[L, H, P, pg, 1]``. Model forwards take a
 `PagedKVCache` wherever they take a dense `KVCache`.
 
 Decode attention over a plain-causal layer is the `paged_attention` kernel
-(``csrc/paged_attention.cu``) behind a wrapper with a plain PyTorch twin and a
-launch count (``paged_attention.launches``). The wrapper runs the plain
-version only for tensors on the CPU; for CUDA tensors it launches the kernel
-or raises. Layers with a sliding window, logit softcapping or attention sinks
-take `paged_attention_ref`, the gather-based version, as in `hqq_tpu`.
+(``csrc/paged_attention.cu``: one block per slot, kv head and split, whole
+pages by bulk copy into an mbarrier ring; its launch plan is
+`paged_launch_plan`) behind a wrapper with a plain PyTorch twin and a launch
+count (``paged_attention.launches``). The wrapper runs the plain version only
+for tensors on the CPU; for CUDA tensors it launches the kernel or raises.
+Layers with a sliding window, logit softcapping or attention sinks take
+`paged_attention_ref`, the gather-based version, as in `hqq_tpu`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
 
 from . import _build
-from .fused_matmul import _on_cpu, _ptr, _stream
+from .fused_matmul import H100_SMEM_PER_BLOCK, _on_cpu, _ptr, _stream
 
 __all__ = [
     "PagedKVCache",
@@ -34,16 +37,132 @@ __all__ = [
     "paged_attention",
     "paged_attention_plain",
     "paged_attn",
+    "PagedPlan",
+    "paged_launch_plan",
+    "paged_smem_bytes",
 ]
 
-# fewer (slot, head) pairs than this: `paged_attention` splits each slot's
-# keys over more blocks (four per SM of an H100)
-_MIN_BLOCKS = 528
+# an H100's SMs, each with 228 KB of shared memory (1 KB of it reserved per
+# block), and the consumer warps an SM should hold: fewer (slot, kv head)
+# blocks than fill them and `paged_attention` splits each slot's pages over
+# more blocks
+_SMS, _SM_SMEM, _SM_WARPS = 132, 233472, 16
 # a split takes at least this many keys of the block table's capacity
 _MIN_SPLIT_KEYS = 128
 _MAX_HEAD_DIM = 256
 
 _PAGE_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int8: 3}
+_PAGE_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2, torch.int8: 1}
+# the geometry of csrc/paged_attention.cu: rows a stage holds at least, and
+# the ring's bytes a block aims to keep in flight; shared memory that lets
+# two blocks share an SM
+PAGED_STAGE_ROWS = 16
+PAGED_RING_BYTES = 32768
+_TWO_BLOCKS_SMEM = 113 * 1024
+
+
+def _align16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def _paged_stage_bytes(row_bytes: int, page_size: int, pages_per_stage: int,
+                       quantized: bool) -> int:
+    run = _align16(pages_per_stage * page_size * row_bytes)
+    return 2 * run + (2 * _align16(pages_per_stage * page_size * 4) if quantized else 0)
+
+
+def paged_smem_bytes(row_bytes: int, page_size: int, pages_per_stage: int, stages: int,
+                     quantized: bool, heads_per_block: int, head_dim: int, warps: int) -> int:
+    """Dynamic shared memory of one block (`paged_smem` of
+    paged_attention.cu): ``stages`` slots of K's and V's pages (and, for
+    int8, their scale runs), each part rounded up to 16 bytes; the warps'
+    merge area, which reuses the ring; an mbarrier pair per slot."""
+    stage = _paged_stage_bytes(row_bytes, page_size, pages_per_stage, quantized)
+    merge = warps * heads_per_block * (head_dim + 2) * 4
+    return _align16(max(stages * stage, merge)) + 16 * stages
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedPlan:
+    """How `paged_attention` launches: blocks of ``warps`` consumer warps
+    and a producer warp, one per (slot, kv head, group of
+    ``heads_per_block`` query heads, split of ``splits``). ``bulk``: pages
+    (and int8 scale runs) by bulk copy, else by 4-byte cp.async; ``vec16``:
+    rows of whole 16-byte vectors (else the consumers read four words and
+    zero those past the row); a row takes ``2**lanes_log2`` lanes (each two
+    vectors where a row has more than 32, fp32 only); a stage holds
+    ``pages_per_stage`` pages, the ring ``stages`` slots (slot s to warp
+    s % warps), ``smem`` bytes."""
+
+    bulk: bool
+    vec16: bool
+    lanes_log2: int
+    heads_per_block: int
+    pages_per_stage: int
+    stages: int
+    warps: int
+    splits: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=1024)
+def paged_launch_plan(batch: int, heads: int, kv_heads: int, head_dim: int, page_size: int,
+                      max_pages: int, page_dtype: torch.dtype) -> PagedPlan:
+    """The launch of the paged kernel for q [batch, heads, head_dim] over
+    pages [kv_heads, P, page_size, head_dim] of ``page_dtype`` and a block
+    table [batch, max_pages], decided by these shapes alone.
+
+    A block serves the most of 4, 2 or 1 query heads (2 or 1 for int8)
+    that divides heads / kv_heads, so each page is read once for all of them
+    (twice at int8 with four or more heads a kv head). A stage holds whole
+    pages, at least 16 rows. Bulk copies need 16-byte sizes and addresses: a
+    page of page_size * head_dim elements, and for int8 a run of page_size
+    fp32 scales; other pages go by cp.async. A block has 8 consumer warps,
+    or fewer where a ring slot each would keep two blocks off an SM; each
+    warp owns one slot, or two where one each holds less than
+    PAGED_RING_BYTES (on the card eight warps with a slot each beat four
+    with two). Where the blocks would not fill
+    the card (16 consumer warps an SM, as many blocks as its shared memory
+    holds), each slot's stages are split over more blocks, each split taking
+    at least 128 keys of the table's capacity; a split costs a second kernel
+    that merges the splits' fp32 partials."""
+    if page_dtype not in _PAGE_BYTES:
+        raise ValueError(f"pages must be fp32, bf16, fp16 or int8, not {page_dtype}")
+    if heads % kv_heads:
+        raise ValueError(f"heads {heads} must be a multiple of kv heads {kv_heads}")
+    if head_dim % 4 or not 4 <= head_dim <= _MAX_HEAD_DIM or page_size < 1 or max_pages < 1:
+        raise ValueError(f"the kernel takes head sizes of 4s up to {_MAX_HEAD_DIM}; got "
+                         f"head_dim={head_dim}, page_size={page_size}, max_pages={max_pages}")
+    quantized = page_dtype == torch.int8
+    row_bytes = head_dim * _PAGE_BYTES[page_dtype]
+    vectors = -(-row_bytes // 16)
+    lanes_log2 = min(5, (vectors - 1).bit_length())
+    bulk = page_size * row_bytes % 16 == 0 and (not quantized or page_size % 4 == 0)
+    rep = heads // kv_heads
+    # int8 rows give a lane 16 columns: four heads' q and sums would spill
+    qh = next(d for d in ((2, 1) if quantized else (4, 2, 1)) if rep % d == 0)
+    pps = max(1, PAGED_STAGE_ROWS // page_size)
+    stage = _paged_stage_bytes(row_bytes, page_size, pps, quantized)
+
+    def smem(stages, warps):
+        return paged_smem_bytes(row_bytes, page_size, pps, stages, quantized, qh, head_dim,
+                                warps)
+
+    warps = next((w for w in (8, 4, 2) if smem(w, w) <= _TWO_BLOCKS_SMEM), 1)
+    stages = warps * (2 if warps * stage < PAGED_RING_BYTES else 1)
+    if smem(stages, warps) > _TWO_BLOCKS_SMEM:
+        stages = warps
+    while stages > 1 and smem(stages, warps) > H100_SMEM_PER_BLOCK:
+        stages -= 1
+    if smem(stages, warps) > H100_SMEM_PER_BLOCK:
+        raise ValueError(f"a page of {page_size} x {head_dim} {page_dtype} does not fit a block")
+    pairs = batch * kv_heads * (rep // qh)
+    per_sm = max(1, min(_SM_WARPS // warps, _SM_SMEM // (smem(stages, warps) + 1024)))
+    min_stages = -(-_MIN_SPLIT_KEYS // (pps * page_size))
+    splits = max(1, min(_SMS * per_sm // pairs, -(-max_pages // pps) // min_stages))
+    return PagedPlan(bulk=bulk, vec16=row_bytes % 16 == 0, lanes_log2=lanes_log2,
+                     heads_per_block=qh, pages_per_stage=pps, stages=stages, warps=warps,
+                     splits=splits, smem=smem(stages, warps))
 
 
 @dataclasses.dataclass
@@ -227,20 +346,24 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, k_scales=None,
     lengths = lengths.to(device=dev, dtype=torch.int32).contiguous()
     page_indices = page_indices.to(device=dev, dtype=torch.int32).contiguous()
 
-    # few (slot, head) pairs: split each slot's keys over blocks; a split
-    # writes an fp32 partial that the library's second kernel merges
-    splits = max(1, min(_MIN_BLOCKS // (b * nh), mp * pg // _MIN_SPLIT_KEYS))
-    part = (torch.empty((b, nh, splits, hd + 2), dtype=torch.float32, device=dev)
-            if splits > 1 else None)
+    plan = paged_launch_plan(b, nh, h, hd, pg, mp, k_pages.dtype)
+    # few (slot, kv head) blocks: each slot's pages split over more blocks;
+    # a split writes an fp32 partial that the library's second kernel merges
+    part = (torch.empty((b, nh, plan.splits, hd + 2), dtype=torch.float32, device=dev)
+            if plan.splits > 1 else None)
     out = torch.empty_like(q)
+    pool_align = 16 if plan.bulk else 4  # a bulk copy's addresses are 16-byte aligned
     lib = _build.library("paged_attention")
     with torch.cuda.device(dev):
         code = lib.hqq_paged_attention(
-            _ptr(q), _ptr(k_pages), _ptr(v_pages),
-            _ptr(k_scales, 4) if quantized else None, _ptr(v_scales, 4) if quantized else None,
-            _ptr(lengths, 4), _ptr(page_indices, 4), _ptr(out), None if part is None else
-            _ptr(part, 4), b, nh, h, hd, num_pages, pg, mp, splits,
-            _PAGE_DTYPE_CODE[k_pages.dtype], _stream(dev),
+            _ptr(q, 4), _ptr(k_pages, pool_align), _ptr(v_pages, pool_align),
+            _ptr(k_scales, pool_align) if quantized else None,
+            _ptr(v_scales, pool_align) if quantized else None,
+            _ptr(lengths, 4), _ptr(page_indices, 4), _ptr(out, 4), None if part is None else
+            _ptr(part, 4), b, nh, h, hd, num_pages, pg, mp, plan.splits,
+            _PAGE_DTYPE_CODE[k_pages.dtype], int(plan.bulk), int(plan.vec16), plan.lanes_log2,
+            plan.pages_per_stage, plan.stages, plan.warps, plan.heads_per_block, plan.smem,
+            _stream(dev),
         )
     _build.check("paged_attention", code)
     paged_attention.launches += 1

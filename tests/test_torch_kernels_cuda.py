@@ -436,6 +436,46 @@ def test_paged_attention_reads_nothing_past_the_length(cuda):
     assert (got[0] == 0).all()
 
 
+def test_paged_attention_int8_gqa(cuda):
+    """int8 pages with four query heads a kv head, lengths around 1024: a
+    block serves two of them (`paged_launch_plan`), so each page is read by
+    two blocks."""
+    lengths = [1024, 1000, 990, 1010, 960, 1024, 1017, 975]
+    args = _paged_case(cuda, 8, 32, 8, 128, 16, 64, lengths, torch.int8, seed=8)
+    assert pa.paged_launch_plan(8, 32, 8, 128, 16, 64, torch.int8).heads_per_block == 2
+    _close(pa.paged_attention(*args), pa.paged_attention_plain(*args), _PAGED_TOL[torch.int8])
+
+
+def test_paged_attention_int8_reads_nothing_past_the_length(cuda):
+    """int8 pages: NaN in the K and V scales of every row at or beyond a
+    slot's length, and of every page no slot owns, and -128 in their codes,
+    change nothing; a length of 0 gives zeros."""
+    pg, mp, lengths = 16, 8, [0, 5, 16, 100]
+    q, k, v, lens, tab, ks, vs = _paged_case(cuda, 4, 8, 4, 128, pg, mp, lengths, torch.int8)
+    ref = pa.paged_attention(q, k, v, lens, tab, ks, vs)
+    owned = torch.zeros(k.shape[1:3], dtype=torch.bool, device=cuda)  # [P, pg]
+    for b, n in enumerate(lengths):
+        for s in range(n):
+            owned[tab[b, s // pg], s % pg] = True
+    k2, v2 = (torch.where(owned[None, :, :, None], x, -128).to(torch.int8) for x in (k, v))
+    ks2, vs2 = (torch.where(owned[None, :, :, None], x, torch.nan) for x in (ks, vs))
+    got = pa.paged_attention(q, k2, v2, lens, tab, ks2, vs2)
+    assert torch.equal(got, ref) and torch.isfinite(got).all()
+    assert (got[0] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.int8])
+def test_paged_attention_copy_path(cuda, dtype):
+    """Pages of one row of head size 4 break the bulk copy's 16-byte rule
+    (and rows are not whole 16-byte vectors; fp32 rows of 4 are 16 bytes):
+    the producer copies them by cp.async, 16 pages a stage, and the
+    consumers read words."""
+    plan = pa.paged_launch_plan(3, 4, 2, 4, 1, 64, dtype)
+    assert not plan.bulk and not plan.vec16 and plan.pages_per_stage == 16
+    args = _paged_case(cuda, 3, 4, 2, 4, 1, 64, [1, 17, 64], dtype, seed=4)
+    _close(pa.paged_attention(*args), pa.paged_attention_plain(*args), _PAGED_TOL[dtype])
+
+
 def test_paged_attention_refuses(cuda):
     q, k, v, lens, tab, _, _ = _paged_case(cuda, 2, 4, 4, 64, 16, 4, [3, 9], torch.bfloat16)
     with pytest.raises(ValueError):
@@ -676,6 +716,9 @@ def test_flash_attention_lse(cuda, dtype, hd, t):
 @pytest.mark.parametrize("nh,n_kv,t,hd", [
     (4, 2, 300, 64), (2, 2, 1, 128), (2, 1, 65, 128), (8, 8, 512, 128), (2, 2, 257, 256),
     (2, 2, 100, 16),
+    # T not a multiple of the key tile (64, 32, 8 at head sizes 64, 128, 256)
+    # nor of the 64 query rows; head sizes padded with zero columns
+    (2, 2, 33, 64), (4, 2, 97, 80), (2, 1, 129, 256), (2, 2, 1023, 128),
 ])
 def test_flash_attention_fp32(cuda, nh, n_kv, t, hd):
     q, k, v = _flash_case(cuda, 2, nh, n_kv, t, hd, torch.float32, seed=t)
@@ -692,6 +735,20 @@ def test_flash_attention_fp32(cuda, nh, n_kv, t, hd):
     cast = at.flash_attention_plain(*(x.to(torch.bfloat16) for x in (q, k, v)), True)
     ref = at.flash_attention_plain(q, k, v, True)
     assert (cast.float() - ref).abs().max() > _FLASH_FP32_TOL * ref.abs().max()
+
+
+def test_flash_attention_fp32_one_tf32_product(cuda):
+    """The control of the fp32 bar: the plain version with TF32 allowed (one
+    TF32 product for each of S and P.V) misses the bar the kernel meets."""
+    q, k, v = _flash_case(cuda, 1, 8, 8, 512, 128, torch.float32, seed=512)
+    ref = at.flash_attention_plain(q, k, v, True)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        one = at.flash_attention_plain(q, k, v, True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    _close(at.flash_attention(q, k, v, True), ref, _FLASH_FP32_TOL)
+    assert (one - ref).abs().max() > _FLASH_FP32_TOL * ref.abs().max()
 
 
 def _bwd_case(device, b, nh, n_kv, t, hd, dtype, causal, seed=0):
