@@ -10,17 +10,18 @@
                                                                     # heads[, bf16 | int8 pages]
     python3 chip_smoke.py --time flash_attention 1 1023 32 32    # batch, T, heads, kv heads
     python3 chip_smoke.py --time flash_attention_backward_dkv 1 1024 32 32   # or _dq, _fp32
+    python3 chip_smoke.py --time flash_attention_backward_dq 1 1024 32 32-128-fp32  # KV-HD-TYPE
     python3 chip_smoke.py --ids          # phase g's greedy ids, to compare two checkouts
 
 Phases (any failure exits non-zero):
   (a) device and build: the card, its power limit, an nvcc build of every
       kernel under hqq_tpu_torch/csrc/ (seconds per source, registers and
-      spill stores of each kernel instantiation of the seven wgmma sources
+      spill stores of each kernel instantiation of the eight wgmma sources
       and of paged_attention), the wgmma (HGMMA) and TMA (UTMALDG)
-      instructions in the SASS of those seven (quant_matmul,
+      instructions in the SASS of those eight (quant_matmul,
       quant_matmul_ax0, quant_matmul_lora, qmm_fp32, flash_prefill,
-      flash_fp32_sm90, flash_backward_sm90), and the bulk copies (UBLKCP) of
-      paged_attention;
+      flash_fp32_sm90, flash_backward_sm90, flash_backward_fp32_sm90), and
+      the bulk copies (UBLKCP) of paged_attention;
   (b) each kernel against its plain PyTorch version at the main paths'
       shapes: largest error against the stated tolerance, kernel time, plain
       time, the least time the card could take (bound), and for the matmuls
@@ -33,11 +34,14 @@ Phases (any failure exits non-zero):
       dropped; the inputs rounded to bf16; one TF32 product, torch.matmul
       with TF32 allowed, for qmm_fp32 and for the plain attention); the
       flash backward kernels (dK/dV
-      and dQ) at path I's shape and around it, in bf16, fp16 and fp32,
-      against the plain backward from the same saved statistics and
-      autograd of the plain forward in fp32, controls (D dropped, the mask
-      shifted by one), repeated runs bit-equal, SDPA's backward as the
-      yardstick; the forward with and without its log-sum-exp;
+      and dQ) at path I's shape and around it, in bf16, fp16 and fp32 (the
+      fp32 route at (1, 8/8, 512), path I's (1, 32/32, 1024) and GQA
+      (1, 32/8, 1023)), against the plain backward from the same saved
+      statistics and autograd of the plain forward in fp32, controls (D
+      dropped, the mask shifted by one; for fp32 also one TF32 product, the
+      plain backward with TF32 allowed), repeated runs bit-equal, SDPA's
+      backward as the yardstick; the forward with and without its
+      log-sum-exp;
   (c) the main path: Llama-2-7B at full width and depth with random weights
       from a seed, quantize_model(4-bit, g64), prepare_for_inference("w4a8"),
       generate for 4 prompts of 100 tokens (prefill M = 4*128 = 512 rows),
@@ -85,9 +89,11 @@ Phases (any failure exits non-zero):
       step launches the flash forward, the dK/dV and the dQ kernel 32 times
       each; the loss falls; step ms, tokens/s, the device's busy share, peak
       memory. On 2-layer models at 7B width: the LoRA gradients through the
-      kernels against the plain attention backward, in bf16 and in fp32,
-      with the control D dropped; fp32 HQQ+ serving through qmm_fp32 and
-      flash_attention_fp32 against the plain versions, with a bf16 control.
+      kernels against the plain attention backward, in bf16 and in fp32
+      (the fp32 forward and the fp32 dK/dV and dQ kernels, 2 launches each,
+      and their device time in the step), with the control D dropped; fp32
+      HQQ+ serving through qmm_fp32 and flash_attention_fp32 against the
+      plain versions, with a bf16 control.
 Phases g and h run right after c, on its model, before d.
 
 The line before the last is {"kernels": [...]}; the last line is
@@ -110,7 +116,9 @@ flash_attention, the two
 backward kernels (flash_attention_backward_dkv, flash_attention_backward_dq)
 and flash_attention_fp32 batch, T, query heads and kv heads (causal, head
 size 128; bf16, fp32 for the last); the backward kernels take the kv heads
-as KV[-HD[-TYPE]], e.g. 8-64-fp16, for another head size and type.
+as KV[-HD[-TYPE]], e.g. 8-64-fp16, for another head size and type (with
+fp32, the fp32 route: flash_attention_backward_dkv_fp32 and _dq_fp32 name
+the same with fp32 as the default type).
 """
 
 from __future__ import annotations
@@ -135,7 +143,7 @@ SRC = "hqq_tpu_torch/csrc/"
 # the sources of the Hopper mainloops (TMA, wgmma)
 WGMMA_SOURCES = ("quant_matmul.cu", "quant_matmul_ax0.cu", "quant_matmul_lora.cu",
                  "qmm_fp32.cu", "flash_prefill.cu", "flash_fp32_sm90.cu",
-                 "flash_backward_sm90.cu")
+                 "flash_backward_sm90.cu", "flash_backward_fp32_sm90.cu")
 # the source that moves pages by bulk copy (cp.async.bulk without a tensor map)
 BULK_SOURCES = ("paged_attention.cu",)
 # wrapper -> (source, the TPU kernel it replaces, a second one it replaces)
@@ -160,6 +168,12 @@ KERNELS = {
     "qmm_fp32": ("qmm_fp32.cu", "hqq_tpu/ops/fused_matmul.py:307",
                  "hqq_tpu/ops/fused_matmul.py:1223, :1318, :1521"),
     "flash_attention_fp32": ("flash_fp32_sm90.cu", "hqq_tpu/ops/attention.py:66", None),
+    "flash_attention_backward_dkv_fp32": (
+        "flash_backward_fp32_sm90.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
+        None),
+    "flash_attention_backward_dq_fp32": (
+        "flash_backward_fp32_sm90.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
+        None),
 }
 # the row of phase b that stands for each kernel in the last-but-one line
 PICK = {
@@ -175,6 +189,8 @@ PICK = {
     "flash_attention_backward_dq": (1, 1024, 32, "bf16, causal, 32/32 heads, head size 128"),
     "qmm_fp32": (512, 4096, 4096, "fp32 x, 4-bit g64 axis=1"),
     "flash_attention_fp32": (1, 512, 8, "fp32, causal, 8/8 heads, head size 128"),
+    "flash_attention_backward_dkv_fp32": (1, 1024, 32, "fp32, causal, 32/32 heads, head size 128"),
+    "flash_attention_backward_dq_fp32": (1, 1024, 32, "fp32, causal, 32/32 heads, head size 128"),
 }
 # head size and page geometry of the attention rows and of paths G and H
 HEAD_DIM, PAGE, MAX_PAGES = 128, 16, 64
@@ -239,6 +255,19 @@ def _device_events(fns, iters: int, only: str) -> list:
     return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and only in e.key]
 
 
+def _event_ms(fns, iters: int) -> float:
+    """Time of one call, cycling through ``fns``, between two CUDA events
+    around ``iters`` calls: host gaps between launches count here."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for i in range(iters):
+        fns[i % len(fns)]()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def time_ms(fns, iters: int, only: str = "") -> float:
     """Device time of one call, cycling through ``fns`` (one per input
     copy): the summed duration of every kernel and copy the calls ran on
@@ -248,7 +277,10 @@ def time_ms(fns, iters: int, only: str = "") -> float:
     kernels' own). A trace with fewer device events than calls is measured
     again, up to three times; if each still lost events, every kernel is
     priced at its mean over the events kept times its launches in a
-    one-call trace, or the function raises where that trace lacks one."""
+    one-call trace. Where the traces kept too little for that (the
+    profiler now and then records no device event at all in a process),
+    the call is timed between CUDA events instead, all its kernels
+    together and host gaps included, and a line says so."""
     for f in fns:
         f()
     torch.cuda.synchronize()
@@ -263,8 +295,11 @@ def time_ms(fns, iters: int, only: str = "") -> float:
     per_call = {e.key: e.count for e in _device_events(fns[:1], 1, only)} or {
         e.key: round(e.count / iters) for e in events if round(e.count / iters)}
     if not per_call or not set(per_call) <= set(kept):
-        raise RuntimeError(f"the profiler recorded {sum(e.count for e in events)} device events "
-                           f"and {total_us} us for {iters} calls")
+        ms = _event_ms(fns, iters)
+        log(f"[time] the profiler kept {sum(e.count for e in events)} device events of {iters} "
+            f"calls four times: {ms:.4f} ms per call between CUDA events (every kernel of the "
+            f"call{'' if not only else f', not only {only!r}'}; host gaps included)")
+        return ms
     log(f"[time] the trace kept {sum(e.count for e in events)} events of {iters} calls three "
         f"times: mean time per kernel x its {sum(per_call.values())} launches in one call")
     return sum(kept[k] * n for k, n in per_call.items()) / 1e3
@@ -286,6 +321,9 @@ def device_share(fn) -> dict:
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+    if not events:
+        log("[time] the profiler kept no device event of this run: the busy share below is "
+            "not measured")
     return dict(wall_ms=wall_ms, busy_share=device_ms / wall_ms,
                 top={e.key[:40]: round(e.self_device_time_total / 1e3, 3) for e in top})
 
@@ -1034,18 +1072,32 @@ def _sdpa_backward(q, k, v, do):
     return lambda: torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
 
 
+def _one_tf32(q, k, v, o, lse, do, causal=True, sm_scale=None):
+    """Control of the fp32 backward: the plain backward with TF32 allowed,
+    one TF32 product for each product."""
+    from hqq_tpu_torch.ops import attention as at
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return at.flash_attention_backward_plain(q, k, v, o, lse, do, causal, sm_scale)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def phase_b_backward(record, held, iters: int) -> None:
     """Rows 11-12, the dK/dV and dQ kernels, at the training path's shape
     and around it: against the plain backward from the same saved
     statistics, and against autograd of the plain forward in fp32; the
-    controls (D dropped, the mask shifted by one) must miss the bar; three
-    runs bit-equal. Then the log-sum-exp option of the forward, timed
-    against the forward without it (it must cost path H nothing)."""
+    controls (D dropped, the mask shifted by one, for fp32 one TF32 product)
+    must miss the bar; three runs bit-equal. Then the log-sum-exp option of
+    the forward, timed against the forward without it (it must cost path H
+    nothing)."""
     from hqq_tpu_torch.ops import attention as at
 
     cases = [(1, 32, 32, 1024, 128, torch.bfloat16), (1, 32, 8, 1023, 128, torch.bfloat16),
              (2, 8, 8, 300, 64, torch.bfloat16), (1, 8, 8, 512, 256, torch.bfloat16),
-             (1, 32, 32, 1024, 128, torch.float16), (1, 8, 8, 512, 128, torch.float32)]
+             (1, 32, 32, 1024, 128, torch.float16), (1, 8, 8, 512, 128, torch.float32),
+             (1, 32, 32, 1024, 128, torch.float32), (1, 32, 8, 1023, 128, torch.float32)]
     for b, nh, n_kv, t, hd, dtype in cases:
         gq = torch.Generator(device="cuda").manual_seed(t + hd)
         q = torch.randn((b, nh, t, hd), generator=gq, device="cuda").to(dtype)
@@ -1063,8 +1115,11 @@ def phase_b_backward(record, held, iters: int) -> None:
         auto = torch.autograd.grad(at.flash_attention_plain(q32, k32, v32, True),
                                    (q32, k32, v32), do.float())
         auto_err = max(rel(x, r) for x, r in zip(got, auto))
+        wrong = [("D dropped", _no_d), ("mask shifted by one", _bwd_shifted)]
+        if dtype == torch.float32:
+            wrong.append(("one TF32 product", _one_tf32))
         controls = {c: max(rel(x, r) for x, r in zip(fn(q, k, v, out, lse, do), ref))
-                    for c, fn in (("D dropped", _no_d), ("mask shifted by one", _bwd_shifted))}
+                    for c, fn in wrong}
         again = [at.flash_attention_backward(q, k, v, out, lse, do, True) for _ in range(2)]
         equal = all(torch.equal(x, y) for run in again for x, y in zip(run, got))
         log(f"[b] flash backward {what}: dq/dk/dv rel err vs plain "
@@ -1095,17 +1150,30 @@ def phase_b_backward(record, held, iters: int) -> None:
         qo = b * nh * t * hd * esize
         kv = b * n_kv * t * hd * esize
         stats = 2 * b * nh * t * 4
-        kind = "fp32" if dtype == torch.float32 else "bf16"
+        fp32 = dtype == torch.float32
+        suffix = "_fp32" if fp32 else ""
         unit = b * nh * t * t * hd  # one causal product: 2 * T * T * hd / 2 per head
         for kname, ms, products, nbytes, e in (
-                ("flash_attention_backward_dkv", dkv_ms, 4, 2 * qo + 4 * kv + stats,
+                ("flash_attention_backward_dkv" + suffix, dkv_ms, 4, 2 * qo + 4 * kv + stats,
                  max(errs[1:])),
-                ("flash_attention_backward_dq", dq_ms, 3, 3 * qo + 2 * kv + stats, errs[0])):
-            b_ms, by = (bound_ms(nbytes, products * unit, "bf16") if kind == "bf16"
-                        else bound_ms(nbytes, 0.0, "fp32", fp32_ops=products * unit))
+                ("flash_attention_backward_dq" + suffix, dq_ms, 3, 3 * qo + 2 * kv + stats,
+                 errs[0])):
+            # fp32: an fp32-accurate product from three TF32 products at the
+            # tensor cores' TF32 rate, the bound used; one fp32 product at
+            # the CUDA cores' rate beside it
+            b_ms, by = bound_ms(nbytes, (3 if fp32 else 1) * products * unit,
+                                "tf32" if fp32 else "bf16")
+            extra = {}
+            if fp32:
+                extra = dict(bound_fp32_fma_ms=bound_ms(nbytes, 0.0, "fp32",
+                                                        fp32_ops=products * unit)[0],
+                             one_tf32_rel=controls["one TF32 product"])
+                log(f"[b] {kname} {what}: {ms:.4f} ms; bound {b_ms:.4f} ms (three TF32 "
+                    f"products), {extra['bound_fp32_fma_ms']:.4f} ms at the fp32 rate; SDPA's "
+                    f"whole fp32 backward {lib:.4f} ms")
             record(kname, dict(
                 kernel=kname, m=b, k=t, n=nh, max_abs_err=e, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=by, library_ms=lib,
+                bound_ms=b_ms, bound_by=by, library_ms=lib, **extra,
                 note=f"{name}, causal, {nh}/{n_kv} heads, head size {hd}",
                 library="the whole backward of scaled_dot_product_attention(is_causal=True), "
                         "dQ, dK and dV (autograd.grad alone)",
@@ -2291,13 +2359,19 @@ def phase_i_two_layer() -> dict:
         ops.reset_launch_counts()
         kernel = grads()
         counts = launch_counts()
-        fwd = "flash_attention" if dtype == torch.bfloat16 else "flash_attention_fp32"
-        per = {k: counts[k] for k in (fwd, "flash_attention_backward_dkv",
-                                      "flash_attention_backward_dq")}
+        suffix = "" if dtype == torch.bfloat16 else "_fp32"
+        per = {k + suffix: counts[k + suffix] for k in (
+            "flash_attention", "flash_attention_backward_dkv", "flash_attention_backward_dq")}
         if any(v != 2 for v in per.values()):
             raise AssertionError(f"[i] 2-layer step: launches {per}, expected 2 each")
         if dtype == torch.float32:
             _train_counts(window, counts)
+            # the device time of the step's backward kernels (flash_bwd_fp32_kernel)
+            bwd = _device_events([grads], 1, "flash_bwd_fp32")
+            log(f"[i] 2-layer 7B-width fp32 step: its backward kernels took "
+                + (f"{sum(e.self_device_time_total for e in bwd) / 1e3:.4f} ms of device time in "
+                   f"{sum(e.count for e in bwd)} launches" if bwd else
+                   "a time not measured (the profiler kept no device event of this run)"))
 
         def plain_backward(q, k, v, o, lse, do, causal=True, sm_scale=None):
             return at.flash_attention_backward_plain(q, k, v, o, lse, do, causal, sm_scale)
@@ -2438,6 +2512,11 @@ def time_one(kernel: str, m: int, k: int, n: int, extra: "str | None" = None,
         r = int(extra) if extra and config is None else 0
     elif kernel.startswith("flash_attention_backward"):  # KV[-HD[-DTYPE]]
         config, r = (extra or "").split("-"), None
+        if kernel.endswith("_fp32"):  # the fp32 route through the wrapper both trees have
+            kernel = kernel[:-5]
+            config = (config + [""] * 3)[:3]
+            config[1], config[2] = config[1] or str(HEAD_DIM), config[2] or "fp32"
+            config[0] = config[0] or str(n)
     else:
         config, r = None, int(extra) if extra else None
 
@@ -2472,7 +2551,7 @@ def time_one(kernel: str, m: int, k: int, n: int, extra: "str | None" = None,
         from hqq_tpu_torch.ops import attention as at
 
         n_kv, hd, dtype = r or n, HEAD_DIM, torch.bfloat16
-        if kernel.endswith("fp32"):
+        if kernel == "flash_attention_fp32":
             dtype = torch.float32
         elif config[0]:  # the backward's kv heads, head size and type: 8-64-fp16
             n_kv = int(config[0])

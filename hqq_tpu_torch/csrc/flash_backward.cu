@@ -1,7 +1,10 @@
 // SPDX-License-Identifier: Apache-2.0
-// The fp32 route of the flash-attention backward (dK/dV and dQ), on the
-// CUDA cores. bf16 and fp16 take the tensor-core kernels of
-// flash_backward_sm90.cu; the fp32 forward is flash_fp32_sm90.cu's.
+// The fp32 route of the flash-attention backward (dK/dV and dQ) at head
+// size 256, on the CUDA cores. The launch plan (`flash_backward_launch_plan`)
+// routes head sizes above 128 here by shape, before any launch: the tensor-
+// core kernels of flash_backward_fp32_sm90.cu keep 64 rows of an operand
+// pair in two TF32 parts in shared memory, 256 KB at head size 256. bf16 and
+// fp16 take flash_backward_sm90.cu; the fp32 forward is flash_fp32_sm90.cu's.
 //
 // For out = softmax(scale * q k^T [causal]) v over whole sequences, with
 // the forward's log-sum-exp lse [B, nh, T] (natural log, fp32) and
@@ -17,17 +20,15 @@
 //   `hqq_tpu.ops.attention.prefill_attention` calls on every training step
 //   (jax/experimental/pallas/ops/tpu/flash_attention.py
 //   `_flash_attention_bwd_dkv`, and `_flash_attention_bwd_dq`), under its
-//   custom VJP.
+//   custom VJP, for fp32 inputs at head size 256.
 // Bound on H100: operations. The backward does about 2.5 times the causal
-//   forward's work, 5 * 2 * T^2 * hd per head halved for causality: at
-//   (1, 32/32, 1024, 128) 21.5 GFLOP, 0.32 ms at the fp32 rate of the CUDA
-//   cores, which these kernels use.
+//   forward's work, 5 * 2 * T^2 * hd per head halved for causality, at the
+//   fp32 rate of the CUDA cores, which these kernels use.
 // Design: simple and right first. Every product runs on the CUDA cores in
 //   fp32, from tiles staged in shared memory as fp32 (rows of hd + 1 words,
 //   so that a column read by 16 threads hits 16 banks); 256 threads, each
-//   owning a 4 x 4 (or 2 x 2) block of a tile at rows ty + 16i and columns
-//   tx + 16j. Tiles are 64 x 64 (32 x 32 at head size 256); the head size
-//   is padded with zeros to 64, 128 or 256.
+//   owning a 2 x 2 block of a 32 x 32 tile at rows ty + 16i and columns
+//   tx + 16j.
 //   * dK/dV: one block per (batch, kv head, key tile). It keeps its K and V
 //     tiles in shared memory and walks, for every query head of its group,
 //     the query tiles at or below the diagonal; for each it recomputes S
@@ -53,7 +54,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 // query and key rows of a tile for a padded head size
 template <int HDP>
 struct Tile {
-  static constexpr int kRows = HDP == 256 ? 32 : 64;
+  static constexpr int kRows = 32;
   static constexpr int kLd = HDP + 1;  // row length in shared memory (floats)
 };
 
@@ -292,7 +293,7 @@ int set_smem(K kernel, int smem) {
 
 bool valid(int b, int nh, int n_kv, int t, int hd, int head_pad) {
   return b >= 1 && nh >= 1 && n_kv >= 1 && nh % n_kv == 0 && t >= 1 && hd >= 16 && hd % 16 == 0 &&
-         hd <= head_pad && (head_pad == 64 || head_pad == 128 || head_pad == 256);
+         hd <= head_pad && head_pad == 256;
 }
 
 template <typename T, int HDP>
@@ -336,8 +337,6 @@ int backward_head(const void* q, const void* k, const void* v, const void* dout,
   if (head_pad == HDP)                                                                          \
   return backward<T, HDP>(q, k, v, dout, lse, dd, dq, dk, dv, b, nh, n_kv, t, hd, scale, causal, \
                           smem_dkv, smem_dq, s)
-  HQQ_FLASH_BWD(64);
-  HQQ_FLASH_BWD(128);
   HQQ_FLASH_BWD(256);
 #undef HQQ_FLASH_BWD
   return static_cast<int>(cudaErrorInvalidValue);
@@ -346,9 +345,10 @@ int backward_head(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // q, dout, dq [B, nh, T, hd] and k, v, dk, dv [B, n_kv, T, hd] fp32
-// (dtype HQQ_F32), contiguous; lse and dd fp32 [B, nh, T]. Either kernel runs alone where the other's outputs are null
-// (dq, or dk and dv). head_pad and the shared-memory sizes come from the
-// launch plan (`flash_backward_launch_plan`).
+// (dtype HQQ_F32), contiguous; lse and dd fp32 [B, nh, T]; head_pad 256.
+// Either kernel runs alone where the other's outputs are null (dq, or dk and
+// dv). The shared-memory sizes come from the launch plan
+// (`flash_backward_launch_plan`).
 HQQ_EXPORT int hqq_flash_backward(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* dd, void* dq, void* dk, void* dv,
                                   int b, int nh, int n_kv, int t, int hd, float scale, int causal,

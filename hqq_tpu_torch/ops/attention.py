@@ -14,7 +14,9 @@ Under autograd, `flash_attention` is a `torch.autograd.Function`: the forward
 also writes each row's log-sum-exp, and the backward is two kernels, the
 counterparts of the library's dK/dV and dQ kernels:
 `flash_attention_backward_dkv` and `flash_attention_backward_dq` (bf16 and
-fp16: ``csrc/flash_backward_sm90.cu``, wgmma and TMA; fp32:
+fp16: ``csrc/flash_backward_sm90.cu``, wgmma and TMA), and for fp32 inputs
+`flash_attention_backward_dkv_fp32` and `flash_attention_backward_dq_fp32`
+(``csrc/flash_backward_fp32_sm90.cu``: 3xTF32 on wgmma; head size 256:
 ``csrc/flash_backward.cu``, CUDA cores), launch plan
 `flash_backward_launch_plan`, plain twin `flash_attention_backward_plain`.
 For fp32 inputs the forward is `flash_attention_fp32`
@@ -42,7 +44,9 @@ __all__ = ["prefill_attention", "flash_attention", "flash_attention_plain", "FLA
            "FlashPlan", "flash_launch_plan", "flash_attention_fp32", "FlashFp32Plan",
            "flash_fp32_launch_plan", "flash_fp32_smem_bytes", "flash_attention_backward",
            "flash_attention_backward_dkv", "flash_attention_backward_dq",
-           "flash_attention_backward_plain", "FlashBackwardPlan", "flash_backward_launch_plan"]
+           "flash_attention_backward_dkv_fp32", "flash_attention_backward_dq_fp32",
+           "flash_attention_backward_plain", "FlashBackwardPlan", "flash_backward_launch_plan",
+           "flash_bwd_fp32_smem"]
 
 # below this sequence length the naive path runs (`hqq_tpu`'s threshold)
 FLASH_MIN_SEQ = 256
@@ -333,7 +337,8 @@ flash_attention.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# The backward (csrc/flash_backward_sm90.cu; fp32: csrc/flash_backward.cu)
+# The backward (csrc/flash_backward_sm90.cu; fp32: csrc/flash_backward_fp32_sm90.cu,
+# and csrc/flash_backward.cu at head size 256)
 # ---------------------------------------------------------------------------
 
 # the geometry of csrc/flash_backward_sm90.cu: query rows of a dK/dV step and
@@ -341,9 +346,13 @@ flash_attention.launches = 0
 FLASH_BWD_QUERY_TILE = 64
 FLASH_BWD_DQ_ROWS = 128
 FLASH_BWD_MAX_STAGES = 4
-# the CUDA-core kernels of the fp32 route: tile rows per padded head size
-FLASH_FMA_TILE = {64: 64, 128: 64, 256: 32}
-FLASH_FMA_THREADS = 256
+# the geometry of csrc/flash_backward_fp32_sm90.cu: the resident rows of a
+# block (keys of dK/dV, query rows of dQ) and, per padded head size, the
+# streamed rows of a step (queries of dK/dV, keys of dQ); head_pad 256 takes
+# the CUDA-core kernels of csrc/flash_backward.cu, tiles of 32 rows
+FLASH_BWD_FP32_ROWS = 64
+FLASH_BWD_FP32_TILE = {64: 32, 128: 16}
+FLASH_FMA_TILE = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -362,11 +371,18 @@ class FlashBackwardPlan:
     ``q_order[i // (batch * heads)]``; key tiles of ``dq_key_tile`` rows
     through ``dq_stages`` slots, ``dq_smem`` bytes.
 
-    fp32 (the CUDA-core kernels of flash_backward.cu): tiles of
-    ``fma_tile`` rows, ``fma_blocks_dkv`` blocks of the dK/dV kernel (one per
-    batch, kv head and key tile) and ``fma_blocks_dq`` of the dQ kernel (one
-    per batch, head and query tile), each kernel's bytes of shared
-    memory."""
+    fp32: ``fp32_route`` "wgmma" (the 3xTF32 kernels of
+    flash_backward_fp32_sm90.cu, head_pad 64 and 128) or "fma" (the
+    CUDA-core kernels of flash_backward.cu, head_pad 256). A block owns
+    ``fp32_rows`` resident rows and walks tiles of ``fp32_tile`` streamed
+    rows through ``fp32_dkv_stages`` or ``fp32_dq_stages`` ring slots (0:
+    no ring), with ``fp32_dkv_smem`` or ``fp32_dq_smem`` bytes of shared
+    memory. dK/dV: ``fp32_dkv_blocks`` blocks, block i on key tile
+    ``fp32_kv_order[i // g]`` of group i % g, g = batch * heads (wgmma: one
+    per batch, query head and key tile, fp32 partials summed by the
+    wrapper where ``gqa_split``) or batch * kv_heads (fma: a block walks
+    its group's query heads). dQ: ``fp32_dq_blocks`` blocks, block i on
+    query tile ``fp32_q_order[i // (batch * heads)]``."""
 
     head_pad: int
     dkv_keys: int
@@ -380,11 +396,17 @@ class FlashBackwardPlan:
     dq_smem: int
     dq_blocks: int
     q_order: tuple
-    fma_tile: int
-    fma_blocks_dkv: int
-    fma_blocks_dq: int
-    fma_smem_dkv: int
-    fma_smem_dq: int
+    fp32_route: str
+    fp32_rows: int
+    fp32_tile: int
+    fp32_dkv_stages: int
+    fp32_dq_stages: int
+    fp32_dkv_smem: int
+    fp32_dq_smem: int
+    fp32_dkv_blocks: int
+    fp32_dq_blocks: int
+    fp32_kv_order: tuple
+    fp32_q_order: tuple
 
 
 def flash_bwd_dkv_smem(head_pad: int, keys: int, stages: int) -> int:
@@ -406,8 +428,24 @@ def flash_bwd_dq_smem(head_pad: int, key_tile: int, stages: int) -> int:
             + 8 * (1 + 2 * stages) + 1024)
 
 
+def flash_bwd_fp32_smem(head_pad: int, stages: int, dkv: bool) -> int:
+    """Dynamic shared memory of a block of flash_backward_fp32_sm90.cu
+    (`bwd_fp32_smem`): the resident pair (K and V, or Q and dO) of 64 rows in
+    its TF32 big and small parts, the streamed pair's small parts, the
+    transposed big and small parts of the streamed operands contracted over
+    the streamed rows (Q and dO for dK/dV, K for dQ), ``stages`` slots of the
+    streamed pair's raw tiles (and, for dK/dV, their rows' lse and D, 128
+    bytes each: a TMA box lands 128-byte aligned), the barriers (one per
+    slot and five more), and 1024 bytes to align the base."""
+    tile = FLASH_BWD_FP32_TILE[head_pad]
+    a, b = FLASH_BWD_FP32_ROWS * head_pad * 4, tile * head_pad * 4
+    stats = stages * 2 * 128 if dkv else 0
+    return (4 * a + (2 + (4 if dkv else 2)) * b + stages * 2 * b + stats
+            + 8 * (5 + stages) + 1024)
+
+
 def flash_backward_smem(head_pad: int, tile: int) -> tuple:
-    """Dynamic shared memory of the fp32 route's dK/dV and dQ kernels
+    """Dynamic shared memory of the CUDA-core dK/dV and dQ kernels
     (`*_smem_floats` of flash_backward.cu): fp32 tiles in rows of
     head_pad + 1, P and dS in rows of tile + 1, lse and D."""
     rows = tile * (head_pad + 1)
@@ -437,8 +475,13 @@ def flash_backward_launch_plan(batch: int, heads: int, kv_heads: int, t: int,
     tables start with the longest walks, so a causal grid ends on short
     blocks.
 
-    fp32: tiles of 64 rows, 32 at head size 256, so that a thread's dK and
-    dV (or dQ) accumulators stay at 32 registers each."""
+    fp32: head sizes up to 128 take the 3xTF32 kernels. A block keeps 64
+    resident rows of an operand pair in two TF32 parts (128 KB at 128), so
+    the streamed tiles are narrow: 16 rows at 128, 32 at 64, the ring as
+    deep as the rest of the block's shared memory allows. At head_pad 256
+    that pair alone would take 256 KB, so the plan routes 256 to the
+    CUDA-core kernels (tiles of 32 rows). The tables start with the longest
+    causal walks, as above."""
     if not 16 <= head_dim <= _MAX_HEAD_DIM or head_dim % 16:
         raise ValueError(f"the kernel takes head sizes of 16s up to {_MAX_HEAD_DIM}, "
                          f"not {head_dim}")
@@ -450,9 +493,19 @@ def flash_backward_launch_plan(batch: int, heads: int, kv_heads: int, t: int,
     q_tiles = -(-t // FLASH_BWD_DQ_ROWS)
     dkv_stages = _stages(lambda n: flash_bwd_dkv_smem(head_pad, dkv_keys, n))
     dq_stages = _stages(lambda n: flash_bwd_dq_smem(head_pad, dq_key_tile, n))
-    tile = FLASH_FMA_TILE[head_pad]
-    tiles = -(-t // tile)
-    smem_dkv, smem_dq = flash_backward_smem(head_pad, tile)
+    if head_pad in FLASH_BWD_FP32_TILE:
+        route, rows, tile = "wgmma", FLASH_BWD_FP32_ROWS, FLASH_BWD_FP32_TILE[head_pad]
+        fp32_dkv_stages = _stages(lambda n: flash_bwd_fp32_smem(head_pad, n, True))
+        fp32_dq_stages = _stages(lambda n: flash_bwd_fp32_smem(head_pad, n, False))
+        fp32_dkv_smem = flash_bwd_fp32_smem(head_pad, fp32_dkv_stages, True)
+        fp32_dq_smem = flash_bwd_fp32_smem(head_pad, fp32_dq_stages, False)
+        dkv_groups = batch * heads
+    else:
+        route, rows = "fma", FLASH_FMA_TILE
+        tile, fp32_dkv_stages, fp32_dq_stages = rows, 0, 0
+        fp32_dkv_smem, fp32_dq_smem = flash_backward_smem(head_pad, rows)
+        dkv_groups = batch * kv_heads
+    fp32_tiles = -(-t // rows)
     return FlashBackwardPlan(
         head_pad=head_pad, dkv_keys=dkv_keys, gqa_split=heads > kv_heads, dkv_stages=dkv_stages,
         dkv_smem=flash_bwd_dkv_smem(head_pad, dkv_keys, dkv_stages),
@@ -460,8 +513,11 @@ def flash_backward_launch_plan(batch: int, heads: int, kv_heads: int, t: int,
         dq_key_tile=dq_key_tile, dq_stages=dq_stages,
         dq_smem=flash_bwd_dq_smem(head_pad, dq_key_tile, dq_stages),
         dq_blocks=batch * heads * q_tiles, q_order=tuple(range(q_tiles - 1, -1, -1)),
-        fma_tile=tile, fma_blocks_dkv=batch * kv_heads * tiles, fma_blocks_dq=batch * heads * tiles,
-        fma_smem_dkv=smem_dkv, fma_smem_dq=smem_dq)
+        fp32_route=route, fp32_rows=rows, fp32_tile=tile, fp32_dkv_stages=fp32_dkv_stages,
+        fp32_dq_stages=fp32_dq_stages, fp32_dkv_smem=fp32_dkv_smem, fp32_dq_smem=fp32_dq_smem,
+        fp32_dkv_blocks=dkv_groups * fp32_tiles, fp32_dq_blocks=batch * heads * fp32_tiles,
+        fp32_kv_order=tuple(range(fp32_tiles)),
+        fp32_q_order=tuple(range(fp32_tiles - 1, -1, -1)))
 
 
 def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -518,23 +574,80 @@ def _backward_operands(q, k, v, o, lse, do, sm_scale) -> tuple:
             lse.to(torch.float32).contiguous(), delta, sm_scale)
 
 
-def _fp32_launch(ops: tuple, causal: bool, dq, dk, dv) -> None:
-    """One launch of the fp32 route (hqq_flash_backward of
-    flash_backward.cu): the dQ kernel (dq given) or the dK/dV kernel (dk and
-    dv given)."""
+def _fma_launch(ops: tuple, plan: FlashBackwardPlan, causal: bool, dq, dk, dv) -> None:
+    """One launch of the fp32 route at head_pad 256 (hqq_flash_backward of
+    flash_backward.cu, CUDA cores): the dQ kernel (dq given) or the dK/dV
+    kernel (dk and dv given)."""
     q, k, v, do, lse, delta, sm_scale = ops
     dev = q.device
     b, nh, t, hd = q.shape
-    plan = flash_backward_launch_plan(b, nh, k.shape[1], t, hd)
-    lib = _build.library("flash_attention_backward_fp32")
+    lib = _build.library("flash_attention_backward_hd256")
     with torch.cuda.device(dev):
         code = lib.hqq_flash_backward(
             _ptr(q, 4), _ptr(k, 4), _ptr(v, 4), _ptr(do, 4), _ptr(lse, 4), _ptr(delta, 4),
             None if dq is None else _ptr(dq, 4), None if dk is None else _ptr(dk, 4),
             None if dv is None else _ptr(dv, 4), b, nh, k.shape[1], t, hd, float(sm_scale),
-            int(bool(causal)), _DTYPE_CODE[q.dtype], plan.head_pad, plan.fma_smem_dkv,
-            plan.fma_smem_dq, _stream(dev))
-    _build.check("flash_attention_backward_fp32", code)
+            int(bool(causal)), _DTYPE_CODE[q.dtype], plan.head_pad, plan.fp32_dkv_smem,
+            plan.fp32_dq_smem, _stream(dev))
+    _build.check("flash_attention_backward_hd256", code)
+
+
+def _launch_dkv_fp32(ops: tuple, causal: bool) -> tuple:
+    """(dk, dv) of fp32 operands from one launch of the plan's fp32 dK/dV
+    kernel; with GQA, the wgmma kernel's partials of each query head summed
+    over the group (plain torch)."""
+    q, k, v, do, lse, delta, sm_scale = ops
+    dev = q.device
+    b, nh, t, hd = q.shape
+    n_kv = k.shape[1]
+    plan = flash_backward_launch_plan(b, nh, n_kv, t, hd)
+    if plan.fp32_route == "fma":
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        _fma_launch(ops, plan, causal, None, dk, dv)
+        flash_attention_backward_dkv_fp32.launches += 1
+        return dk, dv
+    shape = (b, nh, t, hd) if plan.gqa_split else tuple(k.shape)
+    dk, dv = (torch.empty(shape, dtype=torch.float32, device=dev) for _ in range(2))
+    if t % 4:  # the kernel reads each head's lse and D in 16-byte-aligned boxes
+        lse, delta = (torch.nn.functional.pad(x, (0, -t % 4)) for x in (lse, delta))
+    lib = _build.library("flash_attention_backward_dkv_fp32")
+    with torch.cuda.device(dev):
+        code = lib.hqq_flash_bwd_fp32_dkv(
+            _ptr(q, 16), _ptr(k, 16), _ptr(v, 16), _ptr(do, 16), _ptr(lse, 16),
+            _ptr(delta, 16), _ptr(dk, 8), _ptr(dv, 8),
+            _ptr(_q_order_on(plan.fp32_kv_order, dev), 4), b, nh, n_kv, t, hd, float(sm_scale),
+            int(bool(causal)), plan.head_pad, plan.fp32_tile, plan.fp32_dkv_stages,
+            plan.fp32_dkv_smem, plan.fp32_dkv_blocks, _stream(dev))
+    _build.check("flash_attention_backward_dkv_fp32", code)
+    flash_attention_backward_dkv_fp32.launches += 1
+    if plan.gqa_split:
+        rep = nh // n_kv
+        dk = dk.view(b, n_kv, rep, t, hd).sum(dim=2)
+        dv = dv.view(b, n_kv, rep, t, hd).sum(dim=2)
+    return dk, dv
+
+
+def _launch_dq_fp32(ops: tuple, causal: bool) -> torch.Tensor:
+    """dq of fp32 operands from one launch of the plan's fp32 dQ kernel."""
+    q, k, v, do, lse, delta, sm_scale = ops
+    dev = q.device
+    b, nh, t, hd = q.shape
+    plan = flash_backward_launch_plan(b, nh, k.shape[1], t, hd)
+    dq = torch.empty_like(q)
+    if plan.fp32_route == "fma":
+        _fma_launch(ops, plan, causal, dq, None, None)
+    else:
+        lib = _build.library("flash_attention_backward_dq_fp32")
+        with torch.cuda.device(dev):
+            code = lib.hqq_flash_bwd_fp32_dq(
+                _ptr(q, 16), _ptr(k, 16), _ptr(v, 16), _ptr(do, 16), _ptr(lse, 4),
+                _ptr(delta, 4), _ptr(dq, 8), _ptr(_q_order_on(plan.fp32_q_order, dev), 4), b,
+                nh, k.shape[1], t, hd, float(sm_scale), int(bool(causal)), plan.head_pad,
+                plan.fp32_tile, plan.fp32_dq_stages, plan.fp32_dq_smem, plan.fp32_dq_blocks,
+                _stream(dev))
+        _build.check("flash_attention_backward_dq_fp32", code)
+    flash_attention_backward_dq_fp32.launches += 1
+    return dq
 
 
 def _launch_dkv(ops: tuple, causal: bool) -> tuple:
@@ -543,10 +656,7 @@ def _launch_dkv(ops: tuple, causal: bool) -> tuple:
     group (plain torch) and rounded once."""
     q, k, v, do, lse, delta, sm_scale = ops
     if q.dtype == torch.float32:
-        dk, dv = torch.empty_like(k), torch.empty_like(v)
-        _fp32_launch(ops, causal, None, dk, dv)
-        flash_attention_backward_dkv.launches += 1
-        return dk, dv
+        return _launch_dkv_fp32(ops, causal)
     dev = q.device
     b, nh, t, hd = q.shape
     n_kv = k.shape[1]
@@ -582,11 +692,9 @@ def _launch_dkv(ops: tuple, causal: bool) -> tuple:
 def _launch_dq(ops: tuple, causal: bool) -> torch.Tensor:
     """dq from one launch of the dQ kernel of the operands' type."""
     q, k, v, do, lse, delta, sm_scale = ops
-    dq = torch.empty_like(q)
     if q.dtype == torch.float32:
-        _fp32_launch(ops, causal, dq, None, None)
-        flash_attention_backward_dq.launches += 1
-        return dq
+        return _launch_dq_fp32(ops, causal)
+    dq = torch.empty_like(q)
     dev = q.device
     b, nh, t, hd = q.shape
     plan = flash_backward_launch_plan(b, nh, k.shape[1], t, hd)
@@ -604,9 +712,9 @@ def _launch_dq(ops: tuple, causal: bool) -> torch.Tensor:
 
 def flash_attention_backward_dkv(q, k, v, o, lse, do, causal: bool = True,
                                  sm_scale: Optional[float] = None):
-    """(dk, dv) from the dK/dV kernel: bf16/fp16 one block per (batch,
-    query head, key tile), the query tiles at or below the diagonal walked
-    inside it (fp32: one block per batch, kv head and key tile)."""
+    """(dk, dv) from the dK/dV kernel: one block per (batch, query head,
+    key tile), the query tiles at or below the diagonal walked inside it
+    (fp32 inputs: `flash_attention_backward_dkv_fp32`)."""
     if _on_cpu(q):
         return flash_attention_backward_plain(q, k, v, o, lse, do, causal, sm_scale)[1:]
     return _launch_dkv(_backward_operands(q, k, v, o, lse, do, sm_scale), causal)
@@ -615,14 +723,40 @@ def flash_attention_backward_dkv(q, k, v, o, lse, do, causal: bool = True,
 def flash_attention_backward_dq(q, k, v, o, lse, do, causal: bool = True,
                                 sm_scale: Optional[float] = None):
     """dq from the dQ kernel: one block per (batch, head, query tile), the
-    key tiles at or left of the diagonal walked inside it."""
+    key tiles at or left of the diagonal walked inside it (fp32 inputs:
+    `flash_attention_backward_dq_fp32`)."""
     if _on_cpu(q):
         return flash_attention_backward_plain(q, k, v, o, lse, do, causal, sm_scale)[0]
     return _launch_dq(_backward_operands(q, k, v, o, lse, do, sm_scale), causal)
 
 
+def flash_attention_backward_dkv_fp32(q, k, v, o, lse, do, causal: bool = True,
+                                      sm_scale: Optional[float] = None):
+    """(dk, dv) of fp32 inputs from the fp32 dK/dV kernel
+    (csrc/flash_backward_fp32_sm90.cu: every product from three TF32
+    tensor-core products; at head_pad 256 the CUDA-core kernel of
+    csrc/flash_backward.cu, by the launch plan). Its plain version is
+    `flash_attention_backward_plain`."""
+    if _on_cpu(q):
+        return flash_attention_backward_plain(q, k, v, o, lse, do, causal, sm_scale)[1:]
+    _check_qkv(q, k, v, (torch.float32,))
+    return _launch_dkv_fp32(_backward_operands(q, k, v, o, lse, do, sm_scale), causal)
+
+
+def flash_attention_backward_dq_fp32(q, k, v, o, lse, do, causal: bool = True,
+                                     sm_scale: Optional[float] = None):
+    """dq of fp32 inputs from the fp32 dQ kernel (as
+    `flash_attention_backward_dkv_fp32`)."""
+    if _on_cpu(q):
+        return flash_attention_backward_plain(q, k, v, o, lse, do, causal, sm_scale)[0]
+    _check_qkv(q, k, v, (torch.float32,))
+    return _launch_dq_fp32(_backward_operands(q, k, v, o, lse, do, sm_scale), causal)
+
+
 flash_attention_backward_dkv.launches = 0
 flash_attention_backward_dq.launches = 0
+flash_attention_backward_dkv_fp32.launches = 0
+flash_attention_backward_dq_fp32.launches = 0
 
 
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
@@ -631,8 +765,8 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     """(dq, dk, dv) of `flash_attention` from its saved q, k, v, out and
     log-sum-exp and the output's gradient dO, in the inputs' types (bf16,
     fp16 or fp32): on the card, the dK/dV and the dQ kernel over operands
-    made once (D is a [B, nh, T] reduction); on the CPU,
-    `flash_attention_backward_plain`."""
+    made once (D is a [B, nh, T] reduction; fp32 inputs take the fp32
+    kernels); on the CPU, `flash_attention_backward_plain`."""
     if _on_cpu(q):
         return flash_attention_backward_plain(q, k, v, o, lse, do, causal, sm_scale)
     ops = _backward_operands(q, k, v, o, lse, do, sm_scale)

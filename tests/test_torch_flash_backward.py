@@ -3,8 +3,9 @@
 library's references, on the CPU.
 
 `flash_attention_backward_plain` is the plain twin of the dK/dV and dQ
-kernels (csrc/flash_backward_sm90.cu for bf16 and fp16, csrc/flash_backward.cu
-for fp32), which the card tests hold to it. Here it is held, in fp32 (where
+kernels (csrc/flash_backward_sm90.cu for bf16 and fp16,
+csrc/flash_backward_fp32_sm90.cu for fp32, csrc/flash_backward.cu for fp32 at
+head size 256), which the card tests hold to it. Here it is held, in fp32 (where
 its roundings of P and dS to the inputs' type are no-ops), to:
   * `jax.vjp` of `hqq_tpu.ops.attention.prefill_attention` (its naive path on
     the CPU) with K and V repeated over each kv head's query heads, as
@@ -132,14 +133,13 @@ def test_prefill_attention_gradients(t, flash):
 def test_flash_function_counts_no_launch_on_cpu():
     q, k, v, do = _inputs(1, 2, 2, 256, 64, seed=1)
     qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
-    counts = [w.launches for w in (at.flash_attention, at.flash_attention_fp32,
-                                   at.flash_attention_backward_dkv,
-                                   at.flash_attention_backward_dq)]
+    wrappers = (at.flash_attention, at.flash_attention_fp32, at.flash_attention_backward_dkv,
+                at.flash_attention_backward_dq, at.flash_attention_backward_dkv_fp32,
+                at.flash_attention_backward_dq_fp32)
+    counts = [w.launches for w in wrappers]
     at.flash_attention(qt, kt, vt).backward(torch.from_numpy(do))
     assert all(g is not None for g in (qt.grad, kt.grad, vt.grad))
-    assert [w.launches for w in (at.flash_attention, at.flash_attention_fp32,
-                                 at.flash_attention_backward_dkv,
-                                 at.flash_attention_backward_dq)] == counts
+    assert [w.launches for w in wrappers] == counts
 
 
 @pytest.mark.parametrize("hd", list(range(16, 257, 16)))
@@ -148,8 +148,11 @@ def test_backward_plan_fits(hd):
     blocks of 128 keys (64 at 256, where the consumers split the head
     columns), dQ key tiles of 64 (32 at 256); each ring as deep as a block's
     shared memory allows, at most 4 slots and at least 2, its size the
-    source's formula. The fp32 route: tiles of 64 rows (32 at 256) and its
-    kernels' shared memory, as before. Everything fits a block of the card."""
+    source's formula. The fp32 route: head sizes up to 128 on the 3xTF32
+    kernels (64 resident rows, streamed tiles of 32 rows at head_pad 64 and
+    16 at 128, rings of 2-4 slots), 256 on the CUDA-core kernels (tiles of
+    32 rows, their shared memory as before). Everything fits a block of the
+    card."""
     plan = at.flash_backward_launch_plan(2, 8, 2, 300, hd)
     hp = plan.head_pad
     assert hp == next(p for p in (64, 128, 256) if p >= hd)
@@ -164,14 +167,23 @@ def test_backward_plan_fits(hd):
         assert smem_of(hp, rows, stages) <= H100_SMEM_PER_BLOCK
         assert stages == at.FLASH_BWD_MAX_STAGES or \
             smem_of(hp, rows, stages + 1) > H100_SMEM_PER_BLOCK
-    assert plan.fma_tile == (32 if hp == 256 else 64)
-    ld = hp + 1
-    rows, ptile = plan.fma_tile * ld, plan.fma_tile * (plan.fma_tile + 1)
-    assert plan.fma_smem_dkv == 4 * (4 * rows + 2 * ptile + 2 * plan.fma_tile)
-    assert plan.fma_smem_dq == 4 * (4 * rows + ptile + 2 * plan.fma_tile)
-    assert max(plan.fma_smem_dkv, plan.fma_smem_dq) <= H100_SMEM_PER_BLOCK
-    tiles = -(-300 // plan.fma_tile)
-    assert (plan.fma_blocks_dkv, plan.fma_blocks_dq) == (2 * 2 * tiles, 2 * 8 * tiles)
+    assert plan.fp32_route == ("fma" if hp == 256 else "wgmma")
+    assert (plan.fp32_rows, plan.fp32_tile) == {64: (64, 32), 128: (64, 16), 256: (32, 32)}[hp]
+    if hp == 256:
+        ld = hp + 1
+        rows, ptile = 32 * ld, 32 * 33
+        assert plan.fp32_dkv_smem == 4 * (4 * rows + 2 * ptile + 2 * 32)
+        assert plan.fp32_dq_smem == 4 * (4 * rows + ptile + 2 * 32)
+        dkv_groups = 2 * 2  # a block per (batch, kv head, key tile)
+    else:
+        for stages, smem, dkv in ((plan.fp32_dkv_stages, plan.fp32_dkv_smem, True),
+                                  (plan.fp32_dq_stages, plan.fp32_dq_smem, False)):
+            assert 2 <= stages <= at.FLASH_BWD_MAX_STAGES
+            assert smem == at.flash_bwd_fp32_smem(hp, stages, dkv)
+        dkv_groups = 2 * 8  # a block per (batch, query head, key tile)
+    assert max(plan.fp32_dkv_smem, plan.fp32_dq_smem) <= H100_SMEM_PER_BLOCK
+    tiles = -(-300 // plan.fp32_rows)
+    assert (plan.fp32_dkv_blocks, plan.fp32_dq_blocks) == (dkv_groups * tiles, 2 * 8 * tiles)
 
 
 @pytest.mark.parametrize("kv_heads,t,split,blocks_dkv,blocks_dq", [
@@ -185,7 +197,10 @@ def test_backward_plan_of_the_7b_path(kv_heads, t, split, blocks_dkv, blocks_dq)
     assert (plan.head_pad, plan.dkv_keys, plan.gqa_split) == (128, 128, split)
     assert (plan.dkv_blocks, plan.dq_blocks) == (blocks_dkv, blocks_dq)
     assert (plan.dkv_stages, plan.dq_stages) == (4, 4)
-    assert (plan.fma_tile, plan.fma_blocks_dq) == (64, 512)
+    # fp32: 64 resident rows and 16 streamed rows a step, 16 tiles per head
+    assert (plan.fp32_route, plan.fp32_rows, plan.fp32_tile) == ("wgmma", 64, 16)
+    assert (plan.fp32_dkv_blocks, plan.fp32_dq_blocks) == (512, 512)
+    assert (plan.fp32_dkv_stages, plan.fp32_dq_stages) == (3, 4)
 
 
 @pytest.mark.parametrize("b,nh,n_kv,t,hd", [(1, 32, 32, 1024, 128), (2, 8, 2, 300, 64),

@@ -778,11 +778,14 @@ def test_flash_attention_backward(cuda, causal, dtype, b, nh, n_kv, t, hd):
     make them (a relative bar would measure noise); dV = dO is held as at
     every T."""
     q, k, v, o, lse, do = _bwd_case(cuda, b, nh, n_kv, t, hd, dtype, causal, seed=t + hd)
-    launches = (at.flash_attention_backward_dkv.launches, at.flash_attention_backward_dq.launches)
+    # fp32 inputs take the fp32 kernels, which count their own launches
+    wrappers = ((at.flash_attention_backward_dkv_fp32, at.flash_attention_backward_dq_fp32)
+                if dtype == torch.float32
+                else (at.flash_attention_backward_dkv, at.flash_attention_backward_dq))
+    launches = tuple(w.launches for w in wrappers)
     got = at.flash_attention_backward(q, k, v, o, lse, do, causal)
     ref = at.flash_attention_backward_plain(q, k, v, o, lse, do, causal)
-    assert (at.flash_attention_backward_dkv.launches,
-            at.flash_attention_backward_dq.launches) == (launches[0] + 1, launches[1] + 1)
+    assert tuple(w.launches for w in wrappers) == (launches[0] + 1, launches[1] + 1)
     for i, (g, r) in enumerate(zip(got, ref)):
         assert g.dtype == dtype and g.shape == r.shape
         if t == 1 and i < 2:
@@ -805,6 +808,31 @@ def test_flash_attention_backward_repeats_bit_equal(cuda, nh, n_kv):
     first = at.flash_attention_backward(q, k, v, o, lse, do, True)
     for _ in range(10):
         again = at.flash_attention_backward(q, k, v, o, lse, do, True)
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_backward_fp32_long(cuda, causal):
+    """The fp32 kernels sum dK, dV and dQ in the tensor core's fp32 over the
+    whole walk, with no fold: at T = 4096 they still meet the fp32 bar,
+    which one TF32 product (the plain backward with TF32 allowed) misses;
+    GQA 8/2 repeats bit-equal."""
+    q, k, v, o, lse, do = _bwd_case(cuda, 1, 4, 4, 4096, 128, torch.float32, causal, seed=9)
+    got = at.flash_attention_backward(q, k, v, o, lse, do, causal)
+    ref = at.flash_attention_backward_plain(q, k, v, o, lse, do, causal)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        one = at.flash_attention_backward_plain(q, k, v, o, lse, do, causal)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    for g, r, x in zip(got, ref, one):
+        _close(g, r, _FLASH_BWD_TOL[torch.float32])
+    assert max((x - r).abs().max() / r.abs().max() for x, r in zip(one, ref)) \
+        > _FLASH_BWD_TOL[torch.float32]
+    q, k, v, o, lse, do = _bwd_case(cuda, 1, 8, 2, 777, 128, torch.float32, causal, seed=7)
+    first = at.flash_attention_backward(q, k, v, o, lse, do, causal)
+    for _ in range(3):
+        again = at.flash_attention_backward(q, k, v, o, lse, do, causal)
         assert all(torch.equal(a, b) for a, b in zip(again, first))
 
 
