@@ -20,13 +20,17 @@ Phases (any failure exits non-zero):
       and of paged_attention), the wgmma (HGMMA) and TMA (UTMALDG)
       instructions in the SASS of those eight (quant_matmul,
       quant_matmul_ax0, quant_matmul_lora, qmm_fp32, flash_prefill,
-      flash_fp32_sm90, flash_backward_sm90, flash_backward_fp32_sm90), and
-      the bulk copies (UBLKCP) of paged_attention;
+      flash_fp32_sm90, flash_backward_sm90, flash_backward_fp32_sm90), the
+      bulk copies (UBLKCP) of paged_attention, and the int8 MMAs (IMMA) and
+      TMA loads of w4a8_matmul, whose instantiations must not spill;
   (b) each kernel against its plain PyTorch version at the main paths'
       shapes: largest error against the stated tolerance, kernel time, plain
       time, the least time the card could take (bound), and for the matmuls
       torch.matmul on the pre-dequantized bf16 weight (a yardstick only; for
-      the LoRA kernels the sum of the three torch.matmul calls; for the two
+      the LoRA kernels the sum of the three torch.matmul calls; the w4a8
+      kernels at M = 1, 4, 8, 32 on fp32 and bf16 scale and zs, three runs
+      bit-equal, controls a neighbour's scale and, for bf16, the zs offset
+      dropped; for the two
       attention kernels scaled_dot_product_attention, on the gathered dense
       K/V for the paged one); the axis=1 kernels on bf16 scale and zs, and
       the fp32 routes (qmm_fp32, flash_attention_fp32), each with controls
@@ -35,8 +39,9 @@ Phases (any failure exits non-zero):
       with TF32 allowed, for qmm_fp32 and for the plain attention); the
       flash backward kernels (dK/dV
       and dQ) at path I's shape and around it, in bf16, fp16 and fp32 (the
-      fp32 route at (1, 8/8, 512), path I's (1, 32/32, 1024) and GQA
-      (1, 32/8, 1023)), against the plain backward from the same saved
+      fp32 route at (1, 8/8, 512), path I's (1, 32/32, 1024), GQA
+      (1, 32/8, 1023), and (1, 8/8, 512) at head size 256, on the CUDA
+      cores by the plan), against the plain backward from the same saved
       statistics and autograd of the plain forward in fp32, controls (D
       dropped, the mask shifted by one; for fp32 also one TF32 product, the
       plain backward with TF32 allowed), repeated runs bit-equal, SDPA's
@@ -146,6 +151,8 @@ WGMMA_SOURCES = ("quant_matmul.cu", "quant_matmul_ax0.cu", "quant_matmul_lora.cu
                  "flash_backward_sm90.cu", "flash_backward_fp32_sm90.cu")
 # the source that moves pages by bulk copy (cp.async.bulk without a tensor map)
 BULK_SOURCES = ("paged_attention.cu",)
+# the source on the int8 tensor cores (mma.sync, IMMA) fed by TMA
+IMMA_SOURCES = ("w4a8_matmul.cu",)
 # wrapper -> (source, the TPU kernel it replaces, a second one it replaces)
 KERNELS = {
     "w4a8_matmul": ("w4a8_matmul.cu", "hqq_tpu/ops/fused_matmul.py:524",
@@ -308,7 +315,8 @@ def time_ms(fns, iters: int, only: str = "") -> float:
 def device_share(fn) -> dict:
     """Run ``fn`` once under torch.profiler: the wall time, the share of it
     the device spent in kernels and copies (one stream, so their durations
-    add up), and the five kernels with the most device time."""
+    add up), the five kernels with the most device time, and the device
+    time of the w4a8 kernels by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -324,8 +332,15 @@ def device_share(fn) -> dict:
     if not events:
         log("[time] the profiler kept no device event of this run: the busy share below is "
             "not measured")
+    w4a8 = {}  # the w4a8 kernels' device time by name (the tensor-core and small-group routes)
+    for e in events:
+        name = re.search(r"w4a8_\w+_kernel(<[^>]*>)?", e.key)
+        if name:
+            w4a8[name.group(0)] = round(w4a8.get(name.group(0), 0.0)
+                                        + e.self_device_time_total / 1e3, 3)
     return dict(wall_ms=wall_ms, busy_share=device_ms / wall_ms,
-                top={e.key[:40]: round(e.self_device_time_total / 1e3, 3) for e in top})
+                top={e.key[:40]: round(e.self_device_time_total / 1e3, 3) for e in top},
+                w4a8=w4a8)
 
 
 def card_state() -> str:
@@ -352,7 +367,7 @@ def phase_a(name: str, power: str) -> None:
         log(f"[a]   {kname}: built in {seconds:.1f} s, {len(regs)} instantiations, registers "
             f"{min(map(int, regs))}-{max(map(int, regs))}, spill stores up to "
             f"{max(map(int, spills))} bytes")
-        if kname in WGMMA_SOURCES + BULK_SOURCES:
+        if kname in WGMMA_SOURCES + BULK_SOURCES + IMMA_SOURCES:
             serial = len(re.findall(r"wgmma.mma_async instructions are serialized", text))
             log(f"[a]     ptxas notes of serialized wgmma (C751x): {serial}")
             # per kernel instantiation: (template arguments, registers, spill bytes)
@@ -363,6 +378,8 @@ def phase_a(name: str, power: str) -> None:
                 if "kernel" in fn and reg:
                     log(f"[a]     {fn.split('EEv')[0]}: {reg.group(1)} registers, "
                         f"{spill.group(1) if spill else '?'} bytes spill stores")
+                    if kname in IMMA_SOURCES and (not spill or int(spill.group(1))):
+                        raise AssertionError(f"{kname}: {fn} spills")
     # the Hopper mainloops really issue wgmma (HGMMA) and TMA loads (UTMALDG)
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     for source in WGMMA_SOURCES:
@@ -373,6 +390,14 @@ def phase_a(name: str, power: str) -> None:
             f"instructions")
         if not all(counts.values()):
             raise AssertionError(f"{source} issues no wgmma or no TMA load: {counts}")
+    for source in IMMA_SOURCES:
+        sass = subprocess.run([cuobjdump, "-sass", _build._lib_path(source)], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("IMMA", "UTMALDG")}
+        log(f"[a]   {source} SASS: {counts['IMMA']} IMMA (int8 mma.sync) and "
+            f"{counts['UTMALDG']} UTMALDG instructions")
+        if not all(counts.values()):
+            raise AssertionError(f"{source} issues no int8 MMA or no TMA load: {counts}")
     for source in BULK_SOURCES:
         sass = subprocess.run([cuobjdump, "-sass", _build._lib_path(source)], capture_output=True,
                               text=True, check=True, timeout=300).stdout
@@ -588,41 +613,37 @@ def phase_b() -> dict:
         rows.setdefault(key, []).append(row)
         log("[b] " + json.dumps(row))
 
-    # -- w4a8_matmul: M in {1, 4, 32} at the 7B shapes, and K % 8g != 0 ------
+    # -- w4a8_matmul: M in {1, 4, 8, 32} at the 7B shapes, and K % 8g != 0;
+    # each on fp32 and on bf16 scale and zs of the same weight --------------
     shapes = [(4096, 4096), (4096, 11008), (11008, 4096)]
-    cases = [(m, k, n) for (k, n) in shapes for m in (1, 4, 32)]
+    cases = [(m, k, n) for (k, n) in shapes for m in (1, 4, 8, 32)]
     cases.append((4, 4096 + 3 * g, 4096))  # K % 8g != 0 (the `_qmm_a8_kernel` route)
     for (m, k, n) in cases:
-        kqt = _make_kqt(n, k, g, 4, seed=k * 7 + n)
         x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
         x8, sx = fm.quantize_activations_int8(x)
-        worst = 0.0
-        for out_dtype, tol_rel in ((torch.float32, 1e-5), (torch.bfloat16, 2.0**-7)):
-            y = fm.w4a8_matmul(x8, sx, kqt, out_dtype).float()
-            ref = fm.w4a8_matmul_plain(x8, sx, kqt, out_dtype).float()
-            torch.cuda.synchronize()
-            err = (y - ref).abs().max().item()
-            scale = ref.abs().max().item()
-            # fp32: the group dots are exact, the fp32 epilogue sums in
-            # another order; bf16: plus one rounding step of the output
-            if not (err <= tol_rel * scale) or not torch.isfinite(y).all():
-                raise AssertionError(f"w4a8_matmul M={m} K={k} N={n} {out_dtype}: "
-                                     f"err {err} > {tol_rel} * {scale}")
-            worst = max(worst, err)
-        wbytes = kqt.wq.numel() + 8 * kqt.scale.numel()
-        kq, xq = _copies(kqt, x8, wbytes)
-        sxs = [sx.clone() for _ in kq]
-        ms = time_ms([lambda a=a, b=b, s=s: fm.w4a8_matmul(b, s, a, torch.bfloat16)
-                      for a, b, s in zip(kq, xq, sxs)], iters)
-        plain = time_ms([lambda: fm.w4a8_matmul_plain(x8, sx, kqt, torch.bfloat16)], max(3, iters // 10))
-        w_bf16 = fm.dequant_plain(kqt, torch.bfloat16)
-        lib = time_ms([lambda: torch.matmul(x, w_bf16.t())], iters)
-        del w_bf16, kq, xq, sxs
-        nbytes = wbytes + m * k + 4 * m + 2 * m * n
-        b_ms, by = bound_ms(nbytes, 2.0 * m * n * k, "int8")
-        record("w4a8_matmul", dict(kernel="w4a8_matmul", m=m, k=k, n=n, max_abs_err=worst,
-                                   ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by,
-                                   library_ms=lib, note=""))
+        for kqt in (_make_kqt(n, k, g, 4, seed=k * 7 + n), _make_kqt_bf16(n, k, g, 4, seed=k * 7 + n)):
+            note = "4-bit g64 axis=1, bf16 meta" if kqt.scale.dtype == torch.bfloat16 else ""
+            worst = _w4a8_held(f"w4a8_matmul M={m} K={k} N={n} {note}", kqt,
+                               lambda q, dt: fm.w4a8_matmul(x8, sx, q, dt),
+                               lambda q, dt: fm.w4a8_matmul_plain(x8, sx, q, dt))
+            wbytes = _weight_bytes(kqt)
+            kq, xq = _copies(kqt, x8, wbytes)
+            sxs = [sx.clone() for _ in kq]
+            ms = time_ms([lambda a=a, b=b, s=s: fm.w4a8_matmul(b, s, a, torch.bfloat16)
+                          for a, b, s in zip(kq, xq, sxs)], iters)
+            plain = time_ms([lambda: fm.w4a8_matmul_plain(x8, sx, kqt, torch.bfloat16)],
+                            max(3, iters // 10))
+            w_bf16 = fm.dequant_plain(kqt, torch.bfloat16)
+            lib = time_ms([lambda: torch.matmul(x, w_bf16.t())], iters)
+            del w_bf16, kq, xq, sxs
+            nbytes = wbytes + m * k + 4 * m + 2 * m * n
+            b_ms, by = bound_ms(nbytes, 2.0 * m * n * k, "int8")
+            plan = fm.w4a8_launch_plan(m, n, k, kqt.container_bits, g, kqt.scale.dtype)
+            record("w4a8_matmul", dict(kernel="w4a8_matmul", m=m, k=k, n=n, max_abs_err=worst,
+                                       ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by,
+                                       library_ms=lib, note=note,
+                                       plan=f"{plan.route} {plan.col_tile} rows x "
+                                            f"{plan.k_slices} slices, ring {plan.stages}"))
 
     # -- quant_matmul at the prefill shapes of paths C (M = 512) and H (M =
     # 1023), and at M = 4 (the pallas backend's decode, 8-bit weights) ------
@@ -710,35 +731,37 @@ def phase_b() -> dict:
             f"{alone:.4f} ms of it in the qmm_ kernels")
         del kq, xq
 
-    # -- w4a8_lora_matmul at the decode shapes of path E ----------------------
-    for (m, k, n) in [(4, 4096, 4096), (4, 4096, 11008), (4, 11008, 4096), (1, 4096, 4096)]:
-        kqt = _make_kqt(n, k, g, 4, seed=k * 5 + n)
+    # -- w4a8_lora_matmul at the decode shapes of path E (M = 4) and of a
+    # paged engine of 8 slots, on fp32 and bf16 scale and zs ----------------
+    for (m, k, n) in [(4, 4096, 4096), (4, 4096, 11008), (4, 11008, 4096), (1, 4096, 4096),
+                      (8, 4096, 4096), (8, 4096, 11008), (8, 11008, 4096)]:
         a, b = _make_lora(k, n, seed=m)
         x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
         x8, sx = fm.quantize_activations_int8(x)
         xa = x.float() @ a
-        worst = 0.0
-        for out_dtype, tol_rel in ((torch.float32, 1e-5), (torch.bfloat16, 2.0**-7)):
-            worst = max(worst, held(
-                "w4a8_lora_matmul", fm.w4a8_lora_matmul(x8, sx, kqt, xa, b, out_dtype),
-                fm.w4a8_lora_matmul_plain(x8, sx, kqt, xa, b, out_dtype), tol_rel,
-                f"M={m} K={k} N={n} {out_dtype}"))
-        wbytes = _weight_bytes(kqt)
-        kq, xq = _copies(kqt, x8, wbytes)
-        ms = time_ms([lambda p=p, q=q: fm.w4a8_lora_matmul(q, sx, p, xa, b, torch.bfloat16)
-                      for p, q in zip(kq, xq)], iters)
-        plain = time_ms([lambda: fm.w4a8_lora_matmul_plain(x8, sx, kqt, xa, b, torch.bfloat16)],
-                        max(3, iters // 10))
-        w_bf16 = fm.dequant_plain(kqt, torch.bfloat16)
-        lib = time_ms([lambda: torch.matmul(x, w_bf16.t()).float()
-                       + torch.matmul(torch.matmul(x.float(), a), b)], iters)
-        del w_bf16, kq, xq
-        b_ms, by = bound_ms(wbytes + m * k + 4 * m + 4 * m * r + 4 * r * n + 2 * m * n,
-                            2.0 * m * n * k, "int8", fp32_ops=2.0 * m * r * n)
-        record("w4a8_lora_matmul", dict(
-            kernel="w4a8_lora_matmul", m=m, k=k, n=n, max_abs_err=worst, ms=ms, plain_ms=plain,
-            bound_ms=b_ms, bound_by=by, library_ms=lib,
-            note="r=8", library="three torch.matmul calls and their sum"))
+        for kqt in (_make_kqt(n, k, g, 4, seed=k * 5 + n), _make_kqt_bf16(n, k, g, 4, seed=k * 5 + n)):
+            meta = "bf16 meta" if kqt.scale.dtype == torch.bfloat16 else ""
+            worst = _w4a8_held(f"w4a8_lora_matmul M={m} K={k} N={n} {meta}", kqt,
+                               lambda q, dt: fm.w4a8_lora_matmul(x8, sx, q, xa, b, dt),
+                               lambda q, dt: fm.w4a8_lora_matmul_plain(x8, sx, q, xa, b, dt))
+            wbytes = _weight_bytes(kqt)
+            kq, xq = _copies(kqt, x8, wbytes)
+            ms = time_ms([lambda p=p, q=q: fm.w4a8_lora_matmul(q, sx, p, xa, b, torch.bfloat16)
+                          for p, q in zip(kq, xq)], iters)
+            plain = time_ms([lambda: fm.w4a8_lora_matmul_plain(x8, sx, kqt, xa, b,
+                                                               torch.bfloat16)],
+                            max(3, iters // 10))
+            w_bf16 = fm.dequant_plain(kqt, torch.bfloat16)
+            lib = time_ms([lambda: torch.matmul(x, w_bf16.t()).float()
+                           + torch.matmul(torch.matmul(x.float(), a), b)], iters)
+            del w_bf16, kq, xq
+            b_ms, by = bound_ms(wbytes + m * k + 4 * m + 4 * m * r + 4 * r * n + 2 * m * n,
+                                2.0 * m * n * k, "int8", fp32_ops=2.0 * m * r * n)
+            record("w4a8_lora_matmul", dict(
+                kernel="w4a8_lora_matmul", m=m, k=k, n=n, max_abs_err=worst, ms=ms,
+                plain_ms=plain, bound_ms=b_ms, bound_by=by, library_ms=lib,
+                note="r=8" + (", " + meta if meta else ""),
+                library="three torch.matmul calls and their sum"))
 
     # -- quant_matmul_ax0 with path F's configs at path F's shapes (attention
     # 3-bit g64, MLP 2-bit g16), decode and prefill; fp32 meta at 2-bit g16
@@ -816,6 +839,44 @@ def _meta_controls(kqt):
     return {"neighbour's scale": dataclasses.replace(kqt, scale=scale.roll(1, dims=1),
                                                      zs=zs + 8 * scale),
             "zs offset dropped": dataclasses.replace(kqt, scale=scale, zs=zs)}
+
+
+def _w4a8_controls(kqt):
+    """Wrong readings of a w4a8 layout, for the plain twins: each group with
+    its neighbour's scale; for bf16 meta also zs read without the 8 * scale
+    that the 4-bit container's stored zs lacks (`_meta_controls`)."""
+    import dataclasses
+
+    if kqt.scale.dtype == torch.bfloat16:
+        return _meta_controls(kqt)
+    return {"neighbour's scale": dataclasses.replace(kqt, scale=kqt.scale.roll(1, dims=1))}
+
+
+def _w4a8_held(what: str, kqt, kernel, plain) -> float:
+    """``kernel(kqt, dtype)`` against ``plain(kqt, dtype)``: within 1e-5 of
+    max|y| in fp32 (exact group dots, fp32 folds in another order) and 2^-7
+    in bf16 (one rounding more); each control of `_w4a8_controls` must miss
+    both bars; three runs bit-equal. Returns the largest error."""
+    worst = 0.0
+    for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0**-7)):
+        y, ref = kernel(kqt, dt), plain(kqt, dt)
+        torch.cuda.synchronize()
+        err = (y.float() - ref.float()).abs().max().item()
+        if not (err <= tol * ref.float().abs().max().item()) or not torch.isfinite(y).all():
+            raise AssertionError(f"{what} {dt}: err {err} > {tol} * max|y|")
+        worst = max(worst, err)
+    ref = plain(kqt, torch.float32)
+    misses = {c: rel(plain(bad, torch.float32), ref) for c, bad in _w4a8_controls(kqt).items()}
+    runs = [kernel(kqt, torch.float32) for _ in range(3)]
+    equal = all(torch.equal(r, runs[0]) for r in runs[1:])
+    log(f"[b] {what}: rel err fp32 {rel(runs[0], ref):.3e} (tol 1e-5); controls "
+        f"{ {c: round(v, 4) for c, v in misses.items()} } (must exceed 2^-7); three runs "
+        f"bit-equal: {equal}")
+    if not all(v > 2.0**-7 for v in misses.values()):
+        raise AssertionError(f"{what}: the bar does not catch a wrong meta")
+    if not equal:
+        raise AssertionError(f"{what}: repeated runs differ")
+    return worst
 
 
 def phase_b_bf16_meta(record, held, iters: int) -> None:
@@ -1097,7 +1158,8 @@ def phase_b_backward(record, held, iters: int) -> None:
     cases = [(1, 32, 32, 1024, 128, torch.bfloat16), (1, 32, 8, 1023, 128, torch.bfloat16),
              (2, 8, 8, 300, 64, torch.bfloat16), (1, 8, 8, 512, 256, torch.bfloat16),
              (1, 32, 32, 1024, 128, torch.float16), (1, 8, 8, 512, 128, torch.float32),
-             (1, 32, 32, 1024, 128, torch.float32), (1, 32, 8, 1023, 128, torch.float32)]
+             (1, 32, 32, 1024, 128, torch.float32), (1, 32, 8, 1023, 128, torch.float32),
+             (1, 8, 8, 512, 256, torch.float32)]  # fp32 at hd 256: the CUDA cores, by the plan
     for b, nh, n_kv, t, hd, dtype in cases:
         gq = torch.Generator(device="cuda").manual_seed(t + hd)
         q = torch.randn((b, nh, t, hd), generator=gq, device="cuda").to(dtype)
@@ -1332,6 +1394,7 @@ def serve_7b(tag: str, dev_tag: str, quant_config, expect: dict, after_quantize=
         f"in the qmm_ kernels")
     log(f"[{tag}] {dev_tag}: 8-token generate (B=4): device busy {busy['busy_share']:.3f} of "
         f"{busy['wall_ms']:.1f} ms wall; device ms by kernel: {busy['top']}")
+    log(f"[{tag}] {dev_tag}: 8-token generate (B=4): w4a8 kernels' device ms {busy['w4a8']}")
     log(f"[{tag}] card right after it: {card_state()}")
     return launches, model
 
@@ -1806,6 +1869,7 @@ def phase_g(dev_tag: str, model) -> dict:
     log(f"[g] {dev_tag}: 8 decode steps of 8 slots at lengths around 260: device busy "
         f"{busy['busy_share']:.3f} of {busy['wall_ms']:.1f} ms wall; device ms by kernel: "
         f"{busy['top']}")
+    log(f"[g] {dev_tag}: 8 decode steps of 8 slots: w4a8 kernels' device ms {busy['w4a8']}")
 
     # prefix cache: requests that share their first 256 tokens (suffixes of
     # more than 32 tokens: see the chunked prefill below)

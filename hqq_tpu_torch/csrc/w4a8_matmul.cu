@@ -7,9 +7,8 @@
 // fp32: y[m, n] += sum_j xa[m, j] * B[j, n], with xa = x @ A [M, r] computed
 // by the caller from the unquantized activations and B [r, N] fp32 (the
 // adapter's scaling folded in). Scale and zs are fp32 or bf16; bf16 is
-// widened to fp32 as it is loaded, and the 4-bit container's zs gets its
-// 8*scale back there (`hqq_ax1_zs_offset`): a flag, not a template
-// argument, so the instantiations do not double.
+// widened to fp32 as it is read, and the 4-bit container's zs gets its
+// 8*scale back there (`hqq_ax1_zs_offset`): a flag, not a template argument.
 //
 // Replaces: hqq_tpu/ops/fused_matmul.py `_qmm_a8_decode_kernel` (launched by
 //   `_qmm_a8_decode_call`) and `_qmm_a8_kernel` (launched by `_qmm_a8_call`),
@@ -20,30 +19,67 @@
 //   `_qmm_a8_lora_decode_call`, entry `quant_matmul_pallas_a8_lora`).
 // Bound on H100: bytes. At decode the weight is read once: K*N*cb/8 bytes of
 //   codes plus 8*N*K/g of fp32 scale and zs (4096x4096, 4-bit, g64: 10.5 MB,
-//   3.1 us at 3.35 TB/s). The int8 work, 2*M*N*K operations, stays far below
-//   the int8 rate for M <= 32.
-// Design: one warp per NCOL output columns and MT activation rows (gridDim.y
-//   splits M into chunks of MT). Each lane owns whole groups: in a K-tile of
-//   32 groups, lane l takes group l, so the warp reads 32 consecutive groups
-//   of a row, contiguous and coalesced, in 16-byte loads where the group's
-//   byte count allows. The block stages the tile's activations of its MT
-//   rows in shared memory, one padded row of words per group, so that the 32
-//   lanes' reads fall in 32 different banks. Unpacking is a shift and a mask
-//   per 4 codes, and __dp4a multiplies them with 4 activations into the
-//   group's int32 sum. Each lane folds its group's partial into fp32
-//   accumulators through scale and zs; a warp shuffle sums the lanes at the
-//   end. Every weight byte is read from memory once per M chunk (once in
-//   all for M <= 8). The LoRA term rides the same reduction: lane l sums the
-//   ranks j = l, l + 32, ... of its warp's outputs, a second shuffle adds
-//   the lanes, and the term joins after the multiply by sx (r*(M + N) more
-//   fp32 values to read, 0.7% of a 4096x4096 4-bit g64 weight at r = 8).
-#include "hqq_common.cuh"
+//   3.1 us at 3.35 TB/s). The int8 work, 2*M*N*K operations, is at most 2.9
+//   GOP at M = 32 (32 x 4096 x 11008), ~3 us at half the int8 rate.
+//
+// Design: the int8 tensor cores with the operands swapped, a TMA ring fed by
+// a producer warp, and K split over the consumer warps of a block.
+//   * mma.sync m16n8k32 s8: the weight rows (output columns) are the MMA's
+//     M side, the tokens its N side (one n8 tile per 8 tokens, NT <= 4), the
+//     unpacked codes the A operand in registers, x8 the B operand. Codes are
+//     0..63 at most, so s8 takes them as they are.
+//   * The k order of an MMA (the fragment order, held by
+//     tests/test_torch_w4a8_plan.py). In a k32 step the thread of
+//     threadID_in_group t takes the codes 8t .. 8t+7 of the step, which one
+//     kernel-layout word holds as two 4-code fields (two words for 8-bit):
+//     word c*CB + t*CB/4 of the stage's row, fields f = 2t % (8/CB) and f+1.
+//     (w >> CB*f) & mask is A register a0 (row g) or a1 (row g+8), which the
+//     MMA reads as its k = 4t .. 4t+3; field f+1 is a2/a3, its k = 16+4t ..
+//     16+4t+3. So B must hold x8 at k = 8t .. 8t+3 in b0 and 8t+4 .. 8t+7 in
+//     b1: the 8 bytes at 8t of the step, one 8-byte read. The group dot does
+//     not depend on the order of k within it, and a step never straddles a
+//     group (g % 32 == 0 on this route). No shuffle, no pass of the codes
+//     through shared memory beyond the TMA's landing.
+//   * xsum[m, g] comes from the same B fragments: one more MMA per step with
+//     an A of ones gives it in the accumulator's own layout (every row
+//     equal), once per (token, step) and warp, never per column.
+//   * Exact int32 dots folded into fp32, every 1, 2 or 4 steps of a group
+//     (`consume_stage`): acc += s * dot - xsum * z.
+//   * A block owns 32, 64 or 128 weight rows (the plan's column tile) and
+//     all of K; no grid dimension over M, so every weight byte is read once
+//     for every M <= 32. It first loads its scale and zs for the whole of K
+//     (TMA boxes whose rows are an odd number of 16 bytes, so the 8 rows a
+//     warp reads fall in 8 bank groups; where fp32 meta rows break the
+//     16-byte rule, 4-byte cp.async by every thread). Then a producer warp
+//     keeps `stages` stages in flight in an mbarrier ring, each the block's
+//     rows x 1024/CB codes (one 128-byte row each, in the 128-byte TMA
+//     swizzle, so the 8 rows a load instruction reads fall in 8 bank
+//     groups) and the stage's x8 in 128-byte swizzled boxes.
+//   * Eight consumer warps: rows/16 row groups by 8/(rows/16) k-slices.
+//     Stage i goes to slice i % slices (the ring's slots are a multiple of
+//     the slices, so a slot always goes to the same warps); at the end the
+//     slices' fp32 partials meet in shared memory and are summed in slice
+//     order: no atomics, no scratch in device memory, no second launch,
+//     repeated runs bit-equal. The multiply by sx, the LoRA term and the
+//     store follow.
+//   * The launch plan is `w4a8_launch_plan` in ops/fused_matmul.py: route,
+//     token tile, column tile, ring stages, meta box and shared memory
+//     (`tc_smem` below computes the same; the entry refuses a plan whose
+//     bytes differ).
+// The planned small-group route: a group that is not a multiple of 32 codes
+//   (g = 8, 16, 24, ...), code rows that break the 16-byte rule of a TMA map
+//   (1- and 2-bit rows of K*cb/8 % 16 != 0), or meta too large for a block,
+//   go by the plan, before any launch, to `w4a8_dp4a_kernel` on the CUDA
+//   cores: one warp per 2 columns and 8 activation rows, each lane a whole
+//   group of a 32-group K-tile, __dp4a on the unpacked codes, a warp shuffle
+//   at the end.
+#include <string.h>
+
+#include "sm90_ptx.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;     // warps per block
-constexpr int kNcol = 2;      // output columns per warp
-constexpr int kTileGroups = 32;  // groups per K-tile, one per lane
+using namespace sm90;
 
 // LoRA epilogue operands: xa fp32 [M, r], b fp32 [r, N]; r = 0 for none
 struct Lora {
@@ -57,14 +93,380 @@ __device__ __forceinline__ float load_meta(const void* p, size_t i, int bf16) {
   return bf16 ? meta_f32(static_cast<const __nv_bfloat16*>(p)[i]) : static_cast<const float*>(p)[i];
 }
 
-// VW: weight words per load, 4 (one 16-byte load) or 1
-template <int CB, int MT, int VW>
-__global__ void __launch_bounds__(kWarps * 32)
-    w4a8_kernel(const int8_t* __restrict__ x8, const float* __restrict__ sx,
-                const uint32_t* __restrict__ wq, const void* __restrict__ scale,
-                const void* __restrict__ zs, Lora lora, void* __restrict__ out, int m, int n,
-                int k, int group_size, int out_dtype, int meta_bf16, int meta_cols) {
-  constexpr int kFields = 8 / CB;           // 4-code fields per weight word
+// the LoRA term of output (row, col): sum_j xa[row, j] * b[j, col] in fp32
+__device__ __forceinline__ float lora_term(const Lora& l, int row, int col, int n) {
+  float v = 0.f;
+  for (int j = 0; j < l.r; ++j)
+    v = fmaf(l.xa[static_cast<size_t>(row) * l.r + j], l.b[static_cast<size_t>(j) * n + col], v);
+  return v;
+}
+
+// ------------------------------------------------- tensor-core route --
+
+constexpr int kConsumers = 8;                    // consumer warps
+constexpr int kThreads = 32 * (kConsumers + 1);  // then the producer warp
+constexpr int kMagic = 0x4B400000;               // 1.5 * 2^23 as fp32 bits
+constexpr float kMagicF = 12582912.f;
+
+__host__ __device__ inline int align_up(int x, int a) { return (x + a - 1) / a * a; }
+
+// Shared-memory carve-up of a block of `rows` weight rows; ops/fused_matmul.py
+// `w4a8_smem_bytes` computes the same. First the block's scale and zs for
+// the whole of K, loaded once: each [boxes][rows][bc] (bc columns a TMA box,
+// bc * size an odd multiple of 16 bytes, so that the 8 rows a warp reads lie
+// in 8 different bank groups). Then the ring: a stage is the codes [rows x
+// 128 bytes] and x8 in kc/128 boxes of [8*nt tokens x 128 bytes], padded to
+// 1024 bytes. After the last stage the ring holds the fp32 partials
+// [8 / (rows / 16) k-slices][8*nt][rows + 4]. Then the barriers.
+struct TcSmem {
+  int zs, ring, x8, stage, bars, total;
+};
+
+__host__ __device__ inline TcSmem tc_smem(int kc, int nt, int bc, int boxes, int msize,
+                                          int stages, int rows) {
+  TcSmem s;
+  const int meta = boxes * rows * bc * msize;
+  s.zs = meta;
+  s.ring = align_up(2 * meta, 1024);
+  s.x8 = rows * 128;
+  s.stage = align_up(s.x8 + kc / 128 * 128 * 8 * nt, 1024);
+  const int ring = stages * s.stage;
+  const int part = kConsumers / (rows / 16) * 8 * nt * (rows + 4) * 4;
+  s.bars = s.ring + (ring > part ? ring : part);
+  s.total = 1024 + s.bars + 16 * stages + 8;  // 1024: to align the base
+  return s;
+}
+
+struct TcArgs {
+  const void* scale;  // for the cp.async of meta rows off the 16-byte rule
+  const void* zs;
+  const float* sx;
+  Lora lora;
+  void* out;
+  int m, n, k, g, out_dtype, meta_bf16, meta_cols;
+  int stages_total, rows, stages, bc, boxes, meta_tma;
+};
+
+// D += A . B, m16n8k32, s8 x s8 -> s32
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// the exact fp32 value of an accumulator that started at kMagic
+__device__ __forceinline__ float magic_f32(int d) { return __int_as_float(d) - kMagicF; }
+
+// the A fragment of k32 step c of the stage for rows r and r + 8 (r & 7 ==
+// gid) in the 128-byte swizzle: a0, a1 the codes 8t .. 8t+3 of row r and
+// r + 8, a2, a3 the codes 8t+4 .. 8t+7 (t: threadID_in_group)
+template <int CB>
+__device__ __forceinline__ void unpack_a(const uint8_t* codes, int r, int c, int t,
+                                         uint32_t (&a)[4]) {
+  constexpr uint32_t kMask = ((1u << CB) - 1u) * 0x01010101u;
+  const int byte = 4 * (c * CB + t * CB / 4);
+  const int off = (((byte >> 4) ^ (r & 7)) << 4) + (byte & 15);
+  if constexpr (CB == 8) {  // two words: codes 8t .. 8t+3 and 8t+4 .. 8t+7
+    const uint2 lo = *reinterpret_cast<const uint2*>(codes + r * 128 + off);
+    const uint2 hi = *reinterpret_cast<const uint2*>(codes + (r + 8) * 128 + off);
+    a[0] = lo.x, a[1] = hi.x, a[2] = lo.y, a[3] = hi.y;
+  } else {
+    const int f = (2 * t) % (8 / CB);
+    const uint32_t w0 = *reinterpret_cast<const uint32_t*>(codes + r * 128 + off);
+    const uint32_t w1 = *reinterpret_cast<const uint32_t*>(codes + (r + 8) * 128 + off);
+    a[0] = (w0 >> (CB * f)) & kMask;
+    a[1] = (w1 >> (CB * f)) & kMask;
+    a[2] = (w0 >> (CB * f + CB)) & kMask;
+    a[3] = (w1 >> (CB * f + CB)) & kMask;
+  }
+}
+
+// One stage of a consumer warp: rows r0 and r0 + 8 of the block, every
+// token. F k32 steps chain their MMAs into one exact int32 dot (F divides
+// the steps of a group, so they lie in one group), which is then folded with
+// the scale and zs of that group: acc += s * dot - xsum * z. Each chain
+// starts from 0x4B400000 (1.5 * 2^23 as fp32 bits): a dot of |d| <= 4 * 32 *
+// 63 * 128 < 2^22 leaves the fp32 value 12582912 + d, which one subtract
+// converts exactly. No chain waits on another. Steps past K
+// read the TMA's zero fill (codes, x8 and meta), and fold 0. Meta reads are
+// of the block's [boxes][rows][bc] scale and zs: mi the element of row r0's
+// group, mc its column in the box.
+template <int CB, int NT, int F>
+__device__ __forceinline__ void consume_stage(const uint8_t* st, const uint8_t* meta,
+                                              const TcSmem& L, const TcArgs& a, int r0, int gid,
+                                              int tig, int cig, int mi, int mc, int cpg, float zoff,
+                                              float (&acc)[NT][4]) {
+  constexpr int kSteps = 32 / CB;
+  // chains unrolled: all of a stage's, at most 4 (the 16 and 32 steps of the
+  // 2- and 1-bit containers spilled at 32 tokens, fully unrolled)
+  constexpr int kUnroll = kSteps / F < 4 ? kSteps / F : 4;
+  const uint32_t ones[4] = {0x01010101u, 0x01010101u, 0x01010101u, 0x01010101u};
+#pragma unroll kUnroll
+  for (int c0 = 0; c0 < kSteps; c0 += F) {
+    int d[NT][4], dx[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[j][e] = dx[j][e] = kMagic;
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      const int c = c0 + f;
+      // B: x8 of token 8j + gid, the 8 bytes at 32c + 8t of the stage
+      const int xb = 32 * c + 8 * tig;
+      uint32_t af[4];
+      unpack_a<CB>(st, r0, c, tig, af);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int tok = 8 * j + gid;
+        const uint2 v = *reinterpret_cast<const uint2*>(
+            st + L.x8 + (xb >> 7) * 1024 * NT + tok * 128 + ((((xb & 127) >> 4) ^ (tok & 7)) << 4) +
+            (xb & 15));
+        const uint32_t b[2] = {v.x, v.y};
+        mma_s8(d[j], af, b);
+        mma_s8(dx[j], ones, b);
+      }
+    }
+    // the group's scale and zs: element mi (row r0) and mi + 8 bc (row r0 + 8)
+    const int i1 = mi + 8 * a.bc;
+    const float s0 = load_meta(meta, mi, a.meta_bf16), s1 = load_meta(meta, i1, a.meta_bf16);
+    const float z0 = fmaf(zoff, s0, load_meta(meta + L.zs, mi, a.meta_bf16));
+    const float z1 = fmaf(zoff, s1, load_meta(meta + L.zs, i1, a.meta_bf16));
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float x0 = magic_f32(dx[j][0]), x1 = magic_f32(dx[j][1]);
+      acc[j][0] = fmaf(-x0, z0, fmaf(s0, magic_f32(d[j][0]), acc[j][0]));
+      acc[j][1] = fmaf(-x1, z0, fmaf(s0, magic_f32(d[j][1]), acc[j][1]));
+      acc[j][2] = fmaf(-x0, z1, fmaf(s1, magic_f32(d[j][2]), acc[j][2]));
+      acc[j][3] = fmaf(-x1, z1, fmaf(s1, magic_f32(d[j][3]), acc[j][3]));
+    }
+    cig += F;  // the next chain starts a group? then the next column, or the next box
+    const bool next = cig == cpg;
+    cig = next ? 0 : cig;
+    mc += next;
+    mi += next;
+    const bool wrap = mc == a.bc;
+    mc = wrap ? 0 : mc;
+    mi += wrap ? (a.rows - 1) * a.bc : 0;
+  }
+}
+
+// CB: container bits; NT: n8 tiles of tokens (8 * NT >= M)
+template <int CB, int NT>
+__global__ void __launch_bounds__(kThreads, 1)
+    w4a8_mma_kernel(const __grid_constant__ CUtensorMap cmap, const __grid_constant__ CUtensorMap xmap,
+                    const __grid_constant__ CUtensorMap smap, const __grid_constant__ CUtensorMap zmap,
+                    const TcArgs a) {
+  constexpr int kKc = 1024 / CB;  // codes of a stage: a 128-byte row
+  constexpr int kBoxes = kKc / 128;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  const int msize = a.meta_bf16 ? 2 : 4;
+  const int groups = a.rows / 16;          // row groups: the consumers of a stage
+  const int slices = kConsumers / groups;  // k-slices: stage i to slice i % slices
+  const TcSmem L = tc_smem(kKc, NT, a.bc, a.boxes, msize, a.stages, a.rows);
+  const uint32_t full0 = base + L.bars;
+  const uint32_t empty0 = full0 + 8 * a.stages;
+  const uint32_t meta_bar = empty0 + 8 * a.stages;
+  const int n0 = blockIdx.x * a.rows;
+  const int n_st = a.stages_total;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    prefetch_map(&cmap);
+    prefetch_map(&xmap);
+    if (a.meta_tma) prefetch_map(&smap), prefetch_map(&zmap);
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(full0 + 8 * s, 1);  // the expect_tx
+      mbar_init(empty0 + 8 * s, groups);
+    }
+    mbar_init(meta_bar, 1);  // the expect_tx of the meta's TMA
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int gid = lane >> 2, tig = lane & 3;
+  const int r0 = 16 * (warp % groups) + gid;  // the consumer's rows r0 and r0 + 8 of the block
+  const int slice = warp / groups;
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  // ---- the block's scale and zs, and the ring's first stages: by TMA from
+  // the producer's lane 0; where meta rows break the 16-byte rule, by 4-byte
+  // cp.async from every thread of the block (zeros outside), which waits
+  // for its copies before the block's barrier
+  const int box_bytes = a.rows * a.bc * msize;
+  const int tx = a.rows * 128 + kBoxes * 128 * 8 * NT;
+  const int first = n_st < a.stages ? n_st : a.stages;  // slots free from the start
+  auto load_stage = [&](int i) {
+    const int k0 = i * kKc;
+    const uint32_t st = base + L.ring + (i % a.stages) * L.stage;
+    const uint32_t full = full0 + 8 * (i % a.stages);
+    mbar_expect_tx(full, tx);
+    tma_load_2d(st, &cmap, full, k0 / 8 * CB, n0);
+#pragma unroll
+    for (int b = 0; b < kBoxes; ++b)
+      tma_load_2d(st + L.x8 + b * 1024 * NT, &xmap, full, k0 + 128 * b, 0);
+  };
+  if (warp == kConsumers && lane == 0) {
+    if (a.meta_tma) {
+      mbar_expect_tx(meta_bar, 2 * a.boxes * box_bytes);
+      for (int b = 0; b < a.boxes; ++b) {
+        tma_load_2d(base + b * box_bytes, &smap, meta_bar, b * a.bc, n0);
+        tma_load_2d(base + L.zs + b * box_bytes, &zmap, meta_bar, b * a.bc, n0);
+      }
+    }
+    for (int i = 0; i < first; ++i) load_stage(i);
+  }
+  if (!a.meta_tma) {
+    const int words = a.bc * msize / 4;  // of a box row
+    const size_t row_bytes = static_cast<size_t>(a.meta_cols) * msize;
+    for (int e = threadIdx.x; e < a.boxes * a.rows * words; e += kThreads) {
+      const int br = e / words, w = e - br * words;  // box row br = b * rows + r
+      const int b = br / a.rows, r = br - b * a.rows;
+      const int col = b * a.bc * msize + 4 * w;  // byte of the row
+      const bool ok = n0 + r < a.n && col < a.meta_cols * msize;
+      const size_t src = ok ? (n0 + r) * row_bytes + col : 0;
+      cp_async(base + 4 * e, static_cast<const uint8_t*>(a.scale) + src, 4, ok);
+      cp_async(base + L.zs + 4 * e, static_cast<const uint8_t*>(a.zs) + src, 4, ok);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+  }
+
+  if (warp == kConsumers) {
+    // ---- producer: stage i into slot i % stages as slots free up (the
+    // ring's first went out above)
+    for (int i = first; i < n_st; ++i) {
+      mbar_wait(empty0 + 8 * (i % a.stages), ((i / a.stages) & 1) ^ 1);
+      if (lane == 0) load_stage(i);
+    }
+  } else {
+    // ---- consumers: warp w takes rows 16 (w % groups) .. + 16 of the
+    // stages i with i % slices == w / groups (the ring's slots are a
+    // multiple of slices, so a slot always goes to the same warps, which so
+    // wait on its phases in order), every token, folding every F steps: 4,
+    // 2 or 1, the most that divides a group's steps
+    const float zoff = a.meta_bf16 && CB == 4 ? 8.f : 0.f;
+    const int cpg = a.g / 32;  // k32 steps of a group
+    const int fold = cpg % 4 == 0 ? 4 : cpg % 2 == 0 ? 2 : 1;
+    if (a.meta_tma) mbar_wait(meta_bar, 0);
+    for (int i = slice; i < n_st; i += slices) {
+      const int slot = i % a.stages;
+      const int k0 = i * kKc;
+      const int gk = k0 / a.g;               // the stage's first group
+      const int cig = (k0 - gk * a.g) / 32;  // the first step's place in it
+      const int mb = gk / a.bc, mc = gk - mb * a.bc;
+      const int mi = (mb * a.rows + r0) * a.bc + mc;
+      mbar_wait(full0 + 8 * slot, (i / a.stages) & 1);
+      const uint8_t* st = smem + L.ring + slot * L.stage;
+      switch (fold) {
+        case 4: consume_stage<CB, NT, 4>(st, smem, L, a, r0, gid, tig, cig, mi, mc, cpg, zoff, acc); break;
+        case 2: consume_stage<CB, NT, 2>(st, smem, L, a, r0, gid, tig, cig, mi, mc, cpg, zoff, acc); break;
+        default: consume_stage<CB, NT, 1>(st, smem, L, a, r0, gid, tig, cig, mi, mc, cpg, zoff, acc);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * slot);
+    }
+  }
+
+  // ---- the partials of the k-slices: every stage is consumed, so the ring is free
+  __syncwarp();
+  __syncthreads();
+  float* part = reinterpret_cast<float*>(smem + L.ring);  // [slices][8 * NT tokens][rows + 4]
+  const int pitch = a.rows + 4;
+  if (warp < kConsumers) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        part[(slice * 8 * NT + 8 * j + 2 * tig + (e & 1)) * pitch + r0 + 8 * (e >> 1)] = acc[j][e];
+  }
+  __syncthreads();
+  // the slices summed in order, times sx, plus the LoRA term, stored
+  for (int e = threadIdx.x; e < a.m * a.rows; e += kThreads) {
+    const int tok = e / a.rows, r = e - tok * a.rows;
+    const int col = n0 + r;
+    if (col >= a.n) continue;
+    float v = part[tok * pitch + r];
+    for (int q = 1; q < slices; ++q) v += part[(q * 8 * NT + tok) * pitch + r];
+    const float l = a.lora.r > 0 ? lora_term(a.lora, tok, col, a.n) : 0.f;
+    hqq_store(a.out, static_cast<size_t>(tok) * a.n + col, v * a.sx[tok] + l, a.out_dtype);
+  }
+}
+
+template <int CB, int NT>
+int launch_tc(const void* x8, const void* wq, const TcArgs& a, int smem, cudaStream_t stream) {
+  auto kernel = w4a8_mma_kernel<CB, NT>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  CUtensorMap cmap, xmap, smap, zmap;
+  memset(&smap, 0, sizeof(smap));
+  memset(&zmap, 0, sizeof(zmap));
+  const long row_bytes = static_cast<long>(a.k) / 8 * CB;
+  {
+    const long dims[2] = {row_bytes, a.n}, strides[1] = {row_bytes};
+    const int box[2] = {128, a.rows};
+    if (encode_map(&cmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, wq, dims, strides, box,
+                   CU_TENSOR_MAP_SWIZZLE_128B) != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  {
+    const long dims[2] = {a.k, a.m}, strides[1] = {a.k};
+    const int box[2] = {128, 8 * NT};
+    if (encode_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, x8, dims, strides, box,
+                   CU_TENSOR_MAP_SWIZZLE_128B) != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (a.meta_tma) {
+    const auto type = a.meta_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+    const long dims[2] = {a.meta_cols, a.n};
+    const long strides[1] = {static_cast<long>(a.meta_cols) * (a.meta_bf16 ? 2 : 4)};
+    const int box[2] = {a.bc, a.rows};
+    if (encode_map(&smap, type, 2, a.scale, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE) != 0 ||
+        encode_map(&zmap, type, 2, a.zs, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE) != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  kernel<<<(a.n + a.rows - 1) / a.rows, kThreads, smem, stream>>>(cmap, xmap, smap, zmap, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int CB>
+int dispatch_nt(const void* x8, const void* wq, const TcArgs& a, int token_tile, int smem,
+                cudaStream_t s) {
+  switch (token_tile) {
+    case 8: return launch_tc<CB, 1>(x8, wq, a, smem, s);
+    case 16: return launch_tc<CB, 2>(x8, wq, a, smem, s);
+    case 32: return launch_tc<CB, 4>(x8, wq, a, smem, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// ---------------------------------------- the small-group route (CUDA cores) --
+
+constexpr int kDpWarps = 8;       // warps per block
+constexpr int kDpNcol = 2;        // output columns per warp
+constexpr int kDpRows = 8;        // activation rows per block (gridDim.y over M)
+constexpr int kTileGroups = 32;   // groups per K-tile, one per lane
+
+__host__ __device__ inline int dp4a_smem(int g) { return kDpRows * kTileGroups * (g / 4 + 1) * 4; }
+
+template <int CB>
+__global__ void __launch_bounds__(kDpWarps * 32)
+    w4a8_dp4a_kernel(const int8_t* __restrict__ x8, const float* __restrict__ sx,
+                     const uint32_t* __restrict__ wq, const void* __restrict__ scale,
+                     const void* __restrict__ zs, Lora lora, void* __restrict__ out, int m, int n,
+                     int k, int group_size, int out_dtype, int meta_bf16, int meta_cols) {
+  constexpr int kFields = 8 / CB;  // 4-code fields per weight word
   constexpr int kCodesPerWord = 32 / CB;
   constexpr uint32_t kMask = ((1u << CB) - 1u) * 0x01010101u;
   extern __shared__ int xs_smem[];
@@ -72,23 +474,24 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int groups = k / group_size;
-  const int words_per_group = group_size / kCodesPerWord;  // weight words
-  const int xw_per_group = group_size / 4;                 // activation words
-  const int xw_stride = xw_per_group + 1;                  // +1: bank spread
+  const int words_per_group = group_size / kCodesPerWord;
+  const int xw_per_group = group_size / 4;
+  const int xw_stride = xw_per_group + 1;  // +1: bank spread
   const int row_words = k / kCodesPerWord;
-  const int m0 = blockIdx.y * MT;
-  const int col0 = (blockIdx.x * kWarps + warp) * kNcol;
+  const int m0 = blockIdx.y * kDpRows;
+  const int col0 = (blockIdx.x * kDpWarps + warp) * kDpNcol;
   const int* x32 = reinterpret_cast<const int*>(x8);
+  const float zoff = meta_bf16 && CB == 4 ? 8.f : 0.f;
 
-  float acc[MT][kNcol];
+  float acc[kDpRows][kDpNcol];
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+  for (int i = 0; i < kDpRows; ++i)
 #pragma unroll
-    for (int c = 0; c < kNcol; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < kDpNcol; ++c) acc[i][c] = 0.f;
 
   for (int g0 = 0; g0 < groups; g0 += kTileGroups) {
     __syncthreads();  // the previous tile has been consumed
-    const int tile_words = MT * kTileGroups * xw_per_group;
+    const int tile_words = kDpRows * kTileGroups * xw_per_group;
     for (int idx = threadIdx.x; idx < tile_words; idx += blockDim.x) {
       const int row = idx / (kTileGroups * xw_per_group);
       const int rem = idx - row * (kTileGroups * xw_per_group);
@@ -96,175 +499,165 @@ __global__ void __launch_bounds__(kWarps * 32)
       const int wj = rem - gl * xw_per_group;
       const int grp = g0 + gl;
       int v = 0;
-      if (m0 + row < m && grp < groups) {
+      if (m0 + row < m && grp < groups)
         v = x32[(static_cast<size_t>(m0 + row) * k + static_cast<size_t>(grp) * group_size) / 4 + wj];
-      }
       xs_smem[(row * kTileGroups + gl) * xw_stride + wj] = v;
     }
     __syncthreads();
 
     const int grp = g0 + lane;
     if (grp < groups) {
-      int idot[MT][kNcol];
-      int xsum[MT];
+      int idot[kDpRows][kDpNcol];
+      int xsum[kDpRows];
 #pragma unroll
-      for (int i = 0; i < MT; ++i) {
+      for (int i = 0; i < kDpRows; ++i) {
         xsum[i] = 0;
 #pragma unroll
-        for (int c = 0; c < kNcol; ++c) idot[i][c] = 0;
+        for (int c = 0; c < kDpNcol; ++c) idot[i][c] = 0;
       }
       const int* xrow = xs_smem + lane * xw_stride;
-      for (int w0 = 0; w0 < words_per_group; w0 += VW) {
-        uint32_t wv[kNcol][VW];
+      for (int w0 = 0; w0 < words_per_group; ++w0) {
+        uint32_t wv[kDpNcol];
 #pragma unroll
-        for (int c = 0; c < kNcol; ++c) {
+        for (int c = 0; c < kDpNcol; ++c) {
           const int col = col0 + c;
-          const size_t off = static_cast<size_t>(col) * row_words +
-                             static_cast<size_t>(grp) * words_per_group + w0;
-          if constexpr (VW == 4) {
-            uint4 v = make_uint4(0u, 0u, 0u, 0u);
-            if (col < n) v = __ldg(reinterpret_cast<const uint4*>(wq + off));
-            wv[c][0] = v.x;
-            wv[c][1] = v.y;
-            wv[c][2] = v.z;
-            wv[c][3] = v.w;
-          } else {
-            wv[c][0] = col < n ? __ldg(wq + off) : 0u;
-          }
+          wv[c] = col < n ? __ldg(wq + static_cast<size_t>(col) * row_words +
+                                  static_cast<size_t>(grp) * words_per_group + w0)
+                          : 0u;
         }
 #pragma unroll
-        for (int v = 0; v < VW; ++v) {
+        for (int f = 0; f < kFields; ++f) {
+          const int xoff = w0 * kFields + f;
 #pragma unroll
-          for (int f = 0; f < kFields; ++f) {
-            const int xoff = (w0 + v) * kFields + f;
+          for (int i = 0; i < kDpRows; ++i) {
+            const int xw = xrow[i * kTileGroups * xw_stride + xoff];
+            xsum[i] = __dp4a(xw, 0x01010101, xsum[i]);
 #pragma unroll
-            for (int i = 0; i < MT; ++i) {
-              const int xw = xrow[i * kTileGroups * xw_stride + xoff];
-              xsum[i] = __dp4a(xw, 0x01010101, xsum[i]);
-#pragma unroll
-              for (int c = 0; c < kNcol; ++c) {
-                const int q = static_cast<int>((wv[c][v] >> (CB * f)) & kMask);
-                idot[i][c] = __dp4a(q, xw, idot[i][c]);
-              }
-            }
+            for (int c = 0; c < kDpNcol; ++c)
+              idot[i][c] = __dp4a(static_cast<int>((wv[c] >> (CB * f)) & kMask), xw, idot[i][c]);
           }
         }
       }
 #pragma unroll
-      for (int c = 0; c < kNcol; ++c) {
+      for (int c = 0; c < kDpNcol; ++c) {
         const int col = col0 + c;
         if (col < n) {
           const size_t gi = static_cast<size_t>(col) * meta_cols + grp;
           const float s = load_meta(scale, gi, meta_bf16);
-          const float z = load_meta(zs, gi, meta_bf16) + (meta_bf16 && CB == 4 ? 8.f * s : 0.f);
+          const float z = fmaf(zoff, s, load_meta(zs, gi, meta_bf16));
 #pragma unroll
-          for (int i = 0; i < MT; ++i) {
-            acc[i][c] += s * static_cast<float>(idot[i][c]) - static_cast<float>(xsum[i]) * z;
-          }
+          for (int i = 0; i < kDpRows; ++i)
+            acc[i][c] = fmaf(-static_cast<float>(xsum[i]), z,
+                             fmaf(s, static_cast<float>(idot[i][c]), acc[i][c]));
         }
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < MT; ++i) {
+  for (int i = 0; i < kDpRows; ++i) {
 #pragma unroll
-    for (int c = 0; c < kNcol; ++c) {
+    for (int c = 0; c < kDpNcol; ++c) {
       float v = acc[i][c];
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
       const int row = m0 + i;
       const int col = col0 + c;
-      float l = 0.f;
-      if (lora.r > 0) {  // uniform over the warp, as are row and col
-        if (row < m && col < n) {
-          for (int j = lane; j < lora.r; j += 32) {
-            l = fmaf(lora.xa[static_cast<size_t>(row) * lora.r + j],
-                     lora.b[static_cast<size_t>(j) * n + col], l);
-          }
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
-      }
       if (lane == 0 && row < m && col < n) {
+        const float l = lora.r > 0 ? lora_term(lora, row, col, n) : 0.f;
         hqq_store(out, static_cast<size_t>(row) * n + col, v * sx[row] + l, out_dtype);
       }
     }
   }
 }
 
-template <int CB, int MT, int VW>
-int launch(const void* x8, const void* sx, const void* wq, const void* scale, const void* zs,
-           Lora lora, void* out, int m, int n, int k, int group_size, int out_dtype,
-           int meta_dtype, cudaStream_t stream) {
-  auto kernel = w4a8_kernel<CB, MT, VW>;
-  const int smem = MT * kTileGroups * (group_size / 4 + 1) * 4;
+template <int CB>
+int launch_dp4a(const void* x8, const void* sx, const void* wq, const void* scale, const void* zs,
+                Lora lora, void* out, int m, int n, int k, int g, int out_dtype, int meta_dtype,
+                cudaStream_t stream) {
+  auto kernel = w4a8_dp4a_kernel<CB>;
+  const int smem = dp4a_smem(g);
   if (smem > 48 * 1024) {
-    cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const int cols_per_block = kWarps * kNcol;
-  dim3 grid((n + cols_per_block - 1) / cols_per_block, (m + MT - 1) / MT);
-  kernel<<<grid, kWarps * 32, smem, stream>>>(
+  const int cols = kDpWarps * kDpNcol;
+  dim3 grid((n + cols - 1) / cols, (m + kDpRows - 1) / kDpRows);
+  kernel<<<grid, kDpWarps * 32, smem, stream>>>(
       static_cast<const int8_t*>(x8), static_cast<const float*>(sx),
-      static_cast<const uint32_t*>(wq), scale, zs, lora, out, m, n, k, group_size, out_dtype,
-      meta_dtype == HQQ_BF16, hqq_ax1_meta_cols(k / group_size, meta_dtype));
+      static_cast<const uint32_t*>(wq), scale, zs, lora, out, m, n, k, g, out_dtype,
+      meta_dtype == HQQ_BF16, hqq_ax1_meta_cols(k / g, meta_dtype));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int CB, int MT>
-int dispatch_vw(const void* x8, const void* sx, const void* wq, const void* scale,
-                const void* zs, Lora lora, void* out, int m, int n, int k, int group_size,
-                int out_dtype, int meta_dtype, cudaStream_t stream) {
-  // 16-byte loads need a group of a multiple of 4 words (it keeps every
-  // row and every group 16-byte aligned)
-  if ((group_size / (32 / CB)) % 4 == 0)
-    return launch<CB, MT, 4>(x8, sx, wq, scale, zs, lora, out, m, n, k, group_size, out_dtype,
-                             meta_dtype, stream);
-  return launch<CB, MT, 1>(x8, sx, wq, scale, zs, lora, out, m, n, k, group_size, out_dtype,
-                           meta_dtype, stream);
-}
-
-template <int CB>
-int dispatch_mt(const void* x8, const void* sx, const void* wq, const void* scale,
-                const void* zs, Lora lora, void* out, int m, int n, int k, int group_size,
-                int out_dtype, int meta_dtype, cudaStream_t stream) {
-#define HQQ_W4A8_MT(MT)                                                                     \
-  return dispatch_vw<CB, MT>(x8, sx, wq, scale, zs, lora, out, m, n, k, group_size, out_dtype, \
-                             meta_dtype, stream)
-  if (m <= 1) HQQ_W4A8_MT(1);
-  if (m <= 2) HQQ_W4A8_MT(2);
-  if (m <= 4) HQQ_W4A8_MT(4);
-  HQQ_W4A8_MT(8);
-#undef HQQ_W4A8_MT
-}
-
-int dispatch_cb(const void* x8, const void* sx, const void* wq, const void* scale, const void* zs,
-                Lora lora, void* out, int m, int n, int k, int group_size, int cb, int out_dtype,
-                int meta_dtype, cudaStream_t s) {
+// route: 0 the tensor cores, 1 the CUDA cores (the plan's choice by shape);
+// token_tile, rows (weight rows of a block), stages, bc (columns of a meta
+// box) and smem: the plan's (smem checked against the formula of the route)
+int dispatch(const void* x8, const void* sx, const void* wq, const void* scale, const void* zs,
+             Lora lora, void* out, int m, int n, int k, int g, int cb, int out_dtype,
+             int meta_dtype, int route, int token_tile, int rows, int stages, int bc, int smem,
+             cudaStream_t s) {
   if (meta_dtype != HQQ_F32 && meta_dtype != HQQ_BF16) return static_cast<int>(cudaErrorInvalidValue);
-#define HQQ_W4A8_CB(CB) \
-  return dispatch_mt<CB>(x8, sx, wq, scale, zs, lora, out, m, n, k, group_size, out_dtype, meta_dtype, s)
+  if (m < 1 || m > 32 || k % g != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (route == 1) {
+    if (smem != dp4a_smem(g)) return static_cast<int>(cudaErrorInvalidValue);
+#define HQQ_W4A8_DP(CB) \
+  return launch_dp4a<CB>(x8, sx, wq, scale, zs, lora, out, m, n, k, g, out_dtype, meta_dtype, s)
+    switch (cb) {
+      case 1: HQQ_W4A8_DP(1);
+      case 2: HQQ_W4A8_DP(2);
+      case 4: HQQ_W4A8_DP(4);
+      case 8: HQQ_W4A8_DP(8);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef HQQ_W4A8_DP
+  }
+  const int msize = meta_dtype == HQQ_BF16 ? 2 : 4;
+  const int kc = 1024 / cb;
+  const int total = (k + kc - 1) / kc;
+  // the meta boxes cover every group a step reads, those past K included
+  const int boxes = bc < 1 ? 0 : ((total * kc + g - 1) / g + bc - 1) / bc;
+  if (route != 0 || g % 32 != 0 || (static_cast<long>(k) * cb / 8) % 16 != 0 ||
+      (rows != 32 && rows != 64 && rows != 128) || stages < 1 ||
+      stages % (kConsumers / (rows / 16)) != 0 || bc < 1 || bc > 256 || (bc * msize / 16) % 2 != 1 ||
+      bc * msize % 16 != 0 || token_tile < m ||
+      smem != tc_smem(kc, token_tile / 8, bc, boxes, msize, stages, rows).total)
+    return static_cast<int>(cudaErrorInvalidValue);
+  TcArgs a;
+  a.scale = scale, a.zs = zs;
+  a.sx = static_cast<const float*>(sx);
+  a.lora = lora;
+  a.out = out;
+  a.m = m, a.n = n, a.k = k, a.g = g, a.out_dtype = out_dtype;
+  a.meta_bf16 = meta_dtype == HQQ_BF16;
+  a.meta_cols = hqq_ax1_meta_cols(k / g, meta_dtype);
+  a.stages_total = total;
+  a.rows = rows, a.stages = stages, a.bc = bc, a.boxes = boxes;
+  // TMA for scale and zs where rows and base meet the 16-byte rule
+  a.meta_tma = (static_cast<long>(a.meta_cols) * msize) % 16 == 0 &&
+               reinterpret_cast<uintptr_t>(scale) % 16 == 0 && reinterpret_cast<uintptr_t>(zs) % 16 == 0;
+  if (reinterpret_cast<uintptr_t>(x8) % 16 || reinterpret_cast<uintptr_t>(wq) % 16 || k % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (cb) {
-    case 1: HQQ_W4A8_CB(1);
-    case 2: HQQ_W4A8_CB(2);
-    case 4: HQQ_W4A8_CB(4);
-    case 8: HQQ_W4A8_CB(8);
+    case 1: return dispatch_nt<1>(x8, wq, a, token_tile, smem, s);
+    case 2: return dispatch_nt<2>(x8, wq, a, token_tile, smem, s);
+    case 4: return dispatch_nt<4>(x8, wq, a, token_tile, smem, s);
+    case 8: return dispatch_nt<8>(x8, wq, a, token_tile, smem, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef HQQ_W4A8_CB
 }
 
 }  // namespace
 
 // meta_dtype: HQQ_F32 or HQQ_BF16, the type of scale and zs [N, C]
-// (`hqq_ax1_meta_cols`)
+// (`hqq_ax1_meta_cols`); route .. smem: `w4a8_launch_plan`'s
 HQQ_EXPORT int hqq_w4a8_matmul(const void* x8, const void* sx, const void* wq, const void* scale,
                                const void* zs, void* out, int m, int n, int k, int group_size,
-                               int cb, int out_dtype, int meta_dtype, void* stream) {
-  return dispatch_cb(x8, sx, wq, scale, zs, Lora{nullptr, nullptr, 0}, out, m, n, k, group_size,
-                     cb, out_dtype, meta_dtype, static_cast<cudaStream_t>(stream));
+                               int cb, int out_dtype, int meta_dtype, int route, int token_tile,
+                               int rows, int stages, int bc, int smem, void* stream) {
+  return dispatch(x8, sx, wq, scale, zs, Lora{nullptr, nullptr, 0}, out, m, n, k, group_size, cb,
+                  out_dtype, meta_dtype, route, token_tile, rows, stages, bc, smem,
+                  static_cast<cudaStream_t>(stream));
 }
 
 // xa fp32 [M, r] and lb fp32 [r, N], r >= 1: the LoRA epilogue
@@ -272,11 +665,12 @@ HQQ_EXPORT int hqq_w4a8_lora_matmul(const void* x8, const void* sx, const void* 
                                     const void* scale, const void* zs, const void* xa,
                                     const void* lb, void* out, int m, int n, int k, int r,
                                     int group_size, int cb, int out_dtype, int meta_dtype,
-                                    void* stream) {
+                                    int route, int token_tile, int rows, int stages, int bc,
+                                    int smem, void* stream) {
   if (r < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Lora lora{static_cast<const float*>(xa), static_cast<const float*>(lb), r};
-  return dispatch_cb(x8, sx, wq, scale, zs, lora, out, m, n, k, group_size, cb, out_dtype,
-                     meta_dtype, static_cast<cudaStream_t>(stream));
+  return dispatch(x8, sx, wq, scale, zs, lora, out, m, n, k, group_size, cb, out_dtype, meta_dtype,
+                  route, token_tile, rows, stages, bc, smem, static_cast<cudaStream_t>(stream));
 }
 
 HQQ_EXPORT const char* hqq_error_string(int code) {

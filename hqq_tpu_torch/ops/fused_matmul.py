@@ -74,6 +74,9 @@ __all__ = [
     "QmmPlan",
     "qmm_launch_plan",
     "qmm_fp32_launch_plan",
+    "W4a8Plan",
+    "w4a8_launch_plan",
+    "w4a8_smem_bytes",
     "ax0_tile_rows",
     "lora_a_kernel_layout",
     "lora_rank_tile",
@@ -106,6 +109,13 @@ QMM_SPLIT_MAX_M = A8_MAX_M
 QMM_FP32_SLAB = 32
 QMM_FP32_TOKEN_TILES = (8, 32, 64, 128)
 QMM_FP32_RANK_TILE = 8
+# the w4a8 kernel (csrc/w4a8_matmul.cu): eight consumer warps, stages of one
+# 128-byte code row each (1024/cb codes), token tiles of 8, 16 or 32, rings
+# of at most 8 slots; an SM's shared memory
+W4A8_CONSUMERS = 8
+W4A8_TOKEN_TILES = (8, 16, 32)
+W4A8_MAX_STAGES = 8
+H100_SMEM_PER_SM = 233472
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -561,6 +571,134 @@ def qmm_fp32_launch_plan(m: int, n: int, k: int, cb: int, group_size: int, axis:
                    passes=-(-rank // QMM_FP32_RANK_TILE) if lora else 1)
 
 
+@dataclasses.dataclass(frozen=True)
+class W4a8Plan:
+    """How `w4a8_matmul` and `w4a8_lora_matmul` launch.
+
+    ``route`` "tensor_cores": a block per ``col_tile`` weight rows (grid
+    (column tiles,)), which first loads its scale and zs for the whole of K
+    (``meta_boxes`` TMA boxes of ``meta_cols`` columns each), then walks all
+    ``stages_total`` stages of ``stage_codes`` codes through a ring of
+    ``stages`` slots; its eight consumer warps are col_tile/16 row groups by
+    ``k_slices`` slices, stage i going to slice i % k_slices; ``smem``
+    bytes. "cuda_cores": the small-group kernel, blocks of 16 columns by 8
+    rows of x8 (grid (column tiles, row tiles)); the stage fields are 0.
+    ``meta_tma``: scale and zs by TMA (rows of whole 16 bytes; else 4-byte
+    cp.async by every thread of the block). ``why`` says why the route was taken, or
+    why the grid leaves SMs idle."""
+
+    route: str
+    token_tile: int
+    col_tile: int
+    stage_codes: int
+    stages_total: int
+    k_slices: int
+    stages: int
+    meta_cols: int
+    meta_boxes: int
+    smem: int
+    grid: tuple
+    meta_tma: bool = False
+    why: str = ""
+
+    @property
+    def route_code(self) -> int:
+        return 0 if self.route == "tensor_cores" else 1
+
+
+def _w4a8_meta_box(groups: int, meta_size: int) -> tuple[int, int]:
+    """(columns of a meta TMA box, boxes) that hold ``groups`` groups: the
+    least width whose bytes are an odd multiple of 16 (the 8 rows a warp
+    reads then fall in 8 different bank groups) and at most 256 columns,
+    as many boxes as that takes."""
+    unit = 16 // meta_size
+    if groups <= 256 - unit:
+        bc = -(-groups // unit) * unit
+        bc += unit * (1 - bc // unit % 2)
+    else:
+        bc = 256 - unit if (256 - unit) // unit % 2 else 256 - 2 * unit
+    return bc, -(-groups // bc)
+
+
+def w4a8_smem_bytes(stage_codes: int, token_tile: int, meta_box: int, meta_boxes: int,
+                    meta_size: int, stages: int, rows: int) -> int:
+    """Dynamic shared memory of one block of the w4a8 kernel (`tc_smem` of
+    csrc/w4a8_matmul.cu): the block's scale and zs [meta_boxes][rows]
+    [meta_box] each; the ring of ``stages`` slots, each the codes [rows x
+    128 bytes] and x8 in boxes of [token_tile x 128 bytes], padded to 1024
+    bytes, which after the last stage holds the fp32 partials of the
+    k-slices [slices x token_tile x (rows + 4)]; the barriers; 1024 bytes to
+    align the base."""
+    meta = -(-2 * meta_boxes * rows * meta_box * meta_size // 1024) * 1024
+    stage = -(-(rows * 128 + stage_codes // 128 * 128 * token_tile) // 1024) * 1024
+    part = W4A8_CONSUMERS // (rows // 16) * token_tile * (rows + 4) * 4
+    return 1024 + meta + max(stages * stage, part) + 16 * stages + 8
+
+
+@functools.lru_cache(maxsize=4096)
+def w4a8_launch_plan(m: int, n: int, k: int, cb: int, group_size: int,
+                     meta_dtype: torch.dtype = torch.float32) -> W4a8Plan:
+    """The launch of the w4a8 kernel for x8 [m, k] (m <= 32) and a weight of
+    n rows in ``cb``-bit containers with groups of ``group_size``.
+
+    Route, by shape, before any launch: the tensor cores where a group is
+    whole k32 steps (g % 32 == 0), the code rows meet a TMA map's 16-byte
+    rule (k * cb / 8 % 16 == 0) and a block's scale and zs for the whole of
+    K fit its shared memory beside the shortest ring; else the CUDA cores
+    (the planned small-group route: g = 8, 16, 24, ..., 1- or 2-bit rows of
+    odd 16-byte length, and meta too large for a block, such as 1-bit g32
+    at K = 11008 and 32 tokens).
+
+    Tensor cores: token tile 8, 16 or 32, the least that holds m; stages of
+    1024/cb codes (one 128-byte code row). Blocks of 64 weight rows, or 32
+    where that leaves fewer blocks than SMs; at the 32-token tile 128, 64
+    or 32, the most that keeps 0.6 blocks per SM (x8 is read from L2 once
+    per block, at 32 tokens and 32 rows twice the codes' bytes). The ring: the deepest multiple of the
+    k-slices up to 8 that fits the shared memory of the blocks an SM holds
+    at once."""
+    g = group_size
+    meta_size = 2 if meta_dtype == torch.bfloat16 else 4
+
+    def small(why):
+        return W4a8Plan(route="cuda_cores", token_tile=8, col_tile=16, stage_codes=0,
+                        stages_total=0, k_slices=0, stages=0, meta_cols=0, meta_boxes=0,
+                        smem=8 * 32 * (g // 4 + 1) * 4, grid=(-(-n // 16), -(-m // 8)), why=why)
+
+    if g % 32:
+        return small(f"g = {g} is not a multiple of 32 codes")
+    if k * cb // 8 % 16:
+        return small(f"code rows of {k * cb // 8} bytes break the 16-byte rule of a TMA map")
+    tile = next(t for t in W4A8_TOKEN_TILES if t >= m)
+    kc = 1024 // cb
+    total = -(-k // kc)
+    bc, boxes = _w4a8_meta_box(-(-total * kc // g), meta_size)
+
+    def smem(rows, stages):
+        return w4a8_smem_bytes(kc, tile, bc, boxes, meta_size, stages, rows)
+
+    least = H100_SMS if tile <= 16 else 0.6 * H100_SMS
+    options = (64, 32) if tile <= 16 else (128, 64, 32)
+    fits = [r for r in options if smem(r, W4A8_CONSUMERS // (r // 16)) <= H100_SMEM_PER_BLOCK]
+    if not fits:
+        return small(f"a block's scale and zs ({boxes} x {bc} columns) leave no room for a ring")
+    rows = next((r for r in fits if -(-n // r) >= least), fits[-1])
+    slices = W4A8_CONSUMERS // (rows // 16)
+    blocks = -(-n // rows)
+    resident = min(4, max(1, -(-blocks // H100_SMS)))  # blocks an SM holds at once
+    budget = H100_SMEM_PER_SM // resident - 1024
+    stages = min(W4A8_MAX_STAGES, -(-total // slices) * slices)
+    while stages > slices and smem(rows, stages) > budget:
+        stages -= slices
+    if smem(rows, stages) > H100_SMEM_PER_BLOCK:
+        raise ValueError(f"no ring of the w4a8 kernel fits for cb {cb}, g {g}, {rows} rows")
+    why = "" if blocks >= H100_SMS else (
+        f"{blocks} blocks of {rows} rows: N = {n} has no more at token tile {tile}")
+    return W4a8Plan(route="tensor_cores", token_tile=tile, col_tile=rows, stage_codes=kc,
+                    stages_total=total, k_slices=slices, stages=stages, meta_cols=bc,
+                    meta_boxes=boxes, smem=smem(rows, stages), grid=(blocks,),
+                    meta_tma=ax1_meta_cols(k // g, meta_dtype) * meta_size % 16 == 0, why=why)
+
+
 def dequant_plain(kqt: "KernelQTensor | KernelQTensor0", dtype=torch.float32) -> torch.Tensor:
     """Plain version of the dequant kernel: W [N, K] = c*scale - zs in fp32,
     then cast to ``dtype``. Axis=0: row n takes row n % (N/g) of scale and
@@ -868,12 +1006,18 @@ def _w4a8_operands(x8, sx, kqt, out_dtype):
     if out_dtype not in _DTYPE_CODE:
         raise ValueError(f"w4a8 kernel writes fp32, bf16 or fp16, not {out_dtype}")
     x8 = x8.contiguous()
-    if x8.data_ptr() % 4:
+    if x8.data_ptr() % 16:  # the base of a TMA map
         x8 = x8.clone()
     sx = sx.to(torch.float32).contiguous()
     if sx.numel() != m or sx.device != dev:
         raise ValueError("sx must hold one fp32 scale per row, on the device of x8")
-    return x8, sx
+    plan = w4a8_launch_plan(m, kqt.n, k, kqt.container_bits, kqt.group_size, kqt.scale.dtype)
+    return x8, sx, plan
+
+
+def _w4a8_plan_args(plan: W4a8Plan) -> tuple:
+    """The plan's fields as the C entries take them, after the meta type."""
+    return (plan.route_code, plan.token_tile, plan.col_tile, plan.stages, plan.meta_cols, plan.smem)
 
 
 def w4a8_matmul(
@@ -885,7 +1029,7 @@ def w4a8_matmul(
     if _on_cpu(x8):
         return w4a8_matmul_plain(x8, sx, kqt, out_dtype)
     dev = x8.device
-    x8, sx = _w4a8_operands(x8, sx, kqt, out_dtype)
+    x8, sx, plan = _w4a8_operands(x8, sx, kqt, out_dtype)
     m, k = x8.shape
     out = torch.empty((m, kqt.n), dtype=out_dtype, device=dev)
     lib = _build.library("w4a8_matmul")
@@ -893,7 +1037,8 @@ def w4a8_matmul(
         code = lib.hqq_w4a8_matmul(
             _ptr(x8, 4), _ptr(sx, 4), _ptr(kqt.wq, 16), _ptr(kqt.scale, 4), _ptr(kqt.zs, 4),
             _ptr(out, 2), m, kqt.n, k, kqt.group_size, kqt.container_bits,
-            _DTYPE_CODE[out_dtype], _DTYPE_CODE[kqt.scale.dtype], _stream(dev),
+            _DTYPE_CODE[out_dtype], _DTYPE_CODE[kqt.scale.dtype], *_w4a8_plan_args(plan),
+            _stream(dev),
         )
     _build.check("w4a8_matmul", code)
     w4a8_matmul.launches += 1
@@ -919,7 +1064,7 @@ def w4a8_lora_matmul(
     if _on_cpu(x8):
         return w4a8_lora_matmul_plain(x8, sx, kqt, xa, b, out_dtype)
     dev = x8.device
-    x8, sx = _w4a8_operands(x8, sx, kqt, out_dtype)
+    x8, sx, plan = _w4a8_operands(x8, sx, kqt, out_dtype)
     m, k = x8.shape
     r = b.shape[0]
     if r < 1 or tuple(xa.shape) != (m, r) or tuple(b.shape) != (r, kqt.n):
@@ -936,7 +1081,7 @@ def w4a8_lora_matmul(
             _ptr(x8, 4), _ptr(sx, 4), _ptr(kqt.wq, 16), _ptr(kqt.scale, 4), _ptr(kqt.zs, 4),
             _ptr(xa, 4), _ptr(b, 4), _ptr(out, 2), m, kqt.n, k, r, kqt.group_size,
             kqt.container_bits, _DTYPE_CODE[out_dtype], _DTYPE_CODE[kqt.scale.dtype],
-            _stream(dev),
+            *_w4a8_plan_args(plan), _stream(dev),
         )
     _build.check("w4a8_lora_matmul", code)
     w4a8_lora_matmul.launches += 1

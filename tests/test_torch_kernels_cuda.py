@@ -80,6 +80,40 @@ def test_w4a8_matmul(cuda, m, nbits, g, k, n):
         _close(fm.w4a8_matmul(x8, sx, kqt, dtype), fm.w4a8_matmul_plain(x8, sx, kqt, dtype), tol)
 
 
+@pytest.mark.parametrize("m", [1, 8, 32])
+@pytest.mark.parametrize("nbits,g,k,n", [(4, 8, 512, 256), (4, 16, 512, 1000), (4, 24, 960, 256)])
+def test_w4a8_matmul_small_groups(cuda, m, nbits, g, k, n):
+    """Groups of 8, 16 and 24 codes: the plan's CUDA-core route."""
+    kqt = _kqt(n, k, g, nbits, cuda, seed=m)
+    assert fm.w4a8_launch_plan(m, n, k, kqt.container_bits, g).route == "cuda_cores"
+    x = torch.randn((m, k), device=cuda)
+    x8, sx = fm.quantize_activations_int8(x)
+    for dtype, tol in _OUT_TOL.items():
+        _close(fm.w4a8_matmul(x8, sx, kqt, dtype), fm.w4a8_matmul_plain(x8, sx, kqt, dtype), tol)
+
+
+@pytest.mark.parametrize("meta_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 11008), (11008, 4096)])
+def test_w4a8_matmul_decode_8_slots(cuda, meta_dtype, k, n):
+    """M = 8, the paged engine's decode of 8 slots, at the 7B shapes."""
+    kqt = _kqt(n, k, 64, 4, cuda, seed=k + n)
+    if meta_dtype == torch.bfloat16:
+        kqt = _kqt_bf16(n, k, 64, 4, cuda, seed=k + n)
+    x = torch.randn((8, k), device=cuda)
+    x8, sx = fm.quantize_activations_int8(x)
+    for dtype, tol in _OUT_TOL.items():
+        _close(fm.w4a8_matmul(x8, sx, kqt, dtype), fm.w4a8_matmul_plain(x8, sx, kqt, dtype), tol)
+
+
+def test_w4a8_matmul_repeats_bit_equal(cuda):
+    """Three runs at (32, 11008, 4096): the k-slices' partials summed in a
+    fixed order, no atomics."""
+    kqt = _kqt(4096, 11008, 64, 4, cuda, seed=3)
+    x8, sx = fm.quantize_activations_int8(torch.randn((32, 11008), device=cuda))
+    first = fm.w4a8_matmul(x8, sx, kqt)
+    assert all(torch.equal(fm.w4a8_matmul(x8, sx, kqt), first) for _ in range(3))
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("m,nbits,g,k,n", [
     (1, 4, 64, 512, 1000),
