@@ -6,6 +6,7 @@
     python3 chip_smoke.py --time quant_matmul_ax0 512 4096 4096 3-64-fp32  # nbits-g-meta
     python3 chip_smoke.py --time quant_matmul_ax0 512 4096 4096 3-64-fp32 element-stores
     python3 chip_smoke.py --time qmm_fp32 512 4096 4096          # fp32 x; [RANK | NBITS-G-META]
+    python3 chip_smoke.py --time dequant_canonical 1 11008 4096 wide-loads  # W [N, K]; M unused
     python3 chip_smoke.py --time paged_attention 8 1024 32 32 int8  # slots, length, heads, kv
                                                                     # heads[, bf16 | int8 pages]
     python3 chip_smoke.py --time flash_attention 1 1023 32 32    # batch, T, heads, kv heads
@@ -22,7 +23,8 @@ Phases (any failure exits non-zero):
       quant_matmul_ax0, quant_matmul_lora, qmm_fp32, flash_prefill,
       flash_fp32_sm90, flash_backward_sm90, flash_backward_fp32_sm90), the
       bulk copies (UBLKCP) of paged_attention, and the int8 MMAs (IMMA) and
-      TMA loads of w4a8_matmul, whose instantiations must not spill;
+      TMA loads of w4a8_matmul; the instantiations of w4a8_matmul and dequant
+      must not spill;
   (b) each kernel against its plain PyTorch version at the main paths'
       shapes: largest error against the stated tolerance, kernel time, plain
       time, the least time the card could take (bound), and for the matmuls
@@ -46,7 +48,12 @@ Phases (any failure exits non-zero):
       dropped, the mask shifted by one; for fp32 also one TF32 product, the
       plain backward with TF32 allowed), repeated runs bit-equal, SDPA's
       backward as the yardstick; the forward with and without its
-      log-sum-exp;
+      log-sum-exp; the dequant kernel's three entries bit-equal to their
+      plain twins, with controls, three runs bit-equal, ms against the byte
+      bound: the kernel layouts at 4096 x 11008 (fp32 and bf16 meta, axis=0
+      2-bit g16) and the canonical QTensor at path I's three shapes, 2-bit
+      g16 axis=0, 3-bit g64, bf16 meta and meta-quantized (the control c*s
+      - z*s in place of (c - z)*s);
   (c) the main path: Llama-2-7B at full width and depth with random weights
       from a seed, quantize_model(4-bit, g64), prepare_for_inference("w4a8"),
       generate for 4 prompts of 100 tokens (prefill M = 4*128 = 512 rows),
@@ -92,9 +99,13 @@ Phases (any failure exits non-zero):
       "xla"), LoRA r = 8 on the 224 linears, 4 AdamW steps on 1 x 1025 ids
       through causal_lm_loss and make_lora_train_step, then merge_lora. Every
       step launches the flash forward, the dK/dV and the dQ kernel 32 times
-      each; the loss falls; step ms, tokens/s, the device's busy share, peak
-      memory. On 2-layer models at 7B width: the LoRA gradients through the
-      kernels against the plain attention backward, in bf16 and in fp32
+      each and the canonical dequant 445 times (each linear's W in its
+      forward and again in its backward, but layer 0's q, k and v, whose
+      backward never runs), never the plain dequantization; the loss falls;
+      step ms, tokens/s, the device's busy share, peak memory, the step's
+      device time and the canonical dequant's share of it. On 2-layer
+      models at 7B width: the LoRA gradients through the kernels against
+      the plain attention backward, in bf16 and in fp32
       (the fp32 forward and the fp32 dK/dV and dQ kernels, 2 launches each,
       and their device time in the step), with the control D dropped; fp32
       HQQ+ serving through qmm_fp32 and flash_attention_fp32 against the
@@ -112,7 +123,10 @@ change, change, parent. KERNEL is quant_matmul, w4a8_matmul,
 quant_matmul_lora or w4a8_lora_matmul (4-bit g64, RANK 8 unless given),
 quant_matmul_ax0 or dequant_ax0 (2-bit g16, bf16 scale and zs, or the
 config NBITS-G-META given after N, e.g. 3-64-fp32, path F's attention, and
-for quant_matmul_ax0 then a variant of AX0_VARIANTS), qmm_fp32 (fp32 x
+for quant_matmul_ax0 then a variant of AX0_VARIANTS), dequant and
+dequant_canonical (W [N, K] to bf16 from the axis=1 kernel layout or a
+canonical QTensor, 4-bit g64 fp32 meta or a config NBITS-G-META; M unused;
+the three dequant entries then take a variant of DEQUANT_VARIANTS), qmm_fp32 (fp32 x
 through quant_matmul at 4-bit g64, quant_matmul_lora given a RANK, or
 quant_matmul_ax0 given a config); for
 paged_attention the four numbers are slots, length, query heads and kv heads
@@ -153,12 +167,17 @@ WGMMA_SOURCES = ("quant_matmul.cu", "quant_matmul_ax0.cu", "quant_matmul_lora.cu
 BULK_SOURCES = ("paged_attention.cu",)
 # the source on the int8 tensor cores (mma.sync, IMMA) fed by TMA
 IMMA_SOURCES = ("w4a8_matmul.cu",)
+# the sources whose kernel instantiations must not spill
+NO_SPILL_SOURCES = IMMA_SOURCES + ("dequant.cu",)
 # wrapper -> (source, the TPU kernel it replaces, a second one it replaces)
 KERNELS = {
     "w4a8_matmul": ("w4a8_matmul.cu", "hqq_tpu/ops/fused_matmul.py:524",
                     "hqq_tpu/ops/fused_matmul.py:776"),
     "quant_matmul": ("quant_matmul.cu", "hqq_tpu/ops/fused_matmul.py:307", None),
     "dequant": ("dequant.cu", "hqq_tpu/ops/fused_matmul.py:982", None),
+    # the canonical QTensor's dequantization, which hqq_tpu leaves to XLA's
+    # fusion (no Pallas kernel): the weight of the canonical QuantLinear
+    "dequant_canonical": ("dequant.cu", "hqq_tpu/core/quantize.py:381", None),
     "quant_matmul_ax0": ("quant_matmul_ax0.cu", "hqq_tpu/ops/fused_matmul.py:1223",
                          "hqq_tpu/ops/fused_matmul.py:1318"),
     "quant_matmul_lora": ("quant_matmul_lora.cu", "hqq_tpu/ops/fused_matmul.py:1521", None),
@@ -187,6 +206,7 @@ PICK = {
     "w4a8_matmul": (4, 4096, 11008, ""),
     "quant_matmul": (512, 4096, 4096, ""),
     "dequant": (None, 11008, 4096, ""),
+    "dequant_canonical": (None, 11008, 4096, "canonical 4-bit g64 axis=1, fp32 meta"),
     "quant_matmul_ax0": (4, 4096, 11008, "2-bit g16 axis=0, bf16 meta"),
     "quant_matmul_lora": (512, 4096, 4096, "r=8"),
     "w4a8_lora_matmul": (4, 4096, 11008, "r=8"),
@@ -315,8 +335,9 @@ def time_ms(fns, iters: int, only: str = "") -> float:
 def device_share(fn) -> dict:
     """Run ``fn`` once under torch.profiler: the wall time, the share of it
     the device spent in kernels and copies (one stream, so their durations
-    add up), the five kernels with the most device time, and the device
-    time of the w4a8 kernels by name."""
+    add up) and that device time, the five kernels with the most device
+    time, the device time of the w4a8 kernels by name, and of every kernel
+    by its full name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -338,9 +359,9 @@ def device_share(fn) -> dict:
         if name:
             w4a8[name.group(0)] = round(w4a8.get(name.group(0), 0.0)
                                         + e.self_device_time_total / 1e3, 3)
-    return dict(wall_ms=wall_ms, busy_share=device_ms / wall_ms,
+    return dict(wall_ms=wall_ms, busy_share=device_ms / wall_ms, device_ms=device_ms,
                 top={e.key[:40]: round(e.self_device_time_total / 1e3, 3) for e in top},
-                w4a8=w4a8)
+                w4a8=w4a8, by_name={e.key: e.self_device_time_total / 1e3 for e in events})
 
 
 def card_state() -> str:
@@ -378,8 +399,15 @@ def phase_a(name: str, power: str) -> None:
                 if "kernel" in fn and reg:
                     log(f"[a]     {fn.split('EEv')[0]}: {reg.group(1)} registers, "
                         f"{spill.group(1) if spill else '?'} bytes spill stores")
-                    if kname in IMMA_SOURCES and (not spill or int(spill.group(1))):
-                        raise AssertionError(f"{kname}: {fn} spills")
+        if kname in NO_SPILL_SOURCES:  # a spill, or no note of one, fails
+            entries = re.findall(r"Compiling entry function '(\w+)'(.*?)(?=Compiling|\Z)", text,
+                                 flags=re.S)
+            spilled = [fn for fn, body in entries
+                       if int((re.search(r"(\d+) bytes spill stores", body) or [0, 1])[1])]
+            log(f"[a]     {len(entries)} kernel instantiations, {len(spilled)} spill")
+            if spilled:
+                raise AssertionError(f"{kname}: {len(spilled)} kernel instantiations spill, "
+                                     f"e.g. {spilled[0]}")
     # the Hopper mainloops really issue wgmma (HGMMA) and TMA loads (UTMALDG)
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     for source in WGMMA_SOURCES:
@@ -672,25 +700,6 @@ def phase_b() -> dict:
                                     ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by,
                                     library_ms=lib, note=""))
 
-    # -- dequant of one 4096 x 11008 layer (down_proj: out 4096, in 11008) --
-    n, k = 4096, 11008
-    kqt = _make_kqt(n, k, g, 4, seed=5)
-    w = fm.dequant(kqt, torch.bfloat16)
-    ref = fm.dequant_plain(kqt, torch.bfloat16)
-    torch.cuda.synchronize()
-    err = (w.float() - ref.float()).abs().max().item()
-    # the same fp32 multiply and subtract, the same rounding: exact
-    if err != 0.0:
-        raise AssertionError(f"dequant {n}x{k}: err {err} != 0")
-    wbytes = kqt.wq.numel() + 8 * kqt.scale.numel()
-    kq, _ = _copies(kqt, None, wbytes + 2 * n * k)
-    ms = time_ms([lambda a=a: fm.dequant(a, torch.bfloat16) for a in kq], iters)
-    plain = time_ms([lambda: fm.dequant_plain(kqt, torch.bfloat16)], max(3, iters // 10))
-    del kq, w, ref
-    b_ms, by = bound_ms(wbytes + 2 * n * k, 2.0 * n * k, "fp32")
-    record("dequant", dict(kernel="dequant", m=None, k=k, n=n, max_abs_err=err, ms=ms,
-                           plain_ms=plain, bound_ms=b_ms, bound_by=by, library_ms=None, note=""))
-
     def held(name, y, ref, tol_rel, what):
         """Largest error of ``y`` against ``ref``, held to tol_rel * max|ref|."""
         torch.cuda.synchronize()
@@ -790,24 +799,7 @@ def phase_b() -> dict:
                 kernel="quant_matmul_ax0", m=m, k=k, n=n, max_abs_err=err, ms=ms, plain_ms=plain,
                 bound_ms=b_ms, bound_by=by, library_ms=lib, note=note))
 
-    # -- dequant of an axis=0 weight (2-bit g16, bf16 meta), 11008 x 4096 ------
-    n, k = 11008, 4096
-    kqt = _make_kqt0(n, k, 16, 2, torch.bfloat16, seed=6)
-    w = fm.dequant(kqt, torch.bfloat16)
-    ref = fm.dequant_plain(kqt, torch.bfloat16)
-    torch.cuda.synchronize()
-    err = (w.float() - ref.float()).abs().max().item()
-    if err != 0.0:
-        raise AssertionError(f"dequant axis=0 {n}x{k}: err {err} != 0")
-    wbytes = _weight_bytes(kqt)
-    kq, _ = _copies(kqt, None, wbytes + 2 * n * k)
-    ms = time_ms([lambda p=p: fm.dequant(p, torch.bfloat16) for p in kq], iters)
-    plain = time_ms([lambda: fm.dequant_plain(kqt, torch.bfloat16)], max(3, iters // 10))
-    del kq, w, ref
-    b_ms, by = bound_ms(wbytes + 2 * n * k, 2.0 * n * k, "fp32")
-    record("dequant", dict(kernel="dequant", m=None, k=k, n=n, max_abs_err=err, ms=ms,
-                           plain_ms=plain, bound_ms=b_ms, bound_by=by, library_ms=None,
-                           note="2-bit g16 axis=0, bf16 meta"))
+    phase_b_dequant(record, iters)
     torch.cuda.empty_cache()
     phase_b_attention(record, held, iters)
     phase_b_bf16_meta(record, held, iters)
@@ -879,6 +871,139 @@ def _w4a8_held(what: str, kqt, kernel, plain) -> float:
     return worst
 
 
+def _qt_bytes(qt) -> int:
+    """Bytes of a canonical QTensor's codes and meta (meta-quantized meta
+    counted by its own codes and meta)."""
+    from hqq_tpu_torch.core.quantize import QTensor
+
+    def size(t):
+        return _qt_bytes(t) if isinstance(t, QTensor) else t.numel() * t.element_size()
+
+    return size(qt.wq) + size(qt.scale) + size(qt.zero)
+
+
+def _qt_copies(qt, bytes_each: int):
+    """Copies of a canonical QTensor enough to overflow L2 (`_copies`)."""
+    import dataclasses
+
+    from hqq_tpu_torch.core.quantize import QTensor
+
+    def clone(t):
+        if isinstance(t, QTensor):
+            return dataclasses.replace(t, wq=t.wq.clone(), scale=clone(t.scale),
+                                       zero=clone(t.zero))
+        return t.clone()
+
+    n = max(1, min(16, -(-ROTATE_BYTES // max(bytes_each, 1))))
+    return [qt] + [clone(qt) for _ in range(n - 1)]
+
+
+def _canonical_control(qt, dtype):
+    """The kernel layouts' formula c*s - z*s in place of (c - z)*s, in the
+    meta type T, by plain torch on the card: must not be bit-equal."""
+    from hqq_tpu_torch.core.quantize import resolve_meta, unpack_codes
+
+    qt = resolve_meta(qt)
+    c = unpack_codes(qt, torch.promote_types(qt.scale.dtype, qt.zero.dtype))
+    return (c * qt.scale - qt.zero * qt.scale).reshape(qt.shape).to(dtype)
+
+
+def _dequant_case(record, kernel: str, note: str, k: int, n: int, run, plain, controls: dict,
+                  copies: list, nbytes: int, iters: int) -> None:
+    """One dequant case of phase b: ``run(copy)`` against ``plain()`` bit for
+    bit (err must be exactly 0), each control (name -> W) not bit-equal to
+    the plain W, three runs bit-equal; device ms over the input copies, plain
+    ms, and the bound by the bytes (inputs read once, W written once)."""
+    y, ref = run(copies[0]), plain()
+    torch.cuda.synchronize()
+    err = (y.float() - ref.float()).abs().max().item()
+    if err != 0.0 or not torch.equal(y, ref):
+        raise AssertionError(f"{kernel} {note} {n}x{k}: err {err} != 0")
+    misses = {c: rel(w, ref) for c, w in controls.items() if not torch.equal(w, ref)}
+    runs = [run(copies[0]) for _ in range(3)]
+    equal = all(torch.equal(r, runs[0]) for r in runs[1:])
+    del y, ref, runs
+    ms = time_ms([lambda c=c: run(c) for c in copies], iters)
+    plain_ms = time_ms([plain], max(3, iters // 10))
+    b_ms, by = bound_ms(nbytes, 2.0 * n * k, "fp32")
+    log(f"[b] {kernel} {note or '4-bit g64 axis=1, fp32 meta'}, W [{n}, {k}] to bf16: err "
+        f"{err} (must be 0); controls {misses} (each must differ: "
+        f"{sorted(controls)}); three runs bit-equal: {equal}; {ms:.4f} ms, "
+        f"{b_ms / ms:.0%} of the byte bound {b_ms:.4f} ms; plain {plain_ms:.4f} ms")
+    if len(misses) != len(controls):
+        raise AssertionError(f"{kernel} {note}: a control is bit-equal to the plain W")
+    if not equal:
+        raise AssertionError(f"{kernel} {note}: repeated runs differ")
+    record(kernel, dict(kernel=kernel, m=None, k=k, n=n, max_abs_err=err, ms=ms,
+                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=None,
+                        note=note))
+
+
+def phase_b_dequant(record, iters: int) -> None:
+    """The dequant kernel's three entries to bf16, each bit-equal to its
+    plain twin: row 4 (the axis=1 kernel layout, 4-bit g64 at 4096 x 11008,
+    fp32 and bf16 meta; the axis=0 one, 2-bit g16 bf16 meta) with the
+    controls a neighbour's scale and, for bf16 meta, the zs offset dropped;
+    the canonical QTensor at path I's three shapes (4-bit g64 axis=1, fp32
+    meta) and in 2-bit g16 axis=0, 3-bit g64, bf16 meta and meta-quantized,
+    with the control c*s - z*s in place of (c - z)*s. No PyTorch call
+    computes the function (library ms: none)."""
+    import dataclasses
+    from unittest import mock
+
+    from hqq_tpu_torch.core.quantize import quantize
+    from hqq_tpu_torch.ops import fused_matmul as fm
+
+    bf16 = torch.bfloat16
+    n, k = 4096, 11008
+    for note, kqt in (("", _make_kqt(n, k, 64, 4, seed=5)),
+                      ("4-bit g64 axis=1, bf16 meta",
+                       _make_kqt_bf16(n, k, 64, 4, seed=k + n + len("dequant")))):
+        controls = {c: fm.dequant_plain(bad, bf16) for c, bad in _w4a8_controls(kqt).items()}
+        wbytes = _weight_bytes(kqt)
+        kq, _ = _copies(kqt, None, wbytes + 2 * n * k)
+        _dequant_case(record, "dequant", note, k, n, lambda q: fm.dequant(q, bf16),
+                      lambda: fm.dequant_plain(kqt, bf16), controls, kq, wbytes + 2 * n * k,
+                      iters)
+        del kq, controls
+    n, k = 11008, 4096
+    kqt = _make_kqt0(n, k, 16, 2, bf16, seed=6)
+    wbytes = _weight_bytes(kqt)
+    bad = dataclasses.replace(kqt, scale=kqt.scale.roll(1, dims=0))
+    kq, _ = _copies(kqt, None, wbytes + 2 * n * k)
+    _dequant_case(record, "dequant", "2-bit g16 axis=0, bf16 meta", k, n,
+                  lambda q: fm.dequant(q, bf16), lambda: fm.dequant_plain(kqt, bf16),
+                  {"neighbour's scale": fm.dequant_plain(bad, bf16)}, kq, wbytes + 2 * n * k,
+                  iters)
+    del kq, bad, kqt
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    cases = [("canonical 4-bit g64 axis=1, fp32 meta", n_, k_, dict(nbits=4, group_size=64))
+             for n_, k_ in ((4096, 4096), (11008, 4096), (4096, 11008))] + [
+        ("canonical 2-bit g16 axis=0, fp32 meta", 11008, 4096,
+         dict(nbits=2, group_size=16, axis=0)),
+        ("canonical 3-bit g64 axis=1, fp32 meta", 4096, 4096, dict(nbits=3, group_size=64)),
+        ("canonical 4-bit g64 axis=1, bf16 meta", 4096, 11008,
+         dict(nbits=4, group_size=64, meta_dtype=bf16)),
+        ("canonical 4-bit g64 axis=1, 8-bit meta-quantized scale and zero", 4096, 11008,
+         dict(nbits=4, group_size=64, scale_quant_params={}, zero_quant_params={}))]
+    for note, n, k, kw in cases:
+        w = torch.randn((n, k), generator=gen, device="cuda") / k**0.5
+        qt = quantize(w, round_zero=kw["nbits"] == 4, **kw)
+        del w
+        nbytes = _qt_bytes(qt) + 2 * n * k
+        copies = _qt_copies(qt, nbytes)
+
+        def plain(qt=qt):  # meta-quantized meta through the plain twin too
+            with mock.patch.object(fm, "dequant_canonical", fm.dequant_canonical_plain):
+                return fm.dequant_canonical_plain(qt, bf16)
+
+        _dequant_case(record, "dequant_canonical", note, k, n,
+                      lambda q: fm.dequant_canonical(q, bf16), plain,
+                      {"c*s - z*s": _canonical_control(qt, bf16)}, copies, nbytes, iters)
+        del copies, qt
+        torch.cuda.empty_cache()
+
+
 def phase_b_bf16_meta(record, held, iters: int) -> None:
     """Fault 1: the axis=1 kernels on a layout with bf16 scale and zs (the
     meta hqq_tpu serves), against their plain versions at the bars of the
@@ -891,11 +1016,10 @@ def phase_b_bf16_meta(record, held, iters: int) -> None:
     for kernel, (m, k, n) in [("quant_matmul", (512, 4096, 4096)),
                               ("quant_matmul_lora", (512, 4096, 4096)),
                               ("w4a8_matmul", (4, 4096, 11008)),
-                              ("w4a8_lora_matmul", (4, 4096, 11008)),
-                              ("dequant", (None, 11008, 4096))]:
+                              ("w4a8_lora_matmul", (4, 4096, 11008))]:
         kqt = _make_kqt_bf16(n, k, 64, 4, seed=k + n + len(kernel))
         a, b = _make_lora(k, n, seed=13)
-        mm = m or 1  # dequant takes no activations
+        mm = m
         x = torch.randn((mm, k), generator=gen, device="cuda").to(torch.bfloat16)
         x8, sx = fm.quantize_activations_int8(x)
         xa = x.float() @ a
@@ -914,9 +1038,6 @@ def phase_b_bf16_meta(record, held, iters: int) -> None:
                                                                      torch.float32),
                                  1e-5, wbytes + mm * k + 4 * mm * n + 4 * r * (mm + n),
                                  2.0 * mm * n * k),
-            "dequant": (lambda q: fm.dequant(q, torch.bfloat16),
-                        lambda q: fm.dequant_plain(q, torch.bfloat16), 0.0, wbytes + 2 * n * k,
-                        2.0 * n * k),
         }
         run, plain, tol, nbytes, ops = calls[kernel]
         err = held(kernel, run(kqt), plain(kqt), tol, f"{note} M={m} K={k} N={n}")
@@ -933,13 +1054,13 @@ def phase_b_bf16_meta(record, held, iters: int) -> None:
             lib = time_ms([lambda: torch.matmul(x, w_bf16.t()).float()
                            + torch.matmul(torch.matmul(x, a_bf16).float(), b)], iters)
             del w_bf16
-        elif m is not None:
+        else:
             w_bf16 = fm.dequant_plain(kqt, torch.bfloat16)
             lib = time_ms([lambda: torch.matmul(x, w_bf16.t())], iters)
             del w_bf16
         del kq
         kind = "int8" if kernel.startswith("w4a8") else "bf16"
-        b_ms, by = bound_ms(nbytes, ops, "fp32" if kernel == "dequant" else kind)
+        b_ms, by = bound_ms(nbytes, ops, kind)
         record(kernel, dict(kernel=kernel, m=m, k=k, n=n, max_abs_err=err, ms=ms,
                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=lib,
                             note=note))
@@ -2276,12 +2397,18 @@ def phase_i(dev_tag: str) -> dict:
     AdamW(lr=1e-3, weight_decay=0) for 4 steps on one batch of 1 x 1025 ids
     (T = 1024 after the shift), then PeftUtils.merge_lora. Every step's
     launch counts from 0: 32 each of the flash forward and the two backward
-    kernels. Returns the launches of the 4 steps."""
+    kernels, and 445 of the canonical dequant kernel (224 linears forward,
+    221 backward); the plain dequantization never runs, and the profile of a
+    fifth step holds none of its kernels. Returns the launches of the 4
+    steps."""
+    from unittest import mock
+
     from hqq_tpu_torch import BaseQuantizeConfig, ops
     from hqq_tpu_torch.core.peft import LoRALinear, PeftUtils, TrainableParams, lora_config
     from hqq_tpu_torch.models.base import quantize_model
     from hqq_tpu_torch.models.llama import LlamaConfig, forward, init_params
     from hqq_tpu_torch.nn.linear import QuantLinear
+    from hqq_tpu_torch.ops import fused_matmul as fm
     from hqq_tpu_torch.utils.training import make_lora_train_step
 
     cfg = LlamaConfig.llama2_7b()
@@ -2304,33 +2431,57 @@ def phase_i(dev_tag: str) -> dict:
         f"leaves, {n_train} values; {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     torch.cuda.reset_peak_memory_stats()
     window, losses, step_s = {}, [], []
-    for i in range(I_STEPS):
-        # the main path's window: every count from 0, read right after
-        ops.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.time()
-        loss = step(params, batch)
-        torch.cuda.synchronize()
-        step_s.append(time.time() - t0)
-        counts = launch_counts()
-        _train_counts(window, counts)
-        losses.append(loss.item())
-        per = {k: counts[k] for k in ("flash_attention", "flash_attention_backward_dkv",
-                                      "flash_attention_backward_dq")}
-        log(f"[i] step {i + 1}: loss {losses[-1]:.5f}, {step_s[-1] * 1e3:.1f} ms, launches {per}")
-        if any(v != layers for v in per.values()):
-            raise AssertionError(f"[i] step {i + 1}: launches {per}, expected {layers} each")
+    # the canonical dequant, once per quantized linear in the forward and once
+    # in the backward of each linear whose input carries a gradient: all but
+    # layer 0's q, k and v projections, which read the frozen embedding's
+    # normed output (tests/test_torch_dequant_plan.py counts it on a tiny model)
+    linears = len(trainable.paths) // 2
+    expect = {"flash_attention": layers, "flash_attention_backward_dkv": layers,
+              "flash_attention_backward_dq": layers, "dequant_canonical": 2 * linears - 3}
+    with mock.patch.object(fm, "dequant_canonical_plain",
+                           wraps=fm.dequant_canonical_plain) as plain_calls:
+        for i in range(I_STEPS):
+            # the main path's window: every count from 0, read right after
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            loss = step(params, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.time() - t0)
+            counts = launch_counts()
+            _train_counts(window, counts)
+            losses.append(loss.item())
+            per = {k: counts[k] for k in expect}
+            log(f"[i] step {i + 1}: loss {losses[-1]:.5f}, {step_s[-1] * 1e3:.1f} ms, "
+                f"launches {per}")
+            if per != expect:
+                raise AssertionError(f"[i] step {i + 1}: launches {per}, expected {expect}")
+    if plain_calls.call_count:
+        raise AssertionError(f"[i] the plain dequantization ran {plain_calls.call_count} times "
+                             f"on the card")
     peak = torch.cuda.max_memory_allocated() / 2**30
     if not all(map(lambda x: x == x and abs(x) < 1e4, losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"[i] losses {losses}: not finite, or not lower after step "
                              f"{I_STEPS} than at step 1")
     ms = sorted(s * 1e3 for s in step_s[1:])[len(step_s[1:]) // 2]
     busy = device_share(lambda: step(params, batch))  # a fifth step, under the profiler
-    log(f"[i] {dev_tag}: Llama-2-7B 4-bit g64 + LoRA r={I_RANK} on {len(trainable.paths) // 2} "
+    log(f"[i] {dev_tag}: Llama-2-7B 4-bit g64 + LoRA r={I_RANK} on {linears} "
         f"linears, T = {I_TOKENS - 1}: step {ms:.1f} ms (median of steps 2-{I_STEPS}), "
         f"{(I_TOKENS - 1) / ms * 1e3:.1f} tokens/s; losses {losses}; peak memory {peak:.2f} "
         f"GiB; a fifth step under the profiler: device busy {busy['busy_share']:.3f} of "
         f"{busy['wall_ms']:.1f} ms wall; device ms by kernel: {busy['top']}")
+    # the plain dequantization's unpacking (a uint8 shift and mask) runs
+    # nowhere else in the step
+    dq = {k: v for k, v in busy["by_name"].items() if "hqq_dequant_canonical_kernel" in k}
+    unpack = [k for k in busy["by_name"]
+              if "rshift_kernel_cuda" in k or "BitwiseAndFunctor<unsigned char>" in k]
+    log(f"[i] the fifth step: {busy['device_ms']:.3f} ms of device time, "
+        f"{sum(dq.values()):.3f} ms of it in the canonical dequant kernel "
+        f"({expect['dequant_canonical']} launches: {sorted(k[:90] for k in dq)}); kernels of "
+        f"the plain dequantization: {unpack or 'none'}")
+    if not dq or unpack:
+        raise AssertionError("[i] the step's profile lacks the canonical dequant kernel, or "
+                             "holds the plain dequantization's")
     log(f"[i] card right after it: {card_state()}")
     del optimizer, step
     for v in trainable.values():
@@ -2517,6 +2668,10 @@ def phase_i_two_layer() -> dict:
 AX0_TIME_DEFAULT = "2-16-bf16"
 AX0_VARIANTS = {"element-stores": "-DHQQ_AX0_RUN_STORES=0",
                 "meta-per-row": "-DHQQ_AX0_SHARED_META=0"}
+# --time dequant|dequant_canonical|dequant_ax0 M K N [CONFIG] [VARIANT]: VARIANT
+# builds csrc/dequant.cu without its warp-contiguous stores: a lane's run of
+# neighbouring vectors in one 16-byte load, its stores 32-64 bytes apart
+DEQUANT_VARIANTS = {"wide-loads": "-DHQQ_DQ_WIDE_LOADS=1"}
 
 
 # --time paged_attention B LEN H KV TYPE:VARIANT builds or launches the paged
@@ -2558,16 +2713,44 @@ def time_one(kernel: str, m: int, k: int, n: int, extra: "str | None" = None,
     """Three phase-b timings of one wrapper at one shape (``--time``).
     ``extra``: the LoRA rank, the kv heads of the attention kernels, or the
     axis=0 config (``AX0_TIME_DEFAULT``); for qmm_fp32 (fp32 x, 4-bit g64
-    axis=1) a LoRA rank or an axis=0 config. ``variant``: one of
-    ``AX0_VARIANTS``, for quant_matmul_ax0; the page type (bf16 or int8) for
-    paged_attention."""
+    axis=1) a LoRA rank or an axis=0 config; for dequant and
+    dequant_canonical the config NBITS-G-META of an axis=1 weight (default
+    4-64-fp32). ``variant``: one of ``AX0_VARIANTS``, for quant_matmul_ax0,
+    or of ``DEQUANT_VARIANTS``, for the three dequant entries; the page type
+    (bf16 or int8) for paged_attention."""
     from hqq_tpu_torch.ops import _build
     from hqq_tpu_torch.ops import fused_matmul as fm
 
+    if extra in DEQUANT_VARIANTS:  # a dequant variant without a config
+        extra, variant = None, extra
     if variant is not None and kernel != "paged_attention":
-        if kernel != "quant_matmul_ax0" or variant not in AX0_VARIANTS:
-            raise SystemExit(f"variants are quant_matmul_ax0's: {sorted(AX0_VARIANTS)}")
-        _build.NVCC_FLAGS = _build.NVCC_FLAGS + (AX0_VARIANTS[variant],)  # a library of its own
+        if kernel.startswith("dequant") and variant in DEQUANT_VARIANTS:
+            flag = DEQUANT_VARIANTS[variant]
+        elif kernel == "quant_matmul_ax0" and variant in AX0_VARIANTS:
+            flag = AX0_VARIANTS[variant]
+        else:
+            raise SystemExit(f"variants are quant_matmul_ax0's {sorted(AX0_VARIANTS)} and the "
+                             f"dequant kernels' {sorted(DEQUANT_VARIANTS)}")
+        _build.NVCC_FLAGS = _build.NVCC_FLAGS + (flag,)  # a library of its own
+    if kernel in ("dequant", "dequant_canonical"):  # W [N, K] to bf16; M unused
+        from hqq_tpu_torch.core.quantize import quantize
+
+        nbits, g, meta = (extra or "4-64-fp32").split("-")
+        meta = {"fp32": torch.float32, "bf16": torch.bfloat16}[meta]
+        if kernel == "dequant":
+            kqt = (_make_kqt if meta == torch.float32 else _make_kqt_bf16)(n, k, int(g),
+                                                                            int(nbits), seed=1)
+            copies, _ = _copies(kqt, None, _weight_bytes(kqt) + 2 * n * k)
+            call = lambda q: fm.dequant(q, torch.bfloat16)  # noqa: E731
+        else:
+            w = torch.randn((n, k), device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(1)) / k**0.5
+            qt = quantize(w, nbits=int(nbits), group_size=int(g), meta_dtype=meta,
+                          round_zero=nbits == "4")
+            copies = _qt_copies(qt, _qt_bytes(qt) + 2 * n * k)
+            call = lambda q: fm.dequant_canonical(q, torch.bfloat16)  # noqa: E731
+        ms = [time_ms([lambda q=q: call(q) for q in copies], 100) for _ in range(3)]
+        return dict(kernel=kernel, k=k, n=n, config=extra, variant=variant, ms=ms)
     if kernel in ("quant_matmul_ax0", "dequant_ax0"):
         config = extra or AX0_TIME_DEFAULT
         r = None

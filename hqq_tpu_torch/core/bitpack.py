@@ -25,6 +25,7 @@ __all__ = [
     "unpacked_rows",
     "PACKING_CONTAINER",
     "VALS_PER_WORD",
+    "FIELD_BITS",
 ]
 
 # packing name -> container dtype
@@ -46,7 +47,7 @@ VALS_PER_WORD = {
 }
 
 # packing name -> bits per bitfield
-_FIELD_BITS = {
+FIELD_BITS = {
     "8bit_u8": 8,
     "4bit_u8": 4,
     "3bit_32": 3,
@@ -69,7 +70,7 @@ def unpacked_rows(n_packed_rows: int, packing: str) -> int:
 def _pack_blocks(w: torch.Tensor, packing: str) -> torch.Tensor:
     """Pack axis 1 of ``w`` [blocks, rows, ...]: chunk k -> bitfield k."""
     r = VALS_PER_WORD[packing]
-    bits = _FIELD_BITS[packing]
+    bits = FIELD_BITS[packing]
     step = w.shape[1] // r
     w = w.to(PACKING_CONTAINER[packing])
     out = w[:, :step] << (bits * (r - 1))
@@ -81,7 +82,7 @@ def _pack_blocks(w: torch.Tensor, packing: str) -> torch.Tensor:
 def _unpack_blocks(p: torch.Tensor, packing: str, dtype) -> torch.Tensor:
     """Inverse of `_pack_blocks` on ``p`` [blocks, packed_rows, ...]."""
     r = VALS_PER_WORD[packing]
-    bits = _FIELD_BITS[packing]
+    bits = FIELD_BITS[packing]
     mask = (1 << bits) - 1
     # mask after every shift: the int32 container's shifts are arithmetic
     chunks = [(p >> (bits * (r - 1 - k))) & mask for k in range(r)]

@@ -31,6 +31,7 @@ __all__ = [
     "QTensor",
     "quantize",
     "dequantize",
+    "dequantize_plain",
     "unpack_codes",
     "resolve_meta",
     "BaseQuantizeConfig",
@@ -286,8 +287,19 @@ def unpack_codes(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
 
 
 def dequantize(qt: QTensor, dtype=None) -> torch.Tensor:
-    """(W_q - zero) * scale, reshaped to the original weight shape;
-    meta-quantized scale/zero are dequantized on the fly."""
+    """(W_q - zero) * scale, reshaped to the original weight shape, in
+    ``dtype`` (default the compute type); meta-quantized scale/zero are
+    dequantized on the fly. Codes on a CUDA device go through the dequant
+    kernel (`ops.fused_matmul.dequant_canonical`, bit-equal to the plain
+    twin), codes on the CPU through `dequantize_plain`."""
+    from ..ops.fused_matmul import dequant_canonical  # the ops import this module
+
+    return dequant_canonical(qt, dtype)
+
+
+def dequantize_plain(qt: QTensor, dtype=None) -> torch.Tensor:
+    """Plain PyTorch `dequantize`: the codes widened to scale's type, then
+    (W_q - zero) * scale, each operation rounded to the meta type."""
     qt = resolve_meta(qt)
     out_dtype = dtype if dtype is not None else qt.compute_dtype
     w_r = unpack_codes(qt, qt.scale.dtype)

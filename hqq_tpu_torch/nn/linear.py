@@ -5,7 +5,10 @@ Mirrors `hqq_tpu.nn.linear`: `Linear` is the dense layer, `QuantLinear`
 holds a `QTensor` and runs the ``"xla"`` path, named after `hqq_tpu`'s
 backend: dequantize, then a matmul in the compute dtype with an fp32
 accumulator, through `dequant_matmul`, whose backward dequantizes again
-instead of keeping the weight (`hqq_tpu`'s custom VJP). Weights are
+instead of keeping the weight (`hqq_tpu`'s custom VJP). On a CUDA device
+each dequantization is one launch of the dequant kernel's canonical entry
+(csrc/dequant.cu, `ops.fused_matmul.dequant_canonical`), written straight
+in the compute type; on the CPU its plain twin. Weights are
 ``[out_features, in_features]`` as in torch.
 """
 
@@ -53,8 +56,9 @@ class _DequantMatmul(torch.autograd.Function):
     """x @ W_dq^T with `hqq_tpu`'s memory-efficient backward: the forward
     keeps the `QTensor` (the packed codes and meta the layer holds anyway)
     and nothing of x or of the dequantized weight; the backward dequantizes
-    again and returns dx = g @ W_dq in the compute type. The codes, scale
-    and zero get no gradient."""
+    again and returns dx = g @ W_dq in the compute type. Each dequantization
+    is one call of `dequantize` (on the card, one kernel launch). The codes,
+    scale and zero get no gradient."""
 
     @staticmethod
     def forward(ctx, x, qt):

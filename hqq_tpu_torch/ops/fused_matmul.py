@@ -16,7 +16,7 @@ in logical order, K is padded to a multiple of 32, and scale and zs are
 [N/g, K_pad] in fp32 or bf16; row n reads row n % (N/g) of them. None of
 the TPU layouts' padding, row permutation or nibble orders carry over.
 
-Seven kernels, each behind a wrapper with a plain PyTorch twin and a launch
+Eight kernels, each behind a wrapper with a plain PyTorch twin and a launch
 count (``<wrapper>.launches``):
 
     w4a8_matmul       -> csrc/w4a8_matmul.cu        (M <= 32, int8 activations)
@@ -25,6 +25,8 @@ count (``<wrapper>.launches``):
     quant_matmul_lora -> csrc/quant_matmul_lora.cu  (the same, + x@A and B inside)
     quant_matmul_ax0  -> csrc/quant_matmul_ax0.cu   (axis=0 weights, any M)
     dequant           -> csrc/dequant.cu            (both layouts)
+    dequant_canonical -> csrc/dequant.cu            (a canonical QTensor: the
+                                                     canonical QuantLinear's W)
     qmm_fp32          -> csrc/qmm_fp32.cu           (fp32 x: the three matmuls'
                                                      fp32 route, 3xTF32)
 
@@ -36,12 +38,14 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import warnings
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from ..core.quantize import QTensor, resolve_meta, unpack_codes
+from ..core.bitpack import FIELD_BITS, PACKING_CONTAINER, VALS_PER_WORD
+from ..core.quantize import QTensor, _logical_rows, dequantize_plain, resolve_meta, unpack_codes
 from . import _build
 
 __all__ = [
@@ -69,6 +73,12 @@ __all__ = [
     "quant_matmul_lora_plain",
     "quant_matmul_ax0_plain",
     "dequant_plain",
+    "dequant_canonical",
+    "dequant_canonical_plain",
+    "DequantPlan",
+    "dequant_launch_plan",
+    "CanonicalPlan",
+    "dequant_canonical_plan",
     "qmm_fp32",
     "reset_launch_counts",
     "QmmPlan",
@@ -116,6 +126,15 @@ W4A8_CONSUMERS = 8
 W4A8_TOKEN_TILES = (8, 16, 32)
 W4A8_MAX_STAGES = 8
 H100_SMEM_PER_SM = 233472
+# the dequant kernels (csrc/dequant.cu): vectors of 16 output bytes, 4 a lane
+# per pass, blocks of 256 threads striding over them (at most 8 an SM, one
+# wave); the axis=0 entry's blocks of 128 threads, sliced along the rows of a
+# residue class until there are 16 an SM
+DEQUANT_THREADS = 256
+DEQUANT_ITEMS = 4
+DEQUANT_MAX_BLOCKS = 8 * H100_SMS
+DEQUANT_AX0_THREADS = 128
+DEQUANT_AX0_MIN_BLOCKS = 16 * H100_SMS
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -699,6 +718,84 @@ def w4a8_launch_plan(m: int, n: int, k: int, cb: int, group_size: int,
                     meta_tma=ax1_meta_cols(k // g, meta_dtype) * meta_size % 16 == 0, why=why)
 
 
+def _fastdiv(d: int) -> tuple[int, int]:
+    """(mul, shift) with x // d == (x * mul >> 32) >> shift for every 0 <= x
+    < 2^31: the multiply-high division of Granlund and Montgomery that the
+    dequant kernels take (`FastDiv` of csrc/dequant.cu); d = 1 gives mul 0,
+    which they read as x itself."""
+    if d < 1 or d >= 2**31:
+        raise ValueError(f"no fast division by {d}")
+    if d == 1:
+        return 0, 0
+    p = 31 + (d - 1).bit_length()  # 31 + ceil(log2 d)
+    return -(-(1 << p) // d), p - 32
+
+
+def _grid_stride_blocks(vectors: int) -> int:
+    """Blocks of the dequant kernels' grid-stride loop over ``vectors``
+    vectors: a warp takes 32 * DEQUANT_ITEMS a pass; at most one wave."""
+    warps = -(-vectors // (32 * DEQUANT_ITEMS))
+    return max(1, min(DEQUANT_MAX_BLOCKS, -(-warps // (DEQUANT_THREADS // 32))))
+
+
+@dataclasses.dataclass(frozen=True)
+class DequantPlan:
+    """How `dequant` launches on a kernel layout (csrc/dequant.cu).
+
+    Axis=1 (`hqq_dequant`): ``vectors`` vectors of ``vec`` codes (16 output
+    bytes) in W's row-major order, lanes of a warp on neighbouring vectors,
+    ``items`` a lane per pass, ``grid`` blocks of ``threads`` striding over
+    them; vector v's group is v*vec // g (``per_group``), its meta column
+    that plus ``pad`` for each row before it (``per_row_groups`` divides by
+    K/g). Axis=0 (`hqq_dequant_ax0`): a thread per vector of ``vec`` columns
+    and residue class b = n % P of rows, ``grid`` = (column blocks, P,
+    slices), each slice ``rows_per_block`` rows of the class; ``aligned``:
+    W's rows start on 16 bytes, so whole vectors store at once."""
+
+    axis: int
+    vec: int
+    threads: int
+    grid: tuple
+    items: int = DEQUANT_ITEMS
+    vectors: int = 0
+    per_group: tuple = (0, 0)
+    per_row_groups: tuple = (0, 0)
+    pad: int = 0
+    rows_per_block: int = 0
+    aligned: bool = True
+
+
+@functools.lru_cache(maxsize=None)
+def dequant_launch_plan(n: int, k: int, cb: int, group_size: int, out_dtype: torch.dtype,
+                        meta_dtype: torch.dtype = torch.float32, axis: int = 1,
+                        k_pad: Optional[int] = None) -> DequantPlan:
+    """The launch of the dequant kernel for W [n, k] from a kernel layout of
+    ``cb``-bit containers and groups of ``group_size`` (axis=0: scale and zs
+    [n / g, k_pad]), written in ``out_dtype``."""
+    if out_dtype not in _DTYPE_CODE:
+        raise ValueError(f"dequant kernel writes fp32, bf16 or fp16, not {out_dtype}")
+    if n * k >= 2**31:
+        raise ValueError(f"W [{n}, {k}] has 2^31 elements or more")
+    g = group_size
+    vec = 16 // out_dtype.itemsize
+    if axis == 0:
+        p_blocks = n // g
+        if p_blocks > 65535:
+            raise ValueError(f"{p_blocks} residue classes of rows exceed a grid's 65535")
+        gx = -(-k // (vec * DEQUANT_AX0_THREADS))
+        slices = max(1, min(g, -(-DEQUANT_AX0_MIN_BLOCKS // (gx * p_blocks))))
+        rows = -(-g // slices)
+        return DequantPlan(axis=0, vec=vec, threads=DEQUANT_AX0_THREADS,
+                           grid=(gx, p_blocks, -(-g // rows)), items=1, rows_per_block=rows,
+                           aligned=k * out_dtype.itemsize % 16 == 0)
+    vectors = n * k // vec  # K is a multiple of 8 (g % 8 == 0)
+    groups = k // g
+    return DequantPlan(axis=1, vec=vec, threads=DEQUANT_THREADS,
+                       grid=(_grid_stride_blocks(vectors),), vectors=vectors,
+                       per_group=_fastdiv(g), per_row_groups=_fastdiv(groups),
+                       pad=ax1_meta_cols(groups, meta_dtype) - groups)
+
+
 def dequant_plain(kqt: "KernelQTensor | KernelQTensor0", dtype=torch.float32) -> torch.Tensor:
     """Plain version of the dequant kernel: W [N, K] = c*scale - zs in fp32,
     then cast to ``dtype``. Axis=0: row n takes row n % (N/g) of scale and
@@ -720,29 +817,192 @@ def dequant(kqt: "KernelQTensor | KernelQTensor0", dtype=torch.float32) -> torch
     if _on_cpu(kqt.wq):
         return dequant_plain(kqt, dtype)
     dev = kqt.wq.device
-    if dtype not in _DTYPE_CODE:
-        raise ValueError(f"dequant kernel writes fp32, bf16 or fp16, not {dtype}")
-    out = torch.empty((kqt.n, kqt.k), dtype=dtype, device=dev)
-    if isinstance(kqt, KernelQTensor0):
+    ax0 = isinstance(kqt, KernelQTensor0)
+    if ax0:
         _check_kqt0(kqt, dev)
-        name = "dequant_ax0"
-        with torch.cuda.device(dev):
-            code = _build.library(name).hqq_dequant_ax0(
-                _ptr(kqt.wq, 4), _ptr(kqt.scale), _ptr(kqt.zs), _ptr(out), kqt.n, kqt.k,
-                kqt.k_pad, kqt.group_size, kqt.container_bits, _DTYPE_CODE[dtype],
-                _DTYPE_CODE[kqt.scale.dtype], _stream(dev),
-            )
     else:
         _check_kqt(kqt, dev)
-        name = "dequant"
-        with torch.cuda.device(dev):
-            code = _build.library(name).hqq_dequant(
-                _ptr(kqt.wq, 4), _ptr(kqt.scale, 4), _ptr(kqt.zs, 4), _ptr(out, 4), kqt.n, kqt.k,
-                kqt.group_size, kqt.container_bits, _DTYPE_CODE[dtype],
-                _DTYPE_CODE[kqt.scale.dtype], _stream(dev),
+    plan = dequant_launch_plan(kqt.n, kqt.k, kqt.container_bits, kqt.group_size, dtype,
+                               kqt.scale.dtype, axis=0 if ax0 else 1,
+                               k_pad=kqt.k_pad if ax0 else None)
+    out = torch.empty((kqt.n, kqt.k), dtype=dtype, device=dev)
+    name = "dequant_ax0" if ax0 else "dequant"
+    with torch.cuda.device(dev):
+        lib = _build.library(name)
+        if ax0:
+            code = lib.hqq_dequant_ax0(
+                _ptr(kqt.wq), _ptr(kqt.scale), _ptr(kqt.zs), _ptr(out), kqt.n, kqt.k,
+                kqt.k_pad, kqt.group_size, kqt.container_bits, _DTYPE_CODE[dtype],
+                _DTYPE_CODE[kqt.scale.dtype], plan.grid[0], plan.grid[2], plan.rows_per_block,
+                int(plan.aligned), _stream(dev),
+            )
+        else:
+            code = lib.hqq_dequant(
+                _ptr(kqt.wq), _ptr(kqt.scale, 4), _ptr(kqt.zs, 4), _ptr(out), plan.vectors,
+                *plan.per_group, *plan.per_row_groups, plan.pad, kqt.container_bits,
+                _DTYPE_CODE[dtype], _DTYPE_CODE[kqt.scale.dtype], plan.grid[0], _stream(dev),
             )
     _build.check(name, code)
     dequant.launches += 1
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class CanonicalPlan:
+    """How `dequant_canonical` computes W from a canonical `QTensor`.
+
+    route "kernel": csrc/dequant.cu `hqq_dequant_canonical`. The packed
+    matrix [Rp, C] (``word_bytes``-byte containers, ``fields`` bitfields of
+    ``bits`` bits, most significant first) is read as ``positions`` vectors
+    of ``vec`` elements, one ``load_bytes`` load each, lanes of a warp on
+    neighbouring vectors, ``items`` a lane per pass, ``grid`` blocks of
+    ``threads`` striding over them. Packed element e of pack block e //
+    (SB*C) (``per_block``) holds in field f the output element e + block *
+    ``block_skip`` + f * ``stride``; those at or past ``valid`` = R*C are
+    3-bit padding and are not written. Each field of a vector is one store of
+    ``vec`` outputs. Meta: ``meta_mode`` 0 one scalar, 1 per row (the
+    output's row by ``per_row`` = C), 2 per column, in ``meta_dtype`` T =
+    the promotion of scale's and zero's types, the type the plain twin
+    computes in. route "plain": no packed codes (``why``)."""
+
+    route: str
+    why: str = ""
+    word_bytes: int = 0
+    fields: int = 0
+    bits: int = 0
+    vec: int = 0
+    load_bytes: int = 0
+    positions: int = 0
+    valid: int = 0
+    stride: int = 0
+    block_skip: int = 0
+    per_block: tuple = (0, 0)
+    cols: int = 0
+    per_row: tuple = (0, 0)
+    meta_mode: int = 0
+    meta_dtype: torch.dtype = torch.float32
+    threads: int = DEQUANT_THREADS
+    items: int = DEQUANT_ITEMS
+    grid: tuple = (0,)
+
+
+def dequant_canonical_plan(qt: QTensor, dtype: torch.dtype) -> CanonicalPlan:
+    """The launch of the dequant kernel's canonical entry for ``qt`` (scale
+    and zero plain tensors: `resolve_meta`), written in ``dtype``. Covers
+    every packing of `BIT_TO_PACKING` (8, 6 and 5 bits in 8bit_u8, 1.58 in
+    2bit_u8, 3-bit in the int32 container), any group size, both axes,
+    per-tensor meta and ``pack_blocks``. The output vector is 16 bytes where
+    C, the length of a group-space row, is a multiple of it, else one
+    element. ``packing=None`` (no packed codes) goes to the plain
+    expression. Plans are kept by what they depend on (a training step asks
+    for the same few hundred times)."""
+    return _canonical_plan(
+        qt.packing, tuple(qt.shape), qt.group_size, qt.axis, qt.channel_wise, qt.pack_blocks,
+        tuple(qt.wq.shape), qt.wq.dtype, tuple(qt.scale.shape), qt.scale.dtype,
+        tuple(qt.zero.shape), qt.zero.dtype, dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _canonical_plan(packing, shape, group_size, axis, channel_wise, pack_blocks, wq_shape,
+                    wq_dtype, scale_shape, scale_dtype, zero_shape, zero_dtype,
+                    dtype) -> CanonicalPlan:
+    qt = QTensor(wq=torch.empty(wq_shape, dtype=wq_dtype, device="meta"),
+                 scale=torch.empty(scale_shape, dtype=scale_dtype, device="meta"),
+                 zero=torch.empty(zero_shape, dtype=zero_dtype, device="meta"),
+                 group_size=group_size, axis=axis, shape=shape, packing=packing,
+                 channel_wise=channel_wise, pack_blocks=pack_blocks)
+    if qt.packing is None:
+        return CanonicalPlan(route="plain", why=(
+            "packing=None (bitpack_weights=False): the codes are held unpacked in the "
+            "compute type, so there is no packed stream for the dequant kernel to read; "
+            "the plain expression computes W"))
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"dequant kernel writes fp32, bf16 or fp16, not {dtype}")
+    meta = torch.promote_types(qt.scale.dtype, qt.zero.dtype)
+    if meta not in _DTYPE_CODE:
+        raise ValueError(f"scale and zero in {qt.scale.dtype} and {qt.zero.dtype}: the kernel "
+                         f"computes in fp32, bf16 or fp16")
+    rows = _logical_rows(qt)
+    total = 1
+    for d in qt.shape:
+        total *= d
+    cols = total // rows
+    r = VALS_PER_WORD[qt.packing]
+    packed_rows = qt.wq.shape[0]
+    if qt.wq.ndim != 2 or qt.wq.shape[1] != cols or packed_rows != -(-rows // r):
+        raise ValueError(f"wq {tuple(qt.wq.shape)} is not [{-(-rows // r)}, {cols}] of "
+                         f"{qt.packing} for {rows} group-space rows")
+    if qt.wq.dtype != PACKING_CONTAINER[qt.packing]:
+        raise ValueError(f"{qt.packing} codes are {PACKING_CONTAINER[qt.packing]}, not "
+                         f"{qt.wq.dtype}")
+    blocks = qt.pack_blocks
+    if packed_rows % blocks:
+        raise ValueError(f"{packed_rows} packed rows do not split into {blocks} blocks")
+    sb = packed_rows // blocks  # packed rows of a block
+    if blocks > 1 and rows != packed_rows * r:
+        raise ValueError(f"{blocks} pack blocks of {rows} rows: a block is not whole words")
+    if packed_rows * cols >= 2**31 or total >= 2**31:
+        raise ValueError(f"{qt.packing} codes of {total} values: 2^31 or more")
+    shape = tuple(qt.scale.shape)
+    if tuple(qt.zero.shape) != shape:
+        raise ValueError(f"scale {shape} and zero {tuple(qt.zero.shape)} differ in shape")
+    if qt.scale.numel() == 1:
+        mode = 0
+    elif shape == (rows, 1):
+        mode = 1
+    elif shape == (1, cols):
+        mode = 2
+    else:
+        raise ValueError(f"meta {shape} is none of scalar, [{rows}, 1] and [1, {cols}]")
+    vec = 16 // dtype.itemsize
+    vec = vec if cols % vec == 0 else 1
+    word_bytes = 4 if qt.packing == "3bit_32" else 1
+    positions = packed_rows * cols // vec
+    return CanonicalPlan(
+        route="kernel", word_bytes=word_bytes, fields=r, bits=FIELD_BITS[qt.packing], vec=vec,
+        load_bytes=vec * word_bytes, positions=positions, valid=rows * cols, stride=sb * cols,
+        block_skip=(r - 1) * sb * cols, per_block=_fastdiv(sb * cols), cols=cols,
+        per_row=_fastdiv(cols), meta_mode=mode, meta_dtype=meta,
+        grid=(_grid_stride_blocks(positions),))
+
+
+def dequant_canonical_plain(qt: QTensor, dtype=None) -> torch.Tensor:
+    """Plain version of the canonical entry: `core.quantize.dequantize_plain`,
+    ((c - zero) * scale).reshape(shape) in the meta type, then ``dtype``."""
+    return dequantize_plain(qt, dtype)
+
+
+def dequant_canonical(qt: QTensor, dtype=None) -> torch.Tensor:
+    """W = ((c - zero) * scale).reshape(qt.shape) in ``dtype`` (default the
+    compute type) from a canonical `QTensor`: the kernel's canonical entry
+    for codes on a CUDA device (`dequant_canonical_plan`), the plain twin
+    for codes on the CPU. Meta-quantized scale and zero are dequantized
+    first, in fp32, by the same route. `core.quantize.dequantize` calls it."""
+    qt = resolve_meta(qt)
+    dtype = dtype if dtype is not None else qt.compute_dtype
+    if _on_cpu(qt.wq):
+        return dequant_canonical_plain(qt, dtype)
+    plan = dequant_canonical_plan(qt, dtype)
+    if plan.route == "plain":
+        warnings.warn(plan.why, stacklevel=2)
+        return dequant_canonical_plain(qt, dtype)
+    dev = qt.wq.device
+    scale, zero = (t.to(plan.meta_dtype).contiguous() for t in (qt.scale, qt.zero))
+    for t in (qt.wq, scale, zero):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"codes, scale and zero must be contiguous on {dev}")
+    meta_align = plan.vec * scale.element_size() if plan.meta_mode == 2 else 1
+    out = torch.empty(qt.shape, dtype=dtype, device=dev)
+    with torch.cuda.device(dev):
+        code = _build.library("dequant_canonical").hqq_dequant_canonical(
+            _ptr(qt.wq, min(16, plan.load_bytes)), _ptr(scale, min(16, meta_align)),
+            _ptr(zero, min(16, meta_align)), _ptr(out), plan.positions, plan.valid, plan.stride,
+            plan.block_skip, *plan.per_block, plan.cols, *plan.per_row, plan.fields, plan.bits,
+            plan.meta_mode, plan.word_bytes, plan.vec, _DTYPE_CODE[plan.meta_dtype],
+            _DTYPE_CODE[dtype], plan.grid[0], _stream(dev),
+        )
+    _build.check("dequant_canonical", code)
+    dequant_canonical.launches += 1
     return out
 
 
@@ -1088,13 +1348,15 @@ def w4a8_lora_matmul(
     return out
 
 
+# the wrappers of the kernel layouts (`dequant_canonical` serves the canonical
+# QTensor and is counted beside them)
 _WRAPPERS = (dequant, quant_matmul, quant_matmul_lora, quant_matmul_ax0, w4a8_matmul,
              w4a8_lora_matmul, qmm_fp32)
 
 
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
-    for w in _WRAPPERS:
+    for w in _WRAPPERS + (dequant_canonical,):
         w.launches = 0
 
 

@@ -4,7 +4,8 @@
 Mirrors `hqq_tpu.utils.patching.prepare_for_inference`, with the backend
 names of `hqq_tpu`:
 
-    "xla"    keep `QuantLinear` (dequantize with plain torch, then matmul)
+    "xla"    keep `QuantLinear` (dequantize, on the card by the dequant
+             kernel's canonical entry, then matmul)
     "pallas" `PallasQuantLinear` (the fused dequant-matmul kernel)
     "w4a8"   `A8QuantLinear` (int8 activations at M <= 32, the fused
              kernel above)

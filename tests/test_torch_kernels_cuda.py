@@ -908,3 +908,123 @@ def test_lora_layer_follows_a(cuda, m):
         layer.a.data.copy_(a)
         assert torch.equal(layer(x), cls(kqt, a.clone(), b)(x))
         assert not torch.equal(layer(x), fresh(x))
+
+
+# The dequant kernel's canonical entry (csrc/dequant.cu, `dequant_canonical`):
+# every packing, both axes, group sizes 8-128 and None, per-tensor meta, meta
+# in fp32, bf16 and fp16, meta-quantized scale and zero, two pack blocks,
+# group-space rows that 3-bit pads to whole words (R % 10 != 0) and rows of C
+# values that no 16-byte vector divides (the plan's one-element vectors):
+# bit-equal to the plain twin, the same operations rounded in the same type.
+# (nbits, group_size, axis, shape, extra quantize arguments, pack blocks)
+_CANON_CASES = [
+    (8, 64, 1, (96, 256), {}, 1),
+    (6, 32, 1, (96, 256), {}, 1),
+    (5, 16, 0, (96, 256), {}, 1),
+    (4, 64, 1, (96, 256), {}, 1),
+    (4, 64, 1, (96, 256), dict(meta_dtype=torch.bfloat16), 1),
+    (4, 64, 1, (96, 256), dict(meta_dtype=torch.float16), 1),
+    (4, 64, 0, (128, 96), {}, 1),
+    (4, 8, 1, (40, 64), {}, 1),
+    (4, 128, 1, (64, 384), {}, 2),
+    (4, None, 1, (40, 100), {}, 1),          # C = 100: one-element bf16 vectors
+    (4, 64, 1, (96, 256), dict(channel_wise=False), 1),
+    (4, 64, 1, (96, 256), dict(scale_quant_params={}, zero_quant_params={}), 1),
+    (3, 64, 1, (96, 256), {}, 1),            # R = 384: 3-bit pads 6 rows
+    (3, 64, 0, (128, 96), dict(meta_dtype=torch.bfloat16), 1),
+    (3, 16, 1, (40, 56), {}, 1),             # R = 140
+    (2, 16, 0, (64, 96), {}, 1),
+    (2, 32, 1, (96, 256), dict(meta_dtype=torch.float16), 2),
+    (1.58, 64, 1, (96, 256), {}, 1),
+    (1, 32, 1, (96, 256), {}, 1),
+    (1, 16, 0, (128, 96), {}, 2),
+]
+
+
+def _canonical_qt(nbits, g, axis, shape, extra, blocks, device, seed=0):
+    import dataclasses
+
+    from hqq_tpu_torch.core import bitpack
+    from hqq_tpu_torch.core.quantize import unpack_codes
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w = torch.randn(shape, generator=gen, device=device) / shape[1] ** 0.5
+    qt = quantize(w, nbits=nbits, group_size=g, axis=axis, optimize=False, **extra)
+    if blocks > 1:
+        qt = dataclasses.replace(qt, pack_blocks=blocks, wq=bitpack.pack(
+            unpack_codes(qt, torch.int32), qt.packing, blocks=blocks))
+    return qt
+
+
+@pytest.mark.parametrize("nbits,g,axis,shape,extra,blocks", _CANON_CASES)
+def test_dequant_canonical_exact(cuda, nbits, g, axis, shape, extra, blocks):
+    from unittest import mock
+
+    qt = _canonical_qt(nbits, g, axis, shape, extra, blocks, cuda)
+    for dtype in _OUT_TOL:
+        launches = fm.dequant_canonical.launches
+        got = fm.dequant_canonical(qt, dtype)
+        assert fm.dequant_canonical.launches == launches + 1 + 2 * bool(
+            extra.get("scale_quant_params") is not None)
+        with mock.patch.object(fm, "dequant_canonical", fm.dequant_canonical_plain):
+            ref = fm.dequant_canonical_plain(qt, dtype)  # meta-quantized meta plain too
+        assert got.dtype == dtype and tuple(got.shape) == shape
+        assert torch.equal(got, ref), (dtype, (got.float() - ref.float()).abs().max().item())
+
+
+def test_dequant_runs_bit_equal(cuda):
+    """Three runs of each entry give the same bits."""
+    qt = _canonical_qt(4, 64, 1, (512, 1024), {}, 1, cuda)
+    layouts = (fm.to_kernel_layout(qt), _kqt0(320, 1024, 16, 2, torch.bfloat16, cuda))
+    for run in [lambda: fm.dequant_canonical(qt, torch.bfloat16)] + [
+            lambda q=q: fm.dequant(q, torch.bfloat16) for q in layouts]:
+        runs = [run() for _ in range(3)]
+        assert all(torch.equal(r, runs[0]) for r in runs[1:])
+
+
+@pytest.mark.parametrize("meta_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [100, 36])
+def test_dequant_ax0_unaligned_rows(cuda, meta_dtype, k):
+    """Rows of W that start off 16 bytes (K * 2 % 16 != 0): element stores."""
+    kqt = _kqt0(64, k, 16, 4, meta_dtype, cuda)
+    for dtype in _OUT_TOL:
+        assert torch.equal(fm.dequant(kqt, dtype), fm.dequant_plain(kqt, dtype))
+
+
+def test_quant_linear_launches_canonical(cuda):
+    """A CUDA QuantLinear: its forward and its backward each launch the
+    canonical dequant once, and the outputs equal the plain route's."""
+    from unittest import mock
+
+    from hqq_tpu_torch.nn.linear import QuantLinear
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    layer = QuantLinear.quantize(torch.randn(256, 512, generator=gen, device=cuda) / 16,
+                                 nbits=4, group_size=64)
+    x = torch.randn(9, 512, generator=gen, device=cuda).to(torch.bfloat16).requires_grad_()
+    g = torch.randn(9, 256, generator=gen, device=cuda).to(torch.bfloat16)
+    fm.reset_launch_counts()
+    y = layer(x)
+    assert fm.dequant_canonical.launches == 1
+    y.backward(g)
+    assert fm.dequant_canonical.launches == 2
+    x2 = x.detach().clone().requires_grad_()
+    with mock.patch.object(fm, "dequant_canonical", fm.dequant_canonical_plain):
+        y2 = layer(x2)
+        y2.backward(g)
+    assert torch.equal(y, y2) and torch.equal(x.grad, x2.grad)
+
+
+def test_dequant_canonical_packing_none(cuda):
+    """packing=None holds no packed codes: the plan names the plain route,
+    which says why and launches nothing."""
+    from hqq_tpu_torch.core.quantize import dequantize
+
+    w = torch.randn(64, 128, device=cuda)
+    qt = quantize(w, nbits=4, group_size=64, bitpack_weights=False, optimize=False)
+    assert fm.dequant_canonical_plan(qt, torch.bfloat16).route == "plain"
+    launches = fm.dequant_canonical.launches
+    with pytest.warns(UserWarning, match="packing=None"):
+        got = dequantize(qt, torch.bfloat16)
+    assert fm.dequant_canonical.launches == launches
+    assert torch.equal(got, fm.dequant_canonical_plain(qt, torch.bfloat16))
