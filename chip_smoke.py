@@ -6,7 +6,7 @@
     python3 chip_smoke.py --time quant_matmul_ax0 512 4096 4096 3-64-fp32  # nbits-g-meta
     python3 chip_smoke.py --time quant_matmul_ax0 512 4096 4096 3-64-fp32 element-stores
     python3 chip_smoke.py --time qmm_fp32 512 4096 4096          # fp32 x; [RANK | NBITS-G-META]
-    python3 chip_smoke.py --time dequant_canonical 1 11008 4096 wide-loads  # W [N, K]; M unused
+    python3 chip_smoke.py --time dequant_canonical 1 11008 4096 3-64-fp32  # W [N, K]; M unused
     python3 chip_smoke.py --time paged_attention 8 1024 32 32 int8  # slots, length, heads, kv
                                                                     # heads[, bf16 | int8 pages]
     python3 chip_smoke.py --time flash_attention 1 1023 32 32    # batch, T, heads, kv heads
@@ -125,8 +125,8 @@ quant_matmul_ax0 or dequant_ax0 (2-bit g16, bf16 scale and zs, or the
 config NBITS-G-META given after N, e.g. 3-64-fp32, path F's attention, and
 for quant_matmul_ax0 then a variant of AX0_VARIANTS), dequant and
 dequant_canonical (W [N, K] to bf16 from the axis=1 kernel layout or a
-canonical QTensor, 4-bit g64 fp32 meta or a config NBITS-G-META; M unused;
-the three dequant entries then take a variant of DEQUANT_VARIANTS), qmm_fp32 (fp32 x
+canonical QTensor, 4-bit g64 fp32 meta or a config NBITS-G-META; M unused),
+qmm_fp32 (fp32 x
 through quant_matmul at 4-bit g64, quant_matmul_lora given a RANK, or
 quant_matmul_ax0 given a config); for
 paged_attention the four numbers are slots, length, query heads and kv heads
@@ -994,8 +994,8 @@ def phase_b_dequant(record, iters: int) -> None:
         copies = _qt_copies(qt, nbytes)
 
         def plain(qt=qt):  # meta-quantized meta through the plain twin too
-            with mock.patch.object(fm, "dequant_canonical", fm.dequant_canonical_plain):
-                return fm.dequant_canonical_plain(qt, bf16)
+            with mock.patch.object(fm, "dequant_canonical", fm.dequantize_plain):
+                return fm.dequantize_plain(qt, bf16)
 
         _dequant_case(record, "dequant_canonical", note, k, n,
                       lambda q: fm.dequant_canonical(q, bf16), plain,
@@ -2438,8 +2438,7 @@ def phase_i(dev_tag: str) -> dict:
     linears = len(trainable.paths) // 2
     expect = {"flash_attention": layers, "flash_attention_backward_dkv": layers,
               "flash_attention_backward_dq": layers, "dequant_canonical": 2 * linears - 3}
-    with mock.patch.object(fm, "dequant_canonical_plain",
-                           wraps=fm.dequant_canonical_plain) as plain_calls:
+    with mock.patch.object(fm, "dequantize_plain", wraps=fm.dequantize_plain) as plain_calls:
         for i in range(I_STEPS):
             # the main path's window: every count from 0, read right after
             ops.reset_launch_counts()
@@ -2668,10 +2667,6 @@ def phase_i_two_layer() -> dict:
 AX0_TIME_DEFAULT = "2-16-bf16"
 AX0_VARIANTS = {"element-stores": "-DHQQ_AX0_RUN_STORES=0",
                 "meta-per-row": "-DHQQ_AX0_SHARED_META=0"}
-# --time dequant|dequant_canonical|dequant_ax0 M K N [CONFIG] [VARIANT]: VARIANT
-# builds csrc/dequant.cu without its warp-contiguous stores: a lane's run of
-# neighbouring vectors in one 16-byte load, its stores 32-64 bytes apart
-DEQUANT_VARIANTS = {"wide-loads": "-DHQQ_DQ_WIDE_LOADS=1"}
 
 
 # --time paged_attention B LEN H KV TYPE:VARIANT builds or launches the paged
@@ -2715,23 +2710,15 @@ def time_one(kernel: str, m: int, k: int, n: int, extra: "str | None" = None,
     axis=0 config (``AX0_TIME_DEFAULT``); for qmm_fp32 (fp32 x, 4-bit g64
     axis=1) a LoRA rank or an axis=0 config; for dequant and
     dequant_canonical the config NBITS-G-META of an axis=1 weight (default
-    4-64-fp32). ``variant``: one of ``AX0_VARIANTS``, for quant_matmul_ax0,
-    or of ``DEQUANT_VARIANTS``, for the three dequant entries; the page type
-    (bf16 or int8) for paged_attention."""
+    4-64-fp32). ``variant``: one of ``AX0_VARIANTS``, for quant_matmul_ax0;
+    the page type (bf16 or int8) for paged_attention."""
     from hqq_tpu_torch.ops import _build
     from hqq_tpu_torch.ops import fused_matmul as fm
 
-    if extra in DEQUANT_VARIANTS:  # a dequant variant without a config
-        extra, variant = None, extra
     if variant is not None and kernel != "paged_attention":
-        if kernel.startswith("dequant") and variant in DEQUANT_VARIANTS:
-            flag = DEQUANT_VARIANTS[variant]
-        elif kernel == "quant_matmul_ax0" and variant in AX0_VARIANTS:
-            flag = AX0_VARIANTS[variant]
-        else:
-            raise SystemExit(f"variants are quant_matmul_ax0's {sorted(AX0_VARIANTS)} and the "
-                             f"dequant kernels' {sorted(DEQUANT_VARIANTS)}")
-        _build.NVCC_FLAGS = _build.NVCC_FLAGS + (flag,)  # a library of its own
+        if kernel != "quant_matmul_ax0" or variant not in AX0_VARIANTS:
+            raise SystemExit(f"variants are quant_matmul_ax0's: {sorted(AX0_VARIANTS)}")
+        _build.NVCC_FLAGS = _build.NVCC_FLAGS + (AX0_VARIANTS[variant],)  # a library of its own
     if kernel in ("dequant", "dequant_canonical"):  # W [N, K] to bf16; M unused
         from hqq_tpu_torch.core.quantize import quantize
 

@@ -8,7 +8,9 @@
 //   hqq_dequant_canonical  W = ((c - zero) * scale).reshape(shape) from a canonical
 //                          QTensor (core/bitpack.py): the group-space matrix [R, C] packed
 //                          along axis 0, chunk f of the rows in bitfield f, most
-//                          significant first (uint8 containers, or int32 for 3-bit)
+//                          significant first (uint8 containers, or int32 for 3-bit);
+//                          or, with packing=None, the codes unpacked in fp32, bf16 or
+//                          fp16 (exact integers), one to an element
 //
 // Replaces: hqq_tpu/ops/fused_matmul.py `_dq_kernel` (launched by `_dq_call`,
 //   entry `dequant_pallas`), which writes W^T [K, N] tile by tile, and its use on
@@ -37,10 +39,8 @@
 //   slice of a with up to 16 rows' loads in flight. The canonical entry
 //   reads a vector's packed elements once and writes one vector for each
 //   bitfield of them, each into a run of the output of its own (field f of
-//   packed element e is output element e + f * stride). -DHQQ_DQ_WIDE_LOADS=1
-//   builds, for `chip_smoke.py --time`, the variant in which a lane takes a
-//   run of neighbouring vectors whose codes make 16 bytes in one 16-byte
-//   load, its stores then 32-64 bytes apart in a warp.
+//   packed element e is output element e + f * stride); unpacked codes are
+//   one field, read by their value.
 // Arithmetic: the kernel layouts compute as `hqq_dq` does (an fp32 multiply,
 //   then an fp32 subtract); the canonical entry as the plain PyTorch twin
 //   does, in the meta type T: t = round_T(c - z), w = round_T(t * s), each an
@@ -50,10 +50,6 @@
 #include <type_traits>
 
 #include "hqq_common.cuh"
-
-#ifndef HQQ_DQ_WIDE_LOADS
-#define HQQ_DQ_WIDE_LOADS 0
-#endif
 
 __device__ __forceinline__ float meta_f32(__half v) { return __half2float(v); }
 
@@ -173,14 +169,6 @@ __device__ __forceinline__ void store_run(Out* p, const float* v) {
   }
 }
 
-// vectors of a lane's run, for vectors of code_bits bits of codes: 1, or
-// under HQQ_DQ_WIDE_LOADS as many as hold 16 bytes of codes (at most kItems)
-__host__ __device__ constexpr int run_of(int code_bits) {
-  return HQQ_DQ_WIDE_LOADS && code_bits < 128
-             ? (128 / code_bits < kItems ? 128 / code_bits : kItems)
-             : 1;
-}
-
 // The word layout's code c (0 <= c < 32/CB) of word w: bits 8*b + CB*f, with
 // c = 4f + b.
 template <int CB>
@@ -201,40 +189,35 @@ __global__ void __launch_bounds__(256)
                        FastDiv per_group, FastDiv per_row_groups, uint32_t pad, float zadd) {
   constexpr int VC = 16 / sizeof(Out);
   constexpr int C = 32 / CB;
-  constexpr int RUN = run_of(VC * CB);
-  constexpr int RUNS = kItems / RUN;
-  constexpr int RW = RUN * VC > C ? RUN * VC / C : 1;  // words of a run
+  constexpr int VW = VC > C ? VC / C : 1;  // words of a vector
   const uint32_t lane = threadIdx.x & 31;
   const uint32_t warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const uint32_t warps = (gridDim.x * blockDim.x) >> 5;
   for (uint32_t base = warp * 32 * kItems; base < vectors; base += warps * 32 * kItems) {
-    uint32_t w[RUNS][RW];
+    uint32_t w[kItems][VW];
 #pragma unroll
-    for (int j = 0; j < RUNS; ++j) {
-      const uint32_t v0 = base + (j * 32 + lane) * RUN;
-      if (v0 < vectors) load_run<RW * 4>(wq + v0 * VC / C, w[j]);
+    for (int j = 0; j < kItems; ++j) {
+      const uint32_t v = base + j * 32 + lane;
+      if (v < vectors) load_run<VW * 4>(wq + v * VC / C, w[j]);
     }
 #pragma unroll
-    for (int j = 0; j < RUNS; ++j) {
-      const uint32_t v0 = base + (j * 32 + lane) * RUN;
-      const int kbase = RW == 1 ? static_cast<int>(v0 * VC % C) : 0;
+    for (int j = 0; j < kItems; ++j) {
+      const uint32_t v = base + j * 32 + lane;
+      if (v >= vectors) break;
+      const uint32_t e = v * VC;
+      const int kbase = VW == 1 ? static_cast<int>(e % C) : 0;
+      const uint32_t grp = fdiv(e, per_group);
+      const uint32_t mi = pad ? grp + fdiv(grp, per_row_groups) * pad : grp;
+      const float s = meta_f32(scale[mi]);
+      const float zm = meta_f32(zs[mi]);
+      const float z = zadd != 0.f ? __fadd_rn(zm, __fmul_rn(zadd, s)) : zm;
+      float o[VC];
 #pragma unroll
-      for (int r = 0; r < RUN; ++r) {
-        const uint32_t e = (v0 + r) * VC;
-        if (v0 + r >= vectors) break;
-        const uint32_t grp = fdiv(e, per_group);
-        const uint32_t mi = pad ? grp + fdiv(grp, per_row_groups) * pad : grp;
-        const float s = meta_f32(scale[mi]);
-        const float zm = meta_f32(zs[mi]);
-        const float z = zadd != 0.f ? __fadd_rn(zm, __fmul_rn(zadd, s)) : zm;
-        float v[VC];
-#pragma unroll
-        for (int i = 0; i < VC; ++i) {
-          const int c = kbase + r * VC + i;  // one word (RW = 1): no runtime index
-          v[i] = hqq_dq(word_code<CB>(w[j][RW == 1 ? 0 : c / C], c % C), s, z);
-        }
-        store_run<Out, VC>(out + e, v);
+      for (int i = 0; i < VC; ++i) {
+        const int c = kbase + i;  // one word (VW = 1): no runtime index
+        o[i] = hqq_dq(word_code<CB>(w[j][VW == 1 ? 0 : c / C], c % C), s, z);
       }
+      store_run<Out, VC>(out + e, o);
     }
   }
 }
@@ -304,7 +287,8 @@ __global__ void __launch_bounds__(128)
 // rows, RB = SB * r rows a block, PB = SB * C, block_skip = (RB - SB) * C,
 // stride = SB * C). Outputs at or past `valid` = R * C are the zero rows that
 // pad 3-bit to whole words: never written. Meta per row (axis=1: scale [R, 1]),
-// per column (axis=0: [1, C]) or one scalar.
+// per column (axis=0: [1, C]) or one scalar. A container of fp32, bf16 or fp16
+// (packing=None) holds one code an element, as its value: one field, e = o.
 struct CanonGeom {
   uint32_t positions;     // vectors of VC packed elements
   uint32_t valid;         // R * C
@@ -317,16 +301,44 @@ struct CanonGeom {
   int meta_mode;          // 0 scalar, 1 per row, 2 per column
 };
 
+// containers that hold codes as values, not bitfields
+template <typename Word>
+constexpr bool kValueCodes = !std::is_integral<Word>::value;
+
+// element t of the bytes in w (Word-sized), as the low bits of a word
+template <typename Word>
+__device__ __forceinline__ uint32_t element(const uint32_t* w, int t) {
+  if constexpr (sizeof(Word) == 4) {
+    return w[t];
+  } else if constexpr (sizeof(Word) == 2) {
+    return (w[t / 2] >> (16 * (t % 2))) & 0xffffu;
+  } else {
+    return (w[t / 4] >> (8 * (t % 4))) & 0xffu;
+  }
+}
+
+// the code in element x: its field at shift, or its value (exact in fp32)
+template <typename Word>
+__device__ __forceinline__ float code_of(uint32_t x, int shift, uint32_t mask) {
+  if constexpr (std::is_same<Word, float>::value) {
+    return __uint_as_float(x);
+  } else if constexpr (std::is_same<Word, __nv_bfloat16>::value) {
+    return __uint_as_float(x << 16);
+  } else if constexpr (std::is_same<Word, __half>::value) {
+    return __half2float(__ushort_as_half(static_cast<unsigned short>(x)));
+  } else {
+    return static_cast<float>((x >> shift) & mask);
+  }
+}
+
 template <typename Word, typename T, typename Out, int VC>
 __global__ void __launch_bounds__(256)
     hqq_dequant_canonical_kernel(const Word* __restrict__ wq, const T* __restrict__ scale,
                                  const T* __restrict__ zero, Out* __restrict__ out,
                                  CanonGeom geo) {
   constexpr int IB = VC * static_cast<int>(sizeof(Word));  // packed bytes of a vector
-  constexpr int RUN = run_of(8 * IB);
-  constexpr int RUNS = kItems / RUN;
-  constexpr int RWORDS = (RUN * IB + 3) / 4;
   const uint32_t mask = (1u << geo.bits) - 1u;
+  const int fields = kValueCodes<Word> ? 1 : geo.fields;
   const uint32_t lane = threadIdx.x & 31;
   const uint32_t warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const uint32_t warps = (gridDim.x * blockDim.x) >> 5;
@@ -334,58 +346,48 @@ __global__ void __launch_bounds__(256)
   if (geo.meta_mode == 0) s1 = meta_f32(scale[0]), z1 = meta_f32(zero[0]);
   for (uint32_t base = warp * 32 * kItems; base < geo.positions;
        base += warps * 32 * kItems) {
-    uint32_t w[RUNS][RWORDS];
+    uint32_t w[kItems][(IB + 3) / 4];
 #pragma unroll
-    for (int j = 0; j < RUNS; ++j) {
-      const uint32_t p0 = base + (j * 32 + lane) * RUN;
-      if (p0 < geo.positions) load_run<RUN * IB>(wq + static_cast<size_t>(p0) * VC, w[j]);
+    for (int j = 0; j < kItems; ++j) {
+      const uint32_t p = base + j * 32 + lane;
+      if (p < geo.positions) load_run<IB>(wq + static_cast<size_t>(p) * VC, w[j]);
     }
 #pragma unroll
-    for (int j = 0; j < RUNS; ++j) {
-      const uint32_t p0 = base + (j * 32 + lane) * RUN;
+    for (int j = 0; j < kItems; ++j) {
+      const uint32_t p = base + j * 32 + lane;
+      if (p >= geo.positions) break;
+      const uint32_t e = p * VC;
+      const uint32_t o0 = e + fdiv(e, geo.per_block) * geo.block_skip;
+      uint32_t x[VC];  // the vector's packed elements
 #pragma unroll
-      for (int r = 0; r < RUN; ++r) {
-        if (p0 + r >= geo.positions) break;
-        const uint32_t e = (p0 + r) * VC;
-        const uint32_t o0 = e + fdiv(e, geo.per_block) * geo.block_skip;
-        uint32_t x[VC];  // the vector's packed elements
+      for (int i = 0; i < VC; ++i) x[i] = element<Word>(w[j], i);
+      // meta per column: the same columns in every field (stride % C == 0)
+      float s[VC], z[VC];
+      if (geo.meta_mode == 0) {
+#pragma unroll
+        for (int i = 0; i < VC; ++i) s[i] = s1, z[i] = z1;
+      } else if (geo.meta_mode == 2) {
+        const uint32_t col = o0 - fdiv(o0, geo.per_row) * geo.cols;
+        load_meta<T, VC>(scale + col, s);
+        load_meta<T, VC>(zero + col, z);
+      }
+      for (int f = 0; f < fields; ++f) {
+        const uint32_t o = o0 + f * geo.stride;
+        if (o >= geo.valid) break;  // the rows that pad 3-bit: later fields too
+        if (geo.meta_mode == 1) {  // meta per row: a row of its own in each field
+          const uint32_t row = fdiv(o, geo.per_row);
+          const float sr = meta_f32(scale[row]), zr = meta_f32(zero[row]);
+#pragma unroll
+          for (int i = 0; i < VC; ++i) s[i] = sr, z[i] = zr;
+        }
+        const int shift = geo.bits * (fields - 1 - f);
+        float v[VC];
 #pragma unroll
         for (int i = 0; i < VC; ++i) {
-          const int t = r * VC + i;
-          if constexpr (sizeof(Word) == 4) {
-            x[i] = w[j][t];
-          } else {
-            x[i] = (w[j][t / 4] >> (8 * (t % 4))) & 0xffu;
-          }
+          const float c = code_of<Word>(x[i], shift, mask);
+          v[i] = round_as<T>(__fmul_rn(round_as<T>(__fsub_rn(c, z[i])), s[i]));
         }
-        // meta per column: the same columns in every field (stride % C == 0)
-        float s[VC], z[VC];
-        if (geo.meta_mode == 0) {
-#pragma unroll
-          for (int i = 0; i < VC; ++i) s[i] = s1, z[i] = z1;
-        } else if (geo.meta_mode == 2) {
-          const uint32_t col = o0 - fdiv(o0, geo.per_row) * geo.cols;
-          load_meta<T, VC>(scale + col, s);
-          load_meta<T, VC>(zero + col, z);
-        }
-        for (int f = 0; f < geo.fields; ++f) {
-          const uint32_t o = o0 + f * geo.stride;
-          if (o >= geo.valid) break;  // the rows that pad 3-bit: later fields too
-          if (geo.meta_mode == 1) {  // meta per row: a row of its own in each field
-            const uint32_t row = fdiv(o, geo.per_row);
-            const float sr = meta_f32(scale[row]), zr = meta_f32(zero[row]);
-#pragma unroll
-            for (int i = 0; i < VC; ++i) s[i] = sr, z[i] = zr;
-          }
-          const int shift = geo.bits * (geo.fields - 1 - f);
-          float v[VC];
-#pragma unroll
-          for (int i = 0; i < VC; ++i) {
-            const float c = static_cast<float>((x[i] >> shift) & mask);
-            v[i] = round_as<T>(__fmul_rn(round_as<T>(__fsub_rn(c, z[i])), s[i]));
-          }
-          store_run<Out, VC>(out + o, v);
-        }
+        store_run<Out, VC>(out + o, v);
       }
     }
   }
@@ -401,9 +403,6 @@ int launch_ax1(const void* wq, const void* scale, const void* zs, void* out, uin
   const auto* sc = static_cast<const Meta*>(scale);
   const auto* z = static_cast<const Meta*>(zs);
   auto* o = static_cast<Out*>(out);
-  constexpr int VC = 16 / sizeof(Out);
-  const int run = run_of(VC * cb);
-  if (vectors % run) return static_cast<int>(cudaErrorInvalidValue);  // a run past the end
   switch (cb) {
     case 8:
       hqq_dequant_kernel<Meta, Out, 8><<<grid, 256, 0, s>>>(q, sc, z, o, vectors, per_group,
@@ -466,8 +465,6 @@ int launch_canonical(const void* wq, const void* scale, const void* zero, void* 
   const auto* z = static_cast<const T*>(zero);
   auto* o = static_cast<Out*>(out);
   constexpr int VC = 16 / sizeof(Out);
-  const int run = run_of(8 * vec * static_cast<int>(sizeof(Word)));
-  if (geo.positions % run) return static_cast<int>(cudaErrorInvalidValue);
   if (vec == VC) {
     hqq_dequant_canonical_kernel<Word, T, Out, VC><<<grid, 256, 0, s>>>(q, sc, z, o, geo);
   } else if (vec == 1) {
@@ -578,28 +575,37 @@ HQQ_EXPORT int hqq_dequant_ax0(const void* wq, const void* scale, const void* zs
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// word_bytes: 1 (uint8 containers) or 4 (3bit_32); meta_dtype: the type T of
-// scale and zero (HQQ_F32, HQQ_BF16 or HQQ_F16); vec: 16 / sizeof(out), or 1;
-// the geometry from `dequant_canonical_plan`
+// container: 1 (uint8 bitfields), 4 (3bit_32's int32 bitfields), or for
+// packing=None the codes' own type, -1 - HQQ_F32, -1 - HQQ_BF16 or -1 - HQQ_F16;
+// meta_dtype: the type T of scale and zero (HQQ_F32, HQQ_BF16 or HQQ_F16);
+// vec: 16 / sizeof(out), or 1; the geometry from `dequant_canonical_plan`
 HQQ_EXPORT int hqq_dequant_canonical(const void* wq, const void* scale, const void* zero,
                                      void* out, unsigned positions, unsigned valid,
                                      unsigned stride, unsigned block_skip, unsigned block_mul,
                                      unsigned block_shift, unsigned cols, unsigned col_mul,
                                      unsigned col_shift, int fields, int bits, int meta_mode,
-                                     int word_bytes, int vec, int meta_dtype, int out_dtype,
+                                     int container, int vec, int meta_dtype, int out_dtype,
                                      int grid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const CanonGeom geo{positions, valid, stride, block_skip, FastDiv{block_mul, block_shift},
                       FastDiv{col_mul, col_shift}, cols, fields, bits, meta_mode};
-  if (word_bytes == 1) {
-    return canonical_meta<uint8_t>(wq, scale, zero, out, geo, vec, meta_dtype, out_dtype, grid,
-                                   s);
+#define HQQ_CANON(WORD) \
+  return canonical_meta<WORD>(wq, scale, zero, out, geo, vec, meta_dtype, out_dtype, grid, s)
+  switch (container) {
+    case 1:
+      HQQ_CANON(uint8_t);
+    case 4:
+      HQQ_CANON(uint32_t);
+    case -1 - HQQ_F32:
+      HQQ_CANON(float);
+    case -1 - HQQ_BF16:
+      HQQ_CANON(__nv_bfloat16);
+    case -1 - HQQ_F16:
+      HQQ_CANON(__half);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (word_bytes == 4) {
-    return canonical_meta<uint32_t>(wq, scale, zero, out, geo, vec, meta_dtype, out_dtype, grid,
-                                    s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+#undef HQQ_CANON
 }
 
 HQQ_EXPORT const char* hqq_error_string(int code) {

@@ -12,17 +12,16 @@ from .fused_matmul import (  # noqa: F401
 
 def kernel_wrappers() -> tuple:
     """Every kernel wrapper of the package, each with its ``launches``
-    count: the eight of `fused_matmul` (the seven of the kernel layouts and
-    `dequant_canonical`), `paged.paged_attention` and the six of `attention`
+    count: the eight of `fused_matmul`, `paged.paged_attention` and the six of `attention`
     (the flash forward, its fp32 route, the dK/dV and the dQ kernels and
     their fp32 routes)."""
     from .attention import (flash_attention, flash_attention_backward_dkv,
                             flash_attention_backward_dkv_fp32, flash_attention_backward_dq,
                             flash_attention_backward_dq_fp32, flash_attention_fp32)
-    from .fused_matmul import _WRAPPERS, dequant_canonical
+    from .fused_matmul import _WRAPPERS
     from .paged import paged_attention
 
-    return (*_WRAPPERS, dequant_canonical, paged_attention, flash_attention,
+    return (*_WRAPPERS, paged_attention, flash_attention,
             flash_attention_fp32, flash_attention_backward_dkv, flash_attention_backward_dq,
             flash_attention_backward_dkv_fp32, flash_attention_backward_dq_fp32)
 

@@ -38,14 +38,13 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import warnings
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from ..core.bitpack import FIELD_BITS, PACKING_CONTAINER, VALS_PER_WORD
-from ..core.quantize import QTensor, _logical_rows, dequantize_plain, resolve_meta, unpack_codes
+from ..core.quantize import QTensor, dequantize_plain, resolve_meta, unpack_codes
 from . import _build
 
 __all__ = [
@@ -74,7 +73,6 @@ __all__ = [
     "quant_matmul_ax0_plain",
     "dequant_plain",
     "dequant_canonical",
-    "dequant_canonical_plain",
     "DequantPlan",
     "dequant_launch_plan",
     "CanonicalPlan",
@@ -851,9 +849,11 @@ def dequant(kqt: "KernelQTensor | KernelQTensor0", dtype=torch.float32) -> torch
 class CanonicalPlan:
     """How `dequant_canonical` computes W from a canonical `QTensor`.
 
-    route "kernel": csrc/dequant.cu `hqq_dequant_canonical`. The packed
-    matrix [Rp, C] (``word_bytes``-byte containers, ``fields`` bitfields of
-    ``bits`` bits, most significant first) is read as ``positions`` vectors
+    csrc/dequant.cu `hqq_dequant_canonical`. The packed matrix [Rp, C]
+    (``container``: 1-byte or 4-byte words of ``fields`` bitfields of
+    ``bits`` bits, most significant first; or, with packing=None, -1 minus
+    the dtype code of the unpacked codes' fp32, bf16 or fp16, one code an
+    element, ``fields`` 1) is read as ``positions`` vectors
     of ``vec`` elements, one ``load_bytes`` load each, lanes of a warp on
     neighbouring vectors, ``items`` a lane per pass, ``grid`` blocks of
     ``threads`` striding over them. Packed element e of pack block e //
@@ -863,11 +863,9 @@ class CanonicalPlan:
     ``vec`` outputs. Meta: ``meta_mode`` 0 one scalar, 1 per row (the
     output's row by ``per_row`` = C), 2 per column, in ``meta_dtype`` T =
     the promotion of scale's and zero's types, the type the plain twin
-    computes in. route "plain": no packed codes (``why``)."""
+    computes in."""
 
-    route: str
-    why: str = ""
-    word_bytes: int = 0
+    container: int = 0
     fields: int = 0
     bits: int = 0
     vec: int = 0
@@ -891,11 +889,11 @@ def dequant_canonical_plan(qt: QTensor, dtype: torch.dtype) -> CanonicalPlan:
     and zero plain tensors: `resolve_meta`), written in ``dtype``. Covers
     every packing of `BIT_TO_PACKING` (8, 6 and 5 bits in 8bit_u8, 1.58 in
     2bit_u8, 3-bit in the int32 container), any group size, both axes,
-    per-tensor meta and ``pack_blocks``. The output vector is 16 bytes where
-    C, the length of a group-space row, is a multiple of it, else one
-    element. ``packing=None`` (no packed codes) goes to the plain
-    expression. Plans are kept by what they depend on (a training step asks
-    for the same few hundred times)."""
+    per-tensor meta and ``pack_blocks``, and ``packing=None`` (codes
+    unpacked in fp32, bf16 or fp16). The output vector is 16 bytes where C,
+    the length of a group-space row, is a multiple of it, else one element.
+    Plans are kept by what they depend on (a training step asks for the
+    same few hundred times)."""
     return _canonical_plan(
         qt.packing, tuple(qt.shape), qt.group_size, qt.axis, qt.channel_wise, qt.pack_blocks,
         tuple(qt.wq.shape), qt.wq.dtype, tuple(qt.scale.shape), qt.scale.dtype,
@@ -906,86 +904,78 @@ def dequant_canonical_plan(qt: QTensor, dtype: torch.dtype) -> CanonicalPlan:
 def _canonical_plan(packing, shape, group_size, axis, channel_wise, pack_blocks, wq_shape,
                     wq_dtype, scale_shape, scale_dtype, zero_shape, zero_dtype,
                     dtype) -> CanonicalPlan:
-    qt = QTensor(wq=torch.empty(wq_shape, dtype=wq_dtype, device="meta"),
-                 scale=torch.empty(scale_shape, dtype=scale_dtype, device="meta"),
-                 zero=torch.empty(zero_shape, dtype=zero_dtype, device="meta"),
-                 group_size=group_size, axis=axis, shape=shape, packing=packing,
-                 channel_wise=channel_wise, pack_blocks=pack_blocks)
-    if qt.packing is None:
-        return CanonicalPlan(route="plain", why=(
-            "packing=None (bitpack_weights=False): the codes are held unpacked in the "
-            "compute type, so there is no packed stream for the dequant kernel to read; "
-            "the plain expression computes W"))
     if dtype not in _DTYPE_CODE:
         raise ValueError(f"dequant kernel writes fp32, bf16 or fp16, not {dtype}")
-    meta = torch.promote_types(qt.scale.dtype, qt.zero.dtype)
+    meta = torch.promote_types(scale_dtype, zero_dtype)
     if meta not in _DTYPE_CODE:
-        raise ValueError(f"scale and zero in {qt.scale.dtype} and {qt.zero.dtype}: the kernel "
+        raise ValueError(f"scale and zero in {scale_dtype} and {zero_dtype}: the kernel "
                          f"computes in fp32, bf16 or fp16")
-    rows = _logical_rows(qt)
     total = 1
-    for d in qt.shape:
+    for d in shape:
         total *= d
+    # the rows of the group-space matrix, before 3-bit padding
+    if group_size is None or not channel_wise:
+        rows = shape[0]
+    elif axis == 0:
+        rows = group_size
+    else:
+        rows = total // group_size
     cols = total // rows
-    r = VALS_PER_WORD[qt.packing]
-    packed_rows = qt.wq.shape[0]
-    if qt.wq.ndim != 2 or qt.wq.shape[1] != cols or packed_rows != -(-rows // r):
-        raise ValueError(f"wq {tuple(qt.wq.shape)} is not [{-(-rows // r)}, {cols}] of "
-                         f"{qt.packing} for {rows} group-space rows")
-    if qt.wq.dtype != PACKING_CONTAINER[qt.packing]:
-        raise ValueError(f"{qt.packing} codes are {PACKING_CONTAINER[qt.packing]}, not "
-                         f"{qt.wq.dtype}")
-    blocks = qt.pack_blocks
+    if packing is None:  # the codes unpacked, one an element: one field
+        if wq_dtype not in _DTYPE_CODE:
+            raise ValueError(f"unpacked codes in {wq_dtype}: the kernel reads fp32, bf16 "
+                             f"or fp16")
+        r, bits, blocks, container = 1, 0, 1, -1 - _DTYPE_CODE[wq_dtype]
+    else:
+        if wq_dtype != PACKING_CONTAINER[packing]:
+            raise ValueError(f"{packing} codes are {PACKING_CONTAINER[packing]}, not "
+                             f"{wq_dtype}")
+        r, bits, blocks = VALS_PER_WORD[packing], FIELD_BITS[packing], pack_blocks
+        container = 4 if packing == "3bit_32" else 1
+    packed_rows = -(-rows // r)
+    if wq_shape != (packed_rows, cols):
+        raise ValueError(f"wq {wq_shape} is not [{packed_rows}, {cols}] of {packing} for "
+                         f"{rows} group-space rows")
     if packed_rows % blocks:
         raise ValueError(f"{packed_rows} packed rows do not split into {blocks} blocks")
     sb = packed_rows // blocks  # packed rows of a block
     if blocks > 1 and rows != packed_rows * r:
         raise ValueError(f"{blocks} pack blocks of {rows} rows: a block is not whole words")
     if packed_rows * cols >= 2**31 or total >= 2**31:
-        raise ValueError(f"{qt.packing} codes of {total} values: 2^31 or more")
-    shape = tuple(qt.scale.shape)
-    if tuple(qt.zero.shape) != shape:
-        raise ValueError(f"scale {shape} and zero {tuple(qt.zero.shape)} differ in shape")
-    if qt.scale.numel() == 1:
+        raise ValueError(f"{packing} codes of {total} values: 2^31 or more")
+    if zero_shape != scale_shape:
+        raise ValueError(f"scale {scale_shape} and zero {zero_shape} differ in shape")
+    if all(d == 1 for d in scale_shape):
         mode = 0
-    elif shape == (rows, 1):
+    elif scale_shape == (rows, 1):
         mode = 1
-    elif shape == (1, cols):
+    elif scale_shape == (1, cols):
         mode = 2
     else:
-        raise ValueError(f"meta {shape} is none of scalar, [{rows}, 1] and [1, {cols}]")
+        raise ValueError(f"meta {scale_shape} is none of scalar, [{rows}, 1] and [1, {cols}]")
     vec = 16 // dtype.itemsize
     vec = vec if cols % vec == 0 else 1
-    word_bytes = 4 if qt.packing == "3bit_32" else 1
     positions = packed_rows * cols // vec
     return CanonicalPlan(
-        route="kernel", word_bytes=word_bytes, fields=r, bits=FIELD_BITS[qt.packing], vec=vec,
-        load_bytes=vec * word_bytes, positions=positions, valid=rows * cols, stride=sb * cols,
-        block_skip=(r - 1) * sb * cols, per_block=_fastdiv(sb * cols), cols=cols,
-        per_row=_fastdiv(cols), meta_mode=mode, meta_dtype=meta,
+        container=container, fields=r, bits=bits, vec=vec,
+        load_bytes=vec * wq_dtype.itemsize, positions=positions, valid=rows * cols,
+        stride=sb * cols, block_skip=(r - 1) * sb * cols, per_block=_fastdiv(sb * cols),
+        cols=cols, per_row=_fastdiv(cols), meta_mode=mode, meta_dtype=meta,
         grid=(_grid_stride_blocks(positions),))
-
-
-def dequant_canonical_plain(qt: QTensor, dtype=None) -> torch.Tensor:
-    """Plain version of the canonical entry: `core.quantize.dequantize_plain`,
-    ((c - zero) * scale).reshape(shape) in the meta type, then ``dtype``."""
-    return dequantize_plain(qt, dtype)
 
 
 def dequant_canonical(qt: QTensor, dtype=None) -> torch.Tensor:
     """W = ((c - zero) * scale).reshape(qt.shape) in ``dtype`` (default the
     compute type) from a canonical `QTensor`: the kernel's canonical entry
     for codes on a CUDA device (`dequant_canonical_plan`), the plain twin
-    for codes on the CPU. Meta-quantized scale and zero are dequantized
-    first, in fp32, by the same route. `core.quantize.dequantize` calls it."""
+    `core.quantize.dequantize_plain` for codes on the CPU. Meta-quantized
+    scale and zero are dequantized first, in fp32, by the same route.
+    `core.quantize.dequantize` calls it."""
     qt = resolve_meta(qt)
     dtype = dtype if dtype is not None else qt.compute_dtype
     if _on_cpu(qt.wq):
-        return dequant_canonical_plain(qt, dtype)
+        return dequantize_plain(qt, dtype)
     plan = dequant_canonical_plan(qt, dtype)
-    if plan.route == "plain":
-        warnings.warn(plan.why, stacklevel=2)
-        return dequant_canonical_plain(qt, dtype)
     dev = qt.wq.device
     scale, zero = (t.to(plan.meta_dtype).contiguous() for t in (qt.scale, qt.zero))
     for t in (qt.wq, scale, zero):
@@ -998,7 +988,7 @@ def dequant_canonical(qt: QTensor, dtype=None) -> torch.Tensor:
             _ptr(qt.wq, min(16, plan.load_bytes)), _ptr(scale, min(16, meta_align)),
             _ptr(zero, min(16, meta_align)), _ptr(out), plan.positions, plan.valid, plan.stride,
             plan.block_skip, *plan.per_block, plan.cols, *plan.per_row, plan.fields, plan.bits,
-            plan.meta_mode, plan.word_bytes, plan.vec, _DTYPE_CODE[plan.meta_dtype],
+            plan.meta_mode, plan.container, plan.vec, _DTYPE_CODE[plan.meta_dtype],
             _DTYPE_CODE[dtype], plan.grid[0], _stream(dev),
         )
     _build.check("dequant_canonical", code)
@@ -1348,15 +1338,13 @@ def w4a8_lora_matmul(
     return out
 
 
-# the wrappers of the kernel layouts (`dequant_canonical` serves the canonical
-# QTensor and is counted beside them)
-_WRAPPERS = (dequant, quant_matmul, quant_matmul_lora, quant_matmul_ax0, w4a8_matmul,
-             w4a8_lora_matmul, qmm_fp32)
+_WRAPPERS = (dequant, dequant_canonical, quant_matmul, quant_matmul_lora, quant_matmul_ax0,
+             w4a8_matmul, w4a8_lora_matmul, qmm_fp32)
 
 
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
-    for w in _WRAPPERS + (dequant_canonical,):
+    for w in _WRAPPERS:
         w.launches = 0
 
 

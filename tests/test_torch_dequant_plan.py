@@ -4,7 +4,8 @@ arithmetic, emulated in numpy from the launch plans the wrappers hand it.
 
 The canonical entry: which lane reads which packed elements (one load of
 ``load_bytes``), which output elements each bitfield of them lands on,
-which meta it reads, which 3-bit padding rows it skips, and its rounding in
+which meta it reads, which 3-bit padding rows it skips (with packing=None:
+the codes' own fp32, bf16 or fp16 values, one field), and its rounding in
 the meta type T (t = round_T(c - z), w = round_T(t * s), then the output
 type). It is held bit-equal to the port's plain twin and to
 `hqq_tpu.core.quantize.dequantize` on the same numpy inputs from a seed,
@@ -13,7 +14,8 @@ meta in fp32, bf16 and fp16, meta-quantized scale and zero, pack blocks
 and 3-bit row padding. Against `hqq_tpu` the bar is bit-equal for every
 meta type: run eagerly, XLA rounds each operation to its type as PyTorch
 does (held in fp32 output, the arithmetic in T widened exactly, and on the
-main path's case in every output type). The kernel layouts' split (both axes) is held bit-equal to
+main path's case in every output type; fp32 meta through `jax.jit`, which
+rounds the same there). The kernel layouts' split (both axes) is held bit-equal to
 `dequant_plain`. A control must miss: the kernel layout's c*s - z*s in place
 of (c - z)*s. On the CPU `dequantize` and the `dequant_matmul` Function
 launch nothing and agree with `hqq_tpu`'s at the bars of
@@ -39,6 +41,10 @@ from hqq_tpu_torch.nn import linear as tlin
 from hqq_tpu_torch.ops import fused_matmul as fm
 
 _JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16}
+# hqq_tpu's dequantize compiled whole: one compile a case in place of one a
+# primitive. Only for fp32 meta, where XLA's fusion rounds as eager does; in
+# bf16 or fp16 it keeps fp32 intermediates, so those cases run eagerly.
+_J_DEQUANT = jax.jit(j_dequantize, static_argnums=1)
 _OUT = (torch.float32, torch.bfloat16, torch.float16)
 
 
@@ -83,20 +89,24 @@ def _emulate_canonical(qt: QTensor, dtype, control: bool = False) -> torch.Tenso
     """The canonical entry's work on ``qt`` (scale and zero plain tensors),
     from its launch plan. ``control``: c*s - z*s in place of (c - z)*s."""
     plan = fm.dequant_canonical_plan(qt, dtype)
-    assert plan.route == "kernel"
     total = int(np.prod(qt.shape))
-    packed = qt.wq.contiguous().view(-1).numpy()
-    if plan.word_bytes == 4:
+    word_bytes = qt.wq.element_size()
+    values = plan.container < 0  # packing=None: the codes as values, one field
+    assert plan.container == (-1 - fm._DTYPE_CODE[qt.wq.dtype] if values else word_bytes)
+    packed = qt.wq.contiguous().view(-1)
+    packed = packed.float().numpy() if values else packed.numpy()
+    if plan.container == 4:
         packed = packed.view(np.uint32)
-    packed = packed.astype(np.uint64)
+    if not values:
+        packed = packed.astype(np.uint64)
     walk = _walk(plan.positions, plan.grid[0], plan.threads, plan.items)
     p = walk[walk >= 0]
     assert np.array_equal(np.sort(p), np.arange(plan.positions))  # each vector once
     vec = plan.vec
     e = p * vec
     # one load of the vector's packed elements, aligned to its width (<= 16)
-    assert plan.load_bytes == vec * plan.word_bytes
-    assert (e * plan.word_bytes % min(16, plan.load_bytes) == 0).all()
+    assert plan.load_bytes == vec * word_bytes
+    assert (e * word_bytes % min(16, plan.load_bytes) == 0).all()
     x = packed[e[:, None] + np.arange(vec)]  # [vectors, vec]
     o0 = e + _fdiv(e, plan.per_block).astype(np.int64) * plan.block_skip
     scale, zero = _meta_np(qt.scale), _meta_np(qt.zero)
@@ -109,8 +119,11 @@ def _emulate_canonical(qt: QTensor, dtype, control: bool = False) -> torch.Tenso
         keep = o < plan.valid
         skipped += int((~keep).sum()) * vec
         oi = o[keep][:, None] + np.arange(vec)
-        c = ((x[keep] >> np.uint64(plan.bits * (plan.fields - 1 - f))) & np.uint64(mask))
-        c = c.astype(np.float32)
+        if values:
+            c = x[keep]
+        else:
+            c = ((x[keep] >> np.uint64(plan.bits * (plan.fields - 1 - f))) & np.uint64(mask))
+            c = c.astype(np.float32)
         if plan.meta_mode == 0:
             s, z = scale[0], zero[0]
         elif plan.meta_mode == 1:
@@ -193,13 +206,15 @@ def test_canonical_emulation_matches_twin_and_hqq_tpu(case):
     qt = _qt(*case)
     rq = resolve_meta(qt)
     jq = _to_jax(qt)
+    fp32_meta = torch.promote_types(rq.scale.dtype, rq.zero.dtype) == torch.float32
+    j_run = _J_DEQUANT if fp32_meta else j_dequantize
     for dtype in _OUT:
         got = _emulate_canonical(rq, dtype)
         assert torch.equal(got, dequantize_plain(qt, dtype)), dtype
         # hqq_tpu in fp32 out (its arithmetic in T, widened exactly); every
         # output type on the main path's case (one JAX compile per shape)
         if dtype == torch.float32 or case == _GRID[3]:
-            ref = np.asarray(j_dequantize(jq, _JNP[dtype]).astype(jnp.float32))
+            ref = np.asarray(j_run(jq, _JNP[dtype]).astype(jnp.float32))
             assert np.array_equal(got.float().numpy(), ref), dtype
 
 
@@ -212,8 +227,9 @@ def test_control_c_times_s_minus_zs_misses():
     qt = resolve_meta(_qt(*_GRID[3]))
     assert not torch.equal(_emulate_canonical(qt, torch.float32, control=True),
                            dequantize_plain(qt, torch.float32))
-    misses = [not torch.equal(_emulate_canonical(resolve_meta(_qt(*c)), torch.float32, True),
-                              dequantize_plain(_qt(*c), torch.float32)) for c in _GRID]
+    misses = [not torch.equal(_emulate_canonical(rq, torch.float32, True),
+                              dequantize_plain(rq, torch.float32))
+              for rq in (resolve_meta(_qt(*c)) for c in _GRID)]
     assert sum(misses) >= len(_GRID) // 2, misses
 
 
@@ -231,10 +247,10 @@ def test_canonical_plan_covers_every_packing():
                     full = 16 // (4 if dtype == torch.float32 else 2)
                     cols = int(np.prod(qt.shape)) // qt.wq.shape[0] if packing == "8bit_u8" \
                         else qt.wq.shape[1]
-                    assert plan.route == "kernel" and plan.fields == bitpack.VALS_PER_WORD[packing]
+                    assert plan.fields == bitpack.VALS_PER_WORD[packing]
                     assert plan.vec == (full if cols % full == 0 else 1)
-                    assert plan.word_bytes == (4 if packing == "3bit_32" else 1)
-                    assert plan.load_bytes == plan.vec * plan.word_bytes <= 32
+                    assert plan.container == (4 if packing == "3bit_32" else 1)
+                    assert plan.load_bytes == plan.vec * plan.container <= 32
                     assert plan.grid[0] <= fm.DEQUANT_MAX_BLOCKS
     odd = _qt(4, None, 1, (12, 100), {}, 1)
     assert fm.dequant_canonical_plan(odd, torch.bfloat16).vec == 1
@@ -260,15 +276,23 @@ def test_canonical_plan_i_shapes():
         assert (np.diff(walk, axis=-1) == 1).all()  # lanes on neighbouring vectors
 
 
-def test_packing_none_takes_the_named_plain_route():
-    qt = _qt(4, 64, 1, (24, 128), dict(bitpack_weights=False), 1)
-    plan = fm.dequant_canonical_plan(qt, torch.bfloat16)
-    assert plan.route == "plain" and "packing=None" in plan.why
+@pytest.mark.parametrize("compute", _OUT)
+def test_packing_none_reads_the_codes_as_values(compute):
+    """packing=None (bitpack_weights=False): the codes unpacked in the
+    compute type, one field, read by their value; bit-equal to the twin and
+    to hqq_tpu, whose codes are the same values."""
+    qt = _qt(4, 64, 1, (24, 128), dict(bitpack_weights=False, compute_dtype=compute), 1)
+    assert qt.packing is None and qt.wq.dtype == compute
     jq = _to_jax(qt)
     for dtype in _OUT:
-        got = dequantize(qt, dtype)
-        ref = np.asarray(j_dequantize(jq, _JNP[dtype]).astype(jnp.float32))
-        assert np.array_equal(got.float().numpy(), ref)
+        plan = fm.dequant_canonical_plan(qt, dtype)
+        assert (plan.container, plan.fields) == (-1 - fm._DTYPE_CODE[compute], 1)
+        assert plan.load_bytes == plan.vec * compute.itemsize
+        got = _emulate_canonical(qt, dtype)
+        assert torch.equal(got, dequantize(qt, dtype)), dtype
+        if dtype == compute:  # one JAX call a compute type
+            ref = np.asarray(j_dequantize(jq, _JNP[dtype]).astype(jnp.float32))
+            assert np.array_equal(got.float().numpy(), ref)
 
 
 def test_fastdiv_is_floor_division():
@@ -382,17 +406,21 @@ def test_kernel_layout_plans_at_full_size():
 def test_cpu_route_launches_nothing_and_matches_hqq_tpu():
     """dequantize and the dequant_matmul Function on the CPU: the plain twin,
     no launch; forward and dx against hqq_tpu's dequant_matmul and its VJP
-    (the bars of test_dequant_matmul_backward: 1e-6 in fp32, 2^-7 in bf16)."""
+    in the main path's bf16 (the bar of test_dequant_matmul_backward, 2^-7;
+    tests/test_torch_training.py holds fp32 at 1e-6)."""
     rng = np.random.default_rng(7)
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.bfloat16,):
         w = torch.from_numpy((rng.standard_normal((48, 128)) / 8).astype(np.float32))
         qt = quantize(w, nbits=4, group_size=64, compute_dtype=dtype, round_zero=True)
         jq = dataclasses.replace(_to_jax(qt))
         x = rng.standard_normal((5, 128)).astype(np.float32)
         gy = rng.standard_normal((5, 48)).astype(np.float32)
-        xj = jnp.asarray(x, _JNP[dtype])
-        yj, vjp = jax.vjp(lambda a: jlin.dequant_matmul(a, jq), xj)
-        (dxj,) = vjp(jnp.asarray(gy, _JNP[dtype]))
+
+        def fwd_bwd(a, g):
+            y, vjp = jax.vjp(lambda a_: jlin.dequant_matmul(a_, jq), a)
+            return y, vjp(g)[0]
+
+        yj, dxj = jax.jit(fwd_bwd)(jnp.asarray(x, _JNP[dtype]), jnp.asarray(gy, _JNP[dtype]))
         fm.reset_launch_counts()
         with mock.patch.object(fm, "dequant_canonical", wraps=fm.dequant_canonical) as route:
             xt = torch.from_numpy(x).to(dtype).requires_grad_()
@@ -403,8 +431,9 @@ def test_cpu_route_launches_nothing_and_matches_hqq_tpu():
         for a, b in ((yt.detach(), yj), (xt.grad, dxj)):
             b = np.asarray(jnp.asarray(b, jnp.float32))
             assert np.abs(a.float().numpy() - b).max() <= tol * np.abs(b).max()
+        assert qt.scale.dtype == qt.zero.dtype == torch.float32
         assert np.array_equal(dequantize(qt).float().numpy(),
-                              np.asarray(j_dequantize(jq).astype(jnp.float32)))
+                              np.asarray(_J_DEQUANT(jq, None).astype(jnp.float32)))
 
 
 def test_training_step_dequantizes_each_linear_twice_but_three():
@@ -421,7 +450,8 @@ def test_training_step_dequantizes_each_linear_twice_but_three():
 
     cfg = LlamaConfig.tiny()
     params = init_params(cfg, torch.Generator().manual_seed(0), torch.float32, "cpu")
-    quantize_model(params, BaseQuantizeConfig(nbits=4, group_size=64), compute_dtype=torch.float32)
+    quantize_model(params, BaseQuantizeConfig(nbits=4, group_size=64, optimize=False),
+                   compute_dtype=torch.float32)
     PeftUtils.add_lora(params, lora_config(r=4, lora_alpha=4),
                        generator=torch.Generator().manual_seed(1))
     trainable = TrainableParams(params)
@@ -431,7 +461,7 @@ def test_training_step_dequantizes_each_linear_twice_but_three():
 
     def counted(qt, dtype=None):
         calls.append(qt.shape)
-        return fm.dequant_canonical_plain(qt, dtype)
+        return fm.dequantize_plain(qt, dtype)
 
     with mock.patch.object(fm, "dequant_canonical", counted):
         with torch.no_grad():

@@ -380,7 +380,7 @@ def test_routing_counts_and_no_fallback(cuda):
     counts = {w.__name__: w.launches for w in fm._WRAPPERS}
     assert counts == {"w4a8_matmul": 1, "quant_matmul": 1, "w4a8_lora_matmul": 1,
                       "quant_matmul_lora": 1, "quant_matmul_ax0": 2, "dequant": 2,
-                      "qmm_fp32": 0}
+                      "dequant_canonical": 0, "qmm_fp32": 0}
     # fp32 activations take the fp32 route, never a bf16 kernel
     x32 = torch.randn(40, 512, device=cuda)
     _close(fm.quant_matmul(x32, kqt), fm.quant_matmul_plain(x32, kqt), _OUT_TOL[torch.float32])
@@ -913,8 +913,9 @@ def test_lora_layer_follows_a(cuda, m):
 # The dequant kernel's canonical entry (csrc/dequant.cu, `dequant_canonical`):
 # every packing, both axes, group sizes 8-128 and None, per-tensor meta, meta
 # in fp32, bf16 and fp16, meta-quantized scale and zero, two pack blocks,
-# group-space rows that 3-bit pads to whole words (R % 10 != 0) and rows of C
-# values that no 16-byte vector divides (the plan's one-element vectors):
+# group-space rows that 3-bit pads to whole words (R % 10 != 0), rows of C
+# values that no 16-byte vector divides (the plan's one-element vectors) and
+# packing=None (the codes unpacked in fp32, bf16 or fp16, read as values):
 # bit-equal to the plain twin, the same operations rounded in the same type.
 # (nbits, group_size, axis, shape, extra quantize arguments, pack blocks)
 _CANON_CASES = [
@@ -928,16 +929,22 @@ _CANON_CASES = [
     (4, 8, 1, (40, 64), {}, 1),
     (4, 128, 1, (64, 384), {}, 2),
     (4, None, 1, (40, 100), {}, 1),          # C = 100: one-element bf16 vectors
+    (4, None, 0, (160, 96), {}, 1),
     (4, 64, 1, (96, 256), dict(channel_wise=False), 1),
     (4, 64, 1, (96, 256), dict(scale_quant_params={}, zero_quant_params={}), 1),
     (3, 64, 1, (96, 256), {}, 1),            # R = 384: 3-bit pads 6 rows
     (3, 64, 0, (128, 96), dict(meta_dtype=torch.bfloat16), 1),
     (3, 16, 1, (40, 56), {}, 1),             # R = 140
+    (3, 32, 0, (64, 96), {}, 1),             # R = 32: 3-bit pads 8 rows
     (2, 16, 0, (64, 96), {}, 1),
     (2, 32, 1, (96, 256), dict(meta_dtype=torch.float16), 2),
     (1.58, 64, 1, (96, 256), {}, 1),
+    (1.58, 16, 0, (128, 96), dict(meta_dtype=torch.bfloat16), 1),
     (1, 32, 1, (96, 256), {}, 1),
     (1, 16, 0, (128, 96), {}, 2),
+    (4, 64, 1, (96, 256), dict(bitpack_weights=False), 1),  # bf16 codes
+    (8, 32, 0, (128, 96), dict(bitpack_weights=False, compute_dtype=torch.float32), 1),
+    (4, None, 1, (40, 100), dict(bitpack_weights=False, compute_dtype=torch.float16), 1),
 ]
 
 
@@ -966,8 +973,8 @@ def test_dequant_canonical_exact(cuda, nbits, g, axis, shape, extra, blocks):
         got = fm.dequant_canonical(qt, dtype)
         assert fm.dequant_canonical.launches == launches + 1 + 2 * bool(
             extra.get("scale_quant_params") is not None)
-        with mock.patch.object(fm, "dequant_canonical", fm.dequant_canonical_plain):
-            ref = fm.dequant_canonical_plain(qt, dtype)  # meta-quantized meta plain too
+        with mock.patch.object(fm, "dequant_canonical", fm.dequantize_plain):
+            ref = fm.dequantize_plain(qt, dtype)  # meta-quantized meta plain too
         assert got.dtype == dtype and tuple(got.shape) == shape
         assert torch.equal(got, ref), (dtype, (got.float() - ref.float()).abs().max().item())
 
@@ -1009,22 +1016,24 @@ def test_quant_linear_launches_canonical(cuda):
     y.backward(g)
     assert fm.dequant_canonical.launches == 2
     x2 = x.detach().clone().requires_grad_()
-    with mock.patch.object(fm, "dequant_canonical", fm.dequant_canonical_plain):
+    with mock.patch.object(fm, "dequant_canonical", fm.dequantize_plain):
         y2 = layer(x2)
         y2.backward(g)
     assert torch.equal(y, y2) and torch.equal(x.grad, x2.grad)
 
 
-def test_dequant_canonical_packing_none(cuda):
-    """packing=None holds no packed codes: the plan names the plain route,
-    which says why and launches nothing."""
+@pytest.mark.parametrize("compute", list(_OUT_TOL))
+def test_dequant_canonical_packing_none(cuda, compute):
+    """packing=None: the codes unpacked in the compute type, which the
+    kernel reads as values, one field; one launch, bit-equal to the twin."""
     from hqq_tpu_torch.core.quantize import dequantize
 
     w = torch.randn(64, 128, device=cuda)
-    qt = quantize(w, nbits=4, group_size=64, bitpack_weights=False, optimize=False)
-    assert fm.dequant_canonical_plan(qt, torch.bfloat16).route == "plain"
+    qt = quantize(w, nbits=4, group_size=64, bitpack_weights=False, optimize=False,
+                  compute_dtype=compute)
+    assert qt.packing is None and qt.wq.dtype == compute
+    assert fm.dequant_canonical_plan(qt, torch.bfloat16).container == -1 - fm._DTYPE_CODE[compute]
     launches = fm.dequant_canonical.launches
-    with pytest.warns(UserWarning, match="packing=None"):
-        got = dequantize(qt, torch.bfloat16)
-    assert fm.dequant_canonical.launches == launches
-    assert torch.equal(got, fm.dequant_canonical_plain(qt, torch.bfloat16))
+    got = dequantize(qt, torch.bfloat16)
+    assert fm.dequant_canonical.launches == launches + 1
+    assert torch.equal(got, fm.dequantize_plain(qt, torch.bfloat16))
