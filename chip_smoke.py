@@ -1,5 +1,5 @@
 # SPDX-License-Identifier: Apache-2.0
-"""Chip smoke test of hqq_tpu_torch: HQQ Llama-2-7B on one GPU, six ways.
+"""Chip smoke test of hqq_tpu_torch: HQQ Llama-2-7B on one GPU, seven ways.
 
     python3 chip_smoke.py            # on cuda:0, every phase
     python3 chip_smoke.py --time quant_matmul 512 4096 4096      # one kernel
@@ -58,7 +58,12 @@ Phases (any failure exits non-zero):
       from a seed, quantize_model(4-bit, g64), prepare_for_inference("w4a8"),
       generate for 4 prompts of 100 tokens (prefill M = 4*128 = 512 rows),
       one sampled request of batch 1, and .dequantize() of a prepared layer;
-      every kernel's launch count must move;
+      every kernel's launch count must move. The launch window runs the
+      decode loop eagerly (compile_mode "partial"); then the same generates
+      as a replayed CUDA graph ("full", the default): greedy ids equal,
+      the launches recorded into each graph equal a partial decode step's,
+      decode tok/s and the busy share of an 8-token generate in both modes
+      (phases e and f likewise);
   (d) end to end, on a 2-layer model at 7B width: prefill logits under
       "pallas" against "xla" on the same quantized weights; four decode
       steps under "w4a8", each w4a8 call held to its plain version on the
@@ -110,7 +115,19 @@ Phases (any failure exits non-zero):
       and their device time in the step), with the control D dropped; fp32
       HQQ+ serving through qmm_fp32 and flash_attention_fp32 against the
       plain versions, with a bf16 control.
-Phases g and h run right after c, on its model, before d.
+  (q) the README quick start: a 2-layer model at 7B width written as a
+      Hugging Face directory (config.json, two shards, the index) by the
+      port's safetensors writer and read by
+      HQQModelForCausalLM.from_pretrained, every tensor and a 16-token
+      forward's logits bit-equal; then C's 32-layer model (seed 0, 4-bit
+      g64) through save_quantized and from_quantized (GB and seconds, every
+      tensor bit-equal), prepare_for_inference("w4a8") and generate in
+      "partial" and "full": greedy ids equal to each other and to phase
+      c's (sha1 printed), a sampled request (top_k 20, top_p 0.9, seed 1)
+      equal in both modes, on_token fired once a token with the returned
+      ids; decode tok/s and busy share in both modes, capture seconds,
+      peak memory. The directory is removed at the end.
+Phases g and h run right after c, on its model, then q, then d.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -361,7 +378,8 @@ def device_share(fn) -> dict:
                                         + e.self_device_time_total / 1e3, 3)
     return dict(wall_ms=wall_ms, busy_share=device_ms / wall_ms, device_ms=device_ms,
                 top={e.key[:40]: round(e.self_device_time_total / 1e3, 3) for e in top},
-                w4a8=w4a8, by_name={e.key: e.self_device_time_total / 1e3 for e in events})
+                w4a8=w4a8, by_name={e.key: e.self_device_time_total / 1e3 for e in events},
+                events=sum(e.count for e in events))
 
 
 def card_state() -> str:
@@ -1469,26 +1487,27 @@ def serve_7b(tag: str, dev_tag: str, quant_config, expect: dict, after_quantize=
         f"{prompts.shape[0] / bound_step_ms * 1e3:.1f} tok/s at B={prompts.shape[0]}")
 
     counts = launch_counts
+    partial = dict(compile_mode="partial")  # an eager decode loop: every launch counts
 
     # the main path's window: every count from 0, read right after
     ops.reset_launch_counts()
-    model.generate(prompts, max_new_tokens=1)  # first call: lazy set-up
+    model.generate(prompts, max_new_tokens=1, **partial)  # first call: lazy set-up
     torch.cuda.synchronize()
     per_prefill = counts()
     t0 = time.time()
-    model.generate(prompts, max_new_tokens=1)
+    model.generate(prompts, max_new_tokens=1, **partial)
     torch.cuda.synchronize()
     prefill_ms = (time.time() - t0) * 1e3
     before = counts()
     t0 = time.time()
-    out = model.generate(prompts, max_new_tokens=new)
+    out = model.generate(prompts, max_new_tokens=new, **partial)
     torch.cuda.synchronize()
     gen_s = time.time() - t0
     after = counts()
     decode_tok_s = prompts.shape[0] * (new - 1) / (gen_s - prefill_ms / 1e3)
     if extra is not None:
         extra(model)
-    busy = device_share(lambda: model.generate(prompts, max_new_tokens=8))
+    busy = device_share(lambda: model.generate(prompts, max_new_tokens=8, **partial))
     torch.cuda.synchronize()
     launches = counts()
     log(f"[{tag}] launches in the main path: {launches}")
@@ -1496,6 +1515,8 @@ def serve_7b(tag: str, dev_tag: str, quant_config, expect: dict, after_quantize=
     # the dequant-matmul mainloop
     prefill_dev = time_ms([lambda: model.generate(prompts, max_new_tokens=1)], 2)
     prefill_qmm = time_ms([lambda: model.generate(prompts, max_new_tokens=1)], 2, only="qmm_")
+    full = decode_full(tag, dev_tag, model, prompts, out, prefill_ms, busy,
+                       {name: per_step for name, (_, per_step) in expect.items() if per_step})
 
     if out.shape != (prompts.shape[0], new) or out.min() < 0 or out.max() >= cfg.vocab_size:
         raise AssertionError(f"unexpected output: shape {out.shape}, ids {out.min()}..{out.max()}")
@@ -1516,8 +1537,99 @@ def serve_7b(tag: str, dev_tag: str, quant_config, expect: dict, after_quantize=
     log(f"[{tag}] {dev_tag}: 8-token generate (B=4): device busy {busy['busy_share']:.3f} of "
         f"{busy['wall_ms']:.1f} ms wall; device ms by kernel: {busy['top']}")
     log(f"[{tag}] {dev_tag}: 8-token generate (B=4): w4a8 kernels' device ms {busy['w4a8']}")
+    log(f"[{tag}] {dev_tag}: decode tok/s (B=4) partial {decode_tok_s:.1f}, full "
+        f"{full['tok_s']:.1f}; 8-token generate busy share partial {busy['busy_share']:.3f} "
+        f"of {busy['wall_ms']:.1f} ms, full {full['busy']['busy_share']:.3f} of "
+        f"{full['busy']['wall_ms']:.1f} ms")
     log(f"[{tag}] card right after it: {card_state()}")
-    return launches, model
+    return launches, model, out
+
+
+def decode_full(tag: str, dev_tag: str, model, prompts, partial_ids, prefill_ms: float,
+                partial_busy: dict, per_step: dict) -> dict:
+    """The decode loop as a replayed CUDA graph (compile_mode "full", the
+    default) on a prepared model, after its "partial" window: the greedy
+    ids must equal "partial"'s, and the launches recorded into each graph
+    equal "partial"'s per decode step (``per_step``: wrapper -> launches).
+    Returns decode tok/s (the formula of `serve_7b`), the 8-token
+    generate's busy share and the capture seconds. A replay calls no
+    wrapper, so the launch counts do not move here. The model's graphs are
+    released at the end, so later phases do not carry their buffers."""
+    from unittest import mock
+
+    import numpy as np
+
+    from hqq_tpu_torch.serving.generate import Generator, _fingerprint, next_power_of_2
+
+    new = partial_ids.shape[1]
+    b = prompts.shape[0]
+    ids = model.generate(prompts, max_new_tokens=new)  # captures (B, 256)
+    model.generate(prompts, max_new_tokens=8)  # captures (B, 128)
+    torch.cuda.synchronize()
+    if not np.array_equal(ids, partial_ids):
+        raise AssertionError(f"[{tag}] the graph's greedy ids differ from the eager loop's")
+    captures = model.generator().captures()
+    for key, cap in captures.items():
+        if cap["launches"] != per_step:
+            raise AssertionError(f"[{tag}] graph {key} recorded {cap['launches']} launches, "
+                                 f"a partial decode step makes {per_step}")
+    t0 = time.time()
+    model.generate(prompts, max_new_tokens=new)
+    torch.cuda.synchronize()
+    gen_s = time.time() - t0
+    tok_s = b * (new - 1) / (gen_s - prefill_ms / 1e3)
+    # the host's check, at each graphed generate, that the tree is the one
+    # the graphs were captured on
+    t0 = time.perf_counter()
+    _fingerprint(model.params)
+    check_ms = (time.perf_counter() - t0) * 1e3
+    # the K/V caches both loops leave after the same 8-token generate: every
+    # layer's projections of every step, bit-equal unless a library kernel
+    # chose another algorithm on the capture stream (then held to phase b's
+    # bar); the eager loop's cache is caught as its call allocates it
+    model.generate(prompts, max_new_tokens=8)
+    graph = model.generator()._graphs[(b, next_power_of_2(prompts.shape[1] + 8 + 1))].cache
+    made = []
+    new_state = Generator._new_state
+
+    def recorded(gen, *a):
+        made.append(new_state(gen, *a))
+        return made[-1]
+
+    with mock.patch.object(Generator, "_new_state", recorded):
+        model.generate(prompts, max_new_tokens=8, compile_mode="partial")
+    eager = made[-1].cache
+    kv_err = max(rel(graph.k, eager.k), rel(graph.v, eager.v))
+    del made, eager, graph
+    if not kv_err <= 2.0**-7:
+        raise AssertionError(f"[{tag}] the graph's K/V cache differs from the eager loop's by "
+                             f"{kv_err:.3e} of max|kv|")
+
+    def generate8():
+        model.generate(prompts, max_new_tokens=8)
+
+    busy = device_share(generate8)
+    if busy["events"] < 0.9 * partial_busy["events"]:
+        # the profiler kept fewer of the replays' kernels than the eager
+        # loop ran: time the replayed generate between CUDA events instead
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ms = _event_ms([generate8], 3)
+        wall_ms = (time.time() - t0) * 1e3 / 3
+        log(f"[time] the profiler kept {busy['events']} device events of the replayed "
+            f"generate, the eager one {partial_busy['events']}: the busy share below is the "
+            f"generate's time between CUDA events ({ms:.3f} ms, host gaps before and between "
+            f"the replays included, so an upper bound) over its wall time ({wall_ms:.3f} ms)")
+        busy = dict(busy, busy_share=ms / wall_ms, device_ms=ms, wall_ms=wall_ms)
+    log(f"[{tag}] {dev_tag}: full (CUDA graph): greedy ids equal partial's, K/V caches "
+        f"{'bit-equal' if kv_err == 0 else f'within {kv_err:.3e} of max|kv|'}; capture "
+        f"{ {k: round(c['seconds'], 3) for k, c in captures.items()} } s, each recording "
+        f"{per_step} launches; parameter-tree check {check_ms:.2f} ms a generate; decode "
+        f"{tok_s:.1f} tok/s at B={b}; 8-token generate busy "
+        f"{busy['busy_share']:.3f} of {busy['wall_ms']:.1f} ms wall, device ms "
+        f"{busy['device_ms']:.3f}; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    model.release_graphs()
+    return dict(tok_s=tok_s, busy=busy, captures=captures)
 
 
 def check_calls(tag: str, model, wrappers: dict, steps: int = 2) -> None:
@@ -1566,8 +1678,8 @@ def check_calls(tag: str, model, wrappers: dict, steps: int = 2) -> None:
 
 
 def phase_c(dev_tag: str):
-    """Returns (launches of the window, the prepared model): phases g and h
-    go on with the model."""
+    """Returns (launches of the window, the prepared model, its greedy
+    ids): phases g and h go on with the model, phase q with the ids."""
     from hqq_tpu_torch import BaseQuantizeConfig
 
     seen = {}
@@ -1584,13 +1696,191 @@ def phase_c(dev_tag: str):
         seen["sampled"] = sampled[0][:8].tolist()
 
     n = LINEARS_PER_PASS
-    launches, model = serve_7b("c", dev_tag, BaseQuantizeConfig(nbits=4, group_size=64),
+    launches, model, ids = serve_7b("c", dev_tag, BaseQuantizeConfig(nbits=4, group_size=64),
                                {"quant_matmul": (n, 0), "w4a8_matmul": (0, n)}, extra=extra)
     log(f"[c] sampled {seen['sampled']}")
     missing = [k for k in ("w4a8_matmul", "quant_matmul", "dequant") if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
-    return launches, model
+    return launches, model, ids
+
+
+def _write_hf_dir(path: str, params: dict, cfg) -> int:
+    """``params`` as a Hugging Face Llama directory, written by the port's
+    own safetensors writer: config.json, two shards (the embedding and the
+    first half of the layers, then the rest) and the index. Returns the
+    bytes of the tensors."""
+    from hqq_tpu_torch.models._safetensors import save_file
+
+    half = cfg.num_hidden_layers // 2
+    shards = [{"model.embed_tokens.weight": params["embed_tokens"]}, {}]
+    for i, layer in enumerate(params["layers"]):
+        named = {f"self_attn.{k}.weight": m.weight for k, m in layer["self_attn"].items()}
+        named.update({f"mlp.{k}.weight": m.weight for k, m in layer["mlp"].items()})
+        named["input_layernorm.weight"] = layer["input_layernorm"]
+        named["post_attention_layernorm.weight"] = layer["post_attention_layernorm"]
+        shards[i >= half].update({f"model.layers.{i}.{k}": v for k, v in named.items()})
+    shards[1]["model.norm.weight"] = params["norm"]
+    shards[1]["lm_head.weight"] = params["lm_head"].weight
+    os.makedirs(path)
+    weight_map, total = {}, 0
+    for i, shard in enumerate(shards):
+        fname = f"model-{i + 1:05d}-of-00002.safetensors"
+        save_file(shard, os.path.join(path, fname))
+        weight_map.update(dict.fromkeys(shard, fname))
+        total += sum(t.numel() * t.element_size() for t in shard.values())
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
+    hf = {"model_type": "llama", "architectures": ["LlamaForCausalLM"],
+          "torch_dtype": "bfloat16", **{k: getattr(cfg, k) for k in (
+              "vocab_size", "hidden_size", "intermediate_size", "num_hidden_layers",
+              "num_attention_heads", "num_key_value_heads", "max_position_embeddings",
+              "rms_norm_eps", "rope_theta", "tie_word_embeddings")}}
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf, f)
+    return total
+
+
+def _bit_equal_trees(tag: str, got, want) -> int:
+    """Every tensor of two parameter trees bit-equal (the checkpoint
+    format's flattening); returns how many were compared."""
+    from hqq_tpu_torch.models.serialize import tree_to_state
+
+    got_flat, got_struct = tree_to_state(got)
+    want_flat, want_struct = tree_to_state(want)
+    if got_struct != want_struct or list(got_flat) != list(want_flat):
+        raise AssertionError(f"[{tag}] the loaded tree's structure differs")
+    for k, w in want_flat.items():
+        g = got_flat[k]
+        if g.dtype != w.dtype or g.shape != w.shape or g.device != w.device \
+                or not torch.equal(g.reshape(-1).view(torch.uint8), w.reshape(-1).view(torch.uint8)):
+            raise AssertionError(f"[{tag}] {k} differs from what was written")
+    return len(want_flat)
+
+
+def phase_q(dev_tag: str, c_ids) -> dict:
+    """The README quick start on the card: a 2-layer HF directory at 7B
+    width through `HQQModelForCausalLM.from_pretrained`; then C's model
+    (32 layers, seed 0, 4-bit g64) through save_quantized, from_quantized,
+    prepare_for_inference("w4a8") and generate, in "partial" and in "full".
+    Returns the launches of its window."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from hqq_tpu_torch import BaseQuantizeConfig, ops
+    from hqq_tpu_torch.engine.hf import HQQModel, HQQModelForCausalLM
+    from hqq_tpu_torch.models.llama import LlamaConfig, forward, init_params
+
+    def sha(ids):
+        return hashlib.sha1(np.ascontiguousarray(ids).tobytes()).hexdigest()[:12]
+
+    root = tempfile.mkdtemp(prefix="hqq-quickstart-")
+    try:
+        # 1. from_pretrained on an HF directory: 2 layers at 7B width, bf16
+        cfg2 = dataclasses.replace(LlamaConfig.llama2_7b(), num_hidden_layers=2)
+        params = init_params(cfg2, torch.Generator(device="cuda").manual_seed(0),
+                             torch.bfloat16, "cuda")
+        hf_dir = os.path.join(root, "hf")
+        t0 = time.time()
+        nbytes = _write_hf_dir(hf_dir, params, cfg2)
+        write_s = time.time() - t0
+        t0 = time.time()
+        loaded = HQQModelForCausalLM.from_pretrained(hf_dir)
+        torch.cuda.synchronize()
+        load_s = time.time() - t0
+        if loaded.cfg != cfg2:
+            raise AssertionError(f"[q] from_pretrained read config {loaded.cfg}")
+        n = _bit_equal_trees("q", loaded.params, params)
+        toks = torch.from_numpy(_prompts(cfg2)[:, :16]).to("cuda")
+        with torch.inference_mode():
+            got, _ = loaded.forward(toks)
+            want, _ = forward(params, cfg2, toks)
+        if not torch.isfinite(got).all() or not torch.equal(got, want):
+            raise AssertionError("[q] from_pretrained's logits differ from the tree's")
+        log(f"[q] HF directory (2 layers at 7B width, 2 shards + index, {nbytes / 1e9:.3f} GB, "
+            f"written in {write_s:.2f} s): from_pretrained {load_s:.2f} s; {n} tensors "
+            f"bit-equal; logits of a 16-token forward bit-equal to the tree's")
+        del params, loaded, got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 2. save_quantized / from_quantized at full depth, then generate
+        torch.cuda.reset_peak_memory_stats()
+        cfg = LlamaConfig.llama2_7b()
+        model = HQQModel(init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                     torch.bfloat16, "cuda"), cfg)
+        model.quantize_model(BaseQuantizeConfig(nbits=4, group_size=64))
+        ckpt = os.path.join(root, "ckpt")
+        t0 = time.time()
+        model.save_quantized(ckpt)
+        save_s = time.time() - t0
+        written = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt))
+        t0 = time.time()
+        model_q = HQQModelForCausalLM.from_quantized(ckpt)
+        torch.cuda.synchronize()
+        load_s = time.time() - t0
+        n = _bit_equal_trees("q", model_q.params, model.params)
+        if model_q.cfg != cfg or not model_q.quantized:
+            raise AssertionError(f"[q] from_quantized read config {model_q.cfg}")
+        log(f"[q] save_quantized (32 layers, 4-bit g64): {written / 1e9:.3f} GB in "
+            f"{len(os.listdir(ckpt)) - 1} shards, {save_s:.2f} s; from_quantized {load_s:.2f} s; "
+            f"{n} tensors bit-equal")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        model_q.prepare_for_inference("w4a8")
+
+        prompts = _prompts(cfg)
+        new = NEW_TOKENS
+        partial = dict(compile_mode="partial")
+        ops.reset_launch_counts()
+        model_q.generate(prompts, max_new_tokens=1, **partial)  # lazy set-up
+        torch.cuda.synchronize()
+        t0 = time.time()
+        model_q.generate(prompts, max_new_tokens=1, **partial)
+        torch.cuda.synchronize()
+        prefill_ms = (time.time() - t0) * 1e3
+        t0 = time.time()
+        ids = model_q.generate(prompts, max_new_tokens=new, **partial)
+        torch.cuda.synchronize()
+        tok_s = prompts.shape[0] * (new - 1) / (time.time() - t0 - prefill_ms / 1e3)
+        busy = device_share(lambda: model_q.generate(prompts, max_new_tokens=8, **partial))
+        launches = launch_counts()
+        log(f"[q] launches in the quick start's window: {launches}")
+        if not np.array_equal(ids, c_ids):
+            raise AssertionError(f"[q] greedy ids sha1 {sha(ids)}, phase c's {sha(c_ids)}")
+        full = decode_full("q", dev_tag, model_q, prompts, ids, prefill_ms, busy,
+                           {"w4a8_matmul": LINEARS_PER_PASS})
+
+        sampled = dict(do_sample=True, top_k=20, top_p=0.9, seed=1)
+        s_partial = model_q.generate(prompts, max_new_tokens=new, **sampled, **partial)
+        s_full = model_q.generate(prompts, max_new_tokens=new, **sampled)
+        if not np.array_equal(s_partial, s_full):
+            raise AssertionError("[q] sampled ids differ between partial and full")
+        calls = []
+        streamed = model_q.generate(prompts, max_new_tokens=new, on_token=calls.append)
+        if len(calls) != new or not np.array_equal(np.stack(calls, axis=1), streamed) \
+                or not np.array_equal(streamed, ids):
+            raise AssertionError(f"[q] on_token fired {len(calls)} times, or with other ids")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[q] greedy ids sha1 {sha(ids)} (phase c: {sha(c_ids)}), equal in partial and "
+            f"full; sampled (top_k 20, top_p 0.9, seed 1) sha1 {sha(s_full)}, equal in both; "
+            f"on_token fired {len(calls)} times with the returned ids")
+        log(f"[q] {dev_tag}: decode tok/s (B=4) partial {tok_s:.1f}, full {full['tok_s']:.1f}; "
+            f"8-token generate busy share partial {busy['busy_share']:.3f} of "
+            f"{busy['wall_ms']:.1f} ms, full {full['busy']['busy_share']:.3f} of "
+            f"{full['busy']['wall_ms']:.1f} ms; capture "
+            f"{ {k: round(c['seconds'], 3) for k, c in full['captures'].items()} } s; "
+            f"prefill {prefill_ms:.1f} ms; peak {peak:.2f} GiB")
+        del model_q
+        gc.collect()
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        shutil.rmtree(root)
 
 
 def phase_d(n_layers: int = 2) -> None:
@@ -1731,7 +2021,7 @@ def phase_e(dev_tag: str) -> dict:
         _fill_lora_b(params, seed + 1)
 
     n = LINEARS_PER_PASS
-    launches, model = serve_7b(
+    launches, model, _ = serve_7b(
         "e", dev_tag, qcfg, {"quant_matmul_lora": (n, 0), "w4a8_lora_matmul": (0, n)},
         after_quantize=lambda model: add_adapters(model.params, 4))
 
@@ -1813,7 +2103,7 @@ def phase_f(dev_tag: str) -> dict:
             raise AssertionError("dequantize() of a prepared axis=0 layer is wrong")
 
     n = LINEARS_PER_PASS
-    launches, model = serve_7b("f", dev_tag, qcfg, {"quant_matmul_ax0": (n, n)}, extra=extra)
+    launches, model, _ = serve_7b("f", dev_tag, qcfg, {"quant_matmul_ax0": (n, n)}, extra=extra)
     if launches["dequant"] == 0:
         raise AssertionError("the dequant kernel never launched on path F")
     layer0 = model.params["layers"][0]
@@ -2867,11 +3157,14 @@ def main(argv: list[str]) -> int:
     t_start = time.time()
     phase_a(name, power)
     rows = phase_b()
-    launches, model = phase_c(dev_tag)
+    launches, model, c_ids = phase_c(dev_tag)
     windows = [launches, phase_g(dev_tag, model), phase_h(dev_tag, model)]
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    t_q = time.time()
+    windows.append(phase_q(dev_tag, c_ids))
+    log(f"[q] phase q: {time.time() - t_q:.1f} s")
     phase_g_two_layer()
     phase_h_two_layer()
     phase_d()

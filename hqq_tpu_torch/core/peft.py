@@ -313,23 +313,24 @@ class PeftUtils:
     @staticmethod
     def save_lora_weights(params: Any, path: str) -> None:
         """Save only the adapter weights, keyed by module path, as
-        safetensors: the file `hqq_tpu`'s `save_lora_weights` writes."""
-        from safetensors.torch import save_file
+        safetensors (the package's own writer): the file `hqq_tpu`'s
+        `save_lora_weights` writes."""
+        from ..models._safetensors import save_file
 
         flat = {}
 
         def collect(p, layer):
-            flat[f"{p}.lora_a"] = layer.lora_a.detach().cpu().contiguous()
-            flat[f"{p}.lora_b"] = layer.lora_b.detach().cpu().contiguous()
+            flat[f"{p}.lora_a"] = layer.lora_a
+            flat[f"{p}.lora_b"] = layer.lora_b
             if layer.bias is not None:
-                flat[f"{p}.lora_bias"] = layer.bias.detach().cpu().contiguous()
+                flat[f"{p}.lora_bias"] = layer.bias
 
         _map_lora(params, collect)
         save_file(flat, path)
 
     @staticmethod
     def load_lora_weights(params: Any, path: str) -> Any:
-        from safetensors.torch import load_file
+        from ..models._safetensors import load_file
 
         flat = load_file(path)
 

@@ -1,2 +1,2 @@
 # SPDX-License-Identifier: Apache-2.0
-from .hf import HQQModel, register_arch  # noqa: F401
+from .hf import AutoHQQHFModel, HQQModel, HQQModelForCausalLM, register_arch  # noqa: F401

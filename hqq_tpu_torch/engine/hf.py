@@ -1,38 +1,86 @@
 # SPDX-License-Identifier: Apache-2.0
-"""User-facing model: quantize, prepare and generate.
+"""User-facing model: load, quantize, save, prepare and generate.
 
-Mirrors `hqq_tpu.engine.hf` (`register_arch` and `HQQModel`). The registry
-maps an HF ``model_type`` to its config builder and forward function; this
-slice registers llama. Loading HF checkpoints and saving or loading
-quantized models come with the serialization slice.
+Mirrors `hqq_tpu.engine.hf` (`register_arch`, `HQQModel`,
+`HQQModelForCausalLM`, `AutoHQQHFModel`). The registry maps an HF
+``model_type`` to its config constructor, forward function and HF state-dict
+loader; llama, and Qwen2/Qwen3 on the llama walk, are registered. The
+README's quick start runs as it does in `hqq_tpu`:
 
-    model = HQQModel(init_params(LlamaConfig.llama2_7b()), LlamaConfig.llama2_7b())
+    model = HQQModelForCausalLM.from_pretrained(local_dir)      # bf16, on cuda
     model.quantize_model(BaseQuantizeConfig(nbits=4, group_size=64))
+    model.save_quantized(out_dir)
+    model = HQQModelForCausalLM.from_quantized(out_dir)
     model.prepare_for_inference(backend="w4a8")
     ids = model.generate(prompt_ids, max_new_tokens=128)
+
+Checkpoints are `hqq_tpu`'s format (`models.serialize`): the sidecar's
+``config_class`` names `hqq_tpu`'s config class, as `hqq_tpu` writes it, and
+loading builds the config from this package's registry entry for the
+model type, never by importing the class the file names.
+
+`HQQModel` keeps one `Generator` per set of generate arguments, so that
+its decode graphs (`serving.generate`, ``compile_mode="full"``) are
+captured once and replayed by later calls. Each call hands the generator
+the current ``params``, and the generator captures anew when the tree it
+reads has changed (an adapter added, merged or loaded, ``params`` set
+anew); `quantize_model`, `prepare_for_inference` and `release_graphs`
+drop the kept generators with their graphs and buffers.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Any, Dict, Optional
+
+import torch
 
 from ..core.quantize import BaseQuantizeConfig
 from ..models import base as model_base
+from ..models import hf as hf_loader
 from ..models import llama
 from ..serving.generate import Generator
 
-__all__ = ["HQQModel", "register_arch"]
-
-# model_type -> {"config": from_hf builder, "forward": forward fn}
-_HQQ_REGISTRY: Dict[str, dict] = {
-    "llama": {"config": llama.LlamaConfig.from_hf, "forward": llama.forward},
-}
+__all__ = ["HQQModel", "HQQModelForCausalLM", "AutoHQQHFModel", "register_arch"]
 
 
-def register_arch(model_type: str, config, forward) -> None:
-    """Add an architecture to the registry."""
-    _HQQ_REGISTRY[model_type] = {"config": config, "forward": forward}
+def _llama_entry() -> dict:
+    return {"config_cls": llama.LlamaConfig, "forward": llama.forward,
+            "loader": hf_loader.params_from_hf_state_dict}
+
+
+# model_type -> {"config_cls": config dataclass, "forward": forward fn,
+# "loader": HF state dict -> parameter tree}; Qwen2 (attention biases)
+# and Qwen3 (per-head q/k norms) are Llama-shaped, as in hqq_tpu
+_HQQ_REGISTRY: Dict[str, dict] = {t: _llama_entry() for t in ("llama", "qwen2", "qwen3")}
+
+
+def register_arch(model_type: str, config_cls, forward, loader) -> None:
+    """Add an architecture to the registry. ``config_cls`` is the config
+    dataclass: ``config_cls.from_hf(hf_config_dict)`` builds it from an HF
+    ``config.json``, and ``config_cls(**fields)`` from a checkpoint's
+    sidecar."""
+    _HQQ_REGISTRY[model_type] = {"config_cls": config_cls, "forward": forward, "loader": loader}
+
+
+def _lookup_arch(model_type: str) -> dict:
+    if model_type not in _HQQ_REGISTRY:
+        raise ValueError(f"architecture {model_type!r} not supported; available: "
+                         f"{list(_HQQ_REGISTRY)}")
+    return _HQQ_REGISTRY[model_type]
+
+
+def _config_class_name(cfg) -> str:
+    """The config's class as `hqq_tpu` names it in the sidecar: this
+    package's modules mirror `hqq_tpu`'s, so ``hqq_tpu_torch.models.llama``
+    is written ``hqq_tpu.models.llama``."""
+    cls = type(cfg)
+    module = cls.__module__
+    if module.startswith("hqq_tpu_torch."):
+        module = "hqq_tpu." + module.removeprefix("hqq_tpu_torch.")
+    return f"{module}.{cls.__qualname__}"
 
 
 @dataclasses.dataclass
@@ -44,10 +92,12 @@ class HQQModel:
     cfg: Any
     model_type: str = "llama"
     quantized: bool = False
+    _generators: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                          compare=False)
 
     @property
     def _arch(self) -> dict:
-        return _HQQ_REGISTRY[self.model_type]
+        return _lookup_arch(self.model_type)
 
     @property
     def device(self):
@@ -58,6 +108,7 @@ class HQQModel:
         """Quantize every linear but lm_head, layer by layer, in place."""
         if self.quantized:
             raise RuntimeError("model is already quantized")
+        self.release_graphs()
         self.params = model_base.quantize_model(
             self.params, quant_config or BaseQuantizeConfig(), compute_dtype
         )
@@ -68,19 +119,83 @@ class HQQModel:
         """Swap to a fused backend ("w4a8" is the decode path)."""
         from ..utils.patching import prepare_for_inference
 
+        self.release_graphs()
         self.params = prepare_for_inference(self.params, backend)
         return self
+
+    def save_quantized(self, save_dir: str) -> None:
+        """Write the quantized model to ``save_dir`` (before
+        `prepare_for_inference`: kernel layouts are not saved)."""
+        if not self.quantized:
+            raise RuntimeError("quantize_model() first")
+        model_base.save_quantized(self.params, save_dir, config={
+            "model_type": self.model_type,
+            "hf_config": dataclasses.asdict(self.cfg),
+            "config_class": _config_class_name(self.cfg),
+        })
 
     def forward(self, tokens, cache=None, start_pos=0):
         return self._arch["forward"](self.params, self.cfg, tokens, cache, start_pos)
 
-    def generate(self, input_ids, max_new_tokens: int = 128, **kw):
+    def release_graphs(self) -> None:
+        """Drop the kept generators with their decode graphs and buffers."""
+        self._generators.clear()
+
+    def generator(self, **kw) -> Generator:
+        """The kept `Generator` for these arguments (``device`` defaults to
+        the parameters'), made on first use, reading the current
+        ``params``."""
         kw.setdefault("device", self.device)
-        seed = kw.pop("seed", 0)
-        gen = Generator(
-            self.params,
-            self.cfg,
-            forward_fn=lambda p, t, c, s: self._arch["forward"](p, self.cfg, t, c, s),
-            **kw,
-        )
-        return gen.generate(input_ids, max_new_tokens=max_new_tokens, seed=seed)
+        key = tuple(sorted(kw.items()))
+        if key not in self._generators:
+            forward = self._arch["forward"]
+            self._generators[key] = Generator(
+                self.params, self.cfg,
+                forward_fn=lambda p, t, c, s: forward(p, self.cfg, t, c, s), **kw)
+        gen = self._generators[key]
+        gen.params = self.params
+        return gen
+
+    def generate(self, input_ids, max_new_tokens: int = 128, seed: int = 0, on_token=None,
+                 **kw):
+        """Generate with the kept `Generator` of ``kw`` (see `Generator`)."""
+        return self.generator(**kw).generate(input_ids, max_new_tokens=max_new_tokens,
+                                             seed=seed, on_token=on_token)
+
+
+class HQQModelForCausalLM:
+    """Class-method facade with the reference engine's API."""
+
+    @classmethod
+    def from_pretrained(cls, model_dir: str, compute_dtype=torch.bfloat16,
+                        device="cuda") -> HQQModel:
+        """A local HF directory as an unquantized `HQQModel` on ``device``."""
+        with open(os.path.join(model_dir, "config.json")) as f:
+            hf_cfg = json.load(f)
+        model_type = hf_cfg.get("model_type", "llama")
+        arch = _lookup_arch(model_type)
+        cfg = arch["config_cls"].from_hf(hf_cfg)
+        params = arch["loader"](hf_loader.read_hf_state(model_dir, compute_dtype, device), cfg,
+                                compute_dtype)
+        return HQQModel(params=params, cfg=cfg, model_type=model_type)
+
+    @classmethod
+    def from_quantized(cls, save_dir: str, device="cuda") -> HQQModel:
+        """A checkpoint of `save_quantized` (this package's or `hqq_tpu`'s)
+        as a quantized `HQQModel` on ``device``."""
+        params, config = model_base.from_quantized(save_dir, device=device)
+        model_type = config.get("model_type", "llama")
+        arch = _lookup_arch(model_type)
+        cfg = arch["config_cls"](**config.get("hf_config", {}))
+        return HQQModel(params=params, cfg=cfg, model_type=model_type, quantized=True)
+
+    @staticmethod
+    def quantize_model_(model: HQQModel, quant_config=None, compute_dtype=None) -> HQQModel:
+        return model.quantize_model(quant_config, compute_dtype)
+
+    @staticmethod
+    def save_quantized_(model: HQQModel, save_dir: str) -> None:
+        model.save_quantized(save_dir)
+
+
+AutoHQQHFModel = HQQModelForCausalLM

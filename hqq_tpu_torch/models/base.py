@@ -11,6 +11,9 @@ Unlike `hqq_tpu`, which builds a new tree, `patch_linears` and so
 `quantize_model` replace the leaves in place: each dense weight is dropped
 as soon as its layer is quantized, so a model's peak memory stays near its
 dense size instead of dense plus quantized.
+
+`save_quantized` and `from_quantized` write and read checkpoints in
+`hqq_tpu`'s format (`models.serialize`).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Any, Callable, Dict, Optional, Union
 
 from ..core.quantize import BaseQuantizeConfig
 from ..nn.linear import Linear, QuantLinear
+from .serialize import load_checkpoint, save_checkpoint
 
 __all__ = [
     "IGNORE_LINEAR",
@@ -27,6 +31,8 @@ __all__ = [
     "patch_linears",
     "get_linear_tags",
     "quantize_model",
+    "save_quantized",
+    "from_quantized",
 ]
 
 # Linears never quantized by default
@@ -115,3 +121,13 @@ def quantize_model(
         )
 
     return patch_linears(params, quantize_leaf)
+
+
+def save_quantized(params: Any, save_dir: str, config: Optional[dict] = None) -> None:
+    """Write ``params`` and ``config`` to ``save_dir`` (`save_checkpoint`)."""
+    save_checkpoint(save_dir, params, config=config)
+
+
+def from_quantized(save_dir: str, device="cuda"):
+    """(params, config dict) of a checkpoint, tensors on ``device``."""
+    return load_checkpoint(save_dir, device=device)

@@ -8,7 +8,9 @@ naming, [out, in] weights) whose linear leaves are `Linear`, `QuantLinear`,
 cache, as in `hqq_tpu`:
 
   * a dense `KVCache`, a stacked [L, B, n_kv, S_max, head_dim] pair of
-    tensors updated in place by slice assignment (prefill and decode);
+    tensors updated in place by `index_copy_` at ``start_pos``, an int or a
+    0-d device tensor (prefill and decode; a CUDA graph of the decode step
+    replays it);
   * a `PagedKVCache` with ``page_indices`` (`ops.paged`): one decode step
     for every slot at its own offset, K/V written into pages in place and
     attention through the `paged_attention` kernel;
@@ -299,8 +301,10 @@ def _apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.
 def positions_and_masks(cfg: LlamaConfig, t: int, start_pos, cache_max_len: Optional[int],
                         device="cuda"):
     """Positions, RoPE tables and the additive attention mask for ``t``
-    tokens from ``start_pos``: an int (the whole batch at one offset) or a
-    [B] tensor (every slot at its own). Over a cache of ``cache_max_len``
+    tokens from ``start_pos``: an int or a 0-d tensor (the whole batch at
+    one offset; a tensor is never read on the host, so a captured decode
+    step can advance it on the device) or a [B] tensor (every slot at its
+    own). Over a cache of ``cache_max_len``
     slots the mask is [B|1, 1, T, S]; with ``cache_max_len=None`` it is the
     causal [1, 1, T, T] mask of the sequence itself. The mask adds
     finfo(float32).min, not -inf, so that a fully masked row stays finite.
@@ -310,7 +314,8 @@ def positions_and_masks(cfg: LlamaConfig, t: int, start_pos, cache_max_len: Opti
         positions = start_pos.to(device)[:, None] + steps[None, :]  # [B, T]
         pos_bt = positions
     else:
-        positions = int(start_pos) + steps  # [T]
+        offset = start_pos.to(device) if isinstance(start_pos, torch.Tensor) else int(start_pos)
+        positions = offset + steps  # [T]
         pos_bt = positions[None, :]
     hd = cfg.head_dim_
     cos, sin = _rope_cos_sin(pos_bt.reshape(-1), hd, cfg.rope_theta, cfg.rope_scaling)
@@ -333,24 +338,32 @@ def positions_and_masks(cfg: LlamaConfig, t: int, start_pos, cache_max_len: Opti
 
 
 def _update_stacked_cache(k_all: torch.Tensor, v_all: torch.Tensor, layer_idx: int,
-                          k: torch.Tensor, v: torch.Tensor, start_pos: int) -> None:
+                          k: torch.Tensor, v: torch.Tensor, start_pos) -> None:
     """Write new K/V [B, n_kv, t, hd] into the stacked cache at layer
-    ``layer_idx`` and offset ``start_pos``, in place (slice assignment; the
-    cache is never rebuilt)."""
+    ``layer_idx`` and offset ``start_pos`` (an int or a 0-d tensor), in
+    place, by `index_copy_` at start_pos + arange(t): the offset stays on
+    the device and the cache is never rebuilt."""
     t = k.shape[2]
-    k_all[layer_idx, :, :, start_pos:start_pos + t] = k
-    v_all[layer_idx, :, :, start_pos:start_pos + t] = v
+    rows = torch.arange(t, device=k_all.device) + (
+        start_pos.to(k_all.device) if isinstance(start_pos, torch.Tensor) else int(start_pos))
+    k_all[layer_idx].index_copy_(2, rows, k.to(k_all.dtype))
+    v_all[layer_idx].index_copy_(2, rows, v.to(v_all.dtype))
 
 
 def _qkv_rope(layer: dict, cfg: LlamaConfig, x: torch.Tensor, cos: torch.Tensor,
               sin: torch.Tensor):
-    """The projections of x [B, T, D] as heads [B, H, T, hd], q and k rotated."""
+    """The projections of x [B, T, D] as heads [B, H, T, hd], q and k
+    normed per head where the layer has Qwen3's ``q_norm``/``k_norm``, then
+    rotated."""
     b, t, _ = x.shape
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
     q, k, v = layer["q_proj"](x), layer["k_proj"](x), layer["v_proj"](x)
     q = q.reshape(b, t, nh, hd).transpose(1, 2)
     k = k.reshape(b, t, nkv, hd).transpose(1, 2)
     v = v.reshape(b, t, nkv, hd).transpose(1, 2)
+    if "q_norm" in layer:
+        q = rms_norm(q, layer["q_norm"], cfg.rms_norm_eps)
+        k = rms_norm(k, layer["k_norm"], cfg.rms_norm_eps)
     return _apply_rope(q, cos, sin), _apply_rope(k, cos, sin), v
 
 
@@ -410,7 +423,7 @@ def _attention_paged(layer: dict, cfg: LlamaConfig, x: torch.Tensor, cache, laye
 
 
 def _attention(layer: dict, cfg: LlamaConfig, x: torch.Tensor, cache: KVCache, layer_idx: int,
-               start_pos: int, mask: torch.Tensor, cos: torch.Tensor,
+               start_pos, mask: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor) -> torch.Tensor:
     """Attention over the stacked dense cache; writes the layer's new K/V
     into ``cache`` in place."""
@@ -421,10 +434,10 @@ def _attention(layer: dict, cfg: LlamaConfig, x: torch.Tensor, cache: KVCache, l
     _update_stacked_cache(cache.k, cache.v, layer_idx, k, v, start_pos)
     keys, vals = cache.k[layer_idx], cache.v[layer_idx]
 
-    rep = nh // nkv  # GQA: expand kv heads to query heads
+    rep = nh // nkv  # GQA: each kv head serves rep query heads
     if rep > 1:
-        keys = keys.repeat_interleave(rep, dim=1)
-        vals = vals.repeat_interleave(rep, dim=1)
+        keys = _repeat_heads(keys, rep)
+        vals = _repeat_heads(vals, rep)
 
     # scores summed and kept in fp32, as `preferred_element_type=float32`
     scores = (q.to(torch.float32) @ keys.to(torch.float32).transpose(-1, -2)) / math.sqrt(hd)
@@ -432,6 +445,13 @@ def _attention(layer: dict, cfg: LlamaConfig, x: torch.Tensor, cache: KVCache, l
     out = probs @ vals
     out = out.transpose(1, 2).reshape(b, t, nh * hd)
     return layer["o_proj"](out)
+
+
+def _repeat_heads(x: torch.Tensor, rep: int) -> torch.Tensor:
+    """[B, n_kv, S, hd] -> [B, n_kv * rep, S, hd], each head ``rep`` times
+    in a row (`repeat_interleave` by an expanded view: no host read)."""
+    b, n, s, hd = x.shape
+    return x[:, :, None].expand(b, n, rep, s, hd).reshape(b, n * rep, s, hd)
 
 
 def _mlp(layer: dict, x: torch.Tensor) -> torch.Tensor:
@@ -481,7 +501,9 @@ def forward(
     """Run the model over ``tokens`` [B, T] from ``start_pos``. Returns
     (logits [B, T, V] fp32, cache), the cache updated in place.
 
-    With a dense `KVCache`, ``start_pos`` is an int. With a `PagedKVCache`
+    With a dense `KVCache`, ``start_pos`` is an int or a 0-d tensor on the
+    device, which is never read on the host (a captured decode step
+    advances it there). With a `PagedKVCache`
     and ``page_indices`` [B, MP] this is one paged decode step per slot at
     the offsets ``start_pos`` [B]. With ``cache=None`` attention is causal
     over the T tokens themselves and no cache comes back (perplexity

@@ -1,17 +1,43 @@
 # SPDX-License-Identifier: Apache-2.0
-"""Generation: prefill, then a token-by-token decode loop.
+"""Generation: prefill, then the decode loop, eager or as a replayed CUDA
+graph.
 
 Mirrors `hqq_tpu.serving.generate`. The cache is sized to the next power of
 two above prompt + new tokens, the prompt is right-padded to a power-of-two
 bucket, and the first token comes from ``logits[:, t-1]``. Padded prompt
 slots are written to the cache, but each is overwritten by a real token
-before any query can attend to it. The decode loop is a Python loop of
-one-token forwards (`hqq_tpu` runs it as one jitted scan; its counterpart
-here, a CUDA graph, is later work).
+before any query can attend to it.
+
+The decode step is one function over static buffers: the `KVCache`, the
+current tokens, the position (a 0-d device tensor), the EOS flags, a step
+counter, the output [B, cache_len] and the sampling noise. ``compile_mode``
+says how the loop runs it, as in `hqq_tpu`:
+
+  * "full" (the default; `hqq_tpu` scans the whole loop in one XLA
+    program): on the card the step is captured once per (B, cache_len) in
+    a `torch.cuda.CUDAGraph` and replayed ``steps - 1`` times; each replay
+    advances the position and the counter on the device, so the host reads
+    the tokens back once, after the last replay. On the CPU the same step
+    runs eagerly, the graph's plain twin. A capture that fails raises.
+  * "partial": the same step called eagerly from a host loop; ``on_token``
+    streaming forces it for the call, with the ids read back every step.
+
+Only a captured graph keeps its buffers between calls (at most
+`Generator.max_graphs` of them, the least recently used dropped first);
+every other call allocates its cache and frees it when it returns. A graph
+reads the parameters at the addresses it was captured on, so the kept
+graphs are dropped, and the step captured anew, whenever a tensor of the
+tree has been replaced, moved or reshaped or a setting of the tree changed.
+
+Sampling draws its Gumbel noise for every step from the seeded generator
+before the loop, so both modes give equal tokens for one seed.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import time
+from collections import OrderedDict
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -102,84 +128,253 @@ def sample_token_batch(
     return torch.where(do_sample, sampled, greedy)
 
 
+def _fingerprint(tree: Any) -> list:
+    """What a captured step bakes in of a parameter tree, in tree order: the
+    address, shape, strides and type of every tensor, the type of every
+    layer and every other setting. Equal fingerprints mean a replay reads
+    the tree as a new capture would."""
+    out = []
+
+    def walk(node):
+        if isinstance(node, torch.Tensor):
+            out.append((node.data_ptr(), node.shape, node.stride(), node.dtype, node.device))
+        elif isinstance(node, dict):
+            for key, sub in node.items():
+                out.append(key)
+                walk(sub)
+        elif isinstance(node, (list, tuple)):
+            out.append(len(node))
+            for sub in node:
+                walk(sub)
+        elif isinstance(node, torch.nn.Module):
+            out.append(type(node))
+            walk(node._parameters)
+            walk(node._buffers)
+            walk(node._modules)
+            walk({k: v for k, v in vars(node).items() if not k.startswith("_")})
+        elif dataclasses.is_dataclass(node):
+            out.append(type(node))
+            walk(vars(node))
+        else:
+            out.append(node)
+
+    walk(tree)
+    return out
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t``: never a view of a kept buffer, which the next
+    step or call overwrites (on the CPU, ``.cpu()`` alone would be one)."""
+    return t.to("cpu", copy=True).numpy()
+
+
+class _DecodeState:
+    """The static buffers of one (B, cache_len): the cache and the step's
+    inputs and outputs, which a captured graph reads and writes in place,
+    and the graph where one is captured."""
+
+    def __init__(self, cfg, b: int, cache_len: int, cache_dtype, device, noise_width: int):
+        self.cache = llama.init_cache(cfg, b, cache_len, cache_dtype, device)
+        self.tok = torch.zeros((b,), dtype=torch.long, device=device)
+        self.pos = torch.zeros((), dtype=torch.long, device=device)
+        self.done = torch.zeros((b,), dtype=torch.bool, device=device)
+        self.counter = torch.zeros((), dtype=torch.long, device=device)  # output column
+        self.out = torch.zeros((b, cache_len), dtype=torch.long, device=device)
+        # Gumbel noise [cache_len, B, top_k] of every step (sampling only)
+        self.noise = (torch.zeros((cache_len, b, noise_width), dtype=torch.float32, device=device)
+                      if noise_width else None)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.capture: dict = {}  # seconds, and launches of each kernel wrapper
+
+
 class Generator:
     """Prefill plus decode over the dense cache.
 
     forward_fn(params, tokens, cache, start_pos) -> (logits, cache) defaults
-    to the Llama forward; any model with that signature works.
+    to the Llama forward; any model with that signature works, whose
+    ``start_pos`` may be a 0-d device tensor. ``batch_size`` is kept for
+    `hqq_tpu`'s signature: as there, the batch is the prompt's. ``params``
+    may be set anew between calls.
     """
+
+    # decode graphs kept at once, each with its cache and buffers
+    max_graphs = 4
 
     def __init__(
         self,
         params: Any,
         cfg: Any,
         max_new_tokens: int = 256,
+        batch_size: int = 1,
         cache_len: Optional[int] = None,
         do_sample: bool = False,
         top_k: int = 20,
         temperature: float = 0.6,
         top_p: float = 1.0,
         eos_token_id: Optional[int] = None,
+        compile_mode: str = "full",
         forward_fn: Optional[Callable] = None,
         cache_dtype=torch.bfloat16,
         device="cuda",
     ):
+        if compile_mode not in ("full", "partial"):
+            raise ValueError(f"compile_mode must be 'full' or 'partial', not {compile_mode!r}")
         self.params = params
         self.cfg = cfg
         self.max_new_tokens = max_new_tokens
+        self.batch_size = batch_size
         self.cache_len = cache_len
         self.do_sample = do_sample
         self.top_k = top_k
         self.temperature = temperature
         self.top_p = top_p
         self.eos_token_id = eos_token_id
+        self.compile_mode = compile_mode
         self.cache_dtype = cache_dtype
         self.device = torch.device(device)
         self._forward = forward_fn or (
             lambda p, toks, cache, pos: llama.forward(p, cfg, toks, cache, pos)
         )
+        self._graphs: "OrderedDict[tuple, _DecodeState]" = OrderedDict()  # oldest use first
+        self._graphed_tree: list = []  # `_fingerprint` of the params the graphs read
 
-    def _sample(self, logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-        return sample_token(logits, generator, self.do_sample, self.top_k, self.temperature,
-                            self.top_p)
+    def captures(self) -> dict:
+        """{(B, cache_len): {"seconds": s, "launches": {wrapper: n}}} of each
+        kept decode graph: the kernel launches recorded into one step."""
+        return {key: st.capture for key, st in self._graphs.items()}
+
+    def release_graphs(self) -> None:
+        """Drop the kept graphs with their caches and buffers."""
+        self._graphs.clear()
+
+    def _new_state(self, b: int, cache_len: int) -> _DecodeState:
+        return _DecodeState(self.cfg, b, cache_len, self.cache_dtype, self.device,
+                            self.top_k if self.do_sample else 0)
+
+    def _graphed(self, steps: int, on_token: Optional[Callable]) -> bool:
+        """Whether this call replays a decode graph: "full" on the card, with
+        no streaming and a step to replay."""
+        return (self.compile_mode == "full" and on_token is None and steps > 1
+                and self.device.type == "cuda")
+
+    def _graph_state(self, b: int, cache_len: int) -> _DecodeState:
+        """The kept buffers of (b, cache_len) with their graph, captured on
+        first use (before the caller sets the buffers: the warm-up moves
+        them). Every kept graph is dropped first if the parameter tree is
+        not the one they were captured on, and the least recently used
+        when more than `max_graphs` would be kept."""
+        tree = _fingerprint(self.params)
+        if tree != self._graphed_tree:
+            self._graphs.clear()
+            self._graphed_tree = tree
+        key = (b, cache_len)
+        st = self._graphs.pop(key, None)
+        if st is None:
+            while len(self._graphs) >= self.max_graphs:
+                self._graphs.popitem(last=False)
+            st = self._new_state(b, cache_len)
+            self._capture(st)
+        self._graphs[key] = st
+        return st
+
+    def _decode_step(self, st: _DecodeState) -> None:
+        """One decode step on ``st``'s buffers, in place: the forward of the
+        current tokens at ``pos``, the next token (noise row ``counter``),
+        the EOS rule (a row that has emitted EOS keeps emitting it), and
+        the token into output column ``counter``; pos and counter advance.
+        Nothing is read on the host, so the step can be captured."""
+        logits, _ = self._forward(self.params, st.tok[:, None], st.cache, st.pos)
+        col = st.counter.view(1)
+        gumbel = None if st.noise is None else st.noise.index_select(0, col)[0]
+        nxt = sample_token(logits[:, -1], None, self.do_sample, self.top_k, self.temperature,
+                           self.top_p, gumbel=gumbel)
+        if self.eos_token_id is not None:
+            nxt = torch.where(st.done, torch.full_like(nxt, self.eos_token_id), nxt)
+            st.done.logical_or_(nxt == self.eos_token_id)
+        st.tok.copy_(nxt)
+        st.out.index_copy_(1, col, nxt[:, None])
+        st.pos.add_(1)
+        st.counter.add_(1)
+
+    def _capture(self, st: _DecodeState) -> None:
+        """Capture the decode step of ``st`` into ``st.graph``: one eager
+        step on the side stream of the capture first (the kernels build and
+        load at their first launch, and nothing of that may happen under
+        capture), then the capture on that stream. It is PyTorch's one
+        capture stream of the process: each new stream would get a cuBLAS
+        workspace of its own, kept for the process's life. Every launch the
+        step records counts once in its wrapper's count, as in an eager
+        step."""
+        from ..ops import kernel_wrappers
+
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(self.device):
+            capture = torch.cuda.graph(graph)
+        stream = capture.capture_stream
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            self._decode_step(st)
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        before = {w.__name__: w.launches for w in kernel_wrappers()}
+        with capture:
+            self._decode_step(st)
+        torch.cuda.synchronize(self.device)
+        st.capture = {"seconds": time.perf_counter() - t0,
+                      "launches": {w.__name__: w.launches - before[w.__name__]
+                                   for w in kernel_wrappers()
+                                   if w.launches != before[w.__name__]}}
+        st.graph = graph
 
     @torch.inference_mode()
-    def generate(self, input_ids, max_new_tokens: Optional[int] = None,
-                 seed: int = 0) -> np.ndarray:
+    def generate(self, input_ids, max_new_tokens: Optional[int] = None, seed: int = 0,
+                 on_token: Optional[Callable] = None) -> np.ndarray:
         """input_ids: [B, T] token ids (list, numpy or tensor). Returns the
         generated ids [B, <= max_new_tokens] (prompt not included) as a
-        numpy array."""
+        numpy array; with ``eos_token_id`` a batch of one ends at its first
+        EOS. ``on_token(ids)`` is called with the ids [B] (numpy) of the
+        first token and of every decode step, and forces "partial"."""
         input_ids = np.asarray(input_ids)
         if input_ids.ndim == 1:
             input_ids = input_ids[None]
         b, t = input_ids.shape
         steps = max_new_tokens or self.max_new_tokens
         dev = self.device
-
         cache_len = self.cache_len or next_power_of_2(t + steps + 1)
-        cache = llama.init_cache(self.cfg, b, cache_len, self.cache_dtype, dev)
-
         t_pad = next_power_of_2(max(t, 2))
+        if max(t_pad, t + steps - 1) > cache_len:
+            raise ValueError(f"a prompt of {t} (padded to {t_pad}) and {steps} new tokens do "
+                             f"not fit a cache of {cache_len}")
+        graphed = self._graphed(steps, on_token)
+        st = self._graph_state(b, cache_len) if graphed else self._new_state(b, cache_len)
+        st.cache.k.zero_()
+        st.cache.v.zero_()
         prompt = np.zeros((b, t_pad), np.int64)
         prompt[:, :t] = input_ids
-        logits, cache = self._forward(self.params, torch.from_numpy(prompt).to(dev), cache, 0)
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        tok = self._sample(logits[:, t - 1], gen)
+        logits, _ = self._forward(self.params, torch.from_numpy(prompt).to(dev), st.cache, 0)
+        if st.noise is not None:
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            st.noise.copy_(_gumbel(st.noise.shape, gen, dev, st.noise.dtype))
+        first = sample_token(logits[:, t - 1], None, self.do_sample, self.top_k, self.temperature,
+                             self.top_p, gumbel=None if st.noise is None else st.noise[0])
+        st.tok.copy_(first)
+        st.out[:, 0] = first
+        st.pos.fill_(t)
+        st.done.zero_()
+        st.counter.fill_(1)
+        if on_token is not None:
+            on_token(_to_numpy(first))
+
+        for _ in range(steps - 1):
+            if graphed:
+                st.graph.replay()
+            else:
+                self._decode_step(st)
+                if on_token is not None:
+                    on_token(_to_numpy(st.tok))
+        out = _to_numpy(st.out[:, :steps])
 
         eos = self.eos_token_id
-        done = torch.zeros((b,), dtype=torch.bool, device=dev)
-        outs = [tok]
-        for i in range(steps - 1):
-            logits, cache = self._forward(self.params, tok[:, None], cache, t + i)
-            nxt = self._sample(logits[:, -1], gen)
-            if eos is not None:
-                # once a decode step has emitted EOS its row keeps emitting it
-                nxt = torch.where(done, torch.full_like(nxt, eos), nxt)
-                done = done | (nxt == eos)
-            tok = nxt
-            outs.append(tok)
-        out = torch.stack(outs, dim=1).cpu().numpy()
-
         if eos is not None and b == 1:
             idx = np.where(out[0] == eos)[0]
             return out[:, : idx[0] + 1] if len(idx) else out
