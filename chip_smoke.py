@@ -1,5 +1,5 @@
 # SPDX-License-Identifier: Apache-2.0
-"""Chip smoke test of hqq_tpu_torch: HQQ Llama-2-7B on one GPU, seven ways.
+"""Chip smoke test of hqq_tpu_torch: HQQ Llama-2-7B on one GPU, eight ways.
 
     python3 chip_smoke.py            # on cuda:0, every phase
     python3 chip_smoke.py --time quant_matmul 512 4096 4096      # one kernel
@@ -126,8 +126,37 @@ Phases (any failure exits non-zero):
       c's (sha1 printed), a sampled request (top_k 20, top_p 0.9, seed 1)
       equal in both modes, on_token fired once a token with the returned
       ids; decode tok/s and busy share in both modes, capture seconds,
-      peak memory. The directory is removed at the end.
-Phases g and h run right after c, on its model, then q, then d.
+      peak memory. The directory is removed at the end, after phase s.
+  (s) the one-command server: `hqq_tpu_torch.serve.main` on phase q's
+      checkpoint with its defaults (paged engine, w4a8, q/k/v and gate/up
+      fused by fuse_for_decode), phase g's pool and a horizon of 8, started
+      in-process; a warm-up request, then phase g's 12 requests (64-640
+      prompt tokens, 32 new, greedy) from 12 client threads at once over
+      http.client, 6 blocking and 6 streamed, and the same window again
+      under the profiler; a 13th stream cancelled through /cancel after its
+      first chunk; /healthz before and after. Every request's ids must
+      equal those of a PagedBatchingEngine on the same tree run in-process,
+      streamed chunks must concatenate to the final ids, a decode step
+      must make 128 w4a8_matmul launches (224 on the unfused tree of the
+      same checkpoint), and each fused layer (qkv_proj, gate_up_proj of the
+      first and last layer) is held on the path's own activations against
+      its plain twin (phase b's bars and controls) and against the unfused
+      layers' kernels side by side. Boot seconds, time to first token (the
+      streams), request latency (the blocking requests), tokens/s at the
+      client and in-process, busy share, the server's peak memory (boot and
+      windows, before the comparison engines are built). Then
+      on a 2-layer model at 7B width: `--engine dense --backend int8
+      --int8-kv`, 4 requests whose ids equal the in-process
+      ContinuousBatchingEngine's and torch._int_mm called in the window
+      (counted by the script: the library product has no launch count),
+      torch._int_mm's int32 products bit-equal
+      to the plain int8 product (control: a neighbour row's weights), and
+      the logits of decode steps over the int8 dense cache at per-slot
+      positions against the bf16 cache's (control: K scales of one).
+      Phase b also times the fused widths, w4a8_matmul at (8, 4096, 12288)
+      and (8, 4096, 22016) and quant_matmul at M = 512, beside the summed
+      time of their unfused parts.
+Phases g and h run right after c, on its model, then q and s, then d.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -238,6 +267,8 @@ PICK = {
 }
 # head size and page geometry of the attention rows and of paths G and H
 HEAD_DIM, PAGE, MAX_PAGES = 128, 16, 64
+# fuse_for_decode's widths at 7B: fused N -> (the N of its parts, how many)
+FUSED_WIDTHS = {12288: (4096, 3), 22016: (11008, 2)}
 LORA_RANK, LORA_ALPHA, LORA_B_STD = 8, 16, 0.05
 
 
@@ -664,6 +695,7 @@ def phase_b() -> dict:
     shapes = [(4096, 4096), (4096, 11008), (11008, 4096)]
     cases = [(m, k, n) for (k, n) in shapes for m in (1, 4, 8, 32)]
     cases.append((4, 4096 + 3 * g, 4096))  # K % 8g != 0 (the `_qmm_a8_kernel` route)
+    cases += [(8, 4096, n) for n in FUSED_WIDTHS]  # fuse_for_decode's q/k/v and gate/up
     for (m, k, n) in cases:
         x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
         x8, sx = fm.quantize_activations_int8(x)
@@ -694,7 +726,8 @@ def phase_b() -> dict:
     # -- quant_matmul at the prefill shapes of paths C (M = 512) and H (M =
     # 1023), and at M = 4 (the pallas backend's decode, 8-bit weights) ------
     qmm_shapes = [(4096, 4096), (4096, 11008), (11008, 4096)]
-    for (m, k, n) in [(m, k, n) for m in (512, 1023) for (k, n) in qmm_shapes] + [(4, 4096, 4096)]:
+    for (m, k, n) in [(m, k, n) for m in (512, 1023) for (k, n) in qmm_shapes] + [(4, 4096, 4096)] \
+            + [(512, 4096, n) for n in FUSED_WIDTHS]:
         kqt = _make_kqt(n, k, g, 4, seed=k * 3 + n)
         x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
         y = fm.quant_matmul(x, kqt).float()
@@ -817,6 +850,7 @@ def phase_b() -> dict:
                 kernel="quant_matmul_ax0", m=m, k=k, n=n, max_abs_err=err, ms=ms, plain_ms=plain,
                 bound_ms=b_ms, bound_by=by, library_ms=lib, note=note))
 
+    fused_against_parts(rows)
     phase_b_dequant(record, iters)
     torch.cuda.empty_cache()
     phase_b_attention(record, held, iters)
@@ -825,6 +859,25 @@ def phase_b() -> dict:
     phase_b_backward(record, held, iters)
     log(f"[b] card right after the timings: {card_state()}")
     return rows
+
+
+def fused_against_parts(rows) -> None:
+    """Each fused width of phase b beside the summed time of the unfused
+    layers it joins, at the same M: q/k/v (12288) as three of 4096,
+    gate/up (22016) as two of 11008; the launch plans of the fused widths
+    from M = 64 to 1024 (the prefill buckets)."""
+    from hqq_tpu_torch.ops import fused_matmul as fm
+
+    for kernel, m in (("w4a8_matmul", 8), ("quant_matmul", 512)):
+        ms = {r["n"]: r["ms"] for r in rows[kernel]
+              if (r["m"], r["k"], r.get("note", "")) == (m, 4096, "")}
+        for n, (part, count) in FUSED_WIDTHS.items():
+            log(f"[b] {kernel} M={m} K=4096: fused N={n} {ms[n]:.4f} ms against {count} x "
+                f"N={part} {count * ms[part]:.4f} ms ({ms[n] / (count * ms[part]):.3f}x)")
+    for n in FUSED_WIDTHS:
+        plans = {m: fm.qmm_launch_plan(m, n, 4096, 4, 64) for m in (64, 128, 256, 512, 1024)}
+        log(f"[b] qmm_launch_plan at N={n}: " + "; ".join(
+            f"M={m}: tile {p.token_tile}, ring {p.stages}, grid {p.grid}" for m, p in plans.items()))
 
 
 def _make_kqt_bf16(n: int, k: int, g: int, nbits: int, seed: int):
@@ -1762,8 +1815,9 @@ def phase_q(dev_tag: str, c_ids) -> dict:
     """The README quick start on the card: a 2-layer HF directory at 7B
     width through `HQQModelForCausalLM.from_pretrained`; then C's model
     (32 layers, seed 0, 4-bit g64) through save_quantized, from_quantized,
-    prepare_for_inference("w4a8") and generate, in "partial" and in "full".
-    Returns the launches of its window."""
+    prepare_for_inference("w4a8") and generate, in "partial" and in "full";
+    then phase s serves the same checkpoint. Returns the launches of its
+    window and of phase s's."""
     import dataclasses
     import shutil
     import tempfile
@@ -1878,9 +1932,443 @@ def phase_q(dev_tag: str, c_ids) -> dict:
         del model_q
         gc.collect()
         torch.cuda.empty_cache()
-        return launches
+        t_s = time.time()
+        served = phase_s(dev_tag, ckpt)
+        log(f"[s] phase s on C's checkpoint: {time.time() - t_s:.1f} s")
+        return launches, served
     finally:
         shutil.rmtree(root)
+
+
+# path S: the one-command server (`python -m hqq_tpu_torch.serve`) on the
+# checkpoint of phase q (C's model), G's requests sent over HTTP
+S_HORIZON = 8
+S_DENSE_SLOTS, S_DENSE_MAX_LEN = 4, 1024
+
+
+def _http(port: int, method: str, path: str, obj=None):
+    """(status, JSON body) of one request to the server on localhost."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request(method, path, None if obj is None else json.dumps(obj),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    return resp.status, json.loads(resp.read())
+
+
+def _s_request(port: int, prompt, new: int, stream: bool, t0: float, on_first=None) -> dict:
+    """One greedy /generate, blocking or streamed (server-sent events).
+    Returns its uid, ids, streamed chunks, and the client's seconds from
+    ``t0`` to its first token (a blocking request gets all of its tokens
+    with the response) and to its end; ``on_first(event)`` runs when a
+    stream's first chunk arrives."""
+    import http.client
+
+    body = {"prompt_ids": [int(t) for t in prompt], "max_new_tokens": new, "stream": stream}
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request("POST", "/generate", json.dumps(body), {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    if resp.status != 200:
+        raise AssertionError(f"[s] /generate answered {resp.status}: {resp.read()[:2000]}")
+    if not stream:
+        out = json.loads(resp.read())
+        done = time.time() - t0
+        return dict(uid=out["uid"], tokens=out["tokens"], chunks=None, first_s=done, done_s=done)
+    chunks, first, final = [], None, None
+    for line in resp:
+        if not line.startswith(b"data: "):
+            continue
+        event = json.loads(line[6:])
+        if "error" in event:
+            raise AssertionError(f"[s] the stream ended in an error: {event['error']}")
+        if event.get("done"):
+            final = event
+            break
+        if first is None:
+            first = time.time() - t0
+            if on_first is not None:
+                on_first(event)
+        chunks.append(event["tokens"])
+    if final is None:
+        raise AssertionError("[s] a stream closed without its last event")
+    return dict(uid=final["uid"], tokens=final["tokens"], chunks=chunks, first_s=first,
+                done_s=time.time() - t0)
+
+
+def _s_window(port: int, prompts, new: int):
+    """Every prompt from its own client thread, all sent at once, the odd
+    ones streamed. Returns (the results in prompt order, seconds from the
+    first send to the last end)."""
+    import threading
+
+    results, errors = [None] * len(prompts), []
+
+    def call(i):
+        try:
+            results[i] = _s_request(port, prompts[i], new, i % 2 == 1, t0)
+        except Exception as e:  # re-raised below, in the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(len(prompts))]
+    t0 = time.time()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("[s] a client thread did not finish")
+    return results, max(r["done_s"] for r in results)
+
+
+def _s_fused_checks(fused_tree, unfused_tree, captured) -> None:
+    """Each fused layer on the path's own activations (``captured``:
+    (layer, name) -> inputs of a prefill and of decode steps): its kernel
+    against the plain twin (at decode M, phase b's w4a8 bar with its
+    controls and three bit-equal runs; at prefill M, quant_matmul's 2^-7),
+    and against the unfused layers' kernels side by side (the same bars:
+    the fused N changes the launch plan and so the order of the fp32 sums),
+    with the parts in the wrong order as the control; the fused layout is
+    the parts' rows, bit for bit."""
+    from hqq_tpu_torch.ops import fused_matmul as fm
+
+    parts_of = {"qkv_proj": ("self_attn", ("q_proj", "k_proj", "v_proj")),
+                "gate_up_proj": ("mlp", ("gate_proj", "up_proj"))}
+    tol = 2.0**-7
+    for (li, name), xs in sorted(captured.items()):
+        sub, names = parts_of[name]
+        fused = fused_tree["layers"][li][sub][name].kqt
+        parts = [unfused_tree["layers"][li][sub][n].kqt for n in names]
+        for field in ("wq", "scale", "zs"):
+            if not torch.equal(getattr(fused, field), torch.cat([getattr(p, field) for p in parts])):
+                raise AssertionError(f"[s] layer {li} {name}: {field} is not its parts' rows")
+        for x in xs[:3]:  # the prefill and two decode steps
+            m = x.shape[0]
+            what = f"[s] layer {li} {name} (N={fused.n}) M={m}"
+            if m <= fm.A8_MAX_M:
+                x8, sx = fm.quantize_activations_int8(x)
+                worst = _w4a8_held(what, fused, lambda q, dt: fm.w4a8_matmul(x8, sx, q, dt),
+                                   lambda q, dt: fm.w4a8_matmul_plain(x8, sx, q, dt))
+                y = fm.w4a8_matmul(x8, sx, fused, torch.float32)
+                side = [fm.w4a8_matmul(x8, sx, p, torch.float32) for p in parts]
+                part_tol = 1e-5
+            else:
+                y, ref = fm.quant_matmul(x, fused), fm.quant_matmul_plain(x, fused)
+                worst = rel(y, ref)
+                controls = {c: rel(fm.quant_matmul_plain(x, bad), ref)
+                            for c, bad in _w4a8_controls(fused).items()}
+                if not worst <= tol or not all(v > tol for v in controls.values()):
+                    raise AssertionError(f"{what}: quant_matmul rel err {worst:.3e} (tol "
+                                         f"{tol}), controls {controls}")
+                side = [fm.quant_matmul(x, p) for p in parts]
+                part_tol = tol
+            joined = rel(y, torch.cat(side, dim=-1))
+            wrong = rel(y, torch.cat(side[1:] + side[:1], dim=-1))
+            log(f"{what}: kernel vs plain {worst:.3e}; vs the unfused kernels side by side "
+                f"{joined:.3e} (tol {part_tol:.0e}); control, the parts in another order "
+                f"{wrong:.3e} (must exceed {tol:.3e})")
+            if not (joined <= part_tol and wrong > tol):
+                raise AssertionError(f"{what}: the fused layer disagrees with its parts")
+
+
+def phase_s(dev_tag: str, ckpt: str) -> dict:
+    """The one-command server on the card: `hqq_tpu_torch.serve.main` on
+    C's checkpoint (written by phase q) with its defaults (paged engine,
+    w4a8, q/k/v and gate/up fused), G's pool and a horizon of 8; a warm-up
+    request, then G's 12 requests from 12 client threads at once (6
+    blocking, 6 streamed), timed, and again under the profiler; a 13th
+    stream cancelled after its first chunk; /healthz before and after.
+    Then the same requests through an in-process engine on the same tree
+    (ids equal, tokens/s), the unfused tree's decode step (224 w4a8
+    launches against 128), and the fused layers held on the path's own
+    activations. Returns the launches of the timed window."""
+    import numpy as np
+
+    from hqq_tpu_torch import ops
+    from hqq_tpu_torch.backends.pallas_backend import A8QuantLinear
+    from hqq_tpu_torch.serve import build_engine, make_parser
+    from hqq_tpu_torch.serve import main as serve_main
+    from hqq_tpu_torch.serving.paged import PagedBatchingEngine
+
+    argv = ["--model", ckpt, "--port", "0", "--engine", "paged", "--backend", "w4a8",
+            "--slots", str(G_SLOTS), "--num-pages", str(G_PAGES), "--page-size", str(PAGE),
+            "--max-pages-per-seq", str(MAX_PAGES), "--horizon", str(S_HORIZON)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    srv = serve_main(argv, serve=False).start()
+    boot_s = time.time() - t0
+    eng = srv.engine
+    params, cfg = eng.params, eng.cfg
+    layers = cfg.num_hidden_layers
+    if not all(set(layer["self_attn"]) == {"qkv_proj", "o_proj"}
+               and set(layer["mlp"]) == {"gate_up_proj", "down_proj"}
+               and isinstance(layer["self_attn"]["qkv_proj"], A8QuantLinear)
+               and isinstance(layer["mlp"]["gate_up_proj"], A8QuantLinear)
+               for layer in params["layers"]):
+        raise AssertionError("[s] the served tree is not fused")
+    prompts = _g_prompts(cfg, np.random.default_rng(0))
+    new = G_NEW
+    steps = []  # the decode steps of each of the engine's decode calls
+    decode = eng._decode
+
+    def counted(h):
+        steps.append(h)
+        return decode(h)
+
+    eng._decode = counted
+    try:
+        health = [_http(srv.port, "GET", "/healthz")]
+        t_warm = time.time()
+        _s_request(srv.port, prompts[0][:64], 8, False, t_warm)
+        warm_s = time.time() - t_warm
+
+        # the main path's window: every count from 0, read right after
+        ops.reset_launch_counts()
+        steps.clear()
+        results, window_s = _s_window(srv.port, prompts, new)
+        launches = launch_counts()
+        n_steps = sum(steps)
+        profiled = {}
+        busy = device_share(lambda: profiled.update(zip(("results", "s"),
+                                                        _s_window(srv.port, prompts, new))))
+        cancelled = []
+        cut = _s_request(srv.port, prompts[1], new, True, time.time(), on_first=lambda e:
+                         cancelled.append(_http(srv.port, "POST", "/cancel", {"uid": e["uid"]})))
+        health.append(_http(srv.port, "GET", "/healthz"))
+        # the server's own peak: boot, the windows and the cancelled
+        # stream, before the in-process and unfused engines are built
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        srv.stop()
+    eng.close()
+    del eng, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    idle = (200, {"ok": True, "active": 0, "queued": 0})
+    if health != [idle, idle]:
+        raise AssertionError(f"[s] /healthz before and after: {health}")
+    per_step = {"w4a8_matmul": 4 * layers, "paged_attention": layers}
+    for name, n in per_step.items():
+        if launches[name] != n * n_steps:
+            raise AssertionError(f"[s] {launches[name]} {name} launches in {n_steps} decode steps, "
+                                 f"expected {n} a step")
+    if launches["quant_matmul"] != 4 * layers * len(prompts):  # each prefill: M = t_pad > 32
+        raise AssertionError(f"[s] {launches['quant_matmul']} quant_matmul launches for "
+                             f"{len(prompts)} prefills, expected {4 * layers} each")
+    for r in results:
+        if r["chunks"] is not None and [t for c in r["chunks"] for t in c] != r["tokens"]:
+            raise AssertionError("[s] a stream's chunks do not concatenate to its ids")
+    if [r["tokens"] for r in profiled["results"]] != [r["tokens"] for r in results]:
+        raise AssertionError("[s] the profiled window gave other ids")
+    if cancelled != [(200, {"cancelled": True})] or not 0 < len(cut["tokens"]) < new \
+            or [t for c in cut["chunks"] for t in c] != cut["tokens"]:
+        raise AssertionError(f"[s] cancel: {cancelled}, {len(cut['tokens'])} tokens")
+
+    # the same requests through the same tree's engine, in-process
+    ref_eng = PagedBatchingEngine(params, cfg, batch_slots=G_SLOTS, num_pages=G_PAGES,
+                                  page_size=PAGE, max_pages_per_seq=MAX_PAGES, horizon=S_HORIZON)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    uids = [ref_eng.add_request(p, max_new_tokens=new) for p in prompts]
+    ref_out = ref_eng.run()
+    torch.cuda.synchronize()
+    inproc_s = time.time() - t0
+    same = [r["tokens"] == ref_out[u] for r, u in zip(results, uids)]
+    # the fused layers' inputs on the path: a prefill and decode steps
+    captured, hooks = {}, []
+    for li in (0, layers - 1):
+        for sub, name in (("self_attn", "qkv_proj"), ("mlp", "gate_up_proj")):
+            def grab(mod, args, key=(li, name)):
+                captured.setdefault(key, []).append(
+                    args[0].detach().reshape(-1, args[0].shape[-1]).clone())
+            hooks.append(params["layers"][li][sub][name].register_forward_pre_hook(grab))
+    ref_eng.add_request(prompts[2], max_new_tokens=3)
+    ref_eng.run()
+    for h in hooks:
+        h.remove()
+    ref_eng.close()
+    del ref_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the unfused tree of the same checkpoint: launches of a decode step
+    unfused_eng = build_engine(make_parser().parse_args(argv + ["--no-fuse"]))
+    u_steps = []
+    u_decode = unfused_eng._decode
+    unfused_eng._decode = lambda h: (u_steps.append(h), u_decode(h))[1]
+    ops.reset_launch_counts()
+    unfused_eng.add_request(prompts[2], max_new_tokens=4)
+    unfused_eng.run()
+    unfused_per_step = launch_counts()["w4a8_matmul"] / sum(u_steps)
+    _s_fused_checks(params, unfused_eng.params, captured)
+    unfused_eng.close()
+    del unfused_eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tokens = sum(len(r["tokens"]) for r in results)
+    # time to first token from the streams; a blocking request's first
+    # token comes with its whole response, so its figure is request latency
+    first = sorted(r["first_s"] for r in results if r["chunks"] is not None)
+    blocking = sorted(r["done_s"] for r in results if r["chunks"] is None)
+    log(f"[s] {dev_tag}: serve.main (paged, w4a8, fused, {G_SLOTS} slots, {G_PAGES} pages of "
+        f"{PAGE} rows, horizon {S_HORIZON}) to a started server: {boot_s:.2f} s (checkpoint "
+        f"load, prepare, fuse, the pool); warm-up request {warm_s:.2f} s")
+    log(f"[s] {dev_tag}: 12 requests (prompts {[len(p) for p in prompts]}, {new} new, greedy) "
+        f"from 12 client threads at once, 6 blocking and 6 streamed: window {window_s:.3f} s, "
+        f"{tokens} tokens, {tokens / window_s:.1f} tok/s at the client; time to first token "
+        f"over the {len(first)} streams median {first[len(first) // 2]:.3f} s, max "
+        f"{first[-1]:.3f} s; request latency over the {len(blocking)} blocking requests median "
+        f"{blocking[len(blocking) // 2]:.3f} s, max {blocking[-1]:.3f} s; {n_steps} decode steps "
+        f"in {len(steps)} engine calls")
+    log(f"[s] {dev_tag}: the same requests in-process (add_request, run): {inproc_s:.3f} s, "
+        f"{tokens / inproc_s:.1f} tok/s; ids equal the server's in {sum(same)} of {len(same)}")
+    log(f"[s] {dev_tag}: the window again under the profiler: device busy "
+        f"{busy['busy_share']:.3f} of {busy['wall_ms']:.1f} ms wall, {busy['events']} device "
+        f"events; device ms by kernel: {busy['top']}")
+    log(f"[s] launches in the window: {launches}; a decode step: "
+        f"{launches['w4a8_matmul'] / n_steps:.0f} w4a8_matmul (fused), {unfused_per_step:.0f} "
+        f"unfused; cancel after the first chunk: {len(cut['tokens'])} of {new} tokens kept; "
+        f"/healthz before and after {health[0][1]}; the server's peak {peak:.2f} GiB (boot "
+        f"and windows)")
+    if not all(same):
+        raise AssertionError(f"[s] the server's ids differ from the in-process engine's in "
+                             f"{len(same) - sum(same)} of {len(same)} requests")
+    if unfused_per_step != 7 * layers:
+        raise AssertionError(f"[s] the unfused decode step made {unfused_per_step} w4a8 launches")
+    return launches
+
+
+def phase_s_dense_int8(dev_tag: str) -> dict:
+    """`serve.main --engine dense --backend int8 --int8-kv` on a 2-layer
+    model at 7B width (4-bit g64 checkpoint, seed 30): 4 requests over HTTP
+    (2 blocking, 2 streamed) whose ids equal the in-process
+    ContinuousBatchingEngine's on the same tree; the int8 layer's products
+    (`torch._int_mm`) against its plain twin, bit for bit, on the path's
+    own activations; the logits of decode steps over the int8 dense cache
+    (per-slot positions) against the bf16 cache's, with a control that
+    must miss the bar. Returns the launches of its window."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    import numpy as np
+
+    from hqq_tpu_torch import BaseQuantizeConfig, ops
+    from hqq_tpu_torch.backends import int8_backend as i8
+    from hqq_tpu_torch.engine.hf import HQQModel
+    from hqq_tpu_torch.models.llama import LlamaConfig, forward, init_cache, init_params
+    from hqq_tpu_torch.serve import main as serve_main
+    from hqq_tpu_torch.serving.batching import ContinuousBatchingEngine
+
+    int_mm = torch._int_mm
+    int_mm_calls = [0]
+
+    def counted_int_mm(*args):  # the library product has no launch count of its own
+        int_mm_calls[0] += 1
+        return int_mm(*args)
+
+    cfg = dataclasses.replace(LlamaConfig.llama2_7b(), num_hidden_layers=2)
+    root = tempfile.mkdtemp(prefix="hqq-serve-int8-")
+    try:
+        model = HQQModel(init_params(cfg, torch.Generator(device="cuda").manual_seed(30),
+                                     torch.bfloat16, "cuda"), cfg)
+        model.quantize_model(BaseQuantizeConfig(nbits=4, group_size=64))
+        model.save_quantized(root)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        rng = np.random.default_rng(30)
+        prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in rng.integers(64, 401, 4)]
+        srv = serve_main(["--model", root, "--port", "0", "--engine", "dense", "--backend", "int8",
+                          "--int8-kv", "--slots", str(S_DENSE_SLOTS), "--max-len",
+                          str(S_DENSE_MAX_LEN), "--horizon", str(S_HORIZON)], serve=False).start()
+        try:
+            _s_request(srv.port, prompts[0][:64], 4, False, time.time())  # warm-up
+            ops.reset_launch_counts()
+            with mock.patch.object(torch, "_int_mm", counted_int_mm):
+                results, window_s = _s_window(srv.port, prompts, G_NEW)
+            launches = launch_counts()
+            int8_launches = int_mm_calls[0]
+        finally:
+            srv.stop()
+    finally:
+        shutil.rmtree(root)
+    eng = srv.engine
+    params = eng.params
+    if not (eng.cache.quantized and isinstance(params["layers"][0]["self_attn"]["qkv_proj"],
+                                                i8.Int8QuantLinear)):
+        raise AssertionError("[s] the dense server does not hold int8 pools and fused int8 layers")
+    eng.close()
+    ref = ContinuousBatchingEngine(params, cfg, batch_slots=S_DENSE_SLOTS, max_len=S_DENSE_MAX_LEN,
+                                   horizon=S_HORIZON, quantize_kv=True)
+    uids = [ref.add_request(p, max_new_tokens=G_NEW) for p in prompts]
+    ref_out = ref.run()
+    same = sum(r["tokens"] == ref_out[u] for r, u in zip(results, uids))
+    # the int8 layer on its own activations: a prefill and decode steps
+    xs = []
+    layer = params["layers"][0]["self_attn"]["qkv_proj"]
+    hook = layer.register_forward_pre_hook(
+        lambda mod, args: xs.append(args[0].detach().reshape(-1, args[0].shape[-1]).clone()))
+    ref.add_request(prompts[1], max_new_tokens=3)
+    ref.run()
+    hook.remove()
+    ref.close()
+    exact, control_equal = True, False
+    for x in xs:
+        x8, _ = i8.quantize_activations_int8(x.to(layer.compute_dtype))
+        acc = i8.int8_matmul(x8, layer.w8)
+        exact &= torch.equal(acc, i8.int8_matmul_plain(x8, layer.w8))
+        control_equal |= torch.equal(acc, i8.int8_matmul_plain(x8, layer.w8.roll(1, dims=0)))
+    # decode over the int8 dense cache against the bf16 cache: the same
+    # prefill, then 8 steps at per-slot positions
+    toks = torch.randint(0, cfg.vocab_size, (4, 108), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(31))
+    t = 100
+    out = {}
+    with torch.inference_mode():
+        for name in ("bf16 cache", "int8 cache", "control"):
+            cache = init_cache(cfg, 4, 256, torch.bfloat16, "cuda", quantize_kv=name != "bf16 cache")
+            forward(params, cfg, toks[:, :t], cache, 0)
+            if name == "control":  # the prompt's K rows read with scales of one
+                cache.k_scales[:, :, :, :t] = 1.0
+            steps = []
+            for i in range(8):
+                pos = torch.full((4,), t + i, dtype=torch.long, device="cuda")
+                logits, cache = forward(params, cfg, toks[:, t + i:t + i + 1], cache, pos)
+                steps.append(logits)
+            out[name] = torch.cat(steps, dim=1)
+    err, control = rel(out["int8 cache"], out["bf16 cache"]), rel(out["control"], out["bf16 cache"])
+    # the int8 rows round every K/V value to 8 bits of its row's absmax, and
+    # the int8 activations carry a changed attention output into flipped
+    # roundings, as over int8 pages: phase g's bar between those paths
+    tol = 0.1
+    log(f"[s] {dev_tag}: dense engine, int8 backend (fused), int8 pools, 2 layers at 7B width: "
+        f"4 requests over HTTP (prompts {[len(p) for p in prompts]}, {G_NEW} new) in "
+        f"{window_s:.3f} s; ids equal the in-process engine's in {same} of 4; "
+        f"{int8_launches} torch._int_mm calls; launches {launches}")
+    log(f"[s] int8 layer (layer 0 qkv_proj, N={layer.out_features}): {len(xs)} calls, int32 "
+        f"products of torch._int_mm bit-equal to the plain twin: {exact}; control, a "
+        f"neighbour row's weights, equal: {control_equal} (must be False)")
+    log(f"[s] 8 decode steps at per-slot positions after a {t}-token prefill: logits over the "
+        f"int8 dense cache vs the bf16 cache, rel err {err:.3e} (tol {tol}); control, the "
+        f"prompt's K rows read with scales of one: {control:.3e} (must exceed it)")
+    if same != 4 or not int8_launches:
+        raise AssertionError("[s] the dense int8 server differs from its engine in-process")
+    if not exact or control_equal:
+        raise AssertionError("[s] torch._int_mm disagrees with the plain int8 product")
+    if not (err < tol < control) or not torch.isfinite(out["int8 cache"]).all():
+        raise AssertionError("[s] the int8 dense cache's logits are off")
+    del params, ref, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_d(n_layers: int = 2) -> None:
@@ -3163,8 +3651,9 @@ def main(argv: list[str]) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t_q = time.time()
-    windows.append(phase_q(dev_tag, c_ids))
-    log(f"[q] phase q: {time.time() - t_q:.1f} s")
+    windows.extend(phase_q(dev_tag, c_ids))
+    log(f"[q] phases q and s: {time.time() - t_q:.1f} s")
+    windows.append(phase_s_dense_int8(dev_tag))
     phase_g_two_layer()
     phase_h_two_layer()
     phase_d()

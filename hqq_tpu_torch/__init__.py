@@ -6,10 +6,12 @@ A port of `hqq_tpu` (JAX/Pallas) that follows its module tree and public
 names: `core` (bit packing, the proximal solver, `quantize`/`dequantize`),
 `nn` (quantized linear layers), `ops` (the fused matmul, paged-attention and
 flash-attention kernels and their host side), `backends` and
-`utils.patching` (inference backends), `models` (Llama), `serving`
-(generation, the paged continuous-batching engine), `utils.eval`
-(perplexity), `utils.training` (HQQ+ LoRA training) and `engine` (the
-user-facing model).
+`utils.patching` (inference backends, `fuse_for_decode`), `models`
+(Llama), `serving` (generation, the paged and dense continuous-batching
+engines, the HTTP server), `serve` (the one-command server,
+``python -m hqq_tpu_torch.serve``), `utils.eval` (perplexity),
+`utils.training` (HQQ+ LoRA training) and `engine` (the user-facing
+model).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 

@@ -11,17 +11,19 @@ kernels of ``csrc/``. Conversion is driven by
 Axis=1 layers convert to `KernelQTensor`, axis=0 layers to `KernelQTensor0`
 (under ``w4a8`` too, where they take the bf16-operand axis=0 kernel), and a
 `LoRALinear` over an axis=1 base converts to a module whose one kernel holds
-the adapter as well.
+the adapter as well. `concat_a8_linears` joins axis=1 `A8QuantLinear`s
+along their output rows (`utils.patching.fuse_for_decode`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 from torch import nn
 
-from ..nn.linear import QuantLinear, _as_param
+from ..nn.linear import QuantLinear, _as_param, concat_biases
 from ..ops.fused_matmul import (
     _KERNEL_CONTAINER_BITS,
     KernelQTensor,
@@ -46,6 +48,7 @@ __all__ = [
     "patch_quantlinear_to_w4a8",
     "patch_lora_to_pallas",
     "patch_lora_to_w4a8",
+    "concat_a8_linears",
 ]
 
 
@@ -146,6 +149,34 @@ def _patch_w4a8_any_axis(layer: QuantLinear, meta_dtype=None) -> "A8QuantLinear 
     sends a `KernelQTensor0`."""
     kqt = _to_any_layout(layer.qweight, meta_dtype)
     return layer if kqt is None else A8QuantLinear(kqt, layer.bias)
+
+
+def concat_a8_linears(layers) -> "A8QuantLinear | None":
+    """One `A8QuantLinear` computing the outputs of ``layers`` side by side
+    (q, k and v; gate and up), or None where they do not join.
+
+    The axis=1 layout holds W row-major by output (wq [N, K*cb/8], scale
+    and zs [N, C]), so the layers join along dim 0; `hqq_tpu`'s layout is
+    [K, N] and joins its axis 1. They must share K, the group, the
+    container, the code width and the type and columns of scale and zs
+    (bf16 pads C to a multiple of 8, the same for a shared K). Axis=0
+    layouts do not join: their scale and zs rows repeat every N/g rows.
+    The fused N is not padded (`hqq_tpu` pads it to 512 lanes, a TPU tiling
+    rule): the launch plans take any N. A missing bias among biased layers
+    is zeros."""
+    kqts = [layer.kqt for layer in layers]
+    k0 = kqts[0]
+    if not all(isinstance(layer, A8QuantLinear) and isinstance(kq, KernelQTensor)
+               and kq.k == k0.k and kq.group_size == k0.group_size
+               and kq.container_bits == k0.container_bits and kq.nbits == k0.nbits
+               and kq.compute_dtype == k0.compute_dtype and kq.scale.dtype == k0.scale.dtype
+               and kq.scale.shape[1] == k0.scale.shape[1] and kq.wq.shape[1] == k0.wq.shape[1]
+               for layer, kq in zip(layers, kqts)):
+        return None
+    fused = dataclasses.replace(
+        k0, wq=torch.cat([kq.wq for kq in kqts]), scale=torch.cat([kq.scale for kq in kqts]),
+        zs=torch.cat([kq.zs for kq in kqts]), shape=(k0.k, sum(kq.n for kq in kqts)))
+    return A8QuantLinear(fused, concat_biases(layers))
 
 
 class _KernelLoRALinear(nn.Module):

@@ -8,9 +8,13 @@ naming, [out, in] weights) whose linear leaves are `Linear`, `QuantLinear`,
 cache, as in `hqq_tpu`:
 
   * a dense `KVCache`, a stacked [L, B, n_kv, S_max, head_dim] pair of
-    tensors updated in place by `index_copy_` at ``start_pos``, an int or a
-    0-d device tensor (prefill and decode; a CUDA graph of the decode step
-    replays it);
+    tensors updated in place at ``start_pos``: an int or a 0-d device tensor
+    (the whole batch at one offset, by `index_copy_`; prefill and decode, a
+    CUDA graph of the decode step replays it), or a [B] tensor (every slot
+    at its own offset, one indexed write per pool: the dense continuous
+    batching engine). With int8 pools (``init_cache(quantize_kv=True)``)
+    new rows are absmax-quantized per row and the scales are applied after
+    the products;
   * a `PagedKVCache` with ``page_indices`` (`ops.paged`): one decode step
     for every slot at its own offset, K/V written into pages in place and
     attention through the `paged_attention` kernel;
@@ -20,8 +24,12 @@ cache, as in `hqq_tpu`:
     update of a saved tensor, and its attention takes the flash Function,
     forward and backward kernels, from T = 256 on).
 
-Not yet ported: the int8 dense KV cache, ``kv_valid``, ``inputs_embeds`` and
-the sequence-parallel page pool (``seq_axis``).
+A layer's projections may be fused (`utils.patching.fuse_for_decode`):
+``qkv_proj`` in place of q, k and v, ``gate_up_proj`` in place of gate
+and up; their outputs are split as in `hqq_tpu`.
+
+Not yet ported: ``kv_valid``, ``inputs_embeds`` and the sequence-parallel
+page pool (``seq_axis``).
 """
 
 from __future__ import annotations
@@ -197,19 +205,37 @@ def init_params(
 
 @dataclasses.dataclass
 class KVCache:
-    """Dense KV cache: k/v are [L, B, n_kv, S_max, head_dim]."""
+    """Dense KV cache: k/v are [L, B, n_kv, S_max, head_dim].
+
+    With ``k_scales`` set the pools are int8 with per-row absmax scales
+    [L, B, n_kv, S_max, 1] in fp32 (`ops.paged.quant_rows`): half the K/V
+    bytes a decode step reads, the scheme of the paged pool's int8 pages."""
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scales: Optional[torch.Tensor] = None
+    v_scales: Optional[torch.Tensor] = None
 
     @property
     def max_len(self) -> int:
         return self.k.shape[3]
 
+    @property
+    def quantized(self) -> bool:
+        return self.k_scales is not None
+
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=torch.bfloat16,
-               device="cuda") -> KVCache:
+               device="cuda", quantize_kv: bool = False) -> KVCache:
+    """A zeroed dense cache; with ``quantize_kv`` int8 pools and scales of
+    one (``dtype`` is then unused)."""
     shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads, max_len, cfg.head_dim_)
+    if quantize_kv:
+        scales = shape[:-1] + (1,)
+        return KVCache(k=torch.zeros(shape, dtype=torch.int8, device=device),
+                       v=torch.zeros(shape, dtype=torch.int8, device=device),
+                       k_scales=torch.ones(scales, dtype=torch.float32, device=device),
+                       v_scales=torch.ones(scales, dtype=torch.float32, device=device))
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
@@ -340,11 +366,22 @@ def positions_and_masks(cfg: LlamaConfig, t: int, start_pos, cache_max_len: Opti
 def _update_stacked_cache(k_all: torch.Tensor, v_all: torch.Tensor, layer_idx: int,
                           k: torch.Tensor, v: torch.Tensor, start_pos) -> None:
     """Write new K/V [B, n_kv, t, hd] into the stacked cache at layer
-    ``layer_idx`` and offset ``start_pos`` (an int or a 0-d tensor), in
-    place, by `index_copy_` at start_pos + arange(t): the offset stays on
-    the device and the cache is never rebuilt."""
+    ``layer_idx``, in place; the offsets stay on the device and the cache
+    is never rebuilt. ``start_pos`` an int or a 0-d tensor: `index_copy_`
+    at start_pos + arange(t) for the whole batch. A [B] tensor: every slot
+    at its own offset, one indexed write per pool for all (slot, token)
+    pairs, as `hqq_tpu`'s scatter; every row must lie inside the cache
+    (`hqq_tpu` drops a row past its end, torch raises)."""
     t = k.shape[2]
-    rows = torch.arange(t, device=k_all.device) + (
+    steps = torch.arange(t, device=k_all.device)
+    if isinstance(start_pos, torch.Tensor) and start_pos.ndim == 1:
+        slots = torch.arange(k.shape[0], device=k_all.device)[:, None]  # [B, 1]
+        rows = start_pos.to(k_all.device)[:, None] + steps[None, :]  # [B, t]
+        # the indexed dims go first: the value is [B, t, n_kv, hd]
+        k_all[layer_idx][slots, :, rows] = k.transpose(1, 2).to(k_all.dtype)
+        v_all[layer_idx][slots, :, rows] = v.transpose(1, 2).to(v_all.dtype)
+        return
+    rows = steps + (
         start_pos.to(k_all.device) if isinstance(start_pos, torch.Tensor) else int(start_pos))
     k_all[layer_idx].index_copy_(2, rows, k.to(k_all.dtype))
     v_all[layer_idx].index_copy_(2, rows, v.to(v_all.dtype))
@@ -357,7 +394,10 @@ def _qkv_rope(layer: dict, cfg: LlamaConfig, x: torch.Tensor, cos: torch.Tensor,
     rotated."""
     b, t, _ = x.shape
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
-    q, k, v = layer["q_proj"](x), layer["k_proj"](x), layer["v_proj"](x)
+    if "qkv_proj" in layer:  # fused by `fuse_for_decode`: one wide matmul
+        q, k, v = torch.split(layer["qkv_proj"](x), [nh * hd, nkv * hd, nkv * hd], dim=-1)
+    else:
+        q, k, v = layer["q_proj"](x), layer["k_proj"](x), layer["v_proj"](x)
     q = q.reshape(b, t, nh, hd).transpose(1, 2)
     k = k.reshape(b, t, nkv, hd).transpose(1, 2)
     v = v.reshape(b, t, nkv, hd).transpose(1, 2)
@@ -430,11 +470,12 @@ def _attention(layer: dict, cfg: LlamaConfig, x: torch.Tensor, cache: KVCache, l
     b, t, _ = x.shape
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
     q, k, v = _qkv_rope(layer, cfg, x, cos, sin)
+    rep = nh // nkv  # GQA: each kv head serves rep query heads
+    if cache.quantized:
+        return layer["o_proj"](_attention_int8(q, k, v, cache, layer_idx, start_pos, mask, rep))
 
     _update_stacked_cache(cache.k, cache.v, layer_idx, k, v, start_pos)
     keys, vals = cache.k[layer_idx], cache.v[layer_idx]
-
-    rep = nh // nkv  # GQA: each kv head serves rep query heads
     if rep > 1:
         keys = _repeat_heads(keys, rep)
         vals = _repeat_heads(vals, rep)
@@ -447,6 +488,34 @@ def _attention(layer: dict, cfg: LlamaConfig, x: torch.Tensor, cache: KVCache, l
     return layer["o_proj"](out)
 
 
+def _attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache: KVCache,
+                    layer_idx: int, start_pos, mask: torch.Tensor, rep: int) -> torch.Tensor:
+    """`_attention` over int8 pools: the new rows absmax-quantized per row
+    and written with their scales, then the scales applied after the
+    products (`hqq_tpu`'s scale-after-dot): the K scales multiply the score
+    columns and the V scales fold into the probabilities, so no dequantized
+    window is formed. Returns the heads merged, [B, T, nh * hd]."""
+    from ..ops.paged import quant_rows
+
+    b, nh, t, hd = q.shape
+    kq, ks = quant_rows(k)
+    vq, vs = quant_rows(v)
+    _update_stacked_cache(cache.k, cache.v, layer_idx, kq, vq, start_pos)
+    _update_stacked_cache(cache.k_scales, cache.v_scales, layer_idx, ks, vs, start_pos)
+    keys, vals = cache.k[layer_idx], cache.v[layer_idx]
+    ksl, vsl = cache.k_scales[layer_idx] / 127.0, cache.v_scales[layer_idx] / 127.0
+    if rep > 1:
+        keys, vals = _repeat_heads(keys, rep), _repeat_heads(vals, rep)
+        ksl, vsl = _repeat_heads(ksl, rep), _repeat_heads(vsl, rep)
+    ksl, vsl = ksl[..., 0], vsl[..., 0]  # [B, nh, S]
+    scores = (q.to(torch.float32) @ keys.to(torch.float32).transpose(-1, -2)) * (
+        ksl[:, :, None, :] / math.sqrt(hd))
+    probs = torch.softmax(scores + mask, dim=-1)
+    probs = (probs * vsl[:, :, None, :]).to(q.dtype)
+    out = probs @ vals.to(q.dtype)
+    return out.transpose(1, 2).reshape(b, t, nh * hd)
+
+
 def _repeat_heads(x: torch.Tensor, rep: int) -> torch.Tensor:
     """[B, n_kv, S, hd] -> [B, n_kv * rep, S, hd], each head ``rep`` times
     in a row (`repeat_interleave` by an expanded view: no host read)."""
@@ -455,6 +524,9 @@ def _repeat_heads(x: torch.Tensor, rep: int) -> torch.Tensor:
 
 
 def _mlp(layer: dict, x: torch.Tensor) -> torch.Tensor:
+    if "gate_up_proj" in layer:  # fused by `fuse_for_decode`
+        gate, up = layer["gate_up_proj"](x).chunk(2, dim=-1)
+        return layer["down_proj"](F.silu(gate) * up)
     return layer["down_proj"](F.silu(layer["gate_proj"](x)) * layer["up_proj"](x))
 
 

@@ -11,13 +11,16 @@ greedily at ``max_shard_bytes`` in the tree's order. A checkpoint written by
 either package loads in the other.
 
 Nodes: dicts, lists, None, tensors, `Linear`, `QuantLinear`, `QTensor`
-(meta-quantized too) and `LoRALinear`. Kernel-layout modules (the backends'
+(meta-quantized too), `LoRALinear` and the int8 backend's
+`Int8QuantLinear` (``w8``, ``sw``, its bias and its logical sizes, as
+`hqq_tpu` names them; trees fused by `fuse_for_decode` hold no other kind).
+Kernel-layout modules (the backends'
 `PallasQuantLinear`, `A8QuantLinear` and their LoRA peers) and `hqq_tpu`'s
 kernel-layout nodes are refused with a `TypeError` both ways: the two
 packages' kernel layouts differ, so a checkpoint is saved before
 `prepare_for_inference` and prepared again after loading. Node types with
-no module here yet (`Int8QuantLinear`, `GroupedLinear`,
-`GroupedQuantLinear`) raise as unknown ones do.
+no module here yet (`GroupedLinear`, `GroupedQuantLinear`) raise as
+unknown ones do.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..backends.int8_backend import Int8QuantLinear
 from ..core.peft import LoRALinear
 from ..core.quantize import QTensor
 from ..nn.linear import Linear, QuantLinear
@@ -86,6 +90,14 @@ def tree_to_state(tree: Any, prefix: str = "") -> Tuple[Dict[str, torch.Tensor],
             return {"type": "QuantLinear",
                     "children": {"qweight": rec(node.qweight, f"{path}.qweight"),
                                  "bias": rec(node.bias, f"{path}.bias")}}
+        if isinstance(node, Int8QuantLinear):
+            flat[f"{path}.w8"] = node.w8.detach()
+            flat[f"{path}.sw"] = node.sw.detach()
+            return {"type": "Int8QuantLinear",
+                    "meta": {"compute_dtype": _dtype_name(node.compute_dtype),
+                             "logical_out": node.logical_out,
+                             "logical_in": node.logical_in},
+                    "children": {"bias": rec(node.bias, f"{path}.bias")}}
         if isinstance(node, LoRALinear):
             return {"type": "LoRALinear",
                     "meta": {"scaling": node.scaling, "dropout": node.dropout},
@@ -149,6 +161,17 @@ def state_to_tree(structure: Any, get: Callable[[str], torch.Tensor], prefix: st
             raise _kernel_node_error(t, path)
         if t == "QuantLinear":
             return QuantLinear(rec(ch["qweight"], f"{path}.qweight"), rec(ch["bias"], f"{path}.bias"))
+        if t == "Int8QuantLinear":
+            m = node.get("meta") or {}
+            w8, sw = get(f"{path}.w8"), get(f"{path}.sw")
+            if (w8.dtype != torch.int8 or w8.ndim != 2 or tuple(sw.shape) != (w8.shape[0], 1)
+                    or "compute_dtype" not in m or "bias" not in ch):
+                raise TypeError(f"Int8QuantLinear at {path!r} needs an int8 w8 [N, K], an sw "
+                                f"[N, 1], a bias child and its compute_dtype; got w8 "
+                                f"{w8.dtype} {tuple(w8.shape)}, sw {tuple(sw.shape)}")
+            return Int8QuantLinear(w8, sw, rec(ch["bias"], f"{path}.bias"),
+                                   _dtype(m["compute_dtype"]), m.get("logical_out"),
+                                   m.get("logical_in"))
         if t == "LoRALinear":
             return LoRALinear(rec(ch["base"], f"{path}.base"), rec(ch["lora_a"], f"{path}.lora_a"),
                               rec(ch["lora_b"], f"{path}.lora_b"), rec(ch["bias"], f"{path}.bias"),

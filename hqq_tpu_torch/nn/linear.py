@@ -22,11 +22,22 @@ from torch import nn
 
 from ..core.quantize import QTensor, dequantize, quantize
 
-__all__ = ["Linear", "QuantLinear", "dequant_matmul"]
+__all__ = ["Linear", "QuantLinear", "dequant_matmul", "concat_biases"]
 
 
 def _as_param(t: Optional[torch.Tensor]) -> Optional[nn.Parameter]:
     return None if t is None else nn.Parameter(t, requires_grad=False)
+
+
+def concat_biases(layers) -> Optional[torch.Tensor]:
+    """The biases of ``layers`` side by side, zeros (in the first bias's
+    type) for a layer without one; None where no layer has one. For layers
+    joined along their outputs (`utils.patching.fuse_for_decode`)."""
+    first = next((layer.bias for layer in layers if layer.bias is not None), None)
+    if first is None:
+        return None
+    return torch.cat([layer.bias.data if layer.bias is not None
+                      else first.new_zeros(layer.out_features) for layer in layers])
 
 
 class Linear(nn.Module):

@@ -5,4 +5,5 @@ from .generate import (  # noqa: F401
     sample_token,
     sample_token_batch,
 )
+from .batching import ContinuousBatchingEngine  # noqa: F401
 from .paged import PagedBatchingEngine  # noqa: F401

@@ -1,19 +1,44 @@
 # SPDX-License-Identifier: Apache-2.0
-"""What the serving engines share: a request and its sampling parameters.
+"""Continuous batching over a dense KV cache, and what the serving engines
+share: a request and its sampling parameters.
 
-Mirrors the head of `hqq_tpu.serving.batching`. The dense-cache
-`ContinuousBatchingEngine` of that module is not ported yet; the paged
-engine (`serving.paged`) is.
+Mirrors `hqq_tpu.serving.batching`. `ContinuousBatchingEngine` owns the
+whole serving loop:
+
+* a fixed pool of ``batch_slots`` decode slots over one dense cache
+  [L, S, n_kv, max_len, hd] (`models.llama.KVCache`), every slot at its own
+  position (a [B] ``start_pos``), so requests join and leave the batch
+  without touching the others;
+* a prefill runs the request alone in a float mini cache of its bucketed
+  length (the next power of two), whose rows are then copied into the
+  slot's rows, quantized there where the cache is int8 (``quantize_kv``);
+* finished slots (EOS, a stop token, max_new_tokens, the end of the cache)
+  retire on the host between steps and free slots refill from the queue;
+* ``horizon`` decode steps run with no read-back between them, the tokens
+  read once at the end (as `serving.paged.PagedBatchingEngine._decode`).
+
+Every decode step runs all ``batch_slots`` rows, live or not, so a
+request's tokens do not depend on its neighbours: the kernels see the same
+shapes every step, the activations are quantized per token and attention
+is per slot. Not yet served, and refused with an error: ``inputs_embeds``
+requests (vision-language serving), ``adapter_id != 0`` (multi-LoRA) and
+M-RoPE offsets (``mrope_offsets``, Qwen2-VL).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from collections import deque
+from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
-__all__ = ["Request"]
+from ..models import llama
+from ..utils.profiling import log_event
+from .generate import next_power_of_2, sample_token, sample_token_batch
+
+__all__ = ["Request", "ContinuousBatchingEngine"]
 
 
 @dataclasses.dataclass
@@ -42,3 +67,278 @@ def _effective_sampling(req: Request, do_sample, top_k, temperature, top_p):
         temperature if req.temperature is None else float(req.temperature),
         top_p if req.top_p is None else float(req.top_p),
     )
+
+
+def _refuse_unported(inputs_embeds, adapter_id) -> None:
+    """Refuse what the engines cannot serve yet: prompt embeddings
+    (vision-language serving) and adapters other than 0 (multi-LoRA)."""
+    if inputs_embeds is not None:
+        raise NotImplementedError("inputs_embeds requests (vision-language serving) are not "
+                                  "ported yet")
+    if int(adapter_id) != 0:
+        raise NotImplementedError("multi-LoRA serving (adapter_id != 0) is not ported yet")
+
+
+def _refuse_embeds_forward(embeds_forward_fn) -> None:
+    if embeds_forward_fn is not None:
+        raise NotImplementedError("embeds_forward_fn (vision-language serving) is not ported "
+                                  "yet")
+
+
+def _checked_request(prompt_ids, top_k, vocab_size: int) -> np.ndarray:
+    """The prompt as int32 ids, after a ValueError for what would fail
+    inside a later step: an id outside [0, vocab_size) indexes past the
+    embedding table (a device-side assert on the card, which ends the
+    process's CUDA context; `hqq_tpu`'s gather clamps it instead), and a
+    sampled request's top_k outside [1, vocab_size] is refused by
+    `torch.topk` (``top_k`` None: not checked)."""
+    prompt = np.asarray(prompt_ids).reshape(-1)
+    if prompt.size:
+        if prompt.dtype.kind not in "iu":
+            raise ValueError(f"prompt ids must be integers, got {prompt.dtype}")
+        if prompt.min() < 0 or prompt.max() >= vocab_size:
+            raise ValueError(f"prompt ids must lie in [0, {vocab_size}), got "
+                             f"{int(prompt.min())}..{int(prompt.max())}")
+    if top_k is not None and not 1 <= int(top_k) <= vocab_size:
+        raise ValueError(f"top_k must lie in [1, {vocab_size}], got {top_k}")
+    return prompt.astype(np.int32)
+
+
+class ContinuousBatchingEngine:
+    """Continuous batching over a dense KV cache: add_request / step / run
+    / cancel / close."""
+
+    def __init__(
+        self,
+        params: Any,
+        cfg: Any,
+        batch_slots: int = 8,
+        max_len: int = 1024,
+        eos_token_id: Optional[int] = None,
+        do_sample: bool = False,
+        top_k: int = 20,
+        top_p: float = 1.0,
+        temperature: float = 0.6,
+        cache_dtype=torch.bfloat16,
+        forward_fn=None,
+        embeds_forward_fn=None,
+        seed: int = 0,
+        horizon: int = 1,
+        quantize_kv: bool = False,
+        mrope_offsets: bool = False,
+        device="cuda",
+    ):
+        """forward_fn: another family's forward, (params, tokens [B, T],
+        cache, start_pos) -> (logits, cache), called with the mini cache
+        and an int for a prefill and with the engine's cache and a [B]
+        tensor of positions for decode; defaults to the Llama forward.
+
+        horizon: that many decode steps per `step()` with no read-back
+        between them; the same tokens as single steps.
+
+        quantize_kv: int8 pools with per-row scales (`llama.init_cache`).
+
+        embeds_forward_fn and ``mrope_offsets`` (vision-language serving)
+        are refused: requests with ``inputs_embeds`` are not served yet."""
+        _refuse_embeds_forward(embeds_forward_fn)
+        if mrope_offsets:
+            raise NotImplementedError("M-RoPE serving (mrope_offsets, Qwen2-VL) is not ported yet")
+        self.params = params
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.s = batch_slots
+        self.max_len = max_len
+        self.eos = eos_token_id
+        self.do_sample = do_sample
+        self.top_k = top_k
+        self.top_p = top_p
+        self.temperature = temperature
+        self._fwd = forward_fn or (
+            lambda p, toks, cache, pos: llama.forward(p, cfg, toks, cache, pos))
+        self.quantize_kv = bool(quantize_kv)
+        self._cache_dtype = cache_dtype  # the prefill mini cache stays float
+        self.cache = llama.init_cache(cfg, batch_slots, max_len, cache_dtype, self.device,
+                                      quantize_kv=self.quantize_kv)
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+
+        # per-slot sampling parameters [4, S]: do_sample/top_k/temperature/top_p
+        self._samp = np.zeros((4, batch_slots), np.float32)
+        self._samp[0] = 1.0 if do_sample else 0.0
+        self._samp[1] = top_k
+        self._samp[2] = temperature
+        self._samp[3] = top_p
+        self.queue: deque[Request] = deque()
+        self.active: Dict[int, Request] = {}  # slot -> request
+        self.finished: Dict[int, Request] = {}
+        self._uid = 0
+        self._tokens = np.zeros((batch_slots,), np.int64)  # each slot's next input
+        self._pos = np.zeros((batch_slots,), np.int64)  # each slot's write position
+        self._live = np.zeros((batch_slots,), bool)
+        self.horizon = max(1, int(horizon))
+
+    def close(self):
+        """Drop the cache and the parameters. Idempotent."""
+        self.__dict__.pop("_fwd", None)
+        self.cache = None
+        self.params = None
+
+    # -- device steps ----------------------------------------------------------
+    def _decode(self, steps: int) -> np.ndarray:
+        """``steps`` decode steps for all slots, the tokens read back once
+        at the end: [steps, S]. Within the horizon every slot advances one
+        position a step; the horizon's cap keeps the live slots inside the
+        cache, and a dead slot's position stops at its last row (it may
+        have ended there), so no write falls outside the cache."""
+        dev = self.device
+        tok = torch.from_numpy(self._tokens).to(dev)
+        pos = torch.from_numpy(self._pos).to(dev)
+        samp = torch.from_numpy(self._samp).to(dev)
+        out = []
+        for _ in range(steps):
+            logits, self.cache = self._fwd(self.params, tok[:, None], self.cache, pos)
+            tok = sample_token_batch(logits[:, -1], self._gen, samp[0] > 0.5,
+                                     samp[1].to(torch.int64), samp[2], samp[3])
+            pos = (pos + 1).clamp_max(self.max_len - 1)
+            out.append(tok)
+        return torch.stack(out).cpu().numpy()
+
+    def _splice(self, slot: int, mini: llama.KVCache) -> None:
+        """Copy the prefill's rows [0, T_pad) into the slot, in place; the
+        slot's later rows keep what they held, masked until overwritten."""
+        rows = mini.k.shape[3]
+        cache = self.cache
+        if cache.quantized:
+            from ..ops.paged import quant_rows
+
+            for pool, scales, dense in ((cache.k, cache.k_scales, mini.k),
+                                        (cache.v, cache.v_scales, mini.v)):
+                q, sc = quant_rows(dense[:, 0])
+                pool[:, slot, :, :rows] = q
+                scales[:, slot, :, :rows] = sc
+        else:
+            cache.k[:, slot, :, :rows] = mini.k[:, 0].to(cache.k.dtype)
+            cache.v[:, slot, :, :rows] = mini.v[:, 0].to(cache.v.dtype)
+
+    # -- scheduling on the host --------------------------------------------------
+    def add_request(self, prompt_ids, max_new_tokens: int = 128, adapter_id: int = 0,
+                    inputs_embeds=None, position_ids=None, pos_offset: int = 0,
+                    do_sample: Optional[bool] = None, top_k: Optional[int] = None,
+                    top_p: Optional[float] = None, temperature: Optional[float] = None,
+                    stop_token_ids: Optional[List[int]] = None) -> int:
+        """Queue a request; returns its uid. do_sample / top_k / top_p /
+        temperature / stop_token_ids are per request (None = the engine's
+        defaults); a stop token is kept in the output, as EOS is.
+        ``inputs_embeds``, ``adapter_id != 0`` and the M-RoPE arguments
+        (``position_ids``, ``pos_offset``) are not served yet. Ids outside
+        the vocabulary raise a ValueError here, before any step."""
+        _refuse_unported(inputs_embeds, adapter_id)
+        if position_ids is not None or pos_offset:
+            raise NotImplementedError("M-RoPE requests (position_ids, pos_offset) are not "
+                                      "ported yet")
+        sampled = self.do_sample if do_sample is None else bool(do_sample)
+        prompt = _checked_request(prompt_ids, top_k if sampled else None, self.cfg.vocab_size)
+        t_pad = next_power_of_2(max(len(prompt), 2))
+        if t_pad + max_new_tokens > self.max_len:
+            raise ValueError(
+                f"prompt ({len(prompt)} tokens, padded {t_pad}) + max_new_tokens "
+                f"({max_new_tokens}) exceeds max_len={self.max_len}")
+        self._uid += 1
+        self.queue.append(
+            Request(uid=self._uid, prompt=prompt, max_new_tokens=max_new_tokens,
+                    do_sample=do_sample, top_k=top_k, top_p=top_p, temperature=temperature,
+                    stop_token_ids=list(stop_token_ids) if stop_token_ids else None))
+        return self._uid
+
+    def _admit(self, slot: int, req: Request) -> None:
+        """Prefill ``req`` alone into a mini cache of its bucket, copy it
+        into ``slot``, sample its first token."""
+        t = len(req.prompt)
+        t_pad = next_power_of_2(max(t, 2))
+        prompt = np.zeros((1, t_pad), np.int64)
+        prompt[0, :t] = req.prompt
+        ds, tk, tmp, tp = _effective_sampling(
+            req, self.do_sample, self.top_k, self.temperature, self.top_p)
+        self._samp[:, slot] = (1.0 if ds else 0.0, tk, tmp, tp)
+        mini = llama.init_cache(self.cfg, 1, t_pad, self._cache_dtype, self.device)
+        logits, mini = self._fwd(self.params, torch.from_numpy(prompt).to(self.device), mini, 0)
+        self._splice(slot, mini)
+        first = int(sample_token(logits[:, t - 1], self._gen, ds, tk, tmp, tp)[0])
+        log_event("request_admitted", uid=req.uid, slot=slot, prompt_len=t)
+        req.slot = slot
+        req.output = [first]
+        self.active[slot] = req
+        self._tokens[slot] = first
+        self._pos[slot] = t
+        self._live[slot] = True
+        self._maybe_finish(slot)
+
+    def _maybe_finish(self, slot: int) -> None:
+        req = self.active.get(slot)
+        if req is None:
+            return
+        last = req.output[-1] if req.output else None
+        if (
+            (self.eos is not None and last == self.eos)
+            or (req.stop_token_ids and last in req.stop_token_ids)
+            or len(req.output) >= req.max_new_tokens
+            or int(self._pos[slot]) >= self.max_len - 1
+        ):
+            log_event("request_finished", uid=req.uid, slot=slot, n_tokens=len(req.output))
+            req.done = True
+            self.finished[req.uid] = req
+            del self.active[slot]
+            self._live[slot] = False
+
+    def cancel(self, uid: int) -> bool:
+        """Cancel a queued or running request; a running one finishes at
+        once with the tokens it has (its slot refills on the next step).
+        Returns True if it was found."""
+        for i, req in enumerate(self.queue):
+            if req.uid == uid:
+                del self.queue[i]
+                req.done = True
+                self.finished[uid] = req
+                return True
+        for slot, req in list(self.active.items()):
+            if req.uid == uid:
+                req.done = True
+                self.finished[uid] = req
+                del self.active[slot]
+                self._live[slot] = False
+                return True
+        return False
+
+    def _schedule(self) -> None:
+        for slot in range(self.s):
+            if not self._live[slot] and self.queue:
+                self._admit(slot, self.queue.popleft())
+
+    @torch.inference_mode()
+    def step(self) -> int:
+        """Admit queued requests, run one decode horizon. Returns the
+        number of active requests."""
+        self._schedule()
+        if not self.active:
+            return 0
+        # the horizon capped so that no live slot runs past the cache
+        h = self.horizon
+        if h > 1:
+            max_pos = max(int(self._pos[s]) for s in self.active)
+            h = max(1, min(h, self.max_len - 1 - max_pos))
+        toks = self._decode(h)
+        for slot in list(self.active):
+            for j in range(toks.shape[0]):
+                req = self.active.get(slot)
+                if req is None:
+                    break  # finished within the horizon: the rest is dropped
+                req.output.append(int(toks[j, slot]))
+                self._tokens[slot] = int(toks[j, slot])
+                self._pos[slot] += 1
+                self._maybe_finish(slot)
+        return len(self.active)
+
+    def run(self) -> Dict[int, List[int]]:
+        """Drain the queue; returns {uid: generated token ids}."""
+        while self.queue or self.active:
+            self.step()
+        return {uid: r.output for uid, r in self.finished.items()}

@@ -33,7 +33,8 @@ import torch
 from ..models import llama
 from ..ops.paged import PagedKVCache, init_paged_cache, paged_attention_ref, quant_rows
 from ..utils.profiling import log_event
-from .batching import Request, _effective_sampling
+from .batching import (Request, _checked_request, _effective_sampling, _refuse_embeds_forward,
+                       _refuse_unported)
 from .generate import next_power_of_2, sample_token, sample_token_batch
 
 __all__ = ["PagedKVCache", "PagedBatchingEngine", "paged_attention_ref", "init_paged_cache",
@@ -130,8 +131,9 @@ class PagedBatchingEngine:
         horizon: that many decode steps per `step()` with no read-back
         between them; the same tokens as single steps.
 
-        embeds_forward_fn is taken for `hqq_tpu`'s signature and unused:
-        requests with ``inputs_embeds`` are not served yet."""
+        embeds_forward_fn (vision-language serving) is refused: requests
+        with ``inputs_embeds`` are not served yet."""
+        _refuse_embeds_forward(embeds_forward_fn)
         self.params = params
         self.cfg = cfg
         self.device = torch.device(device)
@@ -248,13 +250,11 @@ class PagedBatchingEngine:
         """Queue a request; returns its uid. do_sample / top_k / top_p /
         temperature / stop_token_ids are per-request (None = the engine's
         defaults). ``inputs_embeds`` and ``adapter_id != 0`` are not served
-        yet."""
-        if inputs_embeds is not None:
-            raise NotImplementedError("inputs_embeds requests (vision-language serving) are not "
-                                      "ported yet")
-        if int(adapter_id) != 0:
-            raise NotImplementedError("multi-LoRA serving (adapter_id != 0) is not ported yet")
-        prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
+        yet. Ids outside the vocabulary raise a ValueError here, before any
+        step."""
+        _refuse_unported(inputs_embeds, adapter_id)
+        sampled = self.do_sample if do_sample is None else bool(do_sample)
+        prompt = _checked_request(prompt_ids, top_k if sampled else None, self.cfg.vocab_size)
         t_pad = next_power_of_2(max(len(prompt), 2))
         need = -(-(len(prompt) + max_new_tokens) // self.pg)
         if need > self.mp or -(-t_pad // self.pg) > self.mp:

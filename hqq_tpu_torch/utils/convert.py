@@ -5,9 +5,10 @@
 been turned into numpy arrays (``jax.tree_util.tree_map(np.asarray, tree)``)
 and returns the same tree in this package's types on ``device``. It reads
 fields by attribute name only (``weight``, ``bias``, ``qweight``, a
-QTensor's ``wq``/``scale``/``zero``/``nbits``/... and a LoRALinear's
-``base``/``lora_a``/``lora_b``/``scaling``), so it imports nothing of
-`hqq_tpu`. A QTensor alone converts too. `paged_cache_from_numpy` carries a paged KV
+QTensor's ``wq``/``scale``/``zero``/``nbits``/..., a LoRALinear's
+``base``/``lora_a``/``lora_b``/``scaling`` and an Int8QuantLinear's
+``w8``/``sw``/``compute_dtype``/``logical_out``/``logical_in``), so it
+imports nothing of `hqq_tpu`. A QTensor alone converts too. `paged_cache_from_numpy` carries a paged KV
 cache across the same way (its pools and scales as numpy arrays).
 """
 
@@ -18,6 +19,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..backends.int8_backend import Int8QuantLinear
 from ..core.peft import LoRALinear
 from ..core.quantize import QTensor
 from ..nn.linear import Linear, QuantLinear
@@ -62,7 +64,8 @@ def params_from_numpy(tree: Any, device="cuda") -> Any:
     """Convert an `hqq_tpu` tree (numpy leaves) to this package's types:
     dicts and lists stay, arrays become tensors, ``Linear``,
     ``QuantLinear`` and ``LoRALinear`` become their `nn.Module`
-    counterparts, and a ``QTensor`` becomes this package's `QTensor`."""
+    counterparts (an ``Int8QuantLinear`` too), and a ``QTensor`` becomes
+    this package's `QTensor`."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -75,6 +78,11 @@ def params_from_numpy(tree: Any, device="cuda") -> Any:
                           tensor_from_numpy(tree.lora_a, device),
                           tensor_from_numpy(tree.lora_b, device), bias, tree.scaling,
                           getattr(tree, "dropout", 0.0))
+    if hasattr(tree, "w8"):
+        bias = None if tree.bias is None else tensor_from_numpy(tree.bias, device)
+        return Int8QuantLinear(tensor_from_numpy(tree.w8, device), tensor_from_numpy(tree.sw, device),
+                               bias, torch_dtype(tree.compute_dtype), tree.logical_out,
+                               tree.logical_in)
     if hasattr(tree, "qweight"):
         bias = None if tree.bias is None else tensor_from_numpy(tree.bias, device)
         return QuantLinear(_qtensor(tree.qweight, device), bias)

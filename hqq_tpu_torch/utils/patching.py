@@ -9,6 +9,8 @@ names of `hqq_tpu`:
     "pallas" `PallasQuantLinear` (the fused dequant-matmul kernel)
     "w4a8"   `A8QuantLinear` (int8 activations at M <= 32, the fused
              kernel above)
+    "int8"   `Int8QuantLinear` (the weight quantized again to int8 per
+             row, once; int8 activations per token; `torch._int_mm`)
 
 Layers of either quantization axis convert under "pallas" and "w4a8"
 (axis=0 takes the bf16-operand axis=0 kernel under both). A `LoRALinear`
@@ -18,25 +20,35 @@ base converts in place.
 
 ``backend`` may also be a {linear_tag: backend} dict; missing tags keep
 "xla". Layers convert in place in the tree (see `models.base`).
+
+`fuse_for_decode` then joins each layer's q, k and v into one
+``qkv_proj`` and gate and up into one ``gate_up_proj`` (`A8QuantLinear`,
+`Int8QuantLinear` and `Linear`), so a decode step makes 4 matmul launches
+a layer instead of 7.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
+import torch
+
+from ..backends.int8_backend import Int8QuantLinear, pad_for_mxu, patch_quantlinear_to_int8
 from ..backends.pallas_backend import (
+    A8QuantLinear,
     PallasQuantLinear,
     _patch_w4a8_any_axis,
+    concat_a8_linears,
     patch_lora_to_pallas,
     patch_lora_to_w4a8,
     patch_quantlinear_to_pallas,
 )
 from ..core.peft import LoRALinear
-from ..nn.linear import QuantLinear
+from ..nn.linear import Linear, QuantLinear, concat_biases
 
-__all__ = ["BACKENDS", "prepare_for_inference"]
+__all__ = ["BACKENDS", "prepare_for_inference", "fuse_for_decode"]
 
-BACKENDS = ("xla", "pallas", "w4a8")
+BACKENDS = ("xla", "pallas", "w4a8", "int8")
 
 
 def prepare_for_inference(params: Any, backend="pallas", verbose: bool = False,
@@ -63,6 +75,8 @@ def prepare_for_inference(params: Any, backend="pallas", verbose: bool = False,
             out = patch_quantlinear_to_pallas(node, meta_dtype)
         elif b == "w4a8":
             out = _patch_w4a8_any_axis(node, meta_dtype)
+        elif b == "int8":
+            out = patch_quantlinear_to_int8(node)
         stats["converted" if out is not node else "kept"] += 1
         return out
 
@@ -91,3 +105,71 @@ def prepare_for_inference(params: Any, backend="pallas", verbose: bool = False,
     if verbose:
         print(f"prepare_for_inference[{backend}]: {stats}")
     return out
+
+
+def _concat_linears(layers):
+    """The layers joined along their outputs, or None where the group mixes
+    kinds or holds one that does not join (axis=0 kernel layouts, the LoRA
+    kernel modules, `PallasQuantLinear`, `QuantLinear`, a padded
+    `Int8QuantLinear`), as in `hqq_tpu`."""
+    if all(isinstance(layer, A8QuantLinear) for layer in layers):
+        return concat_a8_linears(layers)
+    if all(isinstance(layer, Int8QuantLinear) for layer in layers):
+        if any(layer.w8.shape != (layer.out_features, layer.in_features) for layer in layers):
+            return None
+        return Int8QuantLinear(
+            torch.cat([layer.w8.data for layer in layers]),
+            torch.cat([layer.sw.data for layer in layers]), concat_biases(layers),
+            layers[0].compute_dtype)
+    if all(type(layer) is Linear for layer in layers):
+        return Linear(torch.cat([layer.weight.data for layer in layers]), concat_biases(layers))
+    return None
+
+
+def fuse_for_decode(params, pad_to: int = 8):
+    """Join each layer's q/k/v into ``qkv_proj`` and gate/up into
+    ``gate_up_proj`` (`_concat_linears`; groups that do not join stay as
+    they are); then pad every `Int8QuantLinear` to multiples of ``pad_to``
+    (0: none). Run after `prepare_for_inference`. Returns a new tree over
+    the same leaves and the fused layers.
+
+    ``pad_to``: `hqq_tpu` pads int8 weights to 512, a TPU tiling rule; the
+    H100 has no such rule, and `torch._int_mm` needs multiples of 8, which
+    Llama's widths (4096, 11008, 12288, 22016) already are: the default
+    adds no byte at those widths. 512 gives `hqq_tpu`'s shapes; the
+    outputs are the same either way (zero rows and columns). Only a value
+    other than 8 changes a tree that `prepare_for_inference` built:
+    `patch_quantlinear_to_int8` already pads to 8, and `_concat_linears`
+    joins only unpadded layers, so every fused width is a multiple of 8
+    too. The fused w4a8 width is not padded (see `concat_a8_linears`)."""
+
+    def fuse_layer(layer: dict) -> dict:
+        out = dict(layer)
+        sa = layer.get("self_attn")
+        if isinstance(sa, dict) and all(k in sa for k in ("q_proj", "k_proj", "v_proj")):
+            fused = _concat_linears([sa["q_proj"], sa["k_proj"], sa["v_proj"]])
+            if fused is not None:
+                sa = {k: v for k, v in sa.items() if k not in ("q_proj", "k_proj", "v_proj")}
+                sa["qkv_proj"] = fused
+            out["self_attn"] = sa
+        mlp = layer.get("mlp")
+        if isinstance(mlp, dict) and all(k in mlp for k in ("gate_proj", "up_proj")):
+            fused = _concat_linears([mlp["gate_proj"], mlp["up_proj"]])
+            if fused is not None:
+                mlp = {k: v for k, v in mlp.items() if k not in ("gate_proj", "up_proj")}
+                mlp["gate_up_proj"] = fused
+            out["mlp"] = mlp
+        return out
+
+    out = dict(params)
+    if "layers" in out:
+        out["layers"] = [fuse_layer(layer) for layer in out["layers"]]
+
+    def pad(node):
+        if isinstance(node, dict):
+            return {k: pad(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [pad(v) for v in node]
+        return pad_for_mxu(node, pad_to) if isinstance(node, Int8QuantLinear) else node
+
+    return pad(out) if pad_to else out
