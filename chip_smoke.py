@@ -1,5 +1,5 @@
 # SPDX-License-Identifier: Apache-2.0
-"""Chip smoke test of hqq_tpu_torch: HQQ Llama-2-7B on one GPU, eight ways.
+"""Chip smoke test of hqq_tpu_torch: HQQ Llama-2-7B on one GPU, ten ways.
 
     python3 chip_smoke.py            # on cuda:0, every phase
     python3 chip_smoke.py --time quant_matmul 512 4096 4096      # one kernel
@@ -13,6 +13,8 @@
     python3 chip_smoke.py --time flash_attention_backward_dkv 1 1024 32 32   # or _dq, _fp32
     python3 chip_smoke.py --time flash_attention_backward_dq 1 1024 32 32-128-fp32  # KV-HD-TYPE
     python3 chip_smoke.py --ids          # phase g's greedy ids, to compare two checkouts
+    python3 chip_smoke.py --windows      # verify-window rows against decode steps' logits
+    python3 chip_smoke.py --norm         # rms_norm's fp64 sum against an fp32 sum, device ms
 
 Phases (any failure exits non-zero):
   (a) device and build: the card, its power limit, an nvcc build of every
@@ -100,6 +102,34 @@ Phases (any failure exits non-zero):
       one); on the 2-layer model, cache=None logits against the dense-cache
       forward, and the perplexity through the kernel against the one through
       its plain version;
+  (v) speculative decoding, on the same model: SpeculativeGenerator (k = 4,
+      a 100-token prompt, 64 greedy new tokens) with the target itself
+      ("perfect") and its first 2 layers ("layer-skip") as drafts, each
+      round one replayed CUDA graph: ids against Generator's (a graph too)
+      by the near-tie rule (teacher forcing: the plain decode's route run
+      on the speculative ids, each of which must be its greedy choice on
+      that prefix or lie within NEAR_TIE_BAR of its top logit; a control,
+      the ids shifted by one, must fail it), the perfect draft's accepted
+      share >= 0.9, the launches recorded into a round's graph equal to an
+      eager round's, tok/s beside Generator's, the busy share of 4
+      replayed rounds; one sampled request; then SpeculativeBatchingEngine
+      (8 slots, max_len 1024) and SpeculativePagedEngine (phase g's pool)
+      with the layer-skip draft on 8 of phase g's requests (one cut so
+      that its last windows do not fit its pages: the plain-step fallback
+      runs), ids against the plain engines, teacher-forced on them, by the
+      near-tie rule, every verify step's w4a8 calls at M = 32 and its
+      paged_attention launches (4 x 32) counted, tok/s; the launches of
+      the speculative runs alone make the phase's window;
+  (m) multi-LoRA serving, on the same model: three rank-8 adapters (B from
+      seeds 1-3) on every linear but lm_head stacked over the w4a8 base; a
+      PagedBatchingEngine answers 6 requests on adapters 0, 1, 2, 0, 1, 2,
+      each request's ids bit-equal to a run in which every other slot
+      carries another adapter, and the same through an InferenceServer (id
+      3 answered 400); tok/s against the bare base's, torch.bmm calls
+      (counted by the script: the library product has no launch count) and
+      their device time; on a 2-layer model at 7B width each row of a mixed
+      batch against that row alone through its adapter's LoRALinear, with
+      the control every row on adapter 0;
   (i) HQQ+ LoRA training: the 7B model, 4-bit g64 (the canonical layers,
       "xla"), LoRA r = 8 on the 224 linears, 4 AdamW steps on 1 x 1025 ids
       through causal_lm_loss and make_lora_train_step, then merge_lora. Every
@@ -156,7 +186,7 @@ Phases (any failure exits non-zero):
       Phase b also times the fused widths, w4a8_matmul at (8, 4096, 12288)
       and (8, 4096, 22016) and quant_matmul at M = 512, beside the summed
       time of their unfused parts.
-Phases g and h run right after c, on its model, then q and s, then d.
+Phases g, h, v and m run right after c, on its model, then q and s, then d.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -3112,6 +3142,638 @@ def phase_h(dev_tag: str, model) -> dict:
     return launches
 
 
+# the speculative phase: k, the generator's new tokens, the draft's layers,
+# the engines' new tokens; the near-tie rule's bar in logits
+V_K, V_NEW, V_DRAFT_LAYERS, V_ENGINE_NEW = 4, 64, 2, 16
+# A verify window's logits and a decode step's over the same ids come from
+# two routes: the engines' windows run the w4a8 kernel at M = 32 (a token
+# tile of 32) where their steps run M = 8, whose K slices fold the fp32
+# sums in another order. That moves a last bit (one bf16 step) of some bf16
+# outputs, which the next layer's int8 activations (steps of 1/127 of a
+# row's largest value) turn into flipped roundings, 32 layers over. How far
+# that grows is measured, not derived: `--windows` on this model read a
+# largest |logit gap| of 0.2344 between the two routes over 128 rows (M = 5
+# against M = 1, the generator's: 0, bit-equal; H100 80GB HBM3, 700 W).
+# Where the window picks token a and the step's argmax is b, the step's
+# logit of a lies under its top by at most a's gap and b's gap together, so
+# the bar is twice that reading, rounded up: 0.5, 16 bf16 steps of a top
+# logit in [4, 8) and 32 in [2, 4), where this model's top logits lie.
+NEAR_TIE_BAR = 0.5
+# the multi-LoRA phase: adapters of the stack (their seeds), requests' adapters, new tokens
+M_SEEDS, M_ADAPTERS, M_NEW, M_PAGES = (1, 2, 3), (0, 1, 2, 0, 1, 2), 8, 256
+
+
+def _near_tie(tag: str, got, choices, logits) -> dict:
+    """The near-tie rule, by teacher forcing: ``choices`` [n] and ``logits``
+    [n, V] are the plain decode's own greedy choice and logits at each new
+    token after the prompt and ``got``'s tokens before it. Every token of
+    ``got`` must be that choice, or lie within NEAR_TIE_BAR of the row's top
+    logit: the first parting and every token after it are checked, each on
+    its own prefix. Returns the first parting's position (None where there
+    is none), the number of tokens parted and the largest distance under the
+    top of a parted token; raises past the bar."""
+    got = [int(t) for t in got]
+    choices = [int(t) for t in choices]
+    if len(got) != len(choices):
+        raise AssertionError(f"[{tag}] {len(got)} ids against {len(choices)} forced steps")
+    parted = [i for i, (a, b) in enumerate(zip(got, choices)) if a != b]
+    found = dict(position=parted[0] if parted else None, parted=len(parted), worst=0.0)
+    if not parted:
+        return found
+    top = torch.topk(logits, 2)
+    picked = logits.gather(1, torch.tensor(got, device=logits.device)[:, None])[:, 0]
+    below = (top.values[:, 0] - picked).tolist()
+    j = parted[0]
+    found["worst"] = max(below[i] for i in parted)
+    log(f"[{tag}] parts from the plain decode at new token {j}: {got[j]} for {choices[j]}; the "
+        f"target's top two there {top.indices[j].tolist()}, gap "
+        f"{(top.values[j, 0] - top.values[j, 1]).item():.4f}; the chosen token "
+        f"{below[j]:.4f} under the top; {len(parted)} of its {len(got)} tokens part, each on its "
+        f"own prefix, the furthest {found['worst']:.4f} under its top (bar {NEAR_TIE_BAR})")
+    if found["worst"] > NEAR_TIE_BAR:
+        raise AssertionError(f"[{tag}] a token lies {found['worst']:.4f} under the target's top "
+                             f"logit on its own prefix, past the near-tie bar {NEAR_TIE_BAR}")
+    return found
+
+
+def _shifted_control(tag: str, outs, forced) -> None:
+    """The near-tie rule's control: each request's ids shifted by one
+    position (what a window one row off would emit), against the same
+    forced logits, must fail the rule: some token past the bar in every
+    request."""
+    within = total = caught = 0
+    for got, (_, logits) in zip(outs, forced):
+        top = logits.max(-1).values[:-1]
+        nxt = torch.tensor([int(t) for t in got[1:]], device=logits.device)
+        below = top - logits[:-1].gather(1, nxt[:, None])[:, 0]
+        within += int((below <= NEAR_TIE_BAR).sum())
+        total += below.numel()
+        caught += bool((below > NEAR_TIE_BAR).any())
+    log(f"[{tag}] control, the ids shifted by one position: the rule rejects {caught} of "
+        f"{len(outs)} requests (must be all; {within} of {total} tokens within the bar, the "
+        f"random model's top logits lie close together)")
+    if caught != len(outs):
+        raise AssertionError(f"[{tag}] the near-tie rule passes ids shifted by one")
+
+
+def _forced_generator(params, cfg, prompt, got):
+    """`Generator`'s route (a prefill into a dense cache of its length,
+    then one-token steps at a 0-d device position) teacher-forced on
+    ``got``: (the greedy choices [n], the logits [n, V] in fp32)."""
+    from hqq_tpu_torch.models.llama import forward, init_cache
+    from hqq_tpu_torch.serving.generate import next_power_of_2
+
+    dev = params["embed_tokens"].device
+    t, n = len(prompt), len(got)
+    cache = init_cache(cfg, 1, next_power_of_2(t + n + 1), torch.bfloat16, dev)
+    toks = torch.zeros((1, next_power_of_2(max(t, 2))), dtype=torch.long, device=dev)
+    toks[0, :t] = torch.as_tensor(prompt, device=dev)
+    with torch.inference_mode():
+        rows = [forward(params, cfg, toks, cache, 0)[0][0, t - 1]]
+        for i in range(n - 1):
+            step = torch.tensor([[int(got[i])]], device=dev)
+            rows.append(forward(params, cfg, step, cache,
+                                torch.tensor(t + i, device=dev))[0][0, -1])
+    logits = torch.stack(rows).float()
+    return logits.argmax(-1).tolist(), logits
+
+
+def _eager_round_launches(spec, cache_len: int) -> dict:
+    """The launches of one round run eagerly on fresh buffers of
+    ``cache_len`` (the graph's plain twin)."""
+    st = spec._new_state(cache_len)
+    before = launch_counts()
+    with torch.inference_mode():
+        spec._round(st)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    del st
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def _w4a8_rows():
+    """A stand-in for the operand step of the w4a8 wrappers that records
+    each launch's M (rows), and the list it records into. The wrapper
+    itself stays in place and counts its own launches."""
+    from hqq_tpu_torch.ops import fused_matmul as fm
+
+    operands, rows = fm._w4a8_operands, []
+
+    def fn(x8, *args):
+        rows.append(x8.shape[0])
+        return operands(x8, *args)
+
+    return fn, rows
+
+
+def _teacher_forcing(eng, module, forced_outs):
+    """Patches that make the plain engine ``eng`` (of ``module``) emit
+    ``forced_outs`` [request][token] in place of its own greedy choices,
+    each request in the order it was added, and record at every token the
+    engine's own choice and its logits row. Returns (the patches, the
+    records by request: [(choice, logits)])."""
+    from unittest import mock
+
+    first, batch = module.sample_token, module.sample_token_batch
+    admit, decode = eng._admit, eng._decode
+    index, records, state = {}, [[] for _ in forced_outs], dict(req=None, j=0)
+
+    def forced_admit(slot, req):
+        state["req"] = index.setdefault(req.uid, len(index))
+        return admit(slot, req)
+
+    def forced_first(logits, *args, **kw):
+        tok = first(logits, *args, **kw)
+        i = state["req"]
+        records[i].append((tok[0], logits[0]))
+        return torch.full_like(tok, int(forced_outs[i][0]))
+
+    def forced_decode(steps):
+        state["j"] = 0
+        return decode(steps)
+
+    def forced_batch(logits, *args, **kw):
+        tok = batch(logits, *args, **kw)
+        slots, toks = [], []
+        for slot, req in eng.active.items():
+            i = index[req.uid]
+            n = len(req.output) + state["j"]
+            if n < len(forced_outs[i]):
+                records[i].append((tok[slot], logits[slot]))
+                slots.append(slot)
+                toks.append(int(forced_outs[i][n]))
+        state["j"] += 1
+        out = tok.clone()
+        out[slots] = torch.tensor(toks, dtype=out.dtype).to(out.device)
+        return out
+
+    patches = [mock.patch.object(eng, "_admit", forced_admit),
+               mock.patch.object(eng, "_decode", forced_decode),
+               mock.patch.object(module, "sample_token", forced_first),
+               mock.patch.object(module, "sample_token_batch", forced_batch)]
+    return patches, records
+
+
+def _v_engine(kind: str, spec: bool, params, draft, cfg, dcfg, prompts, new: int,
+              forced_outs=None):
+    """Serve ``prompts`` through one of the four engines of phase v (dense
+    or paged, speculative or plain) on phase c's tree. A plain engine given
+    ``forced_outs`` is teacher-forced on them (`_teacher_forcing`). Returns
+    (outputs in request order, wall seconds, decode steps or verify steps,
+    the engine's fallback steps, the w4a8 rows per call of one verify step,
+    the device's busy share of 4 steps with every slot live, the forced
+    records: per request (choices, fp32 logits [n, V]))."""
+    import contextlib
+    from unittest import mock
+
+    from hqq_tpu_torch.ops import fused_matmul as fm
+    from hqq_tpu_torch.serving import batching, paged
+    from hqq_tpu_torch.serving.speculative import (SpeculativeBatchingEngine,
+                                                   SpeculativePagedEngine)
+
+    if kind == "dense":
+        kw = dict(batch_slots=G_SLOTS, max_len=1024)
+        eng = (SpeculativeBatchingEngine(params, draft, cfg, draft_cfg=dcfg, k_draft=V_K, **kw)
+               if spec else batching.ContinuousBatchingEngine(params, cfg, **kw))
+    else:
+        kw = dict(batch_slots=G_SLOTS, num_pages=G_PAGES, page_size=PAGE,
+                  max_pages_per_seq=MAX_PAGES)
+        eng = (SpeculativePagedEngine(params, draft, cfg, draft_cfg=dcfg, k_draft=V_K, **kw)
+               if spec else paged.PagedBatchingEngine(params, cfg, **kw))
+    patches, records = ([], None) if forced_outs is None else _teacher_forcing(
+        eng, batching if kind == "dense" else paged, forced_outs)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        uids = [eng.add_request(p, max_new_tokens=new) for p in prompts]
+        steps, rows, busy = 0, [], None
+        inner = eng._eng if spec else eng
+        while inner.queue or inner.active or getattr(inner, "_prefilling", None):
+            if steps == 2 and spec:  # a verify step with every slot live: its rows per w4a8 call
+                fn, rows = _w4a8_rows()
+                with mock.patch.object(fm, "_w4a8_operands", fn):
+                    eng.step()
+            elif steps == 3:
+                busy = device_share(lambda: [eng.step() for _ in range(4)])
+                steps += 3
+            else:
+                eng.step()
+            steps += 1
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    out = eng.finished
+    outs = [out[u].output for u in uids]
+    fallback = getattr(eng, "fallback_steps", 0)
+    eng.close()
+    del eng
+    forced = None
+    if records is not None:
+        forced = [(torch.stack([c for c, _ in r]).tolist(),
+                   torch.stack([row for _, row in r]).float()) for r in records]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return outs, wall, steps, fallback, rows, busy, forced
+
+
+def _window_rows_bit_equal(params, cfg, seq, t0: int, windows: int) -> float:
+    """The share of verify-window rows whose logits are bit-equal to those
+    of one-token decode steps over the same ids ``seq`` [T] after a prefill
+    of ``t0``: windows of V_K + 1 rows (M = 5, the w4a8 kernel's token tile
+    of 8 as at M = 1) against single steps, both over the dense cache."""
+    from hqq_tpu_torch.models.llama import forward, init_cache
+    from hqq_tpu_torch.serving.generate import next_power_of_2
+
+    w = V_K + 1
+    n = windows * w
+    out = []
+    for rows in (1, w):
+        cache = init_cache(cfg, 1, next_power_of_2(t0 + n), torch.bfloat16, "cuda")
+        with torch.inference_mode():
+            forward(params, cfg, seq[None, :t0], cache, 0)
+            logits = [forward(params, cfg, seq[None, i:i + rows], cache,
+                              torch.tensor(i, device="cuda"))[0][0]
+                      for i in range(t0, t0 + n, rows)]
+        out.append(torch.cat(logits))
+    return (out[0] == out[1]).all(-1).float().mean().item()
+
+
+def _add_counts(window: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        window[k] = window.get(k, 0) + v
+
+
+def phase_v(dev_tag: str, model) -> dict:
+    """Speculative decoding on phase c's model. Returns the launches of its
+    main path: the speculative runs alone, each counted from 0 just before
+    it and read just after (the plain references and the checks left out)."""
+    import dataclasses
+
+    import numpy as np
+
+    from hqq_tpu_torch import ops
+    from hqq_tpu_torch.serving.generate import _to_numpy
+    from hqq_tpu_torch.serving.speculative import SpeculativeGenerator
+
+    cfg, params = model.cfg, model.params
+    layers = cfg.num_hidden_layers
+    dcfg = dataclasses.replace(cfg, num_hidden_layers=V_DRAFT_LAYERS)
+    drafts = {"perfect": (params, cfg),
+              "layer-skip": (dict(params, layers=params["layers"][:V_DRAFT_LAYERS]), dcfg)}
+    prompt = _prompts(cfg)[0]
+    t0_all = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    window = {}
+
+    ref = model.generate(prompt[None], max_new_tokens=V_NEW)  # the plain decode as a graph
+    # RMSNorm sums in fp64 (`models.llama.rms_norm`), and the w4a8 kernel
+    # takes M = 1 and M = 5 through one plan: a window row is a decode step
+    seq = torch.cat([torch.as_tensor(prompt), torch.as_tensor(ref[0])]).long().cuda()
+    same = _window_rows_bit_equal(params, cfg, seq, prompt.shape[0], 6)
+    log(f"[v] {6 * (V_K + 1)} rows of 6 verify windows (M = {V_K + 1}) against one-token "
+        f"decode steps over the same ids: logits bit-equal in a share {same:.3f}; "
+        f"{time.time() - t0_all:.1f} s into phase v")
+    if same != 1.0:
+        raise AssertionError("[v] a verify window's logits differ from decode steps'")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    model.generate(prompt[None], max_new_tokens=V_NEW)
+    torch.cuda.synchronize()
+    plain_tok_s = V_NEW / (time.time() - t0)
+    model.release_graphs()
+    results = {}
+    for name, (dparams, dc) in drafts.items():
+        spec = SpeculativeGenerator(params, dparams, cfg, k=V_K, draft_cfg=dc)
+        ops.reset_launch_counts()
+        ids = spec.generate(prompt, max_new_tokens=V_NEW)  # captures the round
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ids2 = spec.generate(prompt, max_new_tokens=V_NEW)
+        torch.cuda.synchronize()
+        tok_s = V_NEW / (time.time() - t0)
+        _add_counts(window, launch_counts())
+        if not np.array_equal(ids, ids2):
+            raise AssertionError(f"[v] {name}: two greedy generates differ")
+        share = spec.accepted / (spec.rounds * V_K)
+        (cache_len, cap), = spec.captures().items()
+        eager = _eager_round_launches(spec, cache_len)
+        st = spec._graphs[cache_len]
+        busy = device_share(lambda: [(st.graph.replay(), _to_numpy(st.packed))
+                                     for _ in range(4)])
+        parting = None
+        if not np.array_equal(ids[0], ref[0]):  # teacher-forced through Generator's route
+            choices, logits = _forced_generator(params, cfg, prompt, ids[0])
+            parting = _near_tie(f"v {name}", ids[0], choices, logits)
+            del logits
+        results[name] = dict(share=share, tok_s=tok_s, rounds=spec.rounds, parting=parting)
+        log(f"[v] {dev_tag} {name} draft (k={V_K}): {V_NEW} greedy ids "
+            f"{'equal to' if parting is None else 'by the near-tie rule against'} the plain "
+            f"decode's; {spec.rounds} rounds, accepted share {share:.3f} of the proposals; "
+            f"{tok_s:.1f} tok/s against the plain graph's {plain_tok_s:.1f} (whole generates, "
+            f"prefill included); a round's graph records {cap['launches']} launches, an eager "
+            f"round makes {eager} (capture {cap['seconds']:.2f} s); 4 replayed rounds: device "
+            f"busy {busy['busy_share']:.3f} of {busy['wall_ms']:.1f} ms wall, device ms by "
+            f"kernel {busy['top']}; {time.time() - t0_all:.1f} s into phase v")
+        if cap["launches"] != eager:
+            raise AssertionError(f"[v] {name}: the round's graph recorded {cap['launches']} "
+                                 f"launches, an eager round makes {eager}")
+        spec.release_graphs()
+        del spec, st
+    if results["perfect"]["share"] < 0.9:
+        raise AssertionError(f"[v] the perfect draft accepted {results['perfect']['share']:.3f} "
+                             f"of its proposals, under 0.9")
+    sampled = SpeculativeGenerator(params, drafts["layer-skip"][0], cfg, k=V_K, draft_cfg=dcfg,
+                                   do_sample=True, temperature=1.0, seed=1)
+    ops.reset_launch_counts()
+    s_ids = sampled.generate(prompt, max_new_tokens=16)
+    _add_counts(window, launch_counts())
+    if s_ids.shape != (1, 16) or s_ids.min() < 0 or s_ids.max() >= cfg.vocab_size:
+        raise AssertionError(f"[v] unexpected sampled ids {s_ids}")
+    log(f"[v] sampled (temperature 1.0, seed 1, layer-skip draft): {s_ids[0].tolist()}, "
+        f"accepted share {sampled.accepted / (sampled.rounds * V_K):.3f}")
+    del sampled
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"[v] the generator's checks: {time.time() - t0_all:.1f} s")
+    # the engines on 8 of phase g's requests, those of at most 512 tokens
+    # (a dense slot of 1024 rows takes a 512-token bucket), 16 new tokens;
+    # the 87-token prompt cut to 80, so that its new tokens end on the last
+    # row of its 6th page and its last windows do not fit: the fallback
+    g = [p for p in _g_prompts(cfg, np.random.default_rng(0)) if len(p) <= 512][:8]
+    g = [p[:80] if len(p) == 87 else p for p in g]
+    draft, _ = drafts["layer-skip"]
+    new = V_ENGINE_NEW
+    for kind in ("dense", "paged"):
+        ops.reset_launch_counts()
+        outs, wall, steps, fallback, rows, busy, _ = _v_engine(kind, True, params, draft, cfg,
+                                                               dcfg, g, new)
+        spec_counts = launch_counts()
+        _add_counts(window, spec_counts)
+        # the plain engine on the same tree, teacher-forced on the speculative ids
+        _, p_wall, p_steps, _, _, p_busy, forced = _v_engine(kind, False, params, None, cfg,
+                                                             None, g, new, forced_outs=outs)
+        partings = [_near_tie(f"v {kind} engine, request {i}", a, *f)
+                    for i, (a, f) in enumerate(zip(outs, forced))]
+        _shifted_control(f"v {kind} engine", outs, forced)
+        del forced
+        verify_rows = sorted(set(rows[-7 * layers:]))  # the target's calls, after the draft's
+        log(f"[v] {dev_tag} {kind} speculative engine (layer-skip draft, k_draft={V_K}, 8 slots): "
+            f"8 requests (prompts {[len(p) for p in g]}, {new} new) in {steps} steps, "
+            f"{wall:.2f} s, {8 * new / wall:.1f} tok/s; the plain engine (teacher-forced on the "
+            f"speculative ids) {p_steps} steps, {p_wall:.2f} s, {8 * new / p_wall:.1f} tok/s; busy "
+            f"share of 4 steps {busy['busy_share']:.3f} of {busy['wall_ms']:.1f} ms (plain "
+            f"{p_busy['busy_share']:.3f} of {p_busy['wall_ms']:.1f} ms); ids equal to the plain "
+            f"engine's in {sum(p['position'] is None for p in partings)} of 8, the others by the "
+            f"near-tie rule ({sum(p['parted'] for p in partings)} of {8 * new} tokens part, each "
+            f"on its own prefix, the furthest {max(p['worst'] for p in partings):.4f} under its "
+            f"top); launches {spec_counts}; a verify step's w4a8 calls: the draft's at rows "
+            f"{sorted(set(rows[:-7 * layers]))}, the target's at {verify_rows}; fallback steps "
+            f"{fallback}; {time.time() - t0_all:.1f} s into phase v")
+        if verify_rows != [G_SLOTS * V_K] or len(rows) != 7 * layers + (V_K - 1) * 7 * V_DRAFT_LAYERS:
+            raise AssertionError(f"[v] {kind}: a verify step made {len(rows)} w4a8 calls, the "
+                                 f"target's at rows {verify_rows}, expected {G_SLOTS * V_K}")
+        # every step a verify step (the draft's k - 1 steps and the target's
+        # window) or, in the paged engine, a plain step for want of room
+        per_verify = 7 * layers + (V_K - 1) * 7 * V_DRAFT_LAYERS
+        want = {"w4a8_matmul": (steps - fallback) * per_verify + fallback * 7 * layers}
+        if kind == "paged":
+            want["paged_attention"] = (steps - fallback) * V_K * layers + fallback * layers
+            if fallback < 1:
+                raise AssertionError("[v] the paged engine never fell back to a plain step")
+        got = {k: spec_counts.get(k, 0) for k in want}
+        log(f"[v] {kind}: launches {got} in {steps - fallback} verify and {fallback} plain "
+            f"steps ({per_verify} w4a8 and {V_K * layers} paged_attention a verify step)")
+        if got != want:
+            raise AssertionError(f"[v] {kind}: launches {got}, expected {want}")
+    log(f"[v] launches in the main path (the speculative runs alone): {window}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase v {time.time() - t0_all:.1f} s")
+    return window
+
+
+def _lora_tree(params, seed: int):
+    """New dicts and lists over ``params``' leaves, every kernel-layout
+    linear but lm_head wrapped in a rank-8 LoRALinear, A from ``seed``, B
+    from ``seed`` (`_fill_lora_b`)."""
+    from hqq_tpu_torch.core.peft import LoRALinear
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def wrap(node, path):
+        if isinstance(node, dict):
+            return {k: wrap(v, f"{path}.{k}") for k, v in node.items()}
+        if isinstance(node, list):
+            return [wrap(v, f"{path}.{i}") for i, v in enumerate(node)]
+        if hasattr(node, "kqt") and "lm_head" not in path:
+            return LoRALinear.wrap(node, r=LORA_RANK, lora_alpha=LORA_ALPHA, generator=gen,
+                                   device="cuda")
+        return node
+
+    tree = wrap(params, "")
+    _fill_lora_b(tree, seed)
+    return tree
+
+
+def _m_run(tree, cfg, prompts, adapters, new: int, profile: bool = False):
+    """Serve ``prompts`` with their ``adapters`` through one paged engine.
+    Returns (outputs in request order, decode seconds, decode tokens, the
+    profile of a decode window when asked)."""
+    from hqq_tpu_torch.serving.paged import PagedBatchingEngine
+
+    eng = PagedBatchingEngine(tree, cfg, batch_slots=G_SLOTS, num_pages=M_PAGES, page_size=PAGE,
+                              max_pages_per_seq=MAX_PAGES)
+    decode, spent = eng._decode, []
+
+    def timed(steps):
+        live = len(eng.active)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = decode(steps)
+        spent.append((time.time() - t0, live * steps))
+        return out
+
+    eng._decode = timed
+    uids = [eng.add_request(p, max_new_tokens=new, adapter_id=a) for p, a in zip(prompts, adapters)]
+    prof = None
+    if profile:
+        eng.step()  # every request admitted
+        kept = len(spent)
+        prof = _profile_ops(lambda: [eng.step() for _ in range(4)])
+        del spent[kept:]  # the profiled steps' time is not the engine's
+    out = eng.run()
+    eng.close()
+    outs = [out[u] for u in uids]
+    if any(len(o) != new for o in outs):
+        raise AssertionError(f"[m] unexpected output lengths {[len(o) for o in outs]}")
+    return outs, sum(s for s, _ in spent), sum(n for _, n in spent), prof
+
+
+def _profile_ops(fn) -> dict:
+    """{op or kernel name: (calls, device ms)} of ``fn`` under
+    torch.profiler: the device time of a host op is that of the kernels it
+    launched."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.count, (getattr(e, "device_time_total", None)
+                             or getattr(e, "cuda_time_total", 0.0)) / 1e3)
+            for e in prof.key_averages()}
+
+
+def phase_m(dev_tag: str, model) -> dict:
+    """Multi-LoRA serving on phase c's model. Returns the launches of its
+    main path: the mixed batch and the server, each counted alone."""
+    import threading
+    from unittest import mock
+
+    import numpy as np
+
+    from hqq_tpu_torch import ops
+    from hqq_tpu_torch.nn.multilora import MultiLoRALinear, stack_adapters
+    from hqq_tpu_torch.serving.paged import PagedBatchingEngine
+    from hqq_tpu_torch.serving.server import InferenceServer
+
+    cfg, base = model.cfg, model.params
+    t0_all = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    before_mem = torch.cuda.memory_allocated()
+    multi = stack_adapters([_lora_tree(base, s) for s in M_SEEDS], base)
+    gc.collect()
+    stacks = sum(m.a_stack.numel() + m.b_stack.numel() for layer in multi["layers"]
+                 for block in (layer["self_attn"], layer["mlp"]) for m in block.values()
+                 if isinstance(m, MultiLoRALinear))
+    log(f"[m] {len(M_SEEDS)} rank-{LORA_RANK} adapters stacked over the w4a8 base: "
+        f"{stacks * 4 / 2**20:.1f} MiB of stacks, "
+        f"{(torch.cuda.memory_allocated() - before_mem) / 2**20:.1f} MiB allocated")
+    prompts = [p[:256] for p in _g_prompts(cfg, np.random.default_rng(1))[:len(M_ADAPTERS)]]
+
+    bmm, calls = torch.bmm, [0]
+
+    def counted_bmm(*args):  # the library product has no launch count of its own
+        calls[0] += 1
+        return bmm(*args)
+
+    # the main path: the mixed batch and the server, each counted from 0
+    # just before it and read just after (the neighbour checks left out)
+    window = {}
+    ops.reset_launch_counts()
+    with mock.patch.object(torch, "bmm", counted_bmm):
+        mixed, dec_s, dec_tok, prof = _m_run(multi, cfg, prompts, M_ADAPTERS, M_NEW, True)
+    _add_counts(window, launch_counts())
+    # each adapter's requests again, every other slot carrying another adapter
+    alone = [None] * len(prompts)
+    for a in sorted(set(M_ADAPTERS)):
+        others = [(a + 1 + i % 2) % len(M_SEEDS) for i in range(len(prompts))]
+        adapters = [a if b == a else o for b, o in zip(M_ADAPTERS, others)]
+        outs, _, _, _ = _m_run(multi, cfg, prompts, adapters, M_NEW)
+        for i, b in enumerate(M_ADAPTERS):
+            if b == a:
+                alone[i] = outs[i]
+    # the same requests over HTTP, all at once
+    srv = InferenceServer(PagedBatchingEngine(multi, cfg, batch_slots=G_SLOTS,
+                                              num_pages=M_PAGES, page_size=PAGE,
+                                              max_pages_per_seq=MAX_PAGES), port=0).start()
+    ops.reset_launch_counts()
+    try:
+        answers = [None] * len(prompts)
+
+        def ask(i):
+            answers[i] = _http(srv.port, "POST", "/generate", {
+                "prompt_ids": [int(t) for t in prompts[i]], "max_new_tokens": M_NEW,
+                "adapter_id": M_ADAPTERS[i]})
+
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(len(prompts))]
+        with mock.patch.object(torch, "bmm", counted_bmm):
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+        refused = _http(srv.port, "POST", "/generate",
+                        {"prompt_ids": [1, 2, 3], "adapter_id": len(M_SEEDS)})
+    finally:
+        srv.stop()
+        srv.engine.close()
+    _add_counts(window, launch_counts())
+    bmm_calls = calls[0]
+    launches = window
+    base_outs, base_s, base_tok, _ = _m_run(base, cfg, prompts, [0] * len(prompts), M_NEW)
+    same_alone = sum(a == b for a, b in zip(mixed, alone))
+    same_http = sum(a is not None and a[0] == 200 and a[1]["tokens"] == b
+                    for a, b in zip(answers, mixed))
+    differ = len({tuple(o) for o in mixed[:3]})
+    bmm_ms = prof.get("aten::bmm", (0, 0.0))
+    w4a8_ms = sum(ms for key, (_, ms) in prof.items() if re.search(r"w4a8_\w+_kernel", key))
+    log(f"[m] {dev_tag}: 6 requests (prompts {[len(p) for p in prompts]}, {M_NEW} new) on "
+        f"adapters {list(M_ADAPTERS)} through one paged engine: each request's ids equal to a "
+        f"run where every other slot carries another adapter in {same_alone} of 6 (exact); "
+        f"over HTTP equal in {same_http} of 6; adapter {len(M_SEEDS)} answered {refused[0]}; "
+        f"{differ} different outputs on the 3 adapters' first requests")
+    log(f"[m] {dev_tag}: decode {dec_tok / dec_s:.1f} tok/s against the bare base's "
+        f"{base_tok / base_s:.1f} (same requests, adapter 0 of nothing); torch.bmm called "
+        f"{bmm_calls} times in the window (the mixed batch and the server; 2 a MultiLoRALinear call); 4 decode steps of 6 "
+        f"slots under the profiler: aten::bmm {bmm_ms[0]} calls, {bmm_ms[1]:.3f} device ms, "
+        f"the w4a8 kernels {w4a8_ms:.3f} device ms; launches {launches}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if same_alone != len(prompts):
+        raise AssertionError("[m] a request's ids depend on its neighbours' adapters")
+    if same_http != len(prompts) or refused[0] != 400:
+        raise AssertionError(f"[m] the server's answers differ: {answers}, {refused}")
+    if differ != 3:
+        raise AssertionError("[m] the adapters give the same ids")
+    if bmm_calls == 0 or launches.get("w4a8_matmul", 0) == 0:
+        raise AssertionError("[m] the adapters' products or the base's kernel never ran")
+    del multi, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_m_two_layer()
+    log(f"[m] phase m {time.time() - t0_all:.1f} s")
+    return launches
+
+
+def phase_m_two_layer() -> None:
+    """On a 2-layer model at 7B width (4-bit g64, w4a8): each row of a
+    mixed batch (rows on adapters 0, 1, 2) against that row alone through
+    its own adapter's LoRALinear over the same base; the control puts every
+    row on adapter 0 and must miss the bar on rows 1 and 2."""
+    from hqq_tpu_torch import BaseQuantizeConfig
+    from hqq_tpu_torch.models.llama import forward
+    from hqq_tpu_torch.nn.multilora import adapter_context, stack_adapters
+    from hqq_tpu_torch.utils.patching import prepare_for_inference
+
+    cfg, params, toks = _two_layer(BaseQuantizeConfig(nbits=4, group_size=64), seed=40)
+    base = prepare_for_inference(params, "w4a8")
+    loras = [_lora_tree(base, s) for s in M_SEEDS]
+    multi = stack_adapters(loras, base)
+    x = toks[:3, :8]  # M = 24 rows: the w4a8 route
+    with torch.inference_mode():
+        with adapter_context(torch.arange(3, device="cuda")):
+            mixed = forward(multi, cfg, x)[0]
+        with adapter_context(torch.zeros(3, dtype=torch.long, device="cuda")):
+            control = forward(multi, cfg, x)[0]
+        alone = [forward(loras[i], cfg, x[i:i + 1])[0][0] for i in range(3)]
+    errs = [rel(mixed[i], alone[i]) for i in range(3)]
+    ctrl = [rel(control[i], alone[i]) for i in range(3)]
+    # the base rows through the same kernel at M = 24 and 8, the adapter's
+    # term by torch.bmm against torch.matmul in fp32 with the scaling folded
+    # into B: some bf16 roundings move, which the next layer's int8
+    # activations carry on (phase d's decode bar)
+    tol = 0.1
+    log(f"[m] 2-layer 7B-width w4a8 model, 3 rows of 8 tokens on adapters 0, 1, 2: each row "
+        f"against itself alone through its adapter's LoRALinear, rel err {errs} (tol {tol}); "
+        f"control, every row on adapter 0: {ctrl} (rows 1 and 2 must exceed it)")
+    if not (torch.isfinite(mixed).all() and max(errs) < tol):
+        raise AssertionError("[m] a row of the mixed batch disagrees with its adapter alone")
+    if not min(ctrl[1:]) > tol:
+        raise AssertionError("[m] the bar does not catch a row on another adapter")
+    del params, base, loras, multi
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_h_two_layer() -> None:
     """On a 2-layer model at 7B width: cache=None logits against the
     dense-cache forward of the same tokens, and the perplexity through the
@@ -3621,6 +4283,132 @@ def time_one(kernel: str, m: int, k: int, n: int, extra: "str | None" = None,
                 config=config, variant=variant, ms=ms)
 
 
+def _fp32_rms_norm(x, w, eps):
+    """`models.llama.rms_norm` with the mean square summed in fp32."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    return (x * w.to(torch.float32)).to(dt)
+
+
+def norm_cost(power: str) -> None:
+    """``--norm``: the device time of a call of `models.llama.rms_norm`
+    (the mean square summed in fp64) against the same norm summed in fp32,
+    bf16 rows of 4096 at the row counts of C's decode step (4), the
+    engines' verify (32) and a prefill or training window (1024), each the
+    mean of 100 calls under torch.profiler. A 7B forward makes 65 norms
+    (two a layer and the final one)."""
+    from hqq_tpu_torch.models import llama
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    w = torch.randn(4096, generator=gen, device="cuda").to(torch.bfloat16)
+    for rows in (4, 32, 1024):
+        x = torch.randn((rows, 4096), generator=gen, device="cuda").to(torch.bfloat16)
+        got = {}
+        for name, fn in (("fp64 sum", llama.rms_norm), ("fp32 sum", _fp32_rms_norm)):
+            fn(x, w, 1e-5)
+            prof = device_share(lambda: [fn(x, w, 1e-5) for _ in range(100)])
+            got[name] = (prof["device_ms"] / 100, prof["events"] / 100)
+        log(f"[norm] [{power}] rms_norm of {rows} rows of 4096 (bf16), device ms a call "
+            f"(kernels a call): " + "; ".join(f"{k} {ms:.5f} ({n:g})" for k, (ms, n) in got.items())
+            + f"; the fp64 sum's cost in 65 norms: "
+            f"{65 * (got['fp64 sum'][0] - got['fp32 sum'][0]):.4f} ms")
+
+
+def window_probe(power: str) -> None:
+    """``--windows``: do a speculative verify window's rows compute what
+    one-token decode steps compute? C's model (seed 0, 4-bit g64, w4a8),
+    a 100-token prompt and its own 60 greedy tokens: the logits of 12
+    windows of 5 rows (M = 5, a k = 4 round's verify) against 60 one-token
+    steps (M = 1) over the dense cache, the share of rows bit-equal and of
+    rows whose argmax agrees, the largest logit gap. Variants: the port as
+    it is (RMSNorm's mean square summed in fp64); that sum in fp32 (as
+    it was summed before); fp32 with attention and lm_head a window
+    row at a time; fp32 with RMSNorm a row at a time. Then the engines'
+    route: 8 slots, windows of 4 (M = 32) against steps (M = 8)."""
+    from hqq_tpu_torch import BaseQuantizeConfig
+    from hqq_tpu_torch.engine.hf import HQQModel
+    from hqq_tpu_torch.models import llama
+
+    attention, logits_of = llama._attention, llama._logits
+    fp32_norm = _fp32_rms_norm
+
+    def rows(fn, arg: int):
+        """``fn`` one row of dim 1 at a time where that dim holds 2-8 rows."""
+        def run(*args):
+            x = args[arg]
+            if x.ndim != 3 or not 1 < x.shape[1] <= 8:
+                return fn(*args)
+            return torch.cat([fn(*args[:arg], x[:, j:j + 1], *args[arg + 1:])
+                              for j in range(x.shape[1])], dim=1)
+        return run
+
+    def attention_rows(layer, cfg_, x, cache, i, start_pos, mask, cos, sin):
+        """`llama._attention` with scores, softmax and product a query row
+        at a time (the projections and the cache write as they are)."""
+        t = x.shape[1]
+        if not 1 < t <= 8:
+            return attention(layer, cfg_, x, cache, i, start_pos, mask, cos, sin)
+        b, nh, hd = x.shape[0], cfg_.num_attention_heads, cfg_.head_dim_
+        q, k, v = llama._qkv_rope(layer, cfg_, x, cos, sin)
+        llama._update_stacked_cache(cache.k, cache.v, i, k, v, start_pos)
+        keys, vals = cache.k[i], cache.v[i]
+        outs = []
+        for j in range(t):
+            scores = (q[:, :, j:j + 1].float() @ keys.float().transpose(-1, -2)) / hd**0.5
+            probs = torch.softmax(scores + mask[:, :, j:j + 1], dim=-1).to(q.dtype)
+            outs.append(probs @ vals)
+        return layer["o_proj"](torch.cat(outs, dim=2).transpose(1, 2).reshape(b, t, nh * hd))
+
+    def compare(params, cfg_, seqs, t0: int, n: int, w: int):
+        out = []
+        for width in (1, w):
+            cache = llama.init_cache(cfg_, seqs.shape[0], 256, torch.bfloat16, "cuda")
+            llama.forward(params, cfg_, seqs[:, :t0], cache, 0)
+            got = [llama.forward(params, cfg_, seqs[:, i:i + width], cache,
+                                 torch.full((seqs.shape[0],), i, device="cuda"))[0]
+                   for i in range(t0, t0 + n, width)]
+            out.append(torch.cat(got, dim=1))
+        step, win = out
+        return ((win == step).all(-1).float().mean().item(),
+                (win.argmax(-1) == step.argmax(-1)).float().mean().item(),
+                (win - step).abs().max().item())
+
+    cfg = llama.LlamaConfig.llama2_7b()
+    model = HQQModel(llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                       torch.bfloat16, "cuda"), cfg)
+    model.quantize_model(BaseQuantizeConfig(nbits=4, group_size=64))
+    model.prepare_for_inference("w4a8")
+    prompt = torch.from_numpy(_prompts(cfg)[:1])
+    ids = model.generate(prompt.numpy(), max_new_tokens=64, compile_mode="partial")
+    seq = torch.cat([prompt.long(), torch.from_numpy(ids).long()], dim=1).cuda()
+    variants = {
+        "as it is (fp64-summed RMSNorm)": {},
+        "fp32-summed RMSNorm": {"rms_norm": fp32_norm},
+        "fp32 RMSNorm, attention and lm_head a row at a time": {
+            "rms_norm": fp32_norm, "_attention": attention_rows, "_logits": rows(logits_of, 2)},
+        "fp32 RMSNorm a row at a time": {"rms_norm": rows(fp32_norm, 0)},
+    }
+    with torch.inference_mode():
+        for name, patches in variants.items():
+            saved = {k: getattr(llama, k) for k in patches}
+            for k, fn in patches.items():
+                setattr(llama, k, fn)
+            try:
+                same, agree, gap = compare(model.params, cfg, seq, 100, 60, 5)
+            finally:
+                for k, fn in saved.items():
+                    setattr(llama, k, fn)
+            log(f"[windows] [{power}] 12 windows of 5 rows vs one-token steps, {name}: rows "
+                f"bit-equal {same:.3f}, argmax agreeing {agree:.3f}, max |logit gap| {gap:.4f}")
+        seqs = torch.randint(0, cfg.vocab_size, (8, 116),
+                             generator=torch.Generator().manual_seed(1)).cuda()
+        same, agree, gap = compare(model.params, cfg, seqs, 100, 16, 4)
+        log(f"[windows] [{power}] engines: 8 slots, windows of 4 (M = 32) vs steps (M = 8), "
+            f"128 rows: bit-equal {same:.3f}, argmax agreeing {agree:.3f}, max |logit gap| "
+            f"{gap:.4f}")
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; this script runs on the GPU only")
@@ -3641,12 +4429,22 @@ def main(argv: list[str]) -> int:
     if argv and argv[0] == "--ids":
         log(json.dumps(dict(greedy_ids(), card=power)))
         return 0
+    if argv and argv[0] == "--windows":
+        window_probe(power)
+        return 0
+    if argv and argv[0] == "--norm":
+        norm_cost(power)
+        return 0
 
     t_start = time.time()
     phase_a(name, power)
     rows = phase_b()
     launches, model, c_ids = phase_c(dev_tag)
     windows = [launches, phase_g(dev_tag, model), phase_h(dev_tag, model)]
+    t_vm = time.time()
+    windows.append(phase_v(dev_tag, model))
+    windows.append(phase_m(dev_tag, model))
+    log(f"[v] phases v and m: {time.time() - t_vm:.1f} s")
     del model
     gc.collect()
     torch.cuda.empty_cache()

@@ -241,9 +241,16 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=torch.bfloat16,
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm in fp32. The mean square is summed in fp64 and rounded to
+    fp32: a GPU reduction sums in an order that depends on how many rows it
+    reduces, and an fp32 sum then differs in its last bits, which later
+    layers amplify; in fp64 the orders agree to far below fp32's rounding,
+    so a row's norm does not depend on the rows beside it (a speculative
+    verify window's rows give a one-token decode step's logits)."""
     dt = x.dtype
     x = x.to(torch.float32)
-    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    ms = torch.mean(x * x, dim=-1, keepdim=True, dtype=torch.float64).to(torch.float32)
+    x = x * torch.rsqrt(ms + eps)
     return (x * w.to(torch.float32)).to(dt)
 
 
@@ -370,16 +377,27 @@ def _update_stacked_cache(k_all: torch.Tensor, v_all: torch.Tensor, layer_idx: i
     is never rebuilt. ``start_pos`` an int or a 0-d tensor: `index_copy_`
     at start_pos + arange(t) for the whole batch. A [B] tensor: every slot
     at its own offset, one indexed write per pool for all (slot, token)
-    pairs, as `hqq_tpu`'s scatter; every row must lie inside the cache
-    (`hqq_tpu` drops a row past its end, torch raises)."""
+    pairs, as `hqq_tpu`'s scatter, which drops a row past the cache's end
+    (a speculative verify window near ``max_len``). Torch's indexed write
+    would raise there (on the card a device-side assert), so such rows are
+    sent to the slot's last row carrying the value that row ends with:
+    the window's own row there, or the cache's where the window starts
+    past it. Every write to that row then holds one value, in any order,
+    and nothing is read on the host."""
     t = k.shape[2]
     steps = torch.arange(t, device=k_all.device)
     if isinstance(start_pos, torch.Tensor) and start_pos.ndim == 1:
+        last = k_all.shape[3] - 1
+        start = start_pos.to(k_all.device)[:, None]  # [B, 1]
         slots = torch.arange(k.shape[0], device=k_all.device)[:, None]  # [B, 1]
-        rows = start_pos.to(k_all.device)[:, None] + steps[None, :]  # [B, t]
-        # the indexed dims go first: the value is [B, t, n_kv, hd]
-        k_all[layer_idx][slots, :, rows] = k.transpose(1, 2).to(k_all.dtype)
-        v_all[layer_idx][slots, :, rows] = v.transpose(1, 2).to(v_all.dtype)
+        rows = (start + steps[None, :]).clamp_max(last)  # [B, t]
+        src = rows - start  # the window row each write takes; < 0: none of them
+        idx = src.clamp_min(0)[:, :, None, None].expand(-1, -1, k.shape[1], k.shape[3])
+        for pool, new in ((k_all[layer_idx], k), (v_all[layer_idx], v)):
+            # the indexed dims go first: the value is [B, t, n_kv, hd]
+            val = torch.gather(new.transpose(1, 2).to(pool.dtype), 1, idx)
+            val = torch.where((src >= 0)[:, :, None, None], val, pool[slots, :, rows])
+            pool[slots, :, rows] = val
         return
     rows = steps + (
         start_pos.to(k_all.device) if isinstance(start_pos, torch.Tensor) else int(start_pos))

@@ -1,2 +1,3 @@
 # SPDX-License-Identifier: Apache-2.0
 from .linear import Linear, QuantLinear  # noqa: F401
+from .multilora import MultiLoRALinear, adapter_context, stack_adapters  # noqa: F401

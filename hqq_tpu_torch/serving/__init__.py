@@ -7,3 +7,8 @@ from .generate import (  # noqa: F401
 )
 from .batching import ContinuousBatchingEngine  # noqa: F401
 from .paged import PagedBatchingEngine  # noqa: F401
+from .speculative import (  # noqa: F401
+    SpeculativeBatchingEngine,
+    SpeculativeGenerator,
+    SpeculativePagedEngine,
+)

@@ -20,9 +20,17 @@ whole serving loop:
 Every decode step runs all ``batch_slots`` rows, live or not, so a
 request's tokens do not depend on its neighbours: the kernels see the same
 shapes every step, the activations are quantized per token and attention
-is per slot. Not yet served, and refused with an error: ``inputs_embeds``
-requests (vision-language serving), ``adapter_id != 0`` (multi-LoRA) and
-M-RoPE offsets (``mrope_offsets``, Qwen2-VL).
+is per slot.
+
+Multi-LoRA (`nn.multilora`): each request names an ``adapter_id`` of the
+tree's `MultiLoRALinear` stacks; its prefill runs under
+``adapter_context([adapter_id])`` and every decode step under the slots'
+ids, so one batch serves several adapters. An id outside the stacks is
+refused with a ValueError at `add_request`.
+
+Not yet served, and refused with an error: ``inputs_embeds`` requests
+(vision-language serving) and M-RoPE offsets (``mrope_offsets``,
+Qwen2-VL).
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import numpy as np
 import torch
 
 from ..models import llama
+from ..nn.multilora import adapter_context, adapter_count
 from ..utils.profiling import log_event
 from .generate import next_power_of_2, sample_token, sample_token_batch
 
@@ -69,14 +78,23 @@ def _effective_sampling(req: Request, do_sample, top_k, temperature, top_p):
     )
 
 
-def _refuse_unported(inputs_embeds, adapter_id) -> None:
+def _refuse_unported(inputs_embeds) -> None:
     """Refuse what the engines cannot serve yet: prompt embeddings
-    (vision-language serving) and adapters other than 0 (multi-LoRA)."""
+    (vision-language serving)."""
     if inputs_embeds is not None:
         raise NotImplementedError("inputs_embeds requests (vision-language serving) are not "
                                   "ported yet")
-    if int(adapter_id) != 0:
-        raise NotImplementedError("multi-LoRA serving (adapter_id != 0) is not ported yet")
+
+
+def _checked_adapter(adapter_id, params) -> int:
+    """The adapter id as an int, after a ValueError for an id outside the
+    tree's adapter stacks (`nn.multilora.adapter_count`; a tree without
+    stacks serves adapter 0 only): `hqq_tpu`'s gather fills such a row
+    with NaN, torch's would be a device-side assert on the card."""
+    n = adapter_count(params)
+    if not 0 <= int(adapter_id) < n:
+        raise ValueError(f"adapter_id {adapter_id} outside the tree's adapters [0, {n})")
+    return int(adapter_id)
 
 
 def _refuse_embeds_forward(embeds_forward_fn) -> None:
@@ -174,6 +192,7 @@ class ContinuousBatchingEngine:
         self._tokens = np.zeros((batch_slots,), np.int64)  # each slot's next input
         self._pos = np.zeros((batch_slots,), np.int64)  # each slot's write position
         self._live = np.zeros((batch_slots,), bool)
+        self._adapter = np.zeros((batch_slots,), np.int64)  # each slot's adapter id
         self.horizon = max(1, int(horizon))
 
     def close(self):
@@ -187,19 +206,20 @@ class ContinuousBatchingEngine:
         """``steps`` decode steps for all slots, the tokens read back once
         at the end: [steps, S]. Within the horizon every slot advances one
         position a step; the horizon's cap keeps the live slots inside the
-        cache, and a dead slot's position stops at its last row (it may
-        have ended there), so no write falls outside the cache."""
+        cache, and a dead slot's rows past its end are dropped
+        (`models.llama._update_stacked_cache`), as in `hqq_tpu`."""
         dev = self.device
         tok = torch.from_numpy(self._tokens).to(dev)
         pos = torch.from_numpy(self._pos).to(dev)
         samp = torch.from_numpy(self._samp).to(dev)
         out = []
-        for _ in range(steps):
-            logits, self.cache = self._fwd(self.params, tok[:, None], self.cache, pos)
-            tok = sample_token_batch(logits[:, -1], self._gen, samp[0] > 0.5,
-                                     samp[1].to(torch.int64), samp[2], samp[3])
-            pos = (pos + 1).clamp_max(self.max_len - 1)
-            out.append(tok)
+        with adapter_context(torch.from_numpy(self._adapter).to(dev)):
+            for _ in range(steps):
+                logits, self.cache = self._fwd(self.params, tok[:, None], self.cache, pos)
+                tok = sample_token_batch(logits[:, -1], self._gen, samp[0] > 0.5,
+                                         samp[1].to(torch.int64), samp[2], samp[3])
+                pos = pos + 1
+                out.append(tok)
         return torch.stack(out).cpu().numpy()
 
     def _splice(self, slot: int, mini: llama.KVCache) -> None:
@@ -228,15 +248,18 @@ class ContinuousBatchingEngine:
         """Queue a request; returns its uid. do_sample / top_k / top_p /
         temperature / stop_token_ids are per request (None = the engine's
         defaults); a stop token is kept in the output, as EOS is.
-        ``inputs_embeds``, ``adapter_id != 0`` and the M-RoPE arguments
-        (``position_ids``, ``pos_offset``) are not served yet. Ids outside
-        the vocabulary raise a ValueError here, before any step."""
-        _refuse_unported(inputs_embeds, adapter_id)
+        ``adapter_id`` picks the multi-LoRA adapter (0: none).
+        ``inputs_embeds`` and the M-RoPE arguments (``position_ids``,
+        ``pos_offset``) are not served yet. Ids outside the vocabulary and
+        an adapter id outside the tree's stacks raise a ValueError here,
+        before any step."""
+        _refuse_unported(inputs_embeds)
         if position_ids is not None or pos_offset:
             raise NotImplementedError("M-RoPE requests (position_ids, pos_offset) are not "
                                       "ported yet")
         sampled = self.do_sample if do_sample is None else bool(do_sample)
         prompt = _checked_request(prompt_ids, top_k if sampled else None, self.cfg.vocab_size)
+        adapter_id = _checked_adapter(adapter_id, self.params)
         t_pad = next_power_of_2(max(len(prompt), 2))
         if t_pad + max_new_tokens > self.max_len:
             raise ValueError(
@@ -245,7 +268,8 @@ class ContinuousBatchingEngine:
         self._uid += 1
         self.queue.append(
             Request(uid=self._uid, prompt=prompt, max_new_tokens=max_new_tokens,
-                    do_sample=do_sample, top_k=top_k, top_p=top_p, temperature=temperature,
+                    adapter_id=adapter_id, do_sample=do_sample, top_k=top_k, top_p=top_p,
+                    temperature=temperature,
                     stop_token_ids=list(stop_token_ids) if stop_token_ids else None))
         return self._uid
 
@@ -259,8 +283,11 @@ class ContinuousBatchingEngine:
         ds, tk, tmp, tp = _effective_sampling(
             req, self.do_sample, self.top_k, self.temperature, self.top_p)
         self._samp[:, slot] = (1.0 if ds else 0.0, tk, tmp, tp)
+        self._adapter[slot] = req.adapter_id
         mini = llama.init_cache(self.cfg, 1, t_pad, self._cache_dtype, self.device)
-        logits, mini = self._fwd(self.params, torch.from_numpy(prompt).to(self.device), mini, 0)
+        with adapter_context(torch.tensor([req.adapter_id], device=self.device)):
+            logits, mini = self._fwd(self.params, torch.from_numpy(prompt).to(self.device),
+                                     mini, 0)
         self._splice(slot, mini)
         first = int(sample_token(logits[:, t - 1], self._gen, ds, tk, tmp, tp)[0])
         log_event("request_admitted", uid=req.uid, slot=slot, prompt_len=t)

@@ -168,6 +168,69 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.to("cpu", copy=True).numpy()
 
 
+def capture_graph(device, step: Callable[[], None]):
+    """(graph, {"seconds": s, "launches": {wrapper: n}}) of ``step``, a call
+    on static buffers that reads nothing on the host: one eager call on the
+    side stream of the capture first (the kernels build and load at their
+    first launch, and nothing of that may happen under capture), then the
+    capture on that stream. It is PyTorch's one capture stream of the
+    process: each new stream would get a cuBLAS workspace of its own, kept
+    for the process's life. Every launch the step records counts once in
+    its wrapper's count, as in an eager call. A capture that fails raises."""
+    from ..ops import kernel_wrappers
+
+    t0 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.device(device):
+        capture = torch.cuda.graph(graph)
+    stream = capture.capture_stream
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        step()
+    torch.cuda.current_stream(device).wait_stream(stream)
+    before = {w.__name__: w.launches for w in kernel_wrappers()}
+    with capture:
+        step()
+    torch.cuda.synchronize(device)
+    return graph, {"seconds": time.perf_counter() - t0,
+                   "launches": {w.__name__: w.launches - before[w.__name__]
+                                for w in kernel_wrappers()
+                                if w.launches != before[w.__name__]}}
+
+
+class _GraphCache(OrderedDict):
+    """Kept buffers with their captured graphs, by key, oldest use first.
+    The graphs read the parameters at the addresses they were captured on,
+    so `state` drops every one when the trees are not those they were
+    captured on (`_fingerprint`)."""
+
+    def __init__(self):
+        super().__init__()
+        self.tree: list = []  # `_fingerprint` of the trees the graphs read
+
+    def state(self, key, trees, new_state: Callable, capture: Callable, max_graphs: int = 4):
+        """The kept buffers of ``key``, or ``new_state()`` with its graph
+        captured by ``capture(state)`` on first use (before the caller sets
+        the buffers: the warm-up moves them); the least recently used is
+        dropped when more than ``max_graphs`` would be kept."""
+        tree = _fingerprint(trees)
+        if tree != self.tree:
+            self.clear()
+            self.tree = tree
+        st = self.pop(key, None)
+        if st is None:
+            while len(self) >= max_graphs:
+                self.popitem(last=False)
+            st = new_state()
+            capture(st)
+        self[key] = st
+        return st
+
+    def captures(self) -> dict:
+        """{key: {"seconds": s, "launches": {wrapper: n}}} of each kept graph."""
+        return {key: st.capture for key, st in self.items()}
+
+
 class _DecodeState:
     """The static buffers of one (B, cache_len): the cache and the step's
     inputs and outputs, which a captured graph reads and writes in place,
@@ -235,13 +298,12 @@ class Generator:
         self._forward = forward_fn or (
             lambda p, toks, cache, pos: llama.forward(p, cfg, toks, cache, pos)
         )
-        self._graphs: "OrderedDict[tuple, _DecodeState]" = OrderedDict()  # oldest use first
-        self._graphed_tree: list = []  # `_fingerprint` of the params the graphs read
+        self._graphs = _GraphCache()  # {(B, cache_len): _DecodeState}
 
     def captures(self) -> dict:
         """{(B, cache_len): {"seconds": s, "launches": {wrapper: n}}} of each
         kept decode graph: the kernel launches recorded into one step."""
-        return {key: st.capture for key, st in self._graphs.items()}
+        return self._graphs.captures()
 
     def release_graphs(self) -> None:
         """Drop the kept graphs with their caches and buffers."""
@@ -258,24 +320,11 @@ class Generator:
                 and self.device.type == "cuda")
 
     def _graph_state(self, b: int, cache_len: int) -> _DecodeState:
-        """The kept buffers of (b, cache_len) with their graph, captured on
-        first use (before the caller sets the buffers: the warm-up moves
-        them). Every kept graph is dropped first if the parameter tree is
-        not the one they were captured on, and the least recently used
-        when more than `max_graphs` would be kept."""
-        tree = _fingerprint(self.params)
-        if tree != self._graphed_tree:
-            self._graphs.clear()
-            self._graphed_tree = tree
-        key = (b, cache_len)
-        st = self._graphs.pop(key, None)
-        if st is None:
-            while len(self._graphs) >= self.max_graphs:
-                self._graphs.popitem(last=False)
-            st = self._new_state(b, cache_len)
-            self._capture(st)
-        self._graphs[key] = st
-        return st
+        """The kept buffers of (b, cache_len) with their graph
+        (`_GraphCache.state`)."""
+        return self._graphs.state((b, cache_len), self.params,
+                                  lambda: self._new_state(b, cache_len), self._capture,
+                                  self.max_graphs)
 
     def _decode_step(self, st: _DecodeState) -> None:
         """One decode step on ``st``'s buffers, in place: the forward of the
@@ -297,34 +346,9 @@ class Generator:
         st.counter.add_(1)
 
     def _capture(self, st: _DecodeState) -> None:
-        """Capture the decode step of ``st`` into ``st.graph``: one eager
-        step on the side stream of the capture first (the kernels build and
-        load at their first launch, and nothing of that may happen under
-        capture), then the capture on that stream. It is PyTorch's one
-        capture stream of the process: each new stream would get a cuBLAS
-        workspace of its own, kept for the process's life. Every launch the
-        step records counts once in its wrapper's count, as in an eager
-        step."""
-        from ..ops import kernel_wrappers
-
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(self.device):
-            capture = torch.cuda.graph(graph)
-        stream = capture.capture_stream
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(stream):
-            self._decode_step(st)
-        torch.cuda.current_stream(self.device).wait_stream(stream)
-        before = {w.__name__: w.launches for w in kernel_wrappers()}
-        with capture:
-            self._decode_step(st)
-        torch.cuda.synchronize(self.device)
-        st.capture = {"seconds": time.perf_counter() - t0,
-                      "launches": {w.__name__: w.launches - before[w.__name__]
-                                   for w in kernel_wrappers()
-                                   if w.launches != before[w.__name__]}}
-        st.graph = graph
+        """Capture the decode step of ``st`` into ``st.graph``
+        (`capture_graph`)."""
+        st.graph, st.capture = capture_graph(self.device, lambda: self._decode_step(st))
 
     @torch.inference_mode()
     def generate(self, input_ids, max_new_tokens: Optional[int] = None, seed: int = 0,

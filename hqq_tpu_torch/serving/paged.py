@@ -15,10 +15,13 @@ from one shared pool, each request with its own block table:
   its worst-case page budget is free (no preemption);
 * optional: int8 pages, a prefix cache over content-hashed prompt pages
   (reference counts, LRU eviction), chunked prefill, a horizon of several
-  decode steps with no read-back between them.
+  decode steps with no read-back between them;
+* multi-LoRA, as the dense engine (`serving.batching`): every prefill,
+  chunk and decode step runs under `adapter_context`, the prefix cache's
+  keys start from the adapter id.
 
 Not yet ported, and refused with an error: ``inputs_embeds`` requests
-(vision-language serving) and ``adapter_id != 0`` (multi-LoRA).
+(vision-language serving).
 """
 
 from __future__ import annotations
@@ -31,10 +34,11 @@ import numpy as np
 import torch
 
 from ..models import llama
+from ..nn.multilora import adapter_context
 from ..ops.paged import PagedKVCache, init_paged_cache, paged_attention_ref, quant_rows
 from ..utils.profiling import log_event
-from .batching import (Request, _checked_request, _effective_sampling, _refuse_embeds_forward,
-                       _refuse_unported)
+from .batching import (Request, _checked_adapter, _checked_request, _effective_sampling,
+                       _refuse_embeds_forward, _refuse_unported)
 from .generate import next_power_of_2, sample_token, sample_token_batch
 
 __all__ = ["PagedKVCache", "PagedBatchingEngine", "paged_attention_ref", "init_paged_cache",
@@ -172,6 +176,7 @@ class PagedBatchingEngine:
         self._tokens = np.zeros((batch_slots,), np.int32)
         self._pos = np.zeros((batch_slots,), np.int32)
         self._live = np.zeros((batch_slots,), bool)
+        self._adapter = np.zeros((batch_slots,), np.int64)  # each slot's adapter id
         # per-slot sampling parameters [4, S]: do_sample/top_k/temperature/top_p
         self._samp = np.zeros((4, batch_slots), np.float32)
         self._samp[0] = 1.0 if do_sample else 0.0
@@ -201,9 +206,11 @@ class PagedBatchingEngine:
         self.params = None
 
     # -- device steps ----------------------------------------------------------
-    def _prefill(self, tokens: np.ndarray, mini: llama.KVCache, start_pos: int):
+    def _prefill(self, tokens: np.ndarray, mini: llama.KVCache, start_pos: int,
+                 adapter_id: int = 0):
         toks = torch.from_numpy(tokens.astype(np.int64)).to(self.device)
-        return self._fwd(self.params, toks, mini, int(start_pos))
+        with adapter_context(torch.tensor([adapter_id], device=self.device)):
+            return self._fwd(self.params, toks, mini, int(start_pos))
 
     def _load_prefix(self, mini: llama.KVCache, pages: List[int]) -> llama.KVCache:
         """Gather cached prefix pages into rows [0, n*pg) of the dense mini
@@ -230,13 +237,14 @@ class PagedBatchingEngine:
         page_tab = torch.from_numpy(self._page_tab).to(dev)
         samp = torch.from_numpy(self._samp).to(dev)
         out = []
-        for _ in range(steps):
-            logits, self.cache = self._fwd(self.params, tok[:, None], self.cache, lengths,
-                                           page_tab)
-            tok = sample_token_batch(logits[:, -1], self._gen, samp[0] > 0.5,
-                                     samp[1].to(torch.int64), samp[2], samp[3])
-            lengths = lengths + 1
-            out.append(tok)
+        with adapter_context(torch.from_numpy(self._adapter).to(dev)):
+            for _ in range(steps):
+                logits, self.cache = self._fwd(self.params, tok[:, None], self.cache, lengths,
+                                               page_tab)
+                tok = sample_token_batch(logits[:, -1], self._gen, samp[0] > 0.5,
+                                         samp[1].to(torch.int64), samp[2], samp[3])
+                lengths = lengths + 1
+                out.append(tok)
         return torch.stack(out).cpu().numpy()
 
     # -- scheduling on the host --------------------------------------------------
@@ -249,12 +257,15 @@ class PagedBatchingEngine:
                     stop_token_ids: Optional[List[int]] = None) -> int:
         """Queue a request; returns its uid. do_sample / top_k / top_p /
         temperature / stop_token_ids are per-request (None = the engine's
-        defaults). ``inputs_embeds`` and ``adapter_id != 0`` are not served
-        yet. Ids outside the vocabulary raise a ValueError here, before any
-        step."""
-        _refuse_unported(inputs_embeds, adapter_id)
+        defaults). ``adapter_id`` picks the multi-LoRA adapter (0: none);
+        prefix-cache pages are shared only within one adapter, whose LoRA
+        changes their K/V. ``inputs_embeds`` is not served yet. Ids outside
+        the vocabulary and an adapter id outside the tree's stacks raise a
+        ValueError here, before any step."""
+        _refuse_unported(inputs_embeds)
         sampled = self.do_sample if do_sample is None else bool(do_sample)
         prompt = _checked_request(prompt_ids, top_k if sampled else None, self.cfg.vocab_size)
+        adapter_id = _checked_adapter(adapter_id, self.params)
         t_pad = next_power_of_2(max(len(prompt), 2))
         need = -(-(len(prompt) + max_new_tokens) // self.pg)
         if need > self.mp or -(-t_pad // self.pg) > self.mp:
@@ -265,7 +276,8 @@ class PagedBatchingEngine:
         self._uid += 1
         self.queue.append(
             Request(uid=self._uid, prompt=prompt, max_new_tokens=max_new_tokens,
-                    do_sample=do_sample, top_k=top_k, top_p=top_p, temperature=temperature,
+                    adapter_id=adapter_id, do_sample=do_sample, top_k=top_k, top_p=top_p,
+                    temperature=temperature,
                     stop_token_ids=list(stop_token_ids) if stop_token_ids else None)
         )
         return self._uid
@@ -318,6 +330,7 @@ class PagedBatchingEngine:
         ds, tk, tmp, tp = _effective_sampling(
             req, self.do_sample, self.top_k, self.temperature, self.top_p)
         self._samp[:, slot] = (1.0 if ds else 0.0, tk, tmp, tp)
+        self._adapter[slot] = req.adapter_id
 
         # the longest cached page-aligned prefix (leading hits only)
         shared: List[int] = []
@@ -367,7 +380,7 @@ class PagedBatchingEngine:
 
         suffix = np.zeros((1, t_pad_total), np.int32)
         suffix[0, :t_suf] = req.prompt[s0:]
-        logits, mini = self._prefill(suffix, mini, s0)
+        logits, mini = self._prefill(suffix, mini, s0, req.adapter_id)
         self._finish_prefill(slot, req, mini, logits, t_suf - 1, t, s0,
                              pages, pages_new, keys, n_shared)
 
@@ -412,7 +425,7 @@ class PagedBatchingEngine:
         t_pad = next_power_of_2(max(n, 2))
         buf = np.zeros((1, t_pad), np.int32)
         buf[0, :n] = req.prompt[start: start + n]
-        logits, st["mini"] = self._prefill(buf, st["mini"], start)
+        logits, st["mini"] = self._prefill(buf, st["mini"], start, req.adapter_id)
         st["done"] = start + n
         if st["done"] >= t:
             del self._prefilling[slot]

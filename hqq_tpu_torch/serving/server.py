@@ -13,7 +13,9 @@ read the engine's containers.
                   -> {"uid": 3, "tokens": [...]}
                   Per-request sampling: "temperature" (0 = greedy), "top_p",
                   "top_k", "do_sample", "stop_token_ids" [ids], "stop"
-                  [strings, each one token of the tokenizer], "adapter_id".
+                  [strings, each one token of the tokenizer], "adapter_id"
+                  (multi-LoRA; an id outside the tree's stacks is
+                  answered 400).
     POST /generate   {"prompt_ids": [...], "stream": true}
                   -> text/event-stream; `data: {"uid": 3, "tokens": [...]}`
                      as the engine steps, then a last event with

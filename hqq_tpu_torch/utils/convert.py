@@ -6,7 +6,8 @@ been turned into numpy arrays (``jax.tree_util.tree_map(np.asarray, tree)``)
 and returns the same tree in this package's types on ``device``. It reads
 fields by attribute name only (``weight``, ``bias``, ``qweight``, a
 QTensor's ``wq``/``scale``/``zero``/``nbits``/..., a LoRALinear's
-``base``/``lora_a``/``lora_b``/``scaling`` and an Int8QuantLinear's
+``base``/``lora_a``/``lora_b``/``scaling``, a MultiLoRALinear's
+``base``/``a_stack``/``b_stack``/``scaling`` and an Int8QuantLinear's
 ``w8``/``sw``/``compute_dtype``/``logical_out``/``logical_in``), so it
 imports nothing of `hqq_tpu`. A QTensor alone converts too. `paged_cache_from_numpy` carries a paged KV
 cache across the same way (its pools and scales as numpy arrays).
@@ -23,6 +24,7 @@ from ..backends.int8_backend import Int8QuantLinear
 from ..core.peft import LoRALinear
 from ..core.quantize import QTensor
 from ..nn.linear import Linear, QuantLinear
+from ..nn.multilora import MultiLoRALinear
 from ..ops.paged import PagedKVCache
 
 __all__ = ["params_from_numpy", "paged_cache_from_numpy", "tensor_from_numpy", "torch_dtype"]
@@ -63,8 +65,8 @@ def _qtensor(qt: Any, device) -> QTensor:
 def params_from_numpy(tree: Any, device="cuda") -> Any:
     """Convert an `hqq_tpu` tree (numpy leaves) to this package's types:
     dicts and lists stay, arrays become tensors, ``Linear``,
-    ``QuantLinear`` and ``LoRALinear`` become their `nn.Module`
-    counterparts (an ``Int8QuantLinear`` too), and a ``QTensor`` becomes
+    ``QuantLinear``, ``LoRALinear`` and ``MultiLoRALinear`` become their
+    `nn.Module` counterparts (an ``Int8QuantLinear`` too), and a ``QTensor`` becomes
     this package's `QTensor`."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
@@ -72,6 +74,10 @@ def params_from_numpy(tree: Any, device="cuda") -> Any:
         return [params_from_numpy(v, device) for v in tree]
     if tree is None:
         return None
+    if hasattr(tree, "a_stack"):
+        return MultiLoRALinear(params_from_numpy(tree.base, device),
+                               tensor_from_numpy(tree.a_stack, device),
+                               tensor_from_numpy(tree.b_stack, device), tree.scaling)
     if hasattr(tree, "lora_a"):
         bias = None if tree.bias is None else tensor_from_numpy(tree.bias, device)
         return LoRALinear(params_from_numpy(tree.base, device),

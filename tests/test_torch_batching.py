@@ -194,7 +194,7 @@ def test_engine_refuses_what_is_not_ported(model):
     eng = _engine("torch", model, **_KW)
     with pytest.raises(NotImplementedError, match="inputs_embeds"):
         eng.add_request([1, 2, 3], inputs_embeds=np.zeros((3, 256), np.float32))
-    with pytest.raises(NotImplementedError, match="adapter_id"):
+    with pytest.raises(ValueError, match="adapter_id"):  # no multi-LoRA stack: adapter 0 only
         eng.add_request([1, 2, 3], adapter_id=1)
     with pytest.raises(NotImplementedError, match="M-RoPE"):
         eng.add_request([1, 2, 3], pos_offset=2)

@@ -42,6 +42,17 @@ _PROMPTS = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch ops on one thread: the suite's workers share the cores, and
+    torch's intra-op threads would oversubscribe them (a case of this
+    module took minutes beside five busy workers, seconds alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("window", [None, 4])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_tensor_start_pos_is_bit_equal(dtype, window):

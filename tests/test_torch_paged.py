@@ -31,6 +31,17 @@ from hqq_tpu_torch.utils import paged_cache_from_numpy, params_from_numpy
 _NP = {"float32": np.float32, "bfloat16": jnp.bfloat16}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch ops on one thread: the suite's workers share the cores, and
+    torch's intra-op threads would oversubscribe them (an engine case of
+    this module took 30-90 s beside five busy workers, 4 s alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a, dtype=None):
     t = torch.from_numpy(np.array(a, copy=True))
     return t if dtype is None else t.to(dtype)
@@ -348,7 +359,7 @@ def test_engine_refuses_what_is_not_ported(quantized):
     eng = TEngine(tparams, tcfg, **_ENGINE_KW, cache_dtype=torch.float32, device="cpu")
     with pytest.raises(NotImplementedError, match="inputs_embeds"):
         eng.add_request([1, 2, 3], inputs_embeds=np.zeros((3, tcfg.hidden_size), np.float32))
-    with pytest.raises(NotImplementedError, match="adapter_id"):
+    with pytest.raises(ValueError, match="adapter_id"):  # no multi-LoRA stack: adapter 0 only
         eng.add_request([1, 2, 3], adapter_id=1)
     with pytest.raises(ValueError, match="pages"):
         eng.add_request(list(range(1, 60)), max_new_tokens=32)  # hqq_tpu's page budget rule

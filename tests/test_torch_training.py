@@ -49,6 +49,17 @@ from hqq_tpu_torch.utils import training as tt
 T = 257  # tokens per row: T = 256 after the shift
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch ops on one thread: the suite's workers share the cores, and
+    torch's intra-op threads would oversubscribe them (a case of this
+    module took minutes beside five busy workers, seconds alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _numpy(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
