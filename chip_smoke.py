@@ -1,5 +1,6 @@
 # SPDX-License-Identifier: Apache-2.0
-"""Chip smoke test of hqq_tpu_torch: HQQ Llama-2-7B on one GPU, ten ways.
+"""Chip smoke test of hqq_tpu_torch: HQQ Llama-2-7B on one GPU, ten ways, and
+the RMSNorm families (Gemma-2-9B through the server).
 
     python3 chip_smoke.py            # on cuda:0, every phase
     python3 chip_smoke.py --time quant_matmul 512 4096 4096      # one kernel
@@ -14,7 +15,7 @@
     python3 chip_smoke.py --time flash_attention_backward_dq 1 1024 32 32-128-fp32  # KV-HD-TYPE
     python3 chip_smoke.py --ids          # phase g's greedy ids, to compare two checkouts
     python3 chip_smoke.py --windows      # verify-window rows against decode steps' logits
-    python3 chip_smoke.py --norm         # rms_norm's fp64 sum against an fp32 sum, device ms
+    python3 chip_smoke.py --norm         # the rms_norm kernel against fp64 and fp32 sums, device ms
 
 Phases (any failure exits non-zero):
   (a) device and build: the card, its power limit, an nvcc build of every
@@ -186,7 +187,36 @@ Phases (any failure exits non-zero):
       Phase b also times the fused widths, w4a8_matmul at (8, 4096, 12288)
       and (8, 4096, 22016) and quant_matmul at M = 512, beside the summed
       time of their unfused parts.
-Phases g, h, v and m run right after c, on its model, then q and s, then d.
+  (r) the RMSNorm families: Gemma-2-9B at full width and depth (google/
+      gemma-2-9b's config: hidden 3584, ffn 14336, 42 layers, 16/8 heads
+      of 256, vocab 256000, window 4096, softcaps 50/30), random bf16
+      weights from seed 0, quantize_model(4-bit g64), save_quantized, then
+      `serve.main` on the checkpoint with its defaults (paged, w4a8, fused),
+      G's pool and a horizon of 8; G's 12 requests from 12 client threads
+      (6 streamed), ids equal to an in-process PagedBatchingEngine's on the
+      served tree; a decode step makes 168 w4a8_matmul (294 on the
+      `--no-fuse` tree), 169 rms_norm and no paged_attention launches
+      (every Gemma-2 layer has a softcap: the gather route); decode tok/s against a byte bound that counts the
+      tied 256000 x 3584 embedding, busy share, peak memory; Generator on
+      the served tree, "partial" and "full" (ids equal, the graphs'
+      recorded launches a partial step's). Then one 2-layer model at the
+      published width of Mistral-7B-v0.1, granite-3.0-8b, gemma-7b,
+      gemma-3-12b (one sliding and one full layer), Phi-3-mini-4k and
+      OLMo-2-1124-7B: the checkpoint through save_quantized and
+      from_quantized bit-equal, a prefill and 4 decode steps under w4a8
+      with every w4a8_matmul, quant_matmul and rms_norm call held to its
+      plain twin (2^-7 with a neighbour's scale as the control; the norm
+      bit-equal with the offset toggled as the control), and where the
+      family has a paged branch, paged decode against the dense cache with
+      every paged_attention call held (Gemma-3's full layer at head size
+      256, Granite's layers at 128). Phase b times rms_norm at 4, 32 and
+      1024 rows of 4096 and 1024 of 3584 with offset 1 against its twin
+      (bit-equal; every row normed alone bit-equal to the same row in calls
+      of 4, 32 and 1024 rows, where PyTorch's fp32 mean must not be) and
+      torch.nn.functional.rms_norm, the w4a8 and quant_matmul kernels at
+      Gemma-2-9B's shapes, and paged_attention at 16/8 heads of 256.
+Phases g, h, v and m run right after c, on its model, then q and s, then r,
+then d.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -276,6 +306,10 @@ KERNELS = {
     "flash_attention_backward_dq_fp32": (
         "flash_backward_fp32_sm90.cu", "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
         None),
+    # RMSNorm, which hqq_tpu leaves to XLA's fusion (no Pallas kernel): one
+    # fixed-order fp32 kernel, so that a row's norm does not depend on its
+    # neighbours; Gemma's (1 + w) norm with offset 1
+    "rms_norm": ("rms_norm.cu", "hqq_tpu/models/llama.py:268", "hqq_tpu/models/gemma.py:68"),
 }
 # the row of phase b that stands for each kernel in the last-but-one line
 PICK = {
@@ -294,9 +328,15 @@ PICK = {
     "flash_attention_fp32": (1, 512, 8, "fp32, causal, 8/8 heads, head size 128"),
     "flash_attention_backward_dkv_fp32": (1, 1024, 32, "fp32, causal, 32/32 heads, head size 128"),
     "flash_attention_backward_dq_fp32": (1, 1024, 32, "fp32, causal, 32/32 heads, head size 128"),
+    "rms_norm": (4, 4096, 4096, "bf16, offset 0"),
 }
 # head size and page geometry of the attention rows and of paths G and H
 HEAD_DIM, PAGE, MAX_PAGES = 128, 16, 64
+# path R's Gemma-2-9B matmuls (M, K, N): q (unfused), the fused q/k/v and
+# gate/up, down, o at decode; the fused q/k/v and gate/up at prefill
+R_DECODE_SHAPES = [(4, 3584, 4096), (4, 3584, 8192), (4, 3584, 28672), (4, 14336, 3584),
+                   (4, 4096, 3584)]
+R_PREFILL_SHAPES = [(512, 3584, 8192), (512, 3584, 28672)]
 # fuse_for_decode's widths at 7B: fused N -> (the N of its parts, how many)
 FUSED_WIDTHS = {12288: (4096, 3), 22016: (11008, 2)}
 LORA_RANK, LORA_ALPHA, LORA_B_STD = 8, 16, 0.05
@@ -559,7 +599,8 @@ def _copies(kqt, x, bytes_each: int):
 
 
 
-def _paged_inputs(lengths, nh: int, n_kv: int, int8: bool, n_tables: int, seed: int):
+def _paged_inputs(lengths, nh: int, n_kv: int, int8: bool, n_tables: int, seed: int,
+                  hd: int = HEAD_DIM):
     """A page pool with random rows and ``n_tables`` block tables over
     disjoint pages of it (page 0 stays scratch; entries past a slot's pages
     point at it, as the engine's do). Returns (q, k, v, lengths, tables, ks,
@@ -570,10 +611,10 @@ def _paged_inputs(lengths, nh: int, n_kv: int, int8: bool, n_tables: int, seed: 
     b = len(lengths)
     per = -(-max(lengths) // PAGE)
     num_pages = 1 + n_tables * b * per
-    shape = (n_kv, num_pages, PAGE, HEAD_DIM)
+    shape = (n_kv, num_pages, PAGE, hd)
     k = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
     v = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
-    q = torch.randn((b, nh, HEAD_DIM), generator=gen, device="cuda") * HEAD_DIM**-0.5
+    q = torch.randn((b, nh, hd), generator=gen, device="cuda") * hd**-0.5
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     perm = 1 + torch.randperm(num_pages - 1, generator=gen, device="cuda")
     tabs = torch.zeros((n_tables, b, MAX_PAGES), dtype=torch.int32, device="cuda")
@@ -598,15 +639,15 @@ def _gathered_dense(pages, scales, tab, nh: int):
     return seq.repeat_interleave(nh // h, dim=1) if nh > h else seq
 
 
-def _paged_bound(lengths, nh: int, n_kv: int, int8: bool):
+def _paged_bound(lengths, nh: int, n_kv: int, int8: bool, hd: int = HEAD_DIM):
     """Bytes and fp32 operations of one paged-attention call: the attended K
     and V rows (and their scales) read once, q read and out written once."""
     rows = float(sum(lengths)) * n_kv
     esize = 1 if int8 else 2
     qsize = 4 if int8 else 2
-    nbytes = (2 * rows * HEAD_DIM * esize + (8 * rows if int8 else 0)
-              + 2 * len(lengths) * nh * HEAD_DIM * qsize + len(lengths) * (4 + 4 * MAX_PAGES))
-    return nbytes, 4.0 * sum(lengths) * nh * HEAD_DIM
+    nbytes = (2 * rows * hd * esize + (8 * rows if int8 else 0)
+              + 2 * len(lengths) * nh * hd * qsize + len(lengths) * (4 + 4 * MAX_PAGES))
+    return nbytes, 4.0 * sum(lengths) * nh * hd
 
 
 def _flash_inputs(b: int, nh: int, n_kv: int, t: int, copies: int, seed: int,
@@ -652,15 +693,19 @@ def phase_b_attention(record, held, iters: int) -> None:
 
     around = {256: [200, 230, 256, 257, 270, 300, 240, 290],
               1024: [1024, 1000, 990, 1010, 960, 1024, 1017, 975]}
-    cases = [(32, 32, False, 256), (32, 32, False, 1024), (32, 32, True, 256),
-             (32, 32, True, 1024), (32, 8, False, 1024)]
-    for nh, n_kv, int8, nominal in cases:
+    # the last: Gemma-2-9B's and Gemma-3's heads (16/8 of head size 256), where
+    # path R's Gemma-3 full layers reach the kernel
+    cases = [(32, 32, False, 256, HEAD_DIM), (32, 32, False, 1024, HEAD_DIM),
+             (32, 32, True, 256, HEAD_DIM), (32, 32, True, 1024, HEAD_DIM),
+             (32, 8, False, 1024, HEAD_DIM), (16, 8, False, 1024, 256)]
+    for nh, n_kv, int8, nominal, hd in cases:
         lengths = around[nominal]
-        nbytes, fp32_ops = _paged_bound(lengths, nh, n_kv, int8)
+        nbytes, fp32_ops = _paged_bound(lengths, nh, n_kv, int8, hd)
         n_tables = max(1, min(16, -(-ROTATE_BYTES // int(nbytes))))
         q, k, v, lens, tabs, ks, vs = _paged_inputs(lengths, nh, n_kv, int8, n_tables,
-                                                    seed=nominal + n_kv + int8)
-        what = f"{'int8' if int8 else 'bf16'} pages {nh}/{n_kv} heads, lengths around {nominal}"
+                                                    seed=nominal + n_kv + int8, hd=hd)
+        what = (f"{'int8' if int8 else 'bf16'} pages {nh}/{n_kv} heads of {hd}, lengths around "
+                f"{nominal}")
         err = held("paged_attention", pa.paged_attention(q, k, v, lens, tabs[0], ks, vs),
                    pa.paged_attention_plain(q, k, v, lens, tabs[0], ks, vs),
                    TOL_PAGED_INT8 if int8 else TOL_PAGED_BF16, what)
@@ -676,14 +721,14 @@ def phase_b_attention(record, held, iters: int) -> None:
         del dense_k, dense_v, k, v, ks, vs
         b_ms, by = bound_ms(nbytes, 0.0, "bf16", fp32_ops=fp32_ops)
         note = (f"{'int8' if int8 else 'bf16'} pages of {PAGE} rows, {nh}/{n_kv} heads, "
-                f"head size {HEAD_DIM}")
+                f"head size {hd}")
         record("paged_attention", dict(
             kernel="paged_attention", m=len(lengths), k=nominal, n=nh, max_abs_err=err, ms=ms,
             plain_ms=plain, bound_ms=b_ms, bound_by=by, library_ms=lib, note=note,
             library="scaled_dot_product_attention on the gathered dense bf16 K/V (the gather "
                     "not timed)",
             shape=dict(slots=len(lengths), lengths=lengths, heads=nh, kv_heads=n_kv,
-                       head_dim=HEAD_DIM, page_size=PAGE, pages="int8" if int8 else "bf16")))
+                       head_dim=hd, page_size=PAGE, pages="int8" if int8 else "bf16")))
         torch.cuda.empty_cache()
 
     for b, nh, n_kv, t in [(1, 32, 32, 1023), (4, 32, 32, 512), (1, 32, 8, 1023)]:
@@ -708,6 +753,108 @@ def phase_b_attention(record, held, iters: int) -> None:
         torch.cuda.empty_cache()
 
 
+# rms_norm's timed rows: C's decode (4 rows), the engines' verify windows
+# (32) and a prefill or training window (1024) at 4096; Gemma-2-9B's 3584
+# with Gemma's (1 + w)
+NORM_ROWS = [(4, 4096, 0.0), (32, 4096, 0.0), (1024, 4096, 0.0), (1024, 3584, 1.0)]
+# widths checked bit for bit as well: head sizes 64-256, OLMo-2's k over
+# 1024, the families' hidden sizes, and 100 (not whole 16-byte vectors)
+NORM_WIDTHS = [64, 96, 100, 128, 256, 1024, 3072, 3584, 4096, 14336]
+
+
+def _fp32_rms_norm(x, w, eps, offset=0.0):
+    """The norm with its mean square summed by PyTorch in fp32 (the order
+    of `torch.mean`, which depends on the rows one call reduces)."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    return (x * (w.to(torch.float32) + offset)).to(dt)
+
+
+def _fp64_rms_norm(x, w, eps, offset=0.0):
+    """The route the norm kernel replaced: the mean square summed by
+    PyTorch in fp64, rounded to fp32."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    ms = torch.mean(x * x, dim=-1, keepdim=True, dtype=torch.float64).to(torch.float32)
+    return ((x * torch.rsqrt(ms + eps)) * (w.to(torch.float32) + offset)).to(dt)
+
+
+def _rows_invariant(fn, x, w, eps: float, offset: float, counts=(4, 32, 1024)) -> float:
+    """The share of x's rows (1024 of them) whose norm computed alone is
+    bit-equal to the same row's inside calls of 4, 32 and 1024 rows."""
+    alone = torch.cat([fn(x[i:i + 1], w, eps, offset) for i in range(x.shape[0])])
+    same = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+    for c in counts:
+        got = torch.cat([fn(x[i:i + c], w, eps, offset) for i in range(0, x.shape[0], c)])
+        same &= (got == alone).all(-1)
+    return same.float().mean().item()
+
+
+def phase_b_norm(record, iters: int) -> None:
+    """rms_norm (csrc/rms_norm.cu) against its plain twin, bit for bit, over
+    fp32, bf16 and fp16 rows of the widths the families norm, offsets 0 and
+    1, with a strided input; each row normed alone bit-equal to the same row
+    inside calls of 4, 32 and 1024 rows, where the control (PyTorch's fp32
+    mean, whose order depends on the rows of the call) must fail; then the
+    timed rows against the byte bound, the twin and
+    torch.nn.functional.rms_norm (a yardstick the port never calls)."""
+    import torch.nn.functional as F
+
+    from hqq_tpu_torch.ops import norm as nm
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    eps = 1e-6
+    for dt in (torch.bfloat16, torch.float16, torch.float32):
+        for d in NORM_WIDTHS:
+            x = (torch.randn((37, d), generator=gen, device="cuda") * 3).to(dt)
+            for offset in (0.0, 1.0):
+                w = (torch.randn(d, generator=gen, device="cuda") * 0.1).to(dt)
+                y, ref = nm.rms_norm(x, w, eps, offset), nm.rms_norm_plain(x, w, eps, offset)
+                if not torch.equal(y, ref) or not torch.isfinite(y.float()).all():
+                    err = (y.float() - ref.float()).abs().max().item()
+                    raise AssertionError(f"rms_norm {dt} d={d} offset {offset}: not bit-equal "
+                                         f"to its twin, max |err| {err}")
+    x = torch.randn((3, 5, 8, 128), generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn(128, generator=gen, device="cuda").to(torch.float32)
+    xt = x.transpose(1, 2)  # a strided [B, H, T, hd] view, as q's heads are
+    if not torch.equal(nm.rms_norm(xt, w, eps, 1.0), nm.rms_norm_plain(xt, w, eps, 1.0)):
+        raise AssertionError("rms_norm of a strided view with fp32 weights: not bit-equal")
+    log(f"[b] rms_norm: bit-equal to its twin over {3 * len(NORM_WIDTHS) * 2} cases (fp32, bf16, "
+        f"fp16 rows of {NORM_WIDTHS}, offsets 0 and 1) and a strided view")
+
+    for rows, d, offset in NORM_ROWS:
+        x = torch.randn((max(rows, 1024), d), generator=gen, device="cuda").to(torch.bfloat16)
+        w = (torch.randn(d, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+        inv = _rows_invariant(nm.rms_norm, x, w, eps, offset)
+        ctl = _rows_invariant(_fp32_rms_norm, x, w, eps, offset)
+        if inv != 1.0 or not ctl < 1.0:
+            raise AssertionError(f"rms_norm d={d}: rows invariant {inv} (must be 1), the fp32 "
+                                 f"mean's control {ctl} (must be < 1)")
+        x = x[:rows]
+        y, ref = nm.rms_norm(x, w, eps, offset), nm.rms_norm_plain(x, w, eps, offset)
+        torch.cuda.synchronize()
+        err = (y.float() - ref.float()).abs().max().item()
+        if err != 0.0:
+            raise AssertionError(f"rms_norm {rows} x {d}: max |err| {err} against its twin")
+        each = 2 * x.numel() * x.element_size()
+        xs = [x] + [x.clone() for _ in range(max(1, min(64, -(-ROTATE_BYTES // each))) - 1)]
+        ms = time_ms([lambda a=a: nm.rms_norm(a, w, eps, offset) for a in xs], iters)
+        plain = time_ms([lambda: nm.rms_norm_plain(x, w, eps, offset)], max(3, iters // 10))
+        w_lib = (w.float() + offset).to(torch.bfloat16)
+        lib = time_ms([lambda a=a: F.rms_norm(a, (d,), w_lib, eps) for a in xs], iters)
+        del xs
+        b_ms, by = bound_ms(each + d * w.element_size(), 0.0, "bf16",
+                            fp32_ops=4.0 * x.numel())
+        record("rms_norm", dict(
+            kernel="rms_norm", m=rows, k=d, n=d, max_abs_err=err, ms=ms, plain_ms=plain,
+            bound_ms=b_ms, bound_by=by, library_ms=lib, note=f"bf16, offset {offset:g}",
+            library="torch.nn.functional.rms_norm (weight w + offset made before timing)",
+            rows_invariant=inv, control_fp32_mean_invariant=ctl,
+            plan=str(nm.norm_launch_plan(d, torch.bfloat16)),
+            shape=dict(rows=rows, d=d, dtype="bf16", offset=offset)))
+
+
 def phase_b() -> dict:
     from hqq_tpu_torch.ops import fused_matmul as fm
 
@@ -726,6 +873,7 @@ def phase_b() -> dict:
     cases = [(m, k, n) for (k, n) in shapes for m in (1, 4, 8, 32)]
     cases.append((4, 4096 + 3 * g, 4096))  # K % 8g != 0 (the `_qmm_a8_kernel` route)
     cases += [(8, 4096, n) for n in FUSED_WIDTHS]  # fuse_for_decode's q/k/v and gate/up
+    cases += R_DECODE_SHAPES  # path R's Gemma-2-9B
     for (m, k, n) in cases:
         x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
         x8, sx = fm.quantize_activations_int8(x)
@@ -757,7 +905,7 @@ def phase_b() -> dict:
     # 1023), and at M = 4 (the pallas backend's decode, 8-bit weights) ------
     qmm_shapes = [(4096, 4096), (4096, 11008), (11008, 4096)]
     for (m, k, n) in [(m, k, n) for m in (512, 1023) for (k, n) in qmm_shapes] + [(4, 4096, 4096)] \
-            + [(512, 4096, n) for n in FUSED_WIDTHS]:
+            + [(512, 4096, n) for n in FUSED_WIDTHS] + R_PREFILL_SHAPES:
         kqt = _make_kqt(n, k, g, 4, seed=k * 3 + n)
         x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
         y = fm.quant_matmul(x, kqt).float()
@@ -884,6 +1032,7 @@ def phase_b() -> dict:
     phase_b_dequant(record, iters)
     torch.cuda.empty_cache()
     phase_b_attention(record, held, iters)
+    phase_b_norm(record, iters)
     phase_b_bf16_meta(record, held, iters)
     phase_b_fp32(record, held, iters)
     phase_b_backward(record, held, iters)
@@ -1476,6 +1625,7 @@ def phase_b_backward(record, held, iters: int) -> None:
 
 PROMPTS_SHAPE, NEW_TOKENS = (4, 100), 32
 LINEARS_PER_PASS = 7 * 32  # q, k, v, o, gate, up, down of each of the 32 layers
+NORMS_PER_PASS = 2 * 32 + 1  # rms_norm: two a layer and the final one
 
 
 def _prompts(cfg):
@@ -1780,7 +1930,8 @@ def phase_c(dev_tag: str):
 
     n = LINEARS_PER_PASS
     launches, model, ids = serve_7b("c", dev_tag, BaseQuantizeConfig(nbits=4, group_size=64),
-                               {"quant_matmul": (n, 0), "w4a8_matmul": (0, n)}, extra=extra)
+                               {"quant_matmul": (n, 0), "w4a8_matmul": (0, n),
+                                "rms_norm": (NORMS_PER_PASS, NORMS_PER_PASS)}, extra=extra)
     log(f"[c] sampled {seen['sampled']}")
     missing = [k for k in ("w4a8_matmul", "quant_matmul", "dequant") if launches[k] == 0]
     if missing:
@@ -1937,7 +2088,7 @@ def phase_q(dev_tag: str, c_ids) -> dict:
         if not np.array_equal(ids, c_ids):
             raise AssertionError(f"[q] greedy ids sha1 {sha(ids)}, phase c's {sha(c_ids)}")
         full = decode_full("q", dev_tag, model_q, prompts, ids, prefill_ms, busy,
-                           {"w4a8_matmul": LINEARS_PER_PASS})
+                           {"w4a8_matmul": LINEARS_PER_PASS, "rms_norm": NORMS_PER_PASS})
 
         sampled = dict(do_sample=True, top_k=20, top_p=0.9, seed=1)
         s_partial = model_q.generate(prompts, max_new_tokens=new, **sampled, **partial)
@@ -2401,6 +2552,476 @@ def phase_s_dense_int8(dev_tag: str) -> dict:
     return launches
 
 
+# -- path R: the RMSNorm families. Gemma-2-9B (google/gemma-2-9b's config) at
+# full width and depth through the server, then one 2-layer model at the
+# published width of each other family
+R_NEW, R_GEN_NEW = 32, 16
+# the bar of paged decode logits against the dense cache's: phase g's 0.1,
+# except Granite's: its attention multiplier (1/128, not 1/sqrt(128))
+# flattens the softmax and its residual multiplier (0.22) shrinks what
+# attention adds, so even another slot's pages move its logits by only a
+# few hundredths (0.026 in the first run) where the paged route reads 0.002
+R_PAGED_BAR = {"granite": 1e-2}
+
+
+def _r_configs() -> dict:
+    """model_type -> (module, config at its published widths, cut to 2
+    layers, seed): Mistral-7B-v0.1, granite-3.0-8b, gemma-7b, gemma-3-12b's
+    text model (one sliding and one full layer), Phi-3-mini-4k, and
+    OLMo-2-1124-7B."""
+    import dataclasses
+
+    from hqq_tpu_torch.models import gemma, gemma3, granite, mistral, olmo2, phi3
+
+    two = dict(num_hidden_layers=2)
+    return {
+        "mistral": (mistral, mistral.MistralConfig(**two), 31),
+        "granite": (granite, granite.GraniteConfig(
+            vocab_size=49155, hidden_size=4096, intermediate_size=12800, num_attention_heads=32,
+            num_key_value_heads=8, max_position_embeddings=4096, rms_norm_eps=1e-5,
+            rope_theta=10000.0, tie_word_embeddings=True, embedding_multiplier=12.0,
+            residual_multiplier=0.22, attention_multiplier=0.0078125, logits_scaling=16.0,
+            **two), 32),
+        "gemma": (gemma, gemma.GemmaConfig(
+            vocab_size=256000, hidden_size=3072, intermediate_size=24576, num_attention_heads=16,
+            num_key_value_heads=16, head_dim=256, max_position_embeddings=8192, **two), 33),
+        "gemma3_text": (gemma3, dataclasses.replace(
+            gemma3.Gemma3Config.gemma3_12b(), layer_types=("sliding_attention", "full_attention"),
+            **two), 34),
+        "phi3": (phi3, phi3.Phi3Config(
+            vocab_size=32064, hidden_size=3072, intermediate_size=8192, num_attention_heads=32,
+            num_key_value_heads=32, max_position_embeddings=4096, rms_norm_eps=1e-5,
+            sliding_window=2047, **two), 35),
+        "olmo2": (olmo2, dataclasses.replace(olmo2.Olmo2Config.olmo2_7b(), **two), 36),
+    }
+
+
+def _offset_toggled(x, w, eps, offset=0.0):
+    """A control of the norm: (w + 1 - offset) in place of (w + offset)."""
+    from hqq_tpu_torch.ops import norm as nm
+
+    return nm.rms_norm_plain(x, w, eps, 1.0 - offset)
+
+
+def _r_calls(tag: str, fwd, params, cfg, toks, t: int, steps: int) -> dict:
+    """A prefill of ``t`` tokens (M = 4 t) and ``steps`` decode steps over
+    the dense cache, every w4a8_matmul, quant_matmul and rms_norm call held
+    on the spot to its plain twin on the path's own inputs: the matmuls
+    within phase b's 2^-7 of max|y| (controls: each group with its
+    neighbour's scale), the norm bit-equal (control: the offset toggled).
+    Returns the readings by wrapper."""
+    import dataclasses
+    from unittest import mock
+
+    from hqq_tpu_torch.models.llama import init_cache
+    from hqq_tpu_torch.ops import fused_matmul as fm
+    from hqq_tpu_torch.ops import norm as nm
+
+    def w4a8_scale(x8, sx, kqt, dt):
+        return fm.w4a8_matmul_plain(x8, sx, dataclasses.replace(kqt, scale=kqt.scale.roll(1, 1)),
+                                    dt)
+
+    def qmm_scale(x, kqt):
+        return fm.quant_matmul_plain(x, dataclasses.replace(kqt, scale=kqt.scale.roll(1, 1)))
+
+    logs = {"w4a8_matmul": {}, "quant_matmul": {}, "rms_norm": {}}
+    held = [(fm, "w4a8_matmul", fm.w4a8_matmul_plain, {"neighbour's scale": w4a8_scale}, 2.0**-7),
+            (fm, "quant_matmul", fm.quant_matmul_plain, {"neighbour's scale": qmm_scale},
+             2.0**-7),
+            (nm, "rms_norm", nm.rms_norm_plain, {"offset toggled": _offset_toggled}, 0.0)]
+    with torch.inference_mode():
+        patches = [mock.patch.object(mod, name, checked(getattr(mod, name), plain, ctl,
+                                                        logs[name]))
+                   for mod, name, plain, ctl, _ in held]
+        for pt in patches:
+            pt.start()
+        try:
+            cache = init_cache(cfg, toks.shape[0], 256, torch.bfloat16, "cuda")
+            logits, _ = fwd(params, cfg, toks[:, :t], cache, 0)
+            for i in range(steps):
+                logits, _ = fwd(params, cfg, toks[:, t + i:t + i + 1], cache, t + i)
+        finally:
+            for pt in patches:
+                pt.stop()
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"[{tag}] non-finite logits")
+    out = {}
+    for _, name, _, _, tol in held:
+        per_call = logs[name]
+        worst = max(per_call["kernel"])
+        least = {c: min(v) for c, v in per_call.items() if c != "kernel"}
+        out[name] = dict(calls=len(per_call["kernel"]), worst=worst, least=least)
+        if not worst <= tol or not all(v > tol for v in least.values()):
+            raise AssertionError(f"[{tag}] {name}: {len(per_call['kernel'])} calls, rel err up "
+                                 f"to {worst:.3e} (bar {tol:.1e}); controls at the least {least} "
+                                 f"(each must exceed the bar)")
+    return out
+
+
+def _r_paged(tag: str, fwd, params, cfg, toks, kernel_layers: int) -> dict:
+    """Paged decode against the dense cache (phase g's 2-layer check): a
+    100-token dense prefill copied into bf16 pages, 8 decode steps through
+    the family's paged branch against the dense steps (bar 0.1 of max|logit|;
+    control: every slot on its neighbour's pages). Every paged_attention
+    call is held to its plain version with phase g's controls, and must
+    launch ``kernel_layers`` times a step (the layers without a window or a
+    softcap)."""
+    from unittest import mock
+
+    from hqq_tpu_torch.models.llama import KVCache, init_cache
+    from hqq_tpu_torch.ops import paged as pa
+    from hqq_tpu_torch.ops.paged import PagedKVCache, init_paged_cache
+    from hqq_tpu_torch.serving.paged import splice_prefill_into_pages
+
+    b, t, steps = toks.shape[0], 100, 8
+    tab = torch.zeros((b, 8), dtype=torch.int32, device="cuda")
+    tab[:, :7] = 1 + torch.arange(b * 7, dtype=torch.int32, device="cuda").reshape(b, 7)
+    per_call, out = {}, {}
+    with torch.inference_mode():
+        cache = init_cache(cfg, b, 256, torch.bfloat16, "cuda")
+        fwd(params, cfg, toks[:, :t], cache, 0)
+        pc = init_paged_cache(cfg, 1 + b * 7, PAGE, torch.bfloat16)
+        for s in range(b):
+            splice_prefill_into_pages(pc, KVCache(k=cache.k[:, s:s + 1], v=cache.v[:, s:s + 1]),
+                                      tab[s, :7].tolist(), t)
+        pools = {"paged": pc, "control": PagedKVCache(k=pc.k.clone(), v=pc.v.clone(),
+                                                      page_size=PAGE)}
+        dense = torch.cat([fwd(params, cfg, toks[:, t + i:t + i + 1], cache, t + i)[0]
+                           for i in range(steps)], dim=1)
+        for name, pool in pools.items():
+            table = tab.roll(1, dims=0) if name == "control" else tab
+            # the wrapper counts its launches on what its module name holds
+            held = checked(pa.paged_attention, _paged_plain, PAGED_CONTROLS,
+                           per_call if name == "paged" else {})
+            with mock.patch.object(pa, "paged_attention", held):
+                got = []
+                for i in range(steps):
+                    lengths = torch.full((b,), t + i, dtype=torch.int32, device="cuda")
+                    got.append(fwd(params, cfg, toks[:, t + i:t + i + 1], pool, lengths,
+                                   page_indices=table)[0])
+            out[name] = rel(torch.cat(got, dim=1), dense)
+            if name == "paged":
+                out["launches"] = held.launches
+    tol = R_PAGED_BAR.get(tag.split()[-1], 0.1)
+    if not (out["paged"] < tol < out["control"]):
+        raise AssertionError(f"[{tag}] paged logits vs dense {out['paged']:.3e}, control "
+                             f"{out['control']:.3e} (bar {tol})")
+    if out["launches"] != kernel_layers * steps:
+        raise AssertionError(f"[{tag}] {out['launches']} paged_attention launches in {steps} "
+                             f"steps, expected {kernel_layers} a step")
+    if kernel_layers:
+        worst = max(per_call["kernel"])
+        least = {c: min(v) for c, v in per_call.items() if c != "kernel"}
+        out["kernel_calls"] = dict(calls=len(per_call["kernel"]), worst=worst, least=least)
+        if not worst <= TOL_PAGED_BF16_VS_FP32 or not all(
+                v > TOL_PAGED_BF16_VS_FP32 for v in least.values()):
+            raise AssertionError(f"[{tag}] paged_attention calls: rel err up to {worst:.3e}, "
+                                 f"controls {least}")
+    return out
+
+
+def _kernel_layers(model_type: str, cfg) -> int:
+    """The layers whose paged step reaches the paged-attention kernel: no
+    window and no softcap (Granite's paged step takes no window, as in
+    `hqq_tpu`)."""
+    if model_type == "granite":
+        return cfg.num_hidden_layers
+    if hasattr(cfg, "layer_is_sliding"):
+        if getattr(cfg, "attn_logit_softcapping", None) is not None:
+            return 0
+        return sum(not cfg.layer_is_sliding(i) for i in range(cfg.num_hidden_layers))
+    return 0 if cfg.sliding_window is not None else cfg.num_hidden_layers
+
+
+def _r_two_layer(model_type: str, module, cfg, seed: int) -> None:
+    """One family at its published width, 2 layers: random bf16 weights
+    from ``seed``, 4-bit g64; its checkpoint through save_quantized and
+    from_quantized (every tensor bit-equal, the config equal); w4a8; a
+    prefill and 4 decode steps with every kernel call held (`_r_calls`);
+    where the family has a paged branch, paged decode against the dense
+    cache (`_r_paged`)."""
+    import inspect
+    import shutil
+    import tempfile
+
+    from hqq_tpu_torch import BaseQuantizeConfig
+    from hqq_tpu_torch.engine.hf import HQQModel, HQQModelForCausalLM
+    from hqq_tpu_torch.models.base import quantize_model
+    from hqq_tpu_torch.utils.patching import prepare_for_inference
+
+    tag = f"r {model_type}"
+    t0 = time.time()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = module.init_params(cfg, gen, torch.bfloat16, "cuda")
+    quantize_model(params, BaseQuantizeConfig(nbits=4, group_size=64))
+    root = tempfile.mkdtemp(prefix="hqq-families-")
+    try:
+        HQQModel(params, cfg, model_type, quantized=True).save_quantized(root)
+        back = HQQModelForCausalLM.from_quantized(root)
+        n_tensors = _bit_equal_trees(tag, back.params, params)
+        if back.cfg != cfg or type(back.cfg) is not type(cfg):
+            raise AssertionError(f"[{tag}] the checkpoint's config came back as {back.cfg}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del back
+    params = prepare_for_inference(params, "w4a8")
+    toks = torch.randint(0, cfg.vocab_size, (4, 132), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(seed + 1))
+    calls = _r_calls(tag, module.forward, params, cfg, toks, 128, 4)
+    paged = None
+    if "page_indices" in inspect.signature(module.forward).parameters:
+        paged = _r_paged(tag, module.forward, params, cfg, toks, _kernel_layers(model_type, cfg))
+    log(f"[{tag}] 2 layers at published width (hidden {cfg.hidden_size}, ffn "
+        f"{cfg.intermediate_size}, heads {cfg.num_attention_heads}/{cfg.num_key_value_heads} of "
+        f"{cfg.head_dim_}, vocab {cfg.vocab_size}): checkpoint {n_tensors} tensors bit-equal; "
+        f"a prefill (M=512) and 4 decode steps, calls against their plain twins (calls, worst, "
+        f"controls at the least): {calls}; paged decode against the dense cache: {paged}; "
+        f"{time.time() - t0:.1f} s")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _r_gemma2_9b(dev_tag: str) -> list:
+    """Gemma-2-9B at full width and depth (google/gemma-2-9b: hidden 3584,
+    ffn 14336, 42 layers, 16/8 heads of 256, vocab 256000, window 4096,
+    softcaps 50/30, query_pre_attn_scalar 256): random bf16 weights from
+    seed 0, 4-bit g64, save_quantized; `serve.main` on the checkpoint with
+    its defaults (paged, w4a8, fused), G's pool and a horizon of 8; G's 12
+    requests from 12 client threads (6 streamed), ids equal to an
+    in-process PagedBatchingEngine's on the served tree; then `Generator`
+    on that tree, "partial" and "full", 4 prompts of 100 tokens; and the
+    `--no-fuse` tree's decode step (294 w4a8 launches against 168). Returns
+    the launch windows of the server and of the partial generate."""
+    import shutil
+    import tempfile
+
+    from hqq_tpu_torch import BaseQuantizeConfig
+    from hqq_tpu_torch.engine.hf import HQQModel
+    from hqq_tpu_torch.models import gemma2
+    from hqq_tpu_torch.serve import main as serve_main
+
+    cfg = gemma2.Gemma2Config.gemma2_9b()
+    layers = cfg.num_hidden_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = gemma2.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    model = HQQModel(params, cfg, "gemma2")
+    del params
+    t0 = time.time()
+    model.quantize_model(BaseQuantizeConfig(nbits=4, group_size=64))
+    torch.cuda.synchronize()
+    quant_s = time.time() - t0
+    root = tempfile.mkdtemp(prefix="hqq-gemma2-9b-")
+    try:
+        t0 = time.time()
+        model.save_quantized(root)
+        save_s = time.time() - t0
+        gb = sum(os.path.getsize(os.path.join(root, f)) for f in os.listdir(root)) / 1e9
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[r] {dev_tag} Gemma-2-9B (42 layers): init {init_s:.1f} s, quantize_model (4-bit "
+            f"g64, {7 * layers} linears) {quant_s:.2f} s, save_quantized {gb:.3f} GB in "
+            f"{save_s:.2f} s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+        argv = ["--model", root, "--port", "0", "--engine", "paged", "--backend", "w4a8",
+                "--slots", str(G_SLOTS), "--num-pages", str(G_PAGES), "--page-size", str(PAGE),
+                "--max-pages-per-seq", str(MAX_PAGES), "--horizon", str(S_HORIZON)]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        srv = serve_main(argv, serve=False).start()
+        return _r_served(dev_tag, cfg, argv, srv, time.time() - t0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _r_served(dev_tag: str, cfg, argv: list, srv, boot_s: float) -> list:
+    """The rest of `_r_gemma2_9b`, on the started server ``srv`` of
+    ``argv``'s checkpoint: the window, the in-process engine, a steady
+    window's busy share, Generator, and the unfused tree's decode step."""
+    import types
+
+    import numpy as np
+
+    from hqq_tpu_torch import ops
+    from hqq_tpu_torch.backends.pallas_backend import A8QuantLinear
+    from hqq_tpu_torch.engine.hf import HQQModel
+    from hqq_tpu_torch.serve import build_engine, make_parser
+
+    layers, norms = cfg.num_hidden_layers, 4 * cfg.num_hidden_layers + 1
+    eng = srv.engine
+    params, fwd = eng.params, eng._fwd
+    prompts = _g_prompts(cfg, np.random.default_rng(0))
+    steps = []
+    decode = eng._decode
+
+    def counted(h):
+        steps.append(h)
+        return decode(h)
+
+    eng._decode = counted
+    try:
+        if not all(set(layer["self_attn"]) == {"qkv_proj", "o_proj"}
+                   and set(layer["mlp"]) == {"gate_up_proj", "down_proj"}
+                   and isinstance(layer["self_attn"]["qkv_proj"], A8QuantLinear)
+                   and isinstance(layer["mlp"]["gate_up_proj"], A8QuantLinear)
+                   for layer in params["layers"]):
+            raise AssertionError("[r] the served tree is not fused")
+        t_warm = time.time()
+        _s_request(srv.port, prompts[0][:64], 8, False, t_warm)
+        warm_s = time.time() - t_warm
+        # the main path's window: every count from 0, read right after
+        ops.reset_launch_counts()
+        steps.clear()
+        results, window_s = _s_window(srv.port, prompts, R_NEW)
+        launches = launch_counts()
+        n_steps = sum(steps)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        srv.stop()
+    eng.close()
+    del eng, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    expect = {"w4a8_matmul": 4 * layers * n_steps, "paged_attention": 0,
+              "rms_norm": norms * (n_steps + len(prompts)),
+              "quant_matmul": 4 * layers * len(prompts)}
+    for name, n in expect.items():
+        if launches[name] != n:
+            raise AssertionError(f"[r] {launches[name]} {name} launches in the window ({n_steps} "
+                                 f"decode steps, {len(prompts)} prefills), expected {n}")
+
+    # the same requests through the served tree in-process, decode timed
+    outs, recs, inproc_s, _ = _serve_paged(types.SimpleNamespace(params=params, cfg=cfg),
+                                           prompts, R_NEW, horizon=S_HORIZON, forward_fn=fwd)
+    same = [r["tokens"] == o for r, o in zip(results, outs)]
+    decode_s = sum(r["ms"] for r in recs) / 1e3
+    dec_steps = sum(r["steps"] for r in recs)
+    tokens = sum(r["live"] * r["steps"] for r in recs)
+    embed = cfg.vocab_size * cfg.hidden_size * 2  # the tied head, read by every step
+    weights = _step_weight_bytes(params) + embed
+    kv = (sum(r["rows"] for r in recs) / len(recs)
+          * 2 * layers * cfg.num_key_value_heads * cfg.head_dim_ * 2)
+    bound = (weights + kv) / HBM_BYTES_PER_S * 1e3
+    all_tokens = sum(len(r["tokens"]) for r in results)
+    first = sorted(r["first_s"] for r in results if r["chunks"] is not None)
+    log(f"[r] {dev_tag}: serve.main (paged, w4a8, fused, {G_SLOTS} slots, {G_PAGES} pages of "
+        f"{PAGE} rows, horizon {S_HORIZON}) to a started server {boot_s:.2f} s, warm-up "
+        f"{warm_s:.2f} s; 12 requests (prompts {[len(p) for p in prompts]}, {R_NEW} new, greedy) "
+        f"from 12 client threads, 6 streamed: window {window_s:.3f} s, {all_tokens / window_s:.1f} "
+        f"tok/s at the client; time to first token median {first[len(first) // 2]:.3f} s, max "
+        f"{first[-1]:.3f} s; in-process {inproc_s:.3f} s, {all_tokens / inproc_s:.1f} tok/s, "
+        f"ids equal the server's in {sum(same)} of {len(same)}; decode {tokens / decode_s:.1f} "
+        f"tok/s over all slots, {decode_s / dec_steps * 1e3:.2f} ms a step against a byte bound "
+        f"of {bound:.3f} ms ({weights / 1e9:.3f} GB of weights, meta and the tied "
+        f"{cfg.vocab_size} x {cfg.hidden_size} bf16 embedding + {kv / 1e9:.3f} GB of K/V rows on "
+        f"average); the server's peak {peak:.2f} GiB")
+    log(f"[r] launches in the server's window ({n_steps} decode steps, {len(prompts)} "
+        f"prefills): {launches}; a decode step: {4 * layers} w4a8_matmul, {norms} rms_norm, 0 "
+        f"paged_attention (every layer of Gemma-2 has a softcap: the gather route)")
+    if not all(same):
+        raise AssertionError(f"[r] the server's ids differ from the in-process engine's in "
+                             f"{len(same) - sum(same)} of {len(same)} requests")
+
+    # the device's share of a steady decode window: 8 live slots, 8 steps
+    from hqq_tpu_torch.serving.paged import PagedBatchingEngine
+
+    eng = PagedBatchingEngine(params, cfg, batch_slots=G_SLOTS, num_pages=G_PAGES,
+                              page_size=PAGE, max_pages_per_seq=MAX_PAGES, forward_fn=fwd)
+    rng = np.random.default_rng(1)
+    for _ in range(G_SLOTS):
+        eng.add_request(rng.integers(0, cfg.vocab_size, 256), max_new_tokens=R_NEW)
+    eng.step()
+    busy = device_share(lambda: [eng.step() for _ in range(8)])
+    eng.close()
+    del eng
+    log(f"[r] {dev_tag}: 8 decode steps of 8 slots at lengths around 260: device busy "
+        f"{busy['busy_share']:.3f} of {busy['wall_ms']:.1f} ms wall; device ms by kernel "
+        f"{busy['top']}")
+
+    # Generator on the served tree: "partial" (the launch window), then "full"
+    model = HQQModel(params, cfg, "gemma2", quantized=True)
+    prompts4 = _prompts(cfg)
+    partial = dict(compile_mode="partial")
+    ops.reset_launch_counts()
+    model.generate(prompts4, max_new_tokens=1, **partial)
+    torch.cuda.synchronize()
+    per_prefill = launch_counts()
+    t0 = time.time()
+    model.generate(prompts4, max_new_tokens=1, **partial)
+    torch.cuda.synchronize()
+    prefill_s = time.time() - t0
+    before = launch_counts()
+    t0 = time.time()
+    ids = model.generate(prompts4, max_new_tokens=R_GEN_NEW, **partial)
+    torch.cuda.synchronize()
+    partial_tok_s = 4 * (R_GEN_NEW - 1) / (time.time() - t0 - prefill_s)
+    gen_window = launch_counts()
+    per_step = {k: (gen_window[k] - before[k] - per_prefill[k]) / (R_GEN_NEW - 1)
+                for k in ("w4a8_matmul", "rms_norm", "paged_attention")}
+    if per_step != {"w4a8_matmul": 4 * layers, "rms_norm": norms, "paged_attention": 0}:
+        raise AssertionError(f"[r] a partial decode step launched {per_step}")
+    full_ids = model.generate(prompts4, max_new_tokens=R_GEN_NEW)
+    captures = model.generator().captures()
+    t0 = time.time()
+    model.generate(prompts4, max_new_tokens=R_GEN_NEW)
+    torch.cuda.synchronize()
+    full_tok_s = 4 * (R_GEN_NEW - 1) / (time.time() - t0 - prefill_s)
+    full_busy = device_share(lambda: model.generate(prompts4, max_new_tokens=8))
+    model.release_graphs()
+    log(f"[r] {dev_tag}: Generator on the served tree, 4 prompts of 100 tokens, {R_GEN_NEW} new: "
+        f"partial {partial_tok_s:.1f} tok/s, full {full_tok_s:.1f} tok/s (prefill "
+        f"{prefill_s * 1e3:.1f} ms); ids full == partial: {np.array_equal(ids, full_ids)}; "
+        f"graphs' recorded launches {[c['launches'] for c in captures.values()]}; an 8-token "
+        f"full generate busy {full_busy['busy_share']:.3f} of {full_busy['wall_ms']:.1f} ms, "
+        f"device ms {full_busy['device_ms']:.3f}")
+    if not np.array_equal(ids, full_ids):
+        raise AssertionError("[r] the graph's greedy ids differ from the eager loop's")
+    for key, cap in captures.items():
+        if cap["launches"] != {"w4a8_matmul": 4 * layers, "rms_norm": norms}:
+            raise AssertionError(f"[r] graph {key} recorded {cap['launches']}")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the unfused tree of the same checkpoint: the w4a8 launches of a step
+    unfused = build_engine(make_parser().parse_args(argv + ["--no-fuse"]))
+    u_steps = []
+    u_decode = unfused._decode
+    unfused._decode = lambda h: (u_steps.append(h), u_decode(h))[1]
+    ops.reset_launch_counts()
+    unfused.add_request(prompts[2], max_new_tokens=4)
+    unfused.run()
+    u_counts = launch_counts()
+    unfused.close()
+    del unfused
+    gc.collect()
+    torch.cuda.empty_cache()
+    u_per_step = u_counts["w4a8_matmul"] / sum(u_steps)
+    log(f"[r] the unfused tree (--no-fuse): {u_per_step:.0f} w4a8_matmul launches a decode step "
+        f"against the fused tree's {4 * layers}")
+    if u_per_step != 7 * layers:
+        raise AssertionError(f"[r] the unfused decode step made {u_per_step} w4a8 launches")
+    return [launches, gen_window]
+
+
+def phase_r(dev_tag: str) -> list:
+    """Path R, the RMSNorm families: `_r_gemma2_9b`, then `_r_two_layer`
+    for each other family. Returns the launch windows of Gemma-2-9B."""
+    t0 = time.time()
+    windows = _r_gemma2_9b(dev_tag)
+    for model_type, (module, cfg, seed) in _r_configs().items():
+        _r_two_layer(model_type, module, cfg, seed)
+    log(f"[r] phase r: {time.time() - t0:.1f} s")
+    return windows
+
+
 def phase_d(n_layers: int = 2) -> None:
     import dataclasses
     from unittest import mock
@@ -2540,7 +3161,8 @@ def phase_e(dev_tag: str) -> dict:
 
     n = LINEARS_PER_PASS
     launches, model, _ = serve_7b(
-        "e", dev_tag, qcfg, {"quant_matmul_lora": (n, 0), "w4a8_lora_matmul": (0, n)},
+        "e", dev_tag, qcfg, {"quant_matmul_lora": (n, 0), "w4a8_lora_matmul": (0, n),
+                             "rms_norm": (NORMS_PER_PASS, NORMS_PER_PASS)},
         after_quantize=lambda model: add_adapters(model.params, 4))
 
     # the control: the same call with B = 0, the adapter left out
@@ -2621,7 +3243,9 @@ def phase_f(dev_tag: str) -> dict:
             raise AssertionError("dequantize() of a prepared axis=0 layer is wrong")
 
     n = LINEARS_PER_PASS
-    launches, model, _ = serve_7b("f", dev_tag, qcfg, {"quant_matmul_ax0": (n, n)}, extra=extra)
+    launches, model, _ = serve_7b("f", dev_tag, qcfg, {"quant_matmul_ax0": (n, n),
+                                                       "rms_norm": (NORMS_PER_PASS, NORMS_PER_PASS)},
+                                  extra=extra)
     if launches["dequant"] == 0:
         raise AssertionError("the dequant kernel never launched on path F")
     layer0 = model.params["layers"][0]
@@ -2925,6 +3549,30 @@ def check_prefill_options(model, shared, long) -> None:
         raise AssertionError("[g] the bar does not catch another prefix")
 
 
+def _paged_plain(q, k, v, lens, tab, ks=None, vs=None):
+    """The plain paged attention; for bf16 pages on the same values in fp32,
+    so that its own rounding of the probabilities does not blur the bar."""
+    from hqq_tpu_torch.ops import paged as pa
+
+    if ks is None:
+        q, k, v = q.float(), k.float(), v.float()
+    return pa.paged_attention_plain(q, k, v, lens, tab, ks, vs)
+
+
+def _paged_shorter(q, k, v, lens, tab, ks=None, vs=None):  # the newest key left out
+    return _paged_plain(q, k, v, lens - 1, tab, ks, vs)
+
+
+def _paged_other_page(q, k, v, lens, tab, ks=None, vs=None):  # a neighbour slot's first page
+    tab = tab.clone()
+    tab[:, 0] = tab[:, 0].roll(1)
+    return _paged_plain(q, k, v, lens, tab, ks, vs)
+
+
+# the controls of every paged_attention call held on a path
+PAGED_CONTROLS = {"lengths - 1": _paged_shorter, "another slot's page": _paged_other_page}
+
+
 def check_paged_calls(model, prompts) -> None:
     """Three decode steps of 8 live slots of the full model, over bf16 and
     over int8 pages, every paged_attention call held on the spot to its plain
@@ -2935,37 +3583,20 @@ def check_paged_calls(model, prompts) -> None:
     from hqq_tpu_torch.ops import paged as pa
     from hqq_tpu_torch.serving.paged import PagedBatchingEngine
 
-    def plain(q, k, v, lens, tab, ks=None, vs=None):
-        # bf16 pages: the plain version on the same values in fp32, so that
-        # its own rounding of the probabilities does not blur the bar
-        if ks is None:
-            q, k, v = q.float(), k.float(), v.float()
-        return pa.paged_attention_plain(q, k, v, lens, tab, ks, vs)
-
-    def shorter(q, k, v, lens, tab, ks=None, vs=None):  # the newest key left out
-        return plain(q, k, v, lens - 1, tab, ks, vs)
-
-    def other_page(q, k, v, lens, tab, ks=None, vs=None):  # a neighbour slot's first page
-        tab = tab.clone()
-        tab[:, 0] = tab[:, 0].roll(1)
-        return plain(q, k, v, lens, tab, ks, vs)
-
     def neighbour_scale(q, k, v, lens, tab, ks, vs):  # each K row takes the next row's scale
-        return plain(q, k, v, lens, tab, ks.roll(1, dims=2), vs)
+        return _paged_plain(q, k, v, lens, tab, ks.roll(1, dims=2), vs)
 
     for name, kw, tol, controls in (
-            ("bf16 pages", {}, TOL_PAGED_BF16_VS_FP32,
-             {"lengths - 1": shorter, "another slot's page": other_page}),
+            ("bf16 pages", {}, TOL_PAGED_BF16_VS_FP32, PAGED_CONTROLS),
             ("int8 pages", dict(quantize_kv=True), TOL_PAGED_INT8,
-             {"lengths - 1": shorter, "another slot's page": other_page,
-              "neighbour row's scale": neighbour_scale})):
+             {**PAGED_CONTROLS, "neighbour row's scale": neighbour_scale})):
         per_call = {}
         eng = PagedBatchingEngine(model.params, model.cfg, batch_slots=G_SLOTS, num_pages=G_PAGES,
                                   page_size=PAGE, max_pages_per_seq=MAX_PAGES, **kw)
         for p in prompts:
             eng.add_request(p, max_new_tokens=4)
         with mock.patch.object(pa, "paged_attention",
-                               checked(pa.paged_attention, plain, controls, per_call)):
+                               checked(pa.paged_attention, _paged_plain, controls, per_call)):
             eng.run()
         eng.close()
         del eng
@@ -4283,36 +4914,32 @@ def time_one(kernel: str, m: int, k: int, n: int, extra: "str | None" = None,
                 config=config, variant=variant, ms=ms)
 
 
-def _fp32_rms_norm(x, w, eps):
-    """`models.llama.rms_norm` with the mean square summed in fp32."""
-    dt = x.dtype
-    x = x.to(torch.float32)
-    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
-    return (x * w.to(torch.float32)).to(dt)
-
-
 def norm_cost(power: str) -> None:
-    """``--norm``: the device time of a call of `models.llama.rms_norm`
-    (the mean square summed in fp64) against the same norm summed in fp32,
-    bf16 rows of 4096 at the row counts of C's decode step (4), the
-    engines' verify (32) and a prefill or training window (1024), each the
-    mean of 100 calls under torch.profiler. A 7B forward makes 65 norms
-    (two a layer and the final one)."""
+    """``--norm``: the device time of a call of `models.llama.rms_norm` (the
+    fixed-order kernel, csrc/rms_norm.cu) against the route it replaced
+    (the mean square summed in fp64) and PyTorch's fp32 sum, bf16 rows of
+    4096 at the
+    row counts of C's decode step (4), the engines' verify (32) and a
+    prefill or training window (1024), each the mean of 100 calls under
+    torch.profiler. A 7B forward makes 65 norms (two a layer and the final
+    one)."""
     from hqq_tpu_torch.models import llama
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     w = torch.randn(4096, generator=gen, device="cuda").to(torch.bfloat16)
+    routes = (("kernel", llama.rms_norm), ("fp64 sum", _fp64_rms_norm),
+              ("fp32 sum", _fp32_rms_norm))
     for rows in (4, 32, 1024):
         x = torch.randn((rows, 4096), generator=gen, device="cuda").to(torch.bfloat16)
         got = {}
-        for name, fn in (("fp64 sum", llama.rms_norm), ("fp32 sum", _fp32_rms_norm)):
+        for name, fn in routes:
             fn(x, w, 1e-5)
             prof = device_share(lambda: [fn(x, w, 1e-5) for _ in range(100)])
             got[name] = (prof["device_ms"] / 100, prof["events"] / 100)
         log(f"[norm] [{power}] rms_norm of {rows} rows of 4096 (bf16), device ms a call "
             f"(kernels a call): " + "; ".join(f"{k} {ms:.5f} ({n:g})" for k, (ms, n) in got.items())
-            + f"; the fp64 sum's cost in 65 norms: "
-            f"{65 * (got['fp64 sum'][0] - got['fp32 sum'][0]):.4f} ms")
+            + f"; in 65 norms, the kernel against the fp64 sum: "
+            f"{65 * (got['kernel'][0] - got['fp64 sum'][0]):+.4f} ms")
 
 
 def window_probe(power: str) -> None:
@@ -4322,10 +4949,12 @@ def window_probe(power: str) -> None:
     windows of 5 rows (M = 5, a k = 4 round's verify) against 60 one-token
     steps (M = 1) over the dense cache, the share of rows bit-equal and of
     rows whose argmax agrees, the largest logit gap. Variants: the port as
-    it is (RMSNorm's mean square summed in fp64); that sum in fp32 (as
-    it was summed before); fp32 with attention and lm_head a window
-    row at a time; fp32 with RMSNorm a row at a time. Then the engines'
-    route: 8 slots, windows of 4 (M = 32) against steps (M = 8)."""
+    it is (RMSNorm by the fixed-order kernel: every row must be
+    bit-equal); the mean square summed by PyTorch in fp64 (the route the
+    kernel replaced) and in fp32 (before that); fp32 with attention and
+    lm_head a window row at a time; fp32 with RMSNorm a row at a time. Then
+    the engines' route: 8 slots, windows of 4 (M = 32) against steps
+    (M = 8)."""
     from hqq_tpu_torch import BaseQuantizeConfig
     from hqq_tpu_torch.engine.hf import HQQModel
     from hqq_tpu_torch.models import llama
@@ -4383,7 +5012,8 @@ def window_probe(power: str) -> None:
     ids = model.generate(prompt.numpy(), max_new_tokens=64, compile_mode="partial")
     seq = torch.cat([prompt.long(), torch.from_numpy(ids).long()], dim=1).cuda()
     variants = {
-        "as it is (fp64-summed RMSNorm)": {},
+        "as it is (the RMSNorm kernel)": {},
+        "fp64-summed RMSNorm": {"rms_norm": _fp64_rms_norm},
         "fp32-summed RMSNorm": {"rms_norm": fp32_norm},
         "fp32 RMSNorm, attention and lm_head a row at a time": {
             "rms_norm": fp32_norm, "_attention": attention_rows, "_logits": rows(logits_of, 2)},
@@ -4401,6 +5031,9 @@ def window_probe(power: str) -> None:
                     setattr(llama, k, fn)
             log(f"[windows] [{power}] 12 windows of 5 rows vs one-token steps, {name}: rows "
                 f"bit-equal {same:.3f}, argmax agreeing {agree:.3f}, max |logit gap| {gap:.4f}")
+            if not patches and same != 1.0:
+                raise AssertionError(f"[windows] with the norm kernel {same:.3f} of the window "
+                                     f"rows are bit-equal to decode steps, not all")
         seqs = torch.randint(0, cfg.vocab_size, (8, 116),
                              generator=torch.Generator().manual_seed(1)).cuda()
         same, agree, gap = compare(model.params, cfg, seqs, 100, 16, 4)
@@ -4452,6 +5085,7 @@ def main(argv: list[str]) -> int:
     windows.extend(phase_q(dev_tag, c_ids))
     log(f"[q] phases q and s: {time.time() - t_q:.1f} s")
     windows.append(phase_s_dense_int8(dev_tag))
+    windows.extend(phase_r(dev_tag))
     phase_g_two_layer()
     phase_h_two_layer()
     phase_d()

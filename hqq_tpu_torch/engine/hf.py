@@ -4,7 +4,9 @@
 Mirrors `hqq_tpu.engine.hf` (`register_arch`, `HQQModel`,
 `HQQModelForCausalLM`, `AutoHQQHFModel`). The registry maps an HF
 ``model_type`` to its config constructor, forward function and HF state-dict
-loader; llama, and Qwen2/Qwen3 on the llama walk, are registered. The
+loader; llama, Qwen2/Qwen3 on the llama walk and the RMSNorm families
+(mistral, granite, gemma, gemma2, gemma3_text, phi3, olmo2) are
+registered. The
 README's quick start runs as it does in `hqq_tpu`:
 
     model = HQQModelForCausalLM.from_pretrained(local_dir)      # bf16, on cuda
@@ -55,6 +57,30 @@ def _llama_entry() -> dict:
 # "loader": HF state dict -> parameter tree}; Qwen2 (attention biases)
 # and Qwen3 (per-head q/k norms) are Llama-shaped, as in hqq_tpu
 _HQQ_REGISTRY: Dict[str, dict] = {t: _llama_entry() for t in ("llama", "qwen2", "qwen3")}
+
+
+def _register_rmsnorm_families() -> None:
+    """The RMSNorm families on the llama walk, with the loaders `hqq_tpu`
+    names: the Llama loader for Mistral, Granite and Gemma, their own for
+    Gemma-2, Gemma-3, Phi-3 and OLMo-2. Phi-2 (``phi``) waits for the
+    LayerNorm families."""
+    from ..models import gemma, gemma2, gemma3, granite, mistral, olmo2, phi3
+
+    llama_loader = hf_loader.params_from_hf_state_dict
+    for model_type, module, config_cls, loader in (
+        ("mistral", mistral, mistral.MistralConfig, llama_loader),
+        ("granite", granite, granite.GraniteConfig, llama_loader),
+        ("gemma", gemma, gemma.GemmaConfig, llama_loader),
+        ("gemma2", gemma2, gemma2.Gemma2Config, gemma2.params_from_hf_state_dict),
+        ("gemma3_text", gemma3, gemma3.Gemma3Config, gemma3.params_from_hf_state_dict),
+        ("phi3", phi3, phi3.Phi3Config, phi3.params_from_hf_state_dict),
+        ("olmo2", olmo2, olmo2.Olmo2Config, olmo2.params_from_hf_state_dict),
+    ):
+        _HQQ_REGISTRY[model_type] = {"config_cls": config_cls, "forward": module.forward,
+                                     "loader": loader}
+
+
+_register_rmsnorm_families()
 
 
 def register_arch(model_type: str, config_cls, forward, loader) -> None:

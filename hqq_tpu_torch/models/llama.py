@@ -35,6 +35,7 @@ page pool (``seq_axis``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -43,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from ..nn.linear import Linear
+from ..ops.norm import apply_rms_norm
 
 __all__ = [
     "LlamaConfig",
@@ -241,17 +243,25 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=torch.bfloat16,
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm in fp32. The mean square is summed in fp64 and rounded to
-    fp32: a GPU reduction sums in an order that depends on how many rows it
-    reduces, and an fp32 sum then differs in its last bits, which later
-    layers amplify; in fp64 the orders agree to far below fp32's rounding,
-    so a row's norm does not depend on the rows beside it (a speculative
-    verify window's rows give a one-token decode step's logits)."""
-    dt = x.dtype
-    x = x.to(torch.float32)
-    ms = torch.mean(x * x, dim=-1, keepdim=True, dtype=torch.float64).to(torch.float32)
-    x = x * torch.rsqrt(ms + eps)
-    return (x * w.to(torch.float32)).to(dt)
+    """RMSNorm in fp32 (`ops.norm`): one launch of the fixed-order kernel
+    for a CUDA tensor, its plain twin for a CPU one, the autograd Function
+    where a gradient is wanted. A row's mean square is summed in an order
+    set by the width alone, so a row's norm does not depend on the rows
+    beside it (a speculative verify window's rows give a one-token decode
+    step's logits)."""
+    return apply_rms_norm(x, w, eps)
+
+
+@functools.lru_cache(maxsize=64)
+def _scalar_in(m: float, dtype: torch.dtype) -> float:
+    return torch.tensor(m, dtype=dtype).item()
+
+
+def _scaled(x: torch.Tensor, m: float) -> torch.Tensor:
+    """x times the scalar m rounded to x's type, the product in that type
+    (`hqq_tpu`'s ``x * jnp.asarray(m, x.dtype)``); no tensor is made on
+    the device, so a captured step may call it."""
+    return x * _scalar_in(float(m), x.dtype)
 
 
 def _rope_params(head_dim: int, theta: float, scaling: Optional[tuple], device):
@@ -406,22 +416,26 @@ def _update_stacked_cache(k_all: torch.Tensor, v_all: torch.Tensor, layer_idx: i
 
 
 def _qkv_rope(layer: dict, cfg: LlamaConfig, x: torch.Tensor, cos: torch.Tensor,
-              sin: torch.Tensor):
+              sin: torch.Tensor, norm_offset: float = 0.0):
     """The projections of x [B, T, D] as heads [B, H, T, hd], q and k
-    normed per head where the layer has Qwen3's ``q_norm``/``k_norm``, then
-    rotated."""
+    normed where the layer has norms, then rotated: OLMo-2's
+    ``q_norm_flat``/``k_norm_flat`` over the flat projection, Qwen3's and
+    Gemma-3's ``q_norm``/``k_norm`` per head (weights ``w + norm_offset``:
+    1 for Gemma's)."""
     b, t, _ = x.shape
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
-    if "qkv_proj" in layer:  # fused by `fuse_for_decode`: one wide matmul
+    if "qkv_proj" in layer:  # fused by `fuse_for_decode`, or Phi-3's own: one wide matmul
         q, k, v = torch.split(layer["qkv_proj"](x), [nh * hd, nkv * hd, nkv * hd], dim=-1)
     else:
         q, k, v = layer["q_proj"](x), layer["k_proj"](x), layer["v_proj"](x)
-    q = q.reshape(b, t, nh, hd).transpose(1, 2)
-    k = k.reshape(b, t, nkv, hd).transpose(1, 2)
-    v = v.reshape(b, t, nkv, hd).transpose(1, 2)
-    if "q_norm" in layer:
-        q = rms_norm(q, layer["q_norm"], cfg.rms_norm_eps)
-        k = rms_norm(k, layer["k_norm"], cfg.rms_norm_eps)
+    if "q_norm_flat" in layer:
+        q = rms_norm(q, layer["q_norm_flat"], cfg.rms_norm_eps)
+        k = rms_norm(k, layer["k_norm_flat"], cfg.rms_norm_eps)
+    q, k, v = q.reshape(b, t, nh, hd), k.reshape(b, t, nkv, hd), v.reshape(b, t, nkv, hd)
+    if "q_norm" in layer:  # per head, on [B, T, H, hd] before the heads move
+        q = apply_rms_norm(q, layer["q_norm"], cfg.rms_norm_eps, norm_offset)
+        k = apply_rms_norm(k, layer["k_norm"], cfg.rms_norm_eps, norm_offset)
+    q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     return _apply_rope(q, cos, sin), _apply_rope(k, cos, sin), v
 
 
@@ -447,20 +461,23 @@ def _attention_nocache(layer: dict, cfg: LlamaConfig, x: torch.Tensor, mask: tor
 def _attention_paged(layer: dict, cfg: LlamaConfig, x: torch.Tensor, cache, layer_idx: int,
                      lengths: torch.Tensor, page_indices: torch.Tensor, cos: torch.Tensor,
                      sin: torch.Tensor, window: Optional[int] = None,
-                     q_scale: Optional[float] = None) -> torch.Tensor:
+                     q_scale: Optional[float] = None, softcap: Optional[float] = None,
+                     norm_offset: float = 0.0) -> torch.Tensor:
     """Attention over a paged pool: the projections and RoPE of `_attention`,
     but K/V land in pages (in place) and attention is `ops.paged.paged_attn`.
     x is [B, T, D]: T = 1 for decode, T > 1 for a verify window, where all T
     rows are written first and query j attends the keys below
     lengths + j + 1, one paged-attention call each. ``q_scale`` replaces the
-    1/sqrt(hd) query scaling. q goes in pre-scaled, in fp32 with int8 pages
-    and in the pool's type otherwise."""
+    1/sqrt(hd) query scaling (Granite's attention multiplier, Gemma-2's
+    query_pre_attn_scalar); ``softcap`` and ``window`` send the layer to the
+    gather route, as in `hqq_tpu`. q goes in pre-scaled, in fp32 with int8
+    pages and in the pool's type otherwise."""
     from ..ops.paged import paged_attn, write_token_to_pages
 
     b, t, _ = x.shape
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
     pg = cache.page_size
-    q, k, v = _qkv_rope(layer, cfg, x, cos, sin)
+    q, k, v = _qkv_rope(layer, cfg, x, cos, sin, norm_offset)
 
     pos_bt = lengths[:, None] + torch.arange(t, device=x.device)[None, :]  # [B, T]
     page_of = torch.gather(page_indices.long(), 1, pos_bt // pg)
@@ -474,40 +491,59 @@ def _attention_paged(layer: dict, cfg: LlamaConfig, x: torch.Tensor, cache, laye
     scale = hd**-0.5 if q_scale is None else q_scale
     qd = (q * scale).to(qdt)  # [B, nh, T, hd]
     attn = torch.stack(
-        [paged_attn(qd[:, :, j], cache, layer_idx, lengths + j + 1, page_indices, window=window)
+        [paged_attn(qd[:, :, j], cache, layer_idx, lengths + j + 1, page_indices, window=window,
+                    softcap=softcap)
          for j in range(t)], dim=1)  # [B, T, nh, hd]
     out = attn.reshape(b, t, nh * hd).to(x.dtype)
     return layer["o_proj"](out)
 
 
-def _attention(layer: dict, cfg: LlamaConfig, x: torch.Tensor, cache: KVCache, layer_idx: int,
-               start_pos, mask: torch.Tensor, cos: torch.Tensor,
-               sin: torch.Tensor) -> torch.Tensor:
+def _scores(q: torch.Tensor, keys: torch.Tensor, hd: int, scale: Optional[float],
+            softcap: Optional[float]) -> torch.Tensor:
+    """q @ keys^T summed and kept in fp32 (`preferred_element_type=float32`),
+    divided by sqrt(hd) or multiplied by ``scale``, then capped as
+    ``softcap * tanh(s / softcap)`` where given."""
+    scores = q.to(torch.float32) @ keys.to(torch.float32).transpose(-1, -2)
+    scores = scores / math.sqrt(hd) if scale is None else scores * scale
+    return scores if softcap is None else torch.tanh(scores / softcap) * softcap
+
+
+def _attention(layer: dict, cfg: LlamaConfig, x: torch.Tensor, cache: Optional[KVCache],
+               layer_idx: int, start_pos, mask: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor, scale: Optional[float] = None, softcap: Optional[float] = None,
+               norm_offset: float = 0.0) -> torch.Tensor:
     """Attention over the stacked dense cache; writes the layer's new K/V
-    into ``cache`` in place."""
+    into ``cache`` in place. With ``cache=None`` the keys are the sequence's
+    own (the families whose cache-free attention is the naive product in
+    `hqq_tpu`). ``scale`` replaces 1/sqrt(hd), ``softcap`` caps the scores
+    (Granite, Gemma-2/3)."""
     b, t, _ = x.shape
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
-    q, k, v = _qkv_rope(layer, cfg, x, cos, sin)
+    q, k, v = _qkv_rope(layer, cfg, x, cos, sin, norm_offset)
     rep = nh // nkv  # GQA: each kv head serves rep query heads
-    if cache.quantized:
-        return layer["o_proj"](_attention_int8(q, k, v, cache, layer_idx, start_pos, mask, rep))
+    if cache is not None and cache.quantized:
+        return layer["o_proj"](_attention_int8(q, k, v, cache, layer_idx, start_pos, mask, rep,
+                                               scale, softcap))
 
-    _update_stacked_cache(cache.k, cache.v, layer_idx, k, v, start_pos)
-    keys, vals = cache.k[layer_idx], cache.v[layer_idx]
+    if cache is None:
+        keys, vals = k, v
+    else:
+        _update_stacked_cache(cache.k, cache.v, layer_idx, k, v, start_pos)
+        keys, vals = cache.k[layer_idx], cache.v[layer_idx]
     if rep > 1:
         keys = _repeat_heads(keys, rep)
         vals = _repeat_heads(vals, rep)
 
-    # scores summed and kept in fp32, as `preferred_element_type=float32`
-    scores = (q.to(torch.float32) @ keys.to(torch.float32).transpose(-1, -2)) / math.sqrt(hd)
-    probs = torch.softmax(scores + mask, dim=-1).to(q.dtype)
+    probs = torch.softmax(_scores(q, keys, hd, scale, softcap) + mask, dim=-1).to(q.dtype)
     out = probs @ vals
     out = out.transpose(1, 2).reshape(b, t, nh * hd)
     return layer["o_proj"](out)
 
 
 def _attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache: KVCache,
-                    layer_idx: int, start_pos, mask: torch.Tensor, rep: int) -> torch.Tensor:
+                    layer_idx: int, start_pos, mask: torch.Tensor, rep: int,
+                    scale: Optional[float] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
     """`_attention` over int8 pools: the new rows absmax-quantized per row
     and written with their scales, then the scales applied after the
     products (`hqq_tpu`'s scale-after-dot): the K scales multiply the score
@@ -526,8 +562,13 @@ def _attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache: KV
         keys, vals = _repeat_heads(keys, rep), _repeat_heads(vals, rep)
         ksl, vsl = _repeat_heads(ksl, rep), _repeat_heads(vsl, rep)
     ksl, vsl = ksl[..., 0], vsl[..., 0]  # [B, nh, S]
-    scores = (q.to(torch.float32) @ keys.to(torch.float32).transpose(-1, -2)) * (
-        ksl[:, :, None, :] / math.sqrt(hd))
+    scores = q.to(torch.float32) @ keys.to(torch.float32).transpose(-1, -2)
+    if scale is None:
+        scores = scores * (ksl[:, :, None, :] / math.sqrt(hd))
+    else:
+        scores = scores * ksl[:, :, None, :] * scale
+    if softcap is not None:
+        scores = torch.tanh(scores / softcap) * softcap
     probs = torch.softmax(scores + mask, dim=-1)
     probs = (probs * vsl[:, :, None, :]).to(q.dtype)
     out = probs @ vals.to(q.dtype)

@@ -81,6 +81,10 @@ KERNELS = {
         "paged_attention.cu", "hqq_paged_attention", [_P] * 9 + [_I] * 17 + [_P],
     ),
     "qmm_fp32": ("qmm_fp32.cu", "hqq_qmm_fp32", [_P] * 8 + [_I] * 15 + [_P]),
+    "rms_norm": (
+        "rms_norm.cu", "hqq_rms_norm",
+        [_P] * 3 + [_I] * 2 + [ctypes.c_float] * 2 + [_I] * 5 + [_P],
+    ),
     "w4a8_matmul": ("w4a8_matmul.cu", "hqq_w4a8_matmul", [_P] * 6 + [_I] * 13 + [_P]),
     "w4a8_lora_matmul": (
         "w4a8_matmul.cu", "hqq_w4a8_lora_matmul", [_P] * 8 + [_I] * 14 + [_P],

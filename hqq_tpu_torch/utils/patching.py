@@ -24,7 +24,8 @@ base converts in place.
 `fuse_for_decode` then joins each layer's q, k and v into one
 ``qkv_proj`` and gate and up into one ``gate_up_proj`` (`A8QuantLinear`,
 `Int8QuantLinear` and `Linear`), so a decode step makes 4 matmul launches
-a layer instead of 7.
+a layer instead of 7. An OLMo-2 layer (``q_norm_flat``) stays as it is,
+as in `hqq_tpu`: its q and k are normed over their own projections.
 """
 
 from __future__ import annotations
@@ -146,6 +147,8 @@ def fuse_for_decode(params, pad_to: int = 8):
     def fuse_layer(layer: dict) -> dict:
         out = dict(layer)
         sa = layer.get("self_attn")
+        if isinstance(sa, dict) and "q_norm_flat" in sa:
+            return out  # OLMo-2 norms q and k over their own projections: the layer stays
         if isinstance(sa, dict) and all(k in sa for k in ("q_proj", "k_proj", "v_proj")):
             fused = _concat_linears([sa["q_proj"], sa["k_proj"], sa["v_proj"]])
             if fused is not None:
