@@ -1,6 +1,7 @@
 # SPDX-License-Identifier: Apache-2.0
-"""Chip smoke test of hqq_tpu_torch: HQQ Llama-2-7B on one GPU, ten ways, and
-the RMSNorm families (Gemma-2-9B through the server).
+"""Chip smoke test of hqq_tpu_torch: HQQ Llama-2-7B on one GPU, ten ways, the
+RMSNorm families (Gemma-2-9B through the server) and the LayerNorm families
+(Falcon-7B through the server).
 
     python3 chip_smoke.py            # on cuda:0, every phase
     python3 chip_smoke.py --time quant_matmul 512 4096 4096      # one kernel
@@ -15,7 +16,7 @@ the RMSNorm families (Gemma-2-9B through the server).
     python3 chip_smoke.py --time flash_attention_backward_dq 1 1024 32 32-128-fp32  # KV-HD-TYPE
     python3 chip_smoke.py --ids          # phase g's greedy ids, to compare two checkouts
     python3 chip_smoke.py --windows      # verify-window rows against decode steps' logits
-    python3 chip_smoke.py --norm         # the rms_norm kernel against fp64 and fp32 sums, device ms
+    python3 chip_smoke.py --norm         # the rms_norm and layer_norm kernels, PyTorch's sums
 
 Phases (any failure exits non-zero):
   (a) device and build: the card, its power limit, an nvcc build of every
@@ -215,8 +216,36 @@ Phases (any failure exits non-zero):
       of 4, 32 and 1024 rows, where PyTorch's fp32 mean must not be) and
       torch.nn.functional.rms_norm, the w4a8 and quant_matmul kernels at
       Gemma-2-9B's shapes, and paged_attention at 16/8 heads of 256.
+  (l) the LayerNorm families: Falcon-7B at full width and depth
+      (tiiuae/falcon-7b: hidden 4544, 32 layers, 71 heads of 64,
+      multi-query, parallel attention from one norm, no bias, vocab 65024,
+      tied head), random bf16 weights from seed 0, quantize_model(4-bit
+      g64), save_quantized, then `serve.main` on the checkpoint with its
+      defaults (w4a8, fused, which leaves Falcon's tree as it is; no paged
+      branch: the dense engine of 8 slots) and max_len 2048; G's 12
+      requests from 12 client threads (6 streamed), ids equal to an
+      in-process ContinuousBatchingEngine's on the served tree; a decode
+      step makes 128 w4a8_matmul, 33 layer_norm and 0 rms_norm launches;
+      the first and last layer's four linears held on the path's own
+      activations at decode and prefill (phase b's bars and controls; K =
+      4544, not whole 256-code stages, on a line of its own); decode tok/s
+      against a byte bound that counts the tied embedding, busy share, peak
+      memory; Generator "partial" and "full". Then one 2-layer model at the
+      published widths of starcoder2-7b, phi-2, c4ai-command-r-plus,
+      gpt2-xl (K = 1600 on a line of its own), bloom-7b1 and falcon-rw-1b
+      (ALiBi), norm weights and biases drawn: the checkpoint through
+      save_quantized and from_quantized bit-equal, a prefill and 4 decode
+      steps under w4a8 with every w4a8_matmul, quant_matmul and layer_norm
+      call held to its plain twin (the norm bit-equal; controls mu left out
+      and, but for Cohere's weight-only norm, the bias dropped). Phase b
+      holds layer_norm bit-equal to its twin over fp32/bf16/fp16 rows of the
+      families' widths with and without a bias and per-head weights, with
+      those controls, every row normed alone bit-equal inside calls of 4, 32
+      and 1024 rows, and times it at 4, 32 and 1024 rows of 4544 and 4096
+      against the byte bound and torch.nn.functional.layer_norm; and the
+      w4a8 and quant_matmul kernels at Falcon-7B's shapes.
 Phases g, h, v and m run right after c, on its model, then q and s, then r,
-then d.
+then l, then d.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -310,6 +339,10 @@ KERNELS = {
     # fixed-order fp32 kernel, so that a row's norm does not depend on its
     # neighbours; Gemma's (1 + w) norm with offset 1
     "rms_norm": ("rms_norm.cu", "hqq_tpu/models/llama.py:268", "hqq_tpu/models/gemma.py:68"),
+    # LayerNorm, which hqq_tpu also leaves to XLA's fusion: the same fixed
+    # order, two sums a row; the LayerNorm families' norms
+    "layer_norm": ("rms_norm.cu", "hqq_tpu/models/vit.py:131",
+                   "hqq_tpu/models/phi.py:153, hqq_tpu/models/cohere.py:75"),
 }
 # the row of phase b that stands for each kernel in the last-but-one line
 PICK = {
@@ -329,6 +362,7 @@ PICK = {
     "flash_attention_backward_dkv_fp32": (1, 1024, 32, "fp32, causal, 32/32 heads, head size 128"),
     "flash_attention_backward_dq_fp32": (1, 1024, 32, "fp32, causal, 32/32 heads, head size 128"),
     "rms_norm": (4, 4096, 4096, "bf16, offset 0"),
+    "layer_norm": (4, 4544, 4544, "bf16, bias"),
 }
 # head size and page geometry of the attention rows and of paths G and H
 HEAD_DIM, PAGE, MAX_PAGES = 128, 16, 64
@@ -337,6 +371,10 @@ HEAD_DIM, PAGE, MAX_PAGES = 128, 16, 64
 R_DECODE_SHAPES = [(4, 3584, 4096), (4, 3584, 8192), (4, 3584, 28672), (4, 14336, 3584),
                    (4, 4096, 3584)]
 R_PREFILL_SHAPES = [(512, 3584, 8192), (512, 3584, 28672)]
+# path L's Falcon-7B matmuls (M, K, N) at the dense engine's decode (8
+# slots): query_key_value, dense_h_to_4h, dense_4h_to_h; at prefill
+L_DECODE_SHAPES = [(8, 4544, 4672), (8, 4544, 18176), (8, 18176, 4544)]
+L_PREFILL_SHAPES = [(512, 4544, 4672), (512, 4544, 18176)]
 # fuse_for_decode's widths at 7B: fused N -> (the N of its parts, how many)
 FUSED_WIDTHS = {12288: (4096, 3), 22016: (11008, 2)}
 LORA_RANK, LORA_ALPHA, LORA_B_STD = 8, 16, 0.05
@@ -368,16 +406,19 @@ def containers(tree):
     return tree
 
 
-def checked(kernel, plain, controls: dict, log: dict):
+def checked(kernel, plain, controls: dict, log: dict, key=None):
     """``kernel`` held on the spot to ``plain`` on the same inputs (the
     activations the path really produces), and each control likewise. The
     result stands in for the wrapper (mock.patch) and returns the kernel's
     output, so the path runs on it. The wrapper counts its launches on
-    whatever its module name holds, here this function."""
+    whatever its module name holds, here this function. ``key(*args)``,
+    where given, is logged with each call under "keys"."""
     def fn(*args):
         y = kernel(*args)
         ref = plain(*args)
         log.setdefault("kernel", []).append(rel(y, ref))
+        if key is not None:
+            log.setdefault("keys", []).append(key(*args))
         for name, control in controls.items():
             log.setdefault(name, []).append(rel(control(*args), ref))
         return y
@@ -855,6 +896,119 @@ def phase_b_norm(record, iters: int) -> None:
             shape=dict(rows=rows, d=d, dtype="bf16", offset=offset)))
 
 
+# layer_norm's widths: Cohere's per-head q/k (128), gpt2-xl 1600, falcon-rw
+# 2048, phi-2 2560, bloom 4096, Falcon-7B 4544, StarCoder2-7B 4608, 8192,
+# Command-R+ 12288, and 100 (not whole 16-byte vectors); the timed rows:
+# Falcon-7B's and bloom's widths at 4, 32 and 1024 rows
+LN_WIDTHS = [100, 128, 1600, 2048, 2560, 4096, 4544, 4608, 8192, 12288]
+LN_ROWS = [(rows, d) for d in (4544, 4096) for rows in (4, 32, 1024)]
+
+
+def _fp32_layer_norm(x, w, b, eps):
+    """LayerNorm with its means taken by PyTorch in fp32 (the order of
+    `torch.mean`, which depends on the rows one call reduces)."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    c = x - x.mean(dim=-1, keepdim=True)
+    y = c * torch.rsqrt((c * c).mean(dim=-1, keepdim=True) + eps) * w.to(torch.float32)
+    return (y if b is None else y + b.to(torch.float32)).to(dt)
+
+
+def _ln_fp32_rows(x, w, eps, b):
+    """`_fp32_layer_norm` in `_rows_invariant`'s argument order."""
+    return _fp32_layer_norm(x, w, b, eps)
+
+
+def _ln_no_bias(x, w, b, eps):
+    """A control of layer_norm: the bias dropped."""
+    from hqq_tpu_torch.ops import norm as nm
+
+    return nm.layer_norm_plain(x, w, None, eps)
+
+
+def _ln_no_mean(x, w, b, eps):
+    """A control of layer_norm: mu left out (the RMS form), bias kept."""
+    from hqq_tpu_torch.ops import norm as nm
+
+    y = nm.rms_norm_plain(x, w, eps).to(torch.float32)
+    return (y if b is None else y + b.to(torch.float32)).to(x.dtype)
+
+
+def phase_b_layer_norm(record, iters: int) -> None:
+    """layer_norm (csrc/rms_norm.cu) against its plain twin, bit for bit,
+    over fp32, bf16 and fp16 rows of the families' widths, with and
+    without a bias, and per-head weights [H, 128] on a strided view (Cohere's
+    q/k norm); the controls (the bias dropped, mu left out) must miss; each
+    row normed alone bit-equal to the same row inside calls of 4, 32 and
+    1024 rows, where the control (PyTorch's fp32 means) must not be; then
+    the timed rows against the byte bound, the twin and
+    torch.nn.functional.layer_norm (a yardstick the port never calls)."""
+    import torch.nn.functional as F
+
+    from hqq_tpu_torch.ops import norm as nm
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    eps = 1e-5
+    misses = {"bias dropped": [], "mu left out": []}
+    for dt in (torch.bfloat16, torch.float16, torch.float32):
+        for d in LN_WIDTHS:
+            x = (torch.randn((37, d), generator=gen, device="cuda") * 3 + 1).to(dt)
+            w = (1 + torch.randn(d, generator=gen, device="cuda") * 0.1).to(dt)
+            b = (torch.randn(d, generator=gen, device="cuda") * 0.1).to(dt)
+            for bias in (b, None):
+                y, ref = nm.layer_norm(x, w, bias, eps), nm.layer_norm_plain(x, w, bias, eps)
+                if not torch.equal(y, ref) or not torch.isfinite(y.float()).all():
+                    err = (y.float() - ref.float()).abs().max().item()
+                    raise AssertionError(f"layer_norm {dt} d={d} bias {bias is not None}: not "
+                                         f"bit-equal to its twin, max |err| {err}")
+            ref = nm.layer_norm_plain(x, w, b, eps)
+            misses["bias dropped"].append(rel(_ln_no_bias(x, w, b, eps), ref))
+            misses["mu left out"].append(rel(_ln_no_mean(x, w, b, eps), ref))
+    x = torch.randn((3, 5, 8, 128), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (1 + torch.randn((5, 128), generator=gen, device="cuda") * 0.1).to(torch.float32)
+    xt = x.transpose(1, 2)  # [B, T, H, hd] as a strided view, H = 5
+    if not torch.equal(nm.layer_norm(xt, w, None, eps), nm.layer_norm_plain(xt, w, None, eps)):
+        raise AssertionError("layer_norm of a strided view with per-head weights: not bit-equal")
+    least = {c: min(v) for c, v in misses.items()}
+    log(f"[b] layer_norm: bit-equal to its twin over {3 * len(LN_WIDTHS) * 2} cases (fp32, bf16, "
+        f"fp16 rows of {LN_WIDTHS}, with and without a bias) and per-head weights on a strided "
+        f"view; controls, rel err at the least {least} (each must exceed 0)")
+    if not all(v > 0 for v in least.values()):
+        raise AssertionError(f"layer_norm: a control matched the twin: {least}")
+
+    for rows, d in LN_ROWS:
+        x = (torch.randn((max(rows, 1024), d), generator=gen, device="cuda") + 1).to(
+            torch.bfloat16)
+        w = (1 + torch.randn(d, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+        b = (torch.randn(d, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+        # `_rows_invariant` hands its last argument on: here the bias
+        inv = _rows_invariant(lambda a, w_, e, b_: nm.layer_norm(a, w_, b_, e), x, w, eps, b)
+        ctl = _rows_invariant(_ln_fp32_rows, x, w, eps, b)
+        if inv != 1.0 or not ctl < 1.0:
+            raise AssertionError(f"layer_norm d={d}: rows invariant {inv} (must be 1), the fp32 "
+                                 f"means' control {ctl} (must be < 1)")
+        x = x[:rows]
+        y, ref = nm.layer_norm(x, w, b, eps), nm.layer_norm_plain(x, w, b, eps)
+        torch.cuda.synchronize()
+        err = (y.float() - ref.float()).abs().max().item()
+        if err != 0.0:
+            raise AssertionError(f"layer_norm {rows} x {d}: max |err| {err} against its twin")
+        each = 2 * x.numel() * x.element_size()
+        xs = [x] + [x.clone() for _ in range(max(1, min(64, -(-ROTATE_BYTES // each))) - 1)]
+        ms = time_ms([lambda a=a: nm.layer_norm(a, w, b, eps) for a in xs], iters)
+        plain = time_ms([lambda: nm.layer_norm_plain(x, w, b, eps)], max(3, iters // 10))
+        lib = time_ms([lambda a=a: F.layer_norm(a, (d,), w, b, eps) for a in xs], iters)
+        del xs
+        b_ms, by = bound_ms(each + 2 * d * w.element_size(), 0.0, "bf16",
+                            fp32_ops=8.0 * x.numel())
+        record("layer_norm", dict(
+            kernel="layer_norm", m=rows, k=d, n=d, max_abs_err=err, ms=ms, plain_ms=plain,
+            bound_ms=b_ms, bound_by=by, library_ms=lib, note="bf16, bias",
+            library="torch.nn.functional.layer_norm", rows_invariant=inv,
+            control_fp32_mean_invariant=ctl, plan=str(nm.norm_launch_plan(d, torch.bfloat16)),
+            shape=dict(rows=rows, d=d, dtype="bf16", bias=True)))
+
+
 def phase_b() -> dict:
     from hqq_tpu_torch.ops import fused_matmul as fm
 
@@ -874,6 +1028,7 @@ def phase_b() -> dict:
     cases.append((4, 4096 + 3 * g, 4096))  # K % 8g != 0 (the `_qmm_a8_kernel` route)
     cases += [(8, 4096, n) for n in FUSED_WIDTHS]  # fuse_for_decode's q/k/v and gate/up
     cases += R_DECODE_SHAPES  # path R's Gemma-2-9B
+    cases += L_DECODE_SHAPES  # path L's Falcon-7B (K = 4544: not whole 256-code stages)
     for (m, k, n) in cases:
         x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
         x8, sx = fm.quantize_activations_int8(x)
@@ -905,7 +1060,7 @@ def phase_b() -> dict:
     # 1023), and at M = 4 (the pallas backend's decode, 8-bit weights) ------
     qmm_shapes = [(4096, 4096), (4096, 11008), (11008, 4096)]
     for (m, k, n) in [(m, k, n) for m in (512, 1023) for (k, n) in qmm_shapes] + [(4, 4096, 4096)] \
-            + [(512, 4096, n) for n in FUSED_WIDTHS] + R_PREFILL_SHAPES:
+            + [(512, 4096, n) for n in FUSED_WIDTHS] + R_PREFILL_SHAPES + L_PREFILL_SHAPES:
         kqt = _make_kqt(n, k, g, 4, seed=k * 3 + n)
         x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
         y = fm.quant_matmul(x, kqt).float()
@@ -1033,6 +1188,7 @@ def phase_b() -> dict:
     torch.cuda.empty_cache()
     phase_b_attention(record, held, iters)
     phase_b_norm(record, iters)
+    phase_b_layer_norm(record, iters)
     phase_b_bf16_meta(record, held, iters)
     phase_b_fp32(record, held, iters)
     phase_b_backward(record, held, iters)
@@ -2603,13 +2759,14 @@ def _offset_toggled(x, w, eps, offset=0.0):
     return nm.rms_norm_plain(x, w, eps, 1.0 - offset)
 
 
-def _r_calls(tag: str, fwd, params, cfg, toks, t: int, steps: int) -> dict:
+def _r_calls(tag: str, fwd, params, cfg, toks, t: int, steps: int, norm=None) -> dict:
     """A prefill of ``t`` tokens (M = 4 t) and ``steps`` decode steps over
-    the dense cache, every w4a8_matmul, quant_matmul and rms_norm call held
+    the dense cache, every w4a8_matmul, quant_matmul and norm call held
     on the spot to its plain twin on the path's own inputs: the matmuls
     within phase b's 2^-7 of max|y| (controls: each group with its
-    neighbour's scale), the norm bit-equal (control: the offset toggled).
-    Returns the readings by wrapper."""
+    neighbour's scale), the norm bit-equal (rms_norm's control: the offset
+    toggled; ``norm`` = (wrapper name, plain twin, controls) for another).
+    Returns the readings by wrapper, the matmuls' worst also by K."""
     import dataclasses
     from unittest import mock
 
@@ -2624,14 +2781,16 @@ def _r_calls(tag: str, fwd, params, cfg, toks, t: int, steps: int) -> dict:
     def qmm_scale(x, kqt):
         return fm.quant_matmul_plain(x, dataclasses.replace(kqt, scale=kqt.scale.roll(1, 1)))
 
-    logs = {"w4a8_matmul": {}, "quant_matmul": {}, "rms_norm": {}}
+    norm = norm or ("rms_norm", nm.rms_norm_plain, {"offset toggled": _offset_toggled})
+    logs = {"w4a8_matmul": {}, "quant_matmul": {}, norm[0]: {}}
     held = [(fm, "w4a8_matmul", fm.w4a8_matmul_plain, {"neighbour's scale": w4a8_scale}, 2.0**-7),
             (fm, "quant_matmul", fm.quant_matmul_plain, {"neighbour's scale": qmm_scale},
              2.0**-7),
-            (nm, "rms_norm", nm.rms_norm_plain, {"offset toggled": _offset_toggled}, 0.0)]
+            (nm, norm[0], norm[1], norm[2], 0.0)]
+    k_of = {"w4a8_matmul": lambda *a: a[2].k, "quant_matmul": lambda *a: a[1].k}
     with torch.inference_mode():
         patches = [mock.patch.object(mod, name, checked(getattr(mod, name), plain, ctl,
-                                                        logs[name]))
+                                                        logs[name], k_of.get(name)))
                    for mod, name, plain, ctl, _ in held]
         for pt in patches:
             pt.start()
@@ -2649,8 +2808,13 @@ def _r_calls(tag: str, fwd, params, cfg, toks, t: int, steps: int) -> dict:
     for _, name, _, _, tol in held:
         per_call = logs[name]
         worst = max(per_call["kernel"])
-        least = {c: min(v) for c, v in per_call.items() if c != "kernel"}
+        least = {c: min(v) for c, v in per_call.items() if c not in ("kernel", "keys")}
         out[name] = dict(calls=len(per_call["kernel"]), worst=worst, least=least)
+        if "keys" in per_call:
+            by_k = {}
+            for k, e in zip(per_call["keys"], per_call["kernel"]):
+                by_k[k] = max(by_k.get(k, 0.0), e)
+            out[name]["worst_by_k"] = by_k
         if not worst <= tol or not all(v > tol for v in least.values()):
             raise AssertionError(f"[{tag}] {name}: {len(per_call['kernel'])} calls, rel err up "
                                  f"to {worst:.3e} (bar {tol:.1e}); controls at the least {least} "
@@ -2733,13 +2897,15 @@ def _kernel_layers(model_type: str, cfg) -> int:
     return 0 if cfg.sliding_window is not None else cfg.num_hidden_layers
 
 
-def _r_two_layer(model_type: str, module, cfg, seed: int) -> None:
+def _r_two_layer(model_type: str, module, cfg, seed: int, norm=None, prepare=None) -> dict:
     """One family at its published width, 2 layers: random bf16 weights
     from ``seed``, 4-bit g64; its checkpoint through save_quantized and
     from_quantized (every tensor bit-equal, the config equal); w4a8; a
-    prefill and 4 decode steps with every kernel call held (`_r_calls`);
-    where the family has a paged branch, paged decode against the dense
-    cache (`_r_paged`)."""
+    prefill and 4 decode steps with every kernel call held (`_r_calls`,
+    ``norm`` its norm's twin and controls); where the family has a paged
+    branch, paged decode against the dense cache (`_r_paged`).
+    ``prepare(params, generator)`` changes the drawn tree first. Returns
+    the calls' readings."""
     import inspect
     import shutil
     import tempfile
@@ -2749,10 +2915,12 @@ def _r_two_layer(model_type: str, module, cfg, seed: int) -> None:
     from hqq_tpu_torch.models.base import quantize_model
     from hqq_tpu_torch.utils.patching import prepare_for_inference
 
-    tag = f"r {model_type}"
+    tag = f"{'r' if norm is None else 'l'} {model_type}"
     t0 = time.time()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = module.init_params(cfg, gen, torch.bfloat16, "cuda")
+    if prepare is not None:
+        prepare(params, gen)
     quantize_model(params, BaseQuantizeConfig(nbits=4, group_size=64))
     root = tempfile.mkdtemp(prefix="hqq-families-")
     try:
@@ -2767,12 +2935,13 @@ def _r_two_layer(model_type: str, module, cfg, seed: int) -> None:
     params = prepare_for_inference(params, "w4a8")
     toks = torch.randint(0, cfg.vocab_size, (4, 132), device="cuda",
                          generator=torch.Generator(device="cuda").manual_seed(seed + 1))
-    calls = _r_calls(tag, module.forward, params, cfg, toks, 128, 4)
+    calls = _r_calls(tag, module.forward, params, cfg, toks, 128, 4, norm)
     paged = None
     if "page_indices" in inspect.signature(module.forward).parameters:
         paged = _r_paged(tag, module.forward, params, cfg, toks, _kernel_layers(model_type, cfg))
+    ffn = getattr(cfg, "intermediate_size", 4 * cfg.hidden_size)
     log(f"[{tag}] 2 layers at published width (hidden {cfg.hidden_size}, ffn "
-        f"{cfg.intermediate_size}, heads {cfg.num_attention_heads}/{cfg.num_key_value_heads} of "
+        f"{ffn}, heads {cfg.num_attention_heads}/{cfg.num_key_value_heads} of "
         f"{cfg.head_dim_}, vocab {cfg.vocab_size}): checkpoint {n_tensors} tensors bit-equal; "
         f"a prefill (M=512) and 4 decode steps, calls against their plain twins (calls, worst, "
         f"controls at the least): {calls}; paged decode against the dense cache: {paged}; "
@@ -2780,6 +2949,7 @@ def _r_two_layer(model_type: str, module, cfg, seed: int) -> None:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    return calls
 
 
 def _r_gemma2_9b(dev_tag: str) -> list:
@@ -3019,6 +3189,366 @@ def phase_r(dev_tag: str) -> list:
     for model_type, (module, cfg, seed) in _r_configs().items():
         _r_two_layer(model_type, module, cfg, seed)
     log(f"[r] phase r: {time.time() - t0:.1f} s")
+    return windows
+
+
+# -- path L: the LayerNorm families ---------------------------------------------
+L_MAX_LEN = 2048  # Falcon-7B's positions: G's longest prompt (640, t_pad 1024) + 32 new
+
+
+def _l_configs() -> dict:
+    """model_type -> (module, config at its published widths, cut to 2
+    layers, seed): bigcode/starcoder2-7b, microsoft/phi-2,
+    CohereForAI/c4ai-command-r-plus, gpt2-xl, bigscience/bloom-7b1 and
+    tiiuae/falcon-rw-1b (ALiBi, sequential blocks, biases)."""
+    import dataclasses
+
+    from hqq_tpu_torch.models import bloom, cohere, falcon, gpt2, phi, starcoder2
+
+    two = dict(num_hidden_layers=2)
+    return {
+        "starcoder2": (starcoder2, dataclasses.replace(
+            starcoder2.Starcoder2Config.starcoder2_7b(), **two), 41),
+        "phi": (phi, dataclasses.replace(phi.PhiConfig.phi2(), **two), 42),
+        "cohere": (cohere, dataclasses.replace(cohere.CohereConfig.command_r_plus(), **two), 43),
+        "gpt2": (gpt2, dataclasses.replace(gpt2.GPT2Config.gpt2_xl(), **two), 44),
+        "bloom": (bloom, bloom.BloomConfig(vocab_size=250880, hidden_size=4096,
+                                           num_attention_heads=32, **two), 45),
+        "falcon": (falcon, falcon.FalconConfig(
+            vocab_size=50304, hidden_size=2048, num_attention_heads=32, alibi=True,
+            multi_query=False, parallel_attn=False, bias=True, **two), 46),
+    }
+
+
+def _l_perturb(params, gen) -> None:
+    """Every norm weight 1 + N(0, 0.1^2) and every norm and linear bias
+    N(0, 0.1^2) (init leaves them 1 and 0, where a dropped bias would not
+    show), in place, from ``gen``."""
+    def draw(t, base):
+        return (base + 0.1 * torch.randn(t.shape, generator=gen, device=t.device)).to(t.dtype)
+
+    def walk(node, name=""):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                if isinstance(v, torch.Tensor):
+                    if k == "bias":
+                        node[k] = draw(v, 0.0)
+                    elif "norm" in k or "ln" in name or "norm" in name:
+                        node[k] = draw(v, 1.0)
+                else:
+                    walk(v, k)
+        elif isinstance(node, list):
+            for v in node:
+                walk(v, name)
+        elif getattr(node, "bias", None) is not None:
+            node.bias.data = draw(node.bias.data, 0.0)
+
+    walk(params)
+
+
+def _l_norm(cfg):
+    """layer_norm's twin and controls for `_r_calls`: mu left out (the RMS
+    form) always, the bias dropped where the norms have one (not Cohere's)."""
+    from hqq_tpu_torch.models.cohere import CohereConfig
+    from hqq_tpu_torch.ops import norm as nm
+
+    controls = {"mu left out": _ln_no_mean}
+    if not isinstance(cfg, CohereConfig):
+        controls["bias dropped"] = _ln_no_bias
+    return "layer_norm", nm.layer_norm_plain, controls
+
+
+def _l_falcon_7b(dev_tag: str) -> list:
+    """Falcon-7B at full width and depth (tiiuae/falcon-7b: hidden 4544, 32
+    layers, 71 heads of 64, multi-query, parallel attention from one norm,
+    no bias, no ALiBi, vocab 65024, tied head): random bf16 weights from
+    seed 0, 4-bit g64, save_quantized; `serve.main` on the checkpoint with
+    its defaults (w4a8, fused: Falcon's tree stays as it is; the paged
+    engine asked, the dense one served) and a max_len of 2048; G's 12
+    requests from 12 client threads (6 streamed), ids equal to an
+    in-process ContinuousBatchingEngine's on the served tree; the first and
+    last layer's four linears held on the path's own activations; then
+    `Generator` on the tree, "partial" and "full". Returns the launch
+    windows of the server and of the partial generate."""
+    import shutil
+    import tempfile
+
+    from hqq_tpu_torch import BaseQuantizeConfig
+    from hqq_tpu_torch.engine.hf import HQQModel
+    from hqq_tpu_torch.models import falcon
+    from hqq_tpu_torch.serve import main as serve_main
+
+    cfg = falcon.FalconConfig.falcon_7b()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = falcon.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    model = HQQModel(params, cfg, "falcon")
+    del params
+    t0 = time.time()
+    model.quantize_model(BaseQuantizeConfig(nbits=4, group_size=64))
+    torch.cuda.synchronize()
+    quant_s = time.time() - t0
+    root = tempfile.mkdtemp(prefix="hqq-falcon-7b-")
+    try:
+        t0 = time.time()
+        model.save_quantized(root)
+        save_s = time.time() - t0
+        gb = sum(os.path.getsize(os.path.join(root, f)) for f in os.listdir(root)) / 1e9
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[l] {dev_tag} Falcon-7B (32 layers): init {init_s:.1f} s, quantize_model (4-bit "
+            f"g64, {4 * cfg.num_hidden_layers} linears) {quant_s:.2f} s, save_quantized "
+            f"{gb:.3f} GB in {save_s:.2f} s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+            f"GiB")
+        argv = ["--model", root, "--port", "0", "--max-len", str(L_MAX_LEN)]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        srv = serve_main(argv, serve=False).start()
+        return _l_served(dev_tag, cfg, srv, time.time() - t0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _l_linear_checks(params, captured) -> dict:
+    """The first and last layer's four linears on the path's own inputs
+    (``captured``: (layer, name) -> a prefill's and decode steps' x): at
+    decode M the w4a8 kernel against its twin with phase b's bars and
+    controls (`_w4a8_held`), at prefill M quant_matmul within 2^-7 with the
+    neighbour's-scale control. Returns the largest relative error by K."""
+    from hqq_tpu_torch.ops import fused_matmul as fm
+
+    subs = {"query_key_value": "self_attn", "dense": "self_attn", "dense_h_to_4h": "mlp",
+            "dense_4h_to_h": "mlp"}
+    tol, by_k = 2.0**-7, {}
+    for (li, name), xs in sorted(captured.items()):
+        kqt = params["layers"][li][subs[name]][name].kqt
+        for x in xs[:3]:  # the prefill and two decode steps
+            m = x.shape[0]
+            what = f"[l] layer {li} {name} (K={kqt.k}, N={kqt.n}) M={m}"
+            if m <= fm.A8_MAX_M:
+                x8, sx = fm.quantize_activations_int8(x)
+                _w4a8_held(what, kqt, lambda q, dt: fm.w4a8_matmul(x8, sx, q, dt),
+                           lambda q, dt: fm.w4a8_matmul_plain(x8, sx, q, dt))
+                err = rel(fm.w4a8_matmul(x8, sx, kqt, torch.bfloat16),
+                          fm.w4a8_matmul_plain(x8, sx, kqt, torch.bfloat16))
+            else:
+                ref = fm.quant_matmul_plain(x, kqt)
+                err = rel(fm.quant_matmul(x, kqt), ref)
+                controls = {c: rel(fm.quant_matmul_plain(x, bad), ref)
+                            for c, bad in _w4a8_controls(kqt).items()}
+                log(f"{what}: quant_matmul rel err {err:.3e} (tol 2^-7); controls "
+                    f"{ {c: round(v, 4) for c, v in controls.items()} }")
+                if not err <= tol or not all(v > tol for v in controls.values()):
+                    raise AssertionError(f"{what}: quant_matmul rel err {err:.3e}, controls "
+                                         f"{controls}")
+            key = ("w4a8" if m <= fm.A8_MAX_M else "quant_matmul", kqt.k)
+            by_k[key] = max(by_k.get(key, 0.0), err)
+    return by_k
+
+
+def _l_served(dev_tag: str, cfg, srv, boot_s: float) -> list:
+    """The rest of `_l_falcon_7b`, on the started server ``srv``."""
+    import numpy as np
+
+    from hqq_tpu_torch import ops
+    from hqq_tpu_torch.backends.pallas_backend import A8QuantLinear
+    from hqq_tpu_torch.engine.hf import HQQModel
+    from hqq_tpu_torch.serving.batching import ContinuousBatchingEngine
+
+    layers, norms = cfg.num_hidden_layers, cfg.num_hidden_layers + 1
+    eng = srv.engine
+    params, fwd = eng.params, eng._fwd
+    prompts = _g_prompts(cfg, np.random.default_rng(0))
+    steps = []
+    decode = eng._decode
+
+    def counted(h):
+        steps.append(h)
+        return decode(h)
+
+    eng._decode = counted
+    try:
+        if not isinstance(eng, ContinuousBatchingEngine) or eng.s != G_SLOTS:
+            raise AssertionError(f"[l] the server runs {type(eng).__name__} of {eng.s} slots, not "
+                                 f"the dense engine of {G_SLOTS}")
+        if not all(set(layer["self_attn"]) == {"query_key_value", "dense"}
+                   and all(isinstance(m, A8QuantLinear) for m in
+                           (*layer["self_attn"].values(), *layer["mlp"].values()))
+                   for layer in params["layers"]):
+            raise AssertionError("[l] the served tree is not Falcon's w4a8 tree as it was")
+        t_warm = time.time()
+        _s_request(srv.port, prompts[0][:64], 8, False, t_warm)
+        warm_s = time.time() - t_warm
+        # the main path's window: every count from 0, read right after
+        ops.reset_launch_counts()
+        steps.clear()
+        results, window_s = _s_window(srv.port, prompts, R_NEW)
+        launches = launch_counts()
+        n_steps = sum(steps)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        srv.stop()
+    del srv
+    expect = {"w4a8_matmul": 4 * layers * n_steps, "layer_norm": norms * (n_steps + len(prompts)),
+              "quant_matmul": 4 * layers * len(prompts), "rms_norm": 0, "paged_attention": 0}
+    log(f"[l] launches in the server's window ({n_steps} decode steps, {len(prompts)} "
+        f"prefills): {launches}; a decode step: {4 * layers} w4a8_matmul, {norms} layer_norm, 0 "
+        f"rms_norm expected")
+    for name, n in expect.items():
+        if launches[name] != n:
+            raise AssertionError(f"[l] {launches[name]} {name} launches in the window ({n_steps} "
+                                 f"decode steps, {len(prompts)} prefills), expected {n}: a step "
+                                 f"must make {4 * layers} w4a8_matmul, {norms} layer_norm and no "
+                                 f"rms_norm launches")
+
+    # the same requests through the served tree in-process, decode timed
+    ref = ContinuousBatchingEngine(params, cfg, batch_slots=G_SLOTS, max_len=L_MAX_LEN,
+                                   horizon=S_HORIZON, forward_fn=fwd)
+    recs, ref_decode = [], ref._decode
+
+    def timed(h):
+        live = len(ref.active)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = ref_decode(h)  # ends in a read-back of the tokens
+        recs.append(dict(steps=h, live=live, ms=(time.time() - t0) * 1e3))
+        return out
+
+    ref._decode = timed
+    torch.cuda.synchronize()
+    t0 = time.time()
+    uids = [ref.add_request(p, max_new_tokens=R_NEW) for p in prompts]
+    ref_out = ref.run()
+    torch.cuda.synchronize()
+    inproc_s = time.time() - t0
+    same = [r["tokens"] == ref_out[u] for r, u in zip(results, uids)]
+    # the four linears of the first and last layer on the path's inputs
+    captured, hooks = {}, []
+    for li in (0, layers - 1):
+        for sub, name in (("self_attn", "query_key_value"), ("self_attn", "dense"),
+                          ("mlp", "dense_h_to_4h"), ("mlp", "dense_4h_to_h")):
+            def grab(mod, args, key=(li, name)):
+                captured.setdefault(key, []).append(
+                    args[0].detach().reshape(-1, args[0].shape[-1]).clone())
+            hooks.append(params["layers"][li][sub][name].register_forward_pre_hook(grab))
+    ref.add_request(prompts[2], max_new_tokens=3)
+    ref.run()
+    for h in hooks:
+        h.remove()
+    # the device's share of a steady decode window: 8 live slots, 8 steps
+    rng = np.random.default_rng(1)
+    for _ in range(G_SLOTS):
+        ref.add_request(rng.integers(0, cfg.vocab_size, 256), max_new_tokens=R_NEW)
+    ref.step()
+    busy = device_share(lambda: [ref.step() for _ in range(8)])
+    ref.close()
+    eng.close()
+    del ref, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_k = _l_linear_checks(params, captured)
+    log(f"[l] Falcon-7B's K = 4544 (17.75 stages of 256 codes, the first K on a path that is "
+        f"not whole stages): largest rel err w4a8 {by_k[('w4a8', 4544)]:.3e}, quant_matmul "
+        f"{by_k[('quant_matmul', 4544)]:.3e} (bar 2^-7 = {2.0**-7:.3e}); K = 18176: w4a8 "
+        f"{by_k[('w4a8', 18176)]:.3e}, quant_matmul {by_k[('quant_matmul', 18176)]:.3e}")
+
+    decode_s = sum(r["ms"] for r in recs) / 1e3
+    dec_steps = sum(r["steps"] for r in recs)
+    tokens = sum(r["live"] * r["steps"] for r in recs)
+    embed = cfg.vocab_size * cfg.hidden_size * 2  # the tied head, read by every step
+    weights = _step_weight_bytes(params) + embed
+    bound = weights / HBM_BYTES_PER_S * 1e3
+    all_tokens = sum(len(r["tokens"]) for r in results)
+    first = sorted(r["first_s"] for r in results if r["chunks"] is not None)
+    log(f"[l] {dev_tag}: serve.main (defaults: w4a8, fused, the dense engine of {G_SLOTS} slots, "
+        f"max_len {L_MAX_LEN}, horizon {S_HORIZON}) to a started server {boot_s:.2f} s, warm-up "
+        f"{warm_s:.2f} s; 12 requests (prompts {[len(p) for p in prompts]}, {R_NEW} new, greedy) "
+        f"from 12 client threads, 6 streamed: window {window_s:.3f} s, {all_tokens / window_s:.1f} "
+        f"tok/s at the client; time to first token median {first[len(first) // 2]:.3f} s, max "
+        f"{first[-1]:.3f} s; in-process {inproc_s:.3f} s, {all_tokens / inproc_s:.1f} tok/s, "
+        f"ids equal the server's in {sum(same)} of {len(same)}; decode {tokens / decode_s:.1f} "
+        f"tok/s over all slots, {decode_s / dec_steps * 1e3:.2f} ms a step against a byte bound "
+        f"of {bound:.3f} ms ({weights / 1e9:.3f} GB of codes, meta and the tied "
+        f"{cfg.vocab_size} x {cfg.hidden_size} bf16 embedding; K/V rows of one kv head "
+        f"aside); the server's peak {peak:.2f} GiB")
+    top = sorted(busy["by_name"].items(), key=lambda kv: -kv[1])[:6]
+    log(f"[l] {dev_tag}: 8 decode steps of 8 slots at lengths around 260: device busy "
+        f"{busy['busy_share']:.3f} of {busy['wall_ms']:.1f} ms wall, device "
+        f"{busy['device_ms']:.3f} ms; device ms by kernel "
+        f"{ {k[:110]: round(v, 3) for k, v in top} }")
+    if not all(same):
+        raise AssertionError(f"[l] the server's ids differ from the in-process engine's in "
+                             f"{len(same) - sum(same)} of {len(same)} requests")
+
+    # Generator on the served tree: "partial" (the launch window), then "full"
+    model = HQQModel(params, cfg, "falcon", quantized=True)
+    prompts4 = _prompts(cfg)
+    partial = dict(compile_mode="partial")
+    ops.reset_launch_counts()
+    model.generate(prompts4, max_new_tokens=1, **partial)
+    torch.cuda.synchronize()
+    per_prefill = launch_counts()
+    t0 = time.time()
+    model.generate(prompts4, max_new_tokens=1, **partial)
+    torch.cuda.synchronize()
+    prefill_s = time.time() - t0
+    before = launch_counts()
+    t0 = time.time()
+    ids = model.generate(prompts4, max_new_tokens=R_GEN_NEW, **partial)
+    torch.cuda.synchronize()
+    partial_tok_s = 4 * (R_GEN_NEW - 1) / (time.time() - t0 - prefill_s)
+    gen_window = launch_counts()
+    step = {"w4a8_matmul": 4 * layers, "layer_norm": norms}
+    per_step = {k: (gen_window[k] - before[k] - per_prefill[k]) / (R_GEN_NEW - 1)
+                for k in ("w4a8_matmul", "layer_norm", "rms_norm")}
+    if per_step != dict(step, rms_norm=0):
+        raise AssertionError(f"[l] a partial decode step launched {per_step}")
+    full_ids = model.generate(prompts4, max_new_tokens=R_GEN_NEW)
+    captures = model.generator().captures()
+    t0 = time.time()
+    model.generate(prompts4, max_new_tokens=R_GEN_NEW)
+    torch.cuda.synchronize()
+    full_tok_s = 4 * (R_GEN_NEW - 1) / (time.time() - t0 - prefill_s)
+    full_busy = device_share(lambda: model.generate(prompts4, max_new_tokens=8))
+    model.release_graphs()
+    log(f"[l] {dev_tag}: Generator on the served tree, 4 prompts of 100 tokens, {R_GEN_NEW} new: "
+        f"partial {partial_tok_s:.1f} tok/s, full {full_tok_s:.1f} tok/s (prefill "
+        f"{prefill_s * 1e3:.1f} ms); ids full == partial: {np.array_equal(ids, full_ids)}; "
+        f"graphs' recorded launches {[c['launches'] for c in captures.values()]}; an 8-token "
+        f"full generate busy {full_busy['busy_share']:.3f} of {full_busy['wall_ms']:.1f} ms, "
+        f"device ms {full_busy['device_ms']:.3f}")
+    if not np.array_equal(ids, full_ids):
+        raise AssertionError("[l] the graph's greedy ids differ from the eager loop's")
+    for key, cap in captures.items():
+        if cap["launches"] != step:
+            raise AssertionError(f"[l] graph {key} recorded {cap['launches']}")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [launches, gen_window]
+
+
+def phase_l(dev_tag: str) -> list:
+    """Path L, the LayerNorm families: `_l_falcon_7b`, then `_r_two_layer`
+    for one model of each family at its published widths (norms and biases
+    drawn, layer_norm held bit-equal with its controls). Returns the launch
+    windows of Falcon-7B."""
+    t0 = time.time()
+    windows = _l_falcon_7b(dev_tag)
+    for model_type, (module, cfg, seed) in _l_configs().items():
+        calls = _r_two_layer(model_type, module, cfg, seed, norm=_l_norm(cfg),
+                             prepare=_l_perturb)
+        if model_type == "gpt2":
+            log(f"[l] gpt2-xl's K = 1600 (6.25 stages of 256 codes): largest rel err w4a8 "
+                f"{calls['w4a8_matmul']['worst_by_k'][1600]:.3e}, quant_matmul "
+                f"{calls['quant_matmul']['worst_by_k'][1600]:.3e} (bar 2^-7)")
+    log(f"[l] phase l: {time.time() - t0:.1f} s")
     return windows
 
 
@@ -4922,7 +5452,8 @@ def norm_cost(power: str) -> None:
     row counts of C's decode step (4), the engines' verify (32) and a
     prefill or training window (1024), each the mean of 100 calls under
     torch.profiler. A 7B forward makes 65 norms (two a layer and the final
-    one)."""
+    one). Then the same for `ops.norm.layer_norm` on rows of 4544 (Falcon-7B,
+    33 norms a pass) against PyTorch's fp32 means and F.layer_norm."""
     from hqq_tpu_torch.models import llama
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -4940,6 +5471,27 @@ def norm_cost(power: str) -> None:
             f"(kernels a call): " + "; ".join(f"{k} {ms:.5f} ({n:g})" for k, (ms, n) in got.items())
             + f"; in 65 norms, the kernel against the fp64 sum: "
             f"{65 * (got['kernel'][0] - got['fp64 sum'][0]):+.4f} ms")
+    # layer_norm at Falcon-7B's width: the kernel against PyTorch's fp32
+    # means and its fused LayerNorm (a yardstick the port never calls)
+    import torch.nn.functional as F
+
+    from hqq_tpu_torch.ops import norm as nm
+
+    w = (1 + 0.1 * torch.randn(4544, generator=gen, device="cuda")).to(torch.bfloat16)
+    b = (0.1 * torch.randn(4544, generator=gen, device="cuda")).to(torch.bfloat16)
+    routes = (("kernel", nm.layer_norm), ("fp32 means", _fp32_layer_norm),
+              ("F.layer_norm", lambda x_, w_, b_, e: F.layer_norm(x_, (4544,), w_, b_, e)))
+    for rows in (4, 32, 1024):
+        x = (torch.randn((rows, 4544), generator=gen, device="cuda") + 1).to(torch.bfloat16)
+        got = {}
+        for name, fn in routes:
+            fn(x, w, b, 1e-5)
+            prof = device_share(lambda: [fn(x, w, b, 1e-5) for _ in range(100)])
+            got[name] = (prof["device_ms"] / 100, prof["events"] / 100)
+        log(f"[norm] [{power}] layer_norm of {rows} rows of 4544 (bf16, bias), device ms a call "
+            f"(kernels a call): " + "; ".join(f"{k} {ms:.5f} ({n:g})" for k, (ms, n) in got.items())
+            + f"; in Falcon-7B's 33 norms a step, the kernel against the fp32 means: "
+            f"{33 * (got['kernel'][0] - got['fp32 means'][0]):+.4f} ms")
 
 
 def window_probe(power: str) -> None:
@@ -5086,6 +5638,7 @@ def main(argv: list[str]) -> int:
     log(f"[q] phases q and s: {time.time() - t_q:.1f} s")
     windows.append(phase_s_dense_int8(dev_tag))
     windows.extend(phase_r(dev_tag))
+    windows.extend(phase_l(dev_tag))
     phase_g_two_layer()
     phase_h_two_layer()
     phase_d()

@@ -4,10 +4,10 @@
 Mirrors `hqq_tpu.engine.hf` (`register_arch`, `HQQModel`,
 `HQQModelForCausalLM`, `AutoHQQHFModel`). The registry maps an HF
 ``model_type`` to its config constructor, forward function and HF state-dict
-loader; llama, Qwen2/Qwen3 on the llama walk and the RMSNorm families
-(mistral, granite, gemma, gemma2, gemma3_text, phi3, olmo2) are
-registered. The
-README's quick start runs as it does in `hqq_tpu`:
+loader; llama, Qwen2/Qwen3 on the llama walk, the RMSNorm families
+(mistral, granite, gemma, gemma2, gemma3_text, phi3, olmo2) and the
+LayerNorm families (starcoder2, phi, cohere, gpt2, bloom, falcon) are
+registered. The README's quick start runs as it does in `hqq_tpu`:
 
     model = HQQModelForCausalLM.from_pretrained(local_dir)      # bf16, on cuda
     model.quantize_model(BaseQuantizeConfig(nbits=4, group_size=64))
@@ -62,8 +62,7 @@ _HQQ_REGISTRY: Dict[str, dict] = {t: _llama_entry() for t in ("llama", "qwen2", 
 def _register_rmsnorm_families() -> None:
     """The RMSNorm families on the llama walk, with the loaders `hqq_tpu`
     names: the Llama loader for Mistral, Granite and Gemma, their own for
-    Gemma-2, Gemma-3, Phi-3 and OLMo-2. Phi-2 (``phi``) waits for the
-    LayerNorm families."""
+    Gemma-2, Gemma-3, Phi-3 and OLMo-2."""
     from ..models import gemma, gemma2, gemma3, granite, mistral, olmo2, phi3
 
     llama_loader = hf_loader.params_from_hf_state_dict
@@ -81,6 +80,27 @@ def _register_rmsnorm_families() -> None:
 
 
 _register_rmsnorm_families()
+
+
+def _register_layernorm_families() -> None:
+    """The LayerNorm families, each with its own loader, as `hqq_tpu`
+    registers them: StarCoder2, Phi (Phi-2), Cohere, GPT-2, BLOOM and
+    Falcon."""
+    from ..models import bloom, cohere, falcon, gpt2, phi, starcoder2
+
+    for model_type, module, config_cls in (
+        ("starcoder2", starcoder2, starcoder2.Starcoder2Config),
+        ("phi", phi, phi.PhiConfig),
+        ("cohere", cohere, cohere.CohereConfig),
+        ("gpt2", gpt2, gpt2.GPT2Config),
+        ("bloom", bloom, bloom.BloomConfig),
+        ("falcon", falcon, falcon.FalconConfig),
+    ):
+        _HQQ_REGISTRY[model_type] = {"config_cls": config_cls, "forward": module.forward,
+                                     "loader": module.params_from_hf_state_dict}
+
+
+_register_layernorm_families()
 
 
 def register_arch(model_type: str, config_cls, forward, loader) -> None:
@@ -127,7 +147,12 @@ class HQQModel:
 
     @property
     def device(self):
-        return self.params["embed_tokens"].device
+        """The device of the token embedding (``embed_tokens``; Falcon's and
+        BLOOM's ``word_embeddings``, GPT-2's ``wte``)."""
+        for name in ("embed_tokens", "word_embeddings", "wte"):
+            if name in self.params:
+                return self.params[name].device
+        raise KeyError("the parameter tree holds no token embedding")
 
     def quantize_model(self, quant_config: Optional[dict] = None,
                        compute_dtype=None) -> "HQQModel":

@@ -1,5 +1,21 @@
 # SPDX-License-Identifier: Apache-2.0
-from . import gemma, gemma2, gemma3, granite, llama, mistral, olmo2, phi3, serialize  # noqa: F401
+from . import (  # noqa: F401
+    bloom,
+    cohere,
+    falcon,
+    gemma,
+    gemma2,
+    gemma3,
+    gpt2,
+    granite,
+    llama,
+    mistral,
+    olmo2,
+    phi,
+    phi3,
+    serialize,
+    starcoder2,
+)
 from .base import (  # noqa: F401
     from_quantized,
     get_linear_tags,
@@ -9,12 +25,18 @@ from .base import (  # noqa: F401
     quantize_model,
     save_quantized,
 )
+from .bloom import BloomConfig  # noqa: F401
+from .cohere import CohereConfig  # noqa: F401
+from .falcon import FalconConfig  # noqa: F401
 from .gemma import GemmaConfig  # noqa: F401
 from .gemma2 import Gemma2Config  # noqa: F401
 from .gemma3 import Gemma3Config  # noqa: F401
+from .gpt2 import GPT2Config  # noqa: F401
 from .granite import GraniteConfig  # noqa: F401
 from .hf import load_hf_llama, params_from_hf_state_dict, read_hf_config  # noqa: F401
 from .llama import KVCache, LlamaConfig, forward, init_cache, init_params  # noqa: F401
 from .mistral import MistralConfig  # noqa: F401
 from .olmo2 import Olmo2Config  # noqa: F401
+from .phi import PhiConfig  # noqa: F401
 from .phi3 import Phi3Config  # noqa: F401
+from .starcoder2 import Starcoder2Config  # noqa: F401

@@ -44,7 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from ..nn.linear import Linear
-from ..ops.norm import apply_rms_norm
+from ..ops.norm import apply_layer_norm, apply_rms_norm
 
 __all__ = [
     "LlamaConfig",
@@ -52,7 +52,11 @@ __all__ = [
     "init_params",
     "init_cache",
     "rms_norm",
+    "layer_norm",
+    "refuse_int8_pools",
     "positions_and_masks",
+    "causal_mask",
+    "float_attention",
     "forward",
 ]
 
@@ -252,6 +256,21 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return apply_rms_norm(x, w, eps)
 
 
+def layer_norm(x: torch.Tensor, p: dict, eps: float) -> torch.Tensor:
+    """A LayerNorm leaf ``{"weight", "bias"}`` (bias optional) applied to x
+    in fp32 (`ops.norm.layer_norm`, the fixed-order kernel; its twin on the
+    CPU): the LayerNorm families' norms."""
+    return apply_layer_norm(x, p["weight"], p.get("bias"), eps)
+
+
+def refuse_int8_pools(cache, family: str) -> None:
+    """Raise where a forward that reads the dense cache's float pools only
+    is handed int8 ones."""
+    if isinstance(cache, KVCache) and cache.quantized:
+        raise ValueError(f"{family}: this family's attention reads the dense cache's float "
+                         f"pools only; int8 KV pools (quantize_kv) are not served for it")
+
+
 @functools.lru_cache(maxsize=64)
 def _scalar_in(m: float, dtype: torch.dtype) -> float:
     return torch.tensor(m, dtype=dtype).item()
@@ -352,6 +371,20 @@ def positions_and_masks(cfg: LlamaConfig, t: int, start_pos, cache_max_len: Opti
     causal [1, 1, T, T] mask of the sequence itself. The mask adds
     finfo(float32).min, not -inf, so that a fully masked row stays finite.
     Returns (positions, cos, sin, mask) with cos/sin [B|1, 1, T, hd]."""
+    positions, pos_bt, mask = causal_mask(t, start_pos, cache_max_len, cfg.sliding_window,
+                                          device)
+    hd = cfg.head_dim_
+    cos, sin = _rope_cos_sin(pos_bt.reshape(-1), hd, cfg.rope_theta, cfg.rope_scaling)
+    cos = cos.reshape(*pos_bt.shape, hd)[:, None]
+    sin = sin.reshape(*pos_bt.shape, hd)[:, None]
+    return positions, cos, sin, mask
+
+
+def causal_mask(t: int, start_pos, cache_max_len: Optional[int], window: Optional[int],
+                device="cuda"):
+    """`positions_and_masks` without the RoPE tables (the families with
+    ALiBi or learned positions): (positions [T] or [B, T], the same as
+    [B|1, T], the additive mask [B|1, 1, T, S])."""
     steps = torch.arange(t, device=device)
     if isinstance(start_pos, torch.Tensor) and start_pos.ndim == 1:
         positions = start_pos.to(device)[:, None] + steps[None, :]  # [B, T]
@@ -360,12 +393,6 @@ def positions_and_masks(cfg: LlamaConfig, t: int, start_pos, cache_max_len: Opti
         offset = start_pos.to(device) if isinstance(start_pos, torch.Tensor) else int(start_pos)
         positions = offset + steps  # [T]
         pos_bt = positions[None, :]
-    hd = cfg.head_dim_
-    cos, sin = _rope_cos_sin(pos_bt.reshape(-1), hd, cfg.rope_theta, cfg.rope_scaling)
-    cos = cos.reshape(*pos_bt.shape, hd)[:, None]
-    sin = sin.reshape(*pos_bt.shape, hd)[:, None]
-
-    window = cfg.sliding_window
     if cache_max_len is None:
         visible = torch.ones((t, t), dtype=torch.bool, device=device).tril()[None]
         if window is not None:
@@ -377,7 +404,7 @@ def positions_and_masks(cfg: LlamaConfig, t: int, start_pos, cache_max_len: Opti
             visible &= (pos_bt[:, :, None] - key_pos[None, None, :]) < window
     zero = torch.zeros((), dtype=torch.float32, device=device)
     mask = torch.where(visible, zero, torch.finfo(torch.float32).min)
-    return positions, cos, sin, mask[:, None]
+    return positions, pos_bt, mask[:, None]
 
 
 def _update_stacked_cache(k_all: torch.Tensor, v_all: torch.Tensor, layer_idx: int,
@@ -517,27 +544,37 @@ def _attention(layer: dict, cfg: LlamaConfig, x: torch.Tensor, cache: Optional[K
     own (the families whose cache-free attention is the naive product in
     `hqq_tpu`). ``scale`` replaces 1/sqrt(hd), ``softcap`` caps the scores
     (Granite, Gemma-2/3)."""
-    b, t, _ = x.shape
-    nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
     q, k, v = _qkv_rope(layer, cfg, x, cos, sin, norm_offset)
-    rep = nh // nkv  # GQA: each kv head serves rep query heads
     if cache is not None and cache.quantized:
+        rep = cfg.num_attention_heads // cfg.num_key_value_heads  # GQA: query heads a kv head
         return layer["o_proj"](_attention_int8(q, k, v, cache, layer_idx, start_pos, mask, rep,
                                                scale, softcap))
+    return layer["o_proj"](float_attention(q, k, v, cache, layer_idx, start_pos, mask, scale,
+                                           softcap))
 
+
+def float_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache: Optional[KVCache],
+                    layer_idx: int, start_pos, mask: torch.Tensor,
+                    scale: Optional[float] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
+    """softmax(q k^T / sqrt(hd) + mask) v for q [B, nh, T, hd] and the new
+    k, v [B, n_kv, T, hd], over the float pools of the dense cache (written
+    in place first) or, with ``cache=None``, over the sequence's own keys;
+    each kv head serves nh / n_kv query heads. The scores are summed and
+    kept in fp32 (`_scores`); the probabilities are rounded to q's type
+    before the product. Returns the heads merged, [B, T, nh * hd]."""
+    b, nh, t, hd = q.shape
     if cache is None:
         keys, vals = k, v
     else:
         _update_stacked_cache(cache.k, cache.v, layer_idx, k, v, start_pos)
         keys, vals = cache.k[layer_idx], cache.v[layer_idx]
+    rep = nh // keys.shape[1]
     if rep > 1:
         keys = _repeat_heads(keys, rep)
         vals = _repeat_heads(vals, rep)
-
     probs = torch.softmax(_scores(q, keys, hd, scale, softcap) + mask, dim=-1).to(q.dtype)
-    out = probs @ vals
-    out = out.transpose(1, 2).reshape(b, t, nh * hd)
-    return layer["o_proj"](out)
+    return (probs @ vals).transpose(1, 2).reshape(b, t, nh * hd)
 
 
 def _attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache: KVCache,

@@ -14,17 +14,18 @@ def kernel_wrappers() -> tuple:
     """Every kernel wrapper of the package, each with its ``launches``
     count: the eight of `fused_matmul`, `paged.paged_attention`, the six of `attention`
     (the flash forward, its fp32 route, the dK/dV and the dQ kernels and
-    their fp32 routes) and `norm.rms_norm`."""
+    their fp32 routes), `norm.rms_norm` and `norm.layer_norm`."""
     from .attention import (flash_attention, flash_attention_backward_dkv,
                             flash_attention_backward_dkv_fp32, flash_attention_backward_dq,
                             flash_attention_backward_dq_fp32, flash_attention_fp32)
     from .fused_matmul import _WRAPPERS
-    from .norm import rms_norm
+    from .norm import layer_norm, rms_norm
     from .paged import paged_attention
 
     return (*_WRAPPERS, paged_attention, flash_attention,
             flash_attention_fp32, flash_attention_backward_dkv, flash_attention_backward_dq,
-            flash_attention_backward_dkv_fp32, flash_attention_backward_dq_fp32, rms_norm)
+            flash_attention_backward_dkv_fp32, flash_attention_backward_dq_fp32, rms_norm,
+            layer_norm)
 
 
 def reset_launch_counts() -> None:

@@ -1,32 +1,41 @@
 # SPDX-License-Identifier: Apache-2.0
-"""RMSNorm as one fixed-order fp32 kernel.
+"""RMSNorm and LayerNorm as fixed-order fp32 kernels.
 
-``y = (x * rsqrt(mean(x^2) + eps)) * (w + offset)`` over the last dim of x,
-every step in fp32 and y rounded to x's type: ``offset`` 0 for Llama-style
-norms (`hqq_tpu.models.llama.rms_norm`), 1 for Gemma's ``(1 + w)``
-(`hqq_tpu.models.gemma._gemma_norm`).
+``rms_norm``: ``y = (x * rsqrt(mean(x^2) + eps)) * (w + offset)`` over the
+last dim of x, every step in fp32 and y rounded to x's type: ``offset`` 0
+for Llama-style norms (`hqq_tpu.models.llama.rms_norm`), 1 for Gemma's
+``(1 + w)`` (`hqq_tpu.models.gemma._gemma_norm`).
 
-`rms_norm` launches ``csrc/rms_norm.cu`` for CUDA tensors (one launch a
-call, counted in ``rms_norm.launches``) and runs its plain twin,
-`rms_norm_plain`, for CPU tensors. Both sum a row's squares in one order
-that `norm_launch_plan` derives from the width and the element size alone:
-``threads`` threads a row (a power of two, at least a warp), thread t summing
-the vectors t, t + threads, ... of ``vec`` elements one element at a time,
-then the threads' sums combined by halving. So a row's output is bit-equal
-whether it is normed alone or among 1024 rows, which a PyTorch reduction
-does not promise (its order depends on how many rows one call reduces).
-The twin repeats the kernel's every rounding: it is bit-equal to it, not
-merely close.
+``layer_norm``: ``y = ((x - mu) * rsqrt(var + eps)) * w [+ b]`` with ``mu =
+mean(x)`` and ``var = mean((x - mu)^2)``, the two-pass form of `hqq_tpu`'s
+three LayerNorms (`vit._layer_norm`, `phi.layer_norm`, and
+`cohere.cohere_norm` with a weight only); w and b may be [d] or per head
+[H, d] over x [..., H, d].
 
-`apply_rms_norm` is what the models call: the wrapper, or under autograd
-the `RMSNormFunction`, whose backward is the plain formula in PyTorch
-(`hqq_tpu` differentiates XLA's norm; there is no Pallas kernel to port).
+Both wrappers launch ``csrc/rms_norm.cu`` for CUDA tensors (one launch a
+call, counted in ``rms_norm.launches`` and ``layer_norm.launches``) and run
+their plain twins, `rms_norm_plain` and `layer_norm_plain`, for CPU
+tensors. Every sum of a row runs in one order that `norm_launch_plan`
+derives from the width and the element size alone: ``threads`` threads a
+row (a power of two, at least a warp), thread t summing the vectors t, t +
+threads, ... of ``vec`` elements one element at a time, then the threads'
+sums combined by halving. So a row's output is bit-equal whether it is
+normed alone or among 1024 rows, which a PyTorch reduction does not
+promise (its order depends on how many rows one call reduces). The twins
+repeat the kernel's every rounding: they are bit-equal to it, not merely
+close.
+
+`apply_rms_norm` and `apply_layer_norm` are what the models call: the
+wrapper, or under autograd `RMSNormFunction` / `LayerNormFunction`, whose
+backward is the plain formula in PyTorch (`hqq_tpu` differentiates XLA's
+norms; there is no Pallas kernel to port).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -35,7 +44,8 @@ from . import _build
 from .fused_matmul import _on_cpu, _ptr, _stream
 
 __all__ = ["NormPlan", "norm_launch_plan", "rms_norm", "rms_norm_plain", "RMSNormFunction",
-           "apply_rms_norm"]
+           "apply_rms_norm", "layer_norm", "layer_norm_plain", "LayerNormFunction",
+           "apply_layer_norm"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # threads a block holds at least where a row takes fewer (several rows a block)
@@ -69,9 +79,9 @@ def norm_launch_plan(d: int, dtype: torch.dtype) -> NormPlan:
     each about two vectors, at least 32 (a warp) and at most 1024; rows of
     fewer than 256 threads share a block."""
     if dtype not in _DTYPE_CODE:
-        raise ValueError(f"rms_norm takes fp32, bf16 or fp16 rows, not {dtype}")
+        raise ValueError(f"the norms take fp32, bf16 or fp16 rows, not {dtype}")
     if d < 1:
-        raise ValueError(f"rms_norm needs rows of at least one element, got d={d}")
+        raise ValueError(f"the norms need rows of at least one element, got d={d}")
     v16 = 16 // torch.empty((), dtype=dtype).element_size()
     vec = v16 if d % v16 == 0 else 1
     nvec = d // vec
@@ -81,33 +91,54 @@ def norm_launch_plan(d: int, dtype: torch.dtype) -> NormPlan:
                     rows_per_block=max(1, _BLOCK_THREADS // threads))
 
 
-def rms_norm_plain(x: torch.Tensor, w: torch.Tensor, eps: float,
-                   offset: float = 0.0) -> torch.Tensor:
-    """The kernel's arithmetic in PyTorch, to the bit: the squares summed
-    in the plan's order by explicit elementwise adds (padding with zeros,
-    which add nothing), the halving tree, then ms / d, 1 / sqrt(ms + eps)
-    and (x * r) * (w + offset), each one correctly rounded fp32 operation.
-    The route for CPU tensors, and the kernel's reference on the card."""
-    d = x.shape[-1]
-    plan = norm_launch_plan(d, x.dtype)
-    xf = x.to(torch.float32)
-    sq = xf * xf
+def _plan_sum(v: torch.Tensor, plan: NormPlan) -> torch.Tensor:
+    """The kernel's sum of each row of fp32 ``v`` [..., d], to the bit: the
+    threads' strided partial sums by explicit elementwise adds (padding
+    with -0.0, which adds nothing to any value), then the halving tree.
+    Returns [..., 1]."""
+    d = v.shape[-1]
     pad = plan.steps * plan.threads * plan.vec - d
     if pad:
-        sq = F.pad(sq, (0, pad))
-    sq = sq.reshape(*x.shape[:-1], plan.steps, plan.threads, plan.vec)
-    acc = torch.zeros(sq.shape[:-3] + (plan.threads,), dtype=torch.float32, device=x.device)
+        v = F.pad(v, (0, pad), value=-0.0)
+    v = v.reshape(*v.shape[:-1], plan.steps, plan.threads, plan.vec)
+    acc = torch.zeros(v.shape[:-3] + (plan.threads,), dtype=torch.float32, device=v.device)
     for k in range(plan.steps):
         for j in range(plan.vec):
-            acc = acc + sq[..., k, :, j]
+            acc = acc + v[..., k, :, j]
     while acc.shape[-1] > 1:
         h = acc.shape[-1] // 2
         acc = acc[..., :h] + acc[..., h:]
-    # a true division: PyTorch's CUDA division by a Python scalar multiplies
-    # by its reciprocal instead, which parts from __fdiv_rn in the last bit
-    ms = acc / torch.full((), d, dtype=torch.float32, device=acc.device)
+    return acc
+
+
+def _mean(total: torch.Tensor, d: int) -> torch.Tensor:
+    """total / d as a true division: PyTorch's CUDA division by a Python
+    scalar multiplies by its reciprocal instead, which parts from
+    __fdiv_rn in the last bit."""
+    return total / torch.full((), d, dtype=torch.float32, device=total.device)
+
+
+def rms_norm_plain(x: torch.Tensor, w: torch.Tensor, eps: float,
+                   offset: float = 0.0) -> torch.Tensor:
+    """The kernel's arithmetic in PyTorch, to the bit: the squares summed
+    in the plan's order (`_plan_sum`), then ms / d, 1 / sqrt(ms + eps) and
+    (x * r) * (w + offset), each one correctly rounded fp32 operation.
+    The route for CPU tensors, and the kernel's reference on the card."""
+    xf = x.to(torch.float32)
+    ms = _mean(_plan_sum(xf * xf, norm_launch_plan(x.shape[-1], x.dtype)), x.shape[-1])
     rinv = torch.reciprocal(torch.sqrt(ms + eps))
     return ((xf * rinv) * (w.to(torch.float32) + offset)).to(x.dtype)
+
+
+def _rows_of(x: torch.Tensor, name: str):
+    """(x as contiguous, 16-byte aligned rows [rows, d], an output like
+    them) for a kernel of ``name``; fewer than 2^31 rows."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if not x2.is_contiguous() or x2.data_ptr() % 16:
+        x2 = x2.contiguous() if not x2.is_contiguous() else x2.clone()
+    if x2.shape[0] >= 2**31:
+        raise ValueError(f"{name} takes fewer than 2^31 rows, got {x2.shape[0]}")
+    return x2, torch.empty_like(x2)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float, offset: float = 0.0) -> torch.Tensor:
@@ -122,16 +153,11 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float, offset: float = 0.0) 
     if tuple(w.shape) != (d,) or w.device != x.device:
         raise ValueError(f"w must be [{d}] on {x.device}, got {tuple(w.shape)} on {w.device}")
     plan = norm_launch_plan(d, x.dtype)
-    x2 = x.reshape(-1, d)
-    if not x2.is_contiguous() or x2.data_ptr() % 16:
-        x2 = x2.contiguous() if not x2.is_contiguous() else x2.clone()
+    x2, out = _rows_of(x, "rms_norm")
     w = w.contiguous()
     rows = x2.shape[0]
-    out = torch.empty_like(x2)
     if rows == 0:
         return out.reshape(x.shape)
-    if rows >= 2**31:
-        raise ValueError(f"rms_norm takes fewer than 2^31 rows, got {rows}")
     lib = _build.library("rms_norm")
     with torch.cuda.device(x.device):
         code = lib.hqq_rms_norm(
@@ -178,3 +204,103 @@ def apply_rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float,
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return RMSNormFunction.apply(x, w, float(eps), float(offset))
     return rms_norm(x, w, float(eps), float(offset))
+
+
+def layer_norm_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+                     eps: float) -> torch.Tensor:
+    """The LayerNorm kernel's arithmetic in PyTorch, to the bit: the sum of
+    x in the plan's order, mu = sum / d, the sum of (x - mu)^2 in the same
+    order, var = sum / d, 1 / sqrt(var + eps), then ((x - mu) * r) * w and
+    + b where given, each one correctly rounded fp32 operation. w and b are
+    [d] or [H, d] over x [..., H, d]. The route for CPU tensors, and the
+    kernel's reference on the card."""
+    d = x.shape[-1]
+    plan = norm_launch_plan(d, x.dtype)
+    xf = x.to(torch.float32)
+    c = xf - _mean(_plan_sum(xf, plan), d)
+    rinv = torch.reciprocal(torch.sqrt(_mean(_plan_sum(c * c, plan), d) + eps))
+    y = (c * rinv) * w.to(torch.float32)
+    if b is not None:
+        y = y + b.to(torch.float32)
+    return y.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+               eps: float) -> torch.Tensor:
+    """LayerNorm of x [..., d] with weight w and optional bias b, each [d]
+    or per head [H, d] over x [..., H, d]: the kernel for a CUDA tensor (or
+    an error), the plain twin for a CPU one. y has x's shape and type, laid
+    out contiguously."""
+    if _on_cpu(x):
+        return layer_norm_plain(x, w, b, eps)
+    d = x.shape[-1]
+    if x.dtype not in _DTYPE_CODE or w.dtype not in _DTYPE_CODE:
+        raise ValueError(f"layer_norm takes fp32, bf16 or fp16 x and w, not {x.dtype}, {w.dtype}")
+    if w.ndim not in (1, 2) or tuple(w.shape) != tuple(x.shape[x.ndim - w.ndim:]) \
+            or w.device != x.device:
+        raise ValueError(f"w must be [{d}] or [H, {d}] matching x's last dims "
+                         f"{tuple(x.shape)} on {x.device}, got {tuple(w.shape)} on {w.device}")
+    if b is not None and (b.shape != w.shape or b.dtype != w.dtype or b.device != w.device):
+        raise ValueError(f"b must match w ({tuple(w.shape)}, {w.dtype}), got {tuple(b.shape)}, "
+                         f"{b.dtype}")
+    plan = norm_launch_plan(d, x.dtype)
+    x2, out = _rows_of(x, "layer_norm")
+    w = w.contiguous()
+    b = None if b is None else b.contiguous()
+    rows = x2.shape[0]
+    if rows == 0:
+        return out.reshape(x.shape)
+    lib = _build.library("layer_norm")
+    with torch.cuda.device(x.device):
+        code = lib.hqq_layer_norm(
+            _ptr(x2, 16), _ptr(w, w.element_size()),
+            None if b is None else _ptr(b, b.element_size()), _ptr(out, 16), rows, d,
+            w.numel() // d, eps, _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype], plan.vec,
+            plan.threads_log2, plan.rows_per_block, _stream(x.device))
+    _build.check("layer_norm", code)
+    layer_norm.launches += 1
+    return out.reshape(x.shape)
+
+
+layer_norm.launches = 0
+
+
+class LayerNormFunction(torch.autograd.Function):
+    """`layer_norm` with a gradient: the forward is the kernel (the twin on
+    the CPU), the backward the plain formula in fp32: with xh = (x - mu) * r
+    and g' = g * w, dx = r * (g' - mean(g') - xh * mean(g' * xh)), dw the
+    sum over rows of g * xh and db that of g (per head for [H, d])."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, eps: float):
+        ctx.save_for_backward(x, w)
+        ctx.eps, ctx.has_bias = eps, b is not None
+        return layer_norm(x, w, b, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        xf, gf = x.to(torch.float32), g.to(torch.float32)
+        mu = xf.mean(dim=-1, keepdim=True)
+        rinv = torch.rsqrt(((xf - mu) ** 2).mean(dim=-1, keepdim=True) + ctx.eps)
+        xh = (xf - mu) * rinv
+        gw = gf * w.to(torch.float32)
+        dx = rinv * (gw - gw.mean(dim=-1, keepdim=True)
+                     - xh * (gw * xh).mean(dim=-1, keepdim=True))
+
+        def rows_sum(v):
+            return v.reshape((-1,) + tuple(w.shape)).sum(0).to(w.dtype)
+
+        dw = rows_sum(gf * xh) if ctx.needs_input_grad[1] else None
+        db = rows_sum(gf) if ctx.has_bias and ctx.needs_input_grad[2] else None
+        return dx.to(x.dtype), dw, db, None
+
+
+def apply_layer_norm(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+                     eps: float) -> torch.Tensor:
+    """LayerNorm as the models call it: `LayerNormFunction` where a gradient
+    is wanted, else the wrapper itself."""
+    grads = x.requires_grad or w.requires_grad or (b is not None and b.requires_grad)
+    if torch.is_grad_enabled() and grads:
+        return LayerNormFunction.apply(x, w, b, float(eps))
+    return layer_norm(x, w, b, float(eps))

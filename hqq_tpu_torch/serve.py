@@ -17,6 +17,10 @@ runs on ``--device`` (``cuda`` unless given).
 Not served yet, each refused with an error that names what is missing: a
 GPTQ checkpoint (`models/interop`), a vision-language ``model_type``
 (llava, qwen2_vl, ...; `engine/vl`) and ``--tp`` above 1 (`parallel/`).
+A family whose forward has no paged branch (OLMo-2 and the LayerNorm
+families) is served on the dense engine, with a line that says so; one
+whose attention reads float KV pools only (Phi-2, Cohere, GPT-2, BLOOM,
+Falcon) refuses ``--int8-kv`` before any weight is read.
 ``--tokenizer`` imports `transformers` at start, only when asked.
 """
 
@@ -49,6 +53,23 @@ def _read_model_type(model_dir: str):
     raise FileNotFoundError(f"{model_dir}: neither hqq_config.json nor config.json")
 
 
+def _check_served(args, model_type: str) -> None:
+    """Refuse, before any weight is read, what cannot be served: a
+    vision-language model type, and ``--int8-kv`` for a family whose
+    forward reads the dense cache's float pools only (the config's
+    ``reads_int8_kv``)."""
+    from .engine.hf import _lookup_arch
+
+    if model_type in _VL_TYPES:
+        raise NotImplementedError(
+            f"{args.model}: model_type {model_type!r} needs the vision-language engines "
+            f"(engine/vl.py and its vision towers), which are not ported yet")
+    if args.int8_kv and not getattr(_lookup_arch(model_type)["config_cls"], "reads_int8_kv",
+                                    True):
+        raise ValueError(f"--int8-kv: the {model_type} family's forward reads the dense cache's "
+                         f"float pools only; int8 KV is not served for it")
+
+
 def _load(args):
     """(params, cfg, family forward) of ``--model``, quantized, on the
     device."""
@@ -56,11 +77,7 @@ def _load(args):
     from .engine.hf import HQQModelForCausalLM
 
     model_dir = args.model
-    model_type = _read_model_type(model_dir)
-    if model_type in _VL_TYPES:
-        raise NotImplementedError(
-            f"{model_dir}: model_type {model_type!r} needs the vision-language engines "
-            f"(engine/vl.py and its vision towers), which are not ported yet")
+    _check_served(args, _read_model_type(model_dir))
     if os.path.exists(os.path.join(model_dir, "hqq_config.json")):
         model = HQQModelForCausalLM.from_quantized(model_dir, device=args.device)
     else:
@@ -77,6 +94,7 @@ def _load(args):
 
 def build_engine(args):
     """The serving engine ``args`` describe (see `make_parser`)."""
+    from .serving.batching import family_name
     from .utils.patching import fuse_for_decode, prepare_for_inference
 
     if args.tp > 1:
@@ -89,7 +107,7 @@ def build_engine(args):
         params = fuse_for_decode(params)
     if args.engine == "paged" and "page_indices" not in inspect.signature(family_fwd).parameters:
         # a family forward without a paged branch serves on the dense engine
-        print(f"# {type(cfg).__name__}: family forward has no paged branch; serving with "
+        print(f"# the {family_name(cfg)} family's forward has no paged branch: serving with "
               f"--engine dense", file=sys.stderr)
         args.engine = "dense"
     if args.engine == "paged":
@@ -161,8 +179,11 @@ def _engine_for(args, params, cfg, forward_fn=None):
 
 
 def make_parser():
+    from .engine.hf import _HQQ_REGISTRY
+
     p = argparse.ArgumentParser("hqq_tpu_torch.serve")
-    p.add_argument("--model", required=True, help="checkpoint directory")
+    p.add_argument("--model", required=True,
+                   help=f"checkpoint directory; model types served: {', '.join(_HQQ_REGISTRY)}")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--device", default="cuda", help="torch device of the model and engine")

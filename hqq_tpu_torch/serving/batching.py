@@ -47,7 +47,7 @@ from ..nn.multilora import adapter_context, adapter_count
 from ..utils.profiling import log_event
 from .generate import next_power_of_2, sample_token, sample_token_batch
 
-__all__ = ["Request", "ContinuousBatchingEngine"]
+__all__ = ["Request", "ContinuousBatchingEngine", "check_family", "family_name"]
 
 
 @dataclasses.dataclass
@@ -95,6 +95,26 @@ def _checked_adapter(adapter_id, params) -> int:
     if not 0 <= int(adapter_id) < n:
         raise ValueError(f"adapter_id {adapter_id} outside the tree's adapters [0, {n})")
     return int(adapter_id)
+
+
+def family_name(cfg) -> str:
+    """The model family of a config, by the module that defines its class
+    (``falcon`` for `models.falcon.FalconConfig`)."""
+    return type(cfg).__module__.rsplit(".", 1)[-1]
+
+
+def check_family(cfg, max_len: int, quantize_kv: bool) -> None:
+    """A ValueError, before any step, for what the family's forward cannot
+    serve: int8 KV pools where its attention reads float pools only (the
+    config's ``reads_int8_kv``), and a cache longer than its learned
+    positions (``max_cache_len``, GPT-2)."""
+    if quantize_kv and not getattr(cfg, "reads_int8_kv", True):
+        raise ValueError(f"quantize_kv: the {family_name(cfg)} family's forward reads the "
+                         f"dense cache's float pools only; int8 KV is not served for it")
+    limit = getattr(cfg, "max_cache_len", None)
+    if limit is not None and max_len > limit:
+        raise ValueError(f"max_len {max_len} exceeds the {family_name(cfg)} family's {limit} "
+                         f"learned positions")
 
 
 def _refuse_embeds_forward(embeds_forward_fn) -> None:
@@ -154,11 +174,15 @@ class ContinuousBatchingEngine:
         horizon: that many decode steps per `step()` with no read-back
         between them; the same tokens as single steps.
 
-        quantize_kv: int8 pools with per-row scales (`llama.init_cache`).
+        quantize_kv: int8 pools with per-row scales (`llama.init_cache`);
+        refused with a ValueError for a family whose forward reads float
+        pools only, as is a ``max_len`` past GPT-2's learned positions
+        (`check_family`).
 
         embeds_forward_fn and ``mrope_offsets`` (vision-language serving)
         are refused: requests with ``inputs_embeds`` are not served yet."""
         _refuse_embeds_forward(embeds_forward_fn)
+        check_family(cfg, max_len, quantize_kv)
         if mrope_offsets:
             raise NotImplementedError("M-RoPE serving (mrope_offsets, Qwen2-VL) is not ported yet")
         self.params = params

@@ -25,7 +25,11 @@ base converts in place.
 ``qkv_proj`` and gate and up into one ``gate_up_proj`` (`A8QuantLinear`,
 `Int8QuantLinear` and `Linear`), so a decode step makes 4 matmul launches
 a layer instead of 7. An OLMo-2 layer (``q_norm_flat``) stays as it is,
-as in `hqq_tpu`: its q and k are normed over their own projections.
+as in `hqq_tpu`: its q and k are normed over their own projections. The
+other families read ``qkv_proj`` where it is: Phi-2 too, whose
+`hqq_tpu` forward fails on a fused layer (`models.phi`). The layers the
+LayerNorm families name otherwise (Falcon's and BLOOM's
+``query_key_value``, GPT-2's ``c_attn``, the plain MLPs) stay as they are.
 """
 
 from __future__ import annotations

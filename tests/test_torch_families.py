@@ -24,6 +24,7 @@ hqq_tpu runs once per family in a module fixture.
   `from_quantized` and the port's read by hqq_tpu's, every tensor
   bit-equal and the config of the family's class (Gemma-3's
   ``layer_types`` a tuple again).
+* Every one of the 16 model types served resolves to the port's modules.
 * `fuse_for_decode` leaves an OLMo-2 layer unfused (its q and k are normed
   over their own projections): logits after equal logits before. Phi-3's
   native fused projections prepare to w4a8 at their own widths.
@@ -283,13 +284,21 @@ def test_phi3_fused_layers_prepare_to_w4a8(ref):
     assert _rel(got.numpy(), want.numpy()) <= 2e-2
 
 
-def test_phi2_stays_unregistered():
-    from hqq_tpu_torch.engine.hf import _lookup_arch
+def test_every_model_type_resolves_to_the_port():
+    """The 16 model types served: llama, Qwen2/3, the seven RMSNorm
+    families and the six LayerNorm families, each to a config class,
+    forward and loader of hqq_tpu_torch."""
+    from hqq_tpu_torch.engine.hf import _HQQ_REGISTRY, _lookup_arch
 
-    with pytest.raises(ValueError, match="phi"):
-        _lookup_arch("phi")
-    for model_type in _MODEL_TYPE.values():
-        assert _lookup_arch(model_type)["config_cls"].__module__.startswith("hqq_tpu_torch.")
+    types = ["llama", "qwen2", "qwen3", *_MODEL_TYPE.values(), "starcoder2", "phi", "cohere",
+             "gpt2", "bloom", "falcon"]
+    assert len(set(types)) == 16 and set(types) <= set(_HQQ_REGISTRY)
+    for model_type in types:
+        arch = _lookup_arch(model_type)
+        for part in ("config_cls", "forward", "loader"):
+            assert arch[part].__module__.startswith("hqq_tpu_torch."), (model_type, part)
+    with pytest.raises(ValueError, match="mixtral"):
+        _lookup_arch("mixtral")
 
 
 def test_phi3_refuses_longrope():

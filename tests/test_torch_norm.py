@@ -1,5 +1,6 @@
 # SPDX-License-Identifier: Apache-2.0
-"""hqq_tpu_torch's RMSNorm (`ops/norm.py`, csrc/rms_norm.cu) on the CPU.
+"""hqq_tpu_torch's RMSNorm and LayerNorm (`ops/norm.py`, csrc/rms_norm.cu)
+on the CPU.
 
 * `norm_launch_plan`: the summation order by width and element size, and a
   numpy restatement of the kernel's walk (thread t's vectors t, t + threads,
@@ -16,6 +17,12 @@
   and `models.llama.rms_norm` through it.
 * On the card (skips here): the kernel bit-equal to the twin, rows
   invariant, one launch a call.
+* LayerNorm likewise: `layer_norm_plain` bit-equal to a numpy walk of the
+  kernel's two sums (with and without a bias, per-head weights [H, d]);
+  rows invariant; within 2e-6 of max|y| of each of `hqq_tpu`'s three
+  LayerNorms in fp32 (`vit._layer_norm`, `phi.layer_norm`,
+  `cohere.cohere_norm`); its Function's backward against autograd; on the
+  card, the kernel bit-equal to the twin.
 """
 
 import numpy as np
@@ -59,6 +66,10 @@ def _weight(d, dtype=torch.bfloat16, seed=1):
     (14336, torch.bfloat16, (8, 512, 4, 1)),
     (65536, torch.float32, (4, 1024, 16, 1)),
     (1, torch.float32, (1, 32, 1, 8)),
+    (4544, torch.bfloat16, (8, 256, 3, 1)),
+    (1600, torch.bfloat16, (8, 64, 4, 4)),
+    (2560, torch.bfloat16, (8, 128, 3, 2)),
+    (12288, torch.bfloat16, (8, 512, 3, 1)),
 ])
 def test_launch_plan(d, dtype, plan):
     p = nm.norm_launch_plan(d, dtype)
@@ -195,3 +206,149 @@ def test_kernel_on_the_card():
             assert torch.equal(y, nm.rms_norm_plain(x, w, 1e-6, 1.0))
             alone = torch.cat([nm.rms_norm(x[i:i + 1], w, 1e-6, 1.0) for i in range(32)])
             assert torch.equal(alone, y[:32])
+
+
+def _ln_walk(x: np.ndarray, w: np.ndarray, b, eps: float, plan) -> np.ndarray:
+    """The LayerNorm kernel's arithmetic, thread by thread, in numpy
+    float32: the sum of x, mu = sum / d, the sum of (x - mu)^2, then
+    ((x - mu) * r) * w (+ b). w and b are [H, d] (H = 1 for one weight
+    row); row r reads row r % H."""
+    f32 = np.float32
+    rows, d = x.shape
+    nvec = d // plan.vec
+
+    def row_sum(vals):
+        part = np.zeros(plan.threads, f32)
+        for t in range(plan.threads):
+            acc = f32(0)
+            for v in range(t, nvec, plan.threads):
+                for j in range(plan.vec):
+                    acc = f32(acc + vals[v * plan.vec + j])
+            part[t] = acc
+        s = plan.threads // 2
+        while s >= 1:
+            part[:s] = part[:s] + part[s:2 * s]
+            s //= 2
+        return part[0]
+
+    out = np.empty_like(x)
+    for r in range(rows):
+        mu = f32(row_sum(x[r]) / f32(d))
+        c = (x[r] - mu).astype(f32)
+        var = f32(row_sum((c * c).astype(f32)) / f32(d))
+        rinv = f32(1) / np.sqrt(f32(var + f32(eps)), dtype=f32)
+        h = r % w.shape[0]
+        y = (c * rinv) * w[h]
+        out[r] = y if b is None else y + b[h]
+    return out
+
+
+@pytest.mark.parametrize("d,dtype,bias,heads", [
+    (256, torch.bfloat16, True, 1), (100, torch.float32, False, 1), (96, torch.float16, True, 1),
+    (1600, torch.float32, True, 1), (128, torch.float32, False, 3)])
+def test_layer_norm_twin_is_the_kernel_walk(d, dtype, bias, heads):
+    x = _rows(3 * heads, d, dtype)
+    w = torch.stack([_weight(d, torch.float32, seed=h) + 1 for h in range(heads)])
+    b = (torch.stack([_weight(d, torch.float32, seed=10 + h) for h in range(heads)])
+         if bias else None)
+    plan = nm.norm_launch_plan(d, dtype)
+    want = _ln_walk(x.float().numpy(), w.numpy(), None if b is None else b.numpy(), 1e-5, plan)
+    xs = x.reshape(3, heads, d)
+    got = nm.layer_norm_plain(xs, w if heads > 1 else w[0],
+                              None if b is None else (b if heads > 1 else b[0]), 1e-5)
+    assert torch.equal(got.reshape(3 * heads, d), torch.from_numpy(want).to(dtype))
+
+
+@pytest.mark.parametrize("d,dtype", [(4544, torch.bfloat16), (1600, torch.bfloat16),
+                                     (128, torch.float32), (100, torch.float16)])
+def test_layer_norm_rows_invariant(d, dtype):
+    x, w, b = _rows(1024, d, dtype, seed=d), _weight(d, dtype), _weight(d, dtype, seed=2)
+    alone = torch.cat([nm.layer_norm(x[i:i + 1], w, b, 1e-5) for i in range(1024)])
+    for c in (4, 32, 1024):
+        got = torch.cat([nm.layer_norm(x[i:i + c], w, b, 1e-5) for i in range(0, 1024, c)])
+        assert torch.equal(got, alone), c
+
+
+@pytest.fixture(scope="module")
+def jax_layer_norms():
+    import jax.numpy as jnp
+
+    from hqq_tpu.models.cohere import cohere_norm
+    from hqq_tpu.models.phi import layer_norm as phi_layer_norm
+    from hqq_tpu.models.vit import _layer_norm
+
+    def arr(t):
+        return jnp.asarray(t.float().numpy()).astype(_jdtype(t.dtype))
+
+    def out(y):
+        return torch.from_numpy(np.array(y.astype(jnp.float32)))
+
+    return {
+        "vit": lambda x, w, b, eps: out(_layer_norm(arr(x), {"weight": arr(w), "bias": arr(b)},
+                                                    eps)),
+        "phi": lambda x, w, b, eps: out(phi_layer_norm(arr(x), {"weight": arr(w),
+                                                                "bias": arr(b)}, eps)),
+        "cohere": lambda x, w, b, eps: out(cohere_norm(arr(x), arr(w), eps)),
+    }
+
+
+@pytest.mark.parametrize("which", ["vit", "phi", "cohere"])
+@pytest.mark.parametrize("dtype,d,bar", [(torch.float32, 4544, 2e-6), (torch.float32, 128, 2e-6),
+                                         (torch.bfloat16, 2560, 2.0**-7)])
+def test_layer_norm_against_hqq_tpu(jax_layer_norms, which, dtype, d, bar):
+    x, w, b = _rows(16, d, dtype, seed=3), _weight(d, dtype), _weight(d, dtype, seed=4)
+    x = x + 1.5  # a mean far from 0: the two-pass form matters
+    want = jax_layer_norms[which](x, w, b, 1e-5)
+    got = nm.layer_norm(x, w, None if which == "cohere" else b, 1e-5).float()
+    assert (got - want).abs().max().item() <= bar * want.abs().max().item()
+
+
+def test_layer_norm_per_head_weights_against_hqq_tpu(jax_layer_norms):
+    """Cohere's q/k norm: x [B, T, H, hd] with weights [H, hd]."""
+    x = _rows(2 * 5 * 3, 128, torch.float32, seed=7).reshape(2, 5, 3, 128)
+    w = torch.stack([_weight(128, torch.float32, seed=h) for h in range(3)])
+    want = jax_layer_norms["cohere"](x, w, None, 1e-5)
+    got = nm.layer_norm(x, w, None, 1e-5)
+    assert (got - want).abs().max().item() <= 2e-6 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("bias,w_grad", [(True, True), (False, False)])
+def test_layer_norm_backward_against_autograd(bias, w_grad):
+    x = (_rows(6, 256, torch.float32, seed=4) + 0.5).reshape(2, 3, 256).requires_grad_(True)
+    w = (_weight(256, torch.float32) + 1).requires_grad_(w_grad)
+    b = _weight(256, torch.float32, seed=9).requires_grad_(w_grad) if bias else None
+    g = _rows(6, 256, torch.float32, seed=5).reshape(2, 3, 256)
+    wants = [x] + ([w] + ([b] if bias else []) if w_grad else [])
+    y = nm.apply_layer_norm(x, w, b, 1e-5)
+    got = torch.autograd.grad(y, wants, g)
+
+    ref = torch.nn.functional.layer_norm(x, (256,), w, b, 1e-5)
+    rgot = torch.autograd.grad(ref, wants, g)
+    torch.testing.assert_close(y.detach(), ref.detach(), rtol=1e-5, atol=1e-5)
+    for a, r in zip(got, rgot):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-5)
+
+
+def test_models_layer_norm_is_the_twin_on_the_cpu():
+    x, w, b = _rows(5, 4544, torch.bfloat16, seed=6), _weight(4544), _weight(4544, seed=2)
+    before = nm.layer_norm.launches
+    assert torch.equal(tl.layer_norm(x, {"weight": w, "bias": b}, 1e-5),
+                       nm.layer_norm_plain(x, w, b, 1e-5))
+    assert nm.layer_norm.launches == before  # the CPU route launches nothing
+
+
+@pytest.mark.cuda
+def test_layer_norm_kernel_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for dt in (torch.bfloat16, torch.float16, torch.float32):
+        for d in (100, 128, 1600, 4544, 4096):
+            x = (_rows(1024, d, dt, seed=d) + 1).cuda()
+            w, b = _weight(d, torch.float32).cuda(), _weight(d, torch.float32, seed=2).cuda()
+            for bias in (b, None):
+                before = nm.layer_norm.launches
+                y = nm.layer_norm(x, w, bias, 1e-5)
+                assert nm.layer_norm.launches == before + 1
+                assert torch.equal(y, nm.layer_norm_plain(x, w, bias, 1e-5))
+                alone = torch.cat([nm.layer_norm(x[i:i + 1], w, bias, 1e-5) for i in range(32)])
+                assert torch.equal(alone, y[:32])
