@@ -1,7 +1,8 @@
 # SPDX-License-Identifier: Apache-2.0
 """Chip smoke test of hqq_tpu_torch: HQQ Llama-2-7B on one GPU, ten ways, the
-RMSNorm families (Gemma-2-9B through the server) and the LayerNorm families
-(Falcon-7B through the server).
+RMSNorm families (Gemma-2-9B through the server), the LayerNorm families
+(Falcon-7B through the server) and the MoE families (Mixtral-8x7B through
+the server).
 
     python3 chip_smoke.py            # on cuda:0, every phase
     python3 chip_smoke.py --time quant_matmul 512 4096 4096      # one kernel
@@ -244,8 +245,36 @@ Phases (any failure exits non-zero):
       and 1024 rows, and times it at 4, 32 and 1024 rows of 4544 and 4096
       against the byte bound and torch.nn.functional.layer_norm; and the
       w4a8 and quant_matmul kernels at Falcon-7B's shapes.
+  (x) the MoE families: Mixtral-8x7B at full width and depth
+      (mistralai/Mixtral-8x7B-v0.1 from memory: hidden 4096, ffn 14336, 32
+      layers, 32/8 heads, 8 experts, top-2, vocab 32000 untied, rope theta
+      1e6), random bf16 weights from seed 0 drawn and quantized one layer
+      at a time by quantize_mixtral (4-bit g64; the router in bf16) at
+      capacity factor 4.0 (= E / top_k: nothing dropped), save_quantized,
+      then `serve.main` on the checkpoint with its defaults (paged, w4a8,
+      fused) and G's pool; G's 12 requests from 12 client threads (6
+      streamed), ids equal to an in-process PagedBatchingEngine's; a decode
+      step makes 96 grouped_matmul, 32 paged_attention, 65 rms_norm and 64
+      w4a8_matmul launches, a prefill 96 stacked dequant_canonical (every
+      expert holds more than 32 rows: torch.bmm on the dequantized stack);
+      the first and last layer's expert stacks held on the path's own
+      activations with their controls; step ms against the byte bound of
+      every expert's codes and meta, busy share, peak memory; Generator
+      "partial" and "full" on the served tree; then the same requests
+      in-process at the default capacity factor 2.0, with the share of
+      assignments dropped. Then 2-layer Qwen3-30B-A3B and gpt-oss-20b at
+      published width (from memory): their quantizers, checkpoints
+      bit-equal, a prefill and 4 decode steps with every w4a8, quant_matmul,
+      rms_norm, grouped_matmul and stacked-dequant call held to its twin,
+      paged decode against the dense cache. Phase b holds grouped_matmul to
+      its twin at path X's stacks (Mixtral's at C = 1, 4, 8, 32, Qwen3-MoE's
+      at C = 1, gpt-oss's at C = 2; fp32 meta, and bf16 at three) within
+      2^-7 of max|y| with the controls a neighbour's scale and expert e+1's
+      codes, three runs bit-equal, against its byte bound and torch.bmm on
+      the dequantized stack, and each stack's one-launch dequant bit-equal
+      to E single calls.
 Phases g, h, v and m run right after c, on its model, then q and s, then r,
-then l, then d.
+then l, then x, then d.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -302,8 +331,10 @@ WGMMA_SOURCES = ("quant_matmul.cu", "quant_matmul_ax0.cu", "quant_matmul_lora.cu
 BULK_SOURCES = ("paged_attention.cu",)
 # the source on the int8 tensor cores (mma.sync, IMMA) fed by TMA
 IMMA_SOURCES = ("w4a8_matmul.cu",)
+# the source on the bf16 tensor cores (mma.sync, HMMA) without TMA
+HMMA_SOURCES = ("grouped_matmul.cu",)
 # the sources whose kernel instantiations must not spill
-NO_SPILL_SOURCES = IMMA_SOURCES + ("dequant.cu",)
+NO_SPILL_SOURCES = IMMA_SOURCES + HMMA_SOURCES + ("dequant.cu",)
 # wrapper -> (source, the TPU kernel it replaces, a second one it replaces)
 KERNELS = {
     "w4a8_matmul": ("w4a8_matmul.cu", "hqq_tpu/ops/fused_matmul.py:524",
@@ -343,6 +374,11 @@ KERNELS = {
     # order, two sums a row; the LayerNorm families' norms
     "layer_norm": ("rms_norm.cu", "hqq_tpu/models/vit.py:131",
                    "hqq_tpu/models/phi.py:153, hqq_tpu/models/cohere.py:75"),
+    # the MoE experts' dequant-matmul, which hqq_tpu leaves to XLA (a vmapped
+    # dequantize and one einsum, no Pallas kernel): the packed 4-bit codes of
+    # every expert read once, the dense W never written
+    "grouped_matmul": ("grouped_matmul.cu", "hqq_tpu/nn/moe.py:110",
+                       "hqq_tpu/core/quantize.py:381 (vmapped over the experts)"),
 }
 # the row of phase b that stands for each kernel in the last-but-one line
 PICK = {
@@ -363,6 +399,7 @@ PICK = {
     "flash_attention_backward_dq_fp32": (1, 1024, 32, "fp32, causal, 32/32 heads, head size 128"),
     "rms_norm": (4, 4096, 4096, "bf16, offset 0"),
     "layer_norm": (4, 4544, 4544, "bf16, bias"),
+    "grouped_matmul": (8, 4096, 14336, "8 experts, 4-bit g64, fp32 meta"),
 }
 # head size and page geometry of the attention rows and of paths G and H
 HEAD_DIM, PAGE, MAX_PAGES = 128, 16, 64
@@ -586,6 +623,13 @@ def phase_a(name: str, power: str) -> None:
             f"{counts['UTMALDG']} UTMALDG instructions")
         if not all(counts.values()):
             raise AssertionError(f"{source} issues no int8 MMA or no TMA load: {counts}")
+    for source in HMMA_SOURCES:
+        sass = subprocess.run([cuobjdump, "-sass", _build._lib_path(source)], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        hmma = len(re.findall(r"\bHMMA\b", sass))
+        log(f"[a]   {source} SASS: {hmma} HMMA (bf16 mma.sync) instructions")
+        if not hmma:
+            raise AssertionError(f"{source} issues no bf16 MMA")
     for source in BULK_SOURCES:
         sass = subprocess.run([cuobjdump, "-sass", _build._lib_path(source)], capture_output=True,
                               text=True, check=True, timeout=300).stdout
@@ -1185,6 +1229,7 @@ def phase_b() -> dict:
 
     fused_against_parts(rows)
     phase_b_dequant(record, iters)
+    phase_b_grouped(record, iters)
     torch.cuda.empty_cache()
     phase_b_attention(record, held, iters)
     phase_b_norm(record, iters)
@@ -1407,6 +1452,112 @@ def phase_b_dequant(record, iters: int) -> None:
                       lambda q: fm.dequant_canonical(q, bf16), plain,
                       {"c*s - z*s": _canonical_control(qt, bf16)}, copies, nbytes, iters)
         del copies, qt
+        torch.cuda.empty_cache()
+
+
+# the experts' stacks of paths X (E, N, K) and the rows an expert holds
+# there: Mixtral-8x7B's w1/w3 and w2 at C = 1, 4 (8 slots at capacity
+# factor 2), 8 (8 slots at capacity factor 4.0, as phase x serves it) and 32
+# (the kernel's largest); Qwen3-30B-A3B's at C = 1 and gpt-oss-20b's at C = 2
+# (8 slots: top-8 of 128 and top-4 of 32 at 2.0)
+GROUPED_CASES = [(8, 14336, 4096, c) for c in (1, 4, 8, 32)] + [(8, 4096, 14336, c)
+                                                                for c in (1, 4, 8, 32)] + [
+    (128, 768, 2048, 1), (128, 2048, 768, 1), (32, 5760, 2880, 2), (32, 2880, 2880, 2)]
+GROUPED_BF16_META = {(8, 14336, 4096, 4), (128, 768, 2048, 1), (32, 5760, 2880, 2)}
+
+
+def _grouped_stack(e: int, n: int, k: int, meta, seed: int):
+    """A stack of E random 4-bit g64 experts [N, K] (codes and meta drawn
+    directly, no solver: the kernel's arithmetic does not care), as the
+    stacked QTensor of a GroupedQuantLinear."""
+    from hqq_tpu_torch.nn.moe import GroupedQuantLinear
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = n * k // 64
+    wq = torch.randint(0, 256, (e, rows // 2, 64), generator=gen, device="cuda",
+                       dtype=torch.int32).to(torch.uint8)
+    scale = (torch.rand((e, rows, 1), generator=gen, device="cuda") * 0.02 + 1e-3).to(meta)
+    zero = torch.randint(0, 16, (e, rows, 1), generator=gen, device="cuda").float().to(meta)
+    return GroupedQuantLinear(wq, scale, zero, 4, 64, 1, (n, k), "4bit_u8",
+                              torch.bfloat16).qtensor()
+
+
+def _grouped_controls(qt) -> dict:
+    """Inputs that must miss the bar: each group with its neighbour's scale,
+    and expert e reading expert e+1's codes."""
+    import dataclasses
+
+    return {"neighbour's scale": dataclasses.replace(qt, scale=qt.scale.roll(1, 1)),
+            "expert e+1's codes": dataclasses.replace(qt, wq=qt.wq.roll(-1, 0))}
+
+
+def phase_b_grouped(record, iters: int) -> None:
+    """The grouped expert kernel against its plain twin at paths X's stacks
+    (`GROUPED_CASES`; fp32 meta, and bf16 meta at three of them): within
+    2^-7 of max|y|, three runs bit-equal, the controls past the bar; device
+    ms, plain ms, the byte bound (all E experts' codes and meta, x and y),
+    and `torch.bmm` on the pre-dequantized bf16 stack as the library call.
+    The stacked `dequant_canonical` of each case bit-equal to E single
+    calls and to its plain twin, timed against its byte bound."""
+    from hqq_tpu_torch.ops import fused_matmul as fm
+
+    bf16 = torch.bfloat16
+    cases = [(c, torch.float32) for c in GROUPED_CASES] + [
+        (c, bf16) for c in GROUPED_CASES if c in GROUPED_BF16_META]
+    dequant_done = set()
+    for i, ((e, n, k, c), meta) in enumerate(cases):
+        qt = _grouped_stack(e, n, k, meta, seed=100 + i)
+        x = torch.randn((e, c, k), generator=torch.Generator(device="cuda").manual_seed(i),
+                        device="cuda").to(bf16)
+        note = f"{e} experts, 4-bit g64, {'bf16' if meta == bf16 else 'fp32'} meta"
+        plan = fm.grouped_plan_for(x, qt)
+        if plan.route != "kernel":
+            raise AssertionError(f"grouped_matmul {note} C={c}: the plan sends it to {plan.route}")
+        y, ref = fm.grouped_matmul(x, qt), fm.grouped_matmul_plain(x, qt)
+        err = rel(y, ref)
+        misses = {name: rel(fm.grouped_matmul_plain(x, bad), ref)
+                  for name, bad in _grouped_controls(qt).items()}
+        runs = [fm.grouped_matmul(x, qt) for _ in range(3)]
+        equal = all(torch.equal(r, y) for r in runs)
+        del y, ref, runs
+        ms = time_ms([lambda: fm.grouped_matmul(x, qt)], iters)
+        plain_ms = time_ms([lambda: fm.grouped_matmul_plain(x, qt)], max(3, iters // 20))
+        w = fm.dequant_stacked_plain(qt, bf16)
+        lib = time_ms([lambda: torch.bmm(x, w.transpose(1, 2))], iters)
+        nbytes = _qt_bytes(qt) + 2 * e * c * (k + n)
+        b_ms, by = bound_ms(nbytes, 2.0 * e * c * n * k, "bf16")
+        log(f"[b] grouped_matmul {note}, x [{e}, {c}, {k}] . W^T [{n}, {k}]: rel err {err:.3e} "
+            f"(bar 2^-7), controls {misses}, three runs bit-equal: {equal}; {ms:.4f} ms, "
+            f"{b_ms / ms:.0%} of the byte bound {b_ms:.4f} ms; plain {plain_ms:.4f} ms; "
+            f"torch.bmm on the dequantized bf16 stack {lib:.4f} ms; plan {plan.why}")
+        if not err <= 2.0**-7 or not all(v > 2.0**-7 for v in misses.values()) or not equal:
+            raise AssertionError(f"grouped_matmul {note} C={c} [{n}, {k}]: err {err:.3e}, "
+                                 f"controls {misses}, repeated runs equal {equal}")
+        record("grouped_matmul", dict(kernel="grouped_matmul", m=c, k=k, n=n, max_abs_err=err,
+                                      ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                                      library_ms=lib, note=note))
+        if (e, n, k, meta) not in dequant_done:  # the stacked canonical dequant, once a stack
+            dequant_done.add((e, n, k, meta))
+            wk = fm.dequant_canonical(qt, bf16)
+            singles = all(torch.equal(wk[j], fm.dequant_canonical(fm.expert_qtensor(qt, j), bf16))
+                          for j in range(e))
+            twin = torch.equal(wk, w)
+            del wk
+            dms = time_ms([lambda: fm.dequant_canonical(qt, bf16)], iters)
+            dplain = time_ms([lambda: fm.dequant_stacked_plain(qt, bf16)], max(3, iters // 20))
+            dbytes = _qt_bytes(qt) + 2 * e * n * k
+            db_ms, dby = bound_ms(dbytes, 2.0 * e * n * k, "fp32")
+            log(f"[b] dequant_canonical over a stack of {note}, W [{e}, {n}, {k}] to bf16 in one "
+                f"launch: bit-equal to {e} single calls {singles}, to the plain twin {twin}; "
+                f"{dms:.4f} ms, {db_ms / dms:.0%} of the byte bound {db_ms:.4f} ms; plain "
+                f"{dplain:.4f} ms")
+            if not (singles and twin):
+                raise AssertionError(f"the stacked dequant of {note} [{n}, {k}] is not bit-equal")
+            record("dequant_canonical", dict(kernel="dequant_canonical", m=None, k=k, n=n,
+                                             max_abs_err=0.0, ms=dms, plain_ms=dplain,
+                                             bound_ms=db_ms, bound_by=dby, library_ms=None,
+                                             note=f"stacked: {note}"))
+        del w, qt, x
         torch.cuda.empty_cache()
 
 
@@ -1809,6 +1960,8 @@ def _step_weight_bytes(tree) -> int:
         return sum(_step_weight_bytes(v) for v in tree.values())
     if isinstance(tree, list):
         return sum(_step_weight_bytes(v) for v in tree)
+    if hasattr(tree, "n_experts") and hasattr(tree, "wq"):  # a quantized expert stack
+        return sum(t.numel() * t.element_size() for t in (tree.wq, tree.scale, tree.zero))
     if hasattr(tree, "kqt"):
         return _weight_bytes(tree.kqt) + sum(
             t.numel() * t.element_size() for t in (getattr(tree, "a", None),
@@ -2759,14 +2912,16 @@ def _offset_toggled(x, w, eps, offset=0.0):
     return nm.rms_norm_plain(x, w, eps, 1.0 - offset)
 
 
-def _r_calls(tag: str, fwd, params, cfg, toks, t: int, steps: int, norm=None) -> dict:
+def _r_calls(tag: str, fwd, params, cfg, toks, t: int, steps: int, norm=None,
+             extra=()) -> dict:
     """A prefill of ``t`` tokens (M = 4 t) and ``steps`` decode steps over
     the dense cache, every w4a8_matmul, quant_matmul and norm call held
     on the spot to its plain twin on the path's own inputs: the matmuls
     within phase b's 2^-7 of max|y| (controls: each group with its
     neighbour's scale), the norm bit-equal (rms_norm's control: the offset
     toggled; ``norm`` = (wrapper name, plain twin, controls) for another).
-    Returns the readings by wrapper, the matmuls' worst also by K."""
+    ``extra``: more wrappers held, as (module, name, plain twin, controls,
+    bar). Returns the readings by wrapper, the matmuls' worst also by K."""
     import dataclasses
     from unittest import mock
 
@@ -2782,11 +2937,11 @@ def _r_calls(tag: str, fwd, params, cfg, toks, t: int, steps: int, norm=None) ->
         return fm.quant_matmul_plain(x, dataclasses.replace(kqt, scale=kqt.scale.roll(1, 1)))
 
     norm = norm or ("rms_norm", nm.rms_norm_plain, {"offset toggled": _offset_toggled})
-    logs = {"w4a8_matmul": {}, "quant_matmul": {}, norm[0]: {}}
     held = [(fm, "w4a8_matmul", fm.w4a8_matmul_plain, {"neighbour's scale": w4a8_scale}, 2.0**-7),
             (fm, "quant_matmul", fm.quant_matmul_plain, {"neighbour's scale": qmm_scale},
              2.0**-7),
-            (nm, norm[0], norm[1], norm[2], 0.0)]
+            (nm, norm[0], norm[1], norm[2], 0.0), *extra]
+    logs = {h[1]: {} for h in held}
     k_of = {"w4a8_matmul": lambda *a: a[2].k, "quant_matmul": lambda *a: a[1].k}
     with torch.inference_mode():
         patches = [mock.patch.object(mod, name, checked(getattr(mod, name), plain, ctl,
@@ -2890,6 +3045,8 @@ def _kernel_layers(model_type: str, cfg) -> int:
     `hqq_tpu`)."""
     if model_type == "granite":
         return cfg.num_hidden_layers
+    if model_type == "gpt_oss":  # sinks: every layer takes the gather route
+        return 0
     if hasattr(cfg, "layer_is_sliding"):
         if getattr(cfg, "attn_logit_softcapping", None) is not None:
             return 0
@@ -3549,6 +3706,463 @@ def phase_l(dev_tag: str) -> list:
                 f"{calls['w4a8_matmul']['worst_by_k'][1600]:.3e}, quant_matmul "
                 f"{calls['quant_matmul']['worst_by_k'][1600]:.3e} (bar 2^-7)")
     log(f"[l] phase l: {time.time() - t0:.1f} s")
+    return windows
+
+
+X_CAPACITY = 4.0  # Mixtral's E / top_k: no assignment is dropped, a request's ids are its own
+
+
+def _x_mixtral_8x7b(dev_tag: str) -> list:
+    """Mixtral-8x7B at full width and depth (mistralai/Mixtral-8x7B-v0.1,
+    from memory: hidden 4096, ffn 14336, 32 layers, 32/8 heads, 8 experts,
+    top-2, vocab 32000 untied, rope theta 1e6, no window): random bf16
+    weights from seed 0 drawn and quantized one layer at a time (the bf16
+    model, 93 GB, does not fit the card) by `quantize_mixtral` (attention
+    and experts 4-bit g64, the router in bf16), capacity factor 4.0,
+    save_quantized; `serve.main` on the checkpoint with its defaults
+    (paged, w4a8, fused), G's pool and a horizon of 8; G's 12 requests from
+    12 client threads (6 streamed), ids equal to an in-process
+    PagedBatchingEngine's on the served tree. Returns the launch windows of
+    the server and of Generator's partial generate."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from hqq_tpu_torch.engine.hf import HQQModel
+    from hqq_tpu_torch.models import mixtral
+    from hqq_tpu_torch.serve import main as serve_main
+
+    cfg = dataclasses.replace(mixtral.MixtralConfig.mixtral_8x7b(), capacity_factor=X_CAPACITY)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.time()
+    params = mixtral.init_params(dataclasses.replace(cfg, num_hidden_layers=0), gen,
+                                 torch.bfloat16, "cuda")  # the embedding, norm and lm_head
+    one = dataclasses.replace(cfg, num_hidden_layers=1, vocab_size=8)
+    init_s, quant_s = time.time() - t0, 0.0
+    for _ in range(cfg.num_hidden_layers):
+        t0 = time.time()
+        layer = mixtral.init_params(one, gen, torch.bfloat16, "cuda")["layers"][0]
+        torch.cuda.synchronize()
+        t1 = time.time()
+        mixtral.quantize_mixtral({"layers": [layer]})
+        torch.cuda.synchronize()
+        init_s, quant_s = init_s + t1 - t0, quant_s + time.time() - t1
+        params["layers"].append(layer)
+    build_peak = torch.cuda.max_memory_allocated() / 2**30
+    root = tempfile.mkdtemp(prefix="hqq-mixtral-8x7b-")
+    try:
+        t0 = time.time()
+        HQQModel(params, cfg, "mixtral", quantized=True).save_quantized(root)
+        save_s = time.time() - t0
+        gb = sum(os.path.getsize(os.path.join(root, f)) for f in os.listdir(root)) / 1e9
+        del params, layer
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[x] {dev_tag} Mixtral-8x7B (32 layers): init {init_s:.1f} s, quantize_mixtral "
+            f"(4-bit g64: 4 attention linears and 3 stacks of 8 experts a layer; the router in "
+            f"bf16), layer by layer, {quant_s:.2f} s, save_quantized {gb:.3f} GB in {save_s:.2f} "
+            f"s, peak {build_peak:.2f} GiB")
+        argv = ["--model", root, "--port", "0", "--engine", "paged", "--backend", "w4a8",
+                "--slots", str(G_SLOTS), "--num-pages", str(G_PAGES), "--page-size", str(PAGE),
+                "--max-pages-per-seq", str(MAX_PAGES), "--horizon", str(S_HORIZON)]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        srv = serve_main(argv, serve=False).start()
+        return _x_served(dev_tag, cfg, srv, time.time() - t0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _x_expert_checks(params, captured) -> dict:
+    """The first and last layer's expert stacks on the path's own inputs
+    (``captured``: (layer, name) -> x [E, C, K] of decode steps and a
+    prefill): at C <= 32 the kernel against its twin within 2^-7 of max|y|
+    with its controls (a neighbour's scale, expert e+1's codes), above it
+    the dequantized stack and torch.bmm against the same twin."""
+    from hqq_tpu_torch.ops import fused_matmul as fm
+
+    worst, least, n = {"kernel": 0.0, "bmm": 0.0}, {}, {"kernel": 0, "bmm": 0}
+    for (li, name), xs in captured.items():
+        gq = params["layers"][li]["block_sparse_moe"]["experts"][name]
+        qt = gq.qtensor()
+        for x in xs:
+            route = fm.grouped_plan_for(x, qt).route
+            ref = fm.grouped_matmul_plain(x, qt)
+            y = fm.grouped_matmul(x, qt) if route == "kernel" else gq(x)
+            worst[route] = max(worst[route], rel(y, ref))
+            n[route] += 1
+            if route == "kernel":
+                for c, bad in _grouped_controls(qt).items():
+                    v = rel(fm.grouped_matmul_plain(x, bad), ref)
+                    least[c] = min(least.get(c, v), v)
+    if not (n["kernel"] and n["bmm"]) or max(worst.values()) > 2.0**-7 or not all(
+            v > 2.0**-7 for v in least.values()):
+        raise AssertionError(f"[x] expert calls on the path's inputs: {n} calls, worst {worst}, "
+                             f"controls {least}")
+    return dict(calls=n, worst=worst, controls=least)
+
+
+def _x_served(dev_tag: str, cfg, srv, boot_s: float) -> list:
+    """The rest of `_x_mixtral_8x7b`, on the started server ``srv``: the
+    window, the in-process engine, the expert calls held, a steady window's
+    busy share, Generator partial and full, and the same requests at the
+    default capacity factor 2.0 with the share of assignments dropped."""
+    import dataclasses
+    import types
+    from unittest import mock
+
+    import numpy as np
+
+    from hqq_tpu_torch import ops
+    from hqq_tpu_torch.backends.pallas_backend import A8QuantLinear
+    from hqq_tpu_torch.engine.hf import HQQModel
+    from hqq_tpu_torch.models import mixtral
+    from hqq_tpu_torch.nn import moe
+    from hqq_tpu_torch.nn.moe import GroupedQuantLinear
+
+    layers, norms = cfg.num_hidden_layers, 2 * cfg.num_hidden_layers + 1
+    eng = srv.engine
+    params, fwd = eng.params, eng._fwd
+    prompts = _g_prompts(cfg, np.random.default_rng(0))
+    steps = []
+    decode = eng._decode
+
+    def counted(h):
+        steps.append(h)
+        return decode(h)
+
+    eng._decode = counted
+    try:
+        if not all(set(layer["self_attn"]) == {"qkv_proj", "o_proj"}
+                   and isinstance(layer["self_attn"]["qkv_proj"], A8QuantLinear)
+                   and type(layer["block_sparse_moe"]["gate"]).__name__ == "Linear"
+                   and all(isinstance(v, GroupedQuantLinear)
+                           for v in layer["block_sparse_moe"]["experts"].values())
+                   for layer in params["layers"]):
+            raise AssertionError("[x] the served tree is not Mixtral's fused w4a8 tree")
+        if eng.cfg.capacity_factor != X_CAPACITY:
+            raise AssertionError(f"[x] the served config's capacity factor is "
+                                 f"{eng.cfg.capacity_factor}")
+        t_warm = time.time()
+        _s_request(srv.port, prompts[0][:64], 8, False, t_warm)
+        warm_s = time.time() - t_warm
+        # the main path's window: every count from 0, read right after
+        ops.reset_launch_counts()
+        steps.clear()
+        results, window_s = _s_window(srv.port, prompts, R_NEW)
+        launches = launch_counts()
+        n_steps = sum(steps)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        srv.stop()
+    eng.close()
+    del eng, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_step = {"w4a8_matmul": 2 * layers, "grouped_matmul": 3 * layers,
+                "paged_attention": layers, "rms_norm": norms}
+    per_prefill = {"quant_matmul": 2 * layers, "dequant_canonical": 3 * layers, "rms_norm": norms}
+    expect = {k: per_step.get(k, 0) * n_steps + per_prefill.get(k, 0) * len(prompts)
+              for k in set(per_step) | set(per_prefill)}
+    log(f"[x] launches in the server's window ({n_steps} decode steps, {len(prompts)} "
+        f"prefills): {launches}; a decode step: {per_step}; a prefill (every expert holds more "
+        f"than 32 rows: the stack dequantized once, then torch.bmm): {per_prefill}")
+    for name, n in expect.items():
+        if launches[name] != n:
+            raise AssertionError(f"[x] {launches[name]} {name} launches in the window ({n_steps} "
+                                 f"decode steps, {len(prompts)} prefills), expected {n}")
+
+    # the same requests through the served tree in-process, decode timed
+    model_ns = types.SimpleNamespace(params=params, cfg=cfg)
+    outs, recs, inproc_s, _ = _serve_paged(model_ns, prompts, R_NEW, horizon=S_HORIZON,
+                                           forward_fn=fwd)
+    same = [r["tokens"] == o for r, o in zip(results, outs)]
+    decode_s = sum(r["ms"] for r in recs) / 1e3
+    dec_steps = sum(r["steps"] for r in recs)
+    tokens = sum(r["live"] * r["steps"] for r in recs)
+    weights = _step_weight_bytes(params)
+    kv = (sum(r["rows"] for r in recs) / len(recs)
+          * 2 * layers * cfg.num_key_value_heads * cfg.head_dim_ * 2)
+    bound = (weights + kv) / HBM_BYTES_PER_S * 1e3
+    all_tokens = sum(len(r["tokens"]) for r in results)
+    first = sorted(r["first_s"] for r in results if r["chunks"] is not None)
+    log(f"[x] {dev_tag}: serve.main (paged, w4a8, fused, {G_SLOTS} slots, {G_PAGES} pages of "
+        f"{PAGE} rows, horizon {S_HORIZON}) to a started server {boot_s:.2f} s, warm-up "
+        f"{warm_s:.2f} s; 12 requests (prompts {[len(p) for p in prompts]}, {R_NEW} new, greedy) "
+        f"from 12 client threads, 6 streamed: window {window_s:.3f} s, {all_tokens / window_s:.1f} "
+        f"tok/s at the client; time to first token median {first[len(first) // 2]:.3f} s, max "
+        f"{first[-1]:.3f} s; in-process {inproc_s:.3f} s, {all_tokens / inproc_s:.1f} tok/s, "
+        f"ids equal the server's in {sum(same)} of {len(same)}; decode {tokens / decode_s:.1f} "
+        f"tok/s over all slots, {decode_s / dec_steps * 1e3:.2f} ms a step against a byte bound "
+        f"of {bound:.3f} ms ({weights / 1e9:.3f} GB of codes and meta of every expert and "
+        f"linear, the routers and the bf16 lm_head + {kv / 1e9:.3f} GB of K/V rows on average); "
+        f"the server's peak {peak:.2f} GiB")
+    if not all(same):
+        raise AssertionError(f"[x] the server's ids differ from the in-process engine's in "
+                             f"{len(same) - sum(same)} of {len(same)} requests")
+    # a request's ids are its own: the same requests in the reverse order,
+    # so that each shares its decode steps and its experts' slots with others
+    rev = _serve_paged(model_ns, prompts[::-1], R_NEW, horizon=S_HORIZON, forward_fn=fwd)[0]
+    same_rev = [a == b for a, b in zip(rev[::-1], outs)]
+    log(f"[x] the same requests in-process in the reverse order: ids equal in {sum(same_rev)} "
+        f"of {len(same_rev)}")
+    if not all(same_rev):
+        raise AssertionError(f"[x] {len(same_rev) - sum(same_rev)} requests' ids move with the "
+                             f"requests beside them")
+
+    # the first and last layer's expert stacks on the path's own inputs
+    from hqq_tpu_torch.serving.paged import PagedBatchingEngine
+
+    captured, hooks = {}, []
+    for li in (0, layers - 1):
+        for name in ("w1", "w2", "w3"):
+            def grab(mod, args, key=(li, name)):
+                captured.setdefault(key, []).append(args[0].detach().clone())
+            hooks.append(params["layers"][li]["block_sparse_moe"]["experts"][name]
+                         .register_forward_pre_hook(grab))
+    eng = PagedBatchingEngine(params, cfg, batch_slots=G_SLOTS, num_pages=G_PAGES,
+                              page_size=PAGE, max_pages_per_seq=MAX_PAGES, forward_fn=fwd)
+    for p in prompts[:3]:
+        eng.add_request(p[:200], max_new_tokens=3)
+    eng.run()
+    for h in hooks:
+        h.remove()
+    checks = _x_expert_checks(params, captured)
+    del captured
+    log(f"[x] the expert stacks of layers 0 and {layers - 1} on the path's inputs: {checks}")
+    # the device's share of a steady decode window: 8 live slots, 8 steps
+    rng = np.random.default_rng(1)
+    for _ in range(G_SLOTS):
+        eng.add_request(rng.integers(0, cfg.vocab_size, 256), max_new_tokens=R_NEW)
+    eng.step()
+    busy = device_share(lambda: [eng.step() for _ in range(8)])
+    eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    top = sorted(busy["by_name"].items(), key=lambda kv: -kv[1])[:6]
+    log(f"[x] {dev_tag}: 8 decode steps of 8 slots at lengths around 260: device busy "
+        f"{busy['busy_share']:.3f} of {busy['wall_ms']:.1f} ms wall, device "
+        f"{busy['device_ms']:.3f} ms; device ms by kernel "
+        f"{ {k[:90]: round(v, 3) for k, v in top} }")
+
+    # Generator on the served tree: "partial" (the launch window), then "full"
+    model = HQQModel(params, cfg, "mixtral", quantized=True)
+    prompts4 = _prompts(cfg)
+    partial = dict(compile_mode="partial")
+    ops.reset_launch_counts()
+    model.generate(prompts4, max_new_tokens=1, **partial)
+    torch.cuda.synchronize()
+    first_counts = launch_counts()
+    t0 = time.time()
+    model.generate(prompts4, max_new_tokens=1, **partial)
+    torch.cuda.synchronize()
+    prefill_s = time.time() - t0
+    before = launch_counts()
+    t0 = time.time()
+    ids = model.generate(prompts4, max_new_tokens=R_GEN_NEW, **partial)
+    torch.cuda.synchronize()
+    partial_tok_s = 4 * (R_GEN_NEW - 1) / (time.time() - t0 - prefill_s)
+    gen_window = launch_counts()
+    got = {k: (gen_window[k] - before[k] - first_counts[k]) / (R_GEN_NEW - 1)
+           for k in ("w4a8_matmul", "rms_norm", "grouped_matmul", "paged_attention")}
+    want = dict(per_step, paged_attention=0)  # Generator decodes over the dense cache
+    if got != want:
+        raise AssertionError(f"[x] a partial decode step launched {got}, expected {want}")
+    full_ids = model.generate(prompts4, max_new_tokens=R_GEN_NEW)
+    captures = model.generator().captures()
+    t0 = time.time()
+    model.generate(prompts4, max_new_tokens=R_GEN_NEW)
+    torch.cuda.synchronize()
+    full_tok_s = 4 * (R_GEN_NEW - 1) / (time.time() - t0 - prefill_s)
+    full_busy = device_share(lambda: model.generate(prompts4, max_new_tokens=8))
+    model.release_graphs()
+    log(f"[x] {dev_tag}: Generator on the served tree, 4 prompts of 100 tokens, {R_GEN_NEW} new: "
+        f"partial {partial_tok_s:.1f} tok/s, full {full_tok_s:.1f} tok/s (prefill "
+        f"{prefill_s * 1e3:.1f} ms); ids full == partial: {np.array_equal(ids, full_ids)}; "
+        f"graphs' recorded launches {[c['launches'] for c in captures.values()]}; an 8-token "
+        f"full generate busy {full_busy['busy_share']:.3f} of {full_busy['wall_ms']:.1f} ms, "
+        f"device ms {full_busy['device_ms']:.3f}")
+    if not np.array_equal(ids, full_ids):
+        raise AssertionError("[x] the graph's greedy ids differ from the eager loop's")
+    graph_step = {k: v for k, v in want.items() if v}
+    for key, cap in captures.items():
+        if cap["launches"] != graph_step:
+            raise AssertionError(f"[x] graph {key} recorded {cap['launches']}")
+    del model
+
+    # the same requests in-process at the default capacity factor (2.0):
+    # the assignments the capacity drops, counted on the device
+    cfg2 = dataclasses.replace(cfg, capacity_factor=2.0)
+    kept = {"decode": torch.zeros((), dtype=torch.int64, device="cuda"),
+            "prefill": torch.zeros((), dtype=torch.int64, device="cuda")}
+    total = {"decode": 0, "prefill": 0}
+    inner = moe.moe_dispatch
+
+    def counting(probs, k, capacity):
+        d, c = inner(probs, k, capacity)
+        kind = "decode" if probs.shape[0] <= G_SLOTS else "prefill"
+        kept[kind] += d.sum()
+        total[kind] += probs.shape[0] * k
+        return d, c
+
+    with mock.patch.object(moe, "moe_dispatch", counting):
+        outs2, _, _, _ = _serve_paged(
+            types.SimpleNamespace(params=params, cfg=cfg2), prompts, R_NEW, horizon=S_HORIZON,
+            forward_fn=lambda p, t, c, s, ptab=None: mixtral.forward(p, cfg2, t, c, s,
+                                                                     page_indices=ptab))
+    dropped = {k: 1 - int(kept[k]) / total[k] for k in total}
+    log(f"[x] the same 12 requests in-process at capacity factor 2.0 (capacity "
+        f"{moe.moe_capacity(G_SLOTS, 2, 8, 2.0)} a decode step of {G_SLOTS} slots): share of "
+        f"assignments dropped: decode {dropped['decode']:.4f} of {total['decode']}, prefill "
+        f"{dropped['prefill']:.4f} of {total['prefill']} (padding rows included); requests "
+        f"whose ids equal those at 4.0: {sum(a == b for a, b in zip(outs2, outs))} of 12")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [launches, gen_window]
+
+
+class _RoutingReplay:
+    """`moe_dispatch` for `_r_paged` on an MoE model: its calls come as the
+    dense prefill (one a layer, passed through), the 8 dense decode steps
+    (recorded), then the paged steps and the control's (each replays the
+    dense step's dispatch and combine). At random weights a router's k-th
+    and (k+1)-th choice lie close (top-8 of 128), and the paged kernel's
+    rounding, within its bar, would move a token to another expert now and
+    then; the replay keeps the check on the attention. How many of the
+    paged steps' own routings differ from the dense ones is counted."""
+
+    def __init__(self, module, layers: int, steps: int = 8):
+        self.inner, self.layers, self.steps = module.moe_dispatch, layers, steps
+        self.recorded, self.calls, self.differ = [], 0, 0
+
+    def __call__(self, probs, k, capacity):
+        d, c = self.inner(probs, k, capacity)
+        i, self.calls = self.calls, self.calls + 1
+        if i < self.layers:
+            return d, c
+        if i < self.layers * (1 + self.steps):
+            self.recorded.append((d, c))
+            return d, c
+        rd, rc = self.recorded[(i - self.layers) % len(self.recorded)]
+        if i < self.layers * (1 + 2 * self.steps):  # the paged steps (not the control)
+            self.differ += int(not torch.equal(d, rd))
+        return rd, rc
+
+    def summary(self) -> dict:
+        return dict(replayed_calls=self.layers * self.steps,
+                    paged_routing_differs_in=self.differ)
+
+
+def _x_configs() -> dict:
+    """The 2-layer MoE models of path X at their published widths (from
+    memory, no config.json in the repo): Qwen/Qwen3-30B-A3B and
+    openai/gpt-oss-20b (one sliding and one full layer), at capacity
+    factor E / top_k (16 and 8), which drops nothing, as on Mixtral's path
+    (at the default 2.0 Qwen3-MoE's 4 decode rows give each expert one
+    slot)."""
+    import dataclasses
+
+    from hqq_tpu_torch.models import gpt_oss, qwen3_moe
+
+    qwen = qwen3_moe.Qwen3MoeConfig.qwen3_30b_a3b()
+    oss = gpt_oss.GptOssConfig.gpt_oss_20b(num_hidden_layers=2)
+    return {
+        "qwen3_moe": (qwen3_moe, dataclasses.replace(
+            qwen, num_hidden_layers=2,
+            capacity_factor=qwen.num_experts / qwen.num_experts_per_tok),
+            "quantize_qwen3_moe", 31),
+        "gpt_oss": (gpt_oss, dataclasses.replace(
+            oss, capacity_factor=oss.num_local_experts / oss.num_experts_per_tok),
+            "quantize_gpt_oss", 32),
+    }
+
+
+def _x_two_layer(model_type: str, module, cfg, quantizer: str, seed: int) -> dict:
+    """One MoE family at its published width, 2 layers: random bf16 weights
+    from ``seed`` (gpt-oss's biases and sinks drawn), the family's quantizer
+    (4-bit g64); the checkpoint through save_quantized and from_quantized,
+    every tensor bit-equal; w4a8; a prefill (M = 512, the experts through
+    the stacked dequant and torch.bmm) and 4 decode steps (the grouped
+    kernel) with every w4a8, quant_matmul, rms_norm, grouped_matmul and
+    stacked dequant call held to its twin; paged decode against the dense
+    cache, the paged steps taking the dense steps' routing
+    (`_RoutingReplay`)."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    from hqq_tpu_torch.engine.hf import HQQModel, HQQModelForCausalLM
+    from hqq_tpu_torch.nn import moe
+    from hqq_tpu_torch.ops import fused_matmul as fm
+    from hqq_tpu_torch.utils.patching import prepare_for_inference
+
+    tag = f"x {model_type}"
+    t0 = time.time()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = module.init_params(cfg, gen, torch.bfloat16, "cuda")
+    if model_type == "gpt_oss":
+        for layer in params["layers"]:
+            for t in (layer["self_attn"]["sinks"], layer["mlp"]["gate_up_bias"],
+                      layer["mlp"]["down_bias"], layer["mlp"]["router"].bias):
+                t.data.copy_(torch.randn(t.shape, generator=gen, device="cuda") * 0.1)
+    getattr(module, quantizer)(params)
+    root = tempfile.mkdtemp(prefix="hqq-moe-")
+    try:
+        HQQModel(params, cfg, model_type, quantized=True).save_quantized(root)
+        back = HQQModelForCausalLM.from_quantized(root)
+        n_tensors = _bit_equal_trees(tag, back.params, params)
+        if back.cfg != cfg or type(back.cfg) is not type(cfg):
+            raise AssertionError(f"[{tag}] the checkpoint's config came back as {back.cfg}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del back
+    params = prepare_for_inference(params, "w4a8")
+    toks = torch.randint(0, cfg.vocab_size, (4, 132), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(seed + 1))
+
+    def grouped_bad(name):
+        return lambda x, qt: fm.grouped_matmul_plain(x, _grouped_controls(qt)[name])
+
+    def dequant_bad(qt, dtype):
+        return fm.dequant_stacked_plain(dataclasses.replace(qt, scale=qt.scale.roll(1, 1)), dtype)
+
+    extra = [(moe, "grouped_matmul", fm.grouped_matmul_plain,
+              {c: grouped_bad(c) for c in ("neighbour's scale", "expert e+1's codes")}, 2.0**-7),
+             (moe, "dequant_canonical", fm.dequant_stacked_plain,
+              {"neighbour's scale": dequant_bad}, 0.0)]
+    calls = _r_calls(tag, module.forward, params, cfg, toks, 128, 4, extra=extra)
+    replay = _RoutingReplay(moe, cfg.num_hidden_layers)
+    with mock.patch.object(moe, "moe_dispatch", replay):
+        paged = _r_paged(tag, module.forward, params, cfg, toks, _kernel_layers(model_type, cfg))
+    paged["routing"] = replay.summary()
+    experts = getattr(cfg, "num_experts", getattr(cfg, "num_local_experts", None))
+    log(f"[{tag}] 2 layers at published width (hidden {cfg.hidden_size}, heads "
+        f"{cfg.num_attention_heads}/{cfg.num_key_value_heads} of {cfg.head_dim_}, {experts} "
+        f"experts, top-{cfg.num_experts_per_tok}, vocab {cfg.vocab_size}): checkpoint "
+        f"{n_tensors} tensors bit-equal; a prefill (M=512) and 4 decode steps, calls against "
+        f"their plain twins (calls, worst, controls at the least): {calls}; paged decode "
+        f"against the dense cache: {paged}; {time.time() - t0:.1f} s")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return calls
+
+
+def phase_x(dev_tag: str) -> list:
+    """Path X, the MoE families: `_x_mixtral_8x7b` (Mixtral-8x7B through
+    the server), then `_x_two_layer` for Qwen3-30B-A3B and gpt-oss-20b at
+    their published widths. Returns the launch windows of Mixtral-8x7B."""
+    t0 = time.time()
+    windows = _x_mixtral_8x7b(dev_tag)
+    for model_type, (module, cfg, quantizer, seed) in _x_configs().items():
+        _x_two_layer(model_type, module, cfg, quantizer, seed)
+    log(f"[x] phase x: {time.time() - t0:.1f} s")
     return windows
 
 
@@ -5639,6 +6253,7 @@ def main(argv: list[str]) -> int:
     windows.append(phase_s_dense_int8(dev_tag))
     windows.extend(phase_r(dev_tag))
     windows.extend(phase_l(dev_tag))
+    windows.extend(phase_x(dev_tag))
     phase_g_two_layer()
     phase_h_two_layer()
     phase_d()

@@ -10,7 +10,9 @@
 //                          along axis 0, chunk f of the rows in bitfield f, most
 //                          significant first (uint8 containers, or int32 for 3-bit);
 //                          or, with packing=None, the codes unpacked in fp32, bf16 or
-//                          fp16 (exact integers), one to an element
+//                          fp16 (exact integers), one to an element; a stack of E
+//                          such QTensors (the experts of nn/moe.py's
+//                          GroupedQuantLinear) in one launch, E the grid's y
 //
 // Replaces: hqq_tpu/ops/fused_matmul.py `_dq_kernel` (launched by `_dq_call`,
 //   entry `dequant_pallas`), which writes W^T [K, N] tile by tile, and its use on
@@ -299,6 +301,9 @@ struct CanonGeom {
   uint32_t cols;          // C
   int fields, bits;       // r, and the bits of a field
   int meta_mode;          // 0 scalar, 1 per row, 2 per column
+  // a stack of experts (blockIdx.y): the elements of codes, of scale (and of
+  // zero) and of W between one expert and the next; 0 for a single QTensor
+  uint32_t wq_stride, meta_stride, out_stride;
 };
 
 // containers that hold codes as values, not bitfields
@@ -337,11 +342,15 @@ __global__ void __launch_bounds__(256)
                                  const T* __restrict__ zero, Out* __restrict__ out,
                                  CanonGeom geo) {
   constexpr int IB = VC * static_cast<int>(sizeof(Word));  // packed bytes of a vector
+  wq += static_cast<size_t>(blockIdx.y) * geo.wq_stride;
+  scale += static_cast<size_t>(blockIdx.y) * geo.meta_stride;
+  zero += static_cast<size_t>(blockIdx.y) * geo.meta_stride;
+  out += static_cast<size_t>(blockIdx.y) * geo.out_stride;
   const uint32_t mask = (1u << geo.bits) - 1u;
   const int fields = kValueCodes<Word> ? 1 : geo.fields;
   const uint32_t lane = threadIdx.x & 31;
   const uint32_t warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const uint32_t warps = (gridDim.x * blockDim.x) >> 5;
+  const uint32_t warps = (gridDim.x * blockDim.x) >> 5;  // of one expert
   float s1 = 0.f, z1 = 0.f;
   if (geo.meta_mode == 0) s1 = meta_f32(scale[0]), z1 = meta_f32(zero[0]);
   for (uint32_t base = warp * 32 * kItems; base < geo.positions;
@@ -459,7 +468,7 @@ int launch_ax0(const void* wq, const void* scale, const void* zs, void* out, int
 
 template <typename Word, typename T, typename Out>
 int launch_canonical(const void* wq, const void* scale, const void* zero, void* out,
-                     const CanonGeom& geo, int vec, int grid, cudaStream_t s) {
+                     const CanonGeom& geo, int vec, dim3 grid, cudaStream_t s) {
   const auto* q = static_cast<const Word*>(wq);
   const auto* sc = static_cast<const T*>(scale);
   const auto* z = static_cast<const T*>(zero);
@@ -477,7 +486,7 @@ int launch_canonical(const void* wq, const void* scale, const void* zero, void* 
 
 template <typename Word, typename T>
 int canonical_out(const void* wq, const void* scale, const void* zero, void* out,
-                  const CanonGeom& geo, int vec, int out_dtype, int grid, cudaStream_t s) {
+                  const CanonGeom& geo, int vec, int out_dtype, dim3 grid, cudaStream_t s) {
   switch (out_dtype) {
     case HQQ_F32:
       return launch_canonical<Word, T, float>(wq, scale, zero, out, geo, vec, grid, s);
@@ -492,7 +501,7 @@ int canonical_out(const void* wq, const void* scale, const void* zero, void* out
 
 template <typename Word>
 int canonical_meta(const void* wq, const void* scale, const void* zero, void* out,
-                   const CanonGeom& geo, int vec, int meta_dtype, int out_dtype, int grid,
+                   const CanonGeom& geo, int vec, int meta_dtype, int out_dtype, dim3 grid,
                    cudaStream_t s) {
   switch (meta_dtype) {
     case HQQ_F32:
@@ -578,19 +587,26 @@ HQQ_EXPORT int hqq_dequant_ax0(const void* wq, const void* scale, const void* zs
 // container: 1 (uint8 bitfields), 4 (3bit_32's int32 bitfields), or for
 // packing=None the codes' own type, -1 - HQQ_F32, -1 - HQQ_BF16 or -1 - HQQ_F16;
 // meta_dtype: the type T of scale and zero (HQQ_F32, HQQ_BF16 or HQQ_F16);
-// vec: 16 / sizeof(out), or 1; the geometry from `dequant_canonical_plan`
+// vec: 16 / sizeof(out), or 1; the geometry from `dequant_canonical_plan`; a
+// stack of `experts` QTensors one launch (grid: grid x experts), each expert's
+// codes, meta and W `wq_stride`, `meta_stride` and `out_stride` elements after
+// the one before
 HQQ_EXPORT int hqq_dequant_canonical(const void* wq, const void* scale, const void* zero,
                                      void* out, unsigned positions, unsigned valid,
                                      unsigned stride, unsigned block_skip, unsigned block_mul,
                                      unsigned block_shift, unsigned cols, unsigned col_mul,
-                                     unsigned col_shift, int fields, int bits, int meta_mode,
-                                     int container, int vec, int meta_dtype, int out_dtype,
-                                     int grid, void* stream) {
+                                     unsigned col_shift, unsigned experts, unsigned wq_stride,
+                                     unsigned meta_stride, unsigned out_stride, int fields,
+                                     int bits, int meta_mode, int container, int vec,
+                                     int meta_dtype, int out_dtype, int grid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (experts < 1 || experts > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const CanonGeom geo{positions, valid, stride, block_skip, FastDiv{block_mul, block_shift},
-                      FastDiv{col_mul, col_shift}, cols, fields, bits, meta_mode};
+                      FastDiv{col_mul, col_shift}, cols, fields, bits, meta_mode,
+                      wq_stride, meta_stride, out_stride};
+  const dim3 blocks(grid, experts);
 #define HQQ_CANON(WORD) \
-  return canonical_meta<WORD>(wq, scale, zero, out, geo, vec, meta_dtype, out_dtype, grid, s)
+  return canonical_meta<WORD>(wq, scale, zero, out, geo, vec, meta_dtype, out_dtype, blocks, s)
   switch (container) {
     case 1:
       HQQ_CANON(uint8_t);

@@ -5,9 +5,14 @@ Mirrors `hqq_tpu.engine.hf` (`register_arch`, `HQQModel`,
 `HQQModelForCausalLM`, `AutoHQQHFModel`). The registry maps an HF
 ``model_type`` to its config constructor, forward function and HF state-dict
 loader; llama, Qwen2/Qwen3 on the llama walk, the RMSNorm families
-(mistral, granite, gemma, gemma2, gemma3_text, phi3, olmo2) and the
-LayerNorm families (starcoder2, phi, cohere, gpt2, bloom, falcon) are
-registered. The README's quick start runs as it does in `hqq_tpu`:
+(mistral, granite, gemma, gemma2, gemma3_text, phi3, olmo2), the
+LayerNorm families (starcoder2, phi, cohere, gpt2, bloom, falcon) and the
+MoE families (mixtral, qwen3_moe, gpt_oss) are registered. `quantize_model`
+quantizes every `Linear` but lm_head, as `hqq_tpu`'s does: on an MoE tree
+that is the attention and the routers, the expert stacks stay dense; the
+families' own `quantize_mixtral`, `quantize_qwen3_moe` and
+`quantize_gpt_oss` quantize the experts and keep the router. The README's
+quick start runs as it does in `hqq_tpu`:
 
     model = HQQModelForCausalLM.from_pretrained(local_dir)      # bf16, on cuda
     model.quantize_model(BaseQuantizeConfig(nbits=4, group_size=64))
@@ -101,6 +106,23 @@ def _register_layernorm_families() -> None:
 
 
 _register_layernorm_families()
+
+
+def _register_moe_families() -> None:
+    """The MoE families, each with its own loader, as `hqq_tpu` registers
+    them: Mixtral, Qwen3-MoE and gpt-oss."""
+    from ..models import gpt_oss, mixtral, qwen3_moe
+
+    for model_type, module, config_cls in (
+        ("mixtral", mixtral, mixtral.MixtralConfig),
+        ("qwen3_moe", qwen3_moe, qwen3_moe.Qwen3MoeConfig),
+        ("gpt_oss", gpt_oss, gpt_oss.GptOssConfig),
+    ):
+        _HQQ_REGISTRY[model_type] = {"config_cls": config_cls, "forward": module.forward,
+                                     "loader": module.params_from_hf_state_dict}
+
+
+_register_moe_families()
 
 
 def register_arch(model_type: str, config_cls, forward, loader) -> None:

@@ -12,6 +12,12 @@ Unlike `hqq_tpu`, which builds a new tree, `patch_linears` and so
 as soon as its layer is quantized, so a model's peak memory stays near its
 dense size instead of dense plus quantized.
 
+Only `Linear` leaves are quantized, as in `hqq_tpu`: on an MoE tree that is
+the attention and the routers; the expert stacks (`nn.moe.GroupedLinear`)
+are no linear leaves and stay as they are. The MoE families quantize their
+experts with their own `quantize_mixtral`, `quantize_qwen3_moe` and
+`quantize_gpt_oss`, which keep the router in full precision.
+
 `save_quantized` and `from_quantized` write and read checkpoints in
 `hqq_tpu`'s format (`models.serialize`).
 """

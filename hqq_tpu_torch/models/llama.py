@@ -489,16 +489,18 @@ def _attention_paged(layer: dict, cfg: LlamaConfig, x: torch.Tensor, cache, laye
                      lengths: torch.Tensor, page_indices: torch.Tensor, cos: torch.Tensor,
                      sin: torch.Tensor, window: Optional[int] = None,
                      q_scale: Optional[float] = None, softcap: Optional[float] = None,
-                     norm_offset: float = 0.0) -> torch.Tensor:
+                     norm_offset: float = 0.0,
+                     sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention over a paged pool: the projections and RoPE of `_attention`,
     but K/V land in pages (in place) and attention is `ops.paged.paged_attn`.
     x is [B, T, D]: T = 1 for decode, T > 1 for a verify window, where all T
     rows are written first and query j attends the keys below
     lengths + j + 1, one paged-attention call each. ``q_scale`` replaces the
     1/sqrt(hd) query scaling (Granite's attention multiplier, Gemma-2's
-    query_pre_attn_scalar); ``softcap`` and ``window`` send the layer to the
-    gather route, as in `hqq_tpu`. q goes in pre-scaled, in fp32 with int8
-    pages and in the pool's type otherwise."""
+    query_pre_attn_scalar); ``softcap``, ``window`` and ``sinks`` (gpt-oss's
+    per-head sink logits) send the layer to the gather route, as in
+    `hqq_tpu`. q goes in pre-scaled, in fp32 with int8 pages and in the
+    pool's type otherwise."""
     from ..ops.paged import paged_attn, write_token_to_pages
 
     b, t, _ = x.shape
@@ -519,7 +521,7 @@ def _attention_paged(layer: dict, cfg: LlamaConfig, x: torch.Tensor, cache, laye
     qd = (q * scale).to(qdt)  # [B, nh, T, hd]
     attn = torch.stack(
         [paged_attn(qd[:, :, j], cache, layer_idx, lengths + j + 1, page_indices, window=window,
-                    softcap=softcap)
+                    softcap=softcap, sinks=sinks)
          for j in range(t)], dim=1)  # [B, T, nh, hd]
     out = attn.reshape(b, t, nh * hd).to(x.dtype)
     return layer["o_proj"](out)

@@ -11,16 +11,19 @@ greedily at ``max_shard_bytes`` in the tree's order. A checkpoint written by
 either package loads in the other.
 
 Nodes: dicts, lists, None, tensors, `Linear`, `QuantLinear`, `QTensor`
-(meta-quantized too), `LoRALinear` and the int8 backend's
+(meta-quantized too), `LoRALinear`, the MoE stacks and the int8 backend's
 `Int8QuantLinear` (``w8``, ``sw``, its bias and its logical sizes, as
 `hqq_tpu` names them; trees fused by `fuse_for_decode` hold no other kind).
-Kernel-layout modules (the backends'
+The MoE experts' stacks: `GroupedLinear` (its
+``weight`` [E, out, in] and ``bias`` children) and `GroupedQuantLinear`
+(``W_q``, ``scale`` and ``zero`` with a leading E, and the per-expert
+nbits, group size, axis, shape, packing and compute dtype), as `hqq_tpu`
+writes them. Kernel-layout modules (the backends'
 `PallasQuantLinear`, `A8QuantLinear` and their LoRA peers) and `hqq_tpu`'s
 kernel-layout nodes are refused with a `TypeError` both ways: the two
 packages' kernel layouts differ, so a checkpoint is saved before
-`prepare_for_inference` and prepared again after loading. Node types with
-no module here yet (`GroupedLinear`, `GroupedQuantLinear`) raise as
-unknown ones do.
+`prepare_for_inference` and prepared again after loading. Unknown node
+types raise.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from ..backends.int8_backend import Int8QuantLinear
 from ..core.peft import LoRALinear
 from ..core.quantize import QTensor
 from ..nn.linear import Linear, QuantLinear
+from ..nn.moe import GroupedLinear, GroupedQuantLinear
 from ._safetensors import SafeTensorsFile, save_file
 
 __all__ = ["FORMAT", "tree_to_state", "state_to_tree", "save_checkpoint", "load_checkpoint"]
@@ -105,10 +109,21 @@ def tree_to_state(tree: Any, prefix: str = "") -> Tuple[Dict[str, torch.Tensor],
                                  "lora_a": rec(node.lora_a, f"{path}.lora_a"),
                                  "lora_b": rec(node.lora_b, f"{path}.lora_b"),
                                  "bias": rec(node.bias, f"{path}.bias")}}
-        if isinstance(node, Linear):
-            return {"type": "Linear",
+        if isinstance(node, (Linear, GroupedLinear)):
+            return {"type": type(node).__name__,
                     "children": {"weight": rec(node.weight, f"{path}.weight"),
                                  "bias": rec(node.bias, f"{path}.bias")}}
+        if isinstance(node, GroupedQuantLinear):
+            flat[f"{path}.W_q"] = node.wq
+            flat[f"{path}.scale"] = node.scale
+            flat[f"{path}.zero"] = node.zero
+            return {"type": "GroupedQuantLinear",
+                    "meta": {"nbits": _nbits(node.nbits),
+                             "group_size": node.group_size,
+                             "axis": node.axis,
+                             "shape": [int(s) for s in node.shape],
+                             "packing": node.packing,
+                             "compute_dtype": _dtype_name(node.compute_dtype)}}
         if isinstance(node, QTensor):
             # W_q, scale and zero as the reference HQQ's state_dict names
             # them; a meta-quantized scale or zero recurses
@@ -178,6 +193,27 @@ def state_to_tree(structure: Any, get: Callable[[str], torch.Tensor], prefix: st
                               scaling=node["meta"]["scaling"], dropout=node["meta"]["dropout"])
         if t == "Linear":
             return Linear(rec(ch["weight"], f"{path}.weight"), rec(ch["bias"], f"{path}.bias"))
+        if t == "GroupedLinear":
+            if "weight" not in ch or "bias" not in ch:
+                raise TypeError(f"GroupedLinear at {path!r} needs weight and bias children")
+            weight = rec(ch["weight"], f"{path}.weight")
+            if not isinstance(weight, torch.Tensor) or weight.ndim != 3:
+                raise TypeError(f"GroupedLinear at {path!r} needs a weight [E, out, in]")
+            return GroupedLinear(weight, rec(ch["bias"], f"{path}.bias"))
+        if t == "GroupedQuantLinear":
+            m = node.get("meta") or {}
+            missing = {"nbits", "group_size", "axis", "shape", "packing",
+                       "compute_dtype"} - set(m)
+            wq, scale, zero = (get(f"{path}.{n}") for n in ("W_q", "scale", "zero"))
+            if missing or wq.ndim != 3 or scale.ndim != 3 or zero.shape != scale.shape \
+                    or scale.shape[0] != wq.shape[0]:
+                raise TypeError(f"GroupedQuantLinear at {path!r} needs W_q, scale and zero "
+                                f"with a leading E and its meta; missing {sorted(missing)}, "
+                                f"got W_q {tuple(wq.shape)}, scale {tuple(scale.shape)}")
+            return GroupedQuantLinear(wq, scale, zero, nbits=_nbits(m["nbits"]),
+                                      group_size=m["group_size"], axis=m["axis"],
+                                      shape=tuple(m["shape"]), packing=m["packing"],
+                                      compute_dtype=_dtype(m["compute_dtype"]))
         if t == "QTensor":
             m = node["meta"]
             scale = rec(ch["scale_q"], f"{path}.scale_q") if "scale_q" in ch else get(f"{path}.scale")

@@ -12,7 +12,8 @@ from .fused_matmul import (  # noqa: F401
 
 def kernel_wrappers() -> tuple:
     """Every kernel wrapper of the package, each with its ``launches``
-    count: the eight of `fused_matmul`, `paged.paged_attention`, the six of `attention`
+    count: the nine of `fused_matmul` (the grouped expert kernel among
+    them), `paged.paged_attention`, the six of `attention`
     (the flash forward, its fp32 route, the dK/dV and the dQ kernels and
     their fp32 routes), `norm.rms_norm` and `norm.layer_norm`."""
     from .attention import (flash_attention, flash_attention_backward_dkv,

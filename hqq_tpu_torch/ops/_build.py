@@ -39,8 +39,9 @@ KERNELS = {
     "dequant": ("dequant.cu", "hqq_dequant", [_P] * 4 + [_U] * 6 + [_I] * 4 + [_P]),
     "dequant_ax0": ("dequant.cu", "hqq_dequant_ax0", [_P] * 4 + [_I] * 11 + [_P]),
     "dequant_canonical": (
-        "dequant.cu", "hqq_dequant_canonical", [_P] * 4 + [_U] * 9 + [_I] * 8 + [_P],
+        "dequant.cu", "hqq_dequant_canonical", [_P] * 4 + [_U] * 13 + [_I] * 8 + [_P],
     ),
+    "grouped_matmul": ("grouped_matmul.cu", "hqq_grouped_matmul", [_P] * 5 + [_I] * 7 + [_P]),
     "quant_matmul": ("quant_matmul.cu", "hqq_quant_matmul", [_P] * 6 + [_I] * 12 + [_P]),
     "quant_matmul_ax0": (
         "quant_matmul_ax0.cu", "hqq_quant_matmul_ax0", [_P] * 6 + [_I] * 13 + [_P],

@@ -16,7 +16,7 @@ in logical order, K is padded to a multiple of 32, and scale and zs are
 [N/g, K_pad] in fp32 or bf16; row n reads row n % (N/g) of them. None of
 the TPU layouts' padding, row permutation or nibble orders carry over.
 
-Eight kernels, each behind a wrapper with a plain PyTorch twin and a launch
+Nine kernels, each behind a wrapper with a plain PyTorch twin and a launch
 count (``<wrapper>.launches``):
 
     w4a8_matmul       -> csrc/w4a8_matmul.cu        (M <= 32, int8 activations)
@@ -29,6 +29,8 @@ count (``<wrapper>.launches``):
                                                      canonical QuantLinear's W)
     qmm_fp32          -> csrc/qmm_fp32.cu           (fp32 x: the three matmuls'
                                                      fp32 route, 3xTF32)
+    grouped_matmul    -> csrc/grouped_matmul.cu     (a stack of experts'
+                                                     4-bit W, x [E, C <= 32, K])
 
 A wrapper runs the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises; nothing falls back.
@@ -44,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.bitpack import FIELD_BITS, PACKING_CONTAINER, VALS_PER_WORD
+from ..core.bitpack import unpack as _bitpack_unpack
 from ..core.quantize import QTensor, dequantize_plain, resolve_meta, unpack_codes
 from . import _build
 
@@ -73,6 +76,13 @@ __all__ = [
     "quant_matmul_ax0_plain",
     "dequant_plain",
     "dequant_canonical",
+    "stacked_experts",
+    "expert_qtensor",
+    "dequant_stacked_plain",
+    "grouped_matmul",
+    "grouped_matmul_plain",
+    "GroupedPlan",
+    "grouped_matmul_plan",
     "DequantPlan",
     "dequant_launch_plan",
     "CanonicalPlan",
@@ -964,36 +974,182 @@ def _canonical_plan(packing, shape, group_size, axis, channel_wise, pack_blocks,
         grid=(_grid_stride_blocks(positions),))
 
 
+def stacked_experts(qt: QTensor) -> int:
+    """The experts of a stacked `QTensor` (``wq``, ``scale`` and ``zero``
+    with a leading E, ``shape`` one expert's: `nn.moe.GroupedQuantLinear`'s
+    stack), 0 for a single one (``wq`` in group space, 2-D)."""
+    return qt.wq.shape[0] if qt.wq.dim() == 3 else 0
+
+
+def expert_qtensor(qt: QTensor, e: int) -> QTensor:
+    """Expert ``e`` of a stacked `QTensor`, a single one (views)."""
+    return dataclasses.replace(qt, wq=qt.wq[e], scale=qt.scale[e], zero=qt.zero[e])
+
+
+def dequant_stacked_plain(qt: QTensor, dtype=None) -> torch.Tensor:
+    """Plain PyTorch dequantization of a stack of experts, [E, *qt.shape]:
+    `core.quantize.dequantize_plain`'s operations on all experts at once
+    (the codes unpacked expert by expert as pack blocks), so each expert's W
+    is bit-equal to `dequantize_plain` of it alone; 3-bit and unpacked codes
+    expert by expert."""
+    experts = stacked_experts(qt)
+    dtype = dtype if dtype is not None else qt.compute_dtype
+    if qt.packing in (None, "3bit_32") or qt.pack_blocks != 1:
+        return torch.stack([dequantize_plain(expert_qtensor(qt, e), dtype)
+                            for e in range(experts)])
+    codes = _bitpack_unpack(qt.wq.reshape(-1, *qt.wq.shape[2:]), qt.packing, qt.scale.dtype,
+                            blocks=experts).reshape(experts, -1, *qt.wq.shape[2:])
+    return ((codes - qt.zero) * qt.scale).reshape(experts, *qt.shape).to(dtype)
+
+
 def dequant_canonical(qt: QTensor, dtype=None) -> torch.Tensor:
     """W = ((c - zero) * scale).reshape(qt.shape) in ``dtype`` (default the
     compute type) from a canonical `QTensor`: the kernel's canonical entry
     for codes on a CUDA device (`dequant_canonical_plan`), the plain twin
     `core.quantize.dequantize_plain` for codes on the CPU. Meta-quantized
     scale and zero are dequantized first, in fp32, by the same route.
-    `core.quantize.dequantize` calls it."""
-    qt = resolve_meta(qt)
+    `core.quantize.dequantize` calls it.
+
+    A stacked `QTensor` (`stacked_experts`) gives [E, *qt.shape]: one
+    launch for all E experts (E the grid's second dimension), each expert's
+    W bit-equal to a call on it alone; on the CPU the twin of each."""
+    experts = stacked_experts(qt)
+    if experts == 0:
+        qt = resolve_meta(qt)
+    elif qt.is_meta_quantized:
+        raise ValueError("a stack of experts holds plain scale and zero tensors")
     dtype = dtype if dtype is not None else qt.compute_dtype
     if _on_cpu(qt.wq):
-        return dequantize_plain(qt, dtype)
-    plan = dequant_canonical_plan(qt, dtype)
+        return dequant_stacked_plain(qt, dtype) if experts else dequantize_plain(qt, dtype)
+    plan = dequant_canonical_plan(expert_qtensor(qt, 0) if experts else qt, dtype)
     dev = qt.wq.device
     scale, zero = (t.to(plan.meta_dtype).contiguous() for t in (qt.scale, qt.zero))
     for t in (qt.wq, scale, zero):
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"codes, scale and zero must be contiguous on {dev}")
     meta_align = plan.vec * scale.element_size() if plan.meta_mode == 2 else 1
-    out = torch.empty(qt.shape, dtype=dtype, device=dev)
+    n_out = 1
+    for d in qt.shape:
+        n_out *= d
+    strides = (qt.wq[0].numel(), scale[0].numel(), n_out) if experts else (0, 0, 0)
+    out = torch.empty(((experts,) if experts else ()) + tuple(qt.shape), dtype=dtype, device=dev)
+    grid = plan.grid[0] if not experts else max(
+        1, -(-_grid_stride_blocks(plan.positions * experts) // experts))
     with torch.cuda.device(dev):
         code = _build.library("dequant_canonical").hqq_dequant_canonical(
             _ptr(qt.wq, min(16, plan.load_bytes)), _ptr(scale, min(16, meta_align)),
             _ptr(zero, min(16, meta_align)), _ptr(out), plan.positions, plan.valid, plan.stride,
-            plan.block_skip, *plan.per_block, plan.cols, *plan.per_row, plan.fields, plan.bits,
-            plan.meta_mode, plan.container, plan.vec, _DTYPE_CODE[plan.meta_dtype],
-            _DTYPE_CODE[dtype], plan.grid[0], _stream(dev),
+            plan.block_skip, *plan.per_block, plan.cols, *plan.per_row, max(experts, 1),
+            *strides, plan.fields, plan.bits, plan.meta_mode, plan.container, plan.vec,
+            _DTYPE_CODE[plan.meta_dtype], _DTYPE_CODE[dtype], grid, _stream(dev),
         )
     _build.check("dequant_canonical", code)
     dequant_canonical.launches += 1
     return out
+
+
+# the most rows (C) an expert's slots hold for the grouped expert kernel
+# (csrc/grouped_matmul.cu, which sets its own block geometry); past it the
+# stack is dequantized once and multiplied by torch.bmm
+GROUPED_MAX_C = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupedPlan:
+    """How `grouped_matmul` computes x [E, C, K] . W_e^T: ``route``
+    "kernel" (csrc/grouped_matmul.cu, ``token_tiles`` tiles of 8 tokens)
+    or "bmm" (the stack dequantized in one
+    launch of `dequant_canonical`, then `torch.bmm`), with the reason."""
+
+    route: str
+    token_tiles: int = 0
+    why: str = ""
+
+
+@functools.lru_cache(maxsize=None)
+def grouped_matmul_plan(experts: int, c: int, k: int, n: int, x_dtype: torch.dtype,
+                        packing: Optional[str], axis: int, group_size: Optional[int],
+                        meta_dtype: torch.dtype, channel_wise: bool = True,
+                        pack_blocks: int = 1) -> GroupedPlan:
+    """The route of x [experts, c, k] through a stack of [n, k] weights, by
+    shape and config alone, before any launch: the kernel for 4bit_u8 axis=1
+    codes with fp32 or bf16 scale and zero, bf16 x, k % 64 == 0, groups of a
+    multiple of 16 that divide k, n even and 1 <= c <= 32 (every decode
+    step, small prefills); the dequantized stack and `torch.bmm` otherwise
+    (larger c: a compute-bound product; 2-bit, 3-bit, 8-bit, axis=0, ...)."""
+    def bmm(why):
+        return GroupedPlan(route="bmm", why=why)
+
+    if packing != "4bit_u8" or axis != 1 or not channel_wise or pack_blocks != 1:
+        return bmm(f"{packing} axis={axis}: the kernel reads 4bit_u8 axis=1 codes")
+    if x_dtype != torch.bfloat16:
+        return bmm(f"x in {x_dtype}: the kernel multiplies bf16")
+    if meta_dtype not in (torch.float32, torch.bfloat16):
+        return bmm(f"scale and zero in {meta_dtype}")
+    if group_size is None or group_size % 16 or k % group_size or k % 64 or n % 2:
+        return bmm(f"k={k}, n={n}, g={group_size}: the kernel needs k % 64 == 0, g % 16 == 0 "
+                   f"dividing k, n even")
+    if not 1 <= c <= GROUPED_MAX_C:
+        return bmm(f"{c} rows an expert: past {GROUPED_MAX_C} the product is compute-bound")
+    if not 1 <= experts <= 65535:
+        return bmm(f"{experts} experts exceed a grid's 65535")
+    tiles = next(t for t in (1, 2, 4) if c <= 8 * t)
+    return GroupedPlan(route="kernel", token_tiles=tiles,
+                       why=f"{c} rows an expert, {tiles} token tile(s)")
+
+
+def grouped_plan_for(x: torch.Tensor, qt: QTensor) -> GroupedPlan:
+    """`grouped_matmul_plan` for x [E, C, K] and a stacked `QTensor`
+    (scale and zero of two types: no kernel)."""
+    meta = qt.scale.dtype if qt.scale.dtype == qt.zero.dtype else None
+    return grouped_matmul_plan(x.shape[0], x.shape[1], qt.shape[1], qt.shape[0], x.dtype,
+                               qt.packing, qt.axis, qt.group_size, meta, qt.channel_wise,
+                               qt.pack_blocks)
+
+
+def grouped_matmul_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """Plain version of the grouped kernel: every expert's W dequantized to
+    x's type (`dequantize_plain`), the products summed in fp32, the result
+    rounded to x's type: [E, C, N]."""
+    w = dequant_stacked_plain(qt, x.dtype)
+    return torch.bmm(x.float(), w.float().transpose(1, 2)).to(x.dtype)
+
+
+def grouped_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """y[e] = x[e] . W_e^T for x [E, C, K] and a stacked 4bit_u8 `QTensor`
+    (`stacked_experts`) whose plan takes the kernel (`grouped_matmul_plan`):
+    its plain twin for tensors on the CPU; on the card the kernel, or a
+    ValueError for what its plan sends elsewhere."""
+    if _on_cpu(x):
+        return grouped_matmul_plain(x, qt)
+    plan = grouped_plan_for(x, qt)
+    if plan.route != "kernel":
+        raise ValueError(f"grouped_matmul: {plan.why}")
+    dev = x.device
+    experts, c, k = x.shape
+    n = qt.shape[0]
+    g = qt.group_size
+    if stacked_experts(qt) != experts or qt.shape[1] != k:
+        raise ValueError(f"x {tuple(x.shape)} against {stacked_experts(qt)} experts of "
+                         f"{tuple(qt.shape)}")
+    if qt.wq.dtype != torch.uint8 or tuple(qt.wq.shape) != (experts, n * k // (2 * g), g) \
+            or tuple(qt.scale.shape) != (experts, n * k // g, 1) or qt.zero.shape != qt.scale.shape:
+        raise ValueError(f"codes must be uint8 [{experts}, {n * k // (2 * g)}, {g}] and scale and "
+                         f"zero [{experts}, {n * k // g}, 1]")
+    x = x.contiguous()
+    for t in (qt.wq, qt.scale, qt.zero):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"codes, scale and zero must be contiguous on {dev}")
+    y = torch.empty((experts, c, n), dtype=x.dtype, device=dev)
+    with torch.cuda.device(dev):
+        code = _build.library("grouped_matmul").hqq_grouped_matmul(
+            _ptr(x), _ptr(qt.wq), _ptr(qt.scale, 4 if qt.scale.dtype == torch.float32 else 2),
+            _ptr(qt.zero, 4 if qt.zero.dtype == torch.float32 else 2), _ptr(y, 2), experts, c, k,
+            n, qt.group_size, _DTYPE_CODE[qt.scale.dtype], plan.token_tiles, _stream(dev),
+        )
+    _build.check("grouped_matmul", code)
+    grouped_matmul.launches += 1
+    return y
 
 
 def _check_lora(kqt, a: torch.Tensor, b: torch.Tensor, dev) -> int:
@@ -1339,7 +1495,7 @@ def w4a8_lora_matmul(
 
 
 _WRAPPERS = (dequant, dequant_canonical, quant_matmul, quant_matmul_lora, quant_matmul_ax0,
-             w4a8_matmul, w4a8_lora_matmul, qmm_fp32)
+             w4a8_matmul, w4a8_lora_matmul, qmm_fp32, grouped_matmul)
 
 
 def reset_launch_counts() -> None:

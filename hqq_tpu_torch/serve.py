@@ -20,7 +20,11 @@ GPTQ checkpoint (`models/interop`), a vision-language ``model_type``
 A family whose forward has no paged branch (OLMo-2 and the LayerNorm
 families) is served on the dense engine, with a line that says so; one
 whose attention reads float KV pools only (Phi-2, Cohere, GPT-2, BLOOM,
-Falcon) refuses ``--int8-kv`` before any weight is read.
+Falcon, gpt-oss) refuses ``--int8-kv`` before any weight is read. The MoE
+families (Mixtral, Qwen3-MoE, gpt-oss) serve on either engine; their
+checkpoints come from the families' own quantizers (``quantize_mixtral``,
+...), while an HF directory quantized on the fly keeps its experts in bf16
+(`quantize_model` quantizes `Linear` leaves only, as in `hqq_tpu`).
 ``--tokenizer`` imports `transformers` at start, only when asked.
 """
 

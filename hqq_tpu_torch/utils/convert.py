@@ -7,8 +7,10 @@ and returns the same tree in this package's types on ``device``. It reads
 fields by attribute name only (``weight``, ``bias``, ``qweight``, a
 QTensor's ``wq``/``scale``/``zero``/``nbits``/..., a LoRALinear's
 ``base``/``lora_a``/``lora_b``/``scaling``, a MultiLoRALinear's
-``base``/``a_stack``/``b_stack``/``scaling`` and an Int8QuantLinear's
-``w8``/``sw``/``compute_dtype``/``logical_out``/``logical_in``), so it
+``base``/``a_stack``/``b_stack``/``scaling``, an Int8QuantLinear's
+``w8``/``sw``/``compute_dtype``/``logical_out``/``logical_in``, and the MoE
+stacks, known by ``n_experts``: a GroupedLinear's ``weight``/``bias``, a
+GroupedQuantLinear's ``wq``/``scale``/``zero`` and static fields), so it
 imports nothing of `hqq_tpu`. A QTensor alone converts too. `paged_cache_from_numpy` carries a paged KV
 cache across the same way (its pools and scales as numpy arrays).
 """
@@ -24,6 +26,7 @@ from ..backends.int8_backend import Int8QuantLinear
 from ..core.peft import LoRALinear
 from ..core.quantize import QTensor
 from ..nn.linear import Linear, QuantLinear
+from ..nn.moe import GroupedLinear, GroupedQuantLinear
 from ..nn.multilora import MultiLoRALinear
 from ..ops.paged import PagedKVCache
 
@@ -66,7 +69,8 @@ def params_from_numpy(tree: Any, device="cuda") -> Any:
     """Convert an `hqq_tpu` tree (numpy leaves) to this package's types:
     dicts and lists stay, arrays become tensors, ``Linear``,
     ``QuantLinear``, ``LoRALinear`` and ``MultiLoRALinear`` become their
-    `nn.Module` counterparts (an ``Int8QuantLinear`` too), and a ``QTensor`` becomes
+    `nn.Module` counterparts (an ``Int8QuantLinear``, a ``GroupedLinear`` and
+    a ``GroupedQuantLinear`` too), and a ``QTensor`` becomes
     this package's `QTensor`."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
@@ -89,6 +93,15 @@ def params_from_numpy(tree: Any, device="cuda") -> Any:
         return Int8QuantLinear(tensor_from_numpy(tree.w8, device), tensor_from_numpy(tree.sw, device),
                                bias, torch_dtype(tree.compute_dtype), tree.logical_out,
                                tree.logical_in)
+    if hasattr(tree, "n_experts"):  # the MoE stacks, before the QTensor and Linear checks
+        if hasattr(tree, "wq"):
+            return GroupedQuantLinear(
+                tensor_from_numpy(tree.wq, device), tensor_from_numpy(tree.scale, device),
+                tensor_from_numpy(tree.zero, device), nbits=tree.nbits,
+                group_size=tree.group_size, axis=tree.axis, shape=tuple(tree.shape),
+                packing=tree.packing, compute_dtype=torch_dtype(tree.compute_dtype))
+        bias = None if tree.bias is None else tensor_from_numpy(tree.bias, device)
+        return GroupedLinear(tensor_from_numpy(tree.weight, device), bias)
     if hasattr(tree, "qweight"):
         bias = None if tree.bias is None else tensor_from_numpy(tree.bias, device)
         return QuantLinear(_qtensor(tree.qweight, device), bias)

@@ -19,7 +19,9 @@ over an axis=1 base becomes one fused module under "pallas"
 base converts in place.
 
 ``backend`` may also be a {linear_tag: backend} dict; missing tags keep
-"xla". Layers convert in place in the tree (see `models.base`).
+"xla". Layers convert in place in the tree (see `models.base`). The MoE
+expert stacks (`nn.moe.GroupedQuantLinear`) keep their canonical form under
+every backend, as in `hqq_tpu`: their product is the grouped kernel's.
 
 `fuse_for_decode` then joins each layer's q, k and v into one
 ``qkv_proj`` and gate and up into one ``gate_up_proj`` (`A8QuantLinear`,
@@ -29,7 +31,9 @@ as in `hqq_tpu`: its q and k are normed over their own projections. The
 other families read ``qkv_proj`` where it is: Phi-2 too, whose
 `hqq_tpu` forward fails on a fused layer (`models.phi`). The layers the
 LayerNorm families name otherwise (Falcon's and BLOOM's
-``query_key_value``, GPT-2's ``c_attn``, the plain MLPs) stay as they are.
+``query_key_value``, GPT-2's ``c_attn``, the plain MLPs) stay as they are,
+as do an MoE block's router and expert stacks (a Qwen3-MoE dense layer's
+MLP joins).
 """
 
 from __future__ import annotations

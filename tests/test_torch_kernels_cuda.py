@@ -380,7 +380,7 @@ def test_routing_counts_and_no_fallback(cuda):
     counts = {w.__name__: w.launches for w in fm._WRAPPERS}
     assert counts == {"w4a8_matmul": 1, "quant_matmul": 1, "w4a8_lora_matmul": 1,
                       "quant_matmul_lora": 1, "quant_matmul_ax0": 2, "dequant": 2,
-                      "dequant_canonical": 0, "qmm_fp32": 0}
+                      "dequant_canonical": 0, "qmm_fp32": 0, "grouped_matmul": 0}
     # fp32 activations take the fp32 route, never a bf16 kernel
     x32 = torch.randn(40, 512, device=cuda)
     _close(fm.quant_matmul(x32, kqt), fm.quant_matmul_plain(x32, kqt), _OUT_TOL[torch.float32])

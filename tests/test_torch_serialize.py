@@ -325,8 +325,9 @@ def test_kernel_layouts_refused_on_load(trees, backend, tmp_path):
 @pytest.mark.parametrize("node", ["KernelQTensor", "Int8QuantLinear", "GroupedLinear",
                                   "GroupedQuantLinear", "SomethingElse"])
 def test_unknown_and_kernel_nodes_refused_on_load(node):
-    # Int8QuantLinear is a known node since the int8 backend was ported; this
-    # one holds no int8 weight and no meta, which the loader refuses
+    # Int8QuantLinear, GroupedLinear and GroupedQuantLinear are known nodes
+    # since the int8 backend and the MoE layers were ported; these hold no
+    # weight of their shape and no meta, which the loader refuses
     structure = {"type": "dict", "children": {"w": {"type": node, "children": {}, "meta": {}}}}
     with pytest.raises(TypeError):
         ts.state_to_tree(structure, lambda path: torch.zeros(1))
