@@ -1,8 +1,9 @@
 # SPDX-License-Identifier: Apache-2.0
 """Chip smoke test of hqq_tpu_torch: HQQ Llama-2-7B on one GPU, ten ways, the
 RMSNorm families (Gemma-2-9B through the server), the LayerNorm families
-(Falcon-7B through the server) and the MoE families (Mixtral-8x7B through
-the server).
+(Falcon-7B through the server), the MoE families (Mixtral-8x7B through
+the server) and DeepSeek-V3 (Moonlight-16B-A3B through the server,
+DeepSeek-V3's own width at 5 layers).
 
     python3 chip_smoke.py            # on cuda:0, every phase
     python3 chip_smoke.py --time quant_matmul 512 4096 4096      # one kernel
@@ -18,6 +19,7 @@ the server).
     python3 chip_smoke.py --ids          # phase g's greedy ids, to compare two checkouts
     python3 chip_smoke.py --windows      # verify-window rows against decode steps' logits
     python3 chip_smoke.py --norm         # the rms_norm and layer_norm kernels, PyTorch's sums
+    python3 chip_smoke.py --phase k      # path K alone, after phase b's grouped-kernel rows
 
 Phases (any failure exits non-zero):
   (a) device and build: the card, its power limit, an nvcc build of every
@@ -273,8 +275,34 @@ Phases (any failure exits non-zero):
       codes, three runs bit-equal, against its byte bound and torch.bmm on
       the dequantized stack, and each stack's one-launch dequant bit-equal
       to E single calls.
+  (k) DeepSeek-V3 (MLA, group-limited sigmoid routing, a dense-compute MoE
+      with shared experts): Moonlight-16B-A3B at full width and depth
+      (moonshotai/Moonlight-16B-A3B from memory: hidden 2048, 27 layers,
+      the first dense, 16 heads, q_proj, kv_lora 512, 64 experts top-6 in
+      one group, 2 shared, vocab 163840), random bf16 weights from seed 0
+      drawn and quantized a layer at a time (4-bit g64; the experts by
+      quantize_experts, the router in fp32), save_quantized, then
+      `serve.main` with its defaults (w4a8, fused; no paged branch: the
+      dense engine of 8 slots) and max_len 2048; G's 12 requests from 12
+      client threads, ids equal to an in-process ContinuousBatchingEngine's;
+      a decode step makes 188 w4a8_matmul, 78 grouped_matmul (every expert
+      on every token), 82 rms_norm and no paged_attention launches, a
+      prefill 188 quant_matmul and 78 stacked dequants; the MLA projections
+      and expert stacks of the first and last layers held on the path's own
+      activations, and the latent's norm over a strided slice bit-equal to
+      its twin (control: a wrong stride); step ms against the byte bound,
+      busy share, peak memory; Generator "partial" and "full". Then
+      DeepSeek-V3 at published width (128 heads, q_lora 1536, 256 experts
+      in 8 groups, top-8 of 4 groups, YaRN factor 40), 5 layers (3 dense, 2
+      MoE), the experts drawn and quantized 32 at a time: a prefill of 4 x
+      8 tokens and 4 decode steps with every w4a8, rms_norm (1536, 512,
+      7168) and grouped_matmul call held to its twin, no quant_matmul; the
+      router against its CPU twin (control: TF32); the logits against the
+      plain path, the (token, layer) expert sets that differ counted and
+      left out; the broadcast [E, T, D] copy timed; Generator "partial" and
+      "full". Phase b also times grouped_matmul at both models' stacks.
 Phases g, h, v and m run right after c, on its model, then q and s, then r,
-then l, then x, then d.
+then l, then x, then k, then d.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -306,6 +334,7 @@ the same with fp32 as the default type).
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import hashlib
 import json
@@ -431,6 +460,18 @@ def bound_ms(nbytes: float, ops: float, kind: str, fp32_ops: float = 0.0) -> tup
 
 def rel(a, b) -> float:
     return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+@contextlib.contextmanager
+def tf32_allowed():
+    """TF32 products in torch.matmul for the block (a control), then the
+    setting it found (main turns it off: fp32 routers and twins run fp32)."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
 
 
 def containers(tree):
@@ -1459,10 +1500,15 @@ def phase_b_dequant(record, iters: int) -> None:
 # there: Mixtral-8x7B's w1/w3 and w2 at C = 1, 4 (8 slots at capacity
 # factor 2), 8 (8 slots at capacity factor 4.0, as phase x serves it) and 32
 # (the kernel's largest); Qwen3-30B-A3B's at C = 1 and gpt-oss-20b's at C = 2
-# (8 slots: top-8 of 128 and top-4 of 32 at 2.0)
+# (8 slots: top-8 of 128 and top-4 of 32 at 2.0); path K's, where every
+# expert takes every token: Moonlight-16B-A3B's w1/w3 and w2 at C = 8 (the
+# dense engine's 8 slots), DeepSeek-V3's at C = 4 (a decode step of 4) and
+# 32 (a prefill of 4 x 8)
 GROUPED_CASES = [(8, 14336, 4096, c) for c in (1, 4, 8, 32)] + [(8, 4096, 14336, c)
                                                                 for c in (1, 4, 8, 32)] + [
-    (128, 768, 2048, 1), (128, 2048, 768, 1), (32, 5760, 2880, 2), (32, 2880, 2880, 2)]
+    (128, 768, 2048, 1), (128, 2048, 768, 1), (32, 5760, 2880, 2), (32, 2880, 2880, 2),
+    (64, 1408, 2048, 8), (64, 2048, 1408, 8)] + [
+    (256, n, k, c) for c in (4, 32) for n, k in ((2048, 7168), (7168, 2048))]
 GROUPED_BF16_META = {(8, 14336, 4096, 4), (128, 768, 2048, 1), (32, 5760, 2880, 2)}
 
 
@@ -1492,7 +1538,7 @@ def _grouped_controls(qt) -> dict:
 
 
 def phase_b_grouped(record, iters: int) -> None:
-    """The grouped expert kernel against its plain twin at paths X's stacks
+    """The grouped expert kernel against its plain twin at paths X's and K's stacks
     (`GROUPED_CASES`; fp32 meta, and bf16 meta at three of them): within
     2^-7 of max|y|, three runs bit-equal, the controls past the bar; device
     ms, plain ms, the byte bound (all E experts' codes and meta, x and y),
@@ -1675,11 +1721,8 @@ def phase_b_fp32(record, held, iters: int) -> None:
         cast = rel(run(x.to(torch.bfloat16), kqt), ref)
         w32 = fm.dequant_plain(kqt, torch.float32)
         term = (lambda: (x @ a) @ b) if mode == "lora" else (lambda: 0.0)
-        torch.backends.cuda.matmul.allow_tf32 = True
-        try:
+        with tf32_allowed():
             one_tf32 = rel(torch.matmul(x, w32.t()) + term(), ref)
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = False
         log(f"[b] qmm_fp32 {note}: {err / ref.abs().max().item():.3e} of max|y|; controls, x "
             f"rounded to bf16 through the bf16 kernel {cast:.3e}, one TF32 product "
             f"(torch.matmul, allow_tf32) {one_tf32:.3e} (each must exceed {TOL_QMM_FP32})")
@@ -1720,11 +1763,8 @@ def phase_b_fp32(record, held, iters: int) -> None:
         what = f"fp32, causal, {nh}/{n_kv} heads, T={t}"
         err = held("flash_attention_fp32", y, ref, TOL_FLASH_FP32, what)
         cast = rel(at.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), True), ref)
-        torch.backends.cuda.matmul.allow_tf32 = True
-        try:
+        with tf32_allowed():
             one_tf32 = rel(at.flash_attention_plain(q, k, v, True), ref)
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = False
         log(f"[b] flash_attention_fp32 {what}: {err / ref.abs().max().item():.3e} of max|out|; "
             f"controls, bf16 inputs through the bf16 kernel {cast:.3e}, one TF32 product (the "
             f"plain version, allow_tf32) {one_tf32:.3e} (each must exceed {TOL_FLASH_FP32})")
@@ -1816,11 +1856,8 @@ def _one_tf32(q, k, v, o, lse, do, causal=True, sm_scale=None):
     one TF32 product for each product."""
     from hqq_tpu_torch.ops import attention as at
 
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
+    with tf32_allowed():
         return at.flash_attention_backward_plain(q, k, v, o, lse, do, causal, sm_scale)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def phase_b_backward(record, held, iters: int) -> None:
@@ -2913,7 +2950,7 @@ def _offset_toggled(x, w, eps, offset=0.0):
 
 
 def _r_calls(tag: str, fwd, params, cfg, toks, t: int, steps: int, norm=None,
-             extra=()) -> dict:
+             extra=(), absent=()) -> dict:
     """A prefill of ``t`` tokens (M = 4 t) and ``steps`` decode steps over
     the dense cache, every w4a8_matmul, quant_matmul and norm call held
     on the spot to its plain twin on the path's own inputs: the matmuls
@@ -2921,11 +2958,14 @@ def _r_calls(tag: str, fwd, params, cfg, toks, t: int, steps: int, norm=None,
     neighbour's scale), the norm bit-equal (rms_norm's control: the offset
     toggled; ``norm`` = (wrapper name, plain twin, controls) for another).
     ``extra``: more wrappers held, as (module, name, plain twin, controls,
-    bar). Returns the readings by wrapper, the matmuls' worst also by K."""
+    bar). ``absent``: held wrappers the path must not call (a prefill of at
+    most 32 rows takes w4a8, not quant_matmul). The cache is the family's
+    (`llama.cache_for`). Returns the readings by wrapper, the matmuls'
+    worst also by K, the norms' by width, the stacks' by (C, N, K)."""
     import dataclasses
     from unittest import mock
 
-    from hqq_tpu_torch.models.llama import init_cache
+    from hqq_tpu_torch.models.llama import cache_for
     from hqq_tpu_torch.ops import fused_matmul as fm
     from hqq_tpu_torch.ops import norm as nm
 
@@ -2942,7 +2982,9 @@ def _r_calls(tag: str, fwd, params, cfg, toks, t: int, steps: int, norm=None,
              2.0**-7),
             (nm, norm[0], norm[1], norm[2], 0.0), *extra]
     logs = {h[1]: {} for h in held}
-    k_of = {"w4a8_matmul": lambda *a: a[2].k, "quant_matmul": lambda *a: a[1].k}
+    k_of = {"w4a8_matmul": lambda *a: a[2].k, "quant_matmul": lambda *a: a[1].k,
+            norm[0]: lambda *a: a[0].shape[-1],
+            "grouped_matmul": lambda x, qt: (x.shape[1], qt.shape[0], qt.shape[1])}
     with torch.inference_mode():
         patches = [mock.patch.object(mod, name, checked(getattr(mod, name), plain, ctl,
                                                         logs[name], k_of.get(name)))
@@ -2950,7 +2992,7 @@ def _r_calls(tag: str, fwd, params, cfg, toks, t: int, steps: int, norm=None,
         for pt in patches:
             pt.start()
         try:
-            cache = init_cache(cfg, toks.shape[0], 256, torch.bfloat16, "cuda")
+            cache = cache_for(cfg)(cfg, toks.shape[0], 256, torch.bfloat16, "cuda")
             logits, _ = fwd(params, cfg, toks[:, :t], cache, 0)
             for i in range(steps):
                 logits, _ = fwd(params, cfg, toks[:, t + i:t + i + 1], cache, t + i)
@@ -2962,6 +3004,11 @@ def _r_calls(tag: str, fwd, params, cfg, toks, t: int, steps: int, norm=None,
     out = {}
     for _, name, _, _, tol in held:
         per_call = logs[name]
+        if name in absent:
+            if per_call:
+                raise AssertionError(f"[{tag}] {name} ran {len(per_call['kernel'])} times on a "
+                                     f"path that must not call it")
+            continue
         worst = max(per_call["kernel"])
         least = {c: min(v) for c, v in per_call.items() if c not in ("kernel", "keys")}
         out[name] = dict(calls=len(per_call["kernel"]), worst=worst, least=least)
@@ -3472,7 +3519,11 @@ def _l_falcon_7b(dev_tag: str) -> list:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def _l_linear_checks(params, captured) -> dict:
+FALCON_LINEARS = {"query_key_value": "self_attn", "dense": "self_attn", "dense_h_to_4h": "mlp",
+                  "dense_4h_to_h": "mlp"}
+
+
+def _l_linear_checks(params, captured, subs=None, tag: str = "l") -> dict:
     """The first and last layer's four linears on the path's own inputs
     (``captured``: (layer, name) -> a prefill's and decode steps' x): at
     decode M the w4a8 kernel against its twin with phase b's bars and
@@ -3480,14 +3531,13 @@ def _l_linear_checks(params, captured) -> dict:
     neighbour's-scale control. Returns the largest relative error by K."""
     from hqq_tpu_torch.ops import fused_matmul as fm
 
-    subs = {"query_key_value": "self_attn", "dense": "self_attn", "dense_h_to_4h": "mlp",
-            "dense_4h_to_h": "mlp"}
+    subs = subs or FALCON_LINEARS
     tol, by_k = 2.0**-7, {}
     for (li, name), xs in sorted(captured.items()):
         kqt = params["layers"][li][subs[name]][name].kqt
         for x in xs[:3]:  # the prefill and two decode steps
             m = x.shape[0]
-            what = f"[l] layer {li} {name} (K={kqt.k}, N={kqt.n}) M={m}"
+            what = f"[{tag}] layer {li} {name} (K={kqt.k}, N={kqt.n}) M={m}"
             if m <= fm.A8_MAX_M:
                 x8, sx = fm.quantize_activations_int8(x)
                 _w4a8_held(what, kqt, lambda q, dt: fm.w4a8_matmul(x8, sx, q, dt),
@@ -3776,7 +3826,7 @@ def _x_mixtral_8x7b(dev_tag: str) -> list:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def _x_expert_checks(params, captured) -> dict:
+def _x_expert_checks(params, captured, block: str = "block_sparse_moe") -> dict:
     """The first and last layer's expert stacks on the path's own inputs
     (``captured``: (layer, name) -> x [E, C, K] of decode steps and a
     prefill): at C <= 32 the kernel against its twin within 2^-7 of max|y|
@@ -3786,7 +3836,7 @@ def _x_expert_checks(params, captured) -> dict:
 
     worst, least, n = {"kernel": 0.0, "bmm": 0.0}, {}, {"kernel": 0, "bmm": 0}
     for (li, name), xs in captured.items():
-        gq = params["layers"][li]["block_sparse_moe"]["experts"][name]
+        gq = params["layers"][li][block]["experts"][name]
         qt = gq.qtensor()
         for x in xs:
             route = fm.grouped_plan_for(x, qt).route
@@ -3800,8 +3850,8 @@ def _x_expert_checks(params, captured) -> dict:
                     least[c] = min(least.get(c, v), v)
     if not (n["kernel"] and n["bmm"]) or max(worst.values()) > 2.0**-7 or not all(
             v > 2.0**-7 for v in least.values()):
-        raise AssertionError(f"[x] expert calls on the path's inputs: {n} calls, worst {worst}, "
-                             f"controls {least}")
+        raise AssertionError(f"[{block}] expert calls on the path's inputs: {n} calls, worst "
+                             f"{worst}, controls {least}")
     return dict(calls=n, worst=worst, controls=least)
 
 
@@ -4163,6 +4213,753 @@ def phase_x(dev_tag: str) -> list:
     for model_type, (module, cfg, quantizer, seed) in _x_configs().items():
         _x_two_layer(model_type, module, cfg, quantizer, seed)
     log(f"[x] phase x: {time.time() - t0:.1f} s")
+    return windows
+
+
+# -- path K: DeepSeek-V3 (MLA, group-limited sigmoid routing, dense-compute
+# MoE with shared experts). Both configurations are written from memory: no
+# copy of either config.json is in this repo.
+#
+# moonshotai/Moonlight-16B-A3B's config.json (model_type deepseek_v3): the
+# query by q_proj (no q_lora_rank), one expert group, top-6 of 64 routed
+# experts and 2 shared ones; rope_interleave is HF's default (True)
+K_MOONLIGHT = dict(
+    vocab_size=163840, hidden_size=2048, intermediate_size=11264, moe_intermediate_size=1408,
+    num_hidden_layers=27, num_attention_heads=16, n_routed_experts=64, n_shared_experts=2,
+    num_experts_per_tok=6, n_group=1, topk_group=1, norm_topk_prob=True,
+    routed_scaling_factor=2.446, first_k_dense_replace=1, q_lora_rank=None, kv_lora_rank=512,
+    qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128, rms_norm_eps=1e-5,
+    rope_theta=50000.0, rope_scaling=None, max_position_embeddings=8192)
+# deepseek-ai/DeepSeek-V3's config.json: the published widths are the
+# dataclass's defaults (hidden 7168, 128 heads, q_lora 1536, 256 experts in
+# 8 groups, top-8 of the best 4 groups, 1 shared); its YaRN block; cut to
+# 5 layers (first_k_dense_replace 3 as published, then 2 MoE layers): the
+# 61 layers do not fit one card
+K_V3_LAYERS = 5
+K_V3_YARN = {"rope_type": "yarn", "factor": 40, "beta_fast": 32, "beta_slow": 1, "mscale": 1.0,
+             "mscale_all_dim": 1.0, "original_max_position_embeddings": 4096}
+K_V3_BATCH, K_V3_PROMPT, K_V3_NEW = 4, 8, 8
+# DeepSeek-V3's logits against the plain path, of max|logit|: phase d's
+# end-to-end bar. The routes differ by the w4a8 and grouped kernels' sums
+# in another order (2^-7 a call), which flip some bf16 roundings and then,
+# through the next layer's int8 activations, many; the router's inputs
+# move with them. A token whose expert set differs between the two routes
+# in some layer is left out of the bar: it sums other experts. Each such
+# (token, layer) must be a near-tie: the plain route's k-th and (k+1)-th
+# masked scores lie within 2 d (an expert swapped), or its topk_group-th
+# and next group scores (sums of two) within 4 d (a group swapped), d the
+# largest move of the row's scores between the routes. At random weights
+# the sigmoid scores of the 128 experts in the chosen groups crowd at the
+# top (a development run on the card: 32 of 96 differed, every one a
+# near-tie), so up to half may differ; the others' tokens are held to the
+# bar.
+K_V3_LOGIT_BAR, K_V3_FLIPS_ALLOWED = 0.1, 0.5
+# the router's weights on the card against its fp32 twin on the CPU: fp32
+# sums in another order, no TF32. A development run on the card read 6.0e-8
+# and, for the control (the logits product in TF32, ~2^-11 of each logit),
+# 1.2e-5: the bar lies between them
+K_ROUTER_BAR = 1e-6
+
+
+def _k_counts(cfg) -> dict:
+    """Launches of one pass (a decode step, or a prefill of more than 32
+    rows) of the served tree (w4a8, fused): its w4a8 linears (the MLA
+    projections, a dense layer's fused gate/up and down, a MoE layer's
+    three shared-expert projections, which stay unfused), its norms (input,
+    post-attention, the latent's, the low-rank query's, the final one), its
+    routed stacks (three a MoE layer)."""
+    layers = cfg.num_hidden_layers
+    moe = layers - cfg.first_k_dense_replace
+    attn = 4 if cfg.q_lora_rank is None else 5
+    return dict(linears=attn * layers + 2 * cfg.first_k_dense_replace + 3 * moe,
+                norms=(attn - 1) * layers + 1, stacks=3 * moe)
+
+
+def _k_check_tree(tag: str, params, cfg) -> None:
+    """The tree `serve.main` serves (w4a8, fused): every projection an
+    `A8QuantLinear`, a dense layer's gate/up fused, a MoE layer's router in
+    fp32, its routed stacks `GroupedQuantLinear`, its shared experts
+    unfused."""
+    from hqq_tpu_torch.backends.pallas_backend import A8QuantLinear
+    from hqq_tpu_torch.nn.moe import GroupedQuantLinear
+
+    for i, layer in enumerate(params["layers"]):
+        mlp = layer["mlp"]
+        ok = all(isinstance(v, A8QuantLinear) for k, v in layer["self_attn"].items()
+                 if k.endswith("proj") or k.endswith("mqa"))
+        if i < cfg.first_k_dense_replace:
+            ok &= set(mlp) == {"gate_up_proj", "down_proj"}
+        else:
+            ok &= (mlp["gate_weight"].dtype == torch.float32
+                   and all(isinstance(v, GroupedQuantLinear) for v in mlp["experts"].values())
+                   and set(mlp["shared_experts"]) == {"gate_proj", "up_proj", "down_proj"}
+                   and all(isinstance(v, A8QuantLinear) for v in mlp["shared_experts"].values()))
+        if not ok:
+            raise AssertionError(f"[{tag}] layer {i} is not the served w4a8 tree")
+
+
+def _k_latent_norm(params, cfg, x) -> dict:
+    """The latent's norm reads ckv[..., :kv_lora_rank], a strided slice of
+    the 576-wide row: the norm kernel on that slice bit-equal to its plain
+    twin on a contiguous copy; control: the rows read as if contiguous (a
+    wrong stride)."""
+    from hqq_tpu_torch.ops import norm as nm
+
+    sa = params["layers"][0]["self_attn"]
+    ckv = sa["kv_a_proj_with_mqa"](x)
+    lat = ckv[..., :cfg.kv_lora_rank]
+    w = sa["kv_a_layernorm"]
+    ref = nm.rms_norm_plain(lat.contiguous(), w, cfg.rms_norm_eps)
+    got = nm.rms_norm(lat, w, cfg.rms_norm_eps)
+    wrong = ckv.reshape(-1)[:lat.numel()].reshape(lat.shape)
+    out = dict(strided=not lat.is_contiguous(), bit_equal=torch.equal(got, ref),
+               wrong_stride=rel(nm.rms_norm_plain(wrong, w, cfg.rms_norm_eps), ref))
+    if not (out["strided"] and out["bit_equal"] and out["wrong_stride"] > 2.0**-7):
+        raise AssertionError(f"[k] the latent's norm over a strided slice: {out}")
+    return out
+
+
+def _k_broadcast_ms(shapes) -> dict:
+    """Device ms of x2 [T, D] broadcast to [E, T, D] and made contiguous,
+    as `deepseek3._moe_block` does once a layer for the w1 and w3 stacks."""
+    out = {}
+    for e, t, d in shapes:
+        x2 = torch.randn((t, d), device="cuda").to(torch.bfloat16)
+        out[f"E={e} T={t} D={d}"] = round(time_ms([lambda: x2.expand(e, t, d).contiguous()],
+                                                  50), 4)
+    return out
+
+
+def _k_moonlight(dev_tag: str) -> list:
+    """Moonlight-16B-A3B at full width and depth (`K_MOONLIGHT`): random
+    bf16 weights from seed 0 drawn and quantized a layer at a time (4-bit
+    g64 axis=1: `quantize_model` for the linears, `nn.moe.quantize_experts`
+    for the routed stacks, the router in fp32), save_quantized;
+    `serve.main` on the checkpoint with its defaults (w4a8, fused, 8 slots,
+    the paged engine asked and the dense one served) and a max_len of 2048;
+    G's 12 requests from 12 client threads (6 streamed), ids equal to an
+    in-process ContinuousBatchingEngine's; then `Generator` on the tree.
+    Returns the launch windows of the server and of the partial generate."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from hqq_tpu_torch import BaseQuantizeConfig
+    from hqq_tpu_torch.engine.hf import HQQModel
+    from hqq_tpu_torch.models import deepseek3
+    from hqq_tpu_torch.models.base import quantize_model
+    from hqq_tpu_torch.nn.moe import quantize_experts
+    from hqq_tpu_torch.serve import main as serve_main
+
+    cfg = deepseek3.DeepseekV3Config(**K_MOONLIGHT)
+    qc = BaseQuantizeConfig(nbits=4, group_size=64)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.time()
+    params = deepseek3.init_params(dataclasses.replace(cfg, num_hidden_layers=0), gen,
+                                   torch.bfloat16, "cuda")  # the embedding, norm and lm_head
+    init_s, quant_s = time.time() - t0, 0.0
+    for i in range(cfg.num_hidden_layers):
+        t0 = time.time()
+        layer = deepseek3.init_layer(cfg, i, gen, torch.bfloat16, "cuda")
+        torch.cuda.synchronize()
+        t1 = time.time()
+        quantize_model({"layers": [layer]}, qc)
+        if "experts" in layer["mlp"]:
+            quantize_experts(layer["mlp"]["experts"], ("w1", "w2", "w3"), qc, torch.bfloat16)
+        torch.cuda.synchronize()
+        init_s, quant_s = init_s + t1 - t0, quant_s + time.time() - t1
+        params["layers"].append(layer)
+    del layer
+    build_peak = torch.cuda.max_memory_allocated() / 2**30
+    root = tempfile.mkdtemp(prefix="hqq-moonlight-")
+    try:
+        t0 = time.time()
+        HQQModel(params, cfg, "deepseek_v3", quantized=True).save_quantized(root)
+        save_s = time.time() - t0
+        gb = sum(os.path.getsize(os.path.join(root, f)) for f in os.listdir(root)) / 1e9
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[k] {dev_tag} Moonlight-16B-A3B ({cfg.num_hidden_layers} layers): init "
+            f"{init_s:.1f} s, quantize (4-bit g64: every linear but lm_head, 3 stacks of "
+            f"{cfg.n_routed_experts} experts in each of "
+            f"{cfg.num_hidden_layers - cfg.first_k_dense_replace} MoE layers; the router in "
+            f"fp32), layer by layer, {quant_s:.2f} s, save_quantized {gb:.3f} GB in {save_s:.2f} "
+            f"s, peak {build_peak:.2f} GiB")
+        argv = ["--model", root, "--port", "0", "--max-len", str(L_MAX_LEN)]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        srv = serve_main(argv, serve=False).start()
+        return _k_served(dev_tag, cfg, srv, time.time() - t0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+MLA_LINEARS = {"q_proj": "self_attn", "kv_a_proj_with_mqa": "self_attn", "kv_b_proj": "self_attn",
+               "o_proj": "self_attn"}
+
+
+def _k_served(dev_tag: str, cfg, srv, boot_s: float) -> list:
+    """The rest of `_k_moonlight`, on the started server ``srv``: the window
+    and its launches, the in-process engine, the linears and expert stacks
+    of the first and last layers on the path's own inputs, the latent's
+    strided norm, a steady window's busy share, Generator partial and
+    full."""
+    import numpy as np
+
+    from hqq_tpu_torch import ops
+    from hqq_tpu_torch.engine.hf import HQQModel
+    from hqq_tpu_torch.serving.batching import ContinuousBatchingEngine
+
+    layers = cfg.num_hidden_layers
+    eng = srv.engine
+    params, fwd = eng.params, eng._fwd
+    prompts = _g_prompts(cfg, np.random.default_rng(0))
+    steps = []
+    decode = eng._decode
+
+    def counted(h):
+        steps.append(h)
+        return decode(h)
+
+    eng._decode = counted
+    try:
+        if not isinstance(eng, ContinuousBatchingEngine) or eng.s != G_SLOTS:
+            raise AssertionError(f"[k] the server runs {type(eng).__name__} of {eng.s} slots, not "
+                                 f"the dense engine of {G_SLOTS}")
+        _k_check_tree("k", params, cfg)
+        t_warm = time.time()
+        _s_request(srv.port, prompts[0][:64], 8, False, t_warm)
+        warm_s = time.time() - t_warm
+        # the main path's window: every count from 0, read right after
+        ops.reset_launch_counts()
+        steps.clear()
+        results, window_s = _s_window(srv.port, prompts, R_NEW)
+        launches = launch_counts()
+        n_steps = sum(steps)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        srv.stop()
+    del srv
+    per = _k_counts(cfg)
+    step = {"w4a8_matmul": per["linears"], "grouped_matmul": per["stacks"],
+            "rms_norm": per["norms"]}
+    prefill = {"quant_matmul": per["linears"], "dequant_canonical": per["stacks"],
+               "rms_norm": per["norms"]}
+    expect = {k: step.get(k, 0) * n_steps + prefill.get(k, 0) * len(prompts)
+              for k in (*step, *prefill, "paged_attention")}
+    log(f"[k] launches in the server's window ({n_steps} decode steps, {len(prompts)} prefills): "
+        f"{launches}; a decode step: {step}; a prefill (every stack at more than 32 rows an "
+        f"expert: dequantized once, then torch.bmm): {prefill}")
+    for name, n in expect.items():
+        if launches[name] != n:
+            raise AssertionError(f"[k] {launches[name]} {name} launches in the window ({n_steps} "
+                                 f"decode steps, {len(prompts)} prefills), expected {n}")
+
+    # the same requests through the served tree in-process, decode timed
+    ref = ContinuousBatchingEngine(params, cfg, batch_slots=G_SLOTS, max_len=L_MAX_LEN,
+                                   horizon=S_HORIZON, forward_fn=fwd)
+    recs, ref_decode = [], ref._decode
+
+    def timed(h):
+        live = len(ref.active)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = ref_decode(h)  # ends in a read-back of the tokens
+        recs.append(dict(steps=h, live=live, ms=(time.time() - t0) * 1e3,
+                         rows=float(np.mean(ref._pos))))
+        return out
+
+    ref._decode = timed
+    torch.cuda.synchronize()
+    t0 = time.time()
+    uids = [ref.add_request(p, max_new_tokens=R_NEW) for p in prompts]
+    ref_out = ref.run()
+    torch.cuda.synchronize()
+    inproc_s = time.time() - t0
+    same = [r["tokens"] == ref_out[u] for r, u in zip(results, uids)]
+    decode_s = sum(r["ms"] for r in recs) / 1e3
+    dec_steps = sum(r["steps"] for r in recs)
+    tokens = sum(r["live"] * r["steps"] for r in recs)
+    rows = sum(r["rows"] * r["steps"] for r in recs) / dec_steps
+    # the first and last layer's linears and expert stacks on the path's inputs
+    lin_x, exp_x, hooks = {}, {}, []
+    last = layers - 1
+    for li in (0, last):
+        for name in MLA_LINEARS:
+            def grab(mod, args, key=(li, name)):
+                lin_x.setdefault(key, []).append(
+                    args[0].detach().reshape(-1, args[0].shape[-1]).clone())
+            hooks.append(params["layers"][li]["self_attn"][name].register_forward_pre_hook(grab))
+    for li in (cfg.first_k_dense_replace, last):
+        for name in ("w1", "w2", "w3"):
+            def grab_e(mod, args, key=(li, name)):
+                exp_x.setdefault(key, []).append(args[0].detach().clone())
+            hooks.append(params["layers"][li]["mlp"]["experts"][name]
+                         .register_forward_pre_hook(grab_e))
+    ref.add_request(prompts[2], max_new_tokens=3)
+    ref.run()
+    for h in hooks:
+        h.remove()
+    # the device's share of a steady decode window: 8 live slots, a horizon
+    # of 8 decode steps an engine step, until the requests end
+    rng = np.random.default_rng(1)
+    for _ in range(G_SLOTS):
+        ref.add_request(rng.integers(0, cfg.vocab_size, 256), max_new_tokens=R_NEW)
+    ref.step()
+    n0 = len(recs)
+    busy = device_share(lambda: [ref.step() for _ in range(8)])
+    busy_steps = sum(r["steps"] for r in recs[n0:])
+    ref.close()
+    eng.close()
+    del ref, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_k = _l_linear_checks(params, lin_x, MLA_LINEARS, "k")
+    experts = _x_expert_checks(params, exp_x, "mlp")
+    latent = _k_latent_norm(params, cfg, lin_x[(0, "kv_a_proj_with_mqa")][1])
+    del lin_x, exp_x
+    log(f"[k] the MLA projections of layers 0 and {last} on the path's inputs, largest rel err "
+        f"by (route, K) (bar 2^-7): { {f'{a} K={b}': round(v, 5) for (a, b), v in by_k.items()} }; "
+        f"the expert stacks of layers {cfg.first_k_dense_replace} and {last}: {experts}; the "
+        f"latent's norm over ckv[..., :{cfg.kv_lora_rank}] of a {cfg.kv_lora_rank + 64}-wide "
+        f"row: {latent}")
+
+    routers = sum(layer["mlp"]["gate_weight"].numel() * 4 for layer in params["layers"]
+                  if "experts" in layer["mlp"])
+    weights = _step_weight_bytes(params) + routers
+    kv = (G_SLOTS * rows * layers * cfg.num_attention_heads
+          * (cfg.qk_head_dim + cfg.v_head_dim) * 2)
+    bound = (weights + kv) / HBM_BYTES_PER_S * 1e3
+    all_tokens = sum(len(r["tokens"]) for r in results)
+    first = sorted(r["first_s"] for r in results if r["chunks"] is not None)
+    log(f"[k] {dev_tag}: serve.main (defaults: w4a8, fused, the dense engine of {G_SLOTS} slots, "
+        f"max_len {L_MAX_LEN}, horizon {S_HORIZON}) to a started server {boot_s:.2f} s, warm-up "
+        f"{warm_s:.2f} s; 12 requests (prompts {[len(p) for p in prompts]}, {R_NEW} new, greedy) "
+        f"from 12 client threads, 6 streamed: window {window_s:.3f} s, {all_tokens / window_s:.1f} "
+        f"tok/s at the client; time to first token median {first[len(first) // 2]:.3f} s, max "
+        f"{first[-1]:.3f} s; in-process {inproc_s:.3f} s, {all_tokens / inproc_s:.1f} tok/s, "
+        f"ids equal the server's in {sum(same)} of {len(same)}; decode {tokens / decode_s:.1f} "
+        f"tok/s over all slots, {decode_s / dec_steps * 1e3:.2f} ms a step against a byte bound "
+        f"of {bound:.3f} ms ({weights / 1e9:.3f} GB of codes and meta of every routed expert "
+        f"(each step runs them all) and linear, the fp32 routers and the bf16 lm_head + "
+        f"{kv / 1e9:.3f} GB of MLA K/V rows of all 8 slots, {rows:.0f} rows on average); the "
+        f"server's peak {peak:.2f} GiB")
+    top = sorted(busy["by_name"].items(), key=lambda kv_: -kv_[1])[:6]
+    log(f"[k] {dev_tag}: {busy_steps} decode steps of 8 slots (8 engine steps of a horizon of "
+        f"{S_HORIZON}, until the requests end) at lengths from 256: device busy "
+        f"{busy['busy_share']:.3f} of {busy['wall_ms']:.1f} ms wall, device "
+        f"{busy['device_ms']:.3f} ms ({busy['device_ms'] / busy_steps:.3f} a step); device ms by "
+        f"kernel { {k[:90]: round(v, 3) for k, v in top} }")
+    if not all(same):
+        raise AssertionError(f"[k] the server's ids differ from the in-process engine's in "
+                             f"{len(same) - sum(same)} of {len(same)} requests")
+
+    # Generator on the served tree: "partial" (the launch window), then "full"
+    model = HQQModel(params, cfg, "deepseek_v3", quantized=True)
+    prompts4 = _prompts(cfg)
+    partial = dict(compile_mode="partial")
+    ops.reset_launch_counts()
+    model.generate(prompts4, max_new_tokens=1, **partial)
+    torch.cuda.synchronize()
+    per_prefill = launch_counts()
+    t0 = time.time()
+    model.generate(prompts4, max_new_tokens=1, **partial)
+    torch.cuda.synchronize()
+    prefill_s = time.time() - t0
+    before = launch_counts()
+    t0 = time.time()
+    ids = model.generate(prompts4, max_new_tokens=R_GEN_NEW, **partial)
+    torch.cuda.synchronize()
+    partial_tok_s = 4 * (R_GEN_NEW - 1) / (time.time() - t0 - prefill_s)
+    gen_window = launch_counts()
+    got = {k: (gen_window[k] - before[k] - per_prefill[k]) / (R_GEN_NEW - 1)
+           for k in (*step, "paged_attention")}
+    if got != dict(step, paged_attention=0):
+        raise AssertionError(f"[k] a partial decode step launched {got}, expected {step}")
+    full_ids = model.generate(prompts4, max_new_tokens=R_GEN_NEW)
+    captures = model.generator().captures()
+    t0 = time.time()
+    model.generate(prompts4, max_new_tokens=R_GEN_NEW)
+    torch.cuda.synchronize()
+    full_tok_s = 4 * (R_GEN_NEW - 1) / (time.time() - t0 - prefill_s)
+    full_busy = device_share(lambda: model.generate(prompts4, max_new_tokens=8))
+    model.release_graphs()
+    log(f"[k] {dev_tag}: Generator on the served tree, 4 prompts of 100 tokens, {R_GEN_NEW} new: "
+        f"partial {partial_tok_s:.1f} tok/s, full {full_tok_s:.1f} tok/s (prefill "
+        f"{prefill_s * 1e3:.1f} ms); ids full == partial: {np.array_equal(ids, full_ids)}; "
+        f"graphs' recorded launches {[c['launches'] for c in captures.values()]}; an 8-token "
+        f"full generate busy {full_busy['busy_share']:.3f} of {full_busy['wall_ms']:.1f} ms, "
+        f"device ms {full_busy['device_ms']:.3f}")
+    if not np.array_equal(ids, full_ids):
+        raise AssertionError("[k] the graph's greedy ids differ from the eager loop's")
+    for key, cap in captures.items():
+        if cap["launches"] != step:
+            raise AssertionError(f"[k] graph {key} recorded {cap['launches']}")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [launches, gen_window]
+
+
+def _grouped_plain_chunked(x, qt, chunk: int = 32):
+    """`grouped_matmul_plain` over ``chunk`` experts at a time: the same
+    products (each expert's W dequantized to x's type, fp32 sums), without
+    the whole stack's fp32 copy (15 GB at DeepSeek-V3's 256 x [2048, 7168])."""
+    import dataclasses
+
+    from hqq_tpu_torch.ops import fused_matmul as fm
+
+    parts = []
+    for s in range(0, x.shape[0], chunk):
+        sub = dataclasses.replace(qt, wq=qt.wq[s:s + chunk], scale=qt.scale[s:s + chunk],
+                                  zero=qt.zero[s:s + chunk])
+        parts.append(fm.grouped_matmul_plain(x[s:s + chunk], sub))
+    return torch.cat(parts)
+
+
+def _k_v3_stack(gen, e: int, out_f: int, in_f: int, qc: dict):
+    """A routed stack of ``e`` experts [out_f, in_f] drawn in bf16 and
+    quantized 32 experts at a time (`quantize_grouped`, one expert at a
+    time): at most 32 bf16 experts are held (a whole bf16 stack of
+    DeepSeek-V3 is 7.5 GB)."""
+    from hqq_tpu_torch.nn.moe import GroupedQuantLinear, quantize_grouped
+
+    wqp = qc["weight_quant_params"]
+    parts = []
+    for s in range(0, e, 32):
+        w = (torch.randn((min(32, e - s), out_f, in_f), generator=gen, device="cuda")
+             / in_f**0.5).to(torch.bfloat16)
+        parts.append(quantize_grouped(w, nbits=wqp["nbits"], group_size=wqp["group_size"],
+                                      axis=wqp["axis"], round_zero=wqp["round_zero"]))
+        del w
+    p0 = parts[0]
+    return GroupedQuantLinear(torch.cat([p.wq for p in parts]),
+                              torch.cat([p.scale for p in parts]),
+                              torch.cat([p.zero for p in parts]), nbits=p0.nbits,
+                              group_size=p0.group_size, axis=p0.axis, shape=p0.shape,
+                              packing=p0.packing, compute_dtype=p0.compute_dtype)
+
+
+def _k_routes(module, fn):
+    """Run ``fn`` with `deepseek3._router` recording each call's expert
+    sets (sorted), its inputs and its router; returns (fn's result, the
+    (sets, x2, mlp) of each call in call order)."""
+    from unittest import mock
+
+    inner, calls = module._router, []
+
+    def rec(mlp, cfg, x2):
+        idx, w = inner(mlp, cfg, x2)
+        calls.append((idx.sort(-1).values, x2.detach().clone(), mlp))
+        return idx, w
+
+    with mock.patch.object(module, "_router", rec):
+        return fn(), calls
+
+
+def _k_margins(mlp, cfg, x2):
+    """The router's scores of rows x2 (sigmoid plus bias, fp32) and the
+    margins of its two choices: the k-th minus the (k+1)-th masked score,
+    and the topk_group-th minus the next group score (inf for one group)."""
+    scores = torch.sigmoid(x2.float() @ mlp["gate_weight"].float().t())
+    choice = scores + mlp["e_score_correction_bias"].float()[None, :]
+    ng, tg, k = cfg.n_group, cfg.topk_group, cfg.num_experts_per_tok
+    groups = choice.reshape(-1, ng, choice.shape[-1] // ng).topk(2, -1).values.sum(-1)
+    gv, gidx = groups.sort(-1, descending=True)
+    g_margin = (gv[:, tg - 1] - gv[:, tg]) if tg < ng else torch.full_like(gv[:, 0], float("inf"))
+    keep = torch.zeros_like(groups).scatter_(1, gidx[:, :tg], 1.0).repeat_interleave(
+        choice.shape[-1] // ng, -1)
+    ev = torch.where(keep > 0, choice, 0.0).sort(-1, descending=True).values
+    return choice, ev[:, k - 1] - ev[:, k], g_margin
+
+
+def _k_v3_logits(params, cfg, toks, w4a8=None, plain: bool = False):
+    """The logits of a prefill of K_V3_PROMPT tokens and 4 decode steps over
+    the MLA cache, and the expert sets of every MoE call: through the
+    kernels, or with every wrapper replaced by its plain twin (``w4a8``: the
+    w4a8 one, a control where given)."""
+    from unittest import mock
+
+    from hqq_tpu_torch.models import deepseek3
+    from hqq_tpu_torch.models.llama import cache_for
+    from hqq_tpu_torch.nn import moe
+    from hqq_tpu_torch.ops import fused_matmul as fm
+    from hqq_tpu_torch.ops import norm as nm
+
+    t = K_V3_PROMPT
+
+    def run():
+        cache = cache_for(cfg)(cfg, toks.shape[0], 64, torch.bfloat16, "cuda")
+        out = [deepseek3.forward(params, cfg, toks[:, :t], cache, 0)[0]]
+        for i in range(toks.shape[1] - t):
+            out.append(deepseek3.forward(params, cfg, toks[:, t + i:t + i + 1], cache, t + i)[0])
+        return torch.cat(out, dim=1)
+
+    with contextlib.ExitStack() as stack, torch.inference_mode():
+        if plain:
+            for mod, name, twin in ((fm, "w4a8_matmul", w4a8 or fm.w4a8_matmul_plain),
+                                    (nm, "rms_norm", nm.rms_norm_plain),
+                                    (moe, "grouped_matmul", _grouped_plain_chunked)):
+                stack.enter_context(mock.patch.object(mod, name, twin))
+        return _k_routes(deepseek3, run)
+
+
+def _k_v3_against_plain(params, cfg, toks) -> dict:
+    """`_k_v3_logits` through the kernels against the plain path: the
+    (token, layer) expert sets that differ, counted, and the logits of the
+    other tokens within K_V3_LOGIT_BAR of max|logit|; control: the plain
+    path with each w4a8 group reading its neighbour's scale must miss the
+    bar."""
+    import dataclasses
+
+    from hqq_tpu_torch.ops import fused_matmul as fm
+
+    def bad_scale(x8, sx, kqt, dt):
+        return fm.w4a8_matmul_plain(x8, sx, dataclasses.replace(kqt, scale=kqt.scale.roll(1, 1)),
+                                    dt)
+
+    b, t = toks.shape[0], K_V3_PROMPT
+    got, calls_k = _k_v3_logits(params, cfg, toks)
+    want, calls_p = _k_v3_logits(params, cfg, toks, plain=True)
+    control, _ = _k_v3_logits(params, cfg, toks, w4a8=bad_scale, plain=True)
+    # the calls come a forward at a time, one a MoE layer: the prefill's
+    # rows are (slot, position) of the prompt, a step's one row a slot
+    moe_layers = cfg.num_hidden_layers - cfg.first_k_dense_replace
+    flipped = torch.zeros((b, toks.shape[1]), dtype=torch.bool, device="cuda")
+    decisions, flips, far, worst = 0, 0, 0, 0.0
+    for n, ((a, xk, mlp), (c, xp, _)) in enumerate(zip(calls_k, calls_p)):
+        differ = (a != c).any(-1)
+        decisions += differ.numel()
+        flips += int(differ.sum())
+        if differ.any():
+            choice_k = _k_margins(mlp, cfg, xk[differ])[0]
+            choice_p, e_margin, g_margin = _k_margins(mlp, cfg, xp[differ])
+            d = (choice_k - choice_p).abs().amax(-1)
+            near = (e_margin <= 2 * d) | (g_margin <= 4 * d)
+            far += int((~near).sum())
+            worst = max(worst, torch.minimum(e_margin / d, g_margin / (2 * d)).max().item())
+        fwd = n // moe_layers
+        if fwd == 0:
+            flipped[:, :t] |= differ.reshape(b, t)
+        else:
+            flipped[:, t + fwd - 1] |= differ
+    keep = ~flipped
+
+    def err(x):
+        return ((x - want).abs()[keep].max() / want.abs()[keep].max()).item()
+
+    out = dict(logits=err(got), control=err(control), tokens_left_out=int(flipped.sum()),
+               of_tokens=flipped.numel(), expert_sets_differ=flips, of_decisions=decisions,
+               not_near_ties=far, largest_margin_over_move=worst,
+               finite=bool(torch.isfinite(got).all()))
+    if not (out["finite"] and out["logits"] <= K_V3_LOGIT_BAR < out["control"]
+            and flips <= K_V3_FLIPS_ALLOWED * decisions and far == 0):
+        raise AssertionError(f"[k v3] logits against the plain path: {out} (bar "
+                             f"{K_V3_LOGIT_BAR}; at most {K_V3_FLIPS_ALLOWED:.0%} of the expert "
+                             f"sets may differ, each a near-tie)")
+    return out
+
+
+def _k_router_check(params, cfg, x2) -> dict:
+    """The router on the card (fp32, TF32 off) against its twin on the CPU
+    (fp32, where no product runs in TF32) on the path's own x2: the expert
+    sets equal but at near-ties, the weights within K_ROUTER_BAR; control:
+    the logits product in TF32 (~2^-11 of each logit) must miss the bar."""
+    from hqq_tpu_torch.models import deepseek3
+
+    mlp = next(layer["mlp"] for layer in params["layers"] if "experts" in layer["mlp"])
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("[k v3] TF32 is allowed in torch.matmul: the router would not be fp32")
+    cpu = {k: mlp[k].cpu() for k in ("gate_weight", "e_score_correction_bias")}
+    ridx, rw = deepseek3._router(cpu, cfg, x2.cpu())
+
+    def against(idx, w):
+        same = (idx.cpu() == ridx).all(-1)  # the same experts in the same k order
+        err = (w.cpu() - rw).abs()[same].max().item() if same.any() else float("inf")
+        return int(same.sum()), err
+
+    n_same, err = against(*deepseek3._router(mlp, cfg, x2))
+    with tf32_allowed():
+        _, control = against(*deepseek3._router(mlp, cfg, x2))
+    out = dict(tokens=int(x2.shape[0]), sets_equal=n_same, weights_err=err,
+               tf32_control=control)
+    if not (err <= K_ROUTER_BAR < control and n_same >= 0.9 * x2.shape[0]):
+        raise AssertionError(f"[k v3] the router against its CPU twin: {out} (bar {K_ROUTER_BAR})")
+    return out
+
+
+def _k_deepseek_v3(dev_tag: str) -> list:
+    """DeepSeek-V3 at its published width (`K_V3_*`), 5 layers: random bf16
+    weights from seed 1 drawn and quantized a layer at a time (the routed
+    experts 32 at a time, `_k_v3_stack`), w4a8, fused; the kernel calls of a
+    prefill (4 prompts of 8 tokens: 32 rows an expert) and 4 decode steps
+    held to their plain twins on the path's own inputs (w4a8 at the MLA's
+    shapes, rms_norm at 1536, 512 and 7168, grouped_matmul at both stacks'
+    shapes, quant_matmul never called: no projection sees more than 32
+    rows); the router against fp64; the logits against the plain path;
+    then `Generator` "full" and "partial". Returns the partial generate's
+    launch window."""
+    import dataclasses
+
+    import numpy as np
+
+    from hqq_tpu_torch import BaseQuantizeConfig, ops
+    from hqq_tpu_torch.engine.hf import HQQModel
+    from hqq_tpu_torch.models import deepseek3
+    from hqq_tpu_torch.models.base import quantize_model
+    from hqq_tpu_torch.models.llama import LlamaConfig
+    from hqq_tpu_torch.nn import moe
+    from hqq_tpu_torch.utils.patching import fuse_for_decode, prepare_for_inference
+
+    tag = "k v3"
+    cfg = deepseek3.DeepseekV3Config(
+        num_hidden_layers=K_V3_LAYERS, max_position_embeddings=163840,
+        rope_scaling=LlamaConfig._canon_rope_scaling(K_V3_YARN))
+    qc = BaseQuantizeConfig(nbits=4, group_size=64)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    t0 = time.time()
+    params = deepseek3.init_params(dataclasses.replace(cfg, num_hidden_layers=0), gen,
+                                   torch.bfloat16, "cuda")
+    for i in range(cfg.num_hidden_layers):
+        layer = deepseek3.init_layer(
+            cfg, i, gen, torch.bfloat16, "cuda",
+            experts=lambda o, i_: _k_v3_stack(gen, cfg.n_routed_experts, o, i_, qc))
+        quantize_model({"layers": [layer]}, qc)
+        params["layers"].append(layer)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    del layer
+    build_peak = torch.cuda.max_memory_allocated() / 2**30
+    params = fuse_for_decode(prepare_for_inference(params, "w4a8"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    _k_check_tree(tag, params, cfg)
+    resident = torch.cuda.memory_allocated() / 2**30
+    log(f"[{tag}] {dev_tag} DeepSeek-V3 at published width, {K_V3_LAYERS} of 61 layers "
+        f"({cfg.first_k_dense_replace} dense, {K_V3_LAYERS - cfg.first_k_dense_replace} MoE of "
+        f"{cfg.n_routed_experts} experts): drawn and quantized (4-bit g64, the routed experts 32 "
+        f"at a time) in {build_s:.1f} s, peak {build_peak:.2f} GiB; w4a8, fused: {resident:.2f} "
+        f"GiB resident; attn_scale_ {cfg.attn_scale_:.6f} (qk_head_dim^-0.5 times mscale^2)")
+
+    toks = torch.randint(0, cfg.vocab_size, (K_V3_BATCH, K_V3_PROMPT + 4), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(2))
+
+    def grouped_bad(name):
+        return lambda x, qt: _grouped_plain_chunked(x, _grouped_controls(qt)[name])
+
+    extra = [(moe, "grouped_matmul", _grouped_plain_chunked,
+              {c: grouped_bad(c) for c in ("neighbour's scale", "expert e+1's codes")}, 2.0**-7)]
+    calls = _r_calls(tag, deepseek3.forward, params, cfg, toks, K_V3_PROMPT, 4, extra=extra,
+                     absent=("quant_matmul",))
+    widths = set(calls["rms_norm"]["worst_by_k"])
+    want_widths = {cfg.q_lora_rank, cfg.kv_lora_rank, cfg.hidden_size}
+    shapes = set(calls["grouped_matmul"]["worst_by_k"])
+    want_shapes = {(c, n, k) for c in (K_V3_BATCH * K_V3_PROMPT, K_V3_BATCH)
+                   for n, k in ((cfg.moe_intermediate_size, cfg.hidden_size),
+                                (cfg.hidden_size, cfg.moe_intermediate_size))}
+    log(f"[{tag}] a prefill (M = {K_V3_BATCH * K_V3_PROMPT}) and 4 decode steps, every call "
+        f"against its plain twin on the path's inputs (calls, worst, controls at the least; by K, "
+        f"width or (C, N, K)): {calls}")
+    if widths != want_widths or shapes != want_shapes:
+        raise AssertionError(f"[{tag}] norms at widths {widths} (expected {want_widths}), stacks "
+                             f"at {shapes} (expected {want_shapes})")
+
+    # the router on the path's own input: the first MoE layer's x2 of a prefill
+    with torch.inference_mode():
+        _, calls = _k_routes(deepseek3, lambda: deepseek3.forward(params, cfg,
+                                                                  toks[:, :K_V3_PROMPT]))
+    router = _k_router_check(params, cfg, calls[0][1])
+    del calls
+    against = _k_v3_against_plain(params, cfg, toks)
+    copies = _k_broadcast_ms([(cfg.n_routed_experts, K_V3_BATCH, cfg.hidden_size),
+                              (cfg.n_routed_experts, K_V3_BATCH * K_V3_PROMPT, cfg.hidden_size),
+                              (K_MOONLIGHT["n_routed_experts"], G_SLOTS,
+                               K_MOONLIGHT["hidden_size"])])
+    log(f"[{tag}] the router of layer {cfg.first_k_dense_replace} on the path's prefill rows "
+        f"against its fp32 twin on the CPU: {router} (bar {K_ROUTER_BAR}; TF32 off); logits of the prefill and 4 "
+        f"decode steps against the plain path: {against} (bar {K_V3_LOGIT_BAR} of max|logit|, "
+        f"control past it; at most {K_V3_FLIPS_ALLOWED:.0%} of the expert sets may differ, each "
+        f"a near-tie: margin within 2 d, or the groups' within 4 d); "
+        f"x broadcast to [E, T, D] and made contiguous once a MoE layer, device ms: {copies}")
+
+    # Generator: "partial" (the launch window), then "full"
+    model = HQQModel(params, cfg, "deepseek_v3", quantized=True)
+    prompts = np.random.default_rng(3).integers(0, cfg.vocab_size, (K_V3_BATCH, K_V3_PROMPT))
+    per = _k_counts(cfg)
+    step = {"w4a8_matmul": per["linears"], "grouped_matmul": per["stacks"],
+            "rms_norm": per["norms"]}
+    partial = dict(compile_mode="partial")
+    ops.reset_launch_counts()
+    model.generate(prompts, max_new_tokens=1, **partial)
+    torch.cuda.synchronize()
+    per_prefill = launch_counts()
+    if {k: per_prefill[k] for k in (*step, "quant_matmul", "dequant_canonical")} != dict(
+            step, quant_matmul=0, dequant_canonical=0):
+        raise AssertionError(f"[{tag}] a prefill of {K_V3_BATCH} x {K_V3_PROMPT} launched "
+                             f"{per_prefill}, expected {step} and no quant_matmul or stacked "
+                             f"dequant (32 rows: the grouped kernel)")
+    t0 = time.time()
+    model.generate(prompts, max_new_tokens=1, **partial)
+    torch.cuda.synchronize()
+    prefill_s = time.time() - t0
+    before = launch_counts()
+    t0 = time.time()
+    ids = model.generate(prompts, max_new_tokens=K_V3_NEW, **partial)
+    torch.cuda.synchronize()
+    partial_tok_s = K_V3_BATCH * (K_V3_NEW - 1) / (time.time() - t0 - prefill_s)
+    gen_window = launch_counts()
+    got = {k: (gen_window[k] - before[k] - per_prefill[k]) / (K_V3_NEW - 1) for k in step}
+    if got != step:
+        raise AssertionError(f"[{tag}] a partial decode step launched {got}, expected {step}")
+    full_ids = model.generate(prompts, max_new_tokens=K_V3_NEW)
+    captures = model.generator().captures()
+    t0 = time.time()
+    model.generate(prompts, max_new_tokens=K_V3_NEW)
+    torch.cuda.synchronize()
+    full_tok_s = K_V3_BATCH * (K_V3_NEW - 1) / (time.time() - t0 - prefill_s)
+    full_busy = device_share(lambda: model.generate(prompts, max_new_tokens=K_V3_NEW))
+    model.release_graphs()
+    stacks = sum(t.numel() * t.element_size() for layer in params["layers"]
+                 if "experts" in layer["mlp"] for g in layer["mlp"]["experts"].values()
+                 for t in (g.wq, g.scale, g.zero))
+    weights = _step_weight_bytes(params)
+    log(f"[{tag}] {dev_tag}: Generator, {K_V3_BATCH} prompts of {K_V3_PROMPT} tokens, {K_V3_NEW} "
+        f"new: partial {partial_tok_s:.1f} tok/s, full {full_tok_s:.1f} tok/s (prefill "
+        f"{prefill_s * 1e3:.1f} ms); ids full == partial: {np.array_equal(ids, full_ids)}; a "
+        f"decode step {step}; graphs' recorded launches "
+        f"{[c['launches'] for c in captures.values()]}; an {K_V3_NEW}-token full generate busy "
+        f"{full_busy['busy_share']:.3f} of {full_busy['wall_ms']:.1f} ms, device ms "
+        f"{full_busy['device_ms']:.3f}; a step's byte bound {weights / HBM_BYTES_PER_S * 1e3:.3f} "
+        f"ms ({weights / 1e9:.3f} GB, {stacks / 1e9:.3f} GB of it the routed stacks); peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not np.array_equal(ids, full_ids):
+        raise AssertionError(f"[{tag}] the graph's greedy ids differ from the eager loop's")
+    for key, cap in captures.items():
+        if cap["launches"] != step:
+            raise AssertionError(f"[{tag}] graph {key} recorded {cap['launches']}")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [gen_window]
+
+
+def phase_k(dev_tag: str) -> list:
+    """Path K, DeepSeek-V3: `_k_moonlight` (Moonlight-16B-A3B through the
+    server), then `_k_deepseek_v3` (DeepSeek-V3's width, 5 layers,
+    through Generator). Returns their launch windows."""
+    t0 = time.time()
+    windows = _k_moonlight(dev_tag)
+    t1 = time.time()
+    windows += _k_deepseek_v3(dev_tag)
+    log(f"[k] phase k: {time.time() - t0:.1f} s (Moonlight {t1 - t0:.1f} s, DeepSeek-V3 "
+        f"{time.time() - t1:.1f} s)")
     return windows
 
 
@@ -6234,12 +7031,25 @@ def main(argv: list[str]) -> int:
     if argv and argv[0] == "--norm":
         norm_cost(power)
         return 0
+    if argv[:2] == ["--phase", "k"]:  # path K alone, after the grouped kernel's rows
+        phase_b_grouped(lambda key, row: log("[b] " + json.dumps(row)), 100)
+        phase_k(dev_tag)
+        log(power)
+        return 0
 
     t_start = time.time()
+
+    def lap(what):  # seconds since the start, after each phase
+        log(f"[t] {time.time() - t_start:.1f} s: {what} done")
+
     phase_a(name, power)
+    lap("a")
     rows = phase_b()
+    lap("b")
     launches, model, c_ids = phase_c(dev_tag)
+    lap("c")
     windows = [launches, phase_g(dev_tag, model), phase_h(dev_tag, model)]
+    lap("g, h")
     t_vm = time.time()
     windows.append(phase_v(dev_tag, model))
     windows.append(phase_m(dev_tag, model))
@@ -6251,16 +7061,25 @@ def main(argv: list[str]) -> int:
     windows.extend(phase_q(dev_tag, c_ids))
     log(f"[q] phases q and s: {time.time() - t_q:.1f} s")
     windows.append(phase_s_dense_int8(dev_tag))
+    lap("v, m, q, s")
     windows.extend(phase_r(dev_tag))
+    lap("r")
     windows.extend(phase_l(dev_tag))
+    lap("l")
     windows.extend(phase_x(dev_tag))
+    lap("x")
+    windows.extend(phase_k(dev_tag))
+    lap("k")
     phase_g_two_layer()
     phase_h_two_layer()
     phase_d()
+    lap("g, h two-layer, d")
     windows.append(phase_e(dev_tag))
     windows.append(phase_f(dev_tag))
+    lap("e, f")
     windows.append(phase_i(dev_tag))
     windows.append(phase_i_two_layer())
+    lap("i")
 
     kernels = []
     for kname, (source, replaces, also) in KERNELS.items():

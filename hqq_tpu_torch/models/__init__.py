@@ -2,6 +2,7 @@
 from . import (  # noqa: F401
     bloom,
     cohere,
+    deepseek3,
     falcon,
     gemma,
     gemma2,
@@ -30,6 +31,7 @@ from .base import (  # noqa: F401
 )
 from .bloom import BloomConfig  # noqa: F401
 from .cohere import CohereConfig  # noqa: F401
+from .deepseek3 import DeepseekV3Config  # noqa: F401
 from .falcon import FalconConfig  # noqa: F401
 from .gemma import GemmaConfig  # noqa: F401
 from .gemma2 import Gemma2Config  # noqa: F401

@@ -28,7 +28,9 @@ A layer's projections may be fused (`utils.patching.fuse_for_decode`):
 ``qkv_proj`` in place of q, k and v, ``gate_up_proj`` in place of gate
 and up; their outputs are split as in `hqq_tpu`.
 
-Not yet ported: ``kv_valid``, ``inputs_embeds`` and the sequence-parallel
+Over the dense cache ``kv_valid`` [B, S_max] masks cache slots (a
+left-padded batch), and ``inputs_embeds`` [B, T, D] stands in for the
+token embedding, as in `hqq_tpu`. Not yet ported: the sequence-parallel
 page pool (``seq_axis``).
 """
 
@@ -37,6 +39,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import sys
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -51,6 +54,7 @@ __all__ = [
     "KVCache",
     "init_params",
     "init_cache",
+    "cache_for",
     "rms_norm",
     "layer_norm",
     "refuse_int8_pools",
@@ -246,6 +250,15 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
 
+def cache_for(cfg):
+    """The function that makes ``cfg``'s family's dense cache: the
+    ``init_cache`` of the module that defines its config class
+    (DeepSeek-V3's MLA cache, whose K and V rows differ in width),
+    `init_cache` where that module has none. The engines and `Generator`
+    make their caches through it."""
+    return getattr(sys.modules.get(type(cfg).__module__), "init_cache", init_cache)
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     """RMSNorm in fp32 (`ops.norm`): one launch of the fixed-order kernel
     for a CUDA tensor, its plain twin for a CPU one, the autograd Function
@@ -361,7 +374,7 @@ def _apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.
 
 
 def positions_and_masks(cfg: LlamaConfig, t: int, start_pos, cache_max_len: Optional[int],
-                        device="cuda"):
+                        device="cuda", kv_valid: Optional[torch.Tensor] = None):
     """Positions, RoPE tables and the additive attention mask for ``t``
     tokens from ``start_pos``: an int or a 0-d tensor (the whole batch at
     one offset; a tensor is never read on the host, so a captured decode
@@ -370,9 +383,15 @@ def positions_and_masks(cfg: LlamaConfig, t: int, start_pos, cache_max_len: Opti
     slots the mask is [B|1, 1, T, S]; with ``cache_max_len=None`` it is the
     causal [1, 1, T, T] mask of the sequence itself. The mask adds
     finfo(float32).min, not -inf, so that a fully masked row stays finite.
+    Over a cache, ``kv_valid`` [B, S] (bool) adds finfo(float32).min more
+    at each slot it leaves out, as `hqq_tpu` does (a left-padded batch).
     Returns (positions, cos, sin, mask) with cos/sin [B|1, 1, T, hd]."""
     positions, pos_bt, mask = causal_mask(t, start_pos, cache_max_len, cfg.sliding_window,
                                           device)
+    if cache_max_len is not None and kv_valid is not None:
+        zero = torch.zeros((), dtype=torch.float32, device=device)
+        mask = mask + torch.where(kv_valid.to(device), zero,
+                                  torch.finfo(torch.float32).min)[:, None, None, :]
     hd = cfg.head_dim_
     cos, sin = _rope_cos_sin(pos_bt.reshape(-1), hd, cfg.rope_theta, cfg.rope_scaling)
     cos = cos.reshape(*pos_bt.shape, hd)[:, None]
@@ -429,9 +448,10 @@ def _update_stacked_cache(k_all: torch.Tensor, v_all: torch.Tensor, layer_idx: i
         slots = torch.arange(k.shape[0], device=k_all.device)[:, None]  # [B, 1]
         rows = (start + steps[None, :]).clamp_max(last)  # [B, t]
         src = rows - start  # the window row each write takes; < 0: none of them
-        idx = src.clamp_min(0)[:, :, None, None].expand(-1, -1, k.shape[1], k.shape[3])
         for pool, new in ((k_all[layer_idx], k), (v_all[layer_idx], v)):
-            # the indexed dims go first: the value is [B, t, n_kv, hd]
+            # the indexed dims go first: the value is [B, t, n_kv, hd] (K's
+            # and V's hd may differ: the MLA cache)
+            idx = src.clamp_min(0)[:, :, None, None].expand(-1, -1, new.shape[1], new.shape[3])
             val = torch.gather(new.transpose(1, 2).to(pool.dtype), 1, idx)
             val = torch.where((src >= 0)[:, :, None, None], val, pool[slots, :, rows])
             pool[slots, :, rows] = val
@@ -564,7 +584,8 @@ def float_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache: Op
     in place first) or, with ``cache=None``, over the sequence's own keys;
     each kv head serves nh / n_kv query heads. The scores are summed and
     kept in fp32 (`_scores`); the probabilities are rounded to q's type
-    before the product. Returns the heads merged, [B, T, nh * hd]."""
+    before the product. Returns the heads merged, [B, T, nh * v's hd] (V
+    rows may be narrower than q and K's: the MLA cache)."""
     b, nh, t, hd = q.shape
     if cache is None:
         keys, vals = k, v
@@ -576,7 +597,7 @@ def float_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache: Op
         keys = _repeat_heads(keys, rep)
         vals = _repeat_heads(vals, rep)
     probs = torch.softmax(_scores(q, keys, hd, scale, softcap) + mask, dim=-1).to(q.dtype)
-    return (probs @ vals).transpose(1, 2).reshape(b, t, nh * hd)
+    return (probs @ vals).transpose(1, 2).reshape(b, t, nh * vals.shape[-1])
 
 
 def _attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache: KVCache,
@@ -662,14 +683,19 @@ def _forward_paged(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, cache,
 def forward(
     params: dict,
     cfg: LlamaConfig,
-    tokens: torch.Tensor,
+    tokens: Optional[torch.Tensor],
     cache=None,
     start_pos=0,
+    kv_valid: Optional[torch.Tensor] = None,
+    inputs_embeds: Optional[torch.Tensor] = None,
     page_indices: Optional[torch.Tensor] = None,
     seq_axis: Optional[str] = None,
 ):
     """Run the model over ``tokens`` [B, T] from ``start_pos``. Returns
     (logits [B, T, V] fp32, cache), the cache updated in place.
+    ``kv_valid`` [B, S_max] masks slots of the dense cache (left-padded
+    batches); ``inputs_embeds`` [B, T, D] replaces the token embedding
+    (multimodal prefixes), as in `hqq_tpu`.
 
     With a dense `KVCache`, ``start_pos`` is an int or a 0-d tensor on the
     device, which is never read on the host (a captured decode step
@@ -687,11 +713,11 @@ def forward(
             raise ValueError("a PagedKVCache needs page_indices")
         start_pos = torch.as_tensor(start_pos, device=cache.k.device)
         return _forward_paged(params, cfg, tokens, cache, start_pos, page_indices)
-    b, t = tokens.shape
-    x = params["embed_tokens"][tokens]
+    x = inputs_embeds if inputs_embeds is not None else params["embed_tokens"][tokens]
+    t = x.shape[1]
     device = x.device
     _, cos, sin, mask = positions_and_masks(
-        cfg, t, start_pos, None if cache is None else cache.max_len, device)
+        cfg, t, start_pos, None if cache is None else cache.max_len, device, kv_valid)
 
     for i, layer in enumerate(params["layers"]):
         h = rms_norm(x, layer["input_layernorm"], cfg.rms_norm_eps)

@@ -32,7 +32,7 @@ from ..ops.fused_matmul import dequant_canonical, grouped_matmul, grouped_plan_f
 
 __all__ = ["GroupedLinear", "GroupedQuantLinear", "quantize_grouped", "quantize_experts",
            "moe_dispatch", "moe_capacity", "dispatch_tokens", "combine_experts", "route_tokens",
-           "swiglu_moe", "refuse_expert_parallel"]
+           "swiglu_moe", "refuse_expert_parallel", "stable_topk", "weighted_rows_sum"]
 
 
 class GroupedLinear(nn.Module):
@@ -151,6 +151,21 @@ def refuse_expert_parallel(cfg) -> None:
                                   f"parallel/ (the sharded expert stacks), which is not ported")
 
 
+def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest entries of x along its last dim and their indices,
+    largest first, equal values lower index first: `jax.lax.top_k`'s order,
+    which a stable descending sort gives and `torch.topk` does not promise
+    on the card."""
+    vals, idxs = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idxs[..., :k]
+
+
+def weighted_rows_sum(rows: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """sum_k w[t, k] * rows[idx[t, k]] for rows [R, D], idx and w [T, K]:
+    [T, D] in fp32, each token's terms summed in its own k order."""
+    return (w[..., None] * rows[idx].to(torch.float32)).sum(1)
+
+
 def moe_capacity(tokens: int, top_k: int, experts: int, capacity_factor: float) -> int:
     """Slots an expert holds for ``tokens`` tokens: ceil(tokens * top_k /
     experts * capacity_factor), at least 1, a Python int from the shapes."""
@@ -166,14 +181,12 @@ def moe_dispatch(router_probs: torch.Tensor, top_k: int,
       combine  [T, E, C] fp32: the routing weight at that slot
 
     The top-k of each token, equal probabilities taken lower expert first
-    (`jax.lax.top_k`'s order; a stable descending sort gives it, where
-    `torch.topk` promises no order), the kept weights renormalized by
+    (`stable_topk`), the kept weights renormalized by
     max(sum, 1e-9); each (token, k) assignment's place in its expert's queue
     by a cumsum over the token-major flattened assignments; assignments past
     ``capacity`` are dropped."""
     t, e = router_probs.shape
-    vals, idxs = torch.sort(router_probs, dim=-1, descending=True, stable=True)
-    vals, idxs = vals[:, :top_k], idxs[:, :top_k]  # [T, K]
+    vals, idxs = stable_topk(router_probs, top_k)  # [T, K]
     vals = vals / torch.clamp(vals.sum(-1, keepdim=True), min=1e-9)
 
     experts = torch.arange(e, device=router_probs.device)
@@ -210,9 +223,8 @@ def combine_experts(combine: torch.Tensor, expert_out: torch.Tensor,
     token's slots lie in its k order (on the card, a request's ids then
     depended on the requests batched beside it)."""
     t, e, c = combine.shape
-    w, slot = torch.sort(combine.reshape(t, e * c), dim=-1, descending=True, stable=True)
-    y = expert_out.reshape(e * c, -1)[slot[:, :top_k]].to(torch.float32)  # [T, K, D]
-    return (w[:, :top_k, None] * y).sum(1)
+    w, slot = stable_topk(combine.reshape(t, e * c), top_k)
+    return weighted_rows_sum(expert_out.reshape(e * c, -1), slot, w)
 
 
 def route_tokens(router, xf: torch.Tensor, top_k: int,

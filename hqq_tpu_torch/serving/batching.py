@@ -47,7 +47,8 @@ from ..nn.multilora import adapter_context, adapter_count
 from ..utils.profiling import log_event
 from .generate import next_power_of_2, sample_token, sample_token_batch
 
-__all__ = ["Request", "ContinuousBatchingEngine", "check_family", "family_name"]
+__all__ = ["Request", "ContinuousBatchingEngine", "check_family", "family_name",
+           "refuse_own_cache"]
 
 
 @dataclasses.dataclass
@@ -117,6 +118,19 @@ def check_family(cfg, max_len: int, quantize_kv: bool) -> None:
                          f"learned positions")
 
 
+def refuse_own_cache(who: str, *cfgs) -> None:
+    """A ValueError, before anything is built, where a config's family
+    keeps a dense cache of its own (`models.llama.cache_for`: DeepSeek-V3's
+    MLA cache, whose K and V rows differ in width): ``who`` (the paged
+    engine, the speculative paths) holds Llama's K/V layout only. Such a
+    family is served by `ContinuousBatchingEngine` and `Generator`."""
+    for cfg in cfgs:
+        if llama.cache_for(cfg) is not llama.init_cache:
+            raise ValueError(f"{who}: the {family_name(cfg)} family keeps a dense cache of its "
+                             f"own, which {who} does not hold; serve it with the dense engine "
+                             f"(ContinuousBatchingEngine) or Generator")
+
+
 def _refuse_embeds_forward(embeds_forward_fn) -> None:
     if embeds_forward_fn is not None:
         raise NotImplementedError("embeds_forward_fn (vision-language serving) is not ported "
@@ -174,7 +188,8 @@ class ContinuousBatchingEngine:
         horizon: that many decode steps per `step()` with no read-back
         between them; the same tokens as single steps.
 
-        quantize_kv: int8 pools with per-row scales (`llama.init_cache`);
+        quantize_kv: int8 pools with per-row scales (`llama.init_cache`; the
+        cache is the family's, `llama.cache_for`);
         refused with a ValueError for a family whose forward reads float
         pools only, as is a ``max_len`` past GPT-2's learned positions
         (`check_family`).
@@ -199,7 +214,8 @@ class ContinuousBatchingEngine:
             lambda p, toks, cache, pos: llama.forward(p, cfg, toks, cache, pos))
         self.quantize_kv = bool(quantize_kv)
         self._cache_dtype = cache_dtype  # the prefill mini cache stays float
-        self.cache = llama.init_cache(cfg, batch_slots, max_len, cache_dtype, self.device,
+        self._init_cache = llama.cache_for(cfg)  # the family's own (DeepSeek-V3: MLA)
+        self.cache = self._init_cache(cfg, batch_slots, max_len, cache_dtype, self.device,
                                       quantize_kv=self.quantize_kv)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
 
@@ -308,7 +324,7 @@ class ContinuousBatchingEngine:
             req, self.do_sample, self.top_k, self.temperature, self.top_p)
         self._samp[:, slot] = (1.0 if ds else 0.0, tk, tmp, tp)
         self._adapter[slot] = req.adapter_id
-        mini = llama.init_cache(self.cfg, 1, t_pad, self._cache_dtype, self.device)
+        mini = self._init_cache(self.cfg, 1, t_pad, self._cache_dtype, self.device)
         with adapter_context(torch.tensor([req.adapter_id], device=self.device)):
             logits, mini = self._fwd(self.params, torch.from_numpy(prompt).to(self.device),
                                      mini, 0)

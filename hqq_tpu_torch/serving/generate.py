@@ -237,7 +237,7 @@ class _DecodeState:
     and the graph where one is captured."""
 
     def __init__(self, cfg, b: int, cache_len: int, cache_dtype, device, noise_width: int):
-        self.cache = llama.init_cache(cfg, b, cache_len, cache_dtype, device)
+        self.cache = llama.cache_for(cfg)(cfg, b, cache_len, cache_dtype, device)
         self.tok = torch.zeros((b,), dtype=torch.long, device=device)
         self.pos = torch.zeros((), dtype=torch.long, device=device)
         self.done = torch.zeros((b,), dtype=torch.bool, device=device)

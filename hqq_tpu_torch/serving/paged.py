@@ -38,7 +38,7 @@ from ..nn.multilora import adapter_context
 from ..ops.paged import PagedKVCache, init_paged_cache, paged_attention_ref, quant_rows
 from ..utils.profiling import log_event
 from .batching import (Request, _checked_adapter, _checked_request, _effective_sampling,
-                       _refuse_embeds_forward, _refuse_unported)
+                       _refuse_embeds_forward, _refuse_unported, refuse_own_cache)
 from .generate import next_power_of_2, sample_token, sample_token_batch
 
 __all__ = ["PagedKVCache", "PagedBatchingEngine", "paged_attention_ref", "init_paged_cache",
@@ -136,8 +136,10 @@ class PagedBatchingEngine:
         between them; the same tokens as single steps.
 
         embeds_forward_fn (vision-language serving) is refused: requests
-        with ``inputs_embeds`` are not served yet."""
+        with ``inputs_embeds`` are not served yet, and so is a family with
+        a dense cache of its own (DeepSeek-V3, `refuse_own_cache`)."""
         _refuse_embeds_forward(embeds_forward_fn)
+        refuse_own_cache("PagedBatchingEngine", cfg)
         self.params = params
         self.cfg = cfg
         self.device = torch.device(device)

@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from ..models import llama
-from .batching import ContinuousBatchingEngine
+from .batching import ContinuousBatchingEngine, refuse_own_cache
 from .generate import _GraphCache, _to_numpy, capture_graph, next_power_of_2
 from .paged import PagedBatchingEngine
 
@@ -157,6 +157,7 @@ class SpeculativeGenerator:
             raise ValueError(f"compile_mode must be 'full' or 'partial', not {compile_mode!r}")
         if int(k) < 1:
             raise ValueError(f"k must be at least 1, not {k}")
+        refuse_own_cache("SpeculativeGenerator", cfg, draft_cfg or cfg)
         self.pt = target_params
         self.pd = draft_params
         self.cfg = cfg
@@ -427,6 +428,7 @@ class SpeculativeBatchingEngine(_SpeculativeEngine):
         draft_forward_fn: Optional[Callable] = None,
         device="cuda",
     ):
+        refuse_own_cache("SpeculativeBatchingEngine", cfg, draft_cfg or cfg)
         eng = ContinuousBatchingEngine(
             params, cfg, batch_slots=batch_slots, max_len=max_len, eos_token_id=eos_token_id,
             do_sample=False, cache_dtype=cache_dtype, forward_fn=forward_fn, device=device)
@@ -492,6 +494,7 @@ class SpeculativePagedEngine(_SpeculativeEngine):
         device="cuda",
         **paged_kwargs,
     ):
+        refuse_own_cache("SpeculativePagedEngine", cfg, draft_cfg or cfg)
         eng = PagedBatchingEngine(
             params, cfg, batch_slots=batch_slots, num_pages=num_pages, page_size=page_size,
             max_pages_per_seq=max_pages_per_seq, eos_token_id=eos_token_id, do_sample=False,

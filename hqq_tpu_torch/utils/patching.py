@@ -33,7 +33,10 @@ other families read ``qkv_proj`` where it is: Phi-2 too, whose
 LayerNorm families name otherwise (Falcon's and BLOOM's
 ``query_key_value``, GPT-2's ``c_attn``, the plain MLPs) stay as they are,
 as do an MoE block's router and expert stacks (a Qwen3-MoE dense layer's
-MLP joins).
+MLP joins). DeepSeek-V3's MLA projections have no q/k/v to join; its dense
+layers' gate/up join (its forward reads ``gate_up_proj``, where `hqq_tpu`'s
+raises), and the shared experts nested in its MoE blocks stay apart, as in
+`hqq_tpu`.
 """
 
 from __future__ import annotations
