@@ -2,8 +2,10 @@
 """Chip smoke test of hqq_tpu_torch: HQQ Llama-2-7B on one GPU, ten ways, the
 RMSNorm families (Gemma-2-9B through the server), the LayerNorm families
 (Falcon-7B through the server), the MoE families (Mixtral-8x7B through
-the server) and DeepSeek-V3 (Moonlight-16B-A3B through the server,
-DeepSeek-V3's own width at 5 layers).
+the server), DeepSeek-V3 (Moonlight-16B-A3B through the server,
+DeepSeek-V3's own width at 5 layers) and vision-language serving
+(LLaVA-1.5-7B through the server with images, Qwen2-VL-7B through
+`engine/vl` and the M-RoPE dense engine).
 
     python3 chip_smoke.py            # on cuda:0, every phase
     python3 chip_smoke.py --time quant_matmul 512 4096 4096      # one kernel
@@ -20,6 +22,7 @@ DeepSeek-V3's own width at 5 layers).
     python3 chip_smoke.py --windows      # verify-window rows against decode steps' logits
     python3 chip_smoke.py --norm         # the rms_norm and layer_norm kernels, PyTorch's sums
     python3 chip_smoke.py --phase k      # path K alone, after phase b's grouped-kernel rows
+    python3 chip_smoke.py --phase p      # path P alone, after phase b's rows at its shapes
 
 Phases (any failure exits non-zero):
   (a) device and build: the card, its power limit, an nvcc build of every
@@ -247,17 +250,19 @@ Phases (any failure exits non-zero):
       and 1024 rows, and times it at 4, 32 and 1024 rows of 4544 and 4096
       against the byte bound and torch.nn.functional.layer_norm; and the
       w4a8 and quant_matmul kernels at Falcon-7B's shapes.
-  (x) the MoE families: Mixtral-8x7B at full width and depth
-      (mistralai/Mixtral-8x7B-v0.1 from memory: hidden 4096, ffn 14336, 32
-      layers, 32/8 heads, 8 experts, top-2, vocab 32000 untied, rope theta
-      1e6), random bf16 weights from seed 0 drawn and quantized one layer
+  (x) the MoE families: Mixtral-8x7B at full width, 8 of its 32 layers
+      (X_LAYERS: the depth cut so that the whole script stays inside its
+      time with path P; mistralai/Mixtral-8x7B-v0.1 from memory: hidden
+      4096, ffn 14336, 32/8 heads, 8 experts, top-2, vocab 32000 untied,
+      rope theta 1e6), random bf16 weights from seed 0 drawn and quantized one layer
       at a time by quantize_mixtral (4-bit g64; the router in bf16) at
       capacity factor 4.0 (= E / top_k: nothing dropped), save_quantized,
       then `serve.main` on the checkpoint with its defaults (paged, w4a8,
       fused) and G's pool; G's 12 requests from 12 client threads (6
       streamed), ids equal to an in-process PagedBatchingEngine's; a decode
-      step makes 96 grouped_matmul, 32 paged_attention, 65 rms_norm and 64
-      w4a8_matmul launches, a prefill 96 stacked dequant_canonical (every
+      step makes 3, 1, 2 and 2 launches a layer of grouped_matmul,
+      paged_attention, rms_norm (and one more) and w4a8_matmul, a prefill
+      3 stacked dequant_canonical a layer (every
       expert holds more than 32 rows: torch.bmm on the dequantized stack);
       the first and last layer's expert stacks held on the path's own
       activations with their controls; step ms against the byte bound of
@@ -276,18 +281,20 @@ Phases (any failure exits non-zero):
       the dequantized stack, and each stack's one-launch dequant bit-equal
       to E single calls.
   (k) DeepSeek-V3 (MLA, group-limited sigmoid routing, a dense-compute MoE
-      with shared experts): Moonlight-16B-A3B at full width and depth
-      (moonshotai/Moonlight-16B-A3B from memory: hidden 2048, 27 layers,
-      the first dense, 16 heads, q_proj, kv_lora 512, 64 experts top-6 in
+      with shared experts): Moonlight-16B-A3B at full width, 9 of its 27
+      layers (K_MOONLIGHT_LAYERS, cut for the script's time with path P;
+      moonshotai/Moonlight-16B-A3B from memory: hidden 2048, the first
+      dense, 16 heads, q_proj, kv_lora 512, 64 experts top-6 in
       one group, 2 shared, vocab 163840), random bf16 weights from seed 0
       drawn and quantized a layer at a time (4-bit g64; the experts by
       quantize_experts, the router in fp32), save_quantized, then
       `serve.main` with its defaults (w4a8, fused; no paged branch: the
       dense engine of 8 slots) and max_len 2048; G's 12 requests from 12
       client threads, ids equal to an in-process ContinuousBatchingEngine's;
-      a decode step makes 188 w4a8_matmul, 78 grouped_matmul (every expert
-      on every token), 82 rms_norm and no paged_attention launches, a
-      prefill 188 quant_matmul and 78 stacked dequants; the MLA projections
+      a decode step makes 7 w4a8_matmul, 3 grouped_matmul (every expert on
+      every token) a layer, 3 rms_norm a layer (and one more) and no
+      paged_attention launches, a prefill 7 quant_matmul and 3 stacked
+      dequants a layer; the MLA projections
       and expert stacks of the first and last layers held on the path's own
       activations, and the latent's norm over a strided slice bit-equal to
       its twin (control: a wrong stride); step ms against the byte bound,
@@ -301,8 +308,30 @@ Phases (any failure exits non-zero):
       plain path, the (token, layer) expert sets that differ counted and
       left out; the broadcast [E, T, D] copy timed; Generator "partial" and
       "full". Phase b also times grouped_matmul at both models' stacks.
+  (p) vision-language serving: LLaVA-1.5-7B at full width and depth
+      (llava-hf/llava-1.5-7b-hf from memory: Llama-2-7B with vocab 32064,
+      image_token_index 32000; CLIP ViT-L/14-336, 23 of its 24 layers
+      run; the projector 1024 -> 4096 -> 4096), random bf16 weights from
+      seed 0, `HQQVLModel.quantize_model` 4-bit g64 and save_quantized,
+      then `serve.main` with its defaults (paged, w4a8, fused; the tower
+      unprepared, each W dequantized by the canonical kernel) and 12
+      requests from 12 client threads, 8 with an image's pixel_values (576
+      placeholders and 16-64 text tokens) and 4 text-only, 6 streamed: ids
+      equal to the in-process engine's on the embedder's rows; launches a
+      decode step, a prefill and an image; the tower an image on both
+      routes (as served and engine/vl's "pallas", row 1); every kernel call
+      of an image and a text request held to its twin; the prefix cache
+      with two images behind the same ids (no page shared, each its own
+      ids). Then Qwen2-VL-7B at full width and depth (28 text layers, 32
+      tower blocks), 4-bit g64, "w4a8" (the tower on row 1): generate on
+      one 448 x 448 image (1024 patches, 256 merged rows) and its launches;
+      the dense engine with mrope_offsets beside a text request, ids
+      against generate's by the near-tie rule (teacher forcing), the
+      control at offset 0 failing it; every kernel call of a short
+      generate held to its twin. Phase b times layer_norm at 577 x 1024 and
+      1024 x 1280 and quant_matmul at both towers' matmuls.
 Phases g, h, v and m run right after c, on its model, then q and s, then r,
-then l, then x, then k, then d.
+then l, then x, then k, then p, then d.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -1028,8 +1057,6 @@ def phase_b_layer_norm(record, iters: int) -> None:
     1024 rows, where the control (PyTorch's fp32 means) must not be; then
     the timed rows against the byte bound, the twin and
     torch.nn.functional.layer_norm (a yardstick the port never calls)."""
-    import torch.nn.functional as F
-
     from hqq_tpu_torch.ops import norm as nm
 
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -1062,36 +1089,83 @@ def phase_b_layer_norm(record, iters: int) -> None:
         raise AssertionError(f"layer_norm: a control matched the twin: {least}")
 
     for rows, d in LN_ROWS:
-        x = (torch.randn((max(rows, 1024), d), generator=gen, device="cuda") + 1).to(
-            torch.bfloat16)
-        w = (1 + torch.randn(d, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
-        b = (torch.randn(d, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
-        # `_rows_invariant` hands its last argument on: here the bias
-        inv = _rows_invariant(lambda a, w_, e, b_: nm.layer_norm(a, w_, b_, e), x, w, eps, b)
-        ctl = _rows_invariant(_ln_fp32_rows, x, w, eps, b)
-        if inv != 1.0 or not ctl < 1.0:
-            raise AssertionError(f"layer_norm d={d}: rows invariant {inv} (must be 1), the fp32 "
-                                 f"means' control {ctl} (must be < 1)")
-        x = x[:rows]
-        y, ref = nm.layer_norm(x, w, b, eps), nm.layer_norm_plain(x, w, b, eps)
-        torch.cuda.synchronize()
-        err = (y.float() - ref.float()).abs().max().item()
-        if err != 0.0:
-            raise AssertionError(f"layer_norm {rows} x {d}: max |err| {err} against its twin")
-        each = 2 * x.numel() * x.element_size()
-        xs = [x] + [x.clone() for _ in range(max(1, min(64, -(-ROTATE_BYTES // each))) - 1)]
-        ms = time_ms([lambda a=a: nm.layer_norm(a, w, b, eps) for a in xs], iters)
-        plain = time_ms([lambda: nm.layer_norm_plain(x, w, b, eps)], max(3, iters // 10))
-        lib = time_ms([lambda a=a: F.layer_norm(a, (d,), w, b, eps) for a in xs], iters)
-        del xs
-        b_ms, by = bound_ms(each + 2 * d * w.element_size(), 0.0, "bf16",
-                            fp32_ops=8.0 * x.numel())
-        record("layer_norm", dict(
-            kernel="layer_norm", m=rows, k=d, n=d, max_abs_err=err, ms=ms, plain_ms=plain,
-            bound_ms=b_ms, bound_by=by, library_ms=lib, note="bf16, bias",
-            library="torch.nn.functional.layer_norm", rows_invariant=inv,
-            control_fp32_mean_invariant=ctl, plan=str(nm.norm_launch_plan(d, torch.bfloat16)),
-            shape=dict(rows=rows, d=d, dtype="bf16", bias=True)))
+        _ln_row(record, gen, rows, d, iters, eps)
+
+
+def _ln_row(record, gen, rows: int, d: int, iters: int, eps: float = 1e-5) -> dict:
+    """layer_norm over ``rows`` bf16 rows of ``d`` with a bias: each row
+    normed alone bit-equal to the same row in calls of 4, 32 and 1024 rows
+    (PyTorch's fp32 means the control that must not be), bit-equal to its
+    twin, timed against the byte bound, the twin and F.layer_norm;
+    recorded and returned."""
+    import torch.nn.functional as F
+
+    from hqq_tpu_torch.ops import norm as nm
+
+    x = (torch.randn((max(rows, 1024), d), generator=gen, device="cuda") + 1).to(
+        torch.bfloat16)
+    w = (1 + torch.randn(d, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+    b = (torch.randn(d, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+    # `_rows_invariant` hands its last argument on: here the bias
+    inv = _rows_invariant(lambda a, w_, e, b_: nm.layer_norm(a, w_, b_, e), x, w, eps, b)
+    ctl = _rows_invariant(_ln_fp32_rows, x, w, eps, b)
+    if inv != 1.0 or not ctl < 1.0:
+        raise AssertionError(f"layer_norm d={d}: rows invariant {inv} (must be 1), the fp32 "
+                             f"means' control {ctl} (must be < 1)")
+    x = x[:rows]
+    y, ref = nm.layer_norm(x, w, b, eps), nm.layer_norm_plain(x, w, b, eps)
+    torch.cuda.synchronize()
+    err = (y.float() - ref.float()).abs().max().item()
+    if err != 0.0:
+        raise AssertionError(f"layer_norm {rows} x {d}: max |err| {err} against its twin")
+    each = 2 * x.numel() * x.element_size()
+    xs = [x] + [x.clone() for _ in range(max(1, min(64, -(-ROTATE_BYTES // each))) - 1)]
+    ms = time_ms([lambda a=a: nm.layer_norm(a, w, b, eps) for a in xs], iters)
+    plain = time_ms([lambda: nm.layer_norm_plain(x, w, b, eps)], max(3, iters // 10))
+    lib = time_ms([lambda a=a: F.layer_norm(a, (d,), w, b, eps) for a in xs], iters)
+    del xs
+    b_ms, by = bound_ms(each + 2 * d * w.element_size(), 0.0, "bf16",
+                        fp32_ops=8.0 * x.numel())
+    row = dict(
+        kernel="layer_norm", m=rows, k=d, n=d, max_abs_err=err, ms=ms, plain_ms=plain,
+        bound_ms=b_ms, bound_by=by, library_ms=lib, note="bf16, bias",
+        library="torch.nn.functional.layer_norm", rows_invariant=inv,
+        control_fp32_mean_invariant=ctl, plan=str(nm.norm_launch_plan(d, torch.bfloat16)),
+        shape=dict(rows=rows, d=d, dtype="bf16", bias=True))
+    record("layer_norm", row)
+    return row
+
+
+def _qmm_row(record, gen, m: int, k: int, n: int, iters: int, g: int = 64,
+             note: str = "") -> dict:
+    """quant_matmul at (M, K, N), 4-bit g64 fp32 meta: within 2^-7 of
+    max|y| of its plain twin, its time against the bound, the twin and
+    torch.matmul on the dequantized bf16 W; recorded and returned."""
+    from hqq_tpu_torch.ops import fused_matmul as fm
+
+    kqt = _make_kqt(n, k, g, 4, seed=k * 3 + n)
+    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    y = fm.quant_matmul(x, kqt).float()
+    ref = fm.quant_matmul_plain(x, kqt).float()
+    torch.cuda.synchronize()
+    err = (y - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    # identical bf16 operands and exact products; fp32 sums in another
+    # order, then one bf16 rounding of the output (2^-7 of its magnitude)
+    if not (err <= 2.0**-7 * scale) or not torch.isfinite(y).all():
+        raise AssertionError(f"quant_matmul M={m} K={k} N={n}: err {err} > 2^-7 * {scale}")
+    wbytes = kqt.wq.numel() + 8 * kqt.scale.numel()
+    kq, xq = _copies(kqt, x, wbytes)
+    ms = time_ms([lambda a=a, b=b: fm.quant_matmul(b, a) for a, b in zip(kq, xq)], iters)
+    plain = time_ms([lambda: fm.quant_matmul_plain(x, kqt)], max(3, iters // 10))
+    w_bf16 = fm.dequant_plain(kqt, torch.bfloat16)
+    lib = time_ms([lambda: torch.matmul(x, w_bf16.t())], iters)
+    del w_bf16, kq, xq
+    b_ms, by = bound_ms(wbytes + 2 * m * k + 2 * m * n, 2.0 * m * n * k, "bf16")
+    row = dict(kernel="quant_matmul", m=m, k=k, n=n, max_abs_err=err, ms=ms, plain_ms=plain,
+               bound_ms=b_ms, bound_by=by, library_ms=lib, note=note)
+    record("quant_matmul", row)
+    return row
 
 
 def phase_b() -> dict:
@@ -1146,28 +1220,7 @@ def phase_b() -> dict:
     qmm_shapes = [(4096, 4096), (4096, 11008), (11008, 4096)]
     for (m, k, n) in [(m, k, n) for m in (512, 1023) for (k, n) in qmm_shapes] + [(4, 4096, 4096)] \
             + [(512, 4096, n) for n in FUSED_WIDTHS] + R_PREFILL_SHAPES + L_PREFILL_SHAPES:
-        kqt = _make_kqt(n, k, g, 4, seed=k * 3 + n)
-        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
-        y = fm.quant_matmul(x, kqt).float()
-        ref = fm.quant_matmul_plain(x, kqt).float()
-        torch.cuda.synchronize()
-        err = (y - ref).abs().max().item()
-        scale = ref.abs().max().item()
-        # identical bf16 operands and exact products; fp32 sums in another
-        # order, then one bf16 rounding of the output (2^-7 of its magnitude)
-        if not (err <= 2.0**-7 * scale) or not torch.isfinite(y).all():
-            raise AssertionError(f"quant_matmul M={m} K={k} N={n}: err {err} > 2^-7 * {scale}")
-        wbytes = kqt.wq.numel() + 8 * kqt.scale.numel()
-        kq, xq = _copies(kqt, x, wbytes)
-        ms = time_ms([lambda a=a, b=b: fm.quant_matmul(b, a) for a, b in zip(kq, xq)], iters)
-        plain = time_ms([lambda: fm.quant_matmul_plain(x, kqt)], max(3, iters // 10))
-        w_bf16 = fm.dequant_plain(kqt, torch.bfloat16)
-        lib = time_ms([lambda: torch.matmul(x, w_bf16.t())], iters)
-        del w_bf16, kq, xq
-        b_ms, by = bound_ms(wbytes + 2 * m * k + 2 * m * n, 2.0 * m * n * k, "bf16")
-        record("quant_matmul", dict(kernel="quant_matmul", m=m, k=k, n=n, max_abs_err=err,
-                                    ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by,
-                                    library_ms=lib, note=""))
+        _qmm_row(record, gen, m, k, n, iters)
 
     def held(name, y, ref, tol_rel, what):
         """Largest error of ``y`` against ``ref``, held to tol_rel * max|ref|."""
@@ -1275,6 +1328,7 @@ def phase_b() -> dict:
     phase_b_attention(record, held, iters)
     phase_b_norm(record, iters)
     phase_b_layer_norm(record, iters)
+    phase_b_p(record, iters)
     phase_b_bf16_meta(record, held, iters)
     phase_b_fp32(record, held, iters)
     phase_b_backward(record, held, iters)
@@ -2484,15 +2538,18 @@ def _http(port: int, method: str, path: str, obj=None):
     return resp.status, json.loads(resp.read())
 
 
-def _s_request(port: int, prompt, new: int, stream: bool, t0: float, on_first=None) -> dict:
+def _s_request(port: int, prompt, new: int, stream: bool, t0: float, on_first=None,
+               extra=None) -> dict:
     """One greedy /generate, blocking or streamed (server-sent events).
     Returns its uid, ids, streamed chunks, and the client's seconds from
     ``t0`` to its first token (a blocking request gets all of its tokens
     with the response) and to its end; ``on_first(event)`` runs when a
-    stream's first chunk arrives."""
+    stream's first chunk arrives. ``extra`` joins the body (an image's
+    "pixel_values")."""
     import http.client
 
-    body = {"prompt_ids": [int(t) for t in prompt], "max_new_tokens": new, "stream": stream}
+    body = {"prompt_ids": [int(t) for t in prompt], "max_new_tokens": new, "stream": stream,
+            **(extra or {})}
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     conn.request("POST", "/generate", json.dumps(body), {"Content-Type": "application/json"})
     resp = conn.getresponse()
@@ -2523,17 +2580,19 @@ def _s_request(port: int, prompt, new: int, stream: bool, t0: float, on_first=No
                 done_s=time.time() - t0)
 
 
-def _s_window(port: int, prompts, new: int):
+def _s_window(port: int, prompts, new: int, extras=None):
     """Every prompt from its own client thread, all sent at once, the odd
-    ones streamed. Returns (the results in prompt order, seconds from the
-    first send to the last end)."""
+    ones streamed; ``extras[i]`` joins request i's body. Returns (the
+    results in prompt order, seconds from the first send to the last
+    end)."""
     import threading
 
     results, errors = [None] * len(prompts), []
 
     def call(i):
         try:
-            results[i] = _s_request(port, prompts[i], new, i % 2 == 1, t0)
+            results[i] = _s_request(port, prompts[i], new, i % 2 == 1, t0,
+                                    extra=None if extras is None else extras[i])
         except Exception as e:  # re-raised below, in the main thread
             errors.append(e)
 
@@ -3760,11 +3819,13 @@ def phase_l(dev_tag: str) -> list:
 
 
 X_CAPACITY = 4.0  # Mixtral's E / top_k: no assignment is dropped, a request's ids are its own
+X_LAYERS = 8  # of Mixtral-8x7B's 32: the depth cut for the script's time (path P came in)
 
 
 def _x_mixtral_8x7b(dev_tag: str) -> list:
-    """Mixtral-8x7B at full width and depth (mistralai/Mixtral-8x7B-v0.1,
-    from memory: hidden 4096, ffn 14336, 32 layers, 32/8 heads, 8 experts,
+    """Mixtral-8x7B at full width, X_LAYERS of its 32 layers
+    (mistralai/Mixtral-8x7B-v0.1, from memory: hidden 4096, ffn 14336,
+    32/8 heads, 8 experts,
     top-2, vocab 32000 untied, rope theta 1e6, no window): random bf16
     weights from seed 0 drawn and quantized one layer at a time (the bf16
     model, 93 GB, does not fit the card) by `quantize_mixtral` (attention
@@ -3782,7 +3843,8 @@ def _x_mixtral_8x7b(dev_tag: str) -> list:
     from hqq_tpu_torch.models import mixtral
     from hqq_tpu_torch.serve import main as serve_main
 
-    cfg = dataclasses.replace(mixtral.MixtralConfig.mixtral_8x7b(), capacity_factor=X_CAPACITY)
+    cfg = dataclasses.replace(mixtral.MixtralConfig.mixtral_8x7b(), capacity_factor=X_CAPACITY,
+                              num_hidden_layers=X_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3811,7 +3873,7 @@ def _x_mixtral_8x7b(dev_tag: str) -> list:
         del params, layer
         gc.collect()
         torch.cuda.empty_cache()
-        log(f"[x] {dev_tag} Mixtral-8x7B (32 layers): init {init_s:.1f} s, quantize_mixtral "
+        log(f"[x] {dev_tag} Mixtral-8x7B ({cfg.num_hidden_layers} of 32 layers): init {init_s:.1f} s, quantize_mixtral "
             f"(4-bit g64: 4 attention linears and 3 stacks of 8 experts a layer; the router in "
             f"bf16), layer by layer, {quant_s:.2f} s, save_quantized {gb:.3f} GB in {save_s:.2f} "
             f"s, peak {build_peak:.2f} GiB")
@@ -4230,6 +4292,9 @@ K_MOONLIGHT = dict(
     routed_scaling_factor=2.446, first_k_dense_replace=1, q_lora_rank=None, kv_lora_rank=512,
     qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128, rms_norm_eps=1e-5,
     rope_theta=50000.0, rope_scaling=None, max_position_embeddings=8192)
+# of Moonlight's 27 layers (the first dense, then 8 MoE): the depth cut for
+# the script's time (path P came in)
+K_MOONLIGHT_LAYERS = 9
 # deepseek-ai/DeepSeek-V3's config.json: the published widths are the
 # dataclass's defaults (hidden 7168, 128 heads, q_lora 1536, 256 experts in
 # 8 groups, top-8 of the best 4 groups, 1 shared); its YaRN block; cut to
@@ -4331,7 +4396,8 @@ def _k_broadcast_ms(shapes) -> dict:
 
 
 def _k_moonlight(dev_tag: str) -> list:
-    """Moonlight-16B-A3B at full width and depth (`K_MOONLIGHT`): random
+    """Moonlight-16B-A3B at full width, K_MOONLIGHT_LAYERS of its 27
+    layers (`K_MOONLIGHT`): random
     bf16 weights from seed 0 drawn and quantized a layer at a time (4-bit
     g64 axis=1: `quantize_model` for the linears, `nn.moe.quantize_experts`
     for the routed stacks, the router in fp32), save_quantized;
@@ -4351,7 +4417,7 @@ def _k_moonlight(dev_tag: str) -> list:
     from hqq_tpu_torch.nn.moe import quantize_experts
     from hqq_tpu_torch.serve import main as serve_main
 
-    cfg = deepseek3.DeepseekV3Config(**K_MOONLIGHT)
+    cfg = deepseek3.DeepseekV3Config(**dict(K_MOONLIGHT, num_hidden_layers=K_MOONLIGHT_LAYERS))
     qc = BaseQuantizeConfig(nbits=4, group_size=64)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4383,7 +4449,7 @@ def _k_moonlight(dev_tag: str) -> list:
         del params
         gc.collect()
         torch.cuda.empty_cache()
-        log(f"[k] {dev_tag} Moonlight-16B-A3B ({cfg.num_hidden_layers} layers): init "
+        log(f"[k] {dev_tag} Moonlight-16B-A3B ({cfg.num_hidden_layers} of 27 layers): init "
             f"{init_s:.1f} s, quantize (4-bit g64: every linear but lm_head, 3 stacks of "
             f"{cfg.n_routed_experts} experts in each of "
             f"{cfg.num_hidden_layers - cfg.first_k_dense_replace} MoE layers; the router in "
@@ -4960,6 +5026,631 @@ def phase_k(dev_tag: str) -> list:
     windows += _k_deepseek_v3(dev_tag)
     log(f"[k] phase k: {time.time() - t0:.1f} s (Moonlight {t1 - t0:.1f} s, DeepSeek-V3 "
         f"{time.time() - t1:.1f} s)")
+    return windows
+
+
+# ---------------------------------------------------------------------------
+# path P: vision-language serving
+# ---------------------------------------------------------------------------
+
+# llava-hf/llava-1.5-7b-hf (from memory): Llama-2-7B's text model with the
+# vocabulary grown to 32064, image_token_index 32000; the CLIP ViT-L/14-336
+# tower (hidden 1024, 24 layers, 16 heads, ffn 4096, image 336, patch 14,
+# quick_gelu: `llava.ClipVisionConfig`'s defaults), the projector 1024 ->
+# 4096 -> 4096, vision_feature_layer -2 (23 of 24 layers run), CLS dropped
+P_LLAVA_VOCAB = 32064
+# P's requests: 8 with one image, 4 text-only (at 2, 5, 8 and 11: the odd
+# ones, streamed, hold both kinds), 32 new tokens each
+P_TEXT_ONLY_AT, P_NEW = (2, 5, 8, 11), 32
+# Qwen/Qwen2-VL-7B-Instruct (from memory): text hidden 3584, 28 layers,
+# 28/4 heads, ffn 18944, vocab 152064, rope theta 1e6, q/k/v bias, RMSNorm
+# eps 1e-6, an untied head, mrope_section (16, 24, 24); the tower is
+# `qwen2_vl.VisionConfig`'s defaults (depth 32, embed 1280, 16 heads, mlp
+# ratio 4, patch 14, temporal 2, merge 2, into 3584)
+P_QWEN_TEXT = dict(vocab_size=152064, hidden_size=3584, intermediate_size=18944,
+                   num_hidden_layers=28, num_attention_heads=28, num_key_value_heads=4,
+                   max_position_embeddings=32768, rms_norm_eps=1e-6, rope_theta=1e6,
+                   attention_bias=True)
+P_QWEN_VISION_END = 151653
+# one 448 x 448 image: 32 x 32 patches of 14, 1024 rows, 256 merged tokens
+P_QWEN_GRID = ((1, 32, 32),)
+P_QWEN_NEW = 16
+# the towers' matmuls (M, K, N) on engine/vl's "pallas" route: CLIP's
+# q/k/v/o, fc1 and fc2 at 577 rows; Qwen2-VL's attn_qkv, attn_proj, fc1
+# and fc2 at 1024 (K = 1280: 20 groups of 64)
+P_TOWER_SHAPES = [(577, 1024, 1024), (577, 1024, 4096), (577, 4096, 1024),
+                  (1024, 1280, 3840), (1024, 1280, 1280), (1024, 1280, 5120),
+                  (1024, 5120, 1280)]
+P_LN_ROWS = [(577, 1024), (1024, 1280)]
+P_LLAVA_LINEARS = {"qkv_proj": "self_attn", "o_proj": "self_attn", "gate_up_proj": "mlp",
+                   "down_proj": "mlp"}
+P_QWEN_LINEARS = {"q_proj": "self_attn", "k_proj": "self_attn", "v_proj": "self_attn",
+                  "o_proj": "self_attn", "gate_proj": "mlp", "up_proj": "mlp",
+                  "down_proj": "mlp"}
+# the first decode step's logits through the M-RoPE serving forward against
+# Generate's route at one row: the same kernels on the same inputs (bar),
+# and the control (offset 0, plain RoPE from the cache length) past 10x it
+P_MROPE_BAR = 1e-3
+
+
+def phase_b_p(record, iters: int) -> None:
+    """Path P's new shapes: layer_norm over a CLIP image's 577 rows of 1024
+    and a Qwen2-VL image's 1024 of 1280, and quant_matmul (row 1) at the
+    towers' matmuls on the "pallas" route, each beside torch.matmul."""
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    for rows, d in P_LN_ROWS:
+        _ln_row(record, gen, rows, d, iters, 1e-6 if d == 1280 else 1e-5)
+    for m, k, n in P_TOWER_SHAPES:
+        row = _qmm_row(record, gen, m, k, n, iters, note="a vision tower's matmul")
+        log(f"[b] quant_matmul M={m} K={k} N={n}, a vision tower's: {row['ms']:.4f} ms, "
+            f"{row['ms'] / row['library_ms']:.2f}x torch.matmul ({row['library_ms']:.4f} ms on "
+            f"the dequantized bf16 W), {row['bound_ms'] / row['ms']:.2f} of its bound")
+
+
+def _p_requests(cfg, rng):
+    """P's 12 prompts and their images: an image request is BOS, 4-16 text
+    tokens, the 576 placeholders, then text up to 16-64 tokens in all, its
+    pixels [1, 3, 336, 336] multiples of 2^-8 in [-2, 2) (short in JSON);
+    a text-only request 40-64 tokens (a prefill of 64 rows, past w4a8's
+    32). Every text id lies below the placeholder's."""
+    import numpy as np
+
+    vc = cfg.vision
+    prompts, pixels = [], []
+    for i in range(12):
+        if i in P_TEXT_ONLY_AT:
+            prompts.append([1] + rng.integers(2, cfg.image_token_index, int(rng.integers(39, 64)))
+                           .tolist())
+            pixels.append(None)
+            continue
+        n = int(rng.integers(16, 65))
+        a = int(rng.integers(4, 17))
+        prompts.append([1] + rng.integers(2, cfg.image_token_index, a).tolist()
+                       + [cfg.image_token_index] * vc.num_patches
+                       + rng.integers(2, cfg.image_token_index, n - a).tolist())
+        pixels.append((rng.integers(-512, 512, (1, vc.num_channels, vc.image_size,
+                                               vc.image_size)) / 256).astype(np.float32))
+    return prompts, pixels
+
+
+def _p_qmm_checks(tag: str, layers: dict, captured: dict) -> float:
+    """quant_matmul (row 1) on the path's own inputs (``captured``: key ->
+    x's; ``layers``: key -> the kernel-layout module): within 2^-7 of its
+    twin, each control (`_w4a8_controls`) past it. Returns the largest
+    relative error."""
+    from hqq_tpu_torch.ops import fused_matmul as fm
+
+    tol, worst = 2.0**-7, 0.0
+    for key, xs in sorted(captured.items()):
+        kqt = layers[key].kqt
+        x = xs[0].reshape(-1, kqt.k)
+        ref = fm.quant_matmul_plain(x, kqt)
+        err = rel(fm.quant_matmul(x, kqt), ref)
+        controls = {c: rel(fm.quant_matmul_plain(x, bad), ref)
+                    for c, bad in _w4a8_controls(kqt).items()}
+        if not err <= tol or not all(v > tol for v in controls.values()):
+            raise AssertionError(f"[{tag}] {key} (M={x.shape[0]} K={kqt.k} N={kqt.n}): "
+                                 f"quant_matmul rel err {err:.3e}, controls {controls}")
+        worst = max(worst, err)
+    return worst
+
+
+def _p_norm_patches(norm_log: dict, ln_log: dict):
+    """Both norm wrappers held on the spot to their twins (mock patches of
+    `ops.norm`), with a control each: the offset toggled, mu left out (the
+    towers' random LayerNorm biases are zero: dropping them changes
+    nothing)."""
+    from unittest import mock
+
+    from hqq_tpu_torch.ops import norm as nm
+
+    return (mock.patch.object(nm, "rms_norm", checked(nm.rms_norm, nm.rms_norm_plain,
+                                                      {"offset toggled": _offset_toggled},
+                                                      norm_log)),
+            mock.patch.object(nm, "layer_norm", checked(nm.layer_norm, nm.layer_norm_plain,
+                                                        {"mu left out": _ln_no_mean}, ln_log)))
+
+
+def _p_bit_equal(tag: str, what: str, found: dict) -> str:
+    """A norm's calls must be bit-equal to their twin, and each control
+    must part from it."""
+    worst = max(found["kernel"])
+    least = {c: min(v) for c, v in found.items() if c != "kernel"}
+    if worst != 0.0 or not all(v > 0 for v in least.values()):
+        raise AssertionError(f"[{tag}] {what}: {len(found['kernel'])} calls, largest rel err "
+                             f"{worst} (must be 0), controls {least}")
+    return f"{what} {len(found['kernel'])} calls bit-equal, controls at the least {least}"
+
+
+def _p_llava(dev_tag: str) -> list:
+    """LLaVA-1.5-7B at full width and depth, 32 + 24 layers: random bf16
+    weights from seed 0, `HQQVLModel.quantize_model` (4-bit g64; the patch
+    projection and the projector stay bf16), save_quantized; `serve.main`
+    on the checkpoint with its defaults (paged, w4a8, fused; the tower
+    unprepared); P's 12 requests from 12 client threads. Returns the
+    server's launch window."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from hqq_tpu_torch import BaseQuantizeConfig
+    from hqq_tpu_torch.engine.vl import HQQVLModel
+    from hqq_tpu_torch.models import llava
+    from hqq_tpu_torch.models.llama import LlamaConfig
+    from hqq_tpu_torch.serve import main as serve_main
+
+    cfg = llava.LlavaConfig(text=dataclasses.replace(LlamaConfig.llama2_7b(),
+                                                     vocab_size=P_LLAVA_VOCAB))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = llava.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                               torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    model = HQQVLModel({"text": params.pop("text"), "vision": params}, cfg, "llava")
+    del params
+    t0 = time.time()
+    model.quantize_model(BaseQuantizeConfig(nbits=4, group_size=64))
+    torch.cuda.synchronize()
+    quant_s = time.time() - t0
+    build_peak = torch.cuda.max_memory_allocated() / 2**30
+    root = tempfile.mkdtemp(prefix="hqq-llava-")
+    try:
+        t0 = time.time()
+        model.save_quantized(root)
+        save_s = time.time() - t0
+        gb = sum(os.path.getsize(os.path.join(root, f)) for f in os.listdir(root)) / 1e9
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[p] {dev_tag} LLaVA-1.5-7B ({cfg.text.num_hidden_layers} text layers, "
+            f"{cfg.vision.num_hidden_layers} CLIP layers of which {cfg.tower_layers} run): init "
+            f"{init_s:.1f} s, quantize_model (4-bit g64, both towers; patch_proj and the "
+            f"projector bf16) {quant_s:.2f} s, save_quantized {gb:.3f} GB in {save_s:.2f} s, peak "
+            f"{build_peak:.2f} GiB")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        srv = serve_main(["--model", root, "--port", "0"], serve=False).start()
+        return _p_served(dev_tag, cfg, srv, time.time() - t0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _p_served(dev_tag: str, cfg, srv, boot_s: float) -> list:
+    """The rest of `_p_llava`, on the started server: the window and its
+    launches (a decode step, a prefill, an image), the in-process engine on
+    the embedder's rows, the tower's ms an image on both routes, every
+    kernel call of an image request and a text request held to its twin,
+    the prefix cache's two images, a steady window's busy share."""
+    from unittest import mock
+
+    import numpy as np
+
+    from hqq_tpu_torch import ops
+    from hqq_tpu_torch.core.quantize import dequantize_plain
+    from hqq_tpu_torch.models import llava
+    from hqq_tpu_torch.ops import fused_matmul as fm
+    from hqq_tpu_torch.ops import paged as pa
+    from hqq_tpu_torch.serving.paged import PagedBatchingEngine
+    from hqq_tpu_torch.utils.patching import prepare_for_inference
+
+    eng, embedder = srv.engine, srv.embedder
+    text, vt = eng.params, embedder.vision_tree
+    layers, tower = cfg.text.num_hidden_layers, cfg.tower_layers
+    prompts, pixels = _p_requests(cfg, np.random.default_rng(0))
+    extras = [None if px is None else {"pixel_values": px.tolist()} for px in pixels]
+    n_img = sum(px is not None for px in pixels)
+    steps, decode = [], eng._decode
+
+    def counted(h):
+        steps.append(h)
+        return decode(h)
+
+    eng._decode = counted
+    try:
+        if not isinstance(eng, PagedBatchingEngine) or eng.s != G_SLOTS:
+            raise AssertionError(f"[p] the server runs {type(eng).__name__} of {eng.s} slots, not "
+                                 f"the paged engine of {G_SLOTS}")
+        t_warm = time.time()
+        _s_request(srv.port, prompts[0], 4, False, t_warm, extra=extras[0])
+        _s_request(srv.port, prompts[P_TEXT_ONLY_AT[0]], 4, False, t_warm)
+        warm_s = time.time() - t_warm
+        # the main path's window: every count from 0, read right after
+        ops.reset_launch_counts()
+        steps.clear()
+        results, window_s = _s_window(srv.port, prompts, P_NEW, extras)
+        launches = launch_counts()
+        n_steps = sum(steps)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        srv.stop()
+    del srv
+    step = {"w4a8_matmul": 4 * layers, "rms_norm": 2 * layers + 1, "paged_attention": layers}
+    prefill = {"quant_matmul": 4 * layers, "rms_norm": 2 * layers + 1}
+    image = {"dequant_canonical": 6 * tower, "layer_norm": 2 * tower + 1}
+    names = {*step, *prefill, *image}
+    expect = {k: step.get(k, 0) * n_steps + prefill.get(k, 0) * len(prompts)
+              + image.get(k, 0) * n_img for k in names}
+    log(f"[p] launches in the server's window ({n_steps} decode steps, {len(prompts)} prefills, "
+        f"{n_img} images): { {k: v for k, v in launches.items() if v} }; a decode step: {step}; "
+        f"a prefill (M = 64 or 1024 rows): {prefill}; an image through the unprepared tower: "
+        f"{image}")
+    for name in set(launches) | names:
+        if launches.get(name, 0) != expect.get(name, 0):
+            raise AssertionError(f"[p] {launches.get(name, 0)} {name} launches in the window, "
+                                 f"expected {expect.get(name, 0)}")
+
+    # the same requests in-process, on the embedder's rows, decode timed
+    def engine(**kw):
+        return PagedBatchingEngine(text, cfg.text, batch_slots=G_SLOTS, num_pages=512,
+                                   page_size=PAGE, max_pages_per_seq=MAX_PAGES,
+                                   horizon=S_HORIZON, **kw)
+
+    embeds = [None if px is None else embedder(p, {"pixel_values": px})
+              for p, px in zip(prompts, pixels)]
+    ref = engine()
+    recs, ref_decode = [], ref._decode
+
+    def timed(h):
+        live = len(ref.active)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = ref_decode(h)  # ends in a read-back of the tokens
+        recs.append(dict(steps=h, live=live, ms=(time.time() - t0) * 1e3,
+                         rows=float(np.mean(ref._pos))))
+        return out
+
+    ref._decode = timed
+    torch.cuda.synchronize()
+    t0 = time.time()
+    uids = [ref.add_request(p, max_new_tokens=P_NEW, inputs_embeds=e)
+            for p, e in zip(prompts, embeds)]
+    ref_out = ref.run()
+    torch.cuda.synchronize()
+    inproc_s = time.time() - t0
+    same = [r["tokens"] == ref_out[u] for r, u in zip(results, uids)]
+    decode_s = sum(r["ms"] for r in recs) / 1e3
+    dec_steps = sum(r["steps"] for r in recs)
+    tokens = sum(r["live"] * r["steps"] for r in recs)
+    rows = sum(r["rows"] * r["steps"] for r in recs) / dec_steps
+    # the device's share of a steady window: 8 image requests, 4 engine steps
+    for p, e in [(p, e) for p, e in zip(prompts, embeds) if e is not None][:G_SLOTS]:
+        ref.add_request(p, max_new_tokens=P_NEW, inputs_embeds=e)
+    ref.step()
+    n0 = len(recs)
+    busy = device_share(lambda: [ref.step() for _ in range(4)])
+    busy_steps = sum(r["steps"] for r in recs[n0:])
+    ref.close()
+    del ref
+    kv = G_SLOTS * rows * layers * 2 * cfg.text.num_key_value_heads * cfg.text.head_dim_ * 2
+    weights = _step_weight_bytes(text)
+    bound = (weights + kv) / HBM_BYTES_PER_S * 1e3
+    all_tokens = sum(len(r["tokens"]) for r in results)
+    first = sorted(r["first_s"] for r in results if r["chunks"] is not None)
+    log(f"[p] {dev_tag}: serve.main (defaults: paged, w4a8, fused, {G_SLOTS} slots, 512 pages "
+        f"of {PAGE}, horizon {S_HORIZON}) to a started server {boot_s:.2f} s, warm-up "
+        f"{warm_s:.2f} s; 12 requests ({n_img} with an image: prompts "
+        f"{[len(p) for p in prompts]}, {P_NEW} new, greedy) from 12 client threads, 6 streamed: "
+        f"window {window_s:.3f} s, {all_tokens / window_s:.1f} tok/s at the client; time to "
+        f"first token median {first[len(first) // 2]:.3f} s, max {first[-1]:.3f} s; in-process "
+        f"{inproc_s:.3f} s, {all_tokens / inproc_s:.1f} tok/s, ids equal the server's in "
+        f"{sum(same)} of {len(same)}; decode {tokens / decode_s:.1f} tok/s over all slots, "
+        f"{decode_s / dec_steps * 1e3:.2f} ms a step against a byte bound of {bound:.3f} ms "
+        f"({weights / 1e9:.3f} GB of codes, meta and the bf16 head + {kv / 1e9:.3f} GB of K/V, "
+        f"{rows:.0f} rows on average); the server's peak {peak:.2f} GiB")
+    top = sorted(busy["by_name"].items(), key=lambda kv_: -kv_[1])[:6]
+    log(f"[p] {dev_tag}: {busy_steps} decode steps of 8 image requests (4 engine steps): device "
+        f"busy {busy['busy_share']:.3f} of {busy['wall_ms']:.1f} ms wall, device "
+        f"{busy['device_ms']:.3f} ms ({busy['device_ms'] / max(busy_steps, 1):.3f} a step); by "
+        f"kernel { {k[:90]: round(v, 3) for k, v in top} }")
+    if not all(same):
+        raise AssertionError(f"[p] the server's ids differ from the in-process engine's in "
+                             f"{len(same) - sum(same)} of {len(same)} requests")
+
+    # the tower an image on both routes: as served (each W dequantized by
+    # the canonical kernel, then F.linear) and engine/vl's "pallas" (row 1)
+    px = torch.as_tensor(pixels[0], device="cuda")
+    pallas = prepare_for_inference(containers(vt), "pallas")
+    routes = {}
+    with torch.inference_mode():
+        for route, tree in (("unprepared", vt), ("pallas", pallas)):
+            y = llava.vision_forward(tree, cfg, px)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            llava.vision_forward(tree, cfg, px)
+            counts = {k: v for k, v in launch_counts().items() if v}
+            t0 = time.time()
+            for _ in range(5):
+                llava.vision_forward(tree, cfg, px)
+            torch.cuda.synchronize()
+            host = (time.time() - t0) / 5 * 1e3
+            dev = time_ms([lambda t=tree: llava.vision_forward(t, cfg, px)], 5)
+            routes[route] = dict(y=y, counts=counts, host_ms=host, device_ms=dev)
+    agree = rel(routes["pallas"]["y"], routes["unprepared"]["y"])
+    want = {"unprepared": image, "pallas": {"quant_matmul": 6 * tower,
+                                            "layer_norm": 2 * tower + 1}}
+    log(f"[p] {dev_tag}: the CLIP tower and projector an image (577 rows): "
+        + "; ".join(f"{r}: {v['host_ms']:.2f} ms host, {v['device_ms']:.3f} ms device, launches "
+                    f"{v['counts']}" for r, v in routes.items())
+        + f"; the image rows of the two routes part by {agree:.3e} of max|y| (bf16 roundings "
+          f"in other places over {tower} layers)")
+    for route, v in routes.items():
+        if v["counts"] != want[route]:
+            raise AssertionError(f"[p] the {route} tower launched {v['counts']}, expected "
+                                 f"{want[route]}")
+    if not agree < 0.1:
+        raise AssertionError(f"[p] the pallas tower's rows part from the served ones by {agree}")
+    del routes
+
+    # every kernel call of an image request and a text request (3 new
+    # tokens, 2 of 8 slots live) held to its twin on the path's own inputs
+    lin_x, vis_x, hooks = {}, {}, []
+    for li in (0, layers - 1):
+        for name, sub in P_LLAVA_LINEARS.items():
+            def grab(mod, args, key=(li, name)):
+                lin_x.setdefault(key, []).append(
+                    args[0].detach().reshape(-1, args[0].shape[-1]).clone())
+            hooks.append(text["layers"][li][sub][name].register_forward_pre_hook(grab))
+    for li in (0, tower - 1):
+        for name in ("q_proj", "fc1", "fc2"):
+            def grab_v(mod, args, key=(li, name)):
+                vis_x.setdefault(key, []).append(args[0].detach().clone())
+            hooks.append(vt["vision"]["layers"][li][name].register_forward_pre_hook(grab_v))
+    norm_log, ln_log, paged_log = {}, {}, {}
+    chk = engine()
+    rms_patch, ln_patch = _p_norm_patches(norm_log, ln_log)
+    with rms_patch, ln_patch, mock.patch.object(
+            pa, "paged_attention", checked(pa.paged_attention, _paged_plain, PAGED_CONTROLS,
+                                           paged_log)):
+        emb = embedder(prompts[0], {"pixel_values": pixels[0]})
+        chk.add_request(prompts[0], max_new_tokens=3, inputs_embeds=emb)
+        chk.add_request(prompts[P_TEXT_ONLY_AT[0]], max_new_tokens=3)
+        chk.run()
+    chk.close()
+    for h in hooks:
+        h.remove()
+    by_k = _l_linear_checks(text, lin_x, P_LLAVA_LINEARS, "p")
+    canon = []
+    for (li, name), _ in sorted(vis_x.items()):
+        qt = vt["vision"]["layers"][li][name].qweight
+        w, ref_w = fm.dequant_canonical(qt), dequantize_plain(qt, qt.compute_dtype)
+        if not torch.equal(w, ref_w) or torch.equal(_canonical_control(qt, qt.compute_dtype),
+                                                    ref_w):
+            raise AssertionError(f"[p] CLIP layer {li} {name}: the canonical dequant is not "
+                                 f"bit-equal to its twin, or the control is")
+        canon.append(f"{li}.{name}")
+    tower_err = _p_qmm_checks("p", {k: pallas["vision"]["layers"][k[0]][k[1]] for k in vis_x},
+                              vis_x)
+    worst_paged = max(paged_log["kernel"])
+    least_paged = {c: min(v) for c, v in paged_log.items() if c != "kernel"}
+    log(f"[p] an image request and a text request on the path's own inputs: text linears of "
+        f"layers 0 and {layers - 1}, largest rel err by (route, K) (bar 2^-7): "
+        f"{ {f'{a} K={b}': round(v, 5) for (a, b), v in by_k.items()} }; the canonical dequant "
+        f"of CLIP's {canon} bit-equal to its twin (control c*s - z*s parts); the same layers on "
+        f"the pallas route, quant_matmul rel err up to {tower_err:.3e} (controls past 2^-7); "
+        f"{len(paged_log['kernel'])} paged_attention calls, rel err up to {worst_paged:.3e} "
+        f"(bar {TOL_PAGED_BF16_VS_FP32:.3e}), controls at the least {least_paged}; "
+        f"{_p_bit_equal('p', 'rms_norm', norm_log)}; {_p_bit_equal('p', 'layer_norm', ln_log)}")
+    if not worst_paged <= TOL_PAGED_BF16_VS_FP32 or not all(
+            v > TOL_PAGED_BF16_VS_FP32 for v in least_paged.values()):
+        raise AssertionError(f"[p] paged_attention: {worst_paged}, controls {least_paged}")
+
+    # the prefix cache: two requests with the same ids and different images
+    toks = prompts[0]
+    emb_b = embedder(toks, {"pixel_values": pixels[1]})
+    pc = engine(enable_prefix_cache=True)
+    ua = pc.add_request(toks, max_new_tokens=P_NEW, inputs_embeds=embeds[0])
+    ub = pc.add_request(toks, max_new_tokens=P_NEW, inputs_embeds=emb_b)
+    pc_out = pc.run()
+    hits = pc.prefix_cache_hits
+    pc.close()
+    alone = engine()
+    u_b = alone.add_request(toks, max_new_tokens=P_NEW, inputs_embeds=emb_b)
+    alone_b = alone.run()[u_b]
+    alone.close()
+    alone_a = ref_out[uids[0]]
+    log(f"[p] prefix cache on, the same {len(toks)} ids with two images: ids each its own "
+        f"({pc_out[ua] == alone_a}, {pc_out[ub] == alone_b}; the two differ: "
+        f"{alone_a != alone_b}), prefix_cache_hits {hits}")
+    if pc_out[ua] != alone_a or pc_out[ub] != alone_b or alone_a == alone_b or hits != 0:
+        raise AssertionError("[p] the prefix cache aliased two images, or they did not part")
+    del embeds, emb, emb_b, pallas, text, vt, embedder, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [launches]
+
+
+def _p_qwen2_vl(dev_tag: str) -> list:
+    """Qwen2-VL-7B at full width and depth (28 + 32 layers), random bf16
+    weights from seed 0, 4-bit g64 both towers, prepared with "w4a8" (the
+    tower on row 1): `HQQVLModel.generate` on one 448 x 448 image (its
+    launch window), then the dense engine with ``mrope_offsets``: the image
+    request's ids against generate's by the near-tie rule, a text request
+    beside it, and the control (offset 0) that must fail the rule. Returns
+    generate's launch window."""
+    import numpy as np
+
+    from hqq_tpu_torch import BaseQuantizeConfig, ops
+    from hqq_tpu_torch.engine.vl import HQQVLModel
+    from hqq_tpu_torch.models import llama, qwen2_vl
+    from hqq_tpu_torch.models.llama import LlamaConfig
+    from hqq_tpu_torch.serving.batching import ContinuousBatchingEngine
+
+    cfg = qwen2_vl.Qwen2VLConfig(text=LlamaConfig(**P_QWEN_TEXT), vision=qwen2_vl.VisionConfig())
+    vc, layers = cfg.vision, cfg.text.num_hidden_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = qwen2_vl.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                  torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    model = HQQVLModel(params, cfg, "qwen2_vl")
+    del params
+    t0 = time.time()
+    model.quantize_model(BaseQuantizeConfig(nbits=4, group_size=64))
+    model.prepare_for_inference("w4a8")
+    torch.cuda.synchronize()
+    quant_s = time.time() - t0
+    text = model.params["text"]
+    rng = np.random.default_rng(1)
+    n_img = sum(t * h * w for t, h, w in P_QWEN_GRID) // vc.spatial_merge_size**2
+    toks = (rng.integers(0, 151643, 12).tolist() + [cfg.vision_start_token_id]
+            + [cfg.image_token_id] * n_img + [P_QWEN_VISION_END]
+            + rng.integers(0, 151643, 24).tolist())
+    text_toks = rng.integers(0, 151643, 40).tolist()
+    patches = torch.as_tensor(rng.standard_normal((n_img * 4, vc.patch_dim)),
+                              dtype=torch.bfloat16, device="cuda")
+
+    def generate(new):
+        return model.generate(toks, pixel_values=patches, grid_thw=P_QWEN_GRID,
+                              max_new_tokens=new)
+
+    generate(2)  # warm-up
+    ops.reset_launch_counts()
+    ids = generate(P_QWEN_NEW)
+    torch.cuda.synchronize()
+    window = launch_counts()
+    tower_n, decode_n = vc.depth, P_QWEN_NEW - 1
+    expect = {"quant_matmul": 4 * tower_n + 7 * layers, "layer_norm": 2 * tower_n + 1,
+              "w4a8_matmul": 7 * layers * decode_n, "rms_norm": (2 * layers + 1) * P_QWEN_NEW}
+    got = {k: v for k, v in window.items() if v}
+    log(f"[p] {dev_tag} Qwen2-VL-7B ({layers} text layers, {vc.depth} tower blocks): init "
+        f"{init_s:.1f} s, quantize_model (4-bit g64; patch_embed and the merger bf16) and "
+        f"prepare_for_inference('w4a8') {quant_s:.2f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; generate of a {len(toks)}-token "
+        f"prompt with one {P_QWEN_GRID} image ({vc.patch_dim}-wide patches, {n_img} merged "
+        f"rows), {P_QWEN_NEW} new: launches {got} (expected {expect}: the tower's 4 a block on "
+        f"quant_matmul, the prefill's 7 a layer at M = {len(toks)}, then w4a8 at M = 1)")
+    if got != expect:
+        raise AssertionError(f"[p] generate launched {got}, expected {expect}")
+    times = {}
+    for new in (1, P_QWEN_NEW):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        generate(new)
+        torch.cuda.synchronize()
+        times[new] = time.time() - t0
+    tower_ms = time_ms([lambda: model.encode_images(patches, P_QWEN_GRID)], 5)
+
+    emb, pos = model.embed(toks, patches, P_QWEN_GRID)
+    mp = int(pos.max()) + 1
+    pos_t = torch.from_numpy(pos).cuda()
+    fwd, efwd = qwen2_vl.serving_forward_fns(cfg)
+
+    def engine_ids(offset):
+        eng = ContinuousBatchingEngine(text, cfg.text, batch_slots=2, max_len=1024,
+                                       forward_fn=fwd, embeds_forward_fn=efwd,
+                                       mrope_offsets=True)
+        u = eng.add_request(toks, max_new_tokens=P_QWEN_NEW, inputs_embeds=emb[0],
+                            position_ids=pos[:, 0], pos_offset=offset)
+        ut = eng.add_request(text_toks, max_new_tokens=P_QWEN_NEW)
+        out = eng.run()
+        eng.close()
+        return out[u], out[ut]
+
+    def forced(got_ids):
+        """generate's route (one row, the M-RoPE decode position mp + j)
+        teacher-forced on ``got_ids``: (its greedy choices, its logits)."""
+        cache = llama.init_cache(cfg.text, 1, 512, torch.bfloat16, "cuda")
+        logits, cache = qwen2_vl.forward(text, cfg, None, cache, 0, position_ids=pos_t,
+                                         inputs_embeds=emb)
+        rows = [logits[0, -1]]
+        for j, tok in enumerate(got_ids[:-1]):
+            logits, cache = qwen2_vl.forward(
+                text, cfg, torch.tensor([[tok]], device="cuda"), cache, len(toks) + j,
+                position_ids=torch.full((3, 1, 1), mp + j, device="cuda"))
+            rows.append(logits[0, -1])
+        table = torch.stack(rows).float()
+        return table.argmax(-1).tolist(), table
+
+    with torch.inference_mode():
+        eng_ids, eng_text = engine_ids(mp - len(toks))
+        choices, table = forced(eng_ids)
+        rule = _near_tie("p", eng_ids, choices, table)
+        ctl_ids, _ = engine_ids(0)
+        ctl_choices, ctl_table = forced(ctl_ids)
+        try:
+            _near_tie("p control", ctl_ids, ctl_choices, ctl_table)
+            caught = False
+        except AssertionError:
+            caught = True
+        # the first decode step at one row: the serving forward at the
+        # request's offset and at 0 against generate's forward
+        cache = llama.init_cache(cfg.text, 1, 512, torch.bfloat16, "cuda")
+        _, cache = qwen2_vl.forward(text, cfg, None, cache, 0, position_ids=pos_t,
+                                    inputs_embeds=emb)
+        tok = torch.tensor([[ids[0]]], device="cuda")
+        step = {}
+        for name, off in (("generate", None), ("offset", mp - len(toks)), ("control", 0)):
+            c = llama.KVCache(k=cache.k.clone(), v=cache.v.clone())
+            if off is None:
+                step[name] = qwen2_vl.forward(text, cfg, tok, c, len(toks),
+                                              position_ids=torch.full((3, 1, 1), mp,
+                                                                      device="cuda"))[0]
+            else:
+                step[name] = fwd(text, tok, c, torch.tensor([len(toks)], device="cuda"),
+                                 torch.tensor([off], device="cuda"))[0]
+    at_offset, at_zero = rel(step["offset"], step["generate"]), rel(step["control"],
+                                                                    step["generate"])
+    log(f"[p] {dev_tag}: generate {times[P_QWEN_NEW]:.3f} s for {P_QWEN_NEW} new tokens "
+        f"({times[1]:.3f} s to the first: the tower {tower_ms:.3f} device ms, the prefill), "
+        f"decode {(P_QWEN_NEW - 1) / (times[P_QWEN_NEW] - times[1]):.1f} tok/s at B = 1; the "
+        f"dense engine with mrope_offsets (2 slots, the image request at offset "
+        f"{mp - len(toks)} beside a {len(text_toks)}-token text request): ids equal "
+        f"generate's: {eng_ids == ids}; the near-tie rule by teacher forcing {rule}; the text "
+        f"request {len(eng_text)} ids; the control at offset 0 fails the rule: {caught}; the "
+        f"first decode step's logits, the serving forward against generate's: {at_offset:.3e} "
+        f"of max|logit| at the offset (bar {P_MROPE_BAR}), {at_zero:.3e} at 0 (must exceed "
+        f"10x the bar)")
+    if not caught or not at_offset <= P_MROPE_BAR or not at_zero > 10 * P_MROPE_BAR:
+        raise AssertionError(f"[p] M-RoPE: the control passed ({not caught}), or the first "
+                             f"step's logits {at_offset} / {at_zero}")
+    if len(eng_text) != P_QWEN_NEW:
+        raise AssertionError(f"[p] the text request gave {len(eng_text)} ids")
+
+    # every kernel call of a short generate held to its twin on its inputs
+    lin_x, vis_x, hooks = {}, {}, []
+    for li in (0, layers - 1):
+        for name, sub in P_QWEN_LINEARS.items():
+            def grab(mod, args, key=(li, name)):
+                lin_x.setdefault(key, []).append(
+                    args[0].detach().reshape(-1, args[0].shape[-1]).clone())
+            hooks.append(text["layers"][li][sub][name].register_forward_pre_hook(grab))
+    blocks = model.params["vision"]["blocks"]
+    for li in (0, vc.depth - 1):
+        for name in ("attn_qkv", "attn_proj", "fc1", "fc2"):
+            def grab_v(mod, args, key=(li, name)):
+                vis_x.setdefault(key, []).append(args[0].detach().clone())
+            hooks.append(blocks[li][name].register_forward_pre_hook(grab_v))
+    norm_log, ln_log = {}, {}
+    rms_patch, ln_patch = _p_norm_patches(norm_log, ln_log)
+    with rms_patch, ln_patch:
+        generate(3)
+    for h in hooks:
+        h.remove()
+    by_k = _l_linear_checks(text, lin_x, P_QWEN_LINEARS, "p")
+    tower_err = _p_qmm_checks("p", {k: blocks[k[0]][k[1]] for k in vis_x}, vis_x)
+    log(f"[p] a 3-token generate on the path's own inputs: text linears of layers 0 and "
+        f"{layers - 1}, largest rel err by (route, K) (bar 2^-7): "
+        f"{ {f'{a} K={b}': round(v, 5) for (a, b), v in by_k.items()} }; the tower's blocks 0 "
+        f"and {vc.depth - 1} on quant_matmul, rel err up to {tower_err:.3e} (controls past "
+        f"2^-7); {_p_bit_equal('p', 'rms_norm', norm_log)}; "
+        f"{_p_bit_equal('p', 'layer_norm', ln_log)}")
+    del model, text, blocks, emb, lin_x, vis_x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [window]
+
+
+def phase_p(dev_tag: str) -> list:
+    """Path P: LLaVA-1.5-7B through the server, then Qwen2-VL-7B through
+    generate and the M-RoPE dense engine. Returns the launch windows."""
+    t0 = time.time()
+    windows = _p_llava(dev_tag)
+    windows += _p_qwen2_vl(dev_tag)
+    log(f"[p] phase p: {time.time() - t0:.1f} s")
     return windows
 
 
@@ -7031,6 +7722,16 @@ def main(argv: list[str]) -> int:
     if argv and argv[0] == "--norm":
         norm_cost(power)
         return 0
+    if argv[:2] == ["--phase", "p"]:  # path P alone, after phase b's rows at its shapes
+        from hqq_tpu_torch.ops import _build
+
+        built = _build.build_all(["w4a8_matmul", "quant_matmul", "dequant_canonical",
+                                  "paged_attention", "rms_norm", "layer_norm"])
+        log(f"[a] built {sorted(built)}: {max((v[0] for v in built.values()), default=0):.1f} s")
+        phase_b_p(lambda key, row: log("[b] " + json.dumps(row)), 100)
+        phase_p(dev_tag)
+        log(power)
+        return 0
     if argv[:2] == ["--phase", "k"]:  # path K alone, after the grouped kernel's rows
         phase_b_grouped(lambda key, row: log("[b] " + json.dumps(row)), 100)
         phase_k(dev_tag)
@@ -7070,6 +7771,8 @@ def main(argv: list[str]) -> int:
     lap("x")
     windows.extend(phase_k(dev_tag))
     lap("k")
+    windows.extend(phase_p(dev_tag))
+    lap("p")
     phase_g_two_layer()
     phase_h_two_layer()
     phase_d()

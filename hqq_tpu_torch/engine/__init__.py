@@ -1,2 +1,3 @@
 # SPDX-License-Identifier: Apache-2.0
 from .hf import AutoHQQHFModel, HQQModel, HQQModelForCausalLM, register_arch  # noqa: F401
+from .vl import AutoHQQVLModel, HQQVLModel  # noqa: F401

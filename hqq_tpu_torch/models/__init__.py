@@ -11,11 +11,13 @@ from . import (  # noqa: F401
     gpt_oss,
     granite,
     llama,
+    llava,
     mistral,
     mixtral,
     olmo2,
     phi,
     phi3,
+    qwen2_vl,
     qwen3_moe,
     serialize,
     starcoder2,
@@ -41,10 +43,12 @@ from .gpt_oss import GptOssConfig  # noqa: F401
 from .granite import GraniteConfig  # noqa: F401
 from .hf import load_hf_llama, params_from_hf_state_dict, read_hf_config  # noqa: F401
 from .llama import KVCache, LlamaConfig, forward, init_cache, init_params  # noqa: F401
+from .llava import ClipVisionConfig, LlavaConfig  # noqa: F401
 from .mistral import MistralConfig  # noqa: F401
 from .mixtral import MixtralConfig  # noqa: F401
 from .olmo2 import Olmo2Config  # noqa: F401
 from .phi import PhiConfig  # noqa: F401
 from .phi3 import Phi3Config  # noqa: F401
+from .qwen2_vl import Qwen2VLConfig  # noqa: F401
 from .qwen3_moe import Qwen3MoeConfig  # noqa: F401
 from .starcoder2 import Starcoder2Config  # noqa: F401

@@ -14,9 +14,19 @@ the paged engine (the paged-attention kernel) or the dense one
 (``--engine dense``) through `serving.server.InferenceServer`. Everything
 runs on ``--device`` (``cuda`` unless given).
 
+A LLaVA checkpoint (``model_type`` llava, quantized by either package's
+`engine.vl.HQQVLModel` or an HF directory quantized on the fly) serves
+image requests: its text tree is prepared and fused as a Llama's, its
+vision tree (the CLIP tower and the projector) stays as `quantize_model`
+left it, and the server's embedder runs it on a request's
+``pixel_values`` and splices the image rows over the placeholders
+(`_build_llava_engine`). Qwen2-VL is refused, as `hqq_tpu.serve` refuses
+it: its M-RoPE decode needs per-request positions, which it gets through
+the Python API (`engine.vl`, the dense engine with ``mrope_offsets``).
+
 Not served yet, each refused with an error that names what is missing: a
-GPTQ checkpoint (`models/interop`), a vision-language ``model_type``
-(llava, qwen2_vl, ...; `engine/vl`) and ``--tp`` above 1 (`parallel/`).
+GPTQ checkpoint (`models/interop`), Aria (`models/aria`) and ``--tp``
+above 1 (`parallel/`).
 A family whose forward has no paged branch (OLMo-2, the LayerNorm
 families and DeepSeek-V3, whose MLA cache is its own) is served on the
 dense engine, with a line that says so; one whose attention reads float
@@ -41,7 +51,8 @@ import torch
 
 __all__ = ["build_engine", "make_parser", "main"]
 
-# model types that need the vision-language engines, not ported yet
+# the vision-language model types: llava is served, qwen2_vl serves
+# through the Python API, aria is not ported
 _VL_TYPES = ("llava", "qwen2_vl", "aria")
 
 
@@ -58,17 +69,37 @@ def _read_model_type(model_dir: str):
     raise FileNotFoundError(f"{model_dir}: neither hqq_config.json nor config.json")
 
 
+def _vl_type(model_dir: str):
+    """The vision-language ``model_type`` of a checkpoint directory (llava,
+    qwen2_vl or aria), else None; None too where the directory holds
+    neither config file (the loader then says so), as `hqq_tpu.serve`'s
+    ``_detect_vl``."""
+    try:
+        model_type = _read_model_type(model_dir)
+    except FileNotFoundError:
+        return None
+    return model_type if model_type in _VL_TYPES else None
+
+
 def _check_served(args, model_type: str) -> None:
-    """Refuse, before any weight is read, what cannot be served: a
-    vision-language model type, and ``--int8-kv`` for a family whose
-    forward reads the dense cache's float pools only (the config's
+    """Refuse, before any weight is read, what cannot be served: Qwen2-VL
+    (with `hqq_tpu.serve`'s message), Aria, and ``--int8-kv`` for a family
+    whose forward reads the dense cache's float pools only (the config's
     ``reads_int8_kv``)."""
     from .engine.hf import _lookup_arch
 
-    if model_type in _VL_TYPES:
+    if model_type == "aria":
         raise NotImplementedError(
-            f"{args.model}: model_type {model_type!r} needs the vision-language engines "
-            f"(engine/vl.py and its vision towers), which are not ported yet")
+            f"{args.model}: model_type 'aria' needs models/aria.py (the VL MoE with an "
+            f"Idefics3 tower), which is not ported yet")
+    if model_type in _VL_TYPES and model_type != "llava":
+        raise SystemExit(
+            f"VL type {model_type!r} serves through the Python API "
+            f"(engine.vl.AutoHQQVLModel — M-RoPE decode needs per-request "
+            f"positions the CLI engines don't carry); only llava (plain "
+            f"RoPE) serves via the CLI")
+    if model_type in _VL_TYPES:
+        return
     if args.int8_kv and not getattr(_lookup_arch(model_type)["config_cls"], "reads_int8_kv",
                                     True):
         raise ValueError(f"--int8-kv: the {model_type} family's forward reads the dense cache's "
@@ -106,6 +137,10 @@ def build_engine(args):
         raise NotImplementedError(
             f"--tp {args.tp}: tensor-parallel serving needs parallel/ (the sharded tree and "
             f"forward over torch.distributed), which is not ported yet")
+    vl_type = _vl_type(args.model)
+    if vl_type is not None:
+        _check_served(args, vl_type)
+        return _build_llava_engine(args)
     params, cfg, family_fwd = _load(args)
     params = prepare_for_inference(params, args.backend)
     if args.fuse:
@@ -122,6 +157,53 @@ def build_engine(args):
         def fwd(p, toks, cache, pos):
             return family_fwd(p, cfg, toks, cache, pos)
     return _engine_for(args, params, cfg, forward_fn=fwd)
+
+
+def _build_llava_engine(args):
+    """A LLaVA checkpoint behind the engine, and its embedder on
+    ``engine._vl_embedder`` for the server: the text tree prepared for
+    ``--backend`` and fused as a Llama's; the vision tree (tower and
+    projector) as `quantize_model` left it, its quantized layers
+    dequantizing their W in each forward. The embedder takes a request's
+    ids and ``{"pixel_values": [B, C, H, W]}`` and gives its embeddings
+    [T, D] on the device: the tower, the projector, the image rows over
+    the ``image_token_index`` placeholders (a ValueError where the count or
+    the pixels' shape is wrong)."""
+    from .core.quantize import BaseQuantizeConfig
+    from .engine.vl import AutoHQQVLModel
+    from .models import llava
+    from .utils.patching import fuse_for_decode, prepare_for_inference
+
+    if os.path.exists(os.path.join(args.model, "hqq_config.json")):
+        m = AutoHQQVLModel.from_quantized(args.model, device=args.device)
+    else:
+        m = AutoHQQVLModel.from_pretrained(args.model, device=args.device).quantize_model(
+            BaseQuantizeConfig(nbits=args.nbits, group_size=args.group_size))
+    cfg = m.cfg
+    vision_tree = m.params["vision"]  # {"vision", "projector"}, unprepared
+    text = prepare_for_inference(m.params["text"], args.backend)
+    if args.fuse:
+        text = fuse_for_decode(text)
+    engine = _engine_for(args, text, cfg.text)
+    vc = cfg.vision
+    want = (vc.num_channels, vc.image_size, vc.image_size)
+    device = torch.device(args.device)
+
+    @torch.inference_mode()
+    def embedder(prompt_ids, vl_inputs: dict) -> torch.Tensor:
+        px = torch.as_tensor(vl_inputs["pixel_values"], dtype=torch.float32, device=device)
+        if px.ndim == 3:
+            px = px[None]
+        if px.ndim != 4 or tuple(px.shape[1:]) != want:
+            raise ValueError(f"pixel_values must be [B, {want[0]}, {want[1]}, {want[2]}], got "
+                             f"{tuple(px.shape)}")
+        img = llava.vision_forward(vision_tree, cfg, px).reshape(-1, cfg.text.hidden_size)
+        toks = torch.as_tensor([list(prompt_ids)], dtype=torch.int64, device=device)
+        return llava.embed_multimodal({"text": text}, cfg, toks, img)[0]
+
+    embedder.vision_tree = vision_tree  # what it runs, for callers that time or check it
+    engine._vl_embedder = embedder
+    return engine
 
 
 def _node_compute_dtype(node):
@@ -229,7 +311,8 @@ def main(argv=None, serve: bool = True):
 
     from .serving.server import InferenceServer
 
-    srv = InferenceServer(engine, host=args.host, port=args.port, tokenizer=tokenizer)
+    srv = InferenceServer(engine, host=args.host, port=args.port, tokenizer=tokenizer,
+                          embedder=getattr(engine, "_vl_embedder", None))
     print(f"serving {args.model} [{args.backend}/{args.engine}] on {args.device}, "
           f"{args.host}:{srv.port}", flush=True)
     if serve:  # pragma: no cover - interactive entry

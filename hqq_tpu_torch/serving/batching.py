@@ -28,9 +28,15 @@ tree's `MultiLoRALinear` stacks; its prefill runs under
 ids, so one batch serves several adapters. An id outside the stacks is
 refused with a ValueError at `add_request`.
 
-Not yet served, and refused with an error: ``inputs_embeds`` requests
-(vision-language serving) and M-RoPE offsets (``mrope_offsets``,
-Qwen2-VL).
+Vision-language requests: ``inputs_embeds`` [len(prompt), D] (the image
+rows already spliced over the placeholders, `engine.vl`) stand in for the
+prompt's token embedding at prefill, cast to the cache's type; decode goes
+on over the sampled ids. With ``mrope_offsets`` (Qwen2-VL,
+`models.qwen2_vl.serving_forward_fns`) an embeds request carries its
+prompt's M-RoPE ``position_ids`` [3, T] and a ``pos_offset``: each slot's
+decode rotates at its cache length plus that offset, held in a device
+buffer written at admission, so a step reads nothing back from the host; a
+text-only slot beside it has offset 0, ordinary RoPE.
 """
 
 from __future__ import annotations
@@ -67,6 +73,13 @@ class Request:
     temperature: Optional[float] = None
     # stop token ids beyond the engine's eos (checked on the host)
     stop_token_ids: Optional[List[int]] = None
+    # multimodal: the prompt's embeddings [T, D] (image rows spliced over the
+    # placeholders); the prefill runs on these in place of the token ids
+    embeds: Optional[torch.Tensor] = None
+    # M-RoPE (Qwen2-VL): the prefill's position ids [3, T] and the decode
+    # offset (largest position + 1 - prompt length; 0 is ordinary RoPE)
+    position_ids: Optional[np.ndarray] = None
+    pos_offset: int = 0
 
 
 def _effective_sampling(req: Request, do_sample, top_k, temperature, top_p):
@@ -79,12 +92,50 @@ def _effective_sampling(req: Request, do_sample, top_k, temperature, top_p):
     )
 
 
-def _refuse_unported(inputs_embeds) -> None:
-    """Refuse what the engines cannot serve yet: prompt embeddings
-    (vision-language serving)."""
-    if inputs_embeds is not None:
-        raise NotImplementedError("inputs_embeds requests (vision-language serving) are not "
-                                  "ported yet")
+def _checked_embeds(inputs_embeds, n_tokens: int, hidden: int) -> Optional[torch.Tensor]:
+    """A request's prompt embeddings as a tensor [n_tokens, hidden] (numpy
+    or torch, any float type, any device), after a ValueError for another
+    shape; None stays None."""
+    if inputs_embeds is None:
+        return None
+    emb = (inputs_embeds if isinstance(inputs_embeds, torch.Tensor)
+           else torch.tensor(np.asarray(inputs_embeds)))
+    if emb.ndim != 2 or tuple(emb.shape) != (n_tokens, hidden) or not emb.is_floating_point():
+        raise ValueError(f"inputs_embeds must be floats [len(prompt)={n_tokens}, {hidden}], "
+                         f"got {emb.dtype} {tuple(emb.shape)}")
+    return emb
+
+
+def _embeds_rows(emb: torch.Tensor, t_pad: int, dtype, device) -> torch.Tensor:
+    """[1, t_pad, D] in ``dtype`` on ``device``: the request's rows, then
+    zeros (the padded rows' outputs are never read)."""
+    out = torch.zeros((1, t_pad, emb.shape[1]), dtype=dtype, device=device)
+    out[0, :emb.shape[0]] = emb.to(device=device, dtype=dtype)
+    return out
+
+
+def _checked_mrope(mrope: bool, embeds, position_ids, pos_offset: int,
+                   n_tokens: int) -> Optional[np.ndarray]:
+    """The M-RoPE position ids as int64 [3, n_tokens] (or None), after a
+    ValueError for M-RoPE arguments on an engine without ``mrope_offsets``,
+    position ids without embeddings or of another shape, and an embeds
+    request without position ids on an M-RoPE engine (its prefill needs
+    them)."""
+    if (position_ids is not None or pos_offset) and not mrope:
+        raise ValueError("position_ids and pos_offset (M-RoPE) need an engine built with "
+                         "mrope_offsets=True")
+    if position_ids is None:
+        if mrope and embeds is not None:
+            raise ValueError("inputs_embeds on an mrope_offsets engine needs position_ids "
+                             "[3, T] (the prompt's M-RoPE ids)")
+        return None
+    if embeds is None:
+        raise ValueError("position_ids need inputs_embeds (a text prompt's M-RoPE ids are its "
+                         "positions)")
+    pid = np.asarray(position_ids, np.int64)
+    if pid.size != 3 * n_tokens:
+        raise ValueError(f"position_ids must be [3, {n_tokens}], got {pid.shape}")
+    return pid.reshape(3, n_tokens)
 
 
 def _checked_adapter(adapter_id, params) -> int:
@@ -131,10 +182,25 @@ def refuse_own_cache(who: str, *cfgs) -> None:
                              f"(ContinuousBatchingEngine) or Generator")
 
 
-def _refuse_embeds_forward(embeds_forward_fn) -> None:
+def _default_embeds_forward(cfg, forward_fn, embeds_forward_fn):
+    """The forward an engine runs an ``inputs_embeds`` prefill through:
+    ``embeds_forward_fn`` where given; the Llama forward over
+    ``inputs_embeds`` where the engine runs the Llama forward too; None
+    where a custom ``forward_fn`` came without one (another family's
+    forward: the Llama default would run the wrong model), which
+    `add_request` refuses."""
     if embeds_forward_fn is not None:
-        raise NotImplementedError("embeds_forward_fn (vision-language serving) is not ported "
-                                  "yet")
+        return embeds_forward_fn
+    if forward_fn is not None:
+        return None
+    return lambda p, e, cache, pos: llama.forward(p, cfg, None, cache, pos, inputs_embeds=e)
+
+
+def _refuse_embeds_without_forward(efwd) -> None:
+    if efwd is None:
+        raise ValueError("inputs_embeds request on an engine with a custom forward_fn: pass "
+                         "embeds_forward_fn too (the default Llama inputs_embeds forward does "
+                         "not apply)")
 
 
 def _checked_request(prompt_ids, top_k, vocab_size: int) -> np.ndarray:
@@ -194,12 +260,16 @@ class ContinuousBatchingEngine:
         pools only, as is a ``max_len`` past GPT-2's learned positions
         (`check_family`).
 
-        embeds_forward_fn and ``mrope_offsets`` (vision-language serving)
-        are refused: requests with ``inputs_embeds`` are not served yet."""
-        _refuse_embeds_forward(embeds_forward_fn)
+        embeds_forward_fn: (params, embeds [1, T, D], mini cache, 0) ->
+        (logits, cache), the prefill of an ``inputs_embeds`` request;
+        defaults to the Llama forward over the embeddings, and with a
+        custom ``forward_fn`` must be given for such requests.
+
+        mrope_offsets (Qwen2-VL, `models.qwen2_vl.serving_forward_fns`):
+        ``forward_fn`` takes a fifth argument at decode, the slots' M-RoPE
+        offsets [S] on the device, and ``embeds_forward_fn`` a fifth at
+        prefill, the request's position ids [3, 1, T_pad]."""
         check_family(cfg, max_len, quantize_kv)
-        if mrope_offsets:
-            raise NotImplementedError("M-RoPE serving (mrope_offsets, Qwen2-VL) is not ported yet")
         self.params = params
         self.cfg = cfg
         self.device = torch.device(device)
@@ -212,6 +282,7 @@ class ContinuousBatchingEngine:
         self.temperature = temperature
         self._fwd = forward_fn or (
             lambda p, toks, cache, pos: llama.forward(p, cfg, toks, cache, pos))
+        self._efwd = _default_embeds_forward(cfg, forward_fn, embeds_forward_fn)
         self.quantize_kv = bool(quantize_kv)
         self._cache_dtype = cache_dtype  # the prefill mini cache stays float
         self._init_cache = llama.cache_for(cfg)  # the family's own (DeepSeek-V3: MLA)
@@ -234,10 +305,14 @@ class ContinuousBatchingEngine:
         self._live = np.zeros((batch_slots,), bool)
         self._adapter = np.zeros((batch_slots,), np.int64)  # each slot's adapter id
         self.horizon = max(1, int(horizon))
+        # M-RoPE: each slot's decode offset, written at its admission
+        self._mrope = bool(mrope_offsets)
+        self._pos_off = torch.zeros((batch_slots,), dtype=torch.int64, device=self.device)
 
     def close(self):
         """Drop the cache and the parameters. Idempotent."""
         self.__dict__.pop("_fwd", None)
+        self.__dict__.pop("_efwd", None)
         self.cache = None
         self.params = None
 
@@ -255,7 +330,8 @@ class ContinuousBatchingEngine:
         out = []
         with adapter_context(torch.from_numpy(self._adapter).to(dev)):
             for _ in range(steps):
-                logits, self.cache = self._fwd(self.params, tok[:, None], self.cache, pos)
+                offs = (self._pos_off,) if self._mrope else ()
+                logits, self.cache = self._fwd(self.params, tok[:, None], self.cache, pos, *offs)
                 tok = sample_token_batch(logits[:, -1], self._gen, samp[0] > 0.5,
                                          samp[1].to(torch.int64), samp[2], samp[3])
                 pos = pos + 1
@@ -289,17 +365,25 @@ class ContinuousBatchingEngine:
         temperature / stop_token_ids are per request (None = the engine's
         defaults); a stop token is kept in the output, as EOS is.
         ``adapter_id`` picks the multi-LoRA adapter (0: none).
-        ``inputs_embeds`` and the M-RoPE arguments (``position_ids``,
-        ``pos_offset``) are not served yet. Ids outside the vocabulary and
-        an adapter id outside the tree's stacks raise a ValueError here,
-        before any step."""
-        _refuse_unported(inputs_embeds)
-        if position_ids is not None or pos_offset:
-            raise NotImplementedError("M-RoPE requests (position_ids, pos_offset) are not "
-                                      "ported yet")
+
+        ``inputs_embeds`` [len(prompt), D]: the prompt's embeddings (image
+        rows spliced over the placeholders), which the prefill runs on in
+        place of the ids. With ``mrope_offsets``: ``position_ids`` [3, T],
+        the prompt's M-RoPE ids (required with ``inputs_embeds``), and
+        ``pos_offset``, the decode's offset (largest position + 1 -
+        len(prompt)).
+
+        Ids outside the vocabulary, an adapter id outside the tree's stacks,
+        embeddings or position ids of another shape, M-RoPE arguments on an
+        engine without ``mrope_offsets`` and embeddings on an engine with
+        no embeds forward raise a ValueError here, before any step."""
         sampled = self.do_sample if do_sample is None else bool(do_sample)
         prompt = _checked_request(prompt_ids, top_k if sampled else None, self.cfg.vocab_size)
         adapter_id = _checked_adapter(adapter_id, self.params)
+        embeds = _checked_embeds(inputs_embeds, len(prompt), self.cfg.hidden_size)
+        position_ids = _checked_mrope(self._mrope, embeds, position_ids, pos_offset, len(prompt))
+        if embeds is not None:
+            _refuse_embeds_without_forward(self._efwd)
         t_pad = next_power_of_2(max(len(prompt), 2))
         if t_pad + max_new_tokens > self.max_len:
             raise ValueError(
@@ -310,7 +394,8 @@ class ContinuousBatchingEngine:
             Request(uid=self._uid, prompt=prompt, max_new_tokens=max_new_tokens,
                     adapter_id=adapter_id, do_sample=do_sample, top_k=top_k, top_p=top_p,
                     temperature=temperature,
-                    stop_token_ids=list(stop_token_ids) if stop_token_ids else None))
+                    stop_token_ids=list(stop_token_ids) if stop_token_ids else None,
+                    embeds=embeds, position_ids=position_ids, pos_offset=int(pos_offset)))
         return self._uid
 
     def _admit(self, slot: int, req: Request) -> None:
@@ -325,9 +410,24 @@ class ContinuousBatchingEngine:
         self._samp[:, slot] = (1.0 if ds else 0.0, tk, tmp, tp)
         self._adapter[slot] = req.adapter_id
         mini = self._init_cache(self.cfg, 1, t_pad, self._cache_dtype, self.device)
+        if self._mrope:
+            self._pos_off[slot] = req.pos_offset
         with adapter_context(torch.tensor([req.adapter_id], device=self.device)):
-            logits, mini = self._fwd(self.params, torch.from_numpy(prompt).to(self.device),
-                                     mini, 0)
+            if req.embeds is None:
+                logits, mini = self._fwd(self.params, torch.from_numpy(prompt).to(self.device),
+                                         mini, 0)
+            else:
+                emb = _embeds_rows(req.embeds, t_pad, self._cache_dtype, self.device)
+                if req.position_ids is None:
+                    logits, mini = self._efwd(self.params, emb, mini, 0)
+                else:
+                    # the padded rows take positions past the prompt's (their
+                    # cache rows are masked; their rotation is never read)
+                    pid = np.empty((3, 1, t_pad), np.int64)
+                    pid[:, 0, :t] = req.position_ids
+                    pid[:, 0, t:] = req.position_ids.max() + 1
+                    logits, mini = self._efwd(self.params, emb, mini, 0,
+                                              torch.from_numpy(pid).to(self.device))
         self._splice(slot, mini)
         first = int(sample_token(logits[:, t - 1], self._gen, ds, tk, tmp, tp)[0])
         log_event("request_admitted", uid=req.uid, slot=slot, prompt_len=t)

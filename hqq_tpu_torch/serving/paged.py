@@ -18,10 +18,12 @@ from one shared pool, each request with its own block table:
   decode steps with no read-back between them;
 * multi-LoRA, as the dense engine (`serving.batching`): every prefill,
   chunk and decode step runs under `adapter_context`, the prefix cache's
-  keys start from the adapter id.
-
-Not yet ported, and refused with an error: ``inputs_embeds`` requests
-(vision-language serving).
+  keys start from the adapter id;
+* ``inputs_embeds`` requests (vision-language serving): the prefill runs
+  over the prompt's embeddings, cast to the pool's float type. They
+  bypass the prefix cache, whose page keys hash token ids (the same
+  placeholders would alias different images), and chunked prefill; a
+  token request and an embeds request share a step.
 """
 
 from __future__ import annotations
@@ -37,8 +39,9 @@ from ..models import llama
 from ..nn.multilora import adapter_context
 from ..ops.paged import PagedKVCache, init_paged_cache, paged_attention_ref, quant_rows
 from ..utils.profiling import log_event
-from .batching import (Request, _checked_adapter, _checked_request, _effective_sampling,
-                       _refuse_embeds_forward, _refuse_unported, refuse_own_cache)
+from .batching import (Request, _checked_adapter, _checked_embeds, _checked_request,
+                       _default_embeds_forward, _effective_sampling, _embeds_rows,
+                       _refuse_embeds_without_forward, refuse_own_cache)
 from .generate import next_power_of_2, sample_token, sample_token_batch
 
 __all__ = ["PagedKVCache", "PagedBatchingEngine", "paged_attention_ref", "init_paged_cache",
@@ -135,10 +138,13 @@ class PagedBatchingEngine:
         horizon: that many decode steps per `step()` with no read-back
         between them; the same tokens as single steps.
 
-        embeds_forward_fn (vision-language serving) is refused: requests
-        with ``inputs_embeds`` are not served yet, and so is a family with
-        a dense cache of its own (DeepSeek-V3, `refuse_own_cache`)."""
-        _refuse_embeds_forward(embeds_forward_fn)
+        embeds_forward_fn: (params, embeds [1, T, D], mini cache,
+        start_pos) -> (logits, cache), the prefill of an ``inputs_embeds``
+        request; defaults to the Llama forward over the embeddings, and
+        with a custom ``forward_fn`` must be given for such requests.
+
+        A family with a dense cache of its own (DeepSeek-V3) is refused
+        (`refuse_own_cache`)."""
         refuse_own_cache("PagedBatchingEngine", cfg)
         self.params = params
         self.cfg = cfg
@@ -147,6 +153,7 @@ class PagedBatchingEngine:
             lambda p, toks, cache, pos, ptab=None: llama.forward(
                 p, cfg, toks, cache, pos, page_indices=ptab)
         )
+        self._efwd = _default_embeds_forward(cfg, forward_fn, embeds_forward_fn)
         self.s = batch_slots
         self.pg = page_size
         if max_pages_per_seq % 4:
@@ -204,6 +211,7 @@ class PagedBatchingEngine:
     def close(self):
         """Drop the page pool and the parameters. Idempotent."""
         self.__dict__.pop("_fwd", None)
+        self.__dict__.pop("_efwd", None)
         self.cache = None
         self.params = None
 
@@ -261,13 +269,18 @@ class PagedBatchingEngine:
         temperature / stop_token_ids are per-request (None = the engine's
         defaults). ``adapter_id`` picks the multi-LoRA adapter (0: none);
         prefix-cache pages are shared only within one adapter, whose LoRA
-        changes their K/V. ``inputs_embeds`` is not served yet. Ids outside
-        the vocabulary and an adapter id outside the tree's stacks raise a
+        changes their K/V. ``inputs_embeds`` [len(prompt), D]: the prompt's
+        embeddings (image rows spliced over the placeholders), prefilled
+        unchunked and outside the prefix cache. Ids outside the vocabulary,
+        an adapter id outside the tree's stacks, embeddings of another shape
+        and embeddings on an engine with no embeds forward raise a
         ValueError here, before any step."""
-        _refuse_unported(inputs_embeds)
         sampled = self.do_sample if do_sample is None else bool(do_sample)
         prompt = _checked_request(prompt_ids, top_k if sampled else None, self.cfg.vocab_size)
         adapter_id = _checked_adapter(adapter_id, self.params)
+        embeds = _checked_embeds(inputs_embeds, len(prompt), self.cfg.hidden_size)
+        if embeds is not None:
+            _refuse_embeds_without_forward(self._efwd)
         t_pad = next_power_of_2(max(len(prompt), 2))
         need = -(-(len(prompt) + max_new_tokens) // self.pg)
         if need > self.mp or -(-t_pad // self.pg) > self.mp:
@@ -280,7 +293,8 @@ class PagedBatchingEngine:
             Request(uid=self._uid, prompt=prompt, max_new_tokens=max_new_tokens,
                     adapter_id=adapter_id, do_sample=do_sample, top_k=top_k, top_p=top_p,
                     temperature=temperature,
-                    stop_token_ids=list(stop_token_ids) if stop_token_ids else None)
+                    stop_token_ids=list(stop_token_ids) if stop_token_ids else None,
+                    embeds=embeds)
         )
         return self._uid
 
@@ -334,10 +348,12 @@ class PagedBatchingEngine:
         self._samp[:, slot] = (1.0 if ds else 0.0, tk, tmp, tp)
         self._adapter[slot] = req.adapter_id
 
-        # the longest cached page-aligned prefix (leading hits only)
+        # the longest cached page-aligned prefix (leading hits only). An
+        # embeds request never takes part: the keys hash token ids, and the
+        # same placeholders would alias requests with different images
         shared: List[int] = []
         keys: list = []
-        if self._prefix_cache is not None:
+        if self._prefix_cache is not None and req.embeds is None:
             keys = self._prefix_keys(req.prompt, req.adapter_id)
             for key in keys:
                 page = self._prefix_cache.get(key)
@@ -368,7 +384,7 @@ class PagedBatchingEngine:
         if n_shared:
             mini = self._load_prefix(mini, shared)
 
-        if self.prefill_chunk is not None and t_suf > self.prefill_chunk:
+        if self.prefill_chunk is not None and t_suf > self.prefill_chunk and req.embeds is None:
             # chunked prefill: one chunk per step(), between decode steps.
             # The block table stays on the scratch page until the slot goes
             # live, so other slots' dead writes cannot touch these pages.
@@ -380,9 +396,14 @@ class PagedBatchingEngine:
             self._advance_prefill(slot)  # the first chunk now
             return
 
-        suffix = np.zeros((1, t_pad_total), np.int32)
-        suffix[0, :t_suf] = req.prompt[s0:]
-        logits, mini = self._prefill(suffix, mini, s0, req.adapter_id)
+        if req.embeds is not None:  # s0 = 0: no prefix was shared
+            emb = _embeds_rows(req.embeds, t_pad_total, self._mini_dtype, self.device)
+            with adapter_context(torch.tensor([req.adapter_id], device=self.device)):
+                logits, mini = self._efwd(self.params, emb, mini, 0)
+        else:
+            suffix = np.zeros((1, t_pad_total), np.int32)
+            suffix[0, :t_suf] = req.prompt[s0:]
+            logits, mini = self._prefill(suffix, mini, s0, req.adapter_id)
         self._finish_prefill(slot, req, mini, logits, t_suf - 1, t, s0,
                              pages, pages_new, keys, n_shared)
 

@@ -5,9 +5,10 @@ Mirrors `hqq_tpu.serving.server` (this package's own copy: it imports
 nothing of `hqq_tpu`). A threaded stdlib HTTP endpoint in front of
 `ContinuousBatchingEngine` or `PagedBatchingEngine` (anything with
 add_request / step / cancel / queue / active / finished). One loop thread
-drives ``engine.step()``, and so is the only thread that launches kernels;
-request threads enqueue, wait on a condition until their uid finishes, and
-read the engine's containers.
+drives ``engine.step()``, and so is the only thread that launches the
+engine's kernels; request threads run the embedder where a request has
+images, enqueue, wait on a condition until their uid finishes, and read the
+engine's containers.
 
     POST /generate   {"prompt_ids": [...], "max_new_tokens": 64}
                   -> {"uid": 3, "tokens": [...]}
@@ -20,13 +21,28 @@ read the engine's containers.
                   -> text/event-stream; `data: {"uid": 3, "tokens": [...]}`
                      as the engine steps, then a last event with
                      `"done": true` and the whole token list
+    POST /generate   {"prompt_ids": [...], "pixel_values": [...]
+                      (, "grid_thw": [[t, h, w], ...])}
+                  -> the same, blocking or streamed, for a prompt with
+                     images: the server's ``embedder`` turns the ids and
+                     pixels into the prompt's embeddings (the vision
+                     tower, then the image rows over the placeholders),
+                     which the engine prefills on
     POST /cancel     {"uid": 3} -> {"cancelled": true}
     GET  /healthz    -> {"ok": true, "active": 2, "queued": 0}
 
 With a `tokenizer` (any object with `__call__(text) -> {"input_ids": ...}`
 and `decode(ids)`, such as an HF tokenizer) "prompt" strings are taken and
-"text" is returned beside the ids. Requests with "pixel_values" or
-"grid_thw" are answered 400: this package has no vision embedder yet.
+"text" is returned beside the ids. With an ``embedder`` (``(prompt_ids,
+{"pixel_values", "grid_thw"}) -> inputs_embeds [T, D]``, `serve.py`'s for a
+LLaVA checkpoint) requests with "pixel_values" are served; without one
+they are answered 400, and so is one the embedder refuses with a
+ValueError (a placeholder count that does not match the image's rows,
+pixels of the wrong shape). The embedder runs on the request's own thread
+while the loop thread steps the engine: both launch onto the card's
+default stream, which orders them, and neither engine captures a CUDA
+graph (their steps are eager), so no capture is under way when the
+embedder launches.
 
 If ``engine.step()`` raises, the loop stops, every waiting request is
 answered 500 (a stream gets a last event with "error"), and so is every
@@ -58,9 +74,10 @@ class EngineFailed(RuntimeError):
 
 class InferenceServer:
     def __init__(self, engine: Any, host: str = "127.0.0.1", port: int = 8000,
-                 tokenizer: Optional[Any] = None):
+                 tokenizer: Optional[Any] = None, embedder: Optional[Any] = None):
         self.engine = engine
         self.tokenizer = tokenizer
+        self.embedder = embedder
         # Two locks, so that a long step (a first one builds the kernels)
         # never blocks /healthz or a submission:
         #   _step_lock  serializes what must not overlap a step (the step
@@ -145,15 +162,21 @@ class InferenceServer:
                     ids = srv.tokenizer(req.get("prompt", ""))["input_ids"]
                 if not ids:
                     return self._json(400, {"error": "prompt_ids required"})
-                if any(k in req for k in ("pixel_values", "grid_thw")):
-                    return self._json(400, {
-                        "error": "multimodal requests are not served: this package has no "
-                                 "vision embedder yet"})
                 try:
                     samp = srv._sampling_kwargs(req)
                     mnt = int(req.get("max_new_tokens", 64))
                 except (TypeError, ValueError) as e:
                     return self._json(400, {"error": str(e)})
+                vl = {k: req[k] for k in ("pixel_values", "grid_thw") if k in req}
+                if vl:
+                    if srv.embedder is None:
+                        return self._json(400, {
+                            "error": "multimodal request, but the server has no embedder "
+                                     "(serve a vision-language checkpoint)"})
+                    try:
+                        samp["inputs_embeds"] = srv.embedder(ids, vl)
+                    except (TypeError, ValueError, KeyError, IndexError) as e:
+                        return self._json(400, {"error": f"embedder refused the request: {e}"})
                 try:
                     if req.get("stream"):
                         return self._sse(srv.stream(ids, mnt, **samp))

@@ -191,19 +191,26 @@ def test_per_slot_start_pos_forward_matches(model, int8):
 
 
 def test_engine_refuses_what_is_not_ported(model):
+    """What the engine cannot serve is refused at add_request, before any
+    step: embeddings of the wrong shape, M-RoPE arguments on an engine
+    without ``mrope_offsets``, and so on. (Embeds requests and M-RoPE
+    engines themselves are served: tests/test_torch_vl_serving.py.)"""
     eng = _engine("torch", model, **_KW)
-    with pytest.raises(NotImplementedError, match="inputs_embeds"):
-        eng.add_request([1, 2, 3], inputs_embeds=np.zeros((3, 256), np.float32))
+    with pytest.raises(ValueError, match="inputs_embeds"):
+        eng.add_request([1, 2, 3], inputs_embeds=np.zeros((2, 256), np.float32))
     with pytest.raises(ValueError, match="adapter_id"):  # no multi-LoRA stack: adapter 0 only
         eng.add_request([1, 2, 3], adapter_id=1)
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
+    with pytest.raises(ValueError, match="M-RoPE"):
         eng.add_request([1, 2, 3], pos_offset=2)
     with pytest.raises(ValueError, match="max_len"):
         eng.add_request(list(range(1, 40)), max_new_tokens=8)  # t_pad 64 + 8 > 64
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        _engine("torch", model, mrope_offsets=True, **_KW)
-    with pytest.raises(NotImplementedError, match="embeds_forward_fn"):
-        _engine("torch", model, embeds_forward_fn=lambda *a: None, **_KW)
+    mrope = _engine("torch", model, mrope_offsets=True, **_KW)
+    with pytest.raises(ValueError, match="position_ids"):
+        mrope.add_request([1, 2, 3], inputs_embeds=np.zeros((3, 256), np.float32))
+    custom = _engine("torch", model, forward_fn=lambda p, t, c, s: None, **_KW)
+    with pytest.raises(ValueError, match="embeds_forward_fn"):
+        custom.add_request([1, 2, 3], inputs_embeds=np.zeros((3, 256), np.float32))
+    assert not mrope.queue and not custom.queue
     # what would fail inside a step is refused before it: ids outside the
     # vocabulary, a sampled request's top_k outside [1, vocab]
     for bad in ([1, 256], [-1, 2], [1.0, 2.0]):

@@ -357,8 +357,8 @@ def test_engine_cancel_matches(quantized):
 def test_engine_refuses_what_is_not_ported(quantized):
     _, _, tcfg, tparams = quantized
     eng = TEngine(tparams, tcfg, **_ENGINE_KW, cache_dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="inputs_embeds"):
-        eng.add_request([1, 2, 3], inputs_embeds=np.zeros((3, tcfg.hidden_size), np.float32))
+    with pytest.raises(ValueError, match="inputs_embeds"):  # [len(prompt), D] or refused
+        eng.add_request([1, 2, 3], inputs_embeds=np.zeros((3, tcfg.hidden_size + 1), np.float32))
     with pytest.raises(ValueError, match="adapter_id"):  # no multi-LoRA stack: adapter 0 only
         eng.add_request([1, 2, 3], adapter_id=1)
     with pytest.raises(ValueError, match="pages"):

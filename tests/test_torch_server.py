@@ -12,8 +12,8 @@ step that raises is answered 500. `serve.main(["--device", "cpu", ...])`
 on a checkpoint written by hqq_tpu's `save_quantized` gives the tokens of
 `hqq_tpu.serve.main` on the same checkpoint (paged w4a8 fused, dense int8
 fused with int8 pools; 4-bit g32 in fp32 from PRNGKey(0): equal greedy
-ids, the bar of the other engine tests), and refuses a GPTQ checkpoint, a
-vision-language model type and --tp 2. No module of hqq_tpu_torch, nor
+ids, the bar of the other engine tests), and refuses a GPTQ checkpoint,
+Aria, Qwen2-VL (served through the Python API) and --tp 2. No module of hqq_tpu_torch, nor
 chip_smoke.py, imports jax or hqq_tpu.
 
 Card (marked ``cuda``; skips where torch sees no CUDA device; JAX is
@@ -196,9 +196,19 @@ def test_a_bad_request_is_refused_and_the_server_serves_on(server, model, bad, w
 
 @pytest.mark.parametrize("kind", list(_ENGINES))
 def test_engines_refuse_embeds_forward_fn(model, kind):
+    """An engine with a custom forward_fn and no embeds_forward_fn refuses
+    an embeds request at add_request (the Llama default would run another
+    model); given an embeds_forward_fn it takes one."""
     cls, kw = _ENGINES[kind]
-    with pytest.raises(NotImplementedError, match="embeds_forward_fn"):
-        cls(*model, embeds_forward_fn=lambda *a: None, device="cpu", **kw)
+    tree, cfg = model
+    emb = torch.zeros((3, cfg.hidden_size))
+    eng = cls(tree, cfg, forward_fn=lambda *a, **k: None, device="cpu", **kw)
+    with pytest.raises(ValueError, match="embeds_forward_fn"):
+        eng.add_request([1, 2, 3], max_new_tokens=4, inputs_embeds=emb)
+    eng = cls(tree, cfg, forward_fn=lambda *a, **k: None, embeds_forward_fn=lambda *a: None,
+              device="cpu", **kw)
+    eng.add_request([1, 2, 3], max_new_tokens=4, inputs_embeds=emb)
+    assert len(eng.queue) == 1
 
 
 def test_cancel_ends_a_stream_with_its_tokens(server):
@@ -305,12 +315,18 @@ def test_serve_refuses_what_is_not_ported(jax_checkpoint, tmp_path):
     for name, conf, what in (
             ("gptq", {"model_type": "llama", "quantization_config": {"quant_method": "gptq"}},
              "GPTQ"),
-            ("vl", {"model_type": "llava"}, "vision-language")):
+            ("aria", {"model_type": "aria"}, "aria")):
         os.makedirs(tmp_path / name)
         with open(tmp_path / name / "config.json", "w") as f:
             json.dump(conf, f)
         with pytest.raises(NotImplementedError, match=what):
             t_main(["--model", str(tmp_path / name), "--device", "cpu"], serve=False)
+    # Qwen2-VL serves through the Python API, and the CLI says so, as hqq_tpu.serve does
+    os.makedirs(tmp_path / "qwen2_vl")
+    with open(tmp_path / "qwen2_vl" / "config.json", "w") as f:
+        json.dump({"model_type": "qwen2_vl"}, f)
+    with pytest.raises(SystemExit, match="Python API"):
+        t_main(["--model", str(tmp_path / "qwen2_vl"), "--device", "cpu"], serve=False)
 
 
 def test_the_port_imports_no_jax():
