@@ -130,7 +130,9 @@ def _quantize_impl(
         _max = w_f.amax(dim=axis, keepdim=True)
 
     denom = _max - _min
-    scale = max_v / denom
+    # a true division, as hqq_tpu's: a Python float over a tensor is the
+    # tensor's reciprocal times the float in torch, a rounding more
+    scale = torch.full_like(denom, max_v) / denom
     scale = torch.where(denom.abs() <= 1e-4, torch.ones_like(scale), scale)
     scale = scale.clamp(max=2e4)  # half-precision safety
     zero = -_min * scale

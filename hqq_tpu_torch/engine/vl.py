@@ -1,22 +1,24 @@
 # SPDX-License-Identifier: Apache-2.0
 """Vision-language models: quantize, save, load, encode images and
-generate, for LLaVA and Qwen2-VL.
+generate, for LLaVA, Qwen2-VL and Aria.
 
 Mirrors `hqq_tpu.engine.vl`. A model is two parameter trees, ``{"text",
-"vision"}`` (LLaVA's vision tree also holds the projector), with the same
-save and load contract as the text engine (`engine.hf`): checkpoints are
-`hqq_tpu`'s format, the config under ``vl_config``, so either package
-loads the other's. The whole pipeline runs on this package's parts: the
-vision tower, the projector or patch merger, the image rows spliced over
-the placeholders, a prefill over the embeddings (M-RoPE positions for
-Qwen2-VL, sequential ones for LLaVA), then decode a token at a time.
+"vision"}`` (LLaVA's and Aria's vision trees are ``{"vision",
+"projector"}``), with the same save and load contract as the text engine
+(`engine.hf`): checkpoints are `hqq_tpu`'s format, the config under
+``vl_config``, so either package loads the other's. The whole pipeline
+runs on this package's parts: the vision tower, the projector or patch
+merger, the image rows spliced over the placeholders, a prefill over the
+embeddings (M-RoPE positions for Qwen2-VL, sequential ones for LLaVA and
+Aria), then decode a token at a time.
 
 `quantize_model` quantizes both towers and keeps the patch embedding and
-the projector or merger in full precision (`_VISION_FP`);
-`prepare_for_inference` puts the vision tree on "pallas" when the text tree
-goes to "w4a8" or "int8": the tower runs once a request at prefill width,
-the bf16-operand kernel's work. Aria (the VL MoE with an Idefics3 tower)
-is not ported yet and is refused by name.
+the projector or merger in full precision (`_VISION_FP`); Aria's goes
+through `models.aria.quantize_aria`: the attention, the shared experts and
+the expert stacks, while the router, lm_head, the whole tower and the
+projector stay in full precision. `prepare_for_inference` puts the vision
+tree on "pallas" when the text tree goes to "w4a8" or "int8": the tower
+runs once a request at prefill width, the bf16-operand kernel's work.
 """
 
 from __future__ import annotations
@@ -32,24 +34,24 @@ import torch
 from ..core.quantize import BaseQuantizeConfig
 from ..models import base as model_base
 from ..models import hf as hf_loader
-from ..models import llama, llava, qwen2_vl
+from ..models import aria, llama, llava, qwen2_vl
 
 __all__ = ["HQQVLModel", "AutoHQQVLModel"]
 
-_VL_REGISTRY = {"qwen2_vl": qwen2_vl, "llava": llava}
+_VL_REGISTRY = {"qwen2_vl": qwen2_vl, "llava": llava, "aria": aria}
 
-# vision-tree leaves that stay in full precision under quantize_model
+# vision-tree leaves that stay in full precision under quantize_model (Aria's
+# whole tower and projector do: `aria.quantize_aria` leaves them alone)
 _VISION_FP = {
     "qwen2_vl": ("patch_embed", "merger_fc1", "merger_fc2"),
     "llava": llava.VISION_FP_TAGS,
 }
 
+_CONFIGS = {"qwen2_vl": qwen2_vl.Qwen2VLConfig, "llava": llava.LlavaConfig,
+            "aria": aria.AriaConfig}
 
-def _refuse_unported(model_type: str) -> None:
-    if model_type == "aria":
-        raise NotImplementedError(
-            "model_type 'aria' (the VL MoE with an Idefics3 tower, models/aria.py) is not "
-            "ported yet; llava and qwen2_vl are")
+
+def _refuse_unknown(model_type: str) -> None:
     if model_type not in _VL_REGISTRY:
         raise ValueError(f"VL architecture {model_type!r} not supported; available: "
                          f"{list(_VL_REGISTRY)}")
@@ -57,10 +59,14 @@ def _refuse_unported(model_type: str) -> None:
 
 def _cfg_from_dict(d: dict, model_type: str):
     """The config a checkpoint's ``vl_config`` describes (JSON turns the
-    tuples into lists; `llama.LlamaConfig` takes rope_scaling as a list)."""
-    _refuse_unported(model_type)
-    text = llama.LlamaConfig(**d["text"])
+    tuples into lists; `llama.LlamaConfig` takes rope_scaling as a list,
+    `aria.AriaConfig` patch_to_query as lists of pairs)."""
+    _refuse_unknown(model_type)
     rest = {k: v for k, v in d.items() if k not in ("text", "vision")}
+    if model_type == "aria":
+        return aria.AriaConfig(text=aria.AriaTextConfig(**d["text"]),
+                               vision=aria.IdeficsVisionConfig(**d["vision"]), **rest)
+    text = llama.LlamaConfig(**d["text"])
     if model_type == "llava":
         return llava.LlavaConfig(text=text, vision=llava.ClipVisionConfig(**d["vision"]), **rest)
     if "mrope_section" in rest:
@@ -74,8 +80,8 @@ def _tree_device(tree) -> torch.device:
 
 @dataclasses.dataclass
 class HQQVLModel:
-    """``params = {"text", "vision"}``; for LLaVA the vision tree is
-    ``{"vision", "projector"}``."""
+    """``params = {"text", "vision"}``; for LLaVA and Aria the vision tree
+    is ``{"vision", "projector"}``."""
 
     params: Any
     cfg: Any
@@ -83,7 +89,7 @@ class HQQVLModel:
     quantized: bool = False
 
     def __post_init__(self):
-        _refuse_unported(self.model_type)
+        _refuse_unknown(self.model_type)
 
     @property
     def device(self) -> torch.device:
@@ -95,10 +101,21 @@ class HQQVLModel:
                        compute_dtype=None) -> "HQQVLModel":
         """Quantize both towers, in place: ``quant_config`` the text model,
         ``vision_config`` (the same when None) the vision blocks; the patch
-        embedding and the projector or merger stay in full precision."""
+        embedding and the projector or merger stay in full precision. Aria:
+        `aria.quantize_aria` with ``quant_config`` for the attention, the
+        shared experts and the expert stacks; its tower and projector stay
+        in full precision."""
         if self.quantized:
             raise RuntimeError("model is already quantized")
         qc = quant_config or BaseQuantizeConfig()
+        if self.model_type == "aria":
+            full = aria.quantize_aria({"text": self.params["text"], **self.params["vision"]},
+                                      attn_config=qc, expert_config=qc,
+                                      compute_dtype=compute_dtype or torch.bfloat16)
+            self.params = {"text": full["text"],
+                           "vision": {"vision": full["vision"], "projector": full["projector"]}}
+            self.quantized = True
+            return self
         self.params = {
             "text": model_base.quantize_model(self.params["text"], qc, compute_dtype),
             "vision": model_base.quantize_model(self.params["vision"], vision_config or qc,
@@ -132,10 +149,12 @@ class HQQVLModel:
 
     # -- inference -----------------------------------------------------------
     def encode_images(self, pixel_values: torch.Tensor, grid_thw=None) -> torch.Tensor:
-        """The image rows [n, text hidden]: LLaVA takes pixels [B, C, H, W],
-        Qwen2-VL patch rows [sum of t*h*w, patch_dim] and ``grid_thw``."""
-        if self.model_type == "llava":
-            out = llava.vision_forward(self.params["vision"], self.cfg, pixel_values)
+        """The image rows [n, text hidden]: LLaVA and Aria take pixels [B, C,
+        H, W], Qwen2-VL patch rows [sum of t*h*w, patch_dim] and
+        ``grid_thw``."""
+        if self.model_type in ("llava", "aria"):
+            out = _VL_REGISTRY[self.model_type].vision_forward(self.params["vision"], self.cfg,
+                                                               pixel_values)
             return out.reshape(-1, self.cfg.text.hidden_size)
         return qwen2_vl.vision_forward(self.params["vision"], self.cfg.vision, pixel_values,
                                        grid_thw)
@@ -146,8 +165,9 @@ class HQQVLModel:
         toks = torch.as_tensor(np.asarray(input_ids, np.int64).reshape(1, -1),
                                device=self.device)
         img = self.encode_images(pixel_values, grid_thw)
-        if self.model_type == "llava":
-            return llava.embed_multimodal(self.params, self.cfg, toks, img), None
+        if self.model_type in ("llava", "aria"):
+            mod = _VL_REGISTRY[self.model_type]
+            return mod.embed_multimodal(self.params, self.cfg, toks, img), None
         emb = qwen2_vl.embed_multimodal(self.params["text"], self.cfg, toks, img)
         pos = qwen2_vl.get_mrope_positions(self.cfg, toks[0].cpu().numpy(), grid_thw)
         return emb, pos
@@ -155,6 +175,8 @@ class HQQVLModel:
     def _forward(self, *args, **kw):
         if self.model_type == "llava":
             return llama.forward(self.params["text"], self.cfg.text, *args, **kw)
+        if self.model_type == "aria":
+            return aria.forward(self.params["text"], self.cfg, *args, **kw)
         return qwen2_vl.forward(self.params["text"], self.cfg, *args, **kw)
 
     @torch.inference_mode()
@@ -163,9 +185,9 @@ class HQQVLModel:
                  eos_token_id: Optional[int] = None, max_len: Optional[int] = None) -> list:
         """Image-conditioned generation of one sequence: the tower, the
         splice, a prefill over the embeddings (M-RoPE positions for
-        Qwen2-VL, sequential for LLaVA), then one decode step a token. Text
-        only when ``pixel_values`` is None. Greedy, or sampling from the
-        softmax of logits / temperature with a generator seeded by
+        Qwen2-VL, sequential for LLaVA and Aria), then one decode step a
+        token. Text only when ``pixel_values`` is None. Greedy, or sampling
+        from the softmax of logits / temperature with a generator seeded by
         ``seed``."""
         cfg = self.cfg
         dev = self.device
@@ -201,7 +223,7 @@ class HQQVLModel:
             if eos_token_id is not None and out[-1] == eos_token_id:
                 break
             tok = torch.tensor([[out[-1]]], device=dev)
-            if self.model_type == "llava":
+            if self.model_type != "qwen2_vl":
                 logits, cache = self._forward(tok, cache, p)
             else:
                 pid = torch.full((3, 1, 1), mp, device=dev)
@@ -222,10 +244,9 @@ class AutoHQQVLModel:
         with open(os.path.join(model_dir, "config.json")) as f:
             hf_cfg = json.load(f)
         model_type = hf_cfg.get("model_type", "qwen2_vl")
-        _refuse_unported(model_type)
+        _refuse_unknown(model_type)
         mod = _VL_REGISTRY[model_type]
-        cfg_cls = llava.LlavaConfig if model_type == "llava" else qwen2_vl.Qwen2VLConfig
-        cfg = cfg_cls.from_hf(hf_cfg)
+        cfg = _CONFIGS[model_type].from_hf(hf_cfg)
         state = hf_loader.read_hf_state(model_dir, compute_dtype, device)
         text, vision = mod.params_from_hf_state_dict(state, cfg, compute_dtype)
         return HQQVLModel(params={"text": text, "vision": vision}, cfg=cfg,

@@ -1,5 +1,6 @@
 # SPDX-License-Identifier: Apache-2.0
 from . import (  # noqa: F401
+    aria,
     bloom,
     cohere,
     deepseek3,
@@ -21,6 +22,7 @@ from . import (  # noqa: F401
     qwen3_moe,
     serialize,
     starcoder2,
+    vit,
 )
 from .base import (  # noqa: F401
     from_quantized,
@@ -31,6 +33,7 @@ from .base import (  # noqa: F401
     quantize_model,
     save_quantized,
 )
+from .aria import AriaConfig, AriaTextConfig, IdeficsVisionConfig  # noqa: F401
 from .bloom import BloomConfig  # noqa: F401
 from .cohere import CohereConfig  # noqa: F401
 from .deepseek3 import DeepseekV3Config  # noqa: F401
@@ -52,3 +55,4 @@ from .phi3 import Phi3Config  # noqa: F401
 from .qwen2_vl import Qwen2VLConfig  # noqa: F401
 from .qwen3_moe import Qwen3MoeConfig  # noqa: F401
 from .starcoder2 import Starcoder2Config  # noqa: F401
+from .vit import ViTConfig  # noqa: F401

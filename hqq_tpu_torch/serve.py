@@ -20,13 +20,13 @@ image requests: its text tree is prepared and fused as a Llama's, its
 vision tree (the CLIP tower and the projector) stays as `quantize_model`
 left it, and the server's embedder runs it on a request's
 ``pixel_values`` and splices the image rows over the placeholders
-(`_build_llava_engine`). Qwen2-VL is refused, as `hqq_tpu.serve` refuses
-it: its M-RoPE decode needs per-request positions, which it gets through
-the Python API (`engine.vl`, the dense engine with ``mrope_offsets``).
+(`_build_llava_engine`). Qwen2-VL and Aria are refused with
+`hqq_tpu.serve`'s SystemExit: they serve through the Python API
+(`engine.vl`; Qwen2-VL on the dense engine with ``mrope_offsets``, Aria on
+the dense engine with `models.aria.forward` as its forward).
 
 Not served yet, each refused with an error that names what is missing: a
-GPTQ checkpoint (`models/interop`), Aria (`models/aria`) and ``--tp``
-above 1 (`parallel/`).
+GPTQ checkpoint (`models/interop`) and ``--tp`` above 1 (`parallel/`).
 A family whose forward has no paged branch (OLMo-2, the LayerNorm
 families and DeepSeek-V3, whose MLA cache is its own) is served on the
 dense engine, with a line that says so; one whose attention reads float
@@ -51,8 +51,8 @@ import torch
 
 __all__ = ["build_engine", "make_parser", "main"]
 
-# the vision-language model types: llava is served, qwen2_vl serves
-# through the Python API, aria is not ported
+# the vision-language model types: llava is served, qwen2_vl and aria serve
+# through the Python API
 _VL_TYPES = ("llava", "qwen2_vl", "aria")
 
 
@@ -83,15 +83,11 @@ def _vl_type(model_dir: str):
 
 def _check_served(args, model_type: str) -> None:
     """Refuse, before any weight is read, what cannot be served: Qwen2-VL
-    (with `hqq_tpu.serve`'s message), Aria, and ``--int8-kv`` for a family
+    and Aria (with `hqq_tpu.serve`'s message), and ``--int8-kv`` for a family
     whose forward reads the dense cache's float pools only (the config's
     ``reads_int8_kv``)."""
     from .engine.hf import _lookup_arch
 
-    if model_type == "aria":
-        raise NotImplementedError(
-            f"{args.model}: model_type 'aria' needs models/aria.py (the VL MoE with an "
-            f"Idefics3 tower), which is not ported yet")
     if model_type in _VL_TYPES and model_type != "llava":
         raise SystemExit(
             f"VL type {model_type!r} serves through the Python API "

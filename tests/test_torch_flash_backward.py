@@ -35,6 +35,16 @@ from hqq_tpu_torch.ops.fused_matmul import H100_SMEM_PER_BLOCK
 _CASES = [(1, 4, 2, 300, 64), (2, 2, 2, 257, 128), (1, 4, 1, 129, 64), (1, 2, 2, 256, 128)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Torch ops on one thread: the suite's workers share the cores, and
+    torch's intra-op threads would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(b, nh, n_kv, t, hd, seed):
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((b, nh, t, hd)).astype(np.float32)

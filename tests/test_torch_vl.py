@@ -20,7 +20,7 @@ params_from_numpy; hqq_tpu's runs happen once, in module fixtures.
   `prepare_for_inference("w4a8")` puts the tower on the bf16-operand
   kernel's layout;
 * a VL checkpoint crosses both packages both ways with every leaf
-  bit-equal and the config equal; Aria is refused by name;
+  bit-equal and the config equal; an unknown type is refused;
 * the HF loaders against hqq_tpu's on a tiny `transformers` model's state
   dict, and a wrong placeholder count refused.
 """
@@ -254,11 +254,13 @@ def test_checkpoint_across_packages(request, tmp_path, family):
 
 
 def test_aria_and_unknown_types_refused():
-    cfg = tllava.LlavaConfig.tiny()
-    with pytest.raises(NotImplementedError, match="aria"):
-        TVL(params={}, cfg=cfg, model_type="aria")
+    """Aria is ported (tests/test_torch_aria.py) and no longer refused; a
+    type neither package knows is."""
+    from hqq_tpu_torch.models import aria as taria
+
+    assert TVL(params={}, cfg=taria.AriaConfig.tiny(), model_type="aria").model_type == "aria"
     with pytest.raises(ValueError, match="not supported"):
-        TVL(params={}, cfg=cfg, model_type="idefics")
+        TVL(params={}, cfg=tllava.LlavaConfig.tiny(), model_type="idefics")
 
 
 def test_splice_checks_the_placeholder_count(llava):
