@@ -6,7 +6,9 @@ the server), DeepSeek-V3 (Moonlight-16B-A3B through the server,
 DeepSeek-V3's own width at 5 layers) and vision-language serving
 (LLaVA-1.5-7B through the server with images, Qwen2-VL-7B through
 `engine/vl` and the M-RoPE dense engine), Aria (`engine/vl` and the dense
-engine at full width and depth) and ViT-L/16 (`engine/vision`).
+engine at full width) and ViT-L/16 (`engine/vision`), and HQQ+'s sub-word
+groups (Llama-2-7B at 2-bit g8 through the server and with adapters
+through Generator).
 
     python3 chip_smoke.py            # on cuda:0, every phase
     python3 chip_smoke.py --time quant_matmul 512 4096 4096      # one kernel
@@ -26,6 +28,7 @@ engine at full width and depth) and ViT-L/16 (`engine/vision`).
     python3 chip_smoke.py --phase p      # path P alone, after phase b's rows at its shapes
     python3 chip_smoke.py --phase n      # path N alone, after phase b's rows at its shapes
     python3 chip_smoke.py --phase t      # path T alone, after phase b's rows at its shapes
+    python3 chip_smoke.py --phase u      # path U alone, after phase b's rows of its routes
 
 Phases (any failure exits non-zero):
   (a) device and build: the card, its power limit, an nvcc build of every
@@ -197,7 +200,7 @@ Phases (any failure exits non-zero):
       Phase b also times the fused widths, w4a8_matmul at (8, 4096, 12288)
       and (8, 4096, 22016) and quant_matmul at M = 512, beside the summed
       time of their unfused parts.
-  (r) the RMSNorm families: Gemma-2-9B at full width, 10 of its 42 layers (R_LAYERS; google/
+  (r) the RMSNorm families: Gemma-2-9B at full width, 4 of its 42 layers (R_LAYERS; google/
       gemma-2-9b's config: hidden 3584, ffn 14336, 42 layers, 16/8 heads
       of 256, vocab 256000, window 4096, softcaps 50/30), random bf16
       weights from seed 0, quantize_model(4-bit g64), save_quantized, then
@@ -225,7 +228,7 @@ Phases (any failure exits non-zero):
       of 4, 32 and 1024 rows, where PyTorch's fp32 mean must not be) and
       torch.nn.functional.rms_norm, the w4a8 and quant_matmul kernels at
       Gemma-2-9B's shapes, and paged_attention at 16/8 heads of 256.
-  (l) the LayerNorm families: Falcon-7B at full width, 8 of its 32 layers (L_LAYERS)
+  (l) the LayerNorm families: Falcon-7B at full width, 4 of its 32 layers (L_LAYERS)
       (tiiuae/falcon-7b: hidden 4544, 32 layers, 71 heads of 64,
       multi-query, parallel attention from one norm, no bias, vocab 65024,
       tied head), random bf16 weights from seed 0, quantize_model(4-bit
@@ -253,7 +256,7 @@ Phases (any failure exits non-zero):
       and 1024 rows, and times it at 4, 32 and 1024 rows of 4544 and 4096
       against the byte bound and torch.nn.functional.layer_norm; and the
       w4a8 and quant_matmul kernels at Falcon-7B's shapes.
-  (x) the MoE families: Mixtral-8x7B at full width, 4 of its 32 layers
+  (x) the MoE families: Mixtral-8x7B at full width, 2 of its 32 layers
       (X_LAYERS: the depth cut so that the whole script stays inside its
       time with paths P and N; mistralai/Mixtral-8x7B-v0.1 from memory: hidden
       4096, ffn 14336, 32/8 heads, 8 experts, top-2, vocab 32000 untied,
@@ -284,7 +287,7 @@ Phases (any failure exits non-zero):
       the dequantized stack, and each stack's one-launch dequant bit-equal
       to E single calls.
   (k) DeepSeek-V3 (MLA, group-limited sigmoid routing, a dense-compute MoE
-      with shared experts): Moonlight-16B-A3B at full width, 5 of its 27
+      with shared experts): Moonlight-16B-A3B at full width, 3 of its 27
       layers (K_MOONLIGHT_LAYERS, cut for the script's time with paths P and N;
       moonshotai/Moonlight-16B-A3B from memory: hidden 2048, the first
       dense, 16 heads, q_proj, kv_lora 512, 64 experts top-6 in
@@ -311,7 +314,8 @@ Phases (any failure exits non-zero):
       plain path, the (token, layer) expert sets that differ counted and
       left out; the broadcast [E, T, D] copy timed; Generator "partial" and
       "full". Phase b also times grouped_matmul at both models' stacks.
-  (p) vision-language serving: LLaVA-1.5-7B at full width and depth
+  (p) vision-language serving: LLaVA-1.5-7B at full width, 8 of its 32
+      text layers (P_LLAVA_LAYERS, cut for the script's time when path U came in)
       (llava-hf/llava-1.5-7b-hf from memory: Llama-2-7B with vocab 32064,
       image_token_index 32000; CLIP ViT-L/14-336, 23 of its 24 layers
       run; the projector 1024 -> 4096 -> 4096), random bf16 weights from
@@ -325,8 +329,8 @@ Phases (any failure exits non-zero):
       routes (as served and engine/vl's "pallas", row 1); every kernel call
       of an image and a text request held to its twin; the prefix cache
       with two images behind the same ids (no page shared, each its own
-      ids). Then Qwen2-VL-7B at full width and depth (28 text layers, 32
-      tower blocks), 4-bit g64, "w4a8" (the tower on row 1): generate on
+      ids). Then Qwen2-VL-7B at full width, 6 of its 28 text layers
+      (P_QWEN_LAYERS) and its 32 tower blocks, 4-bit g64, "w4a8" (the tower on row 1): generate on
       one 448 x 448 image (1024 patches, 256 merged rows) and its launches;
       the dense engine with mrope_offsets beside a text request, ids
       against generate's by the near-tie rule (teacher forcing), the
@@ -336,7 +340,8 @@ Phases (any failure exits non-zero):
   (n) Aria (rhymes-ai/Aria from memory: a 28-layer MoE at 2560, 20/20
       heads, 64 experts of 1664 top-6 and 2 shared, vocab 100352; the
       SigLIP-so400m tower, 27 layers at 1152 over 980 x 980 images, 4900
-      patches, 256 queries) at full width and depth, random bf16 weights
+      patches, 256 queries) at full width, 6 of its 28 text layers
+      (N_LAYERS, cut for the script's time when path U came in), random bf16 weights
       from seed 0, the text drawn and quantized a layer at a time by
       quantize_aria (4-bit g64; the router, lm_head, the tower and the
       projector bf16) at capacity factor E / top_k, save_quantized and
@@ -365,8 +370,37 @@ Phases (any failure exits non-zero):
       the first and last layers' matmuls and every layer_norm held to their
       twins. Phase b times quant_matmul and qmm_fp32 at its three matmuls
       and layer_norm over 6304 rows of 1024 (bf16, fp32).
+  (u) HQQ+'s sub-word groups (2-bit and 1.58-bit g8, 1-bit g8 and g16,
+      axis=1: a 32-bit word spans 2 or 4 groups, each 4-code field with its
+      own group's scale and zs): Llama-2-7B at full width and depth, random
+      bf16 weights from seed 0, quantize_model(2-bit g8) (HQQ+'s
+      mobiuslabs/Llama-2-7b-chat-hf_2bitgs8_hqq names the recipe; nothing
+      is downloaded), save_quantized. U-plus: rank-8 adapters on all 224
+      linears (B from a seed), "w4a8" (A8LoRAQuantLinear: row 8 on the
+      CUDA-core route at decode, row 7 at prefill), serve_7b's window
+      (prefill ms at M = 512, Generator "partial" and "full" decode tok/s
+      at B = 4 against the byte bound, busy share, peak, quantize s), every
+      fused call of a prefill and two decode steps against its twin with
+      the control "the word's other group" (each field on the meta of the
+      other group of its pair in the word), and the decode's routes: every
+      plan on the CUDA cores, no canonical dequant and no F.linear but
+      lm_head's in a partial step, only w4a8_dp4a_kernel among the w4a8
+      kernels of a replayed graph. U-serve: `serve.main --nbits 2
+      --group-size 8` on the checkpoint with its defaults (paged, w4a8,
+      fused), G's pool, G's 12 requests from 12 client threads: ids equal
+      to the in-process engine's, boot s, time to first token, tokens/s at
+      the client and in-process, ms a step against the byte bound, busy
+      share, peak. Kernel coverage: 2-layer models at 7B width at each
+      sub-word config and 2-bit g8 in fp32, "pallas" and "w4a8", with and
+      without adapters, through Generator, and their prefill and decode
+      logits against the canonical QuantLinear route (w4a8's decode against
+      its plain twins), the word's-other-group control failing each bar.
+      Phase b holds every route at these configs to its twin (rows 2/3 and
+      8 at U's decode shapes, rows 1 and 7 at its prefill, row 4, qmm_fp32
+      with fp32 x) with that control and three bit-equal runs, timed
+      against the bound, the twin and torch.matmul.
 Phases g, h, v and m run right after c, on its model, then q and s, then r,
-then l, then x, then k, then p, then n, then t, then d.
+then l, then x, then k, then p, then n, then t, then u, then d.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -1365,6 +1399,7 @@ def phase_b() -> dict:
     phase_b_bf16_meta(record, held, iters)
     phase_b_fp32(record, held, iters)
     phase_b_backward(record, held, iters)
+    phase_b_u(record)
     log(f"[b] card right after the timings: {card_state()}")
     return rows
 
@@ -1451,15 +1486,44 @@ def _meta_controls(kqt):
             "zs offset dropped": dataclasses.replace(kqt, scale=scale, zs=zs)}
 
 
-def _w4a8_controls(kqt):
-    """Wrong readings of a w4a8 layout, for the plain twins: each group with
-    its neighbour's scale; for bf16 meta also zs read without the 8 * scale
-    that the 4-bit container's stored zs lacks (`_meta_controls`)."""
+def _word_neighbour(kqt):
+    """The fault that groups shorter than a word invite: each field read with
+    the scale and zs of the other group of its pair in the same 32-bit word
+    (group j with j ^ 1's), as an fp32-meta layout for the plain twins; None
+    where a group is whole words."""
     import dataclasses
 
+    from hqq_tpu_torch.ops import fused_matmul as fm
+
+    groups = kqt.k // kqt.group_size
+    if kqt.group_size * kqt.container_bits >= 32 or groups % 2:
+        return None
+    scale, zs = fm._ax1_meta(kqt)
+    pair = torch.arange(groups, device=scale.device) ^ 1
+    return dataclasses.replace(kqt, scale=scale[:, pair].contiguous(),
+                               zs=zs[:, pair].contiguous())
+
+
+def _w4a8_controls(kqt):
+    """Wrong readings of a w4a8 layout, for the plain twins: each group with
+    its neighbour's scale; for bf16 meta in the 4-bit container also zs read
+    without the 8 * scale that its stored zs lacks (`_meta_controls`); for
+    groups shorter than a word, each field with the meta of the other group
+    of its pair in the word (`_word_neighbour`)."""
+    import dataclasses
+
+    from hqq_tpu_torch.ops import fused_matmul as fm
+
     if kqt.scale.dtype == torch.bfloat16:
-        return _meta_controls(kqt)
-    return {"neighbour's scale": dataclasses.replace(kqt, scale=kqt.scale.roll(1, dims=1))}
+        controls = _meta_controls(kqt)
+        if not fm._ax1_zs_offset(kqt.container_bits, kqt.scale.dtype):
+            del controls["zs offset dropped"]  # no offset to drop outside the 4-bit container
+    else:
+        controls = {"neighbour's scale": dataclasses.replace(kqt, scale=kqt.scale.roll(1, dims=1))}
+    word = _word_neighbour(kqt)
+    if word is not None:
+        controls["the word's other group"] = word
+    return controls
 
 
 def _w4a8_held(what: str, kqt, kernel, plain) -> float:
@@ -3034,9 +3098,10 @@ def phase_s_dense_int8(dev_tag: str) -> dict:
 # full width, R_LAYERS deep, through the server, then one 2-layer model at the
 # published width of each other family
 R_NEW, R_GEN_NEW = 32, 16
-# the depth cuts for the script's time (paths N and T came in): Gemma-2-9B
-# at 10 of its 42 layers, Falcon-7B at 8 of its 32
-R_LAYERS, L_LAYERS = 10, 8
+# the depth cuts for the script's time: Gemma-2-9B at 4 of its 42 layers,
+# Falcon-7B at 4 of its 32 (10 and 8 when paths N and T came in, 4 and 4
+# since path U)
+R_LAYERS, L_LAYERS = 4, 4
 # the bar of paged decode logits against the dense cache's: phase g's 0.1,
 # except Granite's: its attention multiplier (1/128, not 1/sqrt(128))
 # flattens the softmax and its residual multiplier (0.22) shrinks what
@@ -3899,7 +3964,7 @@ def phase_l(dev_tag: str) -> list:
 
 
 X_CAPACITY = 4.0  # Mixtral's E / top_k: no assignment is dropped, a request's ids are its own
-X_LAYERS = 4  # of Mixtral-8x7B's 32: the depth cut for the script's time (paths P, N came in)
+X_LAYERS = 2  # of Mixtral-8x7B's 32: the depth cut for the script's time (paths P, N, U came in)
 
 
 def _x_mixtral_8x7b(dev_tag: str) -> list:
@@ -4374,7 +4439,7 @@ K_MOONLIGHT = dict(
     rope_theta=50000.0, rope_scaling=None, max_position_embeddings=8192)
 # of Moonlight's 27 layers (the first dense, then 4 MoE): the depth cut for
 # the script's time (paths P and N came in)
-K_MOONLIGHT_LAYERS = 5
+K_MOONLIGHT_LAYERS = 3  # 5 until path U came in
 # deepseek-ai/DeepSeek-V3's config.json: the published widths are the
 # dataclass's defaults (hidden 7168, 128 heads, q_lora 1536, 256 experts in
 # 8 groups, top-8 of the best 4 groups, 1 shared); its YaRN block; cut to
@@ -5132,6 +5197,10 @@ P_QWEN_TEXT = dict(vocab_size=152064, hidden_size=3584, intermediate_size=18944,
                    max_position_embeddings=32768, rms_norm_eps=1e-6, rope_theta=1e6,
                    attention_bias=True)
 P_QWEN_VISION_END = 151653
+# the text depths the script runs: LLaVA-1.5-7B's 8 of 32 and Qwen2-VL-7B's 6
+# of 28 (cut for the script's time when path U came in); the towers
+# run at full depth
+P_LLAVA_LAYERS, P_QWEN_LAYERS = 8, 6
 # one 448 x 448 image: 32 x 32 patches of 14, 1024 rows, 256 merged tokens
 P_QWEN_GRID = ((1, 32, 32),)
 P_QWEN_NEW = 16
@@ -5243,7 +5312,7 @@ def _p_bit_equal(tag: str, what: str, found: dict) -> str:
 
 
 def _p_llava(dev_tag: str) -> list:
-    """LLaVA-1.5-7B at full width and depth, 32 + 24 layers: random bf16
+    """LLaVA-1.5-7B at full width, P_LLAVA_LAYERS of 32 + 24 layers: random bf16
     weights from seed 0, `HQQVLModel.quantize_model` (4-bit g64; the patch
     projection and the projector stay bf16), save_quantized; `serve.main`
     on the checkpoint with its defaults (paged, w4a8, fused; the tower
@@ -5260,7 +5329,8 @@ def _p_llava(dev_tag: str) -> list:
     from hqq_tpu_torch.serve import main as serve_main
 
     cfg = llava.LlavaConfig(text=dataclasses.replace(LlamaConfig.llama2_7b(),
-                                                     vocab_size=P_LLAVA_VOCAB))
+                                                     vocab_size=P_LLAVA_VOCAB,
+                                                     num_hidden_layers=P_LLAVA_LAYERS))
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -5543,7 +5613,7 @@ def _p_served(dev_tag: str, cfg, srv, boot_s: float) -> list:
 
 
 def _p_qwen2_vl(dev_tag: str) -> list:
-    """Qwen2-VL-7B at full width and depth (28 + 32 layers), random bf16
+    """Qwen2-VL-7B at full width, P_QWEN_LAYERS of 28 + 32 layers, random bf16
     weights from seed 0, 4-bit g64 both towers, prepared with "w4a8" (the
     tower on row 1): `HQQVLModel.generate` on one 448 x 448 image (its
     launch window), then the dense engine with ``mrope_offsets``: the image
@@ -5558,7 +5628,9 @@ def _p_qwen2_vl(dev_tag: str) -> list:
     from hqq_tpu_torch.models.llama import LlamaConfig
     from hqq_tpu_torch.serving.batching import ContinuousBatchingEngine
 
-    cfg = qwen2_vl.Qwen2VLConfig(text=LlamaConfig(**P_QWEN_TEXT), vision=qwen2_vl.VisionConfig())
+    cfg = qwen2_vl.Qwen2VLConfig(text=LlamaConfig(**dict(P_QWEN_TEXT,
+                                                         num_hidden_layers=P_QWEN_LAYERS)),
+                                 vision=qwen2_vl.VisionConfig())
     vc, layers = cfg.vision, cfg.text.num_hidden_layers
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -5745,6 +5817,7 @@ N_TEXT = dict(vocab_size=100352, hidden_size=2560, intermediate_size=1664, num_h
               rms_norm_eps=1e-6, rope_theta=5e6, moe_num_experts=64, moe_topk=6,
               moe_num_shared_experts=2)
 N_CAPACITY = 64 / 6  # E / top_k: nothing dropped, a request's ids are its own
+N_LAYERS = 6  # of Aria's 28 text layers: the depth cut for the script's time (path U)
 # N's 12 requests: 8 with one 980 x 980 image, 4 text-only (at 2, 5, 8 and
 # 11), 32 new tokens each; generate on the first three; the dense engine of 8
 # slots over 1024 rows
@@ -5989,7 +6062,7 @@ def _n_forced(model, prompt, pixels, got):
 
 
 def _n_build(dev_tag: str):
-    """Aria at full width and depth, random bf16 weights from seed 0: the
+    """Aria at full width, N_LAYERS of its 28 text layers, random bf16 weights from seed 0: the
     tower and projector drawn at once, the text model a layer at a time,
     each layer quantized as it is drawn (`aria.quantize_aria`: attention,
     shared experts and the stacks at 4-bit g64; the router in bf16), then
@@ -6003,7 +6076,8 @@ def _n_build(dev_tag: str):
     from hqq_tpu_torch.engine.vl import AutoHQQVLModel, HQQVLModel
     from hqq_tpu_torch.models import aria
 
-    tc = aria.AriaTextConfig(**N_TEXT, capacity_factor=N_CAPACITY)
+    tc = aria.AriaTextConfig(**dict(N_TEXT, num_hidden_layers=N_LAYERS),
+                             capacity_factor=N_CAPACITY)
     cfg = aria.AriaConfig(text=tc, image_token_index=9)
     gc.collect()
     torch.cuda.empty_cache()
@@ -6059,7 +6133,7 @@ def _n_build(dev_tag: str):
 
 
 def phase_n(dev_tag: str) -> list:
-    """Path N: Aria at full width and depth (`_n_build`), prepared with
+    """Path N: Aria at full width, N_LAYERS deep (`_n_build`), prepared with
     "w4a8": `HQQVLModel.generate` on two image prompts and a text prompt
     (its launch window), the dense engine in-process with `aria.forward`
     as its forward hooks on 8 slots over N's 12 requests (the images
@@ -6402,6 +6476,553 @@ def phase_t(dev_tag: str) -> list:
     return windows
 
 
+# path U: HQQ+'s sub-word groups. U's model is Llama-2-7B at 2-bit g8 axis=1
+# (HQQ+'s published mobiuslabs/Llama-2-7b-chat-hf_2bitgs8_hqq names the
+# recipe); the kernel coverage adds the other configs whose group is shorter
+# than a 32-bit word: (nbits, g), 2 or 4 groups a word
+U_NBITS, U_GROUP = 2, 8
+U_CONFIGS = [(2, 8), (1.58, 8), (1, 8), (1, 16)]
+# U's decode shapes (M, K, N) under w4a8: a layer's down_proj input side at
+# B = 4, and the fused q/k/v, gate/up and down of the paged engine's 8
+# slots; its prefill (B = 4 x t_pad 128); qmm_fp32's row (fp32 x)
+U_DECODE_SHAPES = [(4, 4096, 11008), (8, 4096, 12288), (8, 4096, 22016), (8, 11008, 4096)]
+U_PREFILL_SHAPE = (512, 4096, 11008)
+U_FP32_SHAPE = (512, 4096, 4096)
+U_DEQUANT_SHAPE = (11008, 4096)  # W [N, K] of the MLP's gate and up
+U_ITERS = 50
+
+
+def _u_note(nbits, g, meta=torch.float32) -> str:
+    return f"{nbits}-bit g{g} axis=1" + (", bf16 meta" if meta == torch.bfloat16 else "")
+
+
+def _u_kqt(n: int, k: int, nbits, g: int, seed: int, meta=torch.float32):
+    from hqq_tpu_torch.core.quantize import quantize
+    from hqq_tpu_torch.ops.fused_matmul import to_kernel_layout
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn((n, k), generator=gen, device="cuda") / k**0.5
+    return to_kernel_layout(quantize(w, nbits=nbits, group_size=g, axis=1), meta)
+
+
+def _u_tile_held(what: str, kqt, run, plain, tol: float) -> float:
+    """A tile kernel's ``run(kqt)`` against ``plain(kqt)`` within ``tol`` of
+    max|y|; every control of `_w4a8_controls` through the plain twin must
+    miss it (the word's other group among them); three runs bit-equal.
+    Returns the largest error."""
+    y, ref = run(kqt), plain(kqt)
+    err = rel(y, ref)
+    misses = {c: rel(plain(bad), ref) for c, bad in _w4a8_controls(kqt).items()}
+    runs = [run(kqt) for _ in range(3)]
+    equal = all(torch.equal(r, runs[0]) for r in runs[1:])
+    log(f"[b] {what}: rel err {err:.3e} (tol {tol:.1e}); controls "
+        f"{ {c: round(v, 4) for c, v in misses.items()} } (must exceed it); three runs "
+        f"bit-equal: {equal}")
+    if not (err <= tol) or not torch.isfinite(y).all():
+        raise AssertionError(f"{what}: err {err} > {tol}")
+    if not all(v > tol for v in misses.values()) or "the word's other group" not in misses:
+        raise AssertionError(f"{what}: the bar does not catch a wrong group's meta")
+    if not equal:
+        raise AssertionError(f"{what}: repeated runs differ")
+    return (y.float() - ref.float()).abs().max().item()
+
+
+def phase_b_u(record, iters: int = U_ITERS) -> None:
+    """Phase b's rows of path U: every route that takes the sub-word groups,
+    each config at U's shapes, held to its plain twin with the controls
+    (the word's other group, a neighbour's scale) and three bit-equal runs,
+    timed against its bound, the twin and the library call: rows 2/3 and 8
+    (w4a8, the CUDA-core route) at U's decode shapes, row 1 and row 7 at its
+    prefill, row 4 (dequant) of W [11008, 4096], `qmm_fp32` at 2-bit g8;
+    2-bit g8 also with bf16 meta at (4, 4096, 11008)."""
+    from hqq_tpu_torch.ops import fused_matmul as fm
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    r = LORA_RANK
+    plain_iters = 3
+    for nbits, g in U_CONFIGS:
+        cb = fm._KERNEL_CONTAINER_BITS[nbits]
+        shapes = U_DECODE_SHAPES if (nbits, g) == (U_NBITS, U_GROUP) else U_DECODE_SHAPES[:1]
+        metas = [torch.float32] + ([torch.bfloat16] if (nbits, g) == (U_NBITS, U_GROUP) else [])
+        # -- rows 2/3: w4a8_matmul on the CUDA cores
+        for (m, k, n) in shapes:
+            for meta in (metas if (m, k, n) == U_DECODE_SHAPES[0] else metas[:1]):
+                kqt = _u_kqt(n, k, nbits, g, seed=k + n + g, meta=meta)
+                plan = fm.w4a8_launch_plan(m, n, k, cb, g, meta)
+                if plan.route != "cuda_cores":
+                    raise AssertionError(f"[b] {nbits}-bit g{g}: w4a8 plan {plan.route}")
+                x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+                x8, sx = fm.quantize_activations_int8(x)
+                note = _u_note(nbits, g, meta)
+                worst = _w4a8_held(f"w4a8_matmul M={m} K={k} N={n} {note}", kqt,
+                                   lambda q, dt: fm.w4a8_matmul(x8, sx, q, dt),
+                                   lambda q, dt: fm.w4a8_matmul_plain(x8, sx, q, dt))
+                wbytes = _weight_bytes(kqt)
+                kq, xq = _copies(kqt, x8, wbytes)
+                ms = time_ms([lambda a=a, b=b: fm.w4a8_matmul(b, sx, a, torch.bfloat16)
+                              for a, b in zip(kq, xq)], iters)
+                plain = time_ms([lambda: fm.w4a8_matmul_plain(x8, sx, kqt, torch.bfloat16)],
+                                plain_iters)
+                w_bf16 = fm.dequant_plain(kqt, torch.bfloat16)
+                lib = time_ms([lambda: torch.matmul(x, w_bf16.t())], iters)
+                del w_bf16, kq, xq
+                b_ms, by = bound_ms(wbytes + m * k + 4 * m + 2 * m * n, 2.0 * m * n * k, "int8")
+                record("w4a8_matmul", dict(
+                    kernel="w4a8_matmul", m=m, k=k, n=n, max_abs_err=worst, ms=ms,
+                    plain_ms=plain, bound_ms=b_ms, bound_by=by, library_ms=lib, note=note,
+                    plan=f"{plan.route}, grid {plan.grid}, {plan.smem} B of shared memory"))
+        m, k, n = U_DECODE_SHAPES[0]
+        # -- row 8: w4a8_lora_matmul, the adapter in the epilogue
+        kqt = _u_kqt(n, k, nbits, g, seed=k * 3 + g)
+        a, b = _make_lora(k, n, seed=g)
+        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        x8, sx = fm.quantize_activations_int8(x)
+        xa = x.float() @ a
+        note = _u_note(nbits, g)
+        worst = _w4a8_held(f"w4a8_lora_matmul M={m} K={k} N={n} r={r} {note}", kqt,
+                           lambda q, dt: fm.w4a8_lora_matmul(x8, sx, q, xa, b, dt),
+                           lambda q, dt: fm.w4a8_lora_matmul_plain(x8, sx, q, xa, b, dt))
+        wbytes = _weight_bytes(kqt)
+        kq, xq = _copies(kqt, x8, wbytes)
+        ms = time_ms([lambda p=p, q=q: fm.w4a8_lora_matmul(q, sx, p, xa, b, torch.bfloat16)
+                      for p, q in zip(kq, xq)], iters)
+        plain = time_ms([lambda: fm.w4a8_lora_matmul_plain(x8, sx, kqt, xa, b, torch.bfloat16)],
+                        plain_iters)
+        w_bf16 = fm.dequant_plain(kqt, torch.bfloat16)
+        lib = time_ms([lambda: torch.matmul(x, w_bf16.t()).float()
+                       + torch.matmul(torch.matmul(x.float(), a), b)], iters)
+        del w_bf16, kq, xq
+        b_ms, by = bound_ms(wbytes + m * k + 4 * m + 4 * m * r + 4 * r * n + 2 * m * n,
+                            2.0 * m * n * k, "int8", fp32_ops=2.0 * m * r * n)
+        record("w4a8_lora_matmul", dict(
+            kernel="w4a8_lora_matmul", m=m, k=k, n=n, max_abs_err=worst, ms=ms, plain_ms=plain,
+            bound_ms=b_ms, bound_by=by, library_ms=lib, note=f"r=8, {note}",
+            library="three torch.matmul calls and their sum"))
+        # -- rows 1 and 7 at U's prefill, on the qmm_sm90.cuh mainloop
+        m, k, n = U_PREFILL_SHAPE
+        kqt = _u_kqt(n, k, nbits, g, seed=k * 5 + g)
+        a, b = _make_lora(k, n, seed=g + 1)
+        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        wbytes = _weight_bytes(kqt)
+        kq, xq = _copies(kqt, x, wbytes)
+        w_bf16 = fm.dequant_plain(kqt, torch.bfloat16)
+        for kernel in ("quant_matmul", "quant_matmul_lora"):
+            lora = kernel == "quant_matmul_lora"
+            fn = getattr(fm, kernel)
+            plain_fn = getattr(fm, kernel + "_plain")
+            extra_args = (a, b) if lora else ()
+            what = f"{kernel} M={m} K={k} N={n}{' r=8' if lora else ''} {note}"
+            worst = _u_tile_held(what, kqt, lambda q: fn(x, q, *extra_args),
+                                 lambda q: plain_fn(x, q, *extra_args), 2.0**-7)
+            ms = time_ms([lambda p=p, q=q: fn(q, p, *extra_args) for p, q in zip(kq, xq)], iters)
+            plain = time_ms([lambda: plain_fn(x, kqt, *extra_args)], plain_iters)
+            if lora:
+                a16 = a.to(torch.bfloat16)
+                lib = time_ms([lambda: torch.matmul(x, w_bf16.t()).float()
+                               + torch.matmul(torch.matmul(x, a16).float(), b)], iters)
+                b_ms, by = bound_ms(wbytes + 2 * m * k + 2 * m * n + 4 * r * (k + n),
+                                    2.0 * m * n * k + 2.0 * m * k * r, "bf16",
+                                    fp32_ops=2.0 * m * r * n)
+            else:
+                lib = time_ms([lambda: torch.matmul(x, w_bf16.t())], iters)
+                b_ms, by = bound_ms(wbytes + 2 * m * k + 2 * m * n, 2.0 * m * n * k, "bf16")
+            record(kernel, dict(kernel=kernel, m=m, k=k, n=n, max_abs_err=worst, ms=ms,
+                                plain_ms=plain, bound_ms=b_ms, bound_by=by, library_ms=lib,
+                                note=f"r=8, {note}" if lora else note))
+        del kq, xq, w_bf16
+        # -- row 4: the dequant kernel, W [N, K] to bf16, bit-equal
+        n, k = U_DEQUANT_SHAPE
+        kqt = _u_kqt(n, k, nbits, g, seed=n + g)
+        out = fm.dequant(kqt, torch.bfloat16)
+        ref = fm.dequant_plain(kqt, torch.bfloat16)
+        bad = {c: torch.equal(fm.dequant_plain(q, torch.bfloat16), ref)
+               for c, q in _w4a8_controls(kqt).items()}
+        equal = all(torch.equal(fm.dequant(kqt, torch.bfloat16), out) for _ in range(3))
+        log(f"[b] dequant W [{n}, {k}] {note}: bit-equal to its twin {torch.equal(out, ref)}; "
+            f"controls bit-equal {bad} (must be False); three runs bit-equal {equal}")
+        if not torch.equal(out, ref) or any(bad.values()) or not equal:
+            raise AssertionError(f"[b] dequant {note} disagrees with its twin or its controls")
+        wbytes = _weight_bytes(kqt)
+        kq, _ = _copies(kqt, None, wbytes + 2 * n * k)
+        ms = time_ms([lambda q=q: fm.dequant(q, torch.bfloat16) for q in kq], iters)
+        plain = time_ms([lambda: fm.dequant_plain(kqt, torch.bfloat16)], plain_iters)
+        del kq
+        b_ms, by = bound_ms(wbytes + 2 * n * k, 0.0, "bf16")
+        record("dequant", dict(kernel="dequant", m=None, k=n, n=k, max_abs_err=0.0, ms=ms,
+                               plain_ms=plain, bound_ms=b_ms, bound_by=by, library_ms=None,
+                               note=note))
+    # -- qmm_fp32: fp32 x at 2-bit g8 (hqq_tpu multiplies in x's type)
+    m, k, n = U_FP32_SHAPE
+    kqt = _u_kqt(n, k, U_NBITS, U_GROUP, seed=7)
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    note = f"fp32 x, {_u_note(U_NBITS, U_GROUP)}"
+    worst = _u_tile_held(f"qmm_fp32 M={m} K={k} N={n} {note}", kqt,
+                         lambda q: fm.quant_matmul(x, q), lambda q: fm.quant_matmul_plain(x, q),
+                         TOL_QMM_FP32)
+    wbytes = _weight_bytes(kqt)
+    kq, xq = _copies(kqt, x, wbytes)
+    ms = time_ms([lambda p=p, q=q: fm.quant_matmul(q, p) for p, q in zip(kq, xq)], iters)
+    plain = time_ms([lambda: fm.quant_matmul_plain(x, kqt)], plain_iters)
+    w32 = fm.dequant_plain(kqt, torch.float32)
+    lib = time_ms([lambda: torch.matmul(x, w32.t())], iters)
+    del kq, xq, w32
+    b_ms, by = bound_ms(wbytes + 4 * m * k + 4 * m * n, 3 * 2.0 * m * n * k, "tf32")
+    record("qmm_fp32", dict(kernel="qmm_fp32", m=m, k=k, n=n, max_abs_err=worst, ms=ms,
+                            plain_ms=plain, bound_ms=b_ms, bound_by=by, library_ms=lib, note=note))
+    torch.cuda.empty_cache()
+
+
+def _u_route_checks(model) -> None:
+    """U-plus's prepared tree: every linear an `A8LoRAQuantLinear` of 2-bit
+    g8 whose decode plan is the CUDA-core route; a partial decode step with
+    no canonical dequant and no `F.linear` on any weight but lm_head's; the
+    replayed graph's kernels: the w4a8 ones all `w4a8_dp4a_kernel`, no
+    canonical dequant kernel."""
+    from unittest import mock
+
+    import torch.nn.functional as F
+
+    from hqq_tpu_torch import ops
+    from hqq_tpu_torch.backends.pallas_backend import A8LoRAQuantLinear
+    from hqq_tpu_torch.ops import fused_matmul as fm
+
+    layers = [mod for layer in model.params["layers"] for block in ("self_attn", "mlp")
+              for mod in layer[block].values()]
+    if len(layers) != LINEARS_PER_PASS or not all(
+            isinstance(mod, A8LoRAQuantLinear) and mod.kqt.container_bits == 2
+            and mod.kqt.group_size == U_GROUP for mod in layers):
+        raise AssertionError("[u] U-plus's tree is not 224 A8LoRAQuantLinear of 2-bit g8")
+    routes = {(mod.kqt.k, mod.kqt.n): fm.w4a8_launch_plan(4, mod.kqt.n, mod.kqt.k, 2, U_GROUP,
+                                                          mod.kqt.scale.dtype).route
+              for mod in layers}
+    if set(routes.values()) != {"cuda_cores"}:
+        raise AssertionError(f"[u] decode plans {routes}")
+    prompts = _prompts(model.cfg)
+    linear = F.linear
+    weights = []
+
+    def recorded(x, w, *a, **kw):
+        weights.append(tuple(w.shape))
+        return linear(x, w, *a, **kw)
+
+    ops.reset_launch_counts()
+    with mock.patch.object(F, "linear", recorded):
+        model.generate(prompts, max_new_tokens=2, compile_mode="partial")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    head = tuple(model.params["lm_head"].weight.shape)
+    if counts["dequant_canonical"] or set(weights) - {head}:
+        raise AssertionError(f"[u] a partial step ran the canonical route: "
+                             f"{counts['dequant_canonical']} canonical dequants, F.linear on "
+                             f"{sorted(set(weights))}")
+    model.generate(prompts, max_new_tokens=8)  # captures the graph
+    busy = device_share(lambda: model.generate(prompts, max_new_tokens=8))
+    names = busy["by_name"]
+    w4a8 = sorted(busy["w4a8"])
+    canonical = [k for k in names if "dequant_canonical" in k]
+    model.release_graphs()
+    log(f"[u] U-plus's decode: plans {sorted(set(routes.values()))} at {sorted(routes)}; a "
+        f"partial prefill and decode step: {counts['w4a8_lora_matmul']} w4a8_lora_matmul, "
+        f"{counts['quant_matmul_lora']} quant_matmul_lora, 0 canonical dequants, F.linear only "
+        f"on {sorted(set(weights))}; a replayed 8-token generate's w4a8 kernels {busy['w4a8']} "
+        f"ms, canonical dequant kernels {canonical}")
+    if not w4a8 or not all("dp4a" in k for k in w4a8) or canonical:
+        raise AssertionError(f"[u] the replayed decode ran {w4a8} and {canonical}")
+
+
+def _u_plus(dev_tag: str, root: str) -> tuple:
+    """U-plus: Llama-2-7B at full width and depth, random bf16 weights from
+    seed 0, 2-bit g8 axis=1 (saved to ``root`` before the adapters go on,
+    for U-serve), rank-8 adapters on all 224 linears with B from a seed,
+    "w4a8" (`A8LoRAQuantLinear`: row 8 at decode, row 7 at prefill):
+    `serve_7b`'s window (prefill ms, Generator "partial" and "full" decode
+    tok/s at B = 4 against the byte bound, busy share, peak, quantize s),
+    every fused call of a prefill and two decode steps against its twin with
+    the word's-other-group control, and `_u_route_checks`. Returns the
+    launch window."""
+    from hqq_tpu_torch import BaseQuantizeConfig
+    from hqq_tpu_torch.core.peft import PeftUtils, lora_config
+    from hqq_tpu_torch.ops import fused_matmul as fm
+
+    saved = {}
+
+    def save_then_adapt(model):
+        t0 = time.time()
+        model.save_quantized(root)
+        saved["s"] = time.time() - t0
+        saved["gb"] = sum(os.path.getsize(os.path.join(root, f)) for f in os.listdir(root)) / 1e9
+        PeftUtils.add_lora(model.params, lora_config(r=LORA_RANK, lora_alpha=LORA_ALPHA),
+                           torch.Generator(device="cuda").manual_seed(22))
+        _fill_lora_b(model.params, 23)
+
+    n = LINEARS_PER_PASS
+    launches, model, _ = serve_7b(
+        "u", dev_tag, BaseQuantizeConfig(nbits=U_NBITS, group_size=U_GROUP),
+        {"quant_matmul_lora": (n, 0), "w4a8_lora_matmul": (0, n),
+         "rms_norm": (NORMS_PER_PASS, NORMS_PER_PASS)}, after_quantize=save_then_adapt)
+    log(f"[u] save_quantized of the 2-bit g8 base: {saved['gb']:.3f} GB in {saved['s']:.2f} s")
+
+    def word_swapped(plain):
+        def fn(*args):
+            args = list(args)
+            i = next(j for j, v in enumerate(args) if isinstance(v, fm.KernelQTensor))
+            args[i] = _word_neighbour(args[i])
+            return plain(*args)
+        return fn
+
+    check_calls("u", model, {
+        "quant_matmul_lora": (fm.quant_matmul_lora_plain,
+                              {"the word's other group": word_swapped(fm.quant_matmul_lora_plain)}),
+        "w4a8_lora_matmul": (fm.w4a8_lora_matmul_plain,
+                             {"the word's other group": word_swapped(fm.w4a8_lora_matmul_plain)}),
+    })
+    _u_route_checks(model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _u_serve(dev_tag: str, root: str) -> dict:
+    """U-serve: `serve.main --nbits 2 --group-size 8` on U's checkpoint with
+    its defaults (paged engine, w4a8, fuse_for_decode), G's pool and a
+    horizon of 8; a warm-up, G's 12 requests from 12 client threads (6
+    streamed): ids equal to an in-process engine's on the served tree;
+    boot s, time to first token, tokens/s at the client and in-process, ms
+    a step against the byte bound, the busy share of 8 steady steps, the
+    server's peak. Returns the launch window."""
+    import types
+
+    import numpy as np
+
+    from hqq_tpu_torch import ops
+    from hqq_tpu_torch.backends.pallas_backend import A8QuantLinear
+    from hqq_tpu_torch.serve import main as serve_main
+    from hqq_tpu_torch.serving.paged import PagedBatchingEngine
+
+    argv = ["--model", root, "--port", "0", "--nbits", str(U_NBITS), "--group-size",
+            str(U_GROUP), "--slots", str(G_SLOTS), "--num-pages", str(G_PAGES), "--page-size",
+            str(PAGE), "--max-pages-per-seq", str(MAX_PAGES), "--horizon", str(S_HORIZON)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    srv = serve_main(argv, serve=False).start()
+    boot_s = time.time() - t0
+    eng = srv.engine
+    params, cfg = eng.params, eng.cfg
+    layers = cfg.num_hidden_layers
+    fused = [layer[b][name] for layer in params["layers"]
+             for b, name in (("self_attn", "qkv_proj"), ("mlp", "gate_up_proj"))]
+    if not all(isinstance(f, A8QuantLinear) and f.kqt.container_bits == 2
+               and f.kqt.group_size == U_GROUP for f in fused):
+        raise AssertionError("[u] the served tree is not fused 2-bit g8 A8QuantLinear layers")
+    prompts = _g_prompts(cfg, np.random.default_rng(0))
+    steps = []
+    decode = eng._decode
+    eng._decode = lambda h: (steps.append(h), decode(h))[1]
+    try:
+        t_warm = time.time()
+        _s_request(srv.port, prompts[0][:64], 8, False, t_warm)
+        warm_s = time.time() - t_warm
+        ops.reset_launch_counts()  # the main path's window
+        steps.clear()
+        results, window_s = _s_window(srv.port, prompts, G_NEW)
+        launches = launch_counts()
+        n_steps = sum(steps)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        srv.stop()
+    eng.close()
+    del eng, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    expect = {"w4a8_matmul": 4 * layers * n_steps, "paged_attention": layers * n_steps,
+              "quant_matmul": 4 * layers * len(prompts), "dequant_canonical": 0}
+    for name, want in expect.items():
+        if launches[name] != want:
+            raise AssertionError(f"[u] {launches[name]} {name} launches in the window ({n_steps} "
+                                 f"decode steps, {len(prompts)} prefills), expected {want}")
+    outs, recs, inproc_s, _ = _serve_paged(types.SimpleNamespace(params=params, cfg=cfg),
+                                           prompts, G_NEW, horizon=S_HORIZON)
+    same = [r["tokens"] == o for r, o in zip(results, outs)]
+    decode_s = sum(rc["ms"] for rc in recs) / 1e3
+    dec_steps = sum(rc["steps"] for rc in recs)
+    tokens = sum(rc["live"] * rc["steps"] for rc in recs)
+    weights = _step_weight_bytes(params)
+    kv = (sum(rc["rows"] for rc in recs) / len(recs)
+          * 2 * layers * cfg.num_key_value_heads * cfg.head_dim_ * 2)
+    bound = (weights + kv) / HBM_BYTES_PER_S * 1e3
+    eng = PagedBatchingEngine(params, cfg, batch_slots=G_SLOTS, num_pages=G_PAGES,
+                              page_size=PAGE, max_pages_per_seq=MAX_PAGES)
+    rng = np.random.default_rng(1)
+    for _ in range(G_SLOTS):
+        eng.add_request(rng.integers(0, cfg.vocab_size, 256), max_new_tokens=G_NEW)
+    eng.step()
+    busy = device_share(lambda: [eng.step() for _ in range(8)])
+    eng.close()
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    all_tokens = sum(len(r["tokens"]) for r in results)
+    first = sorted(r["first_s"] for r in results if r["chunks"] is not None)
+    log(f"[u] {dev_tag}: U-serve, serve.main --nbits 2 --group-size 8 (paged, w4a8, fused, "
+        f"{G_SLOTS} slots, {G_PAGES} pages of {PAGE} rows, horizon {S_HORIZON}) to a started "
+        f"server {boot_s:.2f} s, warm-up {warm_s:.2f} s; 12 requests (prompts "
+        f"{[len(p) for p in prompts]}, {G_NEW} new, greedy) from 12 client threads, 6 streamed: "
+        f"window {window_s:.3f} s, {all_tokens / window_s:.1f} tok/s at the client; time to "
+        f"first token median {first[len(first) // 2]:.3f} s, max {first[-1]:.3f} s; in-process "
+        f"{inproc_s:.3f} s, {all_tokens / inproc_s:.1f} tok/s, ids equal the server's in "
+        f"{sum(same)} of {len(same)}; decode {tokens / decode_s:.1f} tok/s over all slots, "
+        f"{decode_s / dec_steps * 1e3:.2f} ms a step against a byte bound of {bound:.3f} ms "
+        f"({weights / 1e9:.3f} GB of codes, fp32 meta and the bf16 head + {kv / 1e9:.3f} GB of "
+        f"K/V rows on average); the server's peak {peak:.2f} GiB")
+    log(f"[u] {dev_tag}: 8 decode steps of 8 slots at lengths around 260: device busy "
+        f"{busy['busy_share']:.3f} of {busy['wall_ms']:.1f} ms wall, device {busy['device_ms']:.3f}"
+        f" ms; device ms by kernel {busy['top']}; w4a8 kernels {busy['w4a8']}")
+    log(f"[u] launches in the server's window ({n_steps} decode steps, {len(prompts)} prefills): "
+        f"{launches}")
+    if not all(same):
+        raise AssertionError(f"[u] the server's ids differ from the in-process engine's in "
+                             f"{len(same) - sum(same)} of {len(same)} requests")
+    return launches
+
+
+# the bars of the 2-layer logits: phase d's (the same bf16 weights summed in
+# another order; int8 activations whose roundings flip between two paths
+# that differ in a last bit), phase e's with an adapter, and the fp32 route's
+U_TOL = {"prefill": 2e-2, "prefill lora": 5e-2, "decode w4a8": 0.1, "fp32": TOL_FLASH_FP32}
+
+
+def _u_two_layer() -> dict:
+    """Kernel coverage: a 2-layer model at 7B width for each config of
+    U_CONFIGS (`_two_layer`, seed 60 + 2i), and 2-bit g8 in fp32 compute; each "pallas"
+    and "w4a8", without and with rank-8 adapters: `Generator` (4 prompts of
+    100 tokens, 4 new, "partial") and the logits of a prefill (M = 512) and
+    4 decode steps. Prefill logits against the canonical `QuantLinear`
+    route (LoRALinear over it with an adapter), "pallas" decode likewise,
+    "w4a8" decode against the same steps through the plain twins; the
+    control, every layer with each field on the word's other group's meta
+    (the twins on `_word_neighbour`), must miss each bar. Returns the launch
+    window."""
+    from unittest import mock
+
+    import numpy as np
+
+    from hqq_tpu_torch import BaseQuantizeConfig, ops
+    from hqq_tpu_torch.core.peft import PeftUtils, lora_config
+    from hqq_tpu_torch.engine.hf import HQQModel
+    from hqq_tpu_torch.ops import fused_matmul as fm
+    from hqq_tpu_torch.utils.patching import prepare_for_inference
+
+    window = {}
+    twins = {name: getattr(fm, name + "_plain") for name in
+             ("quant_matmul", "quant_matmul_lora", "w4a8_matmul", "w4a8_lora_matmul")}
+
+    def plain_fp32(x2, kqt, a=None, b=None):
+        return (fm.quant_matmul_plain(x2, kqt) if a is None
+                else fm.quant_matmul_lora_plain(x2, kqt, a, b))
+
+    twins["qmm_fp32"] = plain_fp32
+
+    def on_twins(word=False):
+        """Every matmul wrapper replaced by its plain twin (on the word's
+        other group's meta where ``word``)."""
+        def swap(fn):
+            def run(*args):
+                args = [(_word_neighbour(v) if word and isinstance(v, fm.KernelQTensor) else v)
+                        for v in args]
+                return fn(*args)
+            return run
+        return [mock.patch.object(fm, name, swap(fn)) for name, fn in twins.items()]
+
+    def logits_with(tree, cfg, toks, dtype, patches=()):
+        with contextlib.ExitStack() as stack:
+            for p in patches:
+                stack.enter_context(p)
+            return _logits(tree, cfg, toks, dtype=dtype)
+
+    cases = [(nbits, g, torch.bfloat16) for nbits, g in U_CONFIGS] + \
+        [(U_NBITS, U_GROUP, torch.float32)]
+    for i, (nbits, g, dtype) in enumerate(cases):
+        cfg, base, toks = _two_layer(BaseQuantizeConfig(nbits=nbits, group_size=g), 60 + 2 * i,
+                                     dtype)
+        lora = containers(base)
+        PeftUtils.add_lora(lora, lora_config(r=LORA_RANK, lora_alpha=LORA_ALPHA),
+                           torch.Generator(device="cuda").manual_seed(70 + i))
+        _fill_lora_b(lora, 80 + i)
+        prompts = toks[:, :100].cpu().numpy()
+        t = 128
+        name = f"{nbits}-bit g{g}" + (", fp32" if dtype == torch.float32 else "")
+        for adapters, tree in (("", base), (" + LoRA r=8", lora)):
+            with torch.inference_mode():
+                canonical = _logits(tree, cfg, toks, dtype=dtype)
+            for backend in ("pallas", "w4a8"):
+                prepared = prepare_for_inference(containers(tree), backend)
+                ops.reset_launch_counts()
+                ids = HQQModel(prepared, cfg, quantized=True).generate(
+                    prompts, max_new_tokens=4, compile_mode="partial", cache_dtype=dtype)
+                with torch.inference_mode():
+                    got = _logits(prepared, cfg, toks, dtype=dtype)
+                counts = {k: v for k, v in launch_counts().items() if v}
+                for k, v in counts.items():
+                    window[k] = window.get(k, 0) + v
+                with torch.inference_mode():
+                    control = logits_with(prepared, cfg, toks, dtype, on_twins(word=True))
+                    twin = (logits_with(prepared, cfg, toks, dtype, on_twins())
+                            if backend == "w4a8" else canonical)
+                pre = (U_TOL["fp32"] if dtype == torch.float32
+                       else U_TOL["prefill lora" if adapters else "prefill"])
+                bars = {"prefill": (pre, canonical),
+                        "decode": (U_TOL["decode w4a8"], twin) if backend == "w4a8"
+                        else (pre, canonical)}
+                errs, misses = {}, {}
+                for part, (tol, ref) in bars.items():
+                    sl = slice(0, t) if part == "prefill" else slice(t, None)
+                    errs[part] = rel(got[:, sl], ref[:, sl])
+                    misses[part] = rel(control[:, sl], ref[:, sl])
+                log(f"[u] 2-layer 7B-width {name}{adapters}, {backend}: Generator ids "
+                    f"{np.asarray(ids)[0].tolist()}; launches {counts}; logits rel err "
+                    f"{ {k: f'{v:.3e}' for k, v in errs.items()} } (tol "
+                    f"{ {k: v[0] for k, v in bars.items()} }); control, the word's other "
+                    f"group, { {k: f'{v:.3e}' for k, v in misses.items()} } (must exceed it)")
+                if ids.shape != (4, 4) or not torch.isfinite(got).all():
+                    raise AssertionError(f"[u] {name}{adapters} {backend}: bad output")
+                if not all(errs[p] <= bars[p][0] < misses[p] for p in bars):
+                    raise AssertionError(f"[u] {name}{adapters} {backend}: a bar is missed or "
+                                         f"its control passes")
+                kernels = ({"qmm_fp32"} if dtype == torch.float32
+                           else {"quant_matmul_lora" if adapters else "quant_matmul"})
+                if backend == "w4a8":
+                    kernels.add("w4a8_lora_matmul" if adapters else "w4a8_matmul")
+                if not kernels <= set(counts) or counts.get("dequant_canonical"):
+                    raise AssertionError(f"[u] {name}{adapters} {backend}: launches {counts}")
+                del prepared
+        del base, lora
+        gc.collect()
+        torch.cuda.empty_cache()
+    return window
+
+
+def phase_u(dev_tag: str) -> list:
+    """Path U, HQQ+'s 2-bit g8 recipe: U-plus (adapters, Generator), U-serve
+    (the server on the same base's checkpoint) and the 2-layer kernel
+    coverage of every sub-word config. Returns the launch windows."""
+    import shutil
+    import tempfile
+
+    t_u = time.time()
+    root = tempfile.mkdtemp(prefix="hqq-llama2-2bit-g8-")
+    try:
+        windows = [_u_plus(dev_tag, root)]
+        windows.append(_u_serve(dev_tag, root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    windows.append(_u_two_layer())
+    log(f"[u] phase u: {time.time() - t_u:.1f} s")
+    return windows
+
+
 def phase_d(n_layers: int = 2) -> None:
     import dataclasses
     from unittest import mock
@@ -6494,28 +7115,29 @@ def phase_d(n_layers: int = 2) -> None:
     torch.cuda.empty_cache()
 
 
-def _two_layer(quant_config, seed: int):
-    """A 2-layer model at 7B width, quantized: (cfg, params, tokens [4, 132])."""
+def _two_layer(quant_config, seed: int, dtype=torch.bfloat16):
+    """A 2-layer model at 7B width, quantized, its compute in ``dtype``:
+    (cfg, params, tokens [4, 132])."""
     import dataclasses
 
     from hqq_tpu_torch.models.base import quantize_model
     from hqq_tpu_torch.models.llama import LlamaConfig, init_params
 
     cfg = dataclasses.replace(LlamaConfig.llama2_7b(), num_hidden_layers=2)
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), torch.bfloat16,
-                         "cuda")
-    quantize_model(params, quant_config)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), dtype, "cuda")
+    quantize_model(params, quant_config, compute_dtype=dtype)
     toks = torch.randint(0, cfg.vocab_size, (4, 132), device="cuda",
                          generator=torch.Generator(device="cuda").manual_seed(seed + 1))
     return cfg, params, toks
 
 
-def _logits(params, cfg, toks, t: int = 128):
+def _logits(params, cfg, toks, t: int = 128, dtype=torch.bfloat16):
     """Logits of a prefill of ``t`` tokens (M = 4*t rows) and of the decode
-    steps over the rest of ``toks``, one after the other: [4, t + steps, V]."""
+    steps over the rest of ``toks``, one after the other, over a dense
+    cache in ``dtype``: [4, t + steps, V]."""
     from hqq_tpu_torch.models.llama import forward, init_cache
 
-    cache = init_cache(cfg, toks.shape[0], 256, torch.bfloat16, "cuda")
+    cache = init_cache(cfg, toks.shape[0], 256, dtype, "cuda")
     out, cache = forward(params, cfg, toks[:, :t], cache, 0)
     out = [out]
     for i in range(t, toks.shape[1]):
@@ -8499,6 +9121,16 @@ def main(argv: list[str]) -> int:
         phase_t(dev_tag)
         log(power)
         return 0
+    if argv[:2] == ["--phase", "u"]:  # path U alone, after phase b's rows of its routes
+        from hqq_tpu_torch.ops import _build
+
+        built = _build.build_all(["w4a8_matmul", "quant_matmul", "quant_matmul_lora", "qmm_fp32",
+                                  "dequant", "dequant_canonical", "paged_attention", "rms_norm"])
+        log(f"[a] built {sorted(built)}: {max((v[0] for v in built.values()), default=0):.1f} s")
+        phase_b_u(lambda key, row: log("[b] " + json.dumps(row)))
+        phase_u(dev_tag)
+        log(power)
+        return 0
     if argv[:2] == ["--phase", "k"]:  # path K alone, after the grouped kernel's rows
         phase_b_grouped(lambda key, row: log("[b] " + json.dumps(row)), 100)
         phase_k(dev_tag)
@@ -8544,6 +9176,8 @@ def main(argv: list[str]) -> int:
     lap("n")
     windows.extend(phase_t(dev_tag))
     lap("t")
+    windows.extend(phase_u(dev_tag))
+    lap("u")
     phase_g_two_layer()
     phase_h_two_layer()
     phase_d()

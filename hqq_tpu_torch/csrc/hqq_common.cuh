@@ -9,8 +9,11 @@
 //         byte): code k sits at bits [8*b + cb*f, 8*b + cb*f + cb).
 //         So (word >> (cb*f)) & (mask * 0x01010101) yields the four codes
 //         4f..4f+3 as four bytes in k order, ready for __dp4a against four
-//         int8 activations, and a word never straddles a group (the layout
-//         requires g % C == 0).
+//         int8 activations. K is whole words; g is a multiple of 8, so a
+//         field never straddles a group (nor do the 8 codes of two
+//         neighbouring fields 2j, 2j+1), but a word may: at 2-bit g8 and
+//         1-bit g16 it spans 2 groups, at 1-bit g8 4, and each field takes
+//         its own group's scale and zs.
 //   scale [N, C], zs [N, C] with zs = zero*scale, so that
 //         W[n, k] = code * scale - zs (the first K/g columns hold the
 //         groups). fp32 with C = K/g, or bf16 with C = K/g padded to a

@@ -67,12 +67,14 @@
 //     (`tc_smem` below computes the same; the entry refuses a plan whose
 //     bytes differ).
 // The planned small-group route: a group that is not a multiple of 32 codes
-//   (g = 8, 16, 24, ...), code rows that break the 16-byte rule of a TMA map
+//   (g = 8, 16, 24, ..., groups shorter than a word among them: 2-bit g8,
+//   1-bit g8 and g16), code rows that break the 16-byte rule of a TMA map
 //   (1- and 2-bit rows of K*cb/8 % 16 != 0), or meta too large for a block,
 //   go by the plan, before any launch, to `w4a8_dp4a_kernel` on the CUDA
 //   cores: one warp per 2 columns and 8 activation rows, each lane a whole
-//   group of a 32-group K-tile, __dp4a on the unpacked codes, a warp shuffle
-//   at the end.
+//   group at a time of a K-tile of at least 32 groups and 1024 codes, its
+//   fields read from the words they sit in, __dp4a on the unpacked codes, a
+//   warp shuffle at the end.
 #include <string.h>
 
 #include "sm90_ptx.cuh"
@@ -453,20 +455,35 @@ int dispatch_nt(const void* x8, const void* wq, const TcArgs& a, int token_tile,
 
 // ---------------------------------------- the small-group route (CUDA cores) --
 
-constexpr int kDpWarps = 8;       // warps per block
-constexpr int kDpNcol = 2;        // output columns per warp
-constexpr int kDpRows = 8;        // activation rows per block (gridDim.y over M)
-constexpr int kTileGroups = 32;   // groups per K-tile, one per lane
+constexpr int kDpWarps = 8;  // warps per block
+constexpr int kDpNcol = 2;   // output columns per warp
+constexpr int kDpRows = 8;   // activation rows per block (gridDim.y over M)
 
-__host__ __device__ inline int dp4a_smem(int g) { return kDpRows * kTileGroups * (g / 4 + 1) * 4; }
+// Groups of a K-tile: one a lane, or for groups under 32 codes 32 * (32/g),
+// so that a tile holds at least 1024 codes (ops/fused_matmul.py
+// `w4a8_dp4a_smem`). Lane l takes the tile's groups l, l + 32, ...: over
+// the whole of K still every group of its residue mod 32, in order.
+__host__ __device__ inline int dp4a_tile_groups(int g) { return 32 * (g < 32 ? 32 / g : 1); }
+// x8's kDpRows rows of a tile, each group's g/4 words and one of padding
+// (`w4a8_dp4a_smem`)
+__host__ __device__ inline int dp4a_smem(int g) {
+  return kDpRows * dp4a_tile_groups(g) * (g / 4 + 1) * 4;
+}
 
+// A lane owns a group at a time: its g/4 fields of 4 codes, each in one word
+// (4 | g). Where a group is shorter than a word (2-bit g8, 1-bit g8 and g16)
+// the lanes of neighbouring groups read the same word, each its own fields;
+// so a run of 32/(cb*g) lanes owns whole words. Field q of group grp is
+// field f = (k % C) / 4 of word k / C, k = grp*g + 4q, and takes the scale
+// and zs of grp. The group's dots and xsum are exact int32 sums; they fold
+// into fp32 in group order, then the warp's butterfly: repeated runs are
+// bit-equal.
 template <int CB>
 __global__ void __launch_bounds__(kDpWarps * 32)
     w4a8_dp4a_kernel(const int8_t* __restrict__ x8, const float* __restrict__ sx,
                      const uint32_t* __restrict__ wq, const void* __restrict__ scale,
                      const void* __restrict__ zs, Lora lora, void* __restrict__ out, int m, int n,
                      int k, int group_size, int out_dtype, int meta_bf16, int meta_cols) {
-  constexpr int kFields = 8 / CB;  // 4-code fields per weight word
   constexpr int kCodesPerWord = 32 / CB;
   constexpr uint32_t kMask = ((1u << CB) - 1u) * 0x01010101u;
   extern __shared__ int xs_smem[];
@@ -474,9 +491,9 @@ __global__ void __launch_bounds__(kDpWarps * 32)
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int groups = k / group_size;
-  const int words_per_group = group_size / kCodesPerWord;
-  const int xw_per_group = group_size / 4;
-  const int xw_stride = xw_per_group + 1;  // +1: bank spread
+  const int tile_groups = dp4a_tile_groups(group_size);
+  const int xw_per_group = group_size / 4;  // x8 words of a group = its fields
+  const int xw_stride = xw_per_group + 1;   // +1: bank spread
   const int row_words = k / kCodesPerWord;
   const int m0 = blockIdx.y * kDpRows;
   const int col0 = (blockIdx.x * kDpWarps + warp) * kDpNcol;
@@ -489,24 +506,25 @@ __global__ void __launch_bounds__(kDpWarps * 32)
 #pragma unroll
     for (int c = 0; c < kDpNcol; ++c) acc[i][c] = 0.f;
 
-  for (int g0 = 0; g0 < groups; g0 += kTileGroups) {
+  for (int g0 = 0; g0 < groups; g0 += tile_groups) {
     __syncthreads();  // the previous tile has been consumed
-    const int tile_words = kDpRows * kTileGroups * xw_per_group;
+    const int tile_words = kDpRows * tile_groups * xw_per_group;
     for (int idx = threadIdx.x; idx < tile_words; idx += blockDim.x) {
-      const int row = idx / (kTileGroups * xw_per_group);
-      const int rem = idx - row * (kTileGroups * xw_per_group);
+      const int row = idx / (tile_groups * xw_per_group);
+      const int rem = idx - row * (tile_groups * xw_per_group);
       const int gl = rem / xw_per_group;
       const int wj = rem - gl * xw_per_group;
       const int grp = g0 + gl;
       int v = 0;
       if (m0 + row < m && grp < groups)
         v = x32[(static_cast<size_t>(m0 + row) * k + static_cast<size_t>(grp) * group_size) / 4 + wj];
-      xs_smem[(row * kTileGroups + gl) * xw_stride + wj] = v;
+      xs_smem[(row * tile_groups + gl) * xw_stride + wj] = v;
     }
     __syncthreads();
 
-    const int grp = g0 + lane;
-    if (grp < groups) {
+    for (int gl = lane; gl < tile_groups; gl += 32) {
+      const int grp = g0 + gl;
+      if (grp >= groups) break;
       int idot[kDpRows][kDpNcol];
       int xsum[kDpRows];
 #pragma unroll
@@ -515,27 +533,26 @@ __global__ void __launch_bounds__(kDpWarps * 32)
 #pragma unroll
         for (int c = 0; c < kDpNcol; ++c) idot[i][c] = 0;
       }
-      const int* xrow = xs_smem + lane * xw_stride;
-      for (int w0 = 0; w0 < words_per_group; ++w0) {
-        uint32_t wv[kDpNcol];
+      const int* xrow = xs_smem + gl * xw_stride;
+      uint32_t wv[kDpNcol];
+      for (int q = 0; q < xw_per_group; ++q) {
+        const int kq = grp * group_size + 4 * q;  // the field's first code
+        const int f = (kq % kCodesPerWord) / 4;
+        if (q == 0 || f == 0) {  // the group's first word, or the next one
 #pragma unroll
-        for (int c = 0; c < kDpNcol; ++c) {
-          const int col = col0 + c;
-          wv[c] = col < n ? __ldg(wq + static_cast<size_t>(col) * row_words +
-                                  static_cast<size_t>(grp) * words_per_group + w0)
-                          : 0u;
+          for (int c = 0; c < kDpNcol; ++c) {
+            const int col = col0 + c;
+            wv[c] = col < n ? __ldg(wq + static_cast<size_t>(col) * row_words + kq / kCodesPerWord)
+                            : 0u;
+          }
         }
 #pragma unroll
-        for (int f = 0; f < kFields; ++f) {
-          const int xoff = w0 * kFields + f;
+        for (int i = 0; i < kDpRows; ++i) {
+          const int xw = xrow[i * tile_groups * xw_stride + q];
+          xsum[i] = __dp4a(xw, 0x01010101, xsum[i]);
 #pragma unroll
-          for (int i = 0; i < kDpRows; ++i) {
-            const int xw = xrow[i * kTileGroups * xw_stride + xoff];
-            xsum[i] = __dp4a(xw, 0x01010101, xsum[i]);
-#pragma unroll
-            for (int c = 0; c < kDpNcol; ++c)
-              idot[i][c] = __dp4a(static_cast<int>((wv[c] >> (CB * f)) & kMask), xw, idot[i][c]);
-          }
+          for (int c = 0; c < kDpNcol; ++c)
+            idot[i][c] = __dp4a(static_cast<int>((wv[c] >> (CB * f)) & kMask), xw, idot[i][c]);
         }
       }
 #pragma unroll
@@ -598,7 +615,8 @@ int dispatch(const void* x8, const void* sx, const void* wq, const void* scale, 
              int meta_dtype, int route, int token_tile, int rows, int stages, int bc, int smem,
              cudaStream_t s) {
   if (meta_dtype != HQQ_F32 && meta_dtype != HQQ_BF16) return static_cast<int>(cudaErrorInvalidValue);
-  if (m < 1 || m > 32 || k % g != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (m < 1 || m > 32 || g < 4 || g % 4 != 0 || k % g != 0 || k % (32 / cb) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);  // fields of 4 codes, rows of whole words
   if (route == 1) {
     if (smem != dp4a_smem(g)) return static_cast<int>(cudaErrorInvalidValue);
 #define HQQ_W4A8_DP(CB) \

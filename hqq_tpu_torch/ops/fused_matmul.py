@@ -95,6 +95,7 @@ __all__ = [
     "W4a8Plan",
     "w4a8_launch_plan",
     "w4a8_smem_bytes",
+    "w4a8_dp4a_smem",
     "ax0_tile_rows",
     "lora_a_kernel_layout",
     "lora_rank_tile",
@@ -152,6 +153,8 @@ class KernelQTensor:
     """Inference-prepared quantized weight in the kernel layout.
 
       wq:    uint8 [N, K*cb/8]  codes of W [N, K], 32/cb to a 32-bit word
+                                (K whole words; a word may span 2 or 4
+                                groups, a 4-code field never does)
       scale: [N, C]             dequant scale (multiplicative) of group
                                 k // g in column k // g: fp32 with C = K/g,
                                 or bf16 with C = K/g padded to a multiple
@@ -185,14 +188,18 @@ class KernelQTensor:
 
 
 def supports_kernel_layout(qt: QTensor) -> bool:
-    """Whether ``qt`` converts to the kernel layout: axis=1 groups that
-    divide K, and (this layout's own rule) a group of whole 32-bit words."""
+    """Whether ``qt`` converts to the kernel layout: `hqq_tpu`'s rule, axis=1
+    groups of a multiple of 8 codes that divide K. A group may be shorter
+    than a 32-bit word (2-bit g8, 1-bit g8 and g16): each 4-code field of a
+    word lies in one group (4 | g) and the kernels read its group's scale
+    and zs per field. `to_kernel_layout` refuses a K that is not whole
+    words (a departure from `hqq_tpu`, which pads K)."""
     if qt.axis != 1 or not qt.channel_wise or qt.group_size is None:
         return False
     g = qt.group_size
     k = qt.shape[1]
-    cb = _KERNEL_CONTAINER_BITS[qt.nbits]
-    return k % g == 0 and g % 8 == 0 and g % (32 // cb) == 0
+    r = 8 // _KERNEL_CONTAINER_BITS[qt.nbits]
+    return k % g == 0 and g % r == 0 and g % 8 == 0
 
 
 def _pack_words(codes: torch.Tensor, cb: int) -> torch.Tensor:
@@ -229,16 +236,21 @@ def to_kernel_layout(qt: QTensor, meta_dtype=torch.float32) -> KernelQTensor:
     zs = zero * scale is formed in fp32 and both are then rounded to it."""
     if not supports_kernel_layout(qt):
         raise ValueError(
-            "kernel layout needs axis=1 groups dividing K, made of whole "
-            f"32-bit words; got axis={qt.axis}, group_size={qt.group_size}, "
-            f"nbits={qt.nbits}, shape={qt.shape}"
+            "kernel layout needs axis=1 groups of a multiple of 8 dividing K; "
+            f"got axis={qt.axis}, group_size={qt.group_size}, nbits={qt.nbits}, "
+            f"shape={qt.shape}"
+        )
+    cb = _KERNEL_CONTAINER_BITS[qt.nbits]
+    if qt.shape[1] % (32 // cb):
+        raise ValueError(
+            f"kernel layout of {qt.nbits}-bit g{qt.group_size} axis=1 needs K in whole "
+            f"32-bit words of {32 // cb} codes; got K={qt.shape[1]} (shape {qt.shape})"
         )
     if meta_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"meta_dtype must be float32 or bfloat16, not {meta_dtype}")
     qt = resolve_meta(qt)
     n_out, k = qt.shape
     g = qt.group_size
-    cb = _KERNEL_CONTAINER_BITS[qt.nbits]
     codes = unpack_codes(qt, torch.int32).reshape(n_out, k)
     scale = qt.scale.reshape(n_out, k // g).to(torch.float32)
     zero = qt.zero.reshape(n_out, k // g).to(torch.float32)
@@ -662,6 +674,17 @@ def w4a8_smem_bytes(stage_codes: int, token_tile: int, meta_box: int, meta_boxes
     return 1024 + meta + max(stages * stage, part) + 16 * stages + 8
 
 
+def w4a8_dp4a_smem(group_size: int) -> int:
+    """Shared memory of a block of the CUDA-core route (`dp4a_smem` of
+    csrc/w4a8_matmul.cu): x8's 8 rows of a K-tile, each group's g/4 words
+    and one of padding (bank spread). A tile is 32 groups, one a lane, or
+    for groups under 32 codes 32 * (32 // g), so that it holds at least 1024
+    codes; lane l takes its groups l, l + 32, ... (2-bit g8: 128 groups,
+    each pair of lanes one word)."""
+    tile_groups = 32 * max(1, 32 // group_size)
+    return 8 * tile_groups * (group_size // 4 + 1) * 4
+
+
 @functools.lru_cache(maxsize=4096)
 def w4a8_launch_plan(m: int, n: int, k: int, cb: int, group_size: int,
                      meta_dtype: torch.dtype = torch.float32) -> W4a8Plan:
@@ -672,7 +695,8 @@ def w4a8_launch_plan(m: int, n: int, k: int, cb: int, group_size: int,
     whole k32 steps (g % 32 == 0), the code rows meet a TMA map's 16-byte
     rule (k * cb / 8 % 16 == 0) and a block's scale and zs for the whole of
     K fit its shared memory beside the shortest ring; else the CUDA cores
-    (the planned small-group route: g = 8, 16, 24, ..., 1- or 2-bit rows of
+    (the planned small-group route: g = 8, 16, 24, ..., groups shorter
+    than a word among them (2-bit g8, 1-bit g8 and g16), 1- or 2-bit rows of
     odd 16-byte length, and meta too large for a block, such as 1-bit g32
     at K = 11008 and 32 tokens).
 
@@ -689,7 +713,7 @@ def w4a8_launch_plan(m: int, n: int, k: int, cb: int, group_size: int,
     def small(why):
         return W4a8Plan(route="cuda_cores", token_tile=8, col_tile=16, stage_codes=0,
                         stages_total=0, k_slices=0, stages=0, meta_cols=0, meta_boxes=0,
-                        smem=8 * 32 * (g // 4 + 1) * 4, grid=(-(-n // 16), -(-m // 8)), why=why)
+                        smem=w4a8_dp4a_smem(g), grid=(-(-n // 16), -(-m // 8)), why=why)
 
     if g % 32:
         return small(f"g = {g} is not a multiple of 32 codes")

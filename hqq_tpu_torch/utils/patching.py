@@ -37,11 +37,16 @@ MLP joins). DeepSeek-V3's MLA projections have no q/k/v to join; its dense
 layers' gate/up join (its forward reads ``gate_up_proj``, where `hqq_tpu`'s
 raises), and the shared experts nested in its MoE blocks stay apart, as in
 `hqq_tpu`.
+
+Three helpers of `hqq_tpu.utils.patching` ride along: `auto_mix_plan` (a
+per-tag backend plan under a memory budget), `lowrank_approx` (truncated
+SVD factors) and `merge_zeros_into_lora` (a per-channel zero point as a
+rank-1 term).
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -58,7 +63,8 @@ from ..backends.pallas_backend import (
 from ..core.peft import LoRALinear
 from ..nn.linear import Linear, QuantLinear, concat_biases
 
-__all__ = ["BACKENDS", "prepare_for_inference", "fuse_for_decode"]
+__all__ = ["BACKENDS", "prepare_for_inference", "fuse_for_decode", "auto_mix_plan",
+           "lowrank_approx", "merge_zeros_into_lora"]
 
 BACKENDS = ("xla", "pallas", "w4a8", "int8")
 
@@ -187,3 +193,69 @@ def fuse_for_decode(params, pad_to: int = 8):
         return pad_for_mxu(node, pad_to) if isinstance(node, Int8QuantLinear) else node
 
     return pad(out) if pad_to else out
+
+
+def auto_mix_plan(params: Any, hbm_budget_bytes: Optional[int] = None,
+                  reserve_bytes: int = 0) -> Dict[str, str]:
+    """A per-tag backend plan for `prepare_for_inference`, as `hqq_tpu`
+    builds it: every tag of a quantized leaf on "int8" (about 1 byte a
+    weight, the faster prefill), then the tags with the most weights moved
+    to "w4a8" (counted as K*N/2 bytes of codes and 8 bytes of fp32 scale
+    and zs a group) until the weights fit ``hbm_budget_bytes`` less
+    ``reserve_bytes`` (the KV pool, activations). No budget: all "int8"."""
+    from ..models.base import iter_linears, name_to_linear_tag
+
+    sizes: Dict[str, tuple] = {}  # tag -> (int8 bytes, w4a8 bytes)
+    for path, node in iter_linears(params):
+        if not isinstance(node, QuantLinear):
+            continue
+        tag = name_to_linear_tag(path)
+        n, k = node.qweight.shape
+        g = node.qweight.group_size or 64
+        p_int8, p_w4a8 = sizes.get(tag, (0, 0))
+        sizes[tag] = (p_int8 + n * k, p_w4a8 + n * k // 2 + (n * k // max(g, 1)) * 8)
+    plan = {tag: "int8" for tag in sizes}
+    if hbm_budget_bytes is None:
+        return plan
+
+    def footprint():
+        return sum(sizes[t][0] if plan[t] == "int8" else sizes[t][1] for t in sizes)
+
+    budget = hbm_budget_bytes - reserve_bytes
+    for tag in sorted(sizes, key=lambda t: sizes[t][0], reverse=True):
+        if footprint() <= budget:
+            break
+        plan[tag] = "w4a8"
+    return plan
+
+
+def lowrank_approx(w: torch.Tensor, max_rank: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The best rank-r factors of a 2-D W [out, in] by truncated SVD, in
+    fp32: (A [in, r], B [r, out]) with W^T ~= A @ B, r = min(max_rank,
+    min(out, in)). A singular vector's sign is the solver's own, so the
+    factors match `hqq_tpu`'s up to a sign per rank; A @ B does not depend
+    on it."""
+    u, s, vt = torch.linalg.svd(w.detach().to(torch.float32).t(), full_matrices=False)
+    r = min(int(max_rank), s.shape[0])
+    return u[:, :r] * s[:r][None, :], vt[:r, :]
+
+
+def merge_zeros_into_lora(layer: QuantLinear, rank_pad: int = 1
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The zero point of a per-channel (group_size = in_features) axis=1
+    layer as a rank-1 term: W_dq = c*scale - zero*scale, so x @ W_dq^T =
+    x @ (c*scale)^T + (x @ a) @ b with a = ones [in, 1] and b = -(zero *
+    scale) [1, out], both fp32. Returns (a, b). Other layouts raise a
+    ValueError (`hqq_tpu` asserts). ``rank_pad`` is `hqq_tpu`'s argument,
+    unused there and here."""
+    from ..core.quantize import resolve_meta
+
+    qt = layer.qweight
+    if qt.axis != 1 or qt.group_size != qt.shape[1]:
+        raise ValueError("zero-folding requires per-channel (group_size == in_features) "
+                         f"axis=1; got axis={qt.axis}, group_size={qt.group_size}, "
+                         f"shape={qt.shape}")
+    qt = resolve_meta(qt)
+    zs = (qt.zero * qt.scale).reshape(qt.shape[0])
+    a = torch.ones((qt.shape[1], 1), dtype=torch.float32, device=zs.device)
+    return a, -zs[None, :].to(torch.float32)

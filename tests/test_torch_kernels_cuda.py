@@ -1037,3 +1037,63 @@ def test_dequant_canonical_packing_none(cuda, compute):
     got = dequantize(qt, torch.bfloat16)
     assert fm.dequant_canonical.launches == launches + 1
     assert torch.equal(got, fm.dequantize_plain(qt, torch.bfloat16))
+
+
+# -- HQQ+'s sub-word groups: a 32-bit word spans 2 or 4 groups -------------
+
+# (nbits, g): 2-bit and 1.58-bit g8 (2 groups a word), 1-bit g8 (4) and g16 (2)
+_SUBWORD = [(2, 8), (1.58, 8), (1, 8), (1, 16)]
+
+
+def _kqt_meta(n, k, g, nbits, meta, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w = torch.randn((n, k), generator=gen, device=device) / k**0.5
+    return fm.to_kernel_layout(quantize(w, nbits=nbits, group_size=g, axis=1), meta)
+
+
+@pytest.mark.parametrize("meta", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nbits,g", _SUBWORD)
+@pytest.mark.parametrize("k,n", [(512, 256), (4096, 1000)])
+def test_subword_w4a8(cuda, k, n, nbits, g, meta):
+    """Rows 2/3 and 8 on the CUDA-core route at M = 1, 4, 8, 17, 32: each
+    field with its own group's scale and zs, against the plain twins (1e-5
+    in fp32, one output rounding more in bf16/fp16); three runs bit-equal."""
+    kqt = _kqt_meta(n, k, g, nbits, meta, cuda, seed=k + g)
+    a, b = _lora(k, n, 8, cuda, seed=g)
+    for m in (1, 4, 8, 17, 32):
+        assert fm.w4a8_launch_plan(m, n, k, kqt.container_bits, g, meta).route == "cuda_cores"
+        x = torch.randn((m, k), device=cuda)
+        x8, sx = fm.quantize_activations_int8(x)
+        xa = x @ a
+        for dtype, tol in _OUT_TOL.items():
+            _close(fm.w4a8_matmul(x8, sx, kqt, dtype), fm.w4a8_matmul_plain(x8, sx, kqt, dtype), tol)
+            _close(fm.w4a8_lora_matmul(x8, sx, kqt, xa, b, dtype),
+                   fm.w4a8_lora_matmul_plain(x8, sx, kqt, xa, b, dtype), tol)
+        first = fm.w4a8_matmul(x8, sx, kqt)
+        assert all(torch.equal(fm.w4a8_matmul(x8, sx, kqt), first) for _ in range(2))
+
+
+@pytest.mark.parametrize("meta", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nbits,g", _SUBWORD)
+def test_subword_mainloops_and_dequant(cuda, nbits, g, meta):
+    """Row 1 and row 7 on the `qmm_sm90.cuh` mainloop (bf16 x, M = 1, 33,
+    512: K split at decode, token tiles up to 256), the fp32 route
+    (`qmm_fp32`, 32-wide slabs) and the dequant kernel (exact), at 8 groups
+    of a 64-column slab (4 of a 32-column one, 1-bit rows of 8 bytes by
+    cp.async)."""
+    k, n = 1024, 384
+    kqt = _kqt_meta(n, k, g, nbits, meta, cuda, seed=g)
+    a, b = _lora(k, n, 8, cuda, seed=1)
+    for m in (1, 33, 512):
+        x = torch.randn((m, k), device=cuda)
+        xb = x.to(torch.bfloat16)
+        tol = _OUT_TOL[torch.bfloat16] * 2
+        _close(fm.quant_matmul(xb, kqt), fm.quant_matmul_plain(xb, kqt), tol)
+        _close(fm.quant_matmul_lora(xb, kqt, a, b), fm.quant_matmul_lora_plain(xb, kqt, a, b), tol)
+        launches = fm.qmm_fp32.launches
+        _close(fm.quant_matmul(x, kqt), fm.quant_matmul_plain(x, kqt), _OUT_TOL[torch.float32])
+        _close(fm.quant_matmul_lora(x, kqt, a, b), fm.quant_matmul_lora_plain(x, kqt, a, b),
+               _OUT_TOL[torch.float32])
+        assert fm.qmm_fp32.launches == launches + 2
+    for dtype in _OUT_TOL:
+        assert torch.equal(fm.dequant(kqt, dtype), fm.dequant_plain(kqt, dtype))

@@ -305,5 +305,7 @@ def test_plan_routes_small_groups_to_cuda_cores(k, n, nbits, g, why):
     for m in (1, 8, 32):
         p = tf.w4a8_launch_plan(m, n, k, cb, g)
         assert p.route == "cuda_cores" and why in p.why
-        assert p.grid == (-(-n // 16), -(-m // 8)) and p.smem == 8 * 32 * (g // 4 + 1) * 4
+        # x8's 8 rows of a K-tile: 32 groups, or 32 * (32 // g) under 32 codes
+        tile = 32 * max(1, 32 // g)
+        assert p.grid == (-(-n // 16), -(-m // 8)) and p.smem == 8 * tile * (g // 4 + 1) * 4
     assert tf.w4a8_launch_plan(4, n, 1024, cb, 64).route == "tensor_cores"
