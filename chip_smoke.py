@@ -15,6 +15,7 @@ through Generator).
     python3 chip_smoke.py --time quant_matmul_ax0 512 4096 4096 3-64-fp32  # nbits-g-meta
     python3 chip_smoke.py --time quant_matmul_ax0 512 4096 4096 3-64-fp32 element-stores
     python3 chip_smoke.py --time qmm_fp32 512 4096 4096          # fp32 x; [RANK | NBITS-G-META]
+    python3 chip_smoke.py --time w4a8_matmul 4 4096 11008 2-8-fp32 no-fold  # axis=1; [VARIANT]
     python3 chip_smoke.py --time dequant_canonical 1 11008 4096 3-64-fp32  # W [N, K]; M unused
     python3 chip_smoke.py --time paged_attention 8 1024 32 32 int8  # slots, length, heads, kv
                                                                     # heads[, bf16 | int8 pages]
@@ -377,28 +378,32 @@ Phases (any failure exits non-zero):
       mobiuslabs/Llama-2-7b-chat-hf_2bitgs8_hqq names the recipe; nothing
       is downloaded), save_quantized. U-plus: rank-8 adapters on all 224
       linears (B from a seed), "w4a8" (A8LoRAQuantLinear: row 8 on the
-      CUDA-core route at decode, row 7 at prefill), serve_7b's window
+      small-group route at decode, row 7 at prefill), serve_7b's window
       (prefill ms at M = 512, Generator "partial" and "full" decode tok/s
       at B = 4 against the byte bound, busy share, peak, quantize s), every
       fused call of a prefill and two decode steps against its twin with
       the control "the word's other group" (each field on the meta of the
       other group of its pair in the word), and the decode's routes: every
-      plan on the CUDA cores, no canonical dequant and no F.linear but
-      lm_head's in a partial step, only w4a8_dp4a_kernel among the w4a8
-      kernels of a replayed graph. U-serve: `serve.main --nbits 2
+      plan and launch on the small-group route, no canonical dequant and no
+      F.linear but lm_head's in a partial step, only w4a8_group_mma_kernel
+      among the w4a8 kernels of a replayed graph. U-serve: `serve.main --nbits 2
       --group-size 8` on the checkpoint with its defaults (paged, w4a8,
       fused), G's pool, G's 12 requests from 12 client threads: ids equal
-      to the in-process engine's, boot s, time to first token, tokens/s at
-      the client and in-process, ms a step against the byte bound, busy
-      share, peak. Kernel coverage: 2-layer models at 7B width at each
+      to the in-process engine's, every w4a8 launch of the window on the
+      small-group route and only its kernel among the steady steps' w4a8
+      kernels, boot s, time to first token, tokens/s at the client and
+      in-process, ms a step against the byte bound, busy share, peak.
+      Kernel coverage: 2-layer models at 7B width at each
       sub-word config and 2-bit g8 in fp32, "pallas" and "w4a8", with and
       without adapters, through Generator, and their prefill and decode
       logits against the canonical QuantLinear route (w4a8's decode against
       its plain twins), the word's-other-group control failing each bar.
       Phase b holds every route at these configs to its twin (rows 2/3 and
-      8 at U's decode shapes, rows 1 and 7 at its prefill, row 4, qmm_fp32
-      with fp32 x) with that control and three bit-equal runs, timed
-      against the bound, the twin and torch.matmul.
+      8 at `U_GROUP_CASES`: U's decode shapes, M = 32, 4-bit g16 and g24,
+      and the CUDA-core kernel at one shape off the 16-byte rule, each also
+      with row 0 bit-equal at M = 1, 4, 8, 32; rows 1 and 7 at its prefill,
+      row 4, qmm_fp32 with fp32 x) with that control and three bit-equal
+      runs, timed against the bound, the twin and torch.matmul.
 Phases g, h, v and m run right after c, on its model, then q and s, then r,
 then l, then x, then k, then p, then n, then t, then u, then d.
 
@@ -409,8 +414,13 @@ With ``--time KERNEL M K N [RANK]`` it builds the kernels, times one wrapper
 at one shape as phase b does, three times over, and prints one JSON line:
 for comparing two checkouts on one card. Unpack the parent beside the change
 (`git archive`) and run both from one shell command, in turns: parent,
-change, change, parent. KERNEL is quant_matmul, w4a8_matmul,
-quant_matmul_lora or w4a8_lora_matmul (4-bit g64, RANK 8 unless given),
+change, change, parent; several runs go in one call joined by "+" (KERNEL M
+K N ... + KERNEL M K N ...). KERNEL is quant_matmul, w4a8_matmul,
+quant_matmul_lora or w4a8_lora_matmul (4-bit g64, RANK 8 unless given; the
+w4a8 pair also an axis=1 config NBITS-G-META, e.g. 2-8-fp32 or 1.58-8-bf16,
+then a VARIANT: no-fold, no-mma, no-meta or loads-only builds the
+small-group kernel without that work, ring-S or tile-R-S launches it with
+another ring or tile, several joined by commas),
 quant_matmul_ax0 or dequant_ax0 (2-bit g16, bf16 scale and zs, or the
 config NBITS-G-META given after N, e.g. 3-64-fp32, path F's attention, and
 for quant_matmul_ax0 then a variant of AX0_VARIANTS), dequant and
@@ -476,6 +486,11 @@ KERNELS = {
                          "hqq_tpu/ops/fused_matmul.py:1318"),
     "quant_matmul_lora": ("quant_matmul_lora.cu", "hqq_tpu/ops/fused_matmul.py:1521", None),
     "w4a8_lora_matmul": ("w4a8_matmul.cu", "hqq_tpu/ops/fused_matmul.py:1609", None),
+    # the small-group route of both w4a8 wrappers (rows 2, 3 and 8 where a
+    # group is not whole k32 steps: HQQ+'s 2-bit and 1.58-bit g8, 1-bit g8
+    # and g16), its own kernel: `w4a8_group_mma_kernel`
+    "w4a8_group_mma": ("w4a8_matmul.cu", "hqq_tpu/ops/fused_matmul.py:524",
+                       "hqq_tpu/ops/fused_matmul.py:776, :1609"),
     "paged_attention": ("paged_attention.cu", "hqq_tpu/ops/paged.py:275", None),
     "flash_attention": ("flash_prefill.cu", "hqq_tpu/ops/attention.py:66", None),
     # the library flash attention's backward kernels, which the training
@@ -517,6 +532,7 @@ PICK = {
     "quant_matmul_ax0": (4, 4096, 11008, "2-bit g16 axis=0, bf16 meta"),
     "quant_matmul_lora": (512, 4096, 4096, "r=8"),
     "w4a8_lora_matmul": (4, 4096, 11008, "r=8"),
+    "w4a8_group_mma": (4, 4096, 11008, "2-bit g8 axis=1"),
     "paged_attention": (8, 1024, 32, "bf16 pages of 16 rows, 32/32 heads, head size 128"),
     "flash_attention": (1, 1023, 32, "bf16, causal, 32/32 heads, head size 128"),
     "flash_attention_backward_dkv": (1, 1024, 32, "bf16, causal, 32/32 heads, head size 128"),
@@ -2200,9 +2216,14 @@ def _step_weight_bytes(tree) -> int:
 
 
 def launch_counts() -> dict:
+    """Every wrapper's launches, and under "w4a8_group_mma" those of the two
+    w4a8 wrappers that went to the small-group kernel."""
     from hqq_tpu_torch import ops
+    from hqq_tpu_torch.ops import fused_matmul as fm
 
-    return {w.__name__: w.launches for w in ops.kernel_wrappers()}
+    counts = {w.__name__: w.launches for w in ops.kernel_wrappers()}
+    counts["w4a8_group_mma"] = fm.W4A8_ROUTE_LAUNCHES["group_mma"]
+    return counts
 
 
 def serve_7b(tag: str, dev_tag: str, quant_config, expect: dict, after_quantize=None,
@@ -6527,77 +6548,120 @@ def _u_tile_held(what: str, kqt, run, plain, tol: float) -> float:
     return (y.float() - ref.float()).abs().max().item()
 
 
+def _u_rows_by_m(what: str, run, x, xa) -> None:
+    """Row 0 of ``run(x8, sx, xa_rows)`` is bit-equal at M = 1, 4, 8 and 32
+    from the same row of x (32 bf16 rows) and of the adapter's input xa
+    (fp32, or None; computed once for all rows, since a library GEMM's row
+    0 may differ with M): the small-group plan sums a row in one order at
+    every M, and x8 scales per row."""
+    from hqq_tpu_torch.ops import fused_matmul as fm
+
+    rows = []
+    for m in (1, 4, 8, 32):
+        x8, sx = fm.quantize_activations_int8(x[:m])
+        rows.append(run(x8, sx, None if xa is None else xa[:m])[0])
+    same = [torch.equal(r, rows[0]) for r in rows[1:]]
+    log(f"[b] {what}: row 0 at M = 4, 8, 32 bit-equal to M = 1: {same}")
+    if not all(same):
+        raise AssertionError(f"{what}: row 0 differs across M")
+
+
+def _u_group_case(record, gen, m: int, k: int, n: int, nbits, g: int, meta, rank: int,
+                  iters: int, plain_iters: int) -> None:
+    """Row 2/3 (rank 0, `w4a8_matmul`) or row 8 (`w4a8_lora_matmul`) at one
+    shape and config on the route its plan names (the small-group kernel,
+    or the CUDA-core kernel where rows break the 16-byte rule): held to the
+    plain twin with the controls (a neighbour's scale, the word's other
+    group where a word spans groups), three bit-equal runs, row 0 bit-equal
+    at M = 1, 4, 8, 32; timed against the byte bound, the twin and
+    torch.matmul on the dequantized W (three calls with the adapter)."""
+    from hqq_tpu_torch.ops import fused_matmul as fm
+
+    cb = fm._KERNEL_CONTAINER_BITS[nbits]
+    kqt = _u_kqt(n, k, nbits, g, seed=k + n + g + rank, meta=meta)
+    plan = fm.w4a8_launch_plan(m, n, k, cb, g, meta)
+    a, b = _make_lora(k, n, seed=g, r=rank) if rank else (None, None)
+    note = ("r=8, " if rank else "") + _u_note(nbits, g, meta)
+    kernel = "w4a8_lora_matmul" if rank else "w4a8_matmul"
+    what = f"{kernel} M={m} K={k} N={n} {note} ({plan.route})"
+
+    def run(x8, sx, xa, q=kqt, dt=torch.float32):
+        if rank:
+            return fm.w4a8_lora_matmul(x8, sx, q, xa, b, dt)
+        return fm.w4a8_matmul(x8, sx, q, dt)
+
+    def twin(x8, sx, xa, q=kqt, dt=torch.float32):
+        if rank:
+            return fm.w4a8_lora_matmul_plain(x8, sx, q, xa, b, dt)
+        return fm.w4a8_matmul_plain(x8, sx, q, dt)
+
+    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    x8, sx = fm.quantize_activations_int8(x)
+    xa = x.float() @ a if rank else None
+    worst = _w4a8_held(what, kqt, lambda q, dt: run(x8, sx, xa, q, dt),
+                       lambda q, dt: twin(x8, sx, xa, q, dt))
+    x32 = torch.randn((32, k), generator=gen, device="cuda").to(torch.bfloat16)
+    _u_rows_by_m(what, run, x32, x32.float() @ a if rank else None)
+    wbytes = _weight_bytes(kqt)
+    kq, xq = _copies(kqt, x8, wbytes)
+    if rank:
+        calls = [lambda p=p, q=q: fm.w4a8_lora_matmul(q, sx, p, xa, b, torch.bfloat16)
+                 for p, q in zip(kq, xq)]
+    else:
+        calls = [lambda p=p, q=q: fm.w4a8_matmul(q, sx, p, torch.bfloat16) for p, q in zip(kq, xq)]
+    ms = time_ms(calls, iters)
+    plain = time_ms([lambda: twin(x8, sx, xa, kqt, torch.bfloat16)], plain_iters)
+    w_bf16 = fm.dequant_plain(kqt, torch.bfloat16)
+    if rank:
+        lib = time_ms([lambda: torch.matmul(x, w_bf16.t()).float()
+                       + torch.matmul(torch.matmul(x.float(), a), b)], iters)
+        b_ms, by = bound_ms(wbytes + m * k + 4 * m + 4 * m * rank + 4 * rank * n + 2 * m * n,
+                            2.0 * m * n * k, "int8", fp32_ops=2.0 * m * rank * n)
+    else:
+        lib = time_ms([lambda: torch.matmul(x, w_bf16.t())], iters)
+        b_ms, by = bound_ms(wbytes + m * k + 4 * m + 2 * m * n, 2.0 * m * n * k, "int8")
+    del w_bf16, kq, xq
+    key = "w4a8_group_mma" if plan.route == "group_mma" else kernel
+    record(key, dict(
+        kernel=kernel, m=m, k=k, n=n, max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=by, library_ms=lib, note=note,
+        library="three torch.matmul calls and their sum" if rank else "torch.matmul",
+        plan=f"{plan.route}, {plan.col_tile} rows x {plan.k_slices} slices, ring {plan.stages}, "
+             f"grid {plan.grid}, {plan.smem} B of shared memory"))
+
+
+# rows 2/3 and 8 on the small-group route (M, K, N, nbits, g, meta, rank):
+# U's decode at 2-bit g8 (fp32 and bf16 meta, the fused M = 8 widths, the
+# speculative engines' verify at M = 32), the other sub-word configs, 4-bit
+# g16 and g24, row 8 with a rank-8 adapter at the four sub-word configs; and
+# the CUDA-core kernel at 1-bit code rows off the 16-byte rule (K = 4544)
+U_GROUP_CASES = (
+    [(4, 4096, 11008, 2, 8, torch.float32, 0), (4, 4096, 11008, 2, 8, torch.bfloat16, 0)]
+    + [(m, k, n, 2, 8, torch.float32, 0) for (m, k, n) in U_DECODE_SHAPES[1:]]
+    + [(32, 4096, 11008, 2, 8, torch.float32, 0)]
+    + [(4, 4096, 11008, nbits, g, torch.float32, 0) for (nbits, g) in U_CONFIGS[1:]]
+    + [(4, 4096, 11008, 4, 16, torch.float32, 0), (4, 4608, 11008, 4, 24, torch.float32, 0)]
+    + [(4, 4096, 11008, nbits, g, torch.float32, LORA_RANK) for (nbits, g) in U_CONFIGS]
+    + [(4, 4544, 4672, 1, 8, torch.float32, 0)])
+
+
 def phase_b_u(record, iters: int = U_ITERS) -> None:
     """Phase b's rows of path U: every route that takes the sub-word groups,
     each config at U's shapes, held to its plain twin with the controls
     (the word's other group, a neighbour's scale) and three bit-equal runs,
     timed against its bound, the twin and the library call: rows 2/3 and 8
-    (w4a8, the CUDA-core route) at U's decode shapes, row 1 and row 7 at its
-    prefill, row 4 (dequant) of W [11008, 4096], `qmm_fp32` at 2-bit g8;
-    2-bit g8 also with bf16 meta at (4, 4096, 11008)."""
+    (w4a8, the small-group route) at `U_GROUP_CASES`, each also with row 0
+    bit-equal at M = 1, 4, 8, 32; row 1 and row 7 at U's prefill, row 4
+    (dequant) of W [11008, 4096], `qmm_fp32` at 2-bit g8."""
     from hqq_tpu_torch.ops import fused_matmul as fm
 
     gen = torch.Generator(device="cuda").manual_seed(22)
-    r = LORA_RANK
     plain_iters = 3
+    for case in U_GROUP_CASES:
+        _u_group_case(record, gen, *case, iters, plain_iters)
     for nbits, g in U_CONFIGS:
-        cb = fm._KERNEL_CONTAINER_BITS[nbits]
-        shapes = U_DECODE_SHAPES if (nbits, g) == (U_NBITS, U_GROUP) else U_DECODE_SHAPES[:1]
-        metas = [torch.float32] + ([torch.bfloat16] if (nbits, g) == (U_NBITS, U_GROUP) else [])
-        # -- rows 2/3: w4a8_matmul on the CUDA cores
-        for (m, k, n) in shapes:
-            for meta in (metas if (m, k, n) == U_DECODE_SHAPES[0] else metas[:1]):
-                kqt = _u_kqt(n, k, nbits, g, seed=k + n + g, meta=meta)
-                plan = fm.w4a8_launch_plan(m, n, k, cb, g, meta)
-                if plan.route != "cuda_cores":
-                    raise AssertionError(f"[b] {nbits}-bit g{g}: w4a8 plan {plan.route}")
-                x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
-                x8, sx = fm.quantize_activations_int8(x)
-                note = _u_note(nbits, g, meta)
-                worst = _w4a8_held(f"w4a8_matmul M={m} K={k} N={n} {note}", kqt,
-                                   lambda q, dt: fm.w4a8_matmul(x8, sx, q, dt),
-                                   lambda q, dt: fm.w4a8_matmul_plain(x8, sx, q, dt))
-                wbytes = _weight_bytes(kqt)
-                kq, xq = _copies(kqt, x8, wbytes)
-                ms = time_ms([lambda a=a, b=b: fm.w4a8_matmul(b, sx, a, torch.bfloat16)
-                              for a, b in zip(kq, xq)], iters)
-                plain = time_ms([lambda: fm.w4a8_matmul_plain(x8, sx, kqt, torch.bfloat16)],
-                                plain_iters)
-                w_bf16 = fm.dequant_plain(kqt, torch.bfloat16)
-                lib = time_ms([lambda: torch.matmul(x, w_bf16.t())], iters)
-                del w_bf16, kq, xq
-                b_ms, by = bound_ms(wbytes + m * k + 4 * m + 2 * m * n, 2.0 * m * n * k, "int8")
-                record("w4a8_matmul", dict(
-                    kernel="w4a8_matmul", m=m, k=k, n=n, max_abs_err=worst, ms=ms,
-                    plain_ms=plain, bound_ms=b_ms, bound_by=by, library_ms=lib, note=note,
-                    plan=f"{plan.route}, grid {plan.grid}, {plan.smem} B of shared memory"))
-        m, k, n = U_DECODE_SHAPES[0]
-        # -- row 8: w4a8_lora_matmul, the adapter in the epilogue
-        kqt = _u_kqt(n, k, nbits, g, seed=k * 3 + g)
-        a, b = _make_lora(k, n, seed=g)
-        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
-        x8, sx = fm.quantize_activations_int8(x)
-        xa = x.float() @ a
         note = _u_note(nbits, g)
-        worst = _w4a8_held(f"w4a8_lora_matmul M={m} K={k} N={n} r={r} {note}", kqt,
-                           lambda q, dt: fm.w4a8_lora_matmul(x8, sx, q, xa, b, dt),
-                           lambda q, dt: fm.w4a8_lora_matmul_plain(x8, sx, q, xa, b, dt))
-        wbytes = _weight_bytes(kqt)
-        kq, xq = _copies(kqt, x8, wbytes)
-        ms = time_ms([lambda p=p, q=q: fm.w4a8_lora_matmul(q, sx, p, xa, b, torch.bfloat16)
-                      for p, q in zip(kq, xq)], iters)
-        plain = time_ms([lambda: fm.w4a8_lora_matmul_plain(x8, sx, kqt, xa, b, torch.bfloat16)],
-                        plain_iters)
-        w_bf16 = fm.dequant_plain(kqt, torch.bfloat16)
-        lib = time_ms([lambda: torch.matmul(x, w_bf16.t()).float()
-                       + torch.matmul(torch.matmul(x.float(), a), b)], iters)
-        del w_bf16, kq, xq
-        b_ms, by = bound_ms(wbytes + m * k + 4 * m + 4 * m * r + 4 * r * n + 2 * m * n,
-                            2.0 * m * n * k, "int8", fp32_ops=2.0 * m * r * n)
-        record("w4a8_lora_matmul", dict(
-            kernel="w4a8_lora_matmul", m=m, k=k, n=n, max_abs_err=worst, ms=ms, plain_ms=plain,
-            bound_ms=b_ms, bound_by=by, library_ms=lib, note=f"r=8, {note}",
-            library="three torch.matmul calls and their sum"))
+        r = LORA_RANK
         # -- rows 1 and 7 at U's prefill, on the qmm_sm90.cuh mainloop
         m, k, n = U_PREFILL_SHAPE
         kqt = _u_kqt(n, k, nbits, g, seed=k * 5 + g)
@@ -6674,10 +6738,10 @@ def phase_b_u(record, iters: int = U_ITERS) -> None:
 
 def _u_route_checks(model) -> None:
     """U-plus's prepared tree: every linear an `A8LoRAQuantLinear` of 2-bit
-    g8 whose decode plan is the CUDA-core route; a partial decode step with
-    no canonical dequant and no `F.linear` on any weight but lm_head's; the
-    replayed graph's kernels: the w4a8 ones all `w4a8_dp4a_kernel`, no
-    canonical dequant kernel."""
+    g8 whose decode plan is the small-group route; a partial decode step
+    with no canonical dequant and no `F.linear` on any weight but lm_head's,
+    its w4a8 launches all on that route; the replayed graph's kernels: the
+    w4a8 ones all `w4a8_group_mma_kernel`, no canonical dequant kernel."""
     from unittest import mock
 
     import torch.nn.functional as F
@@ -6695,7 +6759,7 @@ def _u_route_checks(model) -> None:
     routes = {(mod.kqt.k, mod.kqt.n): fm.w4a8_launch_plan(4, mod.kqt.n, mod.kqt.k, 2, U_GROUP,
                                                           mod.kqt.scale.dtype).route
               for mod in layers}
-    if set(routes.values()) != {"cuda_cores"}:
+    if set(routes.values()) != {"group_mma"}:
         raise AssertionError(f"[u] decode plans {routes}")
     prompts = _prompts(model.cfg)
     linear = F.linear
@@ -6715,6 +6779,9 @@ def _u_route_checks(model) -> None:
         raise AssertionError(f"[u] a partial step ran the canonical route: "
                              f"{counts['dequant_canonical']} canonical dequants, F.linear on "
                              f"{sorted(set(weights))}")
+    if not counts["w4a8_lora_matmul"] or counts["w4a8_group_mma"] != counts["w4a8_lora_matmul"]:
+        raise AssertionError(f"[u] {counts['w4a8_group_mma']} of {counts['w4a8_lora_matmul']} "
+                             f"w4a8 launches of a partial step on the small-group route")
     model.generate(prompts, max_new_tokens=8)  # captures the graph
     busy = device_share(lambda: model.generate(prompts, max_new_tokens=8))
     names = busy["by_name"]
@@ -6722,11 +6789,12 @@ def _u_route_checks(model) -> None:
     canonical = [k for k in names if "dequant_canonical" in k]
     model.release_graphs()
     log(f"[u] U-plus's decode: plans {sorted(set(routes.values()))} at {sorted(routes)}; a "
-        f"partial prefill and decode step: {counts['w4a8_lora_matmul']} w4a8_lora_matmul, "
+        f"partial prefill and decode step: {counts['w4a8_lora_matmul']} w4a8_lora_matmul "
+        f"({counts['w4a8_group_mma']} on the small-group route), "
         f"{counts['quant_matmul_lora']} quant_matmul_lora, 0 canonical dequants, F.linear only "
         f"on {sorted(set(weights))}; a replayed 8-token generate's w4a8 kernels {busy['w4a8']} "
         f"ms, canonical dequant kernels {canonical}")
-    if not w4a8 or not all("dp4a" in k for k in w4a8) or canonical:
+    if not w4a8 or not all("group_mma" in k for k in w4a8) or canonical:
         raise AssertionError(f"[u] the replayed decode ran {w4a8} and {canonical}")
 
 
@@ -6837,8 +6905,9 @@ def _u_serve(dev_tag: str, root: str) -> dict:
     del eng, srv
     gc.collect()
     torch.cuda.empty_cache()
-    expect = {"w4a8_matmul": 4 * layers * n_steps, "paged_attention": layers * n_steps,
-              "quant_matmul": 4 * layers * len(prompts), "dequant_canonical": 0}
+    expect = {"w4a8_matmul": 4 * layers * n_steps, "w4a8_group_mma": 4 * layers * n_steps,
+              "paged_attention": layers * n_steps, "quant_matmul": 4 * layers * len(prompts),
+              "dequant_canonical": 0}
     for name, want in expect.items():
         if launches[name] != want:
             raise AssertionError(f"[u] {launches[name]} {name} launches in the window ({n_steps} "
@@ -6885,6 +6954,8 @@ def _u_serve(dev_tag: str, root: str) -> dict:
     if not all(same):
         raise AssertionError(f"[u] the server's ids differ from the in-process engine's in "
                              f"{len(same) - sum(same)} of {len(same)} requests")
+    if not busy["w4a8"] or not all("group_mma" in k for k in busy["w4a8"]):
+        raise AssertionError(f"[u] U-serve's steady steps ran the w4a8 kernels {busy['w4a8']}")
     return launches
 
 
@@ -8742,6 +8813,43 @@ AX0_VARIANTS = {"element-stores": "-DHQQ_AX0_RUN_STORES=0",
                 "meta-per-row": "-DHQQ_AX0_SHARED_META=0"}
 
 
+# --time w4a8_matmul|w4a8_lora_matmul M K N NBITS-G-META VARIANT builds
+# w4a8_matmul.cu's small-group route without one part of its work
+# (`HQQ_W4A8_GROUP_VARIANT`), for what each costs: its results are wrong
+# (or, as ring-S or tile-R-S, launches it with S ring slots, or R rows and S
+# k-slices a block, in place of the plan's)
+W4A8_VARIANTS = {"no-fold": "-DHQQ_W4A8_GROUP_VARIANT=1", "no-mma": "-DHQQ_W4A8_GROUP_VARIANT=2",
+                 "no-meta": "-DHQQ_W4A8_GROUP_VARIANT=3", "loads-only": "-DHQQ_W4A8_GROUP_VARIANT=4"}
+
+
+def _w4a8_plan_variant(how: str) -> None:
+    """ring-S: the small-group plan with S ring slots; tile-R-S: with R rows
+    and S k-slices a block (the ring the plan's, or S slots if fewer)."""
+    import dataclasses
+
+    from hqq_tpu_torch.ops import fused_matmul as fm
+
+    plan_of = fm.w4a8_launch_plan
+    words = how.split("-")
+
+    def plan(m, n, k, cb, g, meta=torch.float32):
+        p = plan_of(m, n, k, cb, g, meta)
+        if p.route != "group_mma":
+            return p
+        rows, slices, stages = p.col_tile, p.k_slices, p.stages
+        if words[0] == "ring":
+            stages = int(words[1])
+        else:
+            rows, slices = int(words[1]), int(words[2])
+            stages = max(slices, stages // slices * slices)
+        smem = fm.w4a8_group_smem(p.stage_codes, p.token_tile, rows, p.meta_boxes,
+                                  fm.w4a8_group_pieces(g), slices, stages)
+        return dataclasses.replace(p, col_tile=rows, k_slices=slices, stages=stages, smem=smem,
+                                   grid=(-(-n // rows),))
+
+    fm.w4a8_launch_plan = plan
+
+
 # --time paged_attention B LEN H KV TYPE:VARIANT builds or launches the paged
 # kernel without one part of its design, for what each part buys
 PAGED_VARIANTS = ("global-scales", "copy", "head-blocks")
@@ -8783,12 +8891,22 @@ def time_one(kernel: str, m: int, k: int, n: int, extra: "str | None" = None,
     axis=0 config (``AX0_TIME_DEFAULT``); for qmm_fp32 (fp32 x, 4-bit g64
     axis=1) a LoRA rank or an axis=0 config; for dequant and
     dequant_canonical the config NBITS-G-META of an axis=1 weight (default
-    4-64-fp32). ``variant``: one of ``AX0_VARIANTS``, for quant_matmul_ax0;
-    the page type (bf16 or int8) for paged_attention."""
+    4-64-fp32), as for w4a8_matmul and w4a8_lora_matmul (for these a rank
+    otherwise). ``variant``: one of ``AX0_VARIANTS``, for quant_matmul_ax0;
+    the page type (bf16 or int8) for paged_attention; for the w4a8 pair
+    names of ``W4A8_VARIANTS``, ring-S and tile-R-S joined by commas."""
     from hqq_tpu_torch.ops import _build
     from hqq_tpu_torch.ops import fused_matmul as fm
 
-    if variant is not None and kernel != "paged_attention":
+    if variant is not None and kernel.startswith("w4a8"):  # several joined by commas
+        for how in variant.split(","):
+            if how.startswith(("ring-", "tile-")):
+                _w4a8_plan_variant(how)
+            elif how not in W4A8_VARIANTS:
+                raise SystemExit(f"the w4a8 variants are {sorted(W4A8_VARIANTS)}, ring-S, tile-R-S")
+            else:
+                _build.NVCC_FLAGS = _build.NVCC_FLAGS + (W4A8_VARIANTS[how],)  # a library of its own
+    elif variant is not None and kernel != "paged_attention":
         if kernel != "quant_matmul_ax0" or variant not in AX0_VARIANTS:
             raise SystemExit(f"variants are quant_matmul_ax0's: {sorted(AX0_VARIANTS)}")
         _build.NVCC_FLAGS = _build.NVCC_FLAGS + (AX0_VARIANTS[variant],)  # a library of its own
@@ -8824,6 +8942,8 @@ def time_one(kernel: str, m: int, k: int, n: int, extra: "str | None" = None,
             config = (config + [""] * 3)[:3]
             config[1], config[2] = config[1] or str(HEAD_DIM), config[2] or "fp32"
             config[0] = config[0] or str(n)
+    elif kernel.startswith("w4a8") and extra and "-" in extra:  # an axis=1 NBITS-G-META
+        config, r = extra, None
     else:
         config, r = None, int(extra) if extra else None
 
@@ -8882,7 +9002,11 @@ def time_one(kernel: str, m: int, k: int, n: int, extra: "str | None" = None,
 
     x = torch.randn((m, k), device="cuda", generator=torch.Generator(device="cuda").manual_seed(1))
     x = x.to(torch.float32 if kernel == "qmm_fp32" else torch.bfloat16)
-    if config is not None:
+    if config is not None and kernel.startswith("w4a8"):  # axis=1, HQQ+'s sub-word groups too
+        nbits, g, meta = config.split("-")
+        kqt = _u_kqt(n, k, float(nbits) if "." in nbits else int(nbits), int(g), seed=1,
+                     meta={"fp32": torch.float32, "bf16": torch.bfloat16}[meta])
+    elif config is not None:
         nbits, g, meta = config.split("-")
         kqt = _make_kqt0(n, k, int(g), int(nbits),
                          {"fp32": torch.float32, "bf16": torch.bfloat16}[meta], seed=1)
@@ -9080,8 +9204,21 @@ def main(argv: list[str]) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     dev_tag = f"[{power}]"
-    if argv and argv[0] == "--time":
-        log(json.dumps(dict(time_one(argv[1], *map(int, argv[2:5]), *argv[5:7]), card=power)))
+    if argv and argv[0] == "--time":  # KERNEL M K N [EXTRA [VARIANT]] [+ KERNEL M K N ...]
+        from hqq_tpu_torch.ops import _build
+
+        flags = _build.NVCC_FLAGS
+        runs = [[]]
+        for arg in argv[1:]:
+            runs.append([]) if arg == "+" else runs[-1].append(arg)
+        from hqq_tpu_torch.ops import fused_matmul as fm
+
+        plan_of = fm.w4a8_launch_plan
+        for run in runs:
+            log(json.dumps(dict(time_one(run[0], *map(int, run[1:4]), *run[4:6]), card=power)))
+            _build.NVCC_FLAGS = flags  # a variant holds for its own run alone
+            _build._load.cache_clear()
+            fm.w4a8_launch_plan = plan_of
         return 0
     if argv and argv[0] == "--ids":
         log(json.dumps(dict(greedy_ids(), card=power)))

@@ -30,6 +30,11 @@ def kernel_wrappers() -> tuple:
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch count to 0, and the w4a8 routes'
+    (`fused_matmul.W4A8_ROUTE_LAUNCHES`)."""
+    from .fused_matmul import W4A8_ROUTE_LAUNCHES
+
     for w in kernel_wrappers():
         w.launches = 0
+    for route in W4A8_ROUTE_LAUNCHES:
+        W4A8_ROUTE_LAUNCHES[route] = 0

@@ -90,9 +90,9 @@ KERNELS = {
         "rms_norm.cu", "hqq_layer_norm",
         [_P] * 4 + [_I] * 3 + [ctypes.c_float] + [_I] * 5 + [_P],
     ),
-    "w4a8_matmul": ("w4a8_matmul.cu", "hqq_w4a8_matmul", [_P] * 6 + [_I] * 13 + [_P]),
+    "w4a8_matmul": ("w4a8_matmul.cu", "hqq_w4a8_matmul", [_P] * 6 + [_I] * 14 + [_P]),
     "w4a8_lora_matmul": (
-        "w4a8_matmul.cu", "hqq_w4a8_lora_matmul", [_P] * 8 + [_I] * 14 + [_P],
+        "w4a8_matmul.cu", "hqq_w4a8_lora_matmul", [_P] * 8 + [_I] * 15 + [_P],
     ),
 }
 

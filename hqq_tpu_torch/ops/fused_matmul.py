@@ -96,6 +96,7 @@ __all__ = [
     "w4a8_launch_plan",
     "w4a8_smem_bytes",
     "w4a8_dp4a_smem",
+    "w4a8_group_smem",
     "ax0_tile_rows",
     "lora_a_kernel_layout",
     "lora_rank_tile",
@@ -146,6 +147,10 @@ DEQUANT_AX0_THREADS = 128
 DEQUANT_AX0_MIN_BLOCKS = 16 * H100_SMS
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# launches of the w4a8 wrappers (both, with and without the LoRA epilogue) by
+# the kernel their plan's route launches: `w4a8_mma_kernel`, the small-group
+# `w4a8_group_mma_kernel`, `w4a8_dp4a_kernel`
+W4A8_ROUTE_LAUNCHES = {"tensor_cores": 0, "group_mma": 0, "cuda_cores": 0}
 
 
 @dataclasses.dataclass
@@ -614,17 +619,24 @@ def qmm_fp32_launch_plan(m: int, n: int, k: int, cb: int, group_size: int, axis:
 class W4a8Plan:
     """How `w4a8_matmul` and `w4a8_lora_matmul` launch.
 
-    ``route`` "tensor_cores": a block per ``col_tile`` weight rows (grid
-    (column tiles,)), which first loads its scale and zs for the whole of K
-    (``meta_boxes`` TMA boxes of ``meta_cols`` columns each), then walks all
-    ``stages_total`` stages of ``stage_codes`` codes through a ring of
-    ``stages`` slots; its eight consumer warps are col_tile/16 row groups by
-    ``k_slices`` slices, stage i going to slice i % k_slices; ``smem``
-    bytes. "cuda_cores": the small-group kernel, blocks of 16 columns by 8
-    rows of x8 (grid (column tiles, row tiles)); the stage fields are 0.
-    ``meta_tma``: scale and zs by TMA (rows of whole 16 bytes; else 4-byte
-    cp.async by every thread of the block). ``why`` says why the route was taken, or
-    why the grid leaves SMs idle."""
+    ``route`` "tensor_cores" (g % 32 == 0): a block per ``col_tile`` weight
+    rows (grid (column tiles,)), which first loads its scale and zs for the
+    whole of K (``meta_boxes`` TMA boxes of ``meta_cols`` columns each), then
+    walks all ``stages_total`` stages of ``stage_codes`` codes through a ring
+    of ``stages`` slots; its eight consumer warps are col_tile/16 row groups
+    by ``k_slices`` slices, stage i going to slice i % k_slices; ``smem``
+    bytes. "group_mma" (the small-group route: groups that are not whole
+    k32 steps, or meta too large for a block): the same grid, ring and
+    slices, each stage carrying its own scale and zs (``meta_boxes`` boxes
+    of ``meta_cols`` columns a stage) and each step's groups kept apart by
+    their own MMAs; col_tile and k_slices depend on N, K, cb, g and the
+    meta type alone, so a row's sums take one order at every M. "cuda_cores":
+    the CUDA-core kernel for code or meta rows off the 16-byte rule of a
+    TMA map, blocks of 16 columns by 8 rows of x8 (grid (column tiles, row
+    tiles)); the stage fields are 0. ``meta_tma``: scale and zs by TMA
+    (rows of whole 16 bytes; else 4-byte cp.async by every thread of the
+    block). ``why`` says why the route was taken, or why the grid leaves
+    SMs idle."""
 
     route: str
     token_tile: int
@@ -642,7 +654,7 @@ class W4a8Plan:
 
     @property
     def route_code(self) -> int:
-        return 0 if self.route == "tensor_cores" else 1
+        return {"tensor_cores": 0, "cuda_cores": 1, "group_mma": 2}[self.route]
 
 
 def _w4a8_meta_box(groups: int, meta_size: int) -> tuple[int, int]:
@@ -685,6 +697,91 @@ def w4a8_dp4a_smem(group_size: int) -> int:
     return 8 * tile_groups * (group_size // 4 + 1) * 4
 
 
+def w4a8_group_pieces(group_size: int) -> int:
+    """The MMAs of a k32 step on the small-group route (`gm_pieces`): the
+    groups a step can touch, 4 at g = 8, 2 for other g off the multiples of
+    32 (a step straddles at most one boundary), 1 where g % 32 == 0."""
+    return 4 if group_size == 8 else 2 if group_size % 32 else 1
+
+
+def w4a8_group_meta_boxes(stage_codes: int, group_size: int, meta_size: int) -> int:
+    """Meta boxes of 128 bytes a row that hold the groups one stage touches
+    (`gm_meta_boxes`): stage_codes/g where g divides a stage, else at most
+    (stage_codes - 1)/g + 2, counted from the first group's column rounded
+    down to 16 bytes (where a TMA box may start): 16/meta_size - 1 more
+    where a stage's groups are not whole 16 bytes."""
+    g = group_size
+    unit = 16 // meta_size
+    cols = stage_codes // g if stage_codes % g == 0 else (stage_codes - 1) // g + 2
+    if stage_codes % (g * unit):
+        cols += unit - 1
+    return -(-cols * meta_size // 128)
+
+
+def w4a8_group_smem(stage_codes: int, token_tile: int, rows: int, meta_boxes: int, pieces: int,
+                    slices: int, stages: int) -> int:
+    """Dynamic shared memory of one block of the small-group route (`gm_smem`
+    of csrc/w4a8_matmul.cu): a ring slot holds the codes [rows x 128 bytes],
+    x8 in boxes of [token_tile x 128 bytes] (1024 bytes at least), scale and
+    zs ``meta_boxes`` boxes of [rows x 128 bytes] each, and the xsum table
+    [token_tile][steps x pieces + 4] fp32, padded to 1024 bytes; after the
+    last stage the ring holds the fp32 partials [slices x token_tile x (rows
+    + 4)]; three barriers a slot; 1024 bytes to align the base."""
+    stage = (rows * 128 + stage_codes // 128 * 128 * max(token_tile, 8)
+             + 2 * meta_boxes * rows * 128 + token_tile * (stage_codes // 32 * pieces + 4) * 4)
+    stage = -(-stage // 1024) * 1024
+    part = slices * token_tile * (rows + 4) * 4
+    return 1024 + max(stages * stage, part) + 24 * stages
+
+
+# the small-group route: tiles of 4 tokens (an n8 MMA tile holds 4 tokens by
+# two halves of a step's groups); (column tile, k-slices) a block
+W4A8_GROUP_TOKEN_TILES = (4, 8, 16, 32)
+W4A8_GROUP_TILES = ((64, 2), (32, 2), (32, 4))
+
+
+def _w4a8_group_plan(m: int, n: int, k: int, cb: int, g: int, meta_size: int,
+                     why: str) -> W4a8Plan:
+    """The small-group route's launch (`w4a8_launch_plan`)."""
+    tile = next(t for t in W4A8_GROUP_TOKEN_TILES if t >= m)
+    kc = 1024 // cb
+    total = -(-k // kc)
+    pieces = w4a8_group_pieces(g)
+    boxes = w4a8_group_meta_boxes(kc, g, meta_size)
+
+    def smem(rows, slices, stages, token_tile=tile):
+        return w4a8_group_smem(kc, token_tile, rows, boxes, pieces, slices, stages)
+
+    # column tile and k-slices from N, K, cb, g and the meta type alone: a
+    # ring of the 32-token tile must fit, whatever M is. Rows: the fewest an
+    # SM must take (its blocks, rounded up, times their rows), then the
+    # larger tile. Slices: 4 (eight consumer warps) where the blocks leave an
+    # SM one at most, else 2, so that more blocks share an SM (chip_smoke.py
+    # `--time ... tile-R-S,ring-S` readings)
+    fits = [o for o in W4A8_GROUP_TILES if smem(*o, o[1], token_tile=32) <= H100_SMEM_PER_BLOCK]
+    if not fits:
+        raise ValueError(f"no ring of the small-group w4a8 kernel fits for cb {cb}, g {g}")
+    def blocks_of(r):
+        return -(-n // r)
+
+    rows = min((o[0] for o in fits), key=lambda r: (-(-blocks_of(r) // H100_SMS) * r, -r))
+    few = blocks_of(rows) <= H100_SMS
+    rows, slices = next((o for o in fits if o[0] == rows and (o[1] == 4) == few),
+                        next(o for o in fits if o[0] == rows))
+    blocks = blocks_of(rows)
+    resident = min(4, max(1, -(-blocks // H100_SMS)))  # blocks an SM holds at once
+    budget = H100_SMEM_PER_SM // resident - 1024
+    stages = min(W4A8_MAX_STAGES, -(-total // slices) * slices)
+    while stages > slices and smem(rows, slices, stages) > budget:
+        stages -= slices
+    if blocks < H100_SMS:
+        why += f"; {blocks} blocks of {rows} rows: N = {n} has no more"
+    return W4a8Plan(route="group_mma", token_tile=tile, col_tile=rows, stage_codes=kc,
+                    stages_total=total, k_slices=slices, stages=stages,
+                    meta_cols=128 // meta_size, meta_boxes=boxes,
+                    smem=smem(rows, slices, stages), grid=(blocks,), meta_tma=True, why=why)
+
+
 @functools.lru_cache(maxsize=4096)
 def w4a8_launch_plan(m: int, n: int, k: int, cb: int, group_size: int,
                      meta_dtype: torch.dtype = torch.float32) -> W4a8Plan:
@@ -694,11 +791,12 @@ def w4a8_launch_plan(m: int, n: int, k: int, cb: int, group_size: int,
     Route, by shape, before any launch: the tensor cores where a group is
     whole k32 steps (g % 32 == 0), the code rows meet a TMA map's 16-byte
     rule (k * cb / 8 % 16 == 0) and a block's scale and zs for the whole of
-    K fit its shared memory beside the shortest ring; else the CUDA cores
-    (the planned small-group route: g = 8, 16, 24, ..., groups shorter
-    than a word among them (2-bit g8, 1-bit g8 and g16), 1- or 2-bit rows of
-    odd 16-byte length, and meta too large for a block, such as 1-bit g32
-    at K = 11008 and 32 tokens).
+    K fit its shared memory beside the shortest ring; else the small-group
+    route (g = 8, 16, 24, ..., groups shorter than a word among them (2-bit
+    g8, 1-bit g8 and g16), and meta too large for a block, such as 1-bit
+    g32 at K = 11008 and 32 tokens), where code and meta rows meet the
+    16-byte rule; else the CUDA cores (1-bit rows at K = 4544, 1- and 2-bit
+    rows at K = 96, fp32 meta rows of K/g % 4 != 0 columns).
 
     Tensor cores: token tile 8, 16 or 32, the least that holds m; stages of
     1024/cb codes (one 128-byte code row). Blocks of 64 weight rows, or 32
@@ -706,7 +804,10 @@ def w4a8_launch_plan(m: int, n: int, k: int, cb: int, group_size: int,
     or 32, the most that keeps 0.6 blocks per SM (x8 is read from L2 once
     per block, at 32 tokens and 32 rows twice the codes' bytes). The ring: the deepest multiple of the
     k-slices up to 8 that fits the shared memory of the blocks an SM holds
-    at once."""
+    at once. The small-group route: token tiles of 4, 8, 16 or 32, the
+    same stages and ring rule; blocks of 64 or 32 rows, whichever leaves an
+    SM the fewest rows, with 4 k-slices where there is a block an SM at
+    most and 2 otherwise, of those whose ring fits at the 32-token tile."""
     g = group_size
     meta_size = 2 if meta_dtype == torch.bfloat16 else 4
 
@@ -715,10 +816,13 @@ def w4a8_launch_plan(m: int, n: int, k: int, cb: int, group_size: int,
                         stages_total=0, k_slices=0, stages=0, meta_cols=0, meta_boxes=0,
                         smem=w4a8_dp4a_smem(g), grid=(-(-n // 16), -(-m // 8)), why=why)
 
-    if g % 32:
-        return small(f"g = {g} is not a multiple of 32 codes")
     if k * cb // 8 % 16:
         return small(f"code rows of {k * cb // 8} bytes break the 16-byte rule of a TMA map")
+    meta_row = ax1_meta_cols(k // g, meta_dtype) * meta_size
+    if g % 32:
+        if meta_row % 16:
+            return small(f"meta rows of {meta_row} bytes break the 16-byte rule of a TMA map")
+        return _w4a8_group_plan(m, n, k, cb, g, meta_size, f"g = {g} is not a multiple of 32 codes")
     tile = next(t for t in W4A8_TOKEN_TILES if t >= m)
     kc = 1024 // cb
     total = -(-k // kc)
@@ -731,7 +835,10 @@ def w4a8_launch_plan(m: int, n: int, k: int, cb: int, group_size: int,
     options = (64, 32) if tile <= 16 else (128, 64, 32)
     fits = [r for r in options if smem(r, W4A8_CONSUMERS // (r // 16)) <= H100_SMEM_PER_BLOCK]
     if not fits:
-        return small(f"a block's scale and zs ({boxes} x {bc} columns) leave no room for a ring")
+        why = f"a block's scale and zs ({boxes} x {bc} columns) leave no room for a ring"
+        if meta_row % 16:
+            return small(why + f", and meta rows of {meta_row} bytes break the 16-byte rule")
+        return _w4a8_group_plan(m, n, k, cb, g, meta_size, why)
     rows = next((r for r in fits if -(-n // r) >= least), fits[-1])
     slices = W4A8_CONSUMERS // (rows // 16)
     blocks = -(-n // rows)
@@ -747,7 +854,7 @@ def w4a8_launch_plan(m: int, n: int, k: int, cb: int, group_size: int,
     return W4a8Plan(route="tensor_cores", token_tile=tile, col_tile=rows, stage_codes=kc,
                     stages_total=total, k_slices=slices, stages=stages, meta_cols=bc,
                     meta_boxes=boxes, smem=smem(rows, stages), grid=(blocks,),
-                    meta_tma=ax1_meta_cols(k // g, meta_dtype) * meta_size % 16 == 0, why=why)
+                    meta_tma=meta_row % 16 == 0, why=why)
 
 
 def _fastdiv(d: int) -> tuple[int, int]:
@@ -1445,9 +1552,17 @@ def _w4a8_operands(x8, sx, kqt, out_dtype):
     return x8, sx, plan
 
 
+def _w4a8_meta_ptrs(kqt: KernelQTensor, plan: W4a8Plan) -> tuple:
+    """scale and zs as the C entries take them: 16-byte aligned bases (TMA)
+    on the small-group route."""
+    align = 16 if plan.route == "group_mma" else 4
+    return _ptr(kqt.scale, align), _ptr(kqt.zs, align)
+
+
 def _w4a8_plan_args(plan: W4a8Plan) -> tuple:
     """The plan's fields as the C entries take them, after the meta type."""
-    return (plan.route_code, plan.token_tile, plan.col_tile, plan.stages, plan.meta_cols, plan.smem)
+    return (plan.route_code, plan.token_tile, plan.col_tile, plan.k_slices, plan.stages,
+            plan.meta_cols, plan.smem)
 
 
 def w4a8_matmul(
@@ -1465,13 +1580,14 @@ def w4a8_matmul(
     lib = _build.library("w4a8_matmul")
     with torch.cuda.device(dev):
         code = lib.hqq_w4a8_matmul(
-            _ptr(x8, 4), _ptr(sx, 4), _ptr(kqt.wq, 16), _ptr(kqt.scale, 4), _ptr(kqt.zs, 4),
+            _ptr(x8, 4), _ptr(sx, 4), _ptr(kqt.wq, 16), *_w4a8_meta_ptrs(kqt, plan),
             _ptr(out, 2), m, kqt.n, k, kqt.group_size, kqt.container_bits,
             _DTYPE_CODE[out_dtype], _DTYPE_CODE[kqt.scale.dtype], *_w4a8_plan_args(plan),
             _stream(dev),
         )
     _build.check("w4a8_matmul", code)
     w4a8_matmul.launches += 1
+    W4A8_ROUTE_LAUNCHES[plan.route] += 1
     return out
 
 
@@ -1508,13 +1624,14 @@ def w4a8_lora_matmul(
     lib = _build.library("w4a8_lora_matmul")
     with torch.cuda.device(dev):
         code = lib.hqq_w4a8_lora_matmul(
-            _ptr(x8, 4), _ptr(sx, 4), _ptr(kqt.wq, 16), _ptr(kqt.scale, 4), _ptr(kqt.zs, 4),
+            _ptr(x8, 4), _ptr(sx, 4), _ptr(kqt.wq, 16), *_w4a8_meta_ptrs(kqt, plan),
             _ptr(xa, 4), _ptr(b, 4), _ptr(out, 2), m, kqt.n, k, r, kqt.group_size,
             kqt.container_bits, _DTYPE_CODE[out_dtype], _DTYPE_CODE[kqt.scale.dtype],
             *_w4a8_plan_args(plan), _stream(dev),
         )
     _build.check("w4a8_lora_matmul", code)
     w4a8_lora_matmul.launches += 1
+    W4A8_ROUTE_LAUNCHES[plan.route] += 1
     return out
 
 
@@ -1523,9 +1640,11 @@ _WRAPPERS = (dequant, dequant_canonical, quant_matmul, quant_matmul_lora, quant_
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch count to 0, and the w4a8 routes'."""
     for w in _WRAPPERS:
         w.launches = 0
+    for route in W4A8_ROUTE_LAUNCHES:
+        W4A8_ROUTE_LAUNCHES[route] = 0
 
 
 reset_launch_counts()

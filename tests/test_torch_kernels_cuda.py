@@ -81,15 +81,36 @@ def test_w4a8_matmul(cuda, m, nbits, g, k, n):
 
 
 @pytest.mark.parametrize("m", [1, 8, 32])
-@pytest.mark.parametrize("nbits,g,k,n", [(4, 8, 512, 256), (4, 16, 512, 1000), (4, 24, 960, 256)])
-def test_w4a8_matmul_small_groups(cuda, m, nbits, g, k, n):
-    """Groups of 8, 16 and 24 codes: the plan's CUDA-core route."""
+@pytest.mark.parametrize("nbits,g,k,n,route", [
+    (4, 8, 512, 256, "group_mma"), (4, 16, 512, 1000, "group_mma"),
+    (4, 24, 960, 256, "group_mma"), (5, 8, 512, 256, "group_mma"), (2, 40, 960, 256, "group_mma"),
+    (1, 32, 11008, 256, None),  # at 32 tokens the tensor-core route's meta leaves no ring
+    (4, 16, 96, 256, "cuda_cores"),    # fp32 meta rows of 24 bytes
+    (2, 8, 480, 256, "cuda_cores"),    # code rows of 120 bytes
+])
+def test_w4a8_matmul_small_groups(cuda, m, nbits, g, k, n, route):
+    """Groups of 8, 16, 24 and 40 codes: the plan's small-group route; rows
+    off the 16-byte rule: the CUDA-core kernel."""
     kqt = _kqt(n, k, g, nbits, cuda, seed=m)
-    assert fm.w4a8_launch_plan(m, n, k, kqt.container_bits, g).route == "cuda_cores"
+    route = route or ("group_mma" if m > 16 else "tensor_cores")
+    assert fm.w4a8_launch_plan(m, n, k, kqt.container_bits, g).route == route
     x = torch.randn((m, k), device=cuda)
     x8, sx = fm.quantize_activations_int8(x)
     for dtype, tol in _OUT_TOL.items():
         _close(fm.w4a8_matmul(x8, sx, kqt, dtype), fm.w4a8_matmul_plain(x8, sx, kqt, dtype), tol)
+
+
+@pytest.mark.parametrize("nbits,g,k,n", [(2, 8, 4096, 1000), (1, 16, 1024, 256), (4, 24, 960, 256)])
+def test_w4a8_small_groups_rows_do_not_depend_on_m(cuda, nbits, g, k, n):
+    """The small-group route sums a row in one order at every M: row 0 of
+    y is bit-equal at M = 1, 4, 8 and 32 given the same row of x."""
+    kqt = _kqt(n, k, g, nbits, cuda, seed=5)
+    x = torch.randn((32, k), device=cuda)
+    rows = []
+    for m in (1, 4, 8, 32):
+        x8, sx = fm.quantize_activations_int8(x[:m])
+        rows.append(fm.w4a8_matmul(x8, sx, kqt)[0])
+    assert all(torch.equal(r, rows[0]) for r in rows[1:])
 
 
 @pytest.mark.parametrize("meta_dtype", [torch.float32, torch.bfloat16])
@@ -1055,13 +1076,13 @@ def _kqt_meta(n, k, g, nbits, meta, device, seed=0):
 @pytest.mark.parametrize("nbits,g", _SUBWORD)
 @pytest.mark.parametrize("k,n", [(512, 256), (4096, 1000)])
 def test_subword_w4a8(cuda, k, n, nbits, g, meta):
-    """Rows 2/3 and 8 on the CUDA-core route at M = 1, 4, 8, 17, 32: each
+    """Rows 2/3 and 8 on the small-group route at M = 1, 4, 8, 17, 32: each
     field with its own group's scale and zs, against the plain twins (1e-5
     in fp32, one output rounding more in bf16/fp16); three runs bit-equal."""
     kqt = _kqt_meta(n, k, g, nbits, meta, cuda, seed=k + g)
     a, b = _lora(k, n, 8, cuda, seed=g)
     for m in (1, 4, 8, 17, 32):
-        assert fm.w4a8_launch_plan(m, n, k, kqt.container_bits, g, meta).route == "cuda_cores"
+        assert fm.w4a8_launch_plan(m, n, k, kqt.container_bits, g, meta).route == "group_mma"
         x = torch.randn((m, k), device=cuda)
         x8, sx = fm.quantize_activations_int8(x)
         xa = x @ a

@@ -333,15 +333,18 @@ def _emulate_dp4a(x8, sx, kqt, neighbour=False):
 
 @pytest.mark.parametrize("nbits,g", CONFIGS, ids=_IDS)
 def test_dp4a_walk_matches_plain_and_hqq_tpu(nbits, g):
-    """The plan sends these groups to the CUDA cores, whose walk over the
-    words (emulated) is within 1e-5 of max|y| of the plain twin and of
-    `hqq_tpu`'s int8 route; a field reading its neighbour group's meta in
-    the same word misses the bar."""
-    kj, kt, _ = _carry(nbits, g, "fp32", n_out=96, k=512, seed=4)
+    """Code rows off the 16-byte rule of a TMA map (K = 480: 120 or 60
+    bytes) keep these groups on the CUDA cores, whose walk over the words
+    (emulated) is within 1e-5 of max|y| of the plain twin and of `hqq_tpu`'s
+    int8 route; a field reading its neighbour group's meta in the same word
+    misses the bar. (At K = 512 the plan takes the small-group route,
+    `tests/test_torch_w4a8_groups.py`.)"""
+    kj, kt, _ = _carry(nbits, g, "fp32", n_out=96, k=480, seed=4)
     for m in (1, 8, 32):
         plan = tf.w4a8_launch_plan(m, kt.n, kt.k, kt.container_bits, g)
         assert plan.route == "cuda_cores" and plan.smem == tf.w4a8_dp4a_smem(g)
-        x = _x(m, 512, 20 + m)
+        assert tf.w4a8_launch_plan(m, kt.n, 512, kt.container_bits, g).route == "group_mma"
+        x = _x(m, 480, 20 + m)
         x8, sx = tf.quantize_activations_int8(torch.from_numpy(x))
         got = _emulate_dp4a(x8.numpy(), sx.numpy(), kt)
         plain = tf.w4a8_matmul_plain(x8, sx, kt).numpy()

@@ -14,8 +14,18 @@ interpret mode) and to the port's plain twin `w4a8_matmul_plain`:
     chained, then folded into fp32 with the group's scale and zs; stage i to
     k-slice i % slices, the slices' partials summed in order, times sx,
     plus the LoRA term;
-  * CUDA-core route (`w4a8_dp4a_kernel`, g % 32 != 0): per lane its groups'
-    exact dots folded in order, then the warp's butterfly sum.
+  * small-group route (`w4a8_group_mma_kernel`, g % 32 != 0 or meta too
+    large for a block): per k32 step, the same fragments; each of the
+    step's groups ("pieces") its own MMA, the chunks (8 codes of a thread)
+    of every other piece zeroed; xsum per (token, piece) from the stage's
+    x8; each piece folded into fp32 with its group's scale and zs at once,
+    the first half of the pieces into one set of accumulators and the
+    second into another (the kernel's two column halves of an n8 tile);
+    per k-slice the halves summed, stage i to k-slice i % slices, the
+    slices summed in order, times sx, plus the LoRA term;
+  * CUDA-core route (`w4a8_dp4a_kernel`, code or meta rows off the 16-byte
+    rule): per lane its groups' exact dots folded in order, then the warp's
+    butterfly sum.
 
 Bars (of max|y|): 1e-5 in fp32 (exact dots, fp32 folds in another order),
 2^-7 for a bf16 output (one rounding more). Control: B in the MMA's natural
@@ -136,6 +146,64 @@ def _emulate_tc(x8, sx, kqt, plan, xa=None, b=None, dtype=torch.float32, natural
     return _epilogue(v.T, sx, xa, b, dtype)
 
 
+def _pieces(ks, g, cols, moved=False):
+    """The small-group route's pieces of the k32 step at code ks: for each
+    piece p < `w4a8_group_pieces(g)`, the MMA's k mask of the threads whose
+    chunk (codes ks + 8t .. + 7) lies in it, its group's meta column (a
+    piece no chunk lies in takes the step's first group, as the kernel does:
+    its dot and xsum are 0; None past the columns: the TMA's zero fill) and
+    those threads. ``moved``: thread 0's mask moved to the next piece (the
+    control)."""
+    first = ks // g
+    pieces = tf.w4a8_group_pieces(g)
+    of_t = [(ks + 8 * t) // g - first for t in range(4)]
+    shown = [(p + 1) % pieces if moved and t == 0 else p for t, p in enumerate(of_t)]
+    out = []
+    for p in range(pieces):
+        mask = np.zeros(32, bool)
+        for t in range(4):
+            if shown[t] == p:
+                mask[4 * t:4 * t + 4] = mask[16 + 4 * t:16 + 4 * t + 4] = True
+        mine = [t for t in range(4) if of_t[t] == p]
+        grp = first + p if mine else first
+        out.append((mask, grp if grp < cols else None, mine))
+    return out
+
+
+def _emulate_gm(x8, sx, kqt, plan, xa=None, b=None, dtype=torch.float32, moved=False):
+    """The small-group route on the packed words: steps of a stage in order,
+    each piece's masked MMA, its xsum and its fold, acc += s * dot - xsum * z
+    (fp32 fma), pieces p < P/2 into one half's accumulators and the rest
+    into the other's (P = 1: all in the first); per k-slice the halves
+    summed, then the slices in order, times sx, plus the LoRA term."""
+    m, k = x8.shape
+    n, cb, g = kqt.n, kqt.container_bits, kqt.group_size
+    words = kqt.wq.numpy().view(np.uint32).reshape(n, -1)
+    s, z = _meta(kqt)
+    cols = s.shape[1]
+    half = max(1, tf.w4a8_group_pieces(g) // 2)  # pieces a half
+    xi = x8.astype(np.int64)
+    acc = np.zeros((plan.k_slices, 2, n, m), np.float32)
+    for i in range(plan.stages_total):
+        k0 = i * plan.stage_codes
+        for c in range(-(-min(plan.stage_codes, k - k0) // 32)):
+            ks = k0 + 32 * c
+            fa, fb = _fragments(words, x8, ks, cb)
+            for p, (mask, grp, mine) in enumerate(_pieces(ks, g, cols, moved)):
+                d = (fa * mask) @ fb
+                xs = sum((xi[:, ks + 8 * t:ks + 8 * t + 8].sum(axis=1) for t in mine),
+                         np.zeros(m, np.int64))
+                sc = s[:, grp] if grp is not None else np.zeros(n, np.float32)
+                zc = z[:, grp] if grp is not None else np.zeros(n, np.float32)
+                a_ = _fma32(sc[:, None], d.astype(np.float32), acc[i % plan.k_slices, p // half])
+                acc[i % plan.k_slices, p // half] = _fma32(-xs.astype(np.float32)[None, :],
+                                                           zc[:, None], a_)
+    v = (acc[:, 0] + acc[:, 1]).astype(np.float32)
+    for q in range(1, plan.k_slices):
+        v[0] = (v[0] + v[q]).astype(np.float32)
+    return _epilogue(v[0].T, sx, xa, b, dtype)
+
+
 def _emulate_cc(x8, sx, kqt, xa=None, b=None, dtype=torch.float32):
     """The CUDA-core route: lane l folds groups l, l + 32, ... in order,
     then the butterfly sum over the 32 lanes."""
@@ -158,11 +226,13 @@ def _emulate_cc(x8, sx, kqt, xa=None, b=None, dtype=torch.float32):
     return _epilogue(lanes[0].T, sx, xa, b, dtype)
 
 
-def emulate(x8, sx, kqt, xa=None, b=None, dtype=torch.float32, natural_b=False):
+def emulate(x8, sx, kqt, xa=None, b=None, dtype=torch.float32, natural_b=False, moved=False):
     plan = tf.w4a8_launch_plan(x8.shape[0], kqt.n, kqt.k, kqt.container_bits, kqt.group_size,
                                kqt.scale.dtype)
     if plan.route == "tensor_cores":
         return _emulate_tc(x8, sx, kqt, plan, xa, b, dtype, natural_b)
+    if plan.route == "group_mma":
+        return _emulate_gm(x8, sx, kqt, plan, xa, b, dtype, moved)
     return _emulate_cc(x8, sx, kqt, xa, b, dtype)
 
 
@@ -185,7 +255,7 @@ _CASES = [
 
 
 def _case(m, n, k, g, nbits, bf16, rank):
-    rng = np.random.default_rng(m * 7 + k + nbits)
+    rng = np.random.default_rng(m * 7 + k + (nbits if nbits == int(nbits) else int(nbits * 100)))
     w = (rng.standard_normal((n, k)) / np.sqrt(k)).astype(np.float32)
     qj = j_quantize(jnp.asarray(w), nbits=nbits, group_size=g, axis=1,
                     round_zero=(nbits == 4), compute_dtype=jnp.float32)
@@ -257,8 +327,9 @@ def test_plan_smem_coverage_and_tma_rules(k, n, nbits, g):
             if k * cb // 8 % 16:  # 1-bit rows of odd 16-byte length: the CUDA cores
                 assert p.route == "cuda_cores" and "16-byte rule" in p.why
                 continue
-            if p.route == "cuda_cores":  # 1-bit g32 at K = 11008: the meta leaves no ring
+            if p.route == "group_mma":  # 1-bit g32 at K = 11008: the meta leaves no ring
                 assert "no room for a ring" in p.why and cb == 1 and k > 8192
+                _check_group_plan(p, m, n, k, cb, g, meta)
                 continue
             assert p.route == "tensor_cores", p
             size = 2 if meta == torch.bfloat16 else 4
@@ -293,19 +364,69 @@ def test_plan_smem_coverage_and_tma_rules(k, n, nbits, g):
             assert p.meta_tma == (tf.ax1_meta_cols(k // g, meta) * size % 16 == 0)
 
 
+def _check_group_plan(p, m, n, k, cb, g, meta):
+    """A small-group plan: its shared memory by the formula and within a
+    block, every (weight row, stage) covered once, a grid over the column
+    tiles alone, the TMA rules of its maps."""
+    size = 2 if meta == torch.bfloat16 else 4
+    pieces = tf.w4a8_group_pieces(g)
+    assert p.stage_codes == 1024 // cb and p.stages_total == -(-k // p.stage_codes)
+    assert p.meta_cols == 128 // size
+    assert p.meta_boxes == tf.w4a8_group_meta_boxes(p.stage_codes, g, size)
+    assert p.smem == tf.w4a8_group_smem(p.stage_codes, p.token_tile, p.col_tile, p.meta_boxes,
+                                        pieces, p.k_slices, p.stages)
+    assert p.smem <= tf.H100_SMEM_PER_BLOCK and p.token_tile >= m
+    assert p.stages >= p.k_slices and p.stages % p.k_slices == 0
+    assert p.col_tile // 16 * p.k_slices <= tf.W4A8_CONSUMERS
+    # every (weight row, stage) once: blocks x row groups, slices x stages
+    rows = np.zeros(p.grid[0] * p.col_tile, int)
+    for blk in range(p.grid[0]):
+        for rg in range(p.col_tile // 16):
+            rows[blk * p.col_tile + 16 * rg:blk * p.col_tile + 16 * rg + 16] += 1
+    assert (rows[:n] == 1).all() and len(p.grid) == 1 and p.grid[0] == -(-n // p.col_tile)
+    stages = np.zeros(p.stages_total, int)
+    for sl in range(p.k_slices):
+        stages[sl::p.k_slices] += 1
+    assert (stages == 1).all()
+    # a stage's meta boxes, from its first group's column rounded down to
+    # 16 bytes (a TMA box's start), hold every group its steps touch
+    for i in range(p.stages_total):
+        k0 = i * p.stage_codes
+        first = k0 // g // (16 // size) * (16 // size)
+        last = (min(k, k0 + p.stage_codes) - 1) // g
+        assert last - first < p.meta_boxes * p.meta_cols and first * size % 16 == 0
+    # TMA: code, x8 and meta rows of whole 16 bytes
+    assert k * cb // 8 % 16 == 0 and k % 16 == 0
+    assert tf.ax1_meta_cols(k // g, meta) * size % 16 == 0 and p.meta_tma
+    assert p.grid[0] >= tf.H100_SMS or "blocks of" in p.why
+
+
 @pytest.mark.parametrize("k,n,nbits,g,why", [
     (512, 256, 4, 16, "g = 16"), (960, 256, 4, 24, "g = 24"), (512, 256, 2, 16, "g = 16"),
-    (512, 256, 4, 8, "g = 8"), (96, 256, 1, 32, "16-byte rule"), (32 * 3, 256, 2, 32, "16-byte rule"),
+    (512, 256, 4, 8, "g = 8"), (4096, 11008, 2, 8, "g = 8"), (4096, 11008, 1, 8, "g = 8"),
+    (4096, 11008, 1, 16, "g = 16"), (11008, 4096, 2, 8, "g = 8"),
+    (96, 256, 1, 32, "16-byte rule"), (32 * 3, 256, 2, 32, "16-byte rule"),
+    (4544, 4672, 1, 8, "16-byte rule"), (96, 256, 4, 16, "meta rows of 24 bytes"),
 ])
 def test_plan_routes_small_groups_to_cuda_cores(k, n, nbits, g, why):
-    """g % 32 != 0, or code rows off the 16-byte rule: the CUDA-core route,
-    chosen by shape before any launch; the same shapes at g % 32 == 0 and
-    whole 16-byte rows take the tensor cores."""
+    """g % 32 != 0: the small-group route, chosen by shape before any
+    launch, its column tile and K split the same at every M (the grid over
+    the column tiles alone); code or meta rows off the 16-byte rule: the
+    CUDA-core kernel; the same shapes at g % 32 == 0 and whole 16-byte rows
+    take the tensor cores."""
     cb = tf._KERNEL_CONTAINER_BITS[nbits]
-    for m in (1, 8, 32):
-        p = tf.w4a8_launch_plan(m, n, k, cb, g)
-        assert p.route == "cuda_cores" and why in p.why
-        # x8's 8 rows of a K-tile: 32 groups, or 32 * (32 // g) under 32 codes
-        tile = 32 * max(1, 32 // g)
-        assert p.grid == (-(-n // 16), -(-m // 8)) and p.smem == 8 * tile * (g // 4 + 1) * 4
+    for meta in (torch.float32, torch.bfloat16):
+        plans = {m: tf.w4a8_launch_plan(m, n, k, cb, g, meta) for m in (1, 4, 8, 17, 32)}
+        off_rule = "16-byte rule" in why or (why.startswith("meta") and meta == torch.float32)
+        for m, p in plans.items():
+            if off_rule:
+                assert p.route == "cuda_cores" and why in p.why
+                # x8's 8 rows of a K-tile: 32 groups, or 32 * (32 // g) under 32 codes
+                tile = 32 * max(1, 32 // g)
+                assert p.grid == (-(-n // 16), -(-m // 8)) and p.smem == 8 * tile * (g // 4 + 1) * 4
+                continue
+            assert p.route == "group_mma" and (why in p.why or why.startswith("meta")), p
+            _check_group_plan(p, m, n, k, cb, g, meta)
+        if not off_rule:
+            assert len({(p.col_tile, p.k_slices, p.stage_codes, p.grid) for p in plans.values()}) == 1
     assert tf.w4a8_launch_plan(4, n, 1024, cb, 64).route == "tensor_cores"
