@@ -22,6 +22,8 @@ through Generator).
     python3 chip_smoke.py --time flash_attention 1 1023 32 32    # batch, T, heads, kv heads
     python3 chip_smoke.py --time flash_attention_backward_dkv 1 1024 32 32   # or _dq, _fp32
     python3 chip_smoke.py --time flash_attention_backward_dq 1 1024 32 32-128-fp32  # KV-HD-TYPE
+    python3 chip_smoke.py --time flash_attention_backward_dkv_fp32 1 512 8 8-256 no-swap
+    python3 chip_smoke.py --time layer_norm 1024 4544 4544 bf16  # rows, d, d, type; or rms_norm
     python3 chip_smoke.py --ids          # phase g's greedy ids, to compare two checkouts
     python3 chip_smoke.py --windows      # verify-window rows against decode steps' logits
     python3 chip_smoke.py --norm         # the rms_norm and layer_norm kernels, PyTorch's sums
@@ -159,7 +161,11 @@ Phases (any failure exits non-zero):
       (the fp32 forward and the fp32 dK/dV and dQ kernels, 2 launches each,
       and their device time in the step), with the control D dropped; fp32
       HQQ+ serving through qmm_fp32 and flash_attention_fp32 against the
-      plain versions, with a bf16 control.
+      plain versions, with a bf16 control. On 2 layers at Gemma-7B's widths
+      (the `gemma` family, fp32, head size 256): the LoRA gradients through
+      causal_lm_loss against the plain attention backward (control D
+      dropped), the fp32 backward kernels on their cluster route, 2
+      launches each a pass, then two make_lora_train_step steps.
   (q) the README quick start: a 2-layer model at 7B width written as a
       Hugging Face directory (config.json, two shards, the index) by the
       port's safetensors writer and read by
@@ -437,7 +443,11 @@ and flash_attention_fp32 batch, T, query heads and kv heads (causal, head
 size 128; bf16, fp32 for the last); the backward kernels take the kv heads
 as KV[-HD[-TYPE]], e.g. 8-64-fp16, for another head size and type (with
 fp32, the fp32 route: flash_attention_backward_dkv_fp32 and _dq_fp32 name
-the same with fp32 as the default type).
+the same with fp32 as the default type, and take a VARIANT of
+BWD_FP32_VARIANTS: no-swap, no-second). layer_norm and rms_norm take ROWS D
+D and a type (bf16 or fp32), and time F.layer_norm or F.rms_norm beside
+the kernel; to time an older checkout's norm kernel in the same call, run
+this script copied into that checkout's root.
 """
 
 from __future__ import annotations
@@ -539,8 +549,9 @@ PICK = {
     "flash_attention_backward_dq": (1, 1024, 32, "bf16, causal, 32/32 heads, head size 128"),
     "qmm_fp32": (512, 4096, 4096, "fp32 x, 4-bit g64 axis=1"),
     "flash_attention_fp32": (1, 512, 8, "fp32, causal, 8/8 heads, head size 128"),
-    "flash_attention_backward_dkv_fp32": (1, 1024, 32, "fp32, causal, 32/32 heads, head size 128"),
-    "flash_attention_backward_dq_fp32": (1, 1024, 32, "fp32, causal, 32/32 heads, head size 128"),
+    # Gemma-7B's heads: the cluster route of phase i's Gemma-width step
+    "flash_attention_backward_dkv_fp32": (1, 2048, 16, "fp32, causal, 16/16 heads, head size 256"),
+    "flash_attention_backward_dq_fp32": (1, 2048, 16, "fp32, causal, 16/16 heads, head size 256"),
     "rms_norm": (4, 4096, 4096, "bf16, offset 0"),
     "layer_norm": (4, 4544, 4544, "bf16, bias"),
     "grouped_matmul": (8, 4096, 14336, "8 experts, 4-bit g64, fp32 meta"),
@@ -1235,7 +1246,7 @@ def _ln_row(record, gen, rows: int, d: int, iters: int, eps: float = 1e-5,
         kernel="layer_norm", m=rows, k=d, n=d, max_abs_err=err, ms=ms, plain_ms=plain,
         bound_ms=b_ms, bound_by=by, library_ms=lib, note=f"{name}, bias",
         library="torch.nn.functional.layer_norm", rows_invariant=inv,
-        control_fp32_mean_invariant=ctl, plan=str(nm.norm_launch_plan(d, dtype)),
+        control_fp32_mean_invariant=ctl, plan=str(nm.norm_launch_plan(d, dtype, layer=True)),
         shape=dict(rows=rows, d=d, dtype=name, bias=True))
     record("layer_norm", row)
     return row
@@ -2081,7 +2092,10 @@ def phase_b_backward(record, held, iters: int) -> None:
              (2, 8, 8, 300, 64, torch.bfloat16), (1, 8, 8, 512, 256, torch.bfloat16),
              (1, 32, 32, 1024, 128, torch.float16), (1, 8, 8, 512, 128, torch.float32),
              (1, 32, 32, 1024, 128, torch.float32), (1, 32, 8, 1023, 128, torch.float32),
-             (1, 8, 8, 512, 256, torch.float32)]  # fp32 at hd 256: the CUDA cores, by the plan
+             # fp32 at hd 256: a cluster of two blocks a resident tile; Gemma-7B's
+             # heads and Gemma-2-9B's GQA at T = 2048
+             (1, 8, 8, 512, 256, torch.float32), (1, 16, 16, 2048, 256, torch.float32),
+             (1, 16, 8, 2048, 256, torch.float32)]
     for b, nh, n_kv, t, hd, dtype in cases:
         gq = torch.Generator(device="cuda").manual_seed(t + hd)
         q = torch.randn((b, nh, t, hd), generator=gq, device="cuda").to(dtype)
@@ -8805,6 +8819,110 @@ def phase_i_two_layer() -> dict:
     return window
 
 
+# path I's step at Gemma-7B's widths (google/gemma-7b config.json: hidden
+# 3072, 16 heads and 16 kv heads of 256, intermediate 24576, vocab 256000),
+# cut to 2 layers: the fp32 backward kernels at head size 256
+I_GEMMA = dict(hidden_size=3072, intermediate_size=24576, num_attention_heads=16,
+               num_key_value_heads=16, head_dim=256, vocab_size=256000, num_hidden_layers=2)
+
+
+def phase_i_gemma(dev_tag: str) -> dict:
+    """Path I at Gemma-7B's widths, 2 layers, fp32 compute (the `gemma`
+    family: embeddings scaled, (1 + w) norms, GeGLU, the tied head), 4-bit
+    g64 with LoRA r = 8 on every linear: the LoRA gradients of one step
+    through `causal_lm_loss` (with `gemma.forward`) against the same step
+    with the plain attention backward, the control D dropped; then two
+    steps of `make_lora_train_step` (AdamW), the loss finite. Each pass
+    makes 2 launches of the fp32 forward and of each fp32 backward kernel,
+    at head size 256: the cluster route. Returns the launches."""
+    import functools
+    from unittest import mock
+
+    from hqq_tpu_torch import BaseQuantizeConfig, ops
+    from hqq_tpu_torch.core.peft import PeftUtils, TrainableParams, lora_config
+    from hqq_tpu_torch.models import gemma
+    from hqq_tpu_torch.models.base import quantize_model
+    from hqq_tpu_torch.ops import attention as at
+    from hqq_tpu_torch.utils.training import causal_lm_loss, make_lora_train_step
+
+    t0 = time.time()
+    cfg = gemma.GemmaConfig(**I_GEMMA)
+    params = gemma.init_params(cfg, torch.Generator(device="cuda").manual_seed(60),
+                               torch.float32, "cuda")
+    quantize_model(params, BaseQuantizeConfig(nbits=4, group_size=64),
+                   compute_dtype=torch.float32)
+    PeftUtils.add_lora(params, lora_config(r=I_RANK, lora_alpha=I_ALPHA),
+                       generator=torch.Generator(device="cuda").manual_seed(61))
+    _fill_lora_b(params, 62)
+    trainable = TrainableParams(params)
+    vals = trainable.values()
+    batch = torch.randint(0, cfg.vocab_size, (1, I_TOKENS), device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(63))
+    loss_fn = functools.partial(causal_lm_loss, forward=gemma.forward)
+    plan = at.flash_backward_launch_plan(1, 16, 16, I_TOKENS - 1, 256)
+    if plan.fp32_route != "wgmma_cluster":
+        raise AssertionError(f"[i] Gemma's backward plan: {plan.fp32_route}")
+
+    def grads(backward=None):
+        for v in vals:
+            v.grad = None
+        with mock.patch.object(at, "flash_attention_backward",
+                               backward or at.flash_attention_backward):
+            loss_fn(params, cfg, batch).backward()
+        return [v.grad.clone() for v in vals]
+
+    names = ("flash_attention_fp32", "flash_attention_backward_dkv_fp32",
+             "flash_attention_backward_dq_fp32")
+    window = {}
+    ops.reset_launch_counts()
+    kernel = grads()
+    counts = launch_counts()
+    _train_counts(window, counts)
+    per = {k: counts[k] for k in names}
+    if any(v != 2 for v in per.values()):
+        raise AssertionError(f"[i] Gemma-width step: launches {per}, expected 2 each")
+    bwd = _device_events([grads], 1, "flash_bwd_fp32")
+    plain = grads(lambda q, k, v, o, lse, do, causal=True, sm_scale=None:
+                  at.flash_attention_backward_plain(q, k, v, o, lse, do, causal, sm_scale))
+    control = grads(_no_d)
+
+    def worst(gs):
+        return max(rel(g, r) for g, r in zip(gs, plain))
+
+    tol = TOL_I_GRADS[torch.float32]
+    log(f"[i] {dev_tag} 2-layer Gemma-7B-width (3072, 16/16 heads of 256, 24576, vocab "
+        f"256000), fp32 compute, T = {I_TOKENS - 1}: {len(vals)} LoRA gradients through the "
+        f"kernels vs the plain attention backward: rel err up to {worst(kernel):.3e} (tol "
+        f"{tol}); control, D dropped, {worst(control):.3e} (must exceed it); launches {per}; "
+        f"the backward kernels "
+        + (f"{sum(e.self_device_time_total for e in bwd) / 1e3:.4f} ms of device time in "
+           f"{sum(e.count for e in bwd)} launches" if bwd else "not timed (no device event)"))
+    if not all(torch.isfinite(g).all() for g in kernel) or not worst(kernel) <= tol:
+        raise AssertionError("[i] Gemma-width fp32 LoRA gradients disagree with the plain "
+                             "backward")
+    if not worst(control) > tol:
+        raise AssertionError("[i] the Gemma-width gradient bar does not catch D dropped")
+    del kernel, plain, control
+    optimizer = torch.optim.AdamW(vals, lr=I_LR, weight_decay=0.0)
+    step = make_lora_train_step(cfg, trainable, optimizer, loss_fn=loss_fn)
+    losses = []
+    for _ in range(2):
+        ops.reset_launch_counts()
+        losses.append(step(params, batch).item())
+        counts = launch_counts()
+        _train_counts(window, counts)
+        if {k: counts[k] for k in names} != per:
+            raise AssertionError(f"[i] Gemma-width train step: launches "
+                                 f"{ {k: counts[k] for k in names} }, expected {per}")
+    log(f"[i] Gemma-width make_lora_train_step: losses {losses}; phase {time.time() - t0:.1f} s")
+    if not all(x == x and abs(x) < 1e4 for x in losses):
+        raise AssertionError(f"[i] Gemma-width losses {losses}: not finite")
+    del params, trainable, vals, optimizer, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return window
+
+
 # --time quant_matmul_ax0|dequant_ax0 M K N [CONFIG [VARIANT]]: NBITS-G-META, META
 # fp32 or bf16; VARIANT builds quant_matmul_ax0.cu without one of its two
 # designs (csrc/qmm_sm90.cuh `Ax0Layout`), for what each buys
@@ -8884,6 +9002,47 @@ def _paged_variant(how: str) -> None:
     pa.paged_launch_plan = plan
 
 
+# --time flash_attention_backward_dkv_fp32|_dq_fp32 B T H KV-HD VARIANT builds
+# flash_backward_fp32_sm90.cu without one part of its work
+# (`HQQ_BWD_FP32_VARIANT`), for where its time goes: its results are wrong
+BWD_FP32_VARIANTS = {"no-swap": "-DHQQ_BWD_FP32_VARIANT=1", "no-second": "-DHQQ_BWD_FP32_VARIANT=2"}
+
+
+def time_norm(kernel: str, rows: int, d: int, dtype: str) -> dict:
+    """``--time layer_norm|rms_norm ROWS D D [bf16|fp32]``: the wrapper over
+    ``rows`` rows of ``d`` (a bias, or offset 0) and, in the same process,
+    its PyTorch call (F.layer_norm, F.rms_norm), three timings each as phase
+    b takes them (inputs rotated past the L2). Uses only what the norm
+    module has had since it was ported, so that the script can time an
+    older checkout's kernel (run a copy of it from that checkout's root)."""
+    import torch.nn.functional as F
+
+    from hqq_tpu_torch.ops import norm as nm
+
+    dt = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = (torch.randn((rows, d), generator=gen, device="cuda") + 1).to(dt)
+    w = (1 + torch.randn(d, generator=gen, device="cuda") * 0.1).to(dt)
+    b = (torch.randn(d, generator=gen, device="cuda") * 0.1).to(dt)
+    each = 2 * x.numel() * x.element_size()
+    xs = [x] + [x.clone() for _ in range(max(1, min(64, -(-ROTATE_BYTES // each))) - 1)]
+    if kernel == "layer_norm":
+        def call(a):
+            return nm.layer_norm(a, w, b, 1e-5)
+
+        def lib(a):
+            return F.layer_norm(a, (d,), w, b, 1e-5)
+    else:
+        def call(a):
+            return nm.rms_norm(a, w, 1e-6, 0.0)
+
+        def lib(a):
+            return F.rms_norm(a, (d,), w, 1e-6)
+    ms = [time_ms([lambda a=a: call(a) for a in xs], 100) for _ in range(3)]
+    lib_ms = [time_ms([lambda a=a: lib(a) for a in xs], 100) for _ in range(3)]
+    return dict(kernel=kernel, rows=rows, d=d, dtype=dtype, ms=ms, library_ms=lib_ms)
+
+
 def time_one(kernel: str, m: int, k: int, n: int, extra: "str | None" = None,
              variant: "str | None" = None) -> dict:
     """Three phase-b timings of one wrapper at one shape (``--time``).
@@ -8894,11 +9053,19 @@ def time_one(kernel: str, m: int, k: int, n: int, extra: "str | None" = None,
     4-64-fp32), as for w4a8_matmul and w4a8_lora_matmul (for these a rank
     otherwise). ``variant``: one of ``AX0_VARIANTS``, for quant_matmul_ax0;
     the page type (bf16 or int8) for paged_attention; for the w4a8 pair
-    names of ``W4A8_VARIANTS``, ring-S and tile-R-S joined by commas."""
+    names of ``W4A8_VARIANTS``, ring-S and tile-R-S joined by commas; for
+    the fp32 backward one of ``BWD_FP32_VARIANTS``. layer_norm and
+    rms_norm: `time_norm`."""
     from hqq_tpu_torch.ops import _build
     from hqq_tpu_torch.ops import fused_matmul as fm
 
-    if variant is not None and kernel.startswith("w4a8"):  # several joined by commas
+    if kernel in ("layer_norm", "rms_norm"):  # rows, d, d [dtype]
+        return time_norm(kernel, m, k, extra or "bf16")
+    if variant is not None and kernel.startswith("flash_attention_backward"):
+        if variant not in BWD_FP32_VARIANTS or not kernel.endswith("_fp32"):
+            raise SystemExit(f"the fp32 backward's variants are {sorted(BWD_FP32_VARIANTS)}")
+        _build.NVCC_FLAGS = _build.NVCC_FLAGS + (BWD_FP32_VARIANTS[variant],)  # its own library
+    elif variant is not None and kernel.startswith("w4a8"):  # several joined by commas
         for how in variant.split(","):
             if how.startswith(("ring-", "tile-")):
                 _w4a8_plan_variant(how)
@@ -8996,7 +9163,7 @@ def time_one(kernel: str, m: int, k: int, n: int, extra: "str | None" = None,
             call = lambda: launch(ops_, True)  # noqa: E731
         ms = [time_ms([call], 20) for _ in range(3)]
         return dict(kernel=kernel, batch=m, t=k, heads=n, kv_heads=n_kv, head_dim=hd,
-                    dtype=str(dtype)[6:], ms=ms)
+                    dtype=str(dtype)[6:], variant=variant, ms=ms)
     fp32_rank = r if kernel == "qmm_fp32" else None
     r = r or LORA_RANK
 
@@ -9324,6 +9491,7 @@ def main(argv: list[str]) -> int:
     lap("e, f")
     windows.append(phase_i(dev_tag))
     windows.append(phase_i_two_layer())
+    windows.append(phase_i_gemma(dev_tag))
     lap("i")
 
     kernels = []

@@ -1,7 +1,7 @@
 // SPDX-License-Identifier: Apache-2.0
 // The backward of flash attention on the tensor cores: the dK/dV and dQ
-// kernels for bf16 and fp16 (fp32 takes the CUDA-core kernels of
-// flash_backward.cu).
+// kernels for bf16 and fp16 (fp32 takes the 3xTF32 kernels of
+// flash_backward_fp32_sm90.cu).
 //
 // For out = softmax(scale * q k^T [causal]) v over whole sequences, with
 // the forward's log-sum-exp lse [B, nh, T] (natural log, fp32) and

@@ -3,7 +3,7 @@
 // cores: out = softmax(scale * q k^T [causal]) v to fp32 accuracy, and each
 // row's log-sum-exp lse = ln sum_j exp(scale * q . k_j) (natural log, fp32
 // [B, nh, T]) where a gradient is wanted; the fp32 backward kernels of
-// flash_backward.cu read it.
+// flash_backward_fp32_sm90.cu read it.
 //
 // Replaces, for fp32 inputs: the library flash-attention kernel that
 // `hqq_tpu.ops.attention.prefill_attention` calls (`hqq_tpu/ops/attention.py`

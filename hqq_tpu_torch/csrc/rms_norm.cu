@@ -15,28 +15,40 @@
 // window's rows then part from one-token decode steps in their last bits.
 //
 // The order of every sum depends on d (and the element size) alone, by the
-// launch plan `hqq_tpu_torch.ops.norm.norm_launch_plan`: a row belongs to
-// `threads` = 2^threads_log2 threads (one warp for short rows, several rows
-// a block then); thread t sums, in one fp32 accumulator, the values of the
-// vectors v = t, t + threads, ... of `vec` elements each, element by element;
-// then the threads' sums combine by halving (p[i] += p[i + s] for s =
-// threads/2 .. 1), in shared memory down to 32 and by warp shuffles below.
-// No row is split over blocks. LayerNorm sums twice in that order: x, then
-// (x - mu)^2 with mu = sum / d. Every product, sum and difference is
-// __fmul_rn / __fadd_rn / __fsub_rn, so nvcc contracts nothing into an FMA,
-// and 1/sqrt is __fsqrt_rn then __fdiv_rn: each step is one correctly
-// rounded IEEE operation, which the plain twins (`rms_norm_plain`,
-// `layer_norm_plain`) repeat in PyTorch to the bit.
+// launch plan `hqq_tpu_torch.ops.norm.norm_launch_plan` (LayerNorm's with
+// `layer=True`): a row belongs to `threads` = 2^threads_log2 threads (one
+// warp for short rows, several rows a block then); thread t sums, in one
+// fp32 accumulator, the values of the vectors v = t, t + threads, ... of
+// `vec` elements each, element by element; then the threads' sums combine
+// by halving (p[i] += p[i + s] for s = threads/2 .. 1). No row is split
+// over blocks. LayerNorm sums twice in that order: x, then (x - mu)^2 with
+// mu = sum / d. Every product, sum and difference is __fmul_rn / __fadd_rn
+// / __fsub_rn, so nvcc contracts nothing into an FMA, and 1/sqrt is
+// __fsqrt_rn then __fdiv_rn: each step is one correctly rounded IEEE
+// operation, which the plain twins (`rms_norm_plain`, `layer_norm_plain`)
+// repeat in PyTorch to the bit.
 //
-// Bound by bytes: each x read twice (three times for LayerNorm; the later
-// passes mostly from L1/L2), each y written once; a block's sums cost
-// nothing beside the loads.
+// Bound by bytes: each x read once and each y written once at best; a
+// block's sums cost nothing beside the loads. RMSNorm reads x twice (the
+// second pass mostly from L1/L2) and halves in shared memory down to 32
+// threads, a barrier a level. LayerNorm (redesigned: it lost to
+// F.layer_norm at the vision towers' widths) reads each row once, in
+// 16-byte vectors, into registers (at most 40 values a thread, so its plan
+// gives a row the fewest threads that hold it: one warp up to 1280 bf16 or
+// fp32 values, 128 threads at Falcon-7B's 4544), takes both sums and y
+// from there, loads w and b in 16-byte vectors where aligned, and halves
+// across a row's warps with one exchange through shared memory a sum, the
+// rest by warp shuffles.
 #include "hqq_common.cuh"
 
 namespace {
 
 constexpr int kMaxBlock = 1024;
 constexpr int kMaxRowsPerBlock = 32;
+// LayerNorm: the values of x a thread holds in registers and the most
+// threads of a block (ops/norm.py `_LN_REG_FLOATS`, `_LN_MAX_ROW_THREADS`)
+constexpr int kLnRegFloats = 40;
+constexpr int kLnMaxBlock = 512;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -194,19 +206,72 @@ int launch_w(const void* x, const void* w, void* out, long rows, int d, float ep
   }
 }
 
-// LayerNorm: one row per 2^threads_log2 threads, as rms_norm_kernel. Row r
-// reads weight row r % w_rows of w (and b, when given): [w_rows, d], the
-// per-head weights of a norm over [.., H, d] with w_rows = H, else one row.
-template <typename T, typename W, int V>
-__global__ void __launch_bounds__(kMaxBlock) layer_norm_kernel(const T* __restrict__ x,
+// V elements of weight type W at p into fp32: 16-byte loads where `wide`
+// (V * sizeof(W) a multiple of 16 and p 16-byte aligned), else one by one.
+template <typename W, int V>
+__device__ __forceinline__ void load_w(const W* p, bool wide, float (&f)[V]) {
+  if constexpr (V * sizeof(W) % 16 == 0) {
+    if (wide) {
+#pragma unroll
+      for (int c = 0; c < V * static_cast<int>(sizeof(W)) / 16; ++c) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(p + c * 16 / sizeof(W));
+        const W* e = reinterpret_cast<const W*>(&raw);
+#pragma unroll
+        for (int j = 0; j < 16 / static_cast<int>(sizeof(W)); ++j)
+          f[c * 16 / sizeof(W) + j] = to_f32(e[j]);
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < V; ++j) f[j] = to_f32(p[j]);
+}
+
+// The halving tree of `tree_sum` over a row's `threads` partial sums, with
+// one exchange through shared memory (r: the row's `threads` floats) where
+// the row spans warps: levels s >= 32 pair thread i with i + s, the same
+// lane of another warp, so lane l first halves the warps' values of lane l
+// in registers; then the warp's levels by xor shuffles, which leave the
+// same bits in every lane. Every thread of the block calls it (it
+// synchronises the block where threads > 32); every thread of the row gets
+// the sum.
+__device__ __forceinline__ float row_sum(float acc, float* r, int t, int threads) {
+  if (threads > 32) {
+    constexpr int kWarps = kLnMaxBlock / 32;
+    const int warps = threads >> 5, lane = t & 31;
+    r[t] = acc;
+    __syncthreads();
+    float q[kWarps];
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) q[w] = w < warps ? r[w * 32 + lane] : 0.f;
+#pragma unroll
+    for (int s = kWarps / 2; s >= 1; s >>= 1) {
+      if (s < warps) {
+#pragma unroll
+        for (int w = 0; w < s; ++w) q[w] = __fadd_rn(q[w], q[w + s]);
+      }
+    }
+    acc = q[0];
+  }
+#pragma unroll
+  for (int s = 16; s >= 1; s >>= 1) acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, s));
+  return acc;
+}
+
+// LayerNorm: one row per 2^threads_log2 threads, blockDim.x /
+// 2^threads_log2 rows a block, each thread's vectors t, t + threads, ... (at
+// most S of them) read once into registers: the sum of x, mu, the sum of
+// (x - mu)^2 and y all from there. Row r reads weight row r % w_rows of w
+// (and b, when given): [w_rows, d], the per-head weights of a norm over
+// [.., H, d] with w_rows = H, else one row.
+template <typename T, typename W, int V, int S>
+__global__ void __launch_bounds__(kLnMaxBlock) layer_norm_kernel(const T* __restrict__ x,
                                                                const W* __restrict__ w,
                                                                const W* __restrict__ b,
                                                                T* __restrict__ out, long rows,
                                                                int d, int w_rows,
                                                                int threads_log2, float eps) {
-  __shared__ float red[kMaxBlock];
-  __shared__ float mu_row[kMaxRowsPerBlock];
-  __shared__ float rinv_row[kMaxRowsPerBlock];
+  __shared__ float red[2][kLnMaxBlock];
   const int threads = 1 << threads_log2;
   const int sub = threadIdx.x >> threads_log2;
   const int t = threadIdx.x & (threads - 1);
@@ -214,60 +279,69 @@ __global__ void __launch_bounds__(kMaxBlock) layer_norm_kernel(const T* __restri
   const bool live = row < rows;
   const int nvec = d / V;
   const T* xr = x + (live ? row : 0) * static_cast<long>(d);
-  float* r = red + sub * threads;
 
-  // first pass: the sum of x, then mu = sum / d
-  float acc = 0.f;
-  if (live) {
-    for (int v = t; v < nvec; v += threads) {
-      float f[V];
-      load_vec<T, V>(xr + static_cast<long>(v) * V, f);
+  // the row's values, every load issued before the first sum
+  float f[S][V];
 #pragma unroll
-      for (int j = 0; j < V; ++j) acc = __fadd_rn(acc, f[j]);
+  for (int k = 0; k < S; ++k) {
+    const int v = t + k * threads;
+    if (live && v < nvec) {
+      load_vec<T, V>(xr + static_cast<long>(v) * V, f[k]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) f[k][j] = 0.f;
     }
   }
-  acc = tree_sum(acc, r, t, threads);
-  if (t == 0) mu_row[sub] = __fdiv_rn(acc, static_cast<float>(d));
-  __syncthreads();
-  const float mu = mu_row[sub];
 
-  // second pass: the sum of (x - mu)^2, then 1 / sqrt(var + eps)
+  // the sum of x, then mu = sum / d
+  float acc = 0.f;
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    if (t + k * threads < nvec) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) acc = __fadd_rn(acc, f[k][j]);
+    }
+  }
+  const float mu =
+      __fdiv_rn(row_sum(acc, red[0] + sub * threads, t, threads), static_cast<float>(d));
+
+  // the sum of (x - mu)^2, then 1 / sqrt(var + eps)
   acc = 0.f;
-  if (live) {
-    for (int v = t; v < nvec; v += threads) {
-      float f[V];
-      load_vec<T, V>(xr + static_cast<long>(v) * V, f);
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    if (t + k * threads < nvec) {
 #pragma unroll
       for (int j = 0; j < V; ++j) {
-        const float c = __fsub_rn(f[j], mu);
-        acc = __fadd_rn(acc, __fmul_rn(c, c));
+        f[k][j] = __fsub_rn(f[k][j], mu);
+        acc = __fadd_rn(acc, __fmul_rn(f[k][j], f[k][j]));
       }
     }
   }
-  acc = tree_sum(acc, r, t, threads);
-  if (t == 0) {
-    const float var = __fdiv_rn(acc, static_cast<float>(d));
-    rinv_row[sub] = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps)));
-  }
-  __syncthreads();
+  const float var =
+      __fdiv_rn(row_sum(acc, red[1] + sub * threads, t, threads), static_cast<float>(d));
+  const float rinv = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps)));
   if (!live) return;
-  const float rinv = rinv_row[sub];
+
   const long wo = (row % w_rows) * static_cast<long>(d);
   const W* wr = w + wo;
   const W* br = b == nullptr ? nullptr : b + wo;
+  const bool wide = ((reinterpret_cast<uintptr_t>(wr) |
+                      (br == nullptr ? 0 : reinterpret_cast<uintptr_t>(br))) & 15) == 0;
   T* yr = out + row * static_cast<long>(d);
-  for (int v = t; v < nvec; v += threads) {
-    float f[V];
-    load_vec<T, V>(xr + static_cast<long>(v) * V, f);
 #pragma unroll
-    for (int j = 0; j < V; ++j) {
-      f[j] = __fmul_rn(__fmul_rn(__fsub_rn(f[j], mu), rinv), to_f32(wr[v * V + j]));
-    }
+  for (int k = 0; k < S; ++k) {
+    const int v = t + k * threads;
+    if (v >= nvec) continue;
+    float g[V];
+    load_w<W, V>(wr + v * V, wide, g);
+#pragma unroll
+    for (int j = 0; j < V; ++j) f[k][j] = __fmul_rn(__fmul_rn(f[k][j], rinv), g[j]);
     if (br != nullptr) {
+      load_w<W, V>(br + v * V, wide, g);
 #pragma unroll
-      for (int j = 0; j < V; ++j) f[j] = __fadd_rn(f[j], to_f32(br[v * V + j]));
+      for (int j = 0; j < V; ++j) f[k][j] = __fadd_rn(f[k][j], g[j]);
     }
-    store_vec<T, V>(yr + static_cast<long>(v) * V, f);
+    store_vec<T, V>(yr + static_cast<long>(v) * V, f[k]);
   }
 }
 
@@ -283,14 +357,18 @@ int launch_ln(const void* x, const void* w, const void* b, void* out, long rows,
   const W* bp = static_cast<const W*>(b);
   T* op = static_cast<T*>(out);
   constexpr int V16 = 16 / sizeof(T);
-  if (vec == V16) {
-    layer_norm_kernel<T, W, V16><<<static_cast<unsigned>(grid), block, 0, s>>>(
-        xp, wp, bp, op, rows, d, w_rows, threads_log2, eps);
-  } else if (vec == 1) {
-    layer_norm_kernel<T, W, 1><<<static_cast<unsigned>(grid), block, 0, s>>>(
-        xp, wp, bp, op, rows, d, w_rows, threads_log2, eps);
-  } else {
+  // a thread's vectors must fit its registers
+  if ((vec != V16 && vec != 1) || block > kLnMaxBlock)
     return static_cast<int>(cudaErrorInvalidValue);
+  if ((d / vec + (1 << threads_log2) - 1) >> threads_log2 > kLnRegFloats / vec)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vec == V16) {
+    layer_norm_kernel<T, W, V16, kLnRegFloats / V16>
+        <<<static_cast<unsigned>(grid), block, 0, s>>>(xp, wp, bp, op, rows, d, w_rows,
+                                                       threads_log2, eps);
+  } else {
+    layer_norm_kernel<T, W, 1, kLnRegFloats><<<static_cast<unsigned>(grid), block, 0, s>>>(
+        xp, wp, bp, op, rows, d, w_rows, threads_log2, eps);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,7 +3,8 @@
 // dequant-matmuls, flash_prefill.cu, flash_fp32_sm90.cu and
 // flash_backward_sm90.cu for attention, paged_attention.cu), in raw PTX:
 // mbarriers, TMA loads (1-3 dimensions), bulk copies without a tensor map,
-// cp.async, the 128- and 32-byte-swizzled wgmma descriptors, the wgmma
+// cp.async, a cluster's barrier, rank and stores and arrivals into another
+// block's shared memory, the 128- and 32-byte-swizzled wgmma descriptors, the wgmma
 // instructions (bf16/fp16, and TF32 for the fp32 routes) with both operands
 // in shared memory (K-major) and with A in registers and B in shared memory
 // (bf16/fp16: MN-major, the transpose bit set; TF32: K-major), and the
@@ -106,6 +107,61 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
 
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------- clusters --
+
+// this block's rank in its cluster
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+// every thread of every block of the cluster: arrive (release), then wait
+// for all (acquire)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// the address, in block `rank` of the cluster, of this block's shared
+// address `addr` (a shared::cluster address)
+__device__ __forceinline__ uint32_t map_to_rank(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// 16 bytes to a shared::cluster address (another block's shared memory)
+__device__ __forceinline__ void st_cluster(uint32_t addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(v.x),
+               "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// one arrival, with release at cluster scope, on an mbarrier at a
+// shared::cluster address: this thread's earlier stores to that block are
+// visible to whoever completes the phase with `mbar_wait_cluster`
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// `mbar_wait` with acquire at cluster scope
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
 // barrier `id` over `Threads` threads (a warpgroup by default)

@@ -73,11 +73,6 @@ KERNELS = {
         "flash_backward_fp32_sm90.cu", "hqq_flash_bwd_fp32_dq",
         [_P] * 8 + [_I] * 5 + [ctypes.c_float] + [_I] * 6 + [_P],
     ),
-    # the fp32 route's CUDA-core kernels, for head size 256 (by the plan)
-    "flash_attention_backward_hd256": (
-        "flash_backward.cu", "hqq_flash_backward",
-        [_P] * 9 + [_I] * 5 + [ctypes.c_float] + [_I] * 5 + [_P],
-    ),
     "paged_attention": (
         "paged_attention.cu", "hqq_paged_attention", [_P] * 9 + [_I] * 17 + [_P],
     ),

@@ -16,8 +16,8 @@ counterparts of the library's dK/dV and dQ kernels:
 `flash_attention_backward_dkv` and `flash_attention_backward_dq` (bf16 and
 fp16: ``csrc/flash_backward_sm90.cu``, wgmma and TMA), and for fp32 inputs
 `flash_attention_backward_dkv_fp32` and `flash_attention_backward_dq_fp32`
-(``csrc/flash_backward_fp32_sm90.cu``: 3xTF32 on wgmma; head size 256:
-``csrc/flash_backward.cu``, CUDA cores), launch plan
+(``csrc/flash_backward_fp32_sm90.cu``: 3xTF32 on wgmma; at head size 256
+the head split over a cluster of two blocks), launch plan
 `flash_backward_launch_plan`, plain twin `flash_attention_backward_plain`.
 For fp32 inputs the forward is `flash_attention_fp32`
 (``csrc/flash_fp32_sm90.cu``: 3xTF32 on wgmma, each operand split into
@@ -337,8 +337,7 @@ flash_attention.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# The backward (csrc/flash_backward_sm90.cu; fp32: csrc/flash_backward_fp32_sm90.cu,
-# and csrc/flash_backward.cu at head size 256)
+# The backward (csrc/flash_backward_sm90.cu; fp32: csrc/flash_backward_fp32_sm90.cu)
 # ---------------------------------------------------------------------------
 
 # the geometry of csrc/flash_backward_sm90.cu: query rows of a dK/dV step and
@@ -348,11 +347,12 @@ FLASH_BWD_DQ_ROWS = 128
 FLASH_BWD_MAX_STAGES = 4
 # the geometry of csrc/flash_backward_fp32_sm90.cu: the resident rows of a
 # block (keys of dK/dV, query rows of dQ) and, per padded head size, the
-# streamed rows of a step (queries of dK/dV, keys of dQ); head_pad 256 takes
-# the CUDA-core kernels of csrc/flash_backward.cu, tiles of 32 rows
+# streamed rows of a step (queries of dK/dV, keys of dQ) and the blocks of a
+# cluster, which split the head's columns between them (head_pad 256: two
+# blocks of 128 columns each)
 FLASH_BWD_FP32_ROWS = 64
-FLASH_BWD_FP32_TILE = {64: 32, 128: 16}
-FLASH_FMA_TILE = 32
+FLASH_BWD_FP32_TILE = {64: 32, 128: 16, 256: 16}
+FLASH_BWD_FP32_CLUSTER = {64: 1, 128: 1, 256: 2}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -371,18 +371,18 @@ class FlashBackwardPlan:
     ``q_order[i // (batch * heads)]``; key tiles of ``dq_key_tile`` rows
     through ``dq_stages`` slots, ``dq_smem`` bytes.
 
-    fp32: ``fp32_route`` "wgmma" (the 3xTF32 kernels of
-    flash_backward_fp32_sm90.cu, head_pad 64 and 128) or "fma" (the
-    CUDA-core kernels of flash_backward.cu, head_pad 256). A block owns
-    ``fp32_rows`` resident rows and walks tiles of ``fp32_tile`` streamed
-    rows through ``fp32_dkv_stages`` or ``fp32_dq_stages`` ring slots (0:
-    no ring), with ``fp32_dkv_smem`` or ``fp32_dq_smem`` bytes of shared
-    memory. dK/dV: ``fp32_dkv_blocks`` blocks, block i on key tile
-    ``fp32_kv_order[i // g]`` of group i % g, g = batch * heads (wgmma: one
-    per batch, query head and key tile, fp32 partials summed by the
-    wrapper where ``gqa_split``) or batch * kv_heads (fma: a block walks
-    its group's query heads). dQ: ``fp32_dq_blocks`` blocks, block i on
-    query tile ``fp32_q_order[i // (batch * heads)]``."""
+    fp32 (the 3xTF32 kernels of flash_backward_fp32_sm90.cu): ``fp32_route``
+    "wgmma" (head_pad 64 and 128, a block per resident tile) or
+    "wgmma_cluster" (head_pad 256: a cluster of ``fp32_cluster`` = 2 blocks
+    per resident tile, 128 head columns each). A block owns ``fp32_rows``
+    resident rows and walks tiles of ``fp32_tile`` streamed rows through
+    ``fp32_dkv_stages`` or ``fp32_dq_stages`` ring slots, with
+    ``fp32_dkv_smem`` or ``fp32_dq_smem`` bytes of shared memory. dK/dV:
+    ``fp32_dkv_blocks`` resident tiles (blocks, or clusters), tile i on key
+    tile ``fp32_kv_order[i // g]`` of (batch, query head) i % g, g = batch *
+    heads, fp32 partials summed by the wrapper where ``gqa_split``. dQ:
+    ``fp32_dq_blocks`` resident tiles, tile i on query tile
+    ``fp32_q_order[i // g]``."""
 
     head_pad: int
     dkv_keys: int
@@ -397,6 +397,7 @@ class FlashBackwardPlan:
     dq_blocks: int
     q_order: tuple
     fp32_route: str
+    fp32_cluster: int
     fp32_rows: int
     fp32_tile: int
     fp32_dkv_stages: int
@@ -430,27 +431,23 @@ def flash_bwd_dq_smem(head_pad: int, key_tile: int, stages: int) -> int:
 
 def flash_bwd_fp32_smem(head_pad: int, stages: int, dkv: bool) -> int:
     """Dynamic shared memory of a block of flash_backward_fp32_sm90.cu
-    (`bwd_fp32_smem`): the resident pair (K and V, or Q and dO) of 64 rows in
-    its TF32 big and small parts, the streamed pair's small parts, the
-    transposed big and small parts of the streamed operands contracted over
-    the streamed rows (Q and dO for dK/dV, K for dQ), ``stages`` slots of the
-    streamed pair's raw tiles (and, for dK/dV, their rows' lse and D, 128
-    bytes each: a TMA box lands 128-byte aligned), the barriers (one per
-    slot and five more), and 1024 bytes to align the base."""
-    tile = FLASH_BWD_FP32_TILE[head_pad]
-    a, b = FLASH_BWD_FP32_ROWS * head_pad * 4, tile * head_pad * 4
+    (`bwd_fp32_smem`), over its head_pad / cluster columns: the resident
+    pair (K and V, or Q and dO) of 64 rows in its TF32 big and small parts,
+    the streamed pair's small parts, the transposed big and small parts of
+    the streamed operands contracted over the streamed rows (Q and dO for
+    dK/dV, K for dQ), ``stages`` slots of the streamed pair's raw tiles
+    (and, for dK/dV, their rows' lse and D, 128 bytes each: a TMA box lands
+    128-byte aligned), in a cluster two slots of the other block's partials
+    of S and dP (a float per streamed row of each, per consumer thread),
+    the barriers (one per slot, five more, in a cluster one per partials
+    slot), and 1024 bytes to align the base."""
+    tile, cluster = FLASH_BWD_FP32_TILE[head_pad], FLASH_BWD_FP32_CLUSTER[head_pad]
+    cols = head_pad // cluster
+    a, b = FLASH_BWD_FP32_ROWS * cols * 4, tile * cols * 4
     stats = stages * 2 * 128 if dkv else 0
-    return (4 * a + (2 + (4 if dkv else 2)) * b + stages * 2 * b + stats
-            + 8 * (5 + stages) + 1024)
-
-
-def flash_backward_smem(head_pad: int, tile: int) -> tuple:
-    """Dynamic shared memory of the CUDA-core dK/dV and dQ kernels
-    (`*_smem_floats` of flash_backward.cu): fp32 tiles in rows of
-    head_pad + 1, P and dS in rows of tile + 1, lse and D."""
-    rows = tile * (head_pad + 1)
-    ptile = tile * (tile + 1)
-    return 4 * (4 * rows + 2 * ptile + 2 * tile), 4 * (4 * rows + ptile + 2 * tile)
+    partials = 2 * 128 * tile * 4 if cluster > 1 else 0
+    return (4 * a + (2 + (4 if dkv else 2)) * b + stages * 2 * b + stats + partials
+            + 8 * (5 + stages + (2 if cluster > 1 else 0)) + 1024)
 
 
 def _stages(smem_of) -> int:
@@ -475,13 +472,14 @@ def flash_backward_launch_plan(batch: int, heads: int, kv_heads: int, t: int,
     tables start with the longest walks, so a causal grid ends on short
     blocks.
 
-    fp32: head sizes up to 128 take the 3xTF32 kernels. A block keeps 64
-    resident rows of an operand pair in two TF32 parts (128 KB at 128), so
-    the streamed tiles are narrow: 16 rows at 128, 32 at 64, the ring as
-    deep as the rest of the block's shared memory allows. At head_pad 256
-    that pair alone would take 256 KB, so the plan routes 256 to the
-    CUDA-core kernels (tiles of 32 rows). The tables start with the longest
-    causal walks, as above."""
+    fp32: the 3xTF32 kernels. A block keeps 64 resident rows of an operand
+    pair in two TF32 parts (128 KB at 128), so the streamed tiles are
+    narrow: 16 rows at 128, 32 at 64, the ring as deep as the rest of the
+    block's shared memory allows. At head_pad 256 that pair alone would
+    take 256 KB, so a cluster of two blocks shares each resident tile, one
+    block on each half of the head's columns (the hd-128 geometry and 16
+    streamed rows each, plus 16 KB for the other block's partials of S and
+    dP). The tables start with the longest causal walks, as above."""
     if not 16 <= head_dim <= _MAX_HEAD_DIM or head_dim % 16:
         raise ValueError(f"the kernel takes head sizes of 16s up to {_MAX_HEAD_DIM}, "
                          f"not {head_dim}")
@@ -493,19 +491,10 @@ def flash_backward_launch_plan(batch: int, heads: int, kv_heads: int, t: int,
     q_tiles = -(-t // FLASH_BWD_DQ_ROWS)
     dkv_stages = _stages(lambda n: flash_bwd_dkv_smem(head_pad, dkv_keys, n))
     dq_stages = _stages(lambda n: flash_bwd_dq_smem(head_pad, dq_key_tile, n))
-    if head_pad in FLASH_BWD_FP32_TILE:
-        route, rows, tile = "wgmma", FLASH_BWD_FP32_ROWS, FLASH_BWD_FP32_TILE[head_pad]
-        fp32_dkv_stages = _stages(lambda n: flash_bwd_fp32_smem(head_pad, n, True))
-        fp32_dq_stages = _stages(lambda n: flash_bwd_fp32_smem(head_pad, n, False))
-        fp32_dkv_smem = flash_bwd_fp32_smem(head_pad, fp32_dkv_stages, True)
-        fp32_dq_smem = flash_bwd_fp32_smem(head_pad, fp32_dq_stages, False)
-        dkv_groups = batch * heads
-    else:
-        route, rows = "fma", FLASH_FMA_TILE
-        tile, fp32_dkv_stages, fp32_dq_stages = rows, 0, 0
-        fp32_dkv_smem, fp32_dq_smem = flash_backward_smem(head_pad, rows)
-        dkv_groups = batch * kv_heads
-    fp32_tiles = -(-t // rows)
+    cluster = FLASH_BWD_FP32_CLUSTER[head_pad]
+    fp32_dkv_stages = _stages(lambda n: flash_bwd_fp32_smem(head_pad, n, True))
+    fp32_dq_stages = _stages(lambda n: flash_bwd_fp32_smem(head_pad, n, False))
+    fp32_tiles = -(-t // FLASH_BWD_FP32_ROWS)
     return FlashBackwardPlan(
         head_pad=head_pad, dkv_keys=dkv_keys, gqa_split=heads > kv_heads, dkv_stages=dkv_stages,
         dkv_smem=flash_bwd_dkv_smem(head_pad, dkv_keys, dkv_stages),
@@ -513,9 +502,12 @@ def flash_backward_launch_plan(batch: int, heads: int, kv_heads: int, t: int,
         dq_key_tile=dq_key_tile, dq_stages=dq_stages,
         dq_smem=flash_bwd_dq_smem(head_pad, dq_key_tile, dq_stages),
         dq_blocks=batch * heads * q_tiles, q_order=tuple(range(q_tiles - 1, -1, -1)),
-        fp32_route=route, fp32_rows=rows, fp32_tile=tile, fp32_dkv_stages=fp32_dkv_stages,
-        fp32_dq_stages=fp32_dq_stages, fp32_dkv_smem=fp32_dkv_smem, fp32_dq_smem=fp32_dq_smem,
-        fp32_dkv_blocks=dkv_groups * fp32_tiles, fp32_dq_blocks=batch * heads * fp32_tiles,
+        fp32_route="wgmma" if cluster == 1 else "wgmma_cluster", fp32_cluster=cluster,
+        fp32_rows=FLASH_BWD_FP32_ROWS, fp32_tile=FLASH_BWD_FP32_TILE[head_pad],
+        fp32_dkv_stages=fp32_dkv_stages, fp32_dq_stages=fp32_dq_stages,
+        fp32_dkv_smem=flash_bwd_fp32_smem(head_pad, fp32_dkv_stages, True),
+        fp32_dq_smem=flash_bwd_fp32_smem(head_pad, fp32_dq_stages, False),
+        fp32_dkv_blocks=batch * heads * fp32_tiles, fp32_dq_blocks=batch * heads * fp32_tiles,
         fp32_kv_order=tuple(range(fp32_tiles)),
         fp32_q_order=tuple(range(fp32_tiles - 1, -1, -1)))
 
@@ -574,38 +566,15 @@ def _backward_operands(q, k, v, o, lse, do, sm_scale) -> tuple:
             lse.to(torch.float32).contiguous(), delta, sm_scale)
 
 
-def _fma_launch(ops: tuple, plan: FlashBackwardPlan, causal: bool, dq, dk, dv) -> None:
-    """One launch of the fp32 route at head_pad 256 (hqq_flash_backward of
-    flash_backward.cu, CUDA cores): the dQ kernel (dq given) or the dK/dV
-    kernel (dk and dv given)."""
-    q, k, v, do, lse, delta, sm_scale = ops
-    dev = q.device
-    b, nh, t, hd = q.shape
-    lib = _build.library("flash_attention_backward_hd256")
-    with torch.cuda.device(dev):
-        code = lib.hqq_flash_backward(
-            _ptr(q, 4), _ptr(k, 4), _ptr(v, 4), _ptr(do, 4), _ptr(lse, 4), _ptr(delta, 4),
-            None if dq is None else _ptr(dq, 4), None if dk is None else _ptr(dk, 4),
-            None if dv is None else _ptr(dv, 4), b, nh, k.shape[1], t, hd, float(sm_scale),
-            int(bool(causal)), _DTYPE_CODE[q.dtype], plan.head_pad, plan.fp32_dkv_smem,
-            plan.fp32_dq_smem, _stream(dev))
-    _build.check("flash_attention_backward_hd256", code)
-
-
 def _launch_dkv_fp32(ops: tuple, causal: bool) -> tuple:
     """(dk, dv) of fp32 operands from one launch of the plan's fp32 dK/dV
-    kernel; with GQA, the wgmma kernel's partials of each query head summed
-    over the group (plain torch)."""
+    kernel; with GQA, the kernel's partials of each query head summed over
+    the group (plain torch)."""
     q, k, v, do, lse, delta, sm_scale = ops
     dev = q.device
     b, nh, t, hd = q.shape
     n_kv = k.shape[1]
     plan = flash_backward_launch_plan(b, nh, n_kv, t, hd)
-    if plan.fp32_route == "fma":
-        dk, dv = torch.empty_like(k), torch.empty_like(v)
-        _fma_launch(ops, plan, causal, None, dk, dv)
-        flash_attention_backward_dkv_fp32.launches += 1
-        return dk, dv
     shape = (b, nh, t, hd) if plan.gqa_split else tuple(k.shape)
     dk, dv = (torch.empty(shape, dtype=torch.float32, device=dev) for _ in range(2))
     if t % 4:  # the kernel reads each head's lse and D in 16-byte-aligned boxes
@@ -634,18 +603,14 @@ def _launch_dq_fp32(ops: tuple, causal: bool) -> torch.Tensor:
     b, nh, t, hd = q.shape
     plan = flash_backward_launch_plan(b, nh, k.shape[1], t, hd)
     dq = torch.empty_like(q)
-    if plan.fp32_route == "fma":
-        _fma_launch(ops, plan, causal, dq, None, None)
-    else:
-        lib = _build.library("flash_attention_backward_dq_fp32")
-        with torch.cuda.device(dev):
-            code = lib.hqq_flash_bwd_fp32_dq(
-                _ptr(q, 16), _ptr(k, 16), _ptr(v, 16), _ptr(do, 16), _ptr(lse, 4),
-                _ptr(delta, 4), _ptr(dq, 8), _ptr(_q_order_on(plan.fp32_q_order, dev), 4), b,
-                nh, k.shape[1], t, hd, float(sm_scale), int(bool(causal)), plan.head_pad,
-                plan.fp32_tile, plan.fp32_dq_stages, plan.fp32_dq_smem, plan.fp32_dq_blocks,
-                _stream(dev))
-        _build.check("flash_attention_backward_dq_fp32", code)
+    lib = _build.library("flash_attention_backward_dq_fp32")
+    with torch.cuda.device(dev):
+        code = lib.hqq_flash_bwd_fp32_dq(
+            _ptr(q, 16), _ptr(k, 16), _ptr(v, 16), _ptr(do, 16), _ptr(lse, 4), _ptr(delta, 4),
+            _ptr(dq, 8), _ptr(_q_order_on(plan.fp32_q_order, dev), 4), b, nh, k.shape[1], t, hd,
+            float(sm_scale), int(bool(causal)), plan.head_pad, plan.fp32_tile,
+            plan.fp32_dq_stages, plan.fp32_dq_smem, plan.fp32_dq_blocks, _stream(dev))
+    _build.check("flash_attention_backward_dq_fp32", code)
     flash_attention_backward_dq_fp32.launches += 1
     return dq
 
@@ -734,8 +699,8 @@ def flash_attention_backward_dkv_fp32(q, k, v, o, lse, do, causal: bool = True,
                                       sm_scale: Optional[float] = None):
     """(dk, dv) of fp32 inputs from the fp32 dK/dV kernel
     (csrc/flash_backward_fp32_sm90.cu: every product from three TF32
-    tensor-core products; at head_pad 256 the CUDA-core kernel of
-    csrc/flash_backward.cu, by the launch plan). Its plain version is
+    tensor-core products; at head_pad 256 a cluster of two blocks a tile,
+    by the launch plan). Its plain version is
     `flash_attention_backward_plain`."""
     if _on_cpu(q):
         return flash_attention_backward_plain(q, k, v, o, lse, do, causal, sm_scale)[1:]

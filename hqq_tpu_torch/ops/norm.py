@@ -51,14 +51,20 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # threads a block holds at least where a row takes fewer (several rows a block)
 _BLOCK_THREADS = 256
 _MAX_ROW_THREADS = 1024
+# LayerNorm (csrc/rms_norm.cu `kLnRegFloats`, `kLnMaxBlock`): the values of x
+# a thread holds in registers, the most threads of a row, the threads a
+# block holds at least
+_LN_REG_FLOATS = 40
+_LN_MAX_ROW_THREADS = 512
+_LN_BLOCK_THREADS = 128
 
 
 @dataclasses.dataclass(frozen=True)
 class NormPlan:
-    """How `rms_norm` sums a row of ``d`` elements: ``threads`` threads a
-    row, each summing ``steps`` vectors of ``vec`` elements (the vectors
-    t, t + threads, ...; the last step may be short), ``rows_per_block``
-    rows a block of ``rows_per_block * threads`` threads."""
+    """How a norm sums a row of ``d`` elements: ``threads`` threads a row,
+    each summing ``steps`` vectors of ``vec`` elements (the vectors t, t +
+    threads, ...; the last step may be short), ``rows_per_block`` rows a
+    block of ``rows_per_block * threads`` threads."""
 
     vec: int
     threads: int
@@ -71,13 +77,19 @@ class NormPlan:
 
 
 @functools.lru_cache(maxsize=256)
-def norm_launch_plan(d: int, dtype: torch.dtype) -> NormPlan:
+def norm_launch_plan(d: int, dtype: torch.dtype, layer: bool = False) -> NormPlan:
     """The summation order and launch of a norm over rows of ``d`` elements
-    of ``dtype``, by these two alone. A thread loads 16 bytes at a time
-    (``vec`` = 16 / element size) where d is a multiple of that, else one
-    element. A row takes the largest power of two of threads that gives
-    each about two vectors, at least 32 (a warp) and at most 1024; rows of
-    fewer than 256 threads share a block."""
+    of ``dtype``, by these two and the norm alone. A thread loads 16 bytes
+    at a time (``vec`` = 16 / element size) where d is a multiple of that,
+    else one element. RMSNorm: a row takes the largest power of two of threads that
+    gives each about two vectors, at least 32 (a warp) and at most 1024;
+    rows of fewer than 256 threads share a block. LayerNorm (``layer``):
+    its kernel holds a row in registers, at most 40 values a thread, so a
+    row takes the fewest threads (a power of two, at least a warp, at most
+    512) whose vectors fit that, and rows of fewer than 128 threads share a
+    block: one warp a row up to 1280 values of bf16 or fp32, 4 rows a
+    block. Rows wider than 512 threads hold (20480 values) have a plan, the
+    twin's order, but no kernel."""
     if dtype not in _DTYPE_CODE:
         raise ValueError(f"the norms take fp32, bf16 or fp16 rows, not {dtype}")
     if d < 1:
@@ -85,6 +97,12 @@ def norm_launch_plan(d: int, dtype: torch.dtype) -> NormPlan:
     v16 = 16 // torch.empty((), dtype=dtype).element_size()
     vec = v16 if d % v16 == 0 else 1
     nvec = d // vec
+    if layer:
+        threads = 32
+        while threads < _LN_MAX_ROW_THREADS and -(-nvec // threads) * vec > _LN_REG_FLOATS:
+            threads *= 2
+        return NormPlan(vec=vec, threads=threads, steps=-(-nvec // threads),
+                        rows_per_block=max(1, _LN_BLOCK_THREADS // threads))
     threads = 1 << max(0, (max(1, nvec // 2)).bit_length() - 1)
     threads = min(_MAX_ROW_THREADS, max(32, threads))
     return NormPlan(vec=vec, threads=threads, steps=-(-nvec // threads),
@@ -215,7 +233,7 @@ def layer_norm_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]
     [d] or [H, d] over x [..., H, d]. The route for CPU tensors, and the
     kernel's reference on the card."""
     d = x.shape[-1]
-    plan = norm_launch_plan(d, x.dtype)
+    plan = norm_launch_plan(d, x.dtype, layer=True)
     xf = x.to(torch.float32)
     c = xf - _mean(_plan_sum(xf, plan), d)
     rinv = torch.reciprocal(torch.sqrt(_mean(_plan_sum(c * c, plan), d) + eps))
@@ -243,7 +261,10 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     if b is not None and (b.shape != w.shape or b.dtype != w.dtype or b.device != w.device):
         raise ValueError(f"b must match w ({tuple(w.shape)}, {w.dtype}), got {tuple(b.shape)}, "
                          f"{b.dtype}")
-    plan = norm_launch_plan(d, x.dtype)
+    plan = norm_launch_plan(d, x.dtype, layer=True)
+    if plan.steps * plan.vec > _LN_REG_FLOATS:
+        raise ValueError(f"layer_norm's kernel holds rows of at most "
+                         f"{_LN_REG_FLOATS * _LN_MAX_ROW_THREADS} values, not {d}")
     x2, out = _rows_of(x, "layer_norm")
     w = w.contiguous()
     b = None if b is None else b.contiguous()

@@ -29,12 +29,14 @@ __all__ = ["causal_lm_loss", "make_lora_train_step"]
 
 
 def causal_lm_loss(params: Any, cfg: llama.LlamaConfig, tokens: torch.Tensor,
-                   loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   loss_mask: Optional[torch.Tensor] = None,
+                   forward: Optional[Callable] = None) -> torch.Tensor:
     """Next-token cross-entropy over tokens [B, T] (no cache, causal): the
     logits of tokens[:, :-1] against tokens[:, 1:], log-softmax in fp32,
     the mean over the targets (or over those that ``loss_mask[:, 1:]``
-    keeps)."""
-    logits, _ = llama.forward(params, cfg, tokens[:, :-1])
+    keeps). ``forward`` is the family's forward (`models.gemma.forward`,
+    ...; default `llama.forward`)."""
+    logits, _ = (forward or llama.forward)(params, cfg, tokens[:, :-1])
     targets = tokens[:, 1:].long()
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]

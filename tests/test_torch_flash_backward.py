@@ -4,9 +4,9 @@ library's references, on the CPU.
 
 `flash_attention_backward_plain` is the plain twin of the dK/dV and dQ
 kernels (csrc/flash_backward_sm90.cu for bf16 and fp16,
-csrc/flash_backward_fp32_sm90.cu for fp32, csrc/flash_backward.cu for fp32 at
-head size 256), which the card tests hold to it. Here it is held, in fp32 (where
-its roundings of P and dS to the inputs' type are no-ops), to:
+csrc/flash_backward_fp32_sm90.cu for fp32), which the card tests hold to
+it. Here it is held, in fp32 (where its roundings of P and dS to the inputs'
+type are no-ops), to:
   * `jax.vjp` of `hqq_tpu.ops.attention.prefill_attention` (its naive path on
     the CPU) with K and V repeated over each kv head's query heads, as
     `hqq_tpu`'s model does; the port shares them by index;
@@ -158,11 +158,10 @@ def test_backward_plan_fits(hd):
     blocks of 128 keys (64 at 256, where the consumers split the head
     columns), dQ key tiles of 64 (32 at 256); each ring as deep as a block's
     shared memory allows, at most 4 slots and at least 2, its size the
-    source's formula. The fp32 route: head sizes up to 128 on the 3xTF32
-    kernels (64 resident rows, streamed tiles of 32 rows at head_pad 64 and
-    16 at 128, rings of 2-4 slots), 256 on the CUDA-core kernels (tiles of
-    32 rows, their shared memory as before). Everything fits a block of the
-    card."""
+    source's formula. The fp32 route: the 3xTF32 kernels (64 resident rows,
+    streamed tiles of 32 rows at head_pad 64 and 16 at 128, rings of 2-4
+    slots; at 256 a cluster of two blocks a resident tile, 128 head columns
+    and 16 streamed rows each). Everything fits a block of the card."""
     plan = at.flash_backward_launch_plan(2, 8, 2, 300, hd)
     hp = plan.head_pad
     assert hp == next(p for p in (64, 128, 256) if p >= hd)
@@ -177,23 +176,17 @@ def test_backward_plan_fits(hd):
         assert smem_of(hp, rows, stages) <= H100_SMEM_PER_BLOCK
         assert stages == at.FLASH_BWD_MAX_STAGES or \
             smem_of(hp, rows, stages + 1) > H100_SMEM_PER_BLOCK
-    assert plan.fp32_route == ("fma" if hp == 256 else "wgmma")
-    assert (plan.fp32_rows, plan.fp32_tile) == {64: (64, 32), 128: (64, 16), 256: (32, 32)}[hp]
-    if hp == 256:
-        ld = hp + 1
-        rows, ptile = 32 * ld, 32 * 33
-        assert plan.fp32_dkv_smem == 4 * (4 * rows + 2 * ptile + 2 * 32)
-        assert plan.fp32_dq_smem == 4 * (4 * rows + ptile + 2 * 32)
-        dkv_groups = 2 * 2  # a block per (batch, kv head, key tile)
-    else:
-        for stages, smem, dkv in ((plan.fp32_dkv_stages, plan.fp32_dkv_smem, True),
-                                  (plan.fp32_dq_stages, plan.fp32_dq_smem, False)):
-            assert 2 <= stages <= at.FLASH_BWD_MAX_STAGES
-            assert smem == at.flash_bwd_fp32_smem(hp, stages, dkv)
-        dkv_groups = 2 * 8  # a block per (batch, query head, key tile)
+    assert plan.fp32_route == ("wgmma_cluster" if hp == 256 else "wgmma")
+    assert (plan.fp32_cluster, plan.fp32_rows, plan.fp32_tile) == \
+        {64: (1, 64, 32), 128: (1, 64, 16), 256: (2, 64, 16)}[hp]
+    for stages, smem, dkv in ((plan.fp32_dkv_stages, plan.fp32_dkv_smem, True),
+                              (plan.fp32_dq_stages, plan.fp32_dq_smem, False)):
+        assert 2 <= stages <= at.FLASH_BWD_MAX_STAGES
+        assert smem == at.flash_bwd_fp32_smem(hp, stages, dkv)
     assert max(plan.fp32_dkv_smem, plan.fp32_dq_smem) <= H100_SMEM_PER_BLOCK
+    # a resident tile (a block, or a cluster at 256) per (batch, query head, tile)
     tiles = -(-300 // plan.fp32_rows)
-    assert (plan.fp32_dkv_blocks, plan.fp32_dq_blocks) == (dkv_groups * tiles, 2 * 8 * tiles)
+    assert (plan.fp32_dkv_blocks, plan.fp32_dq_blocks) == (2 * 8 * tiles, 2 * 8 * tiles)
 
 
 @pytest.mark.parametrize("kv_heads,t,split,blocks_dkv,blocks_dq", [

@@ -22,13 +22,20 @@ summed over the group, as the wrapper sums the kernel's partials), and held:
   * the control, one TF32 product for each product (what the plain backward
     gives with TF32 allowed), must miss that bar.
 
+At head_pad 256 a cluster of two blocks shares each resident tile, a block
+on each half of the head's columns: S and dP are each block's partial over
+its 128 columns (three TF32 products), swapped between the two and added
+lo + hi in fp32, and that order is emulated too, held to the same two
+references at head sizes 256 and 160 (the second half mostly the zero
+columns TMA reads), with the control that drops one half.
+
 Then the register fragments: P and dS leave the accumulator of S^T (or S)
 as the A operand of the second products, so the transposed operands store
 each 8 streamed rows as 0 2 4 6 1 3 5 7; the map is checked lane by lane.
 And `flash_backward_launch_plan`'s fp32 fields: shared memory fits a block
-of an H100 and is the source's formula, head size 256 goes to the
-CUDA-core kernels by shape, every (batch, head, tile) is covered once, and
-the longest causal walks come first.
+of an H100 and is the source's formula, head size 256 takes the cluster of
+two by shape, every (batch, head, tile) is covered once, and the longest
+causal walks come first.
 """
 
 import jax
@@ -80,10 +87,21 @@ def _probs(x1, x2, lse2, d, keys, queries, t, causal, scale, key_rows: bool):
     return p, (p * (x2 - d) * np.float32(scale)).astype(np.float32)
 
 
-def kernel_head(q, k, v, do, lse, d, causal: bool, tile: int, product=three_tf32):
+def split_head(a: np.ndarray, b: np.ndarray, product=three_tf32, halves=(0, 1)) -> np.ndarray:
+    """a [M, hd] @ b [N, hd]^T over the head as a cluster of two blocks forms
+    it at head_pad 256: each block's three TF32 products over its 128
+    columns (past hd, the zeros TMA reads), then lo + hi in fp32. The
+    control keeps only the ``halves`` given."""
+    parts = [product(a[:, 128 * h:128 * h + 128], b[:, 128 * h:128 * h + 128]) for h in halves]
+    return parts[0] if len(parts) == 1 else (parts[0] + parts[1]).astype(np.float32)
+
+
+def kernel_head(q, k, v, do, lse, d, causal: bool, tile: int, product=three_tf32, first=None):
     """One query head [T, hd] and its kv head as the two kernels walk them:
     (dq, and dk and dv of this query head). Rows past T are the zeros TMA
-    reads there."""
+    reads there. ``first`` forms S and dP (S^T and dP^T), by default as
+    ``product``."""
+    first = first or product
     t, hd = q.shape
     rows = at.FLASH_BWD_FP32_ROWS
     scale = hd**-0.5
@@ -97,7 +115,7 @@ def kernel_head(q, k, v, do, lse, d, causal: bool, tile: int, product=three_tf32
         acc_k, acc_v = (np.zeros((rows, hd), np.float32) for _ in range(2))
         for c0 in range(r0 // tile * tile if causal else 0, t, tile):
             qs = np.arange(c0, c0 + tile)
-            p, ds = _probs(product(k[keys], q[qs]), product(v[keys], do[qs]), lse2[qs], d[qs],
+            p, ds = _probs(first(k[keys], q[qs]), first(v[keys], do[qs]), lse2[qs], d[qs],
                            keys, qs, t, causal, scale, key_rows=True)
             acc_v = acc_v + product(p, do[qs].T)
             acc_k = acc_k + product(ds, q[qs].T)
@@ -107,14 +125,14 @@ def kernel_head(q, k, v, do, lse, d, causal: bool, tile: int, product=three_tf32
         acc = np.zeros((rows, hd), np.float32)
         for c0 in range(0, min(t, r0 + rows) if causal else t, tile):
             keys = np.arange(c0, c0 + tile)
-            _, ds = _probs(product(q[qs], k[keys]), product(do[qs], v[keys]), lse2[qs], d[qs],
+            _, ds = _probs(first(q[qs], k[keys]), first(do[qs], v[keys]), lse2[qs], d[qs],
                            keys, qs, t, causal, scale, key_rows=False)
             acc = acc + product(ds, k[keys].T)
         dq[r0:r0 + rows] = acc[:t - r0]
     return dq, dk, dv
 
 
-def kernel_backward(q, k, v, do, o, lse, causal: bool, product=three_tf32):
+def kernel_backward(q, k, v, do, o, lse, causal: bool, product=three_tf32, first=None):
     """(dq, dk, dv) [B, heads, T, hd] as the kernels and the wrapper give
     them: D = rowsum(dO * O) in fp32, each query head's dK and dV summed
     over its group."""
@@ -128,7 +146,7 @@ def kernel_backward(q, k, v, do, o, lse, causal: bool, product=three_tf32):
         for h in range(nh):
             dq[bi, h], dk_part[bi, h], dv_part[bi, h] = kernel_head(
                 q[bi, h], k[bi, h // rep], v[bi, h // rep], do[bi, h], lse[bi, h], d[bi, h],
-                causal, tile, product)
+                causal, tile, product, first)
     group = (b, k.shape[1], rep, t, hd)
     return dq, dk_part.reshape(group).sum(axis=2), dv_part.reshape(group).sum(axis=2)
 
@@ -147,11 +165,11 @@ def _rel(got, ref) -> float:
     return float(np.abs(got - ref).max() / np.abs(ref).max())
 
 
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("b,nh,n_kv,t,hd", [(1, 2, 2, 200, 128), (1, 4, 2, 130, 64),
-                                            (1, 2, 1, 77, 128), (1, 2, 2, 64, 64)])
-def test_three_tf32_backward_meets_the_bar(causal, b, nh, n_kv, t, hd):
-    q, k, v, do = _inputs(b, nh, n_kv, t, hd, seed=t + hd)
+def _references(q, k, v, do, causal):
+    """(o, lse, the plain backward, jax.vjp of hqq_tpu's prefill_attention)
+    of fp32 numpy inputs, K and V repeated over each kv head's group for
+    hqq_tpu."""
+    nh, n_kv = q.shape[1], k.shape[1]
     qt, kt, vt, dot = (torch.from_numpy(x) for x in (q, k, v, do))
     o = at.flash_attention_plain(qt, kt, vt, causal)
     lse = at._plain_lse(qt, kt, causal, None)
@@ -162,14 +180,44 @@ def test_three_tf32_backward_meets_the_bar(causal, b, nh, n_kv, t, hd):
         return j_prefill(q, jnp.repeat(k, rep, axis=1), jnp.repeat(v, rep, axis=1), causal=causal)
 
     _, vjp = jax.vjp(fwd, *(jnp.asarray(x) for x in (q, k, v)))
-    ref = [np.asarray(g) for g in vjp(jnp.asarray(do))]
-    got = kernel_backward(q, k, v, do, o.numpy(), lse.numpy(), causal)
+    return o.numpy(), lse.numpy(), plain, [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,nh,n_kv,t,hd", [(1, 2, 2, 200, 128), (1, 4, 2, 130, 64),
+                                            (1, 2, 1, 77, 128), (1, 2, 2, 64, 64)])
+def test_three_tf32_backward_meets_the_bar(causal, b, nh, n_kv, t, hd):
+    q, k, v, do = _inputs(b, nh, n_kv, t, hd, seed=t + hd)
+    o, lse, plain, ref = _references(q, k, v, do, causal)
+    got = kernel_backward(q, k, v, do, o, lse, causal)
     for g, r, p in zip(got, ref, plain):
         assert np.isfinite(g).all()
         assert _rel(g, r) <= TOL_FP32
         assert _rel(g, p) <= TOL_FP32
-    control = kernel_backward(q, k, v, do, o.numpy(), lse.numpy(), causal, one_tf32)
+    control = kernel_backward(q, k, v, do, o, lse, causal, one_tf32)
     assert max(_rel(c, r) for c, r in zip(control, ref)) > TOL_FP32
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,nh,n_kv,t,hd", [(1, 2, 2, 80, 256), (1, 4, 2, 70, 160)])
+def test_split_head_backward_meets_the_bar(causal, b, nh, n_kv, t, hd):
+    """Head size 256 on a cluster of two: S and dP from the two blocks'
+    partials over 128 columns each, added lo + hi, meet the fp32 bar against
+    jax.vjp of hqq_tpu's prefill_attention and the plain backward; with one
+    half dropped (either) they miss it."""
+    plan = at.flash_backward_launch_plan(b, nh, n_kv, t, hd)
+    assert (plan.head_pad, plan.fp32_route, plan.fp32_cluster) == (256, "wgmma_cluster", 2)
+    q, k, v, do = _inputs(b, nh, n_kv, t, hd, seed=t + hd)
+    o, lse, plain, ref = _references(q, k, v, do, causal)
+    got = kernel_backward(q, k, v, do, o, lse, causal, first=split_head)
+    for g, r, p in zip(got, ref, plain):
+        assert np.isfinite(g).all()
+        assert _rel(g, r) <= TOL_FP32
+        assert _rel(g, p) <= TOL_FP32
+    for half in (0, 1):
+        control = kernel_backward(q, k, v, do, o, lse, causal,
+                                  first=lambda a, b_, h=half: split_head(a, b_, halves=(h,)))
+        assert max(_rel(c, r) for c, r in zip(control, ref)) > TOL_FP32
 
 
 # the wgmma fragment maps of a warpgroup (warp w, lane l): an fp32
@@ -225,33 +273,33 @@ def test_split_holds_two_tf32_steps():
 
 
 def _fp32_smem(head_pad: int, stages: int, dkv: bool) -> int:
-    """`bwd_fp32_smem` of the source, written out: the resident pair of 64
-    rows in two parts, the streamed pair's small parts, 4 (dK/dV) or 2 (dQ)
-    transposed parts, per slot the raw pair (and 128 bytes each of lse and
-    D for dK/dV), a barrier per slot and five more, 1024 bytes of
-    alignment."""
-    tile = {64: 32, 128: 16}[head_pad]
-    a, b = 64 * head_pad * 4, tile * head_pad * 4
+    """`bwd_fp32_smem` of the source, written out over a block's columns
+    (the head, or half of it at 256): the resident pair of 64 rows in two
+    parts, the streamed pair's small parts, 4 (dK/dV) or 2 (dQ) transposed
+    parts, per slot the raw pair (and 128 bytes each of lse and D for
+    dK/dV), at 256 two slots of the other block's partials (128 threads x
+    16 streamed rows of S and dP) and their two barriers, a barrier per
+    slot and five more, 1024 bytes of alignment."""
+    cols = min(head_pad, 128)
+    tile = {64: 32, 128: 16}[cols]
+    a, b = 64 * cols * 4, tile * cols * 4
+    cluster = 8 * 2 + 2 * 128 * tile * 4 if head_pad == 256 else 0
     return (4 * a + (6 if dkv else 4) * b + stages * (2 * b + (256 if dkv else 0))
-            + 8 * (5 + stages) + 1024)
+            + 8 * (5 + stages) + cluster + 1024)
 
 
 @pytest.mark.parametrize("hd", list(range(16, 257, 16)))
 @pytest.mark.parametrize("heads,kv_heads,t", [(8, 2, 301), (4, 4, 1023)])
 def test_fp32_plan_fits(hd, heads, kv_heads, t):
-    """Head sizes up to 128 take the 3xTF32 kernels: streamed tiles of 32
-    rows at head_pad 64, 16 at 128; each ring as deep as the block's shared
-    memory allows, 2 to 4 slots, the source's formula. Head size 256 goes
-    to the CUDA-core kernels by shape, before any launch."""
+    """Every head size takes the 3xTF32 kernels: streamed tiles of 32 rows
+    at head_pad 64, 16 at 128 and at 256, where a cluster of two blocks
+    splits the head's columns, 128 each; each ring as deep as the block's
+    shared memory allows, 2 to 4 slots, the source's formula."""
     plan = at.flash_backward_launch_plan(2, heads, kv_heads, t, hd)
     hp = plan.head_pad
-    if hp == 256:
-        assert (plan.fp32_route, plan.fp32_rows, plan.fp32_tile) == ("fma", 32, 32)
-        assert (plan.fp32_dkv_smem, plan.fp32_dq_smem) == at.flash_backward_smem(256, 32)
-        assert max(plan.fp32_dkv_smem, plan.fp32_dq_smem) <= H100_SMEM_PER_BLOCK
-        return
-    assert (plan.fp32_route, plan.fp32_rows, plan.fp32_tile) == \
-        ("wgmma", 64, 32 if hp == 64 else 16)
+    assert (plan.fp32_route, plan.fp32_cluster, plan.fp32_rows, plan.fp32_tile) == {
+        64: ("wgmma", 1, 64, 32), 128: ("wgmma", 1, 64, 16),
+        256: ("wgmma_cluster", 2, 64, 16)}[hp]
     for stages, smem, dkv in ((plan.fp32_dkv_stages, plan.fp32_dkv_smem, True),
                               (plan.fp32_dq_stages, plan.fp32_dq_smem, False)):
         assert smem == _fp32_smem(hp, stages, dkv) == at.flash_bwd_fp32_smem(hp, stages, dkv)
@@ -265,14 +313,13 @@ def test_fp32_plan_fits(hd, heads, kv_heads, t):
                                             (2, 8, 2, 301, 64), (3, 2, 2, 1, 16),
                                             (1, 4, 1, 129, 256), (1, 8, 8, 4097, 128)])
 def test_fp32_plan_covers_every_tile_once(b, nh, n_kv, t, hd):
-    """dK/dV block i runs key tile fp32_kv_order[i // g] of group i % g
-    (g = b * nh query heads on the wgmma route, b * n_kv kv heads on the
-    CUDA-core route), dQ block i query tile fp32_q_order[i // (b * nh)]:
-    every (group, tile of fp32_rows rows) once."""
+    """dK/dV resident tile i (a block, or at head size 256 a cluster of
+    two) runs key tile fp32_kv_order[i // g] of query head i % g (g = b *
+    nh), dQ tile i query tile fp32_q_order[i // g]: every (head, tile of
+    fp32_rows rows) once."""
     plan = at.flash_backward_launch_plan(b, nh, n_kv, t, hd)
     rows = plan.fp32_rows
-    groups = {"wgmma": b * nh, "fma": b * n_kv}[plan.fp32_route]
-    for order, blocks, g in ((plan.fp32_kv_order, plan.fp32_dkv_blocks, groups),
+    for order, blocks, g in ((plan.fp32_kv_order, plan.fp32_dkv_blocks, b * nh),
                              (plan.fp32_q_order, plan.fp32_dq_blocks, b * nh)):
         tiles = len(order)
         assert (tiles - 1) * rows < t <= tiles * rows and blocks == g * tiles
@@ -280,7 +327,7 @@ def test_fp32_plan_covers_every_tile_once(b, nh, n_kv, t, hd):
         assert got == sorted((x, h) for x in range(tiles) for h in range(g))
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("t", [1023, 4096, 301])
 def test_fp32_plan_longest_walks_first(t, hd):
     """Under causality a dK/dV block walks the streamed query tiles at or

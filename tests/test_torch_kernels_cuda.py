@@ -824,6 +824,9 @@ def _bwd_case(device, b, nh, n_kv, t, hd, dtype, causal, seed=0):
     # and 64 keys of dQ) and head sizes padded with zero columns
     (1, 2, 2, 63, 128), (1, 4, 1, 127, 64), (1, 4, 2, 129, 80), (1, 2, 2, 129, 112),
     (2, 2, 2, 65, 128),
+    # head_pad 256 (fp32: a cluster of two blocks, 128 columns each; at 160
+    # the second block's columns mostly past the head)
+    (2, 2, 2, 257, 256), (1, 4, 2, 65, 160),
 ])
 def test_flash_attention_backward(cuda, causal, dtype, b, nh, n_kv, t, hd):
     """dQ, dK and dV of the two kernels against the plain backward from the
@@ -889,6 +892,28 @@ def test_flash_attention_backward_fp32_long(cuda, causal):
     for _ in range(3):
         again = at.flash_attention_backward(q, k, v, o, lse, do, causal)
         assert all(torch.equal(a, b) for a, b in zip(again, first))
+
+
+def test_flash_attention_backward_fp32_cluster(cuda):
+    """Head size 256 in fp32 (a cluster of two blocks a resident tile, the
+    partials of S and dP swapped between them): within the fp32 bar at T =
+    2048 with GQA 16/8, which one TF32 product misses; repeated runs
+    bit-equal."""
+    q, k, v, o, lse, do = _bwd_case(cuda, 1, 16, 8, 2048, 256, torch.float32, True, seed=11)
+    got = at.flash_attention_backward(q, k, v, o, lse, do, True)
+    ref = at.flash_attention_backward_plain(q, k, v, o, lse, do, True)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        one = at.flash_attention_backward_plain(q, k, v, o, lse, do, True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    for g, r in zip(got, ref):
+        _close(g, r, _FLASH_BWD_TOL[torch.float32])
+    assert max((x - r).abs().max() / r.abs().max() for x, r in zip(one, ref)) \
+        > _FLASH_BWD_TOL[torch.float32]
+    for _ in range(3):
+        again = at.flash_attention_backward(q, k, v, o, lse, do, True)
+        assert all(torch.equal(a, b) for a, b in zip(again, got))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -18,11 +18,14 @@ on the CPU.
 * On the card (skips here): the kernel bit-equal to the twin, rows
   invariant, one launch a call.
 * LayerNorm likewise: `layer_norm_plain` bit-equal to a numpy walk of the
-  kernel's two sums (with and without a bias, per-head weights [H, d]);
-  rows invariant; within 2e-6 of max|y| of each of `hqq_tpu`'s three
-  LayerNorms in fp32 (`vit._layer_norm`, `phi.layer_norm`,
-  `cohere.cohere_norm`); its Function's backward against autograd; on the
-  card, the kernel bit-equal to the twin.
+  kernel's two sums (with and without a bias, per-head weights [H, d]) in
+  its own plan's order (`norm_launch_plan(..., layer=True)`: a row in
+  registers, the fewest threads that hold it); rows invariant; within 2e-6
+  of max|y| of each of `hqq_tpu`'s three LayerNorms in fp32
+  (`vit._layer_norm`, `phi.layer_norm`, `cohere.cohere_norm`), also at the
+  widths of the vision towers and the LayerNorm families; its Function's
+  backward against autograd; on the card, the kernel bit-equal to the
+  twin.
 """
 
 import numpy as np
@@ -251,12 +254,38 @@ def test_layer_norm_twin_is_the_kernel_walk(d, dtype, bias, heads):
     w = torch.stack([_weight(d, torch.float32, seed=h) + 1 for h in range(heads)])
     b = (torch.stack([_weight(d, torch.float32, seed=10 + h) for h in range(heads)])
          if bias else None)
-    plan = nm.norm_launch_plan(d, dtype)
+    plan = nm.norm_launch_plan(d, dtype, layer=True)
     want = _ln_walk(x.float().numpy(), w.numpy(), None if b is None else b.numpy(), 1e-5, plan)
     xs = x.reshape(3, heads, d)
     got = nm.layer_norm_plain(xs, w if heads > 1 else w[0],
                               None if b is None else (b if heads > 1 else b[0]), 1e-5)
     assert torch.equal(got.reshape(3 * heads, d), torch.from_numpy(want).to(dtype))
+
+
+# the LayerNorm plan (vec, threads, steps, rows_per_block) at the widths of
+# the vision towers (1024 CLIP and ViT-L, 1152 SigLIP, 1280 Qwen2-VL) and of
+# the families (2560 phi-2, 4096 bloom, 4544 Falcon-7B): a row in at most 40
+# values a thread, one warp a row up to 1280
+_LN_PLANS = {
+    (1024, torch.bfloat16): (8, 32, 4, 4), (1152, torch.bfloat16): (8, 32, 5, 4),
+    (1280, torch.bfloat16): (8, 32, 5, 4), (2560, torch.bfloat16): (8, 64, 5, 2),
+    (4096, torch.bfloat16): (8, 128, 4, 1), (4544, torch.bfloat16): (8, 128, 5, 1),
+    (1024, torch.float32): (4, 32, 8, 4), (1152, torch.float32): (4, 32, 9, 4),
+    (1280, torch.float32): (4, 32, 10, 4), (2560, torch.float32): (4, 64, 10, 2),
+    (4096, torch.float32): (4, 128, 8, 1), (4544, torch.float32): (4, 128, 9, 1),
+}
+
+
+@pytest.mark.parametrize("d,dtype", list(_LN_PLANS))
+def test_layer_norm_launch_plan(d, dtype):
+    p = nm.norm_launch_plan(d, dtype, layer=True)
+    assert (p.vec, p.threads, p.steps, p.rows_per_block) == _LN_PLANS[d, dtype]
+    nvec = d // p.vec
+    assert (p.steps - 1) * p.threads < nvec <= p.steps * p.threads
+    assert p.steps * p.vec <= nm._LN_REG_FLOATS
+    # the fewest threads that hold the row: half of them would not
+    assert p.threads == 32 or -(-nvec // (p.threads // 2)) * p.vec > nm._LN_REG_FLOATS
+    assert p.rows_per_block * p.threads == max(128, p.threads) <= nm._LN_MAX_ROW_THREADS
 
 
 @pytest.mark.parametrize("d,dtype", [(4544, torch.bfloat16), (1600, torch.bfloat16),
@@ -266,6 +295,17 @@ def test_layer_norm_rows_invariant(d, dtype):
     alone = torch.cat([nm.layer_norm(x[i:i + 1], w, b, 1e-5) for i in range(1024)])
     for c in (4, 32, 1024):
         got = torch.cat([nm.layer_norm(x[i:i + c], w, b, 1e-5) for i in range(0, 1024, c)])
+        assert torch.equal(got, alone), c
+
+
+@pytest.mark.parametrize("d", [1024, 1152, 1280, 2560, 4096, 4544])
+def test_layer_norm_rows_invariant_at_the_plan_widths(d):
+    """The widths of `_LN_PLANS` in bf16: 128 rows normed alone, in calls of
+    4 and 32 rows and all at once, bit-equal."""
+    x, w, b = _rows(128, d, seed=d) + 1, _weight(d), _weight(d, seed=2)
+    alone = torch.cat([nm.layer_norm(x[i:i + 1], w, b, 1e-5) for i in range(128)])
+    for c in (4, 32, 128):
+        got = torch.cat([nm.layer_norm(x[i:i + c], w, b, 1e-5) for i in range(0, 128, c)])
         assert torch.equal(got, alone), c
 
 
@@ -293,8 +333,10 @@ def jax_layer_norms():
 
 
 @pytest.mark.parametrize("which", ["vit", "phi", "cohere"])
-@pytest.mark.parametrize("dtype,d,bar", [(torch.float32, 4544, 2e-6), (torch.float32, 128, 2e-6),
-                                         (torch.bfloat16, 2560, 2.0**-7)])
+@pytest.mark.parametrize("dtype,d,bar", [
+    (torch.float32, 4544, 2e-6), (torch.float32, 128, 2e-6), (torch.bfloat16, 2560, 2.0**-7),
+    (torch.float32, 1024, 2e-6), (torch.float32, 1152, 2e-6), (torch.float32, 1280, 2e-6),
+    (torch.float32, 2560, 2e-6), (torch.float32, 4096, 2e-6), (torch.bfloat16, 1152, 2.0**-7)])
 def test_layer_norm_against_hqq_tpu(jax_layer_norms, which, dtype, d, bar):
     x, w, b = _rows(16, d, dtype, seed=3), _weight(d, dtype), _weight(d, dtype, seed=4)
     x = x + 1.5  # a mean far from 0: the two-pass form matters

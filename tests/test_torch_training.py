@@ -184,6 +184,31 @@ def test_loss_falls_over_ten_steps():
     assert trainable.paths[1].endswith("lora_b") and b.detach().abs().max() > 0
 
 
+def test_loss_takes_a_family_forward():
+    """causal_lm_loss with ``forward=gemma.forward`` (a Gemma tree at head
+    size 256, T = 256: the flash Function) is the mean next-token NLL of
+    `hqq_tpu`'s Gemma logits on the same weights; llama's forward on that
+    tree is not."""
+    from hqq_tpu.models import gemma as jg
+    from hqq_tpu_torch.models import gemma as tg
+
+    jcfg = jg.GemmaConfig.tiny()
+    jcfg = type(jcfg)(**{**jcfg.__dict__, "head_dim": 256})
+    jparams = jg.init_params(jcfg, jax.random.PRNGKey(3), dtype=jnp.float32)
+    batch = np.random.default_rng(4).integers(0, jcfg.vocab_size, (1, T + 1)).astype(np.int32)
+    logits, _ = jg.forward(jparams, jcfg, jnp.asarray(batch[:, :-1]))
+    logp = jax.nn.log_softmax(np.asarray(logits, np.float64), axis=-1)
+    want = -float(np.take_along_axis(np.asarray(logp), batch[:, 1:, None], -1).mean())
+    tcfg = tg.GemmaConfig(**jcfg.__dict__)
+    params = params_from_numpy(_numpy(jparams), "cpu")
+    with torch.no_grad():
+        got = tt.causal_lm_loss(params, tcfg, torch.from_numpy(batch), forward=tg.forward).item()
+        params["lm_head"] = params["embed_tokens"]  # llama's walk needs a head
+        other = tt.causal_lm_loss(params, tcfg, torch.from_numpy(batch)).item()
+    assert abs(got - want) / abs(want) < 1e-5
+    assert abs(other - want) / abs(want) > 1e-3
+
+
 def test_remat_gives_the_same_gradients(models):
     _, lparams, tcfg, batch = models
     grads = []
